@@ -13,6 +13,13 @@ measured on an H100).  It
    plain PyTorch version on the card: ``tree_traverse`` over a 100-tree,
    depth-7 forest (K=255 nodes), 64 bins and 256 columns at N in
    {1, 8, 64, 333, 512, 4096} must equal the plain version bit for bit;
+   ``hist`` (the histogram build) over 256 uint8 columns of 64 bins with
+   two stat channels [w, w*g] (integer weights 1-3, ~30% of rows
+   inactive) at N in {1, 1000, 65536, 1048576} and K in {1, 2, 32}, and
+   over 7 int32 columns of 4001 bins at K=8, must give the plain version's
+   count channel exactly, the w*g channel within 1e-5 of the plain
+   version's sum of |stats| per cell, and the same bits on a second
+   launch;
 3. drives the port's serving path at full width: writes a synthetic GBT
    model set (ModelConfig.json, ColumnConfig.json with 224 numeric + 32
    categorical final-selected columns, models/model0.gbt with 100 trees of
@@ -25,13 +32,37 @@ measured on an H100).  It
    0-1000 scale (f32 tree sums run in another order on the card).  Kernel
    launch counts are zeroed just before this phase and read just after it:
    every kernel of the path must have launched;
-4. times each kernel (CUDA events, launches queued behind a spin kernel so
-   the host cannot starve the card) at the serving top rung N=512 and at
-   N=65536, beside its plain version and its bound (the larger of the bytes
-   this data makes it move over 3.35 TB/s and its integer operations over
-   67 T/s), and times the device transform at N=512 with and without its
-   x blocks;
-5. prints one JSON line listing every ported kernel, then as its last line
+4. drives the port's training path at full width: writes the same column
+   plan's training set (the wire plane of 1,048,576 rows, y from a logit
+   on 10 columns drawn from ``--seed``, integer weights) with the port's
+   own savers and ``WireWriter``, and runs ``shifu_tpu_torch.cli.main
+   train`` on ``cuda`` (TreeNum 10, MaxDepth 7, Loss log, LearningRate
+   0.1, CheckpointInterval 5, validSetRate 0.2).  It checks the exit
+   code, the 10 depth-7 trees of ``models/model0.gbt``, falling train and
+   validation errors, an informative column on top of the feature
+   importance, and exactly 70 ``hist`` launches (7 per tree), counted from
+   zero around the run.  Then: one chunk of trees under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
+   chunk); 5 trees, then ``train -resume`` to 10, bit-identical to the
+   uninterrupted forest; the same 5-tree checkpoint without its per-row
+   score sidecar resumed to 10, its trees replayed through
+   ``tree_traverse`` (launches counted from zero around the run), with
+   the uninterrupted forest's splits and leaves within 1e-5 relative;
+   the train phase split into upload, grow and checkpoints from
+   ``tmp/profile.json``; and the plane's first 65,536 rows trained to 5
+   trees on ``cuda`` and on ``cpu``, with equal split features on levels
+   0-1, per-tree errors within 1e-4 relative and the two forests' AUCs
+   (scored by ``tree_traverse``) within 0.005;
+5. times each kernel (CUDA events, launches queued behind a spin kernel so
+   the host cannot starve the card) beside its plain version, one PyTorch
+   call that computes the same function where there is one, and its bound
+   (the larger of the bytes this data makes it move over 3.35 TB/s and its
+   integer operations over 67 T/s): ``tree_traverse`` at the serving top
+   rung N=512 and at N=65536, ``hist`` at N=1,048,576 and K=1 and 32; times
+   the device transform at N=512 with and without its x blocks; and
+   reports ms per tree of the full-width train, with a ``torch.profiler``
+   breakdown of one tree's device time;
+6. prints one JSON line listing every ported kernel, then as its last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -43,6 +74,8 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -61,6 +94,16 @@ N_COLS = N_NUM + N_CAT
 KERNEL_ROWS = (1, 8, 64, 333, 512, 4096)
 RAW_BATCHES = (1, 7, 64, 333, 512, 1500)
 TIMED_ROWS = (512, 65536)
+HIST_ROWS = (1, 1000, 65536, 1 << 20)
+HIST_NODES = (1, 2, 32)
+HIST_WIDE = (1 << 20, 7, 4001, 8)          # N, C, B (int32 bins), K
+HIST_TOL = 1e-5                            # x the plain version on |stats|
+TRAIN_ROWS, TRAIN_TREES, TRAIN_CKPT = 1 << 20, 10, 5
+CUT_ROWS, CUT_TREES = 65536, 5
+ERR_RTOL, AUC_TOL = 1e-4, 0.005            # card vs CPU
+REPLAY_RTOL = 1e-5                         # replayed vs uninterrupted leaves
+N_INFORMATIVE = 10
+TRAIN_PARTS = ("train/upload", "train/grow", "train/checkpoint")
 
 
 def fail(msg: str) -> None:
@@ -138,6 +181,50 @@ def check_kernels(torch, tq, rng) -> dict:
         err = max(err, (got - want).abs().max().item())
         log(f"tree_traverse == plain version bit for bit at N={n}")
     return {"tree_traverse": err}
+
+
+def hist_inputs(torch, rng, n, c, b, k, dtype=np.uint8):
+    """B1 inputs on the card: uniform bins, node ids in [0, K) with ~30%
+    of rows inactive (-1), stats [w, w*g] with integer w in 1..3 and
+    g ~ N(0, 1)."""
+    bins = rng.integers(0, b, size=(n, c), dtype=dtype)
+    node = rng.integers(0, k, size=n, dtype=np.int32)
+    node[rng.random(n) < 0.3] = -1
+    w = rng.integers(1, 4, size=n).astype(np.float32)
+    stats = np.stack([w, w * rng.standard_normal(n, np.float32)], axis=1)
+    return [torch.from_numpy(a).to("cuda") for a in (bins, node, stats)]
+
+
+def check_hist(torch, rng) -> dict:
+    """B1 against its plain version: counts equal, w*g within HIST_TOL of
+    the plain version run on |stats| per cell, a second launch bit-equal.
+    Returns the max |kernel - plain| seen."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops.tree import build_histograms
+    cases = [(n, N_COLS, N_BINS, k, np.uint8) for n in HIST_ROWS
+             for k in HIST_NODES] + [HIST_WIDE + (np.int32,)]
+    err = 0.0
+    for n, c, b, k, dtype in cases:
+        bins, node, stats = hist_inputs(torch, rng, n, c, b, k, dtype)
+        got = build_histograms(bins, node, stats, k, b)
+        again = build_histograms(bins, node, stats, k, b)
+        want = hist.build_histograms_ref(bins, node, stats, k, b)
+        scale = hist.build_histograms_ref(bins, node, stats.abs(), k, b)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        where = f"N={n} C={c} B={b} K={k} {np.dtype(dtype).name}"
+        if got.shape != (k, c, b, 2) or not torch.equal(got, again):
+            fail(f"hist: two launches differ at {where}")
+        if not torch.equal(got[..., 0], want[..., 0]):
+            fail(f"hist count channel != plain version at {where}")
+        if not bool((d <= HIST_TOL * scale).all()):
+            fail(f"hist w*g channel beyond {HIST_TOL} x |stats| at {where} "
+                 f"(max |d| {d.max().item()})")
+        err = max(err, d.max().item())
+        log(f"hist == plain version at {where}: counts equal, max |d| "
+            f"{d.max().item():.3g}, relaunch bit-equal")
+        del bins, node, stats, got, again, want, scale, d
+    return {"hist": err}
 
 
 # ---------------------------------------------------- phase: model set
@@ -326,6 +413,376 @@ def serve_phase(torch, tq, root: str, plan, rng) -> dict:
             "max_abs_score_diff": worst, "wall_s": wall, "parse_s": parse_s}
 
 
+# ------------------------------------------------------- phase: train
+def train_plane(rng, plan, n: int):
+    """The training plane of the serving column plan: bins [n, 256] uint8,
+    each column uniform over its value bins and its missing bin; y drawn
+    from a logit on N_INFORMATIVE columns (numeric: a linear trend over
+    the bins, categorical: a random effect per category); integer weights
+    1..3.  Returns (bins, y, w, informative column ids, categorical
+    mask)."""
+    is_cat = np.array([kind == "cat" for kind, _, _, _ in plan])
+    n_bins = [len(a) + 1 if kind == "cat" else N_BINS
+              for kind, _, a, _ in plan]
+    bins = rng.integers(0, N_BINS, size=(n, N_COLS), dtype=np.uint8)
+    for j in np.flatnonzero(is_cat):
+        bins[:, j] = rng.integers(0, n_bins[j], size=n, dtype=np.uint8)
+    informative = np.sort(rng.choice(N_COLS, size=N_INFORMATIVE,
+                                     replace=False))
+    logit = np.full(n, -1.0, np.float32)
+    for j in informative:
+        if is_cat[j]:
+            effect = rng.normal(0.0, 1.2, size=n_bins[j])
+        else:
+            effect = rng.choice([-1.0, 1.0]) * rng.uniform(0.6, 2.0) \
+                * np.linspace(-1.0, 1.0, N_BINS)
+        logit += effect.astype(np.float32)[bins[:, j]]
+    y = (rng.random(n, np.float32) < 1.0 / (1.0 + np.exp(-logit))) \
+        .astype(np.float32)
+    w = rng.integers(1, 4, size=n).astype(np.float32)
+    return bins, y, w, informative, is_cat
+
+
+def write_plane(clean: str, bins, y, w, names, sig) -> None:
+    """The norm step's clean output as the port's ``WireWriter`` writes
+    it: the wire plane in shards of 2^18 rows, and ``schema.json``."""
+    from shifu_tpu_torch.data.spill import WireWriter, wire_dir
+    from shifu_tpu_torch.ioutil import atomic_write_json
+    keys, shard = ("bins", "y", "w"), 1 << 18
+    ww = WireWriter(wire_dir(clean, keys), keys,
+                    {"bins": np.uint8, "y": np.float32, "w": np.float32},
+                    {"bins": (bins.shape[1],)}, sig)
+    rows = []
+    for r0 in range(0, len(y), shard):
+        ww.append({"bins": bins[r0:r0 + shard], "y": y[r0:r0 + shard],
+                   "w": w[r0:r0 + shard]})
+        rows.append(min(shard, len(y) - r0))
+    ww.finish()
+    atomic_write_json(os.path.join(clean, "schema.json"), {
+        "outputNames": names, "columnNums": list(range(len(names))),
+        "columnNames": names, "normType": "ZSCALE", "numShards": len(rows),
+        "numRows": len(y), "shardRows": rows, "binsDtype": "uint8",
+        "width": len(names), "wire": True, "wireKeys": list(keys),
+        "wireSignature": sig})
+
+
+def set_train_params(d: str, params: dict) -> None:
+    from shifu_tpu_torch.config import ModelConfig
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    mc.train.params = dict(params)
+    mc.save(path)
+
+
+def write_train_set(d: str, serve_root: str, params: dict,
+                    clean: str) -> str:
+    """A model set for ``train``: the serving set's ModelConfig and
+    ColumnConfig with the given train#params and validSetRate 0.2, its
+    clean dir a link to the plane ``clean``."""
+    from shifu_tpu_torch.config import ModelConfig
+    os.makedirs(os.path.join(d, "tmp"))
+    shutil.copy(os.path.join(serve_root, "ColumnConfig.json"), d)
+    mc = ModelConfig.load(os.path.join(serve_root, "ModelConfig.json"))
+    mc.basic.name = os.path.basename(d)
+    mc.dataSet.dataPath = os.path.join(d, "data.csv")   # norm's input
+    mc.train.validSetRate = 0.2
+    mc.save(os.path.join(d, "ModelConfig.json"))
+    set_train_params(d, params)
+    os.symlink(clean, os.path.join(d, "tmp", "CleanedData"))
+    return d
+
+
+def train_cli(d: str, device: str, *extra: str) -> float:
+    """``train`` through the CLI a user calls; returns its wall seconds."""
+    from shifu_tpu_torch import cli
+    t0 = time.perf_counter()
+    rc = cli.main(["--dir", d, "train", *extra, "--device", device])
+    if rc != 0:
+        fail(f"train {' '.join(extra)} on {device} exited {rc} in {d}")
+    return time.perf_counter() - t0
+
+
+def load_forest(d: str):
+    from shifu_tpu_torch.models.tree import load_model
+    return load_model(os.path.join(d, "models", "model0.gbt"))
+
+
+def progress_errors(d: str) -> np.ndarray:
+    """[trees, 2] (train, validation) errors from ``tmp/train.progress``."""
+    with open(os.path.join(d, "tmp", "train.progress")) as f:
+        return np.array([[float(a), float(b)] for a, b in re.findall(
+            r"Train Error: (\S+) Validation Error: (\S+)", f.read())])
+
+
+def auc(score: np.ndarray, y: np.ndarray) -> float:
+    """Rank AUC with ties at their mean rank."""
+    _, inv, cnt = np.unique(score, return_inverse=True, return_counts=True)
+    rank = (np.cumsum(cnt) - (cnt - 1) / 2.0)[inv]
+    pos = y > 0.5
+    n1, n0 = int(pos.sum()), int((~pos).sum())
+    return float((rank[pos].sum() - n1 * (n1 + 1) / 2.0) / (n1 * n0))
+
+
+def train_phase(torch, root: str, serve_root: str, plan, rng,
+                device: str = "cuda") -> dict:
+    """The training path at full width, checked by the repo's own means;
+    the ``hist`` and ``tree_traverse`` counts are zeroed just before the
+    run and read just after it."""
+    from shifu_tpu_torch.ops import tree as tree_ops
+    from shifu_tpu_torch.ops import tree_quant as tq
+    t0 = time.perf_counter()
+    bins, y, w, informative, is_cat = train_plane(rng, plan, TRAIN_ROWS)
+    names = [p[1] for p in plan]
+    clean = os.path.join(root, "plane")
+    write_plane(clean, bins, y, w, names, {"chip_smoke": "full"})
+    params = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
+              "LearningRate": 0.1, "CheckpointInterval": TRAIN_CKPT}
+    full = write_train_set(os.path.join(root, "train"), serve_root, params,
+                           clean)
+    log(f"training set written in {time.perf_counter() - t0:.2f} s: "
+        f"{TRAIN_ROWS} rows x {N_COLS} columns, informative columns "
+        f"{informative.tolist()}, positive rate {y.mean():.4f}")
+
+    tree_ops.build_histograms.launches = 0
+    tq.predict_forest_quant.launches = 0
+    wall = train_cli(full, device)
+    launches = {"hist": tree_ops.build_histograms.launches,
+                "tree_traverse": tq.predict_forest_quant.launches}
+
+    spec, trees = load_forest(full)
+    if spec.n_trees != TRAIN_TREES or len(trees) != TRAIN_TREES or \
+            spec.depth != DEPTH or spec.n_bins != N_BINS:
+        fail(f"model0.gbt holds {len(trees)} trees of depth {spec.depth} "
+             f"over {spec.n_bins} bins")
+    if any(t.split_feat.shape != ((1 << (DEPTH + 1)) - 1,)
+           or t.split_feat[0] < 0 for t in trees):
+        fail("a tree has the wrong node count or no root split")
+    err = progress_errors(full)
+    if err.shape != (TRAIN_TREES, 2) or not np.all(np.diff(err[:, 0]) < 0) \
+            or not err[-1, 1] < err[0, 1]:
+        fail(f"errors do not fall tree by tree: {err.tolist()}")
+    with open(os.path.join(full, "tmp", "feature_importance.json")) as f:
+        fi = json.load(f)
+    top = names.index(max(fi, key=fi.get))
+    if top not in informative:
+        fail(f"top feature {names[top]} is not an informative column")
+    ck = os.path.join(full, "tmp", "checkpoints", "forest_ckpt.npz")
+    for path in (ck, ck + ".scores.npz", ck + ".meta.json",
+                 os.path.join(full, "tmp", "journal", "TRAIN.json")):
+        if not os.path.isfile(path):
+            fail(f"train left no {path}")
+    with open(os.path.join(full, "tmp", "profile.json")) as f:
+        phases = json.load(f)["TRAIN"]["phases_s"]
+    if any(p not in phases for p in TRAIN_PARTS):
+        fail(f"profile.json does not split the train phase: {phases}")
+    phases["train/other"] = round(
+        phases["train"] - sum(phases[p] for p in TRAIN_PARTS), 3)
+    log(f"main path (train): {TRAIN_TREES} trees of depth {DEPTH} in "
+        f"{wall:.3f} s wall ({phases}); train error {err[0, 0]:.6f} -> "
+        f"{err[-1, 0]:.6f}, validation {err[0, 1]:.6f} -> {err[-1, 1]:.6f}; "
+        f"top feature {names[top]}; launches {launches}")
+    out = {"launches": launches, "wall_s": wall, "phases_s": phases,
+           "errors": err.tolist()}
+    out["chunk"] = chunk_phase(torch, bins, y, w, is_cat, device)
+
+    # resume: 5 trees, then -resume to 10, against the forest above
+    part = write_train_set(os.path.join(root, "resume"), serve_root,
+                           dict(params, TreeNum=TRAIN_CKPT), clean)
+    train_cli(part, device)
+    # the same 5-tree checkpoint without its per-row score sidecar, for
+    # the replay resume below
+    replay = write_train_set(os.path.join(root, "replay"), serve_root,
+                             params, clean)
+    shutil.copytree(os.path.join(part, "tmp", "checkpoints"),
+                    os.path.join(replay, "tmp", "checkpoints"),
+                    ignore=shutil.ignore_patterns("*.scores.npz"))
+    set_train_params(part, params)
+    train_cli(part, device, "-resume")
+    _, got = load_forest(part)
+    if len(got) != len(trees):
+        fail(f"resumed forest has {len(got)} trees")
+    for t, (a, b) in enumerate(zip(got, trees)):
+        if any(getattr(a, k).tobytes() != getattr(b, k).tobytes()
+               for k in ("split_feat", "left_mask", "leaf_value")):
+            fail(f"resumed forest differs from the uninterrupted one at "
+                 f"tree {t}")
+    log(f"{TRAIN_CKPT} trees + train -resume to {TRAIN_TREES}: forest "
+        "bit-identical to the uninterrupted run")
+    out["replay"] = replay_phase(replay, device, trees, tree_ops, tq)
+
+    # card vs CPU on the plane's first CUT_ROWS rows
+    cut = os.path.join(root, "plane_cut")
+    write_plane(cut, bins[:CUT_ROWS], y[:CUT_ROWS], w[:CUT_ROWS], names,
+                {"chip_smoke": "cut"})
+    runs = []
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        d = write_train_set(os.path.join(root, f"cut_{name}"), serve_root,
+                            dict(params, TreeNum=CUT_TREES), cut)
+        runs.append((train_cli(d, dev), load_forest(d), progress_errors(d)))
+    out["cut"] = compare_cut(torch, *runs, bins[:CUT_ROWS], y[:CUT_ROWS],
+                             device)
+    return out
+
+
+def replay_phase(d: str, device: str, trees, tree_ops, tq) -> dict:
+    """``train -resume`` from a 5-tree checkpoint with no score sidecar:
+    the restored trees replay through ``tree_traverse`` (counts zeroed
+    just before, read just after; one launch for the one depth group),
+    then 5 more trees grow (35 ``hist`` launches).  Split features and
+    left masks must equal the uninterrupted forest's, leaves within
+    REPLAY_RTOL (the replay adds each tree's leaf to the scores as the
+    uninterrupted run does, so bit-equality is expected and reported)."""
+    tree_ops.build_histograms.launches = 0
+    tq.predict_forest_quant.launches = 0
+    wall = train_cli(d, device, "-resume")
+    launches = {"hist": tree_ops.build_histograms.launches,
+                "tree_traverse": tq.predict_forest_quant.launches}
+    want_hist = (TRAIN_TREES - TRAIN_CKPT) * DEPTH
+    if launches["tree_traverse"] < 1 or launches["hist"] != want_hist:
+        fail(f"replay resume launched {launches}, not >= 1 tree_traverse "
+             f"and {want_hist} hist")
+    _, got = load_forest(d)
+    if len(got) != len(trees):
+        fail(f"replayed forest has {len(got)} trees")
+    worst, bit_equal = 0.0, True
+    for t, (a, b) in enumerate(zip(got, trees)):
+        if not (np.array_equal(a.split_feat, b.split_feat)
+                and np.array_equal(a.left_mask, b.left_mask)):
+            fail(f"replayed forest splits differ from the uninterrupted "
+                 f"one at tree {t}")
+        d_leaf = np.abs(a.leaf_value - b.leaf_value)
+        if not np.all(d_leaf <= REPLAY_RTOL * np.abs(b.leaf_value) + 1e-7):
+            fail(f"replayed leaves differ by up to {d_leaf.max()} at tree "
+                 f"{t}")
+        worst = max(worst, float(d_leaf.max()))
+        bit_equal &= a.leaf_value.tobytes() == b.leaf_value.tobytes()
+    with open(os.path.join(d, "tmp", "profile.json")) as f:
+        replay_s = json.load(f)["TRAIN"]["phases_s"].get("train/replay")
+    log(f"{TRAIN_CKPT} trees without their score sidecar + train -resume "
+        f"to {TRAIN_TREES}: launches {launches}; splits equal, leaves "
+        f"within {worst:.3g} of the uninterrupted forest (bit-identical: "
+        f"{bit_equal}); replay launch {replay_s} s, run {wall:.3f} s")
+    return {"launches": launches, "max_abs_leaf_diff": worst,
+            "bit_identical": bit_equal, "wall_s": wall}
+
+
+def compare_cut(torch, card, cpu, bins, y, device: str) -> dict:
+    """Levels 0-1 split alike, per-tree errors within ERR_RTOL, and the
+    AUCs of the two forests' scores (walked by tree_traverse on the card)
+    within AUC_TOL on the validation rows."""
+    from shifu_tpu_torch.ops import tree_quant as tq
+    from shifu_tpu_torch.train.sampling import validation_split
+    (s_card, (spec_a, trees_a), err_a), (s_cpu, (spec_b, trees_b), err_b) \
+        = card, cpu
+    for t, (a, b) in enumerate(zip(trees_a, trees_b)):
+        if not np.array_equal(a.split_feat[:3], b.split_feat[:3]):
+            fail(f"tree {t}: levels 0-1 split on {a.split_feat[:3]} on the "
+                 f"card, {b.split_feat[:3]} on the CPU")
+    # below level 1 near-tie splits may go either way (ROADMAP Queue 3,
+    # C4/C9): counted, not checked
+    deeper = sum(int((a.split_feat != b.split_feat).sum())
+                 for a, b in zip(trees_a, trees_b))
+    if err_a.shape != (CUT_TREES, 2) or err_b.shape != (CUT_TREES, 2):
+        fail(f"train.progress holds {len(err_a)} and {len(err_b)} trees")
+    rel = np.abs(err_a - err_b) / np.abs(err_b)
+    if not np.all(rel <= ERR_RTOL):
+        fail(f"card vs CPU errors differ by up to {rel.max()} relative")
+    vmask = validation_split(len(y), 0.2, 0)
+    bins_d = torch.from_numpy(bins).to(device)
+    aucs = []
+    for spec, trees in ((spec_a, trees_a), (spec_b, trees_b)):
+        pred = tq.predict_forest_quant(*tq.stack_forest_quant(trees, device),
+                                       bins_d, DEPTH)
+        score = (spec.init_score + spec.learning_rate * pred.sum(0)).cpu()
+        aucs.append(auc(score.numpy()[vmask], y[vmask]))
+    if abs(aucs[0] - aucs[1]) > AUC_TOL:
+        fail(f"card vs CPU validation AUC {aucs[0]:.5f} vs {aucs[1]:.5f}")
+    log(f"card vs CPU on {len(y)} rows x {CUT_TREES} trees: levels 0-1 "
+        f"equal ({deeper} of {CUT_TREES * len(trees_a[0].split_feat)} "
+        f"nodes split on another feature below them), errors within "
+        f"{rel.max():.3g} relative, validation AUC {aucs[0]:.5f} vs "
+        f"{aucs[1]:.5f}; train wall {s_card:.2f} s on the card, "
+        f"{s_cpu:.2f} s on the CPU")
+    return {"max_rel_err": float(rel.max()), "auc": aucs,
+            "nodes_differ": deeper, "wall_s": [s_card, s_cpu]}
+
+
+def chunk_phase(torch, bins, y, w, is_cat, device: str) -> dict:
+    """One chunk of two full-width trees straight through
+    ``gbt_forest_chunk`` on device-resident tensors: under
+    ``set_sync_debug_mode("error")`` (any host sync raises), then timed
+    (host wall around a synchronised chunk), then traced with
+    ``torch.profiler`` for the device time by kernel."""
+    from shifu_tpu_torch.train import dt_trainer as dt
+    from shifu_tpu_torch.train.sampling import validation_split
+    dev = torch.device(device)
+    vmask = validation_split(len(y), 0.2, 0)
+    bins_d = dt.put_bins(bins, N_BINS, dev)
+    y_d, tw, vw = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                   for a in (y, w * ~vmask, w * vmask))
+    settings = dt.DTSettings(n_trees=2, depth=DEPTH, loss="log",
+                             learning_rate=0.1)
+    fa = torch.ones((2, N_COLS), dtype=torch.bool, device=dev)
+    cat = torch.from_numpy(is_cat).to(dev)
+    f = torch.zeros(len(y), device=dev)
+
+    def run():
+        return dt.gbt_forest_chunk(bins_d, y_d, tw, vw, f, fa, cat,
+                                   settings, N_BINS, "variance",
+                                   bool(is_cat.any()))
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / 2)
+    ms_tree = float(np.median(walls))
+    prof = profile_device(torch, run)
+    log(f"a 2-tree chunk ran under set_sync_debug_mode('error') with no "
+        f"host sync; {ms_tree:.3f} ms per tree (median of 3 chunks, host "
+        f"wall), {TRAIN_ROWS * 1e3 / ms_tree:.4g} rows x trees / s")
+    return {"ms_per_tree": ms_tree, "profile": prof}
+
+
+def profile_device(torch, run) -> dict:
+    """Device time by kernel over one ``run()`` from ``torch.profiler``:
+    kernel-busy ms per tree, its share of the run's profiled wall time,
+    and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    if busy == 0.0:
+        log("torch.profiler recorded no device time: breakdown not measured")
+        return {}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    log(f"torch.profiler over one 2-tree chunk: kernels busy {busy:.3f} ms "
+        f"of {wall_ms:.3f} ms profiled wall ({busy / wall_ms:.1%}); top "
+        "kernels (ms, launches):")
+    for name, (ms, n) in top:
+        log(f"  {ms:9.3f} ms {n:5d}x  {name[:110]}")
+    return {"busy_ms": busy, "wall_ms": wall_ms,
+            "top": [(name[:110], ms, n) for name, (ms, n) in top]}
+
+
 # ------------------------------------------------------- phase: timing
 def time_kernels(torch, tq, rng, gpu: str) -> dict:
     sf, lm, lv = random_forest(rng, N_TREES, DEPTH, N_BINS, N_COLS)
@@ -359,6 +816,49 @@ def time_kernels(torch, tq, rng, gpu: str) -> dict:
             f"({out[n]['bound_by']}: {need['bytes'] / 1e6:.3f} MB read "
             f"and written, {need['split_steps']} split steps; the whole "
             f"forest and plane would be {whole / 1e6:.3f} MB) — [{gpu}]")
+    return out
+
+
+def time_hist(torch, rng, gpu: str) -> dict:
+    """B1 at N=1,048,576 rows of 256 uint8 columns, 64 bins, S=2, for K=1
+    and K=32 on ``hist_inputs``' data: the kernel (its wrapper's device
+    work included), the plain version, and one ``scatter_add_`` of every
+    active (row, column) into the flat [K*C*B, S] f32 buffer with the
+    cell index computed beforehand; the bound counts what this data makes
+    the build move (``hist_bytes``) and one add per active (row, column,
+    channel)."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops.tree import build_histograms
+    out = {}
+    for k in (1, 32):
+        bins, node, stats = hist_inputs(torch, rng, TRAIN_ROWS, N_COLS,
+                                        N_BINS, k)
+        ms = device_ms(torch, lambda: build_histograms(bins, node, stats, k,
+                                                       N_BINS))
+        plain_ms = device_ms(torch, lambda: hist.build_histograms_ref(
+            bins, node, stats, k, N_BINS), launches=2, repeats=3)
+        act = (node >= 0).nonzero()[:, 0]
+        cols = torch.arange(N_COLS, device="cuda")
+        cell = ((node[act].long() * N_COLS)[:, None] + cols) * N_BINS \
+            + bins[act].long()
+        idx = cell.reshape(-1, 1).expand(-1, 2)
+        src = stats[act][:, None, :].expand(-1, N_COLS, -1).reshape(-1, 2)
+        flat = torch.zeros((k * N_COLS * N_BINS, 2), device="cuda")
+        library_ms = device_ms(torch, lambda: flat.scatter_add_(0, idx, src),
+                               launches=3, repeats=5)
+        nbytes = hist.hist_bytes(bins, node, stats, k, N_BINS)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = act.numel() * N_COLS * 2 / INT_OPS_PER_S * 1e3
+        out[k] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms
+                  else "operations", "bytes": nbytes,
+                  "active_rows": int(act.numel())}
+        log(f"hist N={TRAIN_ROWS} K={k}: kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} ms, bound "
+            f"{out[k]['bound_ms']:.6f} ms ({out[k]['bound_by']}: "
+            f"{nbytes / 1e6:.3f} MB, {act.numel()} active rows) — [{gpu}]")
+        del bins, node, stats, act, cell, idx, src, flat
     return out
 
 
@@ -417,7 +917,7 @@ def main() -> None:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    built = cuda_lib.build(["tree_traverse"])
+    built = cuda_lib.build(["tree_traverse", "hist"])
     for name, (path, build_log) in built.items():
         log(f"built {name} -> {os.path.relpath(path)}")
         for line in build_log.splitlines():
@@ -427,28 +927,63 @@ def main() -> None:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
 
     errs = check_kernels(torch, tq, rng)
+    errs.update(check_hist(torch, rng))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        plan = write_model_set(root, rng)["plan"]
-        served = serve_phase(torch, tq, root, plan, rng)
-        time_transform(torch, root, plan, rng, gpu)
+        serve_root = os.path.join(root, "serve")
+        os.makedirs(serve_root)
+        plan = write_model_set(serve_root, rng)["plan"]
+        served = serve_phase(torch, tq, serve_root, plan, rng)
+        time_transform(torch, serve_root, plan, rng, gpu)
+        trained = train_phase(torch, root, serve_root, plan, rng)
+    want = TRAIN_TREES * DEPTH
+    if trained["launches"]["hist"] != want:
+        fail(f"hist launched {trained['launches']['hist']} times on the "
+             f"train path, not {want} ({TRAIN_TREES} trees x {DEPTH} "
+             "levels)")
     times = time_kernels(torch, tq, rng, gpu)
+    hist_times = time_hist(torch, rng, gpu)
+    ms_tree = trained["chunk"]["ms_per_tree"]
+    ph = trained["phases_s"]
+    log(f"full-width train: {ms_tree:.3f} ms per tree device-resident, "
+        f"{ph['train'] * 1e3 / TRAIN_TREES:.3f} ms per tree through the "
+        f"CLI's train phase of {ph['train']:.3f} s: upload "
+        f"{ph['train/upload']:.3f} s, grow {ph['train/grow']:.3f} s "
+        f"({ph['train/grow'] * 1e3 / TRAIN_TREES:.3f} ms a tree), "
+        f"checkpoints {ph['train/checkpoint']:.3f} s, other "
+        f"{ph['train/other']:.3f} s — [{gpu}]")
 
     top = times[512]
+    h32 = hist_times[32]
     kernels = [{
         "name": "tree_traverse", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/tree_traverse.cu",
         "replaces": "shifu_tpu/ops/tree_quant.py:159",
         "launches": served["launches"]["tree_traverse"],
+        "train_replay_launches":
+            trained["replay"]["launches"]["tree_traverse"],
         "max_abs_err": errs["tree_traverse"],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None,
         "at_65536_rows": {k: times[65536][k] for k in
                           ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "gpu": gpu}, {
+        "name": "hist", "route": "cuda",
+        "source": "shifu_tpu_torch/csrc/hist.cu",
+        "replaces": "shifu_tpu/ops/hist_pallas.py:75",
+        "launches": trained["launches"]["hist"],
+        "max_abs_err": errs["hist"],
+        "ms": h32["ms"], "plain_ms": h32["plain_ms"],
+        "bound_ms": h32["bound_ms"], "bound_by": h32["bound_by"],
+        "library_ms": h32["library_ms"],
+        "shape": f"N={TRAIN_ROWS} C={N_COLS} B={N_BINS} S=2 K=32 uint8",
+        "at_1_node": {k: hist_times[1][k] for k in
+                      ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "bound_by")},
         "gpu": gpu}]
     log(f"served {served['batches']} batches; max |card - cpu| "
-        f"{served['max_abs_score_diff']:.3g}; total "
-        f"{time.perf_counter() - t_all:.1f} s")
+        f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} trees; "
+        f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

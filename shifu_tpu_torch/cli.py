@@ -1,11 +1,13 @@
 """shifu-tpu-torch CLI — the port's counterpart of ``shifu_tpu.cli``.
 
-This slice carries the ``serve`` command.  ``-Dkey=value`` properties go to
-the Environment tier as in the reference; ``--device`` picks where the
-port runs (default ``cuda``; ``cpu`` runs the plain PyTorch versions).
+The port carries the ``serve`` and ``train`` commands.  ``-Dkey=value``
+properties go to the Environment tier as in the reference; ``--device``
+picks where the port runs (default ``cuda``; ``cpu`` runs the plain
+PyTorch versions).
 
     python -m shifu_tpu_torch.cli --dir <modelset> serve [--port N]
     python -m shifu_tpu_torch.cli --dir <modelset> serve --selfcheck 4 --device cpu
+    python -m shifu_tpu_torch.cli --dir <modelset> train [-resume] [--device cpu]
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def _split_props(argv: List[str]) -> List[str]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shifu-tpu-torch",
-        description="PyTorch/CUDA port of shifu-tpu (serving slice)")
+        description="PyTorch/CUDA port of shifu-tpu (serve, GBT train)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
@@ -52,11 +54,22 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--selfcheck", dest="serve_selfcheck", type=int,
                     nargs="?", const=8, default=0, metavar="N",
                     help="score N synthetic rows in-process and exit")
+    _device_arg(sp)
+
+    tp = sub.add_parser("train", help="train the model set from the "
+                        "norm step's clean plane (resident single-member "
+                        "GBT is ported)")
+    tp.add_argument("-resume", dest="resume", action="store_true",
+                    help="continue from the mid-forest checkpoint")
+    _device_arg(tp)
+    return p
+
+
+def _device_arg(sp) -> None:
     sp.add_argument("--device", dest="device", choices=("cuda", "cpu"),
                     default="cuda",
                     help="where the port runs (default cuda; raises when "
                     "CUDA is absent)")
-    return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -70,6 +83,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                          selfcheck=args.serve_selfcheck,
                          max_delay_ms=args.serve_max_delay_ms,
                          device=args.device)
+    if args.command == "train":
+        from .pipeline.train import TrainProcessor
+        return TrainProcessor(args.dir, params={"resume": args.resume},
+                              device=args.device).run()
     raise ValueError(f"unknown command {args.command!r}")
 
 

@@ -1,0 +1,82 @@
+"""PathFinder — where each step reads and writes inside a model-set
+directory; the port's copy of the paths ``shifu_tpu.config.path_finder``
+gives the train step (reference ``fs/PathFinder.java``), so both packages
+read and write the same files."""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from .model_config import ModelConfig
+
+MODEL_CONFIG_JSON = "ModelConfig.json"
+COLUMN_CONFIG_JSON = "ColumnConfig.json"
+
+
+class PathFinder:
+    def __init__(self, model_config: ModelConfig, model_set_dir: str = "."):
+        self.model_config = model_config
+        self.root = os.path.abspath(model_set_dir)
+
+    @property
+    def model_config_path(self) -> str:
+        return os.path.join(self.root, MODEL_CONFIG_JSON)
+
+    @property
+    def column_config_path(self) -> str:
+        return os.path.join(self.root, COLUMN_CONFIG_JSON)
+
+    @property
+    def tmp_dir(self) -> str:
+        return os.path.join(self.root, "tmp")
+
+    @property
+    def stats_dir(self) -> str:
+        return os.path.join(self.tmp_dir, "stats")
+
+    @property
+    def norm_dir(self) -> str:
+        """Normalized (float) dataset shards — NN/LR/WDL input."""
+        return os.path.join(self.tmp_dir, "NormalizedData")
+
+    @property
+    def clean_dir(self) -> str:
+        """Binned (int) dataset shards — tree-model input."""
+        return os.path.join(self.tmp_dir, "CleanedData")
+
+    @property
+    def models_dir(self) -> str:
+        return os.path.join(self.root, "models")
+
+    @property
+    def tmp_models_dir(self) -> str:
+        return os.path.join(self.tmp_dir, "modelsTmp")
+
+    def model_path(self, index: int, alg: Optional[str] = None) -> str:
+        if alg is None:
+            alg = self.model_config.train.algorithm.name
+            alg = {"TENSORFLOW": "nn"}.get(alg, alg)
+        return os.path.join(self.models_dir, f"model{index}.{alg.lower()}")
+
+    @property
+    def checkpoint_dir(self) -> str:
+        return os.path.join(self.tmp_dir, "checkpoints")
+
+    @property
+    def journal_dir(self) -> str:
+        """Per-step commit journals (``pipeline/journal``)."""
+        return os.path.join(self.tmp_dir, "journal")
+
+    def journal_path(self, step: str) -> str:
+        return os.path.join(self.journal_dir, f"{step}.json")
+
+    @property
+    def progress_path(self) -> str:
+        return os.path.join(self.tmp_dir, "train.progress")
+
+    def ensure_dirs(self) -> None:
+        for d in (self.tmp_dir, self.stats_dir, self.models_dir,
+                  self.tmp_models_dir, self.checkpoint_dir,
+                  self.journal_dir):
+            os.makedirs(d, exist_ok=True)

@@ -1,12 +1,47 @@
-"""Atomic file writes (the port's copy of the write half of
-``shifu_tpu.ioutil``): content lands in a same-directory temp file and
-``os.replace``s into place, so a reader never observes a torn file."""
+"""Crash-consistent file IO — the port's copy of ``shifu_tpu.ioutil``'s
+atomic writes and transient-failure retry: content lands in a
+same-directory temp file and ``os.replace``s into place, so a reader never
+observes a torn file; ``io_retry`` absorbs up to ``shifu.io.retries``
+transient ``OSError``s with exponential backoff and jitter."""
 
 from __future__ import annotations
 
+import io
 import json
+import logging
 import os
-from typing import Any
+import random
+import time
+from typing import Any, Callable, TypeVar
+
+import numpy as np
+
+log = logging.getLogger(__name__)
+
+T = TypeVar("T")
+
+
+def io_retry(fn: Callable[[], T], what: str, path: str = "") -> T:
+    """Run ``fn``, absorbing transient ``OSError``s with exponential
+    backoff + jitter.  The final failure re-raises the original error
+    wrapped with provenance (``what`` + ``path``)."""
+    from .config import environment
+    attempts = max(0, environment.get_int("shifu.io.retries", 3)) + 1
+    base = environment.get_int("shifu.io.retryBaseMs", 50) / 1000.0
+    where = f" [{path}]" if path else ""
+    for attempt in range(attempts):
+        try:
+            return fn()
+        except OSError as e:
+            if attempt + 1 >= attempts:
+                raise OSError(f"{what} failed after {attempts} attempt(s)"
+                              f"{where}: {e}") from e
+            delay = base * (2 ** attempt) * (1.0 + random.random())
+            log.warning("transient IO error in %s%s (attempt %d/%d, "
+                        "retrying in %.0f ms): %s", what, where,
+                        attempt + 1, attempts, delay * 1000, e)
+            time.sleep(delay)
+    raise AssertionError("unreachable")
 
 
 def _tmp_path(path: str) -> str:
@@ -26,3 +61,10 @@ def atomic_write_text(path: str, text: str) -> None:
 
 def atomic_write_json(path: str, obj: Any, indent: int = 2) -> None:
     atomic_write_text(path, json.dumps(obj, indent=indent))
+
+
+def atomic_savez(path: str, **arrays: np.ndarray) -> None:
+    """npz written whole-or-not-at-all."""
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    atomic_write_bytes(path, buf.getvalue())

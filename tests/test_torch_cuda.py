@@ -1,5 +1,7 @@
 """Card-only tests of the port's hand-written CUDA kernels: each kernel
-against its plain PyTorch version on the same numpy-seeded inputs.
+(B4 ``tree_traverse``, B1 ``hist``) against its plain PyTorch version on
+the same numpy-seeded inputs; tree growth on the card against the CPU; and
+a GBT chunk run under ``torch.cuda.set_sync_debug_mode("error")``.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -78,3 +80,109 @@ def test_tree_traverse_kernel_rejects_what_it_cannot_take(cuda):
         tq.predict_forest_quant(sf, lm, lv, bins, 4)
     with pytest.raises(NotImplementedError):
         tq.predict_forest_quant(sf, lm, lv[..., None], bins, 3)
+
+
+# ------------------------------------------------------------------ B1
+def _hist_inputs(n, c, b, k, s, dtype, seed):
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, b, size=(n, c)).astype(dtype)
+    node = rng.integers(0, k, size=n).astype(np.int32)
+    node[rng.random(n) < 0.3] = -1
+    w = rng.integers(1, 4, size=(n, 1)).astype(np.float32)
+    other = rng.normal(size=(n, s - 1)).astype(np.float32)
+    return bins, node, np.concatenate([w, w * other], axis=1)
+
+
+@pytest.mark.parametrize("n,c,b,k,s,dtype", [
+    (1, 256, 64, 1, 2, np.uint8), (1000, 256, 64, 2, 2, np.uint8),
+    (65536, 256, 64, 32, 2, np.uint8), (5000, 7, 4001, 8, 2, np.int32),
+    (3000, 3, 65536, 1, 1, np.int32), (4000, 5, 64, 300, 3, np.uint8),
+    (2000, 33, 7, 3, 4, np.uint8), (0, 4, 8, 2, 2, np.uint8)])
+def test_hist_kernel_matches_plain_version(cuda, n, c, b, k, s, dtype):
+    """Count channel equal, the others within 1e-5 of the cell's |stats|
+    sum; a second launch is bit-equal.  Covers node tiling (K=300), bin
+    tiling (B=65536), S in {1..4}, odd column counts and N=0."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops.tree import build_histograms
+    bins, node, stats = _on(cuda, *_hist_inputs(n, c, b, k, s, dtype,
+                                                 seed=n + k))
+    before = build_histograms.launches
+    got = build_histograms(bins, node, stats, k, b)
+    again = build_histograms(bins, node, stats, k, b)
+    torch.cuda.synchronize()
+    assert build_histograms.launches == before + 2
+    want = hist.build_histograms_ref(bins, node, stats, k, b)
+    scale = hist.build_histograms_ref(bins, node, stats.abs(), k, b)
+    assert got.shape == (k, c, b, s) and torch.equal(got, again)
+    assert torch.equal(got[..., 0], want[..., 0])
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+def test_hist_kernel_rejects_what_it_cannot_take(cuda):
+    from shifu_tpu_torch.ops.tree import build_histograms
+    bins, node, stats = _on(cuda, *_hist_inputs(10, 4, 8, 2, 2, np.uint8, 1))
+    with pytest.raises(ValueError, match="bins"):
+        build_histograms(bins.float(), node, stats, 2, 8)
+    # int64 ids widen to int32 like uint16 ones, as the reference's astype
+    assert torch.equal(build_histograms(bins.long(), node, stats, 2, 8),
+                       build_histograms(bins, node, stats, 2, 8))
+    with pytest.raises(ValueError, match="stats"):
+        build_histograms(bins, node, stats.double(), 2, 8)
+    with pytest.raises(ValueError, match="node_idx"):
+        build_histograms(bins, node.long(), stats, 2, 8)
+    with pytest.raises(ValueError, match="B <= 65536"):
+        build_histograms(bins.int(), node, stats, 2, 70000)
+
+
+def test_grow_tree_on_the_card_matches_the_cpu(cuda):
+    """A separated-gain plane grows the same tree on both devices, and
+    the card's tree is bit-identical from run to run."""
+    from shifu_tpu_torch.ops import tree as tt
+    rng = np.random.default_rng(5)
+    bins = rng.integers(0, 32, size=(20000, 12)).astype(np.uint8)
+    logit = 2.0 * (bins[:, 2] > 20) - 1.5 * (bins[:, 7] < 6)
+    y = (rng.random(20000) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    w = rng.integers(1, 4, size=20000).astype(np.float32)
+    stats = np.stack([w, w * (y - y.mean())], axis=1).astype(np.float32)
+    cat = np.zeros(12, bool)
+    cat[7] = True
+    args = (np.ones(12, bool),)
+    out = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        b, st, ct, fa = _on(torch.device(dev), bins, stats, cat, *args)
+        res = tt.grow_tree(b, st, ct, fa, 32, 5, "variance", 20.0, 0.5)
+        out.setdefault(dev, []).append([r.cpu() for r in res])
+    (cpu,), (card, card2) = out["cpu"], out["cuda"]
+    for a, b in zip(card, card2):
+        assert torch.equal(a, b)
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    assert torch.equal(card[4], cpu[4])
+    assert torch.allclose(card[2], cpu[2], rtol=1e-5, atol=1e-6)
+
+
+def test_gbt_chunk_makes_no_host_sync(cuda):
+    from shifu_tpu_torch.train import dt_trainer as dt
+    rng = np.random.default_rng(6)
+    n, c = 4096, 16
+    bins, y, w = _on(cuda, rng.integers(0, 64, size=(n, c)).astype(np.uint8),
+                     (rng.random(n) < 0.3).astype(np.float32),
+                     rng.integers(1, 4, size=n).astype(np.float32))
+    vw = w * (torch.arange(n, device=cuda) % 5 == 0)
+    tw = w - vw
+    settings = dt.DTSettings(n_trees=2, depth=5, loss="log",
+                             learning_rate=0.1)
+    fa = torch.ones((2, c), dtype=torch.bool, device=cuda)
+    cat = torch.zeros(c, dtype=torch.bool, device=cuda)
+    cat[3] = True
+    f = torch.zeros(n, device=cuda)
+    dt.gbt_forest_chunk(bins, y, tw, vw, f, fa, cat, settings, 64,
+                        "variance", True)             # build + warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        f2, packed = dt.gbt_forest_chunk(bins, y, tw, vw, f, fa, cat,
+                                         settings, 64, "variance", True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert packed.shape[0] == 2 and packed.dtype == torch.uint8
+    assert bool(torch.isfinite(f2).all())

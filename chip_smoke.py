@@ -19,7 +19,12 @@ measured on an H100).  It
    over 7 int32 columns of 4001 bins at K=8, must give the plain version's
    count channel exactly, the w*g channel within 1e-5 of the plain
    version's sum of |stats| per cell, and the same bits on a second
-   launch;
+   launch; ``stats_hist`` (the stats plane's fine histogram) over ~5%
+   missing cells at (N, C, B, S) in {262144 x 224 x 4096 with S = 4 and
+   2, 100003 x 13 x 64 with S = 4 and 2, 4096 x 5 x 4096 x 2, 1 x 7 x
+   4096 x 4} must give the plain version's count channels exactly, the
+   weighted ones within 1e-6 of the plain value, and the same bits on a
+   second launch;
 3. drives the port's serving path at full width: writes a synthetic GBT
    model set (ModelConfig.json, ColumnConfig.json with 224 numeric + 32
    categorical final-selected columns, models/model0.gbt with 100 trees of
@@ -53,16 +58,35 @@ measured on an H100).  It
    trees on ``cuda`` and on ``cpu``, with equal split features on levels
    0-1, per-tree errors within 1e-4 relative and the two forests' AUCs
    (scored by ``tree_traverse``) within 0.005;
-5. times each kernel (CUDA events, launches queued behind a spin kernel so
+5. drives the port's stats path through the CLI: writes the column
+   plan's raw data as a 16,384-row '|'-delimited CSV (224 numeric columns
+   with ~5% empty cells, 32 categorical, ``weight``, ``tag``; a cut in
+   rows, not width), runs ``new``, ``init`` (it must type 224 numeric and
+   32 categorical candidates) and ``stats`` on ``cuda`` in chunks of 4,096
+   rows with a fused budget that keeps 2 chunks resident and overflows 2
+   into the provisional grid, with exactly 4 ``stats_hist`` launches
+   counted from zero around ``stats``; checks every numeric column's
+   counts and finite boundaries, and that ``stats`` on ``cpu`` writes the
+   same ColumnConfig.json (integers, types, categories and binBoundary
+   equal, floats within 1e-5 relative + 1e-4); times the host parse
+   alone.  Then the port's ``NumericAccumulator`` on ``cuda`` at a
+   deployment's size: 8 weighted chunks of 262,144 rows x 224 columns from
+   ``--seed`` (3 resident, 5 overflowing, 8 ``stats_hist`` launches), the
+   ms a chunk update and the finalize take and the peak device memory,
+   and the first 2 chunks on ``cuda`` and ``cpu`` with equal counts,
+   boundaries and percentiles;
+6. times each kernel (CUDA events, launches queued behind a spin kernel so
    the host cannot starve the card) beside its plain version, one PyTorch
    call that computes the same function where there is one, and its bound
    (the larger of the bytes this data makes it move over 3.35 TB/s and its
    integer operations over 67 T/s): ``tree_traverse`` at the serving top
-   rung N=512 and at N=65536, ``hist`` at N=1,048,576 and K=1 and 32; times
-   the device transform at N=512 with and without its x blocks; and
-   reports ms per tree of the full-width train, with a ``torch.profiler``
-   breakdown of one tree's device time;
-6. prints one JSON line listing every ported kernel, then as its last line
+   rung N=512 and at N=65536, ``hist`` at N=1,048,576 and K=1 and 32,
+   ``stats_hist`` at N=262,144 x 224 columns x 4096 buckets with S = 4 and
+   2 (``index_add_`` the PyTorch call); times the device transform at
+   N=512 with and without its x blocks; and reports ms per tree of the
+   full-width train, with a ``torch.profiler`` breakdown of one tree's
+   device time;
+7. prints one JSON line listing every ported kernel, then as its last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -104,6 +128,15 @@ ERR_RTOL, AUC_TOL = 1e-4, 0.005            # card vs CPU
 REPLAY_RTOL = 1e-5                         # replayed vs uninterrupted leaves
 N_INFORMATIVE = 10
 TRAIN_PARTS = ("train/upload", "train/grow", "train/checkpoint")
+STATS_BUCKETS = 4096                       # the stats plane's fine sketch
+STATS_TOL = 1e-6                           # weighted B3 cells, x |value|
+STATS_CASES = ((262144, N_NUM, STATS_BUCKETS, 4), (262144, N_NUM,
+               STATS_BUCKETS, 2), (100003, 13, 64, 4), (100003, 13, 64, 2),
+               (4096, 5, STATS_BUCKETS, 2), (1, 7, STATS_BUCKETS, 4))
+CSV_ROWS, CSV_CHUNK = 16384, 4096          # the stats CLI phase's cut
+CHUNK_BYTES = CSV_CHUNK * (5 * N_NUM + 8)  # what a kept chunk holds
+RESIDENT_CHUNKS, RESIDENT_ROWS = 8, 262144
+CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-5, 1e-4  # ColumnConfig floats, card/CPU
 
 
 def fail(msg: str) -> None:
@@ -783,6 +816,305 @@ def profile_device(torch, run) -> dict:
             "top": [(name[:110], ms, n) for name, (ms, n) in top]}
 
 
+
+# ---------------------------------------------------------- phase: stats
+def stats_inputs(torch, rng, n, c, b, s):
+    """B3 inputs on the card: bucket ids uniform in [0, B) with ~5% of
+    cells missing (-1); stats [pos, neg] 0/1 indicators, and with S = 4
+    also [w * pos, w * neg] with w uniform in [0.5, 3)."""
+    idx = rng.integers(0, b, size=(n, c), dtype=np.int32)
+    idx[rng.random((n, c)) < 0.05] = -1
+    pos = (rng.random(n) < 0.3).astype(np.float32)
+    chans = [pos, 1.0 - pos]
+    if s == 4:
+        w = rng.uniform(0.5, 3.0, n).astype(np.float32)
+        chans += [w * pos, w * (1.0 - pos)]
+    exact = (True, True) + (False,) * (s - 2)
+    return [torch.from_numpy(a).to("cuda")
+            for a in (idx, np.stack(chans, axis=1))] + [exact]
+
+
+def check_stats_hist(torch, rng) -> dict:
+    """B3 against its plain version on the card: counts bit-equal,
+    weighted channels within STATS_TOL of the plain value, a relaunch
+    bit-identical.  Returns the max |kernel - plain| seen."""
+    from shifu_tpu_torch.ops import stats_hist as sh
+    err = 0.0
+    for n, c, b, s in STATS_CASES:
+        idx, st, exact = stats_inputs(torch, rng, n, c, b, s)
+        got = sh.stats_histograms(idx, st, b, exact)
+        again = sh.stats_histograms(idx, st, b, exact)
+        want = sh.stats_histograms_ref(idx, st, b)
+        torch.cuda.synchronize()
+        where = f"N={n} C={c} B={b} S={s}"
+        d = (got - want).abs()
+        if got.shape != (c, b, s) or not torch.equal(got, again):
+            fail(f"stats_hist: two launches differ at {where}")
+        if not torch.equal(got[..., :2], want[..., :2]):
+            fail(f"stats_hist counts != plain version at {where}")
+        if not bool((d <= STATS_TOL * want.abs()).all()):
+            fail(f"stats_hist weighted cells beyond {STATS_TOL} relative "
+                 f"at {where} (max |d| {d.max().item()})")
+        err = max(err, d.max().item())
+        log(f"stats_hist == plain version at {where}: counts equal, max "
+            f"|d| {d.max().item():.3g}, relaunch bit-equal")
+        del idx, st, got, again, want, d
+    return {"stats_hist": err}
+
+
+def write_stats_csv(path: str, rng, plan, n: int) -> float:
+    """The raw data of the smoke's column plan as a '|'-delimited CSV, its
+    header row in ``<path>.header``: 224 numeric columns (~5% empty cells), 32 categorical
+    columns of their 20-60 categories, an integer ``weight`` 1..3 and a
+    ``tag`` (bad/good) drawn from a logit on two numeric columns and one
+    categorical.  Returns the positive rate."""
+    cols, names = [], []
+    logit = np.full(n, -1.0)
+    for j, (kind, name, a, b) in enumerate(plan):
+        if kind == "num":
+            v = rng.normal(a, b, size=n)
+            if j < 2:
+                logit += (v - a) / b
+            cells = np.array([f"{x:.6g}" for x in v], dtype=object)
+            cells[rng.random(n) < 0.05] = ""
+        else:
+            k = rng.integers(0, len(a), size=n)
+            if j == N_NUM:
+                logit += rng.normal(0, 1, size=len(a))[k]
+            cells = np.asarray(a, dtype=object)[k]
+        cols.append(cells)
+        names.append(name)
+    y = rng.random(n) < 1.0 / (1.0 + np.exp(-logit))
+    cols.append(rng.integers(1, 4, size=n).astype(str).astype(object))
+    cols.append(np.where(y, "bad", "good").astype(object))
+    with open(path + ".header", "w") as f:
+        f.write("|".join(names + ["weight", "tag"]) + "\n")
+    with open(path, "w") as f:
+        f.write("\n".join("|".join(r) for r in zip(*cols)) + "\n")
+    return float(y.mean())
+
+
+def stats_cli(d: str, device: str, *props: str) -> float:
+    from shifu_tpu_torch import cli
+    t0 = time.perf_counter()
+    rc = cli.main(["--dir", d, *props, "stats", "--device", device])
+    if rc != 0:
+        fail(f"stats on {device} exited {rc} in {d}")
+    return time.perf_counter() - t0
+
+
+def compare_column_configs(got, want, where="", worst=None) -> dict:
+    """Integers, strings, categories and binBoundary equal; floats within
+    CARD_CPU_RTOL relative + CARD_CPU_ATOL.  Returns the largest float
+    difference seen, absolute and relative, with where each was."""
+    if worst is None:
+        worst = {"abs": (0.0, ""), "rel": (0.0, "")}
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            fail(f"ColumnConfig keys differ at {where}")
+        for k in want:
+            compare_column_configs(got[k], want[k], f"{where}.{k}", worst)
+    elif isinstance(want, list) and not where.endswith(".binBoundary"):
+        if not isinstance(got, list) or len(got) != len(want):
+            fail(f"ColumnConfig lists differ at {where}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            compare_column_configs(g, w, f"{where}[{i}]", worst)
+    elif isinstance(want, float) and isinstance(got, float) and got != want:
+        d = abs(got - want)
+        if d > CARD_CPU_RTOL * abs(want) + CARD_CPU_ATOL:
+            fail(f"card vs CPU ColumnConfig {where}: {got} vs {want}")
+        worst["abs"] = max(worst["abs"], (d, where))
+        worst["rel"] = max(worst["rel"], (d / abs(want), where))
+    elif got != want:
+        fail(f"card vs CPU ColumnConfig {where}: {got!r} vs {want!r}")
+    return worst
+
+
+def stats_phase(torch, root: str, plan, rng) -> dict:
+    """``new → init → stats`` through the CLI a user calls, on the card:
+    a synthetic CSV at the full width of the column plan (CSV_ROWS rows,
+    a cut in rows only), chunks of CSV_CHUNK rows and a fused budget that
+    keeps 2 of the 4 chunks resident and overflows 2 into the provisional
+    grid.  The ``stats_hist`` count is zeroed just before ``stats`` and
+    read just after (4 launches: one a chunk).  The same set's ``stats``
+    on the CPU must give the same ColumnConfig.json (see
+    compare_column_configs)."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config import ModelConfig, environment
+    from shifu_tpu_torch.config.path_finder import PathFinder
+    from shifu_tpu_torch.data import parsepool
+    from shifu_tpu_torch.data.extract import ChunkExtractor
+    from shifu_tpu_torch.data.reader import DataSource
+    from shifu_tpu_torch.ops import stats_hist as sh
+    from shifu_tpu_torch.config import load_column_configs
+    base = os.path.join(root, "stats")
+    os.makedirs(base)
+    csv = os.path.join(base, "data.csv")
+    t0 = time.perf_counter()
+    pos_rate = write_stats_csv(csv, rng, plan, CSV_ROWS)
+    log(f"stats CSV written in {time.perf_counter() - t0:.2f} s: {CSV_ROWS} "
+        f"rows x {N_COLS + 2} fields, positive rate {pos_rate:.4f}")
+    if cli.main(["--dir", base, "new", "card"]) != 0:
+        fail("new exited non-zero")
+    d = os.path.join(base, "card")
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    ds = mc.dataSet
+    ds.dataPath, ds.dataDelimiter, ds.targetColumnName = csv, "|", "tag"
+    ds.posTags, ds.negTags, ds.weightColumnName = ["bad"], ["good"], "weight"
+    ds.headerPath, ds.headerDelimiter = csv + ".header", "|"
+    mc.save(os.path.join(d, "ModelConfig.json"))
+    t0 = time.perf_counter()
+    if cli.main(["--dir", d, "init"]) != 0:
+        fail("init exited non-zero")
+    init_s = time.perf_counter() - t0
+    ccs = load_column_configs(os.path.join(d, "ColumnConfig.json"))
+    kinds = [(c.is_categorical(), c.is_candidate()) for c in ccs]
+    if kinds.count((False, True)) != N_NUM or \
+            kinds.count((True, True)) != N_CAT:
+        fail(f"init typed {kinds.count((False, True))} numeric and "
+             f"{kinds.count((True, True))} categorical candidates")
+    cpu_dir = os.path.join(base, "cpu")
+    shutil.copytree(d, cpu_dir)
+
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    budget = f"-Dshifu.stats.fusedBudgetBytes={2 * CHUNK_BYTES}"
+    try:
+        sh.stats_histograms_cuda.launches = 0
+        wall = stats_cli(d, "cuda", budget)
+        launches = sh.stats_histograms_cuda.launches
+        cpu_wall = stats_cli(cpu_dir, "cpu", budget)
+        # the host parse alone: the same chunks through the extractor
+        mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+        src = DataSource(csv, "|", header_path=csv + ".header")
+        ex = ChunkExtractor(mc, load_column_configs(
+            PathFinder(mc, d).column_config_path))
+        t0 = time.perf_counter()
+        for chunk in src.iter_chunks(CSV_CHUNK):
+            ex.extract(chunk)
+        parse_s = time.perf_counter() - t0
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+        environment.reset_for_tests()       # drop the -D budget
+    if launches != CSV_ROWS // CSV_CHUNK:
+        fail(f"stats launched stats_hist {launches} times for "
+             f"{CSV_ROWS // CSV_CHUNK} chunks")
+    with open(os.path.join(d, "tmp", "profile.json")) as f:
+        phases = json.load(f)["STATS"]["phases_s"]
+    with open(os.path.join(d, "ColumnConfig.json")) as f:
+        card = json.load(f)
+    with open(os.path.join(cpu_dir, "ColumnConfig.json")) as f:
+        cpu = json.load(f)
+    numeric = [c for c in card if c["columnBinning"].get("binBoundary")]
+    for c in numeric:
+        st, bn = c["columnStats"], c["columnBinning"]
+        if st["totalCount"] != CSV_ROWS or \
+                sum(bn["binCountPos"]) + sum(bn["binCountNeg"]) != CSV_ROWS \
+                or len(bn["binBoundary"]) < 2 \
+                or not all(math.isfinite(v) for v in bn["binBoundary"][1:]):
+            fail(f"stats wrote a bad numeric column {c['columnName']}")
+    if len(numeric) != N_NUM:
+        fail(f"{len(numeric)} numeric columns binned, not {N_NUM}")
+    if len(card) != len(cpu):
+        fail(f"{len(card)} columns on the card, {len(cpu)} on the CPU")
+    worst = None
+    for a, b in zip(card, cpu):
+        worst = compare_column_configs(a, b, a["columnName"], worst)
+    cells = CSV_ROWS * (N_COLS + 2)
+    log(f"main path (stats): new + init ({init_s:.2f} s) + stats on the "
+        f"card in {wall:.3f} s ({phases}); {launches} stats_hist launches; "
+        f"card vs CPU ColumnConfig: counts, categories and boundaries "
+        f"equal, floats within {worst['abs'][0]:.3g} absolute (at "
+        f"{worst['abs'][1]}) and {worst['rel'][0]:.3g} relative (at "
+        f"{worst['rel'][1]}); CPU stats {cpu_wall:.2f} s; the host parse "
+        f"alone takes {parse_s:.3f} s, "
+        f"{parse_s * 1e6 / cells:.3f} us a cell")
+    return {"launches": {"stats_hist": launches}, "wall_s": wall,
+            "init_s": init_s, "cpu_wall_s": cpu_wall, "phases_s": phases,
+            "parse_s": parse_s, "parse_us_per_cell": parse_s * 1e6 / cells,
+            "float_diff": worst}
+
+
+def resident_phase(torch, seed: int) -> dict:
+    """The port's NumericAccumulator on the card at a deployment's size:
+    weighted (S = 4), RESIDENT_CHUNKS chunks of 262,144 rows x 224
+    columns made on the card from ``seed``; with the default 1 GiB fused
+    budget 3 chunks stay resident and 5 overflow, so both sides of
+    finalize_fused run at full size.  Times each chunk update and the
+    finalize, counts B3 launches (zeroed just before), reads the peak
+    device memory; then holds the first two chunks against the CPU path
+    (counts and boundaries equal)."""
+    from shifu_tpu_torch.config.model_config import BinningMethod
+    from shifu_tpu_torch.ops import stats_hist as sh
+    from shifu_tpu_torch.ops.binning import NumericAccumulator
+    gen = torch.Generator(device="cuda")
+
+    def chunk(i):
+        gen.manual_seed(seed * 1000 + i)
+        n, c = RESIDENT_ROWS, N_NUM
+        shift = torch.arange(c, device="cuda", dtype=torch.float32)
+        x = torch.randn((n, c), generator=gen, device="cuda") \
+            * (1.0 + shift / 16) + shift
+        valid = torch.rand((n, c), generator=gen, device="cuda") > 0.05
+        t = (torch.rand(n, generator=gen, device="cuda") < 0.3).float()
+        w = torch.rand(n, generator=gen, device="cuda") * 2.5 + 0.5
+        return x, valid, t, w
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    acc = NumericAccumulator(n_cols=N_NUM, device="cuda")
+    sh.stats_histograms_cuda.launches = 0
+    update_ms = []
+    for i in range(RESIDENT_CHUNKS):
+        args = chunk(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc.update_fused(*args)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        del args
+    resident = len(acc._fused_chunks)
+    t0 = time.perf_counter()
+    acc.finalize_fused()
+    sketch = acc.finalize_sketch(BinningMethod.EqualPositive, 10)
+    torch.cuda.synchronize()
+    finalize_ms = (time.perf_counter() - t0) * 1e3
+    launches = sh.stats_histograms_cuda.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    if launches != RESIDENT_CHUNKS or resident != 3:
+        fail(f"resident accumulator: {launches} stats_hist launches, "
+             f"{resident} chunks kept")
+    if any(len(b) < 2 for b in sketch[0]):
+        fail("resident accumulator left a column unbinned")
+    del acc, sketch
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        acc = NumericAccumulator(n_cols=N_NUM, device=dev)
+        for i in range(2):
+            acc.update_fused(*(a.to(dev) for a in chunk(i)))
+        acc.finalize_fused()
+        out.append(acc.finalize_sketch(BinningMethod.EqualPositive, 10))
+        del acc
+    (bg, ag, pg, dg), (bc, ac, pc, dc) = out
+    for j in range(N_NUM):
+        if not (np.array_equal(bg[j], bc[j])
+                and np.array_equal(ag[j][:, :2], ac[j][:, :2])):
+            fail(f"resident accumulator: card vs CPU counts or boundaries "
+                 f"differ at column {j}")
+    if not (np.array_equal(pg, pc) and np.array_equal(dg, dc)):
+        fail("resident accumulator: card vs CPU percentiles differ")
+    per_chunk = float(np.median(update_ms))
+    log(f"resident accumulator: {RESIDENT_CHUNKS} chunks of {RESIDENT_ROWS} "
+        f"x {N_NUM} weighted, {resident} resident; update "
+        f"{per_chunk:.3f} ms a chunk (median; all {[round(v, 3) for v in update_ms]}), "
+        f"finalize {finalize_ms:.3f} ms, {launches} stats_hist launches, "
+        f"peak device memory {peak / 2**30:.3f} GiB; first 2 chunks: "
+        "card == CPU counts, boundaries, percentiles")
+    return {"launches": launches, "update_ms": update_ms,
+            "update_ms_median": per_chunk, "finalize_ms": finalize_ms,
+            "peak_bytes": peak, "resident_chunks": resident}
+
 # ------------------------------------------------------- phase: timing
 def time_kernels(torch, tq, rng, gpu: str) -> dict:
     sf, lm, lv = random_forest(rng, N_TREES, DEPTH, N_BINS, N_COLS)
@@ -862,6 +1194,44 @@ def time_hist(torch, rng, gpu: str) -> dict:
     return out
 
 
+def time_stats_hist(torch, rng, gpu: str) -> dict:
+    """B3 at the stats path's chunk, N=262,144 x 224 columns, 4096
+    buckets, for S=4 and S=2 on ``stats_inputs``' data: the kernel (its
+    wrapper's id transpose included), the plain version, and one
+    ``index_add_`` over the flattened (column, bucket) cell of every
+    valid cell (its index computed beforehand); the bound counts the ids,
+    stats and output once (``stats_hist_bytes``) and one add per valid
+    cell and channel."""
+    from shifu_tpu_torch.ops import stats_hist as sh
+    out = {}
+    n, c, b = RESIDENT_ROWS, N_NUM, STATS_BUCKETS
+    for s in (4, 2):
+        idx, st, exact = stats_inputs(torch, rng, n, c, b, s)
+        ms = device_ms(torch, lambda: sh.stats_histograms(idx, st, b, exact))
+        plain_ms = device_ms(torch, lambda: sh.stats_histograms_ref(
+            idx, st, b), launches=2, repeats=3)
+        ok = idx >= 0
+        flat = (idx.long() + torch.arange(c, device="cuda") * b)[ok]
+        src = st[:, None, :].expand(n, c, s)[ok]
+        acc = torch.zeros((c * b, s), device="cuda")
+        library_ms = device_ms(torch, lambda: acc.index_add_(0, flat, src),
+                               launches=3, repeats=5)
+        nbytes = sh.stats_hist_bytes(idx, st, b)
+        valid = int(flat.numel())
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = valid * s / INT_OPS_PER_S * 1e3
+        out[s] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms
+                  else "operations", "bytes": nbytes, "valid_cells": valid}
+        log(f"stats_hist N={n} C={c} B={b} S={s}: kernel {ms:.5f} ms, "
+            f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
+            f"bound {out[s]['bound_ms']:.6f} ms ({out[s]['bound_by']}: "
+            f"{nbytes / 1e6:.3f} MB, {valid} valid cells) — [{gpu}]")
+        del idx, st, ok, flat, src, acc
+    return out
+
+
 def time_transform(torch, root: str, plan, rng, gpu: str) -> dict:
     """The device transform at the top rung, as the scorer runs it for a
     tree-only ensemble (bins only) and with its x blocks too: host wall
@@ -917,7 +1287,7 @@ def main() -> None:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    built = cuda_lib.build(["tree_traverse", "hist"])
+    built = cuda_lib.build(["tree_traverse", "hist", "stats_hist"])
     for name, (path, build_log) in built.items():
         log(f"built {name} -> {os.path.relpath(path)}")
         for line in build_log.splitlines():
@@ -928,6 +1298,7 @@ def main() -> None:
 
     errs = check_kernels(torch, tq, rng)
     errs.update(check_hist(torch, rng))
+    errs.update(check_stats_hist(torch, rng))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         serve_root = os.path.join(root, "serve")
         os.makedirs(serve_root)
@@ -935,6 +1306,8 @@ def main() -> None:
         served = serve_phase(torch, tq, serve_root, plan, rng)
         time_transform(torch, serve_root, plan, rng, gpu)
         trained = train_phase(torch, root, serve_root, plan, rng)
+        stats = stats_phase(torch, root, plan, rng)
+    resident = resident_phase(torch, args.seed)
     want = TRAIN_TREES * DEPTH
     if trained["launches"]["hist"] != want:
         fail(f"hist launched {trained['launches']['hist']} times on the "
@@ -942,6 +1315,7 @@ def main() -> None:
              "levels)")
     times = time_kernels(torch, tq, rng, gpu)
     hist_times = time_hist(torch, rng, gpu)
+    stats_times = time_stats_hist(torch, rng, gpu)
     ms_tree = trained["chunk"]["ms_per_tree"]
     ph = trained["phases_s"]
     log(f"full-width train: {ms_tree:.3f} ms per tree device-resident, "
@@ -980,7 +1354,28 @@ def main() -> None:
         "at_1_node": {k: hist_times[1][k] for k in
                       ("ms", "plain_ms", "library_ms", "bound_ms",
                        "bound_by")},
+        "gpu": gpu}, {
+        "name": "stats_hist", "route": "cuda",
+        "source": "shifu_tpu_torch/csrc/stats_hist.cu",
+        "replaces": "shifu_tpu/ops/hist_pallas.py:534",
+        "launches": stats["launches"]["stats_hist"],
+        "resident_launches": resident["launches"],
+        "max_abs_err": errs["stats_hist"],
+        "ms": stats_times[4]["ms"], "plain_ms": stats_times[4]["plain_ms"],
+        "bound_ms": stats_times[4]["bound_ms"],
+        "bound_by": stats_times[4]["bound_by"],
+        "library_ms": stats_times[4]["library_ms"],
+        "shape": f"N={RESIDENT_ROWS} C={N_NUM} B={STATS_BUCKETS} S=4",
+        "at_2_channels": {k: stats_times[2][k] for k in
+                          ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_by")},
         "gpu": gpu}]
+    log(f"stats: {CSV_ROWS} rows x {N_COLS + 2} fields through new/init/"
+        f"stats in {stats['init_s'] + stats['wall_s']:.2f} s (stats "
+        f"{stats['wall_s']:.3f} s, host parse {stats['parse_us_per_cell']:.3f}"
+        f" us a cell); resident accumulator {resident['update_ms_median']:.3f}"
+        f" ms a 262,144-row chunk, finalize {resident['finalize_ms']:.3f} ms, "
+        f"peak {resident['peak_bytes'] / 2**30:.3f} GiB — [{gpu}]")
     log(f"served {served['batches']} batches; max |card - cpu| "
         f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} trees; "
         f"total {time.perf_counter() - t_all:.1f} s")

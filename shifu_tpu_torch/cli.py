@@ -1,10 +1,14 @@
 """shifu-tpu-torch CLI — the port's counterpart of ``shifu_tpu.cli``.
 
-The port carries the ``serve`` and ``train`` commands.  ``-Dkey=value``
-properties go to the Environment tier as in the reference; ``--device``
-picks where the port runs (default ``cuda``; ``cpu`` runs the plain
-PyTorch versions).
+The port carries the ``new``, ``init``, ``stats``, ``train`` and
+``serve`` commands.  ``-Dkey=value`` properties go to the Environment tier
+as in the reference; ``--device`` picks where the port runs (default
+``cuda``; ``cpu`` runs the plain PyTorch versions).  ``new`` and ``init``
+run on the host.
 
+    python -m shifu_tpu_torch.cli --dir <base> new <name>
+    python -m shifu_tpu_torch.cli --dir <modelset> init [-model]
+    python -m shifu_tpu_torch.cli --dir <modelset> stats [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> serve [--port N]
     python -m shifu_tpu_torch.cli --dir <modelset> serve --selfcheck 4 --device cpu
     python -m shifu_tpu_torch.cli --dir <modelset> train [-resume] [--device cpu]
@@ -35,10 +39,25 @@ def _split_props(argv: List[str]) -> List[str]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shifu-tpu-torch",
-        description="PyTorch/CUDA port of shifu-tpu (serve, GBT train)")
+        description="PyTorch/CUDA port of shifu-tpu (new, init, stats, "
+        "GBT train, serve)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
+
+    sp = sub.add_parser("new", help="create a new model-set scaffold")
+    sp.add_argument("name")
+
+    sp = sub.add_parser("init",
+                        help="build the initial ColumnConfig.json from the "
+                        "header, typing columns from a sample")
+    sp.add_argument("-model", dest="init_model", action="store_true",
+                    help="fill the algorithm's default train#params into "
+                    "ModelConfig.json (reference `init -model`)")
+
+    sp = sub.add_parser("stats", help="per-column stats + binning (fine "
+                        "histograms on the device)")
+    _device_arg(sp)
 
     sp = sub.add_parser("serve", help="online scoring server: the trained "
                         "ensemble pinned on the device behind a padded-"
@@ -77,6 +96,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose
                         else logging.WARNING)
+    if args.command == "new":
+        from .pipeline.create import create_new_model
+        create_new_model(args.name, base_dir=args.dir)
+        return 0
+    if args.command == "init":
+        from .pipeline.create import InitProcessor, check_algorithm_param
+        if args.init_model:
+            return check_algorithm_param(args.dir)
+        return InitProcessor(args.dir).run()
+    if args.command == "stats":
+        from .pipeline.stats import StatsProcessor
+        return StatsProcessor(args.dir, device=args.device).run()
     if args.command == "serve":
         from .serve.server import run_serve
         return run_serve(args.dir, port=args.serve_port,

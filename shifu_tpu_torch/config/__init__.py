@@ -4,5 +4,6 @@ from .model_config import (  # noqa: F401
 )
 from .column_config import (  # noqa: F401
     ColumnBinning, ColumnConfig, ColumnFlag, ColumnStats, ColumnType,
-    load_column_configs, save_column_configs, selected_columns,
+    build_initial_column_configs, load_column_configs, save_column_configs,
+    selected_columns,
 )

@@ -1,6 +1,6 @@
 """ColumnConfig — per-column metadata (the port's copy of
-``shifu_tpu.config.column_config``: the bean, its JSON io and
-``selected_columns``; the init-time helpers stay in the reference).
+``shifu_tpu.config.column_config``: the bean, its JSON io, the init-time
+helpers and NSColumn name matching).
 
 Mirrors reference ``container/obj/ColumnConfig.java`` (+ ``ColumnStats.java``,
 ``ColumnBinning.java``): one entry per input column holding type, flag,
@@ -181,3 +181,88 @@ def selected_columns(configs: List[ColumnConfig]) -> List[ColumnConfig]:
     out = [c for c in configs
            if (c.finalSelect or c.is_force_select()) and c.is_candidate()]
     return sorted(out, key=lambda c: c.columnNum)
+
+
+# ----------------------------------------------------------------- helpers
+def build_initial_column_configs(header: List[str], target: Optional[str],
+                                 meta_cols: Optional[List[str]] = None,
+                                 categorical_cols: Optional[List[str]] = None,
+                                 weight_col: Optional[str] = None) -> List[ColumnConfig]:
+    """``shifu init``: one ColumnConfig per header column with flags assigned
+    (reference ``InitModelProcessor.java:74,89``)."""
+    # NSColumn matching throughout: a bare name in a column file matches
+    # its namespaced variants in the header and vice versa
+    meta = set(meta_cols or [])
+    cate = set(categorical_cols or [])
+    configs = []
+    for i, name in enumerate(header):
+        cc = ColumnConfig(columnNum=i, columnName=name)
+        if target is not None and ns_match(name, target):
+            cc.columnFlag = ColumnFlag.Target
+            cc.columnType = ColumnType.C
+        elif weight_col is not None and ns_match(name, weight_col):
+            cc.columnFlag = ColumnFlag.Weight
+        elif ns_in(name, meta):
+            cc.columnFlag = ColumnFlag.Meta
+        if ns_in(name, cate):
+            cc.columnType = ColumnType.C
+        configs.append(cc)
+    return configs
+
+
+def candidate_columns(configs: List[ColumnConfig]) -> List[ColumnConfig]:
+    return [c for c in configs if c.is_candidate()]
+
+
+def target_column(configs: List[ColumnConfig]) -> Optional[ColumnConfig]:
+    for c in configs:
+        if c.is_target():
+            return c
+    return None
+
+
+# -------------------------------------------------------- namespaced names
+NS_DELIMITER = "::"          # reference Constants.NAMESPACE_DELIMITER
+
+
+def ns_simple(name: str) -> str:
+    """The simple (last) identifier of a possibly-namespaced column name —
+    reference ``column/NSColumn.java``: 'raw::a::amount' -> 'amount'."""
+    return name.rsplit(NS_DELIMITER, 1)[-1] if NS_DELIMITER in name else name
+
+
+def read_column_name_file(path, base_dir: str = ".") -> set:
+    """One-name-per-line column file (force/meta/candidate lists):
+    blank lines and '#' comments skipped; the one reader of such files,
+    so every step interprets a file alike."""
+    if not path:
+        return set()
+    p = path if os.path.isabs(path) else os.path.join(base_dir, path)
+    if not os.path.isfile(p):
+        return set()
+    out = set()
+    with open(p) as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#"):
+                out.add(line)
+    return out
+
+
+def ns_match(a: str, b: str) -> bool:
+    """NSColumn equality: exact full-name match, or a BARE name matching a
+    namespaced variant of it (``NSColumn.equals``).  Two different
+    namespaces never match — 'a::score' names a different column than
+    'b::score'."""
+    if a == b:
+        return True
+    if (NS_DELIMITER in a) != (NS_DELIMITER in b):
+        return ns_simple(a) == ns_simple(b)
+    return False
+
+
+def ns_in(name: str, names) -> bool:
+    """``name`` matches any entry of ``names`` under NSColumn equality."""
+    if name in names:          # fast path: exact
+        return True
+    return any(ns_match(name, other) for other in names)

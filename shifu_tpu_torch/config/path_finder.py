@@ -1,7 +1,7 @@
 """PathFinder — where each step reads and writes inside a model-set
 directory; the port's copy of the paths ``shifu_tpu.config.path_finder``
-gives the train step (reference ``fs/PathFinder.java``), so both packages
-read and write the same files."""
+gives the init, stats and train steps (reference ``fs/PathFinder.java``),
+so both packages read and write the same files."""
 
 from __future__ import annotations
 
@@ -74,6 +74,10 @@ class PathFinder:
     @property
     def progress_path(self) -> str:
         return os.path.join(self.tmp_dir, "train.progress")
+
+    @property
+    def backup_dir(self) -> str:
+        return os.path.join(self.root, ".backup")
 
     def ensure_dirs(self) -> None:
         for d in (self.tmp_dir, self.stats_dir, self.models_dir,

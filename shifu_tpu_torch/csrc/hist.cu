@@ -51,13 +51,16 @@
 // column stride is odd, so 32 threads on 32 neighbouring columns hit 32
 // distinct banks.  Each block
 // then adds its non-zero cells into a 64-bit global accumulator, and a
-// second kernel converts it to f32.  Not done yet (later work): staging
+// second kernel converts it to f32.  channel_exp and add_u64 live in
+// fixed_point.cuh, shared with stats_hist.cu.  Not done yet (later work): staging
 // rows with cp.async/TMA, vector bin loads, partitioning rows by node so
 // that deep levels stop re-reading every node id once per node tile.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fixed_point.cuh"
 
 namespace {
 
@@ -71,26 +74,8 @@ constexpr int kWantCols = 32;
 constexpr int kTargetBlocks = 528;                   // two waves, 2 x 132
 constexpr long long kMinRowsPerBlock = 1024;
 
-// Exponent e of channel scale 2^e: amax * n_rows * 2^e < 2^62.
-__device__ __forceinline__ int channel_exp(float amax, long long n_rows) {
-  const double t = (double)amax * (double)(n_rows > 0 ? n_rows : 1);
-  if (!(t > 0.0) || isinf(t)) return 0;   // all-zero or non-finite channel
-  int p;
-  frexp(t, &p);                           // t < 2^p
-  return 62 - p;
-}
-
-// Adds q to the 64-bit cell held as two 32-bit words: the low word's
-// atomicAdd returns its old value, so its carry is known exactly and goes
-// into the high word with q's upper half.  Whatever the interleaving,
-// every call moves hi * 2^32 + lo by exactly q (mod 2^64), and both words
-// take the hardware's native 32-bit shared-memory atomics.
-__device__ __forceinline__ void add_u64(unsigned* lo, unsigned* hi,
-                                        long long q) {
-  const unsigned ql = (unsigned)q;
-  const unsigned old = atomicAdd(lo, ql);
-  atomicAdd(hi, (unsigned)(q >> 32) + (old + ql < old ? 1u : 0u));
-}
+using shifu::add_u64;
+using shifu::channel_exp;
 
 // Shared memory, in this order: channel scales double[S]; quantised stats
 // of the compacted rows long long[tile_rows * S]; the sub-histogram's low

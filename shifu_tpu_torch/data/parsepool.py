@@ -1,0 +1,159 @@
+"""Parse pool — the offline pipeline's shared parse stage; the port's copy
+of ``shifu_tpu.data.parsepool`` without the raw cache.
+
+:func:`iter_extracted` yields ``(chunk_idx, ExtractedChunk)`` in strict
+chunk order, either inline (``-Dshifu.ingest.parseWorkers=0``) or with one
+producer thread streaming raw chunks and a pool of parse threads
+(default ``min(cores, 8)``), emission FIFO behind a bounded queue — callers
+see the serial sequence either way.  Pre-parse Bernoulli sampling uses one
+deterministic per-chunk substream (``rng([977, chunk_idx])``) over the
+chunk's RAW row count.
+
+The reference's columnar raw cache (``shifu_tpu.data.rawcache``) is not
+ported (ROADMAP Queue 1 item 1): every pass parses from text, which is the
+reference's own path when it has no cache, with the same arrays.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+from .extract import ChunkExtractor, ExtractedChunk
+
+RAW_SAMPLE_SEED = 977          # pre-parse sample substream (stats plane)
+
+# default raw chunk geometry (rows per chunk); tests shrink it to force
+# multi-chunk runs
+CHUNK_ROWS = 262144
+
+
+def parse_workers() -> int:
+    """``shifu.ingest.parseWorkers``: <0 (default) = auto ``min(cores,
+    8)``; 0 = inline serial path; N = that many parse threads."""
+    from ..config import environment
+    w = environment.get_int("shifu.ingest.parseWorkers", -1)
+    if w < 0:
+        w = min(os.cpu_count() or 1, 8)
+    return w
+
+
+def sample_raw_mask(raw_rows: int, rate: float, chunk_idx: int) -> np.ndarray:
+    """The deterministic pre-parse Bernoulli mask over a chunk's raw rows
+    (seeded per chunk over the RAW row count)."""
+    return np.random.default_rng(
+        [RAW_SAMPLE_SEED, chunk_idx]).random(raw_rows) < rate
+
+
+def _sample_chunk(chunk, rate: float, chunk_idx: int):
+    """Serial order: subset the raw rows BEFORE parsing."""
+    if rate >= 1.0 or len(chunk) == 0:
+        return chunk
+    return chunk.take(sample_raw_mask(len(chunk), rate, chunk_idx))
+
+
+def subsample_extracted(ex: ExtractedChunk, rate: float,
+                        chunk_idx: int) -> ExtractedChunk:
+    """Replay the same pre-parse sample AFTER a full parse —
+    ``mask[kept_idx]`` selects exactly the rows the sample-then-parse
+    order keeps, and row-wise parses commute with the subset."""
+    if rate >= 1.0:
+        return ex
+    smask = sample_raw_mask(ex.raw_rows, rate, chunk_idx)
+    sel = smask[ex.kept_idx] if ex.kept_idx is not None else \
+        np.zeros(ex.n, dtype=bool)
+    return ExtractedChunk(
+        n=int(sel.sum()), target=ex.target[sel], weight=ex.weight[sel],
+        numeric=ex.numeric[sel], numeric_valid=ex.numeric_valid[sel],
+        numeric_cols=ex.numeric_cols,
+        categorical={k: v[sel] for k, v in ex.categorical.items()},
+        categorical_cols=ex.categorical_cols,
+        kept_idx=ex.kept_idx[sel] if ex.kept_idx is not None else None,
+        raw_rows=ex.raw_rows)
+
+
+def iter_extracted(source, extractor: ChunkExtractor, *,
+                   rate: float = 1.0, start_chunk: int = 0,
+                   chunk_rows: Optional[int] = None
+                   ) -> Iterator[Tuple[int, ExtractedChunk]]:
+    """Yield ``(chunk_idx, ExtractedChunk)`` in strict chunk order — the
+    ``enumerate(source.iter_chunks())`` + ``extract()`` loop, with the
+    sample applied before the parse.  ``start_chunk`` skips extraction of
+    a prefix (its raw rows still stream past)."""
+    if chunk_rows is None:
+        chunk_rows = CHUNK_ROWS
+    workers = parse_workers()
+
+    def work(ci, chunk):
+        return extractor.extract(_sample_chunk(chunk, rate, ci))
+
+    if workers <= 0:
+        for ci, chunk in enumerate(source.iter_chunks(chunk_rows)):
+            if ci >= start_chunk:
+                yield ci, work(ci, chunk)
+        return
+    yield from _pooled(source, work, start_chunk, chunk_rows, workers)
+
+
+def _pooled(source, work, start_chunk, chunk_rows, workers):
+    """Producer thread streams chunks in order; a thread pool parses;
+    emission is strictly FIFO behind a bounded future queue."""
+    import queue
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    pend: "queue.Queue" = queue.Queue(maxsize=max(2 * workers, 2))
+    stop = threading.Event()
+    exc: list = []
+
+    def produce(pool):
+        try:
+            for ci, chunk in enumerate(source.iter_chunks(chunk_rows)):
+                if ci < start_chunk:
+                    continue           # skipped prefix: stream past
+                item = (ci, pool.submit(work, ci, chunk))
+                while not stop.is_set():
+                    try:
+                        pend.put(item, timeout=0.05)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    item[1].cancel()
+                    return
+        except BaseException as e:     # a read error surfaces in order
+            exc.append(e)
+        finally:
+            while not stop.is_set():
+                try:
+                    pend.put(None, timeout=0.05)
+                    break
+                except queue.Full:
+                    continue
+
+    with ThreadPoolExecutor(max_workers=workers,
+                            thread_name_prefix="parse") as pool:
+        prod = threading.Thread(target=produce, args=(pool,), daemon=True,
+                                name="parse-producer")
+        prod.start()
+        try:
+            while True:
+                item = pend.get()
+                if item is None:
+                    break
+                ci, fut = item
+                yield ci, fut.result()
+        finally:
+            stop.set()
+            while True:                # unblock a put-blocked producer
+                try:
+                    item = pend.get_nowait()
+                    if item is not None:
+                        item[1].cancel()
+                except queue.Empty:
+                    break
+            prod.join(timeout=10)
+    if exc:
+        raise exc[0]

@@ -1,18 +1,20 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``shifu_tpu_torch/csrc/<name>.cu`` exposes a plain C entry point and
-is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
-under ``build/shifu_tpu_torch/`` beside the package (override with
+Each ``shifu_tpu_torch/csrc/<name>.cu`` exposes a plain C entry point (it
+may include the shared ``csrc/*.cuh`` headers) and is compiled with
+``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/shifu_tpu_torch/`` beside the package (override with
 ``SHIFU_TORCH_BUILD_DIR``), then loaded with :mod:`ctypes`.  Nothing is
 built at import time: a kernel's wrapper calls :func:`load` on its first
 CUDA launch, so the package imports on a machine without ``nvcc``.  The
-library name carries a digest of the source and flags, so an edited source
-rebuilds and a stale library is never loaded.
+library name carries a digest of the source, the headers and the flags, so
+an edited source rebuilds and a stale library is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -51,11 +53,16 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Tuple[str, str]:
+    """The source of kernel ``name`` and its library path; the digest
+    covers the source, every shared header it may include and the
+    flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()) \
-            .hexdigest()[:16]
-    return src, os.path.join(build_dir(), f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(build_dir(),
+                             f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> Dict[str, Tuple[str, str]]:

@@ -9,9 +9,10 @@ reads the other's journals).
 - steps with resumable sub-work (norm shards, stats chunks) record one
   **item** per committed unit with the exact byte sizes of its files;
   downstream preconditions (train needs norm) check journal completeness
-  and those sizes, not mere file existence.  Writing items, and arming a
-  resume from them, comes with the norm and stats slices (ROADMAP Queue 1
-  items 2 and 3); train only reads them.
+  and those sizes, not mere file existence.  Writing items, and resuming
+  from them, comes with the norm slice and the stats checkpoints (ROADMAP
+  Queue 1 items 2 and 3); stats binds its sweep signature
+  (:meth:`StepJournal.arm`) and train only reads items.
 
 A missing journal means "pre-journal artifacts, trust the files".
 """
@@ -84,6 +85,13 @@ class StepJournal:
         self.doc["status"] = COMPLETE
         if meta:
             self.doc.setdefault("meta", {}).update(meta)
+        self._flush()
+
+    def arm(self, signature: dict) -> None:
+        """Bind this run to ``signature``.  Items of an earlier run are
+        dropped: resuming from them is not ported yet."""
+        self.doc["signature"] = signature
+        self.doc["items"] = {}
         self._flush()
 
     # ------------------------------------------------------------- items

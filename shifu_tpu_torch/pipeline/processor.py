@@ -13,11 +13,13 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
 import time
 from typing import List, Optional
 
 from .. import DeviceLike, ioutil, resolve_device
-from ..config import (ColumnConfig, ModelConfig, load_column_configs)
+from ..config import (ColumnConfig, ModelConfig, load_column_configs,
+                      save_column_configs)
 from ..config.path_finder import PathFinder
 from ..config.validator import ModelStep, probe
 from .journal import StepJournal
@@ -31,7 +33,7 @@ class BasicProcessor:
     another, raising at construction when CUDA is asked for and absent."""
 
     step: ModelStep = ModelStep.NEW
-    require_columns: bool = True
+    require_columns: bool = True       # INIT creates ColumnConfig itself
 
     def __init__(self, model_set_dir: str = ".",
                  params: Optional[dict] = None, device: DeviceLike = None):
@@ -56,7 +58,7 @@ class BasicProcessor:
                 f"{mc_path} not found — run `shifu-tpu new <name>` first")
         self.model_config = ModelConfig.load(mc_path)
         self.paths = PathFinder(self.model_config, self.dir)
-        probe(self.model_config, self.step)
+        probe(self.model_config, self.step, self.dir)
         cc_path = self.paths.column_config_path
         if os.path.isfile(cc_path):
             self.column_configs = load_column_configs(cc_path)
@@ -107,6 +109,25 @@ class BasicProcessor:
                     "materialized norm shards no longer match their "
                     "journaled sizes (torn/corrupted artifact) — re-run "
                     "`norm`")
+
+    def _abs(self, p: Optional[str]) -> Optional[str]:
+        """Resolve a config-relative path against the model-set dir;
+        scheme'd URIs pass through for the reader to refuse."""
+        if p is None or "://" in p:
+            return p
+        return p if os.path.isabs(p) else os.path.normpath(
+            os.path.join(self.dir, p))
+
+    def save_column_configs(self) -> None:
+        save_column_configs(self.column_configs,
+                            self.paths.column_config_path)
+
+    def backup(self, path: str) -> None:
+        """Keep one backup generation of a config file before overwrite."""
+        if os.path.isfile(path):
+            os.makedirs(self.paths.backup_dir, exist_ok=True)
+            shutil.copy2(path, os.path.join(self.paths.backup_dir,
+                                            os.path.basename(path)))
 
     def run(self) -> int:
         t0 = time.time()

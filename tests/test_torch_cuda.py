@@ -1,7 +1,8 @@
 """Card-only tests of the port's hand-written CUDA kernels: each kernel
-(B4 ``tree_traverse``, B1 ``hist``) against its plain PyTorch version on
-the same numpy-seeded inputs; tree growth on the card against the CPU; and
-a GBT chunk run under ``torch.cuda.set_sync_debug_mode("error")``.
+(B4 ``tree_traverse``, B1 ``hist``, B3 ``stats_hist``) against its plain
+PyTorch version on the same numpy-seeded inputs; tree growth and the stats
+accumulator on the card against the CPU; and a GBT chunk run under
+``torch.cuda.set_sync_debug_mode("error")``.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -186,3 +187,89 @@ def test_gbt_chunk_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert packed.shape[0] == 2 and packed.dtype == torch.uint8
     assert bool(torch.isfinite(f2).all())
+
+
+def _stats_inputs(n, c, b, s, seed, invalid=0.05):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, b, size=(n, c)).astype(np.int32)
+    idx[rng.random((n, c)) < invalid] = -1
+    pos = (rng.random(n) < 0.3).astype(np.float32)
+    chans = [pos, 1.0 - pos]
+    for k in range(s - 2):              # weighted channels
+        w = rng.uniform(0.5, 3.0, n).astype(np.float32)
+        chans.append(w * (pos if k % 2 == 0 else 1.0 - pos))
+    return idx, np.stack(chans, axis=1), (True, True) + (False,) * (s - 2)
+
+
+@pytest.mark.parametrize("n,c,b,s", [
+    (262144, 224, 4096, 4), (262144, 224, 4096, 2), (1, 7, 64, 4),
+    (100003, 13, 64, 2), (5000, 5, 4096, 4), (0, 3, 64, 2),
+    (70001, 300, 64, 3)])
+def test_stats_hist_kernel_matches_plain_version(cuda, n, c, b, s):
+    """Counts bit-equal, weighted channels within 1e-6 of the cell's
+    value, a relaunch bit-identical.  Covers the stats path's shapes (one
+    block a column, writing f32 directly), few columns (rows split over
+    blocks that meet in the 64-bit accumulator), column groups of several
+    columns (C = 300), N not a multiple of the transpose tile or a block's
+    rows, N = 1 and N = 0."""
+    from shifu_tpu_torch.ops import stats_hist as sh
+    idx_h, st_h, exact = _stats_inputs(n, c, b, s, seed=n + c)
+    idx, st = _on(cuda, idx_h, st_h)
+    before = sh.stats_histograms_cuda.launches
+    got = sh.stats_histograms(idx, st, b, exact)
+    again = sh.stats_histograms(idx, st, b, exact)
+    torch.cuda.synchronize()
+    assert sh.stats_histograms_cuda.launches == before + 2
+    want = sh.stats_histograms_ref(idx, st, b)
+    assert got.shape == (c, b, s) and torch.equal(got, again)
+    assert torch.equal(got[..., :2], want[..., :2])
+    assert bool(((got - want).abs() <= 1e-6 * want.abs() + 1e-30).all())
+
+
+def test_stats_hist_kernel_never_takes_the_plain_version(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel (the plain version would raise
+    here) and refuses what it cannot take instead of falling back."""
+    from shifu_tpu_torch.ops import stats_hist as sh
+    idx, st = _on(cuda, *_stats_inputs(50, 3, 64, 2, seed=1)[:2])
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(sh, "stats_histograms_ref", no_plain)
+    assert sh.stats_histograms(idx, st, 64, (True, True)).shape == (3, 64, 2)
+    with pytest.raises(ValueError, match="idx"):
+        sh.stats_histograms(idx.long(), st, 64)
+    with pytest.raises(ValueError, match="stats"):
+        sh.stats_histograms(idx, st.double(), 64)
+    with pytest.raises(ValueError, match="S <= 4"):
+        sh.stats_histograms(idx, st.repeat(1, 3), 64)
+    with pytest.raises(ValueError, match="leading run"):
+        sh.stats_histograms(idx, st, 64, (False, True))
+
+
+@pytest.mark.parametrize("budget", [1 << 30, 40000])
+def test_numeric_accumulator_on_the_card_matches_the_cpu(cuda, budget):
+    """The fused sweep (resident, and overflowing into the provisional
+    grid) gives the CPU's counts, boundaries, percentiles and distinct
+    counts on the card; weighted sums within 1e-6 relative."""
+    from shifu_tpu_torch.config.model_config import BinningMethod
+    from shifu_tpu_torch.ops.binning import NumericAccumulator
+    rng = np.random.default_rng(8)
+    n, c = 3000, 6
+    x = rng.normal(size=(n, c)) * 5
+    valid = rng.random((n, c)) > 0.05
+    y = (rng.random(n) < 0.3).astype(float)
+    w = rng.uniform(0.5, 2.0, n)
+    out = []
+    for dev in ("cpu", "cuda"):
+        acc = NumericAccumulator(n_cols=c, device=dev, fused_budget=budget)
+        for s in range(0, n, 1000):
+            acc.update_fused(x[s:s + 1000], valid[s:s + 1000],
+                             y[s:s + 1000], w[s:s + 1000])
+        acc.finalize_fused()
+        out.append(acc.finalize_sketch(BinningMethod.EqualPositive, 10))
+    (bc, ac, pc, dc), (bg, ag, pg, dg) = out
+    for j in range(c):
+        assert np.array_equal(bc[j], bg[j])
+        assert np.array_equal(ac[j][:, :2], ag[j][:, :2])
+        assert np.allclose(ac[j], ag[j], rtol=1e-6, atol=1e-9)
+    assert np.array_equal(pc, pg) and np.array_equal(dc, dg)

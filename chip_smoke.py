@@ -24,6 +24,11 @@ measured on an H100).  It
    2, 100003 x 13 x 64 with S = 4 and 2, 4096 x 5 x 4096 x 2, 1 x 7 x
    4096 x 4} must give the plain version's count channels exactly, the
    weighted ones within 1e-6 of the plain value, and the same bits on a
+   second launch; ``hist_batch`` (the tree-batched histogram of the
+   Random Forest) over 8 trees of ``hist``'s data at N = 1,048,576 and K
+   in {1, 32, 4096} and over 7 int32 columns of 4001 bins at K=8 must give
+   every tree a ``hist`` launch's bits, the plain version's counts, w*g
+   within 1e-5 of the plain version on |stats|, and the same bits on a
    second launch;
 3. drives the port's serving path at full width: writes a synthetic GBT
    model set (ModelConfig.json, ColumnConfig.json with 224 numeric + 32
@@ -58,7 +63,22 @@ measured on an H100).  It
    trees on ``cuda`` and on ``cpu``, with equal split features on levels
    0-1, per-tree errors within 1e-4 relative and the two forests' AUCs
    (scored by ``tree_traverse``) within 0.005;
-5. drives the port's stats path through the CLI: writes the column
+5. drives the port's Random Forest path at full width: ``init -model``'s
+   RF params (TreeNum 10, MaxDepth 14, TWOTHIRDS, entropy, Loss squared)
+   plus CheckpointInterval 8 on the same 1,048,576-row plane through
+   ``cli.main train`` on ``cuda``, with exactly 14 ``hist_batch`` launches
+   (the 8-tree batch, one a level) and 28 ``hist`` launches (2 trees one
+   by one), counted from zero around the run; 32,767-node trees, a
+   falling out-of-bag error, an informative top feature, the peak device
+   memory.  Then: the two chunks again on resident tensors (the batch
+   under ``set_sync_debug_mode("error")``), each reproducing the CLI's
+   trees bit for bit, timed per tree with CUDA events around every
+   histogram launch and leaf-sum level; 8 trees, then ``train -resume`` to
+   10, bit-identical, its restored trees replayed through
+   ``tree_traverse``; and the plane's first 65,536 rows at depth 7 on
+   ``cuda`` and ``cpu``: bags equal (0 rows differ), levels 0-1 equal,
+   errors within 1e-4 relative, AUCs within 0.005;
+6. drives the port's stats path through the CLI: writes the column
    plan's raw data as a 16,384-row '|'-delimited CSV (224 numeric columns
    with ~5% empty cells, 32 categorical, ``weight``, ``tag``; a cut in
    rows, not width), runs ``new``, ``init`` (it must type 224 numeric and
@@ -75,18 +95,21 @@ measured on an H100).  It
    ms a chunk update and the finalize take and the peak device memory,
    and the first 2 chunks on ``cuda`` and ``cpu`` with equal counts,
    boundaries and percentiles;
-6. times each kernel (CUDA events, launches queued behind a spin kernel so
+7. times each kernel (CUDA events, launches queued behind a spin kernel so
    the host cannot starve the card) beside its plain version, one PyTorch
    call that computes the same function where there is one, and its bound
    (the larger of the bytes this data makes it move over 3.35 TB/s and its
    integer operations over 67 T/s): ``tree_traverse`` at the serving top
    rung N=512 and at N=65536, ``hist`` at N=1,048,576 and K=1 and 32,
    ``stats_hist`` at N=262,144 x 224 columns x 4096 buckets with S = 4 and
-   2 (``index_add_`` the PyTorch call); times the device transform at
+   2 (``index_add_`` the PyTorch call), ``hist_batch`` at TB=8, N =
+   1,048,576 and K in {1, 32, 4096} beside 8 ``hist`` launches and, where
+   it picks shared rows, the same launch with partitioned rows
+   (``scatter_add_`` the PyTorch call); times the device transform at
    N=512 with and without its x blocks; and reports ms per tree of the
    full-width train, with a ``torch.profiler`` breakdown of one tree's
    device time;
-7. prints one JSON line listing every ported kernel, then as its last line
+8. prints one JSON line listing every ported kernel, then as its last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -137,6 +160,11 @@ CSV_ROWS, CSV_CHUNK = 16384, 4096          # the stats CLI phase's cut
 CHUNK_BYTES = CSV_CHUNK * (5 * N_NUM + 8)  # what a kept chunk holds
 RESIDENT_CHUNKS, RESIDENT_ROWS = 8, 262144
 CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-5, 1e-4  # ColumnConfig floats, card/CPU
+HIST_BATCH = 8                             # B2's tree batch (RF_TREE_BATCH)
+HIST_BATCH_NODES = (1, 32, 4096)           # K: shallow levels, the deepest
+HIST_BATCH_WIDE = (1 << 20, 7, 4001, 8)    # N, C, B (int32 bins), K
+RF_TREES, RF_DEPTH, RF_CKPT = 10, 14, 8    # init -model's RF + a checkpoint
+RF_CUT_DEPTH = 7                           # card vs CPU on CUT_ROWS rows
 
 
 def fail(msg: str) -> None:
@@ -258,6 +286,73 @@ def check_hist(torch, rng) -> dict:
             f"{d.max().item():.3g}, relaunch bit-equal")
         del bins, node, stats, got, again, want, scale, d
     return {"hist": err}
+
+
+def batch_inputs(torch, rng, n, c, b, k, tb, dtype=np.uint8):
+    """B2 inputs on the card in ``hist_inputs``' style: shared uniform
+    bins; per tree node ids in [0, K) with ~30% of rows inactive and
+    stats [w, w*g], w a Poisson(1) bag times an integer weight 1..3 (so
+    ~37% of each tree's rows weigh 0), g ~ N(0, 1)."""
+    bins = rng.integers(0, b, size=(n, c), dtype=dtype)
+    node = rng.integers(0, k, size=(tb, n), dtype=np.int32)
+    node[rng.random((tb, n)) < 0.3] = -1
+    w = (rng.poisson(1.0, size=(tb, n))
+         * rng.integers(1, 4, size=n)).astype(np.float32)
+    stats = np.stack([w, w * rng.standard_normal((tb, n), np.float32)],
+                     axis=2)
+    return [torch.from_numpy(a).to("cuda") for a in (bins, node, stats)]
+
+
+def check_hist_batch(torch, rng) -> dict:
+    """B2 against B1 and its plain version: every tree's slice bit-equal
+    to a B1 launch on that tree's inputs, counts equal to the plain
+    version, w*g within HIST_TOL of the plain version run on |stats|, a
+    second launch bit-equal.  TB=8 at full width for each K in
+    HIST_BATCH_NODES (both kernel modes) and at one int32-bin shape.
+    Returns the max |kernel - plain| seen."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops.tree import (build_histograms,
+                                          build_histograms_batch)
+    cases = [(TRAIN_ROWS, N_COLS, N_BINS, k, np.uint8)
+             for k in HIST_BATCH_NODES] + [HIST_BATCH_WIDE + (np.int32,)]
+    err = 0.0
+    for n, c, b, k, dtype in cases:
+        bins, node, stats = batch_inputs(torch, rng, n, c, b, k, HIST_BATCH,
+                                         dtype)
+        where = f"TB={HIST_BATCH} N={n} C={c} B={b} K={k} " \
+                f"{np.dtype(dtype).name}"
+        got = build_histograms_batch(bins, node, stats, k, b)
+        again = build_histograms_batch(bins, node, stats, k, b)
+        torch.cuda.synchronize()
+        if got.shape != (HIST_BATCH, k, c, b, 2) or \
+                not torch.equal(got, again):
+            fail(f"hist_batch: two launches differ at {where}")
+        del again
+        for t in range(HIST_BATCH):
+            if not torch.equal(got[t], build_histograms(bins, node[t],
+                                                        stats[t], k, b)):
+                fail(f"hist_batch tree {t} != hist (B1) at {where}")
+        d_max = 0.0
+        for t in range(HIST_BATCH):            # one tree at a time: memory
+            want = hist.build_histograms_ref(bins, node[t], stats[t], k, b)
+            scale = hist.build_histograms_ref(bins, node[t], stats[t].abs(),
+                                              k, b)
+            d = (got[t] - want).abs()
+            if not torch.equal(got[t, ..., 0], want[..., 0]):
+                fail(f"hist_batch count channel != plain version at {where}")
+            if not bool((d <= HIST_TOL * scale).all()):
+                fail(f"hist_batch w*g channel beyond {HIST_TOL} x |stats| at "
+                     f"{where} (max |d| {d.max().item()})")
+            d_max = max(d_max, d.max().item())
+            del want, scale, d
+        err = max(err, d_max)
+        plan = hist.hist_batch_plan(n, c, HIST_BATCH, k, b, 2)
+        log(f"hist_batch == hist per tree bit for bit and == plain version "
+            f"at {where}: counts equal, max |d| {d_max:.3g}, relaunch "
+            f"bit-equal (plan {plan})")
+        del bins, node, stats, got
+        torch.cuda.empty_cache()
+    return {"hist_batch": err}
 
 
 # ---------------------------------------------------- phase: model set
@@ -507,17 +602,19 @@ def set_train_params(d: str, params: dict) -> None:
     mc.save(path)
 
 
-def write_train_set(d: str, serve_root: str, params: dict,
-                    clean: str) -> str:
+def write_train_set(d: str, serve_root: str, params: dict, clean: str,
+                    algorithm: str = "GBT") -> str:
     """A model set for ``train``: the serving set's ModelConfig and
-    ColumnConfig with the given train#params and validSetRate 0.2, its
-    clean dir a link to the plane ``clean``."""
+    ColumnConfig with the given algorithm, train#params and validSetRate
+    0.2, its clean dir a link to the plane ``clean``."""
     from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.config.model_config import Algorithm
     os.makedirs(os.path.join(d, "tmp"))
     shutil.copy(os.path.join(serve_root, "ColumnConfig.json"), d)
     mc = ModelConfig.load(os.path.join(serve_root, "ModelConfig.json"))
     mc.basic.name = os.path.basename(d)
     mc.dataSet.dataPath = os.path.join(d, "data.csv")   # norm's input
+    mc.train.algorithm = Algorithm[algorithm]
     mc.train.validSetRate = 0.2
     mc.save(os.path.join(d, "ModelConfig.json"))
     set_train_params(d, params)
@@ -535,9 +632,9 @@ def train_cli(d: str, device: str, *extra: str) -> float:
     return time.perf_counter() - t0
 
 
-def load_forest(d: str):
+def load_forest(d: str, kind: str = "gbt"):
     from shifu_tpu_torch.models.tree import load_model
-    return load_model(os.path.join(d, "models", "model0.gbt"))
+    return load_model(os.path.join(d, "models", f"model0.{kind}"))
 
 
 def progress_errors(d: str) -> np.ndarray:
@@ -654,6 +751,7 @@ def train_phase(torch, root: str, serve_root: str, plan, rng,
         runs.append((train_cli(d, dev), load_forest(d), progress_errors(d)))
     out["cut"] = compare_cut(torch, *runs, bins[:CUT_ROWS], y[:CUT_ROWS],
                              device)
+    out["plane"] = (bins, y, w, informative, is_cat, clean, cut, names)
     return out
 
 
@@ -815,6 +913,278 @@ def profile_device(torch, run) -> dict:
     return {"busy_ms": busy, "wall_ms": wall_ms,
             "top": [(name[:110], ms, n) for name, (ms, n) in top]}
 
+
+
+# ------------------------------------------------------- phase: RF train
+def rf_phase(torch, root: str, serve_root: str, plane,
+             device: str = "cuda") -> dict:
+    """The Random Forest path at full width: ``init -model``'s RF
+    defaults (TreeNum 10, MaxDepth 14, TWOTHIRDS, entropy, Loss squared)
+    with CheckpointInterval 8 on the GBT phase's 1,048,576 x 256 plane,
+    through ``cli.main train`` on ``cuda``.  The first chunk of 8 trees
+    grows as one batch (one ``hist_batch`` launch a level: 14), the last
+    2 one by one (``hist``: 2 x 14); the counts are zeroed just before
+    the run and read just after it.  Then: the chunk again on resident
+    tensors, timed per level; 8 trees and ``train -resume`` to 10,
+    bit-identical through a ``tree_traverse`` replay; card vs CPU on the
+    plane's first CUT_ROWS rows at depth RF_CUT_DEPTH."""
+    from shifu_tpu_torch.ops import tree as tree_ops
+    from shifu_tpu_torch.ops import tree_quant as tq
+    from shifu_tpu_torch.pipeline.create import _ALG_DEFAULT_PARAMS
+    bins, y, w, informative, is_cat, clean, cut, names = plane
+    params = dict(_ALG_DEFAULT_PARAMS["RF"][1], CheckpointInterval=RF_CKPT)
+    if (params["TreeNum"], params["MaxDepth"]) != (RF_TREES, RF_DEPTH):
+        fail(f"init -model's RF defaults changed: {params}")
+    full = write_train_set(os.path.join(root, "rf"), serve_root, params,
+                           clean, "RF")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tree_ops.build_histograms_batch.launches = 0
+    tree_ops.build_histograms.launches = 0
+    tq.predict_forest_quant.launches = 0
+    wall = train_cli(full, device)
+    launches = {"hist_batch": tree_ops.build_histograms_batch.launches,
+                "hist": tree_ops.build_histograms.launches,
+                "tree_traverse": tq.predict_forest_quant.launches}
+    peak = torch.cuda.max_memory_allocated() - base
+    want = {"hist_batch": RF_DEPTH, "hist": (RF_TREES - RF_CKPT) * RF_DEPTH,
+            "tree_traverse": 0}
+    if launches != want:
+        fail(f"RF train launched {launches}, not {want}")
+
+    spec, trees = load_forest(full, "rf")
+    nodes = (1 << (RF_DEPTH + 1)) - 1
+    if spec.algorithm != "RF" or spec.n_trees != RF_TREES or \
+            len(trees) != RF_TREES or spec.depth != RF_DEPTH:
+        fail(f"model0.rf: {spec.algorithm}, {len(trees)} trees of depth "
+             f"{spec.depth}")
+    if any(t.split_feat.shape != (nodes,) or t.split_feat[0] < 0
+           for t in trees):
+        fail("an RF tree has the wrong node count or no root split")
+    deep = min(int((t.split_feat[(1 << (RF_DEPTH - 1)) - 1:] >= 0).sum())
+               for t in trees)
+    err = progress_errors(full)
+    if err.shape != (RF_TREES, 2) or not np.isfinite(err).all() \
+            or not err[-1, 1] < err[0, 1]:
+        fail(f"RF errors: {err.tolist()} (out-of-bag error must fall)")
+    with open(os.path.join(full, "tmp", "feature_importance.json")) as f:
+        fi = json.load(f)
+    top = names.index(max(fi, key=fi.get))
+    if top not in informative:
+        fail(f"RF top feature {names[top]} is not an informative column")
+    ck = os.path.join(full, "tmp", "checkpoints", "forest_ckpt.npz")
+    for path in (ck, ck + ".meta.json",
+                 os.path.join(full, "tmp", "journal", "TRAIN.json")):
+        if not os.path.isfile(path):
+            fail(f"RF train left no {path}")
+    with open(os.path.join(full, "tmp", "profile.json")) as f:
+        phases = json.load(f)["TRAIN"]["phases_s"]
+    if any(p not in phases for p in TRAIN_PARTS):
+        fail(f"profile.json does not split the RF train phase: {phases}")
+    phases["train/other"] = round(
+        phases["train"] - sum(phases[p] for p in TRAIN_PARTS), 3)
+    log(f"main path (RF train): {RF_TREES} trees of depth {RF_DEPTH} "
+        f"({nodes} nodes; every tree splits >= {deep} nodes on its deepest "
+        f"split level) in {wall:.3f} s wall ({phases}); train error "
+        f"{err[0, 0]:.6f} -> {err[-1, 0]:.6f}, out-of-bag {err[0, 1]:.6f} "
+        f"-> {err[-1, 1]:.6f}; top feature {names[top]}; launches "
+        f"{launches}; peak device memory {peak / 2**30:.3f} GiB")
+    out = {"launches": launches, "wall_s": wall, "phases_s": phases,
+           "errors": err.tolist(), "peak_bytes": peak}
+    out["chunk"] = rf_chunk_phase(torch, full, bins, y, w, is_cat, trees,
+                                  params, device)
+
+    # resume: stop after the 8-tree checkpoint, then -resume to 10
+    part = write_train_set(os.path.join(root, "rf_resume"), serve_root,
+                           dict(params, TreeNum=RF_CKPT), clean, "RF")
+    train_cli(part, device)
+    set_train_params(part, params)
+    tree_ops.build_histograms_batch.launches = 0
+    tree_ops.build_histograms.launches = 0
+    tq.predict_forest_quant.launches = 0
+    resume_wall = train_cli(part, device, "-resume")
+    r_launches = {"hist_batch": tree_ops.build_histograms_batch.launches,
+                  "hist": tree_ops.build_histograms.launches,
+                  "tree_traverse": tq.predict_forest_quant.launches}
+    if r_launches["tree_traverse"] < 1 or r_launches["hist_batch"] != 0 \
+            or r_launches["hist"] != (RF_TREES - RF_CKPT) * RF_DEPTH:
+        fail(f"RF resume launched {r_launches}")
+    _, got = load_forest(part, "rf")
+    if len(got) != RF_TREES:
+        fail(f"resumed RF has {len(got)} trees")
+    for t, (a, b) in enumerate(zip(got, trees)):
+        if any(getattr(a, k).tobytes() != getattr(b, k).tobytes()
+               for k in ("split_feat", "left_mask", "leaf_value")):
+            fail(f"resumed RF differs from the uninterrupted one at tree {t}")
+    if not np.array_equal(progress_errors(part), err[RF_CKPT:]):
+        fail("resumed RF's errors differ from the uninterrupted run's")
+    with open(os.path.join(part, "tmp", "profile.json")) as f:
+        replay_s = json.load(f)["TRAIN"]["phases_s"].get("train/replay")
+    log(f"RF: {RF_CKPT} trees + train -resume to {RF_TREES}: launches "
+        f"{r_launches} (the {RF_CKPT} restored {nodes}-node trees replay "
+        f"their bags through tree_traverse in {replay_s} s); forest and "
+        f"errors bit-identical to the uninterrupted run; run "
+        f"{resume_wall:.3f} s")
+    out["resume"] = {"launches": r_launches, "wall_s": resume_wall,
+                     "replay_s": replay_s}
+    out["cut"] = compare_rf_cut(torch, root, serve_root, params, cut,
+                                bins[:CUT_ROWS], y[:CUT_ROWS], device)
+    return out
+
+
+def rf_settings(d: str, params: dict):
+    """The trainer's settings for model set ``d`` under ``params``."""
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.train import dt_trainer as dt
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    return dt.settings_from_params(params, mc.train, Algorithm.RF)
+
+
+def rf_chunk_phase(torch, full, bins, y, w, is_cat, trees, params,
+                   device: str) -> dict:
+    """The RF run's chunks again, straight through ``rf_forest_chunk`` on
+    device-resident tensors: the 8-tree batch under
+    ``set_sync_debug_mode("error")`` (no host sync once the bags are
+    drawn), then the 2-tree remainder, each timed on the host around a
+    synchronised chunk, with CUDA events around every histogram launch
+    and leaf-sum level (device ms by level).  Both must reproduce the CLI
+    run's trees bit for bit."""
+    from shifu_tpu_torch.ops import tree as tree_ops
+    from shifu_tpu_torch.train import dt_trainer as dt
+    dev = torch.device(device)
+    settings = rf_settings(full, params)
+    bins_d = dt.put_bins(bins, N_BINS, dev)
+    y_d, w_d = (torch.from_numpy(a).to(dev) for a in (y, w))
+    cat = torch.from_numpy(is_cat).to(dev)
+    fa = torch.from_numpy(np.stack([dt._feat_subset(settings, N_COLS, t)
+                                    for t in range(RF_TREES)])).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bags = dt.draw_bags(settings, range(RF_TREES), len(y), dev)
+    torch.cuda.synchronize()
+    bag_ms = (time.perf_counter() - t0) * 1e3
+    zero = torch.zeros(len(y), device=dev)
+
+    events = []
+
+    def timed(name, fn):
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a, **k)
+            e1.record()
+            events.append((name, e0, e1))
+            return r
+        call.launches = 0          # the wrapped function counts into this
+        return call
+
+    real = {n: getattr(tree_ops, n) for n in
+            ("build_histograms_batch", "build_histograms", "_level_leaf_raw")}
+    for n, fn in real.items():
+        setattr(tree_ops, n, timed(n, fn))
+    out = {"bag_ms": bag_ms}
+    try:
+        for part, sl, debug in (("batch", slice(0, RF_CKPT), True),
+                                ("remainder", slice(RF_CKPT, RF_TREES),
+                                 False)):
+            events.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if debug:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, _, packed = dt.rf_forest_chunk(
+                    bins_d, y_d, w_d, bags[sl], zero, zero, fa[sl], cat,
+                    settings, N_BINS, bool(is_cat.any()), HIST_BATCH)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            levels = {}
+            for name, e0, e1 in events:
+                levels.setdefault(name, []).append(e0.elapsed_time(e1))
+            n_trees = sl.stop - sl.start
+            for j, row in enumerate(packed.cpu().numpy()):
+                tree = dt._unpack_tree(row, (1 << (RF_DEPTH + 1)) - 1,
+                                       N_BINS, N_COLS, RF_DEPTH)[0]
+                want = trees[sl.start + j]
+                if any(getattr(tree, k).tobytes() != getattr(want, k)
+                       .tobytes() for k in ("split_feat", "left_mask",
+                                            "leaf_value")):
+                    fail(f"RF {part} chunk tree {j} differs from the CLI "
+                         "run's")
+            out[part] = {"ms_per_tree": ms / n_trees, "levels_ms": levels}
+            hist_name = "build_histograms_batch" if part == "batch" \
+                else "build_histograms"
+            per_level = levels.get(hist_name, [])
+            log(f"RF {part}: {n_trees} trees in {ms:.1f} ms, "
+                f"{ms / n_trees:.1f} ms per tree (host wall around a "
+                f"synchronised chunk{', no host sync inside' if debug else ''}"
+                f"); {hist_name} device ms by launch "
+                f"{[round(v, 3) for v in per_level]}; leaf sums "
+                f"{sum(levels.get('_level_leaf_raw', [])):.1f} ms")
+    finally:
+        for n, fn in real.items():
+            setattr(tree_ops, n, fn)
+    log(f"RF bags: {RF_TREES} x {len(y)} Poisson draws in {bag_ms:.1f} ms")
+    return out
+
+
+def compare_rf_cut(torch, root, serve_root, params, cut, bins, y,
+                   device: str) -> dict:
+    """RF at depth RF_CUT_DEPTH on the plane's first CUT_ROWS rows, on the
+    card and on the CPU: the bags drawn on each equal (0 rows differ),
+    levels 0-1 split alike, per-tree errors within ERR_RTOL relative, and
+    the two forests' AUCs (scored by tree_traverse on the card) within
+    AUC_TOL."""
+    from shifu_tpu_torch.ops import tree_quant as tq
+    from shifu_tpu_torch.train import dt_trainer as dt
+    params = dict(params, MaxDepth=RF_CUT_DEPTH)
+    runs, sets = [], []
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        d = write_train_set(os.path.join(root, f"rf_cut_{name}"), serve_root,
+                            params, cut, "RF")
+        sets.append(d)
+        runs.append((train_cli(d, dev), load_forest(d, "rf"),
+                     progress_errors(d)))
+    settings = rf_settings(sets[0], params)
+    bags = [dt.draw_bags(settings, range(RF_TREES), CUT_ROWS, dev).cpu()
+            for dev in (device, "cpu")]
+    bag_diff = int((bags[0] != bags[1]).sum())
+    if bag_diff:
+        fail(f"RF bags drawn on the card and the CPU differ in {bag_diff} "
+             "rows")
+    (s_card, (_, trees_a), err_a), (s_cpu, (_, trees_b), err_b) = runs
+    for t, (a, b) in enumerate(zip(trees_a, trees_b)):
+        if not np.array_equal(a.split_feat[:3], b.split_feat[:3]):
+            fail(f"RF tree {t}: levels 0-1 split on {a.split_feat[:3]} on "
+                 f"the card, {b.split_feat[:3]} on the CPU")
+    deeper = sum(int((a.split_feat != b.split_feat).sum())
+                 for a, b in zip(trees_a, trees_b))
+    if err_a.shape != (RF_TREES, 2) or err_b.shape != (RF_TREES, 2):
+        fail(f"RF train.progress holds {len(err_a)} and {len(err_b)} trees")
+    rel = np.abs(err_a - err_b) / np.abs(err_b)
+    if not np.all(rel <= ERR_RTOL):
+        fail(f"RF card vs CPU errors differ by up to {rel.max()} relative")
+    bins_d = torch.from_numpy(bins).to(device)
+    aucs = []
+    for trees in (trees_a, trees_b):
+        pred = tq.predict_forest_quant(*tq.stack_forest_quant(trees, device),
+                                       bins_d, RF_CUT_DEPTH)
+        aucs.append(auc(pred.mean(0).cpu().numpy(), y))
+    if abs(aucs[0] - aucs[1]) > AUC_TOL:
+        fail(f"RF card vs CPU AUC {aucs[0]:.5f} vs {aucs[1]:.5f}")
+    log(f"RF card vs CPU on {len(y)} rows x {RF_TREES} trees of depth "
+        f"{RF_CUT_DEPTH}: bags equal ({bag_diff} rows differ), levels 0-1 "
+        f"equal ({deeper} of {RF_TREES * len(trees_a[0].split_feat)} nodes "
+        f"split on another feature below them), errors within "
+        f"{rel.max():.3g} relative, AUC {aucs[0]:.5f} vs {aucs[1]:.5f}; "
+        f"train wall {s_card:.2f} s on the card, {s_cpu:.2f} s on the CPU")
+    return {"bag_rows_differ": bag_diff, "max_rel_err": float(rel.max()),
+            "auc": aucs, "nodes_differ": deeper, "wall_s": [s_card, s_cpu]}
 
 
 # ---------------------------------------------------------- phase: stats
@@ -1194,6 +1564,73 @@ def time_hist(torch, rng, gpu: str) -> dict:
     return out
 
 
+def time_hist_batch(torch, rng, gpu: str) -> dict:
+    """B2 at TB=8 over N=1,048,576 rows of 256 uint8 columns, 64 bins,
+    S=2, for each K in HIST_BATCH_NODES (K=4096: the deepest level of a
+    depth-14 tree) on ``batch_inputs``' data: the kernel (its wrapper's
+    device work included), the plain version, and one ``scatter_add_`` of
+    every tree's active (row, column) into the flat [TB*K*C*B, S] f32
+    buffer with the cell index computed beforehand; the bound counts what
+    this data makes the build move (``hist_batch_bytes``: the bins once,
+    each tree's node ids and active stats, the output) and one add per
+    active (tree, row, column, channel)."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops.tree import (build_histograms,
+                                          build_histograms_batch)
+    out = {}
+    tb = HIST_BATCH
+    torch.cuda.empty_cache()
+    for k in HIST_BATCH_NODES:
+        bins, node, stats = batch_inputs(torch, rng, TRAIN_ROWS, N_COLS,
+                                         N_BINS, k, tb)
+        ms = device_ms(torch, lambda: build_histograms_batch(
+            bins, node, stats, k, N_BINS), launches=10, repeats=5)
+        plain_ms = device_ms(torch, lambda: hist.build_histograms_batch_ref(
+            bins, node, stats, k, N_BINS), launches=1, repeats=3)
+        # the sequential alternative: one B1 launch a tree
+        b1_ms = device_ms(torch, lambda: [build_histograms(
+            bins, node[t], stats[t], k, N_BINS) for t in range(tb)],
+            launches=2, repeats=3)
+        plan = hist.hist_batch_plan(TRAIN_ROWS, N_COLS, tb, k, N_BINS, 2)
+        other = {}
+        if plan["shared"]:          # A/B: the same launch in the other mode
+            other["partitioned_ms"] = device_ms(
+                torch, lambda: hist.build_histograms_batch_cuda(
+                    bins, node, stats, k, N_BINS, mode=0),
+                launches=10, repeats=5)
+        nbytes = hist.hist_batch_bytes(bins, node, stats, k, N_BINS)
+        act = (node >= 0).nonzero()                   # [M, 2] (tree, row)
+        n_act = int(act.shape[0])
+        cols = torch.arange(N_COLS, device="cuda")
+        cell = ((act[:, 0] * k + node[act[:, 0], act[:, 1]].long())
+                * N_COLS)[:, None] + cols        # [M, C] int64, in place on
+        cell.mul_(N_BINS).add_(bins[act[:, 1]])  # (memory: M*C is ~1.5e9)
+        idx = cell.reshape(-1, 1).expand(-1, 2)
+        src = stats[act[:, 0], act[:, 1]][:, None, :] \
+            .expand(-1, N_COLS, -1).reshape(-1, 2)
+        del cell
+        flat = torch.zeros((tb * k * N_COLS * N_BINS, 2), device="cuda")
+        library_ms = device_ms(torch, lambda: flat.scatter_add_(0, idx, src),
+                               launches=2, repeats=3)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_act * N_COLS * 2 / INT_OPS_PER_S * 1e3
+        out[k] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms
+                  else "operations", "bytes": nbytes, "active": n_act,
+                  "hist_each_tree_ms": b1_ms, "plan": plan, **other}
+        log(f"hist_batch TB={tb} N={TRAIN_ROWS} K={k}: kernel {ms:.5f} ms"
+            + "".join(f", {m} {v:.5f} ms" for m, v in other.items())
+            + f", {tb} hist (B1) launches {b1_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} ms, bound "
+            f"{out[k]['bound_ms']:.6f} ms ({out[k]['bound_by']}: "
+            f"{nbytes / 1e6:.3f} MB, {n_act} active (tree, row) pairs; "
+            f"plan {plan}) — [{gpu}]")
+        del bins, node, stats, act, idx, src, flat
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_stats_hist(torch, rng, gpu: str) -> dict:
     """B3 at the stats path's chunk, N=262,144 x 224 columns, 4096
     buckets, for S=4 and S=2 on ``stats_inputs``' data: the kernel (its
@@ -1287,7 +1724,8 @@ def main() -> None:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    built = cuda_lib.build(["tree_traverse", "hist", "stats_hist"])
+    built = cuda_lib.build(["tree_traverse", "hist", "stats_hist",
+                            "hist_batch"])
     for name, (path, build_log) in built.items():
         log(f"built {name} -> {os.path.relpath(path)}")
         for line in build_log.splitlines():
@@ -1299,6 +1737,7 @@ def main() -> None:
     errs = check_kernels(torch, tq, rng)
     errs.update(check_hist(torch, rng))
     errs.update(check_stats_hist(torch, rng))
+    errs.update(check_hist_batch(torch, rng))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         serve_root = os.path.join(root, "serve")
         os.makedirs(serve_root)
@@ -1306,6 +1745,7 @@ def main() -> None:
         served = serve_phase(torch, tq, serve_root, plan, rng)
         time_transform(torch, serve_root, plan, rng, gpu)
         trained = train_phase(torch, root, serve_root, plan, rng)
+        forest = rf_phase(torch, root, serve_root, trained.pop("plane"))
         stats = stats_phase(torch, root, plan, rng)
     resident = resident_phase(torch, args.seed)
     want = TRAIN_TREES * DEPTH
@@ -1316,6 +1756,7 @@ def main() -> None:
     times = time_kernels(torch, tq, rng, gpu)
     hist_times = time_hist(torch, rng, gpu)
     stats_times = time_stats_hist(torch, rng, gpu)
+    batch_times = time_hist_batch(torch, rng, gpu)
     ms_tree = trained["chunk"]["ms_per_tree"]
     ph = trained["phases_s"]
     log(f"full-width train: {ms_tree:.3f} ms per tree device-resident, "
@@ -1369,7 +1810,35 @@ def main() -> None:
         "at_2_channels": {k: stats_times[2][k] for k in
                           ("ms", "plain_ms", "library_ms", "bound_ms",
                            "bound_by")},
+        "gpu": gpu}, {
+        "name": "hist_batch", "route": "cuda",
+        "source": "shifu_tpu_torch/csrc/hist_batch.cu",
+        "replaces": "shifu_tpu/ops/hist_pallas.py:161",
+        "launches": forest["launches"]["hist_batch"],
+        "max_abs_err": errs["hist_batch"],
+        "ms": batch_times[32]["ms"], "plain_ms": batch_times[32]["plain_ms"],
+        "bound_ms": batch_times[32]["bound_ms"],
+        "bound_by": batch_times[32]["bound_by"],
+        "library_ms": batch_times[32]["library_ms"],
+        "shape": f"TB={HIST_BATCH} N={TRAIN_ROWS} C={N_COLS} B={N_BINS} S=2 "
+                 "K=32 uint8",
+        "hist_each_tree_ms": batch_times[32]["hist_each_tree_ms"],
+        **{f"at_{k}_nodes": {m: batch_times[k][m] for m in
+                             ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "hist_each_tree_ms")}
+           for k in (1, 4096)},
+        "at_1_node_partitioned_ms": batch_times[1].get("partitioned_ms"),
+        "rf_levels_ms": forest["chunk"]["batch"]["levels_ms"].get(
+            "build_histograms_batch"),
         "gpu": gpu}]
+    rf_chunk = forest["chunk"]
+    log(f"full-width RF ({RF_TREES} trees, depth {RF_DEPTH}): "
+        f"{rf_chunk['batch']['ms_per_tree']:.1f} ms per tree in the "
+        f"{RF_CKPT}-tree batch (hist_batch), "
+        f"{rf_chunk['remainder']['ms_per_tree']:.1f} ms per tree one by one "
+        f"(hist), bags {rf_chunk['bag_ms']:.1f} ms; CLI train phase "
+        f"{forest['phases_s']['train']:.3f} s ({forest['phases_s']}); peak "
+        f"device memory {forest['peak_bytes'] / 2**30:.3f} GiB — [{gpu}]")
     log(f"stats: {CSV_ROWS} rows x {N_COLS + 2} fields through new/init/"
         f"stats in {stats['init_s'] + stats['wall_s']:.2f} s (stats "
         f"{stats['wall_s']:.3f} s, host parse {stats['parse_us_per_cell']:.3f}"
@@ -1377,7 +1846,8 @@ def main() -> None:
         f" ms a 262,144-row chunk, finalize {resident['finalize_ms']:.3f} ms, "
         f"peak {resident['peak_bytes'] / 2**30:.3f} GiB — [{gpu}]")
     log(f"served {served['batches']} batches; max |card - cpu| "
-        f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} trees; "
+        f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} GBT and "
+        f"{RF_TREES} RF trees; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shifu-tpu-torch",
         description="PyTorch/CUDA port of shifu-tpu (new, init, stats, "
-        "GBT train, serve)")
+        "GBT/RF/DT train, serve)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
@@ -77,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     tp = sub.add_parser("train", help="train the model set from the "
                         "norm step's clean plane (resident single-member "
-                        "GBT is ported)")
+                        "GBT, RF and DT are ported)")
     tp.add_argument("-resume", dest="resume", action="store_true",
                     help="continue from the mid-forest checkpoint")
     _device_arg(tp)

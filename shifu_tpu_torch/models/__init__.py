@@ -1,6 +1,6 @@
 """Model specs — standalone scorers + serialization (the port of
 ``shifu_tpu.models``).  ``load_any`` sniffs the embedded spec kind of a
-saved model file; tree forests (GBT/RF) are ported, the other kinds raise
+saved model file; tree forests (GBT/RF/DT) are ported, the other kinds raise
 until their slice lands.
 """
 

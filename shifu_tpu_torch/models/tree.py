@@ -1,4 +1,4 @@
-"""Tree-ensemble model spec (GBT / RF) — the port of
+"""Tree-ensemble model spec (GBT / RF / DT) — the port of
 ``shifu_tpu.models.tree``: the same self-contained npz file (spec json +
 per-tree arrays), so a ``model0.gbt`` written by either package loads in
 the other byte for byte, and a standalone scorer over binned rows.
@@ -25,7 +25,7 @@ from ..ops.tree import TreeArrays
 
 @dataclass
 class TreeModelSpec:
-    algorithm: str                      # "GBT" | "RF"
+    algorithm: str                      # "GBT" | "RF" | "DT"
     n_trees: int
     depth: int
     n_bins: int
@@ -140,8 +140,8 @@ class IndependentTreeModel:
 
     def link(self, preds: torch.Tensor) -> torch.Tensor:
         """[T, N] per-tree predictions -> [N] model output, f32 as in the
-        reference: GBT ``init + lr * sum`` then the loss link, RF the mean
-        vote (``[N, S]`` for multiclass leaves)."""
+        reference: GBT ``init + lr * sum`` then the loss link, RF and DT
+        the mean vote (``[N, S]`` for multiclass leaves)."""
         if self.spec.algorithm == "GBT":
             f = self.spec.init_score + self.spec.learning_rate \
                 * preds.sum(dim=0)

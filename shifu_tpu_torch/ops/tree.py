@@ -1,9 +1,11 @@
 """Decision-tree ops — the port of ``shifu_tpu.ops.tree``'s resident
-growth path: the histogram build (kernel B1, :func:`build_histograms`),
-the split-gain scan (:func:`best_splits`), the leaf-wise node budget,
-and whole-tree level-wise growth with histogram subtraction
-(:func:`grow_tree`).  Forests are walked by ``ops.tree_quant`` (kernel
-B4).
+growth path: the histogram build (kernel B1, :func:`build_histograms`) and
+its tree-batched form (kernel B2, :func:`build_histograms_batch`), the
+split-gain scan (:func:`best_splits`: variance, Friedman MSE, entropy,
+gini), the leaf-wise node budget, and whole-tree level-wise growth with
+histogram subtraction, one tree at a time (:func:`grow_tree`, GBT) or a
+batch of independent trees one level at a time (:func:`grow_forest`,
+Random Forest).  Forests are walked by ``ops.tree_quant`` (kernel B4).
 
 Trees are complete binary arrays (node i's children at 2i+1 / 2i+2):
 ``split_feat[node]`` (-1 = leaf), a per-bin ``left_mask`` (numeric and
@@ -69,10 +71,52 @@ def build_histograms(bins, node_idx, stats, n_nodes: int,
 build_histograms.launches = 0
 
 
+def build_histograms_batch(bins, node_idx_b, stats_b, n_nodes: int,
+                           n_bins: int) -> torch.Tensor:
+    """Tree-batched :func:`build_histograms`: TB trees' level histograms
+    over one shared bin plane, [TB, n_nodes, C, n_bins, S] f32.
+    node_idx_b [TB, N] int32, stats_b [TB, N, S] f32; each tree's slice
+    equals a :func:`build_histograms` call on that tree's inputs bit for
+    bit.  CUDA tensors launch kernel B2 (``csrc/hist_batch.cu``) or raise;
+    CPU tensors take the plain version.  ``launches`` counts kernel
+    launches only."""
+    from . import hist
+    bins = hist.widen_bins(bins)
+    if bins.device.type == "cpu":
+        return hist.build_histograms_batch_ref(bins, node_idx_b, stats_b,
+                                               n_nodes, n_bins)
+    if bins.device.type != "cuda":
+        raise ValueError(f"build_histograms_batch: no kernel for device "
+                         f"{bins.device}")
+    out = hist.build_histograms_batch_cuda(bins, node_idx_b, stats_b,
+                                           n_nodes, n_bins)
+    build_histograms_batch.launches += 1
+    return out
+
+
+build_histograms_batch.launches = 0
+
+
 # ------------------------------------------------------------- split scan
-def _variance_score(w, wy):
-    """Per-partition variance score; gain = score_L + score_R - score_P."""
-    return wy * wy / w.clamp_min(EPS)
+def _impurity_score(w, wy, kind: str):
+    """Per-partition purity score; gain = score_L + score_R - score_P
+    (reference ``_impurity_score``).  variance is sum^2 / weight; entropy
+    and gini use the binary class weights pos = wy, neg = w - wy."""
+    if kind == "variance":
+        return wy * wy / w.clamp_min(EPS)
+    pos = wy.clamp_min(0.0)
+    neg = (w - wy).clamp_min(0.0)
+    tot = (pos + neg).clamp_min(EPS)
+    p = pos / tot
+    if kind == "entropy":
+        h = -(torch.where(p > 0, p * torch.log2(p.clamp_min(EPS)), 0.0)
+              + torch.where(1 - p > 0,
+                            (1 - p) * torch.log2((1 - p).clamp_min(EPS)),
+                            0.0))
+        return -tot * h
+    if kind == "gini":
+        return -tot * 2.0 * p * (1 - p)
+    raise ValueError(f"unknown impurity {kind!r}")
 
 
 def best_splits(hist, cat_mask, feat_active, impurity: str = "variance",
@@ -81,8 +125,8 @@ def best_splits(hist, cat_mask, feat_active, impurity: str = "variance",
     """Best split per node from the level histogram hist [nodes, C, B, 2]
     (w, wy); cat_mask [C] bool (categorical bins sort by response before
     the prefix scan), feat_active [C] bool (feature subset).  ``impurity``
-    is GBT's ``variance`` or ``friedmanmse``; entropy and gini come with
-    the RF/DT trainers (ROADMAP Queue 1 item 6).
+    is ``variance`` or ``friedmanmse`` (GBT) or ``entropy`` or ``gini``
+    (RF/DT, binary targets; native multiclass histograms are not ported).
 
     Returns (gain [nodes], feat [nodes] int32, left_mask [nodes, B] bool,
     leaf_value [nodes], node_w [nodes]).  ``has_cat=False`` (the caller
@@ -109,12 +153,10 @@ def best_splits(hist, cat_mask, feat_active, impurity: str = "variance",
         wl, wr = cw, tw - cw
         diff = wr * cwy - wl * (twy - cwy)
         gain = diff * diff / (wl * wr * (wl + wr)).clamp_min(EPS)
-    elif impurity == "variance":
-        gain = (_variance_score(cw, cwy)
-                + _variance_score(tw - cw, twy - cwy)
-                - _variance_score(tw, twy))
     else:
-        raise ValueError(f"unknown impurity {impurity!r}")
+        gain = (_impurity_score(cw, cwy, impurity)
+                + _impurity_score(tw - cw, twy - cwy, impurity)
+                - _impurity_score(tw, twy, impurity))
 
     valid = (cw >= min_instances) & (tw - cw >= min_instances)
     valid = valid & feat_active[None, :, None]
@@ -223,54 +265,116 @@ def grow_tree(bins, stats, cat, fa, n_bins: int, depth: int,
     Returns (split_feat [total] int32, left_mask [total, B] bool,
     leaf_value [total] f32, gain_fi [C] f32 realized split gains per
     feature, leaf_glob [N] int32 terminal node per row)."""
+    def level_hists(node_idx, n_nodes):
+        return [build_histograms(bins, node_idx[0], stats, n_nodes, n_bins)]
+    return _grow(bins, [stats], cat, [fa], n_bins, depth, impurity,
+                 min_instances, min_gain, max_leaves, has_cat,
+                 level_hists)[0]
+
+
+def grow_forest(bins, stats_b, cat, fa_b, n_bins: int, depth: int,
+                impurity: str, min_instances: float, min_gain: float,
+                max_leaves: int = 0, has_cat: bool = True):
+    """TB independent trees grown level-wise together — the port of the
+    reference's ``grow_forest_jit`` (the Random Forest's tree batch).
+
+    stats_b [TB, N, S] per-tree channels (each tree's bag), fa_b [TB, C]
+    per-tree feature subsets; ``bins`` and ``cat`` are shared.  Each
+    level's TB histograms build in ONE launch of kernel B2
+    (:func:`build_histograms_batch`), which reads the shared bins once
+    for a tile of trees; histogram subtraction, the leaf-sum bottom level
+    and ``max_leaves`` apply per tree exactly as in :func:`grow_tree`, so
+    every tree's outputs are bit-identical to a :func:`grow_tree` call on
+    its inputs.  Returns a list of TB :func:`grow_tree` tuples."""
+    def level_hists(node_idx, n_nodes):
+        return list(build_histograms_batch(bins, torch.stack(node_idx),
+                                           stats_b, n_nodes,
+                                           n_bins).unbind(0))
+    return _grow(bins, list(stats_b.unbind(0)), cat, list(fa_b.unbind(0)),
+                 n_bins, depth, impurity, min_instances, min_gain,
+                 max_leaves, has_cat, level_hists)
+
+
+def _subtract(hls, hist_prev, feat_prev):
+    """Histogram subtraction: each tree's full level histogram [K, C, B, S]
+    from its left children ``hls[t]`` [K/2, ...] and its previous level's
+    full histogram, each right child being parent - left (zero under a
+    frozen parent).  Drops each previous histogram as it goes, so a batch
+    holds one level's histograms at a time."""
+    hists = []
+    for t, hl in enumerate(hls):
+        hr = torch.where((feat_prev[t] >= 0)[:, None, None, None],
+                         hist_prev[t] - hl, 0.0)
+        hists.append(torch.stack([hl, hr], dim=1).reshape(
+            2 * hl.shape[0], *hl.shape[1:]))
+        hist_prev[t] = None
+    return hists
+
+
+def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
+          min_instances: float, min_gain: float, max_leaves: int,
+          has_cat: bool, level_hists):
+    """The level loop of :func:`grow_tree` and :func:`grow_forest` for
+    trees t with ``stats[t]`` and ``fa[t]``; ``level_hists(node_idx,
+    K)`` builds every tree's [K, C, B, S] histogram of one level from the
+    per-tree node ids.  Each tree runs the same per-tree ops in the same
+    order whatever the batch, which is what makes a batched tree equal a
+    sequential one bit for bit."""
     n, c = bins.shape
     dev = bins.device
-    feats, lmasks, leaves = [], [], []
-    gain_fi = torch.zeros(c, dtype=torch.float32, device=dev)
-    node_idx = torch.zeros(n, dtype=torch.int32, device=dev)
-    leaf_glob = torch.zeros(n, dtype=torch.int32, device=dev)
-    nodes_cnt = torch.ones((), dtype=torch.int32, device=dev)
+    tb = len(stats)
+    feats = [[] for _ in range(tb)]
+    lmasks = [[] for _ in range(tb)]
+    leaves = [[] for _ in range(tb)]
+    gain_fi = [torch.zeros(c, dtype=torch.float32, device=dev)
+               for _ in range(tb)]
+    node_idx = [torch.zeros(n, dtype=torch.int32, device=dev)
+                for _ in range(tb)]
+    leaf_glob = [torch.zeros(n, dtype=torch.int32, device=dev)
+                 for _ in range(tb)]
+    nodes_cnt = [torch.ones((), dtype=torch.int32, device=dev)
+                 for _ in range(tb)]
     feat_ids = torch.arange(c, device=dev)
     hist_prev = feat_prev = None
     for level in range(depth + 1):
         n_nodes = 1 << level
         if level == depth:
-            leaves.append(leaf_values_from_raw(
-                _level_leaf_raw(stats, node_idx, n_nodes)))
-            feats.append(torch.full((n_nodes,), -1, dtype=torch.int32,
-                                    device=dev))
-            lmasks.append(torch.zeros((n_nodes, n_bins), dtype=torch.bool,
-                                      device=dev))
+            for t in range(tb):
+                leaves[t].append(leaf_values_from_raw(
+                    _level_leaf_raw(stats[t], node_idx[t], n_nodes)))
+                feats[t].append(torch.full((n_nodes,), -1, dtype=torch.int32,
+                                           device=dev))
+                lmasks[t].append(torch.zeros((n_nodes, n_bins),
+                                             dtype=torch.bool, device=dev))
             break
         if level == 0:
-            hist = build_histograms(bins, node_idx, stats, 1, n_bins)
+            hists = level_hists(node_idx, 1)
         else:
-            # histogram subtraction: build the left children only
-            hl = build_histograms(bins, _left_child_index(node_idx), stats,
-                                  n_nodes // 2, n_bins)
-            hr = torch.where((feat_prev >= 0)[:, None, None, None],
-                             hist_prev - hl, 0.0)
-            hist = torch.stack([hl, hr], dim=1).reshape(
-                n_nodes, c, n_bins, hl.shape[3])
-        gain, feat, lmask, leaf, _ = best_splits(
-            hist, cat, fa, impurity, min_instances, min_gain, has_cat)
-        if max_leaves > 0:
-            feat, lmask, nodes_cnt = cap_splits_by_leaves(
-                gain, feat, lmask, nodes_cnt, max_leaves)
-        feats.append(feat)
-        lmasks.append(lmask)
-        leaves.append(leaf)
-        split = feat >= 0
-        realized = torch.where(split, gain.clamp_min(0.0), 0.0).float()
-        gain_fi = gain_fi + torch.where(
-            feat.long()[:, None] == feat_ids[None, :], realized[:, None],
-            0.0).sum(dim=0)
-        hist_prev, feat_prev = hist, feat
-        node_idx = _descend(bins, node_idx, feat, lmask)
-        # rows that descended rest at their child's GLOBAL id; frozen rows
-        # keep the node they stopped at
-        leaf_glob = torch.where(node_idx >= 0,
-                                ((1 << (level + 1)) - 1) + node_idx,
-                                leaf_glob)
-    return (torch.cat(feats), torch.cat(lmasks), torch.cat(leaves), gain_fi,
-            leaf_glob)
+            hists = _subtract(level_hists(
+                [_left_child_index(ni) for ni in node_idx], n_nodes // 2),
+                hist_prev, feat_prev)
+        hist_prev, feat_prev = hists, [None] * tb
+        for t in range(tb):
+            gain, feat, lmask, leaf, _ = best_splits(
+                hists[t], cat, fa[t], impurity, min_instances, min_gain,
+                has_cat)
+            if max_leaves > 0:
+                feat, lmask, nodes_cnt[t] = cap_splits_by_leaves(
+                    gain, feat, lmask, nodes_cnt[t], max_leaves)
+            feats[t].append(feat)
+            lmasks[t].append(lmask)
+            leaves[t].append(leaf)
+            split = feat >= 0
+            realized = torch.where(split, gain.clamp_min(0.0), 0.0).float()
+            gain_fi[t] = gain_fi[t] + torch.where(
+                feat.long()[:, None] == feat_ids[None, :], realized[:, None],
+                0.0).sum(dim=0)
+            feat_prev[t] = feat
+            node_idx[t] = _descend(bins, node_idx[t], feat, lmask)
+            # rows that descended rest at their child's GLOBAL id; frozen
+            # rows keep the node they stopped at
+            leaf_glob[t] = torch.where(node_idx[t] >= 0,
+                                       ((1 << (level + 1)) - 1)
+                                       + node_idx[t], leaf_glob[t])
+    return [(torch.cat(feats[t]), torch.cat(lmasks[t]), torch.cat(leaves[t]),
+             gain_fi[t], leaf_glob[t]) for t in range(tb)]

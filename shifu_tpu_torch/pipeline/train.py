@@ -2,8 +2,8 @@
 
 Tree algorithms read the clean/binned plane (``tmp/CleanedData``) and go to
 ``train.dt_trainer.run_tree_training``; of them the resident,
-single-member GBT is ported.  NN, LR, SVM, TensorFlow and WDL raise "not
-yet ported" (ROADMAP Queue 1 items 7 and 10).
+single-member GBT, RF and DT are ported.  NN, LR, SVM, TensorFlow and WDL
+raise "not yet ported" (ROADMAP Queue 1 items 7 and 10).
 """
 
 from __future__ import annotations

@@ -1,28 +1,39 @@
-"""Resident GBT training — the port of ``shifu_tpu.train.dt_trainer``'s
-single-member GBT path (reference ``DTMaster``/``DTWorker``).
+"""Resident tree training — the port of ``shifu_tpu.train.dt_trainer``'s
+single-member GBT, RF and DT paths (reference ``DTMaster``/``DTWorker``).
 
-Sequential trees: per-tree gradients (squared: y - f, log: y - sigmoid(f))
-refit by a variance/Friedman tree grown level-wise on the device
-(``ops.tree.grow_tree``, kernel B1 on the card), shrinkage
-``LearningRate``, moving-average early stop.
+- GBT: sequential trees; per-tree gradients (squared: y - f, log: y -
+  sigmoid(f)) refit by a variance/Friedman tree grown level-wise on the
+  device (``ops.tree.grow_tree``, kernel B1 on the card), shrinkage
+  ``LearningRate``, moving-average early stop.
+- RF: independent trees over Poisson row weights (bags drawn from
+  ``fold_in(PRNGKey(seed), tree)`` on JAX's threefry stream, reproduced
+  in ``ops.prng``), entropy/gini impurity, per-tree feature subsets, and
+  out-of-bag votes as validation.  A chunk of at least ``TreeBatch`` trees
+  grows in batches through ``ops.tree.grow_forest`` (one kernel B2 launch
+  a level for the whole batch), the rest one by one through ``grow_tree``
+  (B1); every tree equals its sequential grow bit for bit.
+- DT: one RF tree over the full data, no bag.
 
 The reference grows a chunk of trees as ONE ``lax.scan`` executable with
 one fetch.  PyTorch runs eagerly, so here a chunk is a Python loop over
-trees with every tensor on the device and no host sync inside it (no
-``.item()``, no ``.cpu()``, no branch on a tensor, no boolean-mask
+trees with every tensor on the device and no host sync inside the growth
+(no ``.item()``, no ``.cpu()``, no branch on a tensor, no boolean-mask
 indexing): each tree packs its arrays into one device byte row, and the
-chunk's rows cross to the host in one copy.  The chunk rules are the
-reference's — checkpoint boundaries, bursts of 8 trees for progress,
-``EarlyStopCheckInterval`` — and an early stop inside a chunk truncates
-the forest to the exact tree a per-tree loop would have stopped at.
+chunk's rows cross to the host in one copy.  RF draws its chunk's bags
+before growth, asking the device once a block of Poisson iterations
+whether every row is done.  The chunk rules are the reference's —
+checkpoint boundaries, bursts of 8 trees for progress,
+``EarlyStopCheckInterval`` (GBT) — and an early stop inside a chunk
+truncates the forest to the exact tree a per-tree loop would have stopped
+at.
 
-Mid-forest checkpoints (forest npz + per-row score sidecar + meta json)
-are the reference's files, so ``train -resume`` continues a forest either
-package wrote; with deterministic sums on the card a resumed forest is
-bit-identical to an uninterrupted one.
+Mid-forest checkpoints (forest npz + meta json, plus GBT's per-row score
+sidecar) are the reference's files, so ``train -resume`` continues a
+forest either package wrote; with deterministic sums on the card a
+resumed forest is bit-identical to an uninterrupted one.
 
-Not ported yet: RF/DT and bagging, grid search, k-fold and OVA
-(ROADMAP Queue 1 item 6), the streamed trainers (item 8).
+Not ported yet: bagging, grid search, k-fold, one-vs-all and native
+multi-class (ROADMAP Queue 1 item 6), the streamed trainers (item 8).
 """
 
 from __future__ import annotations
@@ -43,9 +54,10 @@ from .. import ioutil
 from ..config.model_config import Algorithm
 from ..data.shards import bins_wire_dtype
 from ..models import tree as tree_model
+from ..ops import prng
 from ..ops import tree_quant as tq
 from ..ops.hist import widen_bins
-from ..ops.tree import TreeArrays, grow_tree, n_tree_nodes
+from ..ops.tree import TreeArrays, grow_forest, grow_tree, n_tree_nodes
 from .early_stop import GBTEarlyStopDecider
 from .sampling import validation_split
 
@@ -63,11 +75,19 @@ class DTSettings:
     min_gain: float = 0.0
     feature_subset: str = "ALL"
     valid_rate: float = 0.2
+    bagging_rate: float = 1.0            # RF Poisson rate
+    poisson_bagging: bool = True         # False: plain single tree (DT)
     early_stop: bool = False
     seed: int = 0
     checkpoint_every: int = 25           # trees between checkpoints
     resume: bool = False
     max_leaves: int = 0                  # >0: leaf-wise node budget
+    # weights promised small-integer (no weight column): the reference's
+    # Pallas kernels then skip their f32-recovery dots.  Accepted for
+    # parity and ignored: B1/B2's fixed-point sums are exact either way
+    stats_exact: bool = False
+    tree_batch: int = 0                  # RF trees a batched grow; 0 =
+                                         # auto (RF_TREE_BATCH)
     early_stop_check: int = 8            # trees between early-stop checks
 
 
@@ -75,8 +95,9 @@ def settings_from_params(params: Dict[str, Any], train_conf,
                          alg: Algorithm) -> DTSettings:
     """Reference train#params tree keys: TreeNum / MaxDepth / Impurity /
     Loss / LearningRate / FeatureSubsetStrategy / MinInstancesPerNode /
-    MinInfoGain / MaxLeaves / Seed / CheckpointInterval /
-    EarlyStopCheckInterval."""
+    MinInfoGain / MaxLeaves / Seed / CheckpointInterval / TreeBatch /
+    EarlyStopCheckInterval, and the train section's validSetRate,
+    baggingSampleRate and earlyStopEnable."""
     p = params or {}
     default_impurity = "variance" if alg == Algorithm.GBT else "entropy"
     return DTSettings(
@@ -90,9 +111,12 @@ def settings_from_params(params: Dict[str, Any], train_conf,
         feature_subset=str(p.get("FeatureSubsetStrategy", "ALL")).upper(),
         max_leaves=max(0, int(p.get("MaxLeaves", -1))),
         valid_rate=float(train_conf.validSetRate),
+        bagging_rate=float(train_conf.baggingSampleRate),
+        poisson_bagging=alg != Algorithm.DT,  # plain DT = one tree, full data
         early_stop=bool(train_conf.earlyStopEnable),
         seed=int(p.get("Seed", 0)),
         checkpoint_every=int(p.get("CheckpointInterval", 25)),
+        tree_batch=int(p.get("TreeBatch", 0)),
         early_stop_check=max(1, int(p.get("EarlyStopCheckInterval", 8))))
 
 
@@ -238,10 +262,9 @@ def put_bins(bins: np.ndarray, n_bins: int,
     return t
 
 
-def _replay(trees: List[TreeArrays], bins_d, f, lr: float):
-    """Continuous/resume replay of restored trees through kernel B4
-    (``predict_forest_quant``): one batched walk per depth group, then the
-    per-tree adds in forest order, as the reference's eager loop does."""
+def _walk(trees: List[TreeArrays], bins_d) -> List[torch.Tensor]:
+    """Each restored tree's [N] prediction through kernel B4
+    (``predict_forest_quant``), one batched walk per depth group."""
     preds: List[Optional[torch.Tensor]] = [None] * len(trees)
     by_depth: Dict[int, List[int]] = {}
     for i, t in enumerate(trees):
@@ -252,7 +275,13 @@ def _replay(trees: List[TreeArrays], bins_d, f, lr: float):
         out = tq.predict_forest_quant(*arrays, bins_d, depth)
         for j, i in enumerate(idxs):
             preds[i] = out[j]
-    for p in preds:
+    return preds
+
+
+def _replay(trees: List[TreeArrays], bins_d, f, lr: float):
+    """Continuous/resume replay of restored GBT trees: the walks, then the
+    per-tree adds in forest order, as the reference's eager loop does."""
+    for p in _walk(trees, bins_d):
         f = f + lr * p
     return f
 
@@ -370,6 +399,200 @@ def train_gbt(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
         feature_importance=fi, trees_built=len(trees), history=history)
 
 
+# ------------------------------------------------------------ Random Forest
+#: RF trees grown together by one batched grow (``grow_forest``): each
+#: level's histograms for the whole batch in one B2 launch.  8 is the
+#: reference's default and its progress burst.
+RF_TREE_BATCH = 8
+
+
+def _effective_tree_batch(settings: DTSettings) -> int:
+    """The RF tree-batch width: the ``SHIFU_TREE_BATCH`` environment
+    variable, else the ``TreeBatch`` train param, else
+    :data:`RF_TREE_BATCH`."""
+    env = os.environ.get("SHIFU_TREE_BATCH")
+    if env:
+        return max(1, int(env))
+    return settings.tree_batch if settings.tree_batch > 0 \
+        else RF_TREE_BATCH
+
+
+def draw_bags(settings: DTSettings, tree_ids, n: int,
+              device) -> torch.Tensor:
+    """[T, n] f32 row weights of the RF trees ``tree_ids``: the Poisson
+    draw of ``fold_in(PRNGKey(seed), tree)`` at ``baggingSampleRate``
+    (reference ``jax.random.poisson``), or ones for a DT.  The only host
+    syncs of a chunk happen here, before its growth."""
+    if not settings.poisson_bagging:
+        return torch.ones((len(tree_ids), n), dtype=torch.float32,
+                          device=device)
+    base = prng.prng_key(settings.seed)
+    return prng.poisson([prng.fold_in(base, t) for t in tree_ids],
+                        settings.bagging_rate, n, device)
+
+
+def _rf_stats_from_bag(y, w, bag):
+    """Per-row stat channels [..., N, 2] ``[w * bag, w * bag * y]`` of one
+    bag [N] or a batch of bags [TB, N] — the one place the layout lives."""
+    bw = w * bag
+    return torch.stack([bw, bw * y], dim=-1).float()
+
+
+def _rf_oob_update(pred, y, w, bag, oob_sum, oob_cnt, loss: str):
+    """Out-of-bag vote accumulation and loss-consistent errors for ONE
+    grown tree (reference ``_rf_oob_update``, binary path): the tree's
+    rows outside its bag vote; validation scores every row with a vote on
+    the mean of its votes, training scores the tree on every row.
+    Returns (oob_sum, oob_cnt, train_err, valid_err)."""
+    oob = (bag == 0) & (w > 0)
+    oob_sum = oob_sum + torch.where(oob, pred, 0.0)
+    oob_cnt = oob_cnt + oob.to(oob_cnt.dtype)
+    seen = oob_cnt > 0
+    oob_pred = oob_sum / oob_cnt.clamp_min(1.0)
+    # RF votes average probabilities; log loss needs them clipped, not logit
+    if loss == "log":
+        p = oob_pred.clamp(1e-9, 1 - 1e-9)
+        per_v = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
+    else:
+        per_v = _per_row_loss(y, oob_pred, loss)
+    wv = w * seen
+    va = (per_v * wv).sum() / wv.sum().clamp_min(1e-9)
+    if loss == "log":
+        per_t = -(y * torch.log(pred.clamp(1e-9, 1 - 1e-9))
+                  + (1 - y) * torch.log((1 - pred).clamp(1e-9, 1 - 1e-9)))
+    else:
+        per_t = _per_row_loss(y, pred, loss)
+    tr = (per_t * w).sum() / w.sum().clamp_min(1e-9)
+    return oob_sum, oob_cnt, tr, va
+
+
+def rf_forest_chunk(bins, y, w, bags, oob_sum, oob_cnt, fa_all, cat,
+                    settings: DTSettings, n_bins: int, has_cat: bool,
+                    tree_batch: int):
+    """A chunk of RF trees on the device with no host sync: ``bags`` [T,
+    N] and ``fa_all`` [T, C] per tree.  Whole batches of ``tree_batch``
+    trees grow through :func:`grow_forest` (one B2 launch a level), the
+    remainder one by one through :func:`grow_tree` (B1); out-of-bag votes
+    chain through every tree in tree order, so the result is the same
+    bits whatever the batch.  Returns (oob_sum, oob_cnt, packed [T, L]
+    uint8)."""
+    t_total = fa_all.shape[0]
+    tb = max(1, tree_batch)
+    main = (t_total // tb) * tb if tb > 1 else 0
+    kw = dict(n_bins=n_bins, depth=settings.depth,
+              impurity=settings.impurity,
+              min_instances=settings.min_instances,
+              min_gain=settings.min_gain, max_leaves=settings.max_leaves,
+              has_cat=has_cat)
+
+    def grown():
+        for g0 in range(0, main, tb):
+            yield from grow_forest(
+                bins, _rf_stats_from_bag(y, w, bags[g0:g0 + tb]), cat,
+                fa_all[g0:g0 + tb], **kw)
+        for j in range(main, t_total):
+            yield grow_tree(bins, _rf_stats_from_bag(y, w, bags[j]), cat,
+                            fa_all[j], **kw)
+
+    rows = []
+    for j, (sf, lm, lv, gfi, leaf_glob) in enumerate(grown()):
+        oob_sum, oob_cnt, tr, va = _rf_oob_update(
+            lv[leaf_glob.long()], y, w, bags[j], oob_sum, oob_cnt,
+            settings.loss)
+        rows.append(_pack_tree(sf, lm, lv, gfi, tr, va))
+    return oob_sum, oob_cnt, torch.stack(rows)
+
+
+def _rf_replay(trees: List[TreeArrays], bins_d, w_d, settings: DTSettings,
+               oob_sum, oob_cnt):
+    """Resume: rebuild the out-of-bag state by walking the restored trees
+    through B4 with their re-drawn bags, RF_TREE_BATCH trees at a time, in
+    tree order (the reference walks them with ``predict_tree``; routing
+    is integer and the leaf one select, so the votes are the same
+    bits)."""
+    for g0 in range(0, len(trees), RF_TREE_BATCH):
+        group = trees[g0:g0 + RF_TREE_BATCH]
+        bags = draw_bags(settings, range(g0, g0 + len(group)),
+                         bins_d.shape[0], bins_d.device)
+        for j, pred in enumerate(_walk(group, bins_d)):
+            oob = (bags[j] == 0) & (w_d > 0)
+            oob_sum = oob_sum + torch.where(oob, pred, 0.0)
+            oob_cnt = oob_cnt + oob.to(oob_cnt.dtype)
+    return oob_sum, oob_cnt
+
+
+def train_rf(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
+             progress=None, checkpoint_fn: Optional[Callable] = None,
+             init_trees: Optional[List[TreeArrays]] = None,
+             start_history: Optional[List] = None,
+             device: Optional[torch.device] = None,
+             phase: Optional[Callable[[str], ContextManager]] = None,
+             ) -> ForestResult:
+    """Independent Poisson-bagged trees (``poisson_bagging`` off: one
+    plain DT) over the resident plane ``bins`` [N, C] on ``device``;
+    out-of-bag rows score validation with the configured loss.  The chunk
+    rules and ``phase`` parts are :func:`train_gbt`'s; ``train/replay``
+    rebuilds a resumed forest's out-of-bag votes."""
+    dev = torch.device(device if device is not None else "cuda")
+    phase = phase or (lambda name: contextlib.nullcontext())
+    n, c = bins.shape
+    with phase("train/upload"):
+        bins_d = put_bins(bins, n_bins, dev)
+        y_d, w_d = (torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                    for a in (y, w))
+        cat_np = np.zeros(c, bool) if cat_mask is None \
+            else np.asarray(cat_mask, bool)
+        cat = torch.from_numpy(cat_np).to(dev)
+        has_cat = bool(cat_np.any())
+    oob_sum = torch.zeros(n, dtype=torch.float32, device=dev)
+    oob_cnt = torch.zeros(n, dtype=torch.float32, device=dev)
+    trees: List[TreeArrays] = list(init_trees or [])
+    history: List[Tuple[float, float]] = list(start_history or [])
+    if trees:
+        with phase("train/replay"):
+            oob_sum, oob_cnt = _rf_replay(trees, bins_d, w_d, settings,
+                                          oob_sum, oob_cnt)
+    fi = np.zeros(c)
+    total = n_tree_nodes(settings.depth)
+    tree_batch = _effective_tree_batch(settings)
+    ckpt = settings.checkpoint_every if (checkpoint_fn and
+                                         settings.checkpoint_every) else 0
+
+    ti = len(trees)
+    while ti < settings.n_trees:
+        chunk = settings.n_trees - ti
+        if ckpt:
+            chunk = min(chunk, ((ti // ckpt) + 1) * ckpt - ti)
+        if progress:
+            chunk = min(chunk, 8)
+        with phase("train/grow"):
+            ids = range(ti, ti + chunk)
+            fa_all = torch.from_numpy(np.stack(
+                [_feat_subset(settings, c, t) for t in ids])).to(dev)
+            bags = draw_bags(settings, ids, n, dev)
+            oob_sum, oob_cnt, packed = rf_forest_chunk(
+                bins_d, y_d, w_d, bags, oob_sum, oob_cnt, fa_all, cat,
+                settings, n_bins, has_cat, tree_batch)
+            packed = packed.cpu().numpy()                # the chunk's copy
+        for j, row in enumerate(packed):
+            tree, gfi, tr_err, va_err = _unpack_tree(
+                row, total, n_bins, c, settings.depth)
+            trees.append(tree)
+            fi += gfi
+            history.append((tr_err, va_err))
+            if progress:
+                progress(ti + j, tr_err, va_err)
+        ti += chunk
+        if ckpt:
+            with phase("train/checkpoint"):
+                checkpoint_fn(trees, history, None)
+    return ForestResult(
+        trees=trees, spec_kwargs={"algorithm": "RF"},
+        train_error=history[-1][0] if history else float("nan"),
+        valid_error=history[-1][1] if history else float("nan"),
+        feature_importance=fi, trees_built=len(trees), history=history)
+
+
 # ----------------------------------------------------------------- entry
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -379,11 +602,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def run_tree_training(proc) -> int:
     """Entry called by TrainProcessor for tree algorithms: the resident,
-    single-member GBT."""
+    single-member GBT, RF or DT."""
     mc = proc.model_config
     alg = mc.train.algorithm
-    if alg != Algorithm.GBT:
-        raise _not_ported(f"{alg.name} training", "item 6")
     shards = proc._open_shards(proc.paths.clean_dir)
     col_nums = shards.schema.get("columnNums", [])
     by_num = {c.columnNum: c for c in proc.column_configs}
@@ -394,19 +615,23 @@ def run_tree_training(proc) -> int:
     n_bins = max((by_num[cn].num_bins() + 1 for cn in col_nums
                   if cn in by_num), default=2)
     params = proc._trials(dict(mc.train.params or {}))[0]
+    kind = "gbt" if alg == Algorithm.GBT else "rf"
     if mc.train.isCrossValidation and mc.train.numKFold > 1:
-        raise _not_ported("GBT k-fold training", "item 6")
+        raise _not_ported(f"{alg.name} k-fold training", "item 6")
     if max(1, mc.train.baggingNum) > 1:
-        raise _not_ported("bagged GBT (_gbt_forest_multi)", "item 6")
+        raise _not_ported(f"bagged {alg.name} (_{kind}_forest_multi)",
+                          "item 6")
     from ..config.validator import is_multi_class
     if is_multi_class(mc) and len(mc.dataSet.posTags) > 2:
-        raise _not_ported("one-vs-all multi-class GBT", "item 6")
+        raise _not_ported(f"one-vs-all or native multi-class {alg.name}",
+                          "item 6")
     if proc._use_streaming(shards, shards.schema):
-        raise _not_ported("streamed (out-of-core) GBT training "
-                          "(train_gbt_streamed); this plane is over "
+        raise _not_ported(f"streamed (out-of-core) {alg.name} training "
+                          f"(train_{kind}_streamed); this plane is over "
                           "shifu.train.memoryBudgetBytes", "item 8")
     settings = settings_from_params(params, mc.train, alg)
     settings.resume = bool(proc.params.get("resume"))
+    settings.stats_exact = not mc.dataSet.weightColumnName
     ckpt_fn = _forest_checkpoint_fn(proc, settings, alg, n_bins, col_nums,
                                     shards)
 
@@ -433,12 +658,20 @@ def run_tree_training(proc) -> int:
                  "depth %d", alg.name, proc.device, *bins.shape, n_bins,
                  settings.n_trees, settings.depth)
         with proc.phase("train"):
-            res = train_gbt(bins, y, w, n_bins, cat_mask, settings,
-                            progress, init_trees=init_trees,
-                            init_score=init_score, checkpoint_fn=ckpt_fn,
-                            start_history=start_history,
-                            init_scores=init_scores, device=proc.device,
-                            phase=proc.phase)
+            if alg == Algorithm.GBT:
+                res = train_gbt(bins, y, w, n_bins, cat_mask, settings,
+                                progress, init_trees=init_trees,
+                                init_score=init_score, checkpoint_fn=ckpt_fn,
+                                start_history=start_history,
+                                init_scores=init_scores, device=proc.device,
+                                phase=proc.phase)
+            else:
+                res = train_rf(bins, y, w, n_bins, cat_mask, settings,
+                               progress, checkpoint_fn=ckpt_fn,
+                               init_trees=init_trees,
+                               start_history=start_history,
+                               device=proc.device, phase=proc.phase)
+                res.spec_kwargs["algorithm"] = alg.name
 
     with proc.phase("save_model"):
         spec = tree_model.TreeModelSpec(

@@ -1,7 +1,8 @@
 """Card-only tests of the port's hand-written CUDA kernels: each kernel
-(B4 ``tree_traverse``, B1 ``hist``, B3 ``stats_hist``) against its plain
-PyTorch version on the same numpy-seeded inputs; tree growth and the stats
-accumulator on the card against the CPU; and a GBT chunk run under
+(B4 ``tree_traverse``, B1 ``hist``, B2 ``hist_batch``, B3 ``stats_hist``)
+against its plain PyTorch version on the same numpy-seeded inputs (B2 also
+against B1 tree by tree); tree growth, Random Forest bags and the stats
+accumulator on the card against the CPU; and GBT and RF chunks run under
 ``torch.cuda.set_sync_debug_mode("error")``.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
@@ -135,6 +136,100 @@ def test_hist_kernel_rejects_what_it_cannot_take(cuda):
         build_histograms(bins.int(), node, stats, 2, 70000)
 
 
+# ------------------------------------------------------------------ B2
+def _batch_inputs(n, c, b, k, tb, s, dtype, seed):
+    """Shared bins; per tree its own node ids (~30% inactive) and stats
+    (integer bag-like weights, ~1/3 of them 0, times N(0, 1) channels)."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, b, size=(n, c)).astype(dtype)
+    node = rng.integers(0, k, size=(tb, n)).astype(np.int32)
+    node[rng.random((tb, n)) < 0.3] = -1
+    w = rng.poisson(1.0, size=(tb, n, 1)).astype(np.float32)
+    other = rng.normal(size=(tb, n, s - 1)).astype(np.float32)
+    return bins, node, np.concatenate([w, w * other], axis=2)
+
+
+@pytest.mark.parametrize("n,c,b,k,tb,s,dtype", [
+    (1000, 256, 64, 1, 8, 2, np.uint8), (65536, 256, 64, 2, 8, 2, np.uint8),
+    (65536, 256, 64, 32, 8, 2, np.uint8), (1, 256, 64, 1, 1, 2, np.uint8),
+    (5000, 7, 4001, 8, 3, 2, np.int32), (3000, 3, 65536, 1, 2, 1, np.int32),
+    (4000, 5, 64, 300, 2, 3, np.uint8), (2000, 33, 7, 3, 5, 4, np.uint8),
+    (20000, 64, 64, 4096, 2, 2, np.uint8), (0, 4, 8, 2, 2, 2, np.uint8)])
+def test_hist_batch_kernel_equals_b1_per_tree(cuda, n, c, b, k, tb, s,
+                                              dtype):
+    """Every tree's slice is bit-equal to a B1 launch on that tree's node
+    ids and stats, a second launch is bit-equal, and the count channel
+    equals the plain version.  Covers both modes (shared rows at small
+    K, partitioned rows), node and bin tiling, TB = 1, S in {1..4}, odd
+    column counts, K = 4096 and N = 0."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops.tree import (build_histograms,
+                                          build_histograms_batch)
+    bins, node, stats = _on(cuda, *_batch_inputs(n, c, b, k, tb, s, dtype,
+                                                 seed=n + k + tb))
+    before = build_histograms_batch.launches
+    got = build_histograms_batch(bins, node, stats, k, b)
+    again = build_histograms_batch(bins, node, stats, k, b)
+    torch.cuda.synchronize()
+    assert build_histograms_batch.launches == before + 2
+    assert got.shape == (tb, k, c, b, s) and torch.equal(got, again)
+    want = hist.build_histograms_batch_ref(bins, node, stats, k, b)
+    assert torch.equal(got[..., 0], want[..., 0])
+    # the other layout (partitioned rows forced) gives the same bits
+    assert torch.equal(hist.build_histograms_batch_cuda(
+        bins, node, stats, k, b, mode=0), got)
+    for t in range(tb):
+        assert torch.equal(got[t], build_histograms(bins, node[t], stats[t],
+                                                    k, b)), t
+
+
+def test_hist_batch_kernel_rejects_what_it_cannot_take(cuda):
+    from shifu_tpu_torch.ops.tree import build_histograms_batch
+    bins, node, stats = _on(cuda, *_batch_inputs(10, 4, 8, 2, 3, 2,
+                                                 np.uint8, 1))
+    with pytest.raises(ValueError, match="bins"):
+        build_histograms_batch(bins.float(), node, stats, 2, 8)
+    with pytest.raises(ValueError, match="stats_b"):
+        build_histograms_batch(bins, node, stats.double(), 2, 8)
+    with pytest.raises(ValueError, match="node_idx_b"):
+        build_histograms_batch(bins, node[0], stats, 2, 8)
+    with pytest.raises(ValueError, match="rows of bins"):
+        build_histograms_batch(bins, node[:2], stats, 2, 8)
+
+
+def test_grow_forest_on_the_card_equals_grow_tree(cuda):
+    """A batch of 4 depth-9 entropy trees (K up to 256 left children, so
+    both kernel modes) grown by grow_forest on B2 equals grow_tree on B1
+    tree by tree, bit for bit, with MaxLeaves on one run."""
+    from shifu_tpu_torch.ops import tree as tt
+    rng = np.random.default_rng(8)
+    n, c = 30000, 24
+    bins = rng.integers(0, 32, size=(n, c)).astype(np.uint8)
+    y = (rng.random(n) < 0.3).astype(np.float32)
+    bag = rng.poisson(1.0, size=(4, n)).astype(np.float32)
+    stats = np.stack([bag, bag * y], axis=2)
+    fa = rng.random((4, c)) < 0.7
+    cat = np.zeros(c, bool)
+    cat[5] = True
+    b, st, ct, f = _on(cuda, bins, stats, cat, fa)
+    for max_leaves in (0, 40):
+        forest = tt.grow_forest(b, st, ct, f, 32, 9, "entropy", 1.0, 0.0,
+                                max_leaves)
+        for t in range(4):
+            one = tt.grow_tree(b, st[t], ct, f[t], 32, 9, "entropy", 1.0,
+                               0.0, max_leaves)
+            for x, z in zip(forest[t], one):
+                assert torch.equal(x, z), (max_leaves, t)
+
+
+def test_bags_on_the_card_equal_the_cpu(cuda):
+    from shifu_tpu_torch.ops import prng
+    keys = [prng.fold_in(prng.prng_key(7), t) for t in range(3)]
+    for lam in (0.5, 1.0, 3.0):
+        got = prng.poisson(keys, lam, 1 << 18, cuda).cpu()
+        assert torch.equal(got, prng.poisson(keys, lam, 1 << 18, "cpu"))
+
+
 def test_grow_tree_on_the_card_matches_the_cpu(cuda):
     """A separated-gain plane grows the same tree on both devices, and
     the card's tree is bit-identical from run to run."""
@@ -187,6 +282,43 @@ def test_gbt_chunk_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert packed.shape[0] == 2 and packed.dtype == torch.uint8
     assert bool(torch.isfinite(f2).all())
+
+
+def test_rf_chunk_makes_no_host_sync(cuda):
+    """10 RF trees of depth 6 in one chunk: a batch of 8 through B2 (one
+    launch a level) and 2 single trees through B1, with no host sync
+    once the bags are drawn; the packed trees equal a TreeBatch 1 run."""
+    from shifu_tpu_torch.ops import tree as tt
+    from shifu_tpu_torch.train import dt_trainer as dt
+    rng = np.random.default_rng(9)
+    n, c = 4096, 16
+    bins, y, w = _on(cuda, rng.integers(0, 64, size=(n, c)).astype(np.uint8),
+                     (rng.random(n) < 0.3).astype(np.float32),
+                     rng.integers(1, 4, size=n).astype(np.float32))
+    settings = dt.DTSettings(n_trees=10, depth=6, impurity="entropy")
+    fa = torch.ones((10, c), dtype=torch.bool, device=cuda)
+    cat = torch.zeros(c, dtype=torch.bool, device=cuda)
+    cat[3] = True
+    bags = dt.draw_bags(settings, range(10), n, cuda)
+    zero = torch.zeros(n, device=cuda)
+
+    def run(tree_batch):
+        return dt.rf_forest_chunk(bins, y, w, bags, zero, zero, fa, cat,
+                                  settings, 64, True, tree_batch)
+    run(8)                                              # build + warm up
+    torch.cuda.synchronize()
+    batch, single = (tt.build_histograms_batch.launches,
+                     tt.build_histograms.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tt.build_histograms_batch.launches == batch + 6
+    assert tt.build_histograms.launches == single + 2 * 6
+    want = run(1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _stats_inputs(n, c, b, s, seed, invalid=0.05):

@@ -157,13 +157,13 @@ def test_predict_tree_matches_reference():
 
 
 def test_best_splits_rejects_unknown_impurity():
-    """Only GBT's impurities are ported; entropy/gini must not silently
-    score as variance."""
+    """variance, friedmanmse, entropy and gini are ported; any other name
+    must not silently score as one of them."""
     h = _t(_hist(5))
     c = h.shape[1]
     with pytest.raises(ValueError, match="unknown impurity"):
         tt.best_splits(h, torch.zeros(c, dtype=torch.bool),
-                       torch.ones(c, dtype=torch.bool), "entropy")
+                       torch.ones(c, dtype=torch.bool), "hinge")
 
 
 def test_depth_zero_tree_is_one_leaf():

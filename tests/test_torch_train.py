@@ -350,7 +350,7 @@ def test_train_raises_without_cuda_unless_cpu_is_asked(monkeypatch,
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"algorithm": "RF"}, "RF training"),
+    ({"algorithm": "RF", "baggingNum": 2}, "bagged RF"),
     ({"params": dict(BASE, TreeNum=[2, 3])}, "grid search"),
     ({"prop": "shifu.train.streaming=on"}, "streamed"),
     ({"baggingNum": 2}, "bagged GBT")])

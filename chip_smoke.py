@@ -2,9 +2,15 @@
 """Chip smoke for the PyTorch/CUDA port (``shifu_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --time-of DIR [--seed N]
 
 Run from the repository root on a machine with an NVIDIA GPU (built and
-measured on an H100).  It
+measured on an H100).  The main path's data (steps 3-6) comes from a
+generator of its own, seeded from ``--seed``, so the checks and timings
+around it never move it.  With ``--time-of DIR`` it only times the
+histogram kernels B1 and B2 and a chunk of GBT trees of the
+``shifu_tpu_torch`` in checkout DIR (``time_of``), to compare two
+versions on one card.  Otherwise it
 
 1. requires CUDA and prints the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
@@ -15,11 +21,14 @@ measured on an H100).  It
    {1, 8, 64, 333, 512, 4096} must equal the plain version bit for bit;
    ``hist`` (the histogram build) over 256 uint8 columns of 64 bins with
    two stat channels [w, w*g] (integer weights 1-3, ~30% of rows
-   inactive) at N in {1, 1000, 65536, 1048576} and K in {1, 2, 32}, and
-   over 7 int32 columns of 4001 bins at K=8, must give the plain version's
-   count channel exactly, the w*g channel within 1e-5 of the plain
-   version's sum of |stats| per cell, and the same bits on a second
-   launch; ``stats_hist`` (the stats plane's fine histogram) over ~5%
+   inactive) at N in {1, 1000, 65536, 1048576} and K in {1, 2, 32} (and
+   K=4096 where it is timed, step 7), and over 7 int32 columns of 4001
+   bins at K=8, must give bit for bit what the plain version of its own
+   fixed-point arithmetic gives, the float64 plain version's count
+   channel exactly, the w*g channel within 1e-5 of that version's sum of
+   |stats| per cell plus the fixed point's quantum (half of 2^-e a row),
+   and the same bits on a second launch; ``stats_hist`` (the stats
+   plane's fine histogram) over ~5%
    missing cells at (N, C, B, S) in {262144 x 224 x 4096 with S = 4 and
    2, 100003 x 13 x 64 with S = 4 and 2, 4096 x 5 x 4096 x 2, 1 x 7 x
    4096 x 4} must give the plain version's count channels exactly, the
@@ -27,9 +36,8 @@ measured on an H100).  It
    second launch; ``hist_batch`` (the tree-batched histogram of the
    Random Forest) over 8 trees of ``hist``'s data at N = 1,048,576 and K
    in {1, 32, 4096} and over 7 int32 columns of 4001 bins at K=8 must give
-   every tree a ``hist`` launch's bits, the plain version's counts, w*g
-   within 1e-5 of the plain version on |stats|, and the same bits on a
-   second launch;
+   every tree a ``hist`` launch's bits, held to the plain versions as
+   ``hist`` is, and the same bits on a second launch;
 3. drives the port's serving path at full width: writes a synthetic GBT
    model set (ModelConfig.json, ColumnConfig.json with 224 numeric + 32
    categorical final-selected columns, models/model0.gbt with 100 trees of
@@ -50,8 +58,9 @@ measured on an H100).  It
    0.1, CheckpointInterval 5, validSetRate 0.2).  It checks the exit
    code, the 10 depth-7 trees of ``models/model0.gbt``, falling train and
    validation errors, an informative column on top of the feature
-   importance, and exactly 70 ``hist`` launches (7 per tree), counted from
-   zero around the run.  Then: one chunk of trees under
+   importance, and exactly 80 ``hist`` launches (7 levels and the leaf
+   sums a tree; the 10 leaf-sum launches also counted on their own),
+   counted from zero around the run.  Then: one chunk of trees under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
    chunk); 5 trees, then ``train -resume`` to 10, bit-identical to the
    uninterrupted forest; the same 5-tree checkpoint without its per-row
@@ -67,17 +76,20 @@ measured on an H100).  It
    RF params (TreeNum 10, MaxDepth 14, TWOTHIRDS, entropy, Loss squared)
    plus CheckpointInterval 8 on the same 1,048,576-row plane through
    ``cli.main train`` on ``cuda``, with exactly 14 ``hist_batch`` launches
-   (the 8-tree batch, one a level) and 28 ``hist`` launches (2 trees one
-   by one), counted from zero around the run; 32,767-node trees, a
-   falling out-of-bag error, an informative top feature, the peak device
-   memory.  Then: the two chunks again on resident tensors (the batch
-   under ``set_sync_debug_mode("error")``), each reproducing the CLI's
-   trees bit for bit, timed per tree with CUDA events around every
-   histogram launch and leaf-sum level; 8 trees, then ``train -resume`` to
-   10, bit-identical, its restored trees replayed through
-   ``tree_traverse``; and the plane's first 65,536 rows at depth 7 on
-   ``cuda`` and ``cpu``: bags equal (0 rows differ), levels 0-1 equal,
-   errors within 1e-4 relative, AUCs within 0.005;
+   (the 8-tree batch, one a level) and 38 ``hist`` launches (the batch's
+   8 leaf-sum levels, then 2 trees one by one), counted from zero around
+   the run (10 of the ``hist`` launches leaf sums, counted on their own);
+   32,767-node trees, a falling out-of-bag error, every tree's root split
+   on an informative column (the column a depth-14 impurity importance
+   puts on top may be a many-category one: it sums the gains of thousands
+   of deep splits), the peak device memory.  Then: the two chunks again
+   on resident tensors (the batch under ``set_sync_debug_mode("error")``),
+   each reproducing the CLI's trees bit for bit, timed per tree with CUDA
+   events around every histogram launch and leaf-sum level; 8 trees,
+   then ``train -resume`` to 10, bit-identical, its restored trees
+   replayed through ``tree_traverse``; and the plane's first 65,536
+   rows at depth 7 on ``cuda`` and ``cpu``: bags equal (0 rows differ),
+   levels 0-1 equal, errors within 1e-4 relative, AUCs within 0.005;
 6. drives the port's stats path through the CLI: writes the column
    plan's raw data as a 16,384-row '|'-delimited CSV (224 numeric columns
    with ~5% empty cells, 32 categorical, ``weight``, ``tag``; a cut in
@@ -100,12 +112,13 @@ measured on an H100).  It
    call that computes the same function where there is one, and its bound
    (the larger of the bytes this data makes it move over 3.35 TB/s and its
    integer operations over 67 T/s): ``tree_traverse`` at the serving top
-   rung N=512 and at N=65536, ``hist`` at N=1,048,576 and K=1 and 32,
-   ``stats_hist`` at N=262,144 x 224 columns x 4096 buckets with S = 4 and
-   2 (``index_add_`` the PyTorch call), ``hist_batch`` at TB=8, N =
-   1,048,576 and K in {1, 32, 4096} beside 8 ``hist`` launches and, where
-   it picks shared rows, the same launch with partitioned rows
-   (``scatter_add_`` the PyTorch call); times the device transform at
+   rung N=512 and at N=65536, ``stats_hist`` at N=262,144 x 224 columns
+   x 4096 buckets with S = 4 and 2 (``index_add_`` the PyTorch call),
+   ``hist`` at N = 1,048,576 and K
+   in {1, 32, 4096} and ``hist_batch`` at TB=8 and the same N and K
+   beside 8 ``hist`` launches (``scatter_add_`` the PyTorch call), each
+   split by part (partition, row walk, adds, flush); times the device
+   transform at
    N=512 with and without its x blocks; and reports ms per tree of the
    full-width train, with a ``torch.profiler`` breakdown of one tree's
    device time;
@@ -143,6 +156,7 @@ RAW_BATCHES = (1, 7, 64, 333, 512, 1500)
 TIMED_ROWS = (512, 65536)
 HIST_ROWS = (1, 1000, 65536, 1 << 20)
 HIST_NODES = (1, 2, 32)
+CHUNK_REPEATS = 15                 # timed GBT chunks (the tree is host-bound)
 HIST_WIDE = (1 << 20, 7, 4001, 8)          # N, C, B (int32 bins), K
 HIST_TOL = 1e-5                            # x the plain version on |stats|
 TRAIN_ROWS, TRAIN_TREES, TRAIN_CKPT = 1 << 20, 10, 5
@@ -162,6 +176,7 @@ RESIDENT_CHUNKS, RESIDENT_ROWS = 8, 262144
 CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-5, 1e-4  # ColumnConfig floats, card/CPU
 HIST_BATCH = 8                             # B2's tree batch (RF_TREE_BATCH)
 HIST_BATCH_NODES = (1, 32, 4096)           # K: shallow levels, the deepest
+HIST_TIMED_NODES = HIST_BATCH_NODES        # B1 timed at the same K
 HIST_BATCH_WIDE = (1 << 20, 7, 4001, 8)    # N, C, B (int32 bins), K
 RF_TREES, RF_DEPTH, RF_CKPT = 10, 14, 8    # init -model's RF + a checkpoint
 RF_CUT_DEPTH = 7                           # card vs CPU on CUT_ROWS rows
@@ -256,10 +271,38 @@ def hist_inputs(torch, rng, n, c, b, k, dtype=np.uint8):
     return [torch.from_numpy(a).to("cuda") for a in (bins, node, stats)]
 
 
+def quantum_floor(torch, hist, bins, node, stats, k, b):
+    """What the fixed point itself may lose in each cell: half of its
+    quantum 2^-e a row of the cell (``hist.channel_exp``)."""
+    rows = hist.build_histograms_ref(bins, node, torch.ones_like(stats[:, :1]),
+                                     k, b)
+    e = hist.channel_exp(stats.abs().amax(dim=0), bins.shape[0])
+    return rows * torch.pow(2.0, -e.double() - 1).float()
+
+
+def held_to_plain(torch, hist, got, bins, node, stats, k, b, where, name):
+    """One tree's histogram against the plain versions: bit-equal to the
+    kernel's own arithmetic (``build_histograms_fixed_ref``), counts equal
+    to the float64 plain version, w*g within HIST_TOL of it run on |stats|
+    plus the fixed point's quantum floor.  Returns max |got - plain|."""
+    if not torch.equal(got, hist.build_histograms_fixed_ref(
+            bins, node, stats, k, b)):
+        fail(f"{name} != its fixed-point plain version at {where}")
+    want = hist.build_histograms_ref(bins, node, stats, k, b)
+    scale = hist.build_histograms_ref(bins, node, stats.abs(), k, b)
+    d = (got - want).abs()
+    if not torch.equal(got[..., 0], want[..., 0]):
+        fail(f"{name} count channel != plain version at {where}")
+    floor = quantum_floor(torch, hist, bins, node, stats, k, b)
+    if not bool((d <= HIST_TOL * scale + floor).all()):
+        fail(f"{name} w*g channel beyond {HIST_TOL} x |stats| and the "
+             f"quantum at {where} (max |d| {d.max().item()})")
+    return d.max().item()
+
+
 def check_hist(torch, rng) -> dict:
-    """B1 against its plain version: counts equal, w*g within HIST_TOL of
-    the plain version run on |stats| per cell, a second launch bit-equal.
-    Returns the max |kernel - plain| seen."""
+    """B1 against its plain versions (``held_to_plain``), a second launch
+    bit-equal.  Returns the max |kernel - plain| seen."""
     from shifu_tpu_torch.ops import hist
     from shifu_tpu_torch.ops.tree import build_histograms
     cases = [(n, N_COLS, N_BINS, k, np.uint8) for n in HIST_ROWS
@@ -269,22 +312,16 @@ def check_hist(torch, rng) -> dict:
         bins, node, stats = hist_inputs(torch, rng, n, c, b, k, dtype)
         got = build_histograms(bins, node, stats, k, b)
         again = build_histograms(bins, node, stats, k, b)
-        want = hist.build_histograms_ref(bins, node, stats, k, b)
-        scale = hist.build_histograms_ref(bins, node, stats.abs(), k, b)
         torch.cuda.synchronize()
-        d = (got - want).abs()
         where = f"N={n} C={c} B={b} K={k} {np.dtype(dtype).name}"
         if got.shape != (k, c, b, 2) or not torch.equal(got, again):
             fail(f"hist: two launches differ at {where}")
-        if not torch.equal(got[..., 0], want[..., 0]):
-            fail(f"hist count channel != plain version at {where}")
-        if not bool((d <= HIST_TOL * scale).all()):
-            fail(f"hist w*g channel beyond {HIST_TOL} x |stats| at {where} "
-                 f"(max |d| {d.max().item()})")
-        err = max(err, d.max().item())
-        log(f"hist == plain version at {where}: counts equal, max |d| "
-            f"{d.max().item():.3g}, relaunch bit-equal")
-        del bins, node, stats, got, again, want, scale, d
+        d = held_to_plain(torch, hist, got, bins, node, stats, k, b, where,
+                          "hist")
+        err = max(err, d)
+        log(f"hist == plain version at {where}: bit-equal to the fixed "
+            f"point, counts equal, max |d| {d:.3g}, relaunch bit-equal")
+        del bins, node, stats, got, again
     return {"hist": err}
 
 
@@ -304,11 +341,10 @@ def batch_inputs(torch, rng, n, c, b, k, tb, dtype=np.uint8):
 
 
 def check_hist_batch(torch, rng) -> dict:
-    """B2 against B1 and its plain version: every tree's slice bit-equal
-    to a B1 launch on that tree's inputs, counts equal to the plain
-    version, w*g within HIST_TOL of the plain version run on |stats|, a
-    second launch bit-equal.  TB=8 at full width for each K in
-    HIST_BATCH_NODES (both kernel modes) and at one int32-bin shape.
+    """B2 against B1 and its plain versions: every tree's slice bit-equal
+    to a B1 launch on that tree's inputs and held to the plain versions
+    as B1 is (``held_to_plain``), a second launch bit-equal.  TB=8 at full
+    width for each K in HIST_BATCH_NODES and at one int32-bin shape.
     Returns the max |kernel - plain| seen."""
     from shifu_tpu_torch.ops import hist
     from shifu_tpu_torch.ops.tree import (build_histograms,
@@ -334,19 +370,13 @@ def check_hist_batch(torch, rng) -> dict:
                 fail(f"hist_batch tree {t} != hist (B1) at {where}")
         d_max = 0.0
         for t in range(HIST_BATCH):            # one tree at a time: memory
-            want = hist.build_histograms_ref(bins, node[t], stats[t], k, b)
-            scale = hist.build_histograms_ref(bins, node[t], stats[t].abs(),
-                                              k, b)
-            d = (got[t] - want).abs()
-            if not torch.equal(got[t, ..., 0], want[..., 0]):
-                fail(f"hist_batch count channel != plain version at {where}")
-            if not bool((d <= HIST_TOL * scale).all()):
-                fail(f"hist_batch w*g channel beyond {HIST_TOL} x |stats| at "
-                     f"{where} (max |d| {d.max().item()})")
-            d_max = max(d_max, d.max().item())
-            del want, scale, d
+            d_max = max(d_max, held_to_plain(
+                torch, hist, got[t], bins, node[t], stats[t], k, b, where,
+                f"hist_batch tree {t}"))
+            torch.cuda.empty_cache()
         err = max(err, d_max)
-        plan = hist.hist_batch_plan(n, c, HIST_BATCH, k, b, 2)
+        plan = hist.hist_plan(n, c, HIST_BATCH, k, b, 2,
+                              np.dtype(dtype).itemsize)
         log(f"hist_batch == hist per tree bit for bit and == plain version "
             f"at {where}: counts equal, max |d| {d_max:.3g}, relaunch "
             f"bit-equal (plan {plan})")
@@ -653,13 +683,32 @@ def auc(score: np.ndarray, y: np.ndarray) -> float:
     return float((rank[pos].sum() - n1 * (n1 + 1) / 2.0) / (n1 * n0))
 
 
+def tree_counters():
+    """The launch counts of the tree-training kernels' wrappers: B1
+    (``hist``, the leaf sums' launches included), the leaf sums on their
+    own, B2 (``hist_batch``) and B4 (``tree_traverse``)."""
+    from shifu_tpu_torch.ops import tree as tree_ops
+    from shifu_tpu_torch.ops import tree_quant as tq
+    return {"hist": tree_ops.build_histograms,
+            "leaf_sums": tree_ops._leaf_raw_hist,
+            "hist_batch": tree_ops.build_histograms_batch,
+            "tree_traverse": tq.predict_forest_quant}
+
+
+def zero_tree_counts() -> None:
+    for fn in tree_counters().values():
+        fn.launches = 0
+
+
+def read_tree_counts() -> dict:
+    return {name: fn.launches for name, fn in tree_counters().items()}
+
+
 def train_phase(torch, root: str, serve_root: str, plan, rng,
                 device: str = "cuda") -> dict:
     """The training path at full width, checked by the repo's own means;
-    the ``hist`` and ``tree_traverse`` counts are zeroed just before the
+    the tree kernels' counts (``tree_counters``) are zeroed just before the
     run and read just after it."""
-    from shifu_tpu_torch.ops import tree as tree_ops
-    from shifu_tpu_torch.ops import tree_quant as tq
     t0 = time.perf_counter()
     bins, y, w, informative, is_cat = train_plane(rng, plan, TRAIN_ROWS)
     names = [p[1] for p in plan]
@@ -673,11 +722,14 @@ def train_phase(torch, root: str, serve_root: str, plan, rng,
         f"{TRAIN_ROWS} rows x {N_COLS} columns, informative columns "
         f"{informative.tolist()}, positive rate {y.mean():.4f}")
 
-    tree_ops.build_histograms.launches = 0
-    tq.predict_forest_quant.launches = 0
+    zero_tree_counts()
     wall = train_cli(full, device)
-    launches = {"hist": tree_ops.build_histograms.launches,
-                "tree_traverse": tq.predict_forest_quant.launches}
+    launches = read_tree_counts()
+    want = {"hist": TRAIN_TREES * (DEPTH + 1), "leaf_sums": TRAIN_TREES,
+            "hist_batch": 0, "tree_traverse": 0}
+    if launches != want:
+        fail(f"GBT train launched {launches}, not {want} ({TRAIN_TREES} "
+             f"trees x {DEPTH} levels and the leaf sums)")
 
     spec, trees = load_forest(full)
     if spec.n_trees != TRAIN_TREES or len(trees) != TRAIN_TREES or \
@@ -738,7 +790,7 @@ def train_phase(torch, root: str, serve_root: str, plan, rng,
                  f"tree {t}")
     log(f"{TRAIN_CKPT} trees + train -resume to {TRAIN_TREES}: forest "
         "bit-identical to the uninterrupted run")
-    out["replay"] = replay_phase(replay, device, trees, tree_ops, tq)
+    out["replay"] = replay_phase(replay, device, trees)
 
     # card vs CPU on the plane's first CUT_ROWS rows
     cut = os.path.join(root, "plane_cut")
@@ -755,23 +807,24 @@ def train_phase(torch, root: str, serve_root: str, plan, rng,
     return out
 
 
-def replay_phase(d: str, device: str, trees, tree_ops, tq) -> dict:
+def replay_phase(d: str, device: str, trees) -> dict:
     """``train -resume`` from a 5-tree checkpoint with no score sidecar:
     the restored trees replay through ``tree_traverse`` (counts zeroed
     just before, read just after; one launch for the one depth group),
-    then 5 more trees grow (35 ``hist`` launches).  Split features and
+    then 5 more trees grow (40 ``hist`` launches: 7 levels and the leaf
+    sums a tree).  Split features and
     left masks must equal the uninterrupted forest's, leaves within
     REPLAY_RTOL (the replay adds each tree's leaf to the scores as the
     uninterrupted run does, so bit-equality is expected and reported)."""
-    tree_ops.build_histograms.launches = 0
-    tq.predict_forest_quant.launches = 0
+    zero_tree_counts()
     wall = train_cli(d, device, "-resume")
-    launches = {"hist": tree_ops.build_histograms.launches,
-                "tree_traverse": tq.predict_forest_quant.launches}
-    want_hist = (TRAIN_TREES - TRAIN_CKPT) * DEPTH
-    if launches["tree_traverse"] < 1 or launches["hist"] != want_hist:
-        fail(f"replay resume launched {launches}, not >= 1 tree_traverse "
-             f"and {want_hist} hist")
+    launches = read_tree_counts()
+    grown = TRAIN_TREES - TRAIN_CKPT
+    if launches["tree_traverse"] < 1 or launches["hist_batch"] != 0 or \
+            launches["hist"] != grown * (DEPTH + 1) or \
+            launches["leaf_sums"] != grown:
+        fail(f"replay resume launched {launches}, not >= 1 tree_traverse, "
+             f"{grown * (DEPTH + 1)} hist of which {grown} leaf sums")
     _, got = load_forest(d)
     if len(got) != len(trees):
         fail(f"replayed forest has {len(got)} trees")
@@ -870,17 +923,19 @@ def chunk_phase(torch, bins, y, w, is_cat, device: str) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     walls = []
-    for _ in range(3):
+    for _ in range(CHUNK_REPEATS):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / 2)
     ms_tree = float(np.median(walls))
+    quart = [float(q) for q in np.percentile(walls, [25, 75])]
     prof = profile_device(torch, run)
     log(f"a 2-tree chunk ran under set_sync_debug_mode('error') with no "
-        f"host sync; {ms_tree:.3f} ms per tree (median of 3 chunks, host "
-        f"wall), {TRAIN_ROWS * 1e3 / ms_tree:.4g} rows x trees / s")
-    return {"ms_per_tree": ms_tree, "profile": prof}
+        f"host sync; {ms_tree:.3f} ms per tree (median of {CHUNK_REPEATS} "
+        f"chunks, host wall; quartiles {quart[0]:.3f} / {quart[1]:.3f}), "
+        f"{TRAIN_ROWS * 1e3 / ms_tree:.4g} rows x trees / s")
+    return {"ms_per_tree": ms_tree, "quartiles_ms": quart, "profile": prof}
 
 
 def profile_device(torch, run) -> dict:
@@ -922,14 +977,13 @@ def rf_phase(torch, root: str, serve_root: str, plane,
     defaults (TreeNum 10, MaxDepth 14, TWOTHIRDS, entropy, Loss squared)
     with CheckpointInterval 8 on the GBT phase's 1,048,576 x 256 plane,
     through ``cli.main train`` on ``cuda``.  The first chunk of 8 trees
-    grows as one batch (one ``hist_batch`` launch a level: 14), the last
-    2 one by one (``hist``: 2 x 14); the counts are zeroed just before
-    the run and read just after it.  Then: the chunk again on resident
+    grows as one batch (one ``hist_batch`` launch a level: 14, and one
+    ``hist`` launch a tree for its leaf sums: 8), the last 2 one by one
+    (``hist``: 2 x 15); the counts are zeroed just before the run and
+    read just after it.  Then: the chunk again on resident
     tensors, timed per level; 8 trees and ``train -resume`` to 10,
     bit-identical through a ``tree_traverse`` replay; card vs CPU on the
     plane's first CUT_ROWS rows at depth RF_CUT_DEPTH."""
-    from shifu_tpu_torch.ops import tree as tree_ops
-    from shifu_tpu_torch.ops import tree_quant as tq
     from shifu_tpu_torch.pipeline.create import _ALG_DEFAULT_PARAMS
     bins, y, w, informative, is_cat, clean, cut, names = plane
     params = dict(_ALG_DEFAULT_PARAMS["RF"][1], CheckpointInterval=RF_CKPT)
@@ -940,16 +994,13 @@ def rf_phase(torch, root: str, serve_root: str, plane,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    tree_ops.build_histograms_batch.launches = 0
-    tree_ops.build_histograms.launches = 0
-    tq.predict_forest_quant.launches = 0
+    zero_tree_counts()
     wall = train_cli(full, device)
-    launches = {"hist_batch": tree_ops.build_histograms_batch.launches,
-                "hist": tree_ops.build_histograms.launches,
-                "tree_traverse": tq.predict_forest_quant.launches}
+    launches = read_tree_counts()
     peak = torch.cuda.max_memory_allocated() - base
-    want = {"hist_batch": RF_DEPTH, "hist": (RF_TREES - RF_CKPT) * RF_DEPTH,
-            "tree_traverse": 0}
+    want = {"hist_batch": RF_DEPTH,
+            "hist": RF_CKPT + (RF_TREES - RF_CKPT) * (RF_DEPTH + 1),
+            "leaf_sums": RF_TREES, "tree_traverse": 0}
     if launches != want:
         fail(f"RF train launched {launches}, not {want}")
 
@@ -971,8 +1022,10 @@ def rf_phase(torch, root: str, serve_root: str, plane,
     with open(os.path.join(full, "tmp", "feature_importance.json")) as f:
         fi = json.load(f)
     top = names.index(max(fi, key=fi.get))
-    if top not in informative:
-        fail(f"RF top feature {names[top]} is not an informative column")
+    roots = [int(t.split_feat[0]) for t in trees]
+    if any(r not in informative for r in roots):
+        fail(f"RF root splits on {[names[r] for r in roots]}, not all "
+             f"informative columns {[names[i] for i in informative]}")
     ck = os.path.join(full, "tmp", "checkpoints", "forest_ckpt.npz")
     for path in (ck, ck + ".meta.json",
                  os.path.join(full, "tmp", "journal", "TRAIN.json")):
@@ -988,7 +1041,9 @@ def rf_phase(torch, root: str, serve_root: str, plane,
         f"({nodes} nodes; every tree splits >= {deep} nodes on its deepest "
         f"split level) in {wall:.3f} s wall ({phases}); train error "
         f"{err[0, 0]:.6f} -> {err[-1, 0]:.6f}, out-of-bag {err[0, 1]:.6f} "
-        f"-> {err[-1, 1]:.6f}; top feature {names[top]}; launches "
+        f"-> {err[-1, 1]:.6f}; roots on informative "
+        f"{sorted({names[r] for r in roots})}, top feature {names[top]}; "
+        f"launches "
         f"{launches}; peak device memory {peak / 2**30:.3f} GiB")
     out = {"launches": launches, "wall_s": wall, "phases_s": phases,
            "errors": err.tolist(), "peak_bytes": peak}
@@ -1000,15 +1055,12 @@ def rf_phase(torch, root: str, serve_root: str, plane,
                            dict(params, TreeNum=RF_CKPT), clean, "RF")
     train_cli(part, device)
     set_train_params(part, params)
-    tree_ops.build_histograms_batch.launches = 0
-    tree_ops.build_histograms.launches = 0
-    tq.predict_forest_quant.launches = 0
+    zero_tree_counts()
     resume_wall = train_cli(part, device, "-resume")
-    r_launches = {"hist_batch": tree_ops.build_histograms_batch.launches,
-                  "hist": tree_ops.build_histograms.launches,
-                  "tree_traverse": tq.predict_forest_quant.launches}
+    r_launches = read_tree_counts()
     if r_launches["tree_traverse"] < 1 or r_launches["hist_batch"] != 0 \
-            or r_launches["hist"] != (RF_TREES - RF_CKPT) * RF_DEPTH:
+            or r_launches["hist"] != (RF_TREES - RF_CKPT) * (RF_DEPTH + 1) \
+            or r_launches["leaf_sums"] != RF_TREES - RF_CKPT:
         fail(f"RF resume launched {r_launches}")
     _, got = load_forest(part, "rf")
     if len(got) != RF_TREES:
@@ -1067,14 +1119,20 @@ def rf_chunk_phase(torch, full, bins, y, w, is_cat, trees, params,
     bag_ms = (time.perf_counter() - t0) * 1e3
     zero = torch.zeros(len(y), device=dev)
 
-    events = []
+    events, inside = [], []
 
     def timed(name, fn):
         def call(*a, **k):
+            if inside:             # B1 under the leaf sums: theirs
+                return fn(*a, **k)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            r = fn(*a, **k)
+            inside.append(name)
+            try:
+                r = fn(*a, **k)
+            finally:
+                inside.pop()
             e1.record()
             events.append((name, e0, e1))
             return r
@@ -1116,7 +1174,9 @@ def rf_chunk_phase(torch, full, bins, y, w, is_cat, trees, params,
                                             "leaf_value")):
                     fail(f"RF {part} chunk tree {j} differs from the CLI "
                          "run's")
-            out[part] = {"ms_per_tree": ms / n_trees, "levels_ms": levels}
+            leaf_ms = levels.get("_level_leaf_raw", [])
+            out[part] = {"ms_per_tree": ms / n_trees, "levels_ms": levels,
+                         "leaf_ms_per_tree_max": max(leaf_ms, default=0.0)}
             hist_name = "build_histograms_batch" if part == "batch" \
                 else "build_histograms"
             per_level = levels.get(hist_name, [])
@@ -1125,7 +1185,8 @@ def rf_chunk_phase(torch, full, bins, y, w, is_cat, trees, params,
                 f"synchronised chunk{', no host sync inside' if debug else ''}"
                 f"); {hist_name} device ms by launch "
                 f"{[round(v, 3) for v in per_level]}; leaf sums "
-                f"{sum(levels.get('_level_leaf_raw', [])):.1f} ms")
+                f"{sum(leaf_ms):.1f} ms (at most {max(leaf_ms, default=0):.3f}"
+                f" ms a tree, {len(leaf_ms)} trees)")
     finally:
         for n, fn in real.items():
             setattr(tree_ops, n, fn)
@@ -1521,22 +1582,49 @@ def time_kernels(torch, tq, rng, gpu: str) -> dict:
     return out
 
 
+def time_parts(torch, bins, node_b, stats_b, k: int) -> dict:
+    """A histogram launch's device ms by part, on [TB, N] node ids and [TB,
+    N, S] stats (B1 at TB = 1): ``hist.launch_until`` stopped after the
+    partition (the wrapper's channel scan and the block set-up included),
+    after the row walk (staging, bin loads), after the adds, then the
+    production launch whole (the flush and finalize); each part is the
+    difference of two neighbours."""
+    from shifu_tpu_torch.ops import hist
+    steps = [(name, lambda stop=stop: hist.launch_until(
+        bins, node_b, stats_b, k, N_BINS, stop)) for name, stop in
+        (("partition", hist.SETUP), ("walk", hist.WALK),
+         ("adds", hist.ADDS))]
+    steps.append(("flush", lambda: hist.build_histograms_batch_cuda(
+        bins, node_b, stats_b, k, N_BINS)))
+    out, prev = {}, 0.0
+    for name, launch in steps:
+        cum = device_ms(torch, launch, launches=5, repeats=3)
+        out[name] = cum - prev
+        prev = cum
+    return out
+
+
 def time_hist(torch, rng, gpu: str) -> dict:
-    """B1 at N=1,048,576 rows of 256 uint8 columns, 64 bins, S=2, for K=1
-    and K=32 on ``hist_inputs``' data: the kernel (its wrapper's device
-    work included), the plain version, and one ``scatter_add_`` of every
-    active (row, column) into the flat [K*C*B, S] f32 buffer with the
-    cell index computed beforehand; the bound counts what this data makes
-    the build move (``hist_bytes``) and one add per active (row, column,
-    channel)."""
+    """B1 at N=1,048,576 rows of 256 uint8 columns, 64 bins, S=2, for K in
+    HIST_TIMED_NODES on ``hist_inputs``' data, each held to the plain
+    versions first (``held_to_plain``): the kernel (its wrapper's device
+    work included), its split by part, the plain version, and one
+    ``scatter_add_`` of every active (row, column) into the flat [K*C*B,
+    S] f32 buffer with the cell index computed beforehand; the bound
+    counts what this data makes the build move (``hist_bytes``) and one
+    add per active (row, column, channel)."""
     from shifu_tpu_torch.ops import hist
     from shifu_tpu_torch.ops.tree import build_histograms
     out = {}
-    for k in (1, 32):
+    for k in HIST_TIMED_NODES:
         bins, node, stats = hist_inputs(torch, rng, TRAIN_ROWS, N_COLS,
                                         N_BINS, k)
+        d = held_to_plain(torch, hist, build_histograms(
+            bins, node, stats, k, N_BINS), bins, node, stats, k, N_BINS,
+            f"N={TRAIN_ROWS} K={k} (timed)", "hist")
         ms = device_ms(torch, lambda: build_histograms(bins, node, stats, k,
                                                        N_BINS))
+        parts = time_parts(torch, bins, node[None], stats[None], k)
         plain_ms = device_ms(torch, lambda: hist.build_histograms_ref(
             bins, node, stats, k, N_BINS), launches=2, repeats=3)
         act = (node >= 0).nonzero()[:, 0]
@@ -1545,22 +1633,28 @@ def time_hist(torch, rng, gpu: str) -> dict:
             + bins[act].long()
         idx = cell.reshape(-1, 1).expand(-1, 2)
         src = stats[act][:, None, :].expand(-1, N_COLS, -1).reshape(-1, 2)
+        del cell
         flat = torch.zeros((k * N_COLS * N_BINS, 2), device="cuda")
         library_ms = device_ms(torch, lambda: flat.scatter_add_(0, idx, src),
                                launches=3, repeats=5)
         nbytes = hist.hist_bytes(bins, node, stats, k, N_BINS)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = act.numel() * N_COLS * 2 / INT_OPS_PER_S * 1e3
+        plan = hist.hist_plan(TRAIN_ROWS, N_COLS, 1, k, N_BINS, 2)
         out[k] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   "bound_ms": max(bytes_ms, ops_ms),
                   "bound_by": "bytes" if bytes_ms >= ops_ms
                   else "operations", "bytes": nbytes,
-                  "active_rows": int(act.numel())}
-        log(f"hist N={TRAIN_ROWS} K={k}: kernel {ms:.5f} ms, plain "
-            f"{plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} ms, bound "
-            f"{out[k]['bound_ms']:.6f} ms ({out[k]['bound_by']}: "
-            f"{nbytes / 1e6:.3f} MB, {act.numel()} active rows) — [{gpu}]")
-        del bins, node, stats, act, cell, idx, src, flat
+                  "active_rows": int(act.numel()), "parts_ms": parts,
+                  "plan": plan, "max_abs_err": d}
+        log(f"hist N={TRAIN_ROWS} K={k}: kernel {ms:.5f} ms (by part "
+            + ", ".join(f"{n} {v:.4f}" for n, v in parts.items())
+            + f"), plain {plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} "
+            f"ms, bound {out[k]['bound_ms']:.6f} ms ({out[k]['bound_by']}: "
+            f"{nbytes / 1e6:.3f} MB, {act.numel()} active rows; plan "
+            f"{plan}) — [{gpu}]")
+        del bins, node, stats, act, idx, src, flat
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1568,12 +1662,14 @@ def time_hist_batch(torch, rng, gpu: str) -> dict:
     """B2 at TB=8 over N=1,048,576 rows of 256 uint8 columns, 64 bins,
     S=2, for each K in HIST_BATCH_NODES (K=4096: the deepest level of a
     depth-14 tree) on ``batch_inputs``' data: the kernel (its wrapper's
-    device work included), the plain version, and one ``scatter_add_`` of
-    every tree's active (row, column) into the flat [TB*K*C*B, S] f32
-    buffer with the cell index computed beforehand; the bound counts what
-    this data makes the build move (``hist_batch_bytes``: the bins once,
-    each tree's node ids and active stats, the output) and one add per
-    active (tree, row, column, channel)."""
+    device work included), its split by part, 8 B1 launches, the plain
+    version,
+    and one ``scatter_add_`` of every tree's active (row, column) into
+    the flat [TB*K*C*B, S] f32 buffer with the cell index computed
+    beforehand; the bound counts what this data makes the build move
+    (``hist_batch_bytes``: the bins once, each tree's node ids and
+    active stats, the output) and one add per active (tree, row, column,
+    channel)."""
     from shifu_tpu_torch.ops import hist
     from shifu_tpu_torch.ops.tree import (build_histograms,
                                           build_histograms_batch)
@@ -1585,19 +1681,14 @@ def time_hist_batch(torch, rng, gpu: str) -> dict:
                                          N_BINS, k, tb)
         ms = device_ms(torch, lambda: build_histograms_batch(
             bins, node, stats, k, N_BINS), launches=10, repeats=5)
-        plain_ms = device_ms(torch, lambda: hist.build_histograms_batch_ref(
-            bins, node, stats, k, N_BINS), launches=1, repeats=3)
         # the sequential alternative: one B1 launch a tree
         b1_ms = device_ms(torch, lambda: [build_histograms(
             bins, node[t], stats[t], k, N_BINS) for t in range(tb)],
             launches=2, repeats=3)
-        plan = hist.hist_batch_plan(TRAIN_ROWS, N_COLS, tb, k, N_BINS, 2)
-        other = {}
-        if plan["shared"]:          # A/B: the same launch in the other mode
-            other["partitioned_ms"] = device_ms(
-                torch, lambda: hist.build_histograms_batch_cuda(
-                    bins, node, stats, k, N_BINS, mode=0),
-                launches=10, repeats=5)
+        parts = time_parts(torch, bins, node, stats, k)
+        plain_ms = device_ms(torch, lambda: hist.build_histograms_batch_ref(
+            bins, node, stats, k, N_BINS), launches=1, repeats=3)
+        plan = hist.hist_plan(TRAIN_ROWS, N_COLS, tb, k, N_BINS, 2)
         nbytes = hist.hist_batch_bytes(bins, node, stats, k, N_BINS)
         act = (node >= 0).nonzero()                   # [M, 2] (tree, row)
         n_act = int(act.shape[0])
@@ -1618,10 +1709,11 @@ def time_hist_batch(torch, rng, gpu: str) -> dict:
                   "bound_ms": max(bytes_ms, ops_ms),
                   "bound_by": "bytes" if bytes_ms >= ops_ms
                   else "operations", "bytes": nbytes, "active": n_act,
-                  "hist_each_tree_ms": b1_ms, "plan": plan, **other}
-        log(f"hist_batch TB={tb} N={TRAIN_ROWS} K={k}: kernel {ms:.5f} ms"
-            + "".join(f", {m} {v:.5f} ms" for m, v in other.items())
-            + f", {tb} hist (B1) launches {b1_ms:.4f} ms, plain "
+                  "hist_each_tree_ms": b1_ms, "plan": plan,
+                  "parts_ms": parts}
+        log(f"hist_batch TB={tb} N={TRAIN_ROWS} K={k}: kernel {ms:.5f} ms "
+            "(by part " + ", ".join(f"{n} {v:.4f}" for n, v in parts.items())
+            + f"), {tb} hist (B1) launches {b1_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} ms, bound "
             f"{out[k]['bound_ms']:.6f} ms ({out[k]['bound_by']}: "
             f"{nbytes / 1e6:.3f} MB, {n_act} active (tree, row) pairs; "
@@ -1629,6 +1721,54 @@ def time_hist_batch(torch, rng, gpu: str) -> dict:
         del bins, node, stats, act, idx, src, flat
         torch.cuda.empty_cache()
     return out
+
+
+def time_of(torch, root: str, seed: int) -> None:
+    """``--time-of DIR``, with ``shifu_tpu_torch`` imported from checkout
+    DIR: B1 and B2 (TB=8) at ``time_hist``'s shapes and K on
+    ``hist_inputs`` / ``batch_inputs``' data from ``seed``, each launch
+    timed whole and on all-zero stats (device ms), then ``chunk_phase``
+    on a training plane from ``seed`` (the column plan of
+    ``write_model_set``, the rows of ``train_plane``).  Only the two
+    wrappers and ``gbt_forest_chunk`` are called, so any version of the
+    port can be timed; what a launch on zero stats skips is the version's
+    own (the one-source kernel drops every such row in its partition).
+    Prints the card, a log line a case and one JSON line."""
+    from shifu_tpu_torch.ops import hist
+    gpu = gpu_identity()
+    print(gpu, flush=True)
+    rng = np.random.default_rng(seed)
+    out = {"root": os.path.abspath(root), "gpu": gpu, "cases": {}}
+    for tb, k in [(0, k) for k in HIST_TIMED_NODES] \
+            + [(HIST_BATCH, k) for k in HIST_BATCH_NODES]:
+        if tb:
+            name, fn = f"B2 TB={tb} K={k}", hist.build_histograms_batch_cuda
+            bins, node, stats = batch_inputs(torch, rng, TRAIN_ROWS, N_COLS,
+                                             N_BINS, k, tb)
+        else:
+            name, fn = f"B1 K={k}", hist.build_histograms_cuda
+            bins, node, stats = hist_inputs(torch, rng, TRAIN_ROWS, N_COLS,
+                                            N_BINS, k)
+        row = {tag: device_ms(torch, lambda st=st: fn(bins, node, st, k,
+                                                      N_BINS),
+                              launches=5, repeats=3)
+               for tag, st in (("ms", stats),
+                               ("zero_stats_ms", torch.zeros_like(stats)))}
+        out["cases"][name] = row
+        log(f"{name}: {row['ms']:.4f} ms, on zero stats "
+            f"{row['zero_stats_ms']:.4f} ms ({out['root']}) — [{gpu}]")
+        del bins, node, stats
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        plan = write_model_set(d, np.random.default_rng([seed, 1]))["plan"]
+    bins, y, w, _, is_cat = train_plane(np.random.default_rng([seed, 2]),
+                                        plan, TRAIN_ROWS)
+    chunk = chunk_phase(torch, bins, y, w, is_cat, "cuda")
+    out["gbt_ms_per_tree"] = chunk["ms_per_tree"]
+    out["gbt_quartiles_ms"] = chunk["quartiles_ms"]
+    log(f"GBT: {chunk['ms_per_tree']:.3f} ms a tree ({out['root']}) — "
+        f"[{gpu}]")
+    print(json.dumps(out), flush=True)
 
 
 def time_stats_hist(torch, rng, gpu: str) -> dict:
@@ -1704,13 +1844,21 @@ def time_transform(torch, root: str, plan, rng, gpu: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--time-of", metavar="DIR",
+                    help="only time B1, B2 and a GBT chunk of the checkout "
+                    "in DIR")
     args = ap.parse_args()
+    if args.time_of:
+        sys.path.insert(0, os.path.abspath(args.time_of))
     try:
         import torch
     except ImportError:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("CUDA is not available — this smoke runs on an NVIDIA GPU")
+    if args.time_of:
+        time_of(torch, args.time_of, args.seed)
+        return
     try:
         from shifu_tpu_torch.ops import cuda_lib
         from shifu_tpu_torch.ops import tree_quant as tq
@@ -1720,12 +1868,12 @@ def main() -> None:
     print(gpu, flush=True)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {kind}")
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(args.seed)         # checks and timings
+    path_rng = np.random.default_rng([args.seed, 1])   # the main path's data
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    built = cuda_lib.build(["tree_traverse", "hist", "stats_hist",
-                            "hist_batch"])
+    built = cuda_lib.build(["tree_traverse", "hist", "stats_hist"])
     for name, (path, build_log) in built.items():
         log(f"built {name} -> {os.path.relpath(path)}")
         for line in build_log.splitlines():
@@ -1741,18 +1889,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         serve_root = os.path.join(root, "serve")
         os.makedirs(serve_root)
-        plan = write_model_set(serve_root, rng)["plan"]
-        served = serve_phase(torch, tq, serve_root, plan, rng)
+        plan = write_model_set(serve_root, path_rng)["plan"]
+        served = serve_phase(torch, tq, serve_root, plan, path_rng)
         time_transform(torch, serve_root, plan, rng, gpu)
-        trained = train_phase(torch, root, serve_root, plan, rng)
+        trained = train_phase(torch, root, serve_root, plan, path_rng)
         forest = rf_phase(torch, root, serve_root, trained.pop("plane"))
-        stats = stats_phase(torch, root, plan, rng)
+        stats = stats_phase(torch, root, plan, path_rng)
     resident = resident_phase(torch, args.seed)
-    want = TRAIN_TREES * DEPTH
-    if trained["launches"]["hist"] != want:
-        fail(f"hist launched {trained['launches']['hist']} times on the "
-             f"train path, not {want} ({TRAIN_TREES} trees x {DEPTH} "
-             "levels)")
     times = time_kernels(torch, tq, rng, gpu)
     hist_times = time_hist(torch, rng, gpu)
     stats_times = time_stats_hist(torch, rng, gpu)
@@ -1785,16 +1928,23 @@ def main() -> None:
         "gpu": gpu}, {
         "name": "hist", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/hist.cu",
+        "leaf_sum_launches": trained["launches"]["leaf_sums"],
+        "rf_launches": forest["launches"]["hist"],
+        "rf_leaf_sum_launches": forest["launches"]["leaf_sums"],
         "replaces": "shifu_tpu/ops/hist_pallas.py:75",
         "launches": trained["launches"]["hist"],
-        "max_abs_err": errs["hist"],
+        "max_abs_err": max([errs["hist"]] + [hist_times[k]["max_abs_err"]
+                                             for k in HIST_TIMED_NODES]),
         "ms": h32["ms"], "plain_ms": h32["plain_ms"],
         "bound_ms": h32["bound_ms"], "bound_by": h32["bound_by"],
         "library_ms": h32["library_ms"],
         "shape": f"N={TRAIN_ROWS} C={N_COLS} B={N_BINS} S=2 K=32 uint8",
-        "at_1_node": {k: hist_times[1][k] for k in
-                      ("ms", "plain_ms", "library_ms", "bound_ms",
-                       "bound_by")},
+        "parts_ms": h32["parts_ms"],
+        **{f"at_{k}_node{'s' if k > 1 else ''}": {
+            m: hist_times[k].get(m) for m in
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "parts_ms")}
+           for k in (1, 4096)},
         "gpu": gpu}, {
         "name": "stats_hist", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/stats_hist.cu",
@@ -1812,7 +1962,7 @@ def main() -> None:
                            "bound_by")},
         "gpu": gpu}, {
         "name": "hist_batch", "route": "cuda",
-        "source": "shifu_tpu_torch/csrc/hist_batch.cu",
+        "source": "shifu_tpu_torch/csrc/hist.cu",
         "replaces": "shifu_tpu/ops/hist_pallas.py:161",
         "launches": forest["launches"]["hist_batch"],
         "max_abs_err": errs["hist_batch"],
@@ -1823,13 +1973,16 @@ def main() -> None:
         "shape": f"TB={HIST_BATCH} N={TRAIN_ROWS} C={N_COLS} B={N_BINS} S=2 "
                  "K=32 uint8",
         "hist_each_tree_ms": batch_times[32]["hist_each_tree_ms"],
-        **{f"at_{k}_nodes": {m: batch_times[k][m] for m in
-                             ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by", "hist_each_tree_ms")}
+        "parts_ms": batch_times[32]["parts_ms"],
+        **{f"at_{k}_node{'s' if k > 1 else ''}": {
+            m: batch_times[k].get(m) for m in
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "hist_each_tree_ms", "parts_ms")}
            for k in (1, 4096)},
-        "at_1_node_partitioned_ms": batch_times[1].get("partitioned_ms"),
         "rf_levels_ms": forest["chunk"]["batch"]["levels_ms"].get(
             "build_histograms_batch"),
+        "rf_leaf_ms_per_tree_max": forest["chunk"]["batch"][
+            "leaf_ms_per_tree_max"],
         "gpu": gpu}]
     rf_chunk = forest["chunk"]
     log(f"full-width RF ({RF_TREES} trees, depth {RF_DEPTH}): "

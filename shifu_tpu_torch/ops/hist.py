@@ -13,12 +13,12 @@ Two versions of each function, dispatched by
 :func:`shifu_tpu_torch.ops.tree.build_histograms` and
 :func:`~shifu_tpu_torch.ops.tree.build_histograms_batch`:
 
-- :func:`build_histograms_cuda` launches the hand-written CUDA kernel
-  ``csrc/hist.cu`` (shared-memory sub-histograms, 64-bit fixed-point
-  sums, bit-identical from run to run; the source says why and how);
-- :func:`build_histograms_batch_cuda` launches ``csrc/hist_batch.cu``,
-  whose every tree slice is bit-identical to ``csrc/hist.cu`` on that
-  tree's inputs (the same fixed point, scaled per tree and channel);
+- :func:`build_histograms_cuda` (B1, one tree) and
+  :func:`build_histograms_batch_cuda` (B2, TB trees in one launch) launch
+  the one hand-written CUDA kernel ``csrc/hist.cu`` (rows partitioned by
+  node, shared-memory sub-histograms, exact integer sums, bit-identical
+  from run to run; the source says why and how), so every tree slice of
+  a B2 launch is bit-identical to B1 on that tree's inputs;
 - :func:`build_histograms_ref`, the plain PyTorch version: one
   ``scatter_add_`` per column chunk into a flat float64 ``[K*C*B, S]``
   buffer, rounded to f32 at the end.  It is the CPU path and the kernel's
@@ -26,7 +26,10 @@ Two versions of each function, dispatched by
   accumulation over 10^4 rows per cell reaches ~1e-5 relative) out of the
   comparison: both versions return the f32 rounding of a near-exact sum.
   :func:`build_histograms_batch_ref` loops it over the trees, so on the
-  CPU a batched build equals the sequential ones exactly.
+  CPU a batched build equals the sequential ones exactly;
+- :func:`build_histograms_fixed_ref`, the kernel's own fixed-point
+  arithmetic in plain PyTorch: the kernel's bits, for bit-for-bit checks
+  on the card.
 
 Bins ride uint8 (<= 256 bins) or int32; a uint16 plane widens on its own
 device first (:func:`widen_bins`).  Rows whose node id is outside [0, K)
@@ -36,6 +39,7 @@ and cells whose bin id is outside [0, B) contribute nothing in both.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,18 +60,19 @@ def widen_bins(bins: torch.Tensor) -> torch.Tensor:
     return bins.to(torch.int32)
 
 
-def build_histograms_ref(bins, node_idx, stats, n_nodes: int,
-                         n_bins: int) -> torch.Tensor:
-    """[K, C, B, S] f32 — the plain version (see the module docstring)."""
+def _scatter_cells(bins, node_idx, src, n_nodes: int,
+                   n_bins: int) -> torch.Tensor:
+    """[K, C, B, S] sums of ``src`` [N, S] (its dtype) over (node,
+    feature, bin) cells: one ``scatter_add_`` per column chunk into a flat
+    buffer."""
     n, c = bins.shape
-    s = stats.shape[1]
+    s = src.shape[1]
     dev = bins.device
-    acc = torch.zeros((n_nodes * c * n_bins, s), dtype=torch.float64,
+    acc = torch.zeros((n_nodes * c * n_bins, s), dtype=src.dtype,
                       device=dev)
     node = node_idx.long()
     row_ok = (node >= 0) & (node < n_nodes)
     base = node.clamp(0, n_nodes - 1) * c
-    st = stats.double()
     step = max(1, _REF_CHUNK // max(n, 1))
     for c0 in range(0, c, step):
         cols = torch.arange(c0, min(c, c0 + step), device=dev)
@@ -75,9 +80,43 @@ def build_histograms_ref(bins, node_idx, stats, n_nodes: int,
         ok = row_ok[:, None] & (b >= 0) & (b < n_bins)
         idx = ((base[:, None] + cols[None, :]) * n_bins
                + b.clamp(0, n_bins - 1)).reshape(-1, 1).expand(-1, s)
-        src = (st[:, None, :] * ok[..., None]).reshape(-1, s)
-        acc.scatter_add_(0, idx, src)
-    return acc.reshape(n_nodes, c, n_bins, s).float()
+        acc.scatter_add_(0, idx, (src[:, None, :] * ok[..., None])
+                         .reshape(-1, s))
+    return acc.reshape(n_nodes, c, n_bins, s)
+
+
+def build_histograms_ref(bins, node_idx, stats, n_nodes: int,
+                         n_bins: int) -> torch.Tensor:
+    """[K, C, B, S] f32 — the plain version (see the module docstring)."""
+    return _scatter_cells(bins, node_idx, stats.double(), n_nodes,
+                          n_bins).float()
+
+
+def channel_exp(amax, n_rows: int) -> torch.Tensor:
+    """The exponent e of each channel's fixed-point scale 2^e, as
+    ``csrc/fixed_point.cuh::channel_exp`` computes it: the largest with
+    amax * N * 2^e < 2^62; 0 for an all-zero or non-finite channel."""
+    t = amax.double() * max(n_rows, 1)
+    _, p = torch.frexp(t)                         # t < 2^p
+    return torch.where((t > 0) & torch.isfinite(t), 62 - p.long(), 0)
+
+
+def build_histograms_fixed_ref(bins, node_idx, stats, n_nodes: int,
+                               n_bins: int) -> torch.Tensor:
+    """[K, C, B, S] f32 by the kernel's own arithmetic in plain PyTorch:
+    each channel quantised to q = rint(v * 2^e) (:func:`channel_exp`),
+    the quanta summed exactly in int64, each sum rounded to f32 once and
+    scaled back by 2^-e; NaN where a channel is not finite.  The kernel
+    gives these bits on any data (its 32-bit channels too, as its source
+    proves).  :func:`build_histograms_ref` agrees within the quantisation:
+    at most half of 2^-e a row of the cell, plus f32 rounding."""
+    amax = stats.abs().amax(dim=0) if stats.shape[0] else \
+        torch.zeros(stats.shape[1], device=stats.device)
+    e = channel_exp(amax, bins.shape[0]).double()
+    q = torch.round(stats.double() * torch.pow(2.0, e)).long()
+    sums = _scatter_cells(bins, node_idx, q, n_nodes, n_bins)
+    out = (sums.float().double() * torch.pow(2.0, -e)).float()
+    return torch.where(torch.isfinite(amax), out, float("nan"))
 
 
 def _check(name: str, a: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -90,45 +129,122 @@ def _check(name: str, a: torch.Tensor, dtype: torch.dtype, ndim: int,
             f"{a.device}{'' if a.is_contiguous() else ' (strided)'}")
 
 
-def build_histograms_cuda(bins, node_idx, stats, n_nodes: int,
-                          n_bins: int) -> torch.Tensor:
-    """Validate, allocate and launch ``csrc/hist.cu`` on the current
-    stream: [K, C, B, S] f32.  No host sync: the channel scales come from
-    a device-side ``amax``."""
+def channel_meta(stats_b, n_rows: int):
+    """Per (tree, channel) of ``stats_b`` [TB, N, S]: ``amax`` [TB, S] f32,
+    max |stats| (NaN or inf where the channel is not finite), and
+    ``exact`` [TB, S] int32, 1 where every value is an integer and
+    ``amax * n_rows < 2^31``, so every partial sum of the channel fits a
+    32-bit integer and the kernel may sum it in one.  Computed on the
+    tensors' device, with no host sync; an empty channel is exact."""
+    tb, n, s = stats_b.shape
+    if n == 0:
+        return (torch.zeros((tb, s), dtype=torch.float32,
+                            device=stats_b.device),
+                torch.ones((tb, s), dtype=torch.int32,
+                           device=stats_b.device))
+    amax = stats_b.abs().amax(dim=1)
+    whole = (stats_b == stats_b.trunc()).all(dim=1)
+    exact = whole & (amax.double() * n_rows < 2.0 ** 31)
+    return amax, exact.to(torch.int32)
+
+
+@functools.cache
+def _lib():
+    from . import cuda_lib
+    lib = cuda_lib.load("hist")
+    args = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 \
+        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong] \
+        + [ctypes.c_int] * 5
+    lib.shifu_hist.restype = lib.shifu_hist_until.restype = ctypes.c_int
+    lib.shifu_hist.argtypes = args + [ctypes.c_void_p]
+    lib.shifu_hist_until.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.shifu_hist_workspace, lib.shifu_hist_plan):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+    return lib
+
+
+def hist_plan(n_rows: int, n_cols: int, n_trees: int, n_nodes: int,
+              n_bins: int, n_stats: int, bin_bytes: int = 1) -> dict:
+    """How ``csrc/hist.cu`` tiles a launch at these shapes (for logs and
+    the smoke): bin ids a lane loads, node and bin tiles, column group,
+    row chunks, whether blocks write f32 directly, shared memory a
+    block."""
+    out = (ctypes.c_longlong * 7)()
+    rc = _lib().shifu_hist_plan(n_rows, n_cols, n_trees, n_nodes, n_bins,
+                                n_stats, bin_bytes, out)
+    if rc != 0:
+        raise ValueError(f"hist kernel: shapes not supported (cudaError_t "
+                         f"{rc})")
+    keys = ("vec", "node_tile", "bin_tile", "col_group", "chunks", "direct",
+            "smem")
+    return dict(zip(keys, list(out)))
+
+
+def _launch(name, bins, node_idx_b, stats_b, n_nodes: int, n_bins: int,
+            stop=None) -> torch.Tensor:
+    """Validate, allocate and launch ``csrc/hist.cu`` for TB trees on the
+    current stream: [TB, K, C, B, S] f32.  No host sync: the channel
+    scales and 32-bit flags come from device-side ``channel_meta``.
+    ``stop`` launches the timing entry point instead (:func:`launch_until`).
+    A uint8 plane must start on a V-byte boundary (V from the plan), which
+    every fresh tensor does."""
     dev = bins.device
     _check("bins", bins, torch.int32 if bins.dtype == torch.int32
            else torch.uint8, 2, dev)
-    _check("node_idx", node_idx, torch.int32, 1, dev)
-    _check("stats", stats, torch.float32, 2, dev)
+    _check(name[0], node_idx_b, torch.int32, 2, dev)
+    _check(name[1], stats_b, torch.float32, 3, dev)
     n, c = bins.shape
-    s = stats.shape[1]
-    if node_idx.shape[0] != n or stats.shape[0] != n:
-        raise ValueError(f"hist kernel: {n} rows of bins, "
-                         f"{node_idx.shape[0]} node ids, {stats.shape[0]} "
-                         "stat rows")
-    if n_nodes < 1 or c < 1 or s < 1 or not 1 <= n_bins <= 65536:
-        raise ValueError(f"hist kernel: needs K >= 1, C >= 1, S >= 1 and "
-                         f"1 <= B <= 65536 (K={n_nodes}, C={c}, S={s}, "
-                         f"B={n_bins})")
-    total = n_nodes * c * n_bins * s
-    out = torch.empty((n_nodes, c, n_bins, s), dtype=torch.float32,
+    tb, s = stats_b.shape[0], stats_b.shape[2]
+    if node_idx_b.shape != (tb, n) or stats_b.shape[1] != n:
+        raise ValueError(f"hist kernel: {n} rows of bins, node ids "
+                         f"{tuple(node_idx_b.shape)}, stats "
+                         f"{tuple(stats_b.shape)}")
+    if not 1 <= tb <= 65535 or n_nodes < 1 or c < 1 or s < 1 \
+            or not 1 <= n_bins <= 65536 or n >= 1 << 31:
+        raise ValueError(f"hist kernel: needs 1 <= TB <= 65535, K >= 1, "
+                         f"C >= 1, S >= 1, 1 <= B <= 65536 and N < 2^31 "
+                         f"(TB={tb}, K={n_nodes}, C={c}, S={s}, B={n_bins}, "
+                         f"N={n})")
+    vec = hist_plan(n, c, tb, n_nodes, n_bins, s,
+                    bins.element_size())["vec"] if n else 1
+    if bins.data_ptr() % vec:
+        raise ValueError(f"hist kernel: bins must start on a {vec}-byte "
+                         f"boundary for {vec}-wide loads (a view at byte "
+                         f"offset {bins.data_ptr() % vec}); pass a copy")
+    lib = _lib()
+    need = ctypes.c_longlong(0)
+    rc = lib.shifu_hist_workspace(n, c, tb, n_nodes, n_bins, s,
+                                  bins.element_size(), ctypes.byref(need))
+    if rc != 0:
+        raise ValueError(f"hist kernel: shapes not supported (cudaError_t "
+                         f"{rc})")
+    out = torch.empty((tb, n_nodes, c, n_bins, s), dtype=torch.float32,
                       device=dev)
-    acc = torch.empty(total, dtype=torch.int64, device=dev)
-    amax = stats.abs().amax(dim=0) if n else \
-        torch.zeros(s, dtype=torch.float32, device=dev)
-    from . import cuda_lib
-    fn = cuda_lib.load("hist").shifu_hist
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 \
-        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ws = torch.empty(max(need.value, 1), dtype=torch.uint8, device=dev)
+    amax, exact = channel_meta(stats_b, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(bins.data_ptr(), bins.element_size(), node_idx.data_ptr(),
-                stats.data_ptr(), amax.data_ptr(), acc.data_ptr(),
-                out.data_ptr(), n, c, n_nodes, n_bins, s, stream)
+        args = (bins.data_ptr(), bins.element_size(), node_idx_b.data_ptr(),
+                stats_b.data_ptr(), amax.data_ptr(), exact.data_ptr(),
+                ws.data_ptr(), need.value, out.data_ptr(), n, c, tb, n_nodes,
+                n_bins, s)
+        rc = lib.shifu_hist(*args, stream) if stop is None else \
+            lib.shifu_hist_until(*args, stop, stream)
     if rc != 0:
         raise RuntimeError(f"hist kernel launch failed (cudaError_t {rc})")
     return out
+
+
+def build_histograms_cuda(bins, node_idx, stats, n_nodes: int,
+                          n_bins: int) -> torch.Tensor:
+    """Kernel B1: ``csrc/hist.cu`` launched for one tree, [K, C, B, S]
+    f32."""
+    _check("node_idx", node_idx, torch.int32, 1, bins.device)
+    _check("stats", stats, torch.float32, 2, bins.device)
+    return _launch(("node_idx", "stats"), bins, node_idx[None], stats[None],
+                   n_nodes, n_bins)[0]
 
 
 def hist_bytes(bins, node_idx, stats, n_nodes: int, n_bins: int) -> int:
@@ -150,83 +266,31 @@ def build_histograms_batch_ref(bins, node_idx_b, stats_b, n_nodes: int,
                         for t in range(node_idx_b.shape[0])])
 
 
-def _batch_lib():
-    from . import cuda_lib
-    lib = cuda_lib.load("hist_batch")
-    lib.shifu_hist_batch.restype = ctypes.c_int
-    lib.shifu_hist_batch.argtypes = [ctypes.c_void_p, ctypes.c_int] \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
-                                   ctypes.c_longlong] \
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    for fn in (lib.shifu_hist_batch_workspace, lib.shifu_hist_batch_plan):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
-    return lib
-
-
-def hist_batch_plan(n_rows: int, n_cols: int, n_trees: int, n_nodes: int,
-                    n_bins: int, n_stats: int, mode: int = -1) -> dict:
-    """How ``csrc/hist_batch.cu`` tiles a launch at these shapes (for logs
-    and the smoke): mode, tree/node/bin tiles, column group, row chunks,
-    whether blocks write f32 directly, shared memory a block."""
-    out = (ctypes.c_longlong * 8)()
-    rc = _batch_lib().shifu_hist_batch_plan(n_rows, n_cols, n_trees,
-                                            n_nodes, n_bins, n_stats, mode,
-                                            out)
-    if rc != 0:
-        raise ValueError(f"hist_batch kernel: shapes not supported "
-                         f"(cudaError_t {rc})")
-    keys = ("shared", "tree_tile", "node_tile", "bin_tile", "col_group",
-            "chunks", "direct", "smem")
-    return dict(zip(keys, list(out)))
-
-
 def build_histograms_batch_cuda(bins, node_idx_b, stats_b, n_nodes: int,
-                                n_bins: int, mode: int = -1) -> torch.Tensor:
-    """Validate, allocate and launch ``csrc/hist_batch.cu`` on the current
-    stream: [TB, K, C, B, S] f32.  No host sync: the per-tree channel
-    scales come from a device-side ``amax``.  ``mode`` -1 lets the kernel
-    pick its layout from the shapes; 0 / 1 force partitioned / shared
-    rows (A/B timing only — the result is the same bits)."""
-    dev = bins.device
-    _check("bins", bins, torch.int32 if bins.dtype == torch.int32
-           else torch.uint8, 2, dev)
-    _check("node_idx_b", node_idx_b, torch.int32, 2, dev)
-    _check("stats_b", stats_b, torch.float32, 3, dev)
-    n, c = bins.shape
-    tb, s = stats_b.shape[0], stats_b.shape[2]
-    if node_idx_b.shape != (tb, n) or stats_b.shape[1] != n:
-        raise ValueError(f"hist_batch kernel: {n} rows of bins, node ids "
-                         f"{tuple(node_idx_b.shape)}, stats "
-                         f"{tuple(stats_b.shape)}")
-    if tb < 1 or n_nodes < 1 or c < 1 or s < 1 \
-            or not 1 <= n_bins <= 65536 or n >= 1 << 31:
-        raise ValueError(f"hist_batch kernel: needs TB >= 1, K >= 1, C >= 1, "
-                         f"S >= 1, 1 <= B <= 65536 and N < 2^31 (TB={tb}, "
-                         f"K={n_nodes}, C={c}, S={s}, B={n_bins}, N={n})")
-    lib = _batch_lib()
-    need = ctypes.c_longlong(0)
-    rc = lib.shifu_hist_batch_workspace(n, c, tb, n_nodes, n_bins, s, mode,
-                                        ctypes.byref(need))
-    if rc != 0:
-        raise ValueError(f"hist_batch kernel: shapes not supported "
-                         f"(cudaError_t {rc})")
-    out = torch.empty((tb, n_nodes, c, n_bins, s), dtype=torch.float32,
-                      device=dev)
-    ws = torch.empty(max(need.value, 1), dtype=torch.uint8, device=dev)
-    amax = stats_b.abs().amax(dim=1) if n else \
-        torch.zeros((tb, s), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.shifu_hist_batch(
-            bins.data_ptr(), bins.element_size(), node_idx_b.data_ptr(),
-            stats_b.data_ptr(), amax.data_ptr(), ws.data_ptr(), need.value,
-            out.data_ptr(), n, c, tb, n_nodes, n_bins, s, mode, stream)
-    if rc != 0:
-        raise RuntimeError(f"hist_batch kernel launch failed (cudaError_t "
-                           f"{rc})")
-    return out
+                                n_bins: int) -> torch.Tensor:
+    """Kernel B2: ``csrc/hist.cu`` launched for TB trees at once, [TB, K,
+    C, B, S] f32, each tree's slice bit-identical to a B1 launch on its
+    inputs."""
+    return _launch(("node_idx_b", "stats_b"), bins, node_idx_b, stats_b,
+                   n_nodes, n_bins)
+
+
+#: where :func:`launch_until` stops a launch: after the partition and the
+#: blocks' set-up, after the row walk (staging, bin loads), after the adds
+SETUP, WALK, ADDS = 0, 1, 2
+
+
+def launch_until(bins, node_idx_b, stats_b, n_nodes: int, n_bins: int,
+                 stop: int) -> torch.Tensor:
+    """For timing only: a :func:`build_histograms_batch_cuda` launch (B1
+    at TB = 1) stopped after part ``stop`` (:data:`SETUP`, :data:`WALK`
+    or :data:`ADDS`) through the kernel's timing entry point, so a launch's
+    time splits by part; the output is undefined."""
+    if stop not in (SETUP, WALK, ADDS):
+        raise ValueError(f"hist kernel: stop must be SETUP, WALK or ADDS, "
+                         f"got {stop}")
+    return _launch(("node_idx_b", "stats_b"), bins, node_idx_b, stats_b,
+                   n_nodes, n_bins, stop)
 
 
 def hist_batch_bytes(bins, node_idx_b, stats_b, n_nodes: int,

@@ -14,9 +14,10 @@ categorical splits alike: "bin in the left set") and ``leaf_value``.
 Everything here is eager PyTorch on the device of its inputs, with no
 host sync: a grown tree stays on the device until its caller copies it.
 Where a reduction order would change from run to run on the card (float
-atomics), the port sums deterministically instead: B1 in fixed point, leaf
-sums as a float64 one-hot matmul, feature-importance gains as a plain
-reduction — so a resumed forest is bit-identical to an uninterrupted one.
+atomics), the port sums deterministically instead: B1 and B2 in exact
+integer sums (leaf sums too, through B1), feature-importance gains as a
+plain reduction — so a resumed forest is bit-identical to an
+uninterrupted one.
 Ties break as in the reference: stable argsorts, first-maximum argmaxes.
 """
 
@@ -77,8 +78,8 @@ def build_histograms_batch(bins, node_idx_b, stats_b, n_nodes: int,
     over one shared bin plane, [TB, n_nodes, C, n_bins, S] f32.
     node_idx_b [TB, N] int32, stats_b [TB, N, S] f32; each tree's slice
     equals a :func:`build_histograms` call on that tree's inputs bit for
-    bit.  CUDA tensors launch kernel B2 (``csrc/hist_batch.cu``) or raise;
-    CPU tensors take the plain version.  ``launches`` counts kernel
+    bit.  CUDA tensors launch kernel B2 (``csrc/hist.cu`` for TB trees) or
+    raise; CPU tensors take the plain version.  ``launches`` counts kernel
     launches only."""
     from . import hist
     bins = hist.widen_bins(bins)
@@ -226,16 +227,22 @@ def _left_child_index(node_idx):
                        node_idx // 2, -1).to(torch.int32)
 
 
-#: rows x nodes per one-hot block of the leaf-sum matmul
+#: rows x nodes per one-hot block of the plain leaf-sum matmul
 _LEAF_BLOCK = 1 << 24
 
 
 def _level_leaf_raw(stats, node_idx, n_nodes: int):
-    """Per-node raw stat sums [S, K] f32 (frozen rows contribute nothing):
-    a float64 one-hot matmul over row blocks, added in a fixed order —
-    deterministic on the card, unlike a float scatter."""
+    """Per-node raw stat sums [S, K] f32 (frozen rows contribute nothing).
+    On the card: kernel B1 over one all-zero column of one bin, which
+    sums each node's rows in O(N) into the f32 rounding of an exact
+    (order-free) sum.  On the CPU, the plain version: a float64 one-hot
+    matmul over row blocks, added in a fixed order.  Both are
+    deterministic; they agree exactly for integer stats and within one
+    f32 ulp otherwise."""
     n, s = stats.shape
     dev = stats.device
+    if dev.type == "cuda":
+        return _leaf_raw_hist(stats, node_idx, n_nodes)
     ids = torch.arange(n_nodes, device=dev, dtype=node_idx.dtype)
     out = torch.zeros((s, n_nodes), dtype=torch.float64, device=dev)
     step = max(1, _LEAF_BLOCK // max(n_nodes, 1))
@@ -243,6 +250,22 @@ def _level_leaf_raw(stats, node_idx, n_nodes: int):
         oh = (node_idx[r0:r0 + step, None] == ids[None, :]).double()
         out = out + stats[r0:r0 + step].double().T @ oh
     return out.float()
+
+
+def _leaf_raw_hist(stats, node_idx, n_nodes: int):
+    """[S, K] leaf sums as the histogram of one all-zero column of one
+    bin — :func:`_level_leaf_raw`'s card path (B1 on CUDA tensors).
+    ``launches`` counts its B1 launches (also in
+    ``build_histograms.launches``)."""
+    zero = torch.zeros((stats.shape[0], 1), dtype=torch.uint8,
+                       device=stats.device)
+    out = build_histograms(zero, node_idx, stats, n_nodes, 1)[:, 0, 0].T
+    if stats.is_cuda:
+        _leaf_raw_hist.launches += 1
+    return out
+
+
+_leaf_raw_hist.launches = 0
 
 
 def leaf_values_from_raw(sums):
@@ -260,7 +283,8 @@ def grow_tree(bins, stats, cat, fa, n_bins: int, depth: int,
     [C] bool, fa [C] bool.  Level l < depth builds only the LEFT-child
     histogram (K = 2^(l-1); the full root at level 0) and derives each
     right child as parent - left, zero under a frozen parent: a depth-d
-    tree launches B1 d times.  The bottom level needs leaf sums only.
+    tree launches B1 d times.  The bottom level needs leaf sums only
+    (:func:`_level_leaf_raw`: one more B1 launch on the card).
 
     Returns (split_feat [total] int32, left_mask [total, B] bool,
     leaf_value [total] f32, gain_fi [C] f32 realized split gains per

@@ -84,7 +84,8 @@ class DTSettings:
     max_leaves: int = 0                  # >0: leaf-wise node budget
     # weights promised small-integer (no weight column): the reference's
     # Pallas kernels then skip their f32-recovery dots.  Accepted for
-    # parity and ignored: B1/B2's fixed-point sums are exact either way
+    # parity and ignored: B1/B2 find their integer channels on the device
+    # (ops/hist.py::channel_meta) and sum those in 32 bits on their own
     stats_exact: bool = False
     tree_batch: int = 0                  # RF trees a batched grow; 0 =
                                          # auto (RF_TREE_BATCH)

@@ -116,6 +116,8 @@ def test_hist_kernel_matches_plain_version(cuda, n, c, b, k, s, dtype):
     want = hist.build_histograms_ref(bins, node, stats, k, b)
     scale = hist.build_histograms_ref(bins, node, stats.abs(), k, b)
     assert got.shape == (k, c, b, s) and torch.equal(got, again)
+    assert torch.equal(got, hist.build_histograms_fixed_ref(bins, node,
+                                                            stats, k, b))
     assert torch.equal(got[..., 0], want[..., 0])
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
 
@@ -159,9 +161,8 @@ def test_hist_batch_kernel_equals_b1_per_tree(cuda, n, c, b, k, tb, s,
                                               dtype):
     """Every tree's slice is bit-equal to a B1 launch on that tree's node
     ids and stats, a second launch is bit-equal, and the count channel
-    equals the plain version.  Covers both modes (shared rows at small
-    K, partitioned rows), node and bin tiling, TB = 1, S in {1..4}, odd
-    column counts, K = 4096 and N = 0."""
+    equals the plain version.  Covers node and bin tiling, TB = 1, S in
+    {1..4}, odd column counts, K = 4096 and N = 0."""
     from shifu_tpu_torch.ops import hist
     from shifu_tpu_torch.ops.tree import (build_histograms,
                                           build_histograms_batch)
@@ -175,9 +176,6 @@ def test_hist_batch_kernel_equals_b1_per_tree(cuda, n, c, b, k, tb, s,
     assert got.shape == (tb, k, c, b, s) and torch.equal(got, again)
     want = hist.build_histograms_batch_ref(bins, node, stats, k, b)
     assert torch.equal(got[..., 0], want[..., 0])
-    # the other layout (partitioned rows forced) gives the same bits
-    assert torch.equal(hist.build_histograms_batch_cuda(
-        bins, node, stats, k, b, mode=0), got)
     for t in range(tb):
         assert torch.equal(got[t], build_histograms(bins, node[t], stats[t],
                                                     k, b)), t
@@ -195,6 +193,214 @@ def test_hist_batch_kernel_rejects_what_it_cannot_take(cuda):
         build_histograms_batch(bins, node[0], stats, 2, 8)
     with pytest.raises(ValueError, match="rows of bins"):
         build_histograms_batch(bins, node[:2], stats, 2, 8)
+
+
+#: the card cases of the redesigned B1/B2: (N, C, B, K, bin dtype)
+_EDGE_CASES = {
+    "one_node": (5000, 64, 64, 1, np.uint8),     # K=1, every row live
+    "empty": (3000, 40, 16, 4, np.uint8),        # no live row at all
+    "edge": (1024, 32, 16, 2, np.uint8),         # a channel at 2^31
+    "wide": (5000, 7, 4001, 8, np.int32),        # int32 bins, 4001 bins
+    "nonfinite": (2000, 33, 8, 3, np.uint8),     # NaN / inf stats
+}
+
+
+def _edge_inputs(case, form, tb=3, seed=0):
+    """TB trees' inputs for one card case and channel form: ``exact``
+    (both channels integers), ``mixed`` (integer w, float w*g) or
+    ``wide`` (neither an integer)."""
+    n, c, b, k, dtype = _EDGE_CASES[case]
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, b, size=(n, c)).astype(dtype)
+    node = rng.integers(0, k, size=(tb, n)).astype(np.int32)
+    if case == "one_node":
+        node[:] = 0
+    elif case == "empty":
+        node[:] = -1
+    w = rng.integers(1, 4, size=(tb, n)).astype(np.float64)
+    if form == "exact":
+        other = w * (rng.random((tb, n)) < 0.3)
+    else:
+        other = w * rng.standard_normal((tb, n))
+    if form == "wide":
+        w = w + 0.5
+    if case == "edge":
+        # tree 0: amax * N = 2^31 - 1024 (32-bit sums), all in one cell;
+        # tree 1: amax * N = 2^31 (64-bit form); N = 1024
+        node[:2] = 0
+        bins[:, 0] = 0
+        w[0] = (1 << 21) - 1
+        w[1] = rng.integers(1, 1 << 21, size=n)
+        w[1, 7] = 1 << 21
+    stats = np.stack([w, other], axis=2).astype(np.float32)
+    if case == "nonfinite":
+        stats[1, 5, 1] = np.nan
+        stats[2, 9, 0] = np.inf
+    return bins, node, stats
+
+
+def _assert_matches_plain(got, bins, node, stats, k, b):
+    """Every channel bit-equal to the plain version of the kernel's own
+    fixed-point arithmetic; against the float64 plain version, integer
+    channels bit-equal, other finite ones within 1e-5 of the cell's
+    |stats| sum, non-finite ones all NaN."""
+    from shifu_tpu_torch.ops import hist
+    st = stats.cpu().numpy()
+    for t in range(stats.shape[0]):
+        fixed = hist.build_histograms_fixed_ref(bins, node[t], stats[t], k,
+                                                b)
+        assert torch.equal(got[t].nan_to_num(), fixed.nan_to_num()), t
+        assert torch.equal(got[t].isnan(), fixed.isnan()), t
+        want = hist.build_histograms_ref(bins, node[t], stats[t], k, b)
+        scale = hist.build_histograms_ref(bins, node[t], stats[t].abs(), k,
+                                          b)
+        for s in range(stats.shape[2]):
+            col = st[t, :, s]
+            g, w_ = got[t, ..., s], want[..., s]
+            if not np.isfinite(col).all():
+                assert bool(torch.isnan(g).all()), (t, s)
+            elif (col == np.trunc(col)).all():
+                assert torch.equal(g, w_), (t, s)
+            else:
+                assert bool(((g - w_).abs() <= 1e-5 * scale[..., s]).all())
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_CASES))
+@pytest.mark.parametrize("form", ["exact", "mixed", "wide"])
+@pytest.mark.parametrize("rows", ["few", "many"])
+def test_hist_channel_forms_and_edges(cuda, rows, form, case):
+    """On 32-bit, mixed and 64-bit channels, at K=1 with every row in one
+    node, an empty level, a channel at the 2^31 edge, int32 bins of 4001
+    bins and non-finite stats, with few rows (<= 1024: one block an output
+    tile, which writes f32 itself) and with 32x the rows (several blocks a
+    tile adding into the global accumulator, where the tiles leave room):
+    B2 == the plain versions (bit-equal to the fixed-point one on every
+    channel, to the float64 one on integer channels), == B1 tree by tree,
+    and the same bits on a second launch."""
+    from shifu_tpu_torch.ops import hist
+    n, c, b, k, dtype = _EDGE_CASES[case]
+    bins, node, stats = _on(cuda, *_edge_inputs(case, form))
+    if rows == "few":
+        n = min(n, 1024)
+        bins, node, stats = bins[:n], node[:, :n], stats[:, :n]
+        node, stats = node.contiguous(), stats.contiguous()
+    else:
+        bins, node, stats = (bins.repeat(32, 1), node.repeat(1, 32),
+                             stats.repeat(1, 32, 1))
+        n *= 32
+    direct = hist.hist_plan(n, c, 3, k, b, 2,
+                            np.dtype(dtype).itemsize)["direct"]
+    assert direct or rows == "many"
+    got = hist.build_histograms_batch_cuda(bins, node, stats, k, b)
+    again = hist.build_histograms_batch_cuda(bins, node, stats, k, b)
+    torch.cuda.synchronize()
+    assert got.shape == (3, k, c, b, 2)
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    assert torch.equal(got.isnan(), again.isnan())
+    _assert_matches_plain(got, bins, node, stats, k, b)
+    for t in range(3):
+        one = hist.build_histograms_cuda(bins, node[t], stats[t], k, b)
+        assert torch.equal(got[t].nan_to_num(), one.nan_to_num()), t
+        assert torch.equal(got[t].isnan(), one.isnan()), t
+    if case == "edge" and rows == "few":       # 2^31 - 1024 in one cell
+        assert got[0, 0, 0, 0, 0].item() == float((1 << 31) - 1024)
+
+
+def test_channel_meta_on_the_card_matches_numpy(cuda):
+    """The 32-bit flag: integers (negative ones too) whose max |value|
+    times N stays under 2^31; a fraction, the 2^31 edge, NaN or inf
+    clear it; an empty channel keeps it."""
+    from shifu_tpu_torch.ops.hist import channel_meta
+    n = 1024
+    cols = np.stack([np.arange(n) % 7 - 3.0,             # negative ints
+                     np.full(n, 0.5),                     # a fraction
+                     np.full(n, float((1 << 21) - 1)),    # just under
+                     np.full(n, float(1 << 21)),          # at 2^31
+                     np.r_[np.zeros(n - 1), np.nan],
+                     np.r_[np.zeros(n - 1), -np.inf],
+                     np.zeros(n)], axis=1).astype(np.float32)
+    amax, exact = channel_meta(torch.from_numpy(cols[None]).to(cuda), n)
+    assert exact.cpu().numpy().tolist() == [[1, 0, 1, 0, 0, 0, 1]]
+    np.testing.assert_array_equal(amax.cpu().numpy()[0],
+                                  np.abs(cols).max(axis=0))
+    amax, exact = channel_meta(torch.zeros((2, 0, 3), device=cuda), 0)
+    assert bool((exact == 1).all()) and bool((amax == 0).all())
+
+
+@pytest.mark.parametrize("k", [4, 16384])
+def test_leaf_sums_on_the_card_match_the_plain_version(cuda, k):
+    """The leaf-sum level through B1 (one all-zero column of one bin):
+    equal to the CPU's float64 matmul for integer stats, within one f32
+    ulp otherwise, the same bits from run to run, one B1 launch a call."""
+    from shifu_tpu_torch.ops import tree as tt
+    rng = np.random.default_rng(k)
+    n = 60000
+    node = rng.integers(0, k, size=n).astype(np.int32)
+    node[rng.random(n) < 0.2] = -1
+    w = rng.poisson(1.0, size=n).astype(np.float32)
+    for stats in (np.stack([w, w * (rng.random(n) < 0.4)], axis=1),
+                  np.stack([w, w * rng.standard_normal(n)], axis=1)):
+        stats = stats.astype(np.float32)
+        want = tt._level_leaf_raw(torch.from_numpy(stats),
+                                  torch.from_numpy(node), k).numpy()
+        before = tt.build_histograms.launches
+        leaf_before = tt._leaf_raw_hist.launches
+        st, nd = _on(cuda, stats, node)
+        got = tt._level_leaf_raw(st, nd, k)
+        again = tt._level_leaf_raw(st, nd, k)
+        assert tt.build_histograms.launches == before + 2
+        assert tt._leaf_raw_hist.launches == leaf_before + 2
+        assert torch.equal(got, again)
+        got = got.cpu().numpy()
+        assert got.shape == (2, k) and got.dtype == np.float32
+        np.testing.assert_array_equal(got[0], want[0])        # integers
+        if (stats[:, 1] == np.trunc(stats[:, 1])).all():
+            np.testing.assert_array_equal(got[1], want[1])
+        else:
+            assert np.all(np.abs(got[1] - want[1])
+                          <= np.spacing(np.abs(want[1])))
+
+
+def test_hist_parts_skip_without_fault(cuda):
+    """Every stop a timing run uses (``launch_until``) launches cleanly,
+    for TB trees and for one (B1), and leaves the production launch's
+    bits as they were; a stop past the adds is refused."""
+    from shifu_tpu_torch.ops import hist
+    bins, node, stats = _on(cuda, *_batch_inputs(20000, 64, 64, 32, 2, 2,
+                                                 np.uint8, 3))
+    full = hist.build_histograms_batch_cuda(bins, node, stats, 32, 64)
+    for nb, sb in ((node, stats), (node[:1], stats[:1])):
+        for stop in (hist.SETUP, hist.WALK, hist.ADDS):
+            out = hist.launch_until(bins, nb, sb, 32, 64, stop)
+            torch.cuda.synchronize()
+            assert out.shape == (nb.shape[0], 32, 64, 64, 2)
+    assert torch.equal(full, hist.build_histograms_batch_cuda(
+        bins, node, stats, 32, 64))
+    with pytest.raises(ValueError, match="stop"):
+        hist.launch_until(bins, node, stats, 32, 64, 3)
+
+
+@pytest.mark.parametrize("c,vec", [(64, 2), (256, 2), (16, 1)])
+def test_hist_kernel_takes_an_offset_plane_only_where_aligned(cuda, c, vec):
+    """A uint8 plane that is a view at an odd byte offset: refused where
+    the plan loads V > 1 bin ids at once, launched where V = 1, and a
+    view at a V-aligned offset gives the bits of a fresh copy."""
+    from shifu_tpu_torch.ops import hist
+    n, b, k = 3000, 64, 4
+    assert hist.hist_plan(n, c, 1, k, b, 2)["vec"] == vec
+    bins, node, stats = _hist_inputs(n, c, b, k, 2, np.uint8, 9)
+    flat = torch.zeros(n * c + 2 * vec, dtype=torch.uint8, device=cuda)
+    node, stats = _on(cuda, node, stats)
+    want = hist.build_histograms_cuda(_on(cuda, bins)[0], node, stats, k, b)
+    for off in (1, vec):
+        view = flat[off:off + n * c].view(n, c)
+        view.copy_(torch.from_numpy(bins).to(cuda))
+        if off % vec:
+            with pytest.raises(ValueError, match="byte boundary"):
+                hist.build_histograms_cuda(view, node, stats, k, b)
+        else:
+            assert torch.equal(hist.build_histograms_cuda(
+                view, node, stats, k, b), want)
 
 
 def test_grow_forest_on_the_card_equals_grow_tree(cuda):
@@ -315,7 +521,8 @@ def test_rf_chunk_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert tt.build_histograms_batch.launches == batch + 6
-    assert tt.build_histograms.launches == single + 2 * 6
+    # B1: the batch's 8 leaf-sum levels, and 2 trees x (6 levels + leaves)
+    assert tt.build_histograms.launches == single + 8 + 2 * 7
     want = run(1)
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -176,3 +176,95 @@ def test_depth_zero_tree_is_one_leaf():
     np.testing.assert_allclose(lv.numpy(), [(w * y).sum() / w.sum()],
                                rtol=1e-6)
     assert not fi.any() and not lg.any()
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("k", [1, 8, 300])
+def test_leaf_sums_match_reference(integer, k):
+    """The leaf-sum level on both of the port's paths — the plain float64
+    one-hot matmul (the CPU path) and the one-column, one-bin histogram
+    the card builds with B1 (here through B1's plain version) — against
+    the reference's ``_level_leaf_raw`` on the same inputs.  Integer
+    stats sum exactly everywhere; otherwise the reference's f32 dot agrees
+    within 1e-5 of the node's |stats| sum, and the port's two paths, both
+    f64 sums rounded once, within one f32 ulp of each other."""
+    rng = np.random.default_rng(k + integer)
+    n = 3000
+    node = rng.integers(0, k, size=n).astype(np.int32)
+    node[rng.random(n) < 0.25] = -1
+    w = rng.poisson(1.0, size=n).astype(np.float32)
+    y = (rng.random(n) < 0.4) if integer else rng.standard_normal(n)
+    stats = np.stack([w, w * y], axis=1).astype(np.float32)
+    want = np.asarray(jt._level_leaf_raw(jnp.asarray(stats),
+                                         jnp.asarray(node), k))
+    scale = np.asarray(jt._level_leaf_raw(jnp.asarray(np.abs(stats)),
+                                          jnp.asarray(node), k))
+    before = tt.build_histograms.launches, tt._leaf_raw_hist.launches
+    plain = tt._level_leaf_raw(_t(stats), _t(node), k).numpy()
+    hist = tt._leaf_raw_hist(_t(stats), _t(node), k).numpy()
+    assert (tt.build_histograms.launches,             # CPU: plain versions
+            tt._leaf_raw_hist.launches) == before
+    for got in (plain, hist):
+        assert got.shape == (2, k) and got.dtype == np.float32
+        np.testing.assert_array_equal(got[0], want[0])
+        if integer:
+            np.testing.assert_array_equal(got[1], want[1])
+        else:
+            assert np.all(np.abs(got[1] - want[1]) <= 1e-5 * scale[1])
+    assert np.all(np.abs(hist - plain) <= np.spacing(np.abs(plain)))
+
+
+@pytest.mark.parametrize("algorithm", ["GBT", "RF"])
+def test_growth_on_the_prepared_plane_matches_reference(prepared_set,
+                                                        algorithm):
+    """``grow_tree`` (GBT stats, variance) and ``grow_forest`` (3 Poisson
+    bags, entropy) on the prepared fixture's clean plane (int32 bins of
+    4001) against the reference's ``grow_tree_jit`` / ``grow_forest_jit``:
+    equal splits, masks and terminal nodes, leaves within 1e-6.  A gain
+    floor of 1e-3 pins the structure (ROADMAP Queue 3, C9)."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.ops.hist import widen_bins
+    import json
+    import os
+    data = Shards.open(os.path.join(prepared_set, "tmp",
+                                    "CleanedData")).load_all()
+    with open(os.path.join(prepared_set, "ColumnConfig.json")) as f:
+        ccs = {c["columnNum"]: c for c in json.load(f)}
+    cols = Shards.open(os.path.join(prepared_set, "tmp", "CleanedData")) \
+        .schema["columnNums"]
+    cat = np.array([ccs[c]["columnType"] == "C" for c in cols])
+    bins = widen_bins(_t(data["bins"])).numpy()
+    n_bins = int(bins.max()) + 1
+    y, w = data["y"].astype(np.float32), data["w"].astype(np.float32)
+    rng = np.random.default_rng(3)
+    depth = 3
+    # the id-like column (4001 bins) separates y by itself: leave it out
+    # of the subsets so the trees grow past the root
+    keep = bins.max(axis=0) < 1000
+    if algorithm == "GBT":
+        stats = np.stack([w, w * (y - y.mean())], axis=1).astype(np.float32)
+        fa = keep
+        want = [jt.grow_tree_jit(jnp.asarray(bins), jnp.asarray(stats),
+                                 jnp.asarray(cat), jnp.asarray(fa), n_bins,
+                                 depth, "variance", 20.0, 1e-3)]
+        got = [tt.grow_tree(_t(bins), _t(stats), _t(cat), _t(fa), n_bins,
+                            depth, "variance", 20.0, 1e-3)]
+    else:
+        bags = rng.poisson(1.0, size=(3, len(y))) * w
+        stats = np.stack([bags, bags * y], axis=2).astype(np.float32)
+        fa = (rng.random((3, len(cols))) < 0.8) & keep
+        out = jt.grow_forest_jit(jnp.asarray(bins), jnp.asarray(stats),
+                                 jnp.asarray(cat), jnp.asarray(fa), n_bins,
+                                 depth, "entropy", 20.0, 1e-3)
+        want = [[a[t] for a in out] for t in range(3)]
+        got = tt.grow_forest(_t(bins), _t(stats), _t(cat), _t(fa), n_bins,
+                             depth, "entropy", 20.0, 1e-3)
+    splits = 0
+    for g, wt in zip(got, want):
+        sf, lm, lv, _, lg = (x.numpy() for x in g)
+        np.testing.assert_array_equal(sf, np.asarray(wt[0]))
+        np.testing.assert_array_equal(lm, np.asarray(wt[1]))
+        np.testing.assert_allclose(lv, np.asarray(wt[2]), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(lg, np.asarray(wt[4]))
+        splits += int((sf >= 0).sum())
+    assert splits >= 3 * len(got)

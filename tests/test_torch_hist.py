@@ -13,6 +13,8 @@ stats with at most 16 significant bits, where the split is exact and only
 the f32 accumulation differs.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -119,3 +121,91 @@ def test_hist_bytes_counts_active_rows_once():
     got = hist.hist_bytes(torch.from_numpy(bins), torch.from_numpy(node),
                           torch.from_numpy(stats), 4, 64)
     assert got == 4 * 1000 + active * (10 + 8) + 4 * 4 * 10 * 64 * 2
+
+
+def _np_meta(stats):
+    """numpy's reading of ``channel_meta`` on [TB, N, S]: max |value| and
+    whether every value is an integer with max |value| * N < 2^31."""
+    n = stats.shape[1]
+    if n == 0:
+        return (np.zeros(stats.shape[::2], np.float32),
+                np.ones(stats.shape[::2], np.int32))
+    with np.errstate(invalid="ignore"):
+        amax = np.abs(stats).max(axis=1)
+        whole = (stats == np.trunc(stats)).all(axis=1)
+    return amax, (whole & (amax.astype(np.float64) * n < 2.0 ** 31)) \
+        .astype(np.int32)
+
+
+_N = 1024
+_META_CASES = {
+    "integer": np.arange(_N) % 5,
+    "fraction": np.r_[np.zeros(_N - 1), 0.25],
+    "negative_integer": -(np.arange(_N) % 9),
+    "under_2^31": np.full(_N, (1 << 21) - 1),     # amax * N = 2^31 - 1024
+    "at_2^31": np.full(_N, 1 << 21),              # amax * N = 2^31
+    "nan": np.r_[np.zeros(_N - 1), np.nan],
+    "inf": np.r_[np.zeros(_N - 1), -np.inf],
+    "zeros": np.zeros(_N),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_META_CASES))
+def test_channel_meta_flags_32_bit_channels(case):
+    """The flag that lets the kernel sum a channel in 32-bit integers,
+    against numpy: integers (negative ones too) under the 2^31 edge set
+    it; a fraction, the edge itself, NaN or inf clear it."""
+    stats = np.stack([_META_CASES[case], np.arange(_N) % 3],
+                     axis=1).astype(np.float32)[None]
+    amax, exact = hist.channel_meta(torch.from_numpy(stats), _N)
+    want_amax, want_exact = _np_meta(stats)
+    np.testing.assert_array_equal(amax.numpy(), want_amax)
+    np.testing.assert_array_equal(exact.numpy(), want_exact)
+    assert exact.dtype == torch.int32 and amax.dtype == torch.float32
+    assert exact[0, 1] == 1
+
+
+def test_channel_meta_of_no_rows_is_exact():
+    amax, exact = hist.channel_meta(torch.zeros((2, 0, 3)), 0)
+    assert amax.shape == exact.shape == (2, 3)
+    assert bool((amax == 0).all()) and bool((exact == 1).all())
+
+
+@pytest.mark.parametrize("n,k,spread", [(2000, 3, 1.0), (500, 1, 1e6),
+                                        (0, 2, 1.0)])
+def test_fixed_point_plain_version_is_exact_integer_arithmetic(n, k,
+                                                               spread):
+    """``build_histograms_fixed_ref`` (the kernel's arithmetic, its
+    card oracle) against Python integers: each value quantised to
+    round(v * 2^e) with amax * N * 2^e < 2^62, the quanta summed exactly,
+    the sum rounded to f32 once and scaled back; and within the
+    quantisation (half of 2^-e a row, plus f32 rounding) of the float64
+    plain version."""
+    bins, node, stats = _inputs(n + k, n, 3, 8, k, 2, np.uint8)
+    stats[:, 1] *= np.float32(spread)
+    got = hist.build_histograms_fixed_ref(
+        torch.from_numpy(bins), torch.from_numpy(node),
+        torch.from_numpy(stats), k, 8).numpy()
+    want = np.zeros((k, 3, 8, 2), np.float32)
+    for s in range(2):
+        amax = float(np.abs(stats[:, s]).max()) if n else 0.0
+        t = amax * max(n, 1)
+        e = 62 - math.frexp(t)[1] if t > 0 else 0
+        sums = {}
+        for r in range(n):
+            if 0 <= node[r] < k:
+                q = int(np.round(float(stats[r, s]) * 2.0 ** e))
+                for col in range(3):
+                    key = (node[r], col, bins[r, col])
+                    sums[key] = sums.get(key, 0) + q
+        for (kk, col, bb), v in sums.items():
+            want[kk, col, bb, s] = np.float32(float(np.float32(v))
+                                              * 2.0 ** -e)
+        np.testing.assert_array_equal(got[..., s], want[..., s])
+    plain = _port(bins, node, stats, k, 8)
+    rows = _port(bins, node, np.ones_like(stats), k, 8)
+    amax = np.abs(stats).max(axis=0) if n else np.zeros(2)
+    e = np.array([62 - math.frexp(a * max(n, 1))[1] if a > 0 else 0
+                  for a in amax])
+    assert np.all(np.abs(got - plain) <= rows * 2.0 ** (-e - 1)
+                  + np.spacing(np.abs(plain)))

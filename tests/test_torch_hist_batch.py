@@ -114,3 +114,19 @@ def test_hist_batch_bytes_counts_shared_bins_once():
                                 torch.from_numpy(stats), 4, 64)
     assert got == int(live.any(0).sum()) * 10 + 4 * 3 * 1000 \
         + int(live.sum()) * 8 + 4 * 3 * 4 * 10 * 64 * 2
+
+
+def test_channel_meta_is_per_tree_and_channel():
+    """Each (tree, channel) of a batch gets its own flag and max |value|,
+    as numpy computes them: Poisson bags x integer weights are exact, the
+    w*g channel is not, and one tree's large weights cross 2^31 alone."""
+    bins, node, stats = _inputs(8, 1000, 4, 16, 2, 4, 2, np.uint8)
+    stats[2, :, 0] = 3_000_000.0           # x 1000 rows > 2^31
+    stats[3, :, 1] = np.round(stats[3, :, 1])
+    amax, exact = hist.channel_meta(torch.from_numpy(stats), 1000)
+    want_amax = np.abs(stats).max(axis=1)
+    want_exact = (stats == np.trunc(stats)).all(axis=1) \
+        & (want_amax.astype(np.float64) * 1000 < 2.0 ** 31)
+    np.testing.assert_array_equal(amax.numpy(), want_amax)
+    np.testing.assert_array_equal(exact.numpy(), want_exact)
+    assert exact.numpy().tolist() == [[1, 0], [1, 0], [0, 0], [1, 1]]

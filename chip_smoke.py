@@ -112,8 +112,11 @@ versions on one card.  Otherwise it
    call that computes the same function where there is one, and its bound
    (the larger of the bytes this data makes it move over 3.35 TB/s and its
    integer operations over 67 T/s): ``tree_traverse`` at the serving top
-   rung N=512 and at N=65536, ``stats_hist`` at N=262,144 x 224 columns
-   x 4096 buckets with S = 4 and 2 (``index_add_`` the PyTorch call),
+   rung N=512, at N=65536 and at N=1,048,576 (the train replay's and an
+   eval set's rows) on the forest packed once, as a pinning caller does,
+   ``stats_hist`` at N=262,144 x 224 columns x 4096 buckets with S = 4
+   and 2 (``index_add_`` the PyTorch call), split by part (amax, staging
+   the ids, adds, flush),
    ``hist`` at N = 1,048,576 and K
    in {1, 32, 4096} and ``hist_batch`` at TB=8 and the same N and K
    beside 8 ``hist`` launches (``scatter_add_`` the PyTorch call), each
@@ -153,7 +156,7 @@ N_TREES, DEPTH, N_BINS, N_NUM, N_CAT = 100, 7, 64, 224, 32
 N_COLS = N_NUM + N_CAT
 KERNEL_ROWS = (1, 8, 64, 333, 512, 4096)
 RAW_BATCHES = (1, 7, 64, 333, 512, 1500)
-TIMED_ROWS = (512, 65536)
+TRAVERSE_ROWS = (512, 65536, 1 << 20)   # serve's top rung, a chunk, replay
 HIST_ROWS = (1, 1000, 65536, 1 << 20)
 HIST_NODES = (1, 2, 32)
 CHUNK_REPEATS = 15                 # timed GBT chunks (the tree is host-bound)
@@ -1547,19 +1550,35 @@ def resident_phase(torch, seed: int) -> dict:
             "peak_bytes": peak, "resident_chunks": resident}
 
 # ------------------------------------------------------- phase: timing
-def time_kernels(torch, tq, rng, gpu: str) -> dict:
+def traverse_forest(torch, tq, rng):
+    """``random_forest``'s serving forest on the card, and the keyword
+    arguments that hand a version's packed form of it to
+    ``predict_forest_quant`` (none for a version without one), packed once
+    as a caller that pins the forest does."""
     sf, lm, lv = random_forest(rng, N_TREES, DEPTH, N_BINS, N_COLS)
-    dev = torch.device("cuda")
-    forest = [torch.from_numpy(a).to(dev)
+    forest = [torch.from_numpy(a).to("cuda")
               for a in (sf, lm.astype(np.uint8), lv)]
+    packed = {"packed": tq.pack_forest(*forest, DEPTH)} \
+        if hasattr(tq, "pack_forest") else {}
+    return forest, packed
+
+
+def time_kernels(torch, tq, rng, gpu: str) -> dict:
+    forest, packed = traverse_forest(torch, tq, rng)
+    sf = forest[0]
     out = {}
-    for n in TIMED_ROWS:
+    for n in TRAVERSE_ROWS:
         bins = torch.from_numpy(rng.integers(
-            0, N_BINS, size=(n, N_COLS)).astype(np.uint8)).to(dev)
+            0, N_BINS, size=(n, N_COLS)).astype(np.uint8)).to("cuda")
+        if not torch.equal(tq.predict_forest_quant(*forest, bins, DEPTH,
+                                                   **packed),
+                           tq.predict_forest_quant_ref(*forest, bins, DEPTH)):
+            fail(f"tree_traverse != plain version at N={n} (timed)")
         ms = device_ms(torch, lambda: tq.predict_forest_quant(
-            *forest, bins, DEPTH))
+            *forest, bins, DEPTH, **packed))
         plain_ms = device_ms(torch, lambda: tq.predict_forest_quant_ref(
-            *forest, bins, DEPTH), launches=3, repeats=5)
+            *forest, bins, DEPTH), launches=3 if n <= 65536 else 1,
+            repeats=5 if n <= 65536 else 3)
         # what this run's data needs: each element a walk reads, once;
         # [T, N] f32 written once; integer work per split step taken
         need = tq.traverse_bytes(forest[0], forest[1], bins, DEPTH)
@@ -1574,7 +1593,8 @@ def time_kernels(torch, tq, rng, gpu: str) -> dict:
                   else "operations",
                   "bytes": need["bytes"], "split_steps": need["split_steps"],
                   "whole_forest_bytes": whole}
-        log(f"tree_traverse N={n}: kernel {ms:.5f} ms, plain "
+        log(f"tree_traverse N={n} (bit-equal to the plain version): "
+            f"kernel {ms:.5f} ms, plain "
             f"{plain_ms:.4f} ms, bound {out[n]['bound_ms']:.6f} ms "
             f"({out[n]['bound_by']}: {need['bytes'] / 1e6:.3f} MB read "
             f"and written, {need['split_steps']} split steps; the whole "
@@ -1759,6 +1779,35 @@ def time_of(torch, root: str, seed: int) -> None:
             f"{row['zero_stats_ms']:.4f} ms ({out['root']}) — [{gpu}]")
         del bins, node, stats
         torch.cuda.empty_cache()
+    from shifu_tpu_torch.ops import stats_hist as sh
+    for s in (4, 2):
+        idx, st, exact = stats_inputs(torch, rng, RESIDENT_ROWS, N_NUM,
+                                      STATS_BUCKETS, s)
+        name = f"B3 S={s}"
+        row = {"ms": device_ms(torch, lambda: sh.stats_histograms_cuda(
+            idx, st, STATS_BUCKETS, exact))}
+        if hasattr(sh, "launch_until"):          # versions with parts
+            row["parts_ms"] = stats_parts(torch, sh, idx, st, exact)
+        out["cases"][name] = row
+        log(f"{name}: {row['ms']:.4f} ms"
+            + (" (by part " + ", ".join(f"{n} {v:.4f}" for n, v in
+                                         row["parts_ms"].items()) + ")"
+               if "parts_ms" in row else "")
+            + f" ({out['root']}) — [{gpu}]")
+        del idx, st
+    from shifu_tpu_torch.ops import tree_quant as tq
+    forest, packed = traverse_forest(torch, tq, rng)
+    for n in TRAVERSE_ROWS:
+        bins = torch.from_numpy(rng.integers(
+            0, N_BINS, size=(n, N_COLS)).astype(np.uint8)).to("cuda")
+        name = f"B4 N={n}"
+        out["cases"][name] = {"ms": device_ms(
+            torch, lambda: tq.predict_forest_quant(*forest, bins, DEPTH,
+                                                   **packed))}
+        log(f"{name}: {out['cases'][name]['ms']:.5f} ms ({out['root']}) — "
+            f"[{gpu}]")
+        del bins
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         plan = write_model_set(d, np.random.default_rng([seed, 1]))["plan"]
     bins, y, w, _, is_cat = train_plane(np.random.default_rng([seed, 2]),
@@ -1769,6 +1818,25 @@ def time_of(torch, root: str, seed: int) -> None:
     log(f"GBT: {chunk['ms_per_tree']:.3f} ms a tree ({out['root']}) — "
         f"[{gpu}]")
     print(json.dumps(out), flush=True)
+
+
+def stats_parts(torch, sh, idx, st, exact) -> dict:
+    """A B3 launch's device ms by part: ``stats_hist.launch_until``
+    stopped after the wrapper's ``amax``, after the kernel's staging of
+    the ids, after zeroing and accumulating the cells, then the production
+    launch whole (the flush to f32); each part is the difference of two
+    neighbours."""
+    steps = [(name, lambda stop=stop: sh.launch_until(
+        idx, st, STATS_BUCKETS, exact, stop)) for name, stop in
+        (("amax", sh.AMAX), ("stage", sh.STAGE), ("accumulate", sh.ACCUM))]
+    steps.append(("flush", lambda: sh.stats_histograms_cuda(
+        idx, st, STATS_BUCKETS, exact)))
+    out, prev = {}, 0.0
+    for name, launch in steps:
+        cum = device_ms(torch, launch, launches=10, repeats=5)
+        out[name] = cum - prev
+        prev = cum
+    return out
 
 
 def time_stats_hist(torch, rng, gpu: str) -> dict:
@@ -1785,6 +1853,8 @@ def time_stats_hist(torch, rng, gpu: str) -> dict:
     for s in (4, 2):
         idx, st, exact = stats_inputs(torch, rng, n, c, b, s)
         ms = device_ms(torch, lambda: sh.stats_histograms(idx, st, b, exact))
+        parts = stats_parts(torch, sh, idx, st, exact)
+        plan = sh.stats_hist_plan(n, c, b, s, sum(exact))
         plain_ms = device_ms(torch, lambda: sh.stats_histograms_ref(
             idx, st, b), launches=2, repeats=3)
         ok = idx >= 0
@@ -1800,11 +1870,14 @@ def time_stats_hist(torch, rng, gpu: str) -> dict:
         out[s] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   "bound_ms": max(bytes_ms, ops_ms),
                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                  else "operations", "bytes": nbytes, "valid_cells": valid}
-        log(f"stats_hist N={n} C={c} B={b} S={s}: kernel {ms:.5f} ms, "
-            f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
+                  else "operations", "bytes": nbytes, "valid_cells": valid,
+                  "parts_ms": parts, "plan": plan}
+        log(f"stats_hist N={n} C={c} B={b} S={s}: kernel {ms:.5f} ms (by "
+            "part " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f"), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
             f"bound {out[s]['bound_ms']:.6f} ms ({out[s]['bound_by']}: "
-            f"{nbytes / 1e6:.3f} MB, {valid} valid cells) — [{gpu}]")
+            f"{nbytes / 1e6:.3f} MB, {valid} valid cells; plan {plan}) — "
+            f"[{gpu}]")
         del idx, st, ok, flat, src, acc
     return out
 
@@ -1923,8 +1996,9 @@ def main() -> None:
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None,
-        "at_65536_rows": {k: times[65536][k] for k in
-                          ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{f"at_{n}_rows": {k: times[n][k] for k in
+                            ("ms", "plain_ms", "bound_ms", "bound_by")}
+           for n in TRAVERSE_ROWS[1:]},
         "gpu": gpu}, {
         "name": "hist", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/hist.cu",
@@ -1957,9 +2031,10 @@ def main() -> None:
         "bound_by": stats_times[4]["bound_by"],
         "library_ms": stats_times[4]["library_ms"],
         "shape": f"N={RESIDENT_ROWS} C={N_NUM} B={STATS_BUCKETS} S=4",
+        "parts_ms": stats_times[4]["parts_ms"],
         "at_2_channels": {k: stats_times[2][k] for k in
                           ("ms", "plain_ms", "library_ms", "bound_ms",
-                           "bound_by")},
+                           "bound_by", "parts_ms")},
         "gpu": gpu}, {
         "name": "hist_batch", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/hist.cu",

@@ -154,53 +154,150 @@ def _floatify(s: str) -> Tuple[float, bool, bool]:
     return float("nan"), False, False
 
 
+def _parse_cell(s: str) -> Tuple[float, bool, Optional[int]]:
+    """One stripped cell by the full grammar: ``(value, parsed, integer)``
+    where ``integer`` is the Python int of a cell that took pandas'
+    integer path (None otherwise); an integer-looking cell that Python's
+    ``int`` refuses (digits, a NUL, more digits) does not parse."""
+    m = _PLAIN.fullmatch(s)
+    if m is not None:
+        whole, frac = m.group(1, 3)
+        n_digits = len(whole) + (len(frac) if frac is not None else 0)
+    if m is not None and 0 < n_digits <= 15:
+        v, ok, maybe_int = float(s), True, frac is None
+    else:
+        v, ok, maybe_int = _floatify(s)
+    if not (ok and maybe_int):
+        return v, ok, None
+    try:
+        return v, True, int(s)
+    except ValueError:               # e.g. digits, then a NUL, then more
+        return float("nan"), False, None
+
+
+#: the longest plain cell: a sign, 15 digits and a '.'
+_PLAIN_WIDTH = 17
+#: the first bytes a parseable cell can start with (after the strip)
+_NUMBER_HEAD = np.zeros(256, bool)
+_NUMBER_HEAD[np.frombuffer(b"+-.0123456789iI", np.uint8)] = True
+
+
+def _plain_cells(cells: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The plain classes of a batch's ``S`` view, all at once: ``(plain,
+    integer, values)`` — a cell is plain when it is an optional sign, then
+    1-15 ASCII digits with at most one '.' among them (``integer`` when
+    there is none); its value is the exact integer of its digits over an
+    exact power of ten, one correctly rounded division, which is what
+    both Python's ``float`` and ``precise_xstrtod`` give it."""
+    from .cells import byte_columns
+    n = len(cells)
+    lens = np.char.str_len(cells)
+    cols = byte_columns(cells, _PLAIN_WIDTH)
+    n_dig = np.zeros(n, np.int64)
+    n_dot = np.zeros(n, np.int64)
+    dec = np.zeros(n, np.int64)
+    mant = np.zeros(n, np.int64)
+    seen_dot = np.zeros(n, bool)
+    for c in cols:                        # byte j of every cell at once
+        d = c.astype(np.int64) - 0x30
+        digit = (d >= 0) & (d <= 9)
+        dot = c == 0x2E
+        mant = np.where(digit, mant * 10 + d, mant)
+        dec += digit & seen_dot
+        seen_dot |= dot
+        n_dig += digit
+        n_dot += dot
+    signed = (cols[0] == 0x2B) | (cols[0] == 0x2D)
+    plain = (lens > 0) & (lens == n_dig + n_dot + signed) & (n_dot <= 1) \
+        & (n_dig >= 1) & (n_dig <= 15)
+    values = mant / np.power(10.0, np.where(plain, dec, 0))
+    values = np.where(cols[0] == 0x2D, -values, values)
+    return plain, plain & (n_dot == 0), values
+
+
 def parse_numeric(values: Sequence, missing_values: Sequence[str] = ()
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Vectorized string->float parse: ``(floats, valid_mask)`` where
     invalid/missing entries are NaN and masked out — value for value the
-    reference's pandas coercion (see the module docs)."""
-    strs: List[str] = [str(v).strip() for v in values]
-    floats = np.empty(len(strs), np.float64)
-    ints: List[int] = []
-    all_int = True                # pandas returns its int array only when
-    saw_neg = saw_big = False     # every entry took the integer path
-    for i, s in enumerate(strs):
-        m = _PLAIN.fullmatch(s)
-        if m is not None:
-            whole, frac = m.group(1, 3)
-            n_digits = len(whole) + (len(frac) if frac is not None else 0)
-        if m is not None and 0 < n_digits <= 15:
-            v, ok, maybe_int = float(s), True, frac is None
-        else:
-            v, ok, maybe_int = _floatify(s)
-        floats[i] = v if ok else np.nan
-        if not ok:
-            all_int = False
-            continue
-        if not maybe_int:
-            all_int = False
-            continue
-        try:
-            iv = int(s)
-        except ValueError:           # e.g. digits, then a NUL, then more
-            floats[i] = np.nan
-            all_int = False
-            continue
-        if iv < _INT64_MIN or iv > _UINT64_MAX:
-            all_int = False
-        saw_neg |= iv < 0
-        saw_big |= iv > _INT64_MAX
-        ints.append(iv)
-    if all_int and strs and not (saw_neg and saw_big):
-        floats = np.asarray([float(iv) for iv in ints], np.float64)
-    valid = ~np.isnan(floats)
+    reference's pandas coercion (see the module docs).  A batch with an
+    ``S`` view (``data.cells.stripped_cells``) is stripped, classified and
+    converted at once: only cells that start like a number but are not
+    plain (exponents, inf spellings, 16+ digits) go cell by cell.  Any
+    other batch goes cell by cell."""
+    from .cells import stripped_cells
+    cells = stripped_cells(values)
+    if cells is None:
+        return parse_objects([str(v).strip() for v in values],
+                             missing_values)
+    return parse_cells(cells, missing_values)
+
+
+def parse_cells(cells: np.ndarray, missing_values: Sequence[str] = ()
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`parse_numeric` of a batch's ``S`` view of stripped cells."""
+    from .cells import as_str, missing_mask
+    n = len(cells)
+    plain, integer, floats = _plain_cells(cells)
+    empty = np.char.str_len(cells) == 0
+    # a cell that does not start like a number or an inf spelling cannot
+    # parse: NaN here, no per-cell pass
+    head = cells.view(np.uint8).reshape(n, -1)[:, 0] if n else \
+        np.zeros(0, np.uint8)
+    other = ~plain & ~empty & _NUMBER_HEAD[head]
+    floats[~plain] = np.nan
+    # pandas returns its int array only when every entry took the integer
+    # path; "-0" is then 0.0, not -0.0
+    all_int = n > 0 and bool((integer | other).all())
+    saw_neg = bool((integer & (floats < 0)).any())
+    floats, valid = _finish(floats, [(i, as_str(cells, i))
+                                     for i in np.flatnonzero(other).tolist()],
+                            all_int, saw_neg)
     if len(missing_values):
-        missing_set = {m.strip().lower() for m in missing_values}
-        is_missing = np.fromiter((s.lower() in missing_set for s in strs),
-                                 bool, len(strs))
+        is_missing = missing_mask(cells, {m.strip().lower()
+                                          for m in missing_values})
         valid &= ~is_missing
         floats = np.where(is_missing, np.nan, floats)
     return floats, valid
+
+
+def parse_objects(strs: List[str], missing_values: Sequence[str] = ()
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`parse_numeric` of stripped cells one by one (a batch with no
+    ``S`` view)."""
+    n = len(strs)
+    floats, valid = _finish(np.full(n, np.nan), list(enumerate(strs)),
+                            n > 0, False)
+    if len(missing_values):
+        missing_set = {m.strip().lower() for m in missing_values}
+        is_missing = np.fromiter((s.lower() in missing_set for s in strs),
+                                 bool, n)
+        valid &= ~is_missing
+        floats = np.where(is_missing, np.nan, floats)
+    return floats, valid
+
+
+def _finish(floats: np.ndarray, rest: List[Tuple[int, str]], all_int: bool,
+            saw_neg: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """Parses the ``rest`` cells one by one into ``floats`` and applies
+    pandas' integer path when every entry took it (``all_int`` so far,
+    with ``saw_neg`` for the entries already classified)."""
+    saw_big = False
+    ints = {}
+    for i, s in rest:
+        v, ok, iv = _parse_cell(s)
+        floats[i] = v if ok else np.nan
+        if iv is None or iv < _INT64_MIN or iv > _UINT64_MAX:
+            all_int = False
+        if iv is not None:
+            saw_neg |= iv < 0
+            saw_big |= iv > _INT64_MAX
+            ints[i] = iv
+    if all_int and not (saw_neg and saw_big):
+        floats = floats + 0.0                       # -0.0 -> 0.0
+        for i, iv in ints.items():
+            floats[i] = float(iv)
+    return floats, ~np.isnan(floats)
 
 
 def tag_to_target(values: Sequence, pos_tags: Sequence[str],

@@ -113,6 +113,7 @@ class IndependentTreeModel:
         self.spec = spec
         self.trees = trees
         self._quant: Dict[torch.device, tuple] = {}   # device -> stacked
+        self._packed: Dict[torch.device, object] = {}  # device -> packed
 
     @classmethod
     def load(cls, path: str) -> "IndependentTreeModel":
@@ -138,6 +139,18 @@ class IndependentTreeModel:
                                                               device)
         return arrays
 
+    def quant_packed(self, device: torch.device):
+        """The kernel's packed form of the forest on a CUDA ``device``
+        (``tree_quant.pack_forest``, built once beside the stacked arrays);
+        None on the CPU, whose plain walk reads the stacked arrays."""
+        if device.type == "cpu":
+            return None
+        if device not in self._packed:
+            from ..ops.tree_quant import pack_forest
+            self._packed[device] = pack_forest(*self.quant_arrays(device),
+                                               self.trees[0].depth)
+        return self._packed[device]
+
     def link(self, preds: torch.Tensor) -> torch.Tensor:
         """[T, N] per-tree predictions -> [N] model output, f32 as in the
         reference: GBT ``init + lr * sum`` then the loss link, RF and DT
@@ -162,7 +175,8 @@ class IndependentTreeModel:
             else torch.from_numpy(np.ascontiguousarray(bins))
         b = b.to(dev, self.bins_dtype).contiguous()
         preds = tq.predict_forest_quant(*self.quant_arrays(dev), b,
-                                        self.trees[0].depth)
+                                        self.trees[0].depth,
+                                        packed=self.quant_packed(dev))
         out = self.link(preds)
         if out.dim() == 1:
             out = out[:, None]

@@ -596,13 +596,29 @@ class CategoricalAccumulator:
                stripped: bool = False) -> None:
         """``values`` may be pre-stripped (``stripped=True`` skips the
         string pass)."""
-        d = self.stats.setdefault(col_name, {})
         vals = np.empty(len(values), dtype=object)
         vals[:] = list(values) if stripped else \
             [str(v).strip() for v in values]
         cats, codes = np.unique(vals, return_inverse=True)
+        self._add(col_name, list(cats), codes.reshape(-1), valid, target,
+                  weight)
+
+    def update_cells(self, col_name: str, cells: np.ndarray,
+                     valid: np.ndarray, target: np.ndarray,
+                     weight: np.ndarray) -> None:
+        """:meth:`update` with the values' ``S`` view of stripped cells
+        (``data.cells.stripped_cells``): one ``np.unique`` over it."""
+        from ..data.cells import distinct
+        d = distinct(cells)
+        self._add(col_name, d.values, d.inverse, valid, target, weight)
+
+    def _add(self, col_name: str, cats: List[str], codes: np.ndarray,
+             valid: np.ndarray, target: np.ndarray,
+             weight: np.ndarray) -> None:
+        """Adds a batch's categories (sorted) and each row's code."""
+        d = self.stats.setdefault(col_name, {})
         k = len(cats)
-        idx = np.where(valid, codes.reshape(-1), k)
+        idx = np.where(valid, codes, k)
         posf = (target >= 0.5).astype(np.float64)
         w = np.asarray(weight, np.float64)
         stacked = np.stack([

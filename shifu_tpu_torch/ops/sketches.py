@@ -6,7 +6,11 @@ the port's copy of ``shifu_tpu.ops.sketches`` without pandas.
   under pandas' default key ``"0123456789123456"``, then pandas' 64-bit
   finaliser.  :func:`hash_strings` reproduces that bit for bit, vectorised
   in numpy ``uint64`` over the values grouped by byte length, so the
-  registers (and ``distinctCount``) equal the reference's.
+  registers (and ``distinctCount``) equal the reference's.  Each distinct
+  value is hashed once; :meth:`HyperLogLog.update_distinct` and
+  :meth:`FrequentItems.update_distinct` take a column batch's distinct
+  values from one ``np.unique`` over its ``S`` view
+  (:func:`shifu_tpu_torch.data.cells.distinct`), shared by both sketches.
 - :class:`FrequentItems` reproduces the reference's pandas merge order
   (``value_counts`` → ``Series.add`` → Misra-Gries prune), which decides
   which of several tied items survive into :meth:`FrequentItems.top`.
@@ -69,6 +73,17 @@ def _siphash24(data: np.ndarray, length: int) -> np.ndarray:
     return v0 ^ v1 ^ v2 ^ v3
 
 
+def _finish(h: np.ndarray) -> np.ndarray:
+    """pandas' 64-bit finaliser of the SipHash values, in place."""
+    with np.errstate(over="ignore"):
+        h ^= h >> _U64(30)
+        h *= _U64(0xBF58476D1CE4E5B9)
+        h ^= h >> _U64(27)
+        h *= _U64(0x94D049BB133111EB)
+        h ^= h >> _U64(31)
+    return h
+
+
 def hash_strings(values: Sequence) -> np.ndarray:
     """[n] uint64 — ``pd.util.hash_array(np.asarray(values, dtype=object),
     categorize=False)`` for string values: SipHash-2-4 of each value's
@@ -81,17 +96,24 @@ def hash_strings(values: Sequence) -> np.ndarray:
     lengths = np.fromiter(map(len, raw), np.int64, len(raw))
     h = np.zeros(len(raw), _U64)
     with np.errstate(over="ignore"):
-        for length in np.unique(lengths):
+        for length in np.unique(lengths).tolist():
             sel = np.flatnonzero(lengths == length)
             data = np.frombuffer(b"".join(raw[i] for i in sel), np.uint8) \
-                .reshape(len(sel), int(length))
-            h[sel] = _siphash24(data, int(length))
-        h ^= h >> _U64(30)
-        h *= _U64(0xBF58476D1CE4E5B9)
-        h ^= h >> _U64(27)
-        h *= _U64(0x94D049BB133111EB)
-        h ^= h >> _U64(31)
-    return h[inverse.reshape(-1)]
+                .reshape(len(sel), length)
+            h[sel] = _siphash24(data, length)
+    return _finish(h)[inverse.reshape(-1)]
+
+
+def hash_distinct(d) -> np.ndarray:
+    """[u] uint64: :func:`hash_strings` of each distinct cell of a
+    ``data.cells.Distinct``, from its ``S`` bytes grouped by length."""
+    rows = d.keys.view(np.uint8).reshape(len(d.keys), d.keys.dtype.itemsize)
+    h = np.zeros(len(d.keys), _U64)
+    with np.errstate(over="ignore"):
+        for length in np.unique(d.widths).tolist():
+            sel = np.flatnonzero(d.widths == length)
+            h[sel] = _siphash24(rows[sel, :length], length)
+    return _finish(h)
 
 
 class HyperLogLog:
@@ -106,7 +128,16 @@ class HyperLogLog:
     def update(self, values: Sequence) -> None:
         if len(values) == 0:
             return
-        h = hash_strings(values)
+        self.update_hashes(hash_strings(values))
+
+    def update_distinct(self, d) -> None:
+        """:meth:`update` with the values' ``data.cells.Distinct``: each
+        distinct value's hash once, which sets the same registers (a
+        register keeps the maximum rank of the hashes that reach it)."""
+        if len(d.keys):
+            self.update_hashes(hash_distinct(d))
+
+    def update_hashes(self, h: np.ndarray) -> None:
         idx = (h >> np.uint64(64 - self.p)).astype(np.int64)
         rest = h << np.uint64(self.p)        # top 64-p bits shifted up
         # rank = leading zeros of `rest` + 1, capped at 64-p+1; a zero rest
@@ -187,14 +218,36 @@ class FrequentItems:
         vals = np.asarray(values, dtype=str).astype(object)
         uniq, first, cnt = np.unique(vals, return_index=True,
                                      return_counts=True)
+        self._merge([str(k) for k in uniq], first, cnt)
+
+    def update_distinct(self, d) -> None:
+        """:meth:`update` with the values' ``data.cells.Distinct``."""
+        if len(d.keys):
+            self._merge(d.values, d.first, d.counts)
+
+    def _merge(self, uniq: List[str], first: np.ndarray,
+               cnt: np.ndarray) -> None:
+        """Adds a batch's distinct values (``uniq``, with their first
+        indices and counts) to the held counts."""
         seen = np.argsort(first, kind="stable")          # first appearance
         order = seen[np.argsort(-cnt[seen], kind="stable")]
-        keys = [str(k) for k in uniq[order]]
-        vc = dict(zip(keys, (int(c) for c in cnt[order])))
-        if self.counts:
-            if keys != list(self.counts):
-                keys = sorted(set(keys) | set(self.counts))
-            vc = {k: vc.get(k, 0) + self.counts.get(k, 0) for k in keys}
+        cnt = cnt[order]
+        if not self.counts:
+            # the prune on the batch alone, before any item becomes a
+            # Python object: it keeps the order, and its items are the
+            # counts above the (cap+1)-th largest
+            if len(cnt) > self.cap:
+                d = np.sort(cnt)[len(cnt) - self.cap - 1]
+                keep = cnt > d
+                order, cnt = order[keep], cnt[keep] - d
+            self.counts = dict(zip([uniq[i] for i in order.tolist()],
+                                   cnt.tolist()))
+            return
+        keys = [uniq[i] for i in order.tolist()]
+        vc = dict(zip(keys, cnt.tolist()))
+        if keys != list(self.counts):
+            keys = sorted(set(keys) | set(self.counts))
+        vc = {k: vc.get(k, 0) + self.counts.get(k, 0) for k in keys}
         if len(vc) > self.cap:
             d = np.sort(np.fromiter(vc.values(), np.int64, len(vc)))[
                 len(vc) - self.cap - 1]

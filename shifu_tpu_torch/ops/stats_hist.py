@@ -8,10 +8,12 @@ missing cell that counts nowhere), per-row channels ``stats`` [N, S] f32
 and B = ``num_buckets`` (a multiple of 64, at most 4096): [C, B, S] f32.
 
 - :func:`stats_histograms_cuda` launches the hand-written CUDA kernel
-  ``csrc/stats_hist.cu`` (the ids transposed to [C, N] int16, then
-  shared-memory sub-histograms per column group; count channels summed as
-  integers, weighted ones in 64-bit fixed point, so the result is
-  bit-identical from run to run; the source says why and how).
+  ``csrc/stats_hist.cu`` (thread-block clusters that read each 32-byte
+  sector of ids once and hand every id to the CTA that owns its column
+  through distributed shared memory, then shared-memory sub-histograms;
+  count channels summed as integers, weighted ones in 64-bit fixed point,
+  so the result is bit-identical from run to run; the source says why
+  and how).
 - :func:`stats_histograms_ref`, the plain PyTorch version: one
   ``index_add_`` per column chunk into a flat float64 [C*B, S] buffer,
   rounded to f32 at the end.  It is the CPU path and the kernel's oracle
@@ -26,6 +28,7 @@ summed in fixed point.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -74,14 +77,43 @@ def _check(name: str, a: torch.Tensor, dtype: torch.dtype,
             f"{'' if a.is_contiguous() else ' (strided)'}")
 
 
-def stats_histograms_cuda(idx, stats, num_buckets: int,
-                          exact: Optional[Sequence[bool]] = None
-                          ) -> torch.Tensor:
+@functools.cache
+def _lib():
+    from . import cuda_lib
+    lib = cuda_lib.load("stats_hist")
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+    lib.shifu_stats_hist.restype = ctypes.c_int
+    lib.shifu_stats_hist_until.restype = ctypes.c_int
+    lib.shifu_stats_hist_plan.restype = ctypes.c_int
+    lib.shifu_stats_hist.argtypes = args + [ctypes.c_void_p]
+    lib.shifu_stats_hist_until.argtypes = args + [ctypes.c_int,
+                                                  ctypes.c_void_p]
+    lib.shifu_stats_hist_plan.argtypes = [ctypes.c_longlong] \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return lib
+
+
+def stats_hist_plan(n_rows: int, n_cols: int, num_buckets: int,
+                    n_stats: int, n_exact: int) -> dict:
+    """How ``csrc/stats_hist.cu`` tiles a launch at these shapes on the
+    current card (for logs and the smoke): columns a CTA, CTAs a cluster,
+    column clusters, row chunks, whether CTAs write f32 directly, rows a
+    tile, shared memory a CTA."""
+    out = (ctypes.c_longlong * 7)()
+    rc = _lib().shifu_stats_hist_plan(n_rows, n_cols, num_buckets, n_stats,
+                                      n_exact, out)
+    if rc != 0:
+        raise ValueError(f"stats_hist kernel: shapes not supported "
+                         f"(cudaError_t {rc})")
+    keys = ("cols_a_cta", "cluster", "clusters", "chunks", "direct",
+            "tile_rows", "smem")
+    return dict(zip(keys, list(out)))
+
+
+def _launch(idx, stats, num_buckets: int, exact, stop=None) -> torch.Tensor:
     """Validate, allocate and launch ``csrc/stats_hist.cu`` on the current
-    stream: [C, B, S] f32.  No host sync: the fixed-point scales come from
-    a device-side ``amax``.  ``exact`` must mark a leading run of channels
-    (the stats plane's order: counts first).  ``launches`` counts kernel
-    launches."""
+    stream; ``stop`` launches the timing entry point instead
+    (:func:`launch_until`)."""
     _check_args(idx, stats, num_buckets)
     dev = idx.device
     if dev.type != "cuda":
@@ -102,22 +134,33 @@ def stats_histograms_cuda(idx, stats, num_buckets: int,
                          f"a leading run of the {s} channels")
     amax = stats.abs().amax(dim=0) if n else \
         torch.zeros(s, dtype=torch.float32, device=dev)
-    idx_t = torch.empty((c, n), dtype=torch.int16, device=dev)
-    acc = torch.empty(c * num_buckets * s, dtype=torch.int64, device=dev)
     out = torch.empty((c, num_buckets, s), dtype=torch.float32, device=dev)
-    from . import cuda_lib
-    fn = cuda_lib.load("stats_hist").shifu_stats_hist
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    if stop == AMAX:
+        return out
+    acc = torch.empty(c * num_buckets * s, dtype=torch.int64, device=dev)
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(idx.data_ptr(), stats.data_ptr(), amax.data_ptr(),
-                idx_t.data_ptr(), acc.data_ptr(), out.data_ptr(), n, c,
-                num_buckets, s, n_exact, stream)
+        args = (idx.data_ptr(), stats.data_ptr(), amax.data_ptr(),
+                acc.data_ptr(), out.data_ptr(), n, c, num_buckets, s,
+                n_exact)
+        rc = lib.shifu_stats_hist(*args, stream) if stop is None else \
+            lib.shifu_stats_hist_until(*args, stop, stream)
     if rc != 0:
         raise RuntimeError(
             f"stats_hist kernel launch failed (cudaError_t {rc})")
+    return out
+
+
+def stats_histograms_cuda(idx, stats, num_buckets: int,
+                          exact: Optional[Sequence[bool]] = None
+                          ) -> torch.Tensor:
+    """Validate, allocate and launch ``csrc/stats_hist.cu`` on the current
+    stream: [C, B, S] f32.  No host sync: the fixed-point scales come from
+    a device-side ``amax``.  ``exact`` must mark a leading run of channels
+    (the stats plane's order: counts first).  ``launches`` counts kernel
+    launches."""
+    out = _launch(idx, stats, num_buckets, exact)
     stats_histograms_cuda.launches += 1
     return out
 
@@ -132,6 +175,23 @@ def stats_histograms(idx, stats, num_buckets: int,
     if idx.device.type == "cpu":
         return stats_histograms_ref(idx, stats, num_buckets)
     return stats_histograms_cuda(idx, stats, num_buckets, exact)
+
+
+#: where :func:`launch_until` stops a launch: after the wrapper's device-side
+#: ``amax``, after the kernel's staging of the ids, after zeroing and
+#: accumulating the cells (before the flush to f32)
+AMAX, STAGE, ACCUM = 0, 1, 2
+
+
+def launch_until(idx, stats, num_buckets: int,
+                 exact: Optional[Sequence[bool]], stop: int) -> torch.Tensor:
+    """For timing only: a :func:`stats_histograms_cuda` launch stopped
+    after part ``stop`` (:data:`AMAX`, :data:`STAGE` or :data:`ACCUM`), so
+    a launch's device time splits by part; the output is undefined."""
+    if stop not in (AMAX, STAGE, ACCUM):
+        raise ValueError(f"stats_hist kernel: stop must be AMAX, STAGE or "
+                         f"ACCUM, got {stop}")
+    return _launch(idx, stats, num_buckets, exact, stop)
 
 
 def stats_hist_bytes(idx, stats, num_buckets: int) -> int:

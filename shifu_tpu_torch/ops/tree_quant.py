@@ -6,7 +6,12 @@ Two versions of one function, :func:`predict_forest_quant`:
 
 - the CUDA kernel ``csrc/tree_traverse.cu`` (hand-written for Hopper,
   replacing the Pallas kernel ``_traverse_kernel``), taken for every CUDA
-  tensor; a CUDA input it cannot take raises, it never falls back;
+  tensor; a CUDA input it cannot take raises, it never falls back.  For
+  masks of <= 256 bins it walks the forest's packed form
+  (:func:`pack_forest`: one record of bitset and split feature a node,
+  staged in shared memory), which a caller that pins a forest on the card
+  builds once and passes in; without it the wrapper packs on the fly.
+  Wider masks take the kernel's wide path over the uint8 masks;
 - the plain PyTorch version :func:`predict_forest_quant_ref` — the narrow
   gather walk of the reference's jnp fallback — taken for CPU tensors
   only.  It is the CPU path and the kernel's oracle on the card.
@@ -23,7 +28,8 @@ fallback does.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +62,81 @@ def stack_forest_quant(trees, device=None
     lv = np.stack([np.asarray(t.leaf_value, np.float32) for t in trees])
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (sf, lm, lv))
+
+
+# ---------------------------------------------------------- packed form
+class PackedForest(NamedTuple):
+    """A forest in the layout the kernel's packed path walks: ``records``
+    [T, n_int, words] int32 — for each of the first n_int = 2^depth - 1
+    nodes (deeper nodes are never split) its left mask as a bitset of w32
+    32-bit words (bit b of word j: bin 32 * j + b goes left), then its
+    split feature, padded to a multiple of four words — and ``leaves``
+    [T, 2^(depth + 1) - 1] f32, the values a walk can end on."""
+    records: torch.Tensor
+    leaves: torch.Tensor
+    depth: int
+    n_bins: int
+
+
+#: the deepest forest the packed path takes (the kernel's limit); deeper
+#: ones walk their arrays as they are
+MAX_PACKED_DEPTH = 24
+
+
+def mask_words(n_bins: int) -> int:
+    """32-bit bitset words of a packed node: 2 up to 64 bins, 4 up to 128,
+    8 up to 256."""
+    return 2 if n_bins <= 64 else 4 if n_bins <= 128 else 8
+
+
+def pack_forest(split_feats, left_u8s, leaf_values,
+                depth: int) -> Optional[PackedForest]:
+    """The packed form of a stacked forest (``stack_forest_quant``'s
+    arrays), built with tensor ops on the arrays' device; None where the
+    kernel walks the arrays as they are (masks wider than 256 bins,
+    multiclass leaves, depth past :data:`MAX_PACKED_DEPTH`)."""
+    t, k = split_feats.shape
+    b = left_u8s.shape[2]
+    if b > 256 or leaf_values.dim() != 2 \
+            or not 0 <= depth <= MAX_PACKED_DEPTH or k < n_tree_nodes(depth):
+        return None
+    dev = split_feats.device
+    w32 = mask_words(b)
+    words = (w32 + 1 + 3) // 4 * 4
+    n_int = max(1, (1 << depth) - 1)
+    bits = torch.zeros((t, n_int, w32 * 32), dtype=torch.bool, device=dev)
+    bits[:, :, :b] = left_u8s[:, :n_int] != 0
+    bits = bits.view(t, n_int, w32, 32)
+    rec = torch.zeros((t, n_int, words), dtype=torch.int64, device=dev)
+    for j in range(32):                   # bit j of every mask word
+        rec[..., :w32] |= bits[..., j].long() << j
+    rec[..., w32] = split_feats[:, :n_int].long()
+    rec = torch.where(rec >= 1 << 31, rec - (1 << 32), rec)   # as int32
+    leaves = leaf_values[:, :n_tree_nodes(depth)].float().contiguous()
+    return PackedForest(rec.to(torch.int32).contiguous(), leaves, depth, b)
+
+
+def forest_walk_ref(packed: PackedForest, bins) -> torch.Tensor:
+    """[T, N] predictions walked over the packed form — the plain version
+    of the kernel's packed path, equal bit for bit to
+    :func:`predict_forest_quant_ref` on the arrays it was packed from."""
+    rec = packed.records.long() & 0xFFFFFFFF
+    t, n_int, _ = rec.shape
+    n, c = bins.shape
+    w32 = mask_words(packed.n_bins)
+    dev = bins.device
+    rows = torch.arange(n, device=dev)[None, :]
+    trees = torch.arange(t, device=dev)[:, None]
+    node = torch.zeros((t, n), dtype=torch.long, device=dev)
+    feat_all = packed.records[..., w32].long()
+    for _ in range(packed.depth):
+        feat = feat_all[trees, node]
+        b = bins[rows, feat.clamp(0, c - 1)].long() \
+            .clamp(0, packed.n_bins - 1)
+        word = rec[trees, node, b >> 5]
+        child = 2 * node + 2 - ((word >> (b & 31)) & 1)
+        node = torch.where(feat >= 0, child, node)
+    return packed.leaves.gather(1, node)
 
 
 # ------------------------------------------------------- plain version
@@ -107,9 +188,11 @@ def _check(name: str, a: torch.Tensor, dtype: torch.dtype, ndim: int,
 
 
 def _predict_quant_cuda(split_feats, left_u8s, leaf_values, bins,
-                        depth: int) -> torch.Tensor:
+                        depth: int, packed: Optional[PackedForest]
+                        ) -> torch.Tensor:
     """Validate, allocate the [T, N] output and launch ``tree_traverse``
-    on the current stream."""
+    on the current stream: the packed path for masks of <= 256 bins (the
+    forest packed here unless ``packed`` is given), else the wide path."""
     dev = bins.device
     _check("bins", bins, torch.int32 if bins.dtype == torch.int32
            else torch.uint8, 2, dev)
@@ -133,14 +216,32 @@ def _predict_quant_cuda(split_feats, left_u8s, leaf_values, bins,
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
     if n == 0 or t == 0:
         return out
-    from . import cuda_lib
-    fn = cuda_lib.load("tree_traverse").shifu_tree_traverse
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    if packed is None:
+        packed = pack_forest(split_feats, left_u8s, leaf_values, depth)
+    if packed is not None:
+        want = (t, max(1, (1 << depth) - 1),
+                (mask_words(b) + 1 + 3) // 4 * 4)
+        if packed.depth != depth or packed.n_bins != b \
+                or tuple(packed.records.shape) != want \
+                or tuple(packed.leaves.shape) != (t, n_tree_nodes(depth)):
+            raise ValueError(f"tree_traverse kernel: the packed forest "
+                             f"(depth {packed.depth}, {packed.n_bins} bins, "
+                             f"records {tuple(packed.records.shape)}) is "
+                             f"not this forest's (depth {depth}, {b} bins, "
+                             f"{t} trees)")
+        _check("packed.records", packed.records, torch.int32, 3, dev)
+        _check("packed.leaves", packed.leaves, torch.float32, 2, dev)
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(bins.data_ptr(), bins.element_size(), split_feats.data_ptr(),
+        if packed is not None:
+            rc = lib.shifu_forest_walk(
+                bins.data_ptr(), bins.element_size(),
+                packed.records.data_ptr(), packed.leaves.data_ptr(),
+                out.data_ptr(), n, c, t, b, depth, stream)
+        else:
+            rc = lib.shifu_tree_traverse(
+                bins.data_ptr(), bins.element_size(), split_feats.data_ptr(),
                 left_u8s.data_ptr(), leaf_values.data_ptr(), out.data_ptr(),
                 n, c, t, k, b, depth, stream)
     if rc != 0:
@@ -150,11 +251,31 @@ def _predict_quant_cuda(split_feats, left_u8s, leaf_values, bins,
     return out
 
 
+@functools.cache
+def _lib():
+    from . import cuda_lib
+    lib = cuda_lib.load("tree_traverse")
+    lib.shifu_tree_traverse.restype = ctypes.c_int
+    lib.shifu_tree_traverse.argtypes = [ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    lib.shifu_forest_walk.restype = ctypes.c_int
+    lib.shifu_forest_walk.argtypes = [ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    return lib
+
+
 def predict_forest_quant(split_feats, left_u8s, leaf_values, bins,
-                         depth: int) -> torch.Tensor:
+                         depth: int,
+                         packed: Optional[PackedForest] = None
+                         ) -> torch.Tensor:
     """[T, N] forest predictions over a uint8 or int32 bin plane: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.
-    ``launches`` counts kernel launches (never plain-version calls)."""
+    ``packed`` is the forest's :func:`pack_forest` form on the card, built
+    once by a caller that pins the forest (the kernel's input; the plain
+    version does not read it).  ``launches`` counts kernel launches (never
+    plain-version calls)."""
     if bins.device.type == "cpu":
         return predict_forest_quant_ref(split_feats, left_u8s, leaf_values,
                                         bins, depth)
@@ -166,7 +287,7 @@ def predict_forest_quant(split_feats, left_u8s, leaf_values, bins,
             "multiclass [T, K, S] leaves have no CUDA kernel yet — score "
             "them with predict_forest_quant_ref")
     return _predict_quant_cuda(split_feats, left_u8s, leaf_values, bins,
-                               depth)
+                               depth, packed)
 
 
 predict_forest_quant.launches = 0

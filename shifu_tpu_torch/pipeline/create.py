@@ -20,7 +20,7 @@ from .. import DeviceLike
 from ..config import (ColumnConfig, ColumnType, ModelConfig,
                       build_initial_column_configs)
 from ..config.validator import ModelStep
-from ..data.reader import DataSource, parse_numeric
+from ..data.reader import DataSource, parse_cells, parse_objects
 from .processor import BasicProcessor
 
 log = logging.getLogger(__name__)
@@ -168,6 +168,7 @@ class InitProcessor(BasicProcessor):
         ``InitModelProcessor.java:185-250`` rules: a 0/1 binary variable is
         numeric, a column whose frequent items all parse as double is
         numeric, everything else flips to categorical."""
+        from ..data.cells import distinct, stripped_cells
         from ..ops.sketches import FrequentItems, HyperLogLog
         seen = 0
         parse_ok = np.zeros(len(configs), np.int64)
@@ -177,15 +178,24 @@ class InitProcessor(BasicProcessor):
         for chunk in source.iter_chunks(chunk_rows=min(sample_rows, 262144)):
             for i, cc in enumerate(configs):
                 vals = chunk.data[cc.columnName]
-                _, valid = parse_numeric(vals)
-                s = np.empty(len(vals), dtype=object)
-                s[:] = [str(v).strip() for v in vals]
-                ne = s != ""
+                cells = stripped_cells(vals)
+                if cells is None:             # no S view: object arrays
+                    s = np.empty(len(vals), dtype=object)
+                    s[:] = [str(v).strip() for v in vals]
+                    _, valid = parse_objects(list(s))
+                    live = s[s != ""]
+                    parse_ok[i] += int(valid.sum())
+                    non_empty[i] += len(live)
+                    hlls[i].update(live)
+                    freqs[i].update(live)
+                    continue
+                _, valid = parse_cells(cells)
                 parse_ok[i] += int(valid.sum())
-                non_empty[i] += int(ne.sum())
-                live = s[ne]
-                hlls[i].update(live)
-                freqs[i].update(live)
+                # one np.unique of the non-empty cells feeds both sketches
+                d = distinct(cells, drop_empty=True)
+                non_empty[i] += int(d.counts.sum())
+                hlls[i].update_distinct(d)
+                freqs[i].update_distinct(d)
             seen += len(chunk)
             if seen >= sample_rows:
                 break

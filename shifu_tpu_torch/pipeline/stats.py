@@ -27,6 +27,7 @@ import numpy as np
 from ..config import ColumnConfig, environment
 from ..config.model_config import BinningAlgorithm
 from ..config.validator import ModelStep
+from ..data.cells import missing_mask, stripped_cells
 from ..data.extract import ChunkExtractor
 from ..data.parsepool import iter_extracted
 from ..data.reader import DataSource
@@ -78,11 +79,18 @@ class StatsProcessor(BasicProcessor):
 
         def cat_update(ex, tgt) -> None:
             for cc in cat_cols:
-                s = [str(v).strip() for v in ex.categorical[cc.columnName]]
-                valid = np.fromiter((v.lower() not in missing_set
-                                     for v in s), bool, len(s))
-                cat_acc.update(cc.columnName, s, valid, tgt, ex.weight,
-                               stripped=True)
+                vals = ex.categorical[cc.columnName]
+                cells = stripped_cells(vals)
+                if cells is None:             # no S view: object arrays
+                    s = [str(v).strip() for v in vals]
+                    valid = np.fromiter((v.lower() not in missing_set
+                                         for v in s), bool, len(s))
+                    cat_acc.update(cc.columnName, s, valid, tgt, ex.weight,
+                                   stripped=True)
+                else:
+                    cat_acc.update_cells(cc.columnName, cells,
+                                         ~missing_mask(cells, missing_set),
+                                         tgt, ex.weight)
 
         def binarized(ex):
             # multi-class: bin pos/neg stats binarize as class 0 vs rest

@@ -75,9 +75,10 @@ def _tree_column(m, device: torch.device) -> Callable:
     from ..ops import tree_quant as tq
     depth = m.trees[0].depth
     arrays = m.quant_arrays(device)
+    packed = m.quant_packed(device)          # packed once, where pinned
 
     def col(x, bins):
-        preds = tq.predict_forest_quant(*arrays, bins, depth)
+        preds = tq.predict_forest_quant(*arrays, bins, depth, packed=packed)
         out = m.link(preds)
         return out[:, 0] if out.dim() > 1 else out
     return col

@@ -182,23 +182,43 @@ def test_hash_strings_equal_pandas():
         np.testing.assert_array_equal(ps.hash_strings(vals), want)
 
 
-@pytest.mark.parametrize("kind", ["unique_ids", "tied_low_card", "mixed"])
+@pytest.mark.parametrize("kind", [
+    "unique_ids", "tied_low_card", "mixed", "distinct_unique_ids",
+    "distinct_tied_low_card", "distinct_mixed", "distinct_ascii"])
 @pytest.mark.parametrize("cap", [4, 4096])
 def test_sketches_match_reference(kind, cap):
+    """Registers, counts and their order equal the reference's over four
+    chunks (ties, and a cap-4 prune).  The ``distinct_`` kinds feed the
+    port as ``init`` does: one ``np.unique`` over each chunk's ``S`` view
+    shared by both sketches (``update_distinct``), or the object path for
+    a chunk without one (NUL bytes, non-ASCII)."""
+    from shifu_tpu_torch.data.cells import distinct, stripped_cells
     rng = np.random.default_rng(len(kind) + cap)
     pf, jf = ps.FrequentItems(cap=cap), js.FrequentItems(cap=cap)
     ph, jh = ps.HyperLogLog(), js.HyperLogLog()
+    shared = kind.startswith("distinct_")
+    base = kind[len("distinct_"):] if shared else kind
     for chunk in range(4):
-        if kind == "unique_ids":
+        if base == "unique_ids":
             batch = [str(v) for v in range(chunk * 1500, chunk * 1500 + 1500)]
-        elif kind == "tied_low_card":
+        elif base == "tied_low_card":
             batch = list(rng.choice(list("gfedcba"), 70))
+        elif base == "ascii":
+            batch = list(rng.choice(["", "a", "ab", "b a", "x" * 9, "10",
+                                     "2", "-0", "1.50"], 60))
         else:
             batch = list(rng.choice(AWKWARD, 40)) + \
                 [str(v) for v in rng.integers(0, 10, 30)]
         arr = np.asarray(batch, dtype=object)
-        for acc in (pf, jf, ph, jh):
+        for acc in (jf, jh):
             acc.update(arr)
+        cells = stripped_cells([str(v) for v in batch]) if shared else None
+        d = distinct(cells) if cells is not None else None
+        for acc in (pf, ph):
+            if d is None:
+                acc.update(arr)
+            else:
+                acc.update_distinct(d)
         assert list(pf.counts.items()) == list(jf.counts.items())
         assert pf.top() == jf.top()
     np.testing.assert_array_equal(ph.regs, jh.regs)

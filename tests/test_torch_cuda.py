@@ -71,6 +71,37 @@ def test_tree_traverse_kernel_equals_plain_version(cuda, n_rows, n_cols,
     assert got.shape == (100, n_rows) and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("n_rows", [1, 333, 65536])
+@pytest.mark.parametrize("n_bins,depth,dtype", [
+    (64, 7, np.uint8), (128, 5, np.uint8), (256, 6, np.uint8),
+    (64, 4, np.int32), (200, 2, np.int32), (64, 14, np.uint8)])
+def test_tree_traverse_packed_path_equals_plain_version(cuda, n_rows, n_bins,
+                                                        depth, dtype):
+    """The packed path (masks of <= 256 bins: bitsets of 2, 4 and 8 words
+    a node, uint8 and int32 planes; depth 14, too large to stage, walks
+    its records from L2) equals the plain version bit for bit, given the
+    packed form or packing on the fly, with leaves at every depth, split
+    features past the last column and bins past n_bins (C5)."""
+    n_cols, n_trees = 37, 2 if depth == 14 else 24
+    sf, lm, lv = _forest(n_trees, depth, n_bins, n_cols,
+                         seed=n_rows + n_bins + depth)
+    rng = np.random.default_rng(depth)
+    inner = sf[:, :(1 << depth) - 1]
+    inner[rng.random(inner.shape) < 0.05] = n_cols + 3      # clamps (C5)
+    hi = n_bins + 16 if dtype == np.int32 else min(256, n_bins + 16)
+    bins = rng.integers(0, hi, size=(n_rows, n_cols)).astype(dtype)
+    args = _on(cuda, sf, lm, lv, bins)
+    packed = tq.pack_forest(*args[:3], depth)
+    want = tq.predict_forest_quant_ref(*args, depth)
+    before = tq.predict_forest_quant.launches
+    got = tq.predict_forest_quant(*args, depth, packed=packed)
+    fly = tq.predict_forest_quant(*args, depth)
+    torch.cuda.synchronize()
+    assert tq.predict_forest_quant.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(fly, want)
+    assert torch.equal(tq.forest_walk_ref(packed, args[3]), want)
+
+
 def test_tree_traverse_kernel_rejects_what_it_cannot_take(cuda):
     sf, lm, lv = _on(cuda, *_forest(2, 3, 8, 4, seed=1))
     bins = torch.zeros((5, 4), dtype=torch.uint8, device=cuda)
@@ -82,6 +113,9 @@ def test_tree_traverse_kernel_rejects_what_it_cannot_take(cuda):
         tq.predict_forest_quant(sf, lm, lv, bins, 4)
     with pytest.raises(NotImplementedError):
         tq.predict_forest_quant(sf, lm, lv[..., None], bins, 3)
+    with pytest.raises(ValueError, match="packed forest"):
+        tq.predict_forest_quant(sf, lm, lv, bins, 2, packed=tq.pack_forest(
+            sf, lm, lv, 3))
 
 
 # ------------------------------------------------------------------ B1
@@ -563,6 +597,40 @@ def test_stats_hist_kernel_matches_plain_version(cuda, n, c, b, s):
     assert got.shape == (c, b, s) and torch.equal(got, again)
     assert torch.equal(got[..., :2], want[..., :2])
     assert bool(((got - want).abs() <= 1e-6 * want.abs() + 1e-30).all())
+
+
+@pytest.mark.parametrize("n,c,b,s,n_exact", [
+    (1, 1, 64, 1, 1), (1, 9, 4096, 4, 2), (5000, 1, 4096, 1, 0),
+    (4097, 9, 4096, 3, 1), (30000, 13, 64, 4, 2), (20000, 227, 4096, 4, 2),
+    (20000, 17, 4096, 4, 0), (9000, 6, 4096, 2, 2), (65536, 30, 64, 2, 0)])
+def test_stats_hist_kernel_edges(cuda, n, c, b, s, n_exact):
+    """The cluster design at its edges: C of 1 and not a multiple of the
+    cluster's 8 columns, N = 1, a column with every cell missing and one
+    with ids past B, B = 64 and 4096, S = 1 to 4 with 0 to 2 count
+    channels (one or two columns a CTA), rows split over clusters.  Count
+    channels bit-equal, weighted ones within 1e-6 of the cell's value, a
+    relaunch bit-identical."""
+    from shifu_tpu_torch.ops import stats_hist as sh
+    rng = np.random.default_rng(n + c + s)
+    idx_h = rng.integers(0, b, size=(n, c)).astype(np.int32)
+    idx_h[rng.random((n, c)) < 0.05] = -1
+    idx_h[:, 0] = -1                                  # all missing
+    if c > 2:
+        idx_h[::3, 2] = b + 7                         # past B: nowhere
+    st_h = np.stack([rng.integers(0, 3, n).astype(np.float32)
+                     if k < n_exact else
+                     rng.uniform(-2.0, 3.0, n).astype(np.float32)
+                     for k in range(s)], axis=1)
+    exact = (True,) * n_exact + (False,) * (s - n_exact)
+    idx, st = _on(cuda, idx_h, st_h)
+    got = sh.stats_histograms(idx, st, b, exact)
+    again = sh.stats_histograms(idx, st, b, exact)
+    torch.cuda.synchronize()
+    want = sh.stats_histograms_ref(idx, st, b)
+    assert got.shape == (c, b, s) and torch.equal(got, again)
+    assert torch.equal(got[..., :n_exact], want[..., :n_exact])
+    assert bool(((got - want).abs() <= 1e-6 * want.abs() + 1e-30).all())
+    assert not bool(got[0].any())
 
 
 def test_stats_hist_kernel_never_takes_the_plain_version(cuda, monkeypatch):

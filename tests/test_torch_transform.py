@@ -197,9 +197,30 @@ EDGE_STRINGS = [
 @pytest.mark.parametrize("batch", [
     EDGE_STRINGS, ["12", "-0", "9223372036854775808"], ["-0", "00"],
     ["9223372036854775807"], ["9223372036854775808", "-1"],
-    ["99999999999999999999"], ["1\x00", "2"], ["3", "?"]],
+    ["99999999999999999999"], ["1\x00", "2"], ["3", "?"],
+    ["-0", "1.5"], ["-0", ""], ["-0", "7", "null"], ["-0", "+0", "-5"],
+    ["123456789012345", "-999999999999999", "0"],
+    ["1234567890123456", "-2"], ["12345678901234567", "3"],
+    ["12345678901234567", "0.5"], ["98765432109876543", ""],
+    ["-7", "18446744073709551615"], ["-7", "18446744073709551616"],
+    [" 12 ", "\t-3\n", " 4.5 ", "\u30008\u3000"],
+    ["1e5", "2.5E-3", "-1e+2", "7"], ["inf", "-Infinity", "nan", "NaN", "1"],
+    ["12\x0034", "5"], ["7\x00", "-8"],
+    ["null", "NULL", "?", "*", "~", "#", "", "3", "Null"],
+    [".5", "5.", "+.5", "-0.0", "007", "0.1", "123456.789012345", "-.25"],
+    ["1.234567890123456", "12345678901234.5", "+", "-", ".", "+.", "1.2.3",
+     "--1", "1-", "٣", "1_0"],
+    [f"{v:.6g}" for v in np.random.default_rng(6).normal(0, 50, 500)]
+    + ["", " ", "n/a"]],
     ids=["edges", "uint-batch", "int-batch", "int64-max", "sign-conflict",
-         "beyond-uint64", "nul-int", "int-and-missing"])
+         "beyond-uint64", "nul-int", "int-and-missing", "neg0-beside-float",
+         "neg0-beside-empty", "neg0-beside-missing", "neg0-among-ints",
+         "15-digit-ints", "16-digit-int", "17-digit-int",
+         "17-digit-beside-float", "17-digit-beside-empty",
+         "neg-beside-uint64", "neg-beside-beyond-uint64", "blanks",
+         "exponents", "inf-nan", "nul-digits", "trailing-nul",
+         "missing-list", "plain-decimals", "junk-and-16-digits",
+         "csv-column"])
 def test_parse_numeric_matches_reference(batch):
     mv = JModelConfig().dataSet.missingOrInvalidValues
     for missing in ([], mv):

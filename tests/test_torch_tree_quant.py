@@ -55,6 +55,34 @@ def test_forest_predictions_equal_both_reference_lowerings(n_bins, depth,
     assert np.array_equal(got, kernel)
 
 
+@pytest.mark.parametrize("n_bins,depth,dtype", [
+    (2, 1, np.uint8), (64, 0, np.uint8), (64, 7, np.uint8),
+    (100, 5, np.uint8), (256, 4, np.uint8), (64, 3, np.int32)])
+def test_packed_forest_walks_like_the_reference(n_bins, depth, dtype):
+    """The packed form the CUDA kernel walks (bitset masks of 2, 4 or 8
+    words a node, split features, leaf values: ``pack_forest``), walked
+    by its plain version ``forest_walk_ref``, gives the reference's gather
+    fallback bit for bit, bins past n_bins included; and the port's plain
+    walk where split features run past the last column, which the port
+    clamps (C5; the reference's uint8 and int32 walks disagree there)."""
+    n_cols = 9
+    sf, lm, lv = _forest(5, depth, n_bins, n_cols, seed=depth + n_bins)
+    hi = n_bins + 9 if dtype == np.int32 else min(256, n_bins + 9)
+    bins = torch.from_numpy(np.random.default_rng(n_bins).integers(
+        0, hi, size=(77, n_cols)).astype(dtype))
+    packed = tq.pack_forest(*_torch(sf, lm, lv), depth)
+    assert packed.records.dtype == torch.int32
+    want = np.asarray(jtq.predict_forest_quant(
+        sf, lm, lv, bins.numpy().astype(np.int32), depth, use_kernel=False))
+    assert np.array_equal(tq.forest_walk_ref(packed, bins).numpy(), want)
+    inner = sf[:, :(1 << depth) - 1]
+    inner[np.random.default_rng(depth).random(inner.shape) < 0.1] = n_cols + 2
+    arrays = _torch(sf, lm, lv)
+    assert torch.equal(
+        tq.forest_walk_ref(tq.pack_forest(*arrays, depth), bins),
+        tq.predict_forest_quant_ref(*arrays, bins, depth))
+
+
 def test_out_of_range_bins_follow_the_gather_fallback():
     """Bin ids >= n_bins: the reference's jnp gather clamps them to the
     last mask column, its Pallas one-hot routes them right.  The port (plain

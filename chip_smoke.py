@@ -101,7 +101,19 @@ versions on one card.  Otherwise it
    counts and finite boundaries, and that ``stats`` on ``cpu`` writes the
    same ColumnConfig.json (integers, types, categories and binBoundary
    equal, floats within 1e-5 relative + 1e-4); times the host parse
-   alone.  Then the port's ``NumericAccumulator`` on ``cuda`` at a
+   alone (the CSV's numeric columns binned at maxNumBin 63, the plan's
+   width).  Then the offline path's end on the same set (``e2e_phase``):
+   ``norm`` through the CLI writes the 16,384 x 256 uint8 wire plane,
+   whose bins must equal the serving path's device transform
+   (``FusedTransform.apply_device`` in float64) on the CSV's records,
+   ``train`` on ``cuda`` reads it (GBT, TreeNum 10, MaxDepth 7, Loss log:
+   80 ``hist`` launches), ``eval -new`` and ``eval -run`` score the CSV on
+   ``cuda`` (``tree_traverse`` launched 1 model x 4 chunks times, counted
+   from zero around it) and on ``cpu``: per-row scores within 1e-3
+   (unrounded and in the %.3f score files), AUC within 1e-6, and the
+   card's scores within 1e-3 of ``score_records_offline`` on the same
+   records; prints the walls of ``norm``, ``train`` and ``eval`` and
+   eval's rows/s.  Then the port's ``NumericAccumulator`` on ``cuda`` at a
    deployment's size: 8 weighted chunks of 262,144 rows x 224 columns from
    ``--seed`` (3 resident, 5 overflowing, 8 ``stats_hist`` launches), the
    ms a chunk update and the finalize take and the peak device memory,
@@ -112,8 +124,10 @@ versions on one card.  Otherwise it
    call that computes the same function where there is one, and its bound
    (the larger of the bytes this data makes it move over 3.35 TB/s and its
    integer operations over 67 T/s): ``tree_traverse`` at the serving top
-   rung N=512, at N=65536 and at N=1,048,576 (the train replay's and an
-   eval set's rows) on the forest packed once, as a pinning caller does,
+   rung N=512, at N=16,384 (the e2e eval set), at N=65536 and at
+   N=1,048,576 (the train replay's rows) on the forest packed once, as a
+   pinning caller does, and on the e2e phase's trained forest at the eval
+   chunk's 4,096 rows and the eval set's 16,384,
    ``stats_hist`` at N=262,144 x 224 columns x 4096 buckets with S = 4
    and 2 (``index_add_`` the PyTorch call), split by part (amax, staging
    the ids, adds, flush),
@@ -156,7 +170,8 @@ N_TREES, DEPTH, N_BINS, N_NUM, N_CAT = 100, 7, 64, 224, 32
 N_COLS = N_NUM + N_CAT
 KERNEL_ROWS = (1, 8, 64, 333, 512, 4096)
 RAW_BATCHES = (1, 7, 64, 333, 512, 1500)
-TRAVERSE_ROWS = (512, 65536, 1 << 20)   # serve's top rung, a chunk, replay
+TRAVERSE_ROWS = (512, 16384, 65536, 1 << 20)   # serve's top rung, the
+#                                          e2e eval set, a chunk, replay
 HIST_ROWS = (1, 1000, 65536, 1 << 20)
 HIST_NODES = (1, 2, 32)
 CHUNK_REPEATS = 15                 # timed GBT chunks (the tree is host-bound)
@@ -174,6 +189,7 @@ STATS_CASES = ((262144, N_NUM, STATS_BUCKETS, 4), (262144, N_NUM,
                STATS_BUCKETS, 2), (100003, 13, 64, 4), (100003, 13, 64, 2),
                (4096, 5, STATS_BUCKETS, 2), (1, 7, STATS_BUCKETS, 4))
 CSV_ROWS, CSV_CHUNK = 16384, 4096          # the stats CLI phase's cut
+E2E_EVAL, E2E_AUC_TOL = "e2e", 1e-6        # eval set; AUC card vs CPU
 CHUNK_BYTES = CSV_CHUNK * (5 * N_NUM + 8)  # what a kept chunk holds
 RESIDENT_CHUNKS, RESIDENT_ROWS = 8, 262144
 CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-5, 1e-4  # ColumnConfig floats, card/CPU
@@ -1396,6 +1412,7 @@ def stats_phase(torch, root: str, plan, rng) -> dict:
     ds.dataPath, ds.dataDelimiter, ds.targetColumnName = csv, "|", "tag"
     ds.posTags, ds.negTags, ds.weightColumnName = ["bad"], ["good"], "weight"
     ds.headerPath, ds.headerDelimiter = csv + ".header", "|"
+    mc.stats.maxNumBin = N_BINS - 1         # the plan's 63 value bins
     mc.save(os.path.join(d, "ModelConfig.json"))
     t0 = time.perf_counter()
     if cli.main(["--dir", d, "init"]) != 0:
@@ -1465,7 +1482,170 @@ def stats_phase(torch, root: str, plan, rng) -> dict:
     return {"launches": {"stats_hist": launches}, "wall_s": wall,
             "init_s": init_s, "cpu_wall_s": cpu_wall, "phases_s": phases,
             "parse_s": parse_s, "parse_us_per_cell": parse_s * 1e6 / cells,
-            "float_diff": worst}
+            "float_diff": worst, "dir": d, "csv": csv}
+
+
+def csv_records(csv: str) -> list:
+    """The CSV's rows as JSON records of their string cells, as a client
+    of ``serve`` would send them."""
+    with open(csv + ".header") as f:
+        names = f.read().strip().split("|")
+    with open(csv) as f:
+        return [dict(zip(names, line.rstrip("\n").split("|")))
+                for line in f]
+
+
+def eval_scores(d: str, name: str):
+    """(rows [N, 6 + models] of the ``EvalScore`` file as strings, the
+    ``EvalPerformance.json`` of eval set ``name``)."""
+    ev = os.path.join(d, "evals", name)
+    with open(os.path.join(ev, "EvalScore")) as f:
+        rows = [line.rstrip("\n").split("|") for line in f][1:]
+    perf = {}
+    if os.path.isfile(os.path.join(ev, "EvalPerformance.json")):
+        with open(os.path.join(ev, "EvalPerformance.json")) as f:
+            perf = json.load(f)
+    return np.asarray(rows, dtype=object), perf
+
+
+def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
+    """``norm → train → eval`` through the CLI a user calls, on the stats
+    phase's model set (the CSV_ROWS-row CSV at full width, chunks of
+    CSV_CHUNK rows): the port's own ``norm`` writes the wire plane that
+    ``train`` (GBT, the train phase's TreeNum, MaxDepth and Loss) reads,
+    then ``eval -new`` and ``eval -run`` score the same CSV on the card
+    and on the CPU.  Checks: the plane's bins equal the serving path's
+    device transform (``FusedTransform.apply_device``, float64) on the
+    same records; per-row scores card vs CPU within SCORE_TOL, unrounded
+    and in the score files (%.3f); AUC card vs CPU within E2E_AUC_TOL;
+    the eval scores against ``score_records_offline`` within SCORE_TOL;
+    ``tree_traverse`` launched models x chunks times during the card's
+    ``eval``, counted from zero just before it."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.data import parsepool
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.eval.scorer import Scorer, load_models
+    from shifu_tpu_torch.ops import tree_quant as tq
+    from shifu_tpu_torch.pipeline.evaluate import score_records_offline
+    from shifu_tpu_torch.serve.transform import FusedTransform
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    mc.train.algorithm = Algorithm.GBT
+    mc.train.params = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH,
+                       "Loss": "log", "LearningRate": 0.1}
+    ev = mc.evals[0].dataSet          # `new`'s eval set, on the same CSV
+    ev.dataPath, ev.dataDelimiter = csv, "|"
+    ev.headerPath, ev.headerDelimiter = csv + ".header", "|"
+    mc.save(path)
+    device, cpu_dir = "cuda", d + "_eval_cpu"
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    walls = {}
+
+    def step(name, *argv):
+        t0 = time.perf_counter()
+        if cli.main(["--dir", argv[0], *argv[1:]]) != 0:
+            fail(f"{' '.join(argv[1:])} exited non-zero in {argv[0]}")
+        walls[name] = time.perf_counter() - t0
+
+    try:
+        step("norm", d, "norm")
+        zero_tree_counts()
+        step("train", d, "train", "--device", device)
+        train_launches = read_tree_counts()
+        step("eval_new", d, "eval", "-new", E2E_EVAL)
+        shutil.copytree(d, cpu_dir)
+        tq.predict_forest_quant.launches = 0
+        step("eval", d, "eval", "-run", E2E_EVAL, "--device", device)
+        eval_launches = tq.predict_forest_quant.launches
+        step("eval_cpu", cpu_dir, "eval", "-run", E2E_EVAL, "--device",
+             "cpu")
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+    want = {"hist": TRAIN_TREES * (DEPTH + 1), "leaf_sums": TRAIN_TREES,
+            "hist_batch": 0, "tree_traverse": 0}
+    if train_launches != want:
+        fail(f"e2e train launched {train_launches}, not {want}")
+    n_models = len(load_models(os.path.join(d, "models")))
+    chunks = -(-CSV_ROWS // CSV_CHUNK)
+    if eval_launches != n_models * chunks:
+        fail(f"eval launched tree_traverse {eval_launches} times for "
+             f"{n_models} model(s) x {chunks} chunks")
+
+    clean = Shards.open(os.path.join(d, "tmp", "CleanedData"))
+    plane = clean.load_all()
+    bins = plane["bins"]
+    if not clean.is_wire or bins.shape != (CSV_ROWS, N_COLS) or \
+            bins.dtype != np.uint8:
+        fail(f"norm wrote a {bins.dtype} plane of {bins.shape} "
+             f"(wire {clean.is_wire}), not {CSV_ROWS} x {N_COLS} uint8")
+    recs = csv_records(csv)
+    tf = FusedTransform.from_dir(d, dtype=torch.float64)
+    t0 = time.perf_counter()
+    packed, kept, errors = tf.parse_records(recs)
+    parse_s = time.perf_counter() - t0
+    if errors or len(kept) != CSV_ROWS:
+        fail(f"serve parse rejected {len(errors)} of the CSV's records")
+    _, dev_bins = tf.apply_device(torch.from_numpy(packed).to(device),
+                                  need_x=False)
+    bins_differ = int((dev_bins.cpu().numpy() != bins).sum())
+    if bins_differ:
+        fail(f"the norm plane's bins differ from the serving transform's "
+             f"in {bins_differ} cells")
+
+    card, perf = eval_scores(d, E2E_EVAL)
+    cpu, cpu_perf = eval_scores(cpu_dir, E2E_EVAL)
+    if card.shape != (CSV_ROWS, 6 + n_models) or card.shape != cpu.shape \
+            or not np.array_equal(card[:, :2], cpu[:, :2]):
+        fail(f"EvalScore card {card.shape} and CPU {cpu.shape} disagree "
+             "in shape, tag or weight")
+    card_cpu = float(np.abs(card[:, 2:].astype(float)
+                            - cpu[:, 2:].astype(float)).max())
+    if not card_cpu <= SCORE_TOL + 1e-9:
+        fail(f"eval scores card vs CPU differ by {card_cpu}")
+    # the same rows unrounded: the eval scorer on the plane's bins (the
+    # eval transform's bins, the same code on the same CSV)
+    raw = [Scorer.from_dir(os.path.join(d, "models"), device=dv).score(
+        None, bins).mean for dv in (device, "cpu")]
+    card_cpu_raw = float(np.abs(raw[0] - raw[1]).max())
+    if not card_cpu_raw <= SCORE_TOL:
+        fail(f"unrounded eval scores card vs CPU differ by {card_cpu_raw}")
+    auc_diff = abs(perf["areaUnderRoc"] - cpu_perf["areaUnderRoc"])
+    if not auc_diff <= E2E_AUC_TOL or not 0.6 < perf["areaUnderRoc"] < 1.0:
+        fail(f"eval AUC {perf['areaUnderRoc']} on the card vs "
+             f"{cpu_perf['areaUnderRoc']} on the CPU")
+    t0 = time.perf_counter()
+    offline = score_records_offline(d, recs, device=device)
+    offline_s = time.perf_counter() - t0
+    offline_diff = float(np.abs(card[:, 2].astype(float) - offline).max())
+    if not offline_diff <= SCORE_TOL:
+        fail(f"eval scores vs score_records_offline differ by "
+             f"{offline_diff}")
+    with open(os.path.join(d, "tmp", "profile.json")) as f:
+        profile = json.load(f)
+    log(f"main path (e2e): norm {walls['norm']:.3f} s "
+        f"({profile['NORMALIZE']['phases_s']}) -> {CSV_ROWS} x {N_COLS} "
+        f"uint8 wire plane, bins equal to the serving transform's "
+        f"(its host parse {parse_s:.3f} s); train {walls['train']:.3f} s "
+        f"({TRAIN_TREES} trees, launches {train_launches}); eval -run "
+        f"{walls['eval']:.3f} s on {device} ({CSV_ROWS / walls['eval']:.0f}"
+        f" rows/s, {profile['EVAL']['phases_s']}), {eval_launches} "
+        f"tree_traverse launches ({n_models} model(s) x {chunks} chunks); "
+        f"CPU eval {walls['eval_cpu']:.3f} s; AUC {perf['areaUnderRoc']:.6f}"
+        f" (card - CPU {auc_diff:.3g}); max |card - CPU| score "
+        f"{card_cpu_raw:.3g} ({card_cpu:.3g} in the %.3f score files), "
+        f"max |eval - offline| {offline_diff:.3g} "
+        f"(offline scoring {offline_s:.3f} s) — [{gpu}]")
+    return {"walls_s": walls, "train_launches": train_launches,
+            "eval_launches": eval_launches, "auc": perf["areaUnderRoc"],
+            "auc_card_cpu": auc_diff, "score_card_cpu": card_cpu_raw,
+            "score_card_cpu_files": card_cpu,
+            "score_offline": offline_diff, "rows_per_s":
+            CSV_ROWS / walls["eval"], "serve_parse_s": parse_s,
+            "phases_s": {k: profile[k]["phases_s"]
+                         for k in ("NORMALIZE", "TRAIN", "EVAL")},
+            "bins": bins}
 
 
 def resident_phase(torch, seed: int) -> dict:
@@ -1599,6 +1779,47 @@ def time_kernels(torch, tq, rng, gpu: str) -> dict:
             f"({out[n]['bound_by']}: {need['bytes'] / 1e6:.3f} MB read "
             f"and written, {need['split_steps']} split steps; the whole "
             f"forest and plane would be {whole / 1e6:.3f} MB) — [{gpu}]")
+    return out
+
+
+def time_eval_walk(torch, tq, d: str, bins: np.ndarray, gpu: str) -> dict:
+    """``tree_traverse`` at the e2e phase's eval shapes: the trained GBT's
+    forest, packed once as the eval scorer packs it, over the norm plane's
+    bins in one eval chunk (CSV_CHUNK rows) and the whole eval set
+    (CSV_ROWS), held bit for bit to the plain version and timed beside it
+    and its bound, as ``time_kernels`` does."""
+    from shifu_tpu_torch.eval.scorer import load_models
+    model = load_models(os.path.join(d, "models"))[0]
+    dev = torch.device("cuda")
+    forest = model.quant_arrays(dev)
+    packed = model.quant_packed(dev)
+    depth = model.trees[0].depth
+    out = {}
+    for n in (CSV_CHUNK, CSV_ROWS):
+        b = torch.from_numpy(np.ascontiguousarray(bins[:n])).to(dev)
+        got = tq.predict_forest_quant(*forest, b, depth, packed=packed)
+        want = tq.predict_forest_quant_ref(*forest, b, depth)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"tree_traverse != plain version on the eval forest at "
+                 f"N={n}")
+        ms = device_ms(torch, lambda: tq.predict_forest_quant(
+            *forest, b, depth, packed=packed))
+        plain_ms = device_ms(torch, lambda: tq.predict_forest_quant_ref(
+            *forest, b, depth), launches=3, repeats=5)
+        need = tq.traverse_bytes(forest[0], forest[1], b, depth)
+        bytes_ms = need["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = need["split_steps"] * OPS_PER_LEVEL / INT_OPS_PER_S * 1e3
+        out[n] = {"ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms
+                  else "operations", "max_abs_err": 0.0,
+                  "shape": f"T={forest[0].shape[0]} depth={depth} N={n} "
+                           f"C={b.shape[1]} B={forest[1].shape[2]} uint8"}
+        log(f"tree_traverse on the eval forest ({out[n]['shape']}, "
+            f"bit-equal to the plain version): kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {out[n]['bound_ms']:.6f} ms "
+            f"({out[n]['bound_by']}) — [{gpu}]")
     return out
 
 
@@ -1968,6 +2189,9 @@ def main() -> None:
         trained = train_phase(torch, root, serve_root, plan, path_rng)
         forest = rf_phase(torch, root, serve_root, trained.pop("plane"))
         stats = stats_phase(torch, root, plan, path_rng)
+        e2e = e2e_phase(torch, stats["dir"], stats["csv"], gpu)
+        eval_times = time_eval_walk(torch, tq, stats["dir"],
+                                    e2e.pop("bins"), gpu)
     resident = resident_phase(torch, args.seed)
     times = time_kernels(torch, tq, rng, gpu)
     hist_times = time_hist(torch, rng, gpu)
@@ -1992,6 +2216,7 @@ def main() -> None:
         "launches": served["launches"]["tree_traverse"],
         "train_replay_launches":
             trained["replay"]["launches"]["tree_traverse"],
+        "eval_launches": e2e["eval_launches"],
         "max_abs_err": errs["tree_traverse"],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -1999,6 +2224,7 @@ def main() -> None:
         **{f"at_{n}_rows": {k: times[n][k] for k in
                             ("ms", "plain_ms", "bound_ms", "bound_by")}
            for n in TRAVERSE_ROWS[1:]},
+        **{f"eval_forest_at_{n}_rows": eval_times[n] for n in eval_times},
         "gpu": gpu}, {
         "name": "hist", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/hist.cu",
@@ -2073,6 +2299,12 @@ def main() -> None:
         f" us a cell); resident accumulator {resident['update_ms_median']:.3f}"
         f" ms a 262,144-row chunk, finalize {resident['finalize_ms']:.3f} ms, "
         f"peak {resident['peak_bytes'] / 2**30:.3f} GiB — [{gpu}]")
+    w = e2e["walls_s"]
+    log(f"e2e: {CSV_ROWS} rows x {N_COLS + 2} fields through norm "
+        f"{w['norm']:.3f} s, train {w['train']:.3f} s, eval -run "
+        f"{w['eval']:.3f} s ({e2e['rows_per_s']:.0f} rows/s, "
+        f"{e2e['eval_launches']} tree_traverse launches), AUC "
+        f"{e2e['auc']:.6f} — [{gpu}]")
     log(f"served {served['batches']} batches; max |card - cpu| "
         f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} GBT and "
         f"{RF_TREES} RF trees; "

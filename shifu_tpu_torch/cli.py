@@ -1,17 +1,25 @@
 """shifu-tpu-torch CLI — the port's counterpart of ``shifu_tpu.cli``.
 
-The port carries the ``new``, ``init``, ``stats``, ``train`` and
-``serve`` commands.  ``-Dkey=value`` properties go to the Environment tier
-as in the reference; ``--device`` picks where the port runs (default
-``cuda``; ``cpu`` runs the plain PyTorch versions).  ``new`` and ``init``
-run on the host.
+The port carries the ``new``, ``init``, ``stats``, ``norm``, ``train``,
+``eval`` and ``serve`` commands: the offline path ``new → init → stats →
+norm → train → eval`` of a GBT/RF/DT model set, and serving.
+``-Dkey=value`` properties go to the Environment tier as in the
+reference; ``--device`` picks where the port runs (default ``cuda``;
+``cpu`` runs the plain PyTorch versions).  ``new``, ``init`` and ``norm``
+run on the host (norm's transform is numpy, as the reference's is), and
+so do eval's ``-new``, ``-delete``, ``-list`` and ``-norm``; eval's
+scoring walks the forests with the ``tree_traverse`` kernel on the card.
 
     python -m shifu_tpu_torch.cli --dir <base> new <name>
     python -m shifu_tpu_torch.cli --dir <modelset> init [-model]
     python -m shifu_tpu_torch.cli --dir <modelset> stats [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> norm [-shuffle]
+    python -m shifu_tpu_torch.cli --dir <modelset> train [-resume] [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> eval -new <evalset>
+    python -m shifu_tpu_torch.cli --dir <modelset> eval [-run [<evalset>]] [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> eval -score [<evalset>] [-nosort]
     python -m shifu_tpu_torch.cli --dir <modelset> serve [--port N]
     python -m shifu_tpu_torch.cli --dir <modelset> serve --selfcheck 4 --device cpu
-    python -m shifu_tpu_torch.cli --dir <modelset> train [-resume] [--device cpu]
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shifu-tpu-torch",
         description="PyTorch/CUDA port of shifu-tpu (new, init, stats, "
-        "GBT/RF/DT train, serve)")
+        "norm, GBT/RF/DT train, eval, serve)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
@@ -57,6 +65,31 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("stats", help="per-column stats + binning (fine "
                         "histograms on the device)")
+    _device_arg(sp)
+
+    sp = sub.add_parser("norm", aliases=["normalize", "transform"],
+                        help="normalize the training data into the norm "
+                        "and clean (wire) planes, on the host")
+    sp.add_argument("-shuffle", dest="shuffle", action="store_true")
+
+    sp = sub.add_parser("eval", help="evaluate the models on eval sets "
+                        "(scoring on the device)")
+    sp.add_argument("-run", dest="run_eval", metavar="EVALSET", nargs="?",
+                    const="")
+    sp.add_argument("-score", dest="score", metavar="EVALSET", nargs="?",
+                    const="")
+    sp.add_argument("-nosort", dest="nosort", action="store_true",
+                    help="-score: keep the input row order (default sorts "
+                    "the score file by the selected score)")
+    sp.add_argument("-perf", dest="perf", metavar="EVALSET", nargs="?",
+                    const="")
+    sp.add_argument("-confmat", dest="confmat", metavar="EVALSET",
+                    nargs="?", const="")
+    sp.add_argument("-norm", dest="norm_eval", metavar="EVALSET", nargs="?",
+                    const="")
+    sp.add_argument("-new", dest="new_eval", metavar="EVALSET")
+    sp.add_argument("-delete", dest="delete_eval", metavar="EVALSET")
+    sp.add_argument("-list", dest="list", action="store_true")
     _device_arg(sp)
 
     sp = sub.add_parser("serve", help="online scoring server: the trained "
@@ -108,6 +141,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.command == "stats":
         from .pipeline.stats import StatsProcessor
         return StatsProcessor(args.dir, device=args.device).run()
+    if args.command in ("norm", "normalize", "transform"):
+        from .pipeline.norm import NormalizeProcessor
+        return NormalizeProcessor(args.dir,
+                                  params={"shuffle": args.shuffle}).run()
+    if args.command == "eval":
+        from .pipeline.evaluate import EvalProcessor
+        params = {k: getattr(args, k) for k in (
+            "run_eval", "score", "nosort", "perf", "confmat", "norm_eval",
+            "new_eval", "delete_eval", "list")}
+        return EvalProcessor(args.dir, params=params,
+                             device=args.device).run()
     if args.command == "serve":
         from .serve.server import run_serve
         return run_serve(args.dir, port=args.serve_port,

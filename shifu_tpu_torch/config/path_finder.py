@@ -1,7 +1,8 @@
 """PathFinder — where each step reads and writes inside a model-set
 directory; the port's copy of the paths ``shifu_tpu.config.path_finder``
-gives the init, stats and train steps (reference ``fs/PathFinder.java``),
-so both packages read and write the same files."""
+gives the init, stats, norm, train and eval steps (reference
+``fs/PathFinder.java``), so both packages read and write the same
+files."""
 
 from __future__ import annotations
 
@@ -74,6 +75,22 @@ class PathFinder:
     @property
     def progress_path(self) -> str:
         return os.path.join(self.tmp_dir, "train.progress")
+
+    # ---------------------------------------------------------------- eval
+    def eval_dir(self, eval_name: str) -> str:
+        return os.path.join(self.root, "evals", eval_name)
+
+    def eval_score_path(self, eval_name: str) -> str:
+        return os.path.join(self.eval_dir(eval_name), "EvalScore")
+
+    def eval_confusion_path(self, eval_name: str) -> str:
+        return os.path.join(self.eval_dir(eval_name), "EvalConfusionMatrix")
+
+    def eval_performance_path(self, eval_name: str) -> str:
+        return os.path.join(self.eval_dir(eval_name), "EvalPerformance.json")
+
+    def eval_norm_path(self, eval_name: str) -> str:
+        return os.path.join(self.eval_dir(eval_name), "EvalNormalized")
 
     @property
     def backup_dir(self) -> str:

@@ -1,5 +1,5 @@
 """Per-step semantic validation of ModelConfig — the port's copy of
-``ModelStep`` and the INIT, STATS and TRAIN rules of
+``ModelStep`` and the INIT, STATS, NORMALIZE, TRAIN and EVAL rules of
 ``shifu_tpu.config.validator.probe`` (reference ``ModelInspector.java``).
 The declarative per-field and train#params schema
 (``shifu_tpu.config.meta``) is not ported yet, so a mistyped field or
@@ -96,12 +96,14 @@ def _check_column_conf(mc: ModelConfig, model_set_dir: str,
 
 def probe(mc: ModelConfig, step: ModelStep, model_set_dir: str = ".") -> None:
     """Raise :class:`ValidationError` listing every problem of ``mc`` for
-    ``step``.  The INIT, STATS and TRAIN rules are ported."""
+    ``step``.  The INIT, STATS, NORMALIZE, TRAIN and EVAL rules are
+    ported."""
     problems: List[str] = []
     if not mc.basic.name:
         problems.append("basic.name must not be empty")
     ds = mc.dataSet
-    if step in (ModelStep.INIT, ModelStep.STATS, ModelStep.TRAIN):
+    if step in (ModelStep.INIT, ModelStep.STATS, ModelStep.NORMALIZE,
+                ModelStep.TRAIN):
         if not ds.dataPath:
             problems.append("dataSet.dataPath must be set")
         elif step == ModelStep.INIT:
@@ -163,5 +165,23 @@ def probe(mc: ModelConfig, step: ModelStep, model_set_dir: str = ".") -> None:
                 tr.algorithm != Algorithm.SVM:
             problems.append("Loss 'hinge' is the SVM objective — use "
                             "algorithm SVM (or log/squared/absolute)")
+    if step == ModelStep.EVAL:
+        if not mc.evals:
+            problems.append("no eval sets configured")
+        for e in mc.evals:
+            if not e.name:
+                problems.append("eval set without a name")
+            if not e.dataSet.dataPath:
+                problems.append(f"eval {e.name}: dataSet.dataPath must be set")
+            else:
+                _check_data_path(e.dataSet.dataPath, model_set_dir,
+                                 f"eval {e.name}: dataPath", problems)
+            _check_name_file(e.scoreMetaColumnNameFile, model_set_dir,
+                             f"eval {e.name}: scoreMetaColumnNameFile",
+                             problems)
+            if e.performanceBucketNum is not None and \
+                    not (0 < e.performanceBucketNum <= 1000):
+                problems.append(f"eval {e.name}: performanceBucketNum must "
+                                "be in (0, 1000]")
     if problems:
         raise ValidationError(problems)

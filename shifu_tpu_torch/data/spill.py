@@ -8,8 +8,8 @@ Layout under ``<CleanedData>/.spill_cache/spill-<keys>/``::
                        per-shard rows, bytes, source signature
     <key>.raw          rows-major flat array
 
-:class:`WireWriter` is norm's direct-to-wire output (the port's tests and
-``chip_smoke.py`` write planes with it); :func:`open_spill` and
+:class:`WireWriter` is norm's direct-to-wire output (``chip_smoke.py``
+also writes its generated training plane with it); :func:`open_spill` and
 :class:`SpillReader` are how ``train`` reads one, as ``np.memmap`` views
 that go to the device without a host copy.
 """
@@ -50,10 +50,10 @@ def wire_dir(shards_dir: str, keys: Sequence[str]) -> str:
 class WireWriter:
     """Per-shard durable wire writer: the manifest is re-committed after
     every shard append, so the committed prefix always matches the shards
-    appended; a torn append leaves raw-file tail bytes past the manifest's
-    row count, which readers ignore.  Dtypes and trailing shapes are fixed
-    up front.  Write failures raise.  (The reference's ``resume``, which
-    adopts an interrupted plane's prefix, comes with the norm slice.)"""
+    appended (and norm's journal); a torn append leaves raw-file tail
+    bytes past the manifest's row count, which readers ignore and
+    :meth:`resume` truncates.  Dtypes and trailing shapes are fixed up
+    front.  Write failures raise."""
 
     def __init__(self, directory: str, keys: Sequence[str],
                  dtypes: Dict[str, np.dtype], trailing: Dict[str, tuple],
@@ -76,6 +76,55 @@ class WireWriter:
         return int(np.prod(self._shapes[key] or (1,), dtype=np.int64)) \
             * self._dtypes[key].itemsize
 
+    @property
+    def n_shards(self) -> int:
+        return len(self._shard_rows)
+
+    @classmethod
+    def resume(cls, directory: str, keys: Sequence[str],
+               dtypes: Dict[str, np.dtype], trailing: Dict[str, tuple],
+               source_sig, n_shards: int) -> Optional["WireWriter"]:
+        """Adopt the committed prefix of an interrupted plane: the manifest
+        must cover >= ``n_shards`` shards of this exact source and layout;
+        the raw files are truncated to exactly those rows (dropping the
+        tail bytes a mid-append crash left) and the returned writer is
+        positioned after them.  None = unusable, rebuild from scratch."""
+        try:
+            with open(os.path.join(directory, MANIFEST)) as f:
+                man = json.load(f)
+        except (OSError, ValueError):
+            return None
+        if (man.get("version") != SPILL_FORMAT_VERSION or man.get("aborted")
+                or list(man.get("keys") or []) != list(keys)
+                or man.get("source") != source_sig
+                or len(man.get("shard_rows") or []) < n_shards):
+            return None
+        w = cls(directory, keys, dtypes, trailing, source_sig)
+        try:
+            for k in keys:
+                if np.dtype(man["dtypes"][k]) != w._dtypes[k] or \
+                        tuple(man["shapes"][k]) != w._shapes[k]:
+                    return None
+        except KeyError:
+            return None
+        w._shard_rows = [int(x) for x in man["shard_rows"][:n_shards]]
+        w._rows = sum(w._shard_rows)
+        try:
+            for k in keys:
+                need = w._rows * w._row_bytes(k)
+                path = w._raw_path(k)
+                if os.path.getsize(path) < need:
+                    w.close()
+                    return None
+                with open(path, "r+b") as f:
+                    f.truncate(need)
+                w._files[k] = open(path, "ab")
+            w._commit_manifest()       # re-pin to the adopted prefix
+        except OSError:
+            w.close()
+            return None
+        return w
+
     def append(self, part: Dict[str, np.ndarray]) -> None:
         """Append one shard's columns and durably commit the manifest."""
         if not self._files:
@@ -92,6 +141,20 @@ class WireWriter:
             np.ascontiguousarray(a).tofile(self._files[k])
         self._rows += n
         self._shard_rows.append(n)
+        self._commit_manifest()
+
+    def truncate_to(self, n_shards: int) -> None:
+        """Drop every shard past ``n_shards`` (a resumed shard's replay
+        diverged from the journal: it and everything after re-run)."""
+        self._shard_rows = self._shard_rows[:n_shards]
+        self._rows = sum(self._shard_rows)
+        for k in self.keys:
+            f = self._files.get(k)
+            if f is not None:
+                f.close()
+            with open(self._raw_path(k), "r+b") as g:
+                g.truncate(self._rows * self._row_bytes(k))
+            self._files[k] = open(self._raw_path(k), "ab")
         self._commit_manifest()
 
     def finish(self) -> None:

@@ -1,7 +1,14 @@
-"""Scorer — the port of ``shifu_tpu.eval.scorer`` for tree ensembles.
+"""Scorer + ModelRunner — the port of ``shifu_tpu.eval.scorer`` for tree
+ensembles (reference ``core/Scorer.java:53``, ``core/ModelRunner.java:54``).
 
-Batched over rows x models like the reference (``core/Scorer.java:53``);
-the per-model scores are scaled by ``SCORE_SCALE`` and aggregated per row.
+Batched over rows x models like the reference: the bins go to the scoring
+device once a batch, in the narrowest dtype the ensemble admits (uint8
+when every forest has <= 256 bins), and each forest walks them with
+``ops/tree_quant.predict_forest_quant`` — the ``tree_traverse`` kernel on
+a CUDA device (it launches or raises), its plain version on the CPU.  The
+per-model scores are scaled by ``SCORE_SCALE`` and aggregated per row.
+Multiclass scoring (``score_classes``) waits for multiclass trees (ROADMAP
+Queue 1 item 6); NN/LR/WDL/SVM model files raise in ``models.load_any``.
 """
 
 from __future__ import annotations
@@ -9,9 +16,10 @@ from __future__ import annotations
 import glob
 import os
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .. import resolve_device
 from ..models import load_any
@@ -49,6 +57,20 @@ class CaseScoreResult:
     min: np.ndarray
     median: np.ndarray
 
+    def select(self, selector: str) -> np.ndarray:
+        s = (selector or "mean").lower()
+        if s in ("mean", "avg"):
+            return self.mean
+        if s == "max":
+            return self.max
+        if s == "min":
+            return self.min
+        if s == "median":
+            return self.median
+        if s.startswith("model"):
+            return self.scores[:, int(s[5:])]
+        raise ValueError(f"unknown score selector {selector!r}")
+
 
 class Scorer:
     """Multi-model batch scorer over binned rows (tree ensembles)."""
@@ -68,11 +90,34 @@ class Scorer:
 
     def score(self, x: Optional[np.ndarray],
               bins: np.ndarray) -> CaseScoreResult:
-        """Tree models consume the binned matrix; ``x`` is unused until
-        models that read normalized floats are ported."""
-        cols = [m.compute(bins, device=self.device)[:, 0]
-                for m in self.models]
+        """Tree models consume the binned matrix, which goes to the device
+        once in the ensemble's wire dtype (the reference's
+        ``ensemble_bins_dtype``); ``x`` is unused until models that read
+        normalized floats are ported."""
+        from ..ops.tree_quant import ensemble_bins_dtype
+        b = torch.from_numpy(np.ascontiguousarray(bins)).to(
+            self.device, ensemble_bins_dtype(self.models))
+        cols = [m.compute(b)[:, 0] for m in self.models]
         raw = np.stack(cols, axis=1) * np.float32(self.scale)
         return CaseScoreResult(scores=raw, mean=raw.mean(axis=1),
                                max=raw.max(axis=1), min=raw.min(axis=1),
                                median=np.median(raw, axis=1))
+
+
+class ModelRunner:
+    """raw chunk -> normalize -> score (reference ``ModelRunner.compute``,
+    also the engine inside ``EvalScoreUDF``)."""
+
+    def __init__(self, model_config, column_configs, models: Sequence,
+                 for_eval_set: Optional[int] = None,
+                 scale: float = SCORE_SCALE, device=None):
+        from ..data.transform import DatasetTransformer
+        self.transformer = DatasetTransformer(model_config, column_configs,
+                                              for_eval_set=for_eval_set)
+        self.scorer = Scorer(models, scale, device=device)
+
+    def compute(self, chunk) -> Dict[str, object]:
+        tc = self.transformer.transform(chunk)
+        res = self.scorer.score(tc.x, bins=tc.bins)
+        return {"result": res, "target": tc.target, "weight": tc.weight,
+                "n": tc.n, "bins": tc.bins}

@@ -6,13 +6,14 @@ transient ``OSError``s with exponential backoff and jitter."""
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import logging
 import os
 import random
 import time
-from typing import Any, Callable, TypeVar
+from typing import Any, Callable, Iterator, TypeVar
 
 import numpy as np
 
@@ -68,3 +69,26 @@ def atomic_savez(path: str, **arrays: np.ndarray) -> None:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     atomic_write_bytes(path, buf.getvalue())
+
+
+@contextlib.contextmanager
+def atomic_open(path: str, mode: str = "w", **kwargs) -> Iterator[Any]:
+    """Streaming writer with the temp + ``os.replace`` discipline: a clean
+    exit commits the file into place, an exception unlinks the temp, so
+    the final path is never observed half-written."""
+    if "r" in mode or "a" in mode or "+" in mode:
+        raise ValueError(f"atomic_open is write-only (mode={mode!r})")
+    tmp = _tmp_path(path)
+    f = open(tmp, mode, **kwargs)
+    try:
+        yield f
+    except BaseException:
+        f.close()
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+    else:
+        f.close()
+        os.replace(tmp, path)

@@ -9,10 +9,10 @@ reads the other's journals).
 - steps with resumable sub-work (norm shards, stats chunks) record one
   **item** per committed unit with the exact byte sizes of its files;
   downstream preconditions (train needs norm) check journal completeness
-  and those sizes, not mere file existence.  Writing items, and resuming
-  from them, comes with the norm slice and the stats checkpoints (ROADMAP
-  Queue 1 items 2 and 3); stats binds its sweep signature
-  (:meth:`StepJournal.arm`) and train only reads items.
+  and those sizes, not mere file existence.  Norm writes items and resumes
+  from them; stats binds its sweep signature without resuming (its
+  mid-sweep checkpoints are not ported, ROADMAP Queue 1 item 2) and train
+  only reads items.
 
 A missing journal means "pre-journal artifacts, trust the files".
 """
@@ -21,10 +21,13 @@ from __future__ import annotations
 
 import json
 import os
+import logging
 import time
-from typing import Optional
+from typing import Dict, List, Optional
 
 from ..ioutil import atomic_write_json
+
+log = logging.getLogger(__name__)
 
 JOURNAL_VERSION = 1
 
@@ -87,14 +90,42 @@ class StepJournal:
             self.doc.setdefault("meta", {}).update(meta)
         self._flush()
 
-    def arm(self, signature: dict) -> None:
-        """Bind this run to ``signature``.  Items of an earlier run are
-        dropped: resuming from them is not ported yet."""
+    # ------------------------------------------------------------- items
+    def arm(self, signature: dict, resume: bool = True) -> Dict[str, dict]:
+        """Bind this run to ``signature`` and return the verified resume
+        items of an interrupted previous run (empty when the previous run
+        completed, the signature changed, verification fails, or
+        ``resume=False``).  Unverifiable items are dropped from the
+        journal so the caller's view and the journal agree."""
+        prev_sig = self.doc.get("signature")
+        prev_items = dict(self.doc.get("items") or {})
+        # only a TORN previous run resumes; a completed one re-runs whole
+        resumable = (resume and prev_sig == signature
+                     and self.was_torn and prev_items)
+        kept: Dict[str, dict] = {}
+        if resumable:
+            for name, meta in prev_items.items():
+                if self.verify_item(meta):
+                    kept[name] = meta
+                else:
+                    log.warning("journal %s: item %r fails verification "
+                                "(torn artifact) — its unit will re-run",
+                                self.step, name)
         self.doc["signature"] = signature
-        self.doc["items"] = {}
+        self.doc["items"] = kept
+        self._flush()
+        return kept
+
+    def commit_item(self, name: str, files: Optional[List[str]] = None,
+                    **meta) -> None:
+        """Record one committed unit of work; ``files`` are pinned with
+        their exact sizes (the torn-artifact check on resume)."""
+        if files:
+            meta["files"] = [[os.path.relpath(p, self.root),
+                              os.path.getsize(p)] for p in files]
+        self.doc["items"][name] = meta
         self._flush()
 
-    # ------------------------------------------------------------- items
     def verify_item(self, meta: dict) -> bool:
         for rel, size in meta.get("files") or []:
             p = os.path.join(self.root, rel)

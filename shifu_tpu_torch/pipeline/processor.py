@@ -27,6 +27,18 @@ from .journal import StepJournal
 log = logging.getLogger(__name__)
 
 
+def telemetry_requested() -> bool:
+    """Whether the caller switched the reference's telemetry on (env
+    ``SHIFU_TPU_TELEMETRY`` or property ``shifu.telemetry``): the steps
+    whose telemetry-only parts are not ported raise then."""
+    from ..config import environment
+    v = os.environ.get("SHIFU_TPU_TELEMETRY")
+    if v is None:
+        v = environment.get_property("shifu.telemetry") \
+            or environment.get_property("shifu.tpu.telemetry")
+    return str(v).strip().lower() in ("1", "true", "yes", "on")
+
+
 class BasicProcessor:
     """Shared step setup/teardown (reference ``BasicModelProcessor.java``).
     ``device`` is where the step computes: CUDA unless the caller names
@@ -117,6 +129,9 @@ class BasicProcessor:
             return p
         return p if os.path.isabs(p) else os.path.normpath(
             os.path.join(self.dir, p))
+
+    def save_model_config(self) -> None:
+        self.model_config.save(self.paths.model_config_path)
 
     def save_column_configs(self) -> None:
         save_column_configs(self.column_configs,

@@ -73,8 +73,9 @@ class StatsProcessor(BasicProcessor):
         cat_acc = CategoricalAccumulator()
         rate = float(mc.stats.sampleRate)
         fused = environment.get_bool("shifu.stats.onePass", True)
-        # the sweep's identity, kept in the STATS journal
-        self.journal.arm(self._sweep_signature(source, fused))
+        # the sweep's identity, kept in the STATS journal (no mid-sweep
+        # checkpoints, so nothing to resume from)
+        self.journal.arm(self._sweep_signature(source, fused), resume=False)
         missing_set = {m.strip().lower() for m in extractor.missing_values}
 
         def cat_update(ex, tgt) -> None:

@@ -2,8 +2,9 @@
 (B4 ``tree_traverse``, B1 ``hist``, B2 ``hist_batch``, B3 ``stats_hist``)
 against its plain PyTorch version on the same numpy-seeded inputs (B2 also
 against B1 tree by tree); tree growth, Random Forest bags and the stats
-accumulator on the card against the CPU; and GBT and RF chunks run under
-``torch.cuda.set_sync_debug_mode("error")``.
+accumulator on the card against the CPU; GBT and RF chunks run under
+``torch.cuda.set_sync_debug_mode("error")``; and the port's ``eval`` on
+the card against the CPU, with its ``tree_traverse`` launch count.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -680,3 +681,75 @@ def test_numeric_accumulator_on_the_card_matches_the_cpu(cuda, budget):
         assert np.array_equal(ac[j][:, :2], ag[j][:, :2])
         assert np.allclose(ac[j], ag[j], rtol=1e-6, atol=1e-9)
     assert np.array_equal(pc, pg) and np.array_equal(dc, dg)
+
+
+@pytest.fixture
+def fraud_set(tmp_path, monkeypatch):
+    """``new → init → stats → norm → train`` of the port alone over the
+    fraud-style CSV of ``examples/make_fraud_data.py`` (4,000 rows, GBT of
+    5 depth-4 trees on the card), read in chunks of 1,000 rows."""
+    import importlib.util
+    import os
+
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.data import parsepool
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "make_fraud_data", os.path.join(here, "..", "examples",
+                                        "make_fraud_data.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    csv_path = mod.make(str(tmp_path / "data"), n=4000)
+    monkeypatch.setattr(parsepool, "CHUNK_ROWS", 1000)
+    assert cli.main(["--dir", str(tmp_path), "new", "fraud"]) == 0
+    d = str(tmp_path / "fraud")
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    ds = mc.dataSet
+    ds.dataPath, ds.dataDelimiter, ds.targetColumnName = csv_path, "|", "tag"
+    ds.posTags, ds.negTags, ds.weightColumnName = ["bad"], ["good"], "weight"
+    mc.evals[0].dataSet.dataPath = csv_path
+    mc.train.algorithm = Algorithm.GBT
+    mc.train.params = {"TreeNum": 5, "MaxDepth": 4, "Loss": "log",
+                       "LearningRate": 0.1}
+    mc.save(os.path.join(d, "ModelConfig.json"))
+    for argv in (["init"], ["stats"], ["norm"], ["train"]):
+        assert cli.main(["--dir", d, *argv]) == 0, argv
+    return d
+
+
+def test_eval_on_the_card_matches_the_cpu(cuda, fraud_set, tmp_path):
+    """``eval -run`` on the card launches ``tree_traverse`` once per model
+    per chunk (none on the CPU) and gives the CPU's scores (within 1e-3 on
+    the 0-1000 scale after the %.3f score file) and AUC (within 1e-6)."""
+    import csv
+    import json
+    import os
+    import shutil
+
+    from shifu_tpu_torch import cli
+    cpu_set = str(tmp_path / "cpu")
+    shutil.copytree(fraud_set, cpu_set)
+    # 1 model x 5 chunks: the file's header line shortens the first
+    # 1,000-row chunk by one (pandas' chunking), so a fifth holds one row
+    before = tq.predict_forest_quant.launches
+    assert cli.main(["--dir", fraud_set, "eval", "-run"]) == 0
+    assert tq.predict_forest_quant.launches - before == 5
+    assert cli.main(["--dir", cpu_set, "eval", "-run", "--device",
+                     "cpu"]) == 0
+    assert tq.predict_forest_quant.launches - before == 5
+    out = []
+    for d in (fraud_set, cpu_set):
+        ev = os.path.join(d, "evals", "Eval1")
+        with open(os.path.join(ev, "EvalScore")) as f:
+            rows = list(csv.reader(f, delimiter="|"))[1:]
+        with open(os.path.join(ev, "EvalPerformance.json")) as f:
+            out.append((np.asarray(rows, dtype=object), json.load(f)))
+    (card, pc), (cpu, pp) = out
+    assert len(card) == len(cpu) == 4000
+    np.testing.assert_array_equal(card[:, :2], cpu[:, :2])
+    diff = np.abs(card[:, 2:].astype(float) - cpu[:, 2:].astype(float))
+    assert diff.max() <= 1e-3 + 1e-9
+    assert abs(pc["areaUnderRoc"] - pp["areaUnderRoc"]) <= 1e-6
+    assert pc["areaUnderRoc"] > 0.8

@@ -2,6 +2,7 @@
 """Host walls of ``new → init → stats`` in both packages, on one CSV.
 
     python3 tools/port_host_walls.py [--seed N] [--out FILE] [--of DIR]
+    python3 tools/port_host_walls.py --parse [--seed N] [--out FILE]
 
 Writes the chip smoke's stats CSV (``chip_smoke.py::write_model_set`` for
 the column plan, ``write_stats_csv`` for 16,384 rows x 258 fields, both
@@ -18,6 +19,14 @@ list and ``binBoundary`` equal, floats within 1e-5 relative + 1e-4
 f32 moment differences of 1e-7 into large relative ones).  Prints
 one JSON line with the four walls.  Runs on the CPU: these are host walls,
 not device numbers.
+
+With ``--parse`` it times only the port's parse pool on the same CSV
+after the port's ``init`` and ``stats --device cpu``: ``iter_extracted``
+over the model inputs in chunks of 4,096 rows, inline
+(``shifu.ingest.parseWorkers=0``) and with 1 and 8 parse threads (the
+default is ``min(cores, 8)``), in turns 0, 1, 8, 8, 1, 0, each in the same
+process, and checks that every turn yields the same rows.  It times this
+checkout's parse pool only, so it does not take ``--of``.
 """
 
 from __future__ import annotations
@@ -76,13 +85,60 @@ def same(got, want, where: str) -> None:
         sys.exit(f"ColumnConfig {where}: {got!r} vs {want!r}")
 
 
+def parse_turns(root: str, csv: str) -> dict:
+    """The port's parse pool inline and with 1 and 8 threads, in turns
+    (see the module docstring); seconds per turn."""
+    import time
+
+    from shifu_tpu_torch.config import (ModelConfig, environment,
+                                        load_column_configs)
+    from shifu_tpu_torch.data.parsepool import iter_extracted
+    from shifu_tpu_torch.data.reader import DataSource
+    from shifu_tpu_torch.data.transform import DatasetTransformer
+    base = os.path.join(root, "parse")
+    os.makedirs(base)
+    run_step("shifu_tpu_torch", ["--dir", base, "new", "set"])
+    d = os.path.join(base, "set")
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    ds = mc.dataSet
+    ds.dataPath, ds.dataDelimiter, ds.targetColumnName = csv, "|", "tag"
+    ds.posTags, ds.negTags, ds.weightColumnName = ["bad"], ["good"], "weight"
+    ds.headerPath, ds.headerDelimiter = csv + ".header", "|"
+    mc.save(path)
+    for argv in (["init"], ["stats", "--device", "cpu"]):
+        run_step("shifu_tpu_torch", ["--dir", d, *argv])
+    mc = ModelConfig.load(path)
+    tf = DatasetTransformer(mc, load_column_configs(
+        os.path.join(d, "ColumnConfig.json")))
+    out, rows = {}, set()
+    for w in (0, 1, 8, 8, 1, 0):
+        environment.set_property("shifu.ingest.parseWorkers", str(w))
+        src = DataSource(csv, "|", header_path=csv + ".header")
+        t0 = time.perf_counter()
+        n = sum(ex.n for _, ex in iter_extracted(src, tf.extractor,
+                                                 chunk_rows=4096))
+        out.setdefault(f"parse_s workers={w}", []).append(
+            time.perf_counter() - t0)
+        rows.add(n)
+    if rows != {chip_smoke.CSV_ROWS}:
+        sys.exit(f"parse turns yielded {sorted(rows)} rows")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the JSON line here")
     ap.add_argument("--of", default=REPO, metavar="DIR",
                     help="the checkout whose packages run (default: this one)")
+    ap.add_argument("--parse", action="store_true",
+                    help="only time the port's parse pool, inline against "
+                    "1 and 8 threads")
     args = ap.parse_args()
+    if args.parse and os.path.abspath(args.of) != REPO:
+        ap.error("--parse times this checkout's parse pool; it takes no "
+                 "--of")
     repo = os.path.abspath(args.of)
     walls = {}
     with tempfile.TemporaryDirectory(prefix="host_walls_") as root:
@@ -91,7 +147,9 @@ def main() -> None:
         csv = os.path.join(root, "data.csv")
         chip_smoke.write_stats_csv(csv, np.random.default_rng([args.seed, 2]),
                                    plan, chip_smoke.CSV_ROWS)
-        for package, stats_args in PACKAGES.items():
+        if args.parse:
+            walls = parse_turns(root, csv)
+        for package, stats_args in () if args.parse else PACKAGES.items():
             base = os.path.join(root, package)
             os.makedirs(base)
             run_step(package, ["--dir", base, "new", "set"], repo)
@@ -113,7 +171,7 @@ def main() -> None:
                 package, ["--dir", d, "stats", *stats_args], repo)
             with open(os.path.join(d, "ColumnConfig.json")) as f:
                 walls[f"{package} stats"] = json.load(f)
-    for step in ("init", "stats"):
+    for step in () if args.parse else ("init", "stats"):
         ref, port = walls.pop(f"shifu_tpu {step}"), \
             walls.pop(f"shifu_tpu_torch {step}")
         if len(ref) != len(port):
@@ -121,8 +179,9 @@ def main() -> None:
         for a, b in zip(port, ref):
             same(a, b, f"{step} {b['columnName']}")
     walls.update(repo=repo, rows=chip_smoke.CSV_ROWS,
-                 fields=chip_smoke.N_COLS + 2, cpus=os.cpu_count(),
-                 column_configs_agree=True)
+                 fields=chip_smoke.N_COLS + 2, cpus=os.cpu_count())
+    if not args.parse:
+        walls["column_configs_agree"] = True
     line = json.dumps(walls)
     print(line)
     if args.out:

@@ -90,6 +90,21 @@ versions on one card.  Otherwise it
    replayed through ``tree_traverse``; and the plane's first 65,536
    rows at depth 7 on ``cuda`` and ``cpu``: bags equal (0 rows differ),
    levels 0-1 equal, errors within 1e-4 relative, AUCs within 0.005;
+   then the tree ensembles on the same plane through ``cli.main train``
+   on ``cuda`` (``bagging_phase``, ``multiclass_phase``): the GBT above
+   with ``baggingNum`` 5 (exactly 70 ``hist_batch`` launches at TB = 5,
+   one a level of a round, and 50 ``hist`` leaf-sum launches), five model
+   files, distinct members, member 0 bit-identical to ``train_gbt`` on the
+   card with its settings, the members timed on resident tensors beside
+   that single forest; the same config with ``numKFold`` 3 (70 launches
+   at TB = 3); a three-class target drawn from ``--seed`` on the same
+   plane: a native RF with init -model's params (S = 3 class channels;
+   14 ``hist_batch`` and 38 ``hist`` launches; class-distribution leaves,
+   a falling out-of-bag misclassification), its forest walked over 65,536
+   rows by ``tree_traverse``'s node-index walk (one launch, bit-equal to
+   the plain version), and a one-vs-all GBT (240 ``hist`` launches, one
+   ``tree_traverse`` launch a class model when scored), accuracy above
+   the majority class's share for both;
 6. drives the port's stats path through the CLI: writes the column
    plan's raw data as a 16,384-row '|'-delimited CSV (224 numeric columns
    with ~5% empty cells, 32 categorical, ``weight``, ``tag``; a cut in
@@ -113,7 +128,13 @@ versions on one card.  Otherwise it
    (unrounded and in the %.3f score files), AUC within 1e-6, and the
    card's scores within 1e-3 of ``score_records_offline`` on the same
    records; prints the walls of ``norm``, ``train`` and ``eval`` and
-   eval's rows/s.  Then the port's ``NumericAccumulator`` on ``cuda`` at a
+   eval's rows/s.  Then the multi-class CLI path (``multiclass_cli_phase``):
+   the same CSV with a three-valued tag through ``new → init → stats →
+   norm → train`` (native RF, then one-vs-all GBT) and ``eval -run`` on
+   ``cuda`` and on ``cpu``: ``EvalPerformance.json`` accuracy and
+   confusion matrix equal, class scores within 1e-5 in the %.6f score
+   files, ``tree_traverse`` launched models x chunks times (4, then 12).
+   Then the port's ``NumericAccumulator`` on ``cuda`` at a
    deployment's size: 8 weighted chunks of 262,144 rows x 224 columns from
    ``--seed`` (3 resident, 5 overflowing, 8 ``stats_hist`` launches), the
    ms a chunk update and the finalize take and the peak device memory,
@@ -134,7 +155,10 @@ versions on one card.  Otherwise it
    ``hist`` at N = 1,048,576 and K
    in {1, 32, 4096} and ``hist_batch`` at TB=8 and the same N and K
    beside 8 ``hist`` launches (``scatter_add_`` the PyTorch call), each
-   split by part (partition, row walk, adds, flush); times the device
+   split by part (partition, row walk, adds, flush), ``hist_batch`` at the
+   bagged GBT's TB = 5 (K = 1, 32) and the native RF's S = 3 (TB = 8, K =
+   4096), every tree first held to ``hist``, tree 0 to the plain versions,
+   ``tree_traverse``'s node-index walk of the native forest; times the device
    transform at
    N=512 with and without its x blocks; and reports ms per tree of the
    full-width train, with a ``torch.profiler`` breakdown of one tree's
@@ -199,6 +223,11 @@ HIST_TIMED_NODES = HIST_BATCH_NODES        # B1 timed at the same K
 HIST_BATCH_WIDE = (1 << 20, 7, 4001, 8)    # N, C, B (int32 bins), K
 RF_TREES, RF_DEPTH, RF_CKPT = 10, 14, 8    # init -model's RF + a checkpoint
 RF_CUT_DEPTH = 7                           # card vs CPU on CUT_ROWS rows
+BAG_MEMBERS, BAG_KFOLD = 5, 3              # bagged GBT; its k-fold twin
+BAG_TIMED_NODES = (1, 32)                  # B2 at TB = BAG_MEMBERS
+MC_CLASSES, MC_WALK_ROWS = 3, 65536        # three-class target; B4 walk
+MC_TAGS = ["t0", "t1", "t2"]               # the multi-class CSV's tags
+MC_SCORE_TOL = 1e-5 + 1e-9                 # class scores card vs CPU (%.6f)
 
 
 def fail(msg: str) -> None:
@@ -344,18 +373,24 @@ def check_hist(torch, rng) -> dict:
     return {"hist": err}
 
 
-def batch_inputs(torch, rng, n, c, b, k, tb, dtype=np.uint8):
+def batch_inputs(torch, rng, n, c, b, k, tb, dtype=np.uint8, s=2):
     """B2 inputs on the card in ``hist_inputs``' style: shared uniform
     bins; per tree node ids in [0, K) with ~30% of rows inactive and
     stats [w, w*g], w a Poisson(1) bag times an integer weight 1..3 (so
-    ~37% of each tree's rows weigh 0), g ~ N(0, 1)."""
+    ~37% of each tree's rows weigh 0), g ~ N(0, 1) — or, for S > 2, the
+    native multi-class channels w * onehot(class), the class uniform in
+    [0, S)."""
     bins = rng.integers(0, b, size=(n, c), dtype=dtype)
     node = rng.integers(0, k, size=(tb, n), dtype=np.int32)
     node[rng.random((tb, n)) < 0.3] = -1
     w = (rng.poisson(1.0, size=(tb, n))
          * rng.integers(1, 4, size=n)).astype(np.float32)
-    stats = np.stack([w, w * rng.standard_normal((tb, n), np.float32)],
-                     axis=2)
+    if s > 2:
+        stats = w[:, :, None] * np.eye(s, dtype=np.float32)[
+            rng.integers(0, s, size=n)]
+    else:
+        stats = np.stack([w, w * rng.standard_normal((tb, n), np.float32)],
+                         axis=2)
     return [torch.from_numpy(a).to("cuda") for a in (bins, node, stats)]
 
 
@@ -1648,6 +1683,446 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
             "bins": bins}
 
 
+# --------------------------------------------------------- phase: members
+def set_train_conf(d: str, **fields) -> None:
+    """Set ``train`` section fields of model set ``d``'s ModelConfig."""
+    from shifu_tpu_torch.config import ModelConfig
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    for k, v in fields.items():
+        setattr(mc.train, k, v)
+    mc.save(path)
+
+
+def load_members(d: str, ext: str) -> list:
+    """Every ``models/model*`` file of ``d`` in member order, loaded."""
+    from shifu_tpu_torch.eval.scorer import discover_model_paths
+    from shifu_tpu_torch.models.tree import load_model
+    paths = discover_model_paths(os.path.join(d, "models"))
+    if any(not p.endswith("." + ext) for p in paths):
+        fail(f"{d}/models holds {paths}, not only .{ext} files")
+    return [load_model(p) for p in paths]
+
+
+def same_bits(a, b) -> bool:
+    return all(getattr(a, k).tobytes() == getattr(b, k).tobytes()
+               for k in ("split_feat", "left_mask", "leaf_value"))
+
+
+def bagging_phase(torch, root: str, serve_root: str, plane, gpu: str,
+                  single_chunk_ms: float) -> dict:
+    """Bagged and k-fold GBT at full width through ``cli.main train`` on
+    ``cuda``: the train phase's config (TreeNum 10, MaxDepth 7, Loss log)
+    with ``baggingNum`` BAG_MEMBERS, then with ``isCrossValidation``,
+    ``numKFold`` BAG_KFOLD.  The members of a round grow together: one
+    ``hist_batch`` launch a level with TB = members (10 x 7 = 70) and one
+    ``hist`` launch a tree for its leaf sums, counted from zero around
+    each run.  Checks: one model file a member, each 10 depth-7 trees
+    that load in the port, distinct forests (each bag draws its own
+    validation split), a progress line a member tree; member 0 of the
+    bagged run bit-identical to ``train_gbt`` on the card with member 0's
+    settings (its validation split from seed 0 is member 0's).  Times the
+    bagged members on resident tensors (ms a member tree) beside that
+    single forest (ms a tree), and B2 at TB = BAG_MEMBERS for K in
+    BAG_TIMED_NODES against its bound."""
+    from dataclasses import replace
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.train import dt_trainer as dt
+    bins, y, w, informative, is_cat, clean, cut, names = plane
+    params = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
+              "LearningRate": 0.1}
+    out = {}
+    for name, conf, members in (
+            ("bagging", {"baggingNum": BAG_MEMBERS}, BAG_MEMBERS),
+            ("kfold", {"isCrossValidation": True, "numKFold": BAG_KFOLD},
+             BAG_KFOLD)):
+        d = write_train_set(os.path.join(root, name), serve_root, params,
+                            clean)
+        set_train_conf(d, **conf)
+        zero_tree_counts()
+        wall = train_cli(d, "cuda")
+        launches = read_tree_counts()
+        want = {"hist": members * TRAIN_TREES,
+                "leaf_sums": members * TRAIN_TREES,
+                "hist_batch": TRAIN_TREES * DEPTH, "tree_traverse": 0}
+        if launches != want:
+            fail(f"{name} train launched {launches}, not {want} (one "
+                 f"hist_batch launch a level for the {members} members, "
+                 "one hist launch a tree for its leaf sums)")
+        forests = load_members(d, "gbt")
+        if len(forests) != members or any(
+                spec.n_trees != TRAIN_TREES or spec.depth != DEPTH
+                or len(trees) != TRAIN_TREES or trees[0].split_feat[0] < 0
+                for spec, trees in forests):
+            fail(f"{name}: {len(forests)} model files, not {members} "
+                 f"forests of {TRAIN_TREES} depth-{DEPTH} trees")
+        if any(same_bits(a[1][0], b[1][0])
+               for a, b in zip(forests, forests[1:])):
+            fail(f"{name}: two neighbouring members grew the same tree")
+        with open(os.path.join(d, "tmp", "train.progress")) as f:
+            lines = re.findall(r"Bag \[(\d+)\] Tree #\d+ Train Error: (\S+)"
+                               r" Validation Error: (\S+)", f.read())
+        err = np.asarray([[float(a), float(b)] for _, a, b in lines])
+        if len(lines) != members * TRAIN_TREES or \
+                not np.isfinite(err).all():
+            fail(f"{name}: {len(lines)} progress lines")
+        with open(os.path.join(d, "tmp", "profile.json")) as f:
+            phases = json.load(f)["TRAIN"]["phases_s"]
+        last = err[TRAIN_TREES - 1::TRAIN_TREES, 1]
+        log(f"main path ({name}): {members} GBT members x {TRAIN_TREES} "
+            f"trees of depth {DEPTH} in {wall:.3f} s wall ({phases}); "
+            f"launches {launches}; member validation errors "
+            f"{[round(float(e), 6) for e in last]} — [{gpu}]")
+        out[name] = {"launches": launches, "wall_s": wall,
+                     "phases_s": phases, "dir": d, "forests": forests}
+
+    # member 0 against a single train_gbt, and the members side by side
+    # on resident tensors, timed
+    d = out["bagging"]["dir"]
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    settings = dt.settings_from_params(params, mc.train, Algorithm.GBT)
+    dev = torch.device("cuda")
+    bins_d = dt.put_bins(bins, N_BINS, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = dt.train_gbt(bins_d, y, w, N_BINS, is_cat, settings,
+                          device=dev)
+    single_s = time.perf_counter() - t0
+    member0 = out["bagging"]["forests"][0][1]
+    if len(single.trees) != TRAIN_TREES or not all(
+            same_bits(a, b) for a, b in zip(single.trees, member0)):
+        fail("bagged member 0 differs from train_gbt on its weights")
+    tw, vw = dt._tree_member_masks(mc, len(y), BAG_MEMBERS, -1, False, y,
+                                   settings.seed, distinct=True)
+    members = [replace(settings, seed=settings.seed + b)
+               for b in range(BAG_MEMBERS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bagged = dt.train_gbt_bagged(bins_d, y, tw * w, vw * w, N_BINS, is_cat,
+                                 members, device=dev)
+    bagged_s = time.perf_counter() - t0
+    for (_, trees), res in zip(out["bagging"]["forests"], bagged):
+        if not all(same_bits(a, b) for a, b in zip(res.trees, trees)):
+            fail("train_gbt_bagged on resident tensors differs from the "
+                 "CLI's members")
+    member_ms = bagged_s * 1e3 / (BAG_MEMBERS * TRAIN_TREES)
+    single_ms = single_s * 1e3 / TRAIN_TREES
+    log(f"bagged GBT on resident tensors: {member_ms:.3f} ms a member tree "
+        f"({BAG_MEMBERS} members x {TRAIN_TREES} trees in {bagged_s:.3f} "
+        f"s, one hist_batch launch a level for the {BAG_MEMBERS}); a single "
+        f"train_gbt {single_ms:.3f} ms a tree in the same call (the train "
+        f"phase's chunk: {single_chunk_ms:.3f} ms a tree); member 0 "
+        f"bit-identical to the single run — [{gpu}]")
+    del bins_d
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng([TRAIN_TREES, BAG_MEMBERS])
+    timed = {k: time_batch(torch, rng, gpu, BAG_MEMBERS, k, 2)
+             for k in BAG_TIMED_NODES}
+    for v in out.values():
+        del v["forests"], v["dir"]
+    out.update({"member_ms": member_ms, "single_ms": single_ms,
+                "b2": timed})
+    return out
+
+
+def three_classes(rng, bins, informative) -> np.ndarray:
+    """A three-class target on the train plane, made from ``rng``: class k
+    scores the bins of informative column k (scaled to [0, 2.5]) plus
+    Gumbel noise, and the top score wins."""
+    cols = bins[:, informative[:MC_CLASSES]].astype(np.float32)
+    score = cols / cols.max(axis=0).clip(min=1.0) * 2.5 \
+        + rng.gumbel(size=cols.shape).astype(np.float32)
+    return score.argmax(axis=1).astype(np.float32)
+
+
+def multiclass_set(root: str, name: str, serve_root: str, params: dict,
+                   clean: str, algorithm: str) -> str:
+    """``write_train_set`` for a three-class target: ``posTags`` the class
+    ids, no ``negTags``, EqualTotal binning (as multi-class needs)."""
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.config.model_config import BinningMethod
+    d = write_train_set(os.path.join(root, name), serve_root, params, clean,
+                        algorithm)
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    mc.dataSet.posTags = [str(k) for k in range(MC_CLASSES)]
+    mc.dataSet.negTags = []
+    mc.stats.binningMethod = BinningMethod.EqualTotal
+    mc.save(path)
+    return d
+
+
+def multiclass_phase(torch, tq, root: str, serve_root: str, plane, rng,
+                     gpu: str) -> dict:
+    """Multi-class trees at full width on the train plane with a
+    three-class target (``three_classes``, from the main path's
+    generator), through ``cli.main train`` on ``cuda``: a native RF with
+    ``init -model``'s params (10 trees, depth 14; S = 3 class channels:
+    14 ``hist_batch`` and 38 ``hist`` launches as the binary RF) and a
+    one-vs-all GBT (TreeNum 10, MaxDepth 7: one forest a class, 240
+    ``hist`` launches), counts zeroed around each run.  Checks the model
+    files (class-distribution leaves, ``class_index`` stamps), a falling
+    out-of-bag misclassification, accuracy above the majority class's
+    share on 65,536 rows;
+    walks the native forest over those rows through B4's node-index walk
+    (one launch, bit-equal to the plain version, timed against its
+    bound); times B2 at S = 3, TB = 8, K = 4096 (the native RF's deepest
+    level) against its bound."""
+    from shifu_tpu_torch.eval.scorer import Scorer, load_models
+    from shifu_tpu_torch.models.tree import IndependentTreeModel
+    from shifu_tpu_torch.pipeline.create import _ALG_DEFAULT_PARAMS
+    bins, y, w, informative, is_cat, clean, cut, names = plane
+    y3 = three_classes(rng, bins, informative)
+    clean3 = os.path.join(root, "plane_mc")
+    write_plane(clean3, bins, y3, w, names, {"chip_smoke": "multiclass"})
+    out = {"class_rates": np.bincount(y3.astype(int)).tolist()}
+
+    params = dict(_ALG_DEFAULT_PARAMS["RF"][1], CheckpointInterval=RF_CKPT)
+    d = multiclass_set(root, "mc_rf", serve_root, params, clean3, "RF")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_tree_counts()
+    wall = train_cli(d, "cuda")
+    launches = read_tree_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = {"hist_batch": RF_DEPTH,
+            "hist": RF_CKPT + (RF_TREES - RF_CKPT) * (RF_DEPTH + 1),
+            "leaf_sums": RF_TREES, "tree_traverse": 0}
+    if launches != want:
+        fail(f"native multi-class RF launched {launches}, not {want}")
+    (spec, trees), = load_members(d, "rf")
+    nodes = (1 << (RF_DEPTH + 1)) - 1
+    if spec.extra.get("n_classes") != MC_CLASSES or len(trees) != RF_TREES \
+            or any(t.leaf_value.shape != (nodes, MC_CLASSES)
+                   or t.split_feat[0] < 0 for t in trees):
+        fail(f"model0.rf is not a {MC_CLASSES}-class forest of {RF_TREES} "
+             f"trees: {spec.extra}")
+    err = progress_errors(d)
+    if err.shape != (RF_TREES, 2) or not err[-1, 1] < err[0, 1]:
+        fail(f"native RF errors {err.tolist()} (out-of-bag "
+             "misclassification must fall)")
+    log(f"main path (native multi-class RF): {RF_TREES} trees of depth "
+        f"{RF_DEPTH}, S = {MC_CLASSES}, in {wall:.3f} s wall; launches "
+        f"{launches}; out-of-bag misclassification {err[0, 1]:.6f} -> "
+        f"{err[-1, 1]:.6f}; peak device memory {peak / 2**30:.3f} GiB "
+        f"— [{gpu}]")
+    out["rf"] = {"launches": launches, "wall_s": wall, "peak_bytes": peak,
+                 "errors": err.tolist()}
+
+    # B4's node-index walk of the native forest
+    dev = torch.device("cuda")
+    model = IndependentTreeModel(spec, trees)
+    forest, packed = model.quant_arrays(dev), model.quant_packed(dev)
+    b = torch.from_numpy(np.ascontiguousarray(bins[:MC_WALK_ROWS])).to(dev)
+    tq.predict_forest_quant.launches = 0
+    got = tq.predict_forest_quant(*forest, b, RF_DEPTH, packed=packed)
+    walk_launches = tq.predict_forest_quant.launches
+    want_walk = tq.predict_forest_quant_ref(*forest, b, RF_DEPTH)
+    torch.cuda.synchronize()
+    if walk_launches != 1 or not torch.equal(got, want_walk):
+        fail(f"node-index walk: {walk_launches} launches, bit-equal "
+             f"{torch.equal(got, want_walk)}")
+    acc = float((got.mean(dim=0).argmax(dim=1).cpu().numpy()
+                 == y3[:MC_WALK_ROWS]).mean())
+    majority = max(out["class_rates"]) / len(y3)
+    ms = device_ms(torch, lambda: tq.predict_forest_quant(
+        *forest, b, RF_DEPTH, packed=packed))
+    plain_ms = device_ms(torch, lambda: tq.predict_forest_quant_ref(
+        *forest, b, RF_DEPTH), launches=1, repeats=3)
+    need = tq.traverse_bytes(forest[0], forest[1], b, RF_DEPTH,
+                             leaf_width=MC_CLASSES)
+    bytes_ms = need["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = need["split_steps"] * OPS_PER_LEVEL / INT_OPS_PER_S * 1e3
+    out["walk"] = {"ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations", "max_abs_err": 0.0,
+                   "library_ms": None, "accuracy": acc,
+                   "shape": f"T={RF_TREES} depth={RF_DEPTH} N={MC_WALK_ROWS} "
+                            f"C={N_COLS} B={N_BINS} S={MC_CLASSES} uint8"}
+    log(f"tree_traverse node-index walk ({out['walk']['shape']}, 1 launch, "
+        f"bit-equal to the plain version): kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {out['walk']['bound_ms']:.6f} ms "
+        f"({out['walk']['bound_by']}: {need['bytes'] / 1e6:.3f} MB); mean "
+        f"vote accuracy {acc:.4f} — [{gpu}]")
+    if not acc > majority:
+        fail(f"native RF accuracy {acc} is no better than the majority "
+             f"class's share {majority}")
+    del model, forest, packed, got, want_walk
+
+    gbt = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
+           "LearningRate": 0.1}
+    d = multiclass_set(root, "mc_ova", serve_root, gbt, clean3, "GBT")
+    zero_tree_counts()
+    wall = train_cli(d, "cuda")
+    launches = read_tree_counts()
+    want = {"hist": MC_CLASSES * TRAIN_TREES * (DEPTH + 1),
+            "leaf_sums": MC_CLASSES * TRAIN_TREES, "hist_batch": 0,
+            "tree_traverse": 0}
+    if launches != want:
+        fail(f"one-vs-all GBT launched {launches}, not {want}")
+    forests = load_members(d, "gbt")
+    if [s.extra.get("class_index") for s, _ in forests] != \
+            list(range(MC_CLASSES)):
+        fail("one-vs-all GBT: model files are not classes 0-2")
+    scorer = Scorer(load_models(os.path.join(d, "models")), device=dev)
+    tq.predict_forest_quant.launches = 0
+    cs = scorer.score_classes(None, bins[:MC_WALK_ROWS])
+    if tq.predict_forest_quant.launches != MC_CLASSES:
+        fail("one-vs-all scoring did not launch tree_traverse once a model")
+    ova_acc = float((cs.argmax(axis=1) == y3[:MC_WALK_ROWS]).mean())
+    if not ova_acc > majority:
+        fail(f"one-vs-all accuracy {ova_acc} is no better than the "
+             f"majority class's share {majority}")
+    log(f"main path (one-vs-all GBT): {MC_CLASSES} forests of "
+        f"{TRAIN_TREES} depth-{DEPTH} trees in {wall:.3f} s wall; launches "
+        f"{launches}; accuracy {ova_acc:.4f} on {MC_WALK_ROWS} rows "
+        f"— [{gpu}]")
+    out["ova"] = {"launches": launches, "wall_s": wall,
+                  "accuracy": ova_acc}
+    out["b2_s3"] = time_batch(torch, rng, gpu, HIST_BATCH, 4096, MC_CLASSES)
+    return out
+
+
+def write_multiclass_csv(path: str, src: str) -> list:
+    """The stats phase's CSV with a three-valued ``tag``: ``t0`` where it
+    was bad, else ``t1`` or ``t2`` by the side of the first numeric column
+    (informative in ``write_stats_csv``) its value lies on (``t1`` when
+    the cell is empty).  Returns the class counts."""
+    with open(src) as f:
+        rows = [line.rstrip("\n").split("|") for line in f]
+    first = np.array([float(r[0]) if r[0] else np.nan for r in rows])
+    cut = float(np.nanmedian(first))
+    counts = [0] * MC_CLASSES
+    for r, v in zip(rows, first):
+        k = 0 if r[-1] == "bad" else 2 if v > cut else 1
+        r[-1] = MC_TAGS[k]
+        counts[k] += 1
+    shutil.copy(src + ".header", path + ".header")
+    with open(path, "w") as f:
+        f.write("\n".join("|".join(r) for r in rows) + "\n")
+    return counts
+
+
+def multiclass_cli_phase(torch, tq, root: str, csv: str,
+                         gpu: str) -> dict:
+    """The multi-class path through the CLI a user calls: the stats
+    phase's CSV (CSV_ROWS rows x 258 fields) with a three-valued tag
+    (``write_multiclass_csv``) through ``new → init → stats → norm →
+    train`` on ``cuda`` (a native RF with init -model's params, then a
+    one-vs-all GBT with the train phase's), each model set through ``eval
+    -new`` and ``eval -run`` on ``cuda`` and on ``cpu`` (a copy of the set).
+    Checks: ``EvalPerformance.json`` accuracy and confusion matrix equal
+    card vs CPU; the score files' class scores within MC_SCORE_TOL (the
+    %.6f files); ``tree_traverse`` launched models x chunks times in the
+    card's eval, counted from zero around it.  Every step parses inline
+    (``-Dshifu.ingest.parseWorkers=0``: the parse holds the GIL, and on
+    the card's host the inline pass is ~2.3x faster than eight threads,
+    PERF.md §6), which keeps this phase's seven parse passes short;
+    the rows parsed are the same."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config import ModelConfig, environment
+    from shifu_tpu_torch.config.model_config import Algorithm, BinningMethod
+    from shifu_tpu_torch.data import parsepool
+    from shifu_tpu_torch.pipeline.create import _ALG_DEFAULT_PARAMS
+    base = os.path.join(root, "mc_cli")
+    os.makedirs(base)
+    csv3 = os.path.join(base, "data.csv")
+    counts = write_multiclass_csv(csv3, csv)
+    walls = {}
+
+    def step(name, *argv):
+        t0 = time.perf_counter()
+        if cli.main(["-Dshifu.ingest.parseWorkers=0", "--dir", argv[0],
+                     *argv[1:]]) != 0:
+            fail(f"{' '.join(argv[1:])} exited non-zero in {argv[0]}")
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+
+    step("new", base, "new", "mc")
+    d = os.path.join(base, "mc")
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    ds = mc.dataSet
+    ds.dataPath, ds.dataDelimiter, ds.targetColumnName = csv3, "|", "tag"
+    ds.posTags, ds.negTags, ds.weightColumnName = list(MC_TAGS), [], "weight"
+    ds.headerPath, ds.headerDelimiter = csv3 + ".header", "|"
+    mc.stats.maxNumBin = N_BINS - 1
+    mc.stats.binningMethod = BinningMethod.EqualTotal
+    ev = mc.evals[0].dataSet
+    ev.dataPath, ev.dataDelimiter = csv3, "|"
+    ev.headerPath, ev.headerDelimiter = csv3 + ".header", "|"
+    mc.save(path)
+    chunks = -(-CSV_ROWS // CSV_CHUNK)
+    out = {"class_counts": counts}
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    try:
+        step("init", d, "init")
+        step("stats", d, "stats", "--device", "cuda")
+        step("norm", d, "norm")
+        step("eval_new", d, "eval", "-new", E2E_EVAL)
+        for alg, params in (
+                ("RF", dict(_ALG_DEFAULT_PARAMS["RF"][1])),
+                ("GBT", {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH,
+                         "Loss": "log", "LearningRate": 0.1})):
+            mc = ModelConfig.load(path)
+            mc.train.algorithm = Algorithm[alg]
+            mc.train.params = params
+            mc.save(path)
+            step(f"train_{alg}", d, "train", "--device", "cuda")
+            cpu_dir = f"{d}_{alg}_cpu"
+            shutil.copytree(d, cpu_dir)
+            tq.predict_forest_quant.launches = 0
+            step(f"eval_{alg}", d, "eval", "-run", E2E_EVAL, "--device",
+                 "cuda")
+            launches = tq.predict_forest_quant.launches
+            step(f"eval_{alg}_cpu", cpu_dir, "eval", "-run", E2E_EVAL,
+                 "--device", "cpu")
+            n_models = len(os.listdir(os.path.join(d, "models")))
+            if launches != n_models * chunks:
+                fail(f"multi-class eval ({alg}) launched tree_traverse "
+                     f"{launches} times for {n_models} model(s) x {chunks} "
+                     "chunks")
+            (card, perf), (cpu, cpu_perf) = eval_scores(d, E2E_EVAL), \
+                eval_scores(cpu_dir, E2E_EVAL)
+            if perf.get("nClasses") != MC_CLASSES or \
+                    perf["accuracy"] != cpu_perf["accuracy"] or \
+                    perf["confusionMatrix"] != cpu_perf["confusionMatrix"]:
+                fail(f"multi-class eval ({alg}) card vs CPU: accuracy "
+                     f"{perf.get('accuracy')} vs {cpu_perf.get('accuracy')}"
+                     f", confusion {perf.get('confusionMatrix')} vs "
+                     f"{cpu_perf.get('confusionMatrix')}")
+            if card.shape != (CSV_ROWS, 3 + MC_CLASSES) or \
+                    not np.array_equal(card[:, :3], cpu[:, :3]):
+                fail(f"multi-class EvalScore ({alg}) card {card.shape} vs "
+                     "CPU: tag, weight or predicted tag differ")
+            diff = float(np.abs(card[:, 3:].astype(float)
+                                - cpu[:, 3:].astype(float)).max())
+            if not diff <= MC_SCORE_TOL or not perf["accuracy"] > 0.5:
+                fail(f"multi-class eval ({alg}): class scores card vs CPU "
+                     f"differ by {diff}, accuracy {perf['accuracy']}")
+            log(f"main path (multi-class CLI, {alg}): train "
+                f"{walls[f'train_{alg}']:.3f} s, eval -run "
+                f"{walls[f'eval_{alg}']:.3f} s on the card ({n_models} "
+                f"model(s), {launches} tree_traverse launches), "
+                f"{walls[f'eval_{alg}_cpu']:.3f} s on the CPU; accuracy "
+                f"{perf['accuracy']:.6f}, macro AUC {perf['macroAuc']:.6f}, "
+                f"confusion matrix equal card vs CPU, class scores within "
+                f"{diff:.3g} — [{gpu}]")
+            out[alg] = {"eval_launches": launches, "accuracy":
+                        perf["accuracy"], "macro_auc": perf["macroAuc"],
+                        "score_card_cpu": diff}
+            shutil.rmtree(cpu_dir)
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+        environment.reset_for_tests()       # drop the -D parse setting
+    log(f"multi-class CLI: {CSV_ROWS} rows, classes {counts}; walls "
+        f"{ {k: round(v, 3) for k, v in walls.items()} } — [{gpu}]")
+    out["walls_s"] = walls
+    return out
+
+
 def resident_phase(torch, seed: int) -> dict:
     """The port's NumericAccumulator on the card at a deployment's size:
     weighted (S = 4), RESIDENT_CHUNKS chunks of 262,144 rows x 224
@@ -1902,65 +2377,89 @@ def time_hist(torch, rng, gpu: str) -> dict:
 def time_hist_batch(torch, rng, gpu: str) -> dict:
     """B2 at TB=8 over N=1,048,576 rows of 256 uint8 columns, 64 bins,
     S=2, for each K in HIST_BATCH_NODES (K=4096: the deepest level of a
-    depth-14 tree) on ``batch_inputs``' data: the kernel (its wrapper's
-    device work included), its split by part, 8 B1 launches, the plain
-    version,
-    and one ``scatter_add_`` of every tree's active (row, column) into
-    the flat [TB*K*C*B, S] f32 buffer with the cell index computed
-    beforehand; the bound counts what this data makes the build move
-    (``hist_batch_bytes``: the bins once, each tree's node ids and
-    active stats, the output) and one add per active (tree, row, column,
-    channel)."""
+    depth-14 tree) on ``batch_inputs``' data (``time_batch``, with the
+    split by part and 8 B1 launches beside it)."""
+    torch.cuda.empty_cache()
+    return {k: time_batch(torch, rng, gpu, HIST_BATCH, k, 2, detail=True)
+            for k in HIST_BATCH_NODES}
+
+
+def time_batch(torch, rng, gpu: str, tb: int, k: int, s: int,
+               detail: bool = False) -> dict:
+    """B2 at TB trees, K nodes and S channels over N=1,048,576 rows of 256
+    uint8 columns, 64 bins, on ``batch_inputs``' data: the kernel (its
+    wrapper's device work included), the plain version, and one
+    ``scatter_add_`` of every tree's active (row, column) into the flat
+    [TB*K*C*B, S] f32 buffer with the cell index computed beforehand; the
+    bound counts what this data makes the build move
+    (``hist_batch_bytes``: the bins once, each tree's node ids and active
+    stats, the output) and one add per active (tree, row, column,
+    channel).  ``detail``: also its split by part and TB B1 launches.
+    Otherwise (the bagged GBT's and the native multi-class RF's shapes)
+    every tree is first held to a B1 launch bit for bit and tree 0 to the
+    plain versions (``held_to_plain``)."""
     from shifu_tpu_torch.ops import hist
     from shifu_tpu_torch.ops.tree import (build_histograms,
                                           build_histograms_batch)
-    out = {}
-    tb = HIST_BATCH
-    torch.cuda.empty_cache()
-    for k in HIST_BATCH_NODES:
-        bins, node, stats = batch_inputs(torch, rng, TRAIN_ROWS, N_COLS,
-                                         N_BINS, k, tb)
-        ms = device_ms(torch, lambda: build_histograms_batch(
-            bins, node, stats, k, N_BINS), launches=10, repeats=5)
-        # the sequential alternative: one B1 launch a tree
-        b1_ms = device_ms(torch, lambda: [build_histograms(
-            bins, node[t], stats[t], k, N_BINS) for t in range(tb)],
-            launches=2, repeats=3)
-        parts = time_parts(torch, bins, node, stats, k)
-        plain_ms = device_ms(torch, lambda: hist.build_histograms_batch_ref(
-            bins, node, stats, k, N_BINS), launches=1, repeats=3)
-        plan = hist.hist_plan(TRAIN_ROWS, N_COLS, tb, k, N_BINS, 2)
-        nbytes = hist.hist_batch_bytes(bins, node, stats, k, N_BINS)
-        act = (node >= 0).nonzero()                   # [M, 2] (tree, row)
-        n_act = int(act.shape[0])
-        cols = torch.arange(N_COLS, device="cuda")
-        cell = ((act[:, 0] * k + node[act[:, 0], act[:, 1]].long())
-                * N_COLS)[:, None] + cols        # [M, C] int64, in place on
-        cell.mul_(N_BINS).add_(bins[act[:, 1]])  # (memory: M*C is ~1.5e9)
-        idx = cell.reshape(-1, 1).expand(-1, 2)
-        src = stats[act[:, 0], act[:, 1]][:, None, :] \
-            .expand(-1, N_COLS, -1).reshape(-1, 2)
-        del cell
-        flat = torch.zeros((tb * k * N_COLS * N_BINS, 2), device="cuda")
-        library_ms = device_ms(torch, lambda: flat.scatter_add_(0, idx, src),
-                               launches=2, repeats=3)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_act * N_COLS * 2 / INT_OPS_PER_S * 1e3
-        out[k] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": max(bytes_ms, ops_ms),
-                  "bound_by": "bytes" if bytes_ms >= ops_ms
-                  else "operations", "bytes": nbytes, "active": n_act,
-                  "hist_each_tree_ms": b1_ms, "plan": plan,
-                  "parts_ms": parts}
-        log(f"hist_batch TB={tb} N={TRAIN_ROWS} K={k}: kernel {ms:.5f} ms "
-            "(by part " + ", ".join(f"{n} {v:.4f}" for n, v in parts.items())
-            + f"), {tb} hist (B1) launches {b1_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} ms, bound "
-            f"{out[k]['bound_ms']:.6f} ms ({out[k]['bound_by']}: "
-            f"{nbytes / 1e6:.3f} MB, {n_act} active (tree, row) pairs; "
-            f"plan {plan}) — [{gpu}]")
-        del bins, node, stats, act, idx, src, flat
+    bins, node, stats = batch_inputs(torch, rng, TRAIN_ROWS, N_COLS, N_BINS,
+                                     k, tb, s=s)
+    where = f"TB={tb} N={TRAIN_ROWS} K={k} S={s}"
+    out = {"max_abs_err": None}
+    if not detail:
+        got = build_histograms_batch(bins, node, stats, k, N_BINS)
+        for t in range(tb):
+            if not torch.equal(got[t], build_histograms(bins, node[t],
+                                                        stats[t], k, N_BINS)):
+                fail(f"hist_batch tree {t} != hist (B1) at {where}")
+        out["max_abs_err"] = held_to_plain(
+            torch, hist, got[0], bins, node[0], stats[0], k, N_BINS, where,
+            "hist_batch tree 0")
+        del got
         torch.cuda.empty_cache()
+    ms = device_ms(torch, lambda: build_histograms_batch(
+        bins, node, stats, k, N_BINS), launches=10, repeats=5)
+    if detail:
+        # the sequential alternative: one B1 launch a tree
+        out["hist_each_tree_ms"] = device_ms(torch, lambda: [
+            build_histograms(bins, node[t], stats[t], k, N_BINS)
+            for t in range(tb)], launches=2, repeats=3)
+        out["parts_ms"] = time_parts(torch, bins, node, stats, k)
+    plain_ms = device_ms(torch, lambda: hist.build_histograms_batch_ref(
+        bins, node, stats, k, N_BINS), launches=1, repeats=3)
+    plan = hist.hist_plan(TRAIN_ROWS, N_COLS, tb, k, N_BINS, s)
+    nbytes = hist.hist_batch_bytes(bins, node, stats, k, N_BINS)
+    act = (node >= 0).nonzero()                   # [M, 2] (tree, row)
+    n_act = int(act.shape[0])
+    cols = torch.arange(N_COLS, device="cuda")
+    cell = ((act[:, 0] * k + node[act[:, 0], act[:, 1]].long())
+            * N_COLS)[:, None] + cols        # [M, C] int64, in place on
+    cell.mul_(N_BINS).add_(bins[act[:, 1]])  # (memory: M*C is ~1.5e9)
+    idx = cell.reshape(-1, 1).expand(-1, s)
+    src = stats[act[:, 0], act[:, 1]][:, None, :] \
+        .expand(-1, N_COLS, -1).reshape(-1, s)
+    del cell
+    flat = torch.zeros((tb * k * N_COLS * N_BINS, s), device="cuda")
+    library_ms = device_ms(torch, lambda: flat.scatter_add_(0, idx, src),
+                           launches=2, repeats=3)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_act * N_COLS * s / INT_OPS_PER_S * 1e3
+    out.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "active": n_act, "plan": plan})
+    log(f"hist_batch {where}: kernel {ms:.5f} ms"
+        + ("" if not detail else " (by part " + ", ".join(
+            f"{n} {v:.4f}" for n, v in out["parts_ms"].items())
+            + f"), {tb} hist (B1) launches {out['hist_each_tree_ms']:.4f} "
+            "ms")
+        + f", plain {plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} ms, "
+        f"bound {out['bound_ms']:.6f} ms ({out['bound_by']}: "
+        f"{nbytes / 1e6:.3f} MB, {n_act} active (tree, row) pairs; plan "
+        f"{plan})" + ("" if detail else " — every tree == hist (B1), tree "
+                      f"0 == plain version (max |d| {out['max_abs_err']:.3g})")
+        + f" — [{gpu}]")
+    del bins, node, stats, act, idx, src, flat
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2187,11 +2686,18 @@ def main() -> None:
         served = serve_phase(torch, tq, serve_root, plan, path_rng)
         time_transform(torch, serve_root, plan, rng, gpu)
         trained = train_phase(torch, root, serve_root, plan, path_rng)
-        forest = rf_phase(torch, root, serve_root, trained.pop("plane"))
+        plane = trained.pop("plane")
+        forest = rf_phase(torch, root, serve_root, plane)
+        bagging = bagging_phase(torch, root, serve_root, plane, gpu,
+                                trained["chunk"]["ms_per_tree"])
+        multi = multiclass_phase(torch, tq, root, serve_root, plane,
+                                 np.random.default_rng([args.seed, 2]), gpu)
+        del plane
         stats = stats_phase(torch, root, plan, path_rng)
         e2e = e2e_phase(torch, stats["dir"], stats["csv"], gpu)
         eval_times = time_eval_walk(torch, tq, stats["dir"],
                                     e2e.pop("bins"), gpu)
+        mc_cli = multiclass_cli_phase(torch, tq, root, stats["csv"], gpu)
     resident = resident_phase(torch, args.seed)
     times = time_kernels(torch, tq, rng, gpu)
     hist_times = time_hist(torch, rng, gpu)
@@ -2225,12 +2731,19 @@ def main() -> None:
                             ("ms", "plain_ms", "bound_ms", "bound_by")}
            for n in TRAVERSE_ROWS[1:]},
         **{f"eval_forest_at_{n}_rows": eval_times[n] for n in eval_times},
+        "multiclass_eval_launches": {alg: mc_cli[alg]["eval_launches"]
+                                     for alg in ("RF", "GBT")},
+        f"node_index_walk_at_{MC_WALK_ROWS}_rows": multi["walk"],
         "gpu": gpu}, {
         "name": "hist", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/hist.cu",
         "leaf_sum_launches": trained["launches"]["leaf_sums"],
         "rf_launches": forest["launches"]["hist"],
         "rf_leaf_sum_launches": forest["launches"]["leaf_sums"],
+        "bagging_launches": bagging["bagging"]["launches"]["hist"],
+        "kfold_launches": bagging["kfold"]["launches"]["hist"],
+        "multiclass_launches": {"native_rf": multi["rf"]["launches"]["hist"],
+                                "ova_gbt": multi["ova"]["launches"]["hist"]},
         "replaces": "shifu_tpu/ops/hist_pallas.py:75",
         "launches": trained["launches"]["hist"],
         "max_abs_err": max([errs["hist"]] + [hist_times[k]["max_abs_err"]
@@ -2266,7 +2779,12 @@ def main() -> None:
         "source": "shifu_tpu_torch/csrc/hist.cu",
         "replaces": "shifu_tpu/ops/hist_pallas.py:161",
         "launches": forest["launches"]["hist_batch"],
-        "max_abs_err": errs["hist_batch"],
+        "bagging_launches": bagging["bagging"]["launches"]["hist_batch"],
+        "kfold_launches": bagging["kfold"]["launches"]["hist_batch"],
+        "multiclass_launches": multi["rf"]["launches"]["hist_batch"],
+        "max_abs_err": max([errs["hist_batch"], multi["b2_s3"]["max_abs_err"]]
+                           + [bagging["b2"][k]["max_abs_err"]
+                              for k in BAG_TIMED_NODES]),
         "ms": batch_times[32]["ms"], "plain_ms": batch_times[32]["plain_ms"],
         "bound_ms": batch_times[32]["bound_ms"],
         "bound_by": batch_times[32]["bound_by"],
@@ -2284,6 +2802,15 @@ def main() -> None:
             "build_histograms_batch"),
         "rf_leaf_ms_per_tree_max": forest["chunk"]["batch"][
             "leaf_ms_per_tree_max"],
+        **{f"at_tb{BAG_MEMBERS}_{k}_node{'s' if k > 1 else ''}": {
+            m: bagging["b2"][k][m] for m in
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+           for k in BAG_TIMED_NODES},
+        f"at_s{MC_CLASSES}_4096_nodes": {
+            m: multi["b2_s3"][m] for m in
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "bagged_member_tree_ms": bagging["member_ms"],
+        "single_tree_ms": bagging["single_ms"],
         "gpu": gpu}]
     rf_chunk = forest["chunk"]
     log(f"full-width RF ({RF_TREES} trees, depth {RF_DEPTH}): "
@@ -2305,6 +2832,12 @@ def main() -> None:
         f"{w['eval']:.3f} s ({e2e['rows_per_s']:.0f} rows/s, "
         f"{e2e['eval_launches']} tree_traverse launches), AUC "
         f"{e2e['auc']:.6f} — [{gpu}]")
+    log(f"members: bagged GBT {bagging['member_ms']:.3f} ms a member tree "
+        f"against {bagging['single_ms']:.3f} ms a single forest's tree; "
+        f"native multi-class RF train {multi['rf']['wall_s']:.3f} s, "
+        f"one-vs-all GBT {multi['ova']['wall_s']:.3f} s; multi-class CLI "
+        f"accuracy RF {mc_cli['RF']['accuracy']:.6f}, GBT "
+        f"{mc_cli['GBT']['accuracy']:.6f} — [{gpu}]")
     log(f"served {served['batches']} batches; max |card - cpu| "
         f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} GBT and "
         f"{RF_TREES} RF trees; "

@@ -8,11 +8,14 @@ walks thresholds accumulating unit + weighted tp/fp/tn/fn per bucket;
 one vectorized sort + cumsum — every threshold at once — and buckets are
 sampled from the full curve afterwards.
 
+The multi-class report (:func:`evaluate_multiclass`: accuracy, per-class
+one-vs-rest AUC, confusion matrix) runs on the host in float64 too.
+
 Not ported: the reference's device sweep (``sweep_device``,
 ``evaluate_scores_device``), which serves callers whose scores stay on the
-device (``eval/gate.py``, refresh; ROADMAP Queue 1 item 12), and the
-multiclass report (item 6).  ``eval`` writes the scores to its score file
-first, so it sweeps on the host in the reference too.
+device (``eval/gate.py``, refresh; ROADMAP Queue 1 item 12).  ``eval``
+writes the scores to its score file first, so it sweeps on the host in
+the reference too.
 """
 
 from __future__ import annotations
@@ -189,3 +192,35 @@ def gain_chart_rows(result: PerformanceResult) -> List[Dict]:
              "precision": p.precision, "lift": p.liftUnit,
              "weightedRecall": p.weightedRecall, "score": p.binLowestScore}
             for p in result.points]
+
+
+def evaluate_multiclass(class_scores: np.ndarray, targets: np.ndarray,
+                        weights: Optional[np.ndarray] = None) -> Dict:
+    """Multi-class eval report: weighted accuracy (argmax vote, reference
+    ``MultiClsTagPredictor.predictTag``), per-class one-vs-rest AUC, macro
+    AUC, and the K x K weighted confusion matrix.
+
+    class_scores: [n, K]; targets: [n] class indices.
+    """
+    class_scores = np.asarray(class_scores, np.float64)
+    t = np.asarray(targets).astype(int)
+    n, k = class_scores.shape
+    w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
+    pred = class_scores.argmax(axis=1)
+    acc = float((w * (pred == t)).sum() / max(w.sum(), 1e-12))
+    conf = np.zeros((k, k))
+    np.add.at(conf, (t, pred), w)
+    aucs = []
+    for ci in range(k):
+        c = sweep(class_scores[:, ci], (t == ci).astype(float), w)
+        if c.pos_total > 0 and c.neg_total > 0:
+            aucs.append(auc_trapezoid(c.fp / c.neg_total, c.tp / c.pos_total))
+        else:
+            aucs.append(float("nan"))
+    finite = [a for a in aucs if np.isfinite(a)]
+    return {"nClasses": k, "recordCount": int(n),
+            "accuracy": acc, "errorRate": 1.0 - acc,
+            "perClassAuc": [float(a) for a in aucs],
+            "macroAuc": float(np.mean(finite)) if finite else float("nan"),
+            "classCounts": np.bincount(t, minlength=k).tolist(),
+            "confusionMatrix": conf.tolist()}

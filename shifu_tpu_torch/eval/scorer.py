@@ -7,8 +7,11 @@ when every forest has <= 256 bins), and each forest walks them with
 ``ops/tree_quant.predict_forest_quant`` — the ``tree_traverse`` kernel on
 a CUDA device (it launches or raises), its plain version on the CPU.  The
 per-model scores are scaled by ``SCORE_SCALE`` and aggregated per row.
-Multiclass scoring (``score_classes``) waits for multiclass trees (ROADMAP
-Queue 1 item 6); NN/LR/WDL/SVM model files raise in ``models.load_any``.
+Multi-class sets score with :meth:`Scorer.score_classes`: native forests
+contribute their class-distribution rows (B4's node-index walk on the
+card), one-vs-all members their ``class_index`` column, each model one
+launch a batch as on the binary path.  NN/LR/WDL/SVM model files raise in
+``models.load_any``.
 """
 
 from __future__ import annotations
@@ -94,14 +97,57 @@ class Scorer:
         once in the ensemble's wire dtype (the reference's
         ``ensemble_bins_dtype``); ``x`` is unused until models that read
         normalized floats are ported."""
-        from ..ops.tree_quant import ensemble_bins_dtype
-        b = torch.from_numpy(np.ascontiguousarray(bins)).to(
-            self.device, ensemble_bins_dtype(self.models))
+        b = self._put(bins)
         cols = [m.compute(b)[:, 0] for m in self.models]
         raw = np.stack(cols, axis=1) * np.float32(self.scale)
         return CaseScoreResult(scores=raw, mean=raw.mean(axis=1),
                                max=raw.max(axis=1), min=raw.min(axis=1),
                                median=np.median(raw, axis=1))
+
+    def _put(self, bins: np.ndarray) -> torch.Tensor:
+        """The binned batch on the scoring device, once, in the ensemble's
+        wire dtype (the reference's ``ensemble_bins_dtype``)."""
+        from ..ops.tree_quant import ensemble_bins_dtype
+        return torch.from_numpy(np.ascontiguousarray(bins)).to(
+            self.device, ensemble_bins_dtype(self.models))
+
+    # ------------------------------------------------------- multi-class
+    def n_classes(self) -> int:
+        """K from any model's spec extra (``n_classes`` is stamped by both
+        the native and the one-vs-all training paths); 0 = binary."""
+        for m in self.models:
+            k = (getattr(m.spec, "extra", None) or {}).get("n_classes")
+            if k:
+                return int(k)
+        return 0
+
+    def score_classes(self, x: Optional[np.ndarray],
+                      bins: np.ndarray) -> np.ndarray:
+        """[n, K] class scores (reference ``Scorer.score_classes``): native
+        models contribute their whole distribution row, one-vs-all models
+        their ``class_index`` column; contributors average per class in
+        float64 on the host.  ``x`` is unused until models that read
+        normalized floats are ported."""
+        k = self.n_classes()
+        if k < 2:
+            raise ValueError("score_classes needs multi-class models")
+        b = self._put(bins)
+        sums = np.zeros((len(bins), k))
+        cnts = np.zeros(k)
+        for m in self.models:
+            out = m.compute(b)
+            ci = (m.spec.extra or {}).get("class_index")
+            if out.shape[1] == k:
+                sums += out
+                cnts += 1.0
+            elif ci is not None:
+                sums[:, int(ci)] += out[:, 0]
+                cnts[int(ci)] += 1.0
+            else:
+                raise ValueError(
+                    f"{type(m).__name__} is neither K-output NATIVE nor "
+                    "class-indexed OVA — cannot assemble class scores")
+        return sums / np.maximum(cnts, 1.0)[None, :]
 
 
 class ModelRunner:
@@ -121,3 +167,11 @@ class ModelRunner:
         res = self.scorer.score(tc.x, bins=tc.bins)
         return {"result": res, "target": tc.target, "weight": tc.weight,
                 "n": tc.n, "bins": tc.bins}
+
+    def compute_classes(self, chunk) -> Dict[str, object]:
+        """Multi-class scoring: [n, K] class scores instead of per-model
+        scalar scores."""
+        tc = self.transformer.transform(chunk)
+        cs = self.scorer.score_classes(tc.x, bins=tc.bins)
+        return {"class_scores": cs, "target": tc.target,
+                "weight": tc.weight, "n": tc.n}

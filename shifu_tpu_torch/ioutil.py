@@ -71,6 +71,13 @@ def atomic_savez(path: str, **arrays: np.ndarray) -> None:
     atomic_write_bytes(path, buf.getvalue())
 
 
+def atomic_save_npy(path: str, arr: np.ndarray) -> None:
+    """Single-array ``.npy`` twin of :func:`atomic_savez`."""
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    atomic_write_bytes(path, buf.getvalue())
+
+
 @contextlib.contextmanager
 def atomic_open(path: str, mode: str = "w", **kwargs) -> Iterator[Any]:
     """Streaming writer with the temp + ``os.replace`` discipline: a clean

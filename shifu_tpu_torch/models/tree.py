@@ -141,8 +141,10 @@ class IndependentTreeModel:
 
     def quant_packed(self, device: torch.device):
         """The kernel's packed form of the forest on a CUDA ``device``
-        (``tree_quant.pack_forest``, built once beside the stacked arrays);
-        None on the CPU, whose plain walk reads the stacked arrays."""
+        (``tree_quant.pack_forest``, built once beside the stacked arrays;
+        a native multi-class forest packs its node-index form, whose walk
+        ends on node ids the class distributions are gathered at); None
+        on the CPU, whose plain walk reads the stacked arrays."""
         if device.type == "cpu":
             return None
         if device not in self._packed:

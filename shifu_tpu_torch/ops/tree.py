@@ -2,14 +2,18 @@
 growth path: the histogram build (kernel B1, :func:`build_histograms`) and
 its tree-batched form (kernel B2, :func:`build_histograms_batch`), the
 split-gain scan (:func:`best_splits`: variance, Friedman MSE, entropy,
-gini), the leaf-wise node budget, and whole-tree level-wise growth with
-histogram subtraction, one tree at a time (:func:`grow_tree`, GBT) or a
-batch of independent trees one level at a time (:func:`grow_forest`,
-Random Forest).  Forests are walked by ``ops.tree_quant`` (kernel B4).
+gini, and multi-class entropy/gini over per-class channels), the leaf-wise
+node budget, and whole-tree level-wise growth with histogram subtraction,
+one tree at a time (:func:`grow_tree`, GBT) or a batch of independent
+trees one level at a time (:func:`grow_forest`: the Random Forest's tree
+batch, the members of a bagged or grid-searched GBT).  Forests are walked
+by ``ops.tree_quant`` (kernel B4; :func:`predict_forest` groups a forest
+by depth for it).
 
 Trees are complete binary arrays (node i's children at 2i+1 / 2i+2):
 ``split_feat[node]`` (-1 = leaf), a per-bin ``left_mask`` (numeric and
-categorical splits alike: "bin in the left set") and ``leaf_value``.
+categorical splits alike: "bin in the left set") and ``leaf_value`` ([nodes],
+or [nodes, K] class distributions for a native multi-class forest).
 
 Everything here is eager PyTorch on the device of its inputs, with no
 host sync: a grown tree stays on the device until its caller copies it.
@@ -35,7 +39,7 @@ class TreeArrays:
     """Complete binary tree, node i's children at 2i+1 / 2i+2."""
     split_feat: np.ndarray   # [nodes] int32, -1 = leaf
     left_mask: np.ndarray    # [nodes, n_bins] bool: bin goes left
-    leaf_value: np.ndarray   # [nodes] float32
+    leaf_value: np.ndarray   # [nodes] (or [nodes, K]) float32
     depth: int
 
     @property
@@ -120,19 +124,47 @@ def _impurity_score(w, wy, kind: str):
     raise ValueError(f"unknown impurity {kind!r}")
 
 
+def _class_score(cnt, kind: str):
+    """Multi-class purity score from per-class weight counts ``cnt``
+    [..., K]; gain = score_L + score_R - score_P (reference
+    ``_class_score``, multiclass Entropy/Gini of ``dt/Impurity.java``)."""
+    tot = cnt.sum(-1).clamp_min(EPS)
+    p = cnt.clamp_min(0.0) / tot[..., None]
+    if kind == "entropy":
+        h = -torch.where(p > 0, p * torch.log2(p.clamp_min(EPS)),
+                         0.0).sum(-1)
+        return -tot * h
+    if kind == "gini":
+        return -tot * (1.0 - (p * p).sum(-1))
+    raise ValueError(f"multi-class impurity must be entropy/gini, "
+                     f"got {kind!r}")
+
+
 def best_splits(hist, cat_mask, feat_active, impurity: str = "variance",
                 min_instances: float = 1.0, min_gain: float = 0.0,
-                has_cat: bool = True):
+                has_cat: bool = True, n_classes: int = 0):
     """Best split per node from the level histogram hist [nodes, C, B, 2]
-    (w, wy); cat_mask [C] bool (categorical bins sort by response before
-    the prefix scan), feat_active [C] bool (feature subset).  ``impurity``
-    is ``variance`` or ``friedmanmse`` (GBT) or ``entropy`` or ``gini``
-    (RF/DT, binary targets; native multiclass histograms are not ported).
+    (w, wy) — or, when ``n_classes > 2``, [nodes, C, B, K] per-class weight
+    counts (native multi-class).  cat_mask [C] bool (categorical bins sort
+    by response before the prefix scan: the positive rate, or the mean
+    class index for K classes), feat_active [C] bool (feature subset).
+    ``impurity`` is ``variance`` or ``friedmanmse`` (GBT) or ``entropy``
+    or ``gini`` (RF/DT).
 
     Returns (gain [nodes], feat [nodes] int32, left_mask [nodes, B] bool,
-    leaf_value [nodes], node_w [nodes]).  ``has_cat=False`` (the caller
-    knows its mask has no categorical column) skips the sort."""
-    w, wy = hist[..., 0], hist[..., 1]
+    leaf_value [nodes] (or [nodes, K] class distributions), node_w
+    [nodes]).  ``has_cat=False`` (the caller knows its mask has no
+    categorical column) skips the sort."""
+    multiclass = n_classes > 2
+    if multiclass:
+        cls = hist
+        w = cls.sum(-1)
+        # the categorical sort's response: the mean class index
+        wy = (cls * torch.arange(n_classes, dtype=hist.dtype,
+                                 device=hist.device)).sum(-1) \
+            if has_cat else w
+    else:
+        w, wy = hist[..., 0], hist[..., 1]
     n_nodes, c, b = w.shape
     dev = hist.device
     if has_cat:
@@ -149,7 +181,15 @@ def best_splits(hist, cat_mask, feat_active, impurity: str = "variance",
     cw = torch.cumsum(w_o, dim=-1)
     cwy = torch.cumsum(wy_o, dim=-1)
     tw, twy = cw[..., -1:], cwy[..., -1:]
-    if impurity == "friedmanmse":
+    if multiclass:
+        cls_o = cls.gather(2, order[..., None].expand(-1, -1, -1, n_classes)) \
+            if has_cat else cls
+        ccls = torch.cumsum(cls_o, dim=2)
+        tcls = ccls[:, :, -1:, :]
+        gain = (_class_score(ccls, impurity)
+                + _class_score(tcls - ccls, impurity)
+                - _class_score(tcls, impurity))
+    elif impurity == "friedmanmse":
         # Friedman's improvement (reference dt/Impurity.java:313-315)
         wl, wr = cw, tw - cw
         diff = wr * cwy - wl * (twy - cwy)
@@ -179,7 +219,10 @@ def best_splits(hist, cat_mask, feat_active, impurity: str = "variance",
         left_mask = torch.arange(b, device=dev)[None, :] <= k_sel
 
     node_w = tw[:, 0, 0]
-    leaf_value = twy[:, 0, 0] / node_w.clamp_min(EPS)
+    if multiclass:
+        leaf_value = tcls[:, 0, 0, :] / node_w.clamp_min(EPS)[:, None]
+    else:
+        leaf_value = twy[:, 0, 0] / node_w.clamp_min(EPS)
     ok = torch.isfinite(node_gain) & (node_gain > min_gain)
     feat = torch.where(ok, best_feat, -1).to(torch.int32)
     return node_gain, feat, left_mask & ok[:, None], leaf_value, node_w
@@ -268,42 +311,53 @@ def _leaf_raw_hist(stats, node_idx, n_nodes: int):
 _leaf_raw_hist.launches = 0
 
 
-def leaf_values_from_raw(sums):
-    """[S, K] raw stat sums -> [K] leaf values ``wy / w``."""
+def leaf_values_from_raw(sums, n_classes: int = 0):
+    """[S, K] raw stat sums -> leaf values: [K] ``wy / w``, or [K, S]
+    class distributions when ``n_classes > 2`` (reference
+    ``leaf_values_from_raw``)."""
+    if n_classes > 2:
+        return (sums / sums.sum(dim=0).clamp_min(EPS)[None, :]).T
     return sums[1] / sums[0].clamp_min(EPS)
 
 
 def grow_tree(bins, stats, cat, fa, n_bins: int, depth: int,
               impurity: str, min_instances: float, min_gain: float,
-              max_leaves: int = 0, has_cat: bool = True):
+              max_leaves: int = 0, has_cat: bool = True,
+              n_classes: int = 0):
     """Whole-tree level-wise growth (the resident path of the reference's
     ``grow_tree_jit``) on the device of ``bins``, with no host sync.
 
-    bins [N, C] (uint8 or int32), stats [N, 2] f32 ``[w, w*grad]``, cat
-    [C] bool, fa [C] bool.  Level l < depth builds only the LEFT-child
+    bins [N, C] (uint8 or int32), stats [N, 2] f32 ``[w, w*grad]`` (or
+    [N, K] per-class weights when ``n_classes > 2``), cat [C] bool, fa [C]
+    bool.  Level l < depth builds only the LEFT-child
     histogram (K = 2^(l-1); the full root at level 0) and derives each
     right child as parent - left, zero under a frozen parent: a depth-d
     tree launches B1 d times.  The bottom level needs leaf sums only
     (:func:`_level_leaf_raw`: one more B1 launch on the card).
 
     Returns (split_feat [total] int32, left_mask [total, B] bool,
-    leaf_value [total] f32, gain_fi [C] f32 realized split gains per
-    feature, leaf_glob [N] int32 terminal node per row)."""
+    leaf_value [total] (or [total, K]) f32, gain_fi [C] f32 realized split
+    gains per feature, leaf_glob [N] int32 terminal node per row)."""
     def level_hists(node_idx, n_nodes):
         return [build_histograms(bins, node_idx[0], stats, n_nodes, n_bins)]
     return _grow(bins, [stats], cat, [fa], n_bins, depth, impurity,
-                 min_instances, min_gain, max_leaves, has_cat,
-                 level_hists)[0]
+                 [min_instances], [min_gain], max_leaves, has_cat,
+                 level_hists, n_classes)[0]
 
 
 def grow_forest(bins, stats_b, cat, fa_b, n_bins: int, depth: int,
-                impurity: str, min_instances: float, min_gain: float,
-                max_leaves: int = 0, has_cat: bool = True):
+                impurity: str, min_instances, min_gain,
+                max_leaves: int = 0, has_cat: bool = True,
+                n_classes: int = 0):
     """TB independent trees grown level-wise together — the port of the
-    reference's ``grow_forest_jit`` (the Random Forest's tree batch).
+    reference's ``grow_forest_jit`` (the Random Forest's tree batch) and
+    of its vmapped member axis (the trees of one round of a bagged or
+    grid-searched GBT).
 
-    stats_b [TB, N, S] per-tree channels (each tree's bag), fa_b [TB, C]
-    per-tree feature subsets; ``bins`` and ``cat`` are shared.  Each
+    stats_b [TB, N, S] per-tree channels (each tree's bag or gradients),
+    fa_b [TB, C] per-tree feature subsets; ``min_instances`` and
+    ``min_gain`` are one value for every tree or a sequence of TB;
+    ``bins`` and ``cat`` are shared.  Each
     level's TB histograms build in ONE launch of kernel B2
     (:func:`build_histograms_batch`), which reads the shared bins once
     for a tile of trees; histogram subtraction, the leaf-sum bottom level
@@ -314,9 +368,14 @@ def grow_forest(bins, stats_b, cat, fa_b, n_bins: int, depth: int,
         return list(build_histograms_batch(bins, torch.stack(node_idx),
                                            stats_b, n_nodes,
                                            n_bins).unbind(0))
+    tb = stats_b.shape[0]
+
+    def per_tree(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v] * tb
     return _grow(bins, list(stats_b.unbind(0)), cat, list(fa_b.unbind(0)),
-                 n_bins, depth, impurity, min_instances, min_gain,
-                 max_leaves, has_cat, level_hists)
+                 n_bins, depth, impurity, per_tree(min_instances),
+                 per_tree(min_gain), max_leaves, has_cat, level_hists,
+                 n_classes)
 
 
 def _subtract(hls, hist_prev, feat_prev):
@@ -336,10 +395,11 @@ def _subtract(hls, hist_prev, feat_prev):
 
 
 def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
-          min_instances: float, min_gain: float, max_leaves: int,
-          has_cat: bool, level_hists):
+          min_instances, min_gain, max_leaves: int, has_cat: bool,
+          level_hists, n_classes: int = 0):
     """The level loop of :func:`grow_tree` and :func:`grow_forest` for
-    trees t with ``stats[t]`` and ``fa[t]``; ``level_hists(node_idx,
+    trees t with ``stats[t]``, ``fa[t]``, ``min_instances[t]`` and
+    ``min_gain[t]``; ``level_hists(node_idx,
     K)`` builds every tree's [K, C, B, S] histogram of one level from the
     per-tree node ids.  Each tree runs the same per-tree ops in the same
     order whatever the batch, which is what makes a batched tree equal a
@@ -365,7 +425,8 @@ def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
         if level == depth:
             for t in range(tb):
                 leaves[t].append(leaf_values_from_raw(
-                    _level_leaf_raw(stats[t], node_idx[t], n_nodes)))
+                    _level_leaf_raw(stats[t], node_idx[t], n_nodes),
+                    n_classes))
                 feats[t].append(torch.full((n_nodes,), -1, dtype=torch.int32,
                                            device=dev))
                 lmasks[t].append(torch.zeros((n_nodes, n_bins),
@@ -380,8 +441,8 @@ def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
         hist_prev, feat_prev = hists, [None] * tb
         for t in range(tb):
             gain, feat, lmask, leaf, _ = best_splits(
-                hists[t], cat, fa[t], impurity, min_instances, min_gain,
-                has_cat)
+                hists[t], cat, fa[t], impurity, min_instances[t],
+                min_gain[t], has_cat, n_classes)
             if max_leaves > 0:
                 feat, lmask, nodes_cnt[t] = cap_splits_by_leaves(
                     gain, feat, lmask, nodes_cnt[t], max_leaves)
@@ -402,3 +463,35 @@ def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
                                        + node_idx[t], leaf_glob[t])
     return [(torch.cat(feats[t]), torch.cat(lmasks[t]), torch.cat(leaves[t]),
              gain_fi[t], leaf_glob[t]) for t in range(tb)]
+
+
+# ---------------------------------------------------------------- predict
+def forest_predictions(trees, bins) -> torch.Tensor:
+    """[T, N] (or [T, N, K] for class-distribution leaves) per-tree
+    predictions of host ``trees`` over the bin plane ``bins`` (uint8 or
+    int32, on the device that walks it), one ``ops.tree_quant`` walk per
+    depth group (continuous runs may append trees of another depth):
+    kernel B4 for CUDA tensors, its plain version on the CPU."""
+    from . import tree_quant as tq
+    by_depth: dict = {}
+    for i, t in enumerate(trees):
+        by_depth.setdefault(t.depth, []).append(i)
+    out = None
+    for depth, idxs in by_depth.items():
+        preds = tq.predict_forest_quant(*tq.stack_forest_quant(
+            [trees[i] for i in idxs], bins.device), bins, depth)
+        if out is None:
+            out = preds.new_empty((len(trees),) + tuple(preds.shape[1:]))
+        out[idxs] = preds
+    return out
+
+
+def predict_forest(trees, bins, weights=None) -> torch.Tensor:
+    """Weighted-average forest prediction over ``bins`` (the RF mean
+    vote; [N], or [N, K] for a multi-class forest) — reference
+    ``predict_forest``, walked by :func:`forest_predictions`."""
+    preds = forest_predictions(trees, bins)
+    if weights is None:
+        return preds.mean(dim=0)
+    w = torch.as_tensor(np.asarray(weights, np.float32), device=preds.device)
+    return (preds * w.reshape((-1,) + (1,) * (preds.dim() - 1))).sum(dim=0)

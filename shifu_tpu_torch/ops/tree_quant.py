@@ -11,7 +11,12 @@ Two versions of one function, :func:`predict_forest_quant`:
   (:func:`pack_forest`: one record of bitset and split feature a node,
   staged in shared memory), which a caller that pins a forest on the card
   builds once and passes in; without it the wrapper packs on the fly.
-  Wider masks take the kernel's wide path over the uint8 masks;
+  Wider masks take the kernel's wide path over the uint8 masks.
+  Multi-class leaves ([T, K, S] class distributions) take the node-index
+  walk: the kernel runs over the forest with every leaf value replaced by
+  its node's index (exact in f32 up to 2^24 nodes; the leaf is a pure
+  select), and the [T, K, S] leaves are gathered at those indices on the
+  device (the reference gathers ``lv[traverse_quant(...)]`` likewise);
 - the plain PyTorch version :func:`predict_forest_quant_ref` — the narrow
   gather walk of the reference's jnp fallback — taken for CPU tensors
   only.  It is the CPU path and the kernel's oracle on the card.
@@ -89,16 +94,44 @@ def mask_words(n_bins: int) -> int:
     return 2 if n_bins <= 64 else 4 if n_bins <= 128 else 8
 
 
+#: the most nodes a tree may have for the node-index walk: node ids ride
+#: the kernel's f32 leaf values, exact up to 2^24
+MAX_INDEX_NODES = 1 << 24
+
+
+def node_index_leaves(split_feats) -> torch.Tensor:
+    """[T, K] f32 leaf values that are each node's own index — the forest
+    the node-index walk of multi-class leaves runs the kernel over."""
+    t, k = split_feats.shape
+    if k > MAX_INDEX_NODES:
+        raise ValueError(f"tree_traverse kernel: the node-index walk takes "
+                         f"trees of at most {MAX_INDEX_NODES} nodes, got {k}")
+    return torch.arange(k, dtype=torch.float32,
+                        device=split_feats.device).expand(t, k).contiguous()
+
+
+def gather_leaves(leaf_values, node) -> torch.Tensor:
+    """[T, N, S] class distributions at the terminal nodes ``node`` [T, N]
+    (integer, or the node-index walk's f32 ids) of leaves [T, K, S]."""
+    trees = torch.arange(node.shape[0], device=node.device)[:, None]
+    return leaf_values[trees, node.long()]
+
+
 def pack_forest(split_feats, left_u8s, leaf_values,
                 depth: int) -> Optional[PackedForest]:
     """The packed form of a stacked forest (``stack_forest_quant``'s
     arrays), built with tensor ops on the arrays' device; None where the
-    kernel walks the arrays as they are (masks wider than 256 bins,
-    multiclass leaves, depth past :data:`MAX_PACKED_DEPTH`)."""
+    kernel walks the arrays as they are (masks wider than 256 bins, depth
+    past :data:`MAX_PACKED_DEPTH`).  A forest with multi-class leaves
+    [T, K, S] packs for the node-index walk: its packed leaves are the
+    node ids (:func:`node_index_leaves`), and the caller gathers the
+    class distributions (:func:`gather_leaves`)."""
     t, k = split_feats.shape
     b = left_u8s.shape[2]
-    if b > 256 or leaf_values.dim() != 2 \
-            or not 0 <= depth <= MAX_PACKED_DEPTH or k < n_tree_nodes(depth):
+    if leaf_values.dim() == 3:
+        leaf_values = node_index_leaves(split_feats)
+    if b > 256 or not 0 <= depth <= MAX_PACKED_DEPTH \
+            or k < n_tree_nodes(depth):
         return None
     dev = split_feats.device
     w32 = mask_words(b)
@@ -172,8 +205,7 @@ def predict_forest_quant_ref(split_feats, left_u8s, leaf_values, bins,
     node = _walk(split_feats, left_u8s, bins, depth)
     if leaf_values.dim() == 2:
         return leaf_values.gather(1, node)
-    trees = torch.arange(node.shape[0], device=node.device)[:, None]
-    return leaf_values[trees, node]
+    return gather_leaves(leaf_values, node)
 
 
 # ------------------------------------------------------------ the kernel
@@ -270,22 +302,31 @@ def predict_forest_quant(split_feats, left_u8s, leaf_values, bins,
                          depth: int,
                          packed: Optional[PackedForest] = None
                          ) -> torch.Tensor:
-    """[T, N] forest predictions over a uint8 or int32 bin plane: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.
-    ``packed`` is the forest's :func:`pack_forest` form on the card, built
-    once by a caller that pins the forest (the kernel's input; the plain
-    version does not read it).  ``launches`` counts kernel launches (never
-    plain-version calls)."""
+    """[T, N] (or [T, N, S] for multi-class leaves [T, K, S]) forest
+    predictions over a uint8 or int32 bin plane: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.  ``packed`` is the
+    forest's :func:`pack_forest` form on the card, built once by a caller
+    that pins the forest (the kernel's input; the plain version does not
+    read it).  Multi-class leaves launch the kernel once for the
+    node-index walk and gather their distributions on the device.
+    ``launches`` counts kernel launches (never plain-version calls)."""
     if bins.device.type == "cpu":
         return predict_forest_quant_ref(split_feats, left_u8s, leaf_values,
                                         bins, depth)
     if bins.device.type != "cuda":
         raise ValueError(f"predict_forest_quant: no kernel for device "
                          f"{bins.device}")
-    if leaf_values.dim() != 2:
-        raise NotImplementedError(
-            "multiclass [T, K, S] leaves have no CUDA kernel yet — score "
-            "them with predict_forest_quant_ref")
+    if leaf_values.dim() == 3:
+        if leaf_values.device != bins.device \
+                or leaf_values.shape[:2] != split_feats.shape:
+            raise ValueError(f"tree_traverse kernel: multi-class leaves "
+                             f"{tuple(leaf_values.shape)} on "
+                             f"{leaf_values.device} do not fit split_feats "
+                             f"{tuple(split_feats.shape)} on {bins.device}")
+        node = _predict_quant_cuda(split_feats, left_u8s,
+                                   node_index_leaves(split_feats), bins,
+                                   depth, packed)
+        return gather_leaves(leaf_values, node)
     return _predict_quant_cuda(split_feats, left_u8s, leaf_values, bins,
                                depth, packed)
 
@@ -320,13 +361,15 @@ def quant_traverse_cost(rows: int, n_feat: int, n_bins: int,
     return {"flops": flops, "bytes_accessed": read + write}
 
 
-def traverse_bytes(split_feats, left_u8s, bins, depth: int) -> dict:
+def traverse_bytes(split_feats, left_u8s, bins, depth: int,
+                   leaf_width: int = 1) -> dict:
     """What one traversal launch must move for THIS data, each element
     read once: the bins some walk reads, the split feature of every node a
     walk visits, the left-mask entries the walks look up, the leaf value of
-    every terminal node, and the [T, N] f32 output; plus the split steps
-    taken over all (tree, row) pairs.  Unlike :func:`quant_traverse_cost`
-    it charges nothing that no row reaches."""
+    every terminal node (``leaf_width`` f32 each: S for a class
+    distribution), and the [T, N] (or [T, N, S]) f32 output; plus the
+    split steps taken over all (tree, row) pairs.  Unlike
+    :func:`quant_traverse_cost` it charges nothing that no row reaches."""
     t, k = split_feats.shape
     n, c = bins.shape
     b = left_u8s.shape[2]
@@ -357,5 +400,5 @@ def traverse_bytes(split_feats, left_u8s, bins, depth: int) -> dict:
     read_lv[(tree_base + node).reshape(-1)] = True
     nbytes = int(read_bins.sum()) * bins.element_size() \
         + int(read_sf.sum()) * 4 + int(read_lm.sum()) \
-        + int(read_lv.sum()) * 4 + 4 * t * n
+        + (int(read_lv.sum()) * 4 + 4 * t * n) * leaf_width
     return {"bytes": nbytes, "split_steps": int(steps)}

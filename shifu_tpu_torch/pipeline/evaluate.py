@@ -10,11 +10,14 @@ launch per model per chunk on a CUDA device.  Outputs mirror
 model0…``, scores at ``%.3f``), ``EvalPerformance.json``,
 ``EvalConfusionMatrix``, ``gainchart.csv`` and ``report.html``.  The
 sweep behind the report runs on the host in float64, as the reference's
-does once the scores are in its score file.
+does once the scores are in its score file.  A multi-class set (more than
+two ``posTags``, no ``negTags``) writes ``tag|weight|predictedTag|
+score_<tag>…`` at ``%.6f`` and an ``EvalPerformance.json`` with accuracy,
+per-class AUC, macro AUC and the confusion matrix
+(:meth:`EvalProcessor._run_one_multiclass`).
 
-Not ported: multiclass eval (ROADMAP Queue 1 item 6, which brings
-multiclass trees) and telemetry (the drift monitor, item 13) raise
-``NotImplementedError`` naming their item.  The reference also writes the
+Not ported: telemetry (the drift monitor, ROADMAP Queue 1 item 13) raises
+``NotImplementedError`` naming its item.  The reference also writes the
 post-train quality snapshot ``telemetry/posttrain.json`` on every run, the
 baseline its serving quality monitor reads (item 11); the port writes no
 such file and logs a warning saying so on every scored run.  Scoring runs on one device: the reference's multi-chip mesh
@@ -37,7 +40,8 @@ from ..config.model_config import EvalConfig, RawSourceData
 from ..config.validator import ModelStep
 from ..data.parsepool import iter_extracted
 from ..data.reader import DataSource
-from ..eval.metrics import evaluate_curves, gain_chart_rows, sweep
+from ..eval.metrics import (evaluate_curves, evaluate_multiclass,
+                            gain_chart_rows, sweep)
 from ..eval.scorer import ModelRunner, Scorer
 from .processor import BasicProcessor, telemetry_requested
 
@@ -173,7 +177,7 @@ class EvalProcessor(BasicProcessor):
     def _run_one(self, idx: int, action: str, scorer: Scorer) -> int:
         mc = self.model_config
         if mc.is_multi_class() and len(mc.dataSet.posTags) > 2:
-            raise _not_ported("multiclass eval", 6)
+            return self._run_one_multiclass(idx, action, scorer)
         ev = mc.evals[idx]
         runner = ModelRunner(mc, self.column_configs, scorer.models,
                              for_eval_set=idx, device=self.device)
@@ -247,6 +251,78 @@ class EvalProcessor(BasicProcessor):
         log.info("eval %s: AUC %.6f weighted AUC %.6f PR-AUC %.6f",
                  ev.name, result.areaUnderRoc, result.weightedAuc,
                  result.areaUnderPr)
+        return 0
+
+    def _run_one_multiclass(self, idx: int, action: str,
+                            scorer: Scorer) -> int:
+        """Multi-class eval (reference ``_run_one_multiclass``): [n, K]
+        class scores, argmax predicted tag, accuracy + per-class OvR AUC
+        + K x K confusion (reference ``MultiClsTagPredictor`` +
+        ``EvalScoreUDF`` multi-class columns)."""
+        mc = self.model_config
+        ev = mc.evals[idx]
+        runner = ModelRunner(mc, self.column_configs, scorer.models,
+                             for_eval_set=idx, device=self.device)
+        os.makedirs(self.paths.eval_dir(ev.name), exist_ok=True)
+        # the SAME tag resolution ChunkExtractor uses: eval-set tags first
+        # — class indices in targets are positions in THIS list
+        tags = list(ev.dataSet.posTags or mc.dataSet.posTags)
+        k_models = scorer.n_classes()
+        if k_models and len(tags) != k_models:
+            raise ValueError(
+                f"eval set {ev.name} lists {len(tags)} tags but the models "
+                f"were trained over {k_models} classes — tag lists must "
+                "match in length and order")
+        all_cs, all_t, all_w = [], [], []
+        score_path = self.paths.eval_score_path(ev.name)
+        tag_arr = np.asarray(tags, dtype=object)
+        with self.phase(f"score:{ev.name}"), \
+                ioutil.atomic_open(score_path, newline="") as sf:
+            w = csv.writer(sf, delimiter="|")
+            w.writerow(["tag", "weight", "predictedTag"]
+                       + [f"score_{t}" for t in tags])
+            for _, ex in iter_extracted(self._source(ev.dataSet),
+                                        runner.transformer.extractor):
+                out = runner.compute_classes(ex)
+                if out["n"] == 0:
+                    continue
+                cs = out["class_scores"]
+                block = np.column_stack(
+                    [out["target"].astype(int).astype(str),
+                     out["weight"].astype(str),
+                     tag_arr[cs.argmax(axis=1)].astype(str)]
+                    + [np.char.mod("%.6f", cs[:, k])
+                       for k in range(cs.shape[1])])
+                w.writerows(block.tolist())
+                all_cs.append(cs)
+                all_t.append(out["target"])
+                all_w.append(out["weight"])
+        if not all_cs:
+            log.error("eval %s: no records scored", ev.name)
+            return 1
+        cs = np.concatenate(all_cs)
+        log.info("eval %s: scored %d records over %d classes with %d "
+                 "model(s) on %s", ev.name, len(cs), len(tags),
+                 len(scorer.models), self.device)
+        if action == "score":
+            if not self.params.get("nosort"):
+                # same default as the binary path: sorted for review,
+                # multiclass keyed by the winning class's score
+                with open(score_path) as f:
+                    header = f.readline()
+                    rows = f.readlines()
+                order = np.argsort(-cs.max(axis=1), kind="stable")
+                with ioutil.atomic_open(score_path) as f:
+                    f.write(header)
+                    f.writelines(rows[i] for i in order)
+            return 0
+        rep = evaluate_multiclass(cs, np.concatenate(all_t),
+                                  np.concatenate(all_w))
+        rep["tags"] = tags
+        ioutil.atomic_write_json(self.paths.eval_performance_path(ev.name),
+                                 rep)
+        log.info("eval %s: accuracy %.6f macro OvR AUC %.6f", ev.name,
+                 rep["accuracy"], rep["macroAuc"])
         return 0
 
     def _write_confusion(self, name: str, result) -> None:

@@ -1,7 +1,9 @@
 """Card-only tests of the port's hand-written CUDA kernels: each kernel
-(B4 ``tree_traverse``, B1 ``hist``, B2 ``hist_batch``, B3 ``stats_hist``)
-against its plain PyTorch version on the same numpy-seeded inputs (B2 also
-against B1 tree by tree); tree growth, Random Forest bags and the stats
+(B4 ``tree_traverse``, also its node-index walk of multi-class leaves,
+B1 ``hist``, B2 ``hist_batch``, B3 ``stats_hist``) against its plain
+PyTorch version on the same numpy-seeded inputs (B2 also against B1 tree
+by tree, for multi-class channels too, and bagged GBT members against
+single runs); tree growth, Random Forest bags and the stats
 accumulator on the card against the CPU; GBT and RF chunks run under
 ``torch.cuda.set_sync_debug_mode("error")``; and the port's ``eval`` on
 the card against the CPU, with its ``tree_traverse`` launch count.
@@ -112,11 +114,36 @@ def test_tree_traverse_kernel_rejects_what_it_cannot_take(cuda):
         tq.predict_forest_quant(sf, lm, lv, bins.t().contiguous().t(), 3)
     with pytest.raises(ValueError, match="nodes per tree"):
         tq.predict_forest_quant(sf, lm, lv, bins, 4)
-    with pytest.raises(NotImplementedError):
-        tq.predict_forest_quant(sf, lm, lv[..., None], bins, 3)
+    with pytest.raises(ValueError, match="multi-class leaves"):
+        tq.predict_forest_quant(sf, lm, lv[:1, :, None], bins, 3)
     with pytest.raises(ValueError, match="packed forest"):
         tq.predict_forest_quant(sf, lm, lv, bins, 2, packed=tq.pack_forest(
             sf, lm, lv, 3))
+
+
+@pytest.mark.parametrize("n_rows,n_bins,depth,dtype", [
+    (1, 64, 7, np.uint8), (65536, 64, 14, np.uint8), (4096, 256, 5, np.uint8),
+    (777, 300, 4, np.int32)])
+def test_node_index_walk_equals_plain_version(cuda, n_rows, n_bins, depth,
+                                              dtype):
+    """Multi-class [T, K, S] leaves launch B4 once over the node-index
+    forest (packed or on the fly; the wide path past 256 bins) and gather
+    on the card: bit-equal to the plain version, never falling back."""
+    sf, lm, _ = _forest(4, depth, n_bins, 37, seed=n_rows + depth)
+    lv = np.random.default_rng(depth).random(
+        (4, n_tree_nodes(depth), 3)).astype(np.float32)
+    bins = np.random.default_rng(n_rows).integers(
+        0, n_bins, size=(n_rows, 37)).astype(dtype)
+    args = _on(cuda, sf, lm, lv, bins)
+    packed = tq.pack_forest(*args[:3], depth)
+    before = tq.predict_forest_quant.launches
+    got = tq.predict_forest_quant(*args, depth, packed=packed)
+    fly = tq.predict_forest_quant(*args, depth)
+    torch.cuda.synchronize()
+    assert tq.predict_forest_quant.launches == before + 2
+    want = tq.predict_forest_quant_ref(*args, depth)
+    assert got.shape == (4, n_rows, 3)
+    assert torch.equal(got, want) and torch.equal(fly, want)
 
 
 # ------------------------------------------------------------------ B1
@@ -461,6 +488,71 @@ def test_grow_forest_on_the_card_equals_grow_tree(cuda):
                                0.0, max_leaves)
             for x, z in zip(forest[t], one):
                 assert torch.equal(x, z), (max_leaves, t)
+
+
+def test_multiclass_forest_on_the_card_equals_grow_tree(cuda):
+    """Native multi-class channels (S = 3): grow_forest on B2 equals
+    grow_tree on B1 tree by tree, and the CPU's splits."""
+    from shifu_tpu_torch.ops import tree as tt
+    rng = np.random.default_rng(12)
+    n, c = 20000, 16
+    y = rng.integers(0, 3, n)
+    bins = rng.integers(0, 32, size=(n, c)).astype(np.uint8)
+    bins[:, 4] = np.where(rng.random(n) < 0.7, y * 10, bins[:, 4])
+    bag = rng.poisson(1.0, size=(3, n)).astype(np.float32)
+    stats = bag[:, :, None] * np.eye(3, dtype=np.float32)[y]
+    fa = rng.random((3, c)) < 0.8
+    fa[:, 4] = True
+    cat = np.zeros(c, bool)
+    cat[9] = True
+    b, st, ct, f = _on(cuda, bins, stats, cat, fa)
+    forest = tt.grow_forest(b, st, ct, f, 32, 6, "entropy", 1.0, 1e-3,
+                            n_classes=3)
+    for t in range(3):
+        one = tt.grow_tree(b, st[t], ct, f[t], 32, 6, "entropy", 1.0, 1e-3,
+                           n_classes=3)
+        for x, z in zip(forest[t], one):
+            assert torch.equal(x, z), t
+    cpu = tt.grow_tree(*_on(torch.device("cpu"), bins, stats[0], cat, fa[0]),
+                       32, 6, "entropy", 1.0, 1e-3, n_classes=3)
+    assert torch.equal(forest[0][0].cpu(), cpu[0])
+    assert torch.allclose(forest[0][2].cpu(), cpu[2], rtol=1e-5, atol=1e-6)
+
+
+def test_bagged_gbt_on_the_card_equals_single_runs(cuda):
+    """Three bagged GBT members boost side by side: one B2 launch a level
+    with TB = 3 (and B1 for the leaf sums only), each member bit-identical
+    to ``train_gbt`` on its weights on the card."""
+    from dataclasses import replace
+    from shifu_tpu_torch.ops import tree as tt
+    from shifu_tpu_torch.train import dt_trainer as dt
+    from shifu_tpu_torch.train.sampling import validation_split
+    rng = np.random.default_rng(13)
+    n, c = 50000, 24
+    bins = rng.integers(0, 64, size=(n, c)).astype(np.uint8)
+    logit = 1.5 * (bins[:, 3] > 40) - (bins[:, 11] < 10)
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    w = rng.integers(1, 4, size=n).astype(np.float32)
+    cat = np.zeros(c, bool)
+    cat[5] = True
+    s = dt.DTSettings(n_trees=4, depth=5, loss="log", learning_rate=0.1,
+                      feature_subset="HALF")
+    members = [replace(s, seed=b) for b in range(3)]
+    vm = [validation_split(n, s.valid_rate, m.seed) for m in members]
+    tw, vw = np.stack([w * ~v for v in vm]), np.stack([w * v for v in vm])
+    batch, single = (tt.build_histograms_batch.launches,
+                     tt.build_histograms.launches)
+    bagged = dt.train_gbt_bagged(bins, y, tw, vw, 64, cat, members,
+                                 device=cuda)
+    assert tt.build_histograms_batch.launches == batch + 4 * 5
+    assert tt.build_histograms.launches == single + 4 * 3
+    for m, rb in zip(members, bagged):
+        r1 = dt.train_gbt(bins, y, w, 64, cat, m, device=cuda)
+        for a, b in zip(r1.trees, rb.trees):
+            assert a.split_feat.tobytes() == b.split_feat.tobytes()
+            assert a.left_mask.tobytes() == b.left_mask.tobytes()
+            assert a.leaf_value.tobytes() == b.leaf_value.tobytes()
+        assert rb.history == r1.history
 
 
 def test_bags_on_the_card_equal_the_cpu(cuda):

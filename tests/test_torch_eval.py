@@ -244,14 +244,45 @@ def test_score_records_offline_matches_reference_and_serve(trained_set):
 
 
 def test_multiclass_eval_raises_item_6(pair):
+    """Multi-class eval, no longer raising (it was ROADMAP item 6): the
+    trained forest stamped as three one-vs-all members (``class_index``
+    0-2, each with its own prior) over three tags, scored by both
+    packages; accuracy and confusion matrix equal, per-class AUC within
+    AUC_TOL (the third class has no rows: NaN in both), class scores
+    within 1e-5 in the ``%.6f`` score files."""
     from shifu_tpu_torch.config import ModelConfig
-    port = pair[1]
-    path = os.path.join(port, "ModelConfig.json")
-    mc = ModelConfig.load(path)
-    mc.dataSet.posTags, mc.dataSet.negTags = ["bad", "good", "meh"], []
-    mc.save(path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _eval_port(port, run_eval="")
+    from shifu_tpu_torch.models.tree import load_model, save_model
+    for d in pair:
+        path = os.path.join(d, "ModelConfig.json")
+        mc = ModelConfig.load(path)
+        mc.dataSet.posTags, mc.dataSet.negTags = ["bad", "good", "meh"], []
+        mc.evals[0].dataSet.posTags, mc.evals[0].dataSet.negTags = [], []
+        mc.save(path)
+        mdir = os.path.join(d, "models")
+        spec, trees = load_model(os.path.join(mdir, "model0.gbt"))
+        for k in range(3):
+            spec.extra = {"class_index": k, "n_classes": 3}
+            spec.init_score = -0.4 + 0.3 * k
+            save_model(os.path.join(mdir, f"model{k}.gbt"), spec, trees)
+    ref, port = pair
+    assert _eval_ref(ref, run_eval="") == 0
+    assert _eval_port(port, run_eval="") == 0
+    got, want = [json.load(open(os.path.join(d, EVAL,
+                                             "EvalPerformance.json")))
+                 for d in (port, ref)]
+    assert got["nClasses"] == want["nClasses"] == 3
+    assert got["accuracy"] == want["accuracy"]
+    assert got["confusionMatrix"] == want["confusionMatrix"]
+    assert got["classCounts"] == want["classCounts"]
+    np.testing.assert_allclose(got["perClassAuc"], want["perClassAuc"],
+                               atol=AUC_TOL, equal_nan=True)
+    assert np.isnan(got["perClassAuc"][2])
+    (head, a), (head_p, b) = _score_file(ref), _score_file(port)
+    assert head_p == head == ["tag", "weight", "predictedTag",
+                              "score_bad", "score_good", "score_meh"]
+    np.testing.assert_array_equal(b[:, :3], a[:, :3])
+    np.testing.assert_allclose(b[:, 3:].astype(float),
+                               a[:, 3:].astype(float), atol=1e-5)
 
 
 def test_eval_telemetry_raises_not_ported(pair):

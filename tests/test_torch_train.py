@@ -350,12 +350,15 @@ def test_train_raises_without_cuda_unless_cpu_is_asked(monkeypatch,
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"algorithm": "RF", "baggingNum": 2}, "bagged RF"),
-    ({"params": dict(BASE, TreeNum=[2, 3])}, "grid search"),
-    ({"prop": "shifu.train.streaming=on"}, "streamed"),
-    ({"baggingNum": 2}, "bagged GBT")])
+    ({"algorithm": "RF", "baggingNum": 2}, "streamed .*RF members"),
+    ({"params": dict(BASE, TreeNum=[2, 3])}, "streamed .*GBT members"),
+    ({}, "streamed .*GBT training"),
+    ({"baggingNum": 2}, "streamed .*GBT members")])
 def test_unported_paths_raise_naming_their_roadmap_item(prepared_set,
                                                         change, match):
+    """Streamed (out-of-core) training, single or as bagged or grid
+    members, is ROADMAP item 8: with ``shifu.train.streaming=on`` each
+    raises naming it before any member trains."""
     from shifu_tpu_torch.cli import main
     from shifu_tpu_torch.config import ModelConfig
     from shifu_tpu_torch.config.model_config import Algorithm
@@ -364,12 +367,13 @@ def test_unported_paths_raise_naming_their_roadmap_item(prepared_set,
     mc.train.params = change.get("params", dict(BASE))
     mc.train.baggingNum = change.get("baggingNum", 1)
     mc.save(os.path.join(prepared_set, "ModelConfig.json"))
-    argv = ["--dir", prepared_set, "train", "--device", "cpu"]
-    if "prop" in change:
-        argv.insert(0, "-D" + change["prop"])
+    argv = ["-Dshifu.train.streaming=on", "--dir", prepared_set, "train",
+            "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=match) as ei:
         main(argv)
-    assert "ROADMAP Queue 1" in str(ei.value)
+    assert "ROADMAP Queue 1 item 8" in str(ei.value)
+    assert not any(f.startswith("model") for f in os.listdir(
+        os.path.join(prepared_set, "models")))
 
 
 def test_wire_writer_rewrites_the_reference_plane_byte_for_byte(

@@ -123,6 +123,34 @@ def test_multiclass_leaves_take_the_plain_gather():
     assert got.shape == (2, 20, 3) and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("n_bins,depth", [(8, 3), (64, 5), (300, 2)])
+def test_node_index_walk_gathers_the_reference_class_leaves(n_bins, depth):
+    """The node-index route of multi-class leaves in plain form: the walk
+    over the forest whose leaves are node ids (the packed form's plain
+    walk where masks fit 256 bins, the array walk beyond) ends on node
+    ids exactly, and gathering the [T, K, S] leaves there equals the
+    reference's ``_predict_quant_ref``."""
+    sf, lm, _ = _forest(3, depth, n_bins, 6, seed=depth)
+    lv = np.random.default_rng(8).random(
+        (3, n_tree_nodes(depth), 4)).astype(np.float32)
+    dtype = np.uint8 if n_bins <= 256 else np.int32
+    bins = np.random.default_rng(9).integers(
+        0, n_bins, size=(40, 6)).astype(dtype)
+    sf_t, lm_t, lv_t, bins_t = _torch(sf, lm, lv, bins)
+    ids = tq.node_index_leaves(sf_t)
+    packed = tq.pack_forest(sf_t, lm_t, lv_t, depth)
+    if n_bins <= 256:
+        assert torch.equal(packed.leaves, ids)
+        node = tq.forest_walk_ref(packed, bins_t)
+    else:
+        assert packed is None
+        node = tq.predict_forest_quant_ref(sf_t, lm_t, ids, bins_t, depth)
+    assert torch.equal(node, node.round())
+    got = tq.gather_leaves(lv_t, node).numpy()
+    want = np.asarray(jtq._predict_quant_ref(sf, lm, lv, bins, depth))
+    assert got.shape == (3, 40, 4) and np.array_equal(got, want)
+
+
 def test_cpu_calls_never_count_as_kernel_launches():
     sf, lm, lv = _forest(2, 3, 8, 4, seed=9)
     bins = np.zeros((5, 4), np.uint8)

@@ -140,7 +140,30 @@ versions on one card.  Otherwise it
    ms a chunk update and the finalize take and the peak device memory,
    and the first 2 chunks on ``cuda`` and ``cpu`` with equal counts,
    boundaries and percentiles;
-7. times each kernel (CUDA events, launches queued behind a spin kernel so
+7. drives the NN/LR slice (no hand kernel: the products are cuBLAS
+   GEMMs through ``torch.matmul``): writes a ``tmp/NormalizedData``
+   plane of 1,048,576 rows x 256 f32 inputs from ``--seed`` as the
+   port's ``norm`` writes it (npz shards, ``schema.json``; 1.07 GB,
+   resident) and runs ``cli.main train`` on ``cuda`` (``nn_phase``):
+   (a) ``init -model``'s NN (R, LearningRate 0.1, [20, 10] tanh, full
+   batch) with baggingNum 5 for 40 epochs — five ``model{i}.nn`` files
+   ``load_any`` scores, falling train and validation errors, ms per
+   epoch — and 20 epochs then ``train -resume`` to 40, bit-identical;
+   (b) ``bench_nn``'s net ([512, 256] relu, ADAM 0.001, MiniBatchs
+   4096, log loss) for 3 epochs: ms per step and per epoch, the step's
+   6 x rows x parameters FLOPs over its time against the dense FP32 peak
+   of 67 TFLOP/s; (c) LR at ``init -model``'s params: ms per epoch; (d)
+   (a)'s net on the first 65,536 rows for 10 epochs on ``cuda`` and
+   ``cpu``: per-epoch errors within 1e-4 relative, AUCs within 0.005.
+   Then (``nn_serve_phase``) (a)'s five nets served over HTTP on ``cuda``
+   from the serving set's configs (``x`` from the fused transform, one
+   stacked forward), every score within 1e-2 of the same set on ``cpu``
+   over the raw batches of 1-1500 records; and after the e2e and
+   multi-class CLI cells (``e2e_nn_phase``) ``bench.py --plane e2e``'s
+   NN ([64, 32] relu, ADAM 0.001, log loss, 10 epochs) trained on the
+   e2e set's own norm plane on ``cuda`` and ``eval -run`` on ``cuda`` and
+   ``cpu``: scores within 1e-2 in the %.3f files, AUC within 1e-4;
+8. times each kernel (CUDA events, launches queued behind a spin kernel so
    the host cannot starve the card) beside its plain version, one PyTorch
    call that computes the same function where there is one, and its bound
    (the larger of the bytes this data makes it move over 3.35 TB/s and its
@@ -163,7 +186,7 @@ versions on one card.  Otherwise it
    N=512 with and without its x blocks; and reports ms per tree of the
    full-width train, with a ``torch.profiler`` breakdown of one tree's
    device time;
-8. prints one JSON line listing every ported kernel, then as its last line
+9. prints one JSON line listing every ported kernel, then as its last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -226,6 +249,19 @@ RF_CUT_DEPTH = 7                           # card vs CPU on CUT_ROWS rows
 BAG_MEMBERS, BAG_KFOLD = 5, 3              # bagged GBT; its k-fold twin
 BAG_TIMED_NODES = (1, 32)                  # B2 at TB = BAG_MEMBERS
 MC_CLASSES, MC_WALK_ROWS = 3, 65536        # three-class target; B4 walk
+NN_EPOCHS, NN_CKPT, NN_BAGS = 40, 20, 5    # init -model's NN, bagged
+NN_WIDE = {"NumHiddenNodes": [512, 256],    # bench_nn's net (shifu_tpu/
+           "ActivationFunc": ["relu", "relu"],  # bench.py:134-151)
+           "Propagation": "ADAM", "LearningRate": 0.001,
+           "MiniBatchs": 4096, "Loss": "log"}
+NN_WIDE_EPOCHS, NN_LR_EPOCHS, NN_CUT_EPOCHS = 3, 20, 10
+NN_E2E = {"NumHiddenLayers": 2, "NumHiddenNodes": [64, 32],  # bench.py
+          "ActivationFunc": ["relu", "relu"],    # --plane e2e's NN
+          "LearningRate": 0.001, "Propagation": "ADAM", "Loss": "log"}
+NN_E2E_EPOCHS = 10
+NN_ERR_RTOL, NN_AUC_TOL = 1e-4, 0.005       # card vs CPU, (d)
+NN_SCORE_TOL, NN_E2E_AUC_TOL = 1e-2, 1e-4   # NN eval and serve, 0-1000
+FP32_PEAK = 67e12          # H100 SXM dense FP32 outside the tensor cores
 MC_TAGS = ["t0", "t1", "t2"]               # the multi-class CSV's tags
 MC_SCORE_TOL = 1e-5 + 1e-9                 # class scores card vs CPU (%.6f)
 
@@ -534,8 +570,12 @@ def make_records(rng, plan, n: int, malformed_at=None) -> list:
 
 
 # -------------------------------------------------------- phase: serve
-def serve_phase(torch, tq, root: str, plan, rng) -> dict:
-    """The main path over HTTP on the card, checked against the CPU."""
+def serve_phase(torch, tq, root: str, plan, rng,
+                tol: float = SCORE_TOL) -> dict:
+    """The main path over HTTP on the card, checked against the CPU
+    within ``tol``: a forest set walks ``tree_traverse`` (every scored
+    batch must launch it) and takes pre-binned requests; an NN set takes
+    pre-normalized rows and launches no hand kernel."""
     from http.server import ThreadingHTTPServer
 
     from shifu_tpu_torch.serve import ServeServer
@@ -566,15 +606,21 @@ def serve_phase(torch, tq, root: str, plan, rng) -> dict:
     for r in requests:              # the host half of each raw request
         scorer.transform.parse_records(r)
     parse_s = time.perf_counter() - t_parse
-    prebinned = [rng.integers(0, N_BINS, size=(n, scorer.n_bins_cols))
-                 for n in (5, 100)]
+    if scorer.needs_bins:
+        prebinned = [(np.zeros((n, 0), np.float32),
+                      rng.integers(0, N_BINS, size=(n, scorer.n_bins_cols)))
+                     for n in (5, 100)]
+    else:
+        prebinned = [(rng.normal(size=(n, scorer.n_features)).astype(
+            np.float32), None) for n in (5, 100)]
     try:
         batches_before = server.batcher.stats["batches"]
         tq.predict_forest_quant.launches = 0
         t1 = time.perf_counter()
         answers = [call("/score", {"records": r}) for r in requests]
-        pre = [call("/score", {"rows": [[] for _ in b], "bins": b.tolist()})
-               for b in prebinned]
+        pre = [call("/score", {"rows": x.tolist()} if b is None else
+                    {"rows": [[] for _ in b], "bins": b.tolist()})
+               for x, b in prebinned]
         health = call("/healthz")
         wall = time.perf_counter() - t1
         launches = tq.predict_forest_quant.launches
@@ -589,7 +635,7 @@ def serve_phase(torch, tq, root: str, plan, rng) -> dict:
         f"tree_traverse launches; host record parsing alone takes "
         f"{parse_s:.3f} s of it ({sum(map(len, requests))} records x "
         f"{N_COLS} columns)")
-    if launches < batches or launches == 0:
+    if scorer.needs_bins and (launches < batches or launches == 0):
         fail(f"tree_traverse launched {launches} times for {batches} "
              "scored batches")
     if not (health["state"] == "serving" and health["accepts_raw"]
@@ -613,14 +659,14 @@ def serve_phase(torch, tq, root: str, plan, rng) -> dict:
     if malformed["scores"][3] is not None or \
             [e["code"] for e in malformed["errors"]] != ["bad_record"]:
         fail(f"malformed record not rejected alone: {malformed['errors']}")
-    for b, got in zip(prebinned, pre):
-        want = cpu.score(np.zeros((len(b), 0), np.float32), b)
+    for (x, b), got in zip(prebinned, pre):
+        want = cpu.score(x, b)
         worst = max(worst, float(np.max(np.abs(
             np.asarray(got["scores"]) - want))))
-    if worst > SCORE_TOL:
-        fail(f"card vs CPU scores differ by {worst} > {SCORE_TOL}")
+    if worst > tol:
+        fail(f"card vs CPU scores differ by {worst} > {tol}")
     log(f"every score within {worst:.3g} of the CPU path (tolerance "
-        f"{SCORE_TOL}); malformed record rejected with its code")
+        f"{tol}); malformed record rejected with its code")
     return {"launches": {"tree_traverse": launches}, "batches": batches,
             "max_abs_score_diff": worst, "wall_s": wall, "parse_s": parse_s}
 
@@ -687,10 +733,11 @@ def set_train_params(d: str, params: dict) -> None:
 
 
 def write_train_set(d: str, serve_root: str, params: dict, clean: str,
-                    algorithm: str = "GBT") -> str:
+                    algorithm: str = "GBT",
+                    plane_dir: str = "CleanedData") -> str:
     """A model set for ``train``: the serving set's ModelConfig and
     ColumnConfig with the given algorithm, train#params and validSetRate
-    0.2, its clean dir a link to the plane ``clean``."""
+    0.2, its ``tmp/<plane_dir>`` a link to the plane ``clean``."""
     from shifu_tpu_torch.config import ModelConfig
     from shifu_tpu_torch.config.model_config import Algorithm
     os.makedirs(os.path.join(d, "tmp"))
@@ -702,7 +749,7 @@ def write_train_set(d: str, serve_root: str, params: dict, clean: str,
     mc.train.validSetRate = 0.2
     mc.save(os.path.join(d, "ModelConfig.json"))
     set_train_params(d, params)
-    os.symlink(clean, os.path.join(d, "tmp", "CleanedData"))
+    os.symlink(clean, os.path.join(d, "tmp", plane_dir))
     return d
 
 
@@ -992,10 +1039,11 @@ def chunk_phase(torch, bins, y, w, is_cat, device: str) -> dict:
     return {"ms_per_tree": ms_tree, "quartiles_ms": quart, "profile": prof}
 
 
-def profile_device(torch, run) -> dict:
-    """Device time by kernel over one ``run()`` from ``torch.profiler``:
-    kernel-busy ms per tree, its share of the run's profiled wall time,
-    and the kernels that take the most."""
+def profile_device(torch, run, what: str = "one 2-tree chunk") -> dict:
+    """Device time by kernel over one ``run()`` (``what``) from
+    ``torch.profiler``: kernel-busy ms, its share of the run's profiled
+    wall time, and the kernels that take the most (``by_name``: every
+    device op's ms and launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1014,13 +1062,14 @@ def profile_device(torch, run) -> dict:
         log("torch.profiler recorded no device time: breakdown not measured")
         return {}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    log(f"torch.profiler over one 2-tree chunk: kernels busy {busy:.3f} ms "
+    log(f"torch.profiler over {what}: kernels busy {busy:.3f} ms "
         f"of {wall_ms:.3f} ms profiled wall ({busy / wall_ms:.1%}); top "
         "kernels (ms, launches):")
     for name, (ms, n) in top:
         log(f"  {ms:9.3f} ms {n:5d}x  {name[:110]}")
     return {"busy_ms": busy, "wall_ms": wall_ms,
-            "top": [(name[:110], ms, n) for name, (ms, n) in top]}
+            "top": [(name[:110], ms, n) for name, (ms, n) in top],
+            "by_name": by_name}
 
 
 
@@ -1681,6 +1730,345 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
             "phases_s": {k: profile[k]["phases_s"]
                          for k in ("NORMALIZE", "TRAIN", "EVAL")},
             "bins": bins}
+
+
+# ------------------------------------------------------------ phase: NN
+def nn_plane(rng, n: int, d: int):
+    """The NN training plane: x [n, d] f32 standard normal (one ZSCALE
+    value a column, as ``norm`` writes the final-selected columns), y from
+    a logit on N_INFORMATIVE columns, integer weights 1..3."""
+    x = rng.standard_normal(size=(n, d), dtype=np.float32)
+    cols = np.sort(rng.choice(d, size=N_INFORMATIVE, replace=False))
+    coef = rng.choice([-1.0, 1.0], N_INFORMATIVE) \
+        * rng.uniform(0.4, 1.2, N_INFORMATIVE)
+    logit = x[:, cols] @ coef.astype(np.float32) - 1.0
+    y = (rng.random(n, np.float32) < 1.0 / (1.0 + np.exp(-logit))) \
+        .astype(np.float32)
+    w = rng.integers(1, 4, size=n).astype(np.float32)
+    return x, y, w
+
+
+def write_norm_plane(d: str, x, y, w, names) -> None:
+    """The norm step's ``tmp/NormalizedData`` as the port's ``norm``
+    writes it: npz ``part-*.npz`` shards of (x, y, w) of 2^18 rows and
+    ``schema.json``."""
+    from shifu_tpu_torch.ioutil import atomic_savez, atomic_write_json
+    os.makedirs(d)
+    shard, rows = 1 << 18, []
+    for i, r0 in enumerate(range(0, len(y), shard)):
+        atomic_savez(os.path.join(d, f"part-{i:05d}.npz"),
+                     x=x[r0:r0 + shard], y=y[r0:r0 + shard],
+                     w=w[r0:r0 + shard])
+        rows.append(min(shard, len(y) - r0))
+    atomic_write_json(os.path.join(d, "schema.json"), {
+        "outputNames": names, "columnNums": list(range(len(names))),
+        "columnNames": names, "normType": "ZSCALE", "numShards": len(rows),
+        "numRows": len(y), "shardRows": rows, "width": len(names)})
+
+
+class EpochClock:
+    """Host clock at each epoch's progress line: the trainer calls it
+    right after its one host fetch an epoch, so the gaps are epoch walls
+    (``TrainProcessor._progress_fn`` wrapped while the context is open)."""
+
+    def __enter__(self):
+        from shifu_tpu_torch.pipeline.train import TrainProcessor
+        self.times, self._orig = [], TrainProcessor._progress_fn
+        clock = self
+
+        def wrapped(proc, pf, run):
+            inner = clock._orig(proc, pf, run)
+
+            def progress(epoch, tr, va):
+                clock.times.append(time.perf_counter())
+                inner(epoch, tr, va)
+            return progress
+        TrainProcessor._progress_fn = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from shifu_tpu_torch.pipeline.train import TrainProcessor
+        TrainProcessor._progress_fn = self._orig
+        return False
+
+    def ms_per_epoch(self) -> float:
+        """Median epoch wall (the first epoch has no start mark)."""
+        return float(np.median(np.diff(self.times))) * 1e3
+
+
+def nn_set(root: str, name: str, serve_root: str, plane: str,
+           algorithm: str, params=None, **train) -> str:
+    """A model set over the NN plane ``plane``; ``params`` None takes
+    ``init -model``'s defaults for the algorithm (through the CLI)."""
+    from shifu_tpu_torch import cli
+    d = write_train_set(os.path.join(root, name), serve_root, params or {},
+                        plane, algorithm, plane_dir="NormalizedData")
+    if params is None and cli.main(["--dir", d, "init", "-model"]) != 0:
+        fail(f"init -model failed in {d}")
+    set_train_conf(d, **train)
+    return d
+
+
+def nn_members(d: str) -> list:
+    """``[(file, spec, params)]`` of every NN model of ``d``, loaded."""
+    from shifu_tpu_torch.eval.scorer import discover_model_paths
+    from shifu_tpu_torch.models.nn import load_model
+    return [(os.path.basename(p), *load_model(p))
+            for p in discover_model_paths(os.path.join(d, "models"))]
+
+
+def nn_scores(torch, d: str, x, device) -> np.ndarray:
+    """The set's mean score (0-1000) over rows ``x`` on ``device``."""
+    from shifu_tpu_torch.eval.scorer import Scorer
+    return Scorer.from_dir(os.path.join(d, "models"), device=device).score(
+        x, None).mean
+
+
+def check_falling(d: str, what: str, cols=(0, 1)) -> np.ndarray:
+    """``tmp/train.progress``'s errors: finite, and the train (column 0)
+    and validation (1) errors of ``cols`` lower at the last epoch."""
+    errs = progress_errors(d)
+    if len(errs) < 2 or not np.all(np.isfinite(errs)) or \
+            not np.all(errs[-1, list(cols)] < errs[0, list(cols)]):
+        fail(f"{what}: train/validation errors do not fall: "
+             f"{errs[0] if len(errs) else None} -> "
+             f"{errs[-1] if len(errs) else None}")
+    return errs
+
+
+def nn_phase(torch, root: str, serve_root: str, rng, gpu: str) -> dict:
+    """The NN/LR slice's training path at full width through ``cli.main
+    train`` on ``cuda``: a norm plane of TRAIN_ROWS x N_COLS f32 from
+    ``--seed`` (1.07 GB, resident under the 2 GiB budget), written as the
+    port's ``norm`` writes it.
+
+    (a) ``init -model``'s NN (R, LearningRate 0.1, [20, 10] tanh, full
+        batch) with baggingNum NN_BAGS and CheckpointInterval NN_CKPT for
+        NN_EPOCHS epochs: NN_BAGS model files ``load_any`` scores, falling
+        errors, ms per epoch; NN_CKPT epochs then ``train -resume`` to
+        NN_EPOCHS, bit-identical to the uninterrupted run;
+    (b) ``bench_nn``'s wide net (NN_WIDE) for NN_WIDE_EPOCHS epochs: ms per
+        step and per epoch, the step's 6 * rows * parameters FLOPs over its
+        time against the card's dense FP32 peak;
+    (c) LR at ``init -model``'s params: ms per epoch;
+    (d) (a)'s net on the plane's first CUT_ROWS rows for NN_CUT_EPOCHS
+        epochs on ``cuda`` and on ``cpu``: per-epoch errors within
+        NN_ERR_RTOL relative, the two sets' AUCs within NN_AUC_TOL."""
+    from shifu_tpu_torch.models import load_any
+    names = [f"f{j:03d}" for j in range(N_COLS)]
+    t0 = time.perf_counter()
+    x, y, w = nn_plane(rng, TRAIN_ROWS, N_COLS)
+    plane = os.path.join(root, "nn_plane")
+    write_norm_plane(plane, x, y, w, names)
+    write_s = time.perf_counter() - t0
+    out = {"plane_gb": x.nbytes / 1e9, "plane_write_s": write_s}
+
+    # (a) init -model's NN, bagged, resumed
+    a = nn_set(root, "nn_a", serve_root, plane, "NN", baggingNum=NN_BAGS,
+               numTrainEpochs=NN_EPOCHS)
+    set_train_params(a, {**load_params(a), "CheckpointInterval": NN_CKPT})
+    with EpochClock() as clock:
+        wall = train_cli(a, "cuda")
+    members = nn_members(a)
+    if [m[0] for m in members] != [f"model{i}.nn" for i in range(NN_BAGS)]:
+        fail(f"(a) wrote {[m[0] for m in members]}")
+    head = x[:4096]
+    for f, _, _ in members:
+        s = load_any(os.path.join(a, "models", f)).compute(head, "cuda")
+        if s.shape != (4096, 1) or not np.all(np.isfinite(s)):
+            fail(f"(a) {f} scores {s.shape}, finite {np.isfinite(s).all()}")
+    errs = check_falling(a, "(a)")
+    r = nn_set(root, "nn_a_resume", serve_root, plane, "NN",
+               baggingNum=NN_BAGS, numTrainEpochs=NN_CKPT)
+    set_train_params(r, load_params(a))
+    train_cli(r, "cuda")
+    set_train_conf(r, numTrainEpochs=NN_EPOCHS)
+    train_cli(r, "cuda", "-resume")
+    for (f, _, pa), (_, _, pr) in zip(members, nn_members(r)):
+        for la, lr in zip(pa, pr):
+            if not all(torch.equal(la[k], lr[k]) for k in ("w", "b")):
+                fail(f"(a) {f}: {NN_CKPT} epochs + train -resume differ "
+                     "from the uninterrupted run")
+    prof = nn_epoch_profile(torch, a, x, y, w, "(a)", epochs=5)
+    out["a"] = {"ms_per_epoch": clock.ms_per_epoch(), "wall_s": wall,
+                "profile": prof,
+                "errors_first": errs[0].tolist(),
+                "errors_last": errs[-1].tolist(), "resume_bit_identical":
+                True}
+    log(f"(a) init -model NN x {NN_BAGS} bags on {TRAIN_ROWS} x {N_COLS}: "
+        f"{out['a']['ms_per_epoch']:.3f} ms an epoch (CLI train "
+        f"{wall:.3f} s for {NN_EPOCHS} epochs), errors {errs[0]} -> "
+        f"{errs[-1]}; {NN_CKPT} epochs + train -resume bit-identical "
+        f"— [{gpu}]")
+
+    # (b) the wide net
+    b = nn_set(root, "nn_b", serve_root, plane, "NN", dict(NN_WIDE),
+               baggingNum=1, numTrainEpochs=NN_WIDE_EPOCHS)
+    with EpochClock() as clock:
+        wall = train_cli(b, "cuda")
+    # the wide net overfits the plane's 246 noise columns within three
+    # epochs: its validation error may rise while the train error falls
+    check_falling(b, "(b)", cols=(0,))
+    (_, spec, params), = nn_members(b)
+    n_params = sum(int(l[k].numel()) for l in params for k in ("w", "b"))
+    steps = -(-TRAIN_ROWS // NN_WIDE["MiniBatchs"])
+    ms_epoch = clock.ms_per_epoch()
+    ms_step = ms_epoch / steps
+    flops_step = 6.0 * NN_WIDE["MiniBatchs"] * n_params
+    rate = flops_step / (ms_step * 1e-3)
+    out["b"] = {"profile": nn_epoch_profile(torch, b, x, y, w, "(b)", 1),
+                "ms_per_epoch": ms_epoch, "ms_per_step": ms_step,
+                "steps_per_epoch": steps, "parameters": n_params,
+                "flops_per_step": flops_step, "flop_per_s": rate,
+                "fp32_peak_share": rate / FP32_PEAK, "wall_s": wall}
+    log(f"(b) wide NN {NN_WIDE['NumHiddenNodes']} ADAM, MiniBatchs "
+        f"{NN_WIDE['MiniBatchs']}: {ms_epoch:.3f} ms an epoch, "
+        f"{ms_step:.4f} ms a step ({steps} steps; the epoch's error pass "
+        f"included), {flops_step / 1e9:.3f} GFLOP a step (6 x rows x "
+        f"{n_params} parameters) -> {rate / 1e12:.3f} TFLOP/s, "
+        f"{100 * rate / FP32_PEAK:.2f}% of the H100 SXM's dense FP32 peak "
+        f"of 67 TFLOP/s (NVIDIA data sheet) — [{gpu}]")
+
+    # (c) LR at init -model's params
+    c = nn_set(root, "nn_c", serve_root, plane, "LR", baggingNum=1,
+               numTrainEpochs=NN_LR_EPOCHS)
+    with EpochClock() as clock:
+        wall = train_cli(c, "cuda")
+    check_falling(c, "(c)")
+    out["c"] = {"ms_per_epoch": clock.ms_per_epoch(), "wall_s": wall}
+    log(f"(c) LR ({load_params(c)}): {out['c']['ms_per_epoch']:.3f} ms an "
+        f"epoch — [{gpu}]")
+
+    # (d) the card against the CPU on the first CUT_ROWS rows
+    cut = os.path.join(root, "nn_cut_plane")
+    write_norm_plane(cut, x[:CUT_ROWS], y[:CUT_ROWS], w[:CUT_ROWS], names)
+    runs = []                                   # (wall, errors, AUC)
+    for i, dev in enumerate(("cuda", "cpu")):
+        dd = nn_set(root, f"nn_d{i}", serve_root, cut, "NN",
+                    load_params(a), baggingNum=NN_BAGS,
+                    numTrainEpochs=NN_CUT_EPOCHS)
+        runs.append((train_cli(dd, dev), progress_errors(dd),
+                     auc(nn_scores(torch, dd, x[:CUT_ROWS], dev),
+                         y[:CUT_ROWS])))
+    card, cpu = runs
+    rel = float(np.max(np.abs(card[1] - cpu[1]) / np.abs(cpu[1])))
+    auc_diff = abs(card[2] - cpu[2])
+    if not rel <= NN_ERR_RTOL or not auc_diff <= NN_AUC_TOL:
+        fail(f"(d) card vs CPU: errors {rel:.3g} relative (limit "
+             f"{NN_ERR_RTOL}), AUC {card[2]:.6f} vs {cpu[2]:.6f}")
+    out["d"] = {"err_rel": rel, "auc_cuda": card[2], "auc_cpu": cpu[2],
+                "auc_diff": auc_diff, "wall_cuda_s": card[0],
+                "wall_cpu_s": cpu[0]}
+    log(f"(d) {CUT_ROWS} rows, {NN_CUT_EPOCHS} epochs: errors card vs CPU "
+        f"within {rel:.3g} relative, AUC {card[2]:.6f} / {cpu[2]:.6f}; "
+        f"train {card[0]:.3f} s on the card, {cpu[0]:.3f} s on the CPU "
+        f"— [{gpu}]")
+    out["models_dir"] = os.path.join(a, "models")
+    return out
+
+
+def nn_epoch_profile(torch, d: str, x, y, w, what: str,
+                     epochs: int) -> dict:
+    """Set ``d``'s trainer on resident tensors under ``torch.profiler``:
+    ``train_ensemble`` for ``epochs`` epochs with the set's members and
+    masks; device ms an epoch in kernels (the plane's upload and other
+    copies left out), the GEMMs' share, launches an epoch."""
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.pipeline.train import settings_from_params
+    from shifu_tpu_torch.train.nn_trainer import train_ensemble
+    from shifu_tpu_torch.train.sampling import member_masks
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    spec = nn_members(d)[0][1]
+    tw, vw = member_masks(len(y), mc.train.baggingNum,
+                          valid_rate=mc.train.validSetRate, targets=y)
+    settings = settings_from_params(mc.train.params, mc.train)
+    settings.epochs = epochs
+    prof = profile_device(
+        torch, lambda: train_ensemble(x, y, tw * w, vw * w, spec, settings,
+                                      device="cuda"),
+        what=f"{epochs} epoch(s) of {what}'s trainer, upload included")
+    if not prof:
+        return {}
+    kern = {k: v for k, v in prof["by_name"].items()
+            if not k.startswith(("Memcpy", "Memset"))}
+    busy = sum(ms for ms, _ in kern.values()) / epochs
+    gemm = sum(ms for k, (ms, _) in kern.items()
+               if "gemm" in k.lower() or "cutlass" in k.lower()) / epochs
+    launches = sum(n for _, n in kern.values()) / epochs
+    log(f"{what}: device busy {busy:.3f} ms an epoch in kernels (GEMMs "
+        f"{gemm:.3f} ms), {launches:.0f} kernel launches an epoch")
+    return {"kernel_ms_per_epoch": busy, "gemm_ms_per_epoch": gemm,
+            "launches_per_epoch": launches, "top": prof["top"]}
+
+
+def load_params(d: str) -> dict:
+    from shifu_tpu_torch.config import ModelConfig
+    return dict(ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+                .train.params or {})
+
+
+def nn_serve_phase(torch, tq, root: str, serve_root: str, models: str,
+                   plan, rng) -> dict:
+    """(a)'s bagged NN set of N_COLS inputs served over HTTP on ``cuda``
+    (the serving set's configs, ``x`` from the fused transform into one
+    stacked forward), checked against the same set on ``cpu`` within
+    NN_SCORE_TOL over the raw batches of RAW_BATCHES records."""
+    from shifu_tpu_torch.config.model_config import Algorithm
+    d = os.path.join(root, "nn_serve")
+    os.makedirs(d)
+    for f in ("ModelConfig.json", "ColumnConfig.json"):
+        shutil.copy(os.path.join(serve_root, f), d)
+    shutil.copytree(models, os.path.join(d, "models"))
+    set_train_conf(d, algorithm=Algorithm.NN)
+    return serve_phase(torch, tq, d, plan, rng, tol=NN_SCORE_TOL)
+
+
+def e2e_nn_phase(torch, d: str, csv: str, gpu: str) -> dict:
+    """``bench.py --plane e2e``'s NN on the e2e set's own norm plane (the
+    port's ``norm`` wrote it): ``train`` on ``cuda``, then ``eval -run`` on
+    ``cuda`` and on ``cpu``: scores within NN_SCORE_TOL (the %.3f files),
+    AUC within NN_E2E_AUC_TOL."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.data import parsepool
+    set_train_params(d, dict(NN_E2E))
+    set_train_conf(d, algorithm=Algorithm.NN, numTrainEpochs=NN_E2E_EPOCHS)
+    cpu_dir = d + "_nn_cpu"
+    walls = {}
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    try:
+        walls["train"] = train_cli(d, "cuda")
+        shutil.copytree(d, cpu_dir)
+        for name, dd, dev in (("eval", d, "cuda"), ("eval_cpu", cpu_dir,
+                                                    "cpu")):
+            t0 = time.perf_counter()
+            if cli.main(["--dir", dd, "eval", "-run", E2E_EVAL, "--device",
+                         dev]) != 0:
+                fail(f"NN eval -run on {dev} exited non-zero")
+            walls[name] = time.perf_counter() - t0
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+    check_falling(d, "e2e NN")
+    card, perf = eval_scores(d, E2E_EVAL)
+    cpu, cpu_perf = eval_scores(cpu_dir, E2E_EVAL)
+    if card.shape != (CSV_ROWS, 7) or card.shape != cpu.shape:
+        fail(f"NN EvalScore card {card.shape} vs CPU {cpu.shape}")
+    diff = float(np.abs(card[:, 2:].astype(float)
+                        - cpu[:, 2:].astype(float)).max())
+    auc_diff = abs(perf["areaUnderRoc"] - cpu_perf["areaUnderRoc"])
+    # ten full-batch ADAM steps at 0.001 (the bench's config) move the
+    # net only a little: its AUC need only beat chance
+    if not diff <= NN_SCORE_TOL or not auc_diff <= NN_E2E_AUC_TOL or \
+            not 0.55 < perf["areaUnderRoc"] < 1.0:
+        fail(f"NN eval card vs CPU: scores {diff}, AUC "
+             f"{perf['areaUnderRoc']} vs {cpu_perf['areaUnderRoc']}")
+    log(f"e2e NN {NN_E2E['NumHiddenNodes']} ({NN_E2E_EPOCHS} epochs): "
+        f"train {walls['train']:.3f} s, eval -run {walls['eval']:.3f} s "
+        f"on the card, {walls['eval_cpu']:.3f} s on the CPU; AUC "
+        f"{perf['areaUnderRoc']:.6f} (card - CPU {auc_diff:.3g}), max "
+        f"|card - CPU| score {diff:.3g} in the %.3f score files — [{gpu}]")
+    return {"walls_s": walls, "auc": perf["areaUnderRoc"],
+            "auc_card_cpu": auc_diff, "score_card_cpu_files": diff}
 
 
 # --------------------------------------------------------- phase: members
@@ -2693,11 +3081,24 @@ def main() -> None:
         multi = multiclass_phase(torch, tq, root, serve_root, plane,
                                  np.random.default_rng([args.seed, 2]), gpu)
         del plane
+        nn_walls = {}
+        t0 = time.perf_counter()
+        nn = nn_phase(torch, root, serve_root,
+                      np.random.default_rng([args.seed, 3]), gpu)
+        nn_walls["nn_phase"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nn_served = nn_serve_phase(torch, tq, root, serve_root,
+                                   nn.pop("models_dir"), plan,
+                                   np.random.default_rng([args.seed, 4]))
+        nn_walls["nn_serve_phase"] = time.perf_counter() - t0
         stats = stats_phase(torch, root, plan, path_rng)
         e2e = e2e_phase(torch, stats["dir"], stats["csv"], gpu)
         eval_times = time_eval_walk(torch, tq, stats["dir"],
                                     e2e.pop("bins"), gpu)
         mc_cli = multiclass_cli_phase(torch, tq, root, stats["csv"], gpu)
+        t0 = time.perf_counter()
+        e2e_nn = e2e_nn_phase(torch, stats["dir"], stats["csv"], gpu)
+        nn_walls["e2e_nn_phase"] = time.perf_counter() - t0
     resident = resident_phase(torch, args.seed)
     times = time_kernels(torch, tq, rng, gpu)
     hist_times = time_hist(torch, rng, gpu)
@@ -2838,6 +3239,17 @@ def main() -> None:
         f"one-vs-all GBT {multi['ova']['wall_s']:.3f} s; multi-class CLI "
         f"accuracy RF {mc_cli['RF']['accuracy']:.6f}, GBT "
         f"{mc_cli['GBT']['accuracy']:.6f} — [{gpu}]")
+    log(f"NN/LR on {TRAIN_ROWS} x {N_COLS} ({nn['plane_gb']:.2f} GB "
+        f"plane): (a) {nn['a']['ms_per_epoch']:.3f} ms an epoch of "
+        f"{NN_BAGS} bags, (b) {nn['b']['ms_per_epoch']:.3f} ms an epoch, "
+        f"{nn['b']['ms_per_step']:.4f} ms a step, "
+        f"{100 * nn['b']['fp32_peak_share']:.2f}% of dense FP32 peak, (c) "
+        f"LR {nn['c']['ms_per_epoch']:.3f} ms an epoch; (d) errors within "
+        f"{nn['d']['err_rel']:.3g}, AUC diff {nn['d']['auc_diff']:.3g}; "
+        f"NN serve max |card - cpu| {nn_served['max_abs_score_diff']:.3g};"
+        f" e2e NN eval AUC {e2e_nn['auc']:.6f} (card - CPU "
+        f"{e2e_nn['auc_card_cpu']:.3g}); phase walls "
+        f"{ {k: round(v, 3) for k, v in nn_walls.items()} } — [{gpu}]")
     log(f"served {served['batches']} batches; max |card - cpu| "
         f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} GBT and "
         f"{RF_TREES} RF trees; "

@@ -48,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shifu-tpu-torch",
         description="PyTorch/CUDA port of shifu-tpu (new, init, stats, "
-        "norm, GBT/RF/DT train, eval, serve)")
+        "norm, GBT/RF/DT/NN/LR train, eval, serve)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
@@ -109,10 +109,13 @@ def build_parser() -> argparse.ArgumentParser:
     _device_arg(sp)
 
     tp = sub.add_parser("train", help="train the model set from the "
-                        "norm step's clean plane (resident single-member "
-                        "GBT, RF and DT are ported)")
+                        "norm step's planes (resident GBT, RF and DT from "
+                        "the clean plane, NN and LR from the norm plane)")
     tp.add_argument("-resume", dest="resume", action="store_true",
-                    help="continue from the mid-forest checkpoint")
+                    help="continue from the trainer checkpoint")
+    tp.add_argument("-shuffle", dest="shuffle", action="store_true",
+                    help="NN/LR: permute the rows (fixed seed) before "
+                    "training")
     _device_arg(tp)
     return p
 
@@ -160,7 +163,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          device=args.device)
     if args.command == "train":
         from .pipeline.train import TrainProcessor
-        return TrainProcessor(args.dir, params={"resume": args.resume},
+        return TrainProcessor(args.dir, params={"resume": args.resume,
+                                                "shuffle": args.shuffle},
                               device=args.device).run()
     raise ValueError(f"unknown command {args.command!r}")
 

@@ -264,3 +264,23 @@ def validate_train_params(params: Dict[str, Any],
         problems.extend(_check_value(f"train#params.{key}", v, rule))
     problems.extend(_nn_shape_problems(params or {}, alg))
     return problems
+
+
+TF_ONLY_PARAMS = tuple(k for k, r in TRAIN_PARAM_RULES.items()
+                       if r.algs == ("TENSORFLOW",))
+
+
+def tf_ignored_param_problems(train_conf) -> List[str]:
+    """``algorithm=TENSORFLOW`` trains the same net on the NN path — the
+    TF-on-YARN-only topology/resource params would be silently ignored
+    there, so their presence fails loudly, listing every offender."""
+    if train_conf.algorithm != Algorithm.TENSORFLOW:
+        return []
+    present = sorted(k for k in (train_conf.params or {})
+                     if k in TF_ONLY_PARAMS)
+    if not present:
+        return []
+    return [f"algorithm TENSORFLOW trains on the native NN path (no "
+            f"TF-on-YARN ps/worker topology) — train#params {present} "
+            "would be silently ignored; remove them or use a TF-on-YARN "
+            "deployment"]

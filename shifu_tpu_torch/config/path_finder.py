@@ -60,6 +60,13 @@ class PathFinder:
             alg = {"TENSORFLOW": "nn"}.get(alg, alg)
         return os.path.join(self.models_dir, f"model{index}.{alg.lower()}")
 
+    def tmp_model_path(self, index: int, epoch: int,
+                       alg: Optional[str] = None) -> str:
+        """A member's tmp model of an epoch (``models/tmp`` role)."""
+        alg = (alg or self.model_config.train.algorithm.name).lower()
+        return os.path.join(self.tmp_models_dir,
+                            f"model{index}-{epoch}.{alg}")
+
     @property
     def checkpoint_dir(self) -> str:
         return os.path.join(self.tmp_dir, "checkpoints")

@@ -142,6 +142,9 @@ def probe(mc: ModelConfig, step: ModelStep, model_set_dir: str = ".") -> None:
                             "multi-class classification")
     if step == ModelStep.TRAIN:
         tr = mc.train
+        # TENSORFLOW trains on the NN path: TF-only params are an error
+        from .meta import tf_ignored_param_problems
+        problems.extend(tf_ignored_param_problems(tr))
         if tr.isCrossValidation and tr.numKFold < 2:
             problems.append("train.numKFold must be >= 2 when "
                             "isCrossValidation")

@@ -1,16 +1,19 @@
-"""Scorer + ModelRunner — the port of ``shifu_tpu.eval.scorer`` for tree
-ensembles (reference ``core/Scorer.java:53``, ``core/ModelRunner.java:54``).
+"""Scorer + ModelRunner — the port of ``shifu_tpu.eval.scorer`` (reference
+``core/Scorer.java:53``, ``core/ModelRunner.java:54``).
 
-Batched over rows x models like the reference: the bins go to the scoring
-device once a batch, in the narrowest dtype the ensemble admits (uint8
-when every forest has <= 256 bins), and each forest walks them with
-``ops/tree_quant.predict_forest_quant`` — the ``tree_traverse`` kernel on
-a CUDA device (it launches or raises), its plain version on the CPU.  The
-per-model scores are scaled by ``SCORE_SCALE`` and aggregated per row.
-Multi-class sets score with :meth:`Scorer.score_classes`: native forests
-contribute their class-distribution rows (B4's node-index walk on the
-card), one-vs-all members their ``class_index`` column, each model one
-launch a batch as on the binary path.  NN/LR/WDL/SVM model files raise in
+Batched over rows x models like the reference.  Tree forests read the bins,
+which go to the scoring device once a batch in the narrowest dtype the
+forests admit (uint8 when every forest has <= 256 bins), and walk them
+with ``ops/tree_quant.predict_forest_quant`` — the ``tree_traverse``
+kernel on a CUDA device (it launches or raises), its plain version on the
+CPU.  NN and LR models read the normalized floats ``x``, which go to the
+device once a batch; same-shape nets score as ONE stacked forward
+(``models.nn.forward`` over their weights stacked on a leading axis, built
+once), the reference's ``_stacked_nn_groups``.  The per-model scores are
+scaled by ``SCORE_SCALE`` and aggregated per row.  Multi-class sets score
+with :meth:`Scorer.score_classes`: native models (a softmax head, a
+class-distribution forest) contribute their whole row, one-vs-all members
+their ``class_index`` column.  WDL and SVM model files raise in
 ``models.load_any``.
 """
 
@@ -19,7 +22,7 @@ from __future__ import annotations
 import glob
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +79,7 @@ class CaseScoreResult:
 
 
 class Scorer:
-    """Multi-model batch scorer over binned rows (tree ensembles)."""
+    """Multi-model batch scorer over normalized and binned rows."""
 
     def __init__(self, models: Sequence, scale: float = SCORE_SCALE,
                  device=None):
@@ -85,31 +88,74 @@ class Scorer:
         self.models = list(models)
         self.scale = scale
         self.device = resolve_device(device)
+        self.tree_models = [m for m in self.models
+                            if getattr(m, "input_kind", "norm") == "bins"]
+        self._groups = None                  # stacked same-shape nets
 
     @classmethod
     def from_dir(cls, models_dir: str, scale: float = SCORE_SCALE,
                  device=None) -> "Scorer":
         return cls(load_models(models_dir), scale, device=device)
 
+    def nn_groups(self) -> List[Tuple[List[int], object, list]]:
+        """Same-shape NN/LR models as ``(model indices, spec, stacked
+        params on the device)``, built once: one forward a group."""
+        if self._groups is None:
+            from ..models.nn import stack_params
+            by_shape: Dict[tuple, List[int]] = {}
+            for i, m in enumerate(self.models):
+                if getattr(m, "input_kind", "norm") == "norm":
+                    by_shape.setdefault(m.spec.shape_key(), []).append(i)
+            self._groups = [
+                (idxs, self.models[idxs[0]].spec,
+                 stack_params([self.models[i].params for i in idxs],
+                              self.device))
+                for idxs in by_shape.values()]
+        return self._groups
+
+    def outputs(self, x: Optional[np.ndarray],
+                bins: Optional[np.ndarray]) -> List[np.ndarray]:
+        """Every model's ``[n, out]`` f32 output, in model order: the
+        forests over ``bins``, the nets over ``x``."""
+        outs: List[Optional[np.ndarray]] = [None] * len(self.models)
+        groups = self.nn_groups()
+        if groups:
+            if x is None:
+                raise ValueError("NN/LR models need the normalized rows — "
+                                 "pass x to the scorer")
+            from ..models.nn import forward
+            xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+                self.device)
+            with torch.no_grad():
+                for idxs, spec, stacked in groups:
+                    o = forward(stacked, spec, xd).cpu().numpy()
+                    for pos, i in enumerate(idxs):
+                        outs[i] = o[pos]
+        if self.tree_models:
+            if bins is None:
+                raise ValueError("tree models need binned input — pass "
+                                 "bins= to the scorer")
+            b = self._put(bins)
+            for i, m in enumerate(self.models):
+                if outs[i] is None:
+                    outs[i] = m.compute(b)
+        return outs
+
     def score(self, x: Optional[np.ndarray],
-              bins: np.ndarray) -> CaseScoreResult:
-        """Tree models consume the binned matrix, which goes to the device
-        once in the ensemble's wire dtype (the reference's
-        ``ensemble_bins_dtype``); ``x`` is unused until models that read
-        normalized floats are ported."""
-        b = self._put(bins)
-        cols = [m.compute(b)[:, 0] for m in self.models]
+              bins: Optional[np.ndarray] = None) -> CaseScoreResult:
+        """Scaled per-model scores and their per-row aggregates."""
+        cols = [o[:, 0] for o in self.outputs(x, bins)]
         raw = np.stack(cols, axis=1) * np.float32(self.scale)
         return CaseScoreResult(scores=raw, mean=raw.mean(axis=1),
                                max=raw.max(axis=1), min=raw.min(axis=1),
                                median=np.median(raw, axis=1))
 
     def _put(self, bins: np.ndarray) -> torch.Tensor:
-        """The binned batch on the scoring device, once, in the ensemble's
+        """The binned batch on the scoring device, once, in the forests'
         wire dtype (the reference's ``ensemble_bins_dtype``)."""
         from ..ops.tree_quant import ensemble_bins_dtype
         return torch.from_numpy(np.ascontiguousarray(bins)).to(
-            self.device, ensemble_bins_dtype(self.models))
+            self.device, ensemble_bins_dtype(self.tree_models))
 
     # ------------------------------------------------------- multi-class
     def n_classes(self) -> int:
@@ -122,20 +168,18 @@ class Scorer:
         return 0
 
     def score_classes(self, x: Optional[np.ndarray],
-                      bins: np.ndarray) -> np.ndarray:
+                      bins: Optional[np.ndarray] = None) -> np.ndarray:
         """[n, K] class scores (reference ``Scorer.score_classes``): native
-        models contribute their whole distribution row, one-vs-all models
-        their ``class_index`` column; contributors average per class in
-        float64 on the host.  ``x`` is unused until models that read
-        normalized floats are ported."""
+        models contribute their whole row, one-vs-all models their
+        ``class_index`` column; contributors average per class in float64
+        on the host."""
         k = self.n_classes()
         if k < 2:
             raise ValueError("score_classes needs multi-class models")
-        b = self._put(bins)
-        sums = np.zeros((len(bins), k))
+        outs = self.outputs(x, bins)
+        sums = np.zeros((len(outs[0]), k))
         cnts = np.zeros(k)
-        for m in self.models:
-            out = m.compute(b)
+        for m, out in zip(self.models, outs):
             ci = (m.spec.extra or {}).get("class_index")
             if out.shape[1] == k:
                 sums += out

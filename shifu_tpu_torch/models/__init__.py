@@ -1,7 +1,8 @@
 """Model specs — standalone scorers + serialization (the port of
 ``shifu_tpu.models``).  ``load_any`` sniffs the embedded spec kind of a
-saved model file; tree forests (GBT/RF/DT) are ported, the other kinds raise
-until their slice lands.
+saved model file: tree forests (GBT/RF/DT) and NN nets (NN, LR — a
+0-hidden-layer net — and TENSORFLOW) are ported; WDL and SVM raise until
+their slice lands (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import json
 import numpy as np
 
 #: model kinds the reference writes that this package cannot score yet
-NOT_PORTED = ("nn", "wdl", "svm")
+NOT_PORTED = ("wdl", "svm")
 
 
 def spec_kind(path: str) -> str:
@@ -20,13 +21,16 @@ def spec_kind(path: str) -> str:
 
 
 def load_any(path: str):
-    """Load a saved model file -> object with ``.compute(bins)``."""
+    """Load a saved model file -> object with ``.compute(x_or_bins)``."""
     kind = spec_kind(path)
     if kind == "tree":
         from .tree import IndependentTreeModel
         return IndependentTreeModel.load(path)
+    if kind == "nn":
+        from .nn import IndependentNNModel
+        return IndependentNNModel.load(path)
     if kind in NOT_PORTED:
         raise NotImplementedError(
-            f"{path}: {kind!r} models (NN/LR, WDL, SVM) are not yet ported "
-            "to shifu_tpu_torch — only GBT/RF forests serve here")
+            f"{path}: {kind!r} models (WDL, SVM) are not yet ported to "
+            "shifu_tpu_torch (ROADMAP Queue 1 item 10)")
     raise ValueError(f"unknown model kind {kind!r} in {path}")

@@ -1,6 +1,7 @@
 """JAX's threefry random stream in PyTorch — the counterpart of the
-``jax.random`` calls the RF trainer makes (``PRNGKey``, ``fold_in``,
-``split``, ``uniform`` and ``poisson``), bit for bit.
+``jax.random`` calls the RF and NN trainers make (``PRNGKey``,
+``fold_in``, ``split``, ``uniform``, ``normal``, ``bernoulli`` and
+``poisson``), bit for bit where the arithmetic allows.
 
 The resident Random Forest draws each tree's Poisson bag from
 ``fold_in(PRNGKey(seed), tree)``.  A port that drew other bags would grow
@@ -18,6 +19,14 @@ run on the device as int64 tensors masked to 32 bits, since PyTorch has
 little uint32 arithmetic.  With the partitionable path row i's bits depend
 only on the key and i, so the draw of the first n rows does not depend on
 how many rows follow.
+
+The NN trainer draws its initial weights (``uniform`` over a range for
+Xavier, ``normal`` for He and Lecun) and its dropout masks
+(``bernoulli``) from the same stream.  A uniform over ``[lo, hi)`` is one
+fused multiply-add, as XLA compiles it, so Xavier weights are bit-equal;
+``normal`` is ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on (-1, 1), in
+XLA's float32 approximation of ``erf_inv``, whose ``log1p`` differs from
+XLA's in the last bit, so He and Lecun weights agree within a few ulps.
 
 Only the integer part has to be exact (keys, bits, uniforms); the Poisson
 loop then adds ``log(u)`` in float32 as jax does.  ``torch.log`` and XLA's
@@ -106,6 +115,68 @@ def uniform_f32(keys, n: int, device=None) -> torch.Tensor:
     bits = (random_bits(keys, n, device) >> 9) | 0x3F800000
     u = bits.to(torch.int32).view(torch.float32) - 1.0
     return u.clamp_min(0.0)
+
+
+def uniform_range_f32(key: Key, n: int, lo: float, hi: float,
+                      device=None) -> torch.Tensor:
+    """[n]: ``jax.random.uniform(key, (n,), float32, lo, hi)`` — the unit
+    draw scaled by ``hi - lo`` (in f32) and shifted by ``lo`` in one
+    fused multiply-add, floored at ``lo``."""
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    u = uniform_f32([key], n, device)[0]
+    # the f64 product of two f32 values is exact: one rounding, as an FMA
+    out = (u.double() * float(hi32 - lo32) + float(lo32)).float()
+    return out.clamp_min(float(lo32))
+
+
+# Giles' float32 approximation of erfinv, the one XLA compiles
+# (``ErfInv32``): coefficients for w < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``: ``p(w) * x`` with ``w = -log1p(-x^2)``
+    and a degree-8 polynomial in ``w - 2.5`` or ``sqrt(w) - 3``, its
+    Horner steps fused multiply-adds as XLA:CPU compiles them.  Within a
+    few ulps of XLA (``log1p`` differs in the last bit)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    lt_c = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
+    ge_c = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, lt_c[0], ge_c[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        p = (p.double() * w + torch.where(lt, lt_c[i], ge_c[i])).float()
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       out)
+
+
+def normal_f32(key: Key, n: int, device=None) -> torch.Tensor:
+    """[n]: ``jax.random.normal(key, (n,), float32)`` — ``sqrt(2) *
+    erf_inv(u)`` for ``u`` uniform on ``(nextafter(-1, 0), 1)``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform_range_f32(key, n, lo, 1.0, device)
+    return erfinv_f32(u) * torch.tensor(np.sqrt(2), dtype=torch.float32)
+
+
+def bernoulli(keys, p, shape, device=None) -> torch.Tensor:
+    """[len(keys), *shape] bool: ``jax.random.bernoulli(key, p, shape)``
+    for a float32 ``p`` under each key — a float32 uniform over the
+    flattened shape, below ``p``.  ``p`` is a number or a [len(keys)]
+    tensor (one rate a key)."""
+    n = int(np.prod(shape))
+    u = uniform_f32(list(keys), n, device)
+    if isinstance(p, torch.Tensor):
+        p = p.to(device=u.device, dtype=torch.float32).reshape(-1, 1)
+    else:
+        p = float(np.float32(p))
+    return (u < p).reshape(len(keys), *shape)
 
 
 def _check_rate(lam: float) -> float:

@@ -3,9 +3,10 @@
 the confusion / performance report.
 
 Each eval set streams through the parse pool, the host transform
-(``data/transform.py``) and the :class:`ModelRunner`, whose forests walk
-the bins with the ``tree_traverse`` kernel on the step's device: one
-launch per model per chunk on a CUDA device.  Outputs mirror
+(``data/transform.py``) and the :class:`ModelRunner` on the step's
+device: forests walk the bins with the ``tree_traverse`` kernel (one
+launch per model per chunk on a CUDA device), NN and LR nets take the
+normalized floats, same-shape nets as one stacked forward.  Outputs mirror
 ``PathFinder``: the ``EvalScore`` file (``tag|weight|mean|max|min|median|
 model0…``, scores at ``%.3f``), ``EvalPerformance.json``,
 ``EvalConfusionMatrix``, ``gainchart.csv`` and ``report.html``.  The
@@ -21,8 +22,7 @@ Not ported: telemetry (the drift monitor, ROADMAP Queue 1 item 13) raises
 post-train quality snapshot ``telemetry/posttrain.json`` on every run, the
 baseline its serving quality monitor reads (item 11); the port writes no
 such file and logs a warning saying so on every scored run.  Scoring runs on one device: the reference's multi-chip mesh
-waits for item 12.  NN/LR/WDL/SVM model files raise in
-``models.load_any``.
+waits for item 12.  WDL and SVM model files raise in ``models.load_any``.
 """
 
 from __future__ import annotations

@@ -1,12 +1,16 @@
 """Device-resident ensemble scorer behind a padded batch-bucket ladder —
 the port of ``shifu_tpu.serve.scorer``.
 
-:class:`AOTScorer` pins the ensemble's forests on the device once and keeps
-the reference's request contract: a batch pads to the smallest covering
-rung of the bucket ladder, batches beyond the top rung chunk through it,
-and the result is trimmed back to the request's rows.  Every launch is
-eager PyTorch around the hand-written traversal kernel (one kernel launch
-per forest per bucket); capturing each rung as a CUDA graph is later work.
+:class:`AOTScorer` pins the ensemble on the device once — the forests in
+their packed traversal layout, the NN/LR nets stacked per shape — and
+keeps the reference's request contract: a batch pads to the smallest
+covering rung of the bucket ladder, batches beyond the top rung chunk
+through it, and the result is trimmed back to the request's rows.  Forest
+columns read the bins (one ``tree_traverse`` kernel launch per forest per
+bucket); net columns read the normalized floats ``x`` (one stacked
+forward per same-shape group, ``torch.matmul`` on cuBLAS).  A raw-record
+batch gets both from ``FusedTransform.apply_device``.  Every launch is
+eager PyTorch; capturing each rung as a CUDA graph is later work.
 """
 
 from __future__ import annotations
@@ -55,17 +59,21 @@ def covering_bucket(buckets: Sequence[int], n: int) -> int:
 
 def infer_dims(models: Sequence) -> Tuple[int, int]:
     """(n_features, n_bin_cols) the ensemble's inputs must provide, derived
-    from the saved specs.  Tree forests consume bins only, so
-    ``n_features`` stays 0 until float-input models are ported."""
-    n_bins_cols = 0
+    from the saved specs: the nets' ``input_dim`` and the forests' widest
+    split column; 0 where no model of that kind is present."""
+    n_feat = n_bins_cols = 0
     for m in models:
-        if type(m).__name__ != "IndependentTreeModel":
+        name = type(m).__name__
+        if name == "IndependentNNModel":
+            n_feat = max(n_feat, int(m.spec.input_dim))
+        elif name == "IndependentTreeModel":
+            feats = max((int(np.max(t.split_feat)) for t in m.trees),
+                        default=-1)
+            n_bins_cols = max(n_bins_cols, feats + 1)
+        else:
             raise NotImplementedError(
-                f"{type(m).__name__} is not ported to shifu_tpu_torch yet")
-        feats = max((int(np.max(t.split_feat)) for t in m.trees),
-                    default=-1)
-        n_bins_cols = max(n_bins_cols, feats + 1)
-    return 0, n_bins_cols
+                f"{name} is not ported to shifu_tpu_torch yet")
+    return n_feat, n_bins_cols
 
 
 def _tree_column(m, device: torch.device) -> Callable:
@@ -86,17 +94,25 @@ def _tree_column(m, device: torch.device) -> Callable:
 
 def build_ensemble_fn(scorer: Scorer, device: torch.device) -> Callable:
     """``fn(x, bins) -> [n, M]`` scaled scores over the whole ensemble on
-    ``device`` (tree columns only here, so it always consumes bins)."""
-    cols: List[Callable] = []
-    for m in scorer.models:
-        if getattr(m, "input_kind", "norm") != "bins":
-            raise NotImplementedError(
-                f"{type(m).__name__} columns are not ported yet")
-        cols.append(_tree_column(m, device))
+    ``device``: the scorer's same-shape net groups as stacked forwards
+    over ``x``, the forests over ``bins``."""
+    from ..models.nn import forward
+    groups = scorer.nn_groups()
+    grouped = {i for idxs, _, _ in groups for i in idxs}
+    trees = {i: _tree_column(m, device) for i, m in enumerate(scorer.models)
+             if i not in grouped}
+    n_models = len(scorer.models)
     scale = scorer.scale
 
     def fn(x, bins):
-        return torch.stack([col(x, bins) for col in cols], dim=1) * scale
+        cols: List[Optional[torch.Tensor]] = [None] * n_models
+        for idxs, spec, stacked in groups:
+            out = forward(stacked, spec, x)            # [G, n, out]
+            for pos, i in enumerate(idxs):
+                cols[i] = out[pos, :, 0]
+        for i, col in trees.items():
+            cols[i] = col(x, bins)
+        return torch.stack(cols, dim=1) * scale
     return fn
 
 
@@ -114,9 +130,9 @@ class AOTScorer:
         self.buckets = tuple(sorted(set(buckets or bucket_ladder())))
         self.n_features, self.n_bins_cols = infer_dims(models)
         from ..ops import tree_quant as tq
-        self.bins_dtype = tq.ensemble_bins_dtype(models)
+        self.bins_dtype = tq.ensemble_bins_dtype(self.scorer.tree_models)
         self._fn = build_ensemble_fn(self.scorer, self.device)
-        self.needs_bins = True          # every ported model reads bins
+        self.needs_bins = self.n_bins_cols > 0
         self.transform = transform
         self.accepts_raw = transform is not None
         if transform is not None:
@@ -148,7 +164,8 @@ class AOTScorer:
 
     # ------------------------------------------------------------- score
     def _launch(self, x: torch.Tensor, bins: torch.Tensor) -> np.ndarray:
-        return self._fn(x, bins).cpu().numpy()
+        with torch.no_grad():
+            return self._fn(x, bins).cpu().numpy()
 
     def score_batch(self, x: np.ndarray,
                     bins: Optional[np.ndarray] = None) -> np.ndarray:
@@ -161,20 +178,21 @@ class AOTScorer:
                 [self.score_batch(x[s:s + top],
                                   None if bins is None else bins[s:s + top])
                  for s in range(0, n, top)], axis=0)
-        if bins is None:
+        if bins is None and self.needs_bins:
             raise ValueError("ensemble contains bin-consuming models "
                              "— requests must carry bins")
-        if x.shape[1] != self.n_features \
-                or bins.shape[1] != self.n_bins_cols:
+        n_bins = self.n_bins_cols if bins is None else bins.shape[1]
+        if x.shape[1] != self.n_features or n_bins != self.n_bins_cols:
             raise ValueError(
-                f"request carries {x.shape[1]} features and {bins.shape[1]} "
-                f"bin columns; the ensemble takes {self.n_features} and "
+                f"request carries {x.shape[1]} features and {n_bins} bin "
+                f"columns; the ensemble takes {self.n_features} and "
                 f"{self.n_bins_cols}")
         bucket = covering_bucket(self.buckets, n)
         xb = np.zeros((bucket, self.n_features), np.float32)
         xb[:n] = x
         bb = torch.zeros((bucket, self.n_bins_cols), dtype=self.bins_dtype)
-        bb[:n] = torch.tensor(np.asarray(bins))
+        if bins is not None:
+            bb[:n] = torch.tensor(np.asarray(bins))
         return self._launch(torch.from_numpy(xb).to(self.device),
                             bb.to(self.device))[:n]
 

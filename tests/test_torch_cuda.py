@@ -5,8 +5,10 @@ PyTorch version on the same numpy-seeded inputs (B2 also against B1 tree
 by tree, for multi-class channels too, and bagged GBT members against
 single runs); tree growth, Random Forest bags and the stats
 accumulator on the card against the CPU; GBT and RF chunks run under
-``torch.cuda.set_sync_debug_mode("error")``; and the port's ``eval`` on
-the card against the CPU, with its ``tree_traverse`` launch count.
+``torch.cuda.set_sync_debug_mode("error")``; the port's ``eval`` on
+the card against the CPU, with its ``tree_traverse`` launch count; and
+the NN trainer's stacked step on the card against the CPU, with one host
+sync an epoch (the ``[2, B]`` error fetch).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -845,3 +847,69 @@ def test_eval_on_the_card_matches_the_cpu(cuda, fraud_set, tmp_path):
     assert diff.max() <= 1e-3 + 1e-9
     assert abs(pc["areaUnderRoc"] - pp["areaUnderRoc"]) <= 1e-6
     assert pc["areaUnderRoc"] > 0.8
+
+
+def _nn_plane(seed=0, n=2048, d=16, bags=3):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] + rng.normal(size=n) * 0.5 > 0).astype(
+        np.float32)
+    w = rng.integers(1, 4, n).astype(np.float32)
+    valid = rng.random(n) < 0.2
+    tw = np.stack([(rng.random(n) < 0.9) * ~valid * w
+                   for _ in range(bags)]).astype(np.float32)
+    vw = np.tile(valid * w, (bags, 1)).astype(np.float32)
+    return x, y, tw, vw
+
+
+@pytest.mark.parametrize("settings", [
+    dict(optimizer="R"),
+    dict(optimizer="ADAM", learning_rate=0.01, batch_size=256)])
+def test_nn_stacked_step_on_the_card_matches_the_cpu(cuda, settings):
+    """Three members from carried weights: per-epoch errors and weights
+    within rtol 1e-5 (true f32 GEMMs on both, summed in another order)."""
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.ops import prng
+    from shifu_tpu_torch.train.nn_trainer import (TrainSettings,
+                                                  train_ensemble)
+    x, y, tw, vw = _nn_plane()
+    spec = nn_model.NNModelSpec(input_dim=16, hidden_nodes=[20, 10],
+                                activations=["tanh"])
+    init = [nn_model.init_params(k, spec) for k in
+            prng.split(prng.prng_key(5), 3)]
+    runs = [train_ensemble(x, y, tw, vw, spec,
+                           TrainSettings(epochs=4, **settings),
+                           init_params_list=init, device=dev)
+            for dev in ("cpu", cuda)]
+    np.testing.assert_allclose(np.array(runs[1].history),
+                               np.array(runs[0].history), rtol=1e-5)
+    for a, b in zip(runs[0].params, runs[1].params):
+        for la, lb in zip(a, b):
+            for k in ("w", "b"):
+                np.testing.assert_allclose(lb[k].numpy(), la[k].numpy(),
+                                           rtol=1e-5, atol=1e-6)
+
+
+def test_nn_full_batch_epoch_makes_one_host_sync(cuda):
+    """An epoch's only host sync is the [2, B] error fetch: runs of 3 and
+    2 epochs differ by exactly one synchronizing operation."""
+    import warnings
+
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.train.nn_trainer import (TrainSettings,
+                                                  train_ensemble)
+    x, y, tw, vw = _nn_plane()
+    spec = nn_model.NNModelSpec(input_dim=16, hidden_nodes=[20, 10],
+                                activations=["tanh"])
+
+    def syncs(epochs):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                train_ensemble(x, y, tw, vw, spec,
+                               TrainSettings(epochs=epochs), device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in seen)
+    assert syncs(3) - syncs(2) == 1

@@ -251,8 +251,56 @@ def test_eval_scorer_matches_reference(gbt_set):
 
 def test_unported_model_kinds_raise_clearly(tmp_path):
     from shifu_tpu_torch.models import load_any
-    path = str(tmp_path / "model0.nn")
+    path = str(tmp_path / "model0.wdl")
     np.savez(path, __spec__=np.frombuffer(
-        json.dumps({"kind": "nn"}).encode(), np.uint8))
+        json.dumps({"kind": "wdl"}).encode(), np.uint8))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         load_any(path + ".npz")
+
+
+NN_TOL = 1e-3       # 0-1000 scale: f32 GEMMs summed in another order
+
+
+@pytest.fixture(scope="module")
+def nn_set(tmp_path_factory, _prepared_template):
+    """A two-bag NN model set (one stacked forward) trained briefly by
+    the reference, so its scores sit inside (0, 1000)."""
+    import shutil
+
+    from shifu_tpu.config import ModelConfig
+    from shifu_tpu.config.model_config import Algorithm
+    from shifu_tpu.pipeline.train import TrainProcessor
+    d = str(tmp_path_factory.mktemp("torch_serve_nn") / "nnset")
+    shutil.copytree(_prepared_template, d)
+    mc_path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(mc_path)
+    mc.train.algorithm = Algorithm.NN
+    mc.train.baggingNum = 2
+    mc.train.numTrainEpochs = 2
+    mc.train.params = {"NumHiddenNodes": [8], "ActivationFunc": ["tanh"],
+                       "Propagation": "ADAM", "LearningRate": 0.01}
+    mc.save(mc_path)
+    assert TrainProcessor(d, params={}).run() == 0
+    return d
+
+
+def test_nn_set_serves_like_the_reference(nn_set):
+    """Raw records through the fused transform's ``x`` into the stacked
+    NN forward, against the reference's server; a pre-normalized request
+    too, and the server reports float inputs only."""
+    server, jserver = _servers(nn_set, buckets=(1, 8, 64))
+    recs = _records(nn_set)
+    got, want = server.score_raw(recs), jserver.score_raw(recs)
+    assert got["errors"] == want["errors"] and len(got["errors"]) == 1
+    a = np.asarray([s for s in got["scores"] if s is not None])
+    b = np.asarray([s for s in want["scores"] if s is not None])
+    assert np.max(np.abs(a - b)) <= NN_TOL
+    assert 1.0 < a.min() and a.max() < 999.0
+    st = server.status()
+    assert st["needs_bins"] is False and st["n_features"] == \
+        jserver.status()["n_features"] == 7
+    x = np.random.default_rng(4).normal(size=(70, 7)).astype(np.float32)
+    assert np.max(np.abs(server.score(x, None) - jserver.score(x, None))) \
+        <= NN_TOL
+    scorer = server.registry.get("gbt")
+    assert [len(idxs) for idxs, _, _ in scorer.scorer.nn_groups()] == [2]

@@ -104,7 +104,31 @@ versions on one card.  Otherwise it
    rows by ``tree_traverse``'s node-index walk (one launch, bit-equal to
    the plain version), and a one-vs-all GBT (240 ``hist`` launches, one
    ``tree_traverse`` launch a class model when scored), accuracy above
-   the majority class's share for both;
+   the majority class's share for both; then the out-of-core tree
+   trainers (``stream_phase``) through ``cli.main train`` on ``cuda`` on
+   a 4,194,304 x 256 wire plane from ``--seed`` (shards of 524,288 rows,
+   1.07 GB of bins; ``should_stream`` streams it on its own): (a) the GBT
+   above with windows of 524,288 rows, 7 resident in the 1 GiB device
+   cache and 1 on the disk tail, coarse-to-fine (``hist`` and
+   ``hist_batch`` both launched, counted from zero around the run; the
+   device busy share of a 3-tree run from ``torch.profiler``); (a') the
+   exact schedule: the same forest and progress bit for bit in 90 tail
+   sweeps, more than (a)'s; (a0) the default geometry (two 4,129,776-row
+   windows, none resident); (b) 6 trees with CheckpointInterval 5, then
+   ``train -resume`` to 10 from the 5-tree checkpoint, with and without
+   its score sidecar (8 ``tree_traverse`` launches, one a window),
+   bit-identical to (a); (c) ``init -model``'s RF in two super-batches
+   (31 tail sweeps, 224 ``hist_batch`` launches), falling out-of-bag
+   errors, the peak device memory; (d) the plane's first 65,536 rows in
+   windows of 8,192 (6 resident): (a)'s GBT with coarse-to-fine on and
+   off and a 4-tree depth-7 RF, card and CPU with equal splits and
+   masks, leaves within 1e-5 relative (+1e-6), errors within 1e-5
+   relative, equal tail sweeps; (e) a streamed 3-bag GBT on the train
+   plane (windows of 131,072, 6 resident), member 1 bit-identical to its
+   single ``train_gbt_streamed`` run; then ``hist_batch`` at the tail
+   window's path shape (TB = 7, N = 524,288, K = 64) and ``hist`` over
+   the coalesced resident block (N = 3,670,016, K = 32) on the run's own
+   inputs, held to their plain versions and timed;
 6. drives the port's stats path through the CLI: writes the column
    plan's raw data as a 16,384-row '|'-delimited CSV (224 numeric columns
    with ~5% empty cells, 32 categorical, ``weight``, ``tag``; a cut in
@@ -264,6 +288,16 @@ NN_SCORE_TOL, NN_E2E_AUC_TOL = 1e-2, 1e-4   # NN eval and serve, 0-1000
 FP32_PEAK = 67e12          # H100 SXM dense FP32 outside the tensor cores
 MC_TAGS = ["t0", "t1", "t2"]               # the multi-class CSV's tags
 MC_SCORE_TOL = 1e-5 + 1e-9                 # class scores card vs CPU (%.6f)
+STREAM_ROWS, STREAM_WINDOW = 1 << 22, 1 << 19   # the out-of-core plane;
+#                                       its shards and (a)'s windows
+STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
+STREAM_CUT_WINDOW, STREAM_CUT_RESIDENT = 8192, 6   # (d) on CUT_ROWS rows
+STREAM_CUT_RF_TREES = 4                    # (d)'s RF, depth DEPTH
+STREAM_LEAF_RTOL, STREAM_LEAF_ATOL = 1e-5, 1e-6    # (d) leaves, card/CPU
+STREAM_ERR_RTOL = 1e-5                     # (d) progress errors
+MEMBER_WINDOW, MEMBER_RESIDENT, MEMBER_BAGS = 1 << 17, 6, 3   # (e)
+GBT_ROW_BYTES = N_COLS + 12                # a prepared GBT window row
+RF_ROW_BYTES = N_COLS + 8                  # a prepared RF window row
 
 
 def fail(msg: str) -> None:
@@ -701,12 +735,13 @@ def train_plane(rng, plan, n: int):
     return bins, y, w, informative, is_cat
 
 
-def write_plane(clean: str, bins, y, w, names, sig) -> None:
+def write_plane(clean: str, bins, y, w, names, sig,
+                shard: int = 1 << 18) -> None:
     """The norm step's clean output as the port's ``WireWriter`` writes
-    it: the wire plane in shards of 2^18 rows, and ``schema.json``."""
+    it: the wire plane in shards of ``shard`` rows, and ``schema.json``."""
     from shifu_tpu_torch.data.spill import WireWriter, wire_dir
     from shifu_tpu_torch.ioutil import atomic_write_json
-    keys, shard = ("bins", "y", "w"), 1 << 18
+    keys = ("bins", "y", "w")
     ww = WireWriter(wire_dir(clean, keys), keys,
                     {"bins": np.uint8, "y": np.float32, "w": np.float32},
                     {"bins": (bins.shape[1],)}, sig)
@@ -2214,6 +2249,540 @@ def bagging_phase(torch, root: str, serve_root: str, plane, gpu: str,
     return out
 
 
+class StreamLog:
+    """Collects the streamed trainers' summary lines (``dt_trainer.
+    _streamed_result``: windows, resident windows, disk passes, tail
+    sweeps, repairs, surrender, bytes read) while it is installed."""
+    PATTERN = re.compile(
+        r"streamed (\w+): (\d+) trees; (\d+) windows of (\d+) rows, (\d+) "
+        r"resident \((\d+) rows\); (\d+) disk passes, (\d+) tail sweeps, "
+        r"(\d+) repairs, surrender at tree (-?\d+); (\d+) bytes read")
+    KEYS = ("trees", "windows", "window_rows", "resident", "resident_rows",
+            "disk_passes", "tail_sweeps", "repairs", "surrender",
+            "bytes_read")
+
+    def __init__(self):
+        import logging
+        self.runs = []
+        outer = self
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                m = outer.PATTERN.search(record.getMessage())
+                if m:
+                    outer.runs.append(dict(zip(outer.KEYS, map(
+                        int, m.groups()[1:]))))
+        self.handler = _H()
+        self.logger = logging.getLogger("shifu_tpu_torch.train.dt_trainer")
+
+    def __enter__(self):
+        import logging
+        self.runs.clear()
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def stream_cli(d: str, device: str, props: dict, *extra: str):
+    """``train`` through the CLI with ``-D`` properties, which are cleared
+    again after the run (the CLI keeps them in the process); returns (wall
+    s, the streamed runs' summaries, peak device bytes above the start)."""
+    import torch
+    from shifu_tpu_torch.config import environment
+    argv = [f"-D{k}={v}" for k, v in props.items()]
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    try:
+        with StreamLog() as sl:
+            wall = train_cli(d, device, *argv, *extra)
+    finally:
+        for k in props:
+            environment.set_property(k, "")
+    peak = torch.cuda.max_memory_allocated() - base \
+        if device == "cuda" else 0
+    if not sl.runs:
+        fail(f"train {' '.join(argv + list(extra))} on {device} logged no "
+             "streamed run")
+    return wall, [dict(r) for r in sl.runs], peak
+
+
+def forests_equal(a, b) -> bool:
+    return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+
+
+def stream_plane(rng, plan, root: str, names):
+    """The out-of-core plane: STREAM_ROWS rows of the serving column plan
+    (``train_plane``: y from the logit on N_INFORMATIVE columns, weights
+    1-3) as the wire plane in shards of STREAM_WINDOW rows."""
+    t0 = time.perf_counter()
+    bins, y, w, informative, is_cat = train_plane(rng, plan, STREAM_ROWS)
+    clean = os.path.join(root, "stream_plane")
+    write_plane(clean, bins, y, w, names, {"chip_smoke": "stream"},
+                shard=STREAM_WINDOW)
+    log(f"stream plane written in {time.perf_counter() - t0:.2f} s: "
+        f"{STREAM_ROWS} rows x {N_COLS} columns in shards of "
+        f"{STREAM_WINDOW} ({bins.nbytes / 1e9:.3f} GB of bins), "
+        f"informative columns {informative.tolist()}, positive rate "
+        f"{y.mean():.4f}")
+    return bins, y, w, informative, is_cat, clean
+
+
+def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
+                 gpu: str) -> dict:
+    """The out-of-core tree trainers through ``cli.main train`` on
+    ``cuda``: a STREAM_ROWS x 256 wire plane, which ``should_stream``
+    streams on its own (4 * 258 bytes a row over the 2 GiB budget).
+
+    (a) GBT (TreeNum 10, MaxDepth 7, Loss log, LearningRate 0.1) with
+    ``windowRows`` STREAM_WINDOW: 8 windows, STREAM_RESIDENT resident in
+    the 1 GiB device cache and 1 on the disk tail, coarse-to-fine (the
+    card's default); the tree counters zeroed just before and read just
+    after: B1 and B2 must both launch.  (a') the same with
+    ``tailCoarseToFine=false``: bit-identical forest and progress, 10 x
+    (7 + 2) tail sweeps, more than (a)'s.  (a0) the same GBT at the
+    default geometry (no resident window), split differences from (a)
+    counted, not gated.  (b) (a) with CheckpointInterval 5 stopped after
+    6 trees (the checkpoint holds 5), ``train -resume`` to 10:
+    bit-identical to (a); and the same checkpoint without its score
+    sidecar: the restored trees replay through ``tree_traverse`` window by
+    window, bit-identical.  (c) ``init -model``'s RF (10 trees, depth 14)
+    with ``windowRows`` STREAM_WINDOW: two super-batches (SB = 8), B2 and
+    B1 launched, finite and falling out-of-bag errors.  (d) the first
+    CUT_ROWS rows, windows of STREAM_CUT_WINDOW, STREAM_CUT_RESIDENT
+    resident: (a)'s GBT with coarse-to-fine on and off and a
+    STREAM_CUT_RF_TREES-tree depth-7 RF on ``cuda`` and ``cpu``: split
+    features and masks equal, leaves and errors within STREAM_LEAF_RTOL /
+    STREAM_ERR_RTOL, tail sweeps equal.  (e) streamed GBT with
+    ``baggingNum`` MEMBER_BAGS on the train phase's plane, windows of
+    MEMBER_WINDOW, MEMBER_RESIDENT resident: member 1 bit-identical to a
+    single ``train_gbt_streamed`` run with its mask function and seed.
+    Then B2 at the tail window's path shape and B1 at the coalesced
+    resident block's shape against their plain versions, timed."""
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import should_stream
+    from shifu_tpu_torch.pipeline.create import _ALG_DEFAULT_PARAMS
+    t_phase = time.perf_counter()
+    names = [p[1] for p in plan]
+    bins, y, w, informative, is_cat, clean = stream_plane(
+        rng, plan, root, names)
+    shards = Shards.open(clean)
+    if not should_stream(shards):
+        fail("the stream plane does not stream by the default budget")
+    params = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
+              "LearningRate": 0.1}
+    win = {"shifu.train.windowRows": str(STREAM_WINDOW)}
+    out = {}
+
+    # (a) coarse-to-fine on the card's default
+    da = write_train_set(os.path.join(root, "stream_a"), serve_root, params,
+                         clean)
+    zero_tree_counts()
+    wall, runs, peak = stream_cli(da, "cuda", win)
+    launches = read_tree_counts()
+    a = runs[-1]
+    want_geom = (8, STREAM_WINDOW, STREAM_RESIDENT)
+    if (a["windows"], a["window_rows"], a["resident"]) != want_geom:
+        fail(f"(a) geometry {a}, not {want_geom} (windows, rows, resident)")
+    if launches["hist"] < 1 or launches["hist_batch"] < 1:
+        fail(f"(a) launched {launches}: B1 and B2 must both run")
+    spec_a, trees_a = load_forest(da)
+    err_a = progress_errors(da)
+    if len(trees_a) != TRAIN_TREES or err_a.shape != (TRAIN_TREES, 2) or \
+            not np.all(np.diff(err_a[:, 0]) < 0) or \
+            not err_a[-1, 1] < err_a[0, 1]:
+        fail(f"(a): {len(trees_a)} trees, errors {err_a.tolist()}")
+    out["a"] = {"wall_s": wall, "ms_per_tree": wall * 1e3 / TRAIN_TREES,
+                "launches": launches, "peak_bytes": peak, **a}
+    log(f"stream (a) GBT c2f: {TRAIN_TREES} trees in {wall:.3f} s "
+        f"({wall * 1e3 / TRAIN_TREES:.1f} ms a tree); {a['windows']} "
+        f"windows of {a['window_rows']} rows, {a['resident']} resident; "
+        f"disk passes {a['disk_passes']}, tail sweeps {a['tail_sweeps']}, "
+        f"repairs {a['repairs']}, surrender at tree {a['surrender']}, "
+        f"bytes read {a['bytes_read']}; launches {launches}; peak device "
+        f"memory {peak / 2**30:.3f} GiB; validation error "
+        f"{err_a[0, 1]:.6f} -> {err_a[-1, 1]:.6f} — [{gpu}]")
+
+    # (a') the exact schedule: the same forest bit for bit
+    dx = write_train_set(os.path.join(root, "stream_exact"), serve_root,
+                         params, clean)
+    zero_tree_counts()
+    wall, runs, peak = stream_cli(
+        dx, "cuda", dict(win, **{"shifu.tree.tailCoarseToFine": "false"}))
+    launches = read_tree_counts()
+    x = runs[-1]
+    _, trees_x = load_forest(dx)
+    if not forests_equal(trees_x, trees_a):
+        fail("(a') the exact schedule's forest differs from (a)'s")
+    if not np.array_equal(progress_errors(dx), err_a):
+        fail("(a') progress differs from (a)'s")
+    if x["tail_sweeps"] != TRAIN_TREES * (DEPTH + 2) or \
+            not a["tail_sweeps"] < x["tail_sweeps"]:
+        fail(f"(a') tail sweeps {x['tail_sweeps']} (want "
+             f"{TRAIN_TREES * (DEPTH + 2)}), (a) {a['tail_sweeps']}")
+    out["a_exact"] = {"wall_s": wall, "launches": launches,
+                      "peak_bytes": peak, **x}
+    log(f"stream (a') exact: bit-identical to (a), {wall:.3f} s "
+        f"({wall * 1e3 / TRAIN_TREES:.1f} ms a tree), tail sweeps "
+        f"{x['tail_sweeps']} against (a)'s {a['tail_sweeps']}; launches "
+        f"{launches} — [{gpu}]")
+
+    # where a streamed tree's time goes: the device busy share of a
+    # 3-tree coarse-to-fine run on (a)'s geometry, its warm pass included
+    from shifu_tpu_torch.config import environment
+    from shifu_tpu_torch.train import dt_trainer as dt
+    environment.set_property("shifu.train.windowRows", str(STREAM_WINDOW))
+    try:
+        out["a"]["profile"] = profile_device(
+            torch, lambda: dt.train_gbt_streamed(
+                dt._tree_stream(shards), N_BINS, is_cat,
+                dt.DTSettings(n_trees=3, depth=DEPTH, loss="log",
+                              learning_rate=0.1),
+                device=torch.device("cuda")),
+            "a 3-tree coarse-to-fine run of (a)'s geometry, warm pass "
+            "included")
+    finally:
+        environment.set_property("shifu.train.windowRows", "")
+
+    # (a0) the default geometry: the whole plane is tail
+    d0 = write_train_set(os.path.join(root, "stream_default"), serve_root,
+                         params, clean)
+    wall, runs, peak = stream_cli(d0, "cuda", {})
+    g = runs[-1]
+    _, trees_0 = load_forest(d0)
+    differ = sum(int((p.split_feat != q.split_feat).sum())
+                 for p, q in zip(trees_0, trees_a))
+    if g["resident"] != 0:
+        fail(f"(a0) kept {g['resident']} windows resident at the default "
+             "geometry")
+    out["a0"] = {"wall_s": wall, "peak_bytes": peak,
+                 "nodes_differ_from_a": differ, **g}
+    log(f"stream (a0) default geometry: {wall:.3f} s "
+        f"({wall * 1e3 / TRAIN_TREES:.1f} ms a tree); {g['windows']} windows "
+        f"of {g['window_rows']} rows, {g['resident']} resident, tail sweeps "
+        f"{g['tail_sweeps']}; {differ} nodes split on another feature than "
+        f"(a) (other partitions, not gated) — [{gpu}]")
+
+    # (b) resume, with and without the score sidecar
+    db = write_train_set(os.path.join(root, "stream_resume"), serve_root,
+                         dict(params, TreeNum=TRAIN_CKPT + 1,
+                              CheckpointInterval=TRAIN_CKPT), clean)
+    stream_cli(db, "cuda", win)
+    dr = write_train_set(os.path.join(root, "stream_replay"), serve_root,
+                         dict(params, CheckpointInterval=TRAIN_CKPT), clean)
+    shutil.copytree(os.path.join(db, "tmp", "checkpoints"),
+                    os.path.join(dr, "tmp", "checkpoints"),
+                    ignore=shutil.ignore_patterns("*.scores.npz"))
+    set_train_params(db, dict(params, CheckpointInterval=TRAIN_CKPT))
+    wall_b, runs_b, _ = stream_cli(db, "cuda", win, "-resume")
+    _, trees_b = load_forest(db)
+    if not forests_equal(trees_b, trees_a):
+        fail("(b) the resumed streamed forest differs from (a)'s")
+    zero_tree_counts()
+    wall_r, runs_r, _ = stream_cli(dr, "cuda", win, "-resume")
+    replay = read_tree_counts()
+    _, trees_r = load_forest(dr)
+    if not forests_equal(trees_r, trees_a):
+        fail("(b) the replayed streamed forest differs from (a)'s")
+    if replay["tree_traverse"] != 8:
+        fail(f"(b) the replay launched {replay}: one tree_traverse a "
+             "window (8)")
+    out["b"] = {"wall_s": wall_b, "replay_wall_s": wall_r,
+                "replay_launches": replay, "tail_sweeps": runs_b[-1][
+                    "tail_sweeps"]}
+    log(f"stream (b) {TRAIN_CKPT} checkpointed trees + train -resume to "
+        f"{TRAIN_TREES}: bit-identical to (a) with the score sidecar "
+        f"({wall_b:.3f} s) and without it ({wall_r:.3f} s, the restored "
+        f"trees replayed through tree_traverse: {replay}) — [{gpu}]")
+
+    # (c) init -model's RF: two super-batches
+    rf_params = dict(_ALG_DEFAULT_PARAMS["RF"][1])
+    if (rf_params["TreeNum"], rf_params["MaxDepth"]) != (RF_TREES, RF_DEPTH):
+        fail(f"init -model's RF defaults changed: {rf_params}")
+    dc = write_train_set(os.path.join(root, "stream_rf"), serve_root,
+                         rf_params, clean, "RF")
+    zero_tree_counts()
+    wall, runs, peak = stream_cli(dc, "cuda", win)
+    launches = read_tree_counts()
+    r = runs[-1]
+    spec_c, trees_c = load_forest(dc, "rf")
+    err_c = progress_errors(dc)
+    sb = 8
+    want_sweeps = (RF_DEPTH + 1) + (RF_DEPTH + 2)    # the warm pass rides
+    if len(trees_c) != RF_TREES or r["tail_sweeps"] != want_sweeps or \
+            launches["hist_batch"] != 2 * RF_DEPTH * 8 or \
+            launches["hist"] < 1:
+        fail(f"(c) {len(trees_c)} trees, {r}, launches {launches} (want "
+             f"{want_sweeps} tail sweeps, {2 * RF_DEPTH * 8} hist_batch: "
+             f"{RF_DEPTH} levels x 8 windows x 2 super-batches)")
+    if not np.isfinite(err_c).all() or not err_c[-1, 1] < err_c[0, 1]:
+        fail(f"(c) out-of-bag errors do not fall: {err_c[:, 1].tolist()}")
+    out["c"] = {"wall_s": wall, "ms_per_tree": wall * 1e3 / RF_TREES,
+                "launches": launches, "peak_bytes": peak, "super_batch": sb,
+                **r}
+    log(f"stream (c) RF {RF_TREES} trees depth {RF_DEPTH}: {wall:.3f} s "
+        f"({wall * 1e3 / RF_TREES:.1f} ms a tree), tail sweeps "
+        f"{r['tail_sweeps']}, launches {launches}, peak device memory "
+        f"{peak / 2**30:.3f} GiB, out-of-bag error {err_c[0, 1]:.6f} -> "
+        f"{err_c[-1, 1]:.6f} — [{gpu}]")
+
+    out["d"] = stream_cut_phase(root, serve_root, params, bins, y, w, names,
+                                gpu)
+    out["e"] = stream_member_phase(torch, root, serve_root, params,
+                                   train_plane_, gpu)
+    out["kernels"] = stream_kernels(torch, bins, y, w, trees_a[0],
+                                    spec_a.init_score, gpu)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"stream phase: {out['wall_s']:.1f} s — [{gpu}]")
+    return out
+
+
+def stream_cut_phase(root, serve_root, params, bins, y, w, names,
+                     gpu) -> dict:
+    """(d): the stream plane's first CUT_ROWS rows, windows of
+    STREAM_CUT_WINDOW, a device cache that keeps STREAM_CUT_RESIDENT of
+    them resident (GBT and RF alike); (a)'s GBT with coarse-to-fine on
+    and off, and a STREAM_CUT_RF_TREES-tree depth-7 RF, each on ``cuda``
+    and ``cpu``."""
+    cut = os.path.join(root, "stream_cut_plane")
+    write_plane(cut, bins[:CUT_ROWS], y[:CUT_ROWS], w[:CUT_ROWS], names,
+                {"chip_smoke": "stream_cut"}, shard=STREAM_CUT_WINDOW * 3)
+    budget = STREAM_CUT_RESIDENT * STREAM_CUT_WINDOW * GBT_ROW_BYTES + 1000
+    base = {"shifu.train.streaming": "on",
+            "shifu.train.windowRows": str(STREAM_CUT_WINDOW),
+            "shifu.train.deviceCacheBytes": str(budget)}
+    rf_params = {"TreeNum": STREAM_CUT_RF_TREES, "MaxDepth": DEPTH,
+                 "Impurity": "entropy", "FeatureSubsetStrategy": "TWOTHIRDS",
+                 "Loss": "squared"}
+    cases = (("gbt_c2f", "GBT", params, "true"),
+             ("gbt_exact", "GBT", params, "false"),
+             ("rf", "RF", rf_params, None))
+    got = {}
+    for name, alg, p, c2f in cases:
+        props = dict(base) if c2f is None else dict(
+            base, **{"shifu.tree.tailCoarseToFine": c2f})
+        for dev in ("cuda", "cpu"):
+            d = write_train_set(os.path.join(root, f"stream_cut_{name}_"
+                                             f"{dev}"), serve_root, p, cut,
+                                alg)
+            wall, runs, _ = stream_cli(d, dev, props)
+            got[name, dev] = (wall, runs[-1], load_forest(d, alg.lower())[1],
+                              progress_errors(d))
+    out = {}
+    for name, alg, _, _ in cases:
+        (w_card, r_card, t_card, e_card), (w_cpu, r_cpu, t_cpu, e_cpu) = \
+            got[name, "cuda"], got[name, "cpu"]
+        if r_card["resident"] != STREAM_CUT_RESIDENT or \
+                r_card["windows"] != CUT_ROWS // STREAM_CUT_WINDOW:
+            fail(f"(d) {name}: geometry {r_card}")
+        worst = 0.0
+        for t, (a, b) in enumerate(zip(t_card, t_cpu)):
+            if not (np.array_equal(a.split_feat, b.split_feat)
+                    and np.array_equal(a.left_mask, b.left_mask)):
+                fail(f"(d) {name} tree {t}: card and CPU split otherwise")
+            dl = np.abs(a.leaf_value - b.leaf_value)
+            if not np.all(dl <= STREAM_LEAF_RTOL * np.abs(b.leaf_value)
+                          + STREAM_LEAF_ATOL):
+                fail(f"(d) {name} tree {t}: leaves differ by {dl.max()}")
+            worst = max(worst, float(dl.max()))
+        rel = np.abs(e_card - e_cpu) / np.abs(e_cpu)
+        if len(t_card) != len(t_cpu) or not np.all(rel <= STREAM_ERR_RTOL):
+            fail(f"(d) {name}: errors differ by up to {rel.max()} relative")
+        if r_card["tail_sweeps"] != r_cpu["tail_sweeps"]:
+            fail(f"(d) {name}: tail sweeps {r_card['tail_sweeps']} on the "
+                 f"card, {r_cpu['tail_sweeps']} on the CPU")
+        out[name] = {"wall_s": [w_card, w_cpu], "max_abs_leaf_diff": worst,
+                     "max_rel_err": float(rel.max()),
+                     "tail_sweeps": r_card["tail_sweeps"]}
+        log(f"stream (d) {name} on {CUT_ROWS} rows ({STREAM_CUT_RESIDENT} of "
+            f"{CUT_ROWS // STREAM_CUT_WINDOW} windows resident): card == CPU "
+            f"in splits and masks, leaves within {worst:.3g}, errors within "
+            f"{rel.max():.3g} relative, tail sweeps {r_card['tail_sweeps']} "
+            f"on both; wall {w_card:.2f} s card, {w_cpu:.2f} s CPU — [{gpu}]")
+    for dev in ("cuda", "cpu"):
+        if not forests_equal(got["gbt_c2f", dev][2], got["gbt_exact", dev][2]):
+            fail(f"(d) coarse-to-fine differs from exact on {dev}")
+    return out
+
+
+def stream_member_phase(torch, root, serve_root, params, train_plane_,
+                        gpu) -> dict:
+    """(e): a streamed GBT with ``baggingNum`` MEMBER_BAGS on the train
+    phase's plane (windows of MEMBER_WINDOW, MEMBER_RESIDENT resident);
+    member 1 against a single ``train_gbt_streamed`` run with its mask
+    function (``_streamed_bag_mask_fn``) and seed."""
+    from dataclasses import replace
+    from shifu_tpu_torch.config import ModelConfig, environment
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.train import dt_trainer as dt
+    bins, y, w, informative, is_cat, clean, cut, names = train_plane_
+    props = {"shifu.train.streaming": "on",
+             "shifu.train.windowRows": str(MEMBER_WINDOW),
+             "shifu.train.deviceCacheBytes": str(
+                 MEMBER_RESIDENT * MEMBER_WINDOW * GBT_ROW_BYTES + 1000)}
+    d = write_train_set(os.path.join(root, "stream_members"), serve_root,
+                        params, clean)
+    set_train_conf(d, baggingNum=MEMBER_BAGS)
+    zero_tree_counts()
+    wall, runs, peak = stream_cli(d, "cuda", props)
+    launches = read_tree_counts()
+    forests = load_members(d, "gbt")
+    if len(forests) != MEMBER_BAGS or len(runs) != MEMBER_BAGS or any(
+            r["resident"] != MEMBER_RESIDENT for r in runs):
+        fail(f"(e) {len(forests)} members, runs {runs}")
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    settings = dt.settings_from_params(params, mc.train, Algorithm.GBT)
+    settings.stats_exact = not mc.dataSet.weightColumnName
+    for k, v in props.items():
+        environment.set_property(k, v)
+    try:
+        single = dt.train_gbt_streamed(
+            dt._tree_stream(Shards.open(clean)), N_BINS, is_cat,
+            replace(settings, seed=settings.seed + 1),
+            mask_fn=dt._streamed_bag_mask_fn(mc, False, MEMBER_BAGS,
+                                             settings.seed, 1),
+            device=torch.device("cuda"))
+    finally:
+        for k in props:
+            environment.set_property(k, "")
+    if not forests_equal(single.trees, forests[1][1]):
+        fail("(e) streamed member 1 differs from its single run")
+    if forests_equal(forests[0][1], forests[1][1]):
+        fail("(e) members 0 and 1 grew the same forest")
+    log(f"stream (e) {MEMBER_BAGS} streamed GBT members on {TRAIN_ROWS} rows "
+        f"({MEMBER_RESIDENT} of {TRAIN_ROWS // MEMBER_WINDOW} windows "
+        f"resident): {wall:.3f} s, tail sweeps "
+        f"{[r['tail_sweeps'] for r in runs]}, launches {launches}; member 1 "
+        f"bit-identical to its single streamed run — [{gpu}]")
+    return {"wall_s": wall, "launches": launches, "peak_bytes": peak,
+            "tail_sweeps": [r["tail_sweeps"] for r in runs]}
+
+
+def time_given(torch, name, launch, plain, bins, node_b, stats_b, k, gpu):
+    """A histogram launch on the main path's own inputs: the kernel, the
+    plain version, one ``scatter_add_`` of every active (tree, row,
+    column) into a flat f32 buffer (the cell index computed beforehand),
+    and the bound (``hist_batch_bytes``: the bins once, each tree's node
+    ids and active stats, the output; one add per active (tree, row,
+    column, channel))."""
+    from shifu_tpu_torch.ops import hist
+    tb, s = stats_b.shape[0], stats_b.shape[2]
+    ms = device_ms(torch, launch, launches=10, repeats=5)
+    plain_ms = device_ms(torch, plain, launches=1, repeats=3)
+    nbytes = hist.hist_batch_bytes(bins, node_b, stats_b, k, N_BINS)
+    act = (node_b >= 0).nonzero()
+    n_act = int(act.shape[0])
+    cols = torch.arange(N_COLS, device="cuda")
+    cell = ((act[:, 0] * k + node_b[act[:, 0], act[:, 1]].long())
+            * N_COLS)[:, None] + cols
+    cell.mul_(N_BINS).add_(bins[act[:, 1]])
+    idx = cell.reshape(-1, 1).expand(-1, s)
+    src = stats_b[act[:, 0], act[:, 1]][:, None, :] \
+        .expand(-1, N_COLS, -1).reshape(-1, s)
+    del cell
+    flat = torch.zeros((tb * k * N_COLS * N_BINS, s), device="cuda")
+    library_ms = device_ms(torch, lambda: flat.scatter_add_(0, idx, src),
+                           launches=2, repeats=3)
+    del act, idx, src, flat
+    torch.cuda.empty_cache()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_act * N_COLS * s / INT_OPS_PER_S * 1e3
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "active": n_act,
+           "shape": f"TB={tb} N={bins.shape[0]} C={N_COLS} B={N_BINS} "
+                    f"S={s} K={k} uint8"}
+    log(f"{name} {out['shape']}: kernel {ms:.5f} ms, plain {plain_ms:.4f} "
+        f"ms, scatter_add_ {library_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.6f} ms ({out['bound_by']}: {nbytes / 1e6:.3f} "
+        f"MB, {n_act} active (tree, row) pairs) — [{gpu}]")
+    return out
+
+
+def stream_kernels(torch, bins, y, w, tree, init_score, gpu) -> dict:
+    """B2 at the disk-tail window's path shape (``build_path_histograms``:
+    TB = depth trees of one window sharing one stats plane, K = 2^(depth -
+    1)) and B1 at the coalesced resident block's shape (STREAM_RESIDENT
+    windows, the left children of level 6: K = 32), on (a)'s plane with
+    (a)'s first tree as the structure and its prior as the score: each
+    tree held to the plain versions (``held_to_plain``), B2's trees to B1
+    launches bit for bit, then timed (``time_given``)."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops import tree as tt
+    from shifu_tpu_torch.train import dt_trainer as dt
+    dev = torch.device("cuda")
+    sf = torch.from_numpy(tree.split_feat).to(dev)
+    lm = torch.from_numpy(tree.left_mask).to(dev)
+
+    def inputs(r0, r1):
+        idx = np.arange(r0, r1)
+        tw, _ = dt._stream_masks(idx, r1 - r0, w[r0:r1], 0.2, 0)
+        b = torch.from_numpy(bins[r0:r1]).to(dev)
+        yy = torch.from_numpy(y[r0:r1]).to(dev)
+        f = torch.full((r1 - r0,), init_score, dtype=torch.float32,
+                       device=dev)
+        return b, dt._gbt_stats(yy, torch.from_numpy(tw).to(dev), f, "log")
+
+    out = {}
+    tail0 = STREAM_RESIDENT * STREAM_WINDOW
+    b, stats = inputs(tail0, STREAM_ROWS)
+    half = 1 << (DEPTH - 1)
+    node_b = torch.stack([tt.node_index_at_level(sf, lm, b, 0)] + [
+        tt._left_child_index(tt.node_index_at_level(sf, lm, b, lvl))
+        for lvl in range(1, DEPTH)])
+    stats_b = stats[None].expand(DEPTH, *stats.shape).contiguous()
+    got = tt.build_histograms_batch(b, node_b, stats_b, half, N_BINS)
+    hl, _ = tt.build_path_histograms(b, stats, sf, lm, DEPTH, N_BINS)
+    if not torch.equal(got, hl):
+        fail("B2 at the path shape != build_path_histograms")
+    err = 0.0
+    for t in range(DEPTH):
+        if not torch.equal(got[t], tt.build_histograms(b, node_b[t],
+                                                       stats_b[t], half,
+                                                       N_BINS)):
+            fail(f"hist_batch at the path shape: tree {t} != hist (B1)")
+        err = max(err, held_to_plain(
+            torch, hist, got[t], b, node_b[t], stats_b[t], half, N_BINS,
+            f"the path shape, level {t}", "hist_batch"))
+    del got, hl
+    torch.cuda.empty_cache()
+    out["path"] = time_given(
+        torch, "hist_batch (path)", lambda: tt.build_histograms_batch(
+            b, node_b, stats_b, half, N_BINS),
+        lambda: hist.build_histograms_batch_ref(b, node_b, stats_b, half,
+                                                N_BINS),
+        b, node_b, stats_b, half, gpu)
+    out["path"]["max_abs_err"] = err
+    del b, stats, node_b, stats_b
+    torch.cuda.empty_cache()
+
+    b, stats = inputs(0, tail0)
+    k = 32
+    node = tt._left_child_index(tt.node_index_at_level(sf, lm, b, 6))
+    got = tt.build_histograms(b, node, stats, k, N_BINS)
+    err = held_to_plain(torch, hist, got, b, node, stats, k, N_BINS,
+                        "the coalesced block", "hist")
+    del got
+    out["block"] = time_given(
+        torch, "hist (block)", lambda: tt.build_histograms(
+            b, node, stats, k, N_BINS),
+        lambda: hist.build_histograms_ref(b, node, stats, k, N_BINS),
+        b, node[None], stats[None], k, gpu)
+    out["block"]["max_abs_err"] = err
+    del b, stats, node
+    torch.cuda.empty_cache()
+    return out
+
+
 def three_classes(rng, bins, informative) -> np.ndarray:
     """A three-class target on the train plane, made from ``rng``: class k
     scores the bins of informative column k (scaled to [0, 2.5]) plus
@@ -3080,6 +3649,9 @@ def main() -> None:
                                 trained["chunk"]["ms_per_tree"])
         multi = multiclass_phase(torch, tq, root, serve_root, plane,
                                  np.random.default_rng([args.seed, 2]), gpu)
+        stream = stream_phase(torch, root, serve_root, plan,
+                              np.random.default_rng([args.seed, 5]), plane,
+                              gpu)
         del plane
         nn_walls = {}
         t0 = time.perf_counter()
@@ -3134,6 +3706,8 @@ def main() -> None:
         **{f"eval_forest_at_{n}_rows": eval_times[n] for n in eval_times},
         "multiclass_eval_launches": {alg: mc_cli[alg]["eval_launches"]
                                      for alg in ("RF", "GBT")},
+        "stream_replay_launches":
+            stream["b"]["replay_launches"]["tree_traverse"],
         f"node_index_walk_at_{MC_WALK_ROWS}_rows": multi["walk"],
         "gpu": gpu}, {
         "name": "hist", "route": "cuda",
@@ -3145,6 +3719,14 @@ def main() -> None:
         "kfold_launches": bagging["kfold"]["launches"]["hist"],
         "multiclass_launches": {"native_rf": multi["rf"]["launches"]["hist"],
                                 "ova_gbt": multi["ova"]["launches"]["hist"]},
+        "stream_launches": {k: stream[k]["launches"]["hist"]
+                            for k in ("a", "a_exact", "c")},
+        "stream_leaf_sum_launches": {
+            k: stream[k]["launches"]["leaf_sums"]
+            for k in ("a", "a_exact", "c")},
+        "at_stream_block": {m: stream["kernels"]["block"][m] for m in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "shape")},
         "replaces": "shifu_tpu/ops/hist_pallas.py:75",
         "launches": trained["launches"]["hist"],
         "max_abs_err": max([errs["hist"]] + [hist_times[k]["max_abs_err"]
@@ -3183,6 +3765,11 @@ def main() -> None:
         "bagging_launches": bagging["bagging"]["launches"]["hist_batch"],
         "kfold_launches": bagging["kfold"]["launches"]["hist_batch"],
         "multiclass_launches": multi["rf"]["launches"]["hist_batch"],
+        "stream_launches": {k: stream[k]["launches"]["hist_batch"]
+                            for k in ("a", "a_exact", "c")},
+        "at_stream_path": {m: stream["kernels"]["path"][m] for m in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "shape")},
         "max_abs_err": max([errs["hist_batch"], multi["b2_s3"]["max_abs_err"]]
                            + [bagging["b2"][k]["max_abs_err"]
                               for k in BAG_TIMED_NODES]),
@@ -3221,6 +3808,15 @@ def main() -> None:
         f"(hist), bags {rf_chunk['bag_ms']:.1f} ms; CLI train phase "
         f"{forest['phases_s']['train']:.3f} s ({forest['phases_s']}); peak "
         f"device memory {forest['peak_bytes'] / 2**30:.3f} GiB — [{gpu}]")
+    sa, sc = stream["a"], stream["c"]
+    log(f"stream: {STREAM_ROWS} x {N_COLS} plane, GBT c2f "
+        f"{sa['ms_per_tree']:.1f} ms a tree ({sa['tail_sweeps']} tail "
+        f"sweeps, {sa['repairs']} repairs; exact "
+        f"{stream['a_exact']['tail_sweeps']}), default geometry "
+        f"{stream['a0']['wall_s']:.3f} s, RF {sc['ms_per_tree']:.1f} ms a "
+        f"tree ({sc['tail_sweeps']} tail sweeps, peak "
+        f"{sc['peak_bytes'] / 2**30:.3f} GiB); phase "
+        f"{stream['wall_s']:.1f} s — [{gpu}]")
     log(f"stats: {CSV_ROWS} rows x {N_COLS + 2} fields through new/init/"
         f"stats in {stats['init_s'] + stats['wall_s']:.2f} s (stats "
         f"{stats['wall_s']:.3f} s, host parse {stats['parse_us_per_cell']:.3f}"

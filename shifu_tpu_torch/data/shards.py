@@ -127,6 +127,17 @@ class Shards:
             raise FileNotFoundError(f"no shards in {self.directory}")
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
+    def source_signature(self) -> List[List]:
+        """[(name, size, mtime_ns)] of every npz shard, the spill cache's
+        staleness check; a wire plane pins the schema's wire signature."""
+        if self.is_wire:
+            return [["wire", self.schema.get("wireSignature")]]
+        out = []
+        for f in self.files:
+            st = os.stat(f)
+            out.append([os.path.basename(f), st.st_size, st.st_mtime_ns])
+        return out
+
     @property
     def shard_rows(self) -> List[int]:
         """Per-shard row counts: schema ``shardRows``, else the wire

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
@@ -63,26 +64,59 @@ def widen_bins(bins: torch.Tensor) -> torch.Tensor:
 def _scatter_cells(bins, node_idx, src, n_nodes: int,
                    n_bins: int) -> torch.Tensor:
     """[K, C, B, S] sums of ``src`` [N, S] (its dtype) over (node,
-    feature, bin) cells: one ``scatter_add_`` per column chunk into a flat
-    buffer."""
+    feature, bin) cells: one ``scatter_add_`` per column chunk.  On the
+    CPU the chunks run on a thread pool (each column's cells are its own,
+    and a cell still adds its rows in row order, so the sums do not
+    depend on the split)."""
     n, c = bins.shape
-    s = src.shape[1]
     dev = bins.device
-    acc = torch.zeros((n_nodes * c * n_bins, s), dtype=src.dtype,
-                      device=dev)
     node = node_idx.long()
     row_ok = (node >= 0) & (node < n_nodes)
-    base = node.clamp(0, n_nodes - 1) * c
     step = max(1, _REF_CHUNK // max(n, 1))
-    for c0 in range(0, c, step):
-        cols = torch.arange(c0, min(c, c0 + step), device=dev)
-        b = bins[:, c0:c0 + len(cols)].long()
+    if dev.type == "cpu" and n * c >= _POOL_MIN:
+        step = min(step, -(-c // _pool_threads()))
+    edges = list(range(0, c, step)) + [c]
+
+    def chunk(c0: int, c1: int) -> torch.Tensor:
+        s = src.shape[1]
+        cc = c1 - c0
+        acc = torch.zeros((n_nodes * cc * n_bins, s), dtype=src.dtype,
+                          device=dev)
+        b = bins[:, c0:c1].long()
         ok = row_ok[:, None] & (b >= 0) & (b < n_bins)
-        idx = ((base[:, None] + cols[None, :]) * n_bins
-               + b.clamp(0, n_bins - 1)).reshape(-1, 1).expand(-1, s)
+        cols = torch.arange(cc, device=dev)
+        idx = (((node.clamp(0, n_nodes - 1) * cc)[:, None] + cols[None, :])
+               * n_bins + b.clamp(0, n_bins - 1)).reshape(-1, 1) \
+            .expand(-1, s)
         acc.scatter_add_(0, idx, (src[:, None, :] * ok[..., None])
                          .reshape(-1, s))
-    return acc.reshape(n_nodes, c, n_bins, s)
+        return acc.reshape(n_nodes, cc, n_bins, s)
+
+    spans = list(zip(edges[:-1], edges[1:]))
+    if dev.type == "cpu" and len(spans) > 1:
+        parts = list(_pool().map(lambda e: chunk(*e), spans))
+    else:
+        parts = [chunk(*e) for e in spans]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+#: rows x columns from which the CPU plain version splits its columns
+#: over a thread pool
+_POOL_MIN = 1 << 18
+_POOL = None
+
+
+def _pool_threads() -> int:
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+def _pool():
+    global _POOL
+    if _POOL is None:
+        from concurrent.futures import ThreadPoolExecutor
+        _POOL = ThreadPoolExecutor(_pool_threads(),
+                                   thread_name_prefix="hist-ref")
+    return _POOL
 
 
 def build_histograms_ref(bins, node_idx, stats, n_nodes: int,

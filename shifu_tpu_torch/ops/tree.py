@@ -10,6 +10,14 @@ batch, the members of a bagged or grid-searched GBT).  Forests are walked
 by ``ops.tree_quant`` (kernel B4; :func:`predict_forest` groups a forest
 by depth for it).
 
+The out-of-core trainers add three pieces: :func:`build_path_histograms`
+(every level's left-child histograms along a fixed structure in one B2
+launch over one window, TB = depth trees sharing one stats plane),
+:func:`node_index_at_level` and :func:`predict_tree` (a window's rows
+routed through a partial or a finished tree by plain gathers), and
+:func:`grow_tree`'s ``record_hists`` / ``tail_extra`` options (the
+coarse-to-fine tail's resident head).
+
 Trees are complete binary arrays (node i's children at 2i+1 / 2i+2):
 ``split_feat[node]`` (-1 = leaf), a per-bin ``left_mask`` (numeric and
 categorical splits alike: "bin in the left set") and ``leaf_value`` ([nodes],
@@ -323,7 +331,9 @@ def leaf_values_from_raw(sums, n_classes: int = 0):
 def grow_tree(bins, stats, cat, fa, n_bins: int, depth: int,
               impurity: str, min_instances: float, min_gain: float,
               max_leaves: int = 0, has_cat: bool = True,
-              n_classes: int = 0):
+              n_classes: int = 0, record_hists: bool = False,
+              tail_extra=None, prev_sf=None, prev_lm=None,
+              valid_upto: int = 0):
     """Whole-tree level-wise growth (the resident path of the reference's
     ``grow_tree_jit``) on the device of ``bins``, with no host sync.
 
@@ -337,12 +347,30 @@ def grow_tree(bins, stats, cat, fa, n_bins: int, depth: int,
 
     Returns (split_feat [total] int32, left_mask [total, B] bool,
     leaf_value [total] (or [total, K]) f32, gain_fi [C] f32 realized split
-    gains per feature, leaf_glob [N] int32 terminal node per row)."""
+    gains per feature, leaf_glob [N] int32 terminal node per row).
+
+    ``record_hists`` also returns (hist_left [depth, 2^(depth-1), C, B,
+    S], leaf_raw [S, 2^depth]): each level's LEFT-child histograms (level
+    0 the full root), zero-padded to one slot width, and the bottom
+    level's raw sums, in :func:`build_path_histograms`'s layout, so the
+    coarse-to-fine tail adds resident and tail parts cell for cell.
+
+    ``tail_extra`` ([depth, 2^(depth-1), C, B, S], with ``prev_sf`` /
+    ``prev_lm``, the previous tree, and the host int ``valid_upto``) is
+    stale tail evidence for the split DECISIONS only: the previous
+    coarse-to-fine pass's tail-only left-child histograms.  Level l
+    decides on resident + evidence when l <= ``valid_upto`` (the previous
+    pass confirmed its routing that deep) and this tree's splits above l
+    equal the previous tree's (a device flag, no host sync); the evidence
+    never enters the recorded histograms or the subtraction chain."""
     def level_hists(node_idx, n_nodes):
         return [build_histograms(bins, node_idx[0], stats, n_nodes, n_bins)]
-    return _grow(bins, [stats], cat, [fa], n_bins, depth, impurity,
-                 [min_instances], [min_gain], max_leaves, has_cat,
-                 level_hists, n_classes)[0]
+    out = _grow(bins, [stats], cat, [fa], n_bins, depth, impurity,
+                [min_instances], [min_gain], max_leaves, has_cat,
+                level_hists, n_classes, record_hists=record_hists,
+                tail_extra=tail_extra, prev_sf=prev_sf, prev_lm=prev_lm,
+                valid_upto=valid_upto)
+    return out[0][0] + out[1] if record_hists else out[0]
 
 
 def grow_forest(bins, stats_b, cat, fa_b, n_bins: int, depth: int,
@@ -394,19 +422,47 @@ def _subtract(hls, hist_prev, feat_prev):
     return hists
 
 
+def level_gain_fi(gain, feat, c: int):
+    """A level's realized split gains per column [C] f32 (a plain
+    reduction, deterministic on the card)."""
+    realized = torch.where(feat >= 0, gain.clamp_min(0.0), 0.0).float()
+    ids = torch.arange(c, device=feat.device)
+    return torch.where(feat.long()[:, None] == ids[None, :],
+                       realized[:, None], 0.0).sum(dim=0)
+
+
+def _pad_nodes(hist, width: int):
+    """Zero-pad a level histogram's node axis to ``width``, so every level
+    shares one accumulator slot shape."""
+    k = hist.shape[0]
+    if k >= width:
+        return hist
+    return torch.cat([hist, hist.new_zeros((width - k,) + hist.shape[1:])])
+
+
 def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
           min_instances, min_gain, max_leaves: int, has_cat: bool,
-          level_hists, n_classes: int = 0):
+          level_hists, n_classes: int = 0, record_hists: bool = False,
+          tail_extra=None, prev_sf=None, prev_lm=None, valid_upto: int = 0):
     """The level loop of :func:`grow_tree` and :func:`grow_forest` for
     trees t with ``stats[t]``, ``fa[t]``, ``min_instances[t]`` and
     ``min_gain[t]``; ``level_hists(node_idx,
     K)`` builds every tree's [K, C, B, S] histogram of one level from the
     per-tree node ids.  Each tree runs the same per-tree ops in the same
     order whatever the batch, which is what makes a batched tree equal a
-    sequential one bit for bit."""
+    sequential one bit for bit.  ``record_hists`` and ``tail_extra`` (one
+    tree only) are :func:`grow_tree`'s; with ``record_hists`` the result
+    is (the per-tree list, (hist_left, leaf_raw))."""
     n, c = bins.shape
     dev = bins.device
     tb = len(stats)
+    stale = tail_extra is not None
+    assert tb == 1 or not (record_hists or stale)
+    half = max(1 << max(depth - 1, 0), 1)
+    rec_left: list = []
+    leaf_raw = None
+    prefix_ok = torch.ones((), dtype=torch.bool, device=dev)
+    tail_full = None
     feats = [[] for _ in range(tb)]
     lmasks = [[] for _ in range(tb)]
     leaves = [[] for _ in range(tb)]
@@ -418,15 +474,13 @@ def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
                  for _ in range(tb)]
     nodes_cnt = [torch.ones((), dtype=torch.int32, device=dev)
                  for _ in range(tb)]
-    feat_ids = torch.arange(c, device=dev)
     hist_prev = feat_prev = None
     for level in range(depth + 1):
         n_nodes = 1 << level
         if level == depth:
             for t in range(tb):
-                leaves[t].append(leaf_values_from_raw(
-                    _level_leaf_raw(stats[t], node_idx[t], n_nodes),
-                    n_classes))
+                leaf_raw = _level_leaf_raw(stats[t], node_idx[t], n_nodes)
+                leaves[t].append(leaf_values_from_raw(leaf_raw, n_classes))
                 feats[t].append(torch.full((n_nodes,), -1, dtype=torch.int32,
                                            device=dev))
                 lmasks[t].append(torch.zeros((n_nodes, n_bins),
@@ -434,26 +488,42 @@ def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
             break
         if level == 0:
             hists = level_hists(node_idx, 1)
+            if record_hists:
+                rec_left.append(_pad_nodes(hists[0], half))
+            decide = hists
+            if stale:
+                tail_full = tail_extra[0, :1]         # the tail root
+                decide = [hists[0] + tail_full]
         else:
-            hists = _subtract(level_hists(
-                [_left_child_index(ni) for ni in node_idx], n_nodes // 2),
-                hist_prev, feat_prev)
+            hls = level_hists([_left_child_index(ni) for ni in node_idx],
+                              n_nodes // 2)
+            if record_hists:
+                rec_left.append(_pad_nodes(hls[0], half))
+            hists = decide = _subtract(hls, hist_prev, feat_prev)
+            if stale:
+                # the tail's full level, derived along the PREVIOUS tree
+                tail_full = _subtract(
+                    [tail_extra[level, :n_nodes // 2]], [tail_full],
+                    [prev_sf[n_nodes // 2 - 1:n_nodes - 1]])[0]
+                if level <= valid_upto:
+                    decide = [torch.where(prefix_ok, hists[0] + tail_full,
+                                          hists[0])]
         hist_prev, feat_prev = hists, [None] * tb
         for t in range(tb):
             gain, feat, lmask, leaf, _ = best_splits(
-                hists[t], cat, fa[t], impurity, min_instances[t],
+                decide[t], cat, fa[t], impurity, min_instances[t],
                 min_gain[t], has_cat, n_classes)
             if max_leaves > 0:
                 feat, lmask, nodes_cnt[t] = cap_splits_by_leaves(
                     gain, feat, lmask, nodes_cnt[t], max_leaves)
+            if stale:
+                lo, hi = n_nodes - 1, 2 * n_nodes - 1
+                prefix_ok = prefix_ok & (feat == prev_sf[lo:hi]).all() & \
+                    (lmask == prev_lm[lo:hi]).all()
             feats[t].append(feat)
             lmasks[t].append(lmask)
             leaves[t].append(leaf)
-            split = feat >= 0
-            realized = torch.where(split, gain.clamp_min(0.0), 0.0).float()
-            gain_fi[t] = gain_fi[t] + torch.where(
-                feat.long()[:, None] == feat_ids[None, :], realized[:, None],
-                0.0).sum(dim=0)
+            gain_fi[t] = gain_fi[t] + level_gain_fi(gain, feat, c)
             feat_prev[t] = feat
             node_idx[t] = _descend(bins, node_idx[t], feat, lmask)
             # rows that descended rest at their child's GLOBAL id; frozen
@@ -461,8 +531,81 @@ def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
             leaf_glob[t] = torch.where(node_idx[t] >= 0,
                                        ((1 << (level + 1)) - 1)
                                        + node_idx[t], leaf_glob[t])
-    return [(torch.cat(feats[t]), torch.cat(lmasks[t]), torch.cat(leaves[t]),
-             gain_fi[t], leaf_glob[t]) for t in range(tb)]
+    out = [(torch.cat(feats[t]), torch.cat(lmasks[t]), torch.cat(leaves[t]),
+            gain_fi[t], leaf_glob[t]) for t in range(tb)]
+    if record_hists:
+        return out, (torch.stack(rec_left), leaf_raw)
+    return out
+
+
+def node_index_at_level(split_feat, left_mask, bins, level: int):
+    """Level-local node index [N] int32 of every row in a partial tree
+    (levels above ``level`` decided); -1 where an ancestor froze.  The
+    streamed trainers re-derive a window's row positions from the tree
+    instead of keeping a per-row index resident."""
+    node_idx = torch.zeros(bins.shape[0], dtype=torch.int32,
+                           device=bins.device)
+    for lv in range(level):
+        base = (1 << lv) - 1
+        node_idx = _descend(bins, node_idx, split_feat[base:base + (1 << lv)],
+                            left_mask[base:base + (1 << lv)])
+    return node_idx
+
+
+def traverse_nodes(split_feat, left_mask, bins, depth: int):
+    """Terminal global node id [N] int64 of every row after ``depth``
+    descents (frozen rows stop at their leaf) — plain gathers."""
+    node = torch.zeros(bins.shape[0], dtype=torch.int64, device=bins.device)
+    for _ in range(depth):
+        feat, goes_left = _level_select(bins, node, split_feat, left_mask)
+        node = torch.where(feat >= 0,
+                           torch.where(goes_left, 2 * node + 1, 2 * node + 2),
+                           node)
+    return node
+
+
+def predict_tree(split_feat, left_mask, leaf_value, bins, depth: int):
+    """One tree's leaf value ([N], or [N, K]) for every row of ``bins`` —
+    the streamed trainers' per-window score and vote updates."""
+    return leaf_value[traverse_nodes(split_feat, left_mask, bins, depth)]
+
+
+def build_path_histograms(bins, stats, split_feat, left_mask, depth: int,
+                          n_bins: int, hist_bins=None):
+    """Every level's histograms along a FIXED tree structure in one pass
+    over a window — the coarse-to-fine disk tail's core op (reference
+    ``build_path_histograms``).  Given a speculated structure, each
+    level's routing is known up front, so ONE kernel B2 launch at TB =
+    ``depth`` builds them all: level l's left-child histograms (level 0
+    the full root), the trees sharing ``bins`` and one stats plane
+    (broadcast to [depth, N, S]), plus the bottom level's raw leaf sums
+    (B1 on the card, :func:`_level_leaf_raw`).
+
+    Returns (hist_left [depth, 2^(depth-1), C, B, S], level l in the first
+    ``max(2^(l-1), 1)`` node slots and zero past them, and leaf_raw [S,
+    2^depth]): :func:`grow_tree`'s ``record_hists`` layout.  ``hist_bins``
+    ([N, K], optional) narrows the histogram build to a candidate column
+    subset while routing walks the full ``bins``."""
+    assert depth >= 1
+    half = max(1 << (depth - 1), 1)
+    node_idx = torch.zeros(bins.shape[0], dtype=torch.int32,
+                           device=bins.device)
+    idx_levels = [node_idx]                    # level 0: the full root
+    for level in range(1, depth + 1):
+        base = (1 << (level - 1)) - 1
+        width = 1 << (level - 1)
+        node_idx = _descend(bins, node_idx, split_feat[base:base + width],
+                            left_mask[base:base + width])
+        if level < depth:
+            idx_levels.append(_left_child_index(node_idx))
+    # the kernel takes contiguous planes: one [depth, N, S] copy of the
+    # shared stats (a strided broadcast would need the kernel to know it)
+    stats_b = stats[None].expand(depth, *stats.shape).contiguous()
+    hist_left = build_histograms_batch(
+        bins if hist_bins is None else hist_bins, torch.stack(idx_levels),
+        stats_b, half, n_bins)
+    leaf_raw = _level_leaf_raw(stats, node_idx, 1 << depth)
+    return hist_left, leaf_raw
 
 
 # ---------------------------------------------------------------- predict

@@ -1,10 +1,11 @@
 """`train` step — the port of ``shifu_tpu.pipeline.train.TrainProcessor``.
 
 Tree algorithms read the clean/binned plane (``tmp/CleanedData``) and go to
-``train.dt_trainer.run_tree_training``: resident GBT, RF and DT, single or
-as grid trials (list-valued ``train#params`` or ``train.gridConfigFile``,
+``train.dt_trainer.run_tree_training``: GBT, RF and DT, single or as grid
+trials (list-valued ``train#params`` or ``train.gridConfigFile``,
 expanded by :meth:`TrainProcessor._trials`), bagged or k-fold members,
-and multi-class targets.
+and multi-class targets, resident or out of core (a plane over
+``shifu.train.memoryBudgetBytes``, or ``-Dshifu.train.streaming=on``).
 
 NN and LR (and TENSORFLOW, which trains the same net) read the norm plane
 (``tmp/NormalizedData``) and train as one stacked ensemble on the step's

@@ -913,3 +913,159 @@ def test_nn_full_batch_epoch_makes_one_host_sync(cuda):
             torch.cuda.set_sync_debug_mode(0)
         return sum("synchroniz" in str(w.message) for w in seen)
     assert syncs(3) - syncs(2) == 1
+
+
+# ------------------------------------------------------------ streaming
+def _stream_shards(d, n=4096, c=16, b=64, seed=12, shard_rows=1000):
+    """npz shards of a plane with a learnable target (the out-of-core
+    trainers' input) and its schema."""
+    import json
+    import os
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, b, size=(n, c)).astype(np.uint8)
+    logit = (bins[:, 0].astype(np.float32) - 32) / 10 + (bins[:, 3] < 8)
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    w = rng.integers(1, 4, size=n).astype(np.float32)
+    os.makedirs(d, exist_ok=True)
+    for i, s in enumerate(range(0, n, shard_rows)):
+        np.savez(os.path.join(d, f"part-{i:05d}.npz"),
+                 bins=bins[s:s + shard_rows], y=y[s:s + shard_rows],
+                 w=w[s:s + shard_rows])
+    with open(os.path.join(d, "schema.json"), "w") as f:
+        json.dump({"columnNums": list(range(c)), "numRows": n}, f)
+    return d
+
+
+_STREAM_WIN = 512
+_GBT_WIN_BYTES = _STREAM_WIN * (16 + 12)       # u8 bins, y/tw/vw f32
+
+
+def _streamed_gbt(d, device, c2f, prefetch=None, budget=None, trees=4):
+    import os
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import ShardStream
+    from shifu_tpu_torch.train import dt_trainer as dt
+    old = os.environ.get("SHIFU_TREE_TAIL_C2F")
+    os.environ["SHIFU_TREE_TAIL_C2F"] = c2f
+    try:
+        return dt.train_gbt_streamed(
+            ShardStream(Shards.open(d), ("bins", "y", "w"), _STREAM_WIN,
+                        prefetch=prefetch), 64, None,
+            dt.DTSettings(n_trees=trees, depth=5, loss="log",
+                          learning_rate=0.1),
+            cache_budget=5 * _GBT_WIN_BYTES + 100 if budget is None
+            else budget, device=device)
+    finally:
+        if old is None:
+            os.environ.pop("SHIFU_TREE_TAIL_C2F")
+        else:
+            os.environ["SHIFU_TREE_TAIL_C2F"] = old
+
+
+def _same_forest(a, b):
+    return len(a.trees) == len(b.trees) and all(
+        getattr(x, k).tobytes() == getattr(y, k).tobytes()
+        for x, y in zip(a.trees, b.trees)
+        for k in ("split_feat", "left_mask", "leaf_value"))
+
+
+def test_streamed_c2f_is_the_exact_forest_on_the_card(cuda, tmp_path):
+    """5 of 8 windows resident, 3 on the disk tail: coarse-to-fine (B2 at
+    TB = depth a tail window) grows the exact schedule's forest (B1 a
+    level a window) bit for bit, in fewer tail sweeps; both launch on the
+    card.  Against the CPU's exact run: the same tail sweeps and levels
+    0-1 split alike (deeper nodes of this plane split on noise columns
+    whose gains tie within the sums' last bits, C4)."""
+    from shifu_tpu_torch.ops import tree as tt
+    d = _stream_shards(str(tmp_path / "s"))
+    b1, b2 = tt.build_histograms.launches, tt.build_histograms_batch.launches
+    c2f = _streamed_gbt(d, cuda, "1")
+    assert tt.build_histograms_batch.launches > b2
+    exact = _streamed_gbt(d, cuda, "0")
+    assert tt.build_histograms.launches > b1
+    assert _same_forest(c2f, exact)
+    assert c2f.history == exact.history
+    assert exact.tail_sweeps == 4 * (5 + 2) > c2f.tail_sweeps
+    cpu = _streamed_gbt(d, torch.device("cpu"), "0")
+    assert cpu.tail_sweeps == exact.tail_sweeps
+    for a, b in zip(exact.trees, cpu.trees):
+        np.testing.assert_array_equal(a.split_feat[:3], b.split_feat[:3])
+        np.testing.assert_array_equal(a.left_mask[:3], b.left_mask[:3])
+
+
+def test_tail_windows_are_not_reused_while_a_launch_reads_them(cuda,
+                                                               tmp_path):
+    """Every window on the tail (a 0-byte device cache): prepared inline
+    (prefetch 0) and two windows ahead on the copy stream (prefetch 2),
+    the exact schedule grows the same forest bit for bit — the consumer
+    waits on each window's copy event and ``record_stream`` keeps the
+    allocator from handing a window's memory to the next copy while a
+    kernel still reads it."""
+    d = _stream_shards(str(tmp_path / "s"), n=8192)
+    inline = _streamed_gbt(d, cuda, "0", prefetch=0, budget=0, trees=3)
+    ahead = _streamed_gbt(d, cuda, "0", prefetch=2, budget=0, trees=3)
+    assert inline.tail_sweeps == ahead.tail_sweeps == 3 * (5 + 2)
+    assert _same_forest(inline, ahead)
+    assert inline.history == ahead.history
+
+
+def test_resident_windows_stay_on_the_card_and_a_level_makes_no_sync(
+        cuda, tmp_path):
+    """Resident windows keep their device tensors across sweeps (the same
+    storage every sweep), and a resident level (node routing, B1 over the
+    window, the level step) runs with no host sync."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import ResidentCache, ShardStream
+    from shifu_tpu_torch.ops.tree import n_tree_nodes
+    from shifu_tpu_torch.train import dt_trainer as dt
+    d = _stream_shards(str(tmp_path / "s"))
+    stream = ShardStream(Shards.open(d), ("bins", "y", "w"), _STREAM_WIN)
+    cache = ResidentCache(stream, 5 * _GBT_WIN_BYTES + 100, dt._gbt_prepare(
+        dt._WindowCopier(cuda), 0.2, 0, 64))
+    first = [(it.resident, it.arrays["bins"].data_ptr())
+             for it in cache.items()]
+    again = [(it.resident, it.arrays["bins"].data_ptr())
+             for it in cache.items()]
+    assert [r for r, _ in first] == [True] * 5 + [False] * 3
+    assert again[:5] == first[:5]
+    it = cache.cached[0]
+    assert all(t.is_cuda for t in it.arrays.values())
+    total = n_tree_nodes(5)
+    sf, lm, lv = dt._blank_tree(total, 64, cuda)
+    sf[0] = 0
+    lm[0, :32] = True
+    f = torch.zeros(_STREAM_WIN, device=cuda)
+    cat = torch.zeros(16, dtype=torch.bool, device=cuda)
+    fa = torch.ones(16, dtype=torch.bool, device=cuda)
+    hist = torch.zeros((1, 16, 64, 2), device=cuda)
+    args = (it.arrays["bins"], it.arrays["y"], it.arrays["tw"], f, sf, lm)
+    dt._gbt_window_hist(hist, *args, 1, 64, 1, "log", True)   # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hl = dt._gbt_window_hist(hist, *args, 1, 64, 1, "log", True)
+        full = dt._gbt_window_hist(torch.zeros((1, 16, 64, 2), device=cuda),
+                                   *args, 1, 64, 0, "log", False)
+        level = dt._derive_level(full, hl, sf[:1])
+        dt._tree_level_step(level, cat, fa, "variance", 1.0, 0.0, False, 1,
+                            5, 0, sf, lm, lv,
+                            torch.ones((), dtype=torch.int32, device=cuda),
+                            torch.zeros(16, device=cuda))
+        dt._gbt_window_update(torch.zeros(4, device=cuda), *args[:3],
+                              it.arrays["vw"], f, sf, lm, lv, 0.1, 5, "log")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert level.shape == (2, 16, 64, 2) and level.is_cuda
+
+
+def test_device_bags_on_the_card_are_the_host_stream(cuda):
+    from shifu_tpu_torch.data.streaming import _hash_poisson, row_uniform
+    from shifu_tpu_torch.ops.hashing import hash_poisson_device
+    idx = np.concatenate([np.arange(0, 50_000),
+                          np.arange(2 ** 31 - 5000, 2 ** 31 + 5000),
+                          np.arange(2 ** 32 - 5000, 2 ** 32 + 5000)])
+    for lam, stream in ((1.0, 5003), (0.63, 1001)):
+        got = hash_poisson_device(torch.from_numpy(idx).to(cuda), 7, stream,
+                                  lam).cpu().numpy()
+        np.testing.assert_array_equal(
+            got, _hash_poisson(lam, row_uniform(7, stream, idx)))

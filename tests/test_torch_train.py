@@ -350,15 +350,26 @@ def test_train_raises_without_cuda_unless_cpu_is_asked(monkeypatch,
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"algorithm": "RF", "baggingNum": 2}, "streamed .*RF members"),
-    ({"params": dict(BASE, TreeNum=[2, 3])}, "streamed .*GBT members"),
-    ({}, "streamed .*GBT training"),
-    ({"baggingNum": 2}, "streamed .*GBT members")])
+    # ids of the time these paths raised (ROADMAP item 8, now ported)
+    pytest.param({"algorithm": "RF", "baggingNum": 2},
+                 r"train RF STREAMED on cpu: 2 members",
+                 id="change0-streamed .*RF members"),
+    pytest.param({"params": dict(BASE, TreeNum=[2, 3])},
+                 r"train GBT STREAMED on cpu: 2 trials",
+                 id="change1-streamed .*GBT members"),
+    pytest.param({}, r"train GBT STREAMED on cpu: 4000 rows",
+                 id="change2-streamed .*GBT training"),
+    pytest.param({"baggingNum": 2}, r"train GBT STREAMED on cpu: 2 members",
+                 id="change3-streamed .*GBT members")])
 def test_unported_paths_raise_naming_their_roadmap_item(prepared_set,
-                                                        change, match):
+                                                        change, match,
+                                                        caplog):
     """Streamed (out-of-core) training, single or as bagged or grid
-    members, is ROADMAP item 8: with ``shifu.train.streaming=on`` each
-    raises naming it before any member trains."""
+    members, was ROADMAP item 8 and raised naming it; it is ported: with
+    ``shifu.train.streaming=on`` each of these trains out of core and
+    writes its model files (only NN/LR streamed still raises,
+    ``tests/test_torch_nn_pipeline.py``)."""
+    import logging
     from shifu_tpu_torch.cli import main
     from shifu_tpu_torch.config import ModelConfig
     from shifu_tpu_torch.config.model_config import Algorithm
@@ -369,11 +380,12 @@ def test_unported_paths_raise_naming_their_roadmap_item(prepared_set,
     mc.save(os.path.join(prepared_set, "ModelConfig.json"))
     argv = ["-Dshifu.train.streaming=on", "--dir", prepared_set, "train",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match) as ei:
-        main(argv)
-    assert "ROADMAP Queue 1 item 8" in str(ei.value)
-    assert not any(f.startswith("model") for f in os.listdir(
-        os.path.join(prepared_set, "models")))
+    with caplog.at_level(logging.INFO):
+        assert main(argv) == 0
+    assert re.search(match, caplog.text)
+    models = [f for f in os.listdir(os.path.join(prepared_set, "models"))
+              if f.startswith("model")]
+    assert len(models) == change.get("baggingNum", 1)
 
 
 def test_wire_writer_rewrites_the_reference_plane_byte_for_byte(

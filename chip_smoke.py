@@ -113,8 +113,8 @@ versions on one card.  Otherwise it
    ``hist_batch`` both launched, counted from zero around the run; the
    device busy share of a 3-tree run from ``torch.profiler``); (a') the
    exact schedule: the same forest and progress bit for bit in 90 tail
-   sweeps, more than (a)'s; (a0) the default geometry (two 4,129,776-row
-   windows, none resident); (b) 6 trees with CheckpointInterval 5, then
+   sweeps, more than (a)'s; (a0) (a)'s first 3 trees at the default
+   geometry (two 4,129,776-row windows, none resident); (b) 6 trees with CheckpointInterval 5, then
    ``train -resume`` to 10 from the 5-tree checkpoint, with and without
    its score sidecar (8 ``tree_traverse`` launches, one a window),
    bit-identical to (a); (c) ``init -model``'s RF in two super-batches
@@ -151,8 +151,17 @@ versions on one card.  Otherwise it
    from zero around it) and on ``cpu``: per-row scores within 1e-3
    (unrounded and in the %.3f score files), AUC within 1e-6, and the
    card's scores within 1e-3 of ``score_records_offline`` on the same
-   records; prints the walls of ``norm``, ``train`` and ``eval`` and
-   eval's rows/s.  Then the multi-class CLI path (``multiclass_cli_phase``):
+   records; ``norm`` and both ``eval -run`` calls must be served from the
+   raw cache ``stats`` wrote (one hit each, no miss); prints the walls of
+   ``norm``, ``train`` and ``eval`` and eval's rows/s.  Then
+   (``raw_cache_phase``) ``norm`` and ``eval -run`` on ``cuda`` in fresh
+   copies of the set, with the raw cache and under
+   ``-Dshifu.ingest.rawCache=false``, in turns on, off, off, on: hits
+   only where it is on, wire planes byte-equal and score files equal to
+   the e2e phase's, every wall printed; and (``posttrain_phase``)
+   ``posttrain`` of the GBT on ``cuda`` (``tree_traverse`` launched once
+   a model a norm shard, counted from zero around it) and on ``cpu``:
+   every column's binAvgScore within 1.  Then the multi-class CLI path (``multiclass_cli_phase``):
    the same CSV with a three-valued tag through ``new → init → stats →
    norm → train`` (native RF, then one-vs-all GBT) and ``eval -run`` on
    ``cuda`` and on ``cpu``: ``EvalPerformance.json`` accuracy and
@@ -186,7 +195,20 @@ versions on one card.  Otherwise it
    multi-class CLI cells (``e2e_nn_phase``) ``bench.py --plane e2e``'s
    NN ([64, 32] relu, ADAM 0.001, log loss, 10 epochs) trained on the
    e2e set's own norm plane on ``cuda`` and ``eval -run`` on ``cuda`` and
-   ``cpu``: scores within 1e-2 in the %.3f files, AUC within 1e-4;
+   ``cpu``: scores within 1e-2 in the %.3f files, AUC within 1e-4.
+   Then the streamed NN trainer (``nn_stream_phase``) on a
+   ``tmp/NormalizedData`` plane of 2,621,440 x 256 f32 (2.71 GB at
+   ``should_stream``'s 4 x 258 bytes a row), which streams by the default
+   2 GiB budget in two windows with nothing forced: (a) ``init
+   -model``'s NN, full batch, 10 epochs, falling errors, ms an epoch; (b)
+   5 epochs then ``train -resume`` to 10, bit-identical; (c) one
+   minibatch run; (d) the first 65,536 rows forced to stream in windows
+   of 8,192, card and CPU, errors within 1e-4 relative; (e)
+   ``torch.profiler`` over 2 epochs: the device busy share.  And
+   (``varselect_phase``) ``varselect`` with ``filterBy SE`` through the
+   CLI on ``cuda`` over ``nn_phase``'s 1,048,576 x 256 plane with (a)'s
+   ``model0.nn``, then on its first 65,536 rows on ``cuda`` and ``cpu``:
+   the same 64 columns selected, SE scores within 1e-6;
 8. times each kernel (CUDA events, launches queued behind a spin kernel so
    the host cannot starve the card) beside its plain version, one PyTorch
    call that computes the same function where there is one, and its bound
@@ -291,11 +313,17 @@ MC_SCORE_TOL = 1e-5 + 1e-9                 # class scores card vs CPU (%.6f)
 STREAM_ROWS, STREAM_WINDOW = 1 << 22, 1 << 19   # the out-of-core plane;
 #                                       its shards and (a)'s windows
 STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
+STREAM_A0_TREES = 3                        # (a0): 13 s a tree
 STREAM_CUT_WINDOW, STREAM_CUT_RESIDENT = 8192, 6   # (d) on CUT_ROWS rows
 STREAM_CUT_RF_TREES = 4                    # (d)'s RF, depth DEPTH
 STREAM_LEAF_RTOL, STREAM_LEAF_ATOL = 1e-5, 1e-6    # (d) leaves, card/CPU
 STREAM_ERR_RTOL = 1e-5                     # (d) progress errors
 MEMBER_WINDOW, MEMBER_RESIDENT, MEMBER_BAGS = 1 << 17, 6, 3   # (e)
+NN_STREAM_ROWS = 10 * (1 << 18)            # 2,621,440 rows: 2.71 GB at
+#                                     4 * (N_COLS + 2) bytes, over 2 GiB
+NN_STREAM_EPOCHS, NN_STREAM_CKPT = 10, 5   # init -model's NN; a resume
+NN_STREAM_BATCH = 1 << 16                  # (c)'s minibatch
+VARSEL_KEEP, VARSEL_SE_ATOL = 64, 1e-6     # SE filterNum; card vs CPU
 GBT_ROW_BYTES = N_COLS + 12                # a prepared GBT window row
 RF_ROW_BYTES = N_COLS + 8                  # a prepared RF window row
 
@@ -1668,18 +1696,29 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
             fail(f"{' '.join(argv[1:])} exited non-zero in {argv[0]}")
         walls[name] = time.perf_counter() - t0
 
+    passes = {}
+
+    def served(name, *argv):
+        """``step`` that must be served from the raw cache stats wrote."""
+        before = dict(parsepool.cache_passes)
+        step(name, *argv)
+        passes[name] = {k: parsepool.cache_passes[k] - before[k]
+                        for k in ("hits", "misses")}
+        if passes[name] != {"hits": 1, "misses": 0}:
+            fail(f"{name} made raw cache passes {passes[name]}, not one hit")
+
     try:
-        step("norm", d, "norm")
+        served("norm", d, "norm")
         zero_tree_counts()
         step("train", d, "train", "--device", device)
         train_launches = read_tree_counts()
         step("eval_new", d, "eval", "-new", E2E_EVAL)
         shutil.copytree(d, cpu_dir)
         tq.predict_forest_quant.launches = 0
-        step("eval", d, "eval", "-run", E2E_EVAL, "--device", device)
+        served("eval", d, "eval", "-run", E2E_EVAL, "--device", device)
         eval_launches = tq.predict_forest_quant.launches
-        step("eval_cpu", cpu_dir, "eval", "-run", E2E_EVAL, "--device",
-             "cpu")
+        served("eval_cpu", cpu_dir, "eval", "-run", E2E_EVAL, "--device",
+               "cpu")
     finally:
         parsepool.CHUNK_ROWS = prev_chunk
     want = {"hist": TRAIN_TREES * (DEPTH + 1), "leaf_sums": TRAIN_TREES,
@@ -1743,7 +1782,8 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
              f"{offline_diff}")
     with open(os.path.join(d, "tmp", "profile.json")) as f:
         profile = json.load(f)
-    log(f"main path (e2e): norm {walls['norm']:.3f} s "
+    log(f"main path (e2e): raw cache passes {passes}; "
+        f"norm {walls['norm']:.3f} s "
         f"({profile['NORMALIZE']['phases_s']}) -> {CSV_ROWS} x {N_COLS} "
         f"uint8 wire plane, bins equal to the serving transform's "
         f"(its host parse {parse_s:.3f} s); train {walls['train']:.3f} s "
@@ -1757,7 +1797,8 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
         f"max |eval - offline| {offline_diff:.3g} "
         f"(offline scoring {offline_s:.3f} s) — [{gpu}]")
     return {"walls_s": walls, "train_launches": train_launches,
-            "eval_launches": eval_launches, "auc": perf["areaUnderRoc"],
+            "eval_launches": eval_launches, "cache_passes": passes,
+            "auc": perf["areaUnderRoc"],
             "auc_card_cpu": auc_diff, "score_card_cpu": card_cpu_raw,
             "score_card_cpu_files": card_cpu,
             "score_offline": offline_diff, "rows_per_s":
@@ -2106,6 +2147,405 @@ def e2e_nn_phase(torch, d: str, csv: str, gpu: str) -> dict:
             "auc_card_cpu": auc_diff, "score_card_cpu_files": diff}
 
 
+# ------------------------------------------------- phase: raw cache turns
+WIRE_SUB = os.path.join("tmp", "CleanedData", ".spill_cache",
+                        "spill-bins-y-w")
+
+
+def file_bytes(d: str) -> dict:
+    """Every file of directory ``d`` by name, as bytes."""
+    out = {}
+    for f in sorted(os.listdir(d)):
+        with open(os.path.join(d, f), "rb") as fh:
+            out[f] = fh.read()
+    return out
+
+
+def raw_cache_phase(d: str, gpu: str) -> dict:
+    """``norm`` and ``eval -run`` on the card over the e2e set, with the
+    raw cache ``stats`` wrote (on) and under ``-Dshifu.ingest.rawCache=
+    false`` (off), in turns on, off, off, on, each turn in a fresh copy of
+    the set and each step's wall around ``cli.main``.  Checks: an on turn
+    is served (one hit a step, no miss), an off turn makes no cache pass;
+    every turn's wire plane is byte-equal to the e2e phase's and its
+    score file equal to the e2e phase's."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config import environment
+    from shifu_tpu_torch.data import parsepool
+    want_plane = file_bytes(os.path.join(d, WIRE_SUB))
+    with open(os.path.join(d, "evals", E2E_EVAL, "EvalScore"), "rb") as f:
+        want_scores = f.read()
+    walls = {"on": {"norm": [], "eval": []}, "off": {"norm": [], "eval": []}}
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    try:
+        for i, mode in enumerate(("on", "off", "off", "on")):
+            t = f"{d}_cache_{i}"
+            shutil.copytree(d, t)
+            props = [] if mode == "on" else ["-Dshifu.ingest.rawCache=false"]
+            before = dict(parsepool.cache_passes)
+            for name, argv in (("norm", ["norm"]),
+                               ("eval", ["eval", "-run", E2E_EVAL,
+                                         "--device", "cuda"])):
+                t0 = time.perf_counter()
+                rc = cli.main([*props, "--dir", t, *argv])
+                walls[mode][name].append(time.perf_counter() - t0)
+                environment.set_property("shifu.ingest.rawCache", "")
+                if rc != 0:
+                    fail(f"{name} with the raw cache {mode} exited {rc}")
+            got = {k: parsepool.cache_passes[k] - before[k]
+                   for k in ("hits", "misses")}
+            if got != ({"hits": 2, "misses": 0} if mode == "on"
+                       else {"hits": 0, "misses": 0}):
+                fail(f"raw cache {mode}: norm + eval made passes {got}")
+            if file_bytes(os.path.join(t, WIRE_SUB)) != want_plane:
+                fail(f"the wire plane with the raw cache {mode} differs")
+            with open(os.path.join(t, "evals", E2E_EVAL, "EvalScore"),
+                      "rb") as f:
+                if f.read() != want_scores:
+                    fail(f"eval scores with the raw cache {mode} differ")
+            shutil.rmtree(t)
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+    log(f"raw cache on the e2e set ({CSV_ROWS} x {N_COLS + 2} CSV), in "
+        f"turns on/off/off/on: norm on {walls['on']['norm']} s, off "
+        f"{walls['off']['norm']} s; eval -run on {walls['on']['eval']} s, "
+        f"off {walls['off']['eval']} s; wire planes byte-equal, score files "
+        f"equal — [{gpu}]")
+    return walls
+
+
+# -------------------------------------------------------- phase: posttrain
+# featureImportance.csv values are bin-average spreads in score units
+# (0-1000), card vs CPU apart only by the f32 order of the score sums
+FI_TOL = 0.01
+
+
+def posttrain_phase(torch, tq, d: str, gpu: str) -> dict:
+    """``posttrain`` of the e2e set's GBT through the CLI on ``cuda`` and
+    on ``cpu``, each in a copy of the set: ``tree_traverse`` launched once
+    a model a norm shard on the card (counted from zero around it, none on
+    the CPU); ``binAvgScore`` of every column within 1 card vs CPU (the
+    rounded average of scores that differ in f32 summation order), every
+    final-selected column scored; the two featureImportance.csv hold the
+    same ranking, value for value within ``FI_TOL`` score units at each
+    rank, and name for name except where two columns' CPU values tie
+    within ``FI_TOL``."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.eval.scorer import load_models
+    out, runs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = f"{d}_posttrain_{dev}"
+        shutil.copytree(d, t)
+        tq.predict_forest_quant.launches = 0
+        t0 = time.perf_counter()
+        if cli.main(["--dir", t, "posttrain", "--device", dev]) != 0:
+            fail(f"posttrain on {dev} exited non-zero")
+        out[f"wall_{dev}_s"] = time.perf_counter() - t0
+        out[f"launches_{dev}"] = tq.predict_forest_quant.launches
+        with open(os.path.join(t, "ColumnConfig.json")) as f:
+            bas = {c["columnName"]: c["columnBinning"]["binAvgScore"]
+                   for c in json.load(f)
+                   if c["columnBinning"].get("binAvgScore")}
+        with open(os.path.join(t, "posttrain",
+                               "featureImportance.csv")) as f:
+            fi = [(name, float(v)) for name, v in
+                  (line.rstrip("\n").split("\t") for line in f)]
+        runs[dev] = (bas, fi)
+    n_shards = Shards.open(os.path.join(d, "tmp", "NormalizedData")).n_shards
+    want = len(load_models(os.path.join(d, "models"))) * n_shards
+    if out["launches_cuda"] != want or out["launches_cpu"] != 0:
+        fail(f"posttrain launched tree_traverse {out['launches_cuda']} "
+             f"times on the card (want {want}), {out['launches_cpu']} on "
+             "the CPU")
+    (card, fi_card), (cpu, fi_cpu) = runs["cuda"], runs["cpu"]
+    if len(card) != N_COLS or set(card) != set(cpu):
+        fail(f"posttrain scored {len(card)} columns on the card, "
+             f"{len(cpu)} on the CPU, of {N_COLS} model inputs")
+    diff = max(max(abs(a - b) for a, b in zip(card[k], cpu[k]))
+               for k in card)
+    if diff > 1:
+        fail(f"posttrain card vs CPU: binAvgScore differs by {diff}")
+    cpu_fi = dict(fi_cpu)
+    if len(fi_card) != len(fi_cpu) or any(
+            abs(vc - vp) > FI_TOL
+            or (name != name_cpu
+                and abs(cpu_fi.get(name, math.inf) - vp) > FI_TOL)
+            for (name, vc), (name_cpu, vp) in zip(fi_card, fi_cpu)):
+        fail("posttrain card vs CPU: featureImportance.csv ranks differ "
+             f"(card {fi_card[:5]}, CPU {fi_cpu[:5]})")
+    out["bin_avg_max_diff"] = diff
+    log(f"posttrain of the e2e GBT: {out['launches_cuda']} tree_traverse "
+        f"launch(es) on the card, {out['wall_cuda_s']:.3f} s (CPU "
+        f"{out['wall_cpu_s']:.3f} s); binAvgScore card vs CPU within "
+        f"{diff} over {N_COLS} columns — [{gpu}]")
+    return out
+
+
+# ---------------------------------------------- phase: NN out of core
+class LogGrab:
+    """The records of logger ``name`` that match ``pattern`` while it is
+    installed (the logger at INFO meanwhile)."""
+
+    def __init__(self, name: str, pattern: str):
+        import logging
+        self.pattern = re.compile(pattern)
+        self.logger = logging.getLogger(name)
+        self.matches = []
+        outer = self
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                m = outer.pattern.search(record.getMessage())
+                if m:
+                    outer.matches.append(m.groups())
+        self.handler = _H()
+
+    def __enter__(self):
+        import logging
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+        return False
+
+
+def nn_stream_cli(d: str, device: str, props: dict, *extra: str):
+    """``train`` of an NN set through the CLI with ``-D`` properties
+    (cleared after the run); (wall s, the streamed run's window rows)."""
+    from shifu_tpu_torch.config import environment
+    argv = [f"-D{k}={v}" for k, v in props.items()]
+    try:
+        with LogGrab("shifu_tpu_torch.pipeline.train",
+                     r"STREAMED on \w+: (\d+) rows x (\d+) features, "
+                     r"window (\d+) rows") as g:
+            wall = train_cli(d, device, *argv, *extra)
+    finally:
+        for k in props:
+            environment.set_property(k, "")
+    if len(g.matches) != 1:
+        fail(f"train on {device} in {d} did not stream")
+    return wall, int(g.matches[0][2])
+
+
+def nn_stream_phase(torch, root: str, serve_root: str, rng,
+                    gpu: str) -> dict:
+    """The streamed NN/LR trainer at full width through ``cli.main train``
+    on ``cuda``: a norm plane of NN_STREAM_ROWS x N_COLS f32 from
+    ``--seed`` (2.71 GB at ``should_stream``'s 4 * (256 + 2) bytes a row),
+    which streams by the default 2 GiB budget with nothing forced, in two
+    windows.
+
+    (a) ``init -model``'s NN (full batch) for NN_STREAM_EPOCHS epochs:
+        falling errors, ms an epoch; (b) NN_STREAM_CKPT epochs then
+        ``train -resume`` to NN_STREAM_EPOCHS, bit-identical model files;
+    (c) one minibatch run (ADAM, MiniBatchs NN_STREAM_BATCH) for 2 epochs;
+    (d) the first CUT_ROWS rows forced to stream in windows of
+        STREAM_CUT_WINDOW, card and CPU: per-epoch errors within
+        NN_ERR_RTOL relative;
+    (e) ``torch.profiler`` over 2 epochs of (a)'s trainer: the device's
+        busy share and the seconds an epoch."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import should_stream
+    names = [f"f{j:03d}" for j in range(N_COLS)]
+    t0 = time.perf_counter()
+    x, y, w = nn_plane(rng, NN_STREAM_ROWS, N_COLS)
+    plane = os.path.join(root, "nn_stream_plane")
+    write_norm_plane(plane, x, y, w, names)
+    out = {"plane_gb": NN_STREAM_ROWS * 4 * (N_COLS + 2) / 1e9,
+           "plane_write_s": time.perf_counter() - t0}
+    if not should_stream(Shards.open(plane)):
+        fail("the NN stream plane does not stream by the default budget")
+
+    a = nn_set(root, "nn_s_a", serve_root, plane, "NN", baggingNum=1,
+               numTrainEpochs=NN_STREAM_EPOCHS)
+    set_train_params(a, {**load_params(a),
+                         "CheckpointInterval": NN_STREAM_CKPT})
+    with EpochClock() as clock:
+        wall, window = nn_stream_cli(a, "cuda", {})
+    windows = -(-NN_STREAM_ROWS // window)
+    errs = check_falling(a, "stream (a)")
+    out["a"] = {"wall_s": wall, "ms_per_epoch": clock.ms_per_epoch(),
+                "window_rows": window, "windows": windows,
+                "errors_first": errs[0].tolist(),
+                "errors_last": errs[-1].tolist()}
+    log(f"stream (a) init -model NN on {NN_STREAM_ROWS} x {N_COLS} "
+        f"({out['plane_gb']:.2f} GB): {windows} windows of {window} rows, "
+        f"{NN_STREAM_EPOCHS} epochs in {wall:.3f} s through the CLI, "
+        f"{out['a']['ms_per_epoch']:.1f} ms an epoch, errors {errs[0]} -> "
+        f"{errs[-1]} — [{gpu}]")
+
+    b = nn_set(root, "nn_s_b", serve_root, plane, "NN", load_params(a),
+               baggingNum=1, numTrainEpochs=NN_STREAM_CKPT)
+    nn_stream_cli(b, "cuda", {})
+    set_train_conf(b, numTrainEpochs=NN_STREAM_EPOCHS)
+    nn_stream_cli(b, "cuda", {}, "-resume")
+    for (f, _, pa), (_, _, pb) in zip(nn_members(a), nn_members(b)):
+        for la, lb in zip(pa, pb):
+            if not all(torch.equal(la[k], lb[k]) for k in ("w", "b")):
+                fail(f"stream (b) {f}: {NN_STREAM_CKPT} epochs + train "
+                     "-resume differ from the uninterrupted run")
+    log(f"stream (b) {NN_STREAM_CKPT} epochs + train -resume to "
+        f"{NN_STREAM_EPOCHS}: bit-identical — [{gpu}]")
+
+    c = nn_set(root, "nn_s_c", serve_root, plane, "NN",
+               {**load_params(a), "Propagation": "ADAM",
+                "LearningRate": 0.01, "MiniBatchs": NN_STREAM_BATCH},
+               baggingNum=1, numTrainEpochs=2)
+    wall_c, _ = nn_stream_cli(c, "cuda", {})
+    errs_c = check_falling(c, "stream (c) minibatch", cols=(0,))
+    out["c"] = {"wall_s": wall_c, "errors": errs_c.tolist()}
+    log(f"stream (c) minibatch (ADAM, MiniBatchs {NN_STREAM_BATCH}): 2 "
+        f"epochs in {wall_c:.3f} s, errors {errs_c.tolist()} — [{gpu}]")
+
+    cut = os.path.join(root, "nn_stream_cut")
+    write_norm_plane(cut, x[:CUT_ROWS], y[:CUT_ROWS], w[:CUT_ROWS], names)
+    runs = []
+    for i, dev in enumerate(("cuda", "cpu")):
+        dd = nn_set(root, f"nn_s_d{i}", serve_root, cut, "NN",
+                    load_params(a), baggingNum=NN_BAGS,
+                    numTrainEpochs=NN_CUT_EPOCHS)
+        wall_d, _ = nn_stream_cli(
+            dd, dev, {"shifu.train.streaming": "on",
+                      "shifu.train.windowRows": STREAM_CUT_WINDOW})
+        runs.append((wall_d, progress_errors(dd)))
+    rel = float(np.max(np.abs(runs[0][1] - runs[1][1]) / np.abs(runs[1][1])))
+    if not rel <= NN_ERR_RTOL:
+        fail(f"stream (d) card vs CPU: errors {rel:.3g} relative")
+    out["d"] = {"err_rel": rel, "wall_cuda_s": runs[0][0],
+                "wall_cpu_s": runs[1][0]}
+    log(f"stream (d) {CUT_ROWS} rows in windows of {STREAM_CUT_WINDOW}, "
+        f"{NN_BAGS} bags, {NN_CUT_EPOCHS} epochs: errors card vs CPU within "
+        f"{rel:.3g} relative; {runs[0][0]:.3f} s on the card, "
+        f"{runs[1][0]:.3f} s on the CPU — [{gpu}]")
+    out["e"] = nn_stream_profile(torch, a, window, gpu)
+    del x, y, w
+    return out
+
+
+def nn_stream_profile(torch, d: str, window: int, gpu: str) -> dict:
+    """``torch.profiler`` over 2 epochs of set ``d``'s streamed trainer
+    (its windows, masks and settings): device busy share, seconds an
+    epoch (the closing eval pass included in the wall)."""
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import (ShardStream,
+                                                mask_fn_from_settings)
+    from shifu_tpu_torch.pipeline.train import settings_from_params
+    from shifu_tpu_torch.train.nn_trainer import train_ensemble_streamed
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    spec = nn_members(d)[0][1]
+    settings = settings_from_params(mc.train.params, mc.train)
+    settings.epochs = 2
+    stream = ShardStream(Shards.open(os.path.join(d, "tmp",
+                                                  "NormalizedData")),
+                         ("x", "y", "w"), window, remainder_multiple=1)
+    mask_fn = mask_fn_from_settings(1, valid_rate=mc.train.validSetRate,
+                                    seed=settings.seed)
+    prof = profile_device(
+        torch, lambda: train_ensemble_streamed(stream, spec, settings, 1,
+                                               mask_fn, device="cuda"),
+        what="2 epochs (3 passes) of the streamed NN trainer")
+    if not prof:
+        return {}
+    copies = sum(ms for k, (ms, _) in prof["by_name"].items()
+                 if k.startswith("Memcpy"))
+    out = {"busy_share": prof["busy_ms"] / prof["wall_ms"],
+           "s_per_epoch": prof["wall_ms"] / 3e3, "copy_ms": copies,
+           "busy_ms": prof["busy_ms"], "wall_ms": prof["wall_ms"],
+           "top": prof["top"]}
+    log(f"stream (e) 2 epochs + the closing pass: {out['s_per_epoch']:.3f} "
+        f"s a pass, device busy {100 * out['busy_share']:.1f}% "
+        f"({copies:.1f} ms of {prof['busy_ms']:.1f} busy ms in copies) "
+        f"— [{gpu}]")
+    return out
+
+
+# -------------------------------------------------------- phase: varselect
+def varsel_set(root: str, name: str, src: str, plane: str, rng,
+               device: str) -> str:
+    """A copy of NN set ``src``'s configs and ``model0.nn`` over norm
+    plane ``plane``, its ColumnConfig named as the plane's features (f000
+    ...; KS and IV from ``rng``), with ``filterBy SE``; runs ``varselect``
+    on ``device`` there."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config import (ModelConfig, load_column_configs,
+                                        save_column_configs)
+    from shifu_tpu_torch.config.model_config import FilterBy
+    d = os.path.join(root, name)
+    os.makedirs(os.path.join(d, "tmp"))
+    os.makedirs(os.path.join(d, "models"))
+    shutil.copy(os.path.join(src, "ModelConfig.json"), d)
+    shutil.copy(os.path.join(src, "models", "model0.nn"),
+                os.path.join(d, "models"))
+    os.symlink(plane, os.path.join(d, "tmp", "NormalizedData"))
+    ccs = load_column_configs(os.path.join(src, "ColumnConfig.json"))
+    ks = rng.uniform(0.01, 0.5, len(ccs))
+    for c, k in zip(ccs, ks):
+        if c.is_candidate():
+            c.columnName = f"f{c.columnNum:03d}"
+            c.columnStats.ks, c.columnStats.iv = float(k), float(k) / 2
+    save_column_configs(ccs, os.path.join(d, "ColumnConfig.json"))
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    mc.varSelect.filterBy = FilterBy.SE
+    mc.varSelect.filterNum = VARSEL_KEEP
+    mc.save(path)
+    if cli.main(["--dir", d, "varselect", "--device", device]) != 0:
+        fail(f"varselect on {device} exited non-zero in {d}")
+    return d
+
+
+def varselect_phase(torch, root: str, nn_dir: str, cut_plane: str, rng,
+                    gpu: str) -> dict:
+    """``varselect`` with ``filterBy SE`` through the CLI on ``cuda`` over
+    ``nn_phase``'s 1,048,576 x 256 plane with its (a) ``model0.nn``
+    (streamed, mask-batched: MaskBatch 32 frozen forwards a launch); then
+    the same on the plane's first CUT_ROWS rows on ``cuda`` and on
+    ``cpu``: the same VARSEL_KEEP columns selected, SE scores within
+    VARSEL_SE_ATOL."""
+    def read(d):
+        with open(os.path.join(d, "varsels", "se.json")) as f:
+            se = json.load(f)
+        with open(os.path.join(d, "ColumnConfig.json")) as f:
+            sel = sorted(c["columnName"] for c in json.load(f)
+                         if c.get("finalSelect"))
+        return se, sel
+    seed = int(rng.integers(1 << 31))
+    t0 = time.perf_counter()
+    full = varsel_set(root, "vs_full", nn_dir, os.path.join(
+        nn_dir, "tmp", "NormalizedData"), np.random.default_rng(seed),
+        "cuda")
+    wall = time.perf_counter() - t0
+    se, sel = read(full)
+    if len(se) != N_COLS or len(sel) != VARSEL_KEEP or \
+            not all(math.isfinite(v) for v in se.values()):
+        fail(f"varselect scored {len(se)} columns, selected {len(sel)}")
+    runs, walls = [], {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs.append(read(varsel_set(root, f"vs_cut_{dev}", nn_dir,
+                                    cut_plane, np.random.default_rng(seed),
+                                    dev)))
+        walls[dev] = time.perf_counter() - t0
+    (se_g, sel_g), (se_c, sel_c) = runs
+    diff = max(abs(se_g[k] - se_c[k]) for k in se_c)
+    if sel_g != sel_c or set(se_g) != set(se_c) or diff > VARSEL_SE_ATOL:
+        fail(f"varselect card vs CPU: selections equal {sel_g == sel_c}, "
+             f"SE scores within {diff}")
+    top = list(se)[:5]
+    log(f"varselect SE on {TRAIN_ROWS} x {N_COLS}: {wall:.3f} s through "
+        f"the CLI on the card, top {top}; on {CUT_ROWS} rows card vs CPU: "
+        f"the same {VARSEL_KEEP} columns, SE within {diff:.3g} ({walls})"
+        f" — [{gpu}]")
+    return {"wall_s": wall, "cut_walls_s": walls, "se_diff": diff,
+            "top": top}
+
+
 # --------------------------------------------------------- phase: members
 def set_train_conf(d: str, **fields) -> None:
     """Set ``train`` section fields of model set ``d``'s ModelConfig."""
@@ -2346,9 +2786,9 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
     card's default); the tree counters zeroed just before and read just
     after: B1 and B2 must both launch.  (a') the same with
     ``tailCoarseToFine=false``: bit-identical forest and progress, 10 x
-    (7 + 2) tail sweeps, more than (a)'s.  (a0) the same GBT at the
-    default geometry (no resident window), split differences from (a)
-    counted, not gated.  (b) (a) with CheckpointInterval 5 stopped after
+    (7 + 2) tail sweeps, more than (a)'s.  (a0) the first
+    STREAM_A0_TREES trees of the same GBT at the default geometry (no
+    resident window), split differences from (a) counted, not gated.  (b) (a) with CheckpointInterval 5 stopped after
     6 trees (the checkpoint holds 5), ``train -resume`` to 10:
     bit-identical to (a); and the same checkpoint without its score
     sidecar: the restored trees replay through ``tree_traverse`` window by
@@ -2451,9 +2891,10 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
     finally:
         environment.set_property("shifu.train.windowRows", "")
 
-    # (a0) the default geometry: the whole plane is tail
+    # (a0) the default geometry: the whole plane is tail (STREAM_A0_TREES
+    # of (a)'s trees: each is 2 x 1.1 GB of copies a sweep)
     d0 = write_train_set(os.path.join(root, "stream_default"), serve_root,
-                         params, clean)
+                         dict(params, TreeNum=STREAM_A0_TREES), clean)
     wall, runs, peak = stream_cli(d0, "cuda", {})
     g = runs[-1]
     _, trees_0 = load_forest(d0)
@@ -2465,7 +2906,8 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
     out["a0"] = {"wall_s": wall, "peak_bytes": peak,
                  "nodes_differ_from_a": differ, **g}
     log(f"stream (a0) default geometry: {wall:.3f} s "
-        f"({wall * 1e3 / TRAIN_TREES:.1f} ms a tree); {g['windows']} windows "
+        f"({wall * 1e3 / STREAM_A0_TREES:.1f} ms a tree, {STREAM_A0_TREES} "
+        f"trees); {g['windows']} windows "
         f"of {g['window_rows']} rows, {g['resident']} resident, tail sweeps "
         f"{g['tail_sweeps']}; {differ} nodes split on another feature than "
         f"(a) (other partitions, not gated) — [{gpu}]")
@@ -3659,6 +4101,17 @@ def main() -> None:
                       np.random.default_rng([args.seed, 3]), gpu)
         nn_walls["nn_phase"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        nn_stream = nn_stream_phase(torch, root, serve_root,
+                                    np.random.default_rng([args.seed, 6]),
+                                    gpu)
+        nn_walls["nn_stream_phase"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        varsel = varselect_phase(
+            torch, root, os.path.dirname(nn["models_dir"]),
+            os.path.join(root, "nn_cut_plane"),
+            np.random.default_rng([args.seed, 7]), gpu)
+        nn_walls["varselect_phase"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         nn_served = nn_serve_phase(torch, tq, root, serve_root,
                                    nn.pop("models_dir"), plan,
                                    np.random.default_rng([args.seed, 4]))
@@ -3667,6 +4120,8 @@ def main() -> None:
         e2e = e2e_phase(torch, stats["dir"], stats["csv"], gpu)
         eval_times = time_eval_walk(torch, tq, stats["dir"],
                                     e2e.pop("bins"), gpu)
+        cache_walls = raw_cache_phase(stats["dir"], gpu)
+        post = posttrain_phase(torch, tq, stats["dir"], gpu)
         mc_cli = multiclass_cli_phase(torch, tq, root, stats["csv"], gpu)
         t0 = time.perf_counter()
         e2e_nn = e2e_nn_phase(torch, stats["dir"], stats["csv"], gpu)
@@ -3706,6 +4161,7 @@ def main() -> None:
         **{f"eval_forest_at_{n}_rows": eval_times[n] for n in eval_times},
         "multiclass_eval_launches": {alg: mc_cli[alg]["eval_launches"]
                                      for alg in ("RF", "GBT")},
+        "posttrain_launches": post["launches_cuda"],
         "stream_replay_launches":
             stream["b"]["replay_launches"]["tree_traverse"],
         f"node_index_walk_at_{MC_WALK_ROWS}_rows": multi["walk"],
@@ -3829,6 +4285,20 @@ def main() -> None:
         f"{w['eval']:.3f} s ({e2e['rows_per_s']:.0f} rows/s, "
         f"{e2e['eval_launches']} tree_traverse launches), AUC "
         f"{e2e['auc']:.6f} — [{gpu}]")
+    log(f"raw cache: norm {np.median(cache_walls['on']['norm']):.3f} s "
+        f"with it, {np.median(cache_walls['off']['norm']):.3f} s without; "
+        f"eval -run {np.median(cache_walls['on']['eval']):.3f} / "
+        f"{np.median(cache_walls['off']['eval']):.3f} s (medians of 2 "
+        f"turns each); posttrain {post['wall_cuda_s']:.3f} s on the card "
+        f"({post['launches_cuda']} tree_traverse launch(es)) — [{gpu}]")
+    ns = nn_stream
+    log(f"NN streamed on {NN_STREAM_ROWS} x {N_COLS} ({ns['plane_gb']:.2f} "
+        f"GB): {ns['a']['windows']} windows of {ns['a']['window_rows']} "
+        f"rows, {ns['a']['ms_per_epoch']:.1f} ms an epoch, device busy "
+        f"{100 * ns['e'].get('busy_share', float('nan')):.1f}%; card vs CPU "
+        f"errors within {ns['d']['err_rel']:.3g}; varselect SE "
+        f"{varsel['wall_s']:.3f} s on {TRAIN_ROWS} rows, card vs CPU SE "
+        f"within {varsel['se_diff']:.3g} — [{gpu}]")
     log(f"members: bagged GBT {bagging['member_ms']:.3f} ms a member tree "
         f"against {bagging['single_ms']:.3f} ms a single forest's tree; "
         f"native multi-class RF train {multi['rf']['wall_s']:.3f} s, "

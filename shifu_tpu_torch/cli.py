@@ -1,20 +1,24 @@
 """shifu-tpu-torch CLI — the port's counterpart of ``shifu_tpu.cli``.
 
-The port carries the ``new``, ``init``, ``stats``, ``norm``, ``train``,
-``eval`` and ``serve`` commands: the offline path ``new → init → stats →
-norm → train → eval`` of a GBT/RF/DT model set, and serving.
+The port carries the ``new``, ``init``, ``stats``, ``norm``,
+``varselect``, ``train``, ``posttrain``, ``eval`` and ``serve`` commands:
+the offline path ``new → init → stats → norm → varselect → train →
+posttrain → eval`` of a GBT/RF/DT/NN/LR model set, and serving.
 ``-Dkey=value`` properties go to the Environment tier as in the
 reference; ``--device`` picks where the port runs (default ``cuda``;
 ``cpu`` runs the plain PyTorch versions).  ``new``, ``init`` and ``norm``
 run on the host (norm's transform is numpy, as the reference's is), and
-so do eval's ``-new``, ``-delete``, ``-list`` and ``-norm``; eval's
-scoring walks the forests with the ``tree_traverse`` kernel on the card.
+so do eval's ``-new``, ``-delete``, ``-list`` and ``-norm``; eval's and
+posttrain's scoring walks the forests with the ``tree_traverse`` kernel
+on the card, and varselect's SE/ST runs the trained net there.
 
     python -m shifu_tpu_torch.cli --dir <base> new <name>
     python -m shifu_tpu_torch.cli --dir <modelset> init [-model]
     python -m shifu_tpu_torch.cli --dir <modelset> stats [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> norm [-shuffle]
+    python -m shifu_tpu_torch.cli --dir <modelset> varselect [-list|-reset|-recover|-autofilter|-recoverauto] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> train [-resume] [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> posttrain [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> eval -new <evalset>
     python -m shifu_tpu_torch.cli --dir <modelset> eval [-run [<evalset>]] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> eval -score [<evalset>] [-nosort]
@@ -48,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shifu-tpu-torch",
         description="PyTorch/CUDA port of shifu-tpu (new, init, stats, "
-        "norm, GBT/RF/DT/NN/LR train, eval, serve)")
+        "norm, varselect, GBT/RF/DT/NN/LR train, posttrain, eval, serve)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
@@ -71,6 +75,27 @@ def build_parser() -> argparse.ArgumentParser:
                         help="normalize the training data into the norm "
                         "and clean (wire) planes, on the host")
     sp.add_argument("-shuffle", dest="shuffle", action="store_true")
+
+    sp = sub.add_parser("varselect", aliases=["varsel"],
+                        help="variable selection (KS/IV/MIX/PARETO/FI from "
+                        "the stats, SE/ST sensitivity of the trained net "
+                        "on the device)")
+    sp.add_argument("-list", dest="list", action="store_true")
+    sp.add_argument("-reset", dest="reset", action="store_true")
+    sp.add_argument("-recover", dest="recover", action="store_true")
+    sp.add_argument("-recursive", dest="recursive", type=int, default=1,
+                    metavar="N", help="SE/ST wrapper rounds (N > 1 is not "
+                    "ported yet)")
+    sp.add_argument("-autofilter", dest="autofilter", action="store_true",
+                    help="apply only the missing-rate/KS/IV/correlation "
+                    "auto filter to the current selection")
+    sp.add_argument("-recoverauto", dest="recoverauto", action="store_true",
+                    help="restore variables removed by the last -autofilter")
+    _device_arg(sp)
+
+    sp = sub.add_parser("posttrain", help="bin-average scores and feature "
+                        "importance (scoring on the device)")
+    _device_arg(sp)
 
     sp = sub.add_parser("eval", help="evaluate the models on eval sets "
                         "(scoring on the device)")
@@ -148,6 +173,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .pipeline.norm import NormalizeProcessor
         return NormalizeProcessor(args.dir,
                                   params={"shuffle": args.shuffle}).run()
+    if args.command in ("varselect", "varsel"):
+        from .pipeline.varselect import VarSelectProcessor
+        params = {k: getattr(args, k) for k in (
+            "list", "reset", "recover", "recursive", "autofilter",
+            "recoverauto")}
+        return VarSelectProcessor(args.dir, params=params,
+                                  device=args.device).run()
+    if args.command == "posttrain":
+        from .pipeline.posttrain import PostTrainProcessor
+        return PostTrainProcessor(args.dir, device=args.device).run()
     if args.command == "eval":
         from .pipeline.evaluate import EvalProcessor
         params = {k: getattr(args, k) for k in (

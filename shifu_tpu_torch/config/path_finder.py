@@ -1,6 +1,6 @@
 """PathFinder — where each step reads and writes inside a model-set
 directory; the port's copy of the paths ``shifu_tpu.config.path_finder``
-gives the init, stats, norm, train and eval steps (reference
+gives the init, stats, norm, varselect, train, posttrain and eval steps (reference
 ``fs/PathFinder.java``), so both packages read and write the same
 files."""
 
@@ -35,6 +35,16 @@ class PathFinder:
     @property
     def stats_dir(self) -> str:
         return os.path.join(self.tmp_dir, "stats")
+
+    @property
+    def raw_cache_dir(self) -> str:
+        """Columnar raw-parse cache root (``data/rawcache``): one
+        subdirectory per (source signature, row identity)."""
+        return os.path.join(self.tmp_dir, "RawCache")
+
+    @property
+    def correlation_path(self) -> str:
+        return os.path.join(self.root, "correlation.csv")
 
     @property
     def norm_dir(self) -> str:
@@ -98,6 +108,28 @@ class PathFinder:
 
     def eval_norm_path(self, eval_name: str) -> str:
         return os.path.join(self.eval_dir(eval_name), "EvalNormalized")
+
+    # ------------------------------------------------------------ varselect
+    @property
+    def varsel_dir(self) -> str:
+        return os.path.join(self.root, "varsels")
+
+    @property
+    def varsel_history_path(self) -> str:
+        return os.path.join(self.varsel_dir, "varsel.history")
+
+    # ------------------------------------------------------------ posttrain
+    @property
+    def post_train_dir(self) -> str:
+        return os.path.join(self.root, "posttrain")
+
+    @property
+    def bin_avg_score_path(self) -> str:
+        return os.path.join(self.post_train_dir, "binAvgScore.csv")
+
+    @property
+    def feature_importance_path(self) -> str:
+        return os.path.join(self.post_train_dir, "featureImportance.csv")
 
     @property
     def backup_dir(self) -> str:

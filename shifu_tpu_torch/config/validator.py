@@ -96,14 +96,14 @@ def _check_column_conf(mc: ModelConfig, model_set_dir: str,
 
 def probe(mc: ModelConfig, step: ModelStep, model_set_dir: str = ".") -> None:
     """Raise :class:`ValidationError` listing every problem of ``mc`` for
-    ``step``.  The INIT, STATS, NORMALIZE, TRAIN and EVAL rules are
-    ported."""
+    ``step``.  The INIT, STATS, NORMALIZE, VARSELECT, TRAIN, POSTTRAIN
+    and EVAL rules are ported."""
     problems: List[str] = []
     if not mc.basic.name:
         problems.append("basic.name must not be empty")
     ds = mc.dataSet
     if step in (ModelStep.INIT, ModelStep.STATS, ModelStep.NORMALIZE,
-                ModelStep.TRAIN):
+                ModelStep.VARSELECT, ModelStep.TRAIN, ModelStep.POSTTRAIN):
         if not ds.dataPath:
             problems.append("dataSet.dataPath must be set")
         elif step == ModelStep.INIT:
@@ -140,6 +140,16 @@ def probe(mc: ModelConfig, step: ModelStep, model_set_dir: str = ".") -> None:
                 st.binningAlgorithm != BinningAlgorithm.SPDTI:
             problems.append("only the SPDTI binning algorithm supports "
                             "multi-class classification")
+    if step in (ModelStep.VARSELECT, ModelStep.TRAIN):
+        # configured force/candidate files must exist (reference
+        # checkVarSelect)
+        vs = mc.varSelect
+        if vs.forceEnable:
+            for what in ("candidateColumnNameFile",
+                         "forceRemoveColumnNameFile",
+                         "forceSelectColumnNameFile"):
+                _check_name_file(getattr(vs, what), model_set_dir,
+                                 f"varSelect.{what}", problems)
     if step == ModelStep.TRAIN:
         tr = mc.train
         # TENSORFLOW trains on the NN path: TF-only params are an error

@@ -64,6 +64,21 @@ class ChunkExtractor:
         self.multiclass = len(self.pos_tags) > 1 and not self.neg_tags
         self.weight_name = ds.weightColumnName
 
+    def row_identity(self) -> dict:
+        """Everything that decides which rows survive extraction and how
+        the shared target and weight columns parse: the raw cache's
+        row-plane staleness key, the reference's dict, so both packages
+        hash to one cache directory.  Column-independent: a cache serves
+        any extractor whose row identity matches and whose columns are a
+        subset of the cached set."""
+        return {"filters": self.ds.filterExpressions,
+                "missing": sorted(m for m in (self.missing_values or [])),
+                "target": self.target_name,
+                "posTags": [str(t) for t in self.pos_tags],
+                "negTags": [str(t) for t in self.neg_tags],
+                "multiclass": bool(self.multiclass),
+                "weight": self.weight_name}
+
     def extract(self, chunk: RawChunk) -> ExtractedChunk:
         df = chunk.data
         raw_rows = len(chunk)

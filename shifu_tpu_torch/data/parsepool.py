@@ -1,5 +1,5 @@
 """Parse pool — the offline pipeline's shared parse stage; the port's copy
-of ``shifu_tpu.data.parsepool`` without the raw cache.
+of ``shifu_tpu.data.parsepool``.
 
 :func:`iter_extracted` yields ``(chunk_idx, ExtractedChunk)`` in strict
 chunk order, either inline (``-Dshifu.ingest.parseWorkers=0``) or with one
@@ -9,25 +9,40 @@ see the serial sequence either way.  Pre-parse Bernoulli sampling uses one
 deterministic per-chunk substream (``rng([977, chunk_idx])``) over the
 chunk's RAW row count.
 
-The reference's columnar raw cache (``shifu_tpu.data.rawcache``) is not
-ported (ROADMAP Queue 1 item 1): every pass parses from text, which is the
-reference's own path when it has no cache, with the same arrays.
+With a ``cache_root`` (``PathFinder.raw_cache_dir``) the columnar raw cache
+(:mod:`.rawcache`) takes part: a pass over a committed cache serves every
+chunk from memmaps and touches no text; a cold pass parses at full rate,
+writes the cache through, and replays the consumer's sample on the full
+parse (``subsample_extracted``).  Each such pass logs one line: hit or
+miss, and the bytes it wrote.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 from .extract import ChunkExtractor, ExtractedChunk
+from .rawcache import (RawCacheWriter, open_raw_cache, raw_cache_budget_bytes,
+                       raw_cache_enabled)
+from .shards import source_signature
+
+log = logging.getLogger(__name__)
 
 RAW_SAMPLE_SEED = 977          # pre-parse sample substream (stats plane)
 
-# default raw chunk geometry (rows per chunk); tests shrink it to force
-# multi-chunk runs
+# default raw chunk geometry (rows per chunk): one module-level value, so
+# the cache's chunkRows pin and the reader's chunking agree; tests shrink
+# it to force multi-chunk runs
 CHUNK_ROWS = 262144
+
+
+# passes over a cache root since the process started (plain integers; the
+# reference's rawcache.* obs counters are ROADMAP item 13)
+cache_passes = {"hits": 0, "misses": 0, "bytes_written": 0}
 
 
 def parse_workers() -> int:
@@ -74,27 +89,84 @@ def subsample_extracted(ex: ExtractedChunk, rate: float,
         raw_rows=ex.raw_rows)
 
 
+def cache_dir_for(cache_root: str, source_sig,
+                  extractor: ChunkExtractor) -> str:
+    """One cache per (source files, row identity): the training source
+    and each eval source key their own subdirectory (the reference's
+    key, so both packages share a cache)."""
+    import hashlib
+    import json
+    key = hashlib.md5(json.dumps(
+        [source_sig, extractor.row_identity()],
+        sort_keys=True).encode()).hexdigest()[:16]
+    return os.path.join(cache_root, key)
+
+
 def iter_extracted(source, extractor: ChunkExtractor, *,
-                   rate: float = 1.0, start_chunk: int = 0,
-                   chunk_rows: Optional[int] = None
+                   rate: float = 1.0, cache_root: Optional[str] = None,
+                   start_chunk: int = 0, chunk_rows: Optional[int] = None
                    ) -> Iterator[Tuple[int, ExtractedChunk]]:
     """Yield ``(chunk_idx, ExtractedChunk)`` in strict chunk order — the
     ``enumerate(source.iter_chunks())`` + ``extract()`` loop, with the
-    sample applied before the parse.  ``start_chunk`` skips extraction of
-    a prefix (its raw rows still stream past)."""
+    sample applied before the parse, or served from the raw cache under
+    ``cache_root``.  ``start_chunk`` skips extraction of a prefix (its raw
+    rows still stream past)."""
     if chunk_rows is None:
         chunk_rows = CHUNK_ROWS
+    rd = None
+    cdir = sig = None
+    writable = False
+    if cache_root and raw_cache_enabled():
+        sig = source_signature(source.files)
+        cdir = cache_dir_for(cache_root, sig, extractor)
+        rd, writable = open_raw_cache(cdir, sig, extractor, chunk_rows)
+    if rd is not None:                 # served: no text touched
+        cache_passes["hits"] += 1
+        log.info("raw cache hit %s: %d chunks, %d rows", cdir, rd.n_chunks,
+                 rd.rows)
+        for ci in range(start_chunk, rd.n_chunks):
+            yield ci, subsample_extracted(rd.chunk(ci, extractor), rate, ci)
+        return
+    if cdir is not None:
+        cache_passes["misses"] += 1
+        log.info("raw cache miss %s: parsing from text", cdir)
+    writer = None
+    if cdir is not None and writable and start_chunk == 0:
+        writer = RawCacheWriter(cdir, extractor, sig, chunk_rows,
+                                raw_cache_budget_bytes())
     workers = parse_workers()
 
     def work(ci, chunk):
+        # a cache-writing pass parses at FULL rate (the cache covers every
+        # row); the consumer's view replays the sample on the full parse
+        if writer is not None:
+            return extractor.extract(chunk)
         return extractor.extract(_sample_chunk(chunk, rate, ci))
 
-    if workers <= 0:
-        for ci, chunk in enumerate(source.iter_chunks(chunk_rows)):
-            if ci >= start_chunk:
-                yield ci, work(ci, chunk)
-        return
-    yield from _pooled(source, work, start_chunk, chunk_rows, workers)
+    def emit(ci, ex):
+        if writer is not None:
+            writer.append(ex)          # abandons itself on budget/IO
+            return ci, subsample_extracted(ex, rate, ci)
+        return ci, ex
+
+    done = False
+    try:
+        if workers <= 0:
+            for ci, chunk in enumerate(source.iter_chunks(chunk_rows)):
+                if ci >= start_chunk:
+                    yield emit(ci, work(ci, chunk))
+        else:
+            for ci, ex in _pooled(source, work, start_chunk, chunk_rows,
+                                  workers):
+                yield emit(ci, ex)
+        if writer is not None and writer.finish():
+            cache_passes["bytes_written"] += writer.bytes_written
+            log.info("raw cache written %s: %d bytes", cdir,
+                     writer.bytes_written)
+        done = True
+    finally:
+        if not done and writer is not None:
+            writer.abort()
 
 
 def _pooled(source, work, start_chunk, chunk_rows, workers):

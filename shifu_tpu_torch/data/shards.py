@@ -23,6 +23,20 @@ from ..ioutil import io_retry
 ROWS_SIDECAR = ".shard_rows.json"
 
 
+def source_signature(files: Sequence[str]) -> List[List]:
+    """``[name, size, mtime_ns]`` of each file (a path that cannot be
+    stat'ed, such as a remote URL, pins by name): the staleness key of the
+    spill cache and of the raw cache, the reference's convention."""
+    out: List[List] = []
+    for f in files:
+        try:
+            st = os.stat(f)
+            out.append([os.path.basename(f), st.st_size, st.st_mtime_ns])
+        except OSError:
+            out.append([f, None, None])
+    return out
+
+
 def bins_wire_dtype(n_bins: int) -> np.dtype:
     """The compact storage/wire dtype for bin ids 0..n_bins-1, the same
     policy as the reference's norm, spill cache and device put."""
@@ -132,11 +146,7 @@ class Shards:
         staleness check; a wire plane pins the schema's wire signature."""
         if self.is_wire:
             return [["wire", self.schema.get("wireSignature")]]
-        out = []
-        for f in self.files:
-            st = os.stat(f)
-            out.append([os.path.basename(f), st.st_size, st.st_mtime_ns])
-        return out
+        return source_signature(self.files)
 
     @property
     def shard_rows(self) -> List[int]:

@@ -108,8 +108,9 @@ class EvalProcessor(BasicProcessor):
             with ioutil.atomic_open(out, newline="") as f:
                 w = csv.writer(f, delimiter="|")
                 header_written = False
-                for _, ex in iter_extracted(self._source(ev.dataSet),
-                                            tf.extractor):
+                for _, ex in iter_extracted(
+                        self._source(ev.dataSet), tf.extractor,
+                        cache_root=self.paths.raw_cache_dir):
                     tc = tf.transform_extracted(ex)
                     if tc.n == 0:
                         continue
@@ -194,8 +195,9 @@ class EvalProcessor(BasicProcessor):
             w = csv.writer(sf, delimiter="|")
             w.writerow(["tag", "weight", "mean", "max", "min", "median"]
                        + [f"model{i}" for i in range(n_models)])
-            for _, ex in iter_extracted(self._source(ev.dataSet),
-                                        runner.transformer.extractor):
+            for _, ex in iter_extracted(
+                    self._source(ev.dataSet), runner.transformer.extractor,
+                    cache_root=self.paths.raw_cache_dir):
                 out = runner.compute(ex)
                 if out["n"] == 0:
                     continue
@@ -281,8 +283,9 @@ class EvalProcessor(BasicProcessor):
             w = csv.writer(sf, delimiter="|")
             w.writerow(["tag", "weight", "predictedTag"]
                        + [f"score_{t}" for t in tags])
-            for _, ex in iter_extracted(self._source(ev.dataSet),
-                                        runner.transformer.extractor):
+            for _, ex in iter_extracted(
+                    self._source(ev.dataSet), runner.transformer.extractor,
+                    cache_root=self.paths.raw_cache_dir):
                 out = runner.compute_classes(ex)
                 if out["n"] == 0:
                     continue

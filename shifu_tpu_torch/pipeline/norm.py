@@ -23,11 +23,14 @@ resumes at the first uncommitted shard; the replay is deterministic
 (per-chunk sampling seeds), so the resumed bytes equal an uninterrupted
 run's.
 
+The parse goes through the columnar raw cache (``data/rawcache.py``)
+under ``tmp/RawCache``: after ``stats`` wrote it, norm reads memmaps of
+the parsed columns and touches no text (``-Dshifu.ingest.rawCache=false``
+parses again, with the same arrays).
+
 Not ported: the drift monitor (ROADMAP Queue 1 item 13), which the
-reference runs only with telemetry on (the port raises then), the
-fault-injection sites (item 13), which fire only when faults are armed,
-and the columnar raw cache (item 1): every pass parses the text, which
-gives the reference's arrays.
+reference runs only with telemetry on (the port raises then), and the
+fault-injection sites (item 13), which fire only when faults are armed.
 """
 
 from __future__ import annotations
@@ -151,7 +154,9 @@ class NormalizeProcessor(BasicProcessor):
         shard, rows, seen, total_out = 0, 0, 0, 0
         bufx, bufb, bufy, bufw = [], [], [], []
         with self.phase("transform"):
-            for _, ex in iter_extracted(source, transformer.extractor):
+            for _, ex in iter_extracted(
+                    source, transformer.extractor,
+                    cache_root=self.paths.raw_cache_dir):
                 tc = transformer.transform_extracted(ex)
                 if tc.n == 0:
                     continue

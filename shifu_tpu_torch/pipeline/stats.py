@@ -101,7 +101,9 @@ class StatsProcessor(BasicProcessor):
         total_rows = 0
         if fused:
             with self.phase("fused_sweep"):
-                for _, ex in iter_extracted(source, extractor, rate=rate):
+                for _, ex in iter_extracted(
+                        source, extractor, rate=rate,
+                        cache_root=self.paths.raw_cache_dir):
                     if ex.n == 0:
                         continue
                     total_rows += ex.n
@@ -117,7 +119,9 @@ class StatsProcessor(BasicProcessor):
                 num_acc.finalize_fused()
         else:
             with self.phase("pass1_moments"):
-                for _, ex in iter_extracted(source, extractor, rate=rate):
+                for _, ex in iter_extracted(
+                        source, extractor, rate=rate,
+                        cache_root=self.paths.raw_cache_dir):
                     if ex.n == 0:
                         continue
                     total_rows += ex.n
@@ -129,7 +133,9 @@ class StatsProcessor(BasicProcessor):
             if num_cols:
                 num_acc.finalize_range()
             with self.phase("pass2_histograms"):
-                for _, ex in iter_extracted(source, extractor, rate=rate):
+                for _, ex in iter_extracted(
+                        source, extractor, rate=rate,
+                        cache_root=self.paths.raw_cache_dir):
                     if ex.n == 0:
                         continue
                     tgt = binarized(ex)

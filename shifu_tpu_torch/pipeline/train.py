@@ -13,9 +13,12 @@ device (``train.nn_trainer.train_ensemble``): bagging and k-fold members,
 same-shape grid trials (``tmp/grid_search.json`` ranks them, the best is
 ``model0``), one-vs-all members (``model{b*K+k}`` with
 ``spec.extra.class_index``) or a native softmax head, ``-shuffle`` and
-continuous training.  SVM and WDL raise "not yet ported" (ROADMAP Queue 1
-item 10), and so does a norm plane over ``shifu.train.memoryBudgetBytes``
-(the streamed trainer, item 8).
+continuous training.  A norm plane over ``shifu.train.memoryBudgetBytes``
+(or any with ``-Dshifu.train.streaming=on``) trains out of core through
+``train.nn_trainer.train_ensemble_streamed``: windows of
+``shifu.train.windowRows`` rows (default: the budget's), sampling masks
+hashed from the global row index, grid trials one streamed run each.
+SVM and WDL raise "not yet ported" (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from ..models import nn as nn_model
 from ..ops import prng
 from ..train import grid_search
 from ..train.dt_trainer import _not_ported
-from ..train.nn_trainer import TrainSettings, train_ensemble
+from ..train.nn_trainer import (TrainSettings, train_ensemble,
+                                train_ensemble_streamed)
 from ..train.sampling import member_masks
 from .processor import BasicProcessor
 
@@ -178,11 +182,7 @@ class TrainProcessor(BasicProcessor):
                              "ONEVSALL multi-class")
         shards = self._open_shards(self.paths.norm_dir)
         if self._use_streaming(shards, shards.schema):
-            raise _not_ported(
-                f"streamed (out-of-core) {alg.name} training "
-                "(train_ensemble_streamed); this norm plane is over "
-                "shifu.train.memoryBudgetBytes or shifu.train.streaming "
-                "is on", "item 8")
+            return self._train_nn_streamed(alg, shards, K, ova)
         with self.phase("load_data"):
             data = shards.load_all()
         x, y, w = data["x"], data["y"], data["w"]
@@ -296,6 +296,103 @@ class TrainProcessor(BasicProcessor):
                 device=self.device)
         return run, spec, res, ([trials[t] for t in run] if is_gs
                                 else run_params)
+
+    def _train_nn_streamed(self, alg: Algorithm, shards: Shards, K: int,
+                           ova: bool) -> int:
+        """The streamed counterpart of the resident NN family: windows
+        flow through ``train_ensemble_streamed``; sampling masks are
+        stateless hashes of the global row index (``data.streaming``)."""
+        from ..config import environment
+        from ..data.streaming import (ShardStream, mask_fn_from_settings,
+                                      stream_window_rows)
+        if environment.get_bool("shifu.dcn.elastic", False):
+            raise _not_ported("elastic multi-controller streamed "
+                              "training (shifu.dcn.elastic)", "item 12")
+        mc = self.model_config
+        schema = shards.schema
+        column_nums = schema.get("columnNums", [])
+        feature_names = schema.get("outputNames", [])
+        d = len(feature_names)
+        n_rows = schema.get("numRows") or shards.num_rows
+        params = dict(mc.train.params or {})
+        trials = self._trials(params)
+        is_gs = len(trials) > 1
+        kfold = mc.train.numKFold if mc.train.isCrossValidation else -1
+        bags = 1 if is_gs else max(1, mc.train.baggingNum)
+        if mc.train.stratifiedSample:
+            log.warning("streaming: stratified validation degrades to a "
+                        "Bernoulli split (it needs a global pass)")
+        if self.params.get("shuffle"):
+            log.warning("streaming: `train -shuffle` ignored; use "
+                        "`norm -shuffle` to reshuffle the materialized "
+                        "shards")
+        window_rows = stream_window_rows(4 * (d + 2), 1, shards)
+        log.info("train %s STREAMED on %s: %d rows x %d features, window "
+                 "%d rows", alg.name, self.device, n_rows, d, window_rows)
+        os.makedirs(self.paths.tmp_models_dir, exist_ok=True)
+        t0 = time.time()
+        results = []
+        with open(self.paths.progress_path, "w") as pf:
+            runs = [[t] for t in range(len(trials))] if is_gs \
+                else [list(range(bags))]
+            for run in runs:
+                run_params = trials[run[0]] if is_gs else dict(params)
+                spec = self._make_spec(alg, d, run_params, column_nums,
+                                       feature_names)
+                if K > 2 and not ova:
+                    spec.output_dim = K
+                    spec.output_activation = "softmax"
+                    spec.extra["n_classes"] = K
+                if ova:
+                    spec.extra.update({"ova_classes": K, "n_classes": K})
+                settings = settings_from_params(run_params, mc.train)
+                if not is_gs:
+                    settings.checkpoint_dir = self.paths.checkpoint_dir
+                    settings.resume = bool(self.params.get("resume"))
+                    settings.resume_extra = int(
+                        self.params.get("refresh_extra") or 0)
+                run_kfold = kfold if not is_gs else -1
+                n_members = run_kfold if (run_kfold and run_kfold > 1) \
+                    else (len(run) if is_gs else bags)
+                up_w = mc.train.upSampleWeight
+                if K > 2 and up_w != 1.0:
+                    log.warning("upSampleWeight ignored for multi-class")
+                    up_w = 1.0
+                mask_fn = mask_fn_from_settings(
+                    n_members, valid_rate=mc.train.validSetRate,
+                    kfold=run_kfold, sample_rate=mc.train.baggingSampleRate,
+                    replacement=mc.train.baggingWithReplacement,
+                    up_sample_weight=up_w, seed=settings.seed)
+                member_classes = None
+                if ova:
+                    # member b*K + k trains class k on bag b's masks,
+                    # binarised on the device
+                    def mask_fn(idx, targets, base_fn=mask_fn):
+                        tm, vm = base_fn(idx, targets)
+                        return (np.repeat(tm, K, axis=0),
+                                np.repeat(vm, K, axis=0))
+                    member_classes = [k for _ in range(n_members)
+                                      for k in range(K)]
+                    n_members *= K
+                # full batch: the tail window shrinks to a remainder rung;
+                # minibatch slices keep the window's fixed edges
+                stream = ShardStream(
+                    shards, ("x", "y", "w"), window_rows,
+                    remainder_multiple=1 if settings.batch_size == 0 else 0)
+                with self.phase("train"):
+                    res = train_ensemble_streamed(
+                        stream, spec, settings, n_members, mask_fn,
+                        init_params_list=self._continuous_init(
+                            spec, n_members, alg, settings),
+                        progress=self._progress_fn(pf, run),
+                        checkpoint=self._checkpoint_fn(spec, alg),
+                        member_classes=member_classes, device=self.device)
+                results.append((run, spec, res,
+                                [run_params] if is_gs else run_params))
+        with self.phase("save_models"):
+            self._write_models(results, alg, is_gs)
+        log.info("train done in %.1fs (streamed)", time.time() - t0)
+        return 0
 
     def _make_spec(self, alg: Algorithm, d: int, run_params: Dict[str, Any],
                    column_nums, feature_names) -> nn_model.NNModelSpec:

@@ -34,8 +34,17 @@ multiple of its data-axis size).  ``Precision`` (the reference's
 multiplies bf16 inputs (f32 accumulation), ``tensorfloat32`` allows TF32,
 anything else keeps true f32; the CPU ignores it, as XLA:CPU does.
 
-Not ported here: the streamed trainer (ROADMAP Queue 1 item 8) and the
-obs hooks (item 13).
+:func:`train_ensemble_streamed` is the out-of-core counterpart (the
+reference's ``MemoryDiskFloatMLDataSet.java`` role): the norm plane
+streams window by window through a ``ShardStream`` every epoch, each
+window crossing to the card on a copy stream
+(``dt_trainer._WindowCopier``).
+Full batch accumulates each window's unnormalised gradient sums on the
+device and steps once an epoch on ``sum(grads) / sum(weights)``; an
+epoch's errors are measured one pass late (on the params entering the
+next epoch) and a closing eval-only pass ends the ledger.  ``MiniBatchs``
+slices each window at edges fixed by the window size.  The reference's
+mesh and elastic combine are ROADMAP item 12; the obs hooks are item 13.
 """
 
 from __future__ import annotations
@@ -169,18 +178,6 @@ def _ckpt_state(stacked, opt_state, key, best_valid, best_train, best_dev,
             np.asarray([s.since_best for s in stops], np.int64))
 
 
-def _restore_tracking(state, best_valid, best_train, stops,
-                      device: torch.device):
-    """Put a restored 8-tuple's tracking back: the best errors (host, in
-    place), the windows' state, and the best params and best validation
-    errors on the device (returned)."""
-    best_valid[:], best_train[:] = state[3], state[4]
-    for s, b, k in zip(stops, state[6], state[7]):
-        s.best, s.since_best = float(b), int(k)
-    return (tree_map(lambda t: t.to(device), state[5]),
-            torch.from_numpy(best_valid.astype(np.float32)).to(device))
-
-
 def _pad_all(x, y, train_w, valid_w, multiple: int, y_members=None):
     """Zero-weight rows to a multiple of ``multiple`` (the minibatch)."""
     extra = (-x.shape[0]) % multiple
@@ -208,6 +205,148 @@ def _as_params(p) -> nn_model.Params:
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def _init_stack(spec, settings: TrainSettings, bags: int,
+                init_params_list, dev: torch.device):
+    """(key, optimizer, precision, stacked params, optimizer state): the
+    members' initial params on ``dev``, narrowed by the precision ladder
+    (bf16/mixed train narrow params; mixed keeps the f32 master in the
+    optimizer state)."""
+    key = prng.prng_key(settings.seed)
+    if init_params_list is None:
+        init_params_list = [
+            nn_model.init_params(k, spec, settings.weight_initializer)
+            for k in prng.split(key, bags)]
+    init_list = [_as_params(p) for p in init_params_list]
+    opt = make_optimizer(settings.optimizer, settings.learning_rate,
+                         **settings.opt_kwargs)
+    precision = resolve_precision(settings.precision)
+    if precision != "f32":
+        init_list = [cast_tree(p, torch.bfloat16) for p in init_list]
+    stacked = nn_model.stack_params(init_list, dev)
+    opt_state = mixed_init(opt, stacked, bags) if precision == "mixed" \
+        else opt.init(stacked, bags)
+    return key, opt, precision, stacked, opt_state
+
+
+class _EpochLedger:
+    """The epoch-end bookkeeping both trainers share: the errors history,
+    each member's best epoch (errors on the host, params on the device),
+    the early-stop windows, the learning-rate decay, the tmp-model and
+    trainer-checkpoint saves, and the final choice of params."""
+
+    def __init__(self, settings: TrainSettings, stacked, bags: int,
+                 precision: str, progress, checkpoint, dev: torch.device):
+        self.settings, self.precision, self.bags = settings, precision, bags
+        self.progress, self.checkpoint, self.dev = progress, checkpoint, dev
+        self.stops = [WindowEarlyStop(settings.early_stop_window)
+                      for _ in range(bags)]
+        self.best_valid = np.full(bags, np.inf)
+        self.best_train = np.full(bags, np.inf)
+        self.best_dev = tree_map(torch.clone, stacked)
+        self.best_va_dev = torch.full((bags,), float("inf"), device=dev)
+        self.history: List[Tuple[float, float]] = []
+        self.tr = self.va = np.zeros(bags)
+        self.lr_scale = 1.0
+
+    def resume(self, stacked, opt_state):
+        """The latest trainer checkpoint, restored: None, or (start epoch,
+        epoch target, stacked, optimizer state, key); the best epochs, the
+        early-stop windows and the lr scale are restored into the
+        ledger."""
+        from . import checkpoint as ckpt
+        s = self.settings
+        restored = ckpt.restore_state(
+            s.checkpoint_dir, _ckpt_template(stacked, opt_state, self.bags),
+            expect_precision=self.precision)
+        if restored is None:
+            return None
+        start_epoch, state = restored
+        to_dev = lambda t: t.to(self.dev)       # noqa: E731
+        self.best_valid[:], self.best_train[:] = state[3], state[4]
+        for w, b, k in zip(self.stops, state[6], state[7]):
+            w.best, w.since_best = float(b), int(k)
+        self.best_dev = tree_map(to_dev, state[5])
+        self.best_va_dev = to_dev(
+            torch.from_numpy(self.best_valid.astype(np.float32)))
+        self.lr_scale = (1.0 - s.learning_decay) ** start_epoch \
+            if s.learning_decay > 0 else 1.0
+        epochs_target = _resume_epoch_target(s, start_epoch, self.stops)
+        log.info("resumed trainer state at epoch %d (target %d)",
+                 start_epoch, epochs_target)
+        if s.early_stop_window > 0 and \
+                all(w.since_best >= w.window_size for w in self.stops):
+            start_epoch = epochs_target    # it had already stopped
+        return (start_epoch, epochs_target, tree_map(to_dev, state[0]),
+                tree_map(to_dev, state[1]),
+                (int(state[2][0]), int(state[2][1])))
+
+    def record(self, epoch: int, tr: np.ndarray, va: np.ndarray,
+               params, va_dev: Optional[torch.Tensor] = None) -> bool:
+        """Record ``epoch``'s errors, measured on ``params``; True when
+        every member's early-stop window fired (every window advances).
+        ``va_dev``, the same validation errors still on the device, picks
+        the best params there with no host-to-device copy (the resident
+        epoch makes one host sync); without it the host's choice is
+        copied over."""
+        self.tr, self.va = tr, va
+        self.history.append((float(tr.mean()), float(va.mean())))
+        improved = va < self.best_valid
+        imp = None
+        if va_dev is not None:
+            imp = va_dev < self.best_va_dev
+            self.best_va_dev = torch.where(imp, va_dev, self.best_va_dev)
+        elif improved.any():
+            imp = torch.from_numpy(improved).to(self.dev)
+        if imp is not None:
+            self.best_dev = tree_map(
+                lambda b, p: torch.where(per_member(imp, p), p, b),
+                self.best_dev, params)
+        self.best_valid[improved] = va[improved]
+        self.best_train[improved] = tr[improved]
+        if self.progress:
+            self.progress(epoch, float(tr.mean()), float(va.mean()))
+        if self.settings.early_stop_window > 0:
+            return all([w.should_stop(float(v))
+                        for w, v in zip(self.stops, va)])
+        return False
+
+    def end_epoch(self, epoch: int, stacked, opt_state, key,
+                  stopped: bool):
+        """After ``epoch``'s update: the tmp models, the trainer checkpoint
+        (saved after the windows advanced, and forced on the stop epoch,
+        so a resumed run replays the exact stop state), the lr decay."""
+        s = self.settings
+        if self.checkpoint and s.tmp_model_every and \
+                (epoch + 1) % s.tmp_model_every == 0:
+            self.checkpoint(epoch, [nn_model.member_params(stacked, i)
+                                    for i in range(self.bags)])
+        if s.checkpoint_dir and s.checkpoint_every and \
+                ((epoch + 1) % s.checkpoint_every == 0 or stopped):
+            from . import checkpoint as ckpt
+            ckpt.save_state(s.checkpoint_dir, epoch + 1,
+                            _ckpt_state(stacked, opt_state, key,
+                                        self.best_valid, self.best_train,
+                                        self.best_dev, self.stops),
+                            precision=self.precision)
+        if s.learning_decay > 0:
+            self.lr_scale *= (1.0 - s.learning_decay)
+
+    def result(self, stacked, epochs_run: int) -> EnsembleResult:
+        """Each member's best-epoch params, or its last where no epoch
+        recorded a finite validation error."""
+        params = []
+        for i in range(self.bags):
+            if np.isfinite(self.best_valid[i]):
+                params.append(nn_model.member_params(self.best_dev, i))
+            else:
+                params.append(nn_model.member_params(stacked, i))
+                self.best_valid[i] = float(self.va[i])
+                self.best_train[i] = float(self.tr[i])
+        return EnsembleResult(params=params, train_errors=self.best_train,
+                              valid_errors=self.best_valid,
+                              epochs_run=epochs_run, history=self.history)
 
 
 def train_ensemble(x: np.ndarray, y: np.ndarray,
@@ -239,22 +378,8 @@ def _train(x, y, train_w, valid_w, spec, settings, init_params_list,
            progress, checkpoint, y_members, member_hypers,
            dev: torch.device, mm_dtype) -> EnsembleResult:
     bags = train_w.shape[0]
-    key = prng.prng_key(settings.seed)
-    if init_params_list is None:
-        init_params_list = [
-            nn_model.init_params(k, spec, settings.weight_initializer)
-            for k in prng.split(key, bags)]
-    init_list = [_as_params(p) for p in init_params_list]
-    opt = make_optimizer(settings.optimizer, settings.learning_rate,
-                         **settings.opt_kwargs)
-    # ---- precision ladder: bf16/mixed train narrow params; mixed keeps
-    # the f32 master in the optimizer state
-    precision = resolve_precision(settings.precision)
-    if precision != "f32":
-        init_list = [cast_tree(p, torch.bfloat16) for p in init_list]
-    stacked = nn_model.stack_params(init_list, dev)
-    opt_state = mixed_init(opt, stacked, bags) if precision == "mixed" \
-        else opt.init(stacked, bags)
+    key, opt, precision, stacked, opt_state = _init_stack(
+        spec, settings, bags, init_params_list, dev)
 
     # per-member hyper rows [B, 4]: lr_scale, l2, l1, dropout
     if member_hypers is None:
@@ -331,43 +456,14 @@ def _train(x, y, train_w, valid_w, spec, settings, init_params_list,
                 mw.sum(dim=-1), min=1e-9)
         return torch.stack([err(twd), err(vwd)])
 
-    stops = [WindowEarlyStop(settings.early_stop_window)
-             for _ in range(bags)]
-    best_valid = np.full(bags, np.inf)
-    best_train = np.full(bags, np.inf)
-    # the best epoch's params and validation error, tracked on the device
-    best_dev = tree_map(torch.clone, stacked)
-    best_va_dev = torch.full((bags,), float("inf"), device=dev)
-    history: List[Tuple[float, float]] = []
-    lr_scale = 1.0
-    epochs_run = 0
-    tr = va = np.zeros(bags)
-
-    start_epoch = 0
+    ledger = _EpochLedger(settings, stacked, bags, precision, progress,
+                          checkpoint, dev)
+    epochs_run = start_epoch = 0
     epochs_target = settings.epochs
-    if settings.resume and settings.checkpoint_dir:
-        from . import checkpoint as ckpt
-        restored = ckpt.restore_state(
-            settings.checkpoint_dir,
-            _ckpt_template(stacked, opt_state, bags),
-            expect_precision=precision)
-        if restored is not None:
-            start_epoch, state = restored
-            to_dev = lambda t: t.to(dev)       # noqa: E731
-            stacked = tree_map(to_dev, state[0])
-            opt_state = tree_map(to_dev, state[1])
-            key = (int(state[2][0]), int(state[2][1]))
-            best_dev, best_va_dev = _restore_tracking(
-                state, best_valid, best_train, stops, dev)
-            lr_scale = (1.0 - settings.learning_decay) ** start_epoch \
-                if settings.learning_decay > 0 else 1.0
-            epochs_target = _resume_epoch_target(settings, start_epoch,
-                                                 stops)
-            log.info("resumed trainer state at epoch %d (target %d)",
-                     start_epoch, epochs_target)
-            if settings.early_stop_window > 0 and \
-                    all(s.since_best >= s.window_size for s in stops):
-                start_epoch = epochs_target    # it had already stopped
+    restored = ledger.resume(stacked, opt_state) \
+        if settings.resume and settings.checkpoint_dir else None
+    if restored is not None:
+        start_epoch, epochs_target, stacked, opt_state, key = restored
 
     for epoch in range(start_epoch, epochs_target):
         key, sub = prng.split(key)
@@ -382,57 +478,226 @@ def _train(x, y, train_w, valid_w, spec, settings, init_params_list,
                 stacked, opt_state = step(stacked, opt_state,
                                           xd[s:s + bs], yb,
                                           twd[:, s:s + bs], rngs_b,
-                                          lr_scale)
+                                          ledger.lr_scale)
         else:
             stacked, opt_state = step(stacked, opt_state, xd, yd, twd,
-                                      rngs, lr_scale)
+                                      rngs, ledger.lr_scale)
         with torch.no_grad():
             errs = eval_errors(stacked)
-            improved = errs[1] < best_va_dev
-            best_va_dev = torch.where(improved, errs[1], best_va_dev)
-            best_dev = tree_map(
-                lambda b, p: torch.where(per_member(improved, p), p, b),
-                best_dev, stacked)
-        tr, va = errs.cpu().numpy()                    # the one fetch
-        history.append((float(tr.mean()), float(va.mean())))
+            tr, va = errs.cpu().numpy()                    # the one fetch
+            stop_now = ledger.record(epoch, tr, va, stacked, va_dev=errs[1])
         epochs_run = epoch + 1
-        imp = np.flatnonzero(va < best_valid)
-        best_valid[imp], best_train[imp] = va[imp], tr[imp]
-        if progress:
-            progress(epoch, float(tr.mean()), float(va.mean()))
-        if checkpoint and settings.tmp_model_every and \
-                (epoch + 1) % settings.tmp_model_every == 0:
-            checkpoint(epoch, [nn_model.member_params(stacked, i)
-                               for i in range(bags)])
-        if settings.learning_decay > 0:
-            lr_scale *= (1.0 - settings.learning_decay)
-        stop_now = False
-        if settings.early_stop_window > 0:
-            # every member's window advances; stop when all agree
-            flags = [s.should_stop(float(v)) for s, v in zip(stops, va)]
-            stop_now = all(flags)
-        if settings.checkpoint_dir and settings.checkpoint_every and \
-                ((epoch + 1) % settings.checkpoint_every == 0 or stop_now):
-            # saved AFTER the windows advanced (and forced on the stop
-            # epoch): a resumed run replays the exact stop state
-            from . import checkpoint as ckpt
-            ckpt.save_state(settings.checkpoint_dir, epoch + 1,
-                            _ckpt_state(stacked, opt_state, key,
-                                        best_valid, best_train, best_dev,
-                                        stops),
-                            precision=precision)
+        ledger.end_epoch(epoch, stacked, opt_state, key, stop_now)
         if stop_now:
             log.info("early stop at epoch %d (window %d)", epoch,
                      settings.early_stop_window)
             break
+    return ledger.result(stacked, epochs_run)
 
-    params = []
-    for i in range(bags):
-        if np.isfinite(best_valid[i]):
-            params.append(nn_model.member_params(best_dev, i))
-        else:
-            params.append(nn_model.member_params(stacked, i))
-            best_valid[i], best_train[i] = float(va[i]), float(tr[i])
-    return EnsembleResult(params=params, train_errors=best_train,
-                          valid_errors=best_valid, epochs_run=epochs_run,
-                          history=history)
+
+# ------------------------------------------------------------- streaming
+def train_ensemble_streamed(stream, spec: nn_model.NNModelSpec,
+                            settings: TrainSettings, bags: int, mask_fn,
+                            init_params_list: Optional[List[Any]] = None,
+                            progress: Optional[ProgressFn] = None,
+                            checkpoint: Optional[Callable[[int, List[Any]],
+                                                          None]] = None,
+                            member_classes: Optional[List[int]] = None,
+                            device=None) -> EnsembleResult:
+    """Out-of-core ensemble training: one pass over ``stream``'s windows
+    an epoch (keys ``x``, ``y``, ``w``); the plane is never resident.
+
+    ``mask_fn(global_row_index, targets) -> (train_w, valid_w)`` gives
+    each window's ``[bags, rows]`` sampling masks
+    (``data.streaming.mask_fn_from_settings``); they multiply the data
+    weights, and padded tail rows get weight zero.  ``member_classes``
+    (one-vs-all) binarises ``y == class`` for each member on the device.
+    Full batch (``batch_size`` 0) is :func:`train_ensemble`'s math up to
+    the order of the sums; a minibatch run updates within each window."""
+    dev = resolve_device(device)
+    mm_dtype, tf32 = matmul_mode(settings.matmul_precision, dev)
+    with _allow_tf32(tf32) if dev.type == "cuda" else \
+            contextlib.nullcontext():
+        return _train_streamed(stream, spec, settings, bags, mask_fn,
+                               init_params_list, progress, checkpoint,
+                               member_classes, dev, mm_dtype)
+
+
+def _train_streamed(stream, spec, settings, bags, mask_fn, init_params_list,
+                    progress, checkpoint, member_classes,
+                    dev: torch.device, mm_dtype) -> EnsembleResult:
+    from ..data.streaming import PreparedWindow
+    from .dt_trainer import _WindowCopier
+
+    key, opt, precision, stacked, opt_state = _init_stack(
+        spec, settings, bags, init_params_list, dev)
+    dropout, l1, l2 = settings.dropout_rate, settings.l1, settings.l2
+    cls = None if member_classes is None else torch.tensor(
+        member_classes, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
+    # mixed accumulates the cross-window gradient sums in f32
+    acc_dtype = torch.float32 if precision == "mixed" else None
+
+    def targets(yb: torch.Tensor) -> torch.Tensor:
+        """[N, 1] shared, or [B, N, 1] binarised per member (OVA)."""
+        y = yb.unsqueeze(-1)
+        return y if cls is None else (y.unsqueeze(0) == cls).to(y.dtype)
+
+    def eval_sums(pred, ym, tw, vw) -> torch.Tensor:
+        per_row = nn_model.per_row_loss(pred, ym, spec)
+        return torch.stack([(per_row * tw).sum(-1), tw.sum(-1),
+                            (per_row * vw).sum(-1), vw.sum(-1)], dim=1)
+
+    def grad_eval_window(stacked, win, rngs):
+        """The window's unnormalised gradient sums and its [B, 4] error
+        sums (without dropout), for the full-batch step."""
+        params = [{k: v.detach().requires_grad_(True)
+                   for k, v in layer.items()} for layer in stacked]
+        leaves = [layer[k] for layer in params for k in ("b", "w")]
+        ym, tw, vw = targets(win["y"]), win["tw"], win["vw"]
+        with torch.enable_grad():
+            pred = nn_model.forward(params, spec, win["x"],
+                                    dropout_rate=dropout,
+                                    rng=rngs if dropout > 0 else None,
+                                    matmul_dtype=mm_dtype)
+            per_row = nn_model.per_row_loss(pred, ym, spec)
+            flat = torch.autograd.grad((per_row * tw).sum(), leaves)
+        with torch.no_grad():
+            if dropout > 0:
+                pred = nn_model.forward(stacked, spec, win["x"],
+                                        matmul_dtype=mm_dtype)
+            stats = eval_sums(pred.detach(), ym, tw, vw)
+        return [{"b": flat[2 * i], "w": flat[2 * i + 1]}
+                for i in range(len(params))], stats
+
+    def eval_window(stacked, win):
+        with torch.no_grad():
+            pred = nn_model.forward(stacked, spec, win["x"],
+                                    matmul_dtype=mm_dtype)
+            return eval_sums(pred, targets(win["y"]), win["tw"], win["vw"])
+
+    def step(stacked, opt_state, grads, lr_scale):
+        if precision == "mixed":
+            return mixed_apply(opt, grads, opt_state, scale=lr_scale)
+        delta, opt_state = opt.update(grads, opt_state, stacked)
+        return tree_map(lambda p, d: p + (d * lr_scale).to(p.dtype),
+                        stacked, delta), opt_state
+
+    def apply_update(stacked, opt_state, grad_acc, wsum, lr_scale):
+        inv = 1.0 / torch.clamp(wsum, min=1e-9)
+        g = [{"w": gl["w"] * per_member(inv, gl["w"]) + 2.0 * l2 * pl["w"]
+              + l1 * torch.sign(pl["w"]),
+              "b": gl["b"] * per_member(inv, gl["b"])}
+             for gl, pl in zip(grad_acc, stacked)]
+        return step(stacked, opt_state, g, lr_scale)
+
+    def minibatch(stacked, opt_state, win, s, e, rngs, lr_scale):
+        params = [{k: v.detach().requires_grad_(True)
+                   for k, v in layer.items()} for layer in stacked]
+        leaves = [layer[k] for layer in params for k in ("b", "w")]
+        ym = targets(win["y"][s:e])
+        with torch.enable_grad():
+            loss = nn_model.weighted_loss(
+                params, spec, win["x"][s:e], ym, win["tw"][:, s:e], l2=l2,
+                l1=l1, dropout_rate=dropout,
+                rng=rngs if dropout > 0 else None, matmul_dtype=mm_dtype)
+            flat = torch.autograd.grad(loss.sum(), leaves)
+        grads = [{"b": flat[2 * i], "w": flat[2 * i + 1]}
+                 for i in range(len(params))]
+        return step(stacked, opt_state, grads, lr_scale)
+
+    copier = _WindowCopier(dev)
+
+    def prepare(win):
+        """Masks on the host, then one copy a window to the device."""
+        y = np.asarray(win.arrays["y"], np.float32)
+        tm, vm = mask_fn(win.index, win.arrays["y"])
+        wcol = np.asarray(win.arrays["w"], np.float32)
+        if win.n_valid < win.rows:                 # zero the padded tail
+            wcol = wcol.copy()
+            wcol[win.n_valid:] = 0.0
+        arrays, sync = copier({"y": y}, extra={
+            "x": np.asarray(win.arrays["x"], np.float32),
+            "tw": np.asarray(tm * wcol[None, :], np.float32),
+            "vw": np.asarray(vm * wcol[None, :], np.float32)})
+        return PreparedWindow(win.start, win.n_valid, win.rows, win.index,
+                              arrays, on_consume=sync)
+
+    full_batch = settings.batch_size == 0
+    W = stream.window_rows
+    if not full_batch:
+        # each window sliced into ~batch_size minibatches at fixed edges
+        n_slices = max(1, W // max(settings.batch_size, 1))
+        edges = [i * W // n_slices for i in range(n_slices)] + [W]
+        slices = [(s, e) for s, e in zip(edges[:-1], edges[1:]) if e > s]
+
+    ledger = _EpochLedger(settings, stacked, bags, precision, progress,
+                          checkpoint, dev)
+    start_epoch = 0
+    epochs_target = settings.epochs
+    restored = ledger.resume(stacked, opt_state) \
+        if settings.resume and settings.checkpoint_dir else None
+    if restored is not None:
+        start_epoch, epochs_target, stacked, opt_state, key = restored
+
+    def bookkeep(epoch_done: int, stats: np.ndarray, snapshot) -> bool:
+        """Record the errors of ``epoch_done``, measured on ``snapshot``;
+        True when every member's early-stop window fired."""
+        return ledger.record(
+            epoch_done, stats[:, 0] / np.maximum(stats[:, 1], 1e-9),
+            stats[:, 2] / np.maximum(stats[:, 3], 1e-9), snapshot)
+
+    epochs_run = start_epoch
+    for epoch in range(start_epoch, epochs_target):
+        key, sub = prng.split(key)
+        rngs = prng.split(sub, bags)
+        entering = stacked         # the params this epoch's stats measure
+        stats_acc = torch.zeros((bags, 4), device=dev)
+        grad_acc = tree_map(
+            lambda a: torch.zeros(a.shape, dtype=acc_dtype or a.dtype,
+                                  device=dev), stacked) if full_batch \
+            else None
+        n_win = 0
+        for win in stream.prepared(prepare):
+            arrays = win.arrays
+            rngs_w = [prng.fold_in(r, n_win) for r in rngs] \
+                if dropout > 0 else rngs
+            if full_batch:
+                grads, stats = grad_eval_window(stacked, arrays, rngs_w)
+                grad_acc = tree_map(torch.add, grad_acc, grads)
+                stats_acc += stats
+            else:
+                stats_acc += eval_window(stacked, arrays)
+                for si, (s, e) in enumerate(slices):
+                    rngs_s = [prng.fold_in(r, si) for r in rngs_w] \
+                        if dropout > 0 else rngs_w
+                    stacked, opt_state = minibatch(
+                        stacked, opt_state, arrays, s, e, rngs_s,
+                        ledger.lr_scale)
+            n_win += 1
+        if n_win == 0:
+            raise RuntimeError("streamed training: empty shard stream")
+        stats = stats_acc.cpu().numpy().astype(np.float64)  # the one fetch
+        # the stats were measured on the params entering this epoch, so
+        # they close the PREVIOUS epoch's ledger.  ``epoch > 0`` (not
+        # ``> start_epoch``): a resumed epoch closes the last epoch before
+        # the restart, which its checkpoint did not record
+        stopped = bookkeep(epoch - 1, stats, entering) if epoch > 0 \
+            else False
+        if full_batch:
+            stacked, opt_state = apply_update(
+                stacked, opt_state, grad_acc, stats_acc[:, 1],
+                ledger.lr_scale)
+        epochs_run = epoch + 1
+        ledger.end_epoch(epoch, stacked, opt_state, key, stopped)
+        if stopped:
+            log.info("early stop at epoch %d (window %d, streamed)", epoch,
+                     settings.early_stop_window)
+            break
+
+    # the closing eval-only pass: the errors of the last params
+    stats_acc = torch.zeros((bags, 4), device=dev)
+    for win in stream.prepared(prepare):
+        stats_acc += eval_window(stacked, win.arrays)
+    bookkeep(epochs_run - 1, stats_acc.cpu().numpy().astype(np.float64),
+             stacked)
+    return ledger.result(stacked, epochs_run)

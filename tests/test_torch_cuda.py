@@ -8,7 +8,9 @@ accumulator on the card against the CPU; GBT and RF chunks run under
 ``torch.cuda.set_sync_debug_mode("error")``; the port's ``eval`` on
 the card against the CPU, with its ``tree_traverse`` launch count; and
 the NN trainer's stacked step on the card against the CPU, with one host
-sync an epoch (the ``[2, B]`` error fetch).
+sync an epoch (the ``[2, B]`` error fetch); the raw cache served on the
+card's path; the streamed NN trainer's epochs and the SE sensitivity job
+on the card against the CPU.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -1069,3 +1071,98 @@ def test_device_bags_on_the_card_are_the_host_stream(cuda):
                                   lam).cpu().numpy()
         np.testing.assert_array_equal(
             got, _hash_poisson(lam, row_uniform(7, stream, idx)))
+
+
+def test_raw_cache_serves_norm_and_eval_on_the_card(cuda, fraud_set):
+    """``stats`` on the card wrote ``tmp/RawCache``; ``norm`` after it is
+    served from it.  The eval set names no weight column, so its rows key
+    a cache of their own: the first ``eval -run`` writes it (a miss) and
+    the second is served."""
+    import os
+
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.data import parsepool
+
+    def passes(*argv):
+        before = dict(parsepool.cache_passes)
+        assert cli.main(["--dir", fraud_set, *argv]) == 0
+        return [parsepool.cache_passes[k] - before[k]
+                for k in ("hits", "misses")]
+    (key,) = os.listdir(os.path.join(fraud_set, "tmp", "RawCache"))
+    assert os.path.isfile(os.path.join(fraud_set, "tmp", "RawCache", key,
+                                       "manifest.json"))
+    assert passes("norm") == [1, 0]
+    assert passes("eval", "-run") == [0, 1]
+    assert passes("eval", "-run") == [1, 0]
+    assert len(os.listdir(os.path.join(fraud_set, "tmp", "RawCache"))) == 2
+
+
+def _norm_plane(d, n=3000, dim=16, shard_rows=1000, seed=3):
+    import os
+
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.ioutil import atomic_savez, atomic_write_json
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] + rng.normal(size=n) * 0.5 > 0).astype(
+        np.float32)
+    w = rng.integers(1, 4, n).astype(np.float32)
+    os.makedirs(d)
+    for i, s in enumerate(range(0, n, shard_rows)):
+        atomic_savez(os.path.join(d, f"part-{i:05d}.npz"),
+                     x=x[s:s + shard_rows], y=y[s:s + shard_rows],
+                     w=w[s:s + shard_rows])
+    atomic_write_json(os.path.join(d, "schema.json"), {
+        "outputNames": [f"f{i}" for i in range(dim)],
+        "columnNums": list(range(dim)), "numRows": n})
+    return Shards.open(d)
+
+
+@pytest.mark.parametrize("settings", [
+    dict(optimizer="R"),
+    dict(optimizer="ADAM", learning_rate=0.01, batch_size=256,
+         dropout_rate=0.1)])
+def test_streamed_nn_on_the_card_matches_the_cpu(cuda, tmp_path, settings):
+    """Three members over 3,000 rows in windows of 1,024 (a padded tail):
+    per-epoch errors and final weights within rtol 1e-4."""
+    from shifu_tpu_torch.data.streaming import (ShardStream,
+                                                mask_fn_from_settings)
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.train.nn_trainer import (TrainSettings,
+                                                  train_ensemble_streamed)
+    shards = _norm_plane(str(tmp_path / "plane"))
+    spec = nn_model.NNModelSpec(input_dim=16, hidden_nodes=[12],
+                                activations=["tanh"], loss="log")
+    st = TrainSettings(epochs=5, seed=1, **settings)
+    mask_fn = mask_fn_from_settings(3, valid_rate=0.2, sample_rate=0.8)
+    res = [train_ensemble_streamed(
+        ShardStream(shards, ("x", "y", "w"), 1024,
+                    remainder_multiple=0 if st.batch_size else 1),
+        spec, st, 3, mask_fn, device=dev) for dev in (cuda, "cpu")]
+    np.testing.assert_allclose(np.array(res[0].history),
+                               np.array(res[1].history), rtol=1e-4)
+    for pc, pg in zip(res[1].params, res[0].params):
+        for lc, lg in zip(pc, pg):
+            for k in ("w", "b"):
+                np.testing.assert_allclose(lg[k].numpy(), lc[k].numpy(),
+                                           rtol=1e-4, atol=1e-5)
+
+
+def test_sensitivity_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The streamed SE job (windows of 1,024 over 3,000 rows, mask batch
+    5) gives the CPU's frozen and base MSEs within rtol 1e-5."""
+    from shifu_tpu_torch.data.streaming import ShardStream
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.ops import prng
+    from shifu_tpu_torch.ops import sensitivity as sens
+    shards = _norm_plane(str(tmp_path / "plane"))
+    spec = nn_model.NNModelSpec(input_dim=16, hidden_nodes=[8, 4],
+                                activations=["tanh", "relu"])
+    params = nn_model.init_params(prng.prng_key(0), spec)
+    masks = sens.mask_matrix(16, [[i] for i in range(14)] + [[14, 15]])
+    out = [sens.streamed_sensitivity(
+        ShardStream(shards, ("x", "y"), 1024), spec, params, masks,
+        mask_batch=5, device=dev) for dev in (cuda, "cpu")]
+    assert out[0][2] == out[1][2] == 3000
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-5)
+    np.testing.assert_allclose(out[0][1], out[1][1], rtol=1e-5)

@@ -311,8 +311,10 @@ def test_narrow_precision_auc_within_the_pinned_bound(nn_template, tmp_path,
 
 @pytest.mark.parametrize("algorithm,argv,item", [
     ("SVM", [], "item 10"), ("WDL", [], "item 10"),
-    ("NN", ["-Dshifu.train.streaming=on"], "item 8"),
-    ("LR", ["-Dshifu.train.memoryBudgetBytes=1000"], "item 8")])
+    ("NN", ["-Dshifu.train.streaming=on", "-Dshifu.dcn.elastic=true"],
+     "item 12"),
+    ("LR", ["-Dshifu.train.memoryBudgetBytes=1000",
+            "-Dshifu.dcn.elastic=true"], "item 12")])
 def test_unported_paths_raise_naming_their_item(nn_template, tmp_path,
                                                 algorithm, argv, item):
     from shifu_tpu_torch.cli import main

@@ -367,8 +367,8 @@ def test_unported_paths_raise_naming_their_roadmap_item(prepared_set,
     """Streamed (out-of-core) training, single or as bagged or grid
     members, was ROADMAP item 8 and raised naming it; it is ported: with
     ``shifu.train.streaming=on`` each of these trains out of core and
-    writes its model files (only NN/LR streamed still raises,
-    ``tests/test_torch_nn_pipeline.py``)."""
+    writes its model files (so do NN and LR,
+    ``tests/test_torch_nn_streamed.py``)."""
     import logging
     from shifu_tpu_torch.cli import main
     from shifu_tpu_torch.config import ModelConfig

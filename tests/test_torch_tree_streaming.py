@@ -715,8 +715,24 @@ def test_streamed_multiclass_matches_the_reference(three_class, tmp_path,
 
 @pytest.mark.parametrize("alg", ["NN", "LR"])
 def test_streamed_nn_and_lr_still_raise_naming_item_8(prepared_set, alg):
+    """Streamed NN/LR was ROADMAP item 8 and raised naming it; it is
+    ported (``tests/test_torch_nn_streamed.py``): with streaming on it
+    trains out of core and writes its model; only the elastic combine
+    still raises, naming item 12."""
     from shifu_tpu_torch.cli import main
     _configure(prepared_set, alg, {})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["-Dshifu.train.streaming=on", "--dir", prepared_set, "train",
-              "--device", "cpu"])
+    set_conf = os.path.join(prepared_set, "ModelConfig.json")
+    with open(set_conf) as f:
+        conf = json.load(f)
+    conf["train"]["numTrainEpochs"] = 2
+    with open(set_conf, "w") as f:
+        json.dump(conf, f)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        main(["-Dshifu.train.streaming=on", "-Dshifu.dcn.elastic=true",
+              "--dir", prepared_set, "train", "--device", "cpu"])
+    environment.reset_for_tests()
+    assert main(["-Dshifu.train.streaming=on", "-Dshifu.train.windowRows="
+                 "1000", "--dir", prepared_set, "train", "--device",
+                 "cpu"]) == 0
+    assert os.path.isfile(os.path.join(prepared_set, "models",
+                                       f"model0.{alg.lower()}"))

@@ -3,6 +3,7 @@
 
     python3 tools/port_host_walls.py [--seed N] [--out FILE] [--of DIR]
     python3 tools/port_host_walls.py --parse [--seed N] [--out FILE]
+    python3 tools/port_host_walls.py --norm-eval [--seed N] [--out F] [--of DIR]
 
 Writes the chip smoke's stats CSV (``chip_smoke.py::write_model_set`` for
 the column plan, ``write_stats_csv`` for 16,384 rows x 258 fields, both
@@ -27,6 +28,15 @@ over the model inputs in chunks of 4,096 rows, inline
 default is ``min(cores, 8)``), in turns 0, 1, 8, 8, 1, 0, each in the same
 process, and checks that every turn yields the same rows.  It times this
 checkout's parse pool only, so it does not take ``--of``.
+
+With ``--norm-eval`` it times ``norm`` and ``eval -run`` of both packages
+with the raw cache and without it (``-Dshifu.ingest.rawCache=false``):
+each package runs ``new``, ``init``, ``stats`` (which writes the cache),
+``norm``, ``train`` (GBT, 10 trees of depth 7) and ``eval -new``, then
+both steps in turns (reference cache on, port on, port off, reference
+off, then the same four in reverse order), each step in a process of
+its own; it checks that the two packages' eval AUCs agree within 0.005.
+Its JSON line holds the walls of every turn.
 """
 
 from __future__ import annotations
@@ -126,6 +136,56 @@ def parse_turns(root: str, csv: str) -> dict:
     return out
 
 
+GBT = {"TreeNum": 10, "MaxDepth": 7, "Loss": "log", "LearningRate": 0.1}
+EVAL_SET = "walls"
+
+
+def norm_eval_turns(root: str, csv: str, repo: str) -> dict:
+    """``norm`` and ``eval -run`` of both packages, cache on and off, in
+    turns (see the module docstring); seconds per turn, and each
+    package's eval AUC."""
+    dirs, out = {}, {}
+    for package, dev in PACKAGES.items():
+        base = os.path.join(root, "ne_" + package)
+        os.makedirs(base)
+        run_step(package, ["--dir", base, "new", "set"], repo)
+        d = dirs[package] = os.path.join(base, "set")
+        path = os.path.join(d, "ModelConfig.json")
+        with open(path) as f:
+            mc = json.load(f)
+        ds = dict(dataPath=csv, dataDelimiter="|", targetColumnName="tag",
+                  posTags=["bad"], negTags=["good"],
+                  weightColumnName="weight", headerPath=csv + ".header",
+                  headerDelimiter="|")
+        mc["dataSet"].update(ds)
+        mc["evals"][0]["dataSet"].update(ds)
+        mc["train"].update(algorithm="GBT", params=dict(GBT))
+        with open(path, "w") as f:
+            json.dump(mc, f, indent=2)
+        for argv in (["init"], ["stats", *dev], ["norm"], ["train", *dev],
+                     ["eval", "-new", EVAL_SET]):
+            run_step(package, ["--dir", d, *argv], repo)
+    order = [("shifu_tpu", "on"), ("shifu_tpu_torch", "on"),
+             ("shifu_tpu_torch", "off"), ("shifu_tpu", "off")]
+    for package, mode in order + order[::-1]:
+        props = [] if mode == "on" else ["-Dshifu.ingest.rawCache=false"]
+        d = dirs[package]
+        for step, argv in (("norm", ["norm"]),
+                           ("eval", ["eval", "-run", EVAL_SET,
+                                     *PACKAGES[package]])):
+            out.setdefault(f"{package} {step}_s cache={mode}", []).append(
+                run_step(package, [*props, "--dir", d, *argv], repo))
+    aucs = {}
+    for package, d in dirs.items():
+        with open(os.path.join(d, "evals", EVAL_SET,
+                               "EvalPerformance.json")) as f:
+            aucs[package] = json.load(f)["areaUnderRoc"]
+        out[f"{package} auc"] = aucs[package]
+    if abs(aucs["shifu_tpu"] - aucs["shifu_tpu_torch"]) > 0.005:
+        sys.exit(f"eval AUCs differ: {aucs}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -135,6 +195,9 @@ def main() -> None:
     ap.add_argument("--parse", action="store_true",
                     help="only time the port's parse pool, inline against "
                     "1 and 8 threads")
+    ap.add_argument("--norm-eval", action="store_true",
+                    help="only time norm and eval -run of both packages, "
+                    "with the raw cache and without it")
     args = ap.parse_args()
     if args.parse and os.path.abspath(args.of) != REPO:
         ap.error("--parse times this checkout's parse pool; it takes no "
@@ -147,9 +210,12 @@ def main() -> None:
         csv = os.path.join(root, "data.csv")
         chip_smoke.write_stats_csv(csv, np.random.default_rng([args.seed, 2]),
                                    plan, chip_smoke.CSV_ROWS)
+        only = args.parse or args.norm_eval
         if args.parse:
             walls = parse_turns(root, csv)
-        for package, stats_args in () if args.parse else PACKAGES.items():
+        elif args.norm_eval:
+            walls = norm_eval_turns(root, csv, repo)
+        for package, stats_args in () if only else PACKAGES.items():
             base = os.path.join(root, package)
             os.makedirs(base)
             run_step(package, ["--dir", base, "new", "set"], repo)
@@ -171,7 +237,7 @@ def main() -> None:
                 package, ["--dir", d, "stats", *stats_args], repo)
             with open(os.path.join(d, "ColumnConfig.json")) as f:
                 walls[f"{package} stats"] = json.load(f)
-    for step in () if args.parse else ("init", "stats"):
+    for step in () if only else ("init", "stats"):
         ref, port = walls.pop(f"shifu_tpu {step}"), \
             walls.pop(f"shifu_tpu_torch {step}")
         if len(ref) != len(port):
@@ -180,7 +246,7 @@ def main() -> None:
             same(a, b, f"{step} {b['columnName']}")
     walls.update(repo=repo, rows=chip_smoke.CSV_ROWS,
                  fields=chip_smoke.N_COLS + 2, cpus=os.cpu_count())
-    if not args.parse:
+    if not only:
         walls["column_configs_agree"] = True
     line = json.dumps(walls)
     print(line)

@@ -208,8 +208,40 @@ versions on one card.  Otherwise it
    (``varselect_phase``) ``varselect`` with ``filterBy SE`` through the
    CLI on ``cuda`` over ``nn_phase``'s 1,048,576 x 256 plane with (a)'s
    ``model0.nn``, then on its first 65,536 rows on ``cuda`` and ``cpu``:
-   the same 64 columns selected, SE scores within 1e-6;
-8. times each kernel (CUDA events, launches queued behind a spin kernel so
+   the same 64 columns selected, SE scores within 1e-6; then
+   (``genetic_phase``) ``varselect`` with ``filterBy GENETIC`` on ``cuda``
+   over the same plane with the reference's default WrapperSettings
+   (16 candidates, 5 generations of 40 full-batch ADAM epochs, their nets
+   stacked as one GEMM a layer) and filterNum 64, its wall and epochs a
+   second, and on the plane's first 65,536 rows (20 epochs, 3
+   generations) resident and streamed in windows of 8,192, each on
+   ``cuda`` and ``cpu`` with the same ``genetic.json`` credit ranking and
+   selection;
+8. drives the commands around the offline path through ``cli.main`` on
+   the e2e set (``aux_tree_phase``, after ``posttrain_phase``; copies of
+   the set, one run on ``cuda``, one with ``--device cpu``): (a)
+   ``export`` pmml, pmml -c, columnstats, woemapping, bagging and spec,
+   the copies' files equal (gzip payloads for specs), and
+   ``export/reference/model0.gbt`` re-read by ``load_reference_tree``,
+   whose float64 host scores equal the native forest walked by one
+   ``tree_traverse`` launch within rtol 1e-5 / atol 1e-6 on rows with
+   every numeric the forest splits on present; (b) ``encode``
+   (``tree_traverse``'s node-index walk, one launch a chunk: 4) with
+   ``tmp/EncodedData`` byte-equal to the CPU's, and the RF phase's depth-14 forest walked by ``encode``'s
+   walk over 65,536 rows of the train plane (node ids past 16,383, equal
+   to the CPU's ``traverse_nodes``, one launch); (c) ``combo new -alg
+   LR:GBT``, ``run`` and ``eval`` on the CSV's first 8,192 rows (80
+   ``hist`` launches for the GBT member, one ``tree_traverse`` launch a
+   chunk of the eval CSV), member and assembled AUCs within 0.005 of the
+   CPU's; (f) ``convert``, ``save``/``history``/``switch``/``show``,
+   ``analysis -fi`` and ``test -filter``
+   with the CPU copy's return codes and files.  After ``e2e_nn_phase``
+   (``aux_nn_phase``): the exports of the e2e NN, its Encog spec re-read
+   by ``load_encog_nn`` scoring as the native net on ``cuda``, and (e)
+   ``varselect -recursive 2`` (SE, filterNum 3, a [16] tanh net of 30
+   ADAM epochs) on ``cuda`` and ``cpu`` with equal
+   ``ColumnConfig.json.{0,1,2}`` selections;
+9. times each kernel (CUDA events, launches queued behind a spin kernel so
    the host cannot starve the card) beside its plain version, one PyTorch
    call that computes the same function where there is one, and its bound
    (the larger of the bytes this data makes it move over 3.35 TB/s and its
@@ -232,7 +264,7 @@ versions on one card.  Otherwise it
    N=512 with and without its x blocks; and reports ms per tree of the
    full-width train, with a ``torch.profiler`` breakdown of one tree's
    device time;
-9. prints one JSON line listing every ported kernel, then as its last line
+10. prints one JSON line listing every ported kernel, then as its last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -2467,13 +2499,16 @@ def nn_stream_profile(torch, d: str, window: int, gpu: str) -> dict:
 
 # -------------------------------------------------------- phase: varselect
 def varsel_set(root: str, name: str, src: str, plane: str, rng,
-               device: str) -> str:
+               device: str, by: str = "SE", keep: int = VARSEL_KEEP,
+               params=None, props=()) -> str:
     """A copy of NN set ``src``'s configs and ``model0.nn`` over norm
     plane ``plane``, its ColumnConfig named as the plane's features (f000
-    ...; KS and IV from ``rng``), with ``filterBy SE``; runs ``varselect``
-    on ``device`` there."""
+    ...; KS and IV from ``rng``), with ``filterBy`` ``by``, ``filterNum``
+    ``keep`` and varSelect ``params``; runs ``varselect`` on ``device``
+    there with ``-D`` ``props`` (cleared after the run)."""
     from shifu_tpu_torch import cli
-    from shifu_tpu_torch.config import (ModelConfig, load_column_configs,
+    from shifu_tpu_torch.config import (ModelConfig, environment,
+                                        load_column_configs,
                                         save_column_configs)
     from shifu_tpu_torch.config.model_config import FilterBy
     d = os.path.join(root, name)
@@ -2492,11 +2527,18 @@ def varsel_set(root: str, name: str, src: str, plane: str, rng,
     save_column_configs(ccs, os.path.join(d, "ColumnConfig.json"))
     path = os.path.join(d, "ModelConfig.json")
     mc = ModelConfig.load(path)
-    mc.varSelect.filterBy = FilterBy.SE
-    mc.varSelect.filterNum = VARSEL_KEEP
+    mc.varSelect.filterBy = FilterBy[by]
+    mc.varSelect.filterNum = keep
+    if params is not None:
+        mc.varSelect.params = params
     mc.save(path)
-    if cli.main(["--dir", d, "varselect", "--device", device]) != 0:
-        fail(f"varselect on {device} exited non-zero in {d}")
+    try:
+        rc = cli.main(["--dir", d, *props, "varselect", "--device", device])
+    finally:
+        for p in props:
+            environment.set_property(p[2:].split("=", 1)[0], "")
+    if rc != 0:
+        fail(f"varselect by {by} on {device} exited {rc} in {d}")
     return d
 
 
@@ -2544,6 +2586,437 @@ def varselect_phase(torch, root: str, nn_dir: str, cut_plane: str, rng,
         f" — [{gpu}]")
     return {"wall_s": wall, "cut_walls_s": walls, "se_diff": diff,
             "top": top}
+
+
+# ------------------------------------------- phase: export, encode, combo
+AUX_EXPORTS = (("pmml",), ("pmml", "-c"), ("columnstats",),
+               ("woemapping",), ("bagging",), ("-t", "spec"))
+SPEC_RTOL, SPEC_ATOL = 1e-5, 1e-6          # tests/test_reference_export.py
+COMBO_AUC_TOL = 0.005                      # member AUCs, card vs CPU
+COMBO_ROWS = 2 * CSV_CHUNK                 # combo's cut of the e2e CSV
+GENETIC_KEEP = 64                          # GENETIC's filterNum
+GENETIC_WINDOW = 8192                      # streamed GENETIC's window rows
+GENETIC_CUT = {"WrapperEpochs": 20, "POPULATION_MULTIPLY_CNT": 3}
+RECURSIVE_KEEP = 3                         # the CSV's 3 informative columns
+RECURSIVE_NN = {"NumHiddenNodes": [16], "ActivationFunc": ["tanh"],
+                "Propagation": "ADAM", "LearningRate": 0.05}
+RECURSIVE_EPOCHS = 30
+
+
+def cli_ok(d: str, *argv: str) -> float:
+    """A CLI command in model set ``d`` that must exit 0; its wall s."""
+    from shifu_tpu_torch import cli
+    t0 = time.perf_counter()
+    rc = cli.main(["--dir", d, *argv])
+    if rc != 0:
+        fail(f"{' '.join(argv)} exited {rc} in {d}")
+    return time.perf_counter() - t0
+
+
+def files_under(d: str) -> dict:
+    """{relative path: bytes} of every file under ``d``; a gzipped
+    reference spec contributes its payload (its header carries the time
+    of writing)."""
+    import gzip
+    out = {}
+    for base, _, names in os.walk(d):
+        for name in names:
+            p = os.path.join(base, name)
+            with open(p, "rb") as f:
+                data = f.read()
+            if data[:2] == b"\x1f\x8b":
+                data = gzip.decompress(data)
+            out[os.path.relpath(p, d)] = data
+    return out
+
+
+def export_pair(card: str, cpu: str, what: str) -> float:
+    """Every AUX_EXPORTS type in both copies: the same files (export runs
+    on the host, so the copies' files must be equal); total wall s."""
+    wall = 0.0
+    for argv in AUX_EXPORTS:
+        wall += cli_ok(card, "export", *argv)
+        cli_ok(cpu, "export", *argv)
+        got, want = (files_under(os.path.join(x, "export"))
+                     for x in (card, cpu))
+        if got != want or not got:
+            fail(f"{what} export {' '.join(argv)}: files differ between "
+                 f"the copies ({sorted(set(got) ^ set(want))})")
+    names = sorted(files_under(os.path.join(card, "export")))
+    if not any(n.endswith(".pmml") for n in names) or not any(
+            n.startswith("reference") for n in names):
+        fail(f"{what} export wrote {names}")
+    return wall
+
+
+def csv_chunk(d: str, csv: str):
+    """(the transform of the whole CSV as one chunk, the raw chunk, the
+    column configs) of model set ``d``."""
+    from shifu_tpu_torch.config import ModelConfig, load_column_configs
+    from shifu_tpu_torch.data.reader import DataSource
+    from shifu_tpu_torch.data.transform import DatasetTransformer
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    ccs = load_column_configs(os.path.join(d, "ColumnConfig.json"))
+    (chunk,) = list(DataSource(csv, "|", header_path=csv + ".header")
+                    .iter_chunks(CSV_ROWS))
+    return DatasetTransformer(mc, ccs).transform(chunk), chunk, ccs
+
+
+def spec_roundtrip_trees(torch, tq, d: str, csv: str) -> dict:
+    """``export/reference/model0.gbt`` re-read by ``load_reference_tree``:
+    its float64 host scores (link applied) against the native forest
+    scored through ``tree_traverse`` on the card (launches counted), on
+    the CSV's rows with every numeric the forest splits on present (the
+    format imputes a missing numeric to its mean, where the native forest
+    routes it through the missing bin; with 224 numeric columns of ~5%
+    empty cells hardly any row has every numeric present)."""
+    from shifu_tpu_torch.models.reference_import import load_reference_tree
+    from shifu_tpu_torch.models.tree import IndependentTreeModel
+    ref = load_reference_tree(os.path.join(d, "export", "reference",
+                                           "model0.gbt"))
+    native = IndependentTreeModel.load(os.path.join(d, "models",
+                                                    "model0.gbt"))
+    tc, chunk, ccs = csv_chunk(d, csv)
+    tq.predict_forest_quant.launches = 0
+    card = native.compute(torch.from_numpy(tc.bins).to("cuda"))[:, 0]
+    launches = tq.predict_forest_quant.launches
+    by_num = {cc.columnNum: cc for cc in ccs}
+    split_on = {int(f) for t in native.trees for f in t.split_feat if f >= 0}
+    raw, missing = {}, np.zeros(tc.n, bool)
+    for j, num in enumerate(native.spec.column_nums):
+        cc = by_num[num]
+        if cc.is_categorical():
+            raw[num] = tc.bins[:, j].astype(np.float64)
+        else:
+            cells = chunk.col(cc.columnName)
+            v = np.array([float(x) if str(x).strip() else np.nan
+                          for x in cells])
+            raw[num] = v
+            if j in split_on:
+                missing |= ~np.isfinite(v)
+    t0 = time.perf_counter()
+    host = 1.0 / (1.0 + np.exp(-ref.compute(raw)))
+    host_s = time.perf_counter() - t0
+    ok = ~missing
+    err = np.abs(card[ok] - host[ok])
+    if launches != 1 or ok.sum() < 100 or \
+            not (err <= SPEC_ATOL + SPEC_RTOL * np.abs(host[ok])).all():
+        fail(f"spec round trip: {launches} launch(es), {ok.sum()} complete "
+             f"rows, max |card - host| {err.max() if ok.any() else None}")
+    return {"launches": launches, "rows": int(ok.sum()),
+            "split_columns": len(split_on),
+            "max_abs_err": float(err.max()), "host_s": host_s}
+
+
+def rf_encode_check(torch, tq, rf_dir: str, bins: np.ndarray) -> dict:
+    """``encode``'s walk (``pipeline.encode.leaf_indices``) of the RF
+    phase's depth-14 forest over ``bins`` on the card (one launch) and on
+    the CPU (``traverse_nodes``): equal node ids, up to 32,766."""
+    from shifu_tpu_torch.models.tree import IndependentTreeModel
+    from shifu_tpu_torch.pipeline.encode import leaf_indices
+    model = IndependentTreeModel.load(os.path.join(rf_dir, "models",
+                                                   "model0.rf"))
+    tq.predict_forest_quant.launches = 0
+    t0 = time.perf_counter()
+    card = leaf_indices(model, torch.from_numpy(bins).to(
+        "cuda", model.bins_dtype)).cpu().numpy()
+    card_s = time.perf_counter() - t0
+    launches = tq.predict_forest_quant.launches
+    t0 = time.perf_counter()
+    cpu = leaf_indices(model, torch.from_numpy(bins.astype(np.int32)))
+    cpu_s = time.perf_counter() - t0
+    differ = int((card != cpu.numpy()).sum())
+    top = int(card.max())
+    if launches != 1 or differ or top <= (1 << (RF_DEPTH - 1)):
+        fail(f"RF encode walk: {launches} launch(es), {differ} ids differ "
+             f"from the CPU's, deepest id {top}")
+    return {"launches": launches, "max_node_id": top, "ms": card_s * 1e3,
+            "cpu_ms": cpu_s * 1e3, "rows": len(bins)}
+
+
+def headed_cut(csv: str, rows: int) -> str:
+    """The CSV's first ``rows`` rows after its header line, as ``combo
+    eval`` reads eval data (its reader takes no header file, as the
+    reference's does)."""
+    path = f"{csv}.head{rows}"
+    with open(csv + ".header") as h, open(csv) as src, \
+            open(path, "w") as out:
+        out.write(h.read())
+        for _, line in zip(range(rows), src):
+            out.write(line)
+    return path
+
+
+def combo_pair(root: str, d: str, csv: str) -> dict:
+    """``combo new -alg LR:GBT``, ``run`` and ``eval`` through the CLI on
+    the card and on the CPU, from copies of ``d`` whose training data and
+    one eval set are the CSV's first COMBO_ROWS rows (a cut in rows: each
+    member's ``norm`` and every eval parse the text): the GBT member's
+    ``hist`` launches (its 8 a tree) and the eval's ``tree_traverse``
+    launches (one a chunk) counted on the card, none on the CPU; member
+    and assembled AUCs within COMBO_AUC_TOL."""
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.ops import tree_quant as tq
+    out, walls, counts = {}, {}, {}
+    cut = headed_cut(csv, COMBO_ROWS)
+    for dev in ("cuda", "cpu"):
+        p = os.path.join(root, f"combo_{dev}")
+        shutil.copytree(d, p)
+        path = os.path.join(p, "ModelConfig.json")
+        mc = ModelConfig.load(path)
+        for ds in (mc.dataSet, mc.evals[0].dataSet):
+            ds.dataPath, ds.headerPath = cut, None
+        mc.evals = mc.evals[:1]
+        mc.save(path)
+        cli_ok(p, "combo", "new", "-alg", "LR:GBT")
+        zero_tree_counts()
+        walls[f"run_{dev}"] = cli_ok(p, "combo", "run", "--device", dev)
+        counts[f"run_{dev}"] = read_tree_counts()
+        tq.predict_forest_quant.launches = 0
+        walls[f"eval_{dev}"] = cli_ok(p, "combo", "eval", "--device", dev)
+        counts[f"eval_{dev}"] = tq.predict_forest_quant.launches
+        with open(os.path.join(p, f"ComboEval.{mc.evals[0].name}.json")) \
+                as f:
+            out[dev] = json.load(f)
+    chunks = -(-(COMBO_ROWS + 1) // CSV_CHUNK)   # the header shortens one
+    run_want = TRAIN_TREES * (DEPTH + 1)
+    if counts["run_cuda"]["hist"] != run_want or counts["eval_cuda"] != \
+            chunks or counts["eval_cpu"] or any(counts["run_cpu"].values()):
+        fail(f"combo launches {counts}: want {run_want} hist launches in "
+             f"the card's run and {chunks} tree_traverse in its eval")
+    aucs = [(g["areaUnderRoc"], c["areaUnderRoc"]) for g, c in zip(
+        out["cuda"]["memberAuc"], out["cpu"]["memberAuc"])]
+    aucs.append((out["cuda"]["areaUnderRoc"], out["cpu"]["areaUnderRoc"]))
+    diff = max(abs(a - b) for a, b in aucs)
+    if len(aucs) != 3 or diff > COMBO_AUC_TOL or aucs[-1][0] < 0.6:
+        fail(f"combo AUCs card vs CPU {aucs}")
+    return {"walls_s": walls, "hist_launches": counts["run_cuda"]["hist"],
+            "run_launches": counts["run_cuda"],
+            "eval_launches": counts["eval_cuda"], "aucs": aucs,
+            "auc_diff": diff}
+
+
+def host_steps(card: str, cpu: str) -> dict:
+    """``convert``, ``save``/``history``/``switch``/``show``, ``analysis
+    -fi`` and ``test -filter`` (the training set) in both copies: the same
+    return codes and files."""
+    steps = (("convert", "-tozipb"), ("save", "v1"), ("history",),
+             ("switch", "v1"), ("show",), ("analysis", "-fi", "{model}"),
+             ("test", "-filter"))
+    walls = {}
+    for argv in steps:
+        for x in (card, cpu):
+            model = os.path.join(x, "models", "model0.gbt")
+            walls[argv[0]] = cli_ok(x, *[a.format(model=model)
+                                         for a in argv])
+    for sub in ("models", ".backup"):
+        got, want = (files_under(os.path.join(x, sub)) for x in (card, cpu))
+        if got != want:
+            fail(f"host steps: {sub} differs ({sorted(set(got) ^ set(want))})")
+    if "model0.gbt.fi" not in files_under(os.path.join(card, "models")):
+        fail("analysis -fi wrote no model0.gbt.fi")
+    return walls
+
+
+def aux_tree_phase(torch, tq, root: str, d: str, csv: str, rf_dir: str,
+                   rf_bins: np.ndarray, gpu: str) -> dict:
+    """The commands around the offline path on the e2e GBT set (the
+    CSV_ROWS-row CSV at full width, the 10-tree depth-7 GBT), through the
+    CLI on the card and with ``--device cpu``: (a) every export type, the
+    copies' files equal, and ``export/reference/model0.gbt`` re-read
+    against the native forest walked by ``tree_traverse`` on the card;
+    (b) ``encode`` (one ``tree_traverse`` launch a chunk, its node-index
+    walk) with ``tmp/EncodedData`` byte-equal to the CPU's, and the RF
+    phase's depth-14 forest walked by ``encode`` over CUT_ROWS rows of
+    the train plane; (c) ``combo`` LR:GBT; (f) the host steps."""
+    from shifu_tpu_torch.data import parsepool
+    card, cpu = (os.path.join(root, f"aux_gbt_{x}") for x in ("cuda", "cpu"))
+    for x in (card, cpu):
+        shutil.copytree(d, x)
+    t_phase = time.perf_counter()
+    walls = {"export": export_pair(card, cpu, "GBT")}
+    roundtrip = spec_roundtrip_trees(torch, tq, card, csv)
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    try:
+        tq.predict_forest_quant.launches = 0
+        walls["encode"] = cli_ok(card, "encode")
+        encode_launches = tq.predict_forest_quant.launches
+        walls["encode_cpu"] = cli_ok(cpu, "encode", "--device", "cpu")
+        combo = combo_pair(root, d, csv)
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+    chunks = -(-CSV_ROWS // CSV_CHUNK)
+    enc = []
+    for x in (card, cpu):
+        with open(os.path.join(x, "tmp", "EncodedData"), "rb") as f:
+            enc.append(f.read())
+    lines = enc[0].decode().splitlines()
+    if encode_launches != chunks or enc[0] != enc[1] or \
+            len(lines) != CSV_ROWS + 1 or \
+            lines[0] != "target|" + "|".join(f"tree{t}"
+                                             for t in range(TRAIN_TREES)):
+        fail(f"encode: {encode_launches} launches for {chunks} chunks, "
+             f"EncodedData equal to the CPU's {enc[0] == enc[1]}, "
+             f"{len(lines)} lines")
+    rf_enc = rf_encode_check(torch, tq, rf_dir, rf_bins)
+    walls["host_steps"] = host_steps(card, cpu)
+    wall = time.perf_counter() - t_phase
+    log(f"aux (GBT): export {walls['export']:.3f} s for "
+        f"{len(AUX_EXPORTS)} types; spec round trip on "
+        f"{roundtrip['rows']} rows complete in the forest's "
+        f"{roundtrip['split_columns']} split columns within "
+        f"{roundtrip['max_abs_err']:.3g} ({roundtrip['launches']} launch); "
+        f"encode {walls['encode']:.3f} s on the card ({encode_launches} "
+        f"tree_traverse launches), {walls['encode_cpu']:.3f} s on the "
+        f"CPU, byte-equal; RF encode walk {rf_enc['ms']:.3f} ms on "
+        f"{rf_enc['rows']} rows (deepest id {rf_enc['max_node_id']}, CPU "
+        f"{rf_enc['cpu_ms']:.1f} ms); combo LR:GBT run {combo['walls_s']}"
+        f", {combo['hist_launches']} hist and {combo['eval_launches']} "
+        f"tree_traverse launches, AUCs {combo['aucs']}; host steps "
+        f"{ {k: round(v, 3) for k, v in walls['host_steps'].items()} }; "
+        f"phase {wall:.1f} s — [{gpu}]")
+    return {"walls_s": walls, "wall_s": wall, "roundtrip": roundtrip,
+            "encode_launches": encode_launches, "rf_encode": rf_enc,
+            "combo": combo}
+
+
+def aux_nn_phase(torch, root: str, d: str, gpu: str) -> dict:
+    """The e2e NN set (``e2e_nn_phase``'s ``model0.nn`` on the CSV's norm
+    plane) through the CLI: (a) every export type in two copies, files
+    equal, and ``export/reference/model0.nn`` re-read by
+    ``load_encog_nn`` scoring as the native net on the card; (e)
+    ``varselect -recursive 2`` (SE, a net RECURSIVE_NN) on the card and
+    on the CPU: the same ``ColumnConfig.json.{0,1,2}`` selections."""
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.config.model_config import Algorithm, FilterBy
+    from shifu_tpu_torch.data import parsepool
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.models import load_any
+    from shifu_tpu_torch.models.nn import IndependentNNModel
+    from shifu_tpu_torch.models.reference_import import load_encog_nn
+    t_phase = time.perf_counter()
+    card, cpu = (os.path.join(root, f"aux_nn_{x}") for x in ("cuda", "cpu"))
+    for x in (card, cpu):
+        shutil.copytree(d, x)
+    walls = {"export": export_pair(card, cpu, "NN")}
+    x = Shards.open(os.path.join(card, "tmp", "NormalizedData")) \
+        .load_all()["x"]
+    spec, params = load_encog_nn(os.path.join(card, "export", "reference",
+                                              "model0.nn"))
+    got = IndependentNNModel(spec, params).compute(x, device="cuda")
+    want = load_any(os.path.join(card, "models", "model0.nn")).compute(
+        x, device="cuda")
+    nn_err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.allclose(got, want, rtol=SPEC_RTOL,
+                                                  atol=SPEC_ATOL):
+        fail(f"Encog round trip of the NN differs by {nn_err}")
+    sels = {}
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    try:
+        for dev in ("cuda", "cpu"):
+            r = os.path.join(root, f"recursive_{dev}")
+            shutil.copytree(d, r)
+            set_train_params(r, dict(RECURSIVE_NN))
+            set_train_conf(r, algorithm=Algorithm.NN,
+                           numTrainEpochs=RECURSIVE_EPOCHS)
+            path = os.path.join(r, "ModelConfig.json")
+            mc = ModelConfig.load(path)
+            mc.varSelect.filterBy = FilterBy.SE
+            mc.varSelect.filterNum = RECURSIVE_KEEP
+            mc.save(path)
+            walls[f"recursive_{dev}"] = cli_ok(
+                r, "varselect", "-recursive", "2", "--device", dev)
+            sels[dev] = []
+            for i in range(3):
+                with open(os.path.join(r, "varsels",
+                                       f"ColumnConfig.json.{i}")) as f:
+                    sels[dev].append(sorted(
+                        c["columnName"] for c in json.load(f)
+                        if c.get("finalSelect")))
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+    if sels["cuda"] != sels["cpu"] or \
+            [len(s) for s in sels["cuda"][1:]] != [RECURSIVE_KEEP] * 2:
+        fail(f"varselect -recursive 2: card {sels['cuda'][1:]} vs CPU "
+             f"{sels['cpu'][1:]}")
+    wall = time.perf_counter() - t_phase
+    log(f"aux (NN): export {walls['export']:.3f} s, Encog round trip on "
+        f"the card within {nn_err:.3g}; varselect -recursive 2 "
+        f"{walls['recursive_cuda']:.3f} s on the card, "
+        f"{walls['recursive_cpu']:.3f} s on the CPU, rounds select "
+        f"{sels['cuda'][1:]}; phase {wall:.1f} s — [{gpu}]")
+    return {"walls_s": walls, "wall_s": wall, "encog_err": nn_err,
+            "recursive": sels["cuda"][1:]}
+
+
+def genetic_set(root: str, name: str, src: str, plane: str, device: str,
+                params: dict, *props: str) -> tuple:
+    """``varsel_set`` with ``filterBy GENETIC``, ``filterNum``
+    GENETIC_KEEP and wrapper ``params``.  Returns (genetic.json, selected
+    names, the genetic phase's s from ``tmp/profile.json``)."""
+    d = varsel_set(root, name, src, plane, np.random.default_rng(0), device,
+                   "GENETIC", GENETIC_KEEP, params, props)
+    with open(os.path.join(d, "varsels", "genetic.json")) as f:
+        doc = json.load(f)
+    with open(os.path.join(d, "ColumnConfig.json")) as f:
+        sel = sorted(c["columnName"] for c in json.load(f)
+                     if c.get("finalSelect"))
+    with open(os.path.join(d, "tmp", "profile.json")) as f:
+        secs = json.load(f)["VARSELECT"]["phases_s"]["genetic"]
+    return doc, sel, secs
+
+
+def genetic_phase(torch, root: str, nn_dir: str, cut_plane: str,
+                  gpu: str) -> dict:
+    """``varselect`` with ``filterBy GENETIC`` through the CLI on the card
+    over ``nn_phase``'s 1,048,576 x 256 plane (resident: the population's
+    16 nets train as one stacked run, full batch), the reference's
+    default WrapperSettings and filterNum GENETIC_KEEP: the wall and
+    epochs a second.  Then on the plane's first CUT_ROWS rows (fewer
+    epochs and generations, GENETIC_CUT) resident and streamed in windows
+    of GENETIC_WINDOW, each on the card and on the CPU: the same
+    ``genetic.json`` credit ranking and selection."""
+    from shifu_tpu_torch.train.dvarsel import WrapperSettings
+    defaults = WrapperSettings()
+    t0 = time.perf_counter()
+    doc, sel, secs = genetic_set(root, "gen_full", nn_dir, os.path.join(
+        nn_dir, "tmp", "NormalizedData"), "cuda", {})
+    wall = time.perf_counter() - t0
+    epochs = defaults.generations * defaults.epochs
+    if len(sel) != GENETIC_KEEP or len(doc["history"]) != \
+            defaults.generations or len(doc["credit"]) != N_COLS:
+        fail(f"GENETIC selected {len(sel)}, history "
+             f"{len(doc['history'])}, credit {len(doc['credit'])}")
+    cut, cut_walls = {}, {}
+    window = f"-Dshifu.train.windowRows={GENETIC_WINDOW}"
+    for mode, props in (("resident", ()), ("streamed", (
+            "-Dshifu.train.streaming=on", window))):
+        for dev in ("cuda", "cpu"):
+            t1 = time.perf_counter()
+            cut[mode, dev] = genetic_set(root, f"gen_{mode}_{dev}", nn_dir,
+                                         cut_plane, dev, GENETIC_CUT,
+                                         *props)
+            cut_walls[f"{mode}_{dev}"] = time.perf_counter() - t1
+        (g, gs, _), (c, cs, _) = cut[mode, "cuda"], cut[mode, "cpu"]
+        if list(g["credit"]) != list(c["credit"]) or gs != cs:
+            fail(f"GENETIC {mode} card vs CPU: ranking equal "
+                 f"{list(g['credit']) == list(c['credit'])}, selection "
+                 f"equal {gs == cs}")
+        fit = max(abs(a["best"] - b["best"]) / abs(b["best"])
+                  for a, b in zip(g["history"], c["history"]))
+        cut_walls[f"{mode}_fitness_rel"] = fit
+    overlap = len(set(cut["resident", "cuda"][1])
+                  & set(cut["streamed", "cuda"][1]))
+    log(f"GENETIC varselect on {TRAIN_ROWS} x {N_COLS}: {wall:.3f} s "
+        f"through the CLI on the card, search {secs:.3f} s "
+        f"({epochs / secs:.1f} epochs/s of {defaults.population} stacked "
+        f"nets), best fitness {doc['history'][-1]['best']:.6f}; on "
+        f"{CUT_ROWS} rows card = CPU for resident and streamed (windows "
+        f"of {GENETIC_WINDOW}) ({ {k: round(v, 6) for k, v in cut_walls.items()} }); "
+        f"resident and streamed selections share {overlap} of "
+        f"{GENETIC_KEEP} — [{gpu}]")
+    return {"wall_s": wall, "search_s": secs, "epochs_per_s": epochs / secs,
+            "cut_walls_s": cut_walls, "overlap": overlap}
 
 
 # --------------------------------------------------------- phase: members
@@ -4094,6 +4567,7 @@ def main() -> None:
         stream = stream_phase(torch, root, serve_root, plan,
                               np.random.default_rng([args.seed, 5]), plane,
                               gpu)
+        rf_cut_bins = plane[0][:CUT_ROWS].copy()     # aux_tree_phase's RF walk
         del plane
         nn_walls = {}
         t0 = time.perf_counter()
@@ -4112,6 +4586,10 @@ def main() -> None:
             np.random.default_rng([args.seed, 7]), gpu)
         nn_walls["varselect_phase"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        genetic = genetic_phase(torch, root, os.path.dirname(nn["models_dir"]),
+                                os.path.join(root, "nn_cut_plane"), gpu)
+        nn_walls["genetic_phase"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         nn_served = nn_serve_phase(torch, tq, root, serve_root,
                                    nn.pop("models_dir"), plan,
                                    np.random.default_rng([args.seed, 4]))
@@ -4122,10 +4600,14 @@ def main() -> None:
                                     e2e.pop("bins"), gpu)
         cache_walls = raw_cache_phase(stats["dir"], gpu)
         post = posttrain_phase(torch, tq, stats["dir"], gpu)
+        aux = aux_tree_phase(torch, tq, root, stats["dir"], stats["csv"],
+                             os.path.join(root, "rf"), rf_cut_bins, gpu)
         mc_cli = multiclass_cli_phase(torch, tq, root, stats["csv"], gpu)
         t0 = time.perf_counter()
         e2e_nn = e2e_nn_phase(torch, stats["dir"], stats["csv"], gpu)
         nn_walls["e2e_nn_phase"] = time.perf_counter() - t0
+        aux_nn = aux_nn_phase(torch, root, stats["dir"], gpu)
+        nn_walls["aux_nn_phase"] = aux_nn["wall_s"]
     resident = resident_phase(torch, args.seed)
     times = time_kernels(torch, tq, rng, gpu)
     hist_times = time_hist(torch, rng, gpu)
@@ -4162,6 +4644,10 @@ def main() -> None:
         "multiclass_eval_launches": {alg: mc_cli[alg]["eval_launches"]
                                      for alg in ("RF", "GBT")},
         "posttrain_launches": post["launches_cuda"],
+        "encode_launches": aux["encode_launches"],
+        "export_roundtrip_launches": aux["roundtrip"]["launches"],
+        "combo_eval_launches": aux["combo"]["eval_launches"],
+        "rf_encode_launches": aux["rf_encode"]["launches"],
         "stream_replay_launches":
             stream["b"]["replay_launches"]["tree_traverse"],
         f"node_index_walk_at_{MC_WALK_ROWS}_rows": multi["walk"],
@@ -4169,6 +4655,7 @@ def main() -> None:
         "name": "hist", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/hist.cu",
         "leaf_sum_launches": trained["launches"]["leaf_sums"],
+        "combo_launches": aux["combo"]["hist_launches"],
         "rf_launches": forest["launches"]["hist"],
         "rf_leaf_sum_launches": forest["launches"]["leaf_sums"],
         "bagging_launches": bagging["bagging"]["launches"]["hist"],
@@ -4298,7 +4785,8 @@ def main() -> None:
         f"{100 * ns['e'].get('busy_share', float('nan')):.1f}%; card vs CPU "
         f"errors within {ns['d']['err_rel']:.3g}; varselect SE "
         f"{varsel['wall_s']:.3f} s on {TRAIN_ROWS} rows, card vs CPU SE "
-        f"within {varsel['se_diff']:.3g} — [{gpu}]")
+        f"within {varsel['se_diff']:.3g}; GENETIC {genetic['wall_s']:.3f} s"
+        f" ({genetic['epochs_per_s']:.1f} epochs/s) — [{gpu}]")
     log(f"members: bagged GBT {bagging['member_ms']:.3f} ms a member tree "
         f"against {bagging['single_ms']:.3f} ms a single forest's tree; "
         f"native multi-class RF train {multi['rf']['wall_s']:.3f} s, "

@@ -1,27 +1,40 @@
 """shifu-tpu-torch CLI — the port's counterpart of ``shifu_tpu.cli``.
 
-The port carries the ``new``, ``init``, ``stats``, ``norm``,
-``varselect``, ``train``, ``posttrain``, ``eval`` and ``serve`` commands:
+The port carries every model-set command of the reference but
+``monitor``, ``refresh`` and ``lint`` (ROADMAP Queue 1 items 12 and 13):
 the offline path ``new → init → stats → norm → varselect → train →
-posttrain → eval`` of a GBT/RF/DT/NN/LR model set, and serving.
-``-Dkey=value`` properties go to the Environment tier as in the
-reference; ``--device`` picks where the port runs (default ``cuda``;
-``cpu`` runs the plain PyTorch versions).  ``new``, ``init`` and ``norm``
-run on the host (norm's transform is numpy, as the reference's is), and
-so do eval's ``-new``, ``-delete``, ``-list`` and ``-norm``; eval's and
-posttrain's scoring walks the forests with the ``tree_traverse`` kernel
-on the card, and varselect's SE/ST runs the trained net there.
+posttrain → eval`` of a GBT/RF/DT/NN/LR model set, serving, and the
+commands around it — ``export``, ``encode``, ``combo``, ``convert``,
+``analysis -fi``, ``test`` and the version commands ``save``,
+``switch``, ``history``, ``show``, ``delete`` and ``cp``.  ``-Dkey=value``
+properties go to the Environment tier as in the reference; ``--device``
+picks where a step that computes runs (default ``cuda``; ``cpu`` runs the
+plain PyTorch versions).  ``new``, ``init``, ``norm``, ``export``,
+``convert``, ``analysis``, ``test`` and the version commands run on the
+host, and so do eval's ``-new``, ``-delete``, ``-list`` and ``-norm``;
+eval's, posttrain's, encode's and combo's scoring walks the forests with
+the ``tree_traverse`` kernel on the card (encode: its node-index walk,
+one launch a chunk), and varselect's SE/ST, GENETIC and ``-recursive``
+train or run nets there.
 
     python -m shifu_tpu_torch.cli --dir <base> new <name>
     python -m shifu_tpu_torch.cli --dir <modelset> init [-model]
     python -m shifu_tpu_torch.cli --dir <modelset> stats [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> norm [-shuffle]
-    python -m shifu_tpu_torch.cli --dir <modelset> varselect [-list|-reset|-recover|-autofilter|-recoverauto] [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> varselect [-list|-reset|-recover|-autofilter|-recoverauto|-recursive N] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> train [-resume] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> posttrain [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> eval -new <evalset>
     python -m shifu_tpu_torch.cli --dir <modelset> eval [-run [<evalset>]] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> eval -score [<evalset>] [-nosort]
+    python -m shifu_tpu_torch.cli --dir <modelset> export [pmml|baggingpmml|bagging|columnstats|woemapping|corr|spec] [-c]
+    python -m shifu_tpu_torch.cli --dir <modelset> encode [-evalset <evalset>] [-ref <dir>] [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> combo new -alg LR:GBT
+    python -m shifu_tpu_torch.cli --dir <modelset> combo init|run|eval [-resume] [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> convert [-tozipb|-tob]
+    python -m shifu_tpu_torch.cli --dir <modelset> analysis -fi <model file>
+    python -m shifu_tpu_torch.cli --dir <modelset> test [-filter [<evalset>]]
+    python -m shifu_tpu_torch.cli --dir <modelset> save [<name>] | switch <name> | history | show | delete <name> | cp <dir>
     python -m shifu_tpu_torch.cli --dir <modelset> serve [--port N]
     python -m shifu_tpu_torch.cli --dir <modelset> serve --selfcheck 4 --device cpu
 """
@@ -52,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shifu-tpu-torch",
         description="PyTorch/CUDA port of shifu-tpu (new, init, stats, "
-        "norm, varselect, GBT/RF/DT/NN/LR train, posttrain, eval, serve)")
+        "norm, varselect, GBT/RF/DT/NN/LR train, posttrain, eval, export, "
+        "encode, combo, convert, analysis, test, version commands, "
+        "serve)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
@@ -78,14 +93,15 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("varselect", aliases=["varsel"],
                         help="variable selection (KS/IV/MIX/PARETO/FI from "
-                        "the stats, SE/ST sensitivity of the trained net "
-                        "on the device)")
+                        "the stats; SE/ST sensitivity of the trained net "
+                        "and the GENETIC wrapper search on the device)")
     sp.add_argument("-list", dest="list", action="store_true")
     sp.add_argument("-reset", dest="reset", action="store_true")
     sp.add_argument("-recover", dest="recover", action="store_true")
     sp.add_argument("-recursive", dest="recursive", type=int, default=1,
-                    metavar="N", help="SE/ST wrapper rounds (N > 1 is not "
-                    "ported yet)")
+                    metavar="N", help="SE/ST wrapper rounds: each round "
+                    "re-norms + retrains on the current selection, then "
+                    "re-scores sensitivity")
     sp.add_argument("-autofilter", dest="autofilter", action="store_true",
                     help="apply only the missing-rate/KS/IV/correlation "
                     "auto filter to the current selection")
@@ -132,6 +148,72 @@ def build_parser() -> argparse.ArgumentParser:
                     nargs="?", const=8, default=0, metavar="N",
                     help="score N synthetic rows in-process and exit")
     _device_arg(sp)
+
+    sp = sub.add_parser("export", help="export the models and stats "
+                        "(pmml|baggingpmml|bagging|columnstats|woemapping|"
+                        "woe|corr|spec), on the host")
+    sp.add_argument("type_pos", nargs="?", default=None, metavar="TYPE",
+                    help="same as -t (`export pmml`)")
+    sp.add_argument("-t", "--type", default="pmml")
+    sp.add_argument("-c", dest="concise", action="store_true",
+                    help="concise PMML: trim per-bin stats extensions "
+                    "(reference `export -c`)")
+
+    sp = sub.add_parser("encode", help="encode a dataset by the tree-leaf "
+                        "index of every tree (the forest walks on the "
+                        "device)")
+    sp.add_argument("-evalset", dest="evalset", default=None)
+    sp.add_argument("-ref", dest="ref_model", default=None, metavar="DIR",
+                    help="encode with the tree model of another model-set "
+                    "dir (reference ENCODE_REF_MODEL)")
+    _device_arg(sp)
+
+    sp = sub.add_parser("combo", help="multi-algorithm ensemble (members "
+                        "train and score on the device)")
+    sp.add_argument("action", choices=["new", "init", "run", "eval"])
+    sp.add_argument("-resume", dest="resume", action="store_true",
+                    help="skip members already trained")
+    sp.add_argument("-alg", dest="algs", default=None,
+                    help="colon-separated list, e.g. NN:GBT:LR")
+    _device_arg(sp)
+
+    sp = sub.add_parser("convert", help="convert model files npz <-> "
+                        "JSON, on the host")
+    sp.add_argument("-tozipb", dest="tozipb", action="store_true")
+    sp.add_argument("-tob", "-totreeb", dest="tob", action="store_true",
+                    help="(reference TO_TREEB)")
+
+    sp = sub.add_parser("analysis", help="model spec analysis (-fi MODEL: "
+                        "tree feature importance, on the host)")
+    sp.add_argument("-fi", dest="fi_model", metavar="MODELPATH")
+    sp.add_argument("-telemetry", "--telemetry", dest="telemetry_report",
+                    action="store_true",
+                    help="not ported (ROADMAP Queue 1 item 13)")
+    sp.add_argument("-timeline", "--timeline", dest="timeline_out",
+                    metavar="OUT.json", default=None,
+                    help="not ported (ROADMAP Queue 1 item 13)")
+    sp.add_argument("-utilization", "--utilization", dest="utilization",
+                    action="store_true",
+                    help="not ported (ROADMAP Queue 1 item 13)")
+
+    sp = sub.add_parser("test", help="pipeline smoke test on a data "
+                        "sample, on the host")
+    sp.add_argument("-filter", dest="filter_target", nargs="?", const="",
+                    default=None, metavar="EVALSET",
+                    help="no value = training set, '*' = all sets, a name "
+                    "= that eval set")
+
+    sp = sub.add_parser("save", help="snapshot model-set version")
+    sp.add_argument("name", nargs="?", default=None)
+    sp = sub.add_parser("switch", help="restore a saved model-set version")
+    sp.add_argument("name")
+    sub.add_parser("history", help="list saved model-set versions")
+    sub.add_parser("show", help="print the current model-set version")
+    sp = sub.add_parser("delete", help="delete a saved model-set version")
+    sp.add_argument("name")
+    sp = sub.add_parser("cp", help="clone this model set's configs into a "
+                        "new scaffold dir")
+    sp.add_argument("dest")
 
     tp = sub.add_parser("train", help="train the model set from the "
                         "norm step's planes (resident GBT, RF and DT from "
@@ -201,7 +283,58 @@ def main(argv: Optional[List[str]] = None) -> int:
         return TrainProcessor(args.dir, params={"resume": args.resume,
                                                 "shuffle": args.shuffle},
                               device=args.device).run()
-    raise ValueError(f"unknown command {args.command!r}")
+    return _aux_command(args)
+
+
+def _aux_command(args) -> int:
+    """The commands around the offline path: export, encode, combo,
+    convert, analysis, test and the version commands."""
+    cmd = args.command
+    if cmd == "export":
+        from .pipeline.export import ExportProcessor
+        if args.type_pos:
+            args.type = args.type_pos
+        return ExportProcessor(args.dir, params={
+            "type": args.type, "concise": args.concise}).run()
+    if cmd == "encode":
+        from .pipeline.encode import EncodeProcessor
+        return EncodeProcessor(args.dir, params={
+            "evalset": args.evalset, "ref_model": args.ref_model},
+            device=args.device).run()
+    if cmd == "combo":
+        from .pipeline.combo import run_combo
+        return run_combo(args.dir, args.action, args.algs,
+                         resume=args.resume, device=args.device)
+    if cmd == "convert":
+        from .pipeline.convert import run_convert
+        return run_convert(args.dir, {"tozipb": args.tozipb,
+                                      "tob": args.tob})
+    if cmd == "analysis":
+        if args.telemetry_report or args.timeline_out or args.utilization:
+            raise NotImplementedError(
+                "analysis --telemetry/--timeline/--utilization render the "
+                "reference's telemetry, which shifu_tpu_torch does not "
+                "record yet (ROADMAP Queue 1 item 13)")
+        from .pipeline.analysis import analyze_model_fi
+        return analyze_model_fi(args.fi_model)
+    if cmd == "test":
+        from .pipeline.smoke import SmokeTestProcessor
+        return SmokeTestProcessor(args.dir, params={
+            "filter_target": args.filter_target}).run()
+    from .pipeline import manage
+    if cmd == "save":
+        return manage.save_version(args.dir, args.name)
+    if cmd == "switch":
+        return manage.switch_version(args.dir, args.name)
+    if cmd == "history":
+        return manage.show_history(args.dir)
+    if cmd == "show":
+        return manage.show_current(args.dir)
+    if cmd == "delete":
+        return manage.delete_version(args.dir, args.name)
+    if cmd == "cp":
+        return manage.copy_model_set(args.dir, args.dest)
+    raise ValueError(f"unknown command {cmd!r}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """PathFinder — where each step reads and writes inside a model-set
 directory; the port's copy of the paths ``shifu_tpu.config.path_finder``
-gives the init, stats, norm, varselect, train, posttrain and eval steps (reference
-``fs/PathFinder.java``), so both packages read and write the same
-files."""
+gives the init, stats, norm, varselect, train, posttrain, eval and export
+steps (reference ``fs/PathFinder.java``), so both packages read and write
+the same files."""
 
 from __future__ import annotations
 
@@ -130,6 +130,15 @@ class PathFinder:
     @property
     def feature_importance_path(self) -> str:
         return os.path.join(self.post_train_dir, "featureImportance.csv")
+
+    # -------------------------------------------------------------- export
+    @property
+    def export_dir(self) -> str:
+        return os.path.join(self.root, "export")
+
+    def pmml_path(self, index: int) -> str:
+        return os.path.join(self.export_dir,
+                            f"{self.model_config.basic.name}{index}.pmml")
 
     @property
     def backup_dir(self) -> str:

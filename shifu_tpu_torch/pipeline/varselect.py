@@ -14,12 +14,16 @@ and the sensitivity MR job of ``core/varselect/``).
 - The auto filter: missing rate, minimum KS and IV, and correlation
   pruning from an existing ``correlation.csv`` (skipped with a warning
   when it is absent, as the reference does).
+- ``filterBy GENETIC``: the wrapper search of ``train/dvarsel.py`` over
+  the norm plane (resident, or streamed past the memory budget), its
+  candidates' nets trained on the step's device; the credit ranking goes
+  to ``varsels/genetic.json``.
+- ``-recursive N`` (SE/ST only): each round runs ``norm`` and ``train``
+  on the current selection, selects again against the fresh model and
+  snapshots ``varsels/ColumnConfig.json.{i}`` and ``se.{i}.json``.
 - The force-select and force-remove name files (NSColumn matching),
   ``filterNum`` and ``filterOutRatio``; ``-list``, ``-reset``,
   ``-recover``, ``-autofilter``, ``-recoverauto`` and the varsel history.
-
-``filterBy GENETIC`` (``train/dvarsel.py``) and ``-recursive N > 1``
-raise "not yet ported" (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ import numpy as np
 from ..config import ColumnConfig
 from ..config.model_config import FilterBy
 from ..config.validator import ModelStep, ValidationError
-from ..train.dt_trainer import _not_ported
 from .processor import BasicProcessor
 
 log = logging.getLogger(__name__)
@@ -197,10 +200,55 @@ class VarSelectProcessor(BasicProcessor):
                  f"(train.algorithm is {alg}) — use SE/ST for NN/LR"])
 
     def _select(self) -> int:
+        vs = self.model_config.varSelect
         self._check_filterby_algorithm()
-        if int(self.params.get("recursive") or 1) > 1:
-            raise _not_ported("varselect -recursive (SE/ST wrapper "
-                              "rounds)", "item 9")
+        rounds = int(self.params.get("recursive") or 1)
+        if rounds > 1:
+            if vs.filterBy not in (FilterBy.SE, FilterBy.ST):
+                log.error("varselect -recursive needs filterBy SE/ST "
+                          "(wrapper re-scoring); got %s", vs.filterBy.name)
+                return 1
+            return self._recursive_select(rounds)
+        return self._select_once()
+
+    def _recursive_select(self, rounds: int) -> int:
+        """SE/ST wrapper recursion (reference
+        ``VarSelectModelProcessor.java:201-227``): each round re-norms and
+        retrains on the current selection, re-scores sensitivity against
+        the fresh model, re-selects, and snapshots ``ColumnConfig.json.{i}``
+        and ``se.{i}.json`` into varsels/."""
+        from .norm import NormalizeProcessor
+        from .train import TrainProcessor
+        os.makedirs(self.paths.varsel_dir, exist_ok=True)
+        self._snapshot_round(0)
+        for i in range(rounds):
+            self.save_column_configs()   # current selection feeds norm/train
+            for proc in (NormalizeProcessor(self.dir, {}),
+                         TrainProcessor(self.dir, {}, device=self.device)):
+                rc = proc.run()
+                if rc != 0:
+                    log.error("recursive varselect round %d: %s failed "
+                              "(rc=%d)", i + 1, type(proc).__name__, rc)
+                    return rc
+            rc = self._select_once()
+            if rc != 0:
+                return rc
+            self._snapshot_round(i + 1)
+            se_src = os.path.join(self.paths.varsel_dir, "se.json")
+            if os.path.isfile(se_src):
+                _atomic_copy(se_src, os.path.join(self.paths.varsel_dir,
+                                                  f"se.{i}.json"))
+            log.info("recursive varselect round %d/%d: %d selected",
+                     i + 1, rounds, len(self._selected()))
+        return 0
+
+    def _snapshot_round(self, i: int) -> None:
+        src = self.paths.column_config_path
+        if os.path.isfile(src):
+            _atomic_copy(src, os.path.join(self.paths.varsel_dir,
+                                           f"ColumnConfig.json.{i}"))
+
+    def _select_once(self) -> int:
         vs = self.model_config.varSelect
         self._push_history()
         self._apply_force_files(vs)
@@ -224,8 +272,7 @@ class VarSelectProcessor(BasicProcessor):
         if fb in (FilterBy.SE, FilterBy.ST):
             scores = self._sensitivity_scores(candidates, fb)
         elif fb == FilterBy.GENETIC:
-            raise _not_ported("varselect filterBy GENETIC (the dvarsel "
-                              "wrapper search)", "item 9")
+            scores = self._genetic_scores(candidates, vs)
         elif fb == FilterBy.FI:
             scores = self._fi_scores(candidates)
         elif fb == FilterBy.IV:
@@ -395,6 +442,62 @@ class VarSelectProcessor(BasicProcessor):
         return sens.streamed_sensitivity(stream, spec, params, masks,
                                          mask_batch=B, device=self.device)
 
+    def _genetic_scores(self, candidates: List[ColumnConfig],
+                        vs) -> Dict[int, float]:
+        """The dvarsel wrapper search over the norm plane: resident, or
+        streamed in windows when the plane is past the memory budget
+        (``should_stream``); the population's nets train on the step's
+        device.  Writes ``varsels/genetic.json``."""
+        from ..data.shards import Shards
+        from ..data.streaming import (ShardStream, should_stream,
+                                      stream_window_rows)
+        from ..ioutil import atomic_write_json
+        from ..train.dvarsel import (WrapperSettings, genetic_varselect,
+                                     genetic_varselect_streamed)
+
+        shards = Shards.open(self.paths.norm_dir)
+        names = shards.schema["outputNames"]
+        blocks = {cn: idx for cn, idx in
+                  _column_blocks(names, candidates).items() if idx}
+        if not blocks:
+            raise RuntimeError("genetic varselect: no candidate feature "
+                               "blocks in the normalized plane — run `norm`")
+        settings = WrapperSettings.from_params(
+            vs.params, n_select=min(vs.filterNum, len(blocks)),
+            valid_rate=self.model_config.train.validSetRate)
+        if should_stream(shards):
+            window_rows = stream_window_rows(4 * (len(names) + 2), 1,
+                                             shards)
+            stream = ShardStream(shards, ("x", "y", "w"), window_rows)
+            log.info("genetic varselect STREAMED: window %d rows, "
+                     "population %d", window_rows, settings.population)
+            t0 = time.perf_counter()
+            with self.phase("genetic"):
+                scores, history = genetic_varselect_streamed(
+                    stream, blocks, settings, device=self.device)
+        else:
+            data = shards.load_all()
+            t0 = time.perf_counter()
+            with self.phase("genetic"):
+                scores, history = genetic_varselect(
+                    data["x"], data["y"], data["w"], blocks, settings,
+                    device=self.device)
+        dt = max(time.perf_counter() - t0, 1e-9)
+        epochs = settings.generations * settings.epochs
+        log.info("genetic varselect on %s: %d generations x %d candidates "
+                 "in %.2fs (%.1f epochs/s)", self.device,
+                 settings.generations, settings.population, dt, epochs / dt)
+        os.makedirs(self.paths.varsel_dir, exist_ok=True)
+        atomic_write_json(
+            os.path.join(self.paths.varsel_dir, "genetic.json"),
+            {"history": history,
+             "credit": {str(k): v for k, v in sorted(
+                 scores.items(), key=lambda kv: -kv[1])}})
+        # columns with no feature block rank last
+        for c in candidates:
+            scores.setdefault(c.columnNum, -1.0)
+        return scores
+
     def _fi_scores(self, candidates: List[ColumnConfig]) -> Dict[int, float]:
         """FI: ``posttrain``'s featureImportance.csv."""
         fi_path = self.paths.feature_importance_path
@@ -438,6 +541,13 @@ def _scores_from_mse(candidates: List[ColumnConfig],
         scores[cn] = (float(m) - base_mse) if fb == FilterBy.SE \
             else (float(m) - base_mse) / max(base_mse, 1e-12)
     return scores
+
+
+def _atomic_copy(src: str, dst: str) -> None:
+    """Whole-or-nothing snapshot copy."""
+    from ..ioutil import atomic_write_bytes
+    with open(src, "rb") as f:
+        atomic_write_bytes(dst, f.read())
 
 
 def _rank_of(scores: Dict[int, float]) -> Dict[int, int]:

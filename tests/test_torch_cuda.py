@@ -10,7 +10,9 @@ the card against the CPU, with its ``tree_traverse`` launch count; and
 the NN trainer's stacked step on the card against the CPU, with one host
 sync an epoch (the ``[2, B]`` error fetch); the raw cache served on the
 card's path; the streamed NN trainer's epochs and the SE sensitivity job
-on the card against the CPU.
+on the card against the CPU; ``encode``'s node-index walk (one launch a
+call, never the plain walk) against ``traverse_nodes``, and the exported
+reference spec's host scores against the native forest on the card.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -1166,3 +1168,101 @@ def test_sensitivity_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert out[0][2] == out[1][2] == 3000
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-5)
     np.testing.assert_allclose(out[0][1], out[1][1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("depth,n_bins,dtype", [
+    (7, 64, np.uint8), (14, 64, np.uint8), (7, 300, np.int32)])
+def test_encode_node_index_walk_on_the_card_equals_traverse_nodes(
+        cuda, depth, n_bins, dtype):
+    """``encode``'s walk on the card (one ``tree_traverse`` launch a call
+    for the whole forest) gives ``traverse_nodes``' global node ids for
+    every tree; at depth 14 ids reach 32,766, exact in f32."""
+    from shifu_tpu_torch.models.tree import IndependentTreeModel, \
+        TreeModelSpec
+    from shifu_tpu_torch.ops.tree import TreeArrays, traverse_nodes
+    from shifu_tpu_torch.pipeline.encode import leaf_indices
+    sf, lm, lv = _forest(6, depth, n_bins, 19, seed=depth)
+    trees = [TreeArrays(sf[i], lm[i].astype(bool), lv[i], depth)
+             for i in range(len(sf))]
+    model = IndependentTreeModel(TreeModelSpec("RF", len(trees), depth,
+                                               n_bins), trees)
+    bins = np.random.default_rng(depth).integers(
+        0, n_bins, size=(65536, 19)).astype(dtype)
+    before = tq.predict_forest_quant.launches
+    got = leaf_indices(model, torch.from_numpy(bins).to(cuda))
+    torch.cuda.synchronize()
+    assert tq.predict_forest_quant.launches == before + 1
+    b = torch.from_numpy(bins.astype(np.int32))
+    want = torch.stack([traverse_nodes(torch.from_numpy(t.split_feat),
+                                       torch.from_numpy(t.left_mask), b,
+                                       depth) for t in trees])
+    assert torch.equal(got.cpu(), want)
+    if depth == 14:
+        assert int(want.max()) > 16384
+
+
+def test_encode_cuda_bins_never_reach_the_plain_walk(cuda, monkeypatch):
+    from shifu_tpu_torch.models.tree import IndependentTreeModel, \
+        TreeModelSpec
+    from shifu_tpu_torch.ops.tree import TreeArrays
+    from shifu_tpu_torch.pipeline import encode
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA bin plane reached the plain walk")
+    monkeypatch.setattr(encode, "traverse_nodes", refuse)
+    monkeypatch.setattr(tq, "predict_forest_quant_ref", refuse)
+    sf, lm, lv = _forest(3, 5, 32, 7, seed=1)
+    model = IndependentTreeModel(
+        TreeModelSpec("GBT", 3, 5, 32),
+        [TreeArrays(sf[i], lm[i].astype(bool), lv[i], 5) for i in range(3)])
+    bins = torch.randint(0, 32, (1000, 7), dtype=torch.uint8, device=cuda)
+    assert encode.leaf_indices(model, bins).shape == (3, 1000)
+
+
+def test_spec_round_trip_on_the_card_matches_the_host_scorer(cuda,
+                                                             fraud_set):
+    """``export -t spec``'s ``model0.gbt`` re-read by
+    ``load_reference_tree``: its float64 host scores equal the native
+    forest scored through ``tree_traverse`` on the card within rtol 1e-5
+    / atol 1e-6 on rows with every numeric present."""
+    import os
+
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config import ModelConfig, load_column_configs
+    from shifu_tpu_torch.data.reader import DataSource
+    from shifu_tpu_torch.data.transform import DatasetTransformer
+    from shifu_tpu_torch.models.reference_import import load_reference_tree
+    from shifu_tpu_torch.models.tree import IndependentTreeModel
+    assert cli.main(["--dir", fraud_set, "export", "-t", "spec"]) == 0
+    ref = load_reference_tree(os.path.join(fraud_set, "export",
+                                           "reference", "model0.gbt"))
+    native = IndependentTreeModel.load(os.path.join(fraud_set, "models",
+                                                    "model0.gbt"))
+    mc = ModelConfig.load(os.path.join(fraud_set, "ModelConfig.json"))
+    ccs = load_column_configs(os.path.join(fraud_set, "ColumnConfig.json"))
+    chunks = list(DataSource(mc.dataSet.dataPath,
+                             mc.dataSet.dataDelimiter).iter_chunks())
+    tf = DatasetTransformer(mc, ccs)
+    by_num = {cc.columnNum: cc for cc in ccs}
+    scores, host = [], []
+    for chunk in chunks:
+        tc = tf.transform(chunk)
+        before = tq.predict_forest_quant.launches
+        scores.append(native.compute(tc.bins, device=cuda)[:, 0])
+        assert tq.predict_forest_quant.launches == before + 1
+        raw, missing = {}, np.zeros(tc.n, bool)
+        for j, num in enumerate(native.spec.column_nums):
+            cc = by_num[num]
+            if cc.is_categorical():
+                raw[num] = tc.bins[:, j].astype(np.float64)
+            else:
+                v = np.array([float(x) if str(x).strip() not in ("", "NA")
+                              else np.nan for x in chunk.col(cc.columnName)])
+                raw[num] = v
+                missing |= ~np.isfinite(v)
+        host.append((1.0 / (1.0 + np.exp(-ref.compute(raw))), ~missing))
+    got = np.concatenate(scores)
+    want = np.concatenate([h for h, _ in host])
+    ok = np.concatenate([m for _, m in host])
+    assert ok.sum() > 1000
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-5, atol=1e-6)

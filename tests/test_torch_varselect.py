@@ -18,8 +18,8 @@ equals the resident per-column oracle within rtol 3e-5 (the reference's
 own bound, ``tests/test_varselect_stream.py``), a padded tail included.
 Also: ``-list``, ``-reset``, ``-recover``, ``-autofilter`` and
 ``-recoverauto`` round trips with the reference's history files, the
-filterBy-versus-algorithm check, and the parts that raise naming ROADMAP
-item 9 (``filterBy GENETIC``, ``-recursive``).
+filterBy-versus-algorithm check, and that ``filterBy GENETIC`` and
+``-recursive`` run (their parity is ``tests/test_torch_dvarsel.py``'s).
 """
 
 import json
@@ -286,7 +286,8 @@ def test_streamed_sensitivity_matches_the_per_column_oracle(tmp_path,
 
 def test_filterby_checks_and_unported_modes(prepared_set, nn_set, tmp_path):
     """SE on a tree set and FI on a net are refused as in the reference;
-    GENETIC and ``-recursive`` raise naming ROADMAP item 9."""
+    GENETIC runs and writes ``genetic.json``; ``-recursive`` on a KS set
+    is refused with the reference's return code."""
     from shifu_tpu_torch.config import ModelConfig
     from shifu_tpu_torch.config.model_config import Algorithm, FilterBy
     from shifu_tpu_torch.config.validator import ValidationError
@@ -298,12 +299,15 @@ def test_filterby_checks_and_unported_modes(prepared_set, nn_set, tmp_path):
         mc.save(path)
         with pytest.raises(ValidationError, match=f"filterBy {by}"):
             _port(prepared_set)
-    _, port = _pair(nn_set, tmp_path, filterBy="GENETIC")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        _port(port)
-    _, port = _pair(nn_set, tmp_path / "r", filterBy="SE")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        _port(port, recursive=2)
+    _, port = _pair(nn_set, tmp_path, filterBy="GENETIC", filterNum=3,
+                    params={"POPULATION_LIVE_SIZE": 4,
+                            "POPULATION_MULTIPLY_CNT": 2,
+                            "WrapperEpochs": 3})
+    assert _port(port) == 0
+    assert os.path.isfile(os.path.join(port, "varsels", "genetic.json"))
+    assert len(_selected(port)) == 3
+    ref, port = _pair(nn_set, tmp_path / "r", filterBy="KS")
+    assert _ref(ref, recursive=2) == _port(port, recursive=2) == 1
 
 
 @pytest.fixture(scope="module")

@@ -121,9 +121,9 @@ versions on one card.  Otherwise it
    (31 tail sweeps, 224 ``hist_batch`` launches), falling out-of-bag
    errors, the peak device memory; (d) the plane's first 65,536 rows in
    windows of 8,192 (6 resident): (a)'s GBT with coarse-to-fine on and
-   off and a 4-tree depth-7 RF, card and CPU with equal splits and
-   masks, leaves within 1e-5 relative (+1e-6), errors within 1e-5
-   relative, equal tail sweeps; (e) a streamed 3-bag GBT on the train
+   off and a 4-tree depth-7 RF on the card, the coarse-to-fine GBT also
+   on the CPU with equal splits and masks, leaves within 1e-5 relative
+   (+1e-6), errors within 1e-5 relative, equal tail sweeps; (e) a streamed 3-bag GBT on the train
    plane (windows of 131,072, 6 resident), member 1 bit-identical to its
    single ``train_gbt_streamed`` run; then ``hist_batch`` at the tail
    window's path shape (TB = 7, N = 524,288, K = 64) and ``hist`` over
@@ -216,7 +216,26 @@ versions on one card.  Otherwise it
    second, and on the plane's first 65,536 rows (20 epochs, 3
    generations) resident and streamed in windows of 8,192, each on
    ``cuda`` and ``cpu`` with the same ``genetic.json`` credit ranking and
-   selection;
+   selection.  Then the WDL and SVM slice (no hand kernel: ``F.embedding``
+   gathers, cuBLAS GEMMs and matvecs): (``wdl_phase``) a norm plane (f32)
+   and a clean plane (uint8 bins) of 1,048,576 x 256 from the same rows
+   of ``--seed``, the reference's WDL defaults (EmbedColumnNum 8, [64, 32]
+   relu, wide and deep, ADAM 0.002, L2 1e-5) with baggingNum 5 through
+   ``cli.main train`` on ``cuda``: (a) 5 full-batch epochs, falling
+   errors, ms an epoch; (b) one epoch at MiniBatchs 128, ms a step, the
+   step's kernel launches and the epoch's host syncs (one); (c)
+   ``-Dshifu.wdl.hashBuckets=32``, its bucket ids on the card equal to
+   the host's and its models served over HTTP on ``cuda`` against
+   ``cpu`` within 1e-2; (d) the first 65,536 rows, 2 bags, 3 epochs, on
+   ``cuda`` and ``cpu``, resident and streamed in windows of 8,192:
+   errors within 1e-4 relative, AUCs within 0.005; (e) 2 minibatch epochs then ``train
+   -resume`` to 4, bit-identical; (``svm_phase``) the rbf kernel SVM at
+   the 16,384-row cap x 256 through the CLI and its 2,000-iteration dual
+   solve timed alone, the dual on 2,048 rows on ``cuda`` and ``cpu``
+   (duals within 1e-4, decisions within 1e-3, support sets equal but
+   near the 1e-6 threshold), the linear SVM (hinge on the NN path) on
+   the 1,048,576 x 256 plane, and both served over HTTP on ``cuda``
+   against ``cpu``;
 8. drives the commands around the offline path through ``cli.main`` on
    the e2e set (``aux_tree_phase``, after ``posttrain_phase``; copies of
    the set, one run on ``cuda``, one with ``--device cpu``): (a)
@@ -240,7 +259,13 @@ versions on one card.  Otherwise it
    by ``load_encog_nn`` scoring as the native net on ``cuda``, and (e)
    ``varselect -recursive 2`` (SE, filterNum 3, a [16] tanh net of 30
    ADAM epochs) on ``cuda`` and ``cpu`` with equal
-   ``ColumnConfig.json.{0,1,2}`` selections;
+   ``ColumnConfig.json.{0,1,2}`` selections.  Then (``wdl_e2e_phase``,
+   ``svm_e2e_phase``) WDL and both SVMs trained on the e2e set's own
+   planes on ``cuda``, ``eval -run`` on ``cuda`` and ``cpu`` (AUCs within
+   0.005), the WDL set's ``export -t spec`` re-read by
+   ``load_reference_wdl`` scoring as the native model within rtol 1e-5,
+   and ``combo`` WDL:GBT as in (c) (80 ``hist``, one ``tree_traverse`` a
+   chunk);
 9. times each kernel (CUDA events, launches queued behind a spin kernel so
    the host cannot starve the card) beside its plain version, one PyTorch
    call that computes the same function where there is one, and its bound
@@ -348,6 +373,7 @@ STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
 STREAM_A0_TREES = 3                        # (a0): 13 s a tree
 STREAM_CUT_WINDOW, STREAM_CUT_RESIDENT = 8192, 6   # (d) on CUT_ROWS rows
 STREAM_CUT_RF_TREES = 4                    # (d)'s RF, depth DEPTH
+STREAM_CUT_CPU = ("gbt_c2f",)              # (d)'s cases also run on the CPU
 STREAM_LEAF_RTOL, STREAM_LEAF_ATOL = 1e-5, 1e-6    # (d) leaves, card/CPU
 STREAM_ERR_RTOL = 1e-5                     # (d) progress errors
 MEMBER_WINDOW, MEMBER_RESIDENT, MEMBER_BAGS = 1 << 17, 6, 3   # (e)
@@ -700,20 +726,17 @@ def serve_phase(torch, tq, root: str, plan, rng,
     for r in requests:              # the host half of each raw request
         scorer.transform.parse_records(r)
     parse_s = time.perf_counter() - t_parse
-    if scorer.needs_bins:
-        prebinned = [(np.zeros((n, 0), np.float32),
-                      rng.integers(0, N_BINS, size=(n, scorer.n_bins_cols)))
-                     for n in (5, 100)]
-    else:
-        prebinned = [(rng.normal(size=(n, scorer.n_features)).astype(
-            np.float32), None) for n in (5, 100)]
+    prebinned = [(rng.normal(size=(n, scorer.n_features)).astype(
+        np.float32), rng.integers(0, N_BINS, size=(n, scorer.n_bins_cols))
+        if scorer.needs_bins else None) for n in (5, 100)]
+    forests = bool(scorer.scorer.tree_models)
     try:
         batches_before = server.batcher.stats["batches"]
         tq.predict_forest_quant.launches = 0
         t1 = time.perf_counter()
         answers = [call("/score", {"records": r}) for r in requests]
         pre = [call("/score", {"rows": x.tolist()} if b is None else
-                    {"rows": [[] for _ in b], "bins": b.tolist()})
+                    {"rows": x.tolist(), "bins": b.tolist()})
                for x, b in prebinned]
         health = call("/healthz")
         wall = time.perf_counter() - t1
@@ -729,7 +752,7 @@ def serve_phase(torch, tq, root: str, plan, rng,
         f"tree_traverse launches; host record parsing alone takes "
         f"{parse_s:.3f} s of it ({sum(map(len, requests))} records x "
         f"{N_COLS} columns)")
-    if scorer.needs_bins and (launches < batches or launches == 0):
+    if forests and (launches < batches or launches == 0):
         fail(f"tree_traverse launched {launches} times for {batches} "
              "scored batches")
     if not (health["state"] == "serving" and health["accepts_raw"]
@@ -2317,13 +2340,14 @@ def posttrain_phase(torch, tq, d: str, gpu: str) -> dict:
 # ---------------------------------------------- phase: NN out of core
 class LogGrab:
     """The records of logger ``name`` that match ``pattern`` while it is
-    installed (the logger at INFO meanwhile)."""
+    installed (the logger at INFO meanwhile), and the host clock at
+    each."""
 
     def __init__(self, name: str, pattern: str):
         import logging
         self.pattern = re.compile(pattern)
         self.logger = logging.getLogger(name)
-        self.matches = []
+        self.matches, self.times = [], []
         outer = self
 
         class _H(logging.Handler):
@@ -2331,6 +2355,7 @@ class LogGrab:
                 m = outer.pattern.search(record.getMessage())
                 if m:
                     outer.matches.append(m.groups())
+                    outer.times.append(time.perf_counter())
         self.handler = _H()
 
     def __enter__(self):
@@ -2747,28 +2772,36 @@ def headed_cut(csv: str, rows: int) -> str:
     return path
 
 
-def combo_pair(root: str, d: str, csv: str) -> dict:
-    """``combo new -alg LR:GBT``, ``run`` and ``eval`` through the CLI on
-    the card and on the CPU, from copies of ``d`` whose training data and
-    one eval set are the CSV's first COMBO_ROWS rows (a cut in rows: each
-    member's ``norm`` and every eval parse the text): the GBT member's
-    ``hist`` launches (its 8 a tree) and the eval's ``tree_traverse``
-    launches (one a chunk) counted on the card, none on the CPU; member
-    and assembled AUCs within COMBO_AUC_TOL."""
+def combo_pair(root: str, d: str, csv: str, algs: str = "LR:GBT",
+               params=None, epochs=None) -> dict:
+    """``combo new -alg <algs>`` (a GBT and one other member), ``run`` and
+    ``eval`` through the CLI on the card and on the CPU, from copies of
+    ``d`` whose training data and one eval set are the CSV's first
+    COMBO_ROWS rows (a cut in rows: each member's ``norm`` and every eval
+    parse the text), with ``params`` / ``epochs`` as the copies'
+    train#params and numTrainEpochs where given: the GBT member's ``hist``
+    launches (its 8 a tree) and the eval's ``tree_traverse`` launches (one
+    a chunk) counted on the card, none on the CPU; member and assembled
+    AUCs within COMBO_AUC_TOL."""
     from shifu_tpu_torch.config import ModelConfig
     from shifu_tpu_torch.ops import tree_quant as tq
     out, walls, counts = {}, {}, {}
     cut = headed_cut(csv, COMBO_ROWS)
+    tag = algs.replace(":", "_")
     for dev in ("cuda", "cpu"):
-        p = os.path.join(root, f"combo_{dev}")
+        p = os.path.join(root, f"combo_{tag}_{dev}")
         shutil.copytree(d, p)
         path = os.path.join(p, "ModelConfig.json")
         mc = ModelConfig.load(path)
         for ds in (mc.dataSet, mc.evals[0].dataSet):
             ds.dataPath, ds.headerPath = cut, None
         mc.evals = mc.evals[:1]
+        if params is not None:
+            mc.train.params = dict(params)
+        if epochs is not None:
+            mc.train.numTrainEpochs = epochs
         mc.save(path)
-        cli_ok(p, "combo", "new", "-alg", "LR:GBT")
+        cli_ok(p, "combo", "new", "-alg", algs)
         zero_tree_counts()
         walls[f"run_{dev}"] = cli_ok(p, "combo", "run", "--device", dev)
         counts[f"run_{dev}"] = read_tree_counts()
@@ -2782,14 +2815,15 @@ def combo_pair(root: str, d: str, csv: str) -> dict:
     run_want = TRAIN_TREES * (DEPTH + 1)
     if counts["run_cuda"]["hist"] != run_want or counts["eval_cuda"] != \
             chunks or counts["eval_cpu"] or any(counts["run_cpu"].values()):
-        fail(f"combo launches {counts}: want {run_want} hist launches in "
+        fail(f"combo {algs} launches {counts}: want {run_want} hist "
+             "launches in "
              f"the card's run and {chunks} tree_traverse in its eval")
     aucs = [(g["areaUnderRoc"], c["areaUnderRoc"]) for g, c in zip(
         out["cuda"]["memberAuc"], out["cpu"]["memberAuc"])]
     aucs.append((out["cuda"]["areaUnderRoc"], out["cpu"]["areaUnderRoc"]))
     diff = max(abs(a - b) for a, b in aucs)
     if len(aucs) != 3 or diff > COMBO_AUC_TOL or aucs[-1][0] < 0.6:
-        fail(f"combo AUCs card vs CPU {aucs}")
+        fail(f"combo {algs} AUCs card vs CPU {aucs}")
     return {"walls_s": walls, "hist_launches": counts["run_cuda"]["hist"],
             "run_launches": counts["run_cuda"],
             "eval_launches": counts["eval_cuda"], "aucs": aucs,
@@ -3464,8 +3498,10 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
     """(d): the stream plane's first CUT_ROWS rows, windows of
     STREAM_CUT_WINDOW, a device cache that keeps STREAM_CUT_RESIDENT of
     them resident (GBT and RF alike); (a)'s GBT with coarse-to-fine on
-    and off, and a STREAM_CUT_RF_TREES-tree depth-7 RF, each on ``cuda``
-    and ``cpu``."""
+    and off, and a STREAM_CUT_RF_TREES-tree depth-7 RF, each on ``cuda``,
+    the STREAM_CUT_CPU cases also on ``cpu`` (the smoke's time limit cut
+    the others' CPU runs; ``tests/test_torch_tree_streaming.py`` holds
+    every regime to the reference on the CPU)."""
     cut = os.path.join(root, "stream_cut_plane")
     write_plane(cut, bins[:CUT_ROWS], y[:CUT_ROWS], w[:CUT_ROWS], names,
                 {"chip_smoke": "stream_cut"}, shard=STREAM_CUT_WINDOW * 3)
@@ -3483,7 +3519,7 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
     for name, alg, p, c2f in cases:
         props = dict(base) if c2f is None else dict(
             base, **{"shifu.tree.tailCoarseToFine": c2f})
-        for dev in ("cuda", "cpu"):
+        for dev in ("cuda", "cpu") if name in STREAM_CUT_CPU else ("cuda",):
             d = write_train_set(os.path.join(root, f"stream_cut_{name}_"
                                              f"{dev}"), serve_root, p, cut,
                                 alg)
@@ -3492,11 +3528,18 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
                               progress_errors(d))
     out = {}
     for name, alg, _, _ in cases:
-        (w_card, r_card, t_card, e_card), (w_cpu, r_cpu, t_cpu, e_cpu) = \
-            got[name, "cuda"], got[name, "cpu"]
+        w_card, r_card, t_card, e_card = got[name, "cuda"]
         if r_card["resident"] != STREAM_CUT_RESIDENT or \
                 r_card["windows"] != CUT_ROWS // STREAM_CUT_WINDOW:
             fail(f"(d) {name}: geometry {r_card}")
+        if name not in STREAM_CUT_CPU:
+            out[name] = {"wall_s": [w_card], "tail_sweeps":
+                         r_card["tail_sweeps"]}
+            log(f"stream (d) {name} on {CUT_ROWS} rows on the card: "
+                f"{r_card['tail_sweeps']} tail sweeps, wall {w_card:.2f} s "
+                f"— [{gpu}]")
+            continue
+        w_cpu, r_cpu, t_cpu, e_cpu = got[name, "cpu"]
         worst = 0.0
         for t, (a, b) in enumerate(zip(t_card, t_cpu)):
             if not (np.array_equal(a.split_feat, b.split_feat)
@@ -3521,9 +3564,9 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
             f"in splits and masks, leaves within {worst:.3g}, errors within "
             f"{rel.max():.3g} relative, tail sweeps {r_card['tail_sweeps']} "
             f"on both; wall {w_card:.2f} s card, {w_cpu:.2f} s CPU — [{gpu}]")
-    for dev in ("cuda", "cpu"):
-        if not forests_equal(got["gbt_c2f", dev][2], got["gbt_exact", dev][2]):
-            fail(f"(d) coarse-to-fine differs from exact on {dev}")
+    if not forests_equal(got["gbt_c2f", "cuda"][2],
+                         got["gbt_exact", "cuda"][2]):
+        fail("(d) coarse-to-fine differs from exact on the card")
     return out
 
 
@@ -3992,6 +4035,535 @@ def multiclass_cli_phase(torch, tq, root: str, csv: str,
     log(f"multi-class CLI: {CSV_ROWS} rows, classes {counts}; walls "
         f"{ {k: round(v, 3) for k, v in walls.items()} } — [{gpu}]")
     out["walls_s"] = walls
+    return out
+
+
+# ------------------------------------------------- phase: WDL and SVM
+WDL_BAGS, WDL_EPOCHS = 5, 5               # baggingNum as the NN's; full batch
+WDL_BATCH = 128                           # the reference's default MiniBatchs
+WDL_HASH_BUCKETS = 32                     # columns past 32 categories hash
+WDL_CUT_BAGS, WDL_CUT_EPOCHS = 2, 3       # card vs CPU on CUT_ROWS rows
+WDL_CUT_WINDOW = 8192                     # ... streamed in these windows
+WDL_RESUME = (2, 4, 1024)                 # epochs, then resumed to, batch
+WDL_ERR_RTOL, WDL_AUC_TOL = 1e-4, 0.005   # card vs CPU
+WDL_SCORE_TOL = 1e-2                      # served / evaluated, 0-1000
+WDL_E2E = {"MiniBatchs": 0, "LearningRate": 0.01}   # e2e set's WDL
+WDL_E2E_EPOCHS = 10
+WDL_PROFILE_STEPS = (20, 40)              # minibatch steps profiled
+WDL_PROFILE_ROWS = 1 << 18                # a full-batch epoch profiled
+SVM_CAP, SVM_ITERS, SVM_CUT = 16384, 2000, 2048
+SVM_GAMMA = 1.0 / N_COLS                  # the trainer's default Gamma
+SVM_ALPHA_TOL, SVM_F_TOL = 1e-4, 1e-3     # duals, decision values
+SVM_LINEAR = {"Kernel": "linear", "Const": 1.0, "Propagation": "ADAM",
+              "LearningRate": 0.01}
+SVM_LINEAR_EPOCHS = 10
+WDL_GBT_COMBO = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
+                 "LearningRate": 0.1, "MiniBatchs": 0}
+
+
+def wdl_set(root: str, name: str, serve_root: str, norm: str, clean: str,
+            params: dict, **train) -> str:
+    """A WDL model set over the dual planes: ``tmp/NormalizedData`` a link
+    to ``norm``, ``tmp/CleanedData`` to ``clean``."""
+    d = write_train_set(os.path.join(root, name), serve_root, params, norm,
+                        "WDL", plane_dir="NormalizedData")
+    os.symlink(clean, os.path.join(d, "tmp", "CleanedData"))
+    set_train_conf(d, **train)
+    return d
+
+
+def props_cli(d: str, device: str, props: dict, *extra: str) -> float:
+    """``train`` with ``-D`` properties, cleared again after the run."""
+    from shifu_tpu_torch.config import environment
+    try:
+        return train_cli(d, device, *[f"-D{k}={v}" for k, v in
+                                      props.items()], *extra)
+    finally:
+        for k in props:
+            environment.set_property(k, "")
+
+
+def wdl_members(d: str) -> list:
+    from shifu_tpu_torch.eval.scorer import discover_model_paths
+    from shifu_tpu_torch.models import load_any
+    return [load_any(p) for p in
+            discover_model_paths(os.path.join(d, "models"))]
+
+
+def train_phase_s(d: str) -> float:
+    """The ``train`` phase's seconds from ``tmp/profile.json``."""
+    with open(os.path.join(d, "tmp", "profile.json")) as f:
+        return float(json.load(f)["TRAIN"]["phases_s"]["train"])
+
+
+def wdl_step_profile(torch, x_num, x_cat, y, w, spec, gpu: str) -> dict:
+    """Kernel launches a minibatch step: ``torch.profiler`` over one epoch
+    of ``train_wdl_ensemble`` (WDL_BAGS members, batches of WDL_BATCH) at
+    two row counts; the difference over the steps' difference is one
+    step's launches, the epoch's error pass cancelling out.  Host syncs
+    an epoch: runs of 3 and 2 epochs under ``set_sync_debug_mode("warn")``
+    differ by them.  And where a full-batch epoch's device time goes: one
+    epoch over WDL_PROFILE_ROWS rows, profiled."""
+    import warnings
+
+    from shifu_tpu_torch.train.nn_trainer import TrainSettings
+    from shifu_tpu_torch.train.wdl_trainer import train_wdl_ensemble
+
+    def run(steps, epochs=1):
+        n = steps * WDL_BATCH
+        return train_wdl_ensemble(
+            x_num[:n], x_cat[:n], y[:n], w[:n], spec,
+            TrainSettings(optimizer="ADAM", learning_rate=0.002, l2=1e-5,
+                          epochs=epochs, batch_size=WDL_BATCH),
+            bags=WDL_BAGS, valid_rate=0.2, device="cuda")
+
+    launches = []
+    for steps in WDL_PROFILE_STEPS:
+        run(steps)                                   # warm: allocator
+        prof = profile_device(torch, lambda: run(steps),
+                              what=f"a {steps}-step WDL epoch")
+        if not prof:
+            return {}
+        launches.append(sum(n for _, n in prof["by_name"].values()))
+    per_step = (launches[1] - launches[0]) / (WDL_PROFILE_STEPS[1]
+                                              - WDL_PROFILE_STEPS[0])
+
+    def syncs(epochs):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                run(WDL_PROFILE_STEPS[0], epochs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(m.message) for m in seen)
+    per_epoch = syncs(3) - syncs(2)
+    if per_epoch != 1:
+        fail(f"a WDL minibatch epoch made {per_epoch} host syncs, not 1")
+    n = WDL_PROFILE_ROWS
+    full = TrainSettings(optimizer="ADAM", learning_rate=0.002, l2=1e-5,
+                         epochs=1, batch_size=0)
+    fb = profile_device(torch, lambda: train_wdl_ensemble(
+        x_num[:n], x_cat[:n], y[:n], w[:n], spec, full, bags=WDL_BAGS,
+        device="cuda"), what=f"a full-batch WDL epoch over {n} rows "
+        "(upload included)")
+    kern = {k: v for k, v in fb.get("by_name", {}).items()
+            if not k.startswith(("Memcpy", "Memset"))}
+    full_batch = {
+        "kernel_ms": sum(ms for ms, _ in kern.values()),
+        "gemm_ms": sum(ms for k, (ms, _) in kern.items()
+                       if "gemm" in k.lower() or "cutlass" in k.lower()),
+        "sort_ms": sum(ms for k, (ms, _) in kern.items()
+                       if "sort" in k.lower()),
+        "top": fb.get("top", [])}
+    log(f"WDL step ({WDL_BAGS} members, {WDL_BATCH} rows): {per_step:.1f} "
+        f"kernel launches a step; {per_epoch} host sync an epoch (the "
+        f"error fetch) — [{gpu}]")
+    log(f"WDL full-batch epoch over {n} rows: kernels "
+        f"{full_batch['kernel_ms']:.3f} ms, GEMMs {full_batch['gemm_ms']:.3f}"
+        f" ms, radix sorts (the embedding backward) "
+        f"{full_batch['sort_ms']:.3f} ms — [{gpu}]")
+    return {"launches_per_step": per_step, "host_syncs_per_epoch": per_epoch,
+            "launches_at_steps": dict(zip(WDL_PROFILE_STEPS, launches)),
+            "full_batch_profile": full_batch}
+
+
+def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
+              rows: int = TRAIN_ROWS, card: str = "cuda") -> dict:
+    """The WDL slice at full width through ``cli.main train``: a norm
+    plane (f32) and a clean plane (uint8 bins) of ``rows`` x N_COLS from
+    the same rows (``train_plane``'s bins, the numeric columns' floats a
+    function of their bins), the reference's defaults (EmbedColumnNum 8,
+    [64, 32] relu, wide and deep, ADAM 0.002, L2 1e-5) x WDL_BAGS bags:
+    (a) WDL_EPOCHS full-batch epochs, falling errors, ms an epoch; (b) one
+    epoch at MiniBatchs WDL_BATCH, ms an epoch and a step, and the step's
+    launches and the epoch's host syncs (``wdl_step_profile``); (c)
+    ``-Dshifu.wdl.hashBuckets=32`` (the columns past 32 categories hash),
+    its bucket ids on the card equal to the host's and its models served
+    over HTTP on the card against the CPU; (d) CUT_ROWS rows, WDL_CUT_BAGS
+    bags, on the card and on the CPU, resident and streamed in windows of
+    WDL_CUT_WINDOW: errors within WDL_ERR_RTOL, AUCs within WDL_AUC_TOL;
+    (e) WDL_RESUME:
+    minibatch epochs, then ``train -resume``, bit-identical."""
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.models import wdl as wdl_model
+    from shifu_tpu_torch.ops import tree_quant as tq
+    names = [p[1] for p in plan]
+    t0 = time.perf_counter()
+    bins, y, w, informative, _ = train_plane(rng, plan, rows)
+    x = (bins.astype(np.float32) - 31.5) / 18.5
+    norm, clean = (os.path.join(root, f"wdl_{k}") for k in ("norm", "clean"))
+    write_norm_plane(norm, x, y, w, names)
+    write_plane(clean, bins, y, w, names, {"chip_smoke": "wdl"})
+    out = {"plane_write_s": time.perf_counter() - t0}
+    log(f"WDL planes written in {out['plane_write_s']:.2f} s: {rows} rows "
+        f"x {N_COLS} columns, informative {informative.tolist()}")
+
+    # (a) full batch, WDL_BAGS bags
+    a = wdl_set(root, "wdl_a", serve_root, norm, clean, {"MiniBatchs": 0},
+                baggingNum=WDL_BAGS, numTrainEpochs=WDL_EPOCHS)
+    with LogGrab("shifu_tpu_torch.train.wdl_trainer", r"Epoch #(\d+)") \
+            as clock:
+        wall = train_cli(a, card)
+    errs = check_falling(a, "WDL (a)")
+    members = wdl_members(a)
+    if len(members) != WDL_BAGS or any(
+            type(m).__name__ != "IndependentWDLModel" for m in members):
+        fail(f"WDL (a) wrote {len(members)} models")
+    spec = members[0].spec
+    if spec.numeric_dim != N_NUM or len(spec.cat_cardinalities) != N_CAT \
+            or spec.embed_dim != 8 or spec.hidden_nodes != [64, 32]:
+        fail(f"WDL (a) spec {spec.to_json()[:300]}")
+    s = members[0].compute_full(x[:4096], bins[:4096], device=card)
+    if s.shape != (4096, 1) or not np.all(np.isfinite(s)):
+        fail(f"WDL (a) scores {s.shape}")
+    # the first epoch has no start mark: the median of the later gaps
+    out["a"] = {"ms_per_epoch": float(np.median(np.diff(clock.times))) * 1e3,
+                "wall_s": wall, "errors_first": errs[0].tolist(),
+                "errors_last": errs[-1].tolist(),
+                "first_layer_inputs": spec.deep_spec().input_dim}
+    log(f"WDL (a) {WDL_BAGS} bags, full batch on {rows} x {N_COLS} "
+        f"(first layer {spec.deep_spec().input_dim} wide): "
+        f"{out['a']['ms_per_epoch']:.3f} ms an epoch (CLI train {wall:.3f} "
+        f"s for {WDL_EPOCHS} epochs), errors {errs[0]} -> {errs[-1]} "
+        f"— [{gpu}]")
+
+    # (b) one minibatch epoch at the default MiniBatchs
+    b = wdl_set(root, "wdl_b", serve_root, norm, clean, {},
+                baggingNum=WDL_BAGS, numTrainEpochs=1)
+    wall = train_cli(b, card)
+    phase = train_phase_s(b)
+    steps = -(-rows // WDL_BATCH)
+    errs_b = progress_errors(b)
+    if len(errs_b) != 1 or not np.all(np.isfinite(errs_b)) or \
+            not errs_b[0, 0] < errs[0, 0]:
+        fail(f"WDL (b) one minibatch epoch: errors {errs_b} against the "
+             f"first full-batch epoch's {errs[0]}")
+    spec_b = wdl_members(b)[0].spec
+    x_num = x[:, spec_b.extra["num_feat_idx"]]
+    x_cat = bins[:, spec_b.extra["cat_col_idx"]]
+    prof = wdl_step_profile(torch, x_num, x_cat, y, w, spec_b, gpu) \
+        if card == "cuda" else {}
+    out["b"] = {"train_phase_s": phase, "wall_s": wall, "steps": steps,
+                "ms_per_epoch": phase * 1e3,
+                "ms_per_step": phase * 1e3 / steps,
+                "errors": errs_b[0].tolist(), **prof}
+    log(f"WDL (b) one epoch at MiniBatchs {WDL_BATCH}: {steps} steps in "
+        f"{phase:.3f} s ({phase * 1e3 / steps:.4f} ms a step, the upload "
+        f"and the epoch's error pass included; CLI {wall:.3f} s) "
+        f"— [{gpu}]")
+
+    # (c) hashed ids, served
+    c = wdl_set(root, "wdl_c", serve_root, norm, clean, {"MiniBatchs": 0},
+                baggingNum=WDL_BAGS, numTrainEpochs=3)
+    props_cli(c, card, {"shifu.wdl.hashBuckets": WDL_HASH_BUCKETS})
+    check_falling(c, "WDL (c)", cols=(0,))
+    hashed = wdl_members(c)
+    hs = hashed[0].spec
+    wide = [j for j, card_j in enumerate(
+        [len(p[2]) + 1 for p in plan if p[0] == "cat"])
+        if card_j > WDL_HASH_BUCKETS]
+    if hs.extra.get("hashed_cols") != wide or \
+            hs.extra.get("hash_buckets") != WDL_HASH_BUCKETS:
+        fail(f"WDL (c) hashed {hs.extra.get('hashed_cols')}, not {wide}")
+    cat = bins[:65536, hs.extra["cat_col_idx"]].astype(np.int64)
+    on_card = wdl_model.apply_hash_device(
+        hs, torch.from_numpy(cat).to(card)).cpu().numpy()
+    if not np.array_equal(on_card, wdl_model.apply_hash_host(hs, cat)):
+        fail("WDL (c): bucket ids on the card differ from the host's")
+    sd = os.path.join(root, "wdl_serve")
+    os.makedirs(sd)
+    for f in ("ModelConfig.json", "ColumnConfig.json"):
+        shutil.copy(os.path.join(serve_root, f), sd)
+    shutil.copytree(os.path.join(c, "models"), os.path.join(sd, "models"))
+    set_train_conf(sd, algorithm=Algorithm.WDL)
+    served = serve_phase(torch, tq, sd, plan,
+                         np.random.default_rng([rows, 9]),
+                         tol=WDL_SCORE_TOL) if card == "cuda" else {}
+    out["c"] = {"hashed_cols": len(wide), "served": served}
+    log(f"WDL (c) hashBuckets {WDL_HASH_BUCKETS}: {len(wide)} of {N_CAT} "
+        f"categorical columns hashed; bucket ids on the card equal the "
+        f"host's over 65,536 rows; served max |card - cpu| "
+        f"{served.get('max_abs_score_diff', float('nan')):.3g} — [{gpu}]")
+
+    # (d) the card against the CPU on CUT_ROWS rows, resident and streamed
+    cut_n, cut_c = (os.path.join(root, f"wdl_cut_{k}")
+                    for k in ("norm", "clean"))
+    write_norm_plane(cut_n, x[:CUT_ROWS], y[:CUT_ROWS], w[:CUT_ROWS], names)
+    write_plane(cut_c, bins[:CUT_ROWS], y[:CUT_ROWS], w[:CUT_ROWS], names,
+                {"chip_smoke": "wdl_cut"})
+    out["d"] = {}
+    for mode, props in (("resident", {}), ("streamed", {
+            "shifu.train.streaming": "on",
+            "shifu.train.windowRows": WDL_CUT_WINDOW})):
+        runs = []
+        for i, dev in enumerate((card, "cpu")):
+            dd = wdl_set(root, f"wdl_d_{mode}{i}", serve_root, cut_n, cut_c,
+                         {"MiniBatchs": 0}, baggingNum=WDL_CUT_BAGS,
+                         numTrainEpochs=WDL_CUT_EPOCHS)
+            wall = props_cli(dd, dev, props)
+            scores = np.mean([m.compute_full(x[:CUT_ROWS], bins[:CUT_ROWS],
+                                             device=dev)[:, 0]
+                              for m in wdl_members(dd)], axis=0)
+            runs.append((wall, progress_errors(dd),
+                         auc(scores, y[:CUT_ROWS])))
+        (cw, ce, ca), (pw, pe, pa) = runs
+        rel = float(np.max(np.abs(ce - pe) / np.abs(pe)))
+        if ce.shape != pe.shape or not rel <= WDL_ERR_RTOL or \
+                not abs(ca - pa) <= WDL_AUC_TOL:
+            fail(f"WDL (d) {mode} card vs CPU: errors {rel:.3g} relative, "
+                 f"AUC {ca:.6f} vs {pa:.6f}")
+        out["d"][mode] = {"err_rel": rel, "auc_card": ca, "auc_cpu": pa,
+                          "wall_card_s": cw, "wall_cpu_s": pw,
+                          "epochs_logged": len(ce)}
+        log(f"WDL (d) {mode} {CUT_ROWS} rows: errors card vs CPU within "
+            f"{rel:.3g} relative, AUC {ca:.6f} / {pa:.6f}; train "
+            f"{cw:.3f} s on the card, {pw:.3f} s on the CPU — [{gpu}]")
+
+    # (e) minibatch epochs, then train -resume, bit-identical
+    first, total, batch = WDL_RESUME
+    params = {"MiniBatchs": batch, "CheckpointInterval": 1}
+    whole = wdl_set(root, "wdl_e0", serve_root, cut_n, cut_c, params,
+                    baggingNum=WDL_BAGS, numTrainEpochs=total)
+    train_cli(whole, card)
+    r = wdl_set(root, "wdl_e1", serve_root, cut_n, cut_c, params,
+                baggingNum=WDL_BAGS, numTrainEpochs=first)
+    train_cli(r, card)
+    set_train_conf(r, numTrainEpochs=total)
+    train_cli(r, card, "-resume")
+    for f in sorted(os.listdir(os.path.join(whole, "models"))):
+        a_np, b_np = (np.load(os.path.join(dd, "models", f))
+                      for dd in (whole, r))
+        if a_np.files != b_np.files or any(
+                a_np[k].tobytes() != b_np[k].tobytes() for k in a_np.files):
+            fail(f"WDL (e) {f}: {first} epochs + train -resume differ from "
+                 f"{total} uninterrupted")
+    out["e"] = {"resume_bit_identical": True}
+    log(f"WDL (e) {first} minibatch epochs + train -resume to {total} "
+        f"bit-identical to the uninterrupted run — [{gpu}]")
+    return out
+
+
+def wdl_e2e_phase(torch, root: str, d: str, csv: str, gpu: str) -> dict:
+    """WDL on the e2e set's own planes (its ``norm`` wrote both): ``train``
+    on the card (WDL_E2E, WDL_E2E_EPOCHS epochs), ``eval -run`` on the
+    card and on the CPU (scores within WDL_SCORE_TOL in the %.3f files,
+    AUC within WDL_AUC_TOL), and ``export -t spec``: the re-read
+    ``model0.wdl`` (``load_reference_wdl``) scoring as the native model on
+    the card within SPEC_RTOL / SPEC_ATOL."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.data import parsepool
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.models import wdl as wdl_model
+    from shifu_tpu_torch.models.reference_import import load_reference_wdl
+    card = os.path.join(root, "wdl_e2e")
+    shutil.copytree(d, card)
+    set_train_params(card, dict(WDL_E2E))
+    set_train_conf(card, algorithm=Algorithm.WDL, baggingNum=1,
+                   numTrainEpochs=WDL_E2E_EPOCHS)
+    cpu_dir, walls = card + "_cpu", {}
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    try:
+        walls["train"] = train_cli(card, "cuda")
+        shutil.copytree(card, cpu_dir)
+        for name, dd, dev in (("eval", card, "cuda"),
+                              ("eval_cpu", cpu_dir, "cpu")):
+            t0 = time.perf_counter()
+            if cli.main(["--dir", dd, "eval", "-run", E2E_EVAL, "--device",
+                         dev]) != 0:
+                fail(f"WDL eval -run on {dev} exited non-zero")
+            walls[name] = time.perf_counter() - t0
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+    check_falling(card, "e2e WDL")
+    got, perf = eval_scores(card, E2E_EVAL)
+    want, cpu_perf = eval_scores(cpu_dir, E2E_EVAL)
+    if got.shape != (CSV_ROWS, 7) or got.shape != want.shape:
+        fail(f"WDL EvalScore card {got.shape} vs CPU {want.shape}")
+    diff = float(np.abs(got[:, 2:].astype(float)
+                        - want[:, 2:].astype(float)).max())
+    auc_diff = abs(perf["areaUnderRoc"] - cpu_perf["areaUnderRoc"])
+    if not diff <= WDL_SCORE_TOL or not auc_diff <= WDL_AUC_TOL or \
+            not 0.55 < perf["areaUnderRoc"] <= 1.0:
+        fail(f"WDL eval card vs CPU: scores {diff}, AUC "
+             f"{perf['areaUnderRoc']} vs {cpu_perf['areaUnderRoc']}")
+    walls["export"] = cli_ok(card, "export", "-t", "spec")
+    if cli.main(["--dir", card, "export", "pmml"]) != 1:
+        fail("export pmml of a WDL set did not refuse")
+    spec2, params2, _ = load_reference_wdl(
+        os.path.join(card, "export", "reference", "model0.wdl"))
+    native = wdl_members(card)[0]
+    x = Shards.open(os.path.join(card, "tmp", "NormalizedData")) \
+        .load_all()["x"]
+    bins = Shards.open(os.path.join(card, "tmp", "CleanedData")) \
+        .load_all()["bins"]
+    x_num = x[:, native.spec.extra["num_feat_idx"]]
+    x_cat = np.asarray(bins)[:, native.spec.extra["cat_col_idx"]]
+    a = wdl_model.IndependentWDLModel(spec2, params2).compute(
+        x_num, x_cat, device="cuda")
+    b = native.compute(x_num, x_cat, device="cuda")
+    spec_err = float(np.abs(a - b).max())
+    if a.shape != b.shape or not np.allclose(a, b, rtol=SPEC_RTOL,
+                                             atol=SPEC_ATOL):
+        fail(f"WDL spec round trip differs by {spec_err}")
+    log(f"e2e WDL ({WDL_E2E_EPOCHS} full-batch epochs): train "
+        f"{walls['train']:.3f} s, eval -run {walls['eval']:.3f} s on the "
+        f"card, {walls['eval_cpu']:.3f} s on the CPU; AUC "
+        f"{perf['areaUnderRoc']:.6f} (card - CPU {auc_diff:.3g}), max "
+        f"|card - CPU| score {diff:.3g}; export -t spec {walls['export']:.3f}"
+        f" s, the re-read spec within {spec_err:.3g} of the native model "
+        f"— [{gpu}]")
+    return {"walls_s": walls, "auc": perf["areaUnderRoc"],
+            "auc_card_cpu": auc_diff, "score_card_cpu_files": diff,
+            "spec_err": spec_err, "dir": card}
+
+
+def svm_phase(torch, root: str, serve_root: str, nn_plane: str, plan,
+              gpu: str, rows: int = TRAIN_ROWS, cap: int = SVM_CAP,
+              card: str = "cuda") -> dict:
+    """The SVM slice on the card: (a) the rbf kernel SVM at the cap (the
+    NN plane's first ``cap`` rows x N_COLS) through ``cli.main train``
+    (``model0.svm``), and its dual solve alone: wall and ms an iteration
+    over SVM_ITERS iterations; (b) the dual on SVM_CUT rows on the card
+    and on the CPU: duals within SVM_ALPHA_TOL, decision values within
+    SVM_F_TOL, support sets equal but for duals within SVM_ALPHA_TOL of
+    the 1e-6 threshold; (c) the linear SVM (hinge on the NN path) on the
+    NN plane's ``rows`` rows, SVM_LINEAR_EPOCHS full-batch epochs,
+    falling hinge, ms an epoch; (d) (a)'s and (c)'s models served over
+    HTTP on the card against the CPU."""
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.models.svm import SVMModelSpec
+    from shifu_tpu_torch.ops import tree_quant as tq
+    from shifu_tpu_torch.train.svm_trainer import _solve_dual
+    out = {}
+    data = Shards.open(nn_plane).load_all()
+    x, y, w = (np.asarray(data[k][:max(rows, cap)]) for k in "xyw")
+    names = [p[1] for p in plan]
+    capped = os.path.join(root, "svm_cap_plane")
+    write_norm_plane(capped, x[:cap], y[:cap], w[:cap], names)
+    a = nn_set(root, "svm_a", serve_root, capped, "SVM",
+               {"Kernel": "RBF", "Const": 1.0}, baggingNum=1)
+    wall = train_cli(a, card)
+    with open(os.path.join(a, "tmp", "train.progress")) as f:
+        line = f.read()
+    n_sv = int(re.search(r"\((\d+) SVs\)", line).group(1))
+    spec = SVMModelSpec(input_dim=N_COLS, kernel="rbf", gamma=SVM_GAMMA)
+    xd, yd = (torch.from_numpy(v).to(card) for v in (x[:cap], 2 * y[:cap]
+                                                      - 1))
+    tm = torch.ones(cap, device=card)
+    _solve_dual(xd[:256], yd[:256], tm[:256], tm[:256], spec, 10)   # warm
+    if card == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alpha = _solve_dual(xd, yd, tm, tm, spec, SVM_ITERS)[0]
+    alpha.cpu()
+    solve = time.perf_counter() - t0
+    q_bytes = 4.0 * cap * cap
+    out["a"] = {"train_wall_s": wall, "n_sv": n_sv, "solve_s": solve,
+                "ms_per_iter": solve * 1e3 / SVM_ITERS,
+                "matvec_bound_ms": q_bytes / HBM_BYTES_PER_S * 1e3}
+    log(f"SVM (a) rbf at {cap} x {N_COLS} through the CLI: {wall:.3f} s, "
+        f"{n_sv} SVs; the dual solve alone {solve:.3f} s for {SVM_ITERS} "
+        f"iterations ({solve * 1e3 / SVM_ITERS:.4f} ms an iteration; "
+        f"reading the {q_bytes / 2**30:.2f} GiB Q once an iteration takes "
+        f"{out['a']['matvec_bound_ms']:.4f} ms at 3.35 TB/s) — [{gpu}]")
+
+    # (b) card vs CPU on SVM_CUT rows
+    n = SVM_CUT
+    res = [[v.cpu().numpy() for v in _solve_dual(
+        *(torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in (
+            x[:n], 2 * y[:n] - 1, np.ones(n, np.float32),
+            np.ones(n, np.float32))), spec, SVM_ITERS)]
+        for dev in (card, "cpu")]
+    (ga, gf, _, _), (ca, cf, _, _) = res
+    da, df = float(np.abs(ga - ca).max()), float(np.abs(gf - cf).max())
+    differ = (ga > 1e-6) != (ca > 1e-6)
+    if not da <= SVM_ALPHA_TOL or not df <= SVM_F_TOL or \
+            not (np.abs(ca[differ] - 1e-6) <= SVM_ALPHA_TOL).all():
+        fail(f"SVM (b) card vs CPU: duals {da}, decisions {df}, "
+             f"{int(differ.sum())} support rows differ")
+    out["b"] = {"alpha_diff": da, "decision_diff": df,
+                "support_differ": int(differ.sum()),
+                "n_sv": int((ca > 1e-6).sum())}
+    log(f"SVM (b) {n} rows: duals card vs CPU within {da:.3g}, decisions "
+        f"within {df:.3g}, {int(differ.sum())} of {out['b']['n_sv']} "
+        f"support rows differ (all within {SVM_ALPHA_TOL} of the "
+        f"threshold) — [{gpu}]")
+
+    # (c) the linear SVM on the NN path
+    c = nn_set(root, "svm_c", serve_root, nn_plane, "SVM", dict(SVM_LINEAR),
+               baggingNum=1, numTrainEpochs=SVM_LINEAR_EPOCHS)
+    with EpochClock() as clock:
+        wall = train_cli(c, card)
+    errs = check_falling(c, "SVM (c)")
+    out["c"] = {"ms_per_epoch": clock.ms_per_epoch(), "wall_s": wall,
+                "errors_first": errs[0].tolist(),
+                "errors_last": errs[-1].tolist()}
+    log(f"SVM (c) linear (hinge, Const 1) on {rows} x {N_COLS}: "
+        f"{out['c']['ms_per_epoch']:.3f} ms an epoch, hinge {errs[0]} -> "
+        f"{errs[-1]} — [{gpu}]")
+
+    # (d) both served
+    sd = os.path.join(root, "svm_serve")
+    os.makedirs(os.path.join(sd, "models"))
+    for f in ("ModelConfig.json", "ColumnConfig.json"):
+        shutil.copy(os.path.join(serve_root, f), sd)
+    shutil.copy(os.path.join(a, "models", "model0.svm"),
+                os.path.join(sd, "models", "model0.svm"))
+    shutil.copy(os.path.join(c, "models", "model0.svm"),
+                os.path.join(sd, "models", "model1.svm"))
+    set_train_conf(sd, algorithm=Algorithm.SVM)
+    served = serve_phase(torch, tq, sd, plan,
+                         np.random.default_rng([rows, 10]),
+                         tol=NN_SCORE_TOL) if card == "cuda" else {}
+    out["d"] = served
+    return out
+
+
+def svm_e2e_phase(torch, root: str, d: str, gpu: str) -> dict:
+    """Both SVMs on the e2e set's own norm plane (CSV_ROWS rows, at the
+    kernel SVM's cap): ``train`` on the card, ``eval -run`` on the card
+    and on the CPU, AUC within WDL_AUC_TOL."""
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.data import parsepool
+    out = {}
+    for kind, params, epochs in (
+            ("rbf", {"Kernel": "RBF", "Const": 1.0}, 1),
+            ("linear", dict(SVM_LINEAR), SVM_LINEAR_EPOCHS)):
+        card = os.path.join(root, f"svm_e2e_{kind}")
+        shutil.copytree(d, card)
+        set_train_params(card, params)
+        set_train_conf(card, algorithm=Algorithm.SVM, baggingNum=1,
+                       numTrainEpochs=epochs)
+        walls = {}
+        prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+        try:
+            walls["train"] = train_cli(card, "cuda")
+            shutil.copytree(card, card + "_cpu")
+            for name, dd, dev in (("eval", card, "cuda"),
+                                  ("eval_cpu", card + "_cpu", "cpu")):
+                t0 = time.perf_counter()
+                if cli.main(["--dir", dd, "eval", "-run", E2E_EVAL,
+                             "--device", dev]) != 0:
+                    fail(f"SVM ({kind}) eval -run on {dev} exited non-zero")
+                walls[name] = time.perf_counter() - t0
+        finally:
+            parsepool.CHUNK_ROWS = prev_chunk
+        _, perf = eval_scores(card, E2E_EVAL)
+        _, cpu_perf = eval_scores(card + "_cpu", E2E_EVAL)
+        diff = abs(perf["areaUnderRoc"] - cpu_perf["areaUnderRoc"])
+        if not diff <= WDL_AUC_TOL or not perf["areaUnderRoc"] > 0.55:
+            fail(f"SVM ({kind}) eval AUC card {perf['areaUnderRoc']} vs CPU "
+                 f"{cpu_perf['areaUnderRoc']}")
+        out[kind] = {"walls_s": walls, "auc": perf["areaUnderRoc"],
+                     "auc_card_cpu": diff}
+        log(f"e2e SVM ({kind}): train {walls['train']:.3f} s, eval -run "
+            f"{walls['eval']:.3f} s on the card, {walls['eval_cpu']:.3f} s "
+            f"on the CPU; AUC {perf['areaUnderRoc']:.6f} (card - CPU "
+            f"{diff:.3g}) — [{gpu}]")
     return out
 
 
@@ -4594,6 +5166,14 @@ def main() -> None:
                                    nn.pop("models_dir"), plan,
                                    np.random.default_rng([args.seed, 4]))
         nn_walls["nn_serve_phase"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wdl = wdl_phase(torch, root, serve_root, plan,
+                        np.random.default_rng([args.seed, 8]), gpu)
+        nn_walls["wdl_phase"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svm = svm_phase(torch, root, serve_root,
+                        os.path.join(root, "nn_plane"), plan, gpu)
+        nn_walls["svm_phase"] = time.perf_counter() - t0
         stats = stats_phase(torch, root, plan, path_rng)
         e2e = e2e_phase(torch, stats["dir"], stats["csv"], gpu)
         eval_times = time_eval_walk(torch, tq, stats["dir"],
@@ -4608,6 +5188,25 @@ def main() -> None:
         nn_walls["e2e_nn_phase"] = time.perf_counter() - t0
         aux_nn = aux_nn_phase(torch, root, stats["dir"], gpu)
         nn_walls["aux_nn_phase"] = aux_nn["wall_s"]
+        t0 = time.perf_counter()
+        wdl_e2e = wdl_e2e_phase(torch, root, stats["dir"], stats["csv"],
+                                gpu)
+        svm_e2e = svm_e2e_phase(torch, root, stats["dir"], gpu)
+        from shifu_tpu_torch.data import parsepool
+        prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+        try:
+            wdl_combo = combo_pair(root, stats["dir"], stats["csv"],
+                                   "WDL:GBT", params=WDL_GBT_COMBO,
+                                   epochs=WDL_E2E_EPOCHS)
+        finally:
+            parsepool.CHUNK_ROWS = prev_chunk
+        nn_walls["wdl_svm_e2e_combo"] = time.perf_counter() - t0
+        log(f"combo WDL:GBT on {COMBO_ROWS} rows: run "
+            f"{wdl_combo['walls_s']['run_cuda']:.3f} s on the card, "
+            f"{wdl_combo['walls_s']['run_cpu']:.3f} s on the CPU; "
+            f"{wdl_combo['hist_launches']} hist and "
+            f"{wdl_combo['eval_launches']} tree_traverse launches; AUCs "
+            f"card vs CPU {wdl_combo['aucs']} — [{gpu}]")
     resident = resident_phase(torch, args.seed)
     times = time_kernels(torch, tq, rng, gpu)
     hist_times = time_hist(torch, rng, gpu)
@@ -4647,6 +5246,7 @@ def main() -> None:
         "encode_launches": aux["encode_launches"],
         "export_roundtrip_launches": aux["roundtrip"]["launches"],
         "combo_eval_launches": aux["combo"]["eval_launches"],
+        "wdl_combo_eval_launches": wdl_combo["eval_launches"],
         "rf_encode_launches": aux["rf_encode"]["launches"],
         "stream_replay_launches":
             stream["b"]["replay_launches"]["tree_traverse"],
@@ -4656,6 +5256,7 @@ def main() -> None:
         "source": "shifu_tpu_torch/csrc/hist.cu",
         "leaf_sum_launches": trained["launches"]["leaf_sums"],
         "combo_launches": aux["combo"]["hist_launches"],
+        "wdl_combo_launches": wdl_combo["hist_launches"],
         "rf_launches": forest["launches"]["hist"],
         "rf_leaf_sum_launches": forest["launches"]["leaf_sums"],
         "bagging_launches": bagging["bagging"]["launches"]["hist"],
@@ -4804,6 +5405,21 @@ def main() -> None:
         f" e2e NN eval AUC {e2e_nn['auc']:.6f} (card - CPU "
         f"{e2e_nn['auc_card_cpu']:.3g}); phase walls "
         f"{ {k: round(v, 3) for k, v in nn_walls.items()} } — [{gpu}]")
+    wa, wb = wdl["a"], wdl["b"]
+    log(f"WDL on {TRAIN_ROWS} x {N_COLS}, {WDL_BAGS} bags: "
+        f"{wa['ms_per_epoch']:.3f} ms a full-batch epoch, "
+        f"{wb['ms_per_epoch']:.1f} ms a minibatch epoch "
+        f"({wb['ms_per_step']:.4f} ms a step, "
+        f"{wb.get('launches_per_step', float('nan')):.1f} launches a step, "
+        f"{wb.get('host_syncs_per_epoch')} host sync an epoch); card vs CPU "
+        f"errors within {wdl['d']['resident']['err_rel']:.3g} resident, "
+        f"{wdl['d']['streamed']['err_rel']:.3g} streamed; e2e WDL AUC "
+        f"{wdl_e2e['auc']:.6f} (card - CPU {wdl_e2e['auc_card_cpu']:.3g}); "
+        f"kernel SVM at {SVM_CAP} rows {svm['a']['solve_s']:.3f} s "
+        f"({svm['a']['ms_per_iter']:.4f} ms an iteration), linear SVM "
+        f"{svm['c']['ms_per_epoch']:.3f} ms an epoch; e2e SVM AUCs "
+        f"{ {k: round(v['auc'], 6) for k, v in svm_e2e.items()} } "
+        f"— [{gpu}]")
     log(f"served {served['batches']} batches; max |card - cpu| "
         f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} GBT and "
         f"{RF_TREES} RF trees; "

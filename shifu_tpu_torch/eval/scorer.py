@@ -9,12 +9,14 @@ kernel on a CUDA device (it launches or raises), its plain version on the
 CPU.  NN and LR models read the normalized floats ``x``, which go to the
 device once a batch; same-shape nets score as ONE stacked forward
 (``models.nn.forward`` over their weights stacked on a leading axis, built
-once), the reference's ``_stacked_nn_groups``.  The per-model scores are
+once), the reference's ``_stacked_nn_groups``.  A wide-and-deep model
+reads both planes (``input_kind`` "both": its numeric block of ``x`` and
+its categorical columns of the bins, ``compute_full``) and a kernel SVM
+the normalized floats; each scores by itself.  The per-model scores are
 scaled by ``SCORE_SCALE`` and aggregated per row.  Multi-class sets score
 with :meth:`Scorer.score_classes`: native models (a softmax head, a
 class-distribution forest) contribute their whole row, one-vs-all members
-their ``class_index`` column.  WDL and SVM model files raise in
-``models.load_any``.
+their ``class_index`` column.
 """
 
 from __future__ import annotations
@@ -90,6 +92,8 @@ class Scorer:
         self.device = resolve_device(device)
         self.tree_models = [m for m in self.models
                             if getattr(m, "input_kind", "norm") == "bins"]
+        self.needs_bins = any(getattr(m, "input_kind", "norm")
+                              in ("bins", "both") for m in self.models)
         self._groups = None                  # stacked same-shape nets
 
     @classmethod
@@ -101,10 +105,10 @@ class Scorer:
         """Same-shape NN/LR models as ``(model indices, spec, stacked
         params on the device)``, built once: one forward a group."""
         if self._groups is None:
-            from ..models.nn import stack_params
+            from ..models.nn import IndependentNNModel, stack_params
             by_shape: Dict[tuple, List[int]] = {}
             for i, m in enumerate(self.models):
-                if getattr(m, "input_kind", "norm") == "norm":
+                if isinstance(m, IndependentNNModel):
                     by_shape.setdefault(m.spec.shape_key(), []).append(i)
             self._groups = [
                 (idxs, self.models[idxs[0]].spec,
@@ -116,29 +120,37 @@ class Scorer:
     def outputs(self, x: Optional[np.ndarray],
                 bins: Optional[np.ndarray]) -> List[np.ndarray]:
         """Every model's ``[n, out]`` f32 output, in model order: the
-        forests over ``bins``, the nets over ``x``."""
+        forests over ``bins``, the nets and SVMs over ``x``, WDL models
+        over both."""
         outs: List[Optional[np.ndarray]] = [None] * len(self.models)
         groups = self.nn_groups()
+        needs_x = len(self.tree_models) < len(self.models)
+        if needs_x and x is None:
+            raise ValueError("NN/LR/SVM/WDL models need the normalized rows "
+                             "— pass x to the scorer")
+        if self.needs_bins and bins is None:
+            raise ValueError("tree and WDL models need binned input — pass "
+                             "bins= to the scorer")
+        xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            self.device) if needs_x else None
         if groups:
-            if x is None:
-                raise ValueError("NN/LR models need the normalized rows — "
-                                 "pass x to the scorer")
             from ..models.nn import forward
-            xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-                self.device)
             with torch.no_grad():
                 for idxs, spec, stacked in groups:
                     o = forward(stacked, spec, xd).cpu().numpy()
                     for pos, i in enumerate(idxs):
                         outs[i] = o[pos]
-        if self.tree_models:
-            if bins is None:
-                raise ValueError("tree models need binned input — pass "
-                                 "bins= to the scorer")
-            b = self._put(bins)
-            for i, m in enumerate(self.models):
-                if outs[i] is None:
-                    outs[i] = m.compute(b)
+        b = self._put(bins) if self.needs_bins else None
+        for i, m in enumerate(self.models):
+            if outs[i] is not None:
+                continue
+            kind = getattr(m, "input_kind", "norm")
+            if kind == "bins":
+                outs[i] = m.compute(b)
+            elif kind == "both":
+                outs[i] = m.compute_full(xd, b)
+            else:
+                outs[i] = m.compute(xd)
         return outs
 
     def score(self, x: Optional[np.ndarray],
@@ -150,12 +162,21 @@ class Scorer:
                                max=raw.max(axis=1), min=raw.min(axis=1),
                                median=np.median(raw, axis=1))
 
-    def _put(self, bins: np.ndarray) -> torch.Tensor:
-        """The binned batch on the scoring device, once, in the forests'
-        wire dtype (the reference's ``ensemble_bins_dtype``)."""
+    def bins_dtype(self) -> torch.dtype:
+        """The bins' dtype on the device: the forests' wire dtype (the
+        reference's ``ensemble_bins_dtype``), int32 beside a WDL model,
+        whose categorical ids can pass 255."""
         from ..ops.tree_quant import ensemble_bins_dtype
+        if len(self.tree_models) < sum(
+                getattr(m, "input_kind", "norm") in ("bins", "both")
+                for m in self.models):
+            return torch.int32
+        return ensemble_bins_dtype(self.tree_models)
+
+    def _put(self, bins: np.ndarray) -> torch.Tensor:
+        """The binned batch on the scoring device, once."""
         return torch.from_numpy(np.ascontiguousarray(bins)).to(
-            self.device, ensemble_bins_dtype(self.tree_models))
+            self.device, self.bins_dtype())
 
     # ------------------------------------------------------- multi-class
     def n_classes(self) -> int:

@@ -13,15 +13,16 @@ production —
   ``src/test/resources/model/model0.nn``);
 - ``model*.gbt`` / ``model*.rf``: gzipped ``BinaryDTSerializer`` version-4
   forests (``core/dtrain/dt/BinaryDTSerializer.java:60-160``), loadable by
-  ``dt/IndependentTreeModel.java:887-1075`` and ``shifu convert``.
+  ``dt/IndependentTreeModel.java:887-1075`` and ``shifu convert``;
+- ``model*.wdl``: gzipped ``BinaryWDLSerializer`` streams
+  (``core/dtrain/wdl/BinaryWDLSerializer.java:66-125``), loadable by
+  ``wdl/IndependentWDLModel.loadFromStream``.
 
-Round-trip oracle: ``models/reference_import.py`` re-reads both formats, and
-``tests/test_torch_export.py`` pins the payloads to the reference's.  The
-gzip header carries the time of writing, so two writes of one forest
-differ in those bytes only: compare decompressed payloads.
-
-``BinaryWDLSerializer`` (``model*.wdl``) waits for the port's WDL model:
-:func:`write_reference_wdl` raises naming ROADMAP Queue 1 item 10.
+Round-trip oracle: ``models/reference_import.py`` re-reads every format,
+and ``tests/test_torch_export.py`` and ``tests/test_torch_wdl.py`` pin the
+payloads to the reference's.  The gzip header carries the time of
+writing, so two writes of one model differ in those bytes only: compare
+decompressed payloads.
 
 Semantics note (inherent format difference, not a bug): our trees route a
 MISSING numeric value through its own bin, while the reference format can
@@ -369,12 +370,173 @@ def write_reference_tree(path: str, spec: TreeModelSpec,
 
 # --------------------------------------- BinaryWDLSerializer (.wdl)
 
-def write_reference_wdl(path: str, spec, params, column_configs=None,
-                        norm_type: str = "ZSCALE",
+_WDL_ACTS = {"relu", "sigmoid"}         # reference buildHiddenLayers set
+
+
+def _write_java_string(d: _JavaDataOutput, s: Optional[str]) -> None:
+    """``dtrain/StringUtils.writeString``: int byte-length + raw UTF-8
+    (0 = null), not writeUTF."""
+    if not s:
+        d.write_int(0)
+        return
+    data = s.encode("utf-8")
+    d.write_int(len(data))
+    d._b.write(data)
+
+
+def _write_double_list(d: _JavaDataOutput, vals) -> None:
+    """``NNColumnStats.writeDoubleList``: int count + doubles (0 = null)."""
+    if vals is None:
+        d.write_int(0)
+        return
+    vals = [0.0 if v is None else float(v) for v in vals]
+    d.write_int(len(vals))
+    for v in vals:
+        d.write_double(v)
+
+
+def _woe_mean_std(woes, neg, pos):
+    """``Normalizer.calculateWoeMeanAndStdDev``: bin-count-weighted WOE
+    mean and standard deviation (``core/Normalizer.java:728-754``)."""
+    if not woes or len(woes) < 2 or not neg:
+        return 0.0, 0.0
+    w = np.asarray([0.0 if x is None else float(x) for x in woes])
+    cnt = np.asarray(neg, np.float64) + np.asarray(pos, np.float64)
+    total = cnt.sum()
+    if total <= 1:
+        return 0.0, 0.0
+    s = float((w * cnt).sum())
+    sq = float((w * w * cnt).sum())
+    mean = s / total
+    std = float(np.sqrt(abs((sq - s * s / total) / (total - 1))))
+    return mean, std
+
+
+def _write_floats(d: _JavaDataOutput, a: np.ndarray) -> None:
+    """A big-endian f32 block in one buffer write."""
+    d._b.write(np.ascontiguousarray(a, ">f4").tobytes())
+
+
+def _write_dense_layer(d: _JavaDataOutput, w: np.ndarray, b: np.ndarray,
+                       l2reg: float = 0.0) -> None:
+    """``wdl/DenseLayer.write`` (WEIGHTS/MODEL_SPEC): l2reg, in, out,
+    presence-flagged weights [in][out], then bias [out]."""
+    w = np.asarray(w, np.float32)
+    b = np.asarray(b, np.float32).reshape(-1)
+    d.write_float(l2reg)
+    d.write_int(w.shape[0])
+    d.write_int(w.shape[1])
+    d.write_boolean(True)
+    _write_floats(d, w)
+    d.write_boolean(True)
+    _write_floats(d, b)
+
+
+def write_reference_wdl(path: str, spec, params: Dict,
+                        column_configs=None, norm_type: str = "ZSCALE",
                         cutoff: float = 4.0) -> None:
-    """The reference's ``BinaryWDLSerializer`` writer: not ported, as the
-    port has no WDL model yet."""
-    raise NotImplementedError(
-        "write_reference_wdl (the BinaryWDLSerializer .wdl spec) is not yet "
-        "ported to shifu_tpu_torch (ROADMAP Queue 1 item 10, WDL and SVM) "
-        "— export it with shifu_tpu")
+    """Write a WDL model (``models.wdl``'s spec and params, flat tables)
+    as a gzipped ``BinaryWDLSerializer`` stream
+    (``core/dtrain/wdl/BinaryWDLSerializer.java:66-125``), the format
+    ``IndependentWDLModel.loadFromStream`` reads: version, reserved
+    fields, the normType string, ``NNColumnStats`` a column, then the
+    ``WideAndDeep`` graph as Bytable MODEL_SPEC (``WideAndDeep.java:
+    558-621``).  ``models.reference_import.load_reference_wdl`` is the
+    round-trip oracle."""
+    from ..models.wdl import columns_of
+    bad = [a for a in spec.activations if a.lower() not in _WDL_ACTS]
+    if bad:
+        raise ShifuError(ErrorCode.ERROR_UNSUPPORT_ALG,
+                         f"activation(s) {bad}: the reference WDL runtime "
+                         "only builds relu/sigmoid hidden activations")
+    if not (spec.deep_enable and spec.wide_enable):
+        raise ShifuError(ErrorCode.ERROR_UNSUPPORT_ALG,
+                         "reference WideAndDeep scoring walks BOTH planes — "
+                         "wide-only/deep-only specs have no faithful layout")
+    cols = columns_of(spec, params)
+    n_cat = len(spec.cat_cardinalities)
+    cat_ids = list(spec.cat_column_nums or range(n_cat))
+    num_ids = list(spec.column_nums or range(spec.numeric_dim))
+
+    d = _JavaDataOutput()
+    d.write_int(1)                                  # WDL_FORMAT_VERSION
+    d.write_float(0.0)                              # reserved
+    d.write_float(0.0)
+    d.write_double(0.0)
+    d.write_utf("Reserved field")
+    _write_java_string(d, norm_type)
+
+    by_num = {cc.columnNum: cc for cc in (column_configs or [])}
+    cs_nums = [n for n in num_ids + cat_ids if n in by_num]
+    d.write_int(len(cs_nums))
+    for num in cs_nums:                             # NNColumnStats.write
+        cc = by_num[num]
+        st, bn = cc.columnStats, cc.columnBinning
+        d.write_int(num)
+        _write_java_string(d, cc.columnName)
+        d.write_byte(2 if cc.is_categorical() else 1)   # ColumnType C/N
+        d.write_double(cutoff)
+        d.write_double(st.mean or 0.0)
+        d.write_double(st.stdDev or 0.0)
+        wm, ws = _woe_mean_std(bn.binCountWoe, bn.binCountNeg, bn.binCountPos)
+        d.write_double(wm)
+        d.write_double(ws)
+        wwm, wws = _woe_mean_std(bn.binWeightedWoe, bn.binCountNeg,
+                                 bn.binCountPos)
+        d.write_double(wwm)
+        d.write_double(wws)
+        _write_double_list(d, None if cc.is_categorical() else bn.binBoundary)
+        cats = bn.binCategory or []
+        d.write_int(len(cats))
+        for cat in cats:
+            _write_java_string(d, cat)
+        _write_double_list(d, bn.binPosRate)
+        _write_double_list(d, bn.binCountWoe)
+        _write_double_list(d, bn.binWeightedWoe)
+
+    # ---- WideAndDeep.write, serializationType = MODEL_SPEC
+    deep = cols["deep"]
+    d.write_int(2)                                  # MODEL_SPEC
+    d.write_boolean(True)                           # DenseInputLayer
+    d.write_int(spec.numeric_dim)
+    d.write_int(len(deep) - 1)                      # hidden DenseLayers
+    for p in deep[:-1]:
+        _write_dense_layer(d, p["w"], p["b"])
+    d.write_boolean(True)                           # finalLayer
+    _write_dense_layer(d, deep[-1]["w"], deep[-1]["b"])
+    d.write_boolean(True)                           # EmbedLayer
+    d.write_int(n_cat)
+    for i, tab in enumerate(cols["embed"]):         # EmbedFieldLayer.write
+        d.write_int(cat_ids[i])
+        d.write_int(tab.shape[0])
+        d.write_int(tab.shape[1])
+        d.write_boolean(True)
+        _write_floats(d, tab)
+    d.write_boolean(True)                           # WideLayer
+    d.write_int(n_cat)
+    for i, wvec in enumerate(cols["wide_cat"]):     # WideFieldLayer.write
+        d.write_int(cat_ids[i])
+        d.write_float(0.0)                          # l2reg
+        d.write_int(len(wvec))
+        d.write_boolean(True)
+        _write_floats(d, wvec)
+    d.write_boolean(True)                           # wide dense (numeric)
+    _write_dense_layer(d, cols["wide_num"], np.zeros(1, np.float32))
+    d.write_boolean(True)                           # BiasLayer
+    d.write_float(float(cols["bias"].reshape(-1)[0]))
+    d.write_int(len(spec.activations))              # actiFuncs
+    for a in spec.activations:
+        d.write_utf(a.lower())
+    # MODEL_SPEC extras
+    d.write_int(n_cat)                              # idBinCateSizeMap
+    for i, card in enumerate(spec.cat_cardinalities):
+        d.write_int(cat_ids[i])
+        d.write_int(int(card))
+    d.write_int(spec.numeric_dim)
+    for ids in (num_ids, cat_ids,
+                [spec.embed_dim] * n_cat, cat_ids, list(spec.hidden_nodes)):
+        d.write_int(len(ids))                       # SerializationUtil list
+        for v in ids:
+            d.write_int(int(v))
+    d.write_float(0.0)                              # l2reg
+    ioutil.atomic_write_bytes(path, gzip.compress(d.getvalue()))

@@ -260,12 +260,6 @@ def stack_params(members: Sequence[Params], device=None) -> Params:
              for k in ("b", "w")} for li in range(len(members[0]))]
 
 
-def member_params(stacked: Params, i: int) -> Params:
-    """Member ``i`` of stacked params, as host tensors."""
-    return [{k: layer[k][i].detach().cpu().clone() for k in ("b", "w")}
-            for layer in stacked]
-
-
 def params_from_jax(layers: Sequence[Dict[str, Any]]) -> Params:
     """The reference's params (a list of ``{"w", "b"}`` arrays, e.g. from
     ``shifu_tpu.models.nn.init_params`` through ``np.asarray``) as this

@@ -1,12 +1,12 @@
 """Importers for the reference's serialized model formats — the port's
 copy of ``shifu_tpu.models.reference_import`` (host-side parsers; the
-float64 tree scorer is numpy, as the reference's is).  Encog weights come
-back as the port's float32 host tensors, ready for
-:class:`~shifu_tpu_torch.models.nn.IndependentNNModel` on either device.
-``BinaryWDLSerializer`` streams (``load_reference_wdl``) raise naming
-ROADMAP Queue 1 item 10: the port has no WDL model yet.
+float64 tree scorer is numpy, as the reference's is).  Encog weights and
+``BinaryWDLSerializer`` tables come back as the port's float32 host
+tensors, ready for :class:`~shifu_tpu_torch.models.nn.IndependentNNModel`
+and :class:`~shifu_tpu_torch.models.wdl.IndependentWDLModel` on either
+device.
 
-Two formats are read: the reference's production model files, which
+Three formats are read: the reference's production model files, which
 its dependency-free Java consumers load —
 
 - Encog EG text networks (``*.nn``) written by Encog 3.0's persistence
@@ -16,6 +16,8 @@ its dependency-free Java consumers load —
   ``core/dtrain/dt/BinaryDTSerializer.java:60-160`` and read back by
   ``dt/IndependentTreeModel.java:887-1075`` (version >= 3, optionally
   gzipped), e.g. ``example/readablespec/model0.gbt``.
+- Wide-and-deep streams (``*.wdl``) written by
+  ``core/dtrain/wdl/BinaryWDLSerializer.java:66-125``.
 
 Reading them back is the round-trip oracle of ``export -t spec``: the
 exported forest, re-read here, scores as the native forest does.
@@ -418,10 +420,143 @@ def load_reference_tree(path: str) -> RefTreeModel:
 
 # -------------------------------------------------- WDL binary (.wdl)
 
+def _read_java_string(d: _JavaDataInput) -> Optional[str]:
+    """``dtrain/StringUtils.readString``: int byte-length + raw UTF-8
+    (0 = null), not readUTF."""
+    n = d.read_int()
+    if n == 0:
+        return None
+    return d._read(n).decode("utf-8", errors="replace")
+
+
+def _read_double_list(d: _JavaDataInput) -> List[float]:
+    return [d.read_double() for _ in range(d.read_int())]
+
+
+def _read_floats(d: _JavaDataInput, shape) -> np.ndarray:
+    """A big-endian f32 block in one buffer read."""
+    n = int(np.prod(shape))
+    return np.frombuffer(d._read(4 * n), ">f4").reshape(shape) \
+        .astype(np.float32)
+
+
+def _read_wdl_dense(d: _JavaDataInput):
+    """``wdl/DenseLayer.readFields`` (WEIGHTS/MODEL_SPEC): l2reg, in, out,
+    presence-flagged weights [in][out] + bias [out]."""
+    d.read_float()                                   # l2reg
+    n_in, n_out = d.read_int(), d.read_int()
+    w = _read_floats(d, (n_in, n_out)) if d.read_boolean() \
+        else np.zeros((n_in, n_out), np.float32)
+    b = _read_floats(d, (n_out,)) if d.read_boolean() \
+        else np.zeros(n_out, np.float32)
+    return w, b
+
+
+def _expect(cond: bool, path: str, what: str) -> None:
+    """An explicit stream-shape check (its reads must happen under
+    ``python -O`` too)."""
+    if not cond:
+        raise ValueError(f"{path}: malformed WDL stream — {what}")
+
+
 def load_reference_wdl(path: str):
-    """The reference's ``BinaryWDLSerializer`` reader: not ported, as the
-    port has no WDL model to load into yet."""
-    raise NotImplementedError(
-        f"{path}: load_reference_wdl (the BinaryWDLSerializer .wdl spec) is "
-        "not yet ported to shifu_tpu_torch (ROADMAP Queue 1 item 10, WDL "
-        "and SVM) — read it with shifu_tpu")
+    """Parse a ``BinaryWDLSerializer`` stream
+    (``core/dtrain/wdl/BinaryWDLSerializer.java:66-125`` writer,
+    ``IndependentWDLModel.loadFromStream:198-300`` reader) into
+    ``(WDLModelSpec, params, column_stats)``, the params in
+    ``models.wdl``'s flat layout: the round-trip oracle of
+    ``export/reference_spec.write_reference_wdl``.  The reference scores
+    ``sigmoid(wideLayer + finalLayer(deep))`` as ``models.wdl.forward``
+    does (``WideAndDeep.java:163-199``)."""
+    from .wdl import WDLModelSpec, from_columns
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:2] == b"\x1f\x8b":
+        raw = gzip.decompress(raw)
+    d = _JavaDataInput(raw)
+    version = d.read_int()
+    if version != 1:
+        raise ValueError(f"{path}: WDL format version {version} != 1")
+    d.read_float()
+    d.read_float()
+    d.read_double()
+    d.read_utf()
+    norm_type = _read_java_string(d)
+    col_stats: Dict[int, dict] = {}
+    for _ in range(d.read_int()):                    # NNColumnStats
+        num = d.read_int()
+        name = _read_java_string(d)
+        ctype = d.read_byte()
+        cs = {"name": name, "type": ctype, "cutoff": d.read_double(),
+              "mean": d.read_double(), "stddev": d.read_double(),
+              "woe_mean": d.read_double(), "woe_stddev": d.read_double(),
+              "woe_wgt_mean": d.read_double(),
+              "woe_wgt_stddev": d.read_double(),
+              "boundaries": _read_double_list(d)}
+        cs["categories"] = [_read_java_string(d)
+                            for _ in range(d.read_int())]
+        cs["pos_rates"] = _read_double_list(d)
+        cs["count_woes"] = _read_double_list(d)
+        cs["weight_woes"] = _read_double_list(d)
+        col_stats[num] = cs
+
+    # ---- WideAndDeep.readFields (MODEL_SPEC)
+    st = d.read_int()
+    if st != 2:
+        raise ValueError(f"{path}: serializationType {st} != MODEL_SPEC")
+    _expect(d.read_boolean(), path, "null DenseInputLayer")
+    numeric_dim = d.read_int()
+    hidden = [_read_wdl_dense(d) for _ in range(d.read_int())]
+    _expect(d.read_boolean(), path, "null finalLayer")
+    final = _read_wdl_dense(d)
+    _expect(d.read_boolean(), path, "null EmbedLayer")
+    embed, embed_ids = [], []
+    for _ in range(d.read_int()):
+        cid, n_in, n_out = d.read_int(), d.read_int(), d.read_int()
+        tab = _read_floats(d, (n_in, n_out)) if d.read_boolean() \
+            else np.zeros((n_in, n_out), np.float32)
+        embed.append(tab)
+        embed_ids.append(cid)
+    _expect(d.read_boolean(), path, "null WideLayer")
+    wide_cat = []
+    for _ in range(d.read_int()):                    # WideFieldLayer
+        d.read_int()                                 # column id
+        d.read_float()                               # l2reg
+        n_in = d.read_int()
+        wide_cat.append(_read_floats(d, (n_in,)) if d.read_boolean()
+                        else np.zeros(n_in, np.float32))
+    wide_num = np.zeros((numeric_dim, 1), np.float32)
+    if d.read_boolean():                             # wide dense part
+        wide_num, _ = _read_wdl_dense(d)
+    bias = np.zeros(1, np.float32)
+    if d.read_boolean():                             # BiasLayer
+        bias = np.asarray([d.read_float()], np.float32)
+    acts = [d.read_utf() for _ in range(d.read_int())]
+    for _ in range(d.read_int()):                    # idBinCateSizeMap
+        d.read_int()
+        d.read_int()
+    _expect(d.read_int() == numeric_dim, path, "numericalSize mismatch")
+    num_ids = [d.read_int() for _ in range(d.read_int())]
+    embed_ids2 = [d.read_int() for _ in range(d.read_int())]
+    embed_outs = [d.read_int() for _ in range(d.read_int())]
+    for _ in range(d.read_int()):                    # wide column ids
+        d.read_int()
+    hidden_nodes = [d.read_int() for _ in range(d.read_int())]
+    d.read_float()                                   # l2reg
+
+    spec = WDLModelSpec(
+        numeric_dim=numeric_dim,
+        cat_cardinalities=[t.shape[0] for t in embed],
+        embed_dim=embed_outs[0] if embed_outs else
+        (embed[0].shape[1] if embed else 8),
+        hidden_nodes=hidden_nodes or [w.shape[1] for w, _ in hidden],
+        activations=acts, column_nums=num_ids or None,
+        cat_column_nums=embed_ids2 or embed_ids or None,
+        extra={"source": "binary-wdl", "norm_type": norm_type})
+    params = from_columns(spec, {
+        "embed": embed,
+        "deep": [{"w": w, "b": b} for w, b in hidden]
+        + [{"w": final[0], "b": final[1]}],
+        "wide_cat": wide_cat, "wide_num": wide_num, "bias": bias})
+    return spec, params, col_stats

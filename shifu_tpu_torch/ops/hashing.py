@@ -17,7 +17,11 @@ device as they are.
 Poisson counts compare the 53-bit uniform with integer CDF thresholds, so
 device bags are bit-identical to the host's ``_hash_poisson``.
 
-The WDL hashed-ID bucket functions are not ported (ROADMAP item 10).
+The WDL hashed-ID half folds a high-cardinality categorical column into a
+fixed bucket space: ``bucket = (hi32(splitmix64(id ^ col_key)) *
+buckets) >> 32``, Lemire's multiply-shift over the top 32 hash bits.  With
+``buckets < 2^31`` that product stays below 2^63, so the device replay
+is one int64 tensor op chain, bit-identical to the host's uint64 map.
 """
 
 from __future__ import annotations
@@ -112,3 +116,39 @@ def row_key_i64(seed: int, stream: int) -> int:
 def thresholds_i64(lam: float, kmax: int = 16) -> np.ndarray:
     """:func:`poisson_thresholds` as int64 (every threshold <= 2^53)."""
     return poisson_thresholds(lam, kmax).astype(np.int64)
+
+
+# ---------------------------------------------------------- hash buckets
+#: seed of the per-column hash keys (distinct from the row-bagging streams
+#: so a column never shares a key with a bag draw)
+WDL_HASH_SEED = 0x5D1F00D
+
+
+def column_hash_key(column_num: int, seed: int = WDL_HASH_SEED) -> int:
+    """Stable 64-bit per-column key of the hashed-ID bucket map."""
+    return _row_key(seed, column_num)
+
+
+def hash_bucket_host(idx: np.ndarray, key: int, buckets: int) -> np.ndarray:
+    """[N] int32 bucket ids of the bin ids ``idx`` (negatives count as 0)
+    under the column key ``key``, on the host (uint64 arithmetic)."""
+    z = np.maximum(np.asarray(idx, np.int64), 0).astype(np.uint64)
+    z ^= np.uint64(key)
+    z = (z + np.uint64(0x9E3779B97F4A7C15)) & np.uint64(_M64)
+    z ^= z >> np.uint64(30)
+    z = (z * np.uint64(0xBF58476D1CE4E5B9)) & np.uint64(_M64)
+    z ^= z >> np.uint64(27)
+    z = (z * np.uint64(0x94D049BB133111EB)) & np.uint64(_M64)
+    z ^= z >> np.uint64(31)
+    hi32 = z >> np.uint64(32)
+    return ((hi32 * np.uint64(buckets)) >> np.uint64(32)).astype(np.int32)
+
+
+def hash_bucket_device(idx: torch.Tensor, key, buckets: int) -> torch.Tensor:
+    """:func:`hash_bucket_host` on ``idx``'s device, bit-identical.
+    ``key`` is a uint64 Python int, or an int64 tensor of keys (as
+    :func:`_i64` gives them) broadcasting over ``idx``'s last axis."""
+    assert 0 < buckets < 1 << 31, "bucket ids need buckets < 2^31"
+    k = key if isinstance(key, torch.Tensor) else _i64(key)
+    z = _splitmix64_dev(idx.long().clamp_min(0) ^ k)
+    return ((_shr(z, 32) * buckets) >> 32).to(torch.int32)

@@ -7,9 +7,8 @@ assembled (mean) performance.
 
 ``run`` and ``eval`` compute on ``device`` (CUDA unless the caller names
 another): a tree member trains with the histogram kernels and every
-forest scores through ``tree_traverse``, nets through cuBLAS GEMMs; each
-member's ``norm`` runs on the host.  WDL and SVM members raise naming
-ROADMAP Queue 1 item 10 (the port trains and scores neither yet).
+forest scores through ``tree_traverse``, nets, SVMs and wide-and-deep
+models through cuBLAS GEMMs; each member's ``norm`` runs on the host.
 """
 
 from __future__ import annotations
@@ -29,19 +28,6 @@ log = logging.getLogger(__name__)
 COMBO_FILE = "combo.json"
 
 
-#: member algorithms the port cannot train or score yet
-NOT_PORTED = ("WDL", "SVM")
-
-
-def _check_ported(members: List[str]) -> None:
-    bad = [a for a in members if a in NOT_PORTED]
-    if bad:
-        raise NotImplementedError(
-            f"combo members {bad}: WDL and SVM are not yet ported to "
-            "shifu_tpu_torch (ROADMAP Queue 1 item 10) — run this combo "
-            "with shifu_tpu")
-
-
 def run_combo(model_set_dir: str, action: str, algs: Optional[str],
               resume: bool = False, device=None) -> int:
     d = os.path.abspath(model_set_dir)
@@ -50,7 +36,6 @@ def run_combo(model_set_dir: str, action: str, algs: Optional[str],
             log.error("combo new requires -alg A:B:C")
             return 1
         members = [a.strip().upper() for a in algs.split(":") if a.strip()]
-        _check_ported(members)
         ioutil.atomic_write_json(os.path.join(d, COMBO_FILE),
                                  {"algorithms": members})
         log.info("combo: %s", members)
@@ -62,7 +47,6 @@ def run_combo(model_set_dir: str, action: str, algs: Optional[str],
         return 1
     with open(combo_path) as f:
         members: List[str] = json.load(f)["algorithms"]
-    _check_ported(members)
 
     if action == "init":
         return _init_members(d, members)

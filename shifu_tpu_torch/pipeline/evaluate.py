@@ -21,8 +21,8 @@ Not ported: telemetry (the drift monitor, ROADMAP Queue 1 item 13) raises
 ``NotImplementedError`` naming its item.  The reference also writes the
 post-train quality snapshot ``telemetry/posttrain.json`` on every run, the
 baseline its serving quality monitor reads (item 11); the port writes no
-such file and logs a warning saying so on every scored run.  Scoring runs on one device: the reference's multi-chip mesh
-waits for item 12.  WDL and SVM model files raise in ``models.load_any``.
+such file and logs a warning saying so on every scored run.  Scoring runs
+on one device: the reference's multi-chip mesh waits for item 12.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ and Java byte streams, written from the same model files and
 reference's (a ``spec`` file's gzip header aside, which carries the time
 of writing).  ``corr`` copies ``stats -correlation``'s matrix, which only
 the reference's ``stats`` writes (ROADMAP Queue 1 item 2); without it
-``corr`` fails with the reference's message.  A WDL or SVM model file
-raises in ``models.load_any`` naming item 10.
+``corr`` fails with the reference's message.  ``spec`` writes NN, tree
+and WDL members in the reference's formats and skips a kernel SVM, which
+has none; ``pmml`` refuses WDL and kernel SVM models with the
+reference's messages.
 """
 
 from __future__ import annotations
@@ -56,11 +58,13 @@ class ExportProcessor(BasicProcessor):
 
     def _export_reference_spec(self) -> int:
         """`export -t spec`: emit every trained member in the reference's
-        own serialized formats — Encog-EG ``model*.nn`` and
-        ``BinaryDTSerializer`` ``model*.gbt``/``model*.rf`` — so the
-        reference's dependency-free Java consumers (``IndependentNNModel``,
-        ``IndependentTreeModel``, ``shifu convert``) load them unchanged
-        (reference model-spec layer, ``BinaryDTSerializer.java:60-160``)."""
+        own serialized formats — Encog-EG ``model*.nn``,
+        ``BinaryDTSerializer`` ``model*.gbt``/``model*.rf`` and
+        ``BinaryWDLSerializer`` ``model*.wdl`` — so the reference's
+        dependency-free Java consumers (``IndependentNNModel``,
+        ``IndependentTreeModel``, ``IndependentWDLModel``, ``shifu
+        convert``) load them unchanged (reference model-spec layer,
+        ``BinaryDTSerializer.java:60-160``)."""
         from ..eval.scorer import discover_model_paths
         from ..export import reference_spec as ref
         from ..models import load_any
@@ -70,22 +74,36 @@ class ExportProcessor(BasicProcessor):
             return 1
         out_dir = os.path.join(self.paths.export_dir, "reference")
         os.makedirs(out_dir, exist_ok=True)
+        n = 0
         for i, p in enumerate(paths):
-            m = load_any(p)         # WDL and SVM raise naming item 10
+            m = load_any(p)
+            kind = type(m).__name__
             try:
-                if m.input_kind == "norm":
+                if kind == "IndependentNNModel":
                     out = os.path.join(out_dir, f"model{i}.nn")
                     ref.write_encog_nn(out, m.spec, m.params)
-                else:
+                elif kind == "IndependentTreeModel":
                     suffix = "gbt" if m.spec.algorithm == "GBT" else "rf"
                     out = os.path.join(out_dir, f"model{i}.{suffix}")
                     ref.write_reference_tree(out, m.spec, m.trees,
                                              self.column_configs)
+                elif kind == "IndependentWDLModel":
+                    out = os.path.join(out_dir, f"model{i}.wdl")
+                    ref.write_reference_wdl(out, m.spec, m.params,
+                                            self.column_configs)
+                else:
+                    log.warning("model %s (%s): no reference format; "
+                                "skipped", p, kind)
+                    continue
             except Exception as e:
                 log.error("reference export of %s failed: %s", p, e)
                 return 1
             log.info("reference spec -> %s", out)
-        log.info("reference export: %d model(s) -> %s", len(paths), out_dir)
+            n += 1
+        if n == 0:
+            log.error("reference export: no model had a reference format")
+            return 1
+        log.info("reference export: %d model(s) -> %s", n, out_dir)
         return 0
 
     def _export_bagging(self) -> int:

@@ -18,7 +18,13 @@ continuous training.  A norm plane over ``shifu.train.memoryBudgetBytes``
 ``train.nn_trainer.train_ensemble_streamed``: windows of
 ``shifu.train.windowRows`` rows (default: the budget's), sampling masks
 hashed from the global row index, grid trials one streamed run each.
-SVM and WDL raise "not yet ported" (ROADMAP Queue 1 item 10).
+
+SVM with the linear kernel is the NN path's hinge head (``Const`` C maps
+to L2 ``1/(2C)``; the model file scores through a sigmoid); the other
+kernels solve the dual on the step's device (``train.svm_trainer``), one
+``model{b}.svm`` a bag, each bag journalled so an interrupted run skips
+the bags it solved.  WDL reads both planes and trains through
+``train.wdl_trainer.run_wdl_training``.
 """
 
 from __future__ import annotations
@@ -106,6 +112,49 @@ def lr_spec(input_dim: int, params: Dict[str, Any], column_nums: List[int],
         extra={"algorithm": "LR"})
 
 
+def svm_spec(input_dim: int, params: Dict[str, Any], column_nums: List[int],
+             feature_names: List[str]) -> nn_model.NNModelSpec:
+    """Linear SVM: hinge loss on a linear head (reference
+    ``core/alg/SVMTrainer.java``'s Kernel/Gamma/Const params).  The other
+    kernels solve the dual (``train/svm_trainer.py``) and reach this spec
+    only on the streamed path, where the kernel matrix cannot be
+    materialised: a coded error, as the reference's libsvm SVM is
+    local-only too.  ``Const`` (C) is kept in ``extra``; the trainer maps
+    it to L2 ``1/(2C)`` (:func:`_apply_svm_objective`)."""
+    kernel = str(params.get("Kernel", "linear")).lower()
+    if kernel != "linear":
+        from ..config.errors import ErrorCode, ShifuError
+        raise ShifuError(ErrorCode.ERROR_MODELCONFIG_NOT_VALIDATION,
+                         f"SVM Kernel={kernel!r} cannot run in streamed/"
+                         "out-of-core mode (the kernel matrix is "
+                         "local-scale by nature); drop "
+                         "-Dshifu.train.streaming or use NN/GBT")
+    c_penalty = float(params.get("Const", 1.0))
+    return nn_model.NNModelSpec(
+        input_dim=input_dim, hidden_nodes=[], activations=[],
+        output_dim=1, output_activation="linear", loss="hinge",
+        column_nums=column_nums, feature_names=feature_names,
+        extra={"algorithm": "SVM", "svm_const": c_penalty})
+
+
+def _apply_svm_objective(settings: TrainSettings, alg: Algorithm,
+                         run_params: Dict[str, Any]) -> None:
+    """Soft-margin C -> L2 ``1/(2C)``, default C = 1."""
+    if alg == Algorithm.SVM:
+        settings.l2 = 1.0 / (2.0 * float(run_params.get("Const", 1.0)))
+
+
+def _scoring_spec(spec: nn_model.NNModelSpec) -> nn_model.NNModelSpec:
+    """The spec a model file ships with: the SVM trains a linear head
+    (hinge needs raw margins) and scores through a sigmoid, so eval stays
+    in the [0, 1] * 1000 range (rank metrics unchanged)."""
+    if (spec.extra or {}).get("algorithm") == "SVM":
+        return dataclasses.replace(
+            spec, output_activation="sigmoid",
+            extra={**spec.extra, "margin_sigmoid": True})
+    return spec
+
+
 class TrainProcessor(BasicProcessor):
     step = ModelStep.TRAIN
 
@@ -118,7 +167,8 @@ class TrainProcessor(BasicProcessor):
             log.info("train: previous run was interrupted — resuming "
                      "from trainer checkpoints")
             self.params["resume"] = True
-        if alg in (Algorithm.NN, Algorithm.LR, Algorithm.TENSORFLOW):
+        if alg in (Algorithm.NN, Algorithm.LR, Algorithm.SVM,
+                   Algorithm.TENSORFLOW):
             if alg == Algorithm.TENSORFLOW:
                 # the reference's TF-on-YARN bridge trains the same net
                 # here; TF-only params it would ignore are an error
@@ -133,7 +183,10 @@ class TrainProcessor(BasicProcessor):
         if alg in (Algorithm.GBT, Algorithm.RF, Algorithm.DT):
             from ..train.dt_trainer import run_tree_training
             return run_tree_training(self)
-        raise _not_ported(f"{alg.name} training", "item 10")
+        if alg == Algorithm.WDL:
+            from ..train.wdl_trainer import run_wdl_training
+            return run_wdl_training(self)
+        raise ValueError(f"unsupported algorithm {alg}")
 
     def _trials(self, params: Dict[str, Any]) -> List[Dict[str, Any]]:
         """Grid trials: explicit per-line file (train.gridConfigFile,
@@ -196,6 +249,10 @@ class TrainProcessor(BasicProcessor):
         n, d = x.shape
         log.info("train %s on %s: %d rows x %d features", alg.name,
                  self.device, n, d)
+        if alg == Algorithm.SVM and str((mc.train.params or {}).get(
+                "Kernel", "linear")).lower() != "linear":
+            return self._train_kernel_svm(x, y, w, column_nums,
+                                          feature_names)
 
         params = dict(mc.train.params or {})
         trials = self._trials(params)
@@ -235,6 +292,7 @@ class TrainProcessor(BasicProcessor):
             spec.output_activation = "softmax"
             spec.extra["n_classes"] = K
         settings = settings_from_params(run_params, mc.train)
+        _apply_svm_objective(settings, alg, run_params)
         if not is_gs:
             # trainer-state checkpoints: only full runs checkpoint/resume
             settings.checkpoint_dir = self.paths.checkpoint_dir
@@ -346,6 +404,7 @@ class TrainProcessor(BasicProcessor):
                 if ova:
                     spec.extra.update({"ova_classes": K, "n_classes": K})
                 settings = settings_from_params(run_params, mc.train)
+                _apply_svm_objective(settings, alg, run_params)
                 if not is_gs:
                     settings.checkpoint_dir = self.paths.checkpoint_dir
                     settings.resume = bool(self.params.get("resume"))
@@ -394,8 +453,63 @@ class TrainProcessor(BasicProcessor):
         log.info("train done in %.1fs (streamed)", time.time() - t0)
         return 0
 
+    def _train_kernel_svm(self, x, y, w, column_nums, feature_names) -> int:
+        """Non-linear-kernel SVM bags (reference ``SVMTrainer.java``
+        Kernel/Gamma/Const; local-scale by design, see
+        ``train/svm_trainer.py``).  Each solved bag commits its model to
+        the step's journal, so an interrupted multi-bag run resumes at the
+        first unsolved bag."""
+        from ..models.svm import SVMModelSpec, save_model
+        from ..train.svm_trainer import train_kernel_svm
+        mc = self.model_config
+        params = dict(mc.train.params or {})
+        if grid_search.is_grid_search(params):
+            raise ValueError("grid search is not supported for kernel SVM "
+                             "(single local-scale solve per bag)")
+        n, d = x.shape
+        kernel = str(params.get("Kernel", "linear")).lower()
+        kernel = {"radialbasisfunction": "rbf"}.get(kernel, kernel)
+        spec = SVMModelSpec(
+            input_dim=d, kernel=kernel,
+            gamma=float(params.get("Gamma", 1.0 / max(d, 1))),
+            coef0=float(params.get("Coef0", 0.0)),
+            degree=int(params.get("Degree", 3)),
+            column_nums=column_nums, feature_names=feature_names,
+            extra={"algorithm": "SVM"})
+        c_penalty = float(params.get("Const", 1.0))
+        bags = max(1, mc.train.baggingNum)
+        os.makedirs(self.paths.models_dir, exist_ok=True)
+        items = self.journal.arm({"alg": "SVM", "kernel": spec.kernel,
+                                  "const": c_penalty, "bags": bags},
+                                 resume=bool(self.params.get("resume")))
+        with open(self.paths.progress_path, "a" if items else "w") as pf:
+            for b in range(bags):
+                path = os.path.join(self.paths.models_dir, f"model{b}.svm")
+                if items.get(f"bag-{b}"):
+                    log.info("svm bag %d: already solved, skipping", b)
+                    continue
+                tw, _ = member_masks(
+                    n, 1, valid_rate=mc.train.validSetRate,
+                    sample_rate=mc.train.baggingSampleRate,
+                    replacement=mc.train.baggingWithReplacement,
+                    targets=y, seed=b)
+                train_mask = (tw[0] > 0) & (w > 0)
+                with self.phase("train"):
+                    sv_x, alpha_y, tr, va, n_sv = train_kernel_svm(
+                        x, y, train_mask, spec, c_penalty,
+                        device=self.device)
+                save_model(path, spec, sv_x, alpha_y)
+                self.journal.commit_item(f"bag-{b}", files=[path],
+                                         valid_err=float(va))
+                pf.write(f"Trainer #{b} Train Error: {tr:.6f} "
+                         f"Validation Error: {va:.6f} ({n_sv} SVs)\n")
+                log.info("svm bag %d: %d SVs -> %s", b, n_sv, path)
+        return 0
+
     def _make_spec(self, alg: Algorithm, d: int, run_params: Dict[str, Any],
                    column_nums, feature_names) -> nn_model.NNModelSpec:
+        if alg == Algorithm.SVM:
+            return svm_spec(d, run_params, column_nums, feature_names)
         if alg == Algorithm.LR:
             return lr_spec(d, run_params, column_nums, feature_names)
         return nn_spec_from_params(d, run_params, column_nums,
@@ -470,7 +584,8 @@ class TrainProcessor(BasicProcessor):
             err, spec, p, tp = flat[best]
             log.info("grid search: best trial #%d valid error %.6f "
                      "params %s", best, err, tp)
-            nn_model.save_model(self.paths.model_path(0, ext), spec, p)
+            nn_model.save_model(self.paths.model_path(0, ext),
+                                _scoring_spec(spec), p)
             return
         run, spec, res, _ = results[0]
         ova_k = (spec.extra or {}).get("ova_classes")
@@ -480,7 +595,8 @@ class TrainProcessor(BasicProcessor):
                 # member b*K+k scores class k
                 sp = dataclasses.replace(
                     spec, extra={**spec.extra, "class_index": i % ova_k})
-            nn_model.save_model(self.paths.model_path(i, ext), sp, p)
+            nn_model.save_model(self.paths.model_path(i, ext),
+                                _scoring_spec(sp), p)
         log.info("saved %d model(s); valid errors %s", len(res.params),
                  np.round(res.valid_errors, 6).tolist())
 

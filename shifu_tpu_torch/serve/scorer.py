@@ -8,8 +8,11 @@ covering rung of the bucket ladder, batches beyond the top rung chunk
 through it, and the result is trimmed back to the request's rows.  Forest
 columns read the bins (one ``tree_traverse`` kernel launch per forest per
 bucket); net columns read the normalized floats ``x`` (one stacked
-forward per same-shape group, ``torch.matmul`` on cuBLAS).  A raw-record
-batch gets both from ``FusedTransform.apply_device``.  Every launch is
+forward per same-shape group, ``torch.matmul`` on cuBLAS), as do kernel
+SVM columns (one kernel matrix against the support vectors); a WDL
+column reads its numeric block of ``x`` and its categorical columns of
+the bins, hashed columns folding on the device.  A raw-record batch gets
+both planes from ``FusedTransform.apply_device``.  Every launch is
 eager PyTorch; capturing each rung as a CUDA graph is later work.
 """
 
@@ -59,20 +62,31 @@ def covering_bucket(buckets: Sequence[int], n: int) -> int:
 
 def infer_dims(models: Sequence) -> Tuple[int, int]:
     """(n_features, n_bin_cols) the ensemble's inputs must provide, derived
-    from the saved specs: the nets' ``input_dim`` and the forests' widest
-    split column; 0 where no model of that kind is present."""
+    from the saved specs: the nets' ``input_dim``, the SVMs' support-vector
+    width, the forests' widest split column, and a WDL model's recorded
+    index lists (each plane's width apart); 0 where no model reads a
+    plane."""
     n_feat = n_bins_cols = 0
     for m in models:
         name = type(m).__name__
         if name == "IndependentNNModel":
             n_feat = max(n_feat, int(m.spec.input_dim))
+        elif name == "IndependentSVMModel":
+            n_feat = max(n_feat, int(m.sv_x.shape[1]))
         elif name == "IndependentTreeModel":
             feats = max((int(np.max(t.split_feat)) for t in m.trees),
                         default=-1)
             n_bins_cols = max(n_bins_cols, feats + 1)
+        elif name == "IndependentWDLModel":
+            extra = m.spec.extra or {}
+            nf = extra.get("num_feat_idx") or []
+            cf = extra.get("cat_col_idx") or []
+            if nf:
+                n_feat = max(n_feat, max(nf) + 1)
+            if cf:
+                n_bins_cols = max(n_bins_cols, max(cf) + 1)
         else:
-            raise NotImplementedError(
-                f"{name} is not ported to shifu_tpu_torch yet")
+            raise TypeError(f"cannot serve a {name}")
     return n_feat, n_bins_cols
 
 
@@ -92,15 +106,63 @@ def _tree_column(m, device: torch.device) -> Callable:
     return col
 
 
+def serve_copy_mode() -> str:
+    """``shifu.wdl.serveCopy``: auto | full | sharded | hot.  One card
+    serves the replicated (``full``) copy; the row-sharded and the lossy
+    hot-rows copies are ROADMAP item 12 and raise."""
+    from ..config import environment
+    raw = str(environment.get_property("shifu.wdl.serveCopy", "auto")
+              or "auto").lower()
+    if raw in ("sharded", "hot"):
+        raise NotImplementedError(
+            f"shifu.wdl.serveCopy={raw} is not yet ported to "
+            "shifu_tpu_torch (ROADMAP Queue 1 item 12) — serve it with "
+            "shifu_tpu")
+    return "full"
+
+
+def _wdl_column(m, device: torch.device) -> Callable:
+    """Score column of a WDL model on ``device``: its numeric block of
+    ``x`` and categorical columns of the bins (index lists pinned once),
+    hashed columns folded on the device (``apply_hash_device``, bit-equal
+    to the trainer's host hashing), one forward over the pinned params."""
+    extra = m.spec.extra or {}
+    nf = torch.tensor(extra.get("num_feat_idx") or [], dtype=torch.int64,
+                      device=device)
+    cf = torch.tensor(extra.get("cat_col_idx") or [], dtype=torch.int64,
+                      device=device)
+    m.on(device)                             # pinned once, like a forest
+
+    def col(x, bins):
+        return m.forward_device(x.index_select(1, nf),
+                                bins.index_select(1, cf).long())[:, 0]
+    return col
+
+
+def _svm_column(m) -> Callable:
+    """Score column of a kernel SVM over ``x``."""
+    return lambda x, bins: m.decision(x)[:, 0]
+
+
 def build_ensemble_fn(scorer: Scorer, device: torch.device) -> Callable:
     """``fn(x, bins) -> [n, M]`` scaled scores over the whole ensemble on
     ``device``: the scorer's same-shape net groups as stacked forwards
-    over ``x``, the forests over ``bins``."""
+    over ``x``, every other model as its own column."""
     from ..models.nn import forward
     groups = scorer.nn_groups()
     grouped = {i for idxs, _, _ in groups for i in idxs}
-    trees = {i: _tree_column(m, device) for i, m in enumerate(scorer.models)
-             if i not in grouped}
+    columns = {}
+    for i, m in enumerate(scorer.models):
+        if i in grouped:
+            continue
+        kind = getattr(m, "input_kind", "norm")
+        if kind == "bins":
+            columns[i] = _tree_column(m, device)
+        elif kind == "both":
+            serve_copy_mode()
+            columns[i] = _wdl_column(m, device)
+        else:
+            columns[i] = _svm_column(m)
     n_models = len(scorer.models)
     scale = scorer.scale
 
@@ -110,7 +172,7 @@ def build_ensemble_fn(scorer: Scorer, device: torch.device) -> Callable:
             out = forward(stacked, spec, x)            # [G, n, out]
             for pos, i in enumerate(idxs):
                 cols[i] = out[pos, :, 0]
-        for i, col in trees.items():
+        for i, col in columns.items():
             cols[i] = col(x, bins)
         return torch.stack(cols, dim=1) * scale
     return fn
@@ -129,8 +191,7 @@ class AOTScorer:
         self.scorer = Scorer(models, scale, device=self.device)
         self.buckets = tuple(sorted(set(buckets or bucket_ladder())))
         self.n_features, self.n_bins_cols = infer_dims(models)
-        from ..ops import tree_quant as tq
-        self.bins_dtype = tq.ensemble_bins_dtype(self.scorer.tree_models)
+        self.bins_dtype = self.scorer.bins_dtype()
         self._fn = build_ensemble_fn(self.scorer, self.device)
         self.needs_bins = self.n_bins_cols > 0
         self.transform = transform

@@ -162,6 +162,12 @@ def _host(tree):
     return tree_map(lambda t: t.detach().cpu(), tree)
 
 
+def _member(stacked, i: int):
+    """Member ``i`` of a stacked param tree, as host tensors (an NN's
+    layer list, a WDL's dict)."""
+    return tree_map(lambda t: t[i].detach().cpu().clone(), stacked)
+
+
 def _ckpt_state(stacked, opt_state, key, best_valid, best_train, best_dev,
                 stops):
     """The 8-tuple on the host; members with no best epoch yet carry
@@ -231,10 +237,11 @@ def _init_stack(spec, settings: TrainSettings, bags: int,
 
 
 class _EpochLedger:
-    """The epoch-end bookkeeping both trainers share: the errors history,
-    each member's best epoch (errors on the host, params on the device),
-    the early-stop windows, the learning-rate decay, the tmp-model and
-    trainer-checkpoint saves, and the final choice of params."""
+    """The epoch-end bookkeeping the NN and WDL trainers share: the errors
+    history, each member's best epoch (errors on the host, params on the
+    device), the early-stop windows, the learning-rate decay, the
+    tmp-model and trainer-checkpoint saves, and the final choice of
+    params."""
 
     def __init__(self, settings: TrainSettings, stacked, bags: int,
                  precision: str, progress, checkpoint, dev: torch.device):
@@ -320,7 +327,7 @@ class _EpochLedger:
         s = self.settings
         if self.checkpoint and s.tmp_model_every and \
                 (epoch + 1) % s.tmp_model_every == 0:
-            self.checkpoint(epoch, [nn_model.member_params(stacked, i)
+            self.checkpoint(epoch, [_member(stacked, i)
                                     for i in range(self.bags)])
         if s.checkpoint_dir and s.checkpoint_every and \
                 ((epoch + 1) % s.checkpoint_every == 0 or stopped):
@@ -339,9 +346,9 @@ class _EpochLedger:
         params = []
         for i in range(self.bags):
             if np.isfinite(self.best_valid[i]):
-                params.append(nn_model.member_params(self.best_dev, i))
+                params.append(_member(self.best_dev, i))
             else:
-                params.append(nn_model.member_params(stacked, i))
+                params.append(_member(stacked, i))
                 self.best_valid[i] = float(self.va[i])
                 self.best_train[i] = float(self.tr[i])
         return EnsembleResult(params=params, train_errors=self.best_train,

@@ -41,6 +41,14 @@ def tree_map(f, *trees):
     return f(*trees)
 
 
+def _first_leaf(tree) -> torch.Tensor:
+    if isinstance(tree, dict):
+        return _first_leaf(next(iter(tree.values())))
+    if isinstance(tree, (list, tuple)):
+        return _first_leaf(tree[0])
+    return tree
+
+
 def _zeros_like(params):
     return tree_map(torch.zeros_like, params)
 
@@ -117,9 +125,9 @@ def rmsprop(learning_rate: float, decay: float = 0.9,
 def adam(learning_rate: float, beta1: float = 0.9, beta2: float = 0.999,
          eps: float = 1e-8) -> Optimizer:
     def init(params, members: Optional[int] = None):
-        leaf = params[0]["w"]
         t = torch.zeros(() if members is None else (members,),
-                        dtype=torch.float32, device=leaf.device)
+                        dtype=torch.float32,
+                        device=_first_leaf(params).device)
         return {"m": _zeros_like(params), "t": t, "v": _zeros_like(params)}
 
     def update(grads, state, params):

@@ -231,15 +231,28 @@ def test_combo_aucs_match_the_reference(_prepared_template, tmp_path):
     assert got["areaUnderRoc"] > 0.7
 
 
-def test_combo_refuses_what_is_not_ported(tmp_path):
+def test_combo_refuses_what_is_not_ported(_prepared_template, tmp_path):
+    """WDL and SVM members, refused until ROADMAP item 10, now train and
+    score (``tests/test_torch_wdl_train.py`` holds their AUCs to the
+    reference's); a missing ``combo.json`` or ``-alg`` still fails."""
+    from shifu_tpu_torch.config import ModelConfig
     from shifu_tpu_torch.pipeline.combo import run_combo
-    d = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_combo(d, "new", "NN:WDL")
-    with open(os.path.join(d, "combo.json"), "w") as f:
-        json.dump({"algorithms": ["SVM", "GBT"]}, f)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_combo(d, "eval", None, device="cpu")
+    d = str(tmp_path / "set")
+    shutil.copytree(_prepared_template, d)
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    mc.train.numTrainEpochs = 2
+    mc.train.params = {"NumHiddenNodes": [4], "ActivationFunc": ["relu"],
+                       "MiniBatchs": 1024, "Kernel": "linear"}
+    mc.save(os.path.join(d, "ModelConfig.json"))
+    assert run_combo(d, "new", "WDL:SVM") == 0
+    assert run_combo(d, "run", None, device="cpu") == 0
+    assert sorted(os.listdir(os.path.join(d, "combo_0_WDL", "models"))) \
+        == ["model0.wdl"]
+    assert sorted(os.listdir(os.path.join(d, "combo_1_SVM", "models"))) \
+        == ["model0.svm"]
+    assert run_combo(d, "eval", None, device="cpu") == 0
+    with open(os.path.join(d, "ComboEval.Eval1.json")) as f:
+        assert json.load(f)["members"] == ["WDL", "SVM"]
     os.remove(os.path.join(d, "combo.json"))
     assert run_combo(d, "run", None, device="cpu") == 1
     assert run_combo(d, "new", None) == 1

@@ -12,7 +12,11 @@ sync an epoch (the ``[2, B]`` error fetch); the raw cache served on the
 card's path; the streamed NN trainer's epochs and the SE sensitivity job
 on the card against the CPU; ``encode``'s node-index walk (one launch a
 call, never the plain walk) against ``traverse_nodes``, and the exported
-reference spec's host scores against the native forest on the card.
+reference spec's host scores against the native forest on the card; the
+WDL trainer on the card against the CPU (one host sync a minibatch
+epoch), the hashed-ID buckets on the card against the host, the kernel
+SVM's dual on the card against the CPU, and WDL and SVM forwards that
+never leave the card.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -1266,3 +1270,127 @@ def test_spec_round_trip_on_the_card_matches_the_host_scorer(cuda,
     ok = np.concatenate([m for _, m in host])
     assert ok.sum() > 1000
     np.testing.assert_allclose(got[ok], want[ok], rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------------ WDL and SVM
+def _wdl_planes(n=1500, seed=21):
+    rng = np.random.default_rng(seed)
+    cards = [6, 33, 400]
+    xn = rng.normal(size=(n, 5)).astype(np.float32)
+    xc = np.stack([rng.integers(0, c, n) for c in cards],
+                  axis=1).astype(np.int32)
+    logit = xn[:, 0] + (xc[:, 1] % 4 == 0) - 0.5
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    w = rng.integers(1, 4, size=n).astype(np.float32)
+    return cards, xn, xc, y, w
+
+
+@pytest.mark.parametrize("batch", [0, 128])
+def test_wdl_training_on_cuda_equals_cpu(cuda, batch):
+    """3 bags, 4 epochs, full batch or minibatches of 128, on the card and
+    on the CPU: per-epoch errors within 1e-5 relative, params within
+    1e-5 (+1e-6)."""
+    from shifu_tpu_torch.models import wdl
+    from shifu_tpu_torch.train.nn_trainer import TrainSettings
+    from shifu_tpu_torch.train.wdl_trainer import train_wdl_ensemble
+    cards, xn, xc, y, w = _wdl_planes()
+    spec = wdl.WDLModelSpec(numeric_dim=5, cat_cardinalities=cards,
+                            embed_dim=4, hidden_nodes=[16, 8])
+    runs = [train_wdl_ensemble(xn, xc, y, w, spec, TrainSettings(
+        optimizer="ADAM", learning_rate=0.01, l2=1e-4, epochs=4,
+        batch_size=batch), bags=3, device=dev) for dev in ("cpu", cuda)]
+    np.testing.assert_allclose(np.array(runs[1].history),
+                               np.array(runs[0].history), rtol=1e-5)
+    from shifu_tpu_torch.train.checkpoint import tree_leaves
+    for a, b in zip(runs[0].params, runs[1].params):
+        for la, lb in zip(tree_leaves(a), tree_leaves(b)):
+            np.testing.assert_allclose(lb.numpy(), la.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_wdl_minibatch_epoch_makes_one_host_sync(cuda):
+    """Minibatch steps make no host sync: runs of 3 and 2 epochs differ
+    by the one [2, B] error fetch."""
+    import warnings
+
+    from shifu_tpu_torch.models import wdl
+    from shifu_tpu_torch.train.nn_trainer import TrainSettings
+    from shifu_tpu_torch.train.wdl_trainer import train_wdl_ensemble
+    cards, xn, xc, y, w = _wdl_planes()
+    spec = wdl.WDLModelSpec(numeric_dim=5, cat_cardinalities=cards)
+
+    def syncs(epochs):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                train_wdl_ensemble(xn, xc, y, w, spec, TrainSettings(
+                    optimizer="ADAM", epochs=epochs, batch_size=128),
+                    bags=2, device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in seen)
+    assert syncs(3) - syncs(2) == 1
+
+
+def test_wdl_hash_buckets_on_cuda_equal_the_host(cuda):
+    from shifu_tpu_torch.ops import hashing
+    ids = np.random.default_rng(3).integers(-5, 1 << 31, 100_000)
+    for buckets in (1, 32, 12345, (1 << 31) - 1):
+        key = hashing.column_hash_key(buckets)
+        got = hashing.hash_bucket_device(torch.from_numpy(ids).to(cuda),
+                                         key, buckets)
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), hashing.hash_bucket_host(ids, key, buckets))
+
+
+def test_svm_dual_on_cuda_equals_cpu(cuda):
+    """The rbf dual on 1,024 rows, 2,000 iterations, on the card and on
+    the CPU: duals within 1e-4, decision values within 1e-3, support
+    sets equal but for duals within 1e-4 of the 1e-6 threshold."""
+    from shifu_tpu_torch.models.svm import SVMModelSpec
+    from shifu_tpu_torch.train.svm_trainer import _solve_dual
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(1024, 8)).astype(np.float32)
+    y = (np.linalg.norm(x[:, :2], axis=1) > 1.2).astype(np.float32)
+    spec = SVMModelSpec(input_dim=8, kernel="rbf", gamma=0.3)
+    tm = (rng.random(1024) < 0.8).astype(np.float32)
+    out = [[v.cpu().numpy() for v in _solve_dual(
+        *(torch.from_numpy(a).to(dev) for a in (x, 2 * y - 1, tm, tm)),
+        spec, 2000)] for dev in ("cpu", cuda)]
+    (ca, cf, _, _), (ga, gf, _, _) = out
+    np.testing.assert_allclose(ga, ca, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gf, cf, rtol=0, atol=1e-3)
+    differ = (ga > 1e-6) != (ca > 1e-6)
+    assert (np.abs(ca[differ] - 1e-6) <= 1e-4).all()
+
+
+def test_wdl_and_svm_forwards_stay_on_the_card(cuda):
+    """A CUDA forward of either model makes no host sync and returns a
+    CUDA tensor: no step falls back to the CPU."""
+    from shifu_tpu_torch.models import svm, wdl
+    from shifu_tpu_torch.ops import hashing
+    cards, xn, xc, _, _ = _wdl_planes(300)
+    spec = wdl.WDLModelSpec(numeric_dim=5, cat_cardinalities=[6, 32, 32],
+                            extra={"hash_buckets": 32, "hashed_cols": [2],
+                                   "hash_keys": [hashing.column_hash_key(7)]})
+    m = wdl.IndependentWDLModel(spec, wdl.init_params((0, 1), spec))
+    s = svm.IndependentSVMModel(
+        svm.SVMModelSpec(input_dim=5, kernel="rbf", gamma=0.5),
+        xn[:40], np.linspace(-1, 1, 40).astype(np.float32))
+    xn_d, xc_d = (torch.from_numpy(a).to(cuda) for a in (xn, xc))
+    m.forward_device(xn_d, xc_d)                   # warm: params, bounds
+    s.decision(xn_d)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = (m.forward_device(xn_d, xc_d), s.decision(xn_d))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(o.device.type == "cuda" and o.shape == (300, 1) for o in out)
+    np.testing.assert_allclose(out[0].cpu().numpy(),
+                               m.compute(xn, xc, device="cpu"), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(out[1].cpu().numpy(),
+                               s.compute(xn, device="cpu"), rtol=1e-5,
+                               atol=1e-6)

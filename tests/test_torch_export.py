@@ -21,7 +21,9 @@ difference can only come from the exporters.
   on rows with every numeric present (the reference's own bound,
   ``tests/test_reference_export.py:113``).
 - ``columnstats``, ``woemapping``, ``bagging`` and ``corr`` equal the
-  reference's files; WDL specs raise naming ROADMAP item 10.
+  reference's files; the WDL spec writer's payload equals
+  ``tests/golden/wdl_model_golden.bin`` and reads back to the same
+  arrays.
 """
 
 import glob
@@ -33,6 +35,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
 
@@ -322,9 +325,26 @@ def test_columnstats_woe_bagging_and_corr_match(trained, tmp_path):
 
 
 def test_wdl_specs_raise_naming_item_10(tmp_path):
+    """Once a refusal (the WDL spec format was ROADMAP item 10), now the
+    format's round trip: ``tests/test_wdl_golden.py``'s model, built in
+    the port, writes the checked-in bytes and reads back to its arrays."""
+    from test_torch_wdl import _golden
+    from test_wdl_golden import GOLDEN
     from shifu_tpu_torch.export.reference_spec import write_reference_wdl
     from shifu_tpu_torch.models.reference_import import load_reference_wdl
-    with pytest.raises(NotImplementedError, match="item 10"):
-        write_reference_wdl(str(tmp_path / "m.wdl"), None, {})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_reference_wdl(str(tmp_path / "m.wdl"))
+    spec, params, ccs = _golden()
+    path = str(tmp_path / "model0.wdl")
+    write_reference_wdl(path, spec, params, ccs)
+    with open(path, "rb") as f:
+        payload = gzip.decompress(f.read())
+    with open(GOLDEN, "rb") as f:
+        assert payload == f.read()
+    spec2, params2, stats = load_reference_wdl(path)
+    assert (spec2.numeric_dim, spec2.cat_cardinalities, spec2.embed_dim,
+            spec2.hidden_nodes, spec2.column_nums, spec2.cat_column_nums) \
+        == (2, [3, 2], 2, [3], [1, 2], [5, 6])
+    assert sorted(stats) == [1, 2, 5, 6]
+    for k in ("embed", "wide_cat", "wide_num", "bias"):
+        assert torch.equal(params2[k], params[k]), k
+    for a, b in zip(params2["deep"], params["deep"]):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])

@@ -310,7 +310,9 @@ def test_narrow_precision_auc_within_the_pinned_bound(nn_template, tmp_path,
 
 
 @pytest.mark.parametrize("algorithm,argv,item", [
-    ("SVM", [], "item 10"), ("WDL", [], "item 10"),
+    ("WDL", ["-Dshifu.wdl.shardTables=on"], "item 12"),
+    ("WDL", ["-Dshifu.train.streaming=on", "-Dshifu.dcn.elastic=true"],
+     "item 12"),
     ("NN", ["-Dshifu.train.streaming=on", "-Dshifu.dcn.elastic=true"],
      "item 12"),
     ("LR", ["-Dshifu.train.memoryBudgetBytes=1000",

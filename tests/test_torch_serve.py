@@ -250,11 +250,13 @@ def test_eval_scorer_matches_reference(gbt_set):
 
 
 def test_unported_model_kinds_raise_clearly(tmp_path):
+    """Every kind the reference writes loads now (WDL and SVM since
+    ROADMAP item 10); a kind neither package writes raises naming it."""
     from shifu_tpu_torch.models import load_any
-    path = str(tmp_path / "model0.wdl")
+    path = str(tmp_path / "model0.xyz")
     np.savez(path, __spec__=np.frombuffer(
-        json.dumps({"kind": "wdl"}).encode(), np.uint8))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+        json.dumps({"kind": "xyz"}).encode(), np.uint8))
+    with pytest.raises(ValueError, match="unknown model kind 'xyz'"):
         load_any(path + ".npz")
 
 

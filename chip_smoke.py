@@ -49,7 +49,35 @@ versions on one card.  Otherwise it
    against the same model set served on ``device="cpu"`` within 1e-3 on the
    0-1000 scale (f32 tree sums run in another order on the card).  Kernel
    launch counts are zeroed just before this phase and read just after it:
-   every kernel of the path must have launched;
+   every kernel of the path must have launched.  Then the serving plane
+   (``serve_plane_phase``) on a copy of the set, telemetry on,
+   ``-Dshifu.scorelog.sampleRate=1.0``, ``traceSampleRate`` 0.1: the
+   server's warm must capture every rung of both paths as a CUDA graph
+   holding one ``tree_traverse`` launch; 4 client threads POST batches of
+   1, 7, 64, 333, 512 and 1500 rows, raw and pre-binned in turns (each
+   kind and size from two clients), while a rung of
+   128 is captured beside their replays (launch counts zeroed just before,
+   read just after: every ``tree_traverse`` launch is either a rung's
+   eager warm-up or one a graph replay ran, one a replay, and at least one
+   replay a scored batch), with no capture forced (``serve_capture_count()``
+   0) and every score within 1e-3 of the CPU server; outcomes drawn from the CPU
+   scores (Bernoulli) are posted for 3,334 rows and ``/quality``'s live AUC
+   must equal the AUC of the logged scores (after stop, from the score
+   log's committed segments) rounded to its 6 decimals; a ``/swap`` to a
+   50-tree forest captures at ``prepare`` and nothing at ``commit``, its
+   scores within 1e-3 of the CPU, a fresh registry restores the journal
+   at generation 1, and a rollback scores bit for bit as before; a
+   second server with ``maxQueueRows`` 64 and ``requestDeadlineMs``
+   0.001 answers a coded 429 (``Retry-After``) and a coded 504, and its
+   brownout governor flips on queue buildup and back (the flush deadline
+   restored); the SERVE heartbeat must be live with its extras, and the
+   stopped server must leave ``serve.request`` spans and
+   ``metrics.prom``.  It prints the closed-loop p50/p99 over HTTP at 1,
+   64 and 512 records (raw and pre-binned; ``LATENCY_REQUESTS`` requests
+   each, a p99 only where at least 100 back it) and, for every rung, its
+   replay against an eager launch of the same function (bit-equal, and
+   their device times); a ``torch.profiler`` trace of one replay must
+   show the graph running its ``tree_traverse`` kernel;
 4. drives the port's training path at full width: writes the same column
    plan's training set (the wire plane of 1,048,576 rows, y from a logit
    on 10 columns drawn from ``--seed``, integer weights) with the port's
@@ -113,15 +141,15 @@ versions on one card.  Otherwise it
    ``hist_batch`` both launched, counted from zero around the run; the
    device busy share of a 3-tree run from ``torch.profiler``); (a') the
    exact schedule: the same forest and progress bit for bit in 90 tail
-   sweeps, more than (a)'s; (a0) (a)'s first 3 trees at the default
+   sweeps, more than (a)'s; (a0) (a)'s first tree at the default
    geometry (two 4,129,776-row windows, none resident); (b) 6 trees with CheckpointInterval 5, then
    ``train -resume`` to 10 from the 5-tree checkpoint, with and without
    its score sidecar (8 ``tree_traverse`` launches, one a window),
    bit-identical to (a); (c) ``init -model``'s RF in two super-batches
    (31 tail sweeps, 224 ``hist_batch`` launches), falling out-of-bag
    errors, the peak device memory; (d) the plane's first 65,536 rows in
-   windows of 8,192 (6 resident): (a)'s GBT with coarse-to-fine on and
-   off and a 4-tree depth-7 RF on the card, the coarse-to-fine GBT also
+   windows of 8,192 (6 resident): (a)'s GBT cut to 5 trees with
+   coarse-to-fine on and off and a 4-tree depth-7 RF on the card, the coarse-to-fine GBT also
    on the CPU with equal splits and masks, leaves within 1e-5 relative
    (+1e-6), errors within 1e-5 relative, equal tail sweeps; (e) a streamed 3-bag GBT on the train
    plane (windows of 131,072, 6 resident), member 1 bit-identical to its
@@ -200,8 +228,8 @@ versions on one card.  Otherwise it
    ``tmp/NormalizedData`` plane of 2,621,440 x 256 f32 (2.71 GB at
    ``should_stream``'s 4 x 258 bytes a row), which streams by the default
    2 GiB budget in two windows with nothing forced: (a) ``init
-   -model``'s NN, full batch, 10 epochs, falling errors, ms an epoch; (b)
-   5 epochs then ``train -resume`` to 10, bit-identical; (c) one
+   -model``'s NN, full batch, 6 epochs, falling errors, ms an epoch; (b)
+   3 epochs then ``train -resume`` to 6, bit-identical; (c) one
    minibatch run; (d) the first 65,536 rows forced to stream in windows
    of 8,192, card and CPU, errors within 1e-4 relative; (e)
    ``torch.profiler`` over 2 epochs: the device busy share.  And
@@ -222,7 +250,8 @@ versions on one card.  Otherwise it
    of ``--seed``, the reference's WDL defaults (EmbedColumnNum 8, [64, 32]
    relu, wide and deep, ADAM 0.002, L2 1e-5) with baggingNum 5 through
    ``cli.main train`` on ``cuda``: (a) 5 full-batch epochs, falling
-   errors, ms an epoch; (b) one epoch at MiniBatchs 128, ms a step, the
+   errors, ms an epoch; (b) one epoch at MiniBatchs 128 over the
+   planes' first 131,072 rows (a cut in rows), ms a step, the
    step's kernel launches and the epoch's host syncs (one); (c)
    ``-Dshifu.wdl.hashBuckets=32``, its bucket ids on the card equal to
    the host's and its models served over HTTP on ``cuda`` against
@@ -370,16 +399,17 @@ MC_SCORE_TOL = 1e-5 + 1e-9                 # class scores card vs CPU (%.6f)
 STREAM_ROWS, STREAM_WINDOW = 1 << 22, 1 << 19   # the out-of-core plane;
 #                                       its shards and (a)'s windows
 STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
-STREAM_A0_TREES = 3                        # (a0): 13 s a tree
+STREAM_A0_TREES = 1                        # (a0): 13 s a tree
 STREAM_CUT_WINDOW, STREAM_CUT_RESIDENT = 8192, 6   # (d) on CUT_ROWS rows
 STREAM_CUT_RF_TREES = 4                    # (d)'s RF, depth DEPTH
+STREAM_CUT_TREES = 5                       # (d)'s GBT: (a)'s, 5 trees
 STREAM_CUT_CPU = ("gbt_c2f",)              # (d)'s cases also run on the CPU
 STREAM_LEAF_RTOL, STREAM_LEAF_ATOL = 1e-5, 1e-6    # (d) leaves, card/CPU
 STREAM_ERR_RTOL = 1e-5                     # (d) progress errors
 MEMBER_WINDOW, MEMBER_RESIDENT, MEMBER_BAGS = 1 << 17, 6, 3   # (e)
 NN_STREAM_ROWS = 10 * (1 << 18)            # 2,621,440 rows: 2.71 GB at
 #                                     4 * (N_COLS + 2) bytes, over 2 GiB
-NN_STREAM_EPOCHS, NN_STREAM_CKPT = 10, 5   # init -model's NN; a resume
+NN_STREAM_EPOCHS, NN_STREAM_CKPT = 6, 3    # init -model's NN; a resume
 NN_STREAM_BATCH = 1 << 16                  # (c)'s minibatch
 VARSEL_KEEP, VARSEL_SE_ATOL = 64, 1e-6     # SE filterNum; card vs CPU
 GBT_ROW_BYTES = N_COLS + 12                # a prepared GBT window row
@@ -603,8 +633,6 @@ def write_model_set(root: str, rng) -> dict:
                                         save_column_configs)
     from shifu_tpu_torch.config.column_config import ColumnFlag, ColumnType
     from shifu_tpu_torch.config.model_config import Algorithm, NormType
-    from shifu_tpu_torch.models.tree import TreeModelSpec, save_model
-    from shifu_tpu_torch.ops.tree import TreeArrays
 
     mc = ModelConfig()
     mc.basic.name = "chip_smoke"
@@ -653,16 +681,27 @@ def write_model_set(root: str, rng) -> dict:
                        columnType=ColumnType.C, columnFlag=ColumnFlag.Target)
     save_column_configs(ccs + [tag], os.path.join(root, "ColumnConfig.json"))
 
-    sf, lm, lv = random_forest(rng, N_TREES, DEPTH, N_BINS, N_COLS)
-    spec = TreeModelSpec(algorithm="GBT", n_trees=N_TREES, depth=DEPTH,
+    write_forest(os.path.join(root, "models"), rng, N_TREES,
+                 [c.columnName for c in ccs], init_score=-1.2)
+    return {"plan": plan}
+
+
+def write_forest(models_dir: str, rng, n_trees: int, names,
+                 init_score: float) -> None:
+    """``models_dir/model0.gbt``: a random GBT forest of ``n_trees``
+    depth-DEPTH trees over the plan's columns (``random_forest``)."""
+    from shifu_tpu_torch.models.tree import TreeModelSpec, save_model
+    from shifu_tpu_torch.ops.tree import TreeArrays
+    sf, lm, lv = random_forest(rng, n_trees, DEPTH, N_BINS, N_COLS)
+    spec = TreeModelSpec(algorithm="GBT", n_trees=n_trees, depth=DEPTH,
                          n_bins=N_BINS, loss="log", learning_rate=0.1,
-                         init_score=-1.2, column_nums=list(range(N_COLS)),
-                         feature_names=[c.columnName for c in ccs])
-    save_model(os.path.join(root, "models", "model0.gbt"), spec,
+                         init_score=init_score,
+                         column_nums=list(range(N_COLS)),
+                         feature_names=list(names))
+    save_model(os.path.join(models_dir, "model0.gbt"), spec,
                [TreeArrays(split_feat=sf[t], left_mask=lm[t],
                            leaf_value=lv[t], depth=DEPTH)
-                for t in range(N_TREES)])
-    return {"plan": plan}
+                for t in range(n_trees)])
 
 
 def make_records(rng, plan, n: int, malformed_at=None) -> list:
@@ -696,35 +735,28 @@ def serve_phase(torch, tq, root: str, plan, rng,
     within ``tol``: a forest set walks ``tree_traverse`` (every scored
     batch must launch it) and takes pre-binned requests; an NN set takes
     pre-normalized rows and launches no hand kernel."""
-    from http.server import ThreadingHTTPServer
-
     from shifu_tpu_torch.serve import ServeServer
-    from shifu_tpu_torch.serve.server import _make_handler
 
     t0 = time.perf_counter()
     server = ServeServer(root, device="cuda").start()
     log(f"cuda server up in {time.perf_counter() - t0:.2f} s "
         f"(buckets {server.status()['buckets']})")
     cpu = ServeServer(root, device="cpu")
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(server))
-    port = httpd.server_address[1]
-    worker = threading.Thread(target=httpd.serve_forever, daemon=True)
-    worker.start()
+    httpd, worker, http = serve_front(server)
 
     def call(path, body=None):
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{port}{path}",
-            data=None if body is None else json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=120) as resp:
-            return json.load(resp)
+        status, doc, _ = http(path, body)
+        if status != 200:
+            fail(f"{path}: HTTP {status} {doc}")
+        return doc
 
     requests = [make_records(rng, plan, n, malformed_at=3 if n == 64
                              else None) for n in RAW_BATCHES]
     scorer = server.registry.get(server.key)
     t_parse = time.perf_counter()
-    for r in requests:              # the host half of each raw request
-        scorer.transform.parse_records(r)
+    # the host half of each raw request, timed alone; the CPU check below
+    # scores these parsed rows
+    parsed = [scorer.transform.parse_records(r) for r in requests]
     parse_s = time.perf_counter() - t_parse
     prebinned = [(rng.normal(size=(n, scorer.n_features)).astype(
         np.float32), rng.integers(0, N_BINS, size=(n, scorer.n_bins_cols))
@@ -743,10 +775,8 @@ def serve_phase(torch, tq, root: str, plan, rng,
         launches = tq.predict_forest_quant.launches
         batches = server.batcher.stats["batches"] - batches_before
     finally:
-        httpd.shutdown()
-        httpd.server_close()
+        close_front(httpd, worker)
         server.stop()
-        worker.join(timeout=30)
     log(f"main path: {len(requests)} raw + {len(prebinned)} pre-binned "
         f"requests in {wall:.3f} s, {batches} batches, {launches} "
         f"tree_traverse launches; host record parsing alone takes "
@@ -761,11 +791,15 @@ def serve_phase(torch, tq, root: str, plan, rng,
         fail(f"unexpected /healthz: {health}")
 
     worst = 0.0
-    for recs, got in zip(requests, answers):
-        want = cpu.score_raw(recs)
-        if got["errors"] != want["errors"]:
-            fail(f"errors differ: {got['errors']} vs {want['errors']}")
-        for s, w in zip(got["scores"], want["scores"]):
+    cpu_scorer = cpu.registry.get(cpu.key)
+    for recs, got, (packed, kept, errors) in zip(requests, answers, parsed):
+        if got["errors"] != errors:
+            fail(f"errors differ: {got['errors']} vs {errors}")
+        want = [None] * len(recs)
+        for i, v in zip(kept, cpu_scorer.score_batch_raw(packed)
+                        .mean(axis=1)):
+            want[int(i)] = float(v)
+        for s, w in zip(got["scores"], want):
             if (s is None) != (w is None):
                 fail("a null score on one device only")
             if s is not None:
@@ -786,6 +820,511 @@ def serve_phase(torch, tq, root: str, plan, rng,
         f"{tol}); malformed record rejected with its code")
     return {"launches": {"tree_traverse": launches}, "batches": batches,
             "max_abs_score_diff": worst, "wall_s": wall, "parse_s": parse_s}
+
+
+# --------------------------------------------------- phase: serve plane
+PLANE_CLIENTS = 4                          # client threads
+PLANE_EXTRA_RUNG = 128                     # captured while clients run
+PLANE_REFINE_EVERY = 32                    # bucketRefineEvery (batches)
+PLANE_SWAP_TREES = 50                      # the swap's forest
+# closed-loop requests a (kind, size): a raw record costs ~2 ms of host
+# parse, so raw 512 gets a p50 alone; a p99 needs P99_MIN_REQUESTS
+LATENCY_REQUESTS = {"pre": {1: 300, 64: 300, 512: 300},
+                    "raw": {1: 100, 64: 100, 512: 8}}
+P99_MIN_REQUESTS = 100
+QUALITY_TOL = 1e-9                 # /quality (6 decimals) vs the logged
+#                                    scores' AUC rounded as it rounds
+
+
+def http_caller(port: int):
+    """``call(path, body=None, headers=None) -> (status, doc, headers)``
+    against 127.0.0.1:``port``; ``body`` is a JSON document or bytes."""
+    import urllib.error
+
+    def call(path, body=None, headers=None):
+        data = body if body is None or isinstance(body, bytes) \
+            else json.dumps(body).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=data,
+            headers={"Content-Type": "application/json", **(headers or {})})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status, json.load(resp), dict(resp.headers)
+        except urllib.error.HTTPError as e:
+            return e.code, json.load(e), dict(e.headers)
+    return call
+
+
+def serve_front(server):
+    """(stdlib HTTP front-end on 127.0.0.1:0, its thread, its caller)."""
+    from http.server import ThreadingHTTPServer
+
+    from shifu_tpu_torch.serve.server import _make_handler
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(server))
+    worker = threading.Thread(target=httpd.serve_forever, daemon=True)
+    worker.start()
+    return httpd, worker, http_caller(httpd.server_address[1])
+
+
+def close_front(httpd, worker) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    worker.join(timeout=30)
+
+
+def serve_plane_phase(torch, tq, root: str, serve_root: str, plan, rng,
+                      gpu: str) -> dict:
+    """The whole serving plane on the card over HTTP (see module docs,
+    step 3): captured rungs, 4 clients, outcomes and live quality, a
+    swap / restore / rollback, 429 / 504, brownout, latencies, and each
+    rung's replay against its eager function."""
+    from shifu_tpu_torch import obs
+    from shifu_tpu_torch.config import environment
+    from shifu_tpu_torch.eval.metrics import auc_trapezoid, sweep
+    from shifu_tpu_torch.serve import ServeServer, serve_capture_count
+
+    t_phase = time.perf_counter()
+    d = os.path.join(root, "serve_plane")
+    shutil.copytree(serve_root, d, ignore=shutil.ignore_patterns(
+        "serving", "telemetry"))
+    d_cpu, d_tight = d + "_cpu", d + "_tight"
+    for dst in (d_cpu, d_tight):
+        shutil.copytree(d, dst)
+    swap_dir = os.path.join(root, "serve_plane_swap", "models")
+    write_forest(swap_dir, rng, PLANE_SWAP_TREES,
+                 [name for _, name, _, _ in plan], init_score=-0.8)
+    # the budget holds every row the phase logs (≈180 MB, the bins of
+    # each): past the default 64 MiB the latency requests would prune the
+    # load's segments, which the quality check reads after the stop
+    props = {"shifu.scorelog.sampleRate": "1.0",
+             "shifu.scorelog.budgetBytes": str(1 << 30),
+             "shifu.serve.traceSampleRate": "0.1",
+             "shifu.serve.bucketRefineEvery": str(PLANE_REFINE_EVERY),
+             "shifu.telemetry.heartbeatSeconds": "1"}
+    for k, v in props.items():
+        environment.set_property(k, v)
+    obs.set_enabled(True)
+    out: dict = {}
+    try:
+        cpu = ServeServer(d_cpu, device="cpu", scorelog_sample_rate=0.0)
+        # no governor on this server: 4 clients of up to 1,500 records
+        # build a queue that would brown it out and stop the score log
+        # the quality check reads (brownout is driven on its own below)
+        environment.set_property("shifu.serve.brownout", "false")
+        t0 = time.perf_counter()
+        server = ServeServer(d, device="cuda")
+        out["warm_s"] = time.perf_counter() - t0
+        environment.set_property("shifu.serve.brownout", "")
+        key = server.key
+        live = server.registry.get(key)
+        warm_buckets = live.buckets
+        if live.captures != 2 * len(warm_buckets) or any(
+                r.graph is None or r.launches != 1
+                for r in live._rungs.values()):
+            fail(f"warm captured {live.captures} rungs for ladder "
+                 f"{warm_buckets}: every rung of both paths must be a "
+                 "graph holding one tree_traverse launch")
+        server.start()
+        httpd, worker, call = serve_front(server)
+        try:
+            out.update(plane_load(torch, tq, server, cpu, call, plan, rng,
+                                  gpu))
+            out.update(plane_swap(torch, server, cpu, call, swap_dir,
+                                  d, out.pop("payloads"), gpu))
+            out["latency_ms"] = plane_latency(call, server.registry.get(key),
+                                              plan, rng, gpu)
+            out["rungs"] = plane_rungs(torch, server.registry.get(key),
+                                       plan, rng, gpu)
+            out["replay_trace"] = replay_trace(
+                torch, server.registry.get(key), gpu)
+            beat = obs.read_health(obs.health_dir_for(d))
+            if not beat or obs.classify(beat[0]) != "live" or not all(
+                    k in beat[0] for k in ("queue_depth", "queue_buildup",
+                                           "slo", "mode", "quality")):
+                fail(f"no live SERVE heartbeat with the serve extras: "
+                     f"{beat}")
+        finally:
+            close_front(httpd, worker)
+            server.stop()
+        out.update(plane_overload(d_tight, plan, rng))
+        out.update(plane_quality_logged(d, out.pop("joined"),
+                                        out["quality"], auc_trapezoid,
+                                        sweep))
+    finally:
+        for k in list(props) + ["shifu.serve.maxQueueRows",
+                                "shifu.serve.requestDeadlineMs",
+                                "shifu.serve.brownout"]:
+            environment.set_property(k, "")
+        obs.set_enabled(None)
+    if serve_capture_count() != 0:
+        fail(f"serve_capture_count() = {serve_capture_count()} after the "
+             "serve plane phase")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"serve plane: {out['batches']} batches, {out['launches']} "
+        f"tree_traverse launches by graph replays, captures {out['captures']}, swap "
+        f"prepare {out['swap']['prepare_s']:.3f} s; phase "
+        f"{out['wall_s']:.1f} s — [{gpu}]")
+    return out
+
+
+def plane_load(torch, tq, server, cpu, call, plan, rng, gpu) -> dict:
+    """4 client threads of raw and pre-binned batches over HTTP, a rung
+    captured while they run; capture count, B4 replays and every score
+    against the CPU server."""
+    from shifu_tpu_torch.serve import serve_capture_count
+    live = server.registry.get(server.key)
+    raw = {n: make_records(rng, plan, n) for n in RAW_BATCHES}
+    pre = {n: (rng.normal(size=(n, live.n_features)).astype(np.float32),
+               rng.integers(0, N_BINS, size=(n, live.n_bins_cols))
+               .astype(np.int32)) for n in RAW_BATCHES}
+    bodies = {}
+    for n in RAW_BATCHES:
+        bodies["raw", n] = json.dumps({"records": raw[n]}).encode()
+        bodies["pre", n] = json.dumps({"rows": pre[n][0].tolist(),
+                                       "bins": pre[n][1].tolist()}).encode()
+    results, lock = [], threading.Lock()
+
+    def client(ci):
+        # every size once a client, raw and pre-binned in turns: each
+        # (kind, size) comes from two clients
+        for si, n in enumerate(RAW_BATCHES):
+            kind = ("raw", "pre")[(ci + si) % 2]
+            req = f"c{ci}{kind}{n}"
+            got = call("/score", bodies[kind, n], {"X-Shifu-Request": req})
+            with lock:
+                results.append((req, ci, kind, n) + got[:2])
+
+    warm_captures, warm_buckets = live.captures, live.buckets
+    batches0 = server.batcher.stats["batches"]
+    counts0 = (live.replays, live.replayed_launches, live.warm_launches)
+    tq.predict_forest_quant.launches = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(PLANE_CLIENTS)]
+    for t in threads:
+        t.start()
+    added = live.extend_buckets([PLANE_EXTRA_RUNG])   # beside the replays
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    batches = server.batcher.stats["batches"] - batches0
+    for _ in range(100):                    # a refinement still capturing
+        if not server.batcher._refining:
+            break
+        time.sleep(0.05)
+    launches = tq.predict_forest_quant.launches
+    replays, replayed, warm_launches = (
+        now - then for now, then in zip(
+            (live.replays, live.replayed_launches, live.warm_launches),
+            counts0))
+    rungs_added = len(live.buckets) - len(warm_buckets)
+    if added != 1 or PLANE_EXTRA_RUNG not in live.buckets:
+        fail(f"extend_buckets added {added} rungs: {live.buckets}")
+    if live.captures != warm_captures + 2 * rungs_added or \
+            serve_capture_count() != 0:
+        fail(f"captures {live.captures} after warm {warm_captures} and "
+             f"{rungs_added} added rungs; serve_capture_count() = "
+             f"{serve_capture_count()}")
+    if launches != replayed + warm_launches or replayed != replays or \
+            any(r.launches != 1 for r in live._rungs.values()) or \
+            replays < batches or batches == 0:
+        fail(f"tree_traverse launched {launches} times: {replayed} by "
+             f"{replays} graph replays, {warm_launches} by the new rungs' "
+             f"warm-ups; {batches} scored batches")
+    worst = 0.0
+    want = {}
+    cpu_scorer = cpu.registry.get(cpu.key)
+    for n in RAW_BATCHES:          # the host parse once, scored on the CPU
+        packed = live.transform.parse_records(raw[n])[0]
+        want["raw", n] = cpu_scorer.score_batch_raw(packed).mean(axis=1)
+        want["pre", n] = cpu_scorer.score_batch(*pre[n]).mean(axis=1)
+    for req, _, kind, n, status, doc in results:
+        if status != 200 or (kind == "raw" and doc["errors"]):
+            fail(f"request {req}: {status} {doc.get('error', doc)}")
+        if doc.get("req") != req:
+            fail(f"request {req} answered for {doc.get('req')}")
+        worst = max(worst, float(np.max(np.abs(
+            np.asarray(doc["scores"]) - want[kind, n]))))
+    if worst > SCORE_TOL:
+        fail(f"serve plane: card vs CPU scores differ by {worst}")
+    log(f"serve plane load: {len(results)} requests from {PLANE_CLIENTS} "
+        f"clients in {wall:.3f} s, {batches} batches, {replays} graph "
+        f"replays running {replayed} tree_traverse launches (+ "
+        f"{warm_launches} by the new rungs' eager warm-ups), ladder "
+        f"{list(live.buckets)} (captures "
+        f"{warm_captures} at warm, {live.captures} now, "
+        f"serve_capture_count 0); scores within {worst:.3g} of the CPU "
+        f"— [{gpu}]")
+    # the generator's labels: Bernoulli(p = the CPU score / 1000), for
+    # requests that keep the joined window under the monitor's 4,096 rows
+    lab_rng = np.random.default_rng(rng.integers(1 << 30))
+    joined = {}
+    for req, ci, kind, n, _, _ in sorted(results):
+        if (ci < 2 and n <= 512) or (ci == 2 and n == 1500):
+            joined[req] = (lab_rng.random(n) < want[kind, n] / 1000.0
+                           ).astype(float).tolist()
+    status, doc, _ = call("/outcome", {"outcomes": [
+        {"req": r, "labels": lab} for r, lab in joined.items()]})
+    rows = sum(len(v) for v in joined.values())
+    if status != 200 or doc["joined_rows"] != rows or doc["late"]:
+        fail(f"/outcome joined {doc} of {rows} rows")
+    status, quality, _ = call("/quality")
+    if status != 200 or quality["joined"] != rows \
+            or quality["live_auc"] is None:
+        fail(f"/quality after {rows} joined rows: {quality}")
+    return {"launches": replayed, "warm_launches": warm_launches,
+            "replays": replays, "batches": batches, "wall_s": wall,
+            "captures": {"warm": warm_captures, "after_load": live.captures,
+                         "rungs_added": rungs_added},
+            "max_abs_score_diff": worst, "joined": joined,
+            "quality": quality,
+            "payloads": {"raw64": raw[64], "pre333": pre[333]}}
+
+
+def plane_swap(torch, server, cpu, call, swap_dir, d, payloads,
+               gpu) -> dict:
+    """/swap prepare (captures) and commit (none) to the 50-tree forest,
+    its scores against the CPU, the journal restored by a fresh registry,
+    then a rollback to the bit-identical incumbent."""
+    from shifu_tpu_torch.eval.scorer import load_models
+    from shifu_tpu_torch.serve import ServeServer, serve_capture_count
+    from shifu_tpu_torch.serve.registry import ModelRegistry
+    key = server.key
+    old = server.registry.get(key)
+    packed = old.transform.parse_records(payloads["raw64"])[0]
+    x, bins = payloads["pre333"]
+    before = (old.score_batch_raw(packed), old.score_batch(x, bins))
+    t0 = time.perf_counter()
+    status, prep, _ = call("/swap", {"phase": "prepare", "dir": swap_dir})
+    prepare_s = time.perf_counter() - t0
+    pend = server.registry._pending.get(key)
+    if status != 200 or pend is None or prep["prepared_generation"] != 1 \
+            or pend.scorer.captures != 2 * len(pend.scorer.buckets):
+        fail(f"/swap prepare: {status} {prep}")
+    status, com, _ = call("/swap", {"phase": "commit"})
+    live = server.registry.get(key)
+    if status != 200 or com["generation"] != 1 or live is not pend.scorer:
+        fail(f"/swap commit: {status} {com}")
+    captures = live.captures
+    bins = bins[:, :live.n_bins_cols]
+    status, a, _ = call("/score", {"records": payloads["raw64"]})
+    status2, b, _ = call("/score", {"rows": x.tolist(),
+                                    "bins": bins.tolist()})
+    cpu50 = ServeServer(cpu.model_set_dir, models=load_models(swap_dir),
+                        key="swap", device="cpu", scorelog_sample_rate=0.0)
+    worst = max(
+        float(np.max(np.abs(np.asarray(a["scores"])
+                            - np.asarray(cpu50.score_raw(
+                                payloads["raw64"])["scores"])))),
+        float(np.max(np.abs(np.asarray(b["scores"]) - cpu50.score(x, bins)))))
+    if status != 200 or status2 != 200 or a["generation"] != 1 \
+            or worst > SCORE_TOL or live.captures != captures \
+            or serve_capture_count() != 0:
+        fail(f"after the commit: {status}/{status2}, generation "
+             f"{a.get('generation')}, scores within {worst}, captures "
+             f"{captures} -> {live.captures}")
+    fresh = ModelRegistry(state_dir=os.path.join(d, "serving"),
+                          device="cuda")
+    fresh.restore(key, os.path.join(d, "models"), buckets=live.buckets,
+                  transform=server.transform)
+    hist = [(h["generation"], h["models_dir"])
+            for h in fresh.generation_history(key)]
+    restored = fresh.get(key).score_batch_raw(packed)
+    if fresh.generation(key) != 1 or \
+            hist != [(0, os.path.join(d, "models"))] or \
+            not np.array_equal(restored, live.score_batch_raw(packed)):
+        fail(f"journal restored at generation {fresh.generation(key)} "
+             f"with history {hist}")
+    server.registry.rollback(key)
+    back = server.registry.get(key)
+    x, bins = payloads["pre333"]
+    del fresh
+    if back is not old or server.registry.generation(key) != 0 or not (
+            np.array_equal(back.score_batch_raw(packed), before[0])
+            and np.array_equal(back.score_batch(x, bins), before[1])):
+        fail("rollback did not restore the incumbent bit for bit")
+    log(f"swap to {PLANE_SWAP_TREES} trees: prepare {prepare_s:.3f} s "
+        f"({pend.scorer.captures} captures), commit 0 captures, scores "
+        f"within {worst:.3g} of the CPU; journal restored at generation 1 "
+        f"by a fresh registry; rollback bit-identical — [{gpu}]")
+    return {"swap": {"prepare_s": prepare_s,
+                     "prepare_captures": pend.scorer.captures,
+                     "max_abs_score_diff": worst}}
+
+
+def plane_overload(d_tight, plan, rng) -> dict:
+    """429 over a small maxQueueRows, 504 under a tiny requestDeadlineMs
+    (a second server on the card), and brownout flipped and back."""
+    from shifu_tpu_torch.config import environment
+    from shifu_tpu_torch.serve import ServeServer
+    environment.set_property("shifu.serve.maxQueueRows", "64")
+    environment.set_property("shifu.serve.requestDeadlineMs", "0.001")
+    tight = ServeServer(d_tight, device="cuda", key="tight",
+                        scorelog_sample_rate=0.0)
+    environment.set_property("shifu.serve.maxQueueRows", "")
+    environment.set_property("shifu.serve.requestDeadlineMs", "")
+    sc = tight.registry.get("tight")
+    recs = make_records(rng, plan, 7)
+    httpd, worker, call = serve_front(tight)
+    try:
+        b = tight.batcher
+        b.submit_burst(np.zeros((64, sc.n_features), np.float32),
+                       np.zeros((64, sc.n_bins_cols), np.int32))
+        s429, d429, h429 = call("/score", {"records": recs})
+        if s429 != 429 or d429.get("error") != "overloaded" \
+                or not d429.get("retry_after_ms", 0) > 0 \
+                or int(h429.get("Retry-After", 0)) < 1:
+            fail(f"expected a coded 429: {s429} {d429} {h429}")
+        b.drain()
+        delay0 = b.max_delay_s
+        b.submit_burst(np.zeros((4 * 512 + 1, sc.n_features), np.float32),
+                       np.zeros((4 * 512 + 1, sc.n_bins_cols), np.int32))
+        modes = [tight.check_brownout(), tight.check_brownout()]
+        shrunk = b.max_delay_s
+        b.drain()
+        modes += [tight.check_brownout() for _ in range(3)]
+        if modes != ["normal", "brownout", "brownout", "brownout",
+                     "normal"] or not shrunk < delay0 == b.max_delay_s:
+            fail(f"brownout modes {modes}, flush deadline {delay0} -> "
+                 f"{shrunk} -> {b.max_delay_s}")
+        tight.start()
+        s504, d504, _ = call("/score", {"records": recs})
+        if s504 != 504 or d504.get("error") != "deadline_exceeded":
+            fail(f"expected a coded 504: {s504} {d504}")
+    finally:
+        close_front(httpd, worker)
+        tight.stop()
+    log(f"overload: 429 {d429} (Retry-After {h429.get('Retry-After')}), "
+        f"504 {d504['error']}; brownout {modes}")
+    return {"overload": {"429": d429, "504": d504["error"],
+                         "brownout": modes}}
+
+
+def plane_quality_logged(d, joined, quality, auc_trapezoid, sweep) -> dict:
+    """/quality's live AUC against the AUC of the logged scores of the
+    joined requests (the committed score-log segments after stop), and
+    the trace and metrics the stopped server left."""
+    from shifu_tpu_torch import obs
+    recs = obs.read_score_records(obs.scorelog_dir(d))
+    by_req = {}
+    for r in recs:
+        if r["req"] in joined:
+            by_req.setdefault(r["req"], []).extend(r["scores"])
+    if set(by_req) != set(joined):
+        fail(f"score log holds {len(by_req)} of {len(joined)} joined "
+             "requests")
+    s = np.concatenate([by_req[r] for r in joined])
+    y = np.concatenate([joined[r] for r in joined])
+    c = sweep(s, y)
+    logged = float(auc_trapezoid(c.fp / max(c.neg_total, 1e-12),
+                                 c.tp / max(c.pos_total, 1e-12)))
+    diff = abs(round(logged, 6) - quality["live_auc"])
+    if diff > QUALITY_TOL:
+        fail(f"/quality live AUC {quality['live_auc']} vs the logged "
+             f"scores' {logged}")
+    trace = os.path.join(d, "telemetry", "trace.jsonl")
+    spans = [json.loads(line) for line in open(trace)]
+    n_req = sum(1 for r in spans if r.get("name") == "serve.request")
+    if not n_req or not os.path.isfile(os.path.join(
+            d, "telemetry", "metrics.prom")):
+        fail("the stopped server left no serve.request span or no "
+             "metrics.prom")
+    log(f"quality: live AUC {quality['live_auc']:.6f} over "
+        f"{quality['joined']} joined rows = the logged scores' AUC "
+        f"{logged:.6f} (diff {diff:.3g}); {len(recs)} logged records, "
+        f"{n_req} sampled serve.request spans")
+    return {"live_auc": quality["live_auc"], "logged_auc": logged,
+            "logged_records": len(recs), "request_spans": n_req}
+
+
+def plane_latency(call, scorer, plan, rng, gpu) -> dict:
+    """Closed-loop request latency over HTTP (one client, sequential) at
+    1, 64 and 512 records, raw and pre-binned: ``LATENCY_REQUESTS``
+    requests a kind and size, p50 in ms, and p99 where at least
+    ``P99_MIN_REQUESTS`` requests back it (else None)."""
+    out = {}
+    for n in (1, 64, 512):
+        bodies = {
+            "raw": json.dumps({"records": make_records(rng, plan, n)}
+                              ).encode(),
+            "pre": json.dumps({
+                "rows": np.zeros((n, scorer.n_features)).tolist(),
+                "bins": rng.integers(0, N_BINS,
+                                     size=(n, scorer.n_bins_cols)).tolist()
+            }).encode()}
+        for kind, body in bodies.items():
+            count = LATENCY_REQUESTS[kind][n]
+            ms = []
+            for _ in range(count):
+                t0 = time.perf_counter()
+                status, doc, _ = call("/score", body)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    fail(f"latency request: {status} {doc}")
+            p50 = float(np.percentile(ms, 50))
+            p99 = float(np.percentile(ms, 99)) \
+                if count >= P99_MIN_REQUESTS else None
+            out[f"{kind}_{n}"] = {"requests": count, "p50": p50, "p99": p99}
+            tail = f"p99 {p99:.3f} ms" if p99 is not None \
+                else f"no p99 (under {P99_MIN_REQUESTS} requests)"
+            log(f"closed-loop {kind} {n} records: p50 {p50:.3f} ms, {tail} "
+                f"over {count} requests — [{gpu}]")
+    return out
+
+
+def replay_trace(torch, scorer, gpu) -> dict:
+    """One replay of the pre-binned rung of 64 under ``torch.profiler``:
+    the device kernels the graph ran must include its ``tree_traverse``
+    launches (the kernel's count adds a graph's launches at each replay
+    on the host; this is the device's own record of one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rung = scorer._rungs[(False, 64)]
+    with rung.lock, profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) as prof:
+        rung.graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    walks = [n for n in names if "forest_walk_kernel" in n
+             or "tree_traverse_kernel" in n]
+    if len(walks) != rung.launches:
+        fail(f"a replay of the rung of 64 ran {len(walks)} tree_traverse "
+             f"kernels (its capture recorded {rung.launches}); the device "
+             f"ran {len(names)} ops: {sorted(set(names))[:8]}")
+    log(f"torch.profiler over one replay of the rung of 64: {len(names)} "
+        f"device ops, {len(walks)} of them the tree_traverse kernel "
+        f"({walks[0][:60]}) — [{gpu}]")
+    return {"device_ops": len(names), "tree_traverse": len(walks)}
+
+
+def plane_rungs(torch, scorer, plan, rng, gpu) -> dict:
+    """Each rung's replay against its eager function: bit-equal scores
+    from a full rung of data, and the device time of one replay and of
+    one eager launch of the same function on the rung's inputs."""
+    packed_all = scorer.transform.parse_records(
+        make_records(rng, plan, scorer.buckets[-1]))[0]
+    out = {}
+    for b in scorer.buckets:
+        x = rng.normal(size=(b, scorer.n_features)).astype(np.float32)
+        bins = rng.integers(0, N_BINS, size=(b, scorer.n_bins_cols)
+                            ).astype(np.int32)
+        for raw, arrays in ((False, [x, bins]), (True, [packed_all[:b]])):
+            got = scorer.score_batch_raw(arrays[0]) if raw \
+                else scorer.score_batch(*arrays)
+            if not np.array_equal(got, scorer.eager_batch(arrays, raw=raw)):
+                fail(f"rung {b} ({'raw' if raw else 'pre-binned'}): the "
+                     "replay differs from the eager launch")
+            rung = scorer._rungs[(raw, b)]
+            fn = scorer._raw_fn if raw else scorer._fn
+            with torch.no_grad():
+                replay = device_ms(torch, rung.graph.replay)
+                eager = device_ms(torch, lambda: fn(*rung.inputs))
+            name = f"{'raw' if raw else 'pre'}_{b}"
+            out[name] = {"replay_ms": replay, "eager_ms": eager}
+            log(f"rung {name}: replay {replay:.4f} ms, eager "
+                f"{eager:.4f} ms on the device, bit-equal — [{gpu}]")
+    return out
 
 
 # ------------------------------------------------------- phase: train
@@ -3497,8 +4036,8 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
                      gpu) -> dict:
     """(d): the stream plane's first CUT_ROWS rows, windows of
     STREAM_CUT_WINDOW, a device cache that keeps STREAM_CUT_RESIDENT of
-    them resident (GBT and RF alike); (a)'s GBT with coarse-to-fine on
-    and off, and a STREAM_CUT_RF_TREES-tree depth-7 RF, each on ``cuda``,
+    them resident (GBT and RF alike); (a)'s GBT at STREAM_CUT_TREES trees
+    with coarse-to-fine on and off, and a STREAM_CUT_RF_TREES-tree depth-7 RF, each on ``cuda``,
     the STREAM_CUT_CPU cases also on ``cpu`` (the smoke's time limit cut
     the others' CPU runs; ``tests/test_torch_tree_streaming.py`` holds
     every regime to the reference on the CPU)."""
@@ -3512,8 +4051,9 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
     rf_params = {"TreeNum": STREAM_CUT_RF_TREES, "MaxDepth": DEPTH,
                  "Impurity": "entropy", "FeatureSubsetStrategy": "TWOTHIRDS",
                  "Loss": "squared"}
-    cases = (("gbt_c2f", "GBT", params, "true"),
-             ("gbt_exact", "GBT", params, "false"),
+    gbt = dict(params, TreeNum=STREAM_CUT_TREES)
+    cases = (("gbt_c2f", "GBT", gbt, "true"),
+             ("gbt_exact", "GBT", gbt, "false"),
              ("rf", "RF", rf_params, None))
     got = {}
     for name, alg, p, c2f in cases:
@@ -4041,6 +4581,7 @@ def multiclass_cli_phase(torch, tq, root: str, csv: str,
 # ------------------------------------------------- phase: WDL and SVM
 WDL_BAGS, WDL_EPOCHS = 5, 5               # baggingNum as the NN's; full batch
 WDL_BATCH = 128                           # the reference's default MiniBatchs
+WDL_B_ROWS = 1 << 17                      # (b)'s epoch: a cut in rows
 WDL_HASH_BUCKETS = 32                     # columns past 32 categories hash
 WDL_CUT_BAGS, WDL_CUT_EPOCHS = 2, 3       # card vs CPU on CUT_ROWS rows
 WDL_CUT_WINDOW = 8192                     # ... streamed in these windows
@@ -4228,12 +4769,18 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
         f"s for {WDL_EPOCHS} epochs), errors {errs[0]} -> {errs[-1]} "
         f"— [{gpu}]")
 
-    # (b) one minibatch epoch at the default MiniBatchs
-    b = wdl_set(root, "wdl_b", serve_root, norm, clean, {},
+    # (b) one minibatch epoch at the default MiniBatchs, on the plane's
+    # first WDL_B_ROWS rows (a cut for the smoke's time limit)
+    rows_b = min(rows, WDL_B_ROWS)
+    norm_b, clean_b = norm + "_b", clean + "_b"
+    write_norm_plane(norm_b, x[:rows_b], y[:rows_b], w[:rows_b], names)
+    write_plane(clean_b, bins[:rows_b], y[:rows_b], w[:rows_b], names,
+                {"chip_smoke": "wdl_b"})
+    b = wdl_set(root, "wdl_b", serve_root, norm_b, clean_b, {},
                 baggingNum=WDL_BAGS, numTrainEpochs=1)
     wall = train_cli(b, card)
     phase = train_phase_s(b)
-    steps = -(-rows // WDL_BATCH)
+    steps = -(-rows_b // WDL_BATCH)
     errs_b = progress_errors(b)
     if len(errs_b) != 1 or not np.all(np.isfinite(errs_b)) or \
             not errs_b[0, 0] < errs[0, 0]:
@@ -4248,7 +4795,8 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
                 "ms_per_epoch": phase * 1e3,
                 "ms_per_step": phase * 1e3 / steps,
                 "errors": errs_b[0].tolist(), **prof}
-    log(f"WDL (b) one epoch at MiniBatchs {WDL_BATCH}: {steps} steps in "
+    log(f"WDL (b) one epoch of {rows_b} rows at MiniBatchs {WDL_BATCH}: "
+        f"{steps} steps in "
         f"{phase:.3f} s ({phase * 1e3 / steps:.4f} ms a step, the upload "
         f"and the epoch's error pass included; CLI {wall:.3f} s) "
         f"— [{gpu}]")
@@ -5109,6 +5657,9 @@ def main() -> None:
     path_rng = np.random.default_rng([args.seed, 1])   # the main path's data
     t_all = time.perf_counter()
 
+    def mark(what: str) -> None:         # the smoke's time budget, a phase
+        log(f"{what} done at {time.perf_counter() - t_all:.1f} s")
+
     t0 = time.perf_counter()
     built = cuda_lib.build(["tree_traverse", "hist", "stats_hist"])
     for name, (path, build_log) in built.items():
@@ -5123,22 +5674,33 @@ def main() -> None:
     errs.update(check_hist(torch, rng))
     errs.update(check_stats_hist(torch, rng))
     errs.update(check_hist_batch(torch, rng))
+    mark("kernels built and checked")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         serve_root = os.path.join(root, "serve")
         os.makedirs(serve_root)
         plan = write_model_set(serve_root, path_rng)["plan"]
         served = serve_phase(torch, tq, serve_root, plan, path_rng)
+        mark("serve_phase")
+        splane = serve_plane_phase(torch, tq, root, serve_root, plan,
+                                  np.random.default_rng([args.seed, 9]),
+                                  gpu)
+        mark("serve_plane_phase")
         time_transform(torch, serve_root, plan, rng, gpu)
         trained = train_phase(torch, root, serve_root, plan, path_rng)
+        mark("train_phase")
         plane = trained.pop("plane")
         forest = rf_phase(torch, root, serve_root, plane)
+        mark("rf_phase")
         bagging = bagging_phase(torch, root, serve_root, plane, gpu,
                                 trained["chunk"]["ms_per_tree"])
+        mark("bagging_phase")
         multi = multiclass_phase(torch, tq, root, serve_root, plane,
                                  np.random.default_rng([args.seed, 2]), gpu)
+        mark("multiclass_phase")
         stream = stream_phase(torch, root, serve_root, plan,
                               np.random.default_rng([args.seed, 5]), plane,
                               gpu)
+        mark("stream_phase")
         rf_cut_bins = plane[0][:CUT_ROWS].copy()     # aux_tree_phase's RF walk
         del plane
         nn_walls = {}
@@ -5174,15 +5736,19 @@ def main() -> None:
         svm = svm_phase(torch, root, serve_root,
                         os.path.join(root, "nn_plane"), plan, gpu)
         nn_walls["svm_phase"] = time.perf_counter() - t0
+        mark("the NN, WDL and SVM phases")
         stats = stats_phase(torch, root, plan, path_rng)
+        mark("stats_phase")
         e2e = e2e_phase(torch, stats["dir"], stats["csv"], gpu)
         eval_times = time_eval_walk(torch, tq, stats["dir"],
                                     e2e.pop("bins"), gpu)
         cache_walls = raw_cache_phase(stats["dir"], gpu)
+        mark("e2e and raw_cache_phase")
         post = posttrain_phase(torch, tq, stats["dir"], gpu)
         aux = aux_tree_phase(torch, tq, root, stats["dir"], stats["csv"],
                              os.path.join(root, "rf"), rf_cut_bins, gpu)
         mc_cli = multiclass_cli_phase(torch, tq, root, stats["csv"], gpu)
+        mark("posttrain, aux and multiclass_cli_phase")
         t0 = time.perf_counter()
         e2e_nn = e2e_nn_phase(torch, stats["dir"], stats["csv"], gpu)
         nn_walls["e2e_nn_phase"] = time.perf_counter() - t0
@@ -5201,6 +5767,7 @@ def main() -> None:
         finally:
             parsepool.CHUNK_ROWS = prev_chunk
         nn_walls["wdl_svm_e2e_combo"] = time.perf_counter() - t0
+        mark("the e2e NN, WDL and SVM phases")
         log(f"combo WDL:GBT on {COMBO_ROWS} rows: run "
             f"{wdl_combo['walls_s']['run_cuda']:.3f} s on the card, "
             f"{wdl_combo['walls_s']['run_cpu']:.3f} s on the CPU; "
@@ -5212,6 +5779,7 @@ def main() -> None:
     hist_times = time_hist(torch, rng, gpu)
     stats_times = time_stats_hist(torch, rng, gpu)
     batch_times = time_hist_batch(torch, rng, gpu)
+    mark("resident_phase and the kernel timings")
     ms_tree = trained["chunk"]["ms_per_tree"]
     ph = trained["phases_s"]
     log(f"full-width train: {ms_tree:.3f} ms per tree device-resident, "
@@ -5229,6 +5797,10 @@ def main() -> None:
         "source": "shifu_tpu_torch/csrc/tree_traverse.cu",
         "replaces": "shifu_tpu/ops/tree_quant.py:159",
         "launches": served["launches"]["tree_traverse"],
+        "serve_plane_launches": splane["launches"],
+        "serve_plane_replays": splane["replays"],
+        "serve_plane_warm_launches": splane["warm_launches"],
+        "serve_plane_batches": splane["batches"],
         "train_replay_launches":
             trained["replay"]["launches"]["tree_traverse"],
         "eval_launches": e2e["eval_launches"],

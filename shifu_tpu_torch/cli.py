@@ -135,8 +135,17 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("serve", help="online scoring server: the trained "
                         "ensemble pinned on the device behind a padded-"
-                        "bucket micro-batcher (knobs: -Dshifu.serve.buckets, "
-                        "-Dshifu.serve.maxDelayMs)")
+                        "bucket micro-batcher, one captured CUDA graph a "
+                        "rung (knobs: -Dshifu.serve.buckets, "
+                        "-Dshifu.serve.maxDelayMs, "
+                        "-Dshifu.serve.traceSampleRate per-request "
+                        "tracing, -Dshifu.serve.sloP99Ms / "
+                        "-Dshifu.serve.sloAvailability SLO objectives, "
+                        "-Dshifu.serve.maxQueueRows / "
+                        "-Dshifu.serve.requestDeadlineMs overload "
+                        "control, -Dshifu.scorelog.sampleRate the "
+                        "quality plane; GET /slo, GET /quality, POST "
+                        "/outcome, POST /swap)")
     sp.add_argument("--port", dest="serve_port", type=int, default=8188,
                     help="HTTP port for POST /score + GET /healthz "
                     "(default 8188; 0 binds an ephemeral port)")
@@ -147,6 +156,15 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--selfcheck", dest="serve_selfcheck", type=int,
                     nargs="?", const=8, default=0, metavar="N",
                     help="score N synthetic rows in-process and exit")
+    sp.add_argument("--replicas", dest="serve_replicas", type=int,
+                    default=1, metavar="N",
+                    help="fleet mode (the reference's router): not ported "
+                    "— N > 1 raises")
+    # the reference's internal fleet-worker flags: accepted, and raise
+    sp.add_argument("--replica", dest="serve_replica", default=None,
+                    help=argparse.SUPPRESS)
+    sp.add_argument("--announce", dest="serve_announce", default=None,
+                    help=argparse.SUPPRESS)
     _device_arg(sp)
 
     sp = sub.add_parser("export", help="export the models and stats "
@@ -277,6 +295,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         return run_serve(args.dir, port=args.serve_port,
                          selfcheck=args.serve_selfcheck,
                          max_delay_ms=args.serve_max_delay_ms,
+                         replicas=args.serve_replicas,
+                         replica=args.serve_replica,
+                         announce=args.serve_announce,
                          device=args.device)
     if args.command == "train":
         from .pipeline.train import TrainProcessor

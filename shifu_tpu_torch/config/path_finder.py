@@ -140,6 +140,19 @@ class PathFinder:
         return os.path.join(self.export_dir,
                             f"{self.model_config.basic.name}{index}.pmml")
 
+    # ----------------------------------------------------------- telemetry
+    @property
+    def telemetry_dir(self) -> str:
+        """Serving-plane telemetry (``obs/``): trace, heartbeats, metrics,
+        score log, posttrain and quality snapshots."""
+        return os.path.join(self.root, "telemetry")
+
+    @property
+    def posttrain_snapshot_path(self) -> str:
+        """Training-time score distribution + AUC baseline
+        (``obs/quality``) — what live quality is judged against."""
+        return os.path.join(self.telemetry_dir, "posttrain.json")
+
     @property
     def backup_dir(self) -> str:
         return os.path.join(self.root, ".backup")

@@ -99,3 +99,22 @@ def atomic_open(path: str, mode: str = "w", **kwargs) -> Iterator[Any]:
     else:
         f.close()
         os.replace(tmp, path)
+
+
+def sweep_orphan_tmp(directory: str) -> int:
+    """Remove ``*.tmp<pid>`` droppings a previous crash left next to the
+    artifacts.  Returns the number removed (best-effort)."""
+    n = 0
+    try:
+        entries = os.listdir(directory)
+    except OSError:
+        return 0
+    for f in entries:
+        _, tmp, pid = f.rpartition(".tmp")
+        if tmp and pid.isdigit():
+            try:
+                os.remove(os.path.join(directory, f))
+                n += 1
+            except OSError:
+                pass
+    return n

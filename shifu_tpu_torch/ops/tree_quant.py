@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -279,8 +280,40 @@ def _predict_quant_cuda(split_feats, left_u8s, leaf_values, bins,
     if rc != 0:
         raise RuntimeError(f"tree_traverse kernel launch failed "
                            f"(cudaError_t {rc})")
-    predict_forest_quant.launches += 1
+    _count_launch()
     return out
+
+
+# launches this thread recorded into a CUDA graph (``n``: a graph capture
+# launches nothing, the replay does and the replayer counts it) and made
+# eagerly (``eager``)
+_captured = threading.local()
+
+
+def _count_launch() -> None:
+    if torch.cuda.is_current_stream_capturing():
+        _captured.n = getattr(_captured, "n", 0) + 1
+    else:
+        _captured.eager = getattr(_captured, "eager", 0) + 1
+        predict_forest_quant.launches += 1
+
+
+def captured_launches() -> int:
+    """Kernel launches this thread has recorded into CUDA graphs so far: a
+    graph's share is the difference across its capture."""
+    return getattr(_captured, "n", 0)
+
+
+def eager_launches() -> int:
+    """Kernel launches this thread has made eagerly so far (each also
+    counted in ``predict_forest_quant.launches``)."""
+    return getattr(_captured, "eager", 0)
+
+
+def count_replays(n: int) -> None:
+    """Count ``n`` kernel launches made by replaying a captured graph (a
+    replay runs the launches its capture recorded)."""
+    predict_forest_quant.launches += n
 
 
 @functools.cache
@@ -309,7 +342,9 @@ def predict_forest_quant(split_feats, left_u8s, leaf_values, bins,
     that pins the forest (the kernel's input; the plain version does not
     read it).  Multi-class leaves launch the kernel once for the
     node-index walk and gather their distributions on the device.
-    ``launches`` counts kernel launches (never plain-version calls)."""
+    ``launches`` counts kernel launches (never plain-version calls): an
+    eager launch here, a launch recorded in a CUDA graph when the graph
+    replays (:func:`count_replays`), never at capture."""
     if bins.device.type == "cpu":
         return predict_forest_quant_ref(split_feats, left_u8s, leaf_values,
                                         bins, depth)

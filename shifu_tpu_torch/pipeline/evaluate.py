@@ -246,10 +246,12 @@ class EvalProcessor(BasicProcessor):
         from ..eval.report import html_report
         ioutil.atomic_write_text(os.path.join(eval_dir, "report.html"),
                                  html_report(ev.name, curves, result))
-        # the reference writes its post-train quality snapshot here
-        log.warning("eval %s: telemetry/posttrain.json (the serving "
-                    "quality monitor's baseline) is not written: not "
-                    "ported, ROADMAP Queue 1 item 11", ev.name)
+        # training-time quality baseline: score distribution + AUC the
+        # serve-path quality monitor (obs/quality) judges live traffic
+        # against — last eval run wins, matching the serving artifacts
+        from ..obs.quality import write_posttrain_snapshot
+        write_posttrain_snapshot(self.paths.posttrain_snapshot_path,
+                                 scores, auc=result.areaUnderRoc)
         log.info("eval %s: AUC %.6f weighted AUC %.6f PR-AUC %.6f",
                  ev.name, result.areaUnderRoc, result.weightedAuc,
                  result.areaUnderPr)

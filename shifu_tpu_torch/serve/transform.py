@@ -103,7 +103,7 @@ class FusedTransform:
         # path
         self._has_onehot = any(p.mode == "onehot" for p in self.plan)
         self._build_groups()
-        self._consts: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._consts: Dict[object, object] = {}   # device -> constants
 
     # ------------------------------------------------------------- build
     def _plan_column(self, cc, nc, ColumnBinner) -> _ColumnPlan:
@@ -363,12 +363,13 @@ class FusedTransform:
         valid = packed[:, c:2 * c] != 0
         cats = packed[:, 2 * c:3 * c].to(torch.int32)
         outs, bin_cols = [], []
+        consts = self._col_consts(dev)
         for j, p in enumerate(self.plan):
             v, ok = vals[:, j], valid[:, j]
+            bounds, tab = consts[j]
             if p.categorical:
                 bidx = cats[:, j]
             elif p.boundaries is not None:
-                bounds = torch.tensor(p.boundaries, dtype=cd, device=dev)
                 idx = torch.searchsorted(bounds, v.contiguous(),
                                          right=True) - 1
                 idx = idx.clamp(0, p.num_bins - 1)
@@ -386,7 +387,6 @@ class FusedTransform:
                 if len(p.table) == 0:
                     outs.append(torch.zeros((n, 1), dtype=cd, device=dev))
                 else:
-                    tab = torch.tensor(p.table, dtype=cd, device=dev)
                     outs.append(tab[bidx.long().clamp(0, len(p.table) - 1)]
                                 [:, None])
             elif p.mode == "asis":
@@ -402,6 +402,24 @@ class FusedTransform:
             return packed.new_zeros((n, 0), dtype=torch.float32), bins
         x = self._apply_precision(torch.cat(outs, dim=1))
         return x.to(torch.float32), bins
+
+    def _col_consts(self, device: torch.device) -> list:
+        """Per-column (boundaries, table) tensors on ``device`` for the
+        per-column path (None where a column has none), made once per
+        device: a launch copies nothing from the host, so it can be
+        captured in a CUDA graph."""
+        key = ("cols", device)
+        got = self._consts.get(key)
+        if got is None:
+            def put(v):
+                return None if v is None else \
+                    torch.tensor(v, dtype=self.dtype, device=device)
+            got = self._consts[key] = [
+                (put(p.boundaries),
+                 put(p.table if p.mode == "table" and len(p.table)
+                     else None))
+                for p in self.plan]
+        return got
 
     def _apply_precision(self, x: torch.Tensor) -> torch.Tensor:
         """Device twin of ``ops.normalize.apply_precision``."""

@@ -1394,3 +1394,86 @@ def test_wdl_and_svm_forwards_stay_on_the_card(cuda):
     np.testing.assert_allclose(out[1].cpu().numpy(),
                                s.compute(xn, device="cpu"), rtol=1e-5,
                                atol=1e-6)
+
+
+def _serve_inputs(d, scorer, n, seed):
+    """(x, bins, packed wire rows) for ``n`` rows of the fraud set."""
+    import csv
+    import os
+
+    from shifu_tpu_torch.config import ModelConfig
+    mc = ModelConfig.load(os.path.join(d, "ModelConfig.json"))
+    with open(mc.dataSet.dataPath) as f:
+        recs = [dict(r) for _, r in zip(range(n),
+                                        csv.DictReader(f, delimiter="|"))]
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, scorer.n_features)).astype(np.float32)
+    bins = rng.integers(0, 8, size=(n, scorer.n_bins_cols)).astype(np.int32)
+    packed, kept, _ = scorer.transform.parse_records(recs)
+    assert len(kept) == n
+    return x, bins, packed
+
+
+def test_serve_rung_replays_equal_the_eager_launch(cuda, fraud_set):
+    """Every rung of both paths is a captured CUDA graph, and its replay
+    gives the eager launch of the same padded-batch function bit for
+    bit, full and ragged; B4 is replayed once per scored batch."""
+    from shifu_tpu_torch.serve import ServeServer, serve_capture_count
+    srv = ServeServer(fraud_set, key="g", buckets=(1, 8, 64, 512))
+    sc = srv.registry.get("g")
+    assert sc.accepts_raw and sc.captures == 8
+    assert all(r.graph is not None and r.launches == 1
+               for r in sc._rungs.values())
+    # each rung's eager warm-up launched B4 once, outside its capture
+    assert sc.warm_launches == 8 and sc.replays == 0
+    x, bins, packed = _serve_inputs(fraud_set, sc, 1500, 0)
+    before = tq.predict_forest_quant.launches
+    batches = 0
+    for b in sc.buckets:
+        for n in sorted({b, max(1, b - 3)}):
+            got = sc.score_batch(x[:n], bins[:n])
+            assert np.array_equal(got, sc.eager_batch([x[:n], bins[:n]]))
+            raw = sc.score_batch_raw(packed[:n])
+            assert np.array_equal(raw, sc.eager_batch([packed[:n]],
+                                                      raw=True))
+            batches += 2
+    # a replay and an eager launch a check
+    assert tq.predict_forest_quant.launches - before == 2 * batches
+    assert sc.replays == sc.replayed_launches == batches
+    assert serve_capture_count("serve.score.g") == 0
+
+
+def test_serve_captures_nothing_after_warm_or_a_swap(cuda, fraud_set):
+    """Requests of every size to 1500 replay the warm graphs: no capture;
+    a committed swap captured its rungs at prepare; the replays count
+    one B4 launch a scored batch."""
+    import os
+
+    from shifu_tpu_torch.serve import ServeServer, serve_capture_count
+    srv = ServeServer(fraud_set, key="w", buckets=(1, 8, 64, 512),
+                      max_delay_ms=0.5)
+    sc = srv.registry.get("w")
+    x, bins, packed = _serve_inputs(fraud_set, sc, 1500, 1)
+    whole = sc.score_batch(x, bins)
+    for n in range(1, 1501, 37):
+        assert np.array_equal(sc.score_batch(x[:n], bins[:n]), whole[:n])
+    assert sc.captures == 8 and serve_capture_count("serve.score.w") == 0
+    srv.start()
+    try:
+        batches0 = srv.batcher.stats["batches"]
+        before = tq.predict_forest_quant.launches
+        got = srv.score(x[:700], bins[:700])
+        assert np.allclose(got, whole[:700].mean(axis=1), rtol=0, atol=0)
+        assert tq.predict_forest_quant.launches - before == \
+            srv.batcher.stats["batches"] - batches0 == 2
+        gen = srv.registry.prepare("w", os.path.join(fraud_set, "models"),
+                                   buckets=sc.buckets)
+        pend = srv.registry._pending["w"].scorer
+        assert gen == 1 and pend.captures == 8
+        srv.registry.commit("w")
+        assert srv.registry.get("w") is pend and pend.captures == 8
+        again = srv.score(x[:700], bins[:700])
+        assert np.array_equal(again, got) and pend.captures == 8
+        assert serve_capture_count("serve.score.w") == 0
+    finally:
+        srv.stop()

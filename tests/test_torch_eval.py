@@ -293,17 +293,22 @@ def test_eval_telemetry_raises_not_ported(pair):
 
 def test_eval_run_warns_that_no_posttrain_snapshot_is_written(pair,
                                                               caplog):
-    """The reference writes ``telemetry/posttrain.json`` on every scored
-    run; the port writes none (item 11) and says so at run time."""
-    port = pair[1]
+    """``eval -run`` writes ``telemetry/posttrain.json`` (the serving
+    quality monitor's baseline) on every scored run, as the reference
+    does, and no longer warns that it does not: the two snapshots agree
+    on rows and AUC (eval's +-0.005)."""
+    from shifu_tpu.obs.quality import load_posttrain_snapshot
+    ref, port = pair
     with caplog.at_level("WARNING",
                          logger="shifu_tpu_torch.pipeline.evaluate"):
         assert _eval_port(port, run_eval="") == 0
     warned = [r for r in caplog.records if r.levelname == "WARNING"]
-    assert len(warned) == 1 and "item 11" in warned[0].getMessage()
-    assert "posttrain.json" in warned[0].getMessage()
-    assert not os.path.exists(os.path.join(port, "telemetry",
-                                           "posttrain.json"))
+    assert not warned
+    assert _eval_ref(ref, run_eval="") == 0
+    got, want = load_posttrain_snapshot(port), load_posttrain_snapshot(ref)
+    assert got is not None and want is not None
+    assert got["kind"] == "posttrain" and got["rows"] == want["rows"]
+    assert abs(got["auc"] - want["auc"]) <= 0.005
 
 
 def test_eval_scores_on_cuda_by_default_and_crud_on_the_host(pair,

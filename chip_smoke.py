@@ -61,7 +61,7 @@ versions on one card.  Otherwise it
    eager warm-up or one a graph replay ran, one a replay, and at least one
    replay a scored batch), with no capture forced (``serve_capture_count()``
    0) and every score within 1e-3 of the CPU server; outcomes drawn from the CPU
-   scores (Bernoulli) are posted for 3,334 rows and ``/quality``'s live AUC
+   scores (Bernoulli) are posted for 1,834 rows and ``/quality``'s live AUC
    must equal the AUC of the logged scores (after stop, from the score
    log's committed segments) rounded to its 6 decimals; a ``/swap`` to a
    50-tree forest captures at ``prepare`` and nothing at ``commit``, its
@@ -77,7 +77,21 @@ versions on one card.  Otherwise it
    each, a p99 only where at least 100 back it) and, for every rung, its
    replay against an eager launch of the same function (bit-equal, and
    their device times); a ``torch.profiler`` trace of one replay must
-   show the graph running its ``tree_traverse`` kernel;
+   show the graph running its ``tree_traverse`` kernel.  Then the fleet
+   (``fleet_phase``): ``python -m shifu_tpu_torch.cli --dir <set> serve
+   --replicas 2 --port 0 --device cuda`` as a subprocess over a copy of
+   the set, each replica a worker process with its own CUDA context and
+   captured rungs; raw and pre-binned batches through the router within
+   1e-3 of the set on the CPU; every replica at 0 forced captures, its
+   ``tree_traverse`` launches its warm-ups plus its replays' launches,
+   read from its own ``/healthz``; a coordinated ``/swap`` to a 50-tree
+   forest and back under two clients, every answer scored by one
+   generation's forest and none by an older generation after a newer
+   one answered; aggregate rows/s of pre-binned 512-row requests with 2
+   replicas, then a SIGKILL of one worker (its pid from its announce
+   file) under load with every request answered and the dead replica
+   buried in the router's ``/status``, and rows/s with 1 replica; a
+   SIGINT to the router stops every worker;
 4. drives the port's training path at full width: writes the same column
    plan's training set (the wire plane of 1,048,576 rows, y from a logit
    on 10 columns drawn from ``--seed``, integer weights) with the port's
@@ -96,7 +110,7 @@ versions on one card.  Otherwise it
    ``tree_traverse`` (launches counted from zero around the run), with
    the uninterrupted forest's splits and leaves within 1e-5 relative;
    the train phase split into upload, grow and checkpoints from
-   ``tmp/profile.json``; and the plane's first 65,536 rows trained to 5
+   ``tmp/profile.json``; and the plane's first 32,768 rows trained to 3
    trees on ``cuda`` and on ``cpu``, with equal split features on levels
    0-1, per-tree errors within 1e-4 relative and the two forests' AUCs
    (scored by ``tree_traverse``) within 0.005;
@@ -115,9 +129,10 @@ versions on one card.  Otherwise it
    each reproducing the CLI's trees bit for bit, timed per tree with CUDA
    events around every histogram launch and leaf-sum level; 8 trees,
    then ``train -resume`` to 10, bit-identical, its restored trees
-   replayed through ``tree_traverse``; and the plane's first 65,536
-   rows at depth 7 on ``cuda`` and ``cpu``: bags equal (0 rows differ),
-   levels 0-1 equal, errors within 1e-4 relative, AUCs within 0.005;
+   replayed through ``tree_traverse``; and the plane's first 32,768
+   rows, 3 trees at depth 7, on ``cuda`` and ``cpu``: bags equal (0
+   rows differ), levels 0-1 equal, errors within 1e-4 relative, AUCs within
+   0.005;
    then the tree ensembles on the same plane through ``cli.main train``
    on ``cuda`` (``bagging_phase``, ``multiclass_phase``): the GBT above
    with ``baggingNum`` 5 (exactly 70 ``hist_batch`` launches at TB = 5,
@@ -140,61 +155,72 @@ versions on one card.  Otherwise it
    cache and 1 on the disk tail, coarse-to-fine (``hist`` and
    ``hist_batch`` both launched, counted from zero around the run; the
    device busy share of a 3-tree run from ``torch.profiler``); (a') the
-   exact schedule: the same forest and progress bit for bit in 90 tail
-   sweeps, more than (a)'s; (a0) (a)'s first tree at the default
+   exact schedule for 5 trees: (a)'s first 5 trees and progress bit for
+   bit in 45 tail sweeps, more a tree than (a)'s; (a0) (a)'s first tree at the default
    geometry (two 4,129,776-row windows, none resident); (b) 6 trees with CheckpointInterval 5, then
    ``train -resume`` to 10 from the 5-tree checkpoint, with and without
    its score sidecar (8 ``tree_traverse`` launches, one a window),
    bit-identical to (a); (c) ``init -model``'s RF in two super-batches
    (31 tail sweeps, 224 ``hist_batch`` launches), falling out-of-bag
    errors, the peak device memory; (d) the plane's first 65,536 rows in
-   windows of 8,192 (6 resident): (a)'s GBT cut to 5 trees with
+   windows of 8,192 (6 resident): (a)'s GBT cut to 2 trees with
    coarse-to-fine on and off and a 4-tree depth-7 RF on the card, the coarse-to-fine GBT also
    on the CPU with equal splits and masks, leaves within 1e-5 relative
-   (+1e-6), errors within 1e-5 relative, equal tail sweeps; (e) a streamed 3-bag GBT on the train
+   (+1e-6), errors within 1e-5 relative, equal tail sweeps; (e) a streamed 2-bag GBT on the train
    plane (windows of 131,072, 6 resident), member 1 bit-identical to its
    single ``train_gbt_streamed`` run; then ``hist_batch`` at the tail
    window's path shape (TB = 7, N = 524,288, K = 64) and ``hist`` over
    the coalesced resident block (N = 3,670,016, K = 32) on the run's own
    inputs, held to their plain versions and timed;
 6. drives the port's stats path through the CLI: writes the column
-   plan's raw data as a 16,384-row '|'-delimited CSV (224 numeric columns
+   plan's raw data as an 8,192-row '|'-delimited CSV (224 numeric columns
    with ~5% empty cells, 32 categorical, ``weight``, ``tag``; a cut in
    rows, not width), runs ``new``, ``init`` (it must type 224 numeric and
    32 categorical candidates) and ``stats`` on ``cuda`` in chunks of 4,096
-   rows with a fused budget that keeps 2 chunks resident and overflows 2
-   into the provisional grid, with exactly 4 ``stats_hist`` launches
+   rows with a fused budget that keeps 1 chunk resident and overflows 1
+   into the provisional grid, with exactly 2 ``stats_hist`` launches
    counted from zero around ``stats``; checks every numeric column's
    counts and finite boundaries, and that ``stats`` on ``cpu`` writes the
    same ColumnConfig.json (integers, types, categories and binBoundary
    equal, floats within 1e-5 relative + 1e-4); times the host parse
    alone (the CSV's numeric columns binned at maxNumBin 63, the plan's
-   width).  Then the offline path's end on the same set (``e2e_phase``):
-   ``norm`` through the CLI writes the 16,384 x 256 uint8 wire plane,
+   width).  Then (``stats_extra_phase``) the rest of ``stats`` on copies
+   of that set, card and CPU: ``stats -correlation -rebin -vars
+   num000,cat224 -ivr 0.9 -bic 100`` with ``psiColumnName`` cat224 (the
+   correlation matrices within 1e-6, PSI on every column, the two columns
+   rebinned) and ``export corr`` copying the matrix; MunroPat; and
+   ``-Dshifu.stats.checkpointChunks=1`` interrupted by the ``stats:chunk``
+   fault at chunk 1 and resumed on the card against an uninterrupted run
+   on the CPU; every ColumnConfig.json card vs CPU as above and
+   ``stats_hist`` launched in every card run.  Then the offline path's
+   end on the same set (``e2e_phase``):
+   ``norm`` through the CLI writes the 8,192 x 256 uint8 wire plane,
    whose bins must equal the serving path's device transform
-   (``FusedTransform.apply_device`` in float64) on the CSV's records,
+   (``FusedTransform.apply_device`` in float64) on the CSV's first 4,096
+   records,
    ``train`` on ``cuda`` reads it (GBT, TreeNum 10, MaxDepth 7, Loss log:
    80 ``hist`` launches), ``eval -new`` and ``eval -run`` score the CSV on
-   ``cuda`` (``tree_traverse`` launched 1 model x 4 chunks times, counted
+   ``cuda`` (``tree_traverse`` launched 1 model x 2 chunks times, counted
    from zero around it) and on ``cpu``: per-row scores within 1e-3
    (unrounded and in the %.3f score files), AUC within 1e-6, and the
-   card's scores within 1e-3 of ``score_records_offline`` on the same
+   card's scores within 1e-3 of ``score_records_offline`` on those 4,096
    records; ``norm`` and both ``eval -run`` calls must be served from the
    raw cache ``stats`` wrote (one hit each, no miss); prints the walls of
    ``norm``, ``train`` and ``eval`` and eval's rows/s.  Then
    (``raw_cache_phase``) ``norm`` and ``eval -run`` on ``cuda`` in fresh
    copies of the set, with the raw cache and under
-   ``-Dshifu.ingest.rawCache=false``, in turns on, off, off, on: hits
+   ``-Dshifu.ingest.rawCache=false``, in turns off, on: hits
    only where it is on, wire planes byte-equal and score files equal to
    the e2e phase's, every wall printed; and (``posttrain_phase``)
    ``posttrain`` of the GBT on ``cuda`` (``tree_traverse`` launched once
    a model a norm shard, counted from zero around it) and on ``cpu``:
-   every column's binAvgScore within 1.  Then the multi-class CLI path (``multiclass_cli_phase``):
-   the same CSV with a three-valued tag through ``new → init → stats →
-   norm → train`` (native RF, then one-vs-all GBT) and ``eval -run`` on
+   every column's binAvgScore within 1.  Then the multi-class CLI path
+   (``multiclass_cli_phase``): the same CSV's first 8,192 rows with a
+   three-valued tag through ``new → init → stats → norm → train`` (native
+   RF, then one-vs-all GBT) and ``eval -run`` on
    ``cuda`` and on ``cpu``: ``EvalPerformance.json`` accuracy and
    confusion matrix equal, class scores within 1e-5 in the %.6f score
-   files, ``tree_traverse`` launched models x chunks times (4, then 12).
+   files, ``tree_traverse`` launched models x chunks times (2, then 6).
    Then the port's ``NumericAccumulator`` on ``cuda`` at a
    deployment's size: 8 weighted chunks of 262,144 rows x 224 columns from
    ``--seed`` (3 resident, 5 overflowing, 8 ``stats_hist`` launches), the
@@ -207,41 +233,44 @@ versions on one card.  Otherwise it
    port's ``norm`` writes it (npz shards, ``schema.json``; 1.07 GB,
    resident) and runs ``cli.main train`` on ``cuda`` (``nn_phase``):
    (a) ``init -model``'s NN (R, LearningRate 0.1, [20, 10] tanh, full
-   batch) with baggingNum 5 for 40 epochs — five ``model{i}.nn`` files
+   batch) with baggingNum 5 for 20 epochs — five ``model{i}.nn`` files
    ``load_any`` scores, falling train and validation errors, ms per
-   epoch — and 20 epochs then ``train -resume`` to 40, bit-identical;
+   epoch — and 10 epochs then ``train -resume`` to 20, bit-identical;
    (b) ``bench_nn``'s net ([512, 256] relu, ADAM 0.001, MiniBatchs
-   4096, log loss) for 3 epochs: ms per step and per epoch, the step's
+   4096, log loss) for 2 epochs: ms per step and per epoch (its
+   ``torch.profiler`` epoch over the plane's first quarter), the step's
    6 x rows x parameters FLOPs over its time against the dense FP32 peak
    of 67 TFLOP/s; (c) LR at ``init -model``'s params: ms per epoch; (d)
-   (a)'s net on the first 65,536 rows for 10 epochs on ``cuda`` and
-   ``cpu``: per-epoch errors within 1e-4 relative, AUCs within 0.005.
+   (a)'s net on the first 32,768 rows for 10 epochs on ``cuda`` and
+   ``cpu``: per-epoch errors within 1e-4 relative, AUCs within 0.005
+   (the plane drawn on the card from ``--seed``).
    Then (``nn_serve_phase``) (a)'s five nets served over HTTP on ``cuda``
    from the serving set's configs (``x`` from the fused transform, one
    stacked forward), every score within 1e-2 of the same set on ``cpu``
-   over the raw batches of 1-1500 records; and after the e2e and
+   over raw batches of 1, 7, 64 and 333 records; and after the e2e and
    multi-class CLI cells (``e2e_nn_phase``) ``bench.py --plane e2e``'s
    NN ([64, 32] relu, ADAM 0.001, log loss, 10 epochs) trained on the
    e2e set's own norm plane on ``cuda`` and ``eval -run`` on ``cuda`` and
    ``cpu``: scores within 1e-2 in the %.3f files, AUC within 1e-4.
    Then the streamed NN trainer (``nn_stream_phase``) on a
-   ``tmp/NormalizedData`` plane of 2,621,440 x 256 f32 (2.71 GB at
-   ``should_stream``'s 4 x 258 bytes a row), which streams by the default
-   2 GiB budget in two windows with nothing forced: (a) ``init
-   -model``'s NN, full batch, 6 epochs, falling errors, ms an epoch; (b)
-   3 epochs then ``train -resume`` to 6, bit-identical; (c) one
-   minibatch run; (d) the first 65,536 rows forced to stream in windows
-   of 8,192, card and CPU, errors within 1e-4 relative; (e)
-   ``torch.profiler`` over 2 epochs: the device busy share.  And
+   ``tmp/NormalizedData`` plane of 1,310,720 x 256 f32 (1.35 GB at
+   ``should_stream``'s 4 x 258 bytes a row), which streams by a
+   ``shifu.train.memoryBudgetBytes`` of 1 GiB in two windows with nothing
+   forced: (a) ``init -model``'s NN, full batch, 4 epochs, falling
+   errors, ms an epoch; (b) 2 epochs then ``train -resume`` to 4,
+   bit-identical; (c) one minibatch run; (d) the first 32,768 rows
+   forced to stream in windows of 8,192, card and CPU, errors within
+   1e-4 relative; (e) ``torch.profiler`` over 2 epochs: the device busy
+   share.  And
    (``varselect_phase``) ``varselect`` with ``filterBy SE`` through the
    CLI on ``cuda`` over ``nn_phase``'s 1,048,576 x 256 plane with (a)'s
-   ``model0.nn``, then on its first 65,536 rows on ``cuda`` and ``cpu``:
+   ``model0.nn``, then on its first 32,768 rows on ``cuda`` and ``cpu``:
    the same 64 columns selected, SE scores within 1e-6; then
    (``genetic_phase``) ``varselect`` with ``filterBy GENETIC`` on ``cuda``
    over the same plane with the reference's default WrapperSettings
    (16 candidates, 5 generations of 40 full-batch ADAM epochs, their nets
    stacked as one GEMM a layer) and filterNum 64, its wall and epochs a
-   second, and on the plane's first 65,536 rows (20 epochs, 3
+   second, and on the plane's first 32,768 rows (10 epochs, 3
    generations) resident and streamed in windows of 8,192, each on
    ``cuda`` and ``cpu`` with the same ``genetic.json`` credit ranking and
    selection.  Then the WDL and SVM slice (no hand kernel: ``F.embedding``
@@ -251,12 +280,14 @@ versions on one card.  Otherwise it
    relu, wide and deep, ADAM 0.002, L2 1e-5) with baggingNum 5 through
    ``cli.main train`` on ``cuda``: (a) 5 full-batch epochs, falling
    errors, ms an epoch; (b) one epoch at MiniBatchs 128 over the
-   planes' first 131,072 rows (a cut in rows), ms a step, the
-   step's kernel launches and the epoch's host syncs (one); (c)
-   ``-Dshifu.wdl.hashBuckets=32``, its bucket ids on the card equal to
+   planes' first 65,536 rows (a cut in rows), ms a step, the
+   step's kernel launches (profiled over 5 and 10 steps) and the epoch's
+   host syncs (one); (c) ``-Dshifu.wdl.hashBuckets=32`` trained on (b)'s
+   65,536 rows, its bucket ids on the card equal to
    the host's and its models served over HTTP on ``cuda`` against
-   ``cpu`` within 1e-2; (d) the first 65,536 rows, 2 bags, 3 epochs, on
-   ``cuda`` and ``cpu``, resident and streamed in windows of 8,192:
+   ``cpu`` within 1e-2 (raw batches of 1, 7, 64 and 333 records); (d)
+   the first 32,768 rows, 2 bags, 2 epochs, on ``cuda`` and ``cpu``,
+   resident and streamed in windows of 8,192:
    errors within 1e-4 relative, AUCs within 0.005; (e) 2 minibatch epochs then ``train
    -resume`` to 4, bit-identical; (``svm_phase``) the rbf kernel SVM at
    the 16,384-row cap x 256 through the CLI and its 2,000-iteration dual
@@ -264,7 +295,7 @@ versions on one card.  Otherwise it
    (duals within 1e-4, decisions within 1e-3, support sets equal but
    near the 1e-6 threshold), the linear SVM (hinge on the NN path) on
    the 1,048,576 x 256 plane, and both served over HTTP on ``cuda``
-   against ``cpu``;
+   against ``cpu`` (raw batches of 1, 7, 64 and 333 records);
 8. drives the commands around the offline path through ``cli.main`` on
    the e2e set (``aux_tree_phase``, after ``posttrain_phase``; copies of
    the set, one run on ``cuda``, one with ``--device cpu``): (a)
@@ -274,9 +305,9 @@ versions on one card.  Otherwise it
    whose float64 host scores equal the native forest walked by one
    ``tree_traverse`` launch within rtol 1e-5 / atol 1e-6 on rows with
    every numeric the forest splits on present; (b) ``encode``
-   (``tree_traverse``'s node-index walk, one launch a chunk: 4) with
+   (``tree_traverse``'s node-index walk, one launch a chunk: 2) with
    ``tmp/EncodedData`` byte-equal to the CPU's, and the RF phase's depth-14 forest walked by ``encode``'s
-   walk over 65,536 rows of the train plane (node ids past 16,383, equal
+   walk over 32,768 rows of the train plane (node ids past 16,383, equal
    to the CPU's ``traverse_nodes``, one launch); (c) ``combo new -alg
    LR:GBT``, ``run`` and ``eval`` on the CSV's first 8,192 rows (80
    ``hist`` launches for the GBT member, one ``tree_traverse`` launch a
@@ -303,7 +334,7 @@ versions on one card.  Otherwise it
    rung N=512, at N=16,384 (the e2e eval set), at N=65536 and at
    N=1,048,576 (the train replay's rows) on the forest packed once, as a
    pinning caller does, and on the e2e phase's trained forest at the eval
-   chunk's 4,096 rows and the eval set's 16,384,
+   chunk's 4,096 rows and 16,384 rows (the eval set's bins, repeated),
    ``stats_hist`` at N=262,144 x 224 columns x 4096 buckets with S = 4
    and 2 (``index_add_`` the PyTorch call), split by part (amax, staging
    the ids, adds, flush),
@@ -322,6 +353,49 @@ versions on one card.  Otherwise it
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 Any failed check exits non-zero before the last line is printed.
+
+The time budget: the whole run must take at most 750 s on an H100 (a
+third of headroom under the 1,200 s limit for a contended host), and
+``mark`` logs every phase's wall, all of them again before the end.
+Each cut below is of depth (rows, trees, epochs, requests, turns, CPU
+twins) and never of width; every kernel is still checked against its
+plain version at its shapes, every path driven and every launch count
+asserted.  Walls on an H100 80GB HBM3 at 700 W before the cuts and with
+them but for the last round (PERF.md §4 keeps the table):
+
+- the serve plane's closed loop: 100 pre-binned requests a size (were
+  300), raw 1 / 64 / 512 records 20 / 10 / 2 (were 100 / 100 / 8), and 2
+  load clients (were 4): ``serve_plane_phase`` 101.1 -> 45.6 s;
+- the NN, WDL and SVM serves: raw batches of 1-333 records (were
+  1-1500): ``nn_serve_phase`` 12.4 -> 4.1 s, ``svm_phase`` 19.6 -> 10.4;
+- the card-vs-CPU twins on CUT_ROWS = 32,768 rows (were 65,536), GBT 3
+  trees (were 5), RF 3 (were 10): ``train_phase`` 22.9 -> 7.8 s,
+  ``rf_phase`` 40.4 -> 11.7, and the NN, WDL, varselect and GENETIC
+  twins (GENETIC 10 epochs, were 20): ``genetic_phase`` 22.2 -> 12.8;
+- stream (d): (a)'s GBT 2 trees (were 5), the same 65,536 rows; (e) 2
+  bags (were 3): ``stream_phase`` 99.1 -> 86.8 s;
+- the NN stream plane 1,310,720 rows under a 1 GiB memory budget (was
+  2,621,440 under the default 2 GiB), 4 epochs (were 6), and the planes
+  drawn on the card: ``nn_stream_phase`` 59.0 -> 22.3 s; the NN (a) run
+  20 epochs (was 40) and (b)'s profile over a quarter of the plane:
+  ``nn_phase`` 58.4 -> 30.7 s;
+- WDL: (b) and (c) on 65,536 rows, the step profiles at 5 and 10 steps
+  (were 20 and 40), the full-batch profile on 65,536 rows: ``wdl_phase``
+  131.6 -> 88.3 s;
+- the raw-cache turns off, on (were on, off, off, on):
+  ``raw_cache_phase`` 38.7 -> 16.6 s; e2e's host-side checks on 4,096
+  records: ``e2e_phase`` 19.7 -> 10.5 s; the multi-class CLI on 8,192
+  rows: ``multiclass_cli_phase`` 26.0 -> 15.3 s;
+- the CSV phases' CLI steps parse inline (INLINE_PARSE), and the port's
+  config loader resolves a class's type hints once:
+  ``aux_tree_phase`` 66.1 -> 48.5 s, ``aux_nn_phase`` 22.5 -> 11.9,
+  ``wdl_combo`` 38.4 -> 26.5;
+- the last round, for a contended host (the same tree took 668.5 s and
+  782.9 s on two calls): the stats CSV 8,192 rows (was 16,384; 2
+  chunks, 1 resident), which every phase on it reads (``combo`` and the
+  multi-class CLI took 8,192 rows of it already), the eval forest still
+  timed at 16,384 rows; (a') 5 trees (were 10); NN (b) 2 epochs (3);
+  WDL (d) 2 epochs (3).
 """
 
 from __future__ import annotations
@@ -349,6 +423,7 @@ N_TREES, DEPTH, N_BINS, N_NUM, N_CAT = 100, 7, 64, 224, 32
 N_COLS = N_NUM + N_CAT
 KERNEL_ROWS = (1, 8, 64, 333, 512, 4096)
 RAW_BATCHES = (1, 7, 64, 333, 512, 1500)
+GEMM_RAW_BATCHES = (1, 7, 64, 333)        # NN, WDL, SVM serves (a cut)
 TRAVERSE_ROWS = (512, 16384, 65536, 1 << 20)   # serve's top rung, the
 #                                          e2e eval set, a chunk, replay
 HIST_ROWS = (1, 1000, 65536, 1 << 20)
@@ -357,7 +432,7 @@ CHUNK_REPEATS = 15                 # timed GBT chunks (the tree is host-bound)
 HIST_WIDE = (1 << 20, 7, 4001, 8)          # N, C, B (int32 bins), K
 HIST_TOL = 1e-5                            # x the plain version on |stats|
 TRAIN_ROWS, TRAIN_TREES, TRAIN_CKPT = 1 << 20, 10, 5
-CUT_ROWS, CUT_TREES = 65536, 5
+CUT_ROWS, CUT_TREES = 32768, 3             # card vs CPU twins (a cut)
 ERR_RTOL, AUC_TOL = 1e-4, 0.005            # card vs CPU
 REPLAY_RTOL = 1e-5                         # replayed vs uninterrupted leaves
 N_INFORMATIVE = 10
@@ -367,8 +442,14 @@ STATS_TOL = 1e-6                           # weighted B3 cells, x |value|
 STATS_CASES = ((262144, N_NUM, STATS_BUCKETS, 4), (262144, N_NUM,
                STATS_BUCKETS, 2), (100003, 13, 64, 4), (100003, 13, 64, 2),
                (4096, 5, STATS_BUCKETS, 2), (1, 7, STATS_BUCKETS, 4))
-CSV_ROWS, CSV_CHUNK = 16384, 4096          # the stats CLI phase's cut
+CSV_ROWS, CSV_CHUNK = 8192, 4096           # the stats CLI phase's cut
+EVAL_TIMED_ROWS = 16384                    # time_eval_walk's larger N
+# the parse holds the GIL: on the card's host an inline pass is ~2.3x
+# faster than the default pool of eight threads (PERF.md), so the CSV
+# phases' CLI steps parse inline; the rows parsed are the same
+INLINE_PARSE = "-Dshifu.ingest.parseWorkers=0"
 E2E_EVAL, E2E_AUC_TOL = "e2e", 1e-6        # eval set; AUC card vs CPU
+E2E_CHECK_ROWS = 4096                      # rows of e2e's host-side checks
 CHUNK_BYTES = CSV_CHUNK * (5 * N_NUM + 8)  # what a kept chunk holds
 RESIDENT_CHUNKS, RESIDENT_ROWS = 8, 262144
 CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-5, 1e-4  # ColumnConfig floats, card/CPU
@@ -377,16 +458,18 @@ HIST_BATCH_NODES = (1, 32, 4096)           # K: shallow levels, the deepest
 HIST_TIMED_NODES = HIST_BATCH_NODES        # B1 timed at the same K
 HIST_BATCH_WIDE = (1 << 20, 7, 4001, 8)    # N, C, B (int32 bins), K
 RF_TREES, RF_DEPTH, RF_CKPT = 10, 14, 8    # init -model's RF + a checkpoint
-RF_CUT_DEPTH = 7                           # card vs CPU on CUT_ROWS rows
+RF_CUT_DEPTH, RF_CUT_TREES = 7, 3          # card vs CPU on CUT_ROWS rows
 BAG_MEMBERS, BAG_KFOLD = 5, 3              # bagged GBT; its k-fold twin
 BAG_TIMED_NODES = (1, 32)                  # B2 at TB = BAG_MEMBERS
 MC_CLASSES, MC_WALK_ROWS = 3, 65536        # three-class target; B4 walk
-NN_EPOCHS, NN_CKPT, NN_BAGS = 40, 20, 5    # init -model's NN, bagged
+MC_CLI_ROWS = 8192                         # the multi-class CLI's rows
+NN_EPOCHS, NN_CKPT, NN_BAGS = 20, 10, 5    # init -model's NN, bagged
 NN_WIDE = {"NumHiddenNodes": [512, 256],    # bench_nn's net (shifu_tpu/
            "ActivationFunc": ["relu", "relu"],  # bench.py:134-151)
            "Propagation": "ADAM", "LearningRate": 0.001,
            "MiniBatchs": 4096, "Loss": "log"}
-NN_WIDE_EPOCHS, NN_LR_EPOCHS, NN_CUT_EPOCHS = 3, 20, 10
+NN_WIDE_EPOCHS, NN_LR_EPOCHS, NN_CUT_EPOCHS = 2, 20, 10
+NN_PROFILE_SHARE = 4       # (b)'s profile: the plane's first quarter
 NN_E2E = {"NumHiddenLayers": 2, "NumHiddenNodes": [64, 32],  # bench.py
           "ActivationFunc": ["relu", "relu"],    # --plane e2e's NN
           "LearningRate": 0.001, "Propagation": "ADAM", "Loss": "log"}
@@ -400,16 +483,20 @@ STREAM_ROWS, STREAM_WINDOW = 1 << 22, 1 << 19   # the out-of-core plane;
 #                                       its shards and (a)'s windows
 STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
 STREAM_A0_TREES = 1                        # (a0): 13 s a tree
-STREAM_CUT_WINDOW, STREAM_CUT_RESIDENT = 8192, 6   # (d) on CUT_ROWS rows
+STREAM_EXACT_TREES = 5                     # (a'): (a)'s first 5 trees
+STREAM_CUT_ROWS = 65536                    # (d) card vs CPU: 8 windows,
+STREAM_CUT_WINDOW = STREAM_CUT_ROWS // 8   # 6 of them resident
+STREAM_CUT_RESIDENT = 6
 STREAM_CUT_RF_TREES = 4                    # (d)'s RF, depth DEPTH
-STREAM_CUT_TREES = 5                       # (d)'s GBT: (a)'s, 5 trees
+STREAM_CUT_TREES = 2                       # (d)'s GBT: (a)'s, 2 trees
 STREAM_CUT_CPU = ("gbt_c2f",)              # (d)'s cases also run on the CPU
 STREAM_LEAF_RTOL, STREAM_LEAF_ATOL = 1e-5, 1e-6    # (d) leaves, card/CPU
 STREAM_ERR_RTOL = 1e-5                     # (d) progress errors
-MEMBER_WINDOW, MEMBER_RESIDENT, MEMBER_BAGS = 1 << 17, 6, 3   # (e)
-NN_STREAM_ROWS = 10 * (1 << 18)            # 2,621,440 rows: 2.71 GB at
-#                                     4 * (N_COLS + 2) bytes, over 2 GiB
-NN_STREAM_EPOCHS, NN_STREAM_CKPT = 6, 3    # init -model's NN; a resume
+MEMBER_WINDOW, MEMBER_RESIDENT, MEMBER_BAGS = 1 << 17, 6, 2   # (e)
+NN_STREAM_ROWS = 5 * (1 << 18)             # 1,310,720 rows: 1.35 GB at
+#                        4 * (N_COLS + 2) bytes, over NN_STREAM_BUDGET
+NN_STREAM_BUDGET = {"shifu.train.memoryBudgetBytes": str(1 << 30)}
+NN_STREAM_EPOCHS, NN_STREAM_CKPT = 4, 2    # init -model's NN; a resume
 NN_STREAM_BATCH = 1 << 16                  # (c)'s minibatch
 VARSEL_KEEP, VARSEL_SE_ATOL = 64, 1e-6     # SE filterNum; card vs CPU
 GBT_ROW_BYTES = N_COLS + 12                # a prepared GBT window row
@@ -730,7 +817,7 @@ def make_records(rng, plan, n: int, malformed_at=None) -> list:
 
 # -------------------------------------------------------- phase: serve
 def serve_phase(torch, tq, root: str, plan, rng,
-                tol: float = SCORE_TOL) -> dict:
+                tol: float = SCORE_TOL, raw_batches=RAW_BATCHES) -> dict:
     """The main path over HTTP on the card, checked against the CPU
     within ``tol``: a forest set walks ``tree_traverse`` (every scored
     batch must launch it) and takes pre-binned requests; an NN set takes
@@ -751,7 +838,7 @@ def serve_phase(torch, tq, root: str, plan, rng,
         return doc
 
     requests = [make_records(rng, plan, n, malformed_at=3 if n == 64
-                             else None) for n in RAW_BATCHES]
+                             else None) for n in raw_batches]
     scorer = server.registry.get(server.key)
     t_parse = time.perf_counter()
     # the host half of each raw request, timed alone; the CPU check below
@@ -806,7 +893,7 @@ def serve_phase(torch, tq, root: str, plan, rng,
                 if not math.isfinite(s) or not 0.0 <= s <= 1000.0:
                     fail(f"score {s} outside [0, 1000]")
                 worst = max(worst, abs(s - w))
-    malformed = answers[RAW_BATCHES.index(64)]
+    malformed = answers[raw_batches.index(64)]
     if malformed["scores"][3] is not None or \
             [e["code"] for e in malformed["errors"]] != ["bad_record"]:
         fail(f"malformed record not rejected alone: {malformed['errors']}")
@@ -823,14 +910,15 @@ def serve_phase(torch, tq, root: str, plan, rng,
 
 
 # --------------------------------------------------- phase: serve plane
-PLANE_CLIENTS = 4                          # client threads
+PLANE_CLIENTS = 2                          # client threads (a cut)
 PLANE_EXTRA_RUNG = 128                     # captured while clients run
 PLANE_REFINE_EVERY = 32                    # bucketRefineEvery (batches)
 PLANE_SWAP_TREES = 50                      # the swap's forest
 # closed-loop requests a (kind, size): a raw record costs ~2 ms of host
-# parse, so raw 512 gets a p50 alone; a p99 needs P99_MIN_REQUESTS
-LATENCY_REQUESTS = {"pre": {1: 300, 64: 300, 512: 300},
-                    "raw": {1: 100, 64: 100, 512: 8}}
+# parse, so raw requests get a p50 alone (the smoke's time budget); a p99
+# needs P99_MIN_REQUESTS
+LATENCY_REQUESTS = {"pre": {1: 100, 64: 100, 512: 100},
+                    "raw": {1: 20, 64: 10, 512: 2}}
 P99_MIN_REQUESTS = 100
 QUALITY_TOL = 1e-9                 # /quality (6 decimals) vs the logged
 #                                    scores' AUC rounded as it rounds
@@ -875,7 +963,7 @@ def close_front(httpd, worker) -> None:
 def serve_plane_phase(torch, tq, root: str, serve_root: str, plan, rng,
                       gpu: str) -> dict:
     """The whole serving plane on the card over HTTP (see module docs,
-    step 3): captured rungs, 4 clients, outcomes and live quality, a
+    step 3): captured rungs, 2 clients, outcomes and live quality, a
     swap / restore / rollback, 429 / 504, brownout, latencies, and each
     rung's replay against its eager function."""
     from shifu_tpu_torch import obs
@@ -968,7 +1056,8 @@ def serve_plane_phase(torch, tq, root: str, serve_root: str, plan, rng,
 
 
 def plane_load(torch, tq, server, cpu, call, plan, rng, gpu) -> dict:
-    """4 client threads of raw and pre-binned batches over HTTP, a rung
+    """PLANE_CLIENTS client threads of raw and pre-binned batches over
+    HTTP, a rung
     captured while they run; capture count, B4 replays and every score
     against the CPU server."""
     from shifu_tpu_torch.serve import serve_capture_count
@@ -985,8 +1074,8 @@ def plane_load(torch, tq, server, cpu, call, plan, rng, gpu) -> dict:
     results, lock = [], threading.Lock()
 
     def client(ci):
-        # every size once a client, raw and pre-binned in turns: each
-        # (kind, size) comes from two clients
+        # every size once a client, raw and pre-binned in turns: the two
+        # clients send each (kind, size) once
         for si, n in enumerate(RAW_BATCHES):
             kind = ("raw", "pre")[(ci + si) % 2]
             req = f"c{ci}{kind}{n}"
@@ -1327,20 +1416,354 @@ def plane_rungs(torch, scorer, plan, rng, gpu) -> dict:
     return out
 
 
+# ---------------------------------------------------- phase: the fleet
+FLEET_REPLICAS = 2
+FLEET_CLIENTS = 2                          # client threads during a swap
+FLEET_BATCH = 512                          # rows of a throughput request
+FLEET_LOAD_S = 2.0                         # seconds of each rows/s window
+FLEET_START_S = 240.0                      # router + workers' start limit
+FLEET_DEVICE = "cuda"                      # the workers' --device
+# the workers' SLO objective: the default (2 x the 2 ms flush deadline)
+# burns under 512-row requests and the router drains a burning replica,
+# so the load would stall on drains rather than measure the fleet
+FLEET_SLO = "-Dshifu.serve.sloP99Ms=1000"
+
+
+def start_fleet(d: str, log_path: str):
+    """``python -m shifu_tpu_torch.cli --dir d serve --replicas 2 --port
+    0 --device cuda`` as a user starts it; returns (process, router
+    port) once the router prints its address.  Its output (and its
+    workers') goes to
+    ``log_path``."""
+    out = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shifu_tpu_torch.cli", FLEET_SLO, "--dir",
+         d, "serve",
+         "--replicas", str(FLEET_REPLICAS), "--port", "0", "--device",
+         FLEET_DEVICE],
+        stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+    deadline = time.monotonic() + FLEET_START_S
+    pat = re.compile(r"serve fleet: (\d+) replica\(s\) on "
+                     r"http://127\.0\.0\.1:(\d+) on (\S+)")
+    while time.monotonic() < deadline:
+        with open(log_path) as f:
+            m = pat.search(f.read())
+        if m:
+            if int(m.group(1)) != FLEET_REPLICAS or \
+                    m.group(3) != FLEET_DEVICE:
+                stop_fleet(proc)
+                fail(f"fleet started as {m.group(0)!r}")
+            return proc, int(m.group(2))
+        if proc.poll() is not None:
+            break
+        time.sleep(0.1)
+    stop_fleet(proc)
+    with open(log_path) as f:
+        tail = f.read()[-4000:]
+    fail(f"the fleet did not start (rc {proc.returncode}):\n{tail}")
+
+
+def stop_fleet(proc) -> None:
+    """SIGINT the router (it stops its workers), then make sure."""
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    # a zombie child of the router counts as gone
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def fleet_load(call, body, clients: int, seconds: float):
+    """``clients`` threads POST ``body`` to /score for ``seconds``;
+    returns (records of (t0, t1, status, doc), rows/s of the rows answered
+    200)."""
+    recs, lock, stop = [], threading.Lock(), threading.Event()
+    n_rows = len(body["bins"])
+
+    def run():
+        while not stop.is_set():
+            t0 = time.monotonic()
+            status, doc, _ = call("/score", body)
+            with lock:
+                recs.append((t0, time.monotonic(), status, doc))
+
+    threads = [threading.Thread(target=run, daemon=True)
+               for _ in range(clients)]
+    t_start = time.monotonic()
+    for t in threads:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+        if t.is_alive():
+            fail("a fleet client hung")
+    wall = time.monotonic() - t_start
+    ok = [r for r in recs if r[2] == 200]
+    return recs, len(ok) * n_rows / wall
+
+
+def fleet_phase(torch, root: str, serve_root: str, plan, rng,
+                gpu: str) -> dict:
+    """The serving fleet through the entry point a user calls: ``serve
+    --replicas 2 --port 0`` over the serve phase's set (100 trees of depth
+    7 on 224 numeric + 32 categorical columns), every replica a process of
+    its own on the card.  Raw and pre-binned batches through the router
+    within SCORE_TOL of the set on the CPU; every replica at 0 forced
+    captures with its B4 launches and replays read from its own /healthz;
+    a coordinated /swap to a 50-tree forest and back under FLEET_CLIENTS
+    clients, every answer scored by one generation's forest and no
+    request that started after another finished scored by an older
+    generation; aggregate pre-binned rows/s with 2 replicas, then a
+    SIGKILL of r0 (its pid from its announce file) under load, every
+    request answered, r0 buried in the router's /status, and rows/s with
+    the 1 replica left; the router's SIGINT stops every worker."""
+    import signal
+
+    from shifu_tpu_torch.serve import ServeServer
+    d = os.path.join(root, "fleet")
+    shutil.copytree(serve_root, d, ignore=shutil.ignore_patterns(
+        "serving", "telemetry"))
+    swap_dir = os.path.join(root, "fleet_models50")
+    write_forest(swap_dir, rng, PLANE_SWAP_TREES,
+                 [p[1] for p in plan], init_score=-0.7)
+    cpu = ServeServer(d, device="cpu")
+    cpu_swap = ServeServer(d, device="cpu", models=swap_dir, key="s50")
+    sc = cpu.registry.get(cpu.key)
+    records = {n: make_records(rng, plan, n) for n in (1, 64)}
+    pre = {n: (rng.normal(size=(n, sc.n_features)).astype(np.float32),
+               rng.integers(0, N_BINS, size=(n, sc.n_bins_cols)))
+           for n in (1, 64, FLEET_BATCH)}
+    body = {n: {"rows": x.tolist(), "bins": b.tolist()}
+            for n, (x, b) in pre.items()}
+    want = {("pre", n): cpu.score(x, b) for n, (x, b) in pre.items()}
+    want50 = {n: cpu_swap.score(x, b) for n, (x, b) in pre.items()}
+    for n, recs in records.items():
+        packed, kept, _ = sc.transform.parse_records(recs)
+        w = [None] * n
+        for i, v in zip(kept, sc.score_batch_raw(packed).mean(axis=1)):
+            w[int(i)] = float(v)
+        want[("raw", n)] = w
+    log_path = os.path.join(root, "fleet.log")
+    t0 = time.perf_counter()
+    proc, port = start_fleet(d, log_path)
+    start_s = time.perf_counter() - t0
+    call = http_caller(port)
+    worst = 0.0
+
+    def check(got, w, where):
+        nonlocal worst
+        for s, v in zip(got["scores"], w):
+            if (s is None) != (v is None):
+                fail(f"fleet {where}: a null score on one side only")
+            if s is not None:
+                worst = max(worst, abs(s - v))
+        if worst > SCORE_TOL:
+            fail(f"fleet {where}: card vs CPU scores differ by {worst}")
+
+    try:
+        fdir = os.path.join(d, "serving", "fleet")
+        ann = {}
+        for i in range(FLEET_REPLICAS):
+            with open(os.path.join(fdir, f"r{i}.json")) as f:
+                ann[f"r{i}"] = json.load(f)
+
+        def replica(name):
+            status, doc, _ = http_caller(ann[name]["port"])("/healthz")
+            if status != 200:
+                fail(f"replica {name} /healthz: HTTP {status}")
+            return doc
+
+        status, fleet0, _ = call("/status")
+        if status != 200 or fleet0["up"] != FLEET_REPLICAS or \
+                not fleet0["accepts_raw"]:
+            fail(f"fleet /status after start: {fleet0}")
+        warm = {n: replica(n)["graphs"] for n in ann}
+        for name, g in warm.items():
+            if g["captures_forced"] or g["replays"] or \
+                    g["tree_traverse_launches"] != g["warm_launches"]:
+                fail(f"replica {name} after warm: {g}")
+        # raw and pre-binned batches through the router
+        t1 = time.perf_counter()
+        for _ in range(2):
+            for n, recs in records.items():
+                status, got, _ = call("/score", {"records": recs})
+                if status != 200:
+                    fail(f"fleet raw {n}: HTTP {status} {got}")
+                check(got, want[("raw", n)], f"raw {n}")
+            for n in pre:
+                status, got, _ = call("/score", body[n])
+                if status != 200:
+                    fail(f"fleet pre-binned {n}: HTTP {status} {got}")
+                check(got, want[("pre", n)], f"pre-binned {n}")
+        batches_s = time.perf_counter() - t1
+        # a coordinated swap to 50 trees and back under load
+        swap_recs, lock, stop = [], threading.Lock(), threading.Event()
+
+        def pound():
+            while not stop.is_set():
+                t_a = time.monotonic()
+                status, got, _ = call("/score", body[64])
+                with lock:
+                    swap_recs.append((t_a, time.monotonic(), status, got))
+
+        threads = [threading.Thread(target=pound, daemon=True)
+                   for _ in range(FLEET_CLIENTS)]
+        def answered(gen):                 # wait for an answer of ``gen``
+            deadline = time.monotonic() + 30.0
+            while not any(r[3].get("generation") == gen
+                          for r in list(swap_recs)):
+                if time.monotonic() > deadline:
+                    fail(f"no answer of generation {gen} during the swaps")
+                time.sleep(0.05)
+
+        for t in threads:
+            t.start()
+        answered(0)
+        swaps = []
+        for gen, target in enumerate((swap_dir, os.path.join(d, "models"))):
+            t2 = time.perf_counter()
+            status, doc, _ = call("/swap", {"dir": target})
+            if status != 200 or sorted(doc["committed"]) != sorted(ann) \
+                    or doc.get("errors"):
+                fail(f"fleet /swap to {target}: HTTP {status} {doc}")
+            swaps.append(time.perf_counter() - t2)
+            answered(gen + 1)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        gens = sorted({r[3].get("generation") for r in swap_recs})
+        if any(r[2] != 200 for r in swap_recs) or gens != [0, 1, 2]:
+            fail(f"swap under load: statuses "
+                 f"{sorted({r[2] for r in swap_recs})}, generations {gens}")
+        forest = {0: want[("pre", 64)], 1: want50[64], 2: want[("pre", 64)]}
+        for _, _, _, got in swap_recs:
+            check(got, forest[got["generation"]],
+                  f"swap generation {got['generation']}")
+        ends = sorted((r[1], r[3]["generation"]) for r in swap_recs)
+        mixed = 0
+        for t_a, _, _, got in swap_recs:
+            finished_before = [g for t_b, g in ends if t_b < t_a]
+            if finished_before and max(finished_before) > got["generation"]:
+                mixed += 1
+        if mixed:
+            fail(f"{mixed} responses scored by an older generation after a "
+                 "newer one answered")
+        # aggregate rows/s: 2 replicas, then r0 SIGKILLed under load
+        recs2, rows_s2 = fleet_load(call, body[FLEET_BATCH], 2 *
+                                    FLEET_REPLICAS, FLEET_LOAD_S)
+        before_kill = {n: replica(n)["graphs"] for n in ann}
+        killer = threading.Timer(
+            0.3, os.kill, (ann["r0"]["pid"], signal.SIGKILL))
+        killer.start()
+        kill_recs, _ = fleet_load(call, body[64], FLEET_CLIENTS, 1.8)
+        killer.join()
+        bad = [(r[2], r[3]) for r in kill_recs if r[2] != 200]
+        if bad or len(kill_recs) < 2:
+            fail(f"across the SIGKILL {len(bad)} of {len(kill_recs)} "
+                 f"requests were not answered: {bad[:2]}")
+        for r in kill_recs:
+            check(r[3], want[("pre", 64)], "across the SIGKILL")
+        deadline = time.monotonic() + 15.0
+        while True:
+            _, st, _ = call("/status")
+            states = {r["name"]: r["state"] for r in st["replicas"]}
+            if states["r0"] == "dead":
+                break
+            if time.monotonic() > deadline:
+                fail(f"r0 not buried after the SIGKILL: {states}")
+            time.sleep(0.2)
+        if states["r1"] != "up" or st["up"] != 1:
+            fail(f"after the SIGKILL the fleet is {st}")
+        recs1, rows_s1 = fleet_load(call, body[FLEET_BATCH], 2,
+                                    FLEET_LOAD_S)
+        for recs in (recs2, recs1):
+            if any(r[2] != 200 for r in recs):
+                fail("a throughput request was not answered 200")
+            for r in recs[:4]:
+                check(r[3], want[("pre", FLEET_BATCH)], "throughput")
+        after = replica("r1")["graphs"]
+    finally:
+        stop_fleet(proc)
+    graphs = {"r0": before_kill["r0"], "r1": after}
+    for name, g in graphs.items():
+        if g["captures_forced"] or g["replays"] == 0 or \
+                g["replayed_launches"] != g["replays"] or \
+                g["tree_traverse_launches"] != g["warm_launches"] + \
+                g["replayed_launches"]:
+            fail(f"replica {name}'s B4 counts do not add up: {g}")
+    per_replica = {n: (g["tree_traverse_launches"], g["replays"])
+                   for n, g in graphs.items()}
+    left = [n for n, a in ann.items() if pid_alive(a["pid"])]
+    if proc.returncode != 0 or left:
+        fail(f"the router exited {proc.returncode}; workers left {left}")
+    log(f"fleet: {FLEET_REPLICAS} replicas up in {start_s:.2f} s; raw and "
+        f"pre-binned batches in {batches_s:.3f} s within {worst:.3g} of the "
+        f"CPU; swaps to {PLANE_SWAP_TREES} trees and back in "
+        f"{swaps[0]:.3f} / {swaps[1]:.3f} s under {FLEET_CLIENTS} clients "
+        f"({len(swap_recs)} requests, generations {gens}, none mixed); "
+        f"{len(kill_recs)} requests across r0's SIGKILL all answered; "
+        f"pre-binned {FLEET_BATCH}-row rows/s: {rows_s2:.0f} with 2 "
+        f"replicas, {rows_s1:.0f} with 1; B4 (launches, replays) per "
+        f"replica {per_replica}; 0 captures forced — [{gpu}]")
+    return {"launches": {n: g["tree_traverse_launches"]
+                         for n, g in graphs.items()},
+            "replays": {n: g["replays"] for n, g in graphs.items()},
+            "warm_launches": {n: g["warm_launches"]
+                              for n, g in graphs.items()},
+            "rows_per_s": {"2": rows_s2, "1": rows_s1},
+            "swap_s": swaps, "start_s": start_s,
+            "max_abs_score_diff": worst}
+
+
 # ------------------------------------------------------- phase: train
-def train_plane(rng, plan, n: int):
+def train_plane(rng, plan, n: int, on_card: bool = True):
     """The training plane of the serving column plan: bins [n, 256] uint8,
     each column uniform over its value bins and its missing bin; y drawn
     from a logit on N_INFORMATIVE columns (numeric: a linear trend over
     the bins, categorical: a random effect per category); integer weights
-    1..3.  Returns (bins, y, w, informative column ids, categorical
-    mask)."""
+    1..3.  Drawn on the card by a generator seeded from ``rng`` (a host
+    draw of 1,048,576 rows takes seconds), or with ``rng`` on the host
+    (``on_card=False``: the out-of-core plane, whose first rows are
+    ``stream_cut_phase``'s card-vs-CPU data).  Returns (bins, y, w,
+    informative column ids, categorical mask)."""
     is_cat = np.array([kind == "cat" for kind, _, _, _ in plan])
     n_bins = [len(a) + 1 if kind == "cat" else N_BINS
               for kind, _, a, _ in plan]
-    bins = rng.integers(0, N_BINS, size=(n, N_COLS), dtype=np.uint8)
-    for j in np.flatnonzero(is_cat):
-        bins[:, j] = rng.integers(0, n_bins[j], size=n, dtype=np.uint8)
+    if not on_card:
+        bins = rng.integers(0, N_BINS, size=(n, N_COLS), dtype=np.uint8)
+        for j in np.flatnonzero(is_cat):
+            bins[:, j] = rng.integers(0, n_bins[j], size=n, dtype=np.uint8)
+    else:
+        import torch
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(int(rng.integers(1 << 62)))
+        # u in [0, 1) times a column's bin count, truncated: uniform
+        hi = torch.tensor(n_bins, dtype=torch.float32, device="cuda")
+        on = torch.empty((n, N_COLS), dtype=torch.uint8, device="cuda")
+        for r0 in range(0, n, 1 << 20):
+            u = torch.rand((min(n, r0 + (1 << 20)) - r0, N_COLS),
+                           generator=gen, device="cuda")
+            on[r0:r0 + len(u)] = (u * hi).to(torch.uint8)
+        bins = on.cpu().numpy()
     informative = np.sort(rng.choice(N_COLS, size=N_INFORMATIVE,
                                      replace=False))
     logit = np.full(n, -1.0, np.float32)
@@ -1963,7 +2386,7 @@ def compare_rf_cut(torch, root, serve_root, params, cut, bins, y,
     AUC_TOL."""
     from shifu_tpu_torch.ops import tree_quant as tq
     from shifu_tpu_torch.train import dt_trainer as dt
-    params = dict(params, MaxDepth=RF_CUT_DEPTH)
+    params = dict(params, MaxDepth=RF_CUT_DEPTH, TreeNum=RF_CUT_TREES)
     runs, sets = [], []
     for name, dev in (("card", device), ("cpu", "cpu")):
         d = write_train_set(os.path.join(root, f"rf_cut_{name}"), serve_root,
@@ -1972,7 +2395,7 @@ def compare_rf_cut(torch, root, serve_root, params, cut, bins, y,
         runs.append((train_cli(d, dev), load_forest(d, "rf"),
                      progress_errors(d)))
     settings = rf_settings(sets[0], params)
-    bags = [dt.draw_bags(settings, range(RF_TREES), CUT_ROWS, dev).cpu()
+    bags = [dt.draw_bags(settings, range(RF_CUT_TREES), CUT_ROWS, dev).cpu()
             for dev in (device, "cpu")]
     bag_diff = int((bags[0] != bags[1]).sum())
     if bag_diff:
@@ -1985,7 +2408,7 @@ def compare_rf_cut(torch, root, serve_root, params, cut, bins, y,
                  f"the card, {b.split_feat[:3]} on the CPU")
     deeper = sum(int((a.split_feat != b.split_feat).sum())
                  for a, b in zip(trees_a, trees_b))
-    if err_a.shape != (RF_TREES, 2) or err_b.shape != (RF_TREES, 2):
+    if err_a.shape != (RF_CUT_TREES, 2) or err_b.shape != (RF_CUT_TREES, 2):
         fail(f"RF train.progress holds {len(err_a)} and {len(err_b)} trees")
     rel = np.abs(err_a - err_b) / np.abs(err_b)
     if not np.all(rel <= ERR_RTOL):
@@ -1998,9 +2421,10 @@ def compare_rf_cut(torch, root, serve_root, params, cut, bins, y,
         aucs.append(auc(pred.mean(0).cpu().numpy(), y))
     if abs(aucs[0] - aucs[1]) > AUC_TOL:
         fail(f"RF card vs CPU AUC {aucs[0]:.5f} vs {aucs[1]:.5f}")
-    log(f"RF card vs CPU on {len(y)} rows x {RF_TREES} trees of depth "
+    log(f"RF card vs CPU on {len(y)} rows x {RF_CUT_TREES} trees of depth "
         f"{RF_CUT_DEPTH}: bags equal ({bag_diff} rows differ), levels 0-1 "
-        f"equal ({deeper} of {RF_TREES * len(trees_a[0].split_feat)} nodes "
+        f"equal ({deeper} of {RF_CUT_TREES * len(trees_a[0].split_feat)} "
+        f"nodes "
         f"split on another feature below them), errors within "
         f"{rel.max():.3g} relative, AUC {aucs[0]:.5f} vs {aucs[1]:.5f}; "
         f"train wall {s_card:.2f} s on the card, {s_cpu:.2f} s on the CPU")
@@ -2086,9 +2510,12 @@ def write_stats_csv(path: str, rng, plan, n: int) -> float:
 
 
 def stats_cli(d: str, device: str, *props: str) -> float:
+    """``stats`` of set ``d`` on ``device``, parsing inline (INLINE_PARSE);
+    its wall s."""
     from shifu_tpu_torch import cli
     t0 = time.perf_counter()
-    rc = cli.main(["--dir", d, *props, "stats", "--device", device])
+    rc = cli.main(["--dir", d, INLINE_PARSE, *props, "stats", "--device",
+                   device])
     if rc != 0:
         fail(f"stats on {device} exited {rc} in {d}")
     return time.perf_counter() - t0
@@ -2125,9 +2552,9 @@ def stats_phase(torch, root: str, plan, rng) -> dict:
     """``new → init → stats`` through the CLI a user calls, on the card:
     a synthetic CSV at the full width of the column plan (CSV_ROWS rows,
     a cut in rows only), chunks of CSV_CHUNK rows and a fused budget that
-    keeps 2 of the 4 chunks resident and overflows 2 into the provisional
+    keeps 1 of the 2 chunks resident and overflows 1 into the provisional
     grid.  The ``stats_hist`` count is zeroed just before ``stats`` and
-    read just after (4 launches: one a chunk).  The same set's ``stats``
+    read just after (2 launches: one a chunk).  The same set's ``stats``
     on the CPU must give the same ColumnConfig.json (see
     compare_column_configs)."""
     from shifu_tpu_torch import cli
@@ -2169,7 +2596,7 @@ def stats_phase(torch, root: str, plan, rng) -> dict:
     shutil.copytree(d, cpu_dir)
 
     prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
-    budget = f"-Dshifu.stats.fusedBudgetBytes={2 * CHUNK_BYTES}"
+    budget = f"-Dshifu.stats.fusedBudgetBytes={CHUNK_BYTES}"
     try:
         sh.stats_histograms_cuda.launches = 0
         wall = stats_cli(d, "cuda", budget)
@@ -2226,6 +2653,163 @@ def stats_phase(torch, root: str, plan, rng) -> dict:
             "float_diff": worst, "dir": d, "csv": csv}
 
 
+STATS_REBIN = ("-ivr", "0.9", "-bic", "100")  # -rebin's flags (+ -vars)
+STATS_CKPT_CHUNKS = 1                      # checkpointChunks of the drill
+STATS_FAULT_CHUNK = 1                      # the drill's stats:chunk fault
+
+
+def read_corr(d: str):
+    with open(os.path.join(d, "correlation.csv")) as f:
+        rows = [line.rstrip("\n").split(",") for line in f]
+    return rows[0][1:], np.array([[float(v) for v in r[1:]]
+                                  for r in rows[1:]])
+
+
+def stats_extra_phase(torch, root: str, d: str, plan, gpu: str) -> dict:
+    """The rest of ``stats`` through the CLI on copies of the stats
+    phase's set (CSV_ROWS rows x 258 fields; its raw cache served), card
+    and CPU: (1) ``stats -correlation -rebin -vars <a numeric, a
+    categorical> -ivr 0.9 -bic 100`` with ``psiColumnName`` a
+    categorical column, then ``export corr``; (2) MunroPat exact binning;
+    (3) ``-Dshifu.stats.checkpointChunks=1`` interrupted at
+    ``stats:chunk=1`` and resumed on the card, against an uninterrupted
+    checkpointing run on the CPU.  Every ColumnConfig.json on the card
+    equals the CPU's (compare_column_configs), the correlation matrices
+    within 1e-6 (float64 pair sums on both), the exported matrix is the
+    step's file; the ``stats_hist`` count is zeroed before the card runs
+    and read after them."""
+    from shifu_tpu_torch import cli, faults
+    from shifu_tpu_torch.config import environment
+    from shifu_tpu_torch.data import parsepool
+    from shifu_tpu_torch.ops import stats_hist as sh
+    num, cat = plan[0][1], plan[N_NUM][1]
+    budget = f"-Dshifu.stats.fusedBudgetBytes={CHUNK_BYTES}"
+
+    def copy(name, **stats_fields):
+        out = {}
+        for dev in ("card", "cpu"):
+            dst = os.path.join(root, "stats_x", name, dev)
+            shutil.copytree(d, dst)
+            path = os.path.join(dst, "ModelConfig.json")
+            with open(path) as f:
+                mc = json.load(f)
+            mc["stats"].update(stats_fields)
+            with open(path, "w") as f:
+                json.dump(mc, f, indent=2)
+            out[dev] = dst
+        return out
+
+    def stats(dirs, dev, *argv):
+        t0 = time.perf_counter()
+        rc = cli.main(["--dir", dirs[dev], budget, INLINE_PARSE, *argv[:-1],
+                       "stats",
+                       *argv[-1], "--device",
+                       "cuda" if dev == "card" else "cpu"])
+        if rc != 0:
+            fail(f"stats {argv} on {dev} exited {rc}")
+        return time.perf_counter() - t0
+
+    def same_configs(dirs, what):
+        docs = []
+        for dev in ("card", "cpu"):
+            with open(os.path.join(dirs[dev], "ColumnConfig.json")) as f:
+                docs.append(json.load(f))
+        worst = None
+        for a, b in zip(*docs):
+            worst = compare_column_configs(a, b, f"{what} {a['columnName']}",
+                                           worst)
+        return docs[0], worst
+
+    prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
+    try:
+        sh.stats_histograms_cuda.launches = 0
+        # (1) correlation + PSI + rebin in one run, then export corr
+        extras = copy("extras", psiColumnName=cat)
+        flags = ["-correlation", "-rebin", "-vars", f"{num},{cat}",
+                 *STATS_REBIN]
+        walls = {dev: stats(extras, dev, flags) for dev in ("card", "cpu")}
+        card, worst1 = same_configs(extras, "extras")
+        names, corr = read_corr(extras["card"])
+        cpu_names, cpu_corr = read_corr(extras["cpu"])
+        corr_diff = float(np.max(np.abs(corr - cpu_corr)))
+        if names != cpu_names or len(names) != N_COLS or corr_diff > 1e-6 \
+                or not np.allclose(np.diag(corr), 1.0) \
+                or not np.all(np.abs(corr) <= 1.0 + 1e-6):
+            fail(f"correlation card vs CPU: {len(names)} columns, "
+                 f"max diff {corr_diff}")
+        psi_cols = [c for c in card if c["columnStats"].get("psi")
+                    is not None]
+        if len(psi_cols) != N_COLS or any(
+                len(c["columnStats"]["unitStats"]) != len(plan[N_NUM][2])
+                for c in psi_cols):
+            fail(f"PSI on {len(psi_cols)} columns, not {N_COLS}")
+        rebinned = {c["columnName"]: len(c["columnBinning"]["binCountNeg"])
+                    for c in card if c["columnName"] in (num, cat)}
+        if cli.main(["--dir", extras["card"], "export", "corr"]) != 0:
+            fail("export corr exited non-zero")
+        with open(os.path.join(extras["card"], "export",
+                               "correlation.csv"), "rb") as f, \
+                open(os.path.join(extras["card"], "correlation.csv"),
+                     "rb") as g:
+            if f.read() != g.read():
+                fail("export corr did not copy the matrix")
+        launches = {"extras": sh.stats_histograms_cuda.launches}
+        # (2) MunroPat exact binning
+        munro = copy("munropat", binningAlgorithm="MunroPat")
+        walls_m = {dev: stats(munro, dev, []) for dev in ("card", "cpu")}
+        card_m, worst2 = same_configs(munro, "MunroPat")
+        if any(c["columnBinning"].get("binningAlgorithm") != "MunroPat"
+               for c in card_m if c["columnBinning"].get("binBoundary")):
+            fail("MunroPat not recorded on every numeric column")
+        launches["munropat"] = sh.stats_histograms_cuda.launches - \
+            sum(launches.values())
+        # (3) mid-sweep checkpoints: interrupted at a chunk and resumed
+        ckpt = copy("checkpoint")
+        props = [f"-Dshifu.stats.checkpointChunks={STATS_CKPT_CHUNKS}"]
+        faults.reset_for_tests()
+        t0 = time.perf_counter()
+        try:
+            stats(ckpt, "card", *props, f"-Dshifu.faults=stats:chunk="
+                  f"{STATS_FAULT_CHUNK}:ioerror", [])
+            fail("the stats:chunk fault did not fire")
+        except faults.InjectedFault:
+            pass
+        partial = os.path.join(ckpt["card"], "tmp", "stats",
+                               "partial_sweep.npz")
+        if not os.path.isfile(partial):
+            fail("no mid-sweep checkpoint after the interrupted run")
+        environment.set_property("shifu.faults", "")
+        faults.reset_for_tests()
+        stats(ckpt, "card", *props, [])
+        resume_s = time.perf_counter() - t0
+        if os.path.isfile(partial):
+            fail("the resumed run left its checkpoint behind")
+        stats(ckpt, "cpu", *props, [])
+        _, worst3 = same_configs(ckpt, "checkpoint")
+        launches["checkpoint"] = sh.stats_histograms_cuda.launches - \
+            sum(launches.values())
+    finally:
+        parsepool.CHUNK_ROWS = prev_chunk
+        environment.reset_for_tests()
+        faults.reset_for_tests()
+    if min(launches.values()) < 1:
+        fail(f"stats_hist did not launch in every card run: {launches}")
+    worst = max((w["abs"] for w in (worst1, worst2, worst3)),
+                key=lambda t: t[0])
+    log(f"stats extras: -correlation/-psi/-rebin {walls['card']:.3f} s on "
+        f"the card ({walls['cpu']:.3f} s CPU), {len(names)}x{len(names)} "
+        f"matrix within {corr_diff:.3g} of the CPU, PSI over "
+        f"{len(plan[N_NUM][2])} units of {cat}, rebinned to {rebinned}; "
+        f"MunroPat {walls_m['card']:.3f} s ({walls_m['cpu']:.3f} s CPU); "
+        f"checkpoint drill interrupted at chunk {STATS_FAULT_CHUNK} and "
+        f"resumed in {resume_s:.3f} s; every ColumnConfig card vs CPU "
+        f"within {worst[0]:.3g} ({worst[1]}); stats_hist launches "
+        f"{launches} — [{gpu}]")
+    return {"launches": launches, "corr_diff": corr_diff,
+            "walls_s": {"extras": walls, "munropat": walls_m,
+                        "checkpoint_card": resume_s}}
+
+
 def csv_records(csv: str) -> list:
     """The CSV's rows as JSON records of their string cells, as a client
     of ``serve`` would send them."""
@@ -2257,9 +2841,11 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
     then ``eval -new`` and ``eval -run`` score the same CSV on the card
     and on the CPU.  Checks: the plane's bins equal the serving path's
     device transform (``FusedTransform.apply_device``, float64) on the
-    same records; per-row scores card vs CPU within SCORE_TOL, unrounded
-    and in the score files (%.3f); AUC card vs CPU within E2E_AUC_TOL;
-    the eval scores against ``score_records_offline`` within SCORE_TOL;
+    CSV's first E2E_CHECK_ROWS records; per-row scores card vs CPU within
+    SCORE_TOL, unrounded and in the score files (%.3f); AUC card vs CPU
+    within E2E_AUC_TOL;
+    the eval scores of those records against ``score_records_offline``
+    within SCORE_TOL;
     ``tree_traverse`` launched models x chunks times during the card's
     ``eval``, counted from zero just before it."""
     from shifu_tpu_torch import cli
@@ -2332,16 +2918,19 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
             bins.dtype != np.uint8:
         fail(f"norm wrote a {bins.dtype} plane of {bins.shape} "
              f"(wire {clean.is_wire}), not {CSV_ROWS} x {N_COLS} uint8")
-    recs = csv_records(csv)
+    # the host-side checks below read the CSV's first E2E_CHECK_ROWS
+    # records (the smoke's time budget)
+    recs = csv_records(csv)[:E2E_CHECK_ROWS]
     tf = FusedTransform.from_dir(d, dtype=torch.float64)
     t0 = time.perf_counter()
     packed, kept, errors = tf.parse_records(recs)
     parse_s = time.perf_counter() - t0
-    if errors or len(kept) != CSV_ROWS:
+    if errors or len(kept) != E2E_CHECK_ROWS:
         fail(f"serve parse rejected {len(errors)} of the CSV's records")
     _, dev_bins = tf.apply_device(torch.from_numpy(packed).to(device),
                                   need_x=False)
-    bins_differ = int((dev_bins.cpu().numpy() != bins).sum())
+    bins_differ = int((dev_bins.cpu().numpy()
+                       != bins[:E2E_CHECK_ROWS]).sum())
     if bins_differ:
         fail(f"the norm plane's bins differ from the serving transform's "
              f"in {bins_differ} cells")
@@ -2370,7 +2959,8 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
     t0 = time.perf_counter()
     offline = score_records_offline(d, recs, device=device)
     offline_s = time.perf_counter() - t0
-    offline_diff = float(np.abs(card[:, 2].astype(float) - offline).max())
+    offline_diff = float(np.abs(card[:E2E_CHECK_ROWS, 2].astype(float)
+                                - offline).max())
     if not offline_diff <= SCORE_TOL:
         fail(f"eval scores vs score_records_offline differ by "
              f"{offline_diff}")
@@ -2379,8 +2969,9 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
     log(f"main path (e2e): raw cache passes {passes}; "
         f"norm {walls['norm']:.3f} s "
         f"({profile['NORMALIZE']['phases_s']}) -> {CSV_ROWS} x {N_COLS} "
-        f"uint8 wire plane, bins equal to the serving transform's "
-        f"(its host parse {parse_s:.3f} s); train {walls['train']:.3f} s "
+        f"uint8 wire plane, bins equal to the serving transform's on "
+        f"{E2E_CHECK_ROWS} rows (its host parse {parse_s:.3f} s); train "
+        f"{walls['train']:.3f} s "
         f"({TRAIN_TREES} trees, launches {train_launches}); eval -run "
         f"{walls['eval']:.3f} s on {device} ({CSV_ROWS / walls['eval']:.0f}"
         f" rows/s, {profile['EVAL']['phases_s']}), {eval_launches} "
@@ -2388,8 +2979,8 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
         f"CPU eval {walls['eval_cpu']:.3f} s; AUC {perf['areaUnderRoc']:.6f}"
         f" (card - CPU {auc_diff:.3g}); max |card - CPU| score "
         f"{card_cpu_raw:.3g} ({card_cpu:.3g} in the %.3f score files), "
-        f"max |eval - offline| {offline_diff:.3g} "
-        f"(offline scoring {offline_s:.3f} s) — [{gpu}]")
+        f"max |eval - offline| {offline_diff:.3g} (offline scoring of "
+        f"{E2E_CHECK_ROWS} rows {offline_s:.3f} s) — [{gpu}]")
     return {"walls_s": walls, "train_launches": train_launches,
             "eval_launches": eval_launches, "cache_passes": passes,
             "auc": perf["areaUnderRoc"],
@@ -2405,9 +2996,14 @@ def e2e_phase(torch, d: str, csv: str, gpu: str) -> dict:
 # ------------------------------------------------------------ phase: NN
 def nn_plane(rng, n: int, d: int):
     """The NN training plane: x [n, d] f32 standard normal (one ZSCALE
-    value a column, as ``norm`` writes the final-selected columns), y from
-    a logit on N_INFORMATIVE columns, integer weights 1..3."""
-    x = rng.standard_normal(size=(n, d), dtype=np.float32)
+    value a column, as ``norm`` writes the final-selected columns; drawn
+    on the card by a generator seeded from ``rng``, as the host draw of a
+    plane this size takes seconds), y from a logit on N_INFORMATIVE
+    columns, integer weights 1..3."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    x = torch.randn((n, d), generator=gen, device="cuda").cpu().numpy()
     cols = np.sort(rng.choice(d, size=N_INFORMATIVE, replace=False))
     coef = rng.choice([-1.0, 1.0], N_INFORMATIVE) \
         * rng.uniform(0.4, 1.2, N_INFORMATIVE)
@@ -2586,7 +3182,9 @@ def nn_phase(torch, root: str, serve_root: str, rng, gpu: str) -> dict:
     ms_step = ms_epoch / steps
     flops_step = 6.0 * NN_WIDE["MiniBatchs"] * n_params
     rate = flops_step / (ms_step * 1e-3)
-    out["b"] = {"profile": nn_epoch_profile(torch, b, x, y, w, "(b)", 1),
+    q = len(y) // NN_PROFILE_SHARE          # (b) profiled on a quarter
+    out["b"] = {"profile": nn_epoch_profile(torch, b, x[:q], y[:q], w[:q],
+                                            "(b)", 1),
                 "ms_per_epoch": ms_epoch, "ms_per_step": ms_step,
                 "steps_per_epoch": steps, "parameters": n_params,
                 "flops_per_step": flops_step, "flop_per_s": rate,
@@ -2656,7 +3254,8 @@ def nn_epoch_profile(torch, d: str, x, y, w, what: str,
     prof = profile_device(
         torch, lambda: train_ensemble(x, y, tw * w, vw * w, spec, settings,
                                       device="cuda"),
-        what=f"{epochs} epoch(s) of {what}'s trainer, upload included")
+        what=f"{epochs} epoch(s) of {what}'s trainer over {len(y)} rows, "
+        "upload included")
     if not prof:
         return {}
     kern = {k: v for k, v in prof["by_name"].items()
@@ -2665,8 +3264,9 @@ def nn_epoch_profile(torch, d: str, x, y, w, what: str,
     gemm = sum(ms for k, (ms, _) in kern.items()
                if "gemm" in k.lower() or "cutlass" in k.lower()) / epochs
     launches = sum(n for _, n in kern.values()) / epochs
-    log(f"{what}: device busy {busy:.3f} ms an epoch in kernels (GEMMs "
-        f"{gemm:.3f} ms), {launches:.0f} kernel launches an epoch")
+    log(f"{what}: device busy {busy:.3f} ms an epoch of {len(y)} rows in "
+        f"kernels (GEMMs {gemm:.3f} ms), {launches:.0f} kernel launches an "
+        "epoch")
     return {"kernel_ms_per_epoch": busy, "gemm_ms_per_epoch": gemm,
             "launches_per_epoch": launches, "top": prof["top"]}
 
@@ -2682,7 +3282,7 @@ def nn_serve_phase(torch, tq, root: str, serve_root: str, models: str,
     """(a)'s bagged NN set of N_COLS inputs served over HTTP on ``cuda``
     (the serving set's configs, ``x`` from the fused transform into one
     stacked forward), checked against the same set on ``cpu`` within
-    NN_SCORE_TOL over the raw batches of RAW_BATCHES records."""
+    NN_SCORE_TOL over the raw batches of GEMM_RAW_BATCHES records."""
     from shifu_tpu_torch.config.model_config import Algorithm
     d = os.path.join(root, "nn_serve")
     os.makedirs(d)
@@ -2690,7 +3290,8 @@ def nn_serve_phase(torch, tq, root: str, serve_root: str, models: str,
         shutil.copy(os.path.join(serve_root, f), d)
     shutil.copytree(models, os.path.join(d, "models"))
     set_train_conf(d, algorithm=Algorithm.NN)
-    return serve_phase(torch, tq, d, plan, rng, tol=NN_SCORE_TOL)
+    return serve_phase(torch, tq, d, plan, rng, tol=NN_SCORE_TOL,
+                       raw_batches=GEMM_RAW_BATCHES)
 
 
 def e2e_nn_phase(torch, d: str, csv: str, gpu: str) -> dict:
@@ -2755,10 +3356,14 @@ def file_bytes(d: str) -> dict:
     return out
 
 
+CACHE_TURNS = ("off", "on")                # raw_cache_phase's turns
+
+
 def raw_cache_phase(d: str, gpu: str) -> dict:
     """``norm`` and ``eval -run`` on the card over the e2e set, with the
     raw cache ``stats`` wrote (on) and under ``-Dshifu.ingest.rawCache=
-    false`` (off), in turns on, off, off, on, each turn in a fresh copy of
+    false`` (off), in turns off, on (one turn each: the smoke's time
+    budget), each turn in a fresh copy of
     the set and each step's wall around ``cli.main``.  Checks: an on turn
     is served (one hit a step, no miss), an off turn makes no cache pass;
     every turn's wire plane is byte-equal to the e2e phase's and its
@@ -2772,7 +3377,7 @@ def raw_cache_phase(d: str, gpu: str) -> dict:
     walls = {"on": {"norm": [], "eval": []}, "off": {"norm": [], "eval": []}}
     prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
     try:
-        for i, mode in enumerate(("on", "off", "off", "on")):
+        for i, mode in enumerate(CACHE_TURNS):
             t = f"{d}_cache_{i}"
             shutil.copytree(d, t)
             props = [] if mode == "on" else ["-Dshifu.ingest.rawCache=false"]
@@ -2801,7 +3406,7 @@ def raw_cache_phase(d: str, gpu: str) -> dict:
     finally:
         parsepool.CHUNK_ROWS = prev_chunk
     log(f"raw cache on the e2e set ({CSV_ROWS} x {N_COLS + 2} CSV), in "
-        f"turns on/off/off/on: norm on {walls['on']['norm']} s, off "
+        f"turns {'/'.join(CACHE_TURNS)}: norm on {walls['on']['norm']} s, off "
         f"{walls['off']['norm']} s; eval -run on {walls['on']['eval']} s, "
         f"off {walls['off']['eval']} s; wire planes byte-equal, score files "
         f"equal — [{gpu}]")
@@ -2932,9 +3537,10 @@ def nn_stream_phase(torch, root: str, serve_root: str, rng,
                     gpu: str) -> dict:
     """The streamed NN/LR trainer at full width through ``cli.main train``
     on ``cuda``: a norm plane of NN_STREAM_ROWS x N_COLS f32 from
-    ``--seed`` (2.71 GB at ``should_stream``'s 4 * (256 + 2) bytes a row),
-    which streams by the default 2 GiB budget with nothing forced, in two
-    windows.
+    ``--seed`` (1.35 GB at ``should_stream``'s 4 * (256 + 2) bytes a row),
+    which streams by its ``shifu.train.memoryBudgetBytes`` of 1 GiB
+    (NN_STREAM_BUDGET; a cut for the smoke's time budget from 2.71 GB
+    and the default 2 GiB) with nothing forced, in two windows.
 
     (a) ``init -model``'s NN (full batch) for NN_STREAM_EPOCHS epochs:
         falling errors, ms an epoch; (b) NN_STREAM_CKPT epochs then
@@ -2954,16 +3560,26 @@ def nn_stream_phase(torch, root: str, serve_root: str, rng,
     write_norm_plane(plane, x, y, w, names)
     out = {"plane_gb": NN_STREAM_ROWS * 4 * (N_COLS + 2) / 1e9,
            "plane_write_s": time.perf_counter() - t0}
-    if not should_stream(Shards.open(plane)):
-        fail("the NN stream plane does not stream by the default budget")
+    from shifu_tpu_torch.config import environment
+    for k, v in NN_STREAM_BUDGET.items():
+        environment.set_property(k, v)
+    try:
+        streams = should_stream(Shards.open(plane))
+    finally:
+        for k in NN_STREAM_BUDGET:
+            environment.set_property(k, "")
+    if not streams:
+        fail("the NN stream plane does not stream by its budget")
 
     a = nn_set(root, "nn_s_a", serve_root, plane, "NN", baggingNum=1,
                numTrainEpochs=NN_STREAM_EPOCHS)
     set_train_params(a, {**load_params(a),
                          "CheckpointInterval": NN_STREAM_CKPT})
     with EpochClock() as clock:
-        wall, window = nn_stream_cli(a, "cuda", {})
+        wall, window = nn_stream_cli(a, "cuda", NN_STREAM_BUDGET)
     windows = -(-NN_STREAM_ROWS // window)
+    if windows < 2:
+        fail(f"stream (a) took the plane in {windows} window(s)")
     errs = check_falling(a, "stream (a)")
     out["a"] = {"wall_s": wall, "ms_per_epoch": clock.ms_per_epoch(),
                 "window_rows": window, "windows": windows,
@@ -2977,9 +3593,9 @@ def nn_stream_phase(torch, root: str, serve_root: str, rng,
 
     b = nn_set(root, "nn_s_b", serve_root, plane, "NN", load_params(a),
                baggingNum=1, numTrainEpochs=NN_STREAM_CKPT)
-    nn_stream_cli(b, "cuda", {})
+    nn_stream_cli(b, "cuda", NN_STREAM_BUDGET)
     set_train_conf(b, numTrainEpochs=NN_STREAM_EPOCHS)
-    nn_stream_cli(b, "cuda", {}, "-resume")
+    nn_stream_cli(b, "cuda", NN_STREAM_BUDGET, "-resume")
     for (f, _, pa), (_, _, pb) in zip(nn_members(a), nn_members(b)):
         for la, lb in zip(pa, pb):
             if not all(torch.equal(la[k], lb[k]) for k in ("w", "b")):
@@ -2992,7 +3608,7 @@ def nn_stream_phase(torch, root: str, serve_root: str, rng,
                {**load_params(a), "Propagation": "ADAM",
                 "LearningRate": 0.01, "MiniBatchs": NN_STREAM_BATCH},
                baggingNum=1, numTrainEpochs=2)
-    wall_c, _ = nn_stream_cli(c, "cuda", {})
+    wall_c, _ = nn_stream_cli(c, "cuda", NN_STREAM_BUDGET)
     errs_c = check_falling(c, "stream (c) minibatch", cols=(0,))
     out["c"] = {"wall_s": wall_c, "errors": errs_c.tolist()}
     log(f"stream (c) minibatch (ADAM, MiniBatchs {NN_STREAM_BATCH}): 2 "
@@ -3160,7 +3776,7 @@ COMBO_AUC_TOL = 0.005                      # member AUCs, card vs CPU
 COMBO_ROWS = 2 * CSV_CHUNK                 # combo's cut of the e2e CSV
 GENETIC_KEEP = 64                          # GENETIC's filterNum
 GENETIC_WINDOW = 8192                      # streamed GENETIC's window rows
-GENETIC_CUT = {"WrapperEpochs": 20, "POPULATION_MULTIPLY_CNT": 3}
+GENETIC_CUT = {"WrapperEpochs": 10, "POPULATION_MULTIPLY_CNT": 3}
 RECURSIVE_KEEP = 3                         # the CSV's 3 informative columns
 RECURSIVE_NN = {"NumHiddenNodes": [16], "ActivationFunc": ["tanh"],
                 "Propagation": "ADAM", "LearningRate": 0.05}
@@ -3168,10 +3784,11 @@ RECURSIVE_EPOCHS = 30
 
 
 def cli_ok(d: str, *argv: str) -> float:
-    """A CLI command in model set ``d`` that must exit 0; its wall s."""
+    """A CLI command in model set ``d`` that must exit 0, parsing inline
+    (INLINE_PARSE); its wall s."""
     from shifu_tpu_torch import cli
     t0 = time.perf_counter()
-    rc = cli.main(["--dir", d, *argv])
+    rc = cli.main([INLINE_PARSE, "--dir", d, *argv])
     if rc != 0:
         fail(f"{' '.join(argv)} exited {rc} in {d}")
     return time.perf_counter() - t0
@@ -3808,7 +4425,8 @@ def stream_plane(rng, plan, root: str, names):
     (``train_plane``: y from the logit on N_INFORMATIVE columns, weights
     1-3) as the wire plane in shards of STREAM_WINDOW rows."""
     t0 = time.perf_counter()
-    bins, y, w, informative, is_cat = train_plane(rng, plan, STREAM_ROWS)
+    bins, y, w, informative, is_cat = train_plane(rng, plan, STREAM_ROWS,
+                                                  on_card=False)
     clean = os.path.join(root, "stream_plane")
     write_plane(clean, bins, y, w, names, {"chip_smoke": "stream"},
                 shard=STREAM_WINDOW)
@@ -3896,28 +4514,33 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
         f"memory {peak / 2**30:.3f} GiB; validation error "
         f"{err_a[0, 1]:.6f} -> {err_a[-1, 1]:.6f} — [{gpu}]")
 
-    # (a') the exact schedule: the same forest bit for bit
+    # (a') the exact schedule: (a)'s first STREAM_EXACT_TREES trees bit
+    # for bit
     dx = write_train_set(os.path.join(root, "stream_exact"), serve_root,
-                         params, clean)
+                         dict(params, TreeNum=STREAM_EXACT_TREES), clean)
     zero_tree_counts()
     wall, runs, peak = stream_cli(
         dx, "cuda", dict(win, **{"shifu.tree.tailCoarseToFine": "false"}))
     launches = read_tree_counts()
     x = runs[-1]
     _, trees_x = load_forest(dx)
-    if not forests_equal(trees_x, trees_a):
+    if not forests_equal(trees_x, trees_a[:STREAM_EXACT_TREES]):
         fail("(a') the exact schedule's forest differs from (a)'s")
-    if not np.array_equal(progress_errors(dx), err_a):
+    if not np.array_equal(progress_errors(dx), err_a[:STREAM_EXACT_TREES]):
         fail("(a') progress differs from (a)'s")
-    if x["tail_sweeps"] != TRAIN_TREES * (DEPTH + 2) or \
-            not a["tail_sweeps"] < x["tail_sweeps"]:
+    if x["tail_sweeps"] != STREAM_EXACT_TREES * (DEPTH + 2) or \
+            not a["tail_sweeps"] / TRAIN_TREES \
+            < x["tail_sweeps"] / STREAM_EXACT_TREES:
         fail(f"(a') tail sweeps {x['tail_sweeps']} (want "
-             f"{TRAIN_TREES * (DEPTH + 2)}), (a) {a['tail_sweeps']}")
+             f"{STREAM_EXACT_TREES * (DEPTH + 2)}, more a tree than (a)'s "
+             f"{a['tail_sweeps']} for {TRAIN_TREES})")
     out["a_exact"] = {"wall_s": wall, "launches": launches,
                       "peak_bytes": peak, **x}
-    log(f"stream (a') exact: bit-identical to (a), {wall:.3f} s "
-        f"({wall * 1e3 / TRAIN_TREES:.1f} ms a tree), tail sweeps "
-        f"{x['tail_sweeps']} against (a)'s {a['tail_sweeps']}; launches "
+    log(f"stream (a') exact: bit-identical to (a)'s first "
+        f"{STREAM_EXACT_TREES} trees, {wall:.3f} s "
+        f"({wall * 1e3 / STREAM_EXACT_TREES:.1f} ms a tree), tail sweeps "
+        f"{x['tail_sweeps']} against (a)'s {a['tail_sweeps']} for "
+        f"{TRAIN_TREES}; launches "
         f"{launches} — [{gpu}]")
 
     # where a streamed tree's time goes: the device busy share of a
@@ -4034,7 +4657,7 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
 
 def stream_cut_phase(root, serve_root, params, bins, y, w, names,
                      gpu) -> dict:
-    """(d): the stream plane's first CUT_ROWS rows, windows of
+    """(d): the stream plane's first STREAM_CUT_ROWS rows, windows of
     STREAM_CUT_WINDOW, a device cache that keeps STREAM_CUT_RESIDENT of
     them resident (GBT and RF alike); (a)'s GBT at STREAM_CUT_TREES trees
     with coarse-to-fine on and off, and a STREAM_CUT_RF_TREES-tree depth-7 RF, each on ``cuda``,
@@ -4042,7 +4665,8 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
     the others' CPU runs; ``tests/test_torch_tree_streaming.py`` holds
     every regime to the reference on the CPU)."""
     cut = os.path.join(root, "stream_cut_plane")
-    write_plane(cut, bins[:CUT_ROWS], y[:CUT_ROWS], w[:CUT_ROWS], names,
+    n = STREAM_CUT_ROWS
+    write_plane(cut, bins[:n], y[:n], w[:n], names,
                 {"chip_smoke": "stream_cut"}, shard=STREAM_CUT_WINDOW * 3)
     budget = STREAM_CUT_RESIDENT * STREAM_CUT_WINDOW * GBT_ROW_BYTES + 1000
     base = {"shifu.train.streaming": "on",
@@ -4070,12 +4694,12 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
     for name, alg, _, _ in cases:
         w_card, r_card, t_card, e_card = got[name, "cuda"]
         if r_card["resident"] != STREAM_CUT_RESIDENT or \
-                r_card["windows"] != CUT_ROWS // STREAM_CUT_WINDOW:
+                r_card["windows"] != n // STREAM_CUT_WINDOW:
             fail(f"(d) {name}: geometry {r_card}")
         if name not in STREAM_CUT_CPU:
             out[name] = {"wall_s": [w_card], "tail_sweeps":
                          r_card["tail_sweeps"]}
-            log(f"stream (d) {name} on {CUT_ROWS} rows on the card: "
+            log(f"stream (d) {name} on {n} rows on the card: "
                 f"{r_card['tail_sweeps']} tail sweeps, wall {w_card:.2f} s "
                 f"— [{gpu}]")
             continue
@@ -4099,8 +4723,8 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
         out[name] = {"wall_s": [w_card, w_cpu], "max_abs_leaf_diff": worst,
                      "max_rel_err": float(rel.max()),
                      "tail_sweeps": r_card["tail_sweeps"]}
-        log(f"stream (d) {name} on {CUT_ROWS} rows ({STREAM_CUT_RESIDENT} of "
-            f"{CUT_ROWS // STREAM_CUT_WINDOW} windows resident): card == CPU "
+        log(f"stream (d) {name} on {n} rows ({STREAM_CUT_RESIDENT} of "
+            f"{n // STREAM_CUT_WINDOW} windows resident): card == CPU "
             f"in splits and masks, leaves within {worst:.3g}, errors within "
             f"{rel.max():.3g} relative, tail sweeps {r_card['tail_sweeps']} "
             f"on both; wall {w_card:.2f} s card, {w_cpu:.2f} s CPU — [{gpu}]")
@@ -4442,12 +5066,14 @@ def multiclass_phase(torch, tq, root: str, serve_root: str, plane, rng,
 
 
 def write_multiclass_csv(path: str, src: str) -> list:
-    """The stats phase's CSV with a three-valued ``tag``: ``t0`` where it
+    """The stats phase's CSV's first MC_CLI_ROWS rows with a three-valued
+    ``tag``: ``t0`` where it
     was bad, else ``t1`` or ``t2`` by the side of the first numeric column
     (informative in ``write_stats_csv``) its value lies on (``t1`` when
     the cell is empty).  Returns the class counts."""
     with open(src) as f:
-        rows = [line.rstrip("\n").split("|") for line in f]
+        rows = [line.rstrip("\n").split("|")
+                for _, line in zip(range(MC_CLI_ROWS), f)]
     first = np.array([float(r[0]) if r[0] else np.nan for r in rows])
     cut = float(np.nanmedian(first))
     counts = [0] * MC_CLASSES
@@ -4464,7 +5090,8 @@ def write_multiclass_csv(path: str, src: str) -> list:
 def multiclass_cli_phase(torch, tq, root: str, csv: str,
                          gpu: str) -> dict:
     """The multi-class path through the CLI a user calls: the stats
-    phase's CSV (CSV_ROWS rows x 258 fields) with a three-valued tag
+    phase's CSV (its first MC_CLI_ROWS rows x 258 fields) with a
+    three-valued tag
     (``write_multiclass_csv``) through ``new → init → stats → norm →
     train`` on ``cuda`` (a native RF with init -model's params, then a
     one-vs-all GBT with the train phase's), each model set through ``eval
@@ -4509,7 +5136,7 @@ def multiclass_cli_phase(torch, tq, root: str, csv: str,
     ev.dataPath, ev.dataDelimiter = csv3, "|"
     ev.headerPath, ev.headerDelimiter = csv3 + ".header", "|"
     mc.save(path)
-    chunks = -(-CSV_ROWS // CSV_CHUNK)
+    chunks = -(-MC_CLI_ROWS // CSV_CHUNK)
     out = {"class_counts": counts}
     prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
     try:
@@ -4548,7 +5175,7 @@ def multiclass_cli_phase(torch, tq, root: str, csv: str,
                      f"{perf.get('accuracy')} vs {cpu_perf.get('accuracy')}"
                      f", confusion {perf.get('confusionMatrix')} vs "
                      f"{cpu_perf.get('confusionMatrix')}")
-            if card.shape != (CSV_ROWS, 3 + MC_CLASSES) or \
+            if card.shape != (MC_CLI_ROWS, 3 + MC_CLASSES) or \
                     not np.array_equal(card[:, :3], cpu[:, :3]):
                 fail(f"multi-class EvalScore ({alg}) card {card.shape} vs "
                      "CPU: tag, weight or predicted tag differ")
@@ -4572,7 +5199,7 @@ def multiclass_cli_phase(torch, tq, root: str, csv: str,
     finally:
         parsepool.CHUNK_ROWS = prev_chunk
         environment.reset_for_tests()       # drop the -D parse setting
-    log(f"multi-class CLI: {CSV_ROWS} rows, classes {counts}; walls "
+    log(f"multi-class CLI: {MC_CLI_ROWS} rows, classes {counts}; walls "
         f"{ {k: round(v, 3) for k, v in walls.items()} } — [{gpu}]")
     out["walls_s"] = walls
     return out
@@ -4581,17 +5208,17 @@ def multiclass_cli_phase(torch, tq, root: str, csv: str,
 # ------------------------------------------------- phase: WDL and SVM
 WDL_BAGS, WDL_EPOCHS = 5, 5               # baggingNum as the NN's; full batch
 WDL_BATCH = 128                           # the reference's default MiniBatchs
-WDL_B_ROWS = 1 << 17                      # (b)'s epoch: a cut in rows
+WDL_B_ROWS = 1 << 16                      # (b)'s epoch: a cut in rows
 WDL_HASH_BUCKETS = 32                     # columns past 32 categories hash
-WDL_CUT_BAGS, WDL_CUT_EPOCHS = 2, 3       # card vs CPU on CUT_ROWS rows
+WDL_CUT_BAGS, WDL_CUT_EPOCHS = 2, 2       # card vs CPU on CUT_ROWS rows
 WDL_CUT_WINDOW = 8192                     # ... streamed in these windows
 WDL_RESUME = (2, 4, 1024)                 # epochs, then resumed to, batch
 WDL_ERR_RTOL, WDL_AUC_TOL = 1e-4, 0.005   # card vs CPU
 WDL_SCORE_TOL = 1e-2                      # served / evaluated, 0-1000
 WDL_E2E = {"MiniBatchs": 0, "LearningRate": 0.01}   # e2e set's WDL
 WDL_E2E_EPOCHS = 10
-WDL_PROFILE_STEPS = (20, 40)              # minibatch steps profiled
-WDL_PROFILE_ROWS = 1 << 18                # a full-batch epoch profiled
+WDL_PROFILE_STEPS = (5, 10)               # minibatch steps profiled
+WDL_PROFILE_ROWS = 1 << 16                # a full-batch epoch profiled
 SVM_CAP, SVM_ITERS, SVM_CUT = 16384, 2000, 2048
 SVM_GAMMA = 1.0 / N_COLS                  # the trainer's default Gamma
 SVM_ALPHA_TOL, SVM_F_TOL = 1e-4, 1e-3     # duals, decision values
@@ -4801,9 +5428,9 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
         f"and the epoch's error pass included; CLI {wall:.3f} s) "
         f"— [{gpu}]")
 
-    # (c) hashed ids, served
-    c = wdl_set(root, "wdl_c", serve_root, norm, clean, {"MiniBatchs": 0},
-                baggingNum=WDL_BAGS, numTrainEpochs=3)
+    # (c) hashed ids, served (trained on (b)'s rows)
+    c = wdl_set(root, "wdl_c", serve_root, norm_b, clean_b,
+                {"MiniBatchs": 0}, baggingNum=WDL_BAGS, numTrainEpochs=3)
     props_cli(c, card, {"shifu.wdl.hashBuckets": WDL_HASH_BUCKETS})
     check_falling(c, "WDL (c)", cols=(0,))
     hashed = wdl_members(c)
@@ -4827,7 +5454,8 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
     set_train_conf(sd, algorithm=Algorithm.WDL)
     served = serve_phase(torch, tq, sd, plan,
                          np.random.default_rng([rows, 9]),
-                         tol=WDL_SCORE_TOL) if card == "cuda" else {}
+                         tol=WDL_SCORE_TOL, raw_batches=GEMM_RAW_BATCHES) \
+        if card == "cuda" else {}
     out["c"] = {"hashed_cols": len(wide), "served": served}
     log(f"WDL (c) hashBuckets {WDL_HASH_BUCKETS}: {len(wide)} of {N_CAT} "
         f"categorical columns hashed; bucket ids on the card equal the "
@@ -5065,7 +5693,8 @@ def svm_phase(torch, root: str, serve_root: str, nn_plane: str, plan,
     set_train_conf(sd, algorithm=Algorithm.SVM)
     served = serve_phase(torch, tq, sd, plan,
                          np.random.default_rng([rows, 10]),
-                         tol=NN_SCORE_TOL) if card == "cuda" else {}
+                         tol=NN_SCORE_TOL, raw_batches=GEMM_RAW_BATCHES) \
+        if card == "cuda" else {}
     out["d"] = served
     return out
 
@@ -5252,8 +5881,8 @@ def time_kernels(torch, tq, rng, gpu: str) -> dict:
 def time_eval_walk(torch, tq, d: str, bins: np.ndarray, gpu: str) -> dict:
     """``tree_traverse`` at the e2e phase's eval shapes: the trained GBT's
     forest, packed once as the eval scorer packs it, over the norm plane's
-    bins in one eval chunk (CSV_CHUNK rows) and the whole eval set
-    (CSV_ROWS), held bit for bit to the plain version and timed beside it
+    bins in one eval chunk (CSV_CHUNK rows) and over EVAL_TIMED_ROWS rows
+    (the eval set's bins repeated), held bit for bit to the plain version and timed beside it
     and its bound, as ``time_kernels`` does."""
     from shifu_tpu_torch.eval.scorer import load_models
     model = load_models(os.path.join(d, "models"))[0]
@@ -5262,7 +5891,9 @@ def time_eval_walk(torch, tq, d: str, bins: np.ndarray, gpu: str) -> dict:
     packed = model.quant_packed(dev)
     depth = model.trees[0].depth
     out = {}
-    for n in (CSV_CHUNK, CSV_ROWS):
+    reps = -(-EVAL_TIMED_ROWS // len(bins))
+    bins = np.concatenate([bins] * reps)
+    for n in (CSV_CHUNK, EVAL_TIMED_ROWS):
         b = torch.from_numpy(np.ascontiguousarray(bins[:n])).to(dev)
         got = tq.predict_forest_quant(*forest, b, depth, packed=packed)
         want = tq.predict_forest_quant_ref(*forest, b, depth)
@@ -5657,8 +6288,14 @@ def main() -> None:
     path_rng = np.random.default_rng([args.seed, 1])   # the main path's data
     t_all = time.perf_counter()
 
-    def mark(what: str) -> None:         # the smoke's time budget, a phase
-        log(f"{what} done at {time.perf_counter() - t_all:.1f} s")
+    walls = {}                           # the smoke's time budget, a phase
+    last = [t_all]
+
+    def mark(what: str) -> None:
+        now = time.perf_counter()
+        walls[what] = round(now - last[0], 1)
+        last[0] = now
+        log(f"{what} done at {now - t_all:.1f} s ({walls[what]:.1f} s)")
 
     t0 = time.perf_counter()
     built = cuda_lib.build(["tree_traverse", "hist", "stats_hist"])
@@ -5669,12 +6306,16 @@ def main() -> None:
                     or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
+    mark("kernels built")
 
     errs = check_kernels(torch, tq, rng)
+    mark("check_kernels")
     errs.update(check_hist(torch, rng))
+    mark("check_hist")
     errs.update(check_stats_hist(torch, rng))
+    mark("check_stats_hist")
     errs.update(check_hist_batch(torch, rng))
-    mark("kernels built and checked")
+    mark("check_hist_batch")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         serve_root = os.path.join(root, "serve")
         os.makedirs(serve_root)
@@ -5685,7 +6326,11 @@ def main() -> None:
                                   np.random.default_rng([args.seed, 9]),
                                   gpu)
         mark("serve_plane_phase")
+        fleet = fleet_phase(torch, root, serve_root, plan,
+                            np.random.default_rng([args.seed, 11]), gpu)
+        mark("fleet_phase")
         time_transform(torch, serve_root, plan, rng, gpu)
+        mark("time_transform")
         trained = train_phase(torch, root, serve_root, plan, path_rng)
         mark("train_phase")
         plane = trained.pop("plane")
@@ -5708,56 +6353,72 @@ def main() -> None:
         nn = nn_phase(torch, root, serve_root,
                       np.random.default_rng([args.seed, 3]), gpu)
         nn_walls["nn_phase"] = time.perf_counter() - t0
+        mark("nn_phase")
         t0 = time.perf_counter()
         nn_stream = nn_stream_phase(torch, root, serve_root,
                                     np.random.default_rng([args.seed, 6]),
                                     gpu)
         nn_walls["nn_stream_phase"] = time.perf_counter() - t0
+        mark("nn_stream_phase")
         t0 = time.perf_counter()
         varsel = varselect_phase(
             torch, root, os.path.dirname(nn["models_dir"]),
             os.path.join(root, "nn_cut_plane"),
             np.random.default_rng([args.seed, 7]), gpu)
         nn_walls["varselect_phase"] = time.perf_counter() - t0
+        mark("varselect_phase")
         t0 = time.perf_counter()
         genetic = genetic_phase(torch, root, os.path.dirname(nn["models_dir"]),
                                 os.path.join(root, "nn_cut_plane"), gpu)
         nn_walls["genetic_phase"] = time.perf_counter() - t0
+        mark("genetic_phase")
         t0 = time.perf_counter()
         nn_served = nn_serve_phase(torch, tq, root, serve_root,
                                    nn.pop("models_dir"), plan,
                                    np.random.default_rng([args.seed, 4]))
         nn_walls["nn_serve_phase"] = time.perf_counter() - t0
+        mark("nn_serve_phase")
         t0 = time.perf_counter()
         wdl = wdl_phase(torch, root, serve_root, plan,
                         np.random.default_rng([args.seed, 8]), gpu)
         nn_walls["wdl_phase"] = time.perf_counter() - t0
+        mark("wdl_phase")
         t0 = time.perf_counter()
         svm = svm_phase(torch, root, serve_root,
                         os.path.join(root, "nn_plane"), plan, gpu)
         nn_walls["svm_phase"] = time.perf_counter() - t0
-        mark("the NN, WDL and SVM phases")
+        mark("svm_phase")
         stats = stats_phase(torch, root, plan, path_rng)
         mark("stats_phase")
+        stats_x = stats_extra_phase(torch, root, stats["dir"], plan, gpu)
+        mark("stats_extra_phase")
         e2e = e2e_phase(torch, stats["dir"], stats["csv"], gpu)
+        mark("e2e_phase")
         eval_times = time_eval_walk(torch, tq, stats["dir"],
                                     e2e.pop("bins"), gpu)
+        mark("time_eval_walk")
         cache_walls = raw_cache_phase(stats["dir"], gpu)
-        mark("e2e and raw_cache_phase")
+        mark("raw_cache_phase")
         post = posttrain_phase(torch, tq, stats["dir"], gpu)
+        mark("posttrain_phase")
         aux = aux_tree_phase(torch, tq, root, stats["dir"], stats["csv"],
                              os.path.join(root, "rf"), rf_cut_bins, gpu)
+        mark("aux_tree_phase")
         mc_cli = multiclass_cli_phase(torch, tq, root, stats["csv"], gpu)
-        mark("posttrain, aux and multiclass_cli_phase")
+        mark("multiclass_cli_phase")
         t0 = time.perf_counter()
         e2e_nn = e2e_nn_phase(torch, stats["dir"], stats["csv"], gpu)
         nn_walls["e2e_nn_phase"] = time.perf_counter() - t0
+        mark("e2e_nn_phase")
         aux_nn = aux_nn_phase(torch, root, stats["dir"], gpu)
         nn_walls["aux_nn_phase"] = aux_nn["wall_s"]
+        mark("aux_nn_phase")
         t0 = time.perf_counter()
         wdl_e2e = wdl_e2e_phase(torch, root, stats["dir"], stats["csv"],
                                 gpu)
+        mark("wdl_e2e_phase")
         svm_e2e = svm_e2e_phase(torch, root, stats["dir"], gpu)
+        mark("svm_e2e_phase")
         from shifu_tpu_torch.data import parsepool
         prev_chunk, parsepool.CHUNK_ROWS = parsepool.CHUNK_ROWS, CSV_CHUNK
         try:
@@ -5767,19 +6428,24 @@ def main() -> None:
         finally:
             parsepool.CHUNK_ROWS = prev_chunk
         nn_walls["wdl_svm_e2e_combo"] = time.perf_counter() - t0
-        mark("the e2e NN, WDL and SVM phases")
+        mark("wdl_combo")
         log(f"combo WDL:GBT on {COMBO_ROWS} rows: run "
             f"{wdl_combo['walls_s']['run_cuda']:.3f} s on the card, "
             f"{wdl_combo['walls_s']['run_cpu']:.3f} s on the CPU; "
             f"{wdl_combo['hist_launches']} hist and "
             f"{wdl_combo['eval_launches']} tree_traverse launches; AUCs "
             f"card vs CPU {wdl_combo['aucs']} — [{gpu}]")
+    mark("temporary directory removed")
     resident = resident_phase(torch, args.seed)
+    mark("resident_phase")
     times = time_kernels(torch, tq, rng, gpu)
+    mark("time_kernels")
     hist_times = time_hist(torch, rng, gpu)
+    mark("time_hist")
     stats_times = time_stats_hist(torch, rng, gpu)
+    mark("time_stats_hist")
     batch_times = time_hist_batch(torch, rng, gpu)
-    mark("resident_phase and the kernel timings")
+    mark("time_hist_batch")
     ms_tree = trained["chunk"]["ms_per_tree"]
     ph = trained["phases_s"]
     log(f"full-width train: {ms_tree:.3f} ms per tree device-resident, "
@@ -5801,6 +6467,9 @@ def main() -> None:
         "serve_plane_replays": splane["replays"],
         "serve_plane_warm_launches": splane["warm_launches"],
         "serve_plane_batches": splane["batches"],
+        "fleet_launches": fleet["launches"],
+        "fleet_replays": fleet["replays"],
+        "fleet_warm_launches": fleet["warm_launches"],
         "train_replay_launches":
             trained["replay"]["launches"]["tree_traverse"],
         "eval_launches": e2e["eval_launches"],
@@ -5863,6 +6532,7 @@ def main() -> None:
         "replaces": "shifu_tpu/ops/hist_pallas.py:534",
         "launches": stats["launches"]["stats_hist"],
         "resident_launches": resident["launches"],
+        "stats_extra_launches": stats_x["launches"],
         "max_abs_err": errs["stats_hist"],
         "ms": stats_times[4]["ms"], "plain_ms": stats_times[4]["plain_ms"],
         "bound_ms": stats_times[4]["bound_ms"],
@@ -5948,8 +6618,9 @@ def main() -> None:
     log(f"raw cache: norm {np.median(cache_walls['on']['norm']):.3f} s "
         f"with it, {np.median(cache_walls['off']['norm']):.3f} s without; "
         f"eval -run {np.median(cache_walls['on']['eval']):.3f} / "
-        f"{np.median(cache_walls['off']['eval']):.3f} s (medians of 2 "
-        f"turns each); posttrain {post['wall_cuda_s']:.3f} s on the card "
+        f"{np.median(cache_walls['off']['eval']):.3f} s "
+        f"({len(CACHE_TURNS) // 2} turn(s) each); posttrain "
+        f"{post['wall_cuda_s']:.3f} s on the card "
         f"({post['launches_cuda']} tree_traverse launch(es)) — [{gpu}]")
     ns = nn_stream
     log(f"NN streamed on {NN_STREAM_ROWS} x {N_COLS} ({ns['plane_gb']:.2f} "
@@ -5992,6 +6663,7 @@ def main() -> None:
         f"{svm['c']['ms_per_epoch']:.3f} ms an epoch; e2e SVM AUCs "
         f"{ {k: round(v['auc'], 6) for k, v in svm_e2e.items()} } "
         f"— [{gpu}]")
+    log(f"phase walls (s): {json.dumps(walls)}")
     log(f"served {served['batches']} batches; max |card - cpu| "
         f"{served['max_abs_score_diff']:.3g}; trained {TRAIN_TREES} GBT and "
         f"{RF_TREES} RF trees; "

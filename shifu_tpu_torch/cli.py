@@ -17,9 +17,9 @@ the ``tree_traverse`` kernel on the card (encode: its node-index walk,
 one launch a chunk), and varselect's SE/ST, GENETIC and ``-recursive``
 train or run nets there.
 
-    python -m shifu_tpu_torch.cli --dir <base> new <name>
+    python -m shifu_tpu_torch.cli --dir <base> new <name> [-t <alg>] [-m <text>]
     python -m shifu_tpu_torch.cli --dir <modelset> init [-model]
-    python -m shifu_tpu_torch.cli --dir <modelset> stats [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> stats [-correlation] [-psi] [-rebin [-vars A,B] [-ivr R] [-bic N]] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> norm [-shuffle]
     python -m shifu_tpu_torch.cli --dir <modelset> varselect [-list|-reset|-recover|-autofilter|-recoverauto|-recursive N] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> train [-resume] [--device cpu]
@@ -35,7 +35,7 @@ train or run nets there.
     python -m shifu_tpu_torch.cli --dir <modelset> analysis -fi <model file>
     python -m shifu_tpu_torch.cli --dir <modelset> test [-filter [<evalset>]]
     python -m shifu_tpu_torch.cli --dir <modelset> save [<name>] | switch <name> | history | show | delete <name> | cp <dir>
-    python -m shifu_tpu_torch.cli --dir <modelset> serve [--port N]
+    python -m shifu_tpu_torch.cli --dir <modelset> serve [--port N] [--replicas N]
     python -m shifu_tpu_torch.cli --dir <modelset> serve --selfcheck 4 --device cpu
 """
 
@@ -74,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("new", help="create a new model-set scaffold")
     sp.add_argument("name")
+    sp.add_argument("--alg", "-t", default="NN", dest="alg",
+                    help="NN|LR|GBT|RF|DT|WDL|SVM (reference `new -t`)")
+    sp.add_argument("-m", dest="description", default=None,
+                    help="model-set description (reference `new -m`)")
 
     sp = sub.add_parser("init",
                         help="build the initial ColumnConfig.json from the "
@@ -83,7 +87,21 @@ def build_parser() -> argparse.ArgumentParser:
                     "ModelConfig.json (reference `init -model`)")
 
     sp = sub.add_parser("stats", help="per-column stats + binning (fine "
-                        "histograms on the device)")
+                        "histograms on the device; +psi/correlation/rebin)")
+    sp.add_argument("-correlation", "-c", dest="correlation",
+                    action="store_true",
+                    help="pairwise-complete Pearson matrix of every "
+                    "candidate column -> correlation.csv")
+    sp.add_argument("-psi", dest="psi", action="store_true",
+                    help="PSI over the units of stats.psiColumnName")
+    sp.add_argument("-rebin", dest="rebin", action="store_true",
+                    help="merge adjacent bins by IV (reference -rebin)")
+    sp.add_argument("-vars", dest="rebin_vars", metavar="A,B",
+                    help="rebin only these columns (reference -vars)")
+    sp.add_argument("-ivr", dest="rebin_ivr", type=float, default=None,
+                    help="rebin IV keep ratio (reference -ivr)")
+    sp.add_argument("-bic", dest="rebin_bic", type=int, default=None,
+                    help="rebin minimum bin instance count (reference -bic)")
     _device_arg(sp)
 
     sp = sub.add_parser("norm", aliases=["normalize", "transform"],
@@ -145,7 +163,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "-Dshifu.serve.requestDeadlineMs overload "
                         "control, -Dshifu.scorelog.sampleRate the "
                         "quality plane; GET /slo, GET /quality, POST "
-                        "/outcome, POST /swap)")
+                        "/outcome, POST /swap; --replicas N a fleet)")
     sp.add_argument("--port", dest="serve_port", type=int, default=8188,
                     help="HTTP port for POST /score + GET /healthz "
                     "(default 8188; 0 binds an ephemeral port)")
@@ -158,9 +176,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="score N synthetic rows in-process and exit")
     sp.add_argument("--replicas", dest="serve_replicas", type=int,
                     default=1, metavar="N",
-                    help="fleet mode (the reference's router): not ported "
-                    "— N > 1 raises")
-    # the reference's internal fleet-worker flags: accepted, and raise
+                    help="fleet mode: spawn N serve workers (each its own "
+                    "process on --device) behind a health-/SLO-aware "
+                    "routing front on --port — POST /swap coordinates a "
+                    "fleet-wide hot-swap with no mixed-model window "
+                    "(knobs: -Dshifu.serve.fleetPollMs health-poll "
+                    "cadence, -Dshifu.serve.fleetStaleS stale-replica "
+                    "cutoff, -Dshifu.serve.canaryFrac canary commit "
+                    "slice, -Dshifu.serve.retryBudgetFrac, "
+                    "-Dshifu.serve.hedgeMs, "
+                    "-Dshifu.serve.breakerFailures)")
+    # internal fleet-worker flags (run_fleet passes them when spawning)
     sp.add_argument("--replica", dest="serve_replica", default=None,
                     help=argparse.SUPPRESS)
     sp.add_argument("--announce", dest="serve_announce", default=None,
@@ -259,7 +285,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         else logging.WARNING)
     if args.command == "new":
         from .pipeline.create import create_new_model
-        create_new_model(args.name, base_dir=args.dir)
+        create_new_model(args.name, base_dir=args.dir, algorithm=args.alg,
+                         description=args.description)
         return 0
     if args.command == "init":
         from .pipeline.create import InitProcessor, check_algorithm_param
@@ -268,7 +295,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         return InitProcessor(args.dir).run()
     if args.command == "stats":
         from .pipeline.stats import StatsProcessor
-        return StatsProcessor(args.dir, device=args.device).run()
+        params = {k: getattr(args, k) for k in (
+            "correlation", "psi", "rebin", "rebin_vars", "rebin_ivr",
+            "rebin_bic")}
+        return StatsProcessor(args.dir, params=params,
+                              device=args.device).run()
     if args.command in ("norm", "normalize", "transform"):
         from .pipeline.norm import NormalizeProcessor
         return NormalizeProcessor(args.dir,
@@ -291,11 +322,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         return EvalProcessor(args.dir, params=params,
                              device=args.device).run()
     if args.command == "serve":
+        if args.serve_replicas > 1:
+            from .serve.router import run_fleet
+            return run_fleet(args.dir, replicas=args.serve_replicas,
+                             port=args.serve_port,
+                             max_delay_ms=args.serve_max_delay_ms,
+                             device=args.device)
         from .serve.server import run_serve
         return run_serve(args.dir, port=args.serve_port,
                          selfcheck=args.serve_selfcheck,
                          max_delay_ms=args.serve_max_delay_ms,
-                         replicas=args.serve_replicas,
                          replica=args.serve_replica,
                          announce=args.serve_announce,
                          device=args.device)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 import json
 import typing
 from typing import Any, Dict, Type, TypeVar, get_args, get_origin, get_type_hints
@@ -35,6 +36,10 @@ def _coerce(tp, value):
     origin = get_origin(tp)
     if origin in (list, typing.List):
         (elem,) = get_args(tp) or (Any,)
+        scalar = _unwrap_optional(elem)
+        if scalar is float:          # the bin lists: one dispatch a list
+            return [float(v) if isinstance(v, (int, float)) else v
+                    for v in value]
         return [_coerce(elem, v) for v in value]
     if origin in (dict, typing.Dict):
         args = get_args(tp)
@@ -71,12 +76,18 @@ def parse_enum(enum_cls, value):
                      f"(choices: {[m.name for m in enum_cls]})")
 
 
+@functools.lru_cache(maxsize=None)
+def _class_info(cls):
+    """(type hints, field names) of dataclass ``cls``, resolved once."""
+    return get_type_hints(cls), frozenset(f.name
+                                          for f in dataclasses.fields(cls))
+
+
 def from_dict(cls: Type[T], data: Dict[str, Any]) -> T:
     """Build dataclass ``cls`` from a JSON dict; unknown keys land in ``extra``."""
     if data is None:
         return None
-    hints = get_type_hints(cls)
-    field_names = {f.name for f in dataclasses.fields(cls)}
+    hints, field_names = _class_info(cls)
     kwargs = {}
     extra = {}
     for key, value in data.items():

@@ -43,6 +43,11 @@ class PathFinder:
         return os.path.join(self.tmp_dir, "RawCache")
 
     @property
+    def stats_partial_path(self) -> str:
+        """Mid-sweep stats accumulator checkpoint (resume support)."""
+        return os.path.join(self.stats_dir, "partial_sweep.npz")
+
+    @property
     def correlation_path(self) -> str:
         return os.path.join(self.root, "correlation.csv")
 

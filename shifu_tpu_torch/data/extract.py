@@ -36,6 +36,9 @@ class ExtractedChunk:
     # keeps)
     kept_idx: Optional[np.ndarray] = None   # [R] int64
     raw_rows: int = 0
+    # the kept rows' raw string columns (``extract(keep_raw=True)``: PSI
+    # reads its unit column from them)
+    raw: Optional[RawChunk] = None
 
 
 class ChunkExtractor:
@@ -79,7 +82,8 @@ class ChunkExtractor:
                 "multiclass": bool(self.multiclass),
                 "weight": self.weight_name}
 
-    def extract(self, chunk: RawChunk) -> ExtractedChunk:
+    def extract(self, chunk: RawChunk,
+                keep_raw: bool = False) -> ExtractedChunk:
         df = chunk.data
         raw_rows = len(chunk)
         keep = self.purifier.mask(chunk)
@@ -118,4 +122,5 @@ class ChunkExtractor:
             n=n, target=y, weight=w, numeric=numeric, numeric_valid=numeric_valid,
             numeric_cols=self.numeric_cols, categorical=categorical,
             categorical_cols=self.categorical_cols,
-            kept_idx=kept_idx, raw_rows=raw_rows)
+            kept_idx=kept_idx, raw_rows=raw_rows,
+            raw=chunk if keep_raw else None)

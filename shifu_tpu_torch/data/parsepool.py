@@ -103,20 +103,22 @@ def cache_dir_for(cache_root: str, source_sig,
 
 
 def iter_extracted(source, extractor: ChunkExtractor, *,
-                   rate: float = 1.0, cache_root: Optional[str] = None,
+                   rate: float = 1.0, keep_raw: bool = False,
+                   cache_root: Optional[str] = None,
                    start_chunk: int = 0, chunk_rows: Optional[int] = None
                    ) -> Iterator[Tuple[int, ExtractedChunk]]:
     """Yield ``(chunk_idx, ExtractedChunk)`` in strict chunk order — the
     ``enumerate(source.iter_chunks())`` + ``extract()`` loop, with the
     sample applied before the parse, or served from the raw cache under
     ``cache_root``.  ``start_chunk`` skips extraction of a prefix (its raw
-    rows still stream past)."""
+    rows still stream past).  ``keep_raw`` passes (PSI) keep each chunk's
+    raw strings (``ExtractedChunk.raw``) and never touch the cache."""
     if chunk_rows is None:
         chunk_rows = CHUNK_ROWS
     rd = None
     cdir = sig = None
     writable = False
-    if cache_root and raw_cache_enabled():
+    if cache_root and not keep_raw and raw_cache_enabled():
         sig = source_signature(source.files)
         cdir = cache_dir_for(cache_root, sig, extractor)
         rd, writable = open_raw_cache(cdir, sig, extractor, chunk_rows)
@@ -141,7 +143,8 @@ def iter_extracted(source, extractor: ChunkExtractor, *,
         # row); the consumer's view replays the sample on the full parse
         if writer is not None:
             return extractor.extract(chunk)
-        return extractor.extract(_sample_chunk(chunk, rate, ci))
+        return extractor.extract(_sample_chunk(chunk, rate, ci),
+                                 keep_raw=keep_raw)
 
     def emit(ci, ex):
         if writer is not None:

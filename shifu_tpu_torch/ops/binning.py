@@ -23,8 +23,13 @@ same (:func:`_rcp`, :func:`_fma`), so bucket ids, counts, boundaries and
 percentiles come out the same bits.  The one-hot and missing-cell
 products run in true f32 (TF32 off for the call).
 
-Not ported (``pipeline/stats.py`` refuses them): MunroPat exact binning
-and mid-sweep checkpoints (ROADMAP Queue 1 item 2).
+MunroPat / MunroPatI (``exact=True``) keep each column's valid values
+on the host as well and read TRUE quantiles off them
+(:meth:`NumericAccumulator.compute_boundaries_exact`,
+:meth:`NumericAccumulator.bin_counts_exact`), as the reference does.  The
+fused sweep checkpoints through :meth:`NumericAccumulator.checkpoint_state`
+/ :meth:`NumericAccumulator.restore_checkpoint` (the provisional grid) and
+:meth:`CategoricalAccumulator.state_lists` / ``load_state``.
 """
 
 from __future__ import annotations
@@ -262,7 +267,11 @@ class NumericAccumulator:
       PROVISIONAL-range histogram (``RangeSketch``) that re-bins onto the
       exact grid at finalize;
     - two-pass (:meth:`update_moments`, :meth:`finalize_range`,
-      :meth:`update_histogram`)."""
+      :meth:`update_histogram`).
+
+    ``exact`` (MunroPat): pass 2 also keeps every column's valid values,
+    pos flags and weights on the host (O(valid values) memory, as the
+    reference's ``MunroPatBinning`` materializes the column)."""
     n_cols: int
     num_buckets: int = 4096
     unit_weight: bool = False       # no weight column: w channels mirror counts
@@ -275,6 +284,8 @@ class NumericAccumulator:
     lo: Optional[np.ndarray] = None
     hi: Optional[np.ndarray] = None
     fused_budget: int = 1 << 30
+    exact: bool = False
+    _exact_cols: Optional[list] = None     # [C] lists of (vals, pos, w)
     _pend_moments: list = field(default_factory=list)  # [7, C] device
     _pend_moment_rows: int = 0
     _hist_dev: Optional[torch.Tensor] = None
@@ -375,6 +386,16 @@ class NumericAccumulator:
         assert self.lo is not None, "call finalize_range() after pass 1"
         self._add_hist(*self._put(x, valid, target, weight), self._lo_d,
                        self._hi_d)
+        if self.exact:
+            if self._exact_cols is None:
+                self._exact_cols = [[] for _ in range(self.n_cols)]
+            x, valid = np.asarray(x), np.asarray(valid)
+            pos_r = np.asarray(target, np.float64) >= 0.5
+            w64 = np.asarray(weight, np.float64)
+            for c in range(self.n_cols):
+                v = valid[:, c]
+                self._exact_cols[c].append(
+                    (np.asarray(x[v, c], np.float64), pos_r[v], w64[v]))
 
     # ---- fused one-pass sweep (moments + histogram in ONE disk pass)
     def update_fused(self, x: np.ndarray, valid: np.ndarray,
@@ -384,6 +405,9 @@ class NumericAccumulator:
         :meth:`finalize_fused`; chunks past the budget accumulate at once
         into the provisional-range histogram.  The resident path gives the
         two-pass sweep's results bit for bit."""
+        assert not self.exact, \
+            "the fused sweep serves the sketch path; exact (MunroPat) " \
+            "binning keeps the two-pass flow"
         xd, vd, td, wd = self._put(x, valid, target, weight)
         self._push_moments(xd, vd, x.shape[0])
         nbytes = x.shape[0] * (5 * self.n_cols + 8)   # f32 x + bool v + t/w
@@ -430,6 +454,60 @@ class NumericAccumulator:
                 else self._magg_dev + self._prov_magg_dev
             self._prov_hist_dev = None
             self._prov_magg_dev = None
+
+    # ---- mid-sweep checkpointing (stats-step crash resume)
+    def spill_resident(self) -> None:
+        """Move the kept fused chunks into the PROVISIONAL histogram
+        (freezing its range on first use) and zero the budget, so the
+        sweep's state is a few arrays and every later chunk accumulates
+        provisionally too: an uninterrupted checkpointing run and a resumed
+        one refine the same provisional grid at finalize."""
+        if self._prov_lo_d is None:
+            self._freeze_provisional()
+        for xd, vd, td, wd in self._fused_chunks:
+            self._add_hist(xd, vd, td, wd, self._prov_lo_d,
+                           self._prov_hi_d, prov=True)
+        self._fused_chunks.clear()
+        self._fused_bytes = 0
+        self.fused_budget = 0
+
+    def checkpoint_state(self) -> Dict[str, np.ndarray]:
+        """Host snapshot of the fused sweep (moments and the provisional
+        histogram); restoring it and replaying the remaining chunks gives
+        an uninterrupted checkpointing run's results (f32 provisional
+        counts round-trip bit for bit)."""
+        assert not self.exact, "exact (MunroPat) stats do not checkpoint"
+        self.spill_resident()
+        self._drain_moments()
+        out: Dict[str, np.ndarray] = {
+            "total_rows": np.asarray(self.total_rows, np.int64)}
+        for k, v in self.moments.items():
+            out[f"m_{k}"] = np.asarray(v)
+        out["prov_lo"] = self._prov_lo_d.cpu().numpy()
+        out["prov_hi"] = self._prov_hi_d.cpu().numpy()
+        if self._prov_hist_dev is not None:
+            out["prov_hist"] = self._prov_hist_dev.cpu().numpy()
+            out["prov_magg"] = self._prov_magg_dev.cpu().numpy()
+        return out
+
+    def restore_checkpoint(self, state: Dict[str, np.ndarray]) -> None:
+        self.total_rows = int(state["total_rows"])
+        self.moments = {k[2:]: np.asarray(state[k], np.float64)
+                        for k in state if k.startswith("m_")}
+        if "count" in self.moments:
+            self.missing = self.total_rows - self.moments["count"]
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float32)) \
+                .to(self.device)
+        self._prov_lo_d = dev(state["prov_lo"])
+        self._prov_hi_d = dev(state["prov_hi"])
+        if "prov_hist" in state:
+            self._prov_hist_dev = dev(state["prov_hist"])
+            self._prov_magg_dev = dev(state["prov_magg"])
+        self._fused_chunks.clear()
+        self._fused_bytes = 0
+        self.fused_budget = 0          # continue in provisional mode
 
     def _drain_hist(self) -> None:
         if self._hist_dev is None:
@@ -544,6 +622,79 @@ class NumericAccumulator:
             out.append(_dedupe(np.concatenate([[NEG_INF], edges[pos + 1]])))
         return out
 
+    # ---- exact (MunroPat) boundaries from the kept values
+    def _exact_col(self, col: int):
+        chunks = self._exact_cols[col] if self._exact_cols else []
+        return (np.concatenate([c[0] for c in chunks]) if chunks
+                else np.empty(0),
+                np.concatenate([c[1] for c in chunks]) if chunks
+                else np.empty(0, bool),
+                np.concatenate([c[2] for c in chunks]) if chunks
+                else np.empty(0))
+
+    @staticmethod
+    def _measure(method: BinningMethod):
+        """Weight measure of one (pos, w) row set for a binning method."""
+        return {
+            BinningMethod.EqualTotal: lambda p, w: np.ones(len(p)),
+            BinningMethod.EqualPositive: lambda p, w: p.astype(np.float64),
+            BinningMethod.EqualNegtive: lambda p, w: (~p).astype(np.float64),
+            BinningMethod.WeightEqualTotal: lambda p, w: w,
+            BinningMethod.WeightEqualPositive: lambda p, w: w * p,
+            BinningMethod.WeightEqualNegative: lambda p, w: w * ~p,
+        }.get(method, lambda p, w: np.ones(len(p)))
+
+    def compute_boundaries_exact(self, method: BinningMethod,
+                                 max_bins: int) -> List[np.ndarray]:
+        """Exact equal-frequency boundaries from the kept values: TRUE
+        data quantiles of the method's weight measure, not fine-bucket
+        edges (reference ``MunroPatBinning``).  Pair with
+        :meth:`bin_counts_exact`."""
+        assert self._exact_cols is not None or self.n_cols == 0, \
+            "exact boundaries need exact=True collection during pass 2"
+        measure = self._measure(method)
+        out = []
+        for c in range(self.n_cols):
+            vals, pos, ws = self._exact_col(c)
+            if vals.size == 0:
+                out.append(np.array([NEG_INF]))
+                continue
+            if method == BinningMethod.EqualInterval:
+                inner = np.linspace(vals.min(), vals.max(), max_bins + 1)[:-1]
+                out.append(_dedupe(np.concatenate([[NEG_INF], inner[1:]])))
+                continue
+            wrow = measure(pos, ws)
+            order = np.argsort(vals, kind="stable")
+            sv, sw = vals[order], wrow[order]
+            cum = np.cumsum(sw)
+            total = cum[-1]
+            if total <= 0:
+                out.append(np.array([NEG_INF]))
+                continue
+            targets = total * np.arange(1, max_bins) / max_bins
+            pos_idx = np.searchsorted(cum, targets, side="left")
+            pos_idx = np.minimum(pos_idx, len(sv) - 1)
+            out.append(_dedupe(np.concatenate([[NEG_INF], sv[pos_idx]])))
+        return out
+
+    def bin_counts_exact(self, col: int, boundaries: np.ndarray) -> np.ndarray:
+        """Per-bin (pos, neg, wpos, wneg) from the kept rows, by the rule
+        scoring uses (``ColumnBinner.bin_numeric``: b[i] <= v < b[i+1]),
+        and the trailing missing bin."""
+        self._drain_hist()
+        vals, pos, ws = self._exact_col(col)
+        nb = len(boundaries)
+        idx = np.clip(np.searchsorted(boundaries, vals, side="right") - 1,
+                      0, nb - 1)
+        agg = np.zeros((nb + 1, 4))
+        np.add.at(agg, (idx, 0), pos.astype(np.float64))
+        np.add.at(agg, (idx, 1), (~pos).astype(np.float64))
+        np.add.at(agg, (idx, 2), ws * pos)
+        np.add.at(agg, (idx, 3), ws * ~pos)
+        if self.missing_agg is not None:
+            agg[nb] = self.missing_agg[col]
+        return agg
+
     def bin_counts(self, col: int, boundaries: np.ndarray) -> np.ndarray:
         """Per-bin (pos, neg, wpos, wneg) incl. the trailing missing bin,
         summed from whole fine buckets."""
@@ -637,6 +788,23 @@ class CategoricalAccumulator:
         if m.any():
             prev = d.get(_MISSING_KEY)
             d[_MISSING_KEY] = m if prev is None else prev + m
+
+    def state_lists(self):
+        """(meta, arrays) host snapshot for mid-sweep checkpoints: per
+        column a category list (JSON side) and a [k, 4] count matrix."""
+        meta, arrays = {}, {}
+        for i, (col, d) in enumerate(self.stats.items()):
+            cats = list(d.keys())
+            meta[col] = {"i": i, "cats": cats}
+            arrays[f"cat_{i}"] = (np.stack([d[c] for c in cats])
+                                  if cats else np.zeros((0, 4)))
+        return meta, arrays
+
+    def load_state(self, meta, arrays) -> None:
+        self.stats = {
+            col: {c: np.asarray(arrays[f"cat_{m['i']}"][j], np.float64)
+                  for j, c in enumerate(m["cats"])}
+            for col, m in meta.items()}
 
     def finalize(self, col_name: str, max_cates: int = 0):
         """(categories, counts[cats+1, 4], n_distinct, n_missing) — last

@@ -17,12 +17,13 @@ score_<tag>…`` at ``%.6f`` and an ``EvalPerformance.json`` with accuracy,
 per-class AUC, macro AUC and the confusion matrix
 (:meth:`EvalProcessor._run_one_multiclass`).
 
-Not ported: telemetry (the drift monitor, ROADMAP Queue 1 item 13) raises
-``NotImplementedError`` naming its item.  The reference also writes the
-post-train quality snapshot ``telemetry/posttrain.json`` on every run, the
-baseline its serving quality monitor reads (item 11); the port writes no
-such file and logs a warning saying so on every scored run.  Scoring runs
-on one device: the reference's multi-chip mesh waits for item 12.
+Every scored binary run also writes the post-train quality snapshot
+``telemetry/posttrain.json`` (the run's score distribution and AUC), the
+baseline the serving quality monitor (``obs/quality.py``) judges live
+traffic against, as the reference does.  Not ported: telemetry (the
+drift monitor, ROADMAP Queue 1 item 13) raises ``NotImplementedError``
+naming its item.  Scoring runs on one device: the reference's multi-chip
+mesh waits for item 12.
 """
 
 from __future__ import annotations
@@ -70,8 +71,7 @@ class EvalProcessor(BasicProcessor):
     def process(self) -> int:
         if telemetry_requested():
             raise _not_ported("eval's telemetry (the drift monitor, item "
-                              "13, and the post-train quality snapshot "
-                              "serve's quality monitor reads, item 11)", 13)
+                              "13)", 13)
         p = self.params
         if p.get("list"):
             for ev in self.model_config.evals:

@@ -6,9 +6,9 @@ Host code, as in the reference: XML documents, CSV tables, file copies
 and Java byte streams, written from the same model files and
 ``ColumnConfig.json`` by the same code paths, so every file equals the
 reference's (a ``spec`` file's gzip header aside, which carries the time
-of writing).  ``corr`` copies ``stats -correlation``'s matrix, which only
-the reference's ``stats`` writes (ROADMAP Queue 1 item 2); without it
-``corr`` fails with the reference's message.  ``spec`` writes NN, tree
+of writing).  ``corr`` copies ``stats -correlation``'s matrix (either
+package's ``stats`` writes it); without it ``corr`` fails with the
+reference's message.  ``spec`` writes NN, tree
 and WDL members in the reference's formats and skips a kernel SVM, which
 has none; ``pmml`` refuses WDL and kernel SVM models with the
 reference's messages.

@@ -260,6 +260,21 @@ def serve_capture_count(prefix: str = "serve.score") -> int:
                if s.name.startswith(prefix))
 
 
+def serve_graph_counts(prefix: str = "serve.score") -> dict:
+    """What this process's scorers (names starting with ``prefix``) did on
+    the device: captures a request forced (:func:`serve_capture_count`),
+    rung builds, graph replays, the ``tree_traverse`` launches those
+    replays ran and the rungs' eager warm-ups made, and the kernel's
+    process-wide launch count."""
+    live = [s for s in list(_SCORERS) if s.name.startswith(prefix)]
+    return {"captures_forced": sum(s.lazy_captures for s in live),
+            "captures": sum(s.captures for s in live),
+            "replays": sum(s.replays for s in live),
+            "replayed_launches": sum(s.replayed_launches for s in live),
+            "warm_launches": sum(s.warm_launches for s in live),
+            "tree_traverse_launches": int(tq.predict_forest_quant.launches)}
+
+
 def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np_dtype)).dtype
 

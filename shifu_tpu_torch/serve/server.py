@@ -49,8 +49,10 @@ Knobs: ``-Dshifu.serve.buckets``, ``-Dshifu.serve.bucketRefineEvery``,
 ``-Dshifu.serve.sloAvailability``, ``-Dshifu.serve.maxQueueRows``,
 ``-Dshifu.serve.requestDeadlineMs``, ``-Dshifu.serve.brownout``,
 ``-Dshifu.serve.generations``, ``-Dshifu.scorelog.*`` and
-``-Dshifu.quality.*``.  The fleet router (``serve --replicas N``) is
-ROADMAP Queue 1 item 11's last part and is not ported.
+``-Dshifu.quality.*``.  ``serve --replicas N`` puts N of these
+processes behind :mod:`shifu_tpu_torch.serve.router`; ``GET /healthz``'s
+``graphs`` says what the process's CUDA graphs did (captures a request
+forced, ``tree_traverse`` launches, replays).
 """
 
 from __future__ import annotations
@@ -64,12 +66,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .. import obs, resolve_device
+from .. import faults, obs, resolve_device
 from .batcher import MicroBatcher, Ticket
 from .overload import (DeadlineExceededError, OverloadedError,
                        configured_brownout_enabled)
 from .registry import ModelRegistry
-from .scorer import bucket_ladder
+from .scorer import bucket_ladder, serve_graph_counts
 
 log = logging.getLogger(__name__)
 
@@ -124,12 +126,13 @@ class ServeServer:
                  slo_p99_ms: Optional[float] = None,
                  slo_availability: Optional[float] = None,
                  scorelog_sample_rate: Optional[float] = None,
-                 transform=None, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 transform=None, replica: Optional[str] = None,
+                 device=None, dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
         self.model_set_dir = model_set_dir
         self.key = key or (os.path.basename(os.path.abspath(model_set_dir))
                            if model_set_dir else "default")
+        self.replica = replica
         state_dir = (os.path.join(model_set_dir, "serving")
                      if model_set_dir else None)
         self.registry = ModelRegistry(state_dir=state_dir,
@@ -191,9 +194,11 @@ class ServeServer:
             return self
         self.batcher.start()
         if self.model_set_dir:
+            proc = f"serve-{self.key}" + \
+                (f"-{self.replica}" if self.replica else "")
             self._heartbeat = obs.start_heartbeat(
                 obs.health_dir_for(self.model_set_dir), step="SERVE",
-                proc=f"serve-{self.key}", extras_fn=self._beat_extras)
+                proc=proc, extras_fn=self._beat_extras)
             self._exporter = obs.start_exporter(
                 os.path.join(self.model_set_dir, "telemetry"),
                 step="SERVE")
@@ -428,6 +433,7 @@ class ServeServer:
             "buckets": list(scorer.buckets),
             "needs_bins": scorer.needs_bins,
             "accepts_raw": bool(getattr(scorer, "accepts_raw", False)),
+            "replica": self.replica,
             "n_features": scorer.n_features,
             "max_delay_ms": self.batcher.max_delay_s * 1000.0,
             "trace_sample_rate": self.batcher.trace_sample_rate,
@@ -437,6 +443,7 @@ class ServeServer:
             "stats": dict(self.batcher.stats),
             "bucket_counts": {str(k): v for k, v in
                               sorted(self.batcher.bucket_counts.items())},
+            "graphs": serve_graph_counts(),
         }
 
     def slo_doc(self) -> dict:
@@ -540,6 +547,10 @@ def _make_handler(server: ServeServer):
                 if self.path == "/swap":
                     self._reply(200, server.swap_phase(doc))
                     return
+                # a kill here models a replica dying mid-request — the
+                # router requeues the un-launched ticket on a peer
+                faults.fire("serve", "replica",
+                            server.replica or server.key)
                 # propagate the caller's trace id (forces sampling)
                 trace_id = self.headers.get("X-Shifu-Trace")
                 # the outcome-join key: caller-supplied, or minted here
@@ -614,22 +625,17 @@ def trace_path(model_set_dir: str) -> str:
 def run_serve(model_set_dir: str, port: int = 8188,
               selfcheck: int = 0, max_delay_ms: Optional[float] = None,
               buckets: Optional[Sequence[int]] = None,
-              replicas: int = 1, replica: Optional[str] = None,
+              replica: Optional[str] = None,
               announce: Optional[str] = None, device=None) -> int:
     """The ``serve`` entry.  ``selfcheck=N`` scores N synthetic rows
     in-process and exits (no port); otherwise binds the stdlib HTTP
-    front-end on ``port`` (0 = an ephemeral port) until interrupted.
-    ``replicas`` > 1 and the fleet-worker flags ``replica`` /
-    ``announce`` belong to the fleet router, which is not ported: they
-    raise."""
-    if replicas > 1 or replica is not None or announce is not None:
-        raise NotImplementedError(
-            "serve --replicas / --replica / --announce: the fleet router "
-            "(shifu_tpu/serve/router.py) is not yet ported to "
-            "shifu_tpu_torch (ROADMAP Queue 1 item 11, the router) — "
-            "serve a fleet with shifu_tpu")
+    front-end on ``port`` (0 = an ephemeral port) until interrupted.  A
+    fleet worker (:func:`shifu_tpu_torch.serve.router.spawn_worker`) runs
+    with ``replica`` (its fleet name, stamped on heartbeats) and
+    ``announce`` (a JSON file written after the bind, so after every rung
+    is captured, with the bound port, the pid and the name)."""
     server = ServeServer(model_set_dir, max_delay_ms=max_delay_ms,
-                         buckets=buckets, device=device)
+                         buckets=buckets, replica=replica, device=device)
     server.start()
     try:
         scorer = server.registry.get(server.key)
@@ -650,7 +656,13 @@ def run_serve(model_set_dir: str, port: int = 8188,
         httpd = ThreadingHTTPServer(("127.0.0.1", port),
                                     _make_handler(server))
         bound = httpd.server_address[1]
-        print(f"shifu-tpu-torch serve: {server.key} on "
+        if announce:
+            from ..ioutil import atomic_write_json
+            atomic_write_json(announce, {"port": int(bound),
+                                         "pid": os.getpid(),
+                                         "name": replica or server.key})
+        who = f"{server.key}/{replica}" if replica else server.key
+        print(f"shifu-tpu-torch serve: {who} on "
               f"http://127.0.0.1:{bound} on {server.device} "
               f"(buckets {list(scorer.buckets)}, "
               f"deadline {server.batcher.max_delay_s * 1000:.1f} ms)",

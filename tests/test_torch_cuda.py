@@ -16,7 +16,8 @@ reference spec's host scores against the native forest on the card; the
 WDL trainer on the card against the CPU (one host sync a minibatch
 epoch), the hashed-ID buckets on the card against the host, the kernel
 SVM's dual on the card against the CPU, and WDL and SVM forwards that
-never leave the card.
+never leave the card; a two-replica serving fleet whose workers run on
+the card, and ``stats -correlation`` on the card against the CPU.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -1477,3 +1478,89 @@ def test_serve_captures_nothing_after_warm_or_a_swap(cuda, fraud_set):
         assert serve_capture_count("serve.score.w") == 0
     finally:
         srv.stop()
+
+
+def test_fleet_of_two_replicas_serves_from_the_card(cuda, fraud_set):
+    """``spawn_worker`` starts two worker processes with ``--device
+    cuda``; behind the router each serves raw records from its own CUDA
+    context and captured rungs, within 1e-3 of the set served on the CPU,
+    with no capture forced, and the two replicas share the load."""
+    import csv
+    import os
+
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.serve import ServeServer
+    from shifu_tpu_torch.serve.router import (ServeRouter, spawn_worker,
+                                              wait_for_announce)
+    sc_cpu = ServeServer(fraud_set, key="c", device="cpu")
+    mc = ModelConfig.load(os.path.join(fraud_set, "ModelConfig.json"))
+    with open(mc.dataSet.dataPath) as f:
+        recs = [dict(r) for _, r in zip(range(64),
+                                        csv.DictReader(f, delimiter="|"))]
+    sc_cpu.start()
+    try:
+        want = sc_cpu.score_raw(recs)["scores"]
+    finally:
+        sc_cpu.stop()
+    fdir = os.path.join(fraud_set, "serving", "fleet")
+    os.makedirs(fdir, exist_ok=True)
+    router = ServeRouter(poll_ms=200, stale_s=30)
+    procs = []
+    try:
+        for name in ("r0", "r1"):
+            ann = os.path.join(fdir, f"{name}.json")
+            p = spawn_worker(fraud_set, name, ann, device="cuda")
+            assert p.args[p.args.index("--device") + 1] == "cuda"
+            procs.append((name, ann, p))
+        for name, ann, p in procs:
+            router.add_backend(name, wait_for_announce(ann, p)["port"],
+                               proc=p)
+        router.poll_once()
+        router.ensure_uniform()
+        assert router.fleet_doc()["up"] == 2
+        for _ in range(6):
+            got = router.score({"records": recs})["scores"]
+            assert np.max(np.abs(np.asarray(got) - np.asarray(want))) \
+                <= 1e-3
+        for r in router.replicas.values():
+            hz = router._http(r, "GET", "/healthz")
+            assert hz["device"].startswith("cuda") and hz["replica"] == r.name
+            assert hz["graphs"]["captures_forced"] == 0
+            assert hz["graphs"]["replays"] >= 1 and r.requests >= 1
+            assert hz["graphs"]["replayed_launches"] == \
+                hz["graphs"]["replays"]
+    finally:
+        router.stop()
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+
+
+def test_stats_correlation_on_the_card_matches_the_cpu(cuda, fraud_set,
+                                                       tmp_path):
+    """``stats -correlation`` on the card (pair sums as float64 GEMMs
+    there) writes the CPU's matrix within 1e-6, and the same stats."""
+    import json
+    import os
+    import shutil
+
+    from shifu_tpu_torch import cli
+    cpu_set = str(tmp_path / "cpu_corr")
+    shutil.copytree(fraud_set, cpu_set)
+    assert cli.main(["--dir", fraud_set, "stats", "-correlation"]) == 0
+    assert cli.main(["--dir", cpu_set, "stats", "-correlation", "--device",
+                     "cpu"]) == 0
+    mats = []
+    for d in (fraud_set, cpu_set):
+        with open(os.path.join(d, "correlation.csv")) as f:
+            rows = [line.rstrip("\n").split(",") for line in f]
+        mats.append((rows[0], np.array([[float(v) for v in r[1:]]
+                                        for r in rows[1:]])))
+    assert mats[0][0] == mats[1][0] and len(mats[0][0]) > 4
+    np.testing.assert_allclose(mats[0][1], mats[1][1], atol=1e-6)
+    with open(os.path.join(fraud_set, "ColumnConfig.json")) as f:
+        card = json.load(f)
+    with open(os.path.join(cpu_set, "ColumnConfig.json")) as f:
+        cpu = json.load(f)
+    assert [c["columnBinning"]["binBoundary"] for c in card] == \
+        [c["columnBinning"]["binBoundary"] for c in cpu]

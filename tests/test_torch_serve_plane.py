@@ -386,12 +386,19 @@ def test_batcher_refinement_extends_the_ladder_ahead_of_use(sets, tmp_path):
     assert serve_capture_count("serve.score.ref") == 0
 
 
-def test_serve_replicas_raise_naming_the_router(sets):
+def test_serve_replicas_raise_naming_the_router(sets, tmp_path, capsys):
+    """The fleet router is ported: ``serve --replicas 2`` on a machine
+    without CUDA raises naming the fleet, because its workers (``--device``
+    defaults to ``cuda`` and is forwarded) exit before they announce; the
+    worker flags ``--replica`` / ``--announce`` run a worker."""
     from shifu_tpu_torch.cli import main
-    for extra in (["--replicas", "2"], ["--replica", "w0"],
-                  ["--announce", "/nonexistent/a.json"]):
-        with pytest.raises(NotImplementedError, match="router"):
-            main(["--dir", sets["gbt"], "serve", "--device", "cpu"] + extra)
+    with pytest.raises(RuntimeError, match="fleet worker exited rc=1"):
+        main(["--dir", sets["gbt"], "serve", "--replicas", "2",
+              "--port", "0"])
+    assert main(["--dir", sets["gbt"], "serve", "--device", "cpu",
+                 "--replica", "w0", "--announce",
+                 str(tmp_path / "w0.json"), "--selfcheck", "2"]) == 0
+    assert json.loads(capsys.readouterr().out)["replica"] == "w0"
 
 
 # ----------------------------------------------------- the slice, HTTP

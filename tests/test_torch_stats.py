@@ -174,21 +174,32 @@ def test_stats_through_the_cli_needs_the_device(model_set, tmp_path,
 @pytest.mark.parametrize("what", ["psi", "munropat", "checkpoints",
                                   "filter"])
 def test_stats_refuses_what_is_not_ported(model_set, tmp_path, what):
+    """A filter expression is still refused naming its ROADMAP item; PSI,
+    MunroPat and mid-sweep checkpoints are ported and now run, writing the
+    reference's ColumnConfig.json (``tests/test_torch_stats_extra.py``
+    holds each at length)."""
+    edits = {"psi": {"stats.psiColumnName": "txn_id"},
+             "munropat": {"stats.binningAlgorithm": "MunroPat"},
+             "filter": {"dataSet.filterExpressions": "amount > 1"}
+             }.get(what, {})
+    _edit(model_set, **edits)
     assert JInit(model_set).run() == 0
     port = _port_copy(model_set, tmp_path)
-    if what == "psi":
-        _edit(port, **{"stats.psiColumnName": "txn_id"})
-    if what == "munropat":
-        _edit(port, **{"stats.binningAlgorithm": "MunroPat"})
-    if what == "filter":
-        _edit(port, **{"dataSet.filterExpressions": "amount > 1"})
     if what == "checkpoints":
         environment.set_property("shifu.stats.checkpointChunks", "2")
+        jenv.set_property("shifu.stats.checkpointChunks", "2")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            StatsProcessor(port, device="cpu").run()
+        if what == "filter":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                StatsProcessor(port, device="cpu").run()
+            return
+        assert JStats(model_set, params={}).run() == 0
+        assert StatsProcessor(port, device="cpu").run() == 0
     finally:
         environment.reset_for_tests()
+        jenv.reset_for_tests()
+    _assert_close(_json(os.path.join(port, "ColumnConfig.json")),
+                  _json(os.path.join(model_set, "ColumnConfig.json")))
 
 
 @pytest.mark.parametrize("step,edit", [

@@ -326,6 +326,34 @@ versions on one card.  Otherwise it
    ``load_reference_wdl`` scoring as the native model within rtol 1e-5,
    and ``combo`` WDL:GBT as in (c) (80 ``hist``, one ``tree_traverse`` a
    chunk);
+   then every input kind and config check (``inputs_phase``): the stats
+   CSV cut into ``.gz``, ``.bz2``, ``.xz``, ``.zip`` and plain shards, a
+   shard of the wrong width and a corrupt ``.gz``, read with
+   ``-Dshifu.data.badThreshold=0.2`` and a ``filterExpressions`` using
+   ``&`` and a string comparison through ``init → stats → norm → train
+   (GBT, 3 trees) → eval -run`` on ``cuda`` and (stats, norm and eval of
+   the card's forest) on ``cpu``: one shard and no row quarantined and
+   the kept rows equal to a host count, ColumnConfig.json card vs CPU
+   equal, eval scores within SCORE_TOL, ``train -dry`` writes no model,
+   ``baggingSampleRate`` 5 fails ``probe``, and ``prng.poisson`` at
+   rates 10, 37, 1000 and 1e5 (jax's rejection sampler) on the card
+   bit-equal to the CPU's; the smoke imports neither ``pyarrow`` nor
+   ``fsspec`` (the card's machine is not known to have them), so parquet
+   and remote sources are held by the CPU tests alone; and the offline
+   telemetry
+   (``telemetry_phase``): ``init → stats → norm → train (GBT, 3 trees) →
+   eval -run`` on the CSV with ``--telemetry --profile DIR`` on ``cuda``,
+   then ``analysis --telemetry``, ``--utilization``, ``--timeline`` and
+   ``monitor --once --json``: every step's span tree in the trace,
+   ``drift.json`` written, the cost records' launches of ``pallas.hist``,
+   ``stats.stats_hist`` and ``pallas.tree_traverse`` equal to the
+   kernels' counts over the same run (zeroed just before it), the
+   utilization rows of those planes under 105% of the H100 row's bytes/s,
+   each step's ``torch.profiler`` trace naming its hand kernel, and each
+   step's modelled bytes over that kernel's device time in the trace
+   under 105% of the peak as well; the cost models' bytes at the timed
+   shapes are logged beside the bounds' (a model charges every row and
+   node, so it is never below the bound);
 9. times each kernel (CUDA events, launches queued behind a spin kernel so
    the host cannot starve the card) beside its plain version, one PyTorch
    call that computes the same function where there is one, and its bound
@@ -396,6 +424,10 @@ them but for the last round (PERF.md §4 keeps the table):
   multi-class CLI took 8,192 rows of it already), the eval forest still
   timed at 16,384 rows; (a') 5 trees (were 10); NN (b) 2 epochs (3);
   WDL (d) 2 epochs (3).
+
+``inputs_phase`` and ``telemetry_phase`` came after these cuts and cut
+nothing: about 36 s and 8 s, the whole 592.7 s on an H100 80GB HBM3 at
+700 W (PERF.md §4).
 """
 
 from __future__ import annotations
@@ -5858,7 +5890,7 @@ def time_kernels(torch, tq, rng, gpu: str) -> dict:
         # what this run's data needs: each element a walk reads, once;
         # [T, N] f32 written once; integer work per split step taken
         need = tq.traverse_bytes(forest[0], forest[1], bins, DEPTH)
-        whole = tq.quant_traverse_cost(
+        whole = tq.walk_cost(
             rows=n, n_feat=N_COLS, n_bins=N_BINS, n_nodes=sf.shape[1],
             depth=DEPTH, n_trees=N_TREES)["bytes_accessed"]
         bytes_ms = need["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -6257,6 +6289,380 @@ def time_transform(torch, root: str, plan, rng, gpu: str) -> dict:
 
 
 # ----------------------------------------------------------------- main
+# ------------------------------------------------ phase: every input kind
+INPUTS_TREES = 3                           # inputs_phase's GBT
+INPUTS_THRESHOLD = "0.2"                   # shifu.data.badThreshold
+POISSON_RATES, POISSON_ROWS = (10.0, 37.0, 1000.0, 1e5), 1 << 18
+
+
+def write_input_shards(d: str, csv: str) -> dict:
+    """The stats CSV cut into shards of every compression the reference
+    reads (``.gz``, ``.bz2``, ``.xz``, ``.zip`` and plain), plus a shard
+    of the wrong width (its rows one field short, so their tags are empty)
+    and a ``.gz`` that is not gzip (quarantined as unreadable).  Returns
+    the row ranges of each kind."""
+    import bz2
+    import gzip
+    import lzma
+    import zipfile
+    with open(csv) as f:
+        lines = f.read().splitlines()
+    os.makedirs(d)
+    cuts = np.linspace(0, len(lines), 7).astype(int)
+    kinds = ("gz", "bz2", "xz", "zip", "plain", "narrow")
+    ranges = {}
+    for i, kind in enumerate(kinds):
+        part = lines[cuts[i]:cuts[i + 1]]
+        ranges[kind] = (int(cuts[i]), int(cuts[i + 1]))
+        if kind == "narrow":
+            part = ["|".join(ln.split("|")[:-1]) for ln in part]
+        data = ("\n".join(part) + "\n").encode()
+        name = f"part-{i}-{kind}.csv"
+        if kind == "gz":
+            data, name = gzip.compress(data), name + ".gz"
+        elif kind == "bz2":
+            data, name = bz2.compress(data), name + ".bz2"
+        elif kind == "xz":
+            data, name = lzma.compress(data), name + ".xz"
+        elif kind == "zip":
+            buf = __import__("io").BytesIO()
+            with zipfile.ZipFile(buf, "w") as zf:
+                zf.writestr("inner.csv", data)
+            data, name = buf.getvalue(), name + ".zip"
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(data)
+    with open(os.path.join(d, "part-6-corrupt.csv.gz"), "wb") as f:
+        f.write(b"this is not gzip data\n" * 8)
+    return {"ranges": ranges, "lines": lines}
+
+
+def inputs_phase(torch, root: str, csv: str, plan, gpu: str) -> dict:
+    """Every input kind and config check the reference takes, through
+    ``cli.main`` on the card and on the CPU: the stats CSV as shards of
+    every compression with a wrong-width shard and a corrupt one
+    (``-Dshifu.data.badThreshold=0.2``) and a ``filterExpressions`` with
+    ``&`` and a string comparison, through ``init → stats → norm → train
+    (GBT) → eval`` (the CPU twin evaluates the card's forest).  Checks:
+    the quarantined shards and rows and the kept count equal a host
+    count; card and CPU ColumnConfig.json equal (compare_column_configs)
+    and eval scores within SCORE_TOL; ``train
+    -dry`` writes no model; a config with ``baggingSampleRate`` 5 fails
+    ``probe``; ``prng.poisson`` at rates 10, 37, 1000 and 1e5 on the card
+    equals the CPU's bit for bit.  The smoke imports neither ``pyarrow``
+    nor ``fsspec`` (the card's machine is not known to have them):
+    parquet and remote sources are held by the CPU tests alone.  The
+    kernel counts are zeroed just before the card's steps and read just
+    after them."""
+    from shifu_tpu_torch import cli, obs
+    from shifu_tpu_torch.config import ModelConfig, environment
+    from shifu_tpu_torch.config.validator import (ModelStep, ValidationError,
+                                                  probe)
+    from shifu_tpu_torch.ops import prng
+    from shifu_tpu_torch.ops import stats_hist as sh
+    base = os.path.join(root, "inputs")
+    shards = write_input_shards(os.path.join(base, "data"), csv)
+    num, cat = plan[0], plan[N_NUM]
+    expr = f"{num[1]} > {num[2]:.6g} & {cat[1]} != '{cat[2][0]}'"
+    header = open(csv + ".header").read().strip().split("|")
+    jn, jc = header.index(num[1]), header.index(cat[1])
+    keep = 0                                  # the host's count
+    for kind, (a, b) in shards["ranges"].items():
+        if kind == "narrow":
+            continue                          # empty tags: never kept
+        for ln in shards["lines"][a:b]:
+            f = ln.split("|")
+            keep += bool(f[jn]) and float(f[jn]) > float(f"{num[2]:.6g}") \
+                and f[jc] != cat[2][0]
+    if cli.main(["--dir", base, "new", "inputs"]) != 0:
+        fail("new exited non-zero")
+    d = os.path.join(base, "inputs")
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    for ds in (mc.dataSet, mc.evals[0].dataSet):
+        ds.dataPath, ds.dataDelimiter = os.path.join(base, "data"), "|"
+        ds.headerPath, ds.headerDelimiter = csv + ".header", "|"
+        ds.filterExpressions = expr
+    ds = mc.dataSet
+    ds.targetColumnName, ds.weightColumnName = "tag", "weight"
+    ds.posTags, ds.negTags = ["bad"], ["good"]
+    mc.stats.maxNumBin = N_BINS - 1
+    mc.train.algorithm = "GBT"
+    mc.train.params = {"TreeNum": INPUTS_TREES, "MaxDepth": DEPTH,
+                       "Loss": "log", "LearningRate": 0.1}
+    mc.save(path)
+    props = [INLINE_PARSE, f"-Dshifu.data.badThreshold={INPUTS_THRESHOLD}",
+             "-Dshifu.io.retries=0"]
+    if cli.main(["--dir", d, *props, "init"]) != 0:
+        fail("init exited non-zero over the shards")
+    cpu_dir = d + "_cpu"
+    shutil.copytree(d, cpu_dir)
+    walls = {}
+    launches = {}
+    try:
+        for where, dev in ((d, "cuda"), (cpu_dir, "cpu")):
+            card = where == d
+            if card:
+                zero_tree_counts()
+                sh.stats_histograms_cuda.launches = 0
+            else:        # the card's forest, so eval compares one model
+                shutil.copytree(os.path.join(d, "models"),
+                                os.path.join(where, "models"),
+                                dirs_exist_ok=True)
+            t0 = time.perf_counter()
+            for argv in (["stats", "--telemetry", "--device", dev],
+                         ["norm"], ["train", "--device", dev],
+                         ["eval", "-run", "--device", dev]):
+                if not card and argv[0] == "train":
+                    continue
+                if cli.main(["--dir", where, *props, *argv]) != 0:
+                    fail(f"{' '.join(argv)} exited non-zero in {where}")
+                obs.set_enabled(None)
+            walls["card" if card else "cpu"] = time.perf_counter() - t0
+            if card:
+                launches = {**read_tree_counts(),
+                            "stats_hist": sh.stats_histograms_cuda.launches}
+    finally:
+        environment.reset_for_tests()
+        obs.reset_for_tests()
+    for k in ("hist", "stats_hist", "tree_traverse"):
+        if not launches.get(k):
+            fail(f"inputs_phase launched no {k} on the card: {launches}")
+    quarantined = {}
+    with open(os.path.join(d, "telemetry", "trace.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("name", "").startswith("data.quarantined"):
+                quarantined[rec["name"]] = rec["value"]
+    want_q = {"data.quarantined_shards": 1.0, "data.quarantined_rows": 0.0}
+    if quarantined != want_q:
+        fail(f"quarantine counted {quarantined}, the host {want_q}")
+    with open(os.path.join(d, "ColumnConfig.json")) as f:
+        card = json.load(f)
+    with open(os.path.join(cpu_dir, "ColumnConfig.json")) as f:
+        cpu = json.load(f)
+    counts = {c["columnStats"]["totalCount"] for c in card
+              if c["columnBinning"].get("binBoundary")}
+    if counts != {keep}:
+        fail(f"stats kept {counts} rows, the host's filter {keep}")
+    for a, b in zip(card, cpu):
+        compare_column_configs(a, b, a["columnName"])
+    card_s, perf = eval_scores(d, mc.evals[0].name)
+    cpu_s, cpu_perf = eval_scores(cpu_dir, mc.evals[0].name)
+    if len(card_s) != keep or card_s.shape != cpu_s.shape:
+        fail(f"eval scored {len(card_s)} rows on the card, {len(cpu_s)} "
+             f"on the CPU, {keep} kept by the host")
+    diff = float(np.abs(card_s[:, 2:].astype(float)
+                        - cpu_s[:, 2:].astype(float)).max())
+    if not diff <= SCORE_TOL + 1e-9:
+        fail(f"filtered eval scores card vs CPU differ by {diff}")
+    # train -dry trains nothing; a rate the probe refuses fails it
+    models = os.path.join(d, "models")
+    shutil.rmtree(models)
+    if cli.main(["--dir", d, "train", "-dry", "--device", "cuda"]) != 0 \
+            or (os.path.isdir(models) and os.listdir(models)):
+        fail("train -dry did not exit 0 without a model")
+    mc = ModelConfig.load(path)
+    mc.train.baggingSampleRate = 5.0
+    try:
+        probe(mc, ModelStep.TRAIN, d)
+        fail("probe took baggingSampleRate 5")
+    except ValidationError as e:
+        if not any("baggingSampleRate" in p for p in e.problems):
+            fail(f"probe refused baggingSampleRate 5 for {e.problems}")
+    # jax's rejection sampler on the card, bit for bit the CPU's
+    keys = [prng.prng_key(s) for s in (0, 1)]
+    t0 = time.perf_counter()
+    for lam in POISSON_RATES:
+        on_card = prng.poisson(keys, lam, POISSON_ROWS, device="cuda").cpu()
+        on_cpu = prng.poisson(keys, lam, POISSON_ROWS)
+        if not torch.equal(on_card, on_cpu):
+            fail(f"poisson at rate {lam}: "
+                 f"{int((on_card != on_cpu).sum())} draws differ card/CPU")
+    poisson_s = time.perf_counter() - t0
+    log(f"inputs: {len(os.listdir(os.path.join(base, 'data')))} shards "
+        f"(gz, bz2, xz, zip, plain, wrong width, corrupt), filter {expr!r}"
+        f" keeps {keep} rows as the host counts, 1 shard quarantined; "
+        f"card vs CPU ColumnConfig equal, scores within {diff:.3g}, AUC "
+        f"{perf['areaUnderRoc']:.6f} / {cpu_perf['areaUnderRoc']:.6f}; "
+        f"walls card {walls['card']:.3f} s, CPU {walls['cpu']:.3f} s; "
+        f"train -dry and probe refusal checked; poisson at "
+        f"{POISSON_RATES} x {POISSON_ROWS} rows bit-equal card/CPU in "
+        f"{poisson_s:.2f} s; launches {launches} — [{gpu}]")
+    return {"launches": launches, "kept": keep, "walls_s": walls,
+            "poisson_s": poisson_s}
+
+
+# ------------------------------------------- phase: the offline telemetry
+TELEMETRY_TREES = 3
+TELEMETRY_STEPS = ("INIT", "STATS", "NORMALIZE", "TRAIN", "EVAL")
+HAND_KERNEL_NAMES = {"stats": "stats_hist_kernel",
+                     "train": "hist_accum_kernel",
+                     "eval": "forest_walk_kernel"}
+#: each profiled step's cost-record name and the CUDA kernels one launch
+#: of its hand kernel runs (the wrappers' torch ops, such as B3's ``amax``,
+#: left out, so a device-time rate is if anything overstated)
+HAND_KERNEL_RUNS = {
+    "stats": ("stats.stats_hist", r"\bstats_hist(_finalize)?_kernel\b"),
+    "train": ("pallas.hist",
+              r"\b(partition|scan|hist_accum|finalize)_kernel\b"),
+    "eval": ("pallas.tree_traverse",
+             r"\b(forest_walk|tree_traverse)_kernel\b")}
+
+
+def telemetry_phase(torch, root: str, csv: str, plan, gpu: str) -> dict:
+    """The offline steps' telemetry on the card: ``new → init → stats →
+    norm → train (GBT) → eval -run`` on the stats CSV through ``cli.main``
+    with ``--telemetry --profile DIR``, then ``analysis --telemetry``,
+    ``--utilization`` and ``--timeline`` and ``monitor --once --json``.
+    Checks: every step's span tree (root, ``setup``, ``process``) is in
+    the trace and ``drift.json`` exists; the cost records' launches of
+    ``pallas.hist``, ``stats.stats_hist`` and ``pallas.tree_traverse``
+    equal the kernels' counts over the same run (zeroed just before it,
+    read just after); the utilization rows of those planes report bytes/s
+    under 105% of the H100 row's peak; each step's ``torch.profiler``
+    Chrome trace names its hand kernel; and each step's modelled bytes
+    over its hand kernel's own device time in that trace stay under 105%
+    of the peak too (the utilization rows divide by the step's wall, most
+    of it host work, so only this rate could catch a model that charges
+    more than the kernel can move)."""
+    import contextlib
+    import io
+    import re
+    from shifu_tpu_torch import cli, obs
+    from shifu_tpu_torch.config import ModelConfig, environment
+    from shifu_tpu_torch.obs.costs import resolve_peaks
+    from shifu_tpu_torch.ops import stats_hist as sh
+    base = os.path.join(root, "telemetry")
+    os.makedirs(base)
+    if cli.main(["--dir", base, "new", "tel"]) != 0:
+        fail("new exited non-zero")
+    d = os.path.join(base, "tel")
+    prof = os.path.join(base, "profile")
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    for ds in (mc.dataSet, mc.evals[0].dataSet):
+        ds.dataPath, ds.dataDelimiter = csv, "|"
+        ds.headerPath, ds.headerDelimiter = csv + ".header", "|"
+    ds = mc.dataSet
+    ds.targetColumnName, ds.weightColumnName = "tag", "weight"
+    ds.posTags, ds.negTags = ["bad"], ["good"]
+    mc.stats.maxNumBin = N_BINS - 1
+    mc.train.algorithm = "GBT"
+    mc.train.params = {"TreeNum": TELEMETRY_TREES, "MaxDepth": DEPTH,
+                       "Loss": "log", "LearningRate": 0.1}
+    mc.save(path)
+    flags = ["--telemetry", "--profile", prof]
+    zero_tree_counts()
+    sh.stats_histograms_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        for argv in (["init"], ["stats", "--device", "cuda"], ["norm"],
+                     ["train", "--device", "cuda"],
+                     ["eval", "-run", "--device", "cuda"]):
+            if cli.main(["--dir", d, INLINE_PARSE, *argv, *flags]) != 0:
+                fail(f"{argv[0]} --telemetry exited non-zero")
+        launches = {**read_tree_counts(),
+                    "stats_hist": sh.stats_histograms_cuda.launches}
+        wall = time.perf_counter() - t0
+        outs = {}
+        for name, argv in (
+                ("report", ["analysis", "--telemetry"]),
+                ("utilization", ["analysis", "--telemetry",
+                                 "--utilization"]),
+                ("timeline", ["analysis", "--telemetry", "--timeline",
+                              os.path.join(base, "timeline.json")]),
+                ("monitor", ["monitor", "--once", "--json"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["--dir", d, *argv])
+            if rc != 0:
+                fail(f"{' '.join(argv)} exited {rc}")
+            outs[name] = buf.getvalue()
+    finally:
+        environment.reset_for_tests()
+        obs.reset_for_tests()
+    steps, costs, model_bytes = {}, {}, {}
+    step = None
+    with open(os.path.join(d, "telemetry", "trace.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["kind"] == "meta":
+                step = rec["step"]
+                steps[step] = set()
+            elif rec["kind"] == "span":
+                steps[step].add((rec["name"], rec["attrs"].get("kind")))
+            elif rec["kind"] == "cost":
+                costs[rec["name"]] = costs.get(rec["name"], 0) \
+                    + rec["launches"]
+                key = (step.lower(), rec["name"])
+                model_bytes[key] = model_bytes.get(key, 0.0) \
+                    + rec["bytes_accessed"] * rec["launches"]
+    for s in TELEMETRY_STEPS:
+        if not {(s, "step"), ("setup", "phase"),
+                ("process", "phase")} <= steps.get(s, set()):
+            fail(f"the trace holds no span tree for {s}: {steps.get(s)}")
+    if not os.path.isfile(os.path.join(d, "telemetry", "drift.json")):
+        fail("no telemetry/drift.json")
+    want = {"pallas.hist": launches["hist"] + launches["hist_batch"],
+            "stats.stats_hist": launches["stats_hist"],
+            "pallas.tree_traverse": launches["tree_traverse"]}
+    if costs != want or not all(want.values()):
+        fail(f"cost-record launches {costs} != kernel counts {want}")
+    peak_bw = resolve_peaks({"platform": "gpu",
+                             "device_kind": torch.cuda.get_device_name(0)})[1]
+    util = outs["utilization"].splitlines()
+    if not any(ln.startswith("device: ") and "h100" in ln.lower()
+               for ln in util):
+        fail(f"the utilization report has no H100 peak row: {util[:3]}")
+    rates = {}
+    for ln in util:
+        parts = ln.split()
+        if len(parts) >= 5 and parts[0] in ("pallas", "stats"):
+            rates.setdefault(parts[0], []).append(float(parts[4]))
+    if set(rates) != {"pallas", "stats"} or \
+            max(max(v) for v in rates.values()) >= 1.05 * peak_bw:
+        fail(f"utilization bytes/s {rates} against a peak of {peak_bw}")
+    seen, device_rates = {}, {}
+    for step_dir, kernel in HAND_KERNEL_NAMES.items():
+        with open(os.path.join(prof, step_dir, "trace.json")) as f:
+            events = json.load(f).get("traceEvents", [])
+        names = {e.get("name", "") for e in events}
+        seen[step_dir] = sum(kernel in n for n in names)
+        if not seen[step_dir]:
+            fail(f"the {step_dir} profile names no {kernel}")
+        plane, runs = HAND_KERNEL_RUNS[step_dir]
+        device_us = sum(e.get("dur", 0) for e in events
+                        if e.get("cat") == "kernel"
+                        and re.search(runs, e.get("name", "")))
+        nbytes = model_bytes.get((step_dir, plane), 0.0)
+        if device_us <= 0 or nbytes <= 0:
+            fail(f"the {step_dir} step: {nbytes} modelled bytes of {plane} "
+                 f"over {device_us} us of its kernels' device time")
+        device_rates[step_dir] = nbytes / (device_us * 1e-6)
+        if device_rates[step_dir] >= 1.05 * peak_bw:
+            fail(f"the {step_dir} step's {plane} model charges "
+                 f"{nbytes:.0f} bytes in {device_us} us of device time: "
+                 f"{device_rates[step_dir]:.3e} B/s against a peak of "
+                 f"{peak_bw:.3e}")
+    monitor = json.loads(outs["monitor"])
+    if monitor.get("kind") != "monitor" or not monitor.get("procs"):
+        fail(f"monitor --once --json gave {outs['monitor'][:200]}")
+    with open(os.path.join(base, "timeline.json")) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    log(f"telemetry: init → stats → norm → train → eval with --telemetry "
+        f"--profile in {wall:.3f} s; cost launches {costs} = the kernels'; "
+        f"peak bytes/s share "
+        f"{max(max(v) for v in rates.values()) / peak_bw:.4f} of "
+        f"{peak_bw:.3e}; profiles name {seen}; modelled bytes over the "
+        f"kernels' device time "
+        + ", ".join(f"{k} {v:.4e} B/s ({v / peak_bw:.4f} of peak)"
+                    for k, v in device_rates.items())
+        + f"; timeline {n_events} events;"
+        f" monitor {len(monitor['procs'])} proc(s) — [{gpu}]")
+    return {"launches": launches, "costs": costs, "wall_s": wall,
+            "bytes_per_s": rates, "device_bytes_per_s": device_rates}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6429,6 +6835,10 @@ def main() -> None:
             parsepool.CHUNK_ROWS = prev_chunk
         nn_walls["wdl_svm_e2e_combo"] = time.perf_counter() - t0
         mark("wdl_combo")
+        inputs = inputs_phase(torch, root, stats["csv"], plan, gpu)
+        mark("inputs_phase")
+        tel = telemetry_phase(torch, root, stats["csv"], plan, gpu)
+        mark("telemetry_phase")
         log(f"combo WDL:GBT on {COMBO_ROWS} rows: run "
             f"{wdl_combo['walls_s']['run_cuda']:.3f} s on the card, "
             f"{wdl_combo['walls_s']['run_cpu']:.3f} s on the CPU; "
@@ -6458,6 +6868,34 @@ def main() -> None:
 
     top = times[512]
     h32 = hist_times[32]
+    # the telemetry cost models' bytes at the timed shapes beside the
+    # bounds' (this data's): a model charges every row active and every
+    # node's record, so it is the bound's count at full occupancy and an
+    # upper bound otherwise; logged, not on the kernels line
+    from shifu_tpu_torch.ops import hist as hist_ops
+    from shifu_tpu_torch.ops import stats_hist as sh_ops
+    model_vs_bound = {
+        "tree_traverse": (tq.walk_cost(512, N_COLS, N_BINS,
+                                       (1 << (DEPTH + 1)) - 1, DEPTH,
+                                       N_TREES), top),
+        "hist": (hist_ops.hist_kernel_cost(TRAIN_ROWS, N_COLS, N_BINS, 32,
+                                           2), h32),
+        "stats_hist": (sh_ops.stats_hist_cost(RESIDENT_ROWS, N_NUM,
+                                              STATS_BUCKETS, 4),
+                       stats_times[4]),
+        "hist_batch": (hist_ops.hist_kernel_cost(
+            TRAIN_ROWS, N_COLS, N_BINS, 32, 2, n_trees=HIST_BATCH),
+            batch_times[32])}
+    for name, (model, timed) in model_vs_bound.items():
+        if model["bytes_accessed"] < timed["bytes"]:
+            fail(f"{name}: the cost model's {model['bytes_accessed']} bytes "
+                 f"fall below the {timed['bytes']} this data moves")
+    log("cost models vs bounds at the timed shapes (MB, model / this "
+        "data's bound): " + "; ".join(
+            f"{name} {model['bytes_accessed'] / 1e6:.3f} / "
+            f"{timed['bytes'] / 1e6:.3f}"
+            for name, (model, timed) in model_vs_bound.items())
+        + f" — [{gpu}]")
     kernels = [{
         "name": "tree_traverse", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/tree_traverse.cu",
@@ -6473,6 +6911,9 @@ def main() -> None:
         "train_replay_launches":
             trained["replay"]["launches"]["tree_traverse"],
         "eval_launches": e2e["eval_launches"],
+        "inputs_launches": inputs["launches"]["tree_traverse"],
+        "telemetry_launches": tel["launches"]["tree_traverse"],
+        "telemetry_cost_launches": tel["costs"]["pallas.tree_traverse"],
         "max_abs_err": errs["tree_traverse"],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -6496,6 +6937,9 @@ def main() -> None:
         "name": "hist", "route": "cuda",
         "source": "shifu_tpu_torch/csrc/hist.cu",
         "leaf_sum_launches": trained["launches"]["leaf_sums"],
+        "inputs_launches": inputs["launches"]["hist"],
+        "telemetry_launches": tel["launches"]["hist"],
+        "telemetry_cost_launches": tel["costs"]["pallas.hist"],
         "combo_launches": aux["combo"]["hist_launches"],
         "wdl_combo_launches": wdl_combo["hist_launches"],
         "rf_launches": forest["launches"]["hist"],
@@ -6533,6 +6977,9 @@ def main() -> None:
         "launches": stats["launches"]["stats_hist"],
         "resident_launches": resident["launches"],
         "stats_extra_launches": stats_x["launches"],
+        "inputs_launches": inputs["launches"]["stats_hist"],
+        "telemetry_launches": tel["launches"]["stats_hist"],
+        "telemetry_cost_launches": tel["costs"]["stats.stats_hist"],
         "max_abs_err": errs["stats_hist"],
         "ms": stats_times[4]["ms"], "plain_ms": stats_times[4]["plain_ms"],
         "bound_ms": stats_times[4]["bound_ms"],

@@ -1,12 +1,17 @@
 """shifu-tpu-torch CLI — the port's counterpart of ``shifu_tpu.cli``.
 
 The port carries every model-set command of the reference but
-``monitor``, ``refresh`` and ``lint`` (ROADMAP Queue 1 items 12 and 13):
-the offline path ``new → init → stats → norm → varselect → train →
+``refresh`` and ``lint`` (ROADMAP Queue 1 items 12 and 13): the offline
+path ``new → init → stats → norm → varselect → train →
 posttrain → eval`` of a GBT/RF/DT/NN/LR model set, serving, and the
 commands around it — ``export``, ``encode``, ``combo``, ``convert``,
-``analysis -fi``, ``test`` and the version commands ``save``,
-``switch``, ``history``, ``show``, ``delete`` and ``cp``.  ``-Dkey=value``
+``analysis`` (``-fi``, and ``--telemetry`` / ``--timeline`` /
+``--utilization`` / ``--aggregate`` over the trace files), ``monitor``,
+``test`` and the version commands ``save``, ``switch``, ``history``,
+``show``, ``delete`` and ``cp``.  Every subcommand takes ``--telemetry``
+(spans, counters, drift and kernel costs to
+``<modelset>/telemetry/trace.jsonl``) and ``--profile [DIR]`` (a
+``torch.profiler`` Chrome trace a step).  ``-Dkey=value``
 properties go to the Environment tier as in the reference; ``--device``
 picks where a step that computes runs (default ``cuda``; ``cpu`` runs the
 plain PyTorch versions).  ``new``, ``init``, ``norm``, ``export``,
@@ -22,7 +27,7 @@ train or run nets there.
     python -m shifu_tpu_torch.cli --dir <modelset> stats [-correlation] [-psi] [-rebin [-vars A,B] [-ivr R] [-bic N]] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> norm [-shuffle]
     python -m shifu_tpu_torch.cli --dir <modelset> varselect [-list|-reset|-recover|-autofilter|-recoverauto|-recursive N] [--device cpu]
-    python -m shifu_tpu_torch.cli --dir <modelset> train [-resume] [--device cpu]
+    python -m shifu_tpu_torch.cli --dir <modelset> train [-dry] [-resume] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> posttrain [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> eval -new <evalset>
     python -m shifu_tpu_torch.cli --dir <modelset> eval [-run [<evalset>]] [--device cpu]
@@ -33,6 +38,8 @@ train or run nets there.
     python -m shifu_tpu_torch.cli --dir <modelset> combo init|run|eval [-resume] [--device cpu]
     python -m shifu_tpu_torch.cli --dir <modelset> convert [-tozipb|-tob]
     python -m shifu_tpu_torch.cli --dir <modelset> analysis -fi <model file>
+    python -m shifu_tpu_torch.cli --dir <modelset> analysis --telemetry [--utilization | --timeline OUT.json] [--aggregate DIR...]
+    python -m shifu_tpu_torch.cli --dir <modelset> monitor [--once [--json]] [--interval S] [--aggregate DIR...]
     python -m shifu_tpu_torch.cli --dir <modelset> test [-filter [<evalset>]]
     python -m shifu_tpu_torch.cli --dir <modelset> save [<name>] | switch <name> | history | show | delete <name> | cp <dir>
     python -m shifu_tpu_torch.cli --dir <modelset> serve [--port N] [--replicas N]
@@ -66,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="shifu-tpu-torch",
         description="PyTorch/CUDA port of shifu-tpu (new, init, stats, "
         "norm, varselect, GBT/RF/DT/NN/LR train, posttrain, eval, export, "
-        "encode, combo, convert, analysis, test, version commands, "
-        "serve)")
+        "encode, combo, convert, analysis, monitor, test, version "
+        "commands, serve)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
@@ -228,17 +235,45 @@ def build_parser() -> argparse.ArgumentParser:
                     help="(reference TO_TREEB)")
 
     sp = sub.add_parser("analysis", help="model spec analysis (-fi MODEL: "
-                        "tree feature importance, on the host)")
+                        "tree feature importance; --telemetry: render the "
+                        "last run's span/metric trace; --telemetry "
+                        "--timeline OUT: a Chrome/Perfetto trace_event "
+                        "timeline; --telemetry --utilization: the kernel "
+                        "cost / roofline report), on the host")
     sp.add_argument("-fi", dest="fi_model", metavar="MODELPATH")
     sp.add_argument("-telemetry", "--telemetry", dest="telemetry_report",
                     action="store_true",
-                    help="not ported (ROADMAP Queue 1 item 13)")
+                    help="render <modelset>/telemetry/trace.jsonl as a "
+                    "per-step span tree with self-time and rows/sec")
     sp.add_argument("-timeline", "--timeline", dest="timeline_out",
                     metavar="OUT.json", default=None,
-                    help="not ported (ROADMAP Queue 1 item 13)")
+                    help="with --telemetry: convert the trace to Chrome "
+                    "trace_event JSON")
     sp.add_argument("-utilization", "--utilization", dest="utilization",
                     action="store_true",
-                    help="not ported (ROADMAP Queue 1 item 13)")
+                    help="with --telemetry: join the hand kernels' cost "
+                    "records against span wall times — achieved bytes/s "
+                    "and operations/s against the card's peak (override: "
+                    "SHIFU_TPU_PEAK_FLOPS / SHIFU_TPU_PEAK_BW)")
+    sp.add_argument("-aggregate", "--aggregate", dest="analysis_aggregate",
+                    nargs="+", metavar="DIR", default=None,
+                    help="with --telemetry [--timeline]: merge the "
+                    "telemetry dirs of N processes (replaces --dir)")
+
+    sp = sub.add_parser("monitor", help="live health monitor: tail "
+                        "<modelset>/telemetry/health/ heartbeats")
+    sp.add_argument("--interval", dest="monitor_interval", type=float,
+                    default=2.0, metavar="S",
+                    help="seconds between frames (default 2)")
+    sp.add_argument("--once", dest="monitor_once", action="store_true",
+                    help="render one frame and exit")
+    sp.add_argument("--json", dest="monitor_json", action="store_true",
+                    help="with --once: one JSON document; exit 0 healthy, "
+                    "3 when any process is stalled or stale")
+    sp.add_argument("--aggregate", dest="monitor_aggregate", nargs="+",
+                    metavar="DIR", default=None,
+                    help="merge the health planes of N process telemetry "
+                    "dirs (replaces --dir)")
 
     sp = sub.add_parser("test", help="pipeline smoke test on a data "
                         "sample, on the host")
@@ -262,12 +297,34 @@ def build_parser() -> argparse.ArgumentParser:
     tp = sub.add_parser("train", help="train the model set from the "
                         "norm step's planes (resident GBT, RF and DT from "
                         "the clean plane, NN and LR from the norm plane)")
+    tp.add_argument("-dry", dest="dry", action="store_true",
+                    help="validate the config and log the plan; train "
+                    "nothing")
     tp.add_argument("-resume", dest="resume", action="store_true",
                     help="continue from the trainer checkpoint")
     tp.add_argument("-shuffle", dest="shuffle", action="store_true",
                     help="NN/LR: permute the rows (fixed seed) before "
                     "training")
     _device_arg(tp)
+
+    # telemetry/profiling on every step: --telemetry records the span /
+    # metric trace for this run (same as SHIFU_TPU_TELEMETRY=1);
+    # --profile [DIR] writes a torch.profiler Chrome trace a step (same as
+    # -Dshifu.profile=DIR)
+    seen = set()                        # aliases share one parser object
+    for name, spx in sub.choices.items():
+        if id(spx) in seen:
+            continue
+        seen.add(id(spx))
+        spx.add_argument("--profile", dest="profile_dir", nargs="?",
+                         const="profile", default=None, metavar="DIR",
+                         help="write a torch.profiler trace under DIR "
+                         "(default ./profile)")
+        if name != "analysis":          # analysis --telemetry = the report
+            spx.add_argument("--telemetry", dest="telemetry",
+                             action="store_true",
+                             help="record span/metric telemetry to "
+                             "<modelset>/telemetry/trace.jsonl")
     return p
 
 
@@ -283,6 +340,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose
                         else logging.WARNING)
+    if getattr(args, "telemetry", False):
+        from . import obs
+        obs.set_enabled(True)
+    if getattr(args, "profile_dir", None):
+        environment.set_property("shifu.profile", args.profile_dir)
     if args.command == "new":
         from .pipeline.create import create_new_model
         create_new_model(args.name, base_dir=args.dir, algorithm=args.alg,
@@ -338,7 +400,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.command == "train":
         from .pipeline.train import TrainProcessor
         return TrainProcessor(args.dir, params={"resume": args.resume,
-                                                "shuffle": args.shuffle},
+                                                "shuffle": args.shuffle,
+                                                "dry": args.dry},
                               device=args.device).run()
     return _aux_command(args)
 
@@ -367,13 +430,16 @@ def _aux_command(args) -> int:
         return run_convert(args.dir, {"tozipb": args.tozipb,
                                       "tob": args.tob})
     if cmd == "analysis":
-        if args.telemetry_report or args.timeline_out or args.utilization:
-            raise NotImplementedError(
-                "analysis --telemetry/--timeline/--utilization render the "
-                "reference's telemetry, which shifu_tpu_torch does not "
-                "record yet (ROADMAP Queue 1 item 13)")
+        if args.telemetry_report or args.utilization:
+            return _render_telemetry(args)
         from .pipeline.analysis import analyze_model_fi
         return analyze_model_fi(args.fi_model)
+    if cmd == "monitor":
+        from .obs.monitor import run_monitor
+        return run_monitor(args.dir, interval_s=args.monitor_interval,
+                           once=args.monitor_once,
+                           json_mode=args.monitor_json,
+                           aggregate_dirs=args.monitor_aggregate)
     if cmd == "test":
         from .pipeline.smoke import SmokeTestProcessor
         return SmokeTestProcessor(args.dir, params={
@@ -392,6 +458,42 @@ def _aux_command(args) -> int:
     if cmd == "cp":
         return manage.copy_model_set(args.dir, args.dest)
     raise ValueError(f"unknown command {cmd!r}")
+
+
+def _render_telemetry(args) -> int:
+    """``analysis --telemetry [--utilization | --timeline OUT]
+    [--aggregate DIR...]``: the reference's renders of the trace files."""
+    agg = args.analysis_aggregate
+    if args.utilization:
+        from .obs.utilization import render_utilization
+        print(render_utilization(args.dir))
+        return 0
+    if args.timeline_out:
+        from .obs.report import NO_TELEMETRY_HINT
+        from .obs.timeline import export_merged_timeline, export_timeline
+        skipped: list = []
+        if agg:
+            out = export_merged_timeline(agg, args.timeline_out,
+                                         skipped=skipped)
+        else:
+            out = export_timeline(args.dir, args.timeline_out,
+                                  skipped=skipped)
+        if out is None:
+            print(NO_TELEMETRY_HINT)
+        else:
+            print(f"timeline -> {out}  (load in chrome://tracing or "
+                  "https://ui.perfetto.dev)")
+            if skipped:
+                print(f"warning: {len(skipped)} torn trace line(s) "
+                      "skipped (crashed run mid-write?)")
+        return 0
+    if agg:
+        from .obs.report import render_telemetry_merged
+        print(render_telemetry_merged(agg))
+        return 0
+    from .obs.report import render_telemetry
+    print(render_telemetry(args.dir))
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,19 +1,19 @@
-"""Train-param validation — the part of ``shifu_tpu.config.meta`` that
-``train.gridConfigFile`` trials need (reference
-``container/meta/MetaFactory.java`` + ``store/ModelConfigMeta.json``): the
-declarative ``train#params`` rule table, and :func:`validate_train_params`,
-which checks one trial against it.  UNKNOWN keys are hard errors with a
-did-you-mean suggestion, so a typo like ``LearningRat`` fails instead of
-silently falling back to the default.  The ModelConfig field rules and
-the whole-config checks of the reference's module are ROADMAP Queue 1
-item 1.
+"""Meta-driven config validation — the port's copy of
+``shifu_tpu.config.meta`` (reference ``container/meta/MetaFactory.java`` +
+``store/ModelConfigMeta.json``): the declarative rule tables for the
+ModelConfig scalar fields (:data:`CONFIG_RULES`) and for ``train#params``
+(:data:`TRAIN_PARAM_RULES`), checked by ``config/validator.py::probe`` on
+every step.  UNKNOWN ``train#params`` keys are hard errors with a
+did-you-mean suggestion, so a typo like ``LearningRat`` fails ``probe``
+instead of silently falling back to the default.  Grid-search trials
+validate individually.
 """
 
 from __future__ import annotations
 
 import difflib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .model_config import Algorithm
 
@@ -145,6 +145,26 @@ TRAIN_PARAM_RULES: Dict[str, Rule] = {
 }
 
 
+# ------------------------------------------------- ModelConfig field schema
+# dotted path -> Rule; checked via attribute walk on every probe
+CONFIG_RULES: Dict[str, Rule] = {
+    "train.baggingNum": Rule("int", lo=1, hi=1000),
+    "train.numTrainEpochs": Rule("int", lo=1, hi=1_000_000),
+    "train.validSetRate": Rule("float", lo=0.0, hi=1.0, hi_open=True),
+    "train.baggingSampleRate": Rule("float", lo=0.0, lo_open=True, hi=1.0),
+    "train.upSampleWeight": Rule("float", lo=1.0),
+    "train.convergenceThreshold": Rule("float", lo=0.0),
+    "train.epochsPerIteration": Rule("int", lo=1),
+    "train.workerThreadCount": Rule("int", lo=1, hi=1024),
+    "stats.maxNumBin": Rule("int", lo=2, hi=32767),
+    "stats.sampleRate": Rule("float", lo=0.0, lo_open=True, hi=1.0),
+    "stats.binningMethod": Rule("str"),
+    "normalize.stdDevCutOff": Rule("float", lo=0.0, lo_open=True),
+    "normalize.sampleRate": Rule("float", lo=0.0, lo_open=True, hi=1.0),
+    "varSelect.filterNum": Rule("int", lo=0),
+}
+
+
 def _as_number(v: Any) -> Optional[float]:
     import math
     if isinstance(v, bool):
@@ -248,8 +268,8 @@ def _nn_shape_problems(params: Dict[str, Any], alg: str) -> List[str]:
 def validate_train_params(params: Dict[str, Any],
                           algorithm: Algorithm) -> List[str]:
     """Validate one trial's train#params against the schema.  Grid-search
-    list-of-candidates values must be expanded BEFORE calling
-    (``pipeline/train.py::TrainProcessor._trials`` does)."""
+    list-of-candidates values must be expanded BEFORE calling (use
+    :func:`validate_train_conf`, which does)."""
     problems: List[str] = list(unknown_param_problems(params))
     alg = algorithm.name
     for key, v in (params or {}).items():
@@ -284,3 +304,57 @@ def tf_ignored_param_problems(train_conf) -> List[str]:
             f"TF-on-YARN ps/worker topology) — train#params {present} "
             "would be silently ignored; remove them or use a TF-on-YARN "
             "deployment"]
+
+
+def validate_train_conf(train_conf) -> List[str]:
+    """Validate train#params; grid-search candidates validate individually
+    without materializing the cartesian product (every rule is per-key, so
+    per-axis candidate checks are exact; only the NN shape cross-check
+    walks its own 3-axis product)."""
+    import itertools
+
+    from ..train import grid_search
+    params = train_conf.params or {}
+    alg = train_conf.algorithm
+    if not grid_search.is_grid_search(params):
+        return validate_train_params(params, alg)
+
+    problems: List[str] = []
+    seen = set()
+
+    def add(ps: Sequence[str]) -> None:
+        for p in ps:
+            if p not in seen:
+                seen.add(p)
+                problems.append(p)
+
+    def candidates(k: str, v: Any) -> list:
+        if isinstance(v, list) and grid_search._is_axis(k, v):
+            return list(v)
+        return [v]
+
+    for k, v in params.items():
+        for c in candidates(k, v):
+            add(validate_train_params({k: c}, alg))
+    shape = {k: candidates(k, params[k])
+             for k in ("NumHiddenLayers", "NumHiddenNodes", "ActivationFunc")
+             if k in params}
+    if shape:
+        keys = list(shape)
+        for combo in itertools.product(*(shape[k] for k in keys)):
+            add(_nn_shape_problems(dict(zip(keys, combo)), alg.name))
+    return problems
+
+
+def validate_config_fields(mc) -> List[str]:
+    """Walk :data:`CONFIG_RULES`' dotted paths over the ModelConfig tree."""
+    problems: List[str] = []
+    for path, rule in CONFIG_RULES.items():
+        obj = mc
+        for part in path.split("."):
+            obj = getattr(obj, part, None)
+            if obj is None:
+                break
+        else:
+            problems.extend(_check_value(path, obj, rule))
+    return problems

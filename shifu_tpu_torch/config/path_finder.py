@@ -148,9 +148,25 @@ class PathFinder:
     # ----------------------------------------------------------- telemetry
     @property
     def telemetry_dir(self) -> str:
-        """Serving-plane telemetry (``obs/``): trace, heartbeats, metrics,
-        score log, posttrain and quality snapshots."""
+        """Telemetry (``obs/``): trace, heartbeats, metrics, drift, score
+        log, posttrain and quality snapshots."""
         return os.path.join(self.root, "telemetry")
+
+    @property
+    def telemetry_trace_path(self) -> str:
+        return os.path.join(self.telemetry_dir, "trace.jsonl")
+
+    @property
+    def drift_path(self) -> str:
+        """Per-column PSI of the last norm/eval run against the training
+        snapshot (``obs/drift``)."""
+        return os.path.join(self.telemetry_dir, "drift.json")
+
+    @property
+    def health_dir(self) -> str:
+        """Per-process heartbeat files (``obs/health``), which ``monitor``
+        tails."""
+        return os.path.join(self.telemetry_dir, "health")
 
     @property
     def posttrain_snapshot_path(self) -> str:

@@ -1,9 +1,9 @@
 """Per-step semantic validation of ModelConfig — the port's copy of
-``ModelStep`` and the INIT, STATS, NORMALIZE, TRAIN and EVAL rules of
-``shifu_tpu.config.validator.probe`` (reference ``ModelInspector.java``).
-The declarative per-field and train#params schema
-(``shifu_tpu.config.meta``) is not ported yet, so a mistyped field or
-train#params key is not caught here."""
+``ModelStep`` and ``shifu_tpu.config.validator.probe`` (reference
+``ModelInspector.java``): each step calls ``probe(mc, step)`` before it
+runs, which checks the declarative field and train#params schema of
+``config/meta.py`` and the per-step rules, and raises
+:class:`ValidationError` listing every problem in the reference's order."""
 
 from __future__ import annotations
 
@@ -96,11 +96,19 @@ def _check_column_conf(mc: ModelConfig, model_set_dir: str,
 
 def probe(mc: ModelConfig, step: ModelStep, model_set_dir: str = ".") -> None:
     """Raise :class:`ValidationError` listing every problem of ``mc`` for
-    ``step``.  The INIT, STATS, NORMALIZE, VARSELECT, TRAIN, POSTTRAIN
-    and EVAL rules are ported."""
+    ``step``."""
+    from .meta import (tf_ignored_param_problems, validate_config_fields,
+                       validate_train_conf)
     problems: List[str] = []
     if not mc.basic.name:
         problems.append("basic.name must not be empty")
+    problems.extend(validate_config_fields(mc))
+    if step == ModelStep.TRAIN:
+        # unknown keys (typos) are hard errors; grid-search candidate
+        # lists expand per trial; TENSORFLOW trains on the NN path, so
+        # TF-only params it would silently ignore are an error
+        problems.extend(validate_train_conf(mc.train))
+        problems.extend(tf_ignored_param_problems(mc.train))
     ds = mc.dataSet
     if step in (ModelStep.INIT, ModelStep.STATS, ModelStep.NORMALIZE,
                 ModelStep.VARSELECT, ModelStep.TRAIN, ModelStep.POSTTRAIN):
@@ -150,11 +158,18 @@ def probe(mc: ModelConfig, step: ModelStep, model_set_dir: str = ".") -> None:
                          "forceSelectColumnNameFile"):
                 _check_name_file(getattr(vs, what), model_set_dir,
                                  f"varSelect.{what}", problems)
+        # postCorrelationMetric is an enum, and SE composes only with
+        # filterBy SE (the SE stats exist only then)
+        pcm = (vs.postCorrelationMetric or "").upper()
+        if pcm and pcm not in ("IV", "KS", "SE"):
+            problems.append("varSelect.postCorrelationMetric must be one "
+                            f"of IV/KS/SE, got {vs.postCorrelationMetric!r}")
+        if pcm == "SE" and vs.filterBy.name != "SE":
+            problems.append("varSelect.filterBy and "
+                            "varSelect.postCorrelationMetric must both be "
+                            "SE (reference ModelInspector.checkVarSelect)")
     if step == ModelStep.TRAIN:
         tr = mc.train
-        # TENSORFLOW trains on the NN path: TF-only params are an error
-        from .meta import tf_ignored_param_problems
-        problems.extend(tf_ignored_param_problems(tr))
         if tr.isCrossValidation and tr.numKFold < 2:
             problems.append("train.numKFold must be >= 2 when "
                             "isCrossValidation")

@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from .extract import ChunkExtractor, ExtractedChunk
 from .rawcache import (RawCacheWriter, open_raw_cache, raw_cache_budget_bytes,
                        raw_cache_enabled)
@@ -40,8 +42,8 @@ RAW_SAMPLE_SEED = 977          # pre-parse sample substream (stats plane)
 CHUNK_ROWS = 262144
 
 
-# passes over a cache root since the process started (plain integers; the
-# reference's rawcache.* obs counters are ROADMAP item 13)
+# passes over a cache root since the process started (plain integers, kept
+# beside the rawcache.* obs counters, which count only with telemetry on)
 cache_passes = {"hits": 0, "misses": 0, "bytes_written": 0}
 
 
@@ -124,6 +126,7 @@ def iter_extracted(source, extractor: ChunkExtractor, *,
         rd, writable = open_raw_cache(cdir, sig, extractor, chunk_rows)
     if rd is not None:                 # served: no text touched
         cache_passes["hits"] += 1
+        obs.counter("rawcache.hits").inc()
         log.info("raw cache hit %s: %d chunks, %d rows", cdir, rd.n_chunks,
                  rd.rows)
         for ci in range(start_chunk, rd.n_chunks):
@@ -131,6 +134,7 @@ def iter_extracted(source, extractor: ChunkExtractor, *,
         return
     if cdir is not None:
         cache_passes["misses"] += 1
+        obs.counter("rawcache.misses").inc()
         log.info("raw cache miss %s: parsing from text", cdir)
     writer = None
     if cdir is not None and writable and start_chunk == 0:
@@ -164,6 +168,7 @@ def iter_extracted(source, extractor: ChunkExtractor, *,
                 yield emit(ci, ex)
         if writer is not None and writer.finish():
             cache_passes["bytes_written"] += writer.bytes_written
+            obs.counter("rawcache.bytes_written").inc(writer.bytes_written)
             log.info("raw cache written %s: %d bytes", cdir,
                      writer.bytes_written)
         done = True
@@ -208,6 +213,7 @@ def _pooled(source, work, start_chunk, chunk_rows, workers):
                 except queue.Full:
                     continue
 
+    stall, t0 = 0.0, time.perf_counter()
     with ThreadPoolExecutor(max_workers=workers,
                             thread_name_prefix="parse") as pool:
         prod = threading.Thread(target=produce, args=(pool,), daemon=True,
@@ -219,7 +225,10 @@ def _pooled(source, work, start_chunk, chunk_rows, workers):
                 if item is None:
                     break
                 ci, fut = item
-                yield ci, fut.result()
+                tw = time.perf_counter()
+                ex = fut.result()
+                stall += time.perf_counter() - tw
+                yield ci, ex
         finally:
             stop.set()
             while True:                # unblock a put-blocked producer
@@ -230,5 +239,9 @@ def _pooled(source, work, start_chunk, chunk_rows, workers):
                 except queue.Empty:
                     break
             prod.join(timeout=10)
+            # share of the consumer loop spent waiting on parse futures:
+            # ~0 = parse hidden behind compute, ~1 = parse-bound
+            obs.gauge("ingest.parse_stall_frac").set(
+                stall / max(time.perf_counter() - t0, 1e-9))
     if exc:
         raise exc[0]

@@ -33,10 +33,11 @@ process-unique tmp suffix and commit the raw renames, then the manifest,
 so a reader never sees a torn cache; the next writer sweeps a killed
 writer's tmp files.  Overflowing ``shifu.ingest.rawCacheBudgetBytes``
 (default 8 GiB) aborts once and leaves a permanent ``aborted`` marker.
-``shifu.ingest.rawCache=false`` turns the cache off.  The reference's
-``rawcache:commit`` fault site and its obs counters are not ported
-(ROADMAP item 13): each pass logs its hit or miss as it starts, and a
-committed cache its bytes written.
+``shifu.ingest.rawCache=false`` turns the cache off.  Each pass logs its
+hit or miss as it starts, and a committed cache its bytes written; with
+telemetry on the parse pool counts them in ``rawcache.hits`` /
+``rawcache.misses`` / ``rawcache.bytes_written``.  The reference's
+``rawcache:commit`` fault site is not ported (ROADMAP item 13).
 """
 
 from __future__ import annotations

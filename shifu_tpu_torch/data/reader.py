@@ -1,8 +1,13 @@
 """Columnar streaming reader and numeric parsing, without pandas — the
 port's copy of ``shifu_tpu.data.reader``.
 
-:class:`DataSource` streams delimited text files (plain or ``.gz``) as
-chunks of string columns.  The reference reads them with ``pd.read_csv``'s
+:class:`DataSource` streams delimited text files as chunks of string
+columns: local or remote (any fsspec scheme but the gated Hadoop ones),
+plain or compressed as ``compression="infer"`` reads them (``.gz``,
+``.bz2``, ``.xz``, ``.zip``, ``.tar``; ``.zst`` fails as it fails without
+the ``zstandard`` package), or parquet files.  ``fsspec`` and ``pyarrow``
+are imported only inside the functions that read such sources.  With
+``shifu.data.badThreshold`` > 0, unreadable files are quarantined.  The reference reads them with ``pd.read_csv``'s
 C engine (``sep``, ``header=None``, ``names=header``, ``dtype=str``,
 ``na_filter=False``, ``quoting=3``, ``on_bad_lines="skip"``, ``chunksize``);
 :meth:`DataSource.iter_chunks` reproduces that tokenizer's rules cell for
@@ -337,10 +342,15 @@ def parse_weight(values: Optional[Sequence], n: int) -> np.ndarray:
 
 
 # ------------------------------------------------------------------ files
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to shifu_tpu_torch yet (ROADMAP Queue 1 "
-        "item 1): stage the data as local delimited text files")
+# Hadoop-cluster filesystems stay gated (no libhdfs client); object stores
+# and any other fsspec scheme stream directly
+_GATED_SCHEMES = ("hdfs://", "viewfs://", "arrow_hdfs://")
+
+# pandas' ``compression="infer"`` table, in its order (a lower-cased
+# suffix match, so ``.tar.gz`` is a tar archive)
+_COMPRESSIONS = ((".tar", "tar"), (".tar.gz", "tar"), (".tar.bz2", "tar"),
+                 (".tar.xz", "tar"), (".gz", "gzip"), (".bz2", "bz2"),
+                 (".zip", "zip"), (".xz", "xz"), (".zst", "zstd"))
 
 
 def _is_remote(path: str) -> bool:
@@ -348,8 +358,6 @@ def _is_remote(path: str) -> bool:
 
 
 def _local(path: str) -> str:
-    if _is_remote(path):
-        raise _not_ported(f"remote source {path!r}")
     return path[len("file://"):] if path.startswith("file://") else path
 
 
@@ -357,12 +365,76 @@ def _is_parquet(path: str) -> bool:
     return path.endswith((".parquet", ".pq"))
 
 
+def _fsspec_paths(path: str):
+    """(fs, expanded paths) for a remote URL — the one place that gates
+    Hadoop schemes and turns fsspec's failures into coded errors.
+    ``fsspec`` is imported here, only when a remote source is read."""
+    from ..config.errors import ErrorCode, ShifuError
+    for scheme in _GATED_SCHEMES:
+        if path.startswith(scheme):
+            raise ShifuError(
+                ErrorCode.ERROR_REMOTE_SOURCE,
+                f"{path!r}: no native {scheme[:-3]} client in this "
+                "runtime — point dataPath at the cluster's WebHDFS "
+                "gateway instead (webhdfs://namenode:9870/path streams "
+                "directly), stage the files locally (hdfs dfs -get), or "
+                "serve them from object storage (gs://, s3://)")
+    import fsspec
+    try:
+        fs, _, paths = fsspec.get_fs_token_paths(path)
+    except ImportError as e:                   # backend package missing
+        raise ShifuError(
+            ErrorCode.ERROR_REMOTE_SOURCE,
+            f"{path!r}: the fsspec backend for this scheme is not "
+            f"installed ({e}) — stage the files locally (gsutil -m cp -r "
+            "/ aws s3 sync) and set the path to the local copy") from e
+    except ValueError as e:                    # unknown protocol / bad URL
+        raise ShifuError(
+            ErrorCode.ERROR_REMOTE_SOURCE,
+            f"{path!r}: {e} — use a known scheme (gs://, s3://, file://) "
+            "or stage the files locally") from e
+    return fs, paths
+
+
+def _resolve_remote(data_path: str) -> List[str]:
+    """Expand a remote (fsspec) path / directory / glob into full URLs,
+    one detail listing per directory, markers (``.*``, ``_*``) skipped."""
+    from ..config.errors import ErrorCode, ShifuError
+    fs, paths = _fsspec_paths(data_path)
+    proto = fs.protocol if isinstance(fs.protocol, str) else fs.protocol[0]
+
+    def url(p: str) -> str:
+        if "://" in p:
+            return p
+        if proto == "memory":                  # ls yields "/bucket/file"
+            return f"memory://{p.lstrip('/')}"
+        return f"{proto}://{p}"                # s3/gs ls yields bucket/key
+
+    out: List[str] = []
+    for p in paths:
+        if fs.isdir(p):
+            entries = fs.ls(p, detail=True)
+            out.extend(
+                url(e["name"]) for e in sorted(entries,
+                                               key=lambda e: e["name"])
+                if e.get("type") == "file"
+                and not os.path.basename(e["name"]).startswith((".", "_")))
+        elif fs.isfile(p):
+            out.append(url(p))
+    if not out:
+        raise ShifuError(ErrorCode.ERROR_INPUT_NOT_FOUND, data_path)
+    return out
+
+
 def resolve_data_files(data_path: str) -> List[str]:
     """Expand a file / directory / glob into an ordered list of data
     files, skipping hidden files and markers (``.pig_header``,
-    ``_SUCCESS``).  Remote schemes and parquet files raise
-    ``NotImplementedError``."""
+    ``_SUCCESS``).  Remote fsspec schemes (``gs://``, ``s3://``,
+    ``memory://``, ...) resolve through :func:`_resolve_remote`; Hadoop
+    filesystems are a coded error."""
     from ..config.errors import ErrorCode, ShifuError
+    if _is_remote(data_path):
+        return _resolve_remote(data_path)
     data_path = _local(data_path)
     if os.path.isdir(data_path):
         files = [f for f in sorted(
@@ -373,26 +445,102 @@ def resolve_data_files(data_path: str) -> List[str]:
             raise ShifuError(ErrorCode.ERROR_INPUT_NOT_FOUND,
                              f"{data_path} holds no data files (markers "
                              "like _SUCCESS are skipped)")
-    elif os.path.isfile(data_path):
-        files = [data_path]
-    else:
-        files = sorted(glob.glob(data_path))
-        if not files:
-            raise ShifuError(ErrorCode.ERROR_INPUT_NOT_FOUND, data_path)
-    if any(_is_parquet(f) for f in files):
-        raise _not_ported("parquet input")
+        return files
+    if os.path.isfile(data_path):
+        return [data_path]
+    files = sorted(glob.glob(data_path))
+    if not files:
+        raise ShifuError(ErrorCode.ERROR_INPUT_NOT_FOUND, data_path)
     return files
 
 
-def _open_text(path: str, errors: str = "replace", newline=None):
-    """A text stream over a local plain or ``.gz`` file."""
+def _path_exists(path: str) -> bool:
+    if _is_remote(path):
+        fs, paths = _fsspec_paths(path)
+        return bool(paths) and fs.exists(paths[0])
+    return os.path.isfile(_local(path))
+
+
+def _open_text(path: str):
+    """A text stream over a header or first data line, as the reference
+    opens it: a remote URL through fsspec with inferred compression, a
+    local ``.gz`` through gzip, any other local file as plain text."""
+    if _is_remote(path):
+        import fsspec
+        _fsspec_paths(path)            # gate + coded errors first
+        return fsspec.open(path, "rt", compression="infer",
+                           encoding="utf-8", errors="replace").open()
     path = _local(path)
     if path.endswith(".gz"):
         return io.TextIOWrapper(gzip.open(path, "rb"), encoding="utf-8",
-                                errors=errors, newline=newline)
-    if path.endswith((".bz2", ".zip", ".xz", ".zst", ".tar")):
-        raise _not_ported(f"compressed input {os.path.basename(path)!r}")
-    return open(path, encoding="utf-8", errors=errors, newline=newline)
+                                errors="replace")
+    return open(path, encoding="utf-8", errors="replace")
+
+
+def _compression(path: str) -> Optional[str]:
+    p = path.split("::")[0].lower()
+    for ext, method in _COMPRESSIONS:
+        if p.endswith(ext):
+            return method
+    return None
+
+
+def _open_data(path: str):
+    """A strict UTF-8 text stream (``newline=""``) over one data file,
+    decompressed as ``pd.read_csv(compression="infer")`` does, and failing
+    where and as it fails: a stream that is not of its suffix's format
+    raises at open (its first block is read here), a zip or tar archive
+    must hold exactly one file, and ``.zst`` needs the ``zstandard``
+    package, which the port does not use."""
+    method = _compression(path)
+    if method == "zstd":
+        raise ImportError("`Import zstandard` failed.  Use pip or conda to "
+                          "install the zstandard package.")
+    if _is_remote(path):
+        import fsspec
+        _fsspec_paths(path)
+        raw = fsspec.open(path, "rb").open()
+    else:
+        raw = open(_local(path), "rb")
+    try:
+        if method == "gzip":
+            f = gzip.GzipFile(fileobj=raw, mode="rb")
+            f.peek(1)
+        elif method == "bz2":
+            import bz2
+            f = bz2.BZ2File(raw, "rb")
+            f.peek(1)
+        elif method == "xz":
+            import lzma
+            f = lzma.LZMAFile(raw, "rb")
+            f.peek(1)
+        elif method == "zip":
+            import zipfile
+            zf = zipfile.ZipFile(raw)
+            names = zf.namelist()
+            if not names:
+                raise ValueError(f"Zero files found in ZIP file {path}")
+            if len(names) > 1:
+                raise ValueError("Multiple files found in ZIP file. Only "
+                                 f"one file per ZIP: {names}")
+            f = zf.open(names[0])
+        elif method == "tar":
+            import tarfile
+            tf = tarfile.open(fileobj=raw, mode="r")
+            names = tf.getnames()
+            if not names:
+                raise ValueError(f"Zero files found in TAR archive {path}")
+            if len(names) > 1:
+                raise ValueError("Multiple files found in TAR archive. "
+                                 f"Only one file per TAR archive: {names}")
+            f = tf.extractfile(names[0])
+        else:
+            f = raw
+    except BaseException:
+        raw.close()
+        raise
+    return io.TextIOWrapper(f, encoding="utf-8", errors="strict",
+                            newline="")
 
 
 def read_header(header_path: Optional[str], header_delimiter: str,
@@ -400,7 +548,7 @@ def read_header(header_path: Optional[str], header_delimiter: str,
                 data_delimiter: str = "|") -> List[str]:
     """Column names from a header file, or from the first data line (named,
     or ``column_<i>`` when any field parses as a number)."""
-    if header_path and os.path.isfile(_local(header_path)):
+    if header_path and _path_exists(header_path):
         with _open_text(header_path) as f:
             line = f.readline().rstrip("\r\n")
         return [c.strip() for c in line.split(header_delimiter)]
@@ -422,6 +570,19 @@ def read_header(header_path: Optional[str], header_delimiter: str,
     return [c.strip() for c in fields]
 
 
+_WHITESPACE = r"\s+"
+_WHITESPACE_RUN = re.compile(r"[ \t]+")
+
+
+def check_delimiter(delimiter: str) -> None:
+    """Refuse a delimiter that ``read_csv(engine="c")`` refuses: longer
+    than one character and not ``\\s+``, with its ``ValueError``."""
+    if len(delimiter) > 1 and delimiter != _WHITESPACE:
+        raise ValueError("the 'c' engine does not support regex separators "
+                         "(separators > 1 char and different from '\\s+' "
+                         "are interpreted as regex)")
+
+
 def _file_batches(f, delimiter: str, n_names: int,
                   chunk_rows: int) -> Iterator[List[List[str]]]:
     """The rows of one open file (``newline=""``) in batches of ``chunk_rows``, as pandas' C
@@ -437,16 +598,25 @@ def _file_batches(f, delimiter: str, n_names: int,
     - the first line of each batch is taken whatever its length (cut to
       W); any other line with more than W fields is skipped and does not
       count toward the batch;
-    - a short line is padded with empty fields.
+    - a short line is padded with empty fields;
+    - the delimiter ``\\s+`` splits at runs of spaces and tabs and ignores
+      them at both ends of a line.
 
     Outside this contract: NUL bytes, and a line that starts with a space
     or tab after a bare ``\r`` line end — pandas' tokenizer then re-reads
     every line since the last ``\n`` of its read buffer (a duplicate-row
     quirk the port does not reproduce).
     """
-    if len(delimiter) != 1:
-        raise _not_ported(f"the multi-character delimiter {delimiter!r}")
-    blank = " \t".replace(delimiter, "")
+    if delimiter == _WHITESPACE:
+        blank = " \t"
+
+        def split(line: str) -> List[str]:
+            return _WHITESPACE_RUN.split(line.strip(blank))
+    else:
+        blank = " \t".replace(delimiter, "")
+
+        def split(line: str) -> List[str]:
+            return line.split(delimiter)
     width = lead = None
     batch: List[List[str]] = []
     for i, line in enumerate(f):
@@ -455,7 +625,7 @@ def _file_batches(f, delimiter: str, n_names: int,
         line = line.rstrip("\r\n")
         if not line.strip(blank):
             continue
-        fields = line.split(delimiter)
+        fields = split(line)
         if width is None:
             width = max(len(fields), n_names)
             lead = width - n_names
@@ -511,28 +681,100 @@ class DataSource:
                  header_delimiter: str = "|"):
         self.files = resolve_data_files(data_path)
         self.delimiter = data_delimiter or "|"
+        self.parquet = all(_is_parquet(f) for f in self.files) \
+            and bool(self.files)
         if header is None:
-            header = read_header(header_path,
-                                 header_delimiter or self.delimiter,
-                                 self.files, self.delimiter)
+            if self.parquet:
+                header = _parquet_schema_names(self.files[0])
+            else:
+                header = read_header(header_path,
+                                     header_delimiter or self.delimiter,
+                                     self.files, self.delimiter)
         self.header = header
 
     def iter_chunks(self, chunk_rows: int = 262144) -> Iterator[RawChunk]:
         """Yield RawChunks of up to ``chunk_rows`` rows, file by file (a
         file's last chunk may be short).  A first row equal to the header
-        is dropped from each file.  Bad-input quarantine
-        (``shifu.data.badThreshold`` > 0) is not ported yet and raises."""
+        is dropped from each file.
+
+        Transient ``OSError``s on a file's open ride the bounded-retry
+        ladder (``ioutil.io_retry``).  With ``shifu.data.badThreshold`` >
+        0, bad input — an unreadable file, a read that dies mid-stream —
+        is quarantined (counted, logged with provenance, dropped) instead
+        of ending the run; the run still fails with the coded
+        ``ERROR_BAD_DATA_THRESHOLD`` when the quarantined share of rows or
+        files passes the threshold.  Any other exception (a
+        ``UnicodeDecodeError``, a corrupt zip) is let through."""
+        from .. import faults, obs
         from ..config import environment
+        from ..config.errors import ErrorCode, ShifuError
         from ..ioutil import io_retry
-        if environment.get_float("shifu.data.badThreshold", 0.0) > 0:
-            raise _not_ported("bad-input quarantine "
-                              "(shifu.data.badThreshold > 0)")
+        # each call is one full raw-plane traversal (cache-served passes
+        # never get here)
+        obs.counter("ingest.disk_passes").inc()
+        if self.parquet:
+            yield from self._iter_parquet(chunk_rows)
+            return
+        bytes_c = obs.counter("ingest.bytes_read")
+        bad_threshold = environment.get_float("shifu.data.badThreshold", 0.0)
+        q_rows = obs.counter("data.quarantined_rows")
+        q_shards = obs.counter("data.quarantined_shards")
+        quarantined_rows = yielded_rows = quarantined_files = 0
+        provenance: List[str] = []
+
+        def quarantine(what: str, rows: int = 0, files: int = 0) -> None:
+            nonlocal quarantined_rows, quarantined_files
+            quarantined_rows += rows
+            quarantined_files += files
+            q_rows.inc(rows)
+            q_shards.inc(files)
+            provenance.append(what)
+            log.warning("bad input quarantined: %s (%d rows, %d files "
+                        "quarantined so far)", what,
+                        quarantined_rows, quarantined_files)
+
         header = list(self.header)
-        for path in self.files:
-            f = io_retry(lambda path=path: _open_text(
-                path, errors="strict", newline=""), "shard open", path)
+        for fi, path in enumerate(self.files):
+            if not _is_remote(path):
+                try:
+                    bytes_c.inc(os.path.getsize(_local(path)))
+                except OSError:
+                    pass
+
+            def _open(path=path, fi=fi):
+                faults.fire("reader", "file", fi, path=path)
+                check_delimiter(self.delimiter)
+                return _open_data(path)
+            try:
+                f = io_retry(_open, "shard open", path)
+            except OSError as e:
+                if bad_threshold > 0:
+                    quarantine(f"{path}: unreadable ({e})", files=1)
+                    continue
+                raise
             with f:
-                yield from self._file_chunks(path, f, header, chunk_rows)
+                try:
+                    for chunk in self._file_chunks(path, f, header,
+                                                   chunk_rows):
+                        yielded_rows += len(chunk)
+                        yield chunk
+                except OSError as e:
+                    if bad_threshold <= 0:
+                        raise
+                    quarantine(f"{path}: read died mid-stream ({e})",
+                               files=1)
+
+        if quarantined_rows or quarantined_files:
+            frac_rows = quarantined_rows / max(
+                yielded_rows + quarantined_rows, 1)
+            frac_files = quarantined_files / max(len(self.files), 1)
+            if max(frac_rows, frac_files) > bad_threshold:
+                raise ShifuError(
+                    ErrorCode.ERROR_BAD_DATA_THRESHOLD,
+                    f"quarantined {quarantined_rows} row(s) / "
+                    f"{quarantined_files} file(s) exceeds "
+                    f"shifu.data.badThreshold={bad_threshold}; first "
+                    f"offender: {provenance[0]}")
 
     def _file_chunks(self, path: str, f, header: List[str],
                      chunk_rows: int) -> Iterator[RawChunk]:
@@ -549,3 +791,38 @@ class DataSource:
                     if not rows:
                         continue
             yield RawChunk(header, _columns(header, rows))
+
+    def _iter_parquet(self, chunk_rows: int) -> Iterator[RawChunk]:
+        """Columnar parquet ingest: record batches of ``chunk_rows`` rows,
+        every column cast to strings in Arrow (an int64 column renders
+        ``'1'`` whatever the nulls of its batch), nulls as ``""`` (the
+        missing marker).  ``pyarrow`` is imported here, only when a
+        parquet source is read."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        for path in self.files:
+            pf = _open_parquet(path)
+            for batch in pf.iter_batches(batch_size=chunk_rows,
+                                         columns=list(self.header)):
+                cols = {}
+                for name, col in zip(batch.schema.names, batch.columns):
+                    sc = pc.fill_null(pc.cast(col, pa.string()), "")
+                    a = np.empty(len(sc), dtype=object)
+                    a[:] = sc.to_pylist()
+                    cols[name] = a
+                yield RawChunk(list(self.header),
+                               {c: cols[c] for c in self.header})
+
+
+def _open_parquet(path: str):
+    """A ``pyarrow.parquet.ParquetFile`` over local or fsspec storage."""
+    import pyarrow.parquet as pq
+    if _is_remote(path):
+        import fsspec
+        _fsspec_paths(path)            # gate + coded errors first
+        return pq.ParquetFile(fsspec.open(path, "rb").open())
+    return pq.ParquetFile(_local(path))
+
+
+def _parquet_schema_names(path: str) -> List[str]:
+    return list(_open_parquet(path).schema_arrow.names)

@@ -11,6 +11,7 @@ straight out of the page cache with no host-side widen or copy.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import zipfile
 from dataclasses import dataclass, field
@@ -19,6 +20,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from ..ioutil import io_retry
+
+log = logging.getLogger(__name__)
 
 ROWS_SIDECAR = ".shard_rows.json"
 
@@ -113,10 +116,17 @@ class Shards:
             self._wire_rd = rd
         return self._wire_rd
 
-    def iter_shards(self, start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def iter_shards(self, start: int = 0, strict: bool = False
+                    ) -> Iterator[Dict[str, np.ndarray]]:
         """Shards in order, as dicts of arrays (memmap slices for a wire
-        plane).  Undecodable shards raise (the reference's bad-shard
-        quarantine is not ported)."""
+        plane).  Opens ride the transient-IO retry ladder; with
+        ``shifu.data.badThreshold`` > 0 an undecodable shard is
+        quarantined (skipped, counted in ``data.quarantined_shards``,
+        logged) while the quarantined share stays under the threshold.
+        ``strict`` turns quarantine off: the streaming window planes index
+        rows by shard position and cannot lose a shard silently."""
+        from .. import faults, obs
+        from ..config import environment
         if self.is_wire:
             rd = self.wire_reader()
             keys = list(self.schema.get("wireKeys") or [])
@@ -124,8 +134,28 @@ class Shards:
                 s, e = int(rd.cum[i]), int(rd.cum[i + 1])
                 yield {k: rd.memmap(k)[s:e] for k in keys}
             return
-        for f in self.files[start:]:
-            yield io_retry(lambda f=f: dict(np.load(f)), "shard decode", f)
+        bad_threshold = 0.0 if strict else \
+            environment.get_float("shifu.data.badThreshold", 0.0)
+        quarantined = 0
+        for i, f in enumerate(self.files[start:], start=start):
+            def _load(f=f, i=i):
+                faults.fire("shards", "shard", i, path=f)
+                return dict(np.load(f))
+            try:
+                yield io_retry(_load, "shard decode", f)
+            except (OSError, ValueError, zipfile.BadZipFile) as e:
+                if bad_threshold <= 0:
+                    raise
+                quarantined += 1
+                obs.counter("data.quarantined_shards").inc()
+                log.warning("quarantined undecodable shard %s: %s", f, e)
+                if quarantined / max(len(self.files), 1) > bad_threshold:
+                    from ..config.errors import ErrorCode, ShifuError
+                    raise ShifuError(
+                        ErrorCode.ERROR_BAD_DATA_THRESHOLD,
+                        f"{quarantined}/{len(self.files)} shards "
+                        f"quarantined exceeds shifu.data.badThreshold="
+                        f"{bad_threshold}; last: {f} ({e})") from e
 
     def load_all(self) -> Dict[str, np.ndarray]:
         """Every row of every key: the whole-plane memmaps for a wire plane

@@ -16,8 +16,9 @@ Sampling masks cannot be materialised ``[bags, n_rows]`` for an unbounded
 plane, so :func:`window_member_masks` derives every row's bag and
 validation assignment from (seed, member, global row index) through a
 splitmix64 hash: any window masks on its own, the same way every sweep.
-The reference's telemetry counters are not ported (ROADMAP item 13);
-``bytes_read``, ``disk_passes`` and ``tail_sweeps`` are plain integers.
+``bytes_read``, ``disk_passes`` and ``tail_sweeps`` are plain integers,
+and with telemetry on the same traversals count in the reference's
+``ingest.*`` and ``train.tail_sweeps`` counters.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .. import obs
 
 from .shards import Shards
 
@@ -266,7 +269,7 @@ class ShardStream:
         here, off the consumer's path."""
         try:
             for si, part in enumerate(
-                    self.shards.iter_shards(start_shard)):
+                    self.shards.iter_shards(start_shard, strict=True)):
                 item = {k: part[k] for k in self.keys}
                 if writer is not None and not writer.append(item):
                     writer = None             # abandoned; keep streaming
@@ -296,9 +299,18 @@ class ShardStream:
         if rd is not None:
             g0 = rd.global_of(start_shard, shard_offset)
             if g0 is not None:
+                obs.counter("ingest.spill_hits").inc()
                 yield from self._windows_mmap(rd, g0, start_row)
                 return
+        obs.counter("ingest.spill_misses").inc()
         yield from self._windows_npz(start_shard, shard_offset, start_row)
+
+    def _count(self, arrays: Dict[str, np.ndarray], n_valid: int) -> None:
+        nbytes = sum(a.nbytes for a in arrays.values())
+        self.bytes_read += nbytes
+        obs.counter("ingest.bytes_read").inc(nbytes)
+        obs.counter("ingest.windows_emitted").inc()
+        obs.counter("ingest.rows_emitted").inc(n_valid)
 
     def _tail_rows(self, buffered: int) -> int:
         """Padded row count of the final partial window: the smallest
@@ -329,7 +341,8 @@ class ShardStream:
             if nv < W:
                 rows = self._tail_rows(nv)
                 arrays = {k: _pad_rows(a, rows) for k, a in arrays.items()}
-            self.bytes_read += sum(a.nbytes for a in arrays.values())
+                obs.counter("ingest.rows_padded").inc(rows - nv)
+            self._count(arrays, nv)
             yield Window(start=start, n_valid=nv, arrays=arrays,
                          src=rd.src_of(g))
             start += W
@@ -383,7 +396,7 @@ class ShardStream:
                 buffered += n
                 while buffered >= W:
                     arrays, buf, buffered = _take(buf, W, self.keys)
-                    self.bytes_read += sum(a.nbytes for a in arrays.values())
+                    self._count(arrays, W)
                     yield Window(start=start, n_valid=W, arrays=arrays,
                                  src=consume(W))
                     start += W
@@ -391,7 +404,8 @@ class ShardStream:
                 arrays, buf, _ = _take(buf, buffered, self.keys)
                 rows = self._tail_rows(buffered)
                 arrays = {k: _pad_rows(a, rows) for k, a in arrays.items()}
-                self.bytes_read += sum(a.nbytes for a in arrays.values())
+                obs.counter("ingest.rows_padded").inc(rows - buffered)
+                self._count(arrays, buffered)
                 yield Window(start=start, n_valid=buffered,
                              arrays=arrays, src=consume(buffered))
         finally:
@@ -535,6 +549,7 @@ class ResidentCache:
             used = 0
             caching = True
             self.disk_passes += 1
+            obs.counter("ingest.disk_passes").inc()
             for item in self._prepared():
                 if caching and used + item.nbytes <= self.budget:
                     item.resident = True
@@ -561,6 +576,8 @@ class ResidentCache:
             return
         self.disk_passes += 1
         self.tail_sweeps += 1
+        obs.counter("ingest.disk_passes").inc()
+        obs.counter("train.tail_sweeps").inc()
         sh, off, row = self.tail
         yield from self._prepared(start_shard=sh, shard_offset=off,
                                   start_row=row)

@@ -14,9 +14,10 @@ Spec grammar (env ``SHIFU_TPU_FAULTS`` or property ``-Dshifu.faults``)::
 The spec grammar, the actions and the declared sites are the
 reference's, so one spec drives either package.  The port wires the
 serve and obs sites (``serve:admit``, ``serve:request``, ``serve:swap``,
-``obs:scorelog``, ``obs:heartbeat``); the train, stats, ingest and spill
-sites are declared for parity and wired with those planes (ROADMAP Queue
-1 item 13), ``serve:replica`` with the fleet router.  The reference's
+``obs:scorelog``, ``obs:heartbeat``), ``stats:chunk``, ``serve:replica``
+with the fleet router, and ``reader:file``, ``shards:shard`` and
+``step:phase``; the train, ingest and spill sites are declared for parity
+and wired with those planes (ROADMAP Queue 1 item 13).  The reference's
 sites:
 
     norm:shard=<k>      before shard k's commit record lands

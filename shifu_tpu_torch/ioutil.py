@@ -37,6 +37,8 @@ def io_retry(fn: Callable[[], T], what: str, path: str = "") -> T:
             if attempt + 1 >= attempts:
                 raise OSError(f"{what} failed after {attempts} attempt(s)"
                               f"{where}: {e}") from e
+            from . import obs
+            obs.counter("ingest.retries").inc()
             delay = base * (2 ** attempt) * (1.0 + random.random())
             log.warning("transient IO error in %s%s (attempt %d/%d, "
                         "retrying in %.0f ms): %s", what, where,

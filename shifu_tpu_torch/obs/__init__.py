@@ -1,5 +1,6 @@
-"""Serving-plane observability — the port of ``shifu_tpu.obs``' facade,
-with the reference's names for every module it ports.
+"""Observability — the port of ``shifu_tpu.obs``' facade, with the
+reference's names for every module it ports: the offline steps' spans,
+counters, drift and kernel costs, and the serving plane's.
 
 Modules:
 
@@ -18,12 +19,17 @@ Modules:
   ``<modelset>/telemetry/scorelog/``;
 - :mod:`outcomes` — the delayed-label join;
 - :mod:`quality` — per-generation live AUC / calibration / score-PSI
-  against eval's ``telemetry/posttrain.json``.
-
-The reference's ``costs`` (``costed_jit``, ``record_executable``),
-``drift``'s monitor, ``monitor``, ``report``, ``timeline``,
-``utilization`` and ``profiler`` are not here: they are ROADMAP Queue 1
-item 13.
+  against eval's ``telemetry/posttrain.json``;
+- :mod:`drift` — streaming per-column PSI of binned windows against the
+  training snapshot (``drift.json``, written by norm and eval);
+- :mod:`costs` — analytic bytes/operations models of the four hand
+  kernels, one record a launch, and the card's peak table;
+- :mod:`report`, :mod:`timeline`, :mod:`utilization` — ``analysis
+  --telemetry`` / ``--timeline`` / ``--utilization`` renders of the
+  trace files, pure functions of them;
+- :mod:`monitor` — the ``monitor`` CLI over the heartbeats;
+- :mod:`profiler` — ``--profile [DIR]``: a ``torch.profiler`` Chrome
+  trace a step.
 
 Everything is zero-cost when disabled (the default): ``span()`` returns
 a shared no-op singleton, instruments are no-op singletons, heartbeat
@@ -55,8 +61,12 @@ from .outcomes import (OutcomeJoiner, outcomes_drop_dir,      # noqa: F401
                        outcome_watermark_s)
 from .quality import (QualityMonitor, start_quality_monitor,  # noqa: F401
                       write_posttrain_snapshot,
-                      load_posttrain_snapshot, psi_threshold,
+                      load_posttrain_snapshot,
                       posttrain_snapshot_path, quality_artifact_path)
+from .drift import (DriftMonitor, start_drift_monitor,        # noqa: F401
+                    psi_threshold)
+from .costs import (register_cost_model, record_model_launch,  # noqa: F401
+                    cost_snapshot, resolve_peaks, backend_info)
 
 __all__ = [
     # tracer
@@ -83,5 +93,10 @@ __all__ = [
     "scorelog_sample_rate", "OutcomeJoiner", "outcomes_drop_dir",
     "outcome_watermark_s", "QualityMonitor", "start_quality_monitor",
     "write_posttrain_snapshot", "load_posttrain_snapshot",
-    "psi_threshold", "posttrain_snapshot_path", "quality_artifact_path",
+    "posttrain_snapshot_path", "quality_artifact_path",
+    # drift
+    "DriftMonitor", "start_drift_monitor", "psi_threshold",
+    # cost-attribution plane
+    "register_cost_model", "record_model_launch", "cost_snapshot",
+    "resolve_peaks", "backend_info",
 ]

@@ -15,8 +15,8 @@ reader, or a crash, never observes a torn health file).
 
 This is the per-worker progress surface the reference's Guagua master
 aggregated from worker RPC (``GuaguaConstants`` progress reporting): the
-reference's ``monitor`` CLI tails the directory and flags stale/stalled
-processes (the port's own ``monitor`` is ROADMAP Queue 1 item 13).
+``monitor`` CLI (``obs/monitor.py``) tails the directory and flags
+stale/stalled processes.
 
 Staleness model (shared with the monitor via :func:`classify`):
 

@@ -88,28 +88,8 @@ def quality_psi_threshold(override: Optional[float] = None) -> float:
             return float(p)
         except (TypeError, ValueError):
             pass
+    from .drift import psi_threshold
     return psi_threshold()
-
-
-# the drift plane's PSI threshold (the reference's ``obs.drift``; the
-# port's drift monitor is ROADMAP Queue 1 item 13) — the quality plane's
-# default score-PSI threshold
-DEFAULT_PSI_THRESHOLD = 0.25
-
-
-def psi_threshold(override: Optional[float] = None) -> float:
-    """``-Dshifu.drift.psiThreshold`` (default 0.25) — a copy of the
-    reference's ``obs.drift.psi_threshold``."""
-    if override is not None:
-        return float(override)
-    from ..config import environment
-    p = environment.get_property("shifu.drift.psiThreshold")
-    if p is not None:
-        try:
-            return float(p)
-        except (TypeError, ValueError):
-            pass
-    return DEFAULT_PSI_THRESHOLD
 
 
 def quality_min_joined(override: Optional[int] = None) -> int:

@@ -12,10 +12,9 @@ object per line, keyed by ``kind``:
   is epoch seconds at entry; durations come from ``time.perf_counter``;
 - ``event``:  ``{kind, name, ts, parent, tid, attrs}`` — a point-in-time
   record;
-- ``metric``: one registry instrument snapshot (see :mod:`.registry`).
-
-The port has no executable-cost plane (the reference's ``obs.costs`` is
-ROADMAP Queue 1 item 13), so a block carries no ``cost`` records.
+- ``metric``: one registry instrument snapshot (see :mod:`.registry`);
+- ``cost``:   one hand kernel's analytic cost and launches (see
+  :mod:`.costs`).
 
 Zero-cost when disabled: :func:`span` returns a shared no-op singleton
 (one function call + one branch per call site), :func:`event` returns
@@ -317,39 +316,29 @@ def flush(path: str, step: Optional[str] = None,
     both.  Returns False (and writes nothing) when telemetry is off."""
     if not enabled():
         return False
-    from . import registry
+    from . import costs, registry
     records = _collector.drain()
     metrics = registry.snapshot(reset=True)
+    cost_recs = costs.cost_snapshot(reset=True)
     meta: Dict[str, Any] = {"kind": "meta", "schema_version": SCHEMA_VERSION,
                             "step": step, "ts": round(time.time(), 3),
                             "pid": os.getpid(),
-                            "backend": backend_info()}
+                            "backend": costs.backend_info()}
     if extra_meta:
         meta.update(extra_meta)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     # append-only trace sink by design: each flush appends a block;
     # every reader skips a torn final line
     with open(path, "a") as f:
-        for rec in [meta] + records + metrics:
+        for rec in [meta] + records + metrics + cost_recs:
             f.write(json.dumps(rec) + "\n")
     return True
 
 
-def backend_info() -> Dict[str, str]:
-    """(platform, device_kind) stamped into the flush meta: ``gpu`` and
-    the card's name when CUDA is up, else ``cpu``."""
-    try:
-        import torch
-        if torch.cuda.is_available():
-            return {"platform": "gpu",
-                    "device_kind": torch.cuda.get_device_name(0)}
-    except Exception:                      # noqa: BLE001 — best effort
-        pass
-    return {"platform": "cpu", "device_kind": "cpu"}
-
-
 def reset_for_tests() -> None:
+    from . import costs
     from .registry import get_registry
+    costs.reset_for_tests()
     set_enabled(None)
     _collector.clear()
     get_registry().reset()

@@ -281,15 +281,51 @@ def build_histograms_cuda(bins, node_idx, stats, n_nodes: int,
                    n_nodes, n_bins)[0]
 
 
+def hist_kernel_cost(rows: int, n_feat: int, n_bins: int, n_nodes: int,
+                     n_stats: int = 2, n_trees: int = 1,
+                     bin_bytes: int = 1) -> dict:
+    """Bytes and operations of one ``csrc/hist.cu`` launch (B1, or B2 at
+    ``n_trees`` > 1) from its shape alone, every row active — the CUDA
+    kernel's counts, not the TPU kernel's one-hot products: the bins read
+    once, each tree's node ids and stats once, the [TB, K, C, B, S] f32
+    output written once, and one fixed-point add per (tree, row, column,
+    channel).  :func:`hist_bytes` / :func:`hist_batch_bytes` take off what
+    a given launch's inactive rows do not move, so this is their count
+    with every row active and an upper bound otherwise."""
+    read = float(rows) * n_feat * bin_bytes \
+        + n_trees * rows * (4.0 + 4.0 * n_stats)
+    write = 4.0 * n_trees * n_nodes * n_feat * n_bins * n_stats
+    return {"flops": float(n_trees) * rows * n_feat * n_stats,
+            "bytes_accessed": read + write}
+
+
 def hist_bytes(bins, node_idx, stats, n_nodes: int, n_bins: int) -> int:
     """What one launch must move for THIS data, each element once: every
     node id, the bins and stats of the rows whose node is in [0, K), and
-    the [K, C, B, S] f32 output."""
-    n, c = bins.shape
-    s = stats.shape[1]
-    active = int(((node_idx >= 0) & (node_idx < n_nodes)).sum())
-    return 4 * n + active * (c * bins.element_size() + 4 * s) \
-        + 4 * n_nodes * c * n_bins * s
+    the [K, C, B, S] f32 output — :func:`hist_kernel_cost` less the bins
+    and stats of the inactive rows."""
+    return hist_batch_bytes(bins, node_idx[None], stats[None], n_nodes,
+                            n_bins)
+
+
+def record_hist_cost(bins, stats, n_nodes: int, n_bins: int,
+                     n_trees: int = 1) -> None:
+    """One ``pallas.hist`` cost record (the reference's name) for a
+    launch of B1/B2 — or, on the CPU, of its plain version."""
+    from ..obs import costs
+    costs.record_model_launch(
+        "pallas.hist", rows=int(bins.shape[0]), n_feat=int(bins.shape[1]),
+        n_bins=int(n_bins), n_nodes=int(n_nodes),
+        n_stats=int(stats.shape[-1]), n_trees=int(n_trees),
+        bin_bytes=int(bins.element_size()))
+
+
+def _register_cost_model() -> None:
+    from ..obs import costs
+    costs.register_cost_model("pallas.hist", hist_kernel_cost)
+
+
+_register_cost_model()
 
 
 def build_histograms_batch_ref(bins, node_idx_b, stats_b, n_nodes: int,
@@ -331,10 +367,15 @@ def hist_batch_bytes(bins, node_idx_b, stats_b, n_nodes: int,
                      n_bins: int) -> int:
     """What one batched launch must move for THIS data, each element once:
     the bins of the rows active in any tree, every tree's node ids and the
-    stats of its active rows, and the [TB, K, C, B, S] f32 output."""
+    stats of its active rows, and the [TB, K, C, B, S] f32 output —
+    :func:`hist_kernel_cost` less the bins no tree reads and the stats of
+    each tree's inactive rows."""
     n, c = bins.shape
     tb, s = stats_b.shape[0], stats_b.shape[2]
     live = (node_idx_b >= 0) & (node_idx_b < n_nodes)
-    return int(live.any(dim=0).sum()) * c * bins.element_size() \
-        + 4 * tb * n + int(live.sum()) * 4 * s \
-        + 4 * tb * n_nodes * c * n_bins * s
+    whole = hist_kernel_cost(n, c, n_bins, n_nodes, s, tb,
+                             bins.element_size())["bytes_accessed"]
+    idle_rows = n - int(live.any(dim=0).sum())
+    idle_pairs = tb * n - int(live.sum())
+    return int(whole) - idle_rows * c * bins.element_size() \
+        - idle_pairs * 4 * s

@@ -162,6 +162,7 @@ def stats_histograms_cuda(idx, stats, num_buckets: int,
     launches."""
     out = _launch(idx, stats, num_buckets, exact)
     stats_histograms_cuda.launches += 1
+    _record_cost(idx, stats, num_buckets)
     return out
 
 
@@ -173,8 +174,37 @@ def stats_histograms(idx, stats, num_buckets: int,
     """B3 on ``idx``'s device: the kernel for CUDA tensors, the plain
     version for CPU tensors (and only for them)."""
     if idx.device.type == "cpu":
-        return stats_histograms_ref(idx, stats, num_buckets)
+        out = stats_histograms_ref(idx, stats, num_buckets)
+        _record_cost(idx, stats, num_buckets)
+        return out
     return stats_histograms_cuda(idx, stats, num_buckets, exact)
+
+
+def stats_hist_cost(rows: int, n_cols: int, n_buckets: int,
+                    n_stats: int) -> dict:
+    """Bytes and operations of one ``csrc/stats_hist.cu`` launch from its
+    shape: the [N, C] int32 ids, the [N, S] f32 stats and the [C, B, S]
+    f32 output once each (what :func:`stats_hist_bytes` charges a given
+    launch), and one fixed-point add per (row, column, channel) — an
+    upper bound on the adds when ids are missing."""
+    return {"flops": float(rows) * n_cols * n_stats,
+            "bytes_accessed": 4.0 * rows * n_cols + 4.0 * rows * n_stats
+            + 4.0 * n_cols * n_buckets * n_stats}
+
+
+def _record_cost(idx, stats, num_buckets: int) -> None:
+    from ..obs import costs
+    costs.record_model_launch(
+        "stats.stats_hist", rows=int(idx.shape[0]), n_cols=int(idx.shape[1]),
+        n_buckets=int(num_buckets), n_stats=int(stats.shape[1]))
+
+
+def _register_cost_model() -> None:
+    from ..obs import costs
+    costs.register_cost_model("stats.stats_hist", stats_hist_cost)
+
+
+_register_cost_model()
 
 
 #: where :func:`launch_until` stops a launch: after the wrapper's device-side
@@ -198,5 +228,5 @@ def stats_hist_bytes(idx, stats, num_buckets: int) -> int:
     """What one launch must move, each element once: the [N, C] int32 ids,
     the [N, S] f32 stats, and the [C, B, S] f32 output."""
     n, c = idx.shape
-    s = stats.shape[1]
-    return 4 * n * c + 4 * n * s + 4 * c * num_buckets * s
+    return int(stats_hist_cost(n, c, num_buckets,
+                               stats.shape[1])["bytes_accessed"])

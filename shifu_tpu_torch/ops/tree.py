@@ -70,14 +70,17 @@ def build_histograms(bins, node_idx, stats, n_nodes: int,
     launches only."""
     from . import hist
     bins = hist.widen_bins(bins)
-    if bins.device.type == "cpu":
-        return hist.build_histograms_ref(bins, node_idx, stats, n_nodes,
-                                         n_bins)
-    if bins.device.type != "cuda":
+    if bins.device.type not in ("cpu", "cuda"):
         raise ValueError(f"build_histograms: no kernel for device "
                          f"{bins.device}")
-    out = hist.build_histograms_cuda(bins, node_idx, stats, n_nodes, n_bins)
-    build_histograms.launches += 1
+    if bins.device.type == "cpu":
+        out = hist.build_histograms_ref(bins, node_idx, stats, n_nodes,
+                                        n_bins)
+    else:
+        out = hist.build_histograms_cuda(bins, node_idx, stats, n_nodes,
+                                         n_bins)
+        build_histograms.launches += 1
+    hist.record_hist_cost(bins, stats, n_nodes, n_bins)
     return out
 
 
@@ -95,15 +98,18 @@ def build_histograms_batch(bins, node_idx_b, stats_b, n_nodes: int,
     launches only."""
     from . import hist
     bins = hist.widen_bins(bins)
-    if bins.device.type == "cpu":
-        return hist.build_histograms_batch_ref(bins, node_idx_b, stats_b,
-                                               n_nodes, n_bins)
-    if bins.device.type != "cuda":
+    if bins.device.type not in ("cpu", "cuda"):
         raise ValueError(f"build_histograms_batch: no kernel for device "
                          f"{bins.device}")
-    out = hist.build_histograms_batch_cuda(bins, node_idx_b, stats_b,
-                                           n_nodes, n_bins)
-    build_histograms_batch.launches += 1
+    if bins.device.type == "cpu":
+        out = hist.build_histograms_batch_ref(bins, node_idx_b, stats_b,
+                                              n_nodes, n_bins)
+    else:
+        out = hist.build_histograms_batch_cuda(bins, node_idx_b, stats_b,
+                                               n_nodes, n_bins)
+        build_histograms_batch.launches += 1
+    hist.record_hist_cost(bins, stats_b[0], n_nodes, n_bins,
+                          n_trees=int(stats_b.shape[0]))
     return out
 
 

@@ -280,40 +280,65 @@ def _predict_quant_cuda(split_feats, left_u8s, leaf_values, bins,
     if rc != 0:
         raise RuntimeError(f"tree_traverse kernel launch failed "
                            f"(cudaError_t {rc})")
-    _count_launch()
+    _count_launch(_walk_shape(split_feats, left_u8s, bins, depth))
     return out
 
 
-# launches this thread recorded into a CUDA graph (``n``: a graph capture
-# launches nothing, the replay does and the replayer counts it) and made
+# this thread's launches: the cost-record shapes of those recorded into
+# the CUDA graph it is capturing (``shapes``: a capture launches nothing,
+# the replay does and the replayer counts it), and the count of those made
 # eagerly (``eager``)
-_captured = threading.local()
+_thread = threading.local()
 
 
-def _count_launch() -> None:
+def _walk_shape(split_feats, left_u8s, bins, depth: int) -> dict:
+    """The ``pallas.tree_traverse`` cost record's shape kwargs."""
+    return {"rows": int(bins.shape[0]), "n_feat": int(bins.shape[1]),
+            "n_bins": int(left_u8s.shape[2]),
+            "n_nodes": int(split_feats.shape[1]), "depth": int(depth),
+            "n_trees": int(split_feats.shape[0]),
+            "bin_bytes": int(bins.element_size())}
+
+
+def _count_launch(shape: dict) -> None:
     if torch.cuda.is_current_stream_capturing():
-        _captured.n = getattr(_captured, "n", 0) + 1
+        if not hasattr(_thread, "shapes"):
+            _thread.shapes = []
+        _thread.shapes.append(shape)
     else:
-        _captured.eager = getattr(_captured, "eager", 0) + 1
+        _thread.eager = getattr(_thread, "eager", 0) + 1
         predict_forest_quant.launches += 1
+        _record_walk(shape)
 
 
-def captured_launches() -> int:
-    """Kernel launches this thread has recorded into CUDA graphs so far: a
-    graph's share is the difference across its capture."""
-    return getattr(_captured, "n", 0)
+def _record_walk(shape: dict) -> None:
+    from ..obs import costs
+    costs.record_model_launch("pallas.tree_traverse", **shape)
+
+
+def take_captured() -> list:
+    """The cost-record shapes of the launches this thread has recorded
+    into CUDA graphs since the last take, in order, and forget them: a
+    capturer takes once before its capture and keeps what it takes after
+    (one shape a launch the graph replays)."""
+    shapes = getattr(_thread, "shapes", [])
+    _thread.shapes = []
+    return shapes
 
 
 def eager_launches() -> int:
     """Kernel launches this thread has made eagerly so far (each also
     counted in ``predict_forest_quant.launches``)."""
-    return getattr(_captured, "eager", 0)
+    return getattr(_thread, "eager", 0)
 
 
-def count_replays(n: int) -> None:
-    """Count ``n`` kernel launches made by replaying a captured graph (a
-    replay runs the launches its capture recorded)."""
-    predict_forest_quant.launches += n
+def count_replays(shapes) -> None:
+    """Count the kernel launches made by one replay of a captured graph
+    (a replay runs the launches its capture recorded), with one cost
+    record for each of the capture's launch ``shapes``."""
+    predict_forest_quant.launches += len(shapes)
+    for shape in shapes:
+        _record_walk(shape)
 
 
 @functools.cache
@@ -346,8 +371,10 @@ def predict_forest_quant(split_feats, left_u8s, leaf_values, bins,
     eager launch here, a launch recorded in a CUDA graph when the graph
     replays (:func:`count_replays`), never at capture."""
     if bins.device.type == "cpu":
-        return predict_forest_quant_ref(split_feats, left_u8s, leaf_values,
-                                        bins, depth)
+        out = predict_forest_quant_ref(split_feats, left_u8s, leaf_values,
+                                       bins, depth)
+        _record_walk(_walk_shape(split_feats, left_u8s, bins, depth))
+        return out
     if bins.device.type != "cuda":
         raise ValueError(f"predict_forest_quant: no kernel for device "
                          f"{bins.device}")
@@ -370,30 +397,33 @@ predict_forest_quant.launches = 0
 
 
 # -------------------------------------------------- analytic cost model
-def quant_traverse_cost(rows: int, n_feat: int, n_bins: int,
-                        n_nodes: int, depth: int,
-                        n_trees: int = 1) -> dict:
-    """FLOPs / bytes of one traversal launch — the reference's analytic
-    model, copied as is.
+def walk_cost(rows: int, n_feat: int, n_bins: int, n_nodes: int,
+              depth: int, n_trees: int = 1, bin_bytes: int = 1) -> dict:
+    """Bytes and operations of one ``csrc/tree_traverse.cu`` launch, from
+    its shape alone — the CUDA kernel's counts, not the TPU kernel's
+    one-hot products: the bins read once, every node's split feature,
+    left-mask row and leaf value once, the [T, N] f32 output written once
+    (the reference's ``quant_traverse_cost`` bytes at uint8 bins),
+    and :data:`WALK_OPS_PER_LEVEL` integer operations per (tree, row,
+    level).  An upper bound on :func:`traverse_bytes`, which charges only
+    what a given walk reaches: a row reads one left-mask entry a level,
+    not its node's whole row."""
+    read = float(rows) * n_feat * bin_bytes \
+        + float(n_trees) * n_nodes * (4.0 + n_bins + 4.0)
+    return {"flops": float(WALK_OPS_PER_LEVEL) * n_trees * rows * depth,
+            "bytes_accessed": read + 4.0 * n_trees * rows}
 
-    Per (tree, level k-wide): the feature dot (2*k*N), the feature
-    one-hot + bin select (~3*C*N), the mask dot (2*k*B*N) and the bin
-    membership reduce (~3*B*N); plus the terminal leaf dot (2*K*N) — the
-    TPU kernel's one-hot formulation, not the CUDA kernel's gathers.
-    Bytes: the uint8 bins plane read ONCE, every node's arrays and mask
-    row once, [T, N] f32 out written once — more than a walk reads, which
-    :func:`traverse_bytes` counts for given data."""
-    lv_flops = 0.0
-    for level in range(depth):
-        k = 1 << level
-        lv_flops += 2.0 * k + 3.0 * n_feat + 2.0 * k * n_bins \
-            + 3.0 * n_bins
-    flops = float(rows) * n_trees * (lv_flops + 2.0 * n_nodes)
-    read = 1.0 * rows * n_feat \
-        + n_trees * (4.0 * n_nodes + 1.0 * n_nodes * n_bins
-                     + 4.0 * n_nodes)
-    write = 4.0 * n_trees * rows
-    return {"flops": flops, "bytes_accessed": read + write}
+
+#: loads, compares, clamps, select and multiply-add of one walk step
+WALK_OPS_PER_LEVEL = 8
+
+
+def _register_cost_model() -> None:
+    from ..obs import costs
+    costs.register_cost_model("pallas.tree_traverse", walk_cost)
+
+
+_register_cost_model()
 
 
 def traverse_bytes(split_feats, left_u8s, bins, depth: int,
@@ -404,7 +434,7 @@ def traverse_bytes(split_feats, left_u8s, bins, depth: int,
     every terminal node (``leaf_width`` f32 each: S for a class
     distribution), and the [T, N] (or [T, N, S]) f32 output; plus the
     split steps taken over all (tree, row) pairs.  Unlike
-    :func:`quant_traverse_cost` it charges nothing that no row reaches."""
+    :func:`walk_cost` it charges nothing that no row reaches."""
     t, k = split_feats.shape
     n, c = bins.shape
     b = left_u8s.shape[2]

@@ -1,9 +1,9 @@
 """`analysis -fi` — the port of ``shifu_tpu.pipeline.analysis``
 (reference ``ShifuCLI.java:658`` ``analysisModelFi``): feature importance
 from a saved GBT/RF model file, written next to it as ``<model>.fi``, on
-the host.  ``analysis --telemetry`` (with ``--timeline`` or
-``--utilization``) renders the reference's telemetry, which the port does
-not record yet: the CLI raises naming ROADMAP Queue 1 item 13.
+the host.  ``analysis --telemetry`` (with ``--timeline``,
+``--utilization`` or ``--aggregate``) renders the trace files
+(``obs/{report,timeline,utilization}.py``; the CLI dispatches them).
 
 The compact forest format serializes splits and leaves but not per-node
 gains, so the standalone FI is depth-weighted split frequency (a split at

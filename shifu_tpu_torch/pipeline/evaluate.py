@@ -20,10 +20,11 @@ per-class AUC, macro AUC and the confusion matrix
 Every scored binary run also writes the post-train quality snapshot
 ``telemetry/posttrain.json`` (the run's score distribution and AUC), the
 baseline the serving quality monitor (``obs/quality.py``) judges live
-traffic against, as the reference does.  Not ported: telemetry (the
-drift monitor, ROADMAP Queue 1 item 13) raises ``NotImplementedError``
-naming its item.  Scoring runs on one device: the reference's multi-chip
-mesh waits for item 12.
+traffic against, as the reference does.  With telemetry on, the scored
+chunks' bins feed the streaming drift monitor (``telemetry/drift.json``:
+per-column PSI of the eval set against the training snapshot), and the
+step counts ``eval.rows_scored``.  Scoring runs on one device: the
+reference's multi-chip mesh waits for item 12.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .. import ioutil
+from .. import ioutil, obs
 from ..config.model_config import EvalConfig, RawSourceData
 from ..config.validator import ModelStep
 from ..data.parsepool import iter_extracted
@@ -44,18 +45,12 @@ from ..data.reader import DataSource
 from ..eval.metrics import (evaluate_curves, evaluate_multiclass,
                             gain_chart_rows, sweep)
 from ..eval.scorer import ModelRunner, Scorer
-from .processor import BasicProcessor, telemetry_requested
+from .processor import BasicProcessor
 
 log = logging.getLogger(__name__)
 
 #: actions that never score, so they run on the host whatever ``device``
 HOST_ACTIONS = ("list", "new_eval", "delete_eval")
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to shifu_tpu_torch yet (ROADMAP Queue 1 "
-        f"item {item}) — run it with shifu_tpu")
 
 
 class EvalProcessor(BasicProcessor):
@@ -69,9 +64,6 @@ class EvalProcessor(BasicProcessor):
         super().__init__(model_set_dir, params, "cpu" if host else device)
 
     def process(self) -> int:
-        if telemetry_requested():
-            raise _not_ported("eval's telemetry (the drift monitor, item "
-                              "13)", 13)
         p = self.params
         if p.get("list"):
             for ev in self.model_config.evals:
@@ -189,8 +181,11 @@ class EvalProcessor(BasicProcessor):
         all_scores, all_targets, all_weights = [], [], []
         score_path = self.paths.eval_score_path(ev.name)
         n_models = len(scorer.models)
+        # streaming drift monitor: the eval set is the live distribution;
+        # None (no per-chunk cost) when telemetry is off
+        drift = obs.start_drift_monitor(runner.transformer.columns)
         t0 = time.perf_counter()
-        with self.phase(f"score:{ev.name}"), \
+        with self.phase(f"score:{ev.name}") as ph, \
                 ioutil.atomic_open(score_path, newline="") as sf:
             w = csv.writer(sf, delimiter="|")
             w.writerow(["tag", "weight", "mean", "max", "min", "median"]
@@ -201,6 +196,8 @@ class EvalProcessor(BasicProcessor):
                 out = runner.compute(ex)
                 if out["n"] == 0:
                     continue
+                if drift is not None:
+                    drift.update(out["bins"])
                 res = out["result"]
                 all_scores.append(res.select(sel))
                 all_targets.append(out["target"])
@@ -213,12 +210,20 @@ class EvalProcessor(BasicProcessor):
                     + [np.char.mod("%.3f", res.scores[:, m])
                        for m in range(n_models)])
                 w.writerows(block.tolist())
+            ph.set(rows=int(sum(len(s) for s in all_scores)))
         if not all_scores:
             log.error("eval %s: no records scored", ev.name)
             return 1
         scores = np.concatenate(all_scores)
         targets = np.concatenate(all_targets)
         weights = np.concatenate(all_weights)
+        obs.counter("eval.rows_scored").inc(len(scores))
+        obs.gauge("eval.rows_per_sec").set(
+            len(scores) / max(time.perf_counter() - t0, 1e-9))
+        obs.event("eval_set", eval_set=ev.name, rows=len(scores),
+                  models=n_models, action=action)
+        if drift is not None:
+            drift.emit(path=self.paths.drift_path)
         log.info("eval %s: scored %d records (%d pos / %d neg) with %d "
                  "model(s) on %s in %.3f s", ev.name, len(scores),
                  int(targets.sum()), int((1 - targets).sum()), n_models,
@@ -249,6 +254,8 @@ class EvalProcessor(BasicProcessor):
         # training-time quality baseline: score distribution + AUC the
         # serve-path quality monitor (obs/quality) judges live traffic
         # against — last eval run wins, matching the serving artifacts
+        obs.gauge(f"eval.{ev.name}.auc").set(result.areaUnderRoc)
+        obs.gauge(f"eval.{ev.name}.pr_auc").set(result.areaUnderPr)
         from ..obs.quality import write_posttrain_snapshot
         write_posttrain_snapshot(self.paths.posttrain_snapshot_path,
                                  scores, auc=result.areaUnderRoc)

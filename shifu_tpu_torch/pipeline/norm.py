@@ -28,9 +28,10 @@ under ``tmp/RawCache``: after ``stats`` wrote it, norm reads memmaps of
 the parsed columns and touches no text (``-Dshifu.ingest.rawCache=false``
 parses again, with the same arrays).
 
-Not ported: the drift monitor (ROADMAP Queue 1 item 13), which the
-reference runs only with telemetry on (the port raises then), and the
-fault-injection sites (item 13), which fire only when faults are armed.
+With telemetry on, the binned chunks feed the streaming drift monitor
+(``telemetry/drift.json``) and the step counts ``norm.rows``.  Not
+ported: the reference's fault-injection sites of this step (ROADMAP Queue
+1 item 13), which fire only when faults are armed.
 """
 
 from __future__ import annotations
@@ -40,10 +41,12 @@ import json
 import logging
 import os
 import shutil
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import obs
 from ..config import environment
 from ..config.validator import ModelStep
 from ..data.parsepool import iter_extracted
@@ -53,7 +56,7 @@ from ..data.shards import bins_wire_dtype
 from ..data.spill import WireWriter, wire_dir
 from ..data.transform import DatasetTransformer
 from ..ioutil import atomic_savez, atomic_write_json
-from .processor import BasicProcessor, telemetry_requested
+from .processor import BasicProcessor
 
 log = logging.getLogger(__name__)
 
@@ -69,10 +72,6 @@ class NormalizeProcessor(BasicProcessor):
         super().__init__(model_set_dir, params, device)
 
     def process(self) -> int:
-        if telemetry_requested():
-            raise NotImplementedError(
-                "norm's drift monitor (telemetry) is not ported to "
-                "shifu_tpu_torch yet (ROADMAP Queue 1 item 13)")
         mc = self.model_config
         transformer = DatasetTransformer(mc, self.column_configs)
         source = DataSource(self._abs(mc.dataSet.dataPath),
@@ -141,6 +140,7 @@ class NormalizeProcessor(BasicProcessor):
             wire = WireWriter(wdir, WIRE_KEYS, wire_dtypes, wire_trailing,
                               wire_sig)
         if resume_upto:
+            obs.counter("norm.resumed_shards").inc(resume_upto)
             log.info("norm: resuming — %d committed shard(s) verified, "
                      "restart at shard %d", resume_upto, resume_upto)
 
@@ -153,13 +153,20 @@ class NormalizeProcessor(BasicProcessor):
         neg_only = mc.normalize.sampleNegOnly
         shard, rows, seen, total_out = 0, 0, 0, 0
         bufx, bufb, bufy, bufw = [], [], [], []
-        with self.phase("transform"):
+        # streaming drift monitor (obs/drift): per-column PSI of this
+        # run's binned windows against the binning snapshot in
+        # ColumnConfig; None (no per-chunk cost) when telemetry is off
+        drift = obs.start_drift_monitor(transformer.columns)
+        t0 = time.perf_counter()
+        with self.phase("transform") as ph:
             for _, ex in iter_extracted(
                     source, transformer.extractor,
                     cache_root=self.paths.raw_cache_dir):
                 tc = transformer.transform_extracted(ex)
                 if tc.n == 0:
                     continue
+                if drift is not None:
+                    drift.update(tc.bins)
                 keep = sample_mask(tc.n, rate, seed=seen, neg_only=neg_only,
                                    targets=tc.target)
                 seen += tc.n
@@ -177,6 +184,7 @@ class NormalizeProcessor(BasicProcessor):
                 self._flush(norm_dir, clean_dir, shard, bufx, bufb, bufy,
                             bufw)
                 shard += 1
+            ph.set(rows=total_out)
         if wire is not None:
             wire.finish()
         if do_shuffle:
@@ -186,6 +194,12 @@ class NormalizeProcessor(BasicProcessor):
                 self._shuffle(clean_dir)
                 self._recommit_shuffled(norm_dir, clean_dir,
                                         self._shard_counts)
+        obs.counter("norm.rows").inc(total_out)
+        obs.gauge("norm.shards").set(shard)
+        obs.gauge("norm.rows_per_sec").set(
+            total_out / max(time.perf_counter() - t0, 1e-9))
+        if drift is not None:
+            drift.emit(path=self.paths.drift_path)
         schema = {
             "outputNames": transformer.output_names,
             "columnNums": [c.columnNum for c in transformer.columns],

@@ -1,11 +1,17 @@
 """Pipeline processors — the port's copy of
 ``shifu_tpu.pipeline.processor.BasicProcessor``: one processor per CLI
 step, with shared setup (config load, validation, journal), the ordered-
-pipeline preconditions, and ``tmp/profile.json`` phase timing.
+pipeline preconditions, ``tmp/profile.json`` phase timing, and the step's
+observability: the ``step`` span with its ``setup`` / ``process`` phases,
+the heartbeat and metrics exporter, the ``--profile`` capture, and the
+flush to ``<modelset>/telemetry/trace.jsonl`` with a device-memory
+sample.  Every ``phase()`` is a span under the step's root and fires the
+``step:phase`` fault site.
 
-Not ported yet (ROADMAP Queue 1 item 13): the telemetry spans,
-heartbeats, metrics exporter, device trace and fault-injection sites of
-the reference's ``run``.
+The reference's ``ensure_compile_listener`` and its ``xla.recompiles``
+sentinel count XLA compiles; eager PyTorch compiles nothing at run time
+(the hand kernels build once a process, in ``ops/cuda_lib.py``), so they
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import shutil
 import time
 from typing import List, Optional
 
-from .. import DeviceLike, ioutil, resolve_device
+from .. import DeviceLike, faults, ioutil, obs, resolve_device
 from ..config import (ColumnConfig, ModelConfig, load_column_configs,
                       save_column_configs)
 from ..config.path_finder import PathFinder
@@ -25,18 +31,6 @@ from ..config.validator import ModelStep, probe
 from .journal import StepJournal
 
 log = logging.getLogger(__name__)
-
-
-def telemetry_requested() -> bool:
-    """Whether the caller switched the reference's telemetry on (env
-    ``SHIFU_TPU_TELEMETRY`` or property ``shifu.telemetry``): the steps
-    whose telemetry-only parts are not ported raise then."""
-    from ..config import environment
-    v = os.environ.get("SHIFU_TPU_TELEMETRY")
-    if v is None:
-        v = environment.get_property("shifu.telemetry") \
-            or environment.get_property("shifu.tpu.telemetry")
-    return str(v).strip().lower() in ("1", "true", "yes", "on")
 
 
 class BasicProcessor:
@@ -147,22 +141,70 @@ class BasicProcessor:
     def run(self) -> int:
         t0 = time.time()
         log.info("step %s start on %s", self.step.name, self.device)
-        with self.phase("setup"):
-            self.setup()
-        # stays "running" until the step commits: a crash below leaves
-        # the marker the next run (and downstream preconditions) read
-        self.journal.open_run()
-        code = self.process()
-        if code == 0:
-            self.journal.complete(exit_code=0)
+        telemetry = obs.enabled()
+        heartbeat = exporter = None
+        code: Optional[int] = None
+        try:
+            with obs.span(self.profile_name, kind="step") as root:
+                with obs.span("setup", kind="phase"):
+                    ts = time.perf_counter()
+                    self.setup()
+                    self._phases["setup"] = time.perf_counter() - ts
+                # live plane: per-process heartbeats (the `monitor` CLI
+                # tails them) and periodic metrics snapshots — both return
+                # None when telemetry is off: no thread, no file
+                heartbeat = obs.start_heartbeat(self.paths.health_dir,
+                                                step=self.profile_name)
+                exporter = obs.start_exporter(self.paths.telemetry_dir,
+                                              step=self.profile_name)
+                # stays "running" until the step commits: a crash below
+                # leaves the marker the next run (and downstream
+                # preconditions) read
+                self.journal.open_run()
+                with self._device_trace(), \
+                        obs.span("process", kind="phase"):
+                    code = self.process()
+                root.set(exit_code=code)
+                if code == 0:
+                    self.journal.complete(exit_code=0)
+        finally:
+            # retire the live plane, then flush — also when the step
+            # raised: a crashed run's partial trace is the one to read
+            if heartbeat is not None:
+                heartbeat.stop(exit_code=code)
+            if exporter is not None:
+                exporter.stop()
+            if telemetry:
+                self._flush_telemetry()
         total = time.time() - t0
         log.info("step %s done in %.2fs", self.step.name, total)
         self._write_profile(total)
         return code
 
+    def _device_trace(self):
+        """``--profile [DIR]`` / ``-Dshifu.profile=<DIR>``: the step under
+        ``torch.profiler`` (``obs/profiler.py``)."""
+        from ..obs.profiler import profile_step
+        return profile_step(self.step.name.lower(), self.device)
+
+    def _flush_telemetry(self) -> None:
+        """Append this run's spans/events, metrics and kernel cost records
+        to ``<modelset>/telemetry/trace.jsonl`` (what ``analysis
+        --telemetry`` renders), with the device-memory high-water sampled
+        at the step boundary."""
+        try:
+            obs.sample_device_memory()
+            path = self.paths.telemetry_trace_path if self.paths else \
+                os.path.join(self.dir, "telemetry", "trace.jsonl")
+            obs.flush(path, step=self.profile_name)
+        except Exception:                   # telemetry must never fail a step
+            log.debug("telemetry flush failed", exc_info=True)
+
     # ------------------------------------------------------------ profiling
     def phase(self, name: str):
-        """Time a named phase; accumulates into ``tmp/profile.json``."""
+        """Time a named phase: accumulates into ``tmp/profile.json`` and
+        opens a telemetry span under the step's root (no-op when telemetry
+        is off)."""
         return _PhaseSpan(self._phases, name)
 
     def _write_profile(self, total_s: float) -> None:
@@ -192,12 +234,28 @@ class _PhaseSpan:
     def __init__(self, store: dict, name: str):
         self.store = store
         self.name = name
+        self._obs = None
+        self._pending: dict = {}
 
     def __enter__(self):
+        faults.fire("step", "phase", self.name)
+        self._obs = obs.span(self.name, kind="phase", **self._pending)
+        self._obs.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.store[self.name] = self.store.get(self.name, 0.0) \
             + (time.perf_counter() - self.t0)
+        self._obs.__exit__(*exc)
         return False
+
+    def set(self, **attrs):
+        """Attach telemetry attributes (``rows=`` for rows/sec in the
+        report); usable before or inside the ``with``; no-op when
+        telemetry is off."""
+        if self._obs is None:
+            self._pending.update(attrs)
+        else:
+            self._obs.set(**attrs)
+        return self

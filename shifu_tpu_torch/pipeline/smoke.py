@@ -2,11 +2,6 @@
 ``ShifuTestProcessor.java``): user-side smoke test that configs, filters
 and tag mapping parse cleanly on a sample of records before any device
 time is spent; host code.
-
-A source with a non-empty ``filterExpressions`` raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 1 (``data/purifier``):
-the step lets it through instead of reporting the reference's generic
-"FAILED to open".
 """
 
 from __future__ import annotations
@@ -73,8 +68,6 @@ class SmokeTestProcessor(BasicProcessor):
                                 header_delimiter=ds.headerDelimiter)
             extractor = ChunkExtractor(self.model_config, self.column_configs,
                                        for_eval_set=for_eval)
-        except NotImplementedError:
-            raise                       # an unported option, not a bad file
         except Exception as e:
             log.error("%s: FAILED to open (%s)", label, e)
             return 1
@@ -82,7 +75,7 @@ class SmokeTestProcessor(BasicProcessor):
         missing_cells = 0
         for chunk in source.iter_chunks():
             ex = extractor.extract(chunk)
-            raw_n = len(chunk.data)
+            raw_n = len(chunk)
             filtered += raw_n - ex.n
             n += ex.n
             pos += int(ex.target.sum())

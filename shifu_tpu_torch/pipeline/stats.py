@@ -14,8 +14,8 @@ GEMMs on the step's device, :mod:`shifu_tpu_torch.ops.correlation`),
 ``-Dshifu.stats.checkpointChunks=N`` checkpoints the fused sweep every N
 chunks to ``tmp/stats/partial_sweep.npz`` so an interrupted run resumes
 (the ``stats:chunk`` fault site fires before each chunk).
-``tmp/profile.json`` records the phases; the telemetry counters stay out
-(ROADMAP Queue 1 item 13).
+``tmp/profile.json`` records the phases; with telemetry on each is a span,
+and the step counts ``stats.rows``.
 """
 
 from __future__ import annotations
@@ -25,11 +25,12 @@ import json
 import logging
 import math
 import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from .. import faults
+from .. import faults, obs
 from ..config import ColumnConfig, environment
 from ..config.model_config import BinningAlgorithm
 from ..config.validator import ModelStep
@@ -98,6 +99,7 @@ class StatsProcessor(BasicProcessor):
                         {k[4:]: v for k, v in arrays.items()
                          if k.startswith("num_")})
                 cat_acc.load_state(meta["cat"], arrays)
+                obs.counter("stats.resumed_chunks").inc(resume_chunk)
                 log.info("stats: resuming fused sweep at chunk %d "
                          "(%d rows already accumulated)", resume_chunk,
                          total_rows)
@@ -143,8 +145,9 @@ class StatsProcessor(BasicProcessor):
             return (ex.target > 0).astype(ex.target.dtype) \
                 if extractor.multiclass else ex.target
 
+        sweep_t0 = time.perf_counter()
         if fused:
-            with self.phase("fused_sweep"):
+            with self.phase("fused_sweep") as ph:
                 for ci, ex in iter_extracted(
                         source, extractor, rate=rate,
                         cache_root=self.paths.raw_cache_dir,
@@ -177,13 +180,14 @@ class StatsProcessor(BasicProcessor):
                     cat_update(ex, tgt)
                     if ckpt_chunks and (ci + 1) % ckpt_chunks == 0:
                         save_partial(ci + 1, total_rows)
+                ph.set(rows=total_rows)
             if total_rows == 0:
                 raise RuntimeError("stats: dataset is empty after "
                                    "filtering")
             if num_cols:
                 num_acc.finalize_fused()
         else:
-            with self.phase("pass1_moments"):
+            with self.phase("pass1_moments") as ph:
                 for ci, ex in iter_extracted(
                         source, extractor, rate=rate,
                         cache_root=self.paths.raw_cache_dir):
@@ -193,6 +197,7 @@ class StatsProcessor(BasicProcessor):
                     total_rows += ex.n
                     if num_cols:
                         num_acc.update_moments(ex.numeric, ex.numeric_valid)
+                ph.set(rows=total_rows)
             if total_rows == 0:
                 raise RuntimeError("stats: dataset is empty after "
                                    "filtering")
@@ -204,7 +209,7 @@ class StatsProcessor(BasicProcessor):
                 corr_acc = CorrelationAccumulator(
                     n_cols=len(num_cols), offset=num_acc.moments["mean"],
                     device=self.device)
-            with self.phase("pass2_histograms"):
+            with self.phase("pass2_histograms").set(rows=total_rows):
                 for _, ex in iter_extracted(
                         source, extractor, rate=rate,
                         cache_root=self.paths.raw_cache_dir):
@@ -234,6 +239,10 @@ class StatsProcessor(BasicProcessor):
         if psi_col:
             with self.phase("psi"):
                 self._compute_psi(source, extractor, psi_col)
+        obs.counter("stats.rows").inc(total_rows)
+        obs.gauge("stats.columns").set(len(num_cols) + len(cat_cols))
+        obs.gauge("stats.rows_per_sec").set(
+            total_rows / max(time.perf_counter() - sweep_t0, 1e-9))
         if self.params.get("rebin"):
             self._dynamic_rebin()
         self.save_column_configs()

@@ -161,6 +161,10 @@ class TrainProcessor(BasicProcessor):
     def process(self) -> int:
         mc = self.model_config
         alg = mc.train.algorithm
+        if self.params.get("dry"):
+            log.info("dry run: algorithm=%s bags=%d epochs=%d", alg.name,
+                     mc.train.baggingNum, mc.train.numTrainEpochs)
+            return 0
         if self.journal.was_torn and not self.params.get("resume"):
             # the previous train died mid-step: resume from the trainer
             # checkpoints, exactly as an explicit `train -resume` would

@@ -36,6 +36,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..config import ColumnConfig
 from ..config.model_config import FilterBy
 from ..config.validator import ModelStep, ValidationError
@@ -410,6 +411,8 @@ class VarSelectProcessor(BasicProcessor):
                     device=self.device)
                 n_rows = len(data["y"])
         dt = max(time.perf_counter() - t0, 1e-9)
+        obs.gauge("varsel.rows_per_sec").set(n_rows * len(in_plane) / dt)
+        obs.gauge("varsel.candidates").set(float(len(in_plane)))
         log.info("sensitivity on %s: %d candidates x %d rows in %.2fs "
                  "(%.0f rows*cols/s)", self.device, len(in_plane), n_rows,
                  dt, n_rows * len(in_plane) / dt)

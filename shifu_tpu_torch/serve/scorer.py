@@ -283,12 +283,12 @@ class _Rung:
     """One rung of one path: static inputs on the scoring device, the host
     buffers a request fills (pinned staging on CUDA, the inputs themselves
     on the CPU) and, on CUDA, the captured graph over the inputs, its
-    output buffer and pinned host copy, the replay's completion event and
-    the count of kernel launches the graph records and of those its eager
-    warm-up made."""
+    output buffer and pinned host copy, the replay's completion event, the
+    cost-record shapes of the kernel launches the graph records (one a
+    launch) and the count of those its eager warm-up made."""
 
     __slots__ = ("inputs", "graph", "out", "host_in", "host_out", "event",
-                 "launches", "warm_launches", "lock")
+                 "launch_shapes", "warm_launches", "lock")
 
     def __init__(self, inputs: List[torch.Tensor]):
         self.inputs = inputs
@@ -297,9 +297,14 @@ class _Rung:
         self.host_in: List[torch.Tensor] = []
         self.host_out = None
         self.event = None
-        self.launches = 0
+        self.launch_shapes: list = []
         self.warm_launches = 0
         self.lock = threading.Lock()
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches the captured graph replays."""
+        return len(self.launch_shapes)
 
 
 class AOTScorer:
@@ -397,11 +402,11 @@ class AOTScorer:
             torch.cuda.synchronize(dev)
             rung.out = torch.empty_like(ref)
             graph = torch.cuda.CUDAGraph()
-            before = tq.captured_launches()
+            tq.take_captured()
             with torch.cuda.graph(graph, pool=self._pool,
                                   capture_error_mode="thread_local"):
                 rung.out.copy_(fn(*rung.inputs))
-            rung.launches = tq.captured_launches() - before
+            rung.launch_shapes = tq.take_captured()
             rung.graph = graph
         rung.host_in = [torch.zeros(shape, dtype=dt, pin_memory=True)
                         for shape, dt in self._shapes(bucket, raw)]
@@ -483,7 +488,7 @@ class AOTScorer:
                     rung.host_out.copy_(rung.out, non_blocking=True)
                     rung.event.record()
                 rung.event.synchronize()
-                tq.count_replays(rung.launches)
+                tq.count_replays(rung.launch_shapes)
                 with self._count_lock:
                     self.replays += 1
                     self.replayed_launches += rung.launches

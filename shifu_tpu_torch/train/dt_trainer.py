@@ -66,7 +66,7 @@ from typing import (Any, Callable, ContextManager, Dict, List, Optional,
 import numpy as np
 import torch
 
-from .. import ioutil
+from .. import ioutil, obs
 from ..config.model_config import Algorithm
 from ..data.shards import bins_wire_dtype
 from ..models import tree as tree_model
@@ -406,7 +406,7 @@ def train_gbt(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
                  for t in range(ti, ti + chunk)])).to(dev)
             f, packed = gbt_forest_chunk(bins_d, y_d, tw_d, vw_d, f, fa_all,
                                          cat, settings, n_bins, imp, has_cat)
-            packed = packed.cpu().numpy()                # the chunk's copy
+            packed = _fetch(packed)                      # the chunk's copy
         for j, row in enumerate(packed):
             tree, gfi, tr_err, va_err = _unpack_tree(
                 row, total, n_bins, c, settings.depth)
@@ -519,7 +519,7 @@ def train_gbt_bagged(bins, y, tw_m, vw_m, n_bins: int, cat_mask,
                 f[b], tr, va = _gbt_update(y_d, tw_d[b], vw_d[b], f[b], lv,
                                            leaf_glob, settings_list[b])
                 rows[b].append(_pack_tree(sf, lm, lv, gfi, tr, va))
-        packed = torch.stack([torch.stack(r) for r in rows]).cpu().numpy()
+        packed = _fetch(torch.stack([torch.stack(r) for r in rows]))
     results = []
     for s, init_score, member in zip(settings_list, init_scores, packed):
         trees, fi, history = [], np.zeros(c), []
@@ -739,7 +739,7 @@ def train_rf(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
             oob_sum, oob_cnt, packed = rf_forest_chunk(
                 bins_d, y_d, w_d, bags, oob_sum, oob_cnt, fa_all, cat,
                 settings, n_bins, has_cat, tree_batch)
-            packed = packed.cpu().numpy()                # the chunk's copy
+            packed = _fetch(packed)                      # the chunk's copy
         for j, row in enumerate(packed):
             tree, gfi, tr_err, va_err = _unpack_tree(
                 row, total, n_bins, c, settings.depth, settings.n_classes)
@@ -2170,6 +2170,13 @@ def _train_streamed_member(alg, shards, n_bins: int, cat_mask,
 
 
 # ----------------------------------------------------------------- entry
+def _fetch(x: torch.Tensor) -> np.ndarray:
+    """Device-to-host copy of a chunk's packed trees — the counted host
+    sync of the resident growers (``train.host_syncs``)."""
+    obs.counter("train.host_syncs").inc()
+    return x.cpu().numpy()
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to shifu_tpu_torch (ROADMAP Queue 1 "
@@ -2359,6 +2366,10 @@ def _run_tree_multi(proc, shards, col_nums, cat_mask, n_bins: int, alg,
                     pf.write(f"{label} Tree #{ti + 1} Train Error: "
                              f"{tr:.6f} Validation Error: {va:.6f}\n")
                 pf.flush()
+                obs.counter("train.trees").inc(res.trees_built)
+                obs.event("forest_member", trainer=alg.name.lower(),
+                          member=j, trees=res.trees_built,
+                          valid_err=round(res.valid_error, 6))
         if rf_like and kfold > 1 and not is_gs:
             # RF k-fold: oob error is in-fold; the CV figure of merit is
             # the mean-vote error on the HELD-OUT fold (reference CV)
@@ -2642,6 +2653,9 @@ def run_tree_training(proc) -> int:
                     f"Validation Error: {va:.6f}")
             pf.write(line + "\n")
             pf.flush()
+            obs.counter("train.trees").inc()
+            obs.event("tree", trainer=alg.name.lower(), tree=ti + 1,
+                      train_err=round(tr, 6), valid_err=round(va, 6))
             if (ti + 1) % 5 == 0 or ti == 0:
                 log.info(line)
 
@@ -2691,6 +2705,8 @@ def run_tree_training(proc) -> int:
                                start_history=start_history,
                                device=proc.device, phase=proc.phase)
 
+    obs.gauge("train.valid_err").set(res.valid_error)
+    obs.gauge("train.trees_built").set(res.trees_built)
     feature_names = shards.schema.get("columnNames")
     with proc.phase("save_model"):
         _clear_models(proc)

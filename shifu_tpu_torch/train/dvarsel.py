@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..models import nn as nn_model
 from ..ops import prng
 from .optimizers import make_optimizer, tree_map
@@ -203,16 +203,19 @@ def make_streamed_population_evaluator(stream, settings: WrapperSettings,
     def evaluate(feat_masks: np.ndarray) -> np.ndarray:
         masks = torch.from_numpy(np.asarray(feat_masks, np.float32)).to(dev)
         stacked, opt_state = pop.start(len(feat_masks))
+        win_c = obs.counter("varsel.windows")
         for _ in range(settings.epochs):
             for it in cache.items():
                 a = it.arrays
                 stacked, opt_state = pop.step(stacked, opt_state, masks,
                                               a["x"], a["y"], a["tw"])
+                win_c.inc()
         acc = torch.zeros((len(feat_masks), 2), device=dev)
         for it in cache.items():
             a = it.arrays
             acc += pop.loss_sums(stacked, masks, a["x"], a["y"], a["vw"])
         a = acc.cpu().numpy()               # the generation's one read
+        obs.counter("varsel.host_syncs").inc()
         return a[:, 0] / np.maximum(a[:, 1], 1e-9)
 
     return evaluate, d

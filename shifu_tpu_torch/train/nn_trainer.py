@@ -44,20 +44,22 @@ device and steps once an epoch on ``sum(grads) / sum(weights)``; an
 epoch's errors are measured one pass late (on the params entering the
 next epoch) and a closing eval-only pass ends the ledger.  ``MiniBatchs``
 slices each window at edges fixed by the window size.  The reference's
-mesh and elastic combine are ROADMAP item 12; the obs hooks are item 13.
+mesh and elastic combine are ROADMAP item 12.  With telemetry on, each
+epoch counts ``train.epochs`` and its wall in ``train.epoch_s``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..models import nn as nn_model
 from ..ops import prng
 from .early_stop import WindowEarlyStop
@@ -243,6 +245,8 @@ class _EpochLedger:
     tmp-model and trainer-checkpoint saves, and the final choice of
     params."""
 
+    trainer = "nn"                  # the telemetry events' trainer
+
     def __init__(self, settings: TrainSettings, stacked, bags: int,
                  precision: str, progress, checkpoint, dev: torch.device):
         self.settings, self.precision, self.bags = settings, precision, bags
@@ -299,6 +303,15 @@ class _EpochLedger:
         copied over."""
         self.tr, self.va = tr, va
         self.history.append((float(tr.mean()), float(va.mean())))
+        now = time.perf_counter()
+        obs.counter("train.epochs").inc()
+        obs.histogram("train.epoch_s").observe(
+            now - getattr(self, "_epoch_t0", now))
+        self._epoch_t0 = now
+        obs.gauge("train.valid_err").set(float(va.mean()))
+        obs.event("epoch", trainer=self.trainer, epoch=epoch,
+                  train_err=round(float(tr.mean()), 6),
+                  valid_err=round(float(va.mean()), 6))
         improved = va < self.best_valid
         imp = None
         if va_dev is not None:
@@ -639,6 +652,7 @@ def _train_streamed(stream, spec, settings, bags, mask_fn, init_params_list,
 
     ledger = _EpochLedger(settings, stacked, bags, precision, progress,
                           checkpoint, dev)
+    ledger.trainer = "nn_streamed"
     start_epoch = 0
     epochs_target = settings.epochs
     restored = ledger.resume(stacked, opt_state) \

@@ -25,7 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..models.svm import SVMModelSpec, kernel_matrix
 
 log = logging.getLogger(__name__)
@@ -93,6 +93,11 @@ def train_kernel_svm(x: np.ndarray, y01: np.ndarray, train_mask: np.ndarray,
     keep = alpha_h > 1e-6
     sv_x = np.asarray(x, np.float32)[keep]
     alpha_y = (alpha_h * y_pm.cpu().numpy())[keep].astype(np.float32)
+    obs.counter("train.epochs").inc(iters)   # dual iterations ~ epochs
+    obs.event("svm_solve", trainer="svm", kernel=spec.kernel,
+              n_sv=int(keep.sum()), rows=int(np.asarray(train_mask).sum()),
+              iters=iters, train_err=round(float(tr), 6),
+              valid_err=round(float(va), 6), dur_s=round(solve_s, 3))
     log.info("kernel SVM (%s) on %s: %d SVs of %d train rows, train hinge "
              "%.6f valid hinge %.6f, %d iterations in %.3f s", spec.kernel,
              dev, int(keep.sum()), int(np.asarray(train_mask).sum()),

@@ -255,6 +255,7 @@ def train_wdl_ensemble(x_num, x_cat, y, w, spec: wdl_model.WDLModelSpec,
 
     ledger = _EpochLedger(settings, stacked, bags, precision, progress,
                           None, dev)
+    ledger.trainer = "wdl"
     order_rng = np.random.default_rng([settings.seed, 1])
     batched = bool(bs) and bs < n_padded
     starts_of = np.arange(0, n_padded - bs + 1, bs).astype(np.int32) \
@@ -389,6 +390,7 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
 
     ledger = _EpochLedger(settings, stacked, bags, precision, progress,
                           None, dev)
+    ledger.trainer = "wdl_streamed"
 
     def bookkeep(epoch_done: int, stats: np.ndarray, snapshot) -> bool:
         return ledger.record(

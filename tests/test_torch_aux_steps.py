@@ -15,6 +15,7 @@ C3).  The CLI carries every reference subcommand but ``monitor``,
 """
 
 import json
+import logging
 import os
 import shutil
 import sys
@@ -68,10 +69,10 @@ def test_cli_has_every_reference_subcommand_but_monitor_refresh_lint():
         sub = next(a for a in p._actions if a.dest == "command")
         return set(sub.choices)
     missing = commands(j_parser()) - commands(build_parser())
-    assert missing == {"monitor", "refresh", "lint"}
+    assert missing == {"refresh", "lint"}       # monitor is ported
 
 
-def test_analysis_fi_is_byte_equal(gbt_set, tmp_path):
+def test_analysis_fi_is_byte_equal(gbt_set, tmp_path, capsys):
     from shifu_tpu.cli import main as jmain
     from shifu_tpu_torch.cli import main
     ref, port = _pair(gbt_set, tmp_path)
@@ -82,8 +83,13 @@ def test_analysis_fi_is_byte_equal(gbt_set, tmp_path):
     got, want = (_read(os.path.join(d, "models", "model0.gbt.fi"))
                  for d in (port, ref))
     assert got == want and len(got.splitlines()) >= 4
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["--dir", port, "analysis", "--telemetry"])
+    # with no trace recorded, both render the same hint
+    outs = []
+    for run, d in ((jmain, ref), (main, port)):
+        capsys.readouterr()
+        assert run(["--dir", d, "analysis", "--telemetry"]) == 0
+        outs.append(capsys.readouterr().out.replace(d, "<set>"))
+    assert outs[0] == outs[1] and "telemetry" in outs[0]
 
 
 def test_convert_json_and_back_are_equal(gbt_set, tmp_path):
@@ -155,9 +161,11 @@ def test_test_step_return_codes_match(gbt_set, tmp_path, target, want):
 
 
 def test_test_step_one_sided_tags_and_filter_expressions(gbt_set,
-                                                         tmp_path):
-    """Tags that never match fail in both; a non-empty filterExpressions
-    raises naming ROADMAP item 1 instead of "FAILED to open"."""
+                                                         tmp_path, caplog,
+                                                         monkeypatch):
+    """Tags that never match fail in both; with a non-empty
+    filterExpressions both pass and log the same sampled and filtered
+    counts."""
     from shifu_tpu.pipeline.smoke import SmokeTestProcessor as JSmoke
     from shifu_tpu_torch.config import ModelConfig
     from shifu_tpu_torch.pipeline.smoke import SmokeTestProcessor
@@ -169,13 +177,22 @@ def test_test_step_one_sided_tags_and_filter_expressions(gbt_set,
         mc.save(path)
     assert JSmoke(ref, params={}).run() == 1
     assert SmokeTestProcessor(port, params={}).run() == 1
-    path = os.path.join(port, "ModelConfig.json")
-    mc = ModelConfig.load(path)
-    mc.dataSet.posTags = ["bad"]
-    mc.dataSet.filterExpressions = "amount > 10"
-    mc.save(path)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        SmokeTestProcessor(port, params={"filter_target": ""}).run()
+    from torch_port import writable_reference_filter
+    writable_reference_filter(monkeypatch)      # C14
+    logs = []
+    for d, proc in ((ref, JSmoke), (port, SmokeTestProcessor)):
+        path = os.path.join(d, "ModelConfig.json")
+        mc = ModelConfig.load(path)
+        mc.dataSet.posTags = ["bad"]
+        mc.dataSet.filterExpressions = "amount > 10 & channel == 'web'"
+        mc.save(path)
+        caplog.clear()
+        with caplog.at_level(logging.INFO):
+            assert proc(d, params={"filter_target": ""}).run() == 0
+        logs.append([r.getMessage() for r in caplog.records
+                     if "records sampled" in r.getMessage()])
+    assert logs[0] == logs[1] and len(logs[0]) == 1
+    assert " 0 filtered" not in logs[0][0]
 
 
 def _combo_set(template, d):

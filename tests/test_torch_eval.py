@@ -22,6 +22,7 @@ import csv
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -29,6 +30,8 @@ import torch
 
 from shifu_tpu.config import environment as j_environment
 from shifu_tpu_torch.config import environment
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
 
 pytestmark = pytest.mark.torch_port
 
@@ -285,10 +288,41 @@ def test_multiclass_eval_raises_item_6(pair):
                                a[:, 3:].astype(float), atol=1e-5)
 
 
-def test_eval_telemetry_raises_not_ported(pair):
-    environment.set_property("shifu.telemetry", "true")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _eval_port(pair[1], run_eval="")
+def test_eval_with_telemetry_writes_drift_and_counters(pair, tmp_path):
+    """With telemetry on, eval's streaming drift monitor writes the eval
+    set's per-column PSI to ``telemetry/drift.json`` (within 1e-6 of the
+    reference's) and the trace counts the same ``eval.rows_scored`` and
+    AUC gauge."""
+    from shifu_tpu import obs as jobs
+    from shifu_tpu_torch import obs
+    from torch_port import shifted_source
+    rows = 0
+    for d in pair:
+        rows = shifted_source(d, str(tmp_path / "src"))
+    try:
+        jobs.set_enabled(True)
+        assert _eval_ref(pair[0], run_eval="") == 0
+        obs.set_enabled(True)
+        assert _eval_port(pair[1], run_eval="") == 0
+    finally:
+        jobs.reset_for_tests()
+        obs.reset_for_tests()
+    docs, metrics = [], []
+    for d in pair:
+        with open(os.path.join(d, "telemetry", "drift.json")) as f:
+            docs.append(json.load(f))
+        with open(os.path.join(d, "telemetry", "trace.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        metrics.append({r["name"]: r.get("value") for r in recs
+                        if r["kind"] == "metric" and r["name"] in (
+                            "eval.rows_scored", "eval.Eval1.auc")})
+    ref, port = docs
+    assert port["rows"] == ref["rows"] == rows
+    for col, v in ref["columns"].items():
+        assert abs(port["columns"][col] - v) <= 1e-6, col
+    assert metrics[1]["eval.rows_scored"] == metrics[0]["eval.rows_scored"]
+    assert abs(metrics[1]["eval.Eval1.auc"]
+               - metrics[0]["eval.Eval1.auc"]) <= 0.005
 
 
 def test_eval_run_warns_that_no_posttrain_snapshot_is_written(pair,

@@ -123,6 +123,18 @@ def test_hist_bytes_counts_active_rows_once():
     assert got == 4 * 1000 + active * (10 + 8) + 4 * 4 * 10 * 64 * 2
 
 
+def test_cost_model_is_the_bound_with_every_row_active():
+    """The telemetry cost model charges what the bound counts when every
+    row is active, and more when some are not."""
+    bins, node, stats = _inputs(5, 400, 6, 32, 4, 2, np.uint8)
+    model = hist.hist_kernel_cost(400, 6, 32, 4, 2)["bytes_accessed"]
+    t_bins, t_stats = torch.from_numpy(bins), torch.from_numpy(stats)
+    full = torch.from_numpy(np.abs(node) % 4)
+    assert hist.hist_bytes(t_bins, full, t_stats, 4, 32) == model
+    assert hist.hist_bytes(t_bins, torch.from_numpy(node), t_stats, 4,
+                           32) < model
+
+
 def _np_meta(stats):
     """numpy's reading of ``channel_meta`` on [TB, N, S]: max |value| and
     whether every value is an integer with max |value| * N < 2^31."""

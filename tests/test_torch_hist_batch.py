@@ -116,6 +116,20 @@ def test_hist_batch_bytes_counts_shared_bins_once():
         + int(live.sum()) * 8 + 4 * 3 * 4 * 10 * 64 * 2
 
 
+def test_cost_model_is_the_bound_with_every_row_active():
+    """The telemetry cost model (``n_trees`` = TB) charges what the bound
+    counts when every row is active in every tree, and more when some
+    are not."""
+    bins, node, stats = _inputs(5, 400, 6, 32, 4, 3, 2, np.uint8)
+    model = hist.hist_kernel_cost(400, 6, 32, 4, 2,
+                                  n_trees=3)["bytes_accessed"]
+    t_bins, t_stats = torch.from_numpy(bins), torch.from_numpy(stats)
+    full = torch.from_numpy(np.abs(node) % 4)
+    assert hist.hist_batch_bytes(t_bins, full, t_stats, 4, 32) == model
+    assert hist.hist_batch_bytes(t_bins, torch.from_numpy(node), t_stats,
+                                 4, 32) < model
+
+
 def test_channel_meta_is_per_tree_and_channel():
     """Each (tree, channel) of a batch gets its own flag and max |value|,
     as numpy computes them: Poisson bags x integer weights are exact, the

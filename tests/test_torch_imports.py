@@ -81,3 +81,28 @@ def test_package_imports_without_building_kernels(monkeypatch):
         rel = os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".")
         importlib.import_module(rel.removesuffix(".__init__"))
     assert calls == []
+
+
+def test_pyarrow_and_fsspec_are_imported_only_inside_functions():
+    """The card's machine is not known to have ``pyarrow`` or ``fsspec``:
+    the port (and the smoke) import them only inside the functions that
+    read a parquet or a remote source, never at a module's top level."""
+    lazy = ("pyarrow", "fsspec")
+    bad, inside = [], 0
+    for path in _port_sources():
+        tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+        for node in tree.body:
+            for sub in ast.walk(node):
+                if isinstance(sub, (ast.Import, ast.ImportFrom)):
+                    names = [a.name for a in sub.names] \
+                        if isinstance(sub, ast.Import) else [sub.module or ""]
+                    if not any(n.split(".")[0] in lazy for n in names):
+                        continue
+                    if isinstance(node, (ast.FunctionDef, ast.ClassDef,
+                                         ast.AsyncFunctionDef)):
+                        inside += 1
+                    else:
+                        bad.append(f"{os.path.relpath(path, ROOT)}:"
+                                   f"{sub.lineno}")
+    assert not bad, bad
+    assert inside >= 4           # the reader's parquet and fsspec paths

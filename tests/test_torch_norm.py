@@ -19,6 +19,7 @@ every norm type, and the planes read back through the port's ``Shards``
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -26,6 +27,8 @@ import pytest
 from shifu_tpu.config import environment as j_environment
 from shifu_tpu_torch.config import environment
 from shifu_tpu_torch.config.model_config import NormType
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
 
 pytestmark = pytest.mark.torch_port
 
@@ -253,11 +256,45 @@ def test_train_on_the_port_plane_grows_the_reference_forest(prepared_set,
                                        rtol=1e-5, atol=1e-6)
 
 
-def test_norm_telemetry_raises_not_ported(prepared_set):
+def test_norm_with_telemetry_writes_the_reference_drift_table(
+        prepared_set, tmp_path):
+    """With telemetry on, norm's streaming drift monitor writes
+    ``telemetry/drift.json``: per-column PSI of this run's bins against
+    the ColumnConfig snapshot, within 1e-6 of the reference's, and the
+    trace counts the same ``norm.rows``."""
+    from shifu_tpu import obs as jobs
+    from shifu_tpu.pipeline.norm import NormalizeProcessor as JNorm
+    from shifu_tpu_torch import obs
     from shifu_tpu_torch.pipeline.norm import NormalizeProcessor
-    environment.set_property("shifu.telemetry", "true")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        NormalizeProcessor(prepared_set).run()
+    from torch_port import shifted_source
+    dirs = []
+    for name in ("ref", "port"):
+        dirs.append(str(tmp_path / name))
+        shutil.copytree(prepared_set, dirs[-1])
+        rows = shifted_source(dirs[-1], str(tmp_path / "src"))
+    try:
+        jobs.set_enabled(True)
+        assert JNorm(dirs[0], params={}).run() == 0
+        obs.set_enabled(True)
+        assert NormalizeProcessor(dirs[1]).run() == 0
+    finally:
+        jobs.reset_for_tests()
+        obs.reset_for_tests()
+    docs, counted = [], []
+    for d in dirs:
+        with open(os.path.join(d, "telemetry", "drift.json")) as f:
+            docs.append(json.load(f))
+        with open(os.path.join(d, "telemetry", "trace.jsonl")) as f:
+            counted.append([json.loads(ln).get("value") for ln in f
+                            if '"norm.rows"' in ln])
+    ref, port = docs
+    assert port["rows"] == ref["rows"] == rows
+    assert port["flagged"] == ref["flagged"]
+    assert port["columns"].keys() == ref["columns"].keys()
+    assert max(ref["columns"].values()) > 0.01
+    for col, v in ref["columns"].items():
+        assert abs(port["columns"][col] - v) <= 1e-6, col
+    assert counted[0] == counted[1] == [float(rows)]
 
 
 @pytest.fixture(scope="module")

@@ -126,22 +126,24 @@ def test_files_gzip_header_and_errors(tmp_path):
     got = [[list(r) for r in zip(c.data["x"], c.data["y"])]
            for c in pr.DataSource(str(d), "|").iter_chunks(1)]
     assert got == want
-    with pytest.raises(NotImplementedError, match="item 1"):
-        pr.DataSource("gs://bucket/data", "|")
-    (d / "p.parquet").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="parquet"):
-        pr.DataSource(str(d), "|")
+    from shifu_tpu.config.errors import ShifuError as JShifuError
+    from shifu_tpu_torch.config.errors import ShifuError
+    for mod, err in ((pr, ShifuError), (jr, JShifuError)):
+        with pytest.raises(err, match="no native hdfs") as ei:
+            mod.DataSource("hdfs://nn:8020/data/part-*", "|")
+        assert ei.value.error_code.name == "ERROR_REMOTE_SOURCE"
     bad = tmp_path / "bad.csv"
     bad.write_bytes(b"1|2\n\xff|3\n")
-    with pytest.raises(UnicodeDecodeError):
-        list(pr.DataSource(str(bad), "|", header=["x", "y"]).iter_chunks())
     environment.set_property("shifu.data.badThreshold", "0.1")
+    jenv.set_property("shifu.data.badThreshold", "0.1")
     try:
-        with pytest.raises(NotImplementedError, match="quarantine"):
-            list(pr.DataSource(str(bad), "|",
-                               header=["x", "y"]).iter_chunks())
+        for mod in (pr, jr):       # not quarantined: it stays uncaught
+            with pytest.raises(UnicodeDecodeError):
+                list(mod.DataSource(str(bad), "|",
+                                    header=["x", "y"]).iter_chunks())
     finally:
         environment.reset_for_tests()
+        jenv.reset_for_tests()
 
 
 def test_tags_weights_and_filters():
@@ -157,8 +159,16 @@ def test_tags_weights_and_filters():
     from shifu_tpu_torch.data.purifier import DataPurifier
     assert DataPurifier("  ").mask(pr.RawChunk(H, {
         h: np.array(["1", "2"], object) for h in H})).tolist() == [1, 1]
-    with pytest.raises(NotImplementedError, match="item 1"):
-        DataPurifier("a > 1")
+    chunk = pr.RawChunk(H, {"a": np.array(["1", "2", ""], object),
+                            "b": np.array(["x", "y", "x"], object),
+                            "c": np.array(["3", "", "4"], object)})
+    import pandas as pd
+    from shifu_tpu.data.purifier import DataPurifier as JDataPurifier
+    df = pd.DataFrame({h: list(v) for h, v in chunk.data.items()},
+                      dtype=str)
+    for expr in ("a > 1", "b == 'x' & c < 4", "a >", "zz > 1"):
+        assert DataPurifier(expr).mask(chunk).tolist() == \
+            JDataPurifier(expr).mask(df).tolist(), expr
 
 
 @pytest.fixture

@@ -356,3 +356,31 @@ def test_tree_batch_8_equals_tree_batch_1(env, monkeypatch):
         assert x.split_feat.tobytes() == z.split_feat.tobytes()
         assert x.left_mask.tobytes() == z.left_mask.tobytes()
         assert x.leaf_value.tobytes() == z.leaf_value.tobytes()
+
+
+# ------------------------------------------------- Poisson rate >= 10
+def test_rf_at_bagging_rate_12_grows_the_reference_forest():
+    """A bagging rate of 12 draws each tree's bag through jax's rejection
+    sampler: the port's ``train_rf`` grows the reference's forest (splits
+    and masks equal, leaves within 1e-6, the same out-of-bag errors within
+    1e-5 relative; C4).  The CLI cannot reach such a rate, since
+    ``probe`` holds ``baggingSampleRate`` to (0, 1]."""
+    import jax
+    from shifu_tpu.train import dt_trainer as jdt
+    from shifu_tpu_torch.train import dt_trainer as dt
+    bins, y, cat, rng = _separated(n=3000, seed=4)
+    w = np.ones(len(y), np.float32)
+    kw = dict(n_trees=4, depth=5, impurity="entropy", feature_subset="ALL",
+              tree_batch=2, seed=5, bagging_rate=12.0, min_gain=1e-3)
+    with jax.enable_x64(False):
+        want = jdt.train_rf(bins, y, w, 16, cat, jdt.DTSettings(**kw))
+    got = dt.train_rf(bins, y, w, 16, cat, dt.DTSettings(**kw),
+                      device="cpu")
+    assert len(got.trees) == len(want.trees) == 4
+    for a, b in zip(got.trees, want.trees):
+        np.testing.assert_array_equal(a.split_feat, np.asarray(b.split_feat))
+        np.testing.assert_array_equal(a.left_mask, np.asarray(b.left_mask))
+        np.testing.assert_allclose(a.leaf_value, np.asarray(b.leaf_value),
+                                   rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(got.history, float),
+                               np.asarray(want.history, float), rtol=1e-5)

@@ -17,6 +17,7 @@ set and data.
 import json
 import os
 import shutil
+import sys
 
 import pytest
 import torch
@@ -34,6 +35,8 @@ from shifu_tpu_torch.data import parsepool as ppp
 from shifu_tpu_torch.pipeline.create import check_algorithm_param
 from shifu_tpu_torch.pipeline.create import create_new_model
 from shifu_tpu_torch.pipeline.stats import StatsProcessor
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
 
 pytestmark = pytest.mark.torch_port
 
@@ -173,26 +176,26 @@ def test_stats_through_the_cli_needs_the_device(model_set, tmp_path,
 
 @pytest.mark.parametrize("what", ["psi", "munropat", "checkpoints",
                                   "filter"])
-def test_stats_refuses_what_is_not_ported(model_set, tmp_path, what):
-    """A filter expression is still refused naming its ROADMAP item; PSI,
-    MunroPat and mid-sweep checkpoints are ported and now run, writing the
-    reference's ColumnConfig.json (``tests/test_torch_stats_extra.py``
-    holds each at length)."""
+def test_stats_refuses_what_is_not_ported(model_set, tmp_path, what,
+                                          monkeypatch):
+    """PSI, MunroPat, mid-sweep checkpoints and a filter expression are
+    ported and run, writing the reference's ColumnConfig.json
+    (``tests/test_torch_stats_extra.py`` and
+    ``tests/test_torch_purifier.py`` hold each at length)."""
     edits = {"psi": {"stats.psiColumnName": "txn_id"},
              "munropat": {"stats.binningAlgorithm": "MunroPat"},
              "filter": {"dataSet.filterExpressions": "amount > 1"}
              }.get(what, {})
     _edit(model_set, **edits)
+    if what == "filter":
+        from torch_port import writable_reference_filter
+        writable_reference_filter(monkeypatch)      # C14
     assert JInit(model_set).run() == 0
     port = _port_copy(model_set, tmp_path)
     if what == "checkpoints":
         environment.set_property("shifu.stats.checkpointChunks", "2")
         jenv.set_property("shifu.stats.checkpointChunks", "2")
     try:
-        if what == "filter":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                StatsProcessor(port, device="cpu").run()
-            return
         assert JStats(model_set, params={}).run() == 0
         assert StatsProcessor(port, device="cpu").run() == 0
     finally:

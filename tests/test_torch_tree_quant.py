@@ -160,9 +160,17 @@ def test_cpu_calls_never_count_as_kernel_launches():
 
 
 def test_cost_model_matches_reference():
+    """The CUDA kernel's model charges the reference model's bytes at
+    uint8 bins, and the walk's integer steps in place of its one-hot
+    products."""
     kw = dict(rows=512, n_feat=256, n_bins=64, n_nodes=255, depth=7,
               n_trees=100)
-    assert tq.quant_traverse_cost(**kw) == jtq.quant_traverse_cost(**kw)
+    got = tq.walk_cost(**kw)
+    assert got["bytes_accessed"] == \
+        jtq.quant_traverse_cost(**kw)["bytes_accessed"]
+    assert got["flops"] == tq.WALK_OPS_PER_LEVEL * 100 * 512 * 7
+    wide = tq.walk_cost(**kw, bin_bytes=4)["bytes_accessed"]
+    assert wide - got["bytes_accessed"] == 3 * 512 * 256
 
 
 def test_traverse_bytes_counts_only_what_the_walks_read():
@@ -180,14 +188,14 @@ def test_traverse_bytes_counts_only_what_the_walks_read():
     lv[0, [3, 2, 4]] = [1.0, 2.0, 3.0]
     assert tq.predict_forest_quant(*_torch(sf, lm, lv, bins),
                                    2).tolist() == [[1.0, 2.0, 3.0]]
-    # a random forest never needs more than the reference's whole-forest
+    # a random forest never needs more than the cost model's whole-forest
     # count, which charges every node of every tree
     sf, lm, lv = _forest(4, 5, 16, 9, seed=21)
     bins = np.random.default_rng(22).integers(
         0, 16, size=(40, 9)).astype(np.uint8)
     got = tq.traverse_bytes(*_torch(sf, lm, bins), 5)
-    whole = tq.quant_traverse_cost(rows=40, n_feat=9, n_bins=16,
-                                   n_nodes=sf.shape[1], depth=5, n_trees=4)
+    whole = tq.walk_cost(rows=40, n_feat=9, n_bins=16,
+                         n_nodes=sf.shape[1], depth=5, n_trees=4)
     assert 0 < got["bytes"] < whole["bytes_accessed"]
 
 

@@ -156,14 +156,14 @@ versions on one card.  Otherwise it
    ``hist_batch`` both launched, counted from zero around the run; the
    device busy share of a 3-tree run from ``torch.profiler``); (a') the
    exact schedule for 5 trees: (a)'s first 5 trees and progress bit for
-   bit in 45 tail sweeps, more a tree than (a)'s; (a0) (a)'s first tree at the default
-   geometry (two 4,129,776-row windows, none resident); (b) 6 trees with CheckpointInterval 5, then
+   bit in 45 tail sweeps, more a tree than (a)'s; (a0) (a)'s first tree, cut
+   to depth 3, at the default geometry (two 4,129,776-row windows, none resident); (b) 6 trees with CheckpointInterval 5, then
    ``train -resume`` to 10 from the 5-tree checkpoint, with and without
    its score sidecar (8 ``tree_traverse`` launches, one a window),
    bit-identical to (a); (c) ``init -model``'s RF in two super-batches
    (31 tail sweeps, 224 ``hist_batch`` launches), falling out-of-bag
-   errors, the peak device memory; (d) the plane's first 65,536 rows in
-   windows of 8,192 (6 resident): (a)'s GBT cut to 2 trees with
+   errors, the peak device memory; (d) the plane's first 32,768 rows in
+   windows of 4,096 (6 resident): (a)'s GBT cut to 2 trees with
    coarse-to-fine on and off and a 4-tree depth-7 RF on the card, the coarse-to-fine GBT also
    on the CPU with equal splits and masks, leaves within 1e-5 relative
    (+1e-6), errors within 1e-5 relative, equal tail sweeps; (e) a streamed 2-bag GBT on the train
@@ -215,12 +215,12 @@ versions on one card.  Otherwise it
    ``posttrain`` of the GBT on ``cuda`` (``tree_traverse`` launched once
    a model a norm shard, counted from zero around it) and on ``cpu``:
    every column's binAvgScore within 1.  Then the multi-class CLI path
-   (``multiclass_cli_phase``): the same CSV's first 8,192 rows with a
+   (``multiclass_cli_phase``): the same CSV's first 4,096 rows with a
    three-valued tag through ``new → init → stats → norm → train`` (native
    RF, then one-vs-all GBT) and ``eval -run`` on
    ``cuda`` and on ``cpu``: ``EvalPerformance.json`` accuracy and
    confusion matrix equal, class scores within 1e-5 in the %.6f score
-   files, ``tree_traverse`` launched models x chunks times (2, then 6).
+   files, ``tree_traverse`` launched models x chunks times (1, then 3).
    Then the port's ``NumericAccumulator`` on ``cuda`` at a
    deployment's size: 8 weighted chunks of 262,144 rows x 224 columns from
    ``--seed`` (3 resident, 5 overflowing, 8 ``stats_hist`` launches), the
@@ -280,10 +280,10 @@ versions on one card.  Otherwise it
    relu, wide and deep, ADAM 0.002, L2 1e-5) with baggingNum 5 through
    ``cli.main train`` on ``cuda``: (a) 5 full-batch epochs, falling
    errors, ms an epoch; (b) one epoch at MiniBatchs 128 over the
-   planes' first 65,536 rows (a cut in rows), ms a step, the
+   planes' first 32,768 rows (a cut in rows), ms a step, the
    step's kernel launches (profiled over 5 and 10 steps) and the epoch's
    host syncs (one); (c) ``-Dshifu.wdl.hashBuckets=32`` trained on (b)'s
-   65,536 rows, its bucket ids on the card equal to
+   32,768 rows, its bucket ids on the card equal to
    the host's and its models served over HTTP on ``cuda`` against
    ``cpu`` within 1e-2 (raw batches of 1, 7, 64 and 333 records); (d)
    the first 32,768 rows, 2 bags, 2 epochs, on ``cuda`` and ``cpu``,
@@ -309,7 +309,7 @@ versions on one card.  Otherwise it
    ``tmp/EncodedData`` byte-equal to the CPU's, and the RF phase's depth-14 forest walked by ``encode``'s
    walk over 32,768 rows of the train plane (node ids past 16,383, equal
    to the CPU's ``traverse_nodes``, one launch); (c) ``combo new -alg
-   LR:GBT``, ``run`` and ``eval`` on the CSV's first 8,192 rows (80
+   LR:GBT``, ``run`` and ``eval`` on the CSV's first 4,096 rows (80
    ``hist`` launches for the GBT member, one ``tree_traverse`` launch a
    chunk of the eval CSV), member and assembled AUCs within 0.005 of the
    CPU's; (f) ``convert``, ``save``/``history``/``switch``/``show``,
@@ -353,7 +353,31 @@ versions on one card.  Otherwise it
    step's modelled bytes over that kernel's device time in the trace
    under 105% of the peak as well; the cost models' bytes at the timed
    shapes are logged beside the bounds' (a model charges every row and
-   node, so it is never below the bound);
+   node, so it is never below the bound); then the continual refresh
+   loop (``refresh_phase``) on a copy of the e2e set: a GBT incumbent
+   (TreeNum 10, MaxDepth 7, CheckpointInterval 5) trained through
+   ``cli.main``, 2,048 drifted rows (fresh rows of the CSV's generator,
+   every numeric column scaled 2x, as ``bench_refresh`` drifts) appended
+   to a copy of the CSV and ``norm --telemetry`` run again, its
+   ``drift.json`` the trigger; ``refresh`` through ``cli.main`` on
+   ``cuda`` once, in registry mode, the data-window cursor at the
+   incumbent's 8,192 rows: decisions ``trigger, train, promote,
+   complete``, ``serving.json`` at generation 1, the warm retrain
+   resumed from 10 trees with 10 appended (the derived units), the first
+   10 bit-equal to the incumbent's, exactly 80 ``hist`` launches and
+   ``tree_traverse`` launched for the restored forest's replay over the
+   new window and the gate (counted from zero around the command); the
+   gate on the CPU over the card's candidate and holdout within 1e-6 of
+   the card's AUCs; and an in-process ``ServeServer`` on ``cuda``
+   (``sloP99Ms`` 1000, a client scoring across the swap) with a
+   ``RefreshController(server=...)`` fed the drifted rows' bins through
+   ``observe``: a ``refresh:promote`` fault after a 4-tree retrain (32
+   ``hist`` launches) leaves the incumbent live and bit-identical, a
+   fresh controller resumes at the gate with no ``hist`` launch and
+   promotes (every rung captured at ``prepare``, none at ``commit``, no
+   SLO alert, no forced capture), the canary pinned at promotion scores
+   bit for bit on 3 probation ticks, and an injected SLO alert rolls
+   back to generation 0, scoring bit for bit as before;
 9. times each kernel (CUDA events, launches queued behind a spin kernel so
    the host cannot starve the card) beside its plain version, one PyTorch
    call that computes the same function where there is one, and its bound
@@ -428,6 +452,38 @@ them but for the last round (PERF.md §4 keeps the table):
 ``inputs_phase`` and ``telemetry_phase`` came after these cuts and cut
 nothing: about 36 s and 8 s, the whole 592.7 s on an H100 80GB HBM3 at
 700 W (PERF.md §4).
+
+``refresh_phase`` (7-9 s) came next. Its first whole run took 827.1 s
+on a contended host, so this round cut depth again (walls of that run
+-> the next, on two calls whose hosts differed, so part of each saving
+is the host's):
+
+- the Poisson draws 65,536 rows a rate and key (were 262,144):
+  34.4 -> 10.1 s, ``inputs_phase`` 69.4 -> 33.9 s;
+- the multi-class CLI on 4,096 rows (were 8,192):
+  ``multiclass_cli_phase`` 17.7 -> 10.2 s;
+- WDL (b) and (c) on 32,768 rows (were 65,536): (b)'s CLI 7.7 -> 3.2
+  s, ``wdl_phase`` 116.8 -> 81.6 s.
+
+The whole: 827.1 -> 668.6 s (PERF.md §4).  That round had also cut
+``combo`` LR:GBT and WDL:GBT to the CSV's first 4,096 rows (LR:GBT's
+runs and evals 32.8 -> 16.9 s, ``wdl_combo`` 34.0 -> 18.5 s), but there
+the GBT member's card and CPU AUCs came out 0.00334 apart against
+COMBO_AUC_TOL 0.005 (0.00046 on 8,192 rows): a split near-tie that
+flips on fewer rows, as the same cut's 0.005141 had shown before.
+``combo`` is back on 8,192 rows.  Its whole run took 766.1 s on a
+contended host (``aux_tree_phase`` 53.2 s, ``wdl_combo`` 38.2), so this
+round cut depth again (walls before):
+
+- the tree stream (d)'s card-vs-CPU twin on 32,768 rows in 8 windows of
+  4,096 (were 65,536 in windows of 8,192): its CPU run 11.0 -> 6.3 s;
+- (a0)'s tree cut to depth 3 (was 7): 17.2 s;
+- the Poisson draws 16,384 rows a rate and key (were 65,536): 10.1 /
+  19.2 s on a quiet / a contended host.
+
+The port's config loader now builds one coercer a field type
+(``config/jsonbean.py``), which halves a 258-column ColumnConfig.json's
+load (0.22 -> 0.115 s on a CPU), read a few times by every CLI step.
 """
 
 from __future__ import annotations
@@ -494,7 +550,7 @@ RF_CUT_DEPTH, RF_CUT_TREES = 7, 3          # card vs CPU on CUT_ROWS rows
 BAG_MEMBERS, BAG_KFOLD = 5, 3              # bagged GBT; its k-fold twin
 BAG_TIMED_NODES = (1, 32)                  # B2 at TB = BAG_MEMBERS
 MC_CLASSES, MC_WALK_ROWS = 3, 65536        # three-class target; B4 walk
-MC_CLI_ROWS = 8192                         # the multi-class CLI's rows
+MC_CLI_ROWS = 4096                         # the multi-class CLI's rows
 NN_EPOCHS, NN_CKPT, NN_BAGS = 20, 10, 5    # init -model's NN, bagged
 NN_WIDE = {"NumHiddenNodes": [512, 256],    # bench_nn's net (shifu_tpu/
            "ActivationFunc": ["relu", "relu"],  # bench.py:134-151)
@@ -514,9 +570,10 @@ MC_SCORE_TOL = 1e-5 + 1e-9                 # class scores card vs CPU (%.6f)
 STREAM_ROWS, STREAM_WINDOW = 1 << 22, 1 << 19   # the out-of-core plane;
 #                                       its shards and (a)'s windows
 STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
-STREAM_A0_TREES = 1                        # (a0): 13 s a tree
+STREAM_A0_TREES = 1                        # (a0): 13 s a tree at depth 7
+STREAM_A0_DEPTH = 3                        # (a0)'s tree (a cut)
 STREAM_EXACT_TREES = 5                     # (a'): (a)'s first 5 trees
-STREAM_CUT_ROWS = 65536                    # (d) card vs CPU: 8 windows,
+STREAM_CUT_ROWS = 32768                    # (d) card vs CPU: 8 windows,
 STREAM_CUT_WINDOW = STREAM_CUT_ROWS // 8   # 6 of them resident
 STREAM_CUT_RESIDENT = 6
 STREAM_CUT_RF_TREES = 4                    # (d)'s RF, depth DEPTH
@@ -530,6 +587,7 @@ NN_STREAM_ROWS = 5 * (1 << 18)             # 1,310,720 rows: 1.35 GB at
 NN_STREAM_BUDGET = {"shifu.train.memoryBudgetBytes": str(1 << 30)}
 NN_STREAM_EPOCHS, NN_STREAM_CKPT = 4, 2    # init -model's NN; a resume
 NN_STREAM_BATCH = 1 << 16                  # (c)'s minibatch
+NN_STREAM_CUT_WINDOW = 8192                # (d): 4 windows of CUT_ROWS
 VARSEL_KEEP, VARSEL_SE_ATOL = 64, 1e-6     # SE filterNum; card vs CPU
 GBT_ROW_BYTES = N_COLS + 12                # a prepared GBT window row
 RF_ROW_BYTES = N_COLS + 8                  # a prepared RF window row
@@ -3579,7 +3637,7 @@ def nn_stream_phase(torch, root: str, serve_root: str, rng,
         ``train -resume`` to NN_STREAM_EPOCHS, bit-identical model files;
     (c) one minibatch run (ADAM, MiniBatchs NN_STREAM_BATCH) for 2 epochs;
     (d) the first CUT_ROWS rows forced to stream in windows of
-        STREAM_CUT_WINDOW, card and CPU: per-epoch errors within
+        NN_STREAM_CUT_WINDOW, card and CPU: per-epoch errors within
         NN_ERR_RTOL relative;
     (e) ``torch.profiler`` over 2 epochs of (a)'s trainer: the device's
         busy share and the seconds an epoch."""
@@ -3655,14 +3713,14 @@ def nn_stream_phase(torch, root: str, serve_root: str, rng,
                     numTrainEpochs=NN_CUT_EPOCHS)
         wall_d, _ = nn_stream_cli(
             dd, dev, {"shifu.train.streaming": "on",
-                      "shifu.train.windowRows": STREAM_CUT_WINDOW})
+                      "shifu.train.windowRows": NN_STREAM_CUT_WINDOW})
         runs.append((wall_d, progress_errors(dd)))
     rel = float(np.max(np.abs(runs[0][1] - runs[1][1]) / np.abs(runs[1][1])))
     if not rel <= NN_ERR_RTOL:
         fail(f"stream (d) card vs CPU: errors {rel:.3g} relative")
     out["d"] = {"err_rel": rel, "wall_cuda_s": runs[0][0],
                 "wall_cpu_s": runs[1][0]}
-    log(f"stream (d) {CUT_ROWS} rows in windows of {STREAM_CUT_WINDOW}, "
+    log(f"stream (d) {CUT_ROWS} rows in windows of {NN_STREAM_CUT_WINDOW}, "
         f"{NN_BAGS} bags, {NN_CUT_EPOCHS} epochs: errors card vs CPU within "
         f"{rel:.3g} relative; {runs[0][0]:.3f} s on the card, "
         f"{runs[1][0]:.3f} s on the CPU — [{gpu}]")
@@ -3805,7 +3863,7 @@ AUX_EXPORTS = (("pmml",), ("pmml", "-c"), ("columnstats",),
                ("woemapping",), ("bagging",), ("-t", "spec"))
 SPEC_RTOL, SPEC_ATOL = 1e-5, 1e-6          # tests/test_reference_export.py
 COMBO_AUC_TOL = 0.005                      # member AUCs, card vs CPU
-COMBO_ROWS = 2 * CSV_CHUNK                 # combo's cut of the e2e CSV
+COMBO_ROWS = CSV_ROWS                      # combo's rows of the e2e CSV
 GENETIC_KEEP = 64                          # GENETIC's filterNum
 GENETIC_WINDOW = 8192                      # streamed GENETIC's window rows
 GENETIC_CUT = {"WrapperEpochs": 10, "POPULATION_MULTIPLY_CNT": 3}
@@ -4483,8 +4541,8 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
     after: B1 and B2 must both launch.  (a') the same with
     ``tailCoarseToFine=false``: bit-identical forest and progress, 10 x
     (7 + 2) tail sweeps, more than (a)'s.  (a0) the first
-    STREAM_A0_TREES trees of the same GBT at the default geometry (no
-    resident window), split differences from (a) counted, not gated.  (b) (a) with CheckpointInterval 5 stopped after
+    STREAM_A0_TREES trees of the same GBT, cut to depth STREAM_A0_DEPTH,
+    at the default geometry (no resident window), split differences from (a) counted, not gated.  (b) (a) with CheckpointInterval 5 stopped after
     6 trees (the checkpoint holds 5), ``train -resume`` to 10:
     bit-identical to (a); and the same checkpoint without its score
     sidecar: the restored trees replay through ``tree_traverse`` window by
@@ -4593,13 +4651,16 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
         environment.set_property("shifu.train.windowRows", "")
 
     # (a0) the default geometry: the whole plane is tail (STREAM_A0_TREES
-    # of (a)'s trees: each is 2 x 1.1 GB of copies a sweep)
+    # of (a)'s trees cut to STREAM_A0_DEPTH: each sweep is 2 x 1.1 GB of
+    # copies)
     d0 = write_train_set(os.path.join(root, "stream_default"), serve_root,
-                         dict(params, TreeNum=STREAM_A0_TREES), clean)
+                         dict(params, TreeNum=STREAM_A0_TREES,
+                              MaxDepth=STREAM_A0_DEPTH), clean)
     wall, runs, peak = stream_cli(d0, "cuda", {})
     g = runs[-1]
     _, trees_0 = load_forest(d0)
-    differ = sum(int((p.split_feat != q.split_feat).sum())
+    inner = 2 ** STREAM_A0_DEPTH - 1           # the split nodes, heap order
+    differ = sum(int((p.split_feat[:inner] != q.split_feat[:inner]).sum())
                  for p, q in zip(trees_0, trees_a))
     if g["resident"] != 0:
         fail(f"(a0) kept {g['resident']} windows resident at the default "
@@ -4608,7 +4669,7 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
                  "nodes_differ_from_a": differ, **g}
     log(f"stream (a0) default geometry: {wall:.3f} s "
         f"({wall * 1e3 / STREAM_A0_TREES:.1f} ms a tree, {STREAM_A0_TREES} "
-        f"trees); {g['windows']} windows "
+        f"trees of depth {STREAM_A0_DEPTH}); {g['windows']} windows "
         f"of {g['window_rows']} rows, {g['resident']} resident, tail sweeps "
         f"{g['tail_sweeps']}; {differ} nodes split on another feature than "
         f"(a) (other partitions, not gated) — [{gpu}]")
@@ -5240,7 +5301,7 @@ def multiclass_cli_phase(torch, tq, root: str, csv: str,
 # ------------------------------------------------- phase: WDL and SVM
 WDL_BAGS, WDL_EPOCHS = 5, 5               # baggingNum as the NN's; full batch
 WDL_BATCH = 128                           # the reference's default MiniBatchs
-WDL_B_ROWS = 1 << 16                      # (b)'s epoch: a cut in rows
+WDL_B_ROWS = 1 << 15                      # (b)'s epoch: a cut in rows
 WDL_HASH_BUCKETS = 32                     # columns past 32 categories hash
 WDL_CUT_BAGS, WDL_CUT_EPOCHS = 2, 2       # card vs CPU on CUT_ROWS rows
 WDL_CUT_WINDOW = 8192                     # ... streamed in these windows
@@ -6292,7 +6353,7 @@ def time_transform(torch, root: str, plan, rng, gpu: str) -> dict:
 # ------------------------------------------------ phase: every input kind
 INPUTS_TREES = 3                           # inputs_phase's GBT
 INPUTS_THRESHOLD = "0.2"                   # shifu.data.badThreshold
-POISSON_RATES, POISSON_ROWS = (10.0, 37.0, 1000.0, 1e5), 1 << 18
+POISSON_RATES, POISSON_ROWS = (10.0, 37.0, 1000.0, 1e5), 1 << 14
 
 
 def write_input_shards(d: str, csv: str) -> dict:
@@ -6663,6 +6724,345 @@ def telemetry_phase(torch, root: str, csv: str, plan, gpu: str) -> dict:
             "bytes_per_s": rates, "device_bytes_per_s": device_rates}
 
 
+REFRESH_DRIFT_ROWS = 2048                  # the drifted window appended
+REFRESH_SERVE_UNITS = 4                    # the in-process cycles' trees
+REFRESH_BUCKETS = (1, 64, 512)             # the in-process server's rungs
+REFRESH_GATE_TOL = 1e-6                    # gate AUCs, card vs CPU
+REFRESH_PROBATION_TICKS = 3
+
+
+def append_drifted_rows(csv: str, rng, plan, n: int) -> None:
+    """``n`` fresh rows of the stats CSV's generator, every numeric column
+    scaled 2x (``bench_refresh``'s drift), appended to ``csv``."""
+    tmp = csv + ".drift"
+    write_stats_csv(tmp, rng, plan, n)
+    num = [j for j, p in enumerate(plan) if p[0] == "num"]
+    with open(tmp) as src, open(csv, "a") as out:
+        for line in src:
+            cells = line.rstrip("\n").split("|")
+            for j in num:
+                if cells[j]:
+                    cells[j] = f"{float(cells[j]) * 2.0:.6g}"
+            out.write("|".join(cells) + "\n")
+    os.remove(tmp)
+    os.remove(tmp + ".header")
+
+
+def window_rows(shard_rows, cursor: int) -> int:
+    """The rows of the shard-aligned view from global row ``cursor``:
+    ``Shards.from_row``'s rule (round down; past the end, the last
+    shard), computed here on its own."""
+    start = 0
+    for r in shard_rows:
+        if start + r > cursor:
+            return sum(shard_rows) - start
+        start += r
+    return shard_rows[-1]
+
+
+def refresh_phase(torch, root: str, src: str, csv: str, plan, rng,
+                  gpu: str) -> dict:
+    """The continual-refresh loop on the card, at the e2e set's full
+    width, on a copy of it: a GBT incumbent (TRAIN_TREES trees of depth
+    DEPTH, a checkpoint every TRAIN_CKPT) trained through ``cli.main``,
+    REFRESH_DRIFT_ROWS drifted rows appended to a copy of the CSV and
+    ``norm --telemetry`` run again (its ``drift.json`` the trigger);
+    then (a) ``cli.main refresh`` on ``cuda`` once, in registry mode, with
+    the data-window cursor where the incumbent's training stopped: the
+    decisions ``trigger, train, promote, complete``, ``serving.json`` at
+    generation 1, the warm retrain resumed from TRAIN_TREES trees with the
+    derived units (TreeNum) appended on the first TRAIN_TREES bit for bit,
+    exactly units x (DEPTH + 1) ``hist`` launches (counted from zero
+    around the command) and ``tree_traverse`` launched for the restored
+    forest's replay and the gate; generation 0 moved out of the
+    ``<set>/models`` workspace into ``refresh/candidates/gen-0`` with the
+    incumbent's trees, and a registry restarted from ``serving.json``
+    rolling back to it there; the gate on the CPU over the card's
+    candidate and that incumbent on the same holdout within
+    REFRESH_GATE_TOL of the card's AUCs; (b) an in-process ``ServeServer`` on ``cuda`` (``sloP99Ms``
+    1000, one client scoring throughout the swap) with a
+    ``RefreshController(server=...)`` fed through ``observe`` with the
+    drifted rows' bins: a ``refresh:promote`` fault after the retrain
+    leaves the incumbent live and bit-identical; a fresh controller
+    resumes at the gate with no ``hist`` launch and promotes, the swap
+    capturing every rung at ``prepare`` and none at ``commit``, no SLO
+    alert; the canary pinned at promotion scores bit for bit on every
+    probation tick; an injected SLO alert rolls back to generation 0,
+    scoring bit for bit as before."""
+    from shifu_tpu_torch import cli, faults, obs
+    from shifu_tpu_torch.config import ModelConfig, environment
+    from shifu_tpu_torch.config.model_config import Algorithm
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.eval.gate import auc_gate, load_holdout
+    from shifu_tpu_torch.eval.scorer import load_models
+    from shifu_tpu_torch.models.tree import load_model
+    from shifu_tpu_torch.refresh import (RefreshConfig, RefreshController,
+                                         RefreshJournal, drift_columns_for)
+    from shifu_tpu_torch.serve import ServeServer
+    from shifu_tpu_torch.serve.registry import ModelRegistry
+    from shifu_tpu_torch.serve.scorer import serve_graph_counts
+    t_phase = time.perf_counter()
+    base = os.path.join(root, "refresh")
+    os.makedirs(base)
+    data = os.path.join(base, "data.csv")
+    shutil.copy(csv, data)
+    shutil.copy(csv + ".header", data + ".header")
+    d = os.path.join(base, "card")
+    shutil.copytree(src, d, ignore=shutil.ignore_patterns(
+        "models", "checkpoints", "refresh", "serving", "telemetry"))
+    path = os.path.join(d, "ModelConfig.json")
+    mc = ModelConfig.load(path)
+    mc.dataSet.dataPath = data
+    mc.dataSet.headerPath = data + ".header"
+    mc.train.algorithm = Algorithm.GBT
+    mc.train.params = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH,
+                       "Loss": "log", "LearningRate": 0.1,
+                       "CheckpointInterval": TRAIN_CKPT}
+    mc.save(path)
+    walls = {"incumbent_train": train_cli(d, "cuda")}
+    _, incumbent = load_forest(d)
+    t0 = time.perf_counter()
+    append_drifted_rows(data, rng, plan, REFRESH_DRIFT_ROWS)
+    try:
+        cli_ok(d, "norm", "--telemetry")
+    finally:
+        obs.set_enabled(None)
+    walls["append_norm"] = time.perf_counter() - t0
+    with open(os.path.join(d, "telemetry", "drift.json")) as f:
+        drift = json.load(f)
+    clean = Shards.open(os.path.join(d, "tmp", "CleanedData"))
+    total = clean.num_rows
+    if total != CSV_ROWS + REFRESH_DRIFT_ROWS:
+        fail(f"re-normed plane holds {total} rows, not "
+             f"{CSV_ROWS + REFRESH_DRIFT_ROWS}")
+    if not drift.get("psi_max") or drift["psi_max"] < 0.25:
+        fail(f"the drifted plane's PSI {drift.get('psi_max')} does not "
+             "breach 0.25")
+    served_dir = os.path.join(base, "served")
+    shutil.copytree(d, served_dir)
+    for where in (d, served_dir):           # the incumbent read CSV_ROWS
+        RefreshJournal(where).set_cursor(CSV_ROWS)
+
+    # (a) the CLI step, registry mode
+    zero_tree_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["-Dshifu.refresh.probationS=0.5", "--dir", d,
+                   "refresh", "--poll", "0.1", "--device", "cuda"])
+    walls["refresh_cli"] = time.perf_counter() - t0
+    launches = read_tree_counts()
+    if rc != 0:
+        fail(f"refresh exited {rc}")
+    decisions = RefreshJournal(d).decisions()
+    kinds = [r["kind"] for r in decisions]
+    if kinds != ["trigger", "train", "promote", "complete"]:
+        fail(f"refresh decided {kinds}")
+    train = decisions[1]
+    units = TRAIN_TREES                     # derived: the set's TreeNum
+    view = clean.from_row(CSV_ROWS).num_rows
+    if not train["warm"] or train["resumed_from"] != TRAIN_TREES or \
+            train["units"] != units or train["cursor_rows"] != CSV_ROWS \
+            or train["new_rows"] != total - CSV_ROWS or \
+            view != window_rows(clean.shard_rows, CSV_ROWS):
+        fail(f"the warm retrain recorded {train} (a view of {view} rows)")
+    with open(os.path.join(d, "serving", "serving.json")) as f:
+        serving = json.load(f)[os.path.basename(d)]
+    # generation 0 left the <set>/models workspace before the retrain
+    gen0 = RefreshJournal(d).candidate_dir(0)
+    if serving["generation"] != 1 or \
+            serving["models_dir"] != train["models_dir"] or \
+            [(h["generation"], h["models_dir"])
+             for h in serving["history"]] != [(0, gen0)]:
+        fail(f"serving.json holds {serving}, not generation 1 of "
+             f"{train['models_dir']} over generation 0 in {gen0}")
+    _, snap = load_model(os.path.join(gen0, "model0.gbt"))
+    if len(snap) != TRAIN_TREES or \
+            not all(same_bits(a, b) for a, b in zip(snap, incumbent)):
+        fail(f"{gen0} does not hold the incumbent's {TRAIN_TREES} trees")
+    _, cand = load_model(os.path.join(train["models_dir"], "model0.gbt"))
+    if len(cand) != TRAIN_TREES + units or \
+            not all(same_bits(a, b) for a, b in zip(cand, incumbent)):
+        fail(f"the candidate's {len(cand)} trees do not start with the "
+             f"incumbent's {TRAIN_TREES}")
+    want = {"hist": units * (DEPTH + 1), "leaf_sums": units,
+            "hist_batch": 0}
+    if {k: launches[k] for k in want} != want or \
+            launches["tree_traverse"] < 3:
+        fail(f"refresh launched {launches}, not {want} and >= 3 "
+             "tree_traverse (the replay, the gate's two forests)")
+    gate_rec = decisions[2]["gate"]
+    holdout = load_holdout(d)
+    old = load_models(gen0)
+    new = load_models(train["models_dir"])
+    t0 = time.perf_counter()
+    card = auc_gate(old, new, holdout, device="cuda")
+    walls["gate"] = time.perf_counter() - t0
+    cpu = auc_gate(old, new, holdout, device="cpu")
+    gate_diff = max(abs(card.old_auc - cpu.old_auc),
+                    abs(card.new_auc - cpu.new_auc))
+    if gate_diff > REFRESH_GATE_TOL or not card.passed or \
+            abs(card.old_auc - gate_rec["old_auc"]) > REFRESH_GATE_TOL or \
+            abs(card.new_auc - gate_rec["new_auc"]) > REFRESH_GATE_TOL:
+        fail(f"gate card {card.report()} vs CPU {cpu.report()} vs the "
+             f"promote record's {gate_rec}")
+    log(f"refresh CLI: {kinds}; warm retrain {train['train_s']:.3f} s "
+        f"({launches['hist']} hist, {launches['tree_traverse']} "
+        f"tree_traverse launches), {train['new_rows']} new rows; gate AUC "
+        f"{card.old_auc:.6f} -> {card.new_auc:.6f} on {holdout.rows} rows "
+        f"in {walls['gate']:.3f} s, card vs CPU {gate_diff:.3g} — [{gpu}]")
+    # a restarted registry rolls back to the incumbent through the journal
+    restarted = ModelRegistry(state_dir=os.path.join(d, "serving"),
+                              device="cuda")
+    restarted.restore(os.path.basename(d), os.path.join(d, "models"),
+                      warm=False)
+    restarted.rollback(os.path.basename(d), warm=False)
+    if restarted.generation(os.path.basename(d)) != 0 or \
+            restarted.models_dir(os.path.basename(d)) != gen0:
+        fail("a restarted registry rolled back to "
+             f"{restarted.models_dir(os.path.basename(d))}, not {gen0}")
+
+    # (b) an in-process server and controller
+    key = os.path.basename(served_dir)
+    environment.set_property("shifu.serve.sloP99Ms", "1000")
+    server = ServeServer(model_set_dir=served_dir, buckets=REFRESH_BUCKETS,
+                         max_delay_ms=2.0, device="cuda")
+    server.start()
+    plane_bins = np.asarray(Shards.open(os.path.join(
+        served_dir, "tmp", "CleanedData")).load_all()["bins"])
+    probe = plane_bins[:64]
+
+    def score():
+        sc = server.registry.get(key)
+        return server.score(np.zeros((len(probe), sc.n_features),
+                                     np.float32),
+                            probe[:, :sc.n_bins_cols]).tobytes()
+
+    before = score()
+    clock = [1000.0]
+    injected = []
+    cfg = RefreshConfig(psi_threshold=0.25, cooldown_s=0.0,
+                        probation_s=60.0, units=REFRESH_SERVE_UNITS)
+
+    def controller():
+        return RefreshController(
+            served_dir, server=server, config=cfg,
+            clock=lambda: clock[0], sleep=lambda s: None,
+            drift_columns=drift_columns_for(served_dir),
+            slo_alerts_fn=lambda: injected + list(server.slo.alerts()))
+
+    out = {"walls_s": walls, "cli_launches": launches,
+           "gate": {"card": card.report(), "cpu": cpu.report(),
+                    "diff": gate_diff}, "decisions": kinds,
+           "psi_max": drift["psi_max"]}
+    swap = {}
+    reg = server.registry
+    orig_prepare, orig_commit = reg.prepare, reg.commit
+
+    def prepare(*a, **kw):
+        c0 = serve_graph_counts()["captures"]
+        t1 = time.perf_counter()
+        gen = orig_prepare(*a, **kw)
+        swap["prepare_s"] = time.perf_counter() - t1
+        swap["prepare_captures"] = serve_graph_counts()["captures"] - c0
+        return gen
+
+    def commit(*a, **kw):
+        c0 = serve_graph_counts()["captures"]
+        got = orig_commit(*a, **kw)
+        swap["commit_captures"] = serve_graph_counts()["captures"] - c0
+        return got
+
+    reg.prepare, reg.commit = prepare, commit
+    try:
+        ctrl = controller()
+        for s in range(CSV_ROWS, total, 512):
+            ctrl.observe(plane_bins[s:s + 512])
+        out["observed_psi_max"] = ctrl._drift.summary()["psi_max"]
+        environment.set_property("shifu.faults",
+                                 f"refresh:promote={key}:ioerror")
+        faults.reset_for_tests()
+        zero_tree_counts()
+        t0 = time.perf_counter()
+        try:
+            ctrl.tick()
+            fail("the refresh:promote fault did not fire")
+        except faults.InjectedFault:
+            pass
+        finally:
+            environment.set_property("shifu.faults", "")
+            faults.reset_for_tests()
+        walls["served_retrain"] = time.perf_counter() - t0
+        retrain = read_tree_counts()
+        if reg.generation(key) != 0 or score() != before or \
+                ctrl.journal.stage != "trained" or \
+                retrain["hist"] != REFRESH_SERVE_UNITS * (DEPTH + 1):
+            fail(f"after the promote fault: generation "
+                 f"{reg.generation(key)}, stage {ctrl.journal.stage}, "
+                 f"launches {retrain}")
+        ctrl2 = controller()
+        stop = threading.Event()
+        answered = [0]
+
+        def client():
+            while not stop.is_set():
+                score()
+                answered[0] += 1
+
+        load = threading.Thread(target=client, daemon=True)
+        load.start()
+        zero_tree_counts()
+        t0 = time.perf_counter()
+        try:
+            rec = ctrl2.tick()
+        finally:
+            stop.set()
+            load.join()
+        walls["resume_promote"] = time.perf_counter() - t0
+        resumed = read_tree_counts()
+        alerts = list(server.slo.alerts())
+        forced = serve_graph_counts()["captures_forced"]
+        if rec is None or rec["kind"] != "promote" or \
+                reg.generation(key) != 1 or resumed["hist"] != 0 or \
+                swap.get("prepare_captures", 0) < 1 or \
+                swap.get("commit_captures") != 0 or alerts or forced:
+            fail(f"the resumed controller decided {rec}, generation "
+                 f"{reg.generation(key)}, launches {resumed}, swap "
+                 f"{swap}, alerts {alerts}, forced captures {forced}")
+        promoted = score()
+        can = ctrl2._canary
+        if can is None or promoted == before:
+            fail("no canary pinned, or the promotion scores as before")
+        for _ in range(REFRESH_PROBATION_TICKS):
+            clock[0] += 1.0
+            sc = reg.get(key)
+            got = np.asarray(sc.score_batch(
+                can["x"], can["bins"] if sc.needs_bins else None))
+            if got.tobytes() != can["expected"].tobytes() or \
+                    ctrl2.tick() is not None:
+                fail("the canary scored otherwise in probation")
+        injected.append({"severity": "page", "budget": "latency"})
+        rec = ctrl2.tick()
+        if rec is None or rec["kind"] != "rollback" or \
+                reg.generation(key) != 0 or score() != before:
+            fail(f"the injected SLO alert decided {rec}, generation "
+                 f"{reg.generation(key)}")
+    finally:
+        reg.prepare, reg.commit = orig_prepare, orig_commit
+        server.stop()
+        environment.reset_for_tests()
+    out.update(swap=swap, retrain_launches=retrain,
+               resume_launches=resumed, answered=answered[0],
+               canary_rows=len(can["x"]))
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"refresh in process: promote fault survived, resumed with "
+        f"{resumed['hist']} hist launches, swap prepare "
+        f"{swap['prepare_s']:.3f} s ({swap['prepare_captures']} captures, "
+        f"{swap['commit_captures']} at commit), {answered[0]} requests "
+        f"answered across it, canary of {len(can['x'])} rows bit-equal on "
+        f"{REFRESH_PROBATION_TICKS} ticks, rollback bit-identical; phase "
+        f"{walls['phase']:.3f} s ({ {k: round(v, 3) for k, v in walls.items()} }) — [{gpu}]")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6839,6 +7239,10 @@ def main() -> None:
         mark("inputs_phase")
         tel = telemetry_phase(torch, root, stats["csv"], plan, gpu)
         mark("telemetry_phase")
+        refresh = refresh_phase(torch, root, stats["dir"], stats["csv"],
+                                plan, np.random.default_rng([args.seed, 12]),
+                                gpu)
+        mark("refresh_phase")
         log(f"combo WDL:GBT on {COMBO_ROWS} rows: run "
             f"{wdl_combo['walls_s']['run_cuda']:.3f} s on the card, "
             f"{wdl_combo['walls_s']['run_cpu']:.3f} s on the CPU; "
@@ -6932,6 +7336,7 @@ def main() -> None:
         "rf_encode_launches": aux["rf_encode"]["launches"],
         "stream_replay_launches":
             stream["b"]["replay_launches"]["tree_traverse"],
+        "refresh_launches": refresh["cli_launches"]["tree_traverse"],
         f"node_index_walk_at_{MC_WALK_ROWS}_rows": multi["walk"],
         "gpu": gpu}, {
         "name": "hist", "route": "cuda",
@@ -6941,6 +7346,8 @@ def main() -> None:
         "telemetry_launches": tel["launches"]["hist"],
         "telemetry_cost_launches": tel["costs"]["pallas.hist"],
         "combo_launches": aux["combo"]["hist_launches"],
+        "refresh_launches": refresh["cli_launches"]["hist"],
+        "refresh_served_launches": refresh["retrain_launches"]["hist"],
         "wdl_combo_launches": wdl_combo["hist_launches"],
         "rf_launches": forest["launches"]["hist"],
         "rf_leaf_sum_launches": forest["launches"]["leaf_sums"],

@@ -1,10 +1,16 @@
 """shifu-tpu-torch CLI — the port's counterpart of ``shifu_tpu.cli``.
 
-The port carries every model-set command of the reference but
-``refresh`` and ``lint`` (ROADMAP Queue 1 items 12 and 13): the offline
-path ``new → init → stats → norm → varselect → train →
-posttrain → eval`` of a GBT/RF/DT/NN/LR model set, serving, and the
-commands around it — ``export``, ``encode``, ``combo``, ``convert``,
+The port carries every model-set command of the reference but ``lint``
+(ROADMAP Queue 1 item 13, which raises ``NotImplementedError``): the
+offline path ``new → init → stats → norm → varselect → train →
+posttrain → eval`` of a GBT/RF/DT/NN/LR model set, serving, the
+continual ``refresh`` loop (a drift, quality or schedule trigger, a warm
+retrain on the new data window, the holdout AUC gate, the promotion into
+``serving/serving.json``, probation and rollback: its appended GBT trees
+build their histograms with the ``hist`` kernel, and the restored
+forest's replay and the gate's scores walk ``tree_traverse`` on the
+card), and the commands around it — ``export``, ``encode``, ``combo``,
+``convert``,
 ``analysis`` (``-fi``, and ``--telemetry`` / ``--timeline`` /
 ``--utilization`` / ``--aggregate`` over the trace files), ``monitor``,
 ``test`` and the version commands ``save``, ``switch``, ``history``,
@@ -44,6 +50,7 @@ train or run nets there.
     python -m shifu_tpu_torch.cli --dir <modelset> save [<name>] | switch <name> | history | show | delete <name> | cp <dir>
     python -m shifu_tpu_torch.cli --dir <modelset> serve [--port N] [--replicas N]
     python -m shifu_tpu_torch.cli --dir <modelset> serve --selfcheck 4 --device cpu
+    python -m shifu_tpu_torch.cli --dir <modelset> refresh [--daemon] [--poll S] [--device cpu]
 """
 
 from __future__ import annotations
@@ -74,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA port of shifu-tpu (new, init, stats, "
         "norm, varselect, GBT/RF/DT/NN/LR train, posttrain, eval, export, "
         "encode, combo, convert, analysis, monitor, test, version "
-        "commands, serve)")
+        "commands, serve, refresh)")
     p.add_argument("--dir", default=".", help="model-set directory (default: cwd)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
@@ -199,6 +206,30 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--announce", dest="serve_announce", default=None,
                     help=argparse.SUPPRESS)
     _device_arg(sp)
+
+    sp = sub.add_parser("refresh", help="continual refresh: drift-gated "
+                        "warm retrain -> AUC-gated hot-swap promotion -> "
+                        "SLO-observed probation with automatic rollback "
+                        "(knobs: -Dshifu.refresh.psiThreshold, "
+                        "-Dshifu.refresh.intervalS, "
+                        "-Dshifu.refresh.cooldownS, "
+                        "-Dshifu.refresh.minAucDelta, "
+                        "-Dshifu.refresh.probationS, "
+                        "-Dshifu.refresh.units, "
+                        "-Dshifu.refresh.canaryRows; one cycle attempt by "
+                        "default)")
+    sp.add_argument("--daemon", dest="refresh_daemon", action="store_true",
+                    help="stay resident: poll the drift artifact and the "
+                    "schedule until interrupted")
+    sp.add_argument("--poll", dest="refresh_poll", type=float,
+                    default=2.0, metavar="S",
+                    help="seconds between controller ticks (default 2)")
+    _device_arg(sp)
+
+    sp = sub.add_parser("lint", help="the reference's AST convention "
+                        "checker; not yet ported (ROADMAP Queue 1 item "
+                        "13): raises NotImplementedError, whatever its "
+                        "arguments")
 
     sp = sub.add_parser("export", help="export the models and stats "
                         "(pmml|baggingpmml|bagging|columnstats|woemapping|"
@@ -337,7 +368,10 @@ def _device_arg(sp) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = _split_props(list(argv if argv is not None else sys.argv[1:]))
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args, rest = parser.parse_known_args(argv)
+    if rest and args.command != "lint":
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     logging.basicConfig(level=logging.DEBUG if args.verbose
                         else logging.WARNING)
     if getattr(args, "telemetry", False):
@@ -403,6 +437,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                                                 "shuffle": args.shuffle,
                                                 "dry": args.dry},
                               device=args.device).run()
+    if args.command == "refresh":
+        from .pipeline.refresh import RefreshProcessor
+        return RefreshProcessor(args.dir, params={
+            "daemon": args.refresh_daemon, "poll": args.refresh_poll},
+            device=args.device).run()
+    if args.command == "lint":
+        raise NotImplementedError(
+            "lint is not yet ported to shifu_tpu_torch (ROADMAP Queue 1 "
+            "item 13: its rules are written for JAX idioms and need "
+            "retargeting) — run `python -m shifu_tpu.cli lint`")
     return _aux_command(args)
 
 

@@ -28,36 +28,52 @@ def _unwrap_optional(tp):
     return tp
 
 
-def _coerce(tp, value):
-    """Coerce a JSON value into the annotated type ``tp``."""
-    if value is None:
-        return None
+def _identity(value):
+    return value
+
+
+@functools.lru_cache(maxsize=None)
+def _coercer(tp):
+    """The function that coerces a JSON value into the annotated type
+    ``tp`` (None stays None), built once a type: a ColumnConfig.json of a
+    few hundred columns holds tens of thousands of values."""
     tp = _unwrap_optional(tp)
     origin = get_origin(tp)
     if origin in (list, typing.List):
         (elem,) = get_args(tp) or (Any,)
-        scalar = _unwrap_optional(elem)
-        if scalar is float:          # the bin lists: one dispatch a list
-            return [float(v) if isinstance(v, (int, float)) else v
-                    for v in value]
-        return [_coerce(elem, v) for v in value]
+        if _unwrap_optional(elem) is float:   # the bin lists
+            return lambda value: None if value is None else [
+                float(v) if isinstance(v, (int, float)) else v
+                for v in value]
+        each = _coercer(elem)
+        if each is _identity:
+            return lambda value: None if value is None else list(value)
+        return lambda value: None if value is None else [
+            each(v) for v in value]
     if origin in (dict, typing.Dict):
         args = get_args(tp)
-        vt = args[1] if len(args) == 2 else Any
-        return {k: _coerce(vt, v) for k, v in value.items()}
+        each = _coercer(args[1] if len(args) == 2 else Any)
+        return lambda value: None if value is None else {
+            k: each(v) for k, v in value.items()}
     if isinstance(tp, type) and dataclasses.is_dataclass(tp):
-        return from_dict(tp, value)
+        return lambda value: None if value is None else from_dict(tp, value)
     if isinstance(tp, type) and issubclass(tp, enum.Enum):
-        if isinstance(tp, type) and isinstance(value, tp):
-            return value
-        return parse_enum(tp, value)
-    if tp is float and isinstance(value, (int, float)):
-        return float(value)
-    if tp is int and isinstance(value, float) and value == int(value):
-        return int(value)
-    if tp is bool and isinstance(value, str):
-        return value.strip().lower() in ("true", "1", "yes")
-    return value
+        return lambda value: None if value is None else parse_enum(tp, value)
+    if tp is float:
+        return lambda value: float(value) \
+            if isinstance(value, (int, float)) else value
+    if tp is int:
+        return lambda value: int(value) \
+            if isinstance(value, float) and value == int(value) else value
+    if tp is bool:
+        return lambda value: value.strip().lower() in ("true", "1", "yes") \
+            if isinstance(value, str) else value
+    return _identity
+
+
+def _coerce(tp, value):
+    """Coerce a JSON value into the annotated type ``tp``."""
+    return _coercer(tp)(value)
 
 
 def parse_enum(enum_cls, value):
@@ -78,21 +94,23 @@ def parse_enum(enum_cls, value):
 
 @functools.lru_cache(maxsize=None)
 def _class_info(cls):
-    """(type hints, field names) of dataclass ``cls``, resolved once."""
-    return get_type_hints(cls), frozenset(f.name
-                                          for f in dataclasses.fields(cls))
+    """(a coercer a field, field names) of dataclass ``cls``, resolved
+    once."""
+    hints = get_type_hints(cls)
+    names = frozenset(f.name for f in dataclasses.fields(cls))
+    return {n: _coercer(hints[n]) for n in names if n in hints}, names
 
 
 def from_dict(cls: Type[T], data: Dict[str, Any]) -> T:
     """Build dataclass ``cls`` from a JSON dict; unknown keys land in ``extra``."""
     if data is None:
         return None
-    hints, field_names = _class_info(cls)
+    coercers, field_names = _class_info(cls)
     kwargs = {}
     extra = {}
     for key, value in data.items():
         if key in field_names and key != "extra":
-            kwargs[key] = _coerce(hints[key], value)
+            kwargs[key] = coercers[key](value)
         else:
             extra[key] = value
     obj = cls(**kwargs)

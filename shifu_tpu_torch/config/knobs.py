@@ -184,6 +184,27 @@ _DECLS: Tuple[Knob, ...] = (
        "brownout degradation: sustained SLO burn or queue buildup flips the "
        "worker into a degraded mode (shrunk flush deadline, "
        "sampling/refinement off) with hysteresis on recovery"),
+    # ---- continual refresh plane (refresh/)
+    _k("shifu.refresh.psiThreshold", "property", "float", "",
+       "PSI breach that triggers a refresh cycle (default: "
+       "shifu.drift.psiThreshold)"),
+    _k("shifu.refresh.intervalS", "property", "float", "0",
+       "wall-clock refresh schedule in seconds (0 = drift-only)"),
+    _k("shifu.refresh.cooldownS", "property", "float", "300",
+       "minimum seconds between refresh cycles (thrash guard: a "
+       "sustained breach records ONE skip per window)"),
+    _k("shifu.refresh.minAucDelta", "property", "float", "0",
+       "holdout AUC bar a candidate must clear to promote (0 = strict "
+       "non-regression)"),
+    _k("shifu.refresh.probationS", "property", "float", "60",
+       "post-promotion probation window watched for SLO burn / canary "
+       "parity before the promotion is final"),
+    _k("shifu.refresh.units", "property", "int", "0",
+       "extra epochs/trees per warm retrain (0 = the configured "
+       "numTrainEpochs / TreeNum budget, warm-started)"),
+    _k("shifu.refresh.canaryRows", "property", "int", "64",
+       "canary batch size pinned at promotion for probation bit-parity "
+       "checks"),
     # ---- model-quality observability plane (obs/scorelog+outcomes+quality)
     _k("shifu.scorelog.sampleRate", "property", "float", "0",
        "serve-path score-log head-sampling rate (0..1; 0 = plane off)"),

@@ -36,8 +36,9 @@ writer's tmp files.  Overflowing ``shifu.ingest.rawCacheBudgetBytes``
 ``shifu.ingest.rawCache=false`` turns the cache off.  Each pass logs its
 hit or miss as it starts, and a committed cache its bytes written; with
 telemetry on the parse pool counts them in ``rawcache.hits`` /
-``rawcache.misses`` / ``rawcache.bytes_written``.  The reference's
-``rawcache:commit`` fault site is not ported (ROADMAP item 13).
+``rawcache.misses`` / ``rawcache.bytes_written``.  The
+``rawcache:commit`` fault site fires before a cache's commit, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -195,17 +196,25 @@ class RawCacheWriter:
                 "chunkRaw": self._chunk_raw,
                 "chunkRows": self.chunk_rows,
                 "bytes": self.bytes_written,
-                "source": self.sig}, "raw cache manifest commit")
+                "source": self.sig}, "raw cache manifest commit",
+                commit=True)
             self._dead = True
             return True
         except OSError:
             self.abort()
             return False
 
-    def _write_manifest(self, man: dict, what: str) -> None:
+    def _write_manifest(self, man: dict, what: str,
+                        commit: bool = False) -> None:
+        """Write the manifest atomically; ``commit`` marks the cache's
+        commit point (the ``rawcache:commit`` fault site), not an abort
+        marker."""
+        from .. import faults
         tmp = os.path.join(self.directory, MANIFEST + self._suffix)
 
         def write():
+            if commit:
+                faults.fire("rawcache", "commit", 0, path=tmp)
             with open(tmp, "w") as f:
                 json.dump(man, f)
             os.replace(tmp, os.path.join(self.directory, MANIFEST))

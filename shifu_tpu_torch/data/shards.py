@@ -68,6 +68,35 @@ def _npz_rows(path: str) -> int:
         return int(len(np.load(path)["y"]))
 
 
+class _WireView:
+    """SpillReader facade over the tail of a wire plane from shard
+    ``base``: memmaps and prefix sums rebase, so the stream's window and
+    cursor bookkeeping do not see where the view starts (the
+    :meth:`Shards.from_row` cursor, which slices npz file lists the same
+    way)."""
+
+    def __init__(self, rd, base_shard: int):
+        self._rd = rd
+        self._g0 = int(rd.cum[base_shard])
+        self.rows = rd.rows - self._g0
+        self.shard_rows = list(rd.shard_rows[base_shard:])
+        self.cum = (np.asarray(rd.cum[base_shard:]) - self._g0).astype(
+            np.int64)
+
+    def memmap(self, key: str):
+        return self._rd.memmap(key)[self._g0:]
+
+    def global_of(self, shard: int, offset: int) -> Optional[int]:
+        if not 0 <= shard < len(self.shard_rows):
+            return None
+        g = int(self.cum[shard]) + int(offset)
+        return g if 0 <= g <= self.rows else None
+
+    def src_of(self, g: int):
+        si = int(np.searchsorted(self.cum, g, side="right") - 1)
+        return si, int(g - self.cum[si])
+
+
 @dataclass
 class Shards:
     directory: str
@@ -75,6 +104,9 @@ class Shards:
     files: List[str]
     _shard_rows: Optional[List[int]] = field(default=None, repr=False,
                                              compare=False)
+    # a wire plane's shards are flat raw files, no npz; _wire_base is the
+    # from_row cursor in shard units
+    _wire_base: int = field(default=0, repr=False, compare=False)
     _wire_rd: Optional[object] = field(default=None, repr=False,
                                        compare=False)
 
@@ -114,7 +146,8 @@ class Shards:
                     f"the wire spill under {d} is missing, torn or "
                     "stale — re-run `norm`")
             self._wire_rd = rd
-        return self._wire_rd
+        rd = self._wire_rd
+        return _WireView(rd, self._wire_base) if self._wire_base else rd
 
     def iter_shards(self, start: int = 0, strict: bool = False
                     ) -> Iterator[Dict[str, np.ndarray]]:
@@ -131,8 +164,11 @@ class Shards:
             rd = self.wire_reader()
             keys = list(self.schema.get("wireKeys") or [])
             for i in range(start, len(rd.shard_rows)):
-                s, e = int(rd.cum[i]), int(rd.cum[i + 1])
-                yield {k: rd.memmap(k)[s:e] for k in keys}
+                def _slice(i=i):
+                    faults.fire("shards", "shard", i, path=self.directory)
+                    s, e = int(rd.cum[i]), int(rd.cum[i + 1])
+                    return {k: rd.memmap(k)[s:e] for k in keys}
+                yield io_retry(_slice, "wire shard read", self.directory)
             return
         bad_threshold = 0.0 if strict else \
             environment.get_float("shifu.data.badThreshold", 0.0)
@@ -201,3 +237,30 @@ class Shards:
     @property
     def n_shards(self) -> int:
         return len(self.shard_rows) if self.is_wire else len(self.files)
+
+    def from_row(self, row: int) -> "Shards":
+        """A view of this shard set from the shard holding global row
+        ``row``: the refresh loop's data-window cursor, shard-aligned and
+        rounded down so no row is skipped.  A cursor at or past the end
+        keeps the last shard: with no new data the freshest window is
+        still the one to train on."""
+        if row <= 0 or self.n_shards == 0:
+            return self
+        rows = self.shard_rows
+        cum, k = 0, len(rows) - 1
+        for i, r in enumerate(rows):
+            if cum + r > row:
+                k = i
+                break
+            cum += r
+        kept = [int(x) for x in rows[k:]]
+        schema = dict(self.schema)
+        if "shardRows" in schema:
+            schema["shardRows"] = list(kept)
+        if "numRows" in schema:
+            schema["numRows"] = int(sum(kept))
+        view = Shards(self.directory, schema, list(self.files[k:]))
+        view._shard_rows = kept
+        view._wire_base = self._wire_base + k
+        view._wire_rd = self._wire_rd
+        return view

@@ -123,6 +123,8 @@ class SpillWriter:
         if self._dead:
             return False
         try:
+            from .. import faults
+            faults.fire("spill", "append", len(self._shard_rows))
             n = int(len(next(iter(part.values()))))
             if not self._files:
                 for k in self.keys:
@@ -209,9 +211,11 @@ class SpillWriter:
                 pass
 
     def _write_manifest(self, man: dict) -> None:
+        from .. import faults
         tmp = os.path.join(self.directory, MANIFEST + self._suffix)
 
         def write():
+            faults.fire("spill", "manifest", 0, path=tmp)
             with open(tmp, "w") as f:
                 json.dump(man, f)
             os.replace(tmp, os.path.join(self.directory, MANIFEST))

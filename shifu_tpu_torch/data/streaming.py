@@ -420,7 +420,12 @@ class ShardStream:
         ahead of the consumer, so window N+1's copy overlaps window N's
         kernels.  ``depth=None`` is the stream's prefetch depth; ``depth <=
         0`` prepares inline.  A window's ``on_consume`` runs on the
-        consumer's thread as it takes the window."""
+        consumer's thread as it takes the window.  Each window's assembly
+        and prep runs under an ``ingest.window_prep`` span; the time the
+        consumer spends waiting for a window (inline: all of its prep)
+        lands in the ``ingest.h2d_wait_seconds`` counter, the ingest
+        stall the telemetry report shows."""
+        import time
         depth = self.prefetch if depth is None else int(depth)
 
         def _prep(win: "Window") -> "PreparedWindow":
@@ -437,9 +442,17 @@ class ShardStream:
             return item
 
         if depth <= 0:
-            for win in self.windows(start_shard, shard_offset, start_row):
-                yield _taken(_prep(win))
-            return
+            wait_c = obs.counter("ingest.h2d_wait_seconds")
+            it = self.windows(start_shard, shard_offset, start_row)
+            while True:
+                t0 = time.perf_counter()
+                with obs.span("ingest.window_prep"):
+                    win = next(it, None)
+                    if win is None:
+                        return
+                    item = _prep(win)
+                wait_c.inc(time.perf_counter() - t0)
+                yield _taken(item)
 
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         stop = threading.Event()
@@ -448,7 +461,13 @@ class ShardStream:
             try:
                 for win in self.windows(start_shard, shard_offset,
                                         start_row):
-                    if not _put_item(q, stop, _prep(win)):
+                    # off the consumer's thread: the timeline puts these
+                    # spans on a track of their own, opposite the
+                    # consumer's kernels
+                    with obs.span("ingest.window_prep", window=win.start,
+                                  rows=win.n_valid):
+                        item = _prep(win)
+                    if not _put_item(q, stop, item):
                         return
                 _put_item(q, stop, None)
             except BaseException as e:
@@ -457,15 +476,20 @@ class ShardStream:
         t = threading.Thread(target=worker, daemon=True,
                              name="shifu-ingest")
         t.start()
+        wait_s = 0.0
         try:
             while True:
-                item = q.get()
+                t0 = time.perf_counter()
+                with obs.span("ingest.h2d_wait"):
+                    item = q.get()
+                wait_s += time.perf_counter() - t0
                 if isinstance(item, BaseException):
                     raise item
                 if item is None:
                     break
                 yield _taken(item)
         finally:
+            obs.counter("ingest.h2d_wait_seconds").inc(wait_s)
             _retire(q, stop, t)
 
     @property

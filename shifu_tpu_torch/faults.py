@@ -12,13 +12,9 @@ Spec grammar (env ``SHIFU_TPU_FAULTS`` or property ``-Dshifu.faults``)::
     SHIFU_TPU_FAULTS="reader:file=0:ioerror@2"    # first 2 hits fail
 
 The spec grammar, the actions and the declared sites are the
-reference's, so one spec drives either package.  The port wires the
-serve and obs sites (``serve:admit``, ``serve:request``, ``serve:swap``,
-``obs:scorelog``, ``obs:heartbeat``), ``stats:chunk``, ``serve:replica``
-with the fleet router, and ``reader:file``, ``shards:shard`` and
-``step:phase``; the train, ingest and spill sites are declared for parity
-and wired with those planes (ROADMAP Queue 1 item 13).  The reference's
-sites:
+reference's, so one spec drives either package.  The port fires every
+declared site at the reference's boundary but the two multi-device ones,
+``dcn:step`` and ``train:rejoin`` (ROADMAP Queue 1 step 5).  The sites:
 
     norm:shard=<k>      before shard k's commit record lands
     norm:wire=<k>       before shard k's rows append to the direct-to-
@@ -65,6 +61,12 @@ sites:
                         segment readers skip with a surfaced count;
                         committed segments stay intact and the next
                         writer sweeps the orphan and continues
+    refresh:trigger=<key>   before a refresh trigger record commits
+    refresh:promote=<key>   after the candidate passes the AUC gate,
+                        before the hot-swap — the incumbent stays live
+                        and the refresh journal resumes at the gate
+    refresh:rollback=<key>  before a probation failure re-flips the
+                        registry to the previous generation
 
 Actions:
 

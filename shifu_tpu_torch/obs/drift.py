@@ -17,10 +17,11 @@ is available at any moment, computed by the exact batch formula
 incremental accumulation IS the batch computation) at per-window cost of
 one ``np.add.at`` over a packed (column, bin) space.
 
-This is the refresh loop's promotion signal (the port's refresh is
-ROADMAP Queue 1 item 12): the eval-gated refresh reads ``drift.psi_max``
-/ the per-column table to decide whether a retrain is warranted, and ``analysis --telemetry`` renders the same table from the
-``drift.json`` artifact.
+This is the refresh loop's trigger: the controller
+(:mod:`shifu_tpu_torch.refresh.controller`) reads ``psi_max`` from a
+live monitor or the ``drift.json`` artifact to decide whether a retrain
+is warranted, and ``analysis --telemetry`` renders the same table from
+the artifact.
 
 Zero-cost when telemetry is disabled: :func:`start_drift_monitor`
 returns ``None`` and the pipeline call sites skip the per-window update

@@ -46,7 +46,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .. import obs
+from .. import faults, obs
 from ..config import environment
 from ..config.validator import ModelStep
 from ..data.parsepool import iter_extracted
@@ -262,6 +262,7 @@ class NormalizeProcessor(BasicProcessor):
             if self._wire is not None and self._wire.n_shards <= shard:
                 # an earlier divergence truncated the wire behind the
                 # journal: land this committed shard's rows again
+                faults.fire("norm", "wire", shard, path=cl_path)
                 self._wire.append({"bins": b.astype(self._bins_dtype),
                                    "y": y, "w": w})
             return
@@ -269,11 +270,13 @@ class NormalizeProcessor(BasicProcessor):
             log.warning("norm resume: shard %d row count diverged "
                         "(journal %s vs replay %d) — rewriting",
                         shard, prev.get("rows"), len(y))
+        faults.fire("norm", "shard", shard, path=np_path)
         atomic_savez(np_path, x=x, y=y, w=w)
         if self._wire is not None:
             if self._wire.n_shards > shard:
                 # a diverged resumed shard: it and everything after re-run
                 self._wire.truncate_to(shard)
+            faults.fire("norm", "wire", shard, path=cl_path)
             self._wire.append({"bins": b.astype(self._bins_dtype),
                                "y": y, "w": w})
             files = [np_path]

@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from .. import faults
 from ..config.meta import validate_train_params
 from ..config.model_config import Algorithm
 from ..config.validator import ModelStep, ValidationError
@@ -492,6 +493,7 @@ class TrainProcessor(BasicProcessor):
                 if items.get(f"bag-{b}"):
                     log.info("svm bag %d: already solved, skipping", b)
                     continue
+                faults.fire("train", "bag", b, path=path)
                 tw, _ = member_masks(
                     n, 1, valid_rate=mc.train.validSetRate,
                     sample_rate=mc.train.baggingSampleRate,
@@ -525,6 +527,7 @@ class TrainProcessor(BasicProcessor):
                     f"Train Error: {tr:.6f} Validation Error: {va:.6f}")
             pf.write(line + "\n")
             pf.flush()
+            faults.fire("train", "epoch", epoch + 1)
             log.info(line)
         return progress
 
@@ -605,7 +608,19 @@ class TrainProcessor(BasicProcessor):
                  np.round(res.valid_errors, 6).tolist())
 
     def _open_shards(self, directory: str) -> Shards:
-        return Shards.open(directory)
+        """The step's view of the materialized plane.  The refresh loop
+        passes ``window_cursor`` (rows earlier trainings consumed), so a
+        warm retrain reads only the new data windows, shard-aligned
+        (:meth:`Shards.from_row`)."""
+        shards = Shards.open(directory)
+        cur = int(self.params.get("window_cursor") or 0)
+        if cur:
+            view = shards.from_row(cur)
+            log.info("data-window cursor %d: training on %d of %d rows "
+                     "(%d of %d shards)", cur, view.num_rows,
+                     shards.num_rows, view.n_shards, shards.n_shards)
+            return view
+        return shards
 
     def _use_streaming(self, shards: Shards, schema: dict) -> bool:
         from ..data.streaming import should_stream

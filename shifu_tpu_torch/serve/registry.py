@@ -138,6 +138,24 @@ class ModelRegistry:
         with self._lock:
             return self._peak.get(key, 0) + 1
 
+    def models_dir(self, key: str) -> Optional[str]:
+        """The directory the live generation was loaded from (None for
+        in-memory models)."""
+        with self._lock:
+            return self._dirs.get(key)
+
+    def relocate(self, key: str, models_dir: str) -> None:
+        """Re-point the live generation at ``models_dir``, a copy of the
+        files it was loaded from, and commit the journal: the refresh
+        loop moves the incumbent out of the training workspace before a
+        retrain overwrites it, so a rollback to it (a restarted process's
+        too) loads the incumbent again."""
+        with self._lock:
+            if key not in self._live:
+                raise KeyError(f"relocate({key!r}) before load()")
+            self._dirs[key] = models_dir
+        self._journal()
+
     def generation_history(self, key: str) -> List[Dict]:
         """Previous generations (oldest first) still rollback-able."""
         with self._lock:

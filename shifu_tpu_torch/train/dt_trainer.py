@@ -66,7 +66,7 @@ from typing import (Any, Callable, ContextManager, Dict, List, Optional,
 import numpy as np
 import torch
 
-from .. import ioutil, obs
+from .. import faults, ioutil, obs
 from ..config.model_config import Algorithm
 from ..data.shards import bins_wire_dtype
 from ..models import tree as tree_model
@@ -1624,8 +1624,10 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
         cand_k = _tail_candidate_k(c) if use_c2f else 0
         prev = None                  # the last built tree, on the device
         pend: List[torch.Tensor] = []
+        drains = 0                   # super-batch drains (the fault site's)
 
         def drain_pend() -> None:
+            nonlocal drains
             if not pend:
                 return
             for row in torch.stack(pend).cpu().numpy():
@@ -1633,6 +1635,8 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                 trees.append(tree)
                 fi_parts.append(fi_h.astype(np.float64))
             pend.clear()
+            drains += 1
+            faults.fire("train", "superbatch", drains)
 
         built = len(trees)
         stopped = False
@@ -1696,6 +1700,8 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                 fi_tree = torch.zeros(c, dtype=torch.float32, device=dev)
                 if mis < depth:
                     repairs += 1
+                    obs.counter("train.tail_repairs").inc()
+                    obs.counter("train.tail_repair_levels").inc(depth - mis)
                     # diverged at `mis`: its own choice is exact (routed by
                     # confirmed levels), the deeper histograms are not.  The
                     # repair's subtraction chain starts from the select's
@@ -1972,6 +1978,7 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
         drain_rf, history, progress, len(trees) - len(history))
 
     ti = len(trees)
+    sb_drains = 0               # super-batch drains (the fault site's)
     mega = None                 # fully resident: ONE coalesced row block
     n_stats = K if mc else 2
     while ti < settings.n_trees:
@@ -2077,6 +2084,8 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                 progress(t, tr_err, va_err)
         mark_progress_rf()
         ti += TB
+        sb_drains += 1
+        faults.fire("train", "superbatch", sb_drains)
         if checkpoint_fn and settings.checkpoint_every:
             checkpoint_fn(trees, history, None)   # a commit boundary
     flush_progress_rf()
@@ -2656,11 +2665,25 @@ def run_tree_training(proc) -> int:
             obs.counter("train.trees").inc()
             obs.event("tree", trainer=alg.name.lower(), tree=ti + 1,
                       train_err=round(tr, 6), valid_err=round(va, 6))
+            faults.fire("train", "tree", ti + 1)
             if (ti + 1) % 5 == 0 or ti == 0:
                 log.info(line)
 
         init_trees, init_score, start_history, init_scores = \
             _restore_or_continuous(proc, alg, settings)
+        refresh_extra = int(proc.params.get("refresh_extra") or 0)
+        if refresh_extra and init_trees:
+            # refresh warm start: the budget is N more trees appended past
+            # the restored forest (a plain resume keeps TreeNum); on the
+            # new data window the restored trees replay through B4 unless
+            # the score sidecar covers exactly these rows
+            settings.n_trees = len(init_trees) + refresh_extra
+            # an early stop that tripped on the old stream must not veto
+            # appending trees for the new window: do not replay it
+            start_history = None
+            log.info("refresh warm-start: %d restored trees + %d new "
+                     "(target %d)", len(init_trees), refresh_extra,
+                     settings.n_trees)
         if init_scores is not None and len(init_scores) != shards.num_rows:
             log.info("checkpoint scores cover %d rows, plane has %d — "
                      "replaying restored trees instead",

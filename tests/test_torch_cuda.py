@@ -17,7 +17,11 @@ WDL trainer on the card against the CPU (one host sync a minibatch
 epoch), the hashed-ID buckets on the card against the host, the kernel
 SVM's dual on the card against the CPU, and WDL and SVM forwards that
 never leave the card; a two-replica serving fleet whose workers run on
-the card, and ``stats -correlation`` on the card against the CPU.
+the card, and ``stats -correlation`` on the card against the CPU; a warm
+GBT refresh retrain on the card (``hist`` launched for the appended trees
+alone, the restored forest bit-equal, its replay through
+``tree_traverse``) and a refresh promotion whose canary replays bit for
+bit through probation.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -1564,3 +1568,78 @@ def test_stats_correlation_on_the_card_matches_the_cpu(cuda, fraud_set,
         cpu = json.load(f)
     assert [c["columnBinning"]["binBoundary"] for c in card] == \
         [c["columnBinning"]["binBoundary"] for c in cpu]
+
+
+def test_warm_gbt_retrain_on_the_card_appends_to_the_restored_forest(
+        cuda, fraud_set, monkeypatch):
+    """``warm_retrain`` on the card over the set re-normed in shards of
+    1,000 rows: 2 trees appended to the incumbent's 5 (2 x (4 + 1)
+    ``hist`` launches, nothing else retrained), the 5 bit-equal and the
+    score sidecar restoring f; then 2 more past the data-window cursor
+    (the last shard only), where the restored 7 replay through
+    ``tree_traverse``."""
+    import os
+
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.models.tree import load_model
+    from shifu_tpu_torch.ops import tree as tree_ops
+    from shifu_tpu_torch.refresh import RefreshJournal, warm_retrain
+    monkeypatch.setattr("shifu_tpu_torch.pipeline.norm.SHARD_ROWS", 1000)
+    assert cli.main(["--dir", fraud_set, "norm"]) == 0
+    _, incumbent = load_model(os.path.join(fraud_set, "models",
+                                           "model0.gbt"))
+    journal = RefreshJournal(fraud_set)
+    prev = incumbent
+    for gen, restored in ((1, 5), (2, 7)):
+        tree_ops.build_histograms.launches = 0
+        tq.predict_forest_quant.launches = 0
+        info = warm_retrain(fraud_set, gen, journal=journal, units=2,
+                            device="cuda")
+        assert info["warm"] and info["resumed_from"] == restored
+        assert tree_ops.build_histograms.launches == 2 * (4 + 1)
+        replays = tq.predict_forest_quant.launches
+        assert (replays >= 1) if gen == 2 else (replays == 0)
+        _, trees = load_model(os.path.join(info["models_dir"],
+                                           "model0.gbt"))
+        assert len(trees) == restored + 2
+        for a, b in zip(trees[:restored], prev):
+            for k in ("split_feat", "left_mask", "leaf_value"):
+                assert getattr(a, k).tobytes() == getattr(b, k).tobytes()
+        prev = trees
+
+
+def test_refresh_promotion_canary_replays_bit_identically(cuda, fraud_set):
+    """An in-process server on the card: a breach runs the warm retrain
+    and the gate on the card, the swap captures the candidate's rungs at
+    prepare and none at commit, and the canary pinned at promotion
+    scores bit-identically through probation to ``complete``."""
+    import numpy as np
+
+    from shifu_tpu_torch.refresh import (PROBATION, RefreshConfig,
+                                         RefreshController)
+    from shifu_tpu_torch.serve import ServeServer, serve_capture_count
+    srv = ServeServer(fraud_set, key="r", buckets=(1, 8, 64),
+                      max_delay_ms=0.5)
+    now = [1000.0]
+    ctrl = RefreshController(
+        fraud_set, server=srv,
+        config=RefreshConfig(psi_threshold=0.25, cooldown_s=0.0,
+                             probation_s=5.0, units=2, canary_rows=16,
+                             holdout_rows=512),
+        clock=lambda: now[0], sleep=lambda s: None,
+        drift_fn=lambda: {"psi_max": 0.9, "rows": 1, "flagged": []},
+        slo_alerts_fn=lambda: [])
+    rec = ctrl.tick()
+    assert rec["kind"] == "promote" and ctrl.journal.stage == PROBATION
+    assert srv.registry.generation("r") == 1
+    live = srv.registry.get("r")
+    assert live.captures == 2 * len(live.buckets) and live.lazy_captures == 0
+    can = ctrl._canary
+    assert can is not None and can["gen"] == 1
+    for _ in range(3):
+        got = live.score_batch(can["x"], can["bins"])
+        assert np.asarray(got).tobytes() == can["expected"].tobytes()
+        assert ctrl.tick() is None
+    now[0] += 6.0
+    assert ctrl.tick()["kind"] == "complete"
+    assert serve_capture_count("serve.score.r") == 0

@@ -150,3 +150,42 @@ def test_train_dry_validates_logs_and_trains_nothing(prepared_set, tmp_path,
     with pytest.raises(ValidationError, match="baggingSampleRate"):
         main(["--dir", str(tmp_path / "port"), "train", "-dry", "--device",
               "cpu"])
+
+
+def test_jsonbean_coerces_as_the_reference():
+    """The port's config loader builds one coercer a field type; a
+    ColumnConfig and a ModelConfig of awkward JSON (ints in float lists,
+    integral floats in int lists, nulls inside lists, booleans as
+    strings, enums by name and by value in any case, unknown keys at
+    every level) load to the reference's values, types included."""
+    from shifu_tpu.config import jsonbean as rjb
+    from shifu_tpu.config.column_config import ColumnConfig as RCC
+    from shifu_tpu.config.model_config import ModelConfig as RMC
+    from shifu_tpu_torch.config import jsonbean as pjb
+    from shifu_tpu_torch.config.column_config import ColumnConfig as PCC
+    from shifu_tpu_torch.config.model_config import ModelConfig as PMC
+
+    def typed(x):
+        if isinstance(x, dict):
+            return {k: typed(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [typed(v) for v in x]
+        return (type(x).__name__, x)
+
+    cc = {"columnNum": 3.0, "columnName": "c", "columnType": "c",
+          "columnFlag": "target", "finalSelect": "TRUE",
+          "sampleValues": ["a", None], "hybridThreshold": 2,
+          "columnStats": {"max": 7, "totalCount": 10.0, "unitStats": None,
+                          "psi": None, "newStat": [1, 2]},
+          "columnBinning": {"length": 4.0, "binBoundary": [1, 2.5, None],
+                            "binCountPos": [3.0, 4, None],
+                            "binCategory": ["x", "y"], "odd": {"k": 1}},
+          "future": 1}
+    mc = {"basic": {"name": "m", "extraKey": True},
+          "dataSet": {"dataPath": "p", "posTags": ["1"]},
+          "train": {"algorithm": "gbt", "baggingNum": 2.0,
+                    "validSetRate": 0, "params": {"TreeNum": 3}},
+          "evals": [{"name": "e", "dataSet": {"dataPath": "q"}}]}
+    for rcls, pcls, doc in ((RCC, PCC, cc), (RMC, PMC, mc)):
+        ref, port = rjb.from_dict(rcls, doc), pjb.from_dict(pcls, doc)
+        assert typed(pjb.to_dict(port)) == typed(rjb.to_dict(ref))

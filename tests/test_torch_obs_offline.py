@@ -457,3 +457,60 @@ def test_telemetry_off_starts_no_thread_and_writes_no_trace(prepared_set):
     after = {t.name for t in threading.enumerate()}
     assert not {n for n in after - before if "heartbeat" in n.lower()
                 or "export" in n.lower()}
+
+
+# ------------------------------------------------------ streamed ingest
+STREAM_WINDOW = 1000
+
+
+def test_streamed_gbt_records_the_ingest_stall_and_tail_repairs(
+        prepared_set, tmp_path, monkeypatch):
+    """A streamed GBT with a disk tail, coarse-to-fine, telemetry on, in
+    both packages: the TRAIN block records ``ingest.h2d_wait_seconds``,
+    the ``ingest.window_prep`` spans (the port's prefetch thread also
+    waits under ``ingest.h2d_wait``) and the reference's
+    ``train.tail_repairs`` and ``train.tail_repair_levels``."""
+    from shifu_tpu.pipeline.train import TrainProcessor as JT
+    from shifu_tpu_torch.config import ModelConfig
+    from shifu_tpu_torch.pipeline.train import TrainProcessor
+    monkeypatch.setenv("SHIFU_TREE_TAIL_C2F", "1")
+    with open(os.path.join(prepared_set, "tmp", "CleanedData",
+                           "schema.json")) as f:
+        n_cols = len(json.load(f)["columnNums"])
+    # one prepared window resident in both packages (the port's int32
+    # bins of the >256-bin column are twice the reference's uint16), the
+    # other three on the disk tail, so coarse-to-fine speculates
+    props = {"shifu.train.streaming": "on",
+             "shifu.train.windowRows": str(STREAM_WINDOW),
+             "shifu.train.deviceCacheBytes":
+                 str(STREAM_WINDOW * (4 * n_cols + 12) + 64)}
+    dirs = {}
+    for pkg in ("ref", "port"):
+        dirs[pkg] = str(tmp_path / pkg)
+        shutil.copytree(prepared_set, dirs[pkg])
+        path = os.path.join(dirs[pkg], "ModelConfig.json")
+        mc = ModelConfig.load(path)
+        mc.train.algorithm = "GBT"
+        mc.train.params = {"TreeNum": 4, "MaxDepth": 3, "Loss": "log"}
+        mc.save(path)
+    for pkg, env, o in (("ref", jenv, jobs), ("port", environment, obs)):
+        _reset()
+        for k, v in props.items():
+            env.set_property(k, v)
+        o.set_enabled(True)
+        if pkg == "ref":
+            assert JT(dirs[pkg], params={}).run() == 0
+        else:
+            assert TrainProcessor(dirs[pkg], params={},
+                                  device="cpu").run() == 0
+    _reset()
+    ref = _blocks(_trace(dirs["ref"]))["TRAIN"]
+    port = _blocks(_trace(dirs["port"]))["TRAIN"]
+    for block in (ref, port):
+        assert ("ingest.window_prep", None) in block["spans"]
+        assert block["metrics"]["ingest.h2d_wait_seconds"] >= 0
+    assert ("ingest.h2d_wait", None) in port["spans"]
+    for name in ("train.tail_repairs", "train.tail_repair_levels",
+                 "train.tail_sweeps", "ingest.disk_passes"):
+        assert port["metrics"].get(name) == ref["metrics"].get(name), name
+    assert port["metrics"]["train.tail_repairs"] > 0

@@ -110,7 +110,7 @@ versions on one card.  Otherwise it
    ``tree_traverse`` (launches counted from zero around the run), with
    the uninterrupted forest's splits and leaves within 1e-5 relative;
    the train phase split into upload, grow and checkpoints from
-   ``tmp/profile.json``; and the plane's first 32,768 rows trained to 3
+   ``tmp/profile.json``; and the plane's first 16,384 rows trained to 3
    trees on ``cuda`` and on ``cpu``, with equal split features on levels
    0-1, per-tree errors within 1e-4 relative and the two forests' AUCs
    (scored by ``tree_traverse``) within 0.005;
@@ -129,10 +129,33 @@ versions on one card.  Otherwise it
    each reproducing the CLI's trees bit for bit, timed per tree with CUDA
    events around every histogram launch and leaf-sum level; 8 trees,
    then ``train -resume`` to 10, bit-identical, its restored trees
-   replayed through ``tree_traverse``; and the plane's first 32,768
+   replayed through ``tree_traverse``; and the plane's first 16,384
    rows, 3 trees at depth 7, on ``cuda`` and ``cpu``: bags equal (0
    rows differ), levels 0-1 equal, errors within 1e-4 relative, AUCs within
    0.005;
+   then the mesh (``mesh_phase``): two rank processes of this script
+   (``--mesh-rank``, joined through ``SHIFU_COORDINATOR`` /
+   ``SHIFU_NUM_PROCESSES`` / ``SHIFU_PROCESS_ID`` by
+   ``parallel.mesh.initialize_distributed``) share the card over gloo,
+   each on its block of the rows: the train phase's GBT set through
+   ``cli.main train`` (524,288 rows a rank; 80 ``hist`` launches and 80
+   cell all_reduces a rank) must write the one-rank forest bit for bit,
+   an RF of 8 depth-7 trees on the plane's first 262,144 rows (7
+   ``hist_batch`` and 8 leaf-sum ``hist`` launches, 15 all_reduces), the
+   stats accumulator over two chunks of a 262,144 x 224 chunk (2
+   ``stats_hist`` launches and all_reduces; boundaries, counts and fine
+   cells) and the Scorer's walk of the GBT over the whole plane (1
+   ``tree_traverse`` launch a rank, the rows gathered) must equal one
+   rank's bit for bit, and 2 bags of an NN on the ensemble axis (5
+   full-batch epochs on 65,536 x 256) one rank's within the reference's
+   tolerance (valid errors 1e-4, params 1e-3); each rank times sharded
+   builds by part (raw launch, flush, the meta and the cells'
+   all_reduces): B1 at GBT levels 0 and 6, B2 at TB = 8, K = 32 and B3
+   on its half of a 262,144 x 224 chunk; a third process
+   joins a world of one over NCCL and all_reduces int64; meanwhile this
+   process checks the int64 mode of B1, B2 and B3 on two row blocks
+   against the fixed-point plain versions on the card, and the flush of
+   their sum against one launch, bit for bit;
    then the tree ensembles on the same plane through ``cli.main train``
    on ``cuda`` (``bagging_phase``, ``multiclass_phase``): the GBT above
    with ``baggingNum`` 5 (exactly 70 ``hist_batch`` launches at TB = 5,
@@ -162,7 +185,7 @@ versions on one card.  Otherwise it
    its score sidecar (8 ``tree_traverse`` launches, one a window),
    bit-identical to (a); (c) ``init -model``'s RF in two super-batches
    (31 tail sweeps, 224 ``hist_batch`` launches), falling out-of-bag
-   errors, the peak device memory; (d) the plane's first 32,768 rows in
+   errors, the peak device memory; (d) the plane's first 16,384 rows in
    windows of 4,096 (6 resident): (a)'s GBT cut to 2 trees with
    coarse-to-fine on and off and a 4-tree depth-7 RF on the card, the coarse-to-fine GBT also
    on the CPU with equal splits and masks, leaves within 1e-5 relative
@@ -229,8 +252,8 @@ versions on one card.  Otherwise it
    boundaries and percentiles;
 7. drives the NN/LR slice (no hand kernel: the products are cuBLAS
    GEMMs through ``torch.matmul``): writes a ``tmp/NormalizedData``
-   plane of 1,048,576 rows x 256 f32 inputs from ``--seed`` as the
-   port's ``norm`` writes it (npz shards, ``schema.json``; 1.07 GB,
+   plane of 262,144 rows x 256 f32 inputs from ``--seed`` as the
+   port's ``norm`` writes it (npz shards, ``schema.json``; 0.27 GB,
    resident) and runs ``cli.main train`` on ``cuda`` (``nn_phase``):
    (a) ``init -model``'s NN (R, LearningRate 0.1, [20, 10] tanh, full
    batch) with baggingNum 5 for 20 epochs — five ``model{i}.nn`` files
@@ -241,7 +264,7 @@ versions on one card.  Otherwise it
    ``torch.profiler`` epoch over the plane's first quarter), the step's
    6 x rows x parameters FLOPs over its time against the dense FP32 peak
    of 67 TFLOP/s; (c) LR at ``init -model``'s params: ms per epoch; (d)
-   (a)'s net on the first 32,768 rows for 10 epochs on ``cuda`` and
+   (a)'s net on the first 16,384 rows for 10 epochs on ``cuda`` and
    ``cpu``: per-epoch errors within 1e-4 relative, AUCs within 0.005
    (the plane drawn on the card from ``--seed``).
    Then (``nn_serve_phase``) (a)'s five nets served over HTTP on ``cuda``
@@ -258,24 +281,24 @@ versions on one card.  Otherwise it
    ``shifu.train.memoryBudgetBytes`` of 1 GiB in two windows with nothing
    forced: (a) ``init -model``'s NN, full batch, 4 epochs, falling
    errors, ms an epoch; (b) 2 epochs then ``train -resume`` to 4,
-   bit-identical; (c) one minibatch run; (d) the first 32,768 rows
+   bit-identical; (c) one minibatch run; (d) the first 16,384 rows
    forced to stream in windows of 8,192, card and CPU, errors within
    1e-4 relative; (e) ``torch.profiler`` over 2 epochs: the device busy
    share.  And
    (``varselect_phase``) ``varselect`` with ``filterBy SE`` through the
-   CLI on ``cuda`` over ``nn_phase``'s 1,048,576 x 256 plane with (a)'s
-   ``model0.nn``, then on its first 32,768 rows on ``cuda`` and ``cpu``:
+   CLI on ``cuda`` over ``nn_phase``'s 262,144 x 256 plane with (a)'s
+   ``model0.nn``, then on its first 16,384 rows on ``cuda`` and ``cpu``:
    the same 64 columns selected, SE scores within 1e-6; then
    (``genetic_phase``) ``varselect`` with ``filterBy GENETIC`` on ``cuda``
    over the same plane with the reference's default WrapperSettings
    (16 candidates, 5 generations of 40 full-batch ADAM epochs, their nets
    stacked as one GEMM a layer) and filterNum 64, its wall and epochs a
-   second, and on the plane's first 32,768 rows (10 epochs, 3
+   second, and on the plane's first 16,384 rows (10 epochs, 3
    generations) resident and streamed in windows of 8,192, each on
    ``cuda`` and ``cpu`` with the same ``genetic.json`` credit ranking and
    selection.  Then the WDL and SVM slice (no hand kernel: ``F.embedding``
    gathers, cuBLAS GEMMs and matvecs): (``wdl_phase``) a norm plane (f32)
-   and a clean plane (uint8 bins) of 1,048,576 x 256 from the same rows
+   and a clean plane (uint8 bins) of 262,144 x 256 from the same rows
    of ``--seed``, the reference's WDL defaults (EmbedColumnNum 8, [64, 32]
    relu, wide and deep, ADAM 0.002, L2 1e-5) with baggingNum 5 through
    ``cli.main train`` on ``cuda``: (a) 5 full-batch epochs, falling
@@ -286,7 +309,7 @@ versions on one card.  Otherwise it
    32,768 rows, its bucket ids on the card equal to
    the host's and its models served over HTTP on ``cuda`` against
    ``cpu`` within 1e-2 (raw batches of 1, 7, 64 and 333 records); (d)
-   the first 32,768 rows, 2 bags, 2 epochs, on ``cuda`` and ``cpu``,
+   the first 16,384 rows, 2 bags, 2 epochs, on ``cuda`` and ``cpu``,
    resident and streamed in windows of 8,192:
    errors within 1e-4 relative, AUCs within 0.005; (e) 2 minibatch epochs then ``train
    -resume`` to 4, bit-identical; (``svm_phase``) the rbf kernel SVM at
@@ -294,7 +317,7 @@ versions on one card.  Otherwise it
    solve timed alone, the dual on 2,048 rows on ``cuda`` and ``cpu``
    (duals within 1e-4, decisions within 1e-3, support sets equal but
    near the 1e-6 threshold), the linear SVM (hinge on the NN path) on
-   the 1,048,576 x 256 plane, and both served over HTTP on ``cuda``
+   the 262,144 x 256 plane, and both served over HTTP on ``cuda``
    against ``cpu`` (raw batches of 1, 7, 64 and 333 records);
 8. drives the commands around the offline path through ``cli.main`` on
    the e2e set (``aux_tree_phase``, after ``posttrain_phase``; copies of
@@ -307,7 +330,7 @@ versions on one card.  Otherwise it
    every numeric the forest splits on present; (b) ``encode``
    (``tree_traverse``'s node-index walk, one launch a chunk: 2) with
    ``tmp/EncodedData`` byte-equal to the CPU's, and the RF phase's depth-14 forest walked by ``encode``'s
-   walk over 32,768 rows of the train plane (node ids past 16,383, equal
+   walk over 16,384 rows of the train plane (node ids past 16,383, equal
    to the CPU's ``traverse_nodes``, one launch); (c) ``combo new -alg
    LR:GBT``, ``run`` and ``eval`` on the CSV's first 4,096 rows (80
    ``hist`` launches for the GBT member, one ``tree_traverse`` launch a
@@ -484,6 +507,26 @@ round cut depth again (walls before):
 The port's config loader now builds one coercer a field type
 (``config/jsonbean.py``), which halves a 258-column ColumnConfig.json's
 load (0.22 -> 0.115 s on a CPU), read a few times by every CLI step.
+
+``mesh_phase`` (12.7-17.3 s) came next.  The whole took 533.8 s on one
+call and 711.3 s on a slower host, past 700 s, so this round cut the
+CPU twins' depth (walls of that run, the CPU half of each twin):
+
+- CUT_ROWS 16,384 rows (was 32,768) for every card-vs-CPU twin on it,
+  the streamed twins in the same number of windows (CUT_ROWS / 4): GBT
+  3.40 s, RF 3.69, NN (d) 0.96, varselect SE 1.42, WDL (d) 1.86 + 2.03,
+  stream NN (d) 0.77 on the CPU before;
+- the tree stream (d)'s twin on 16,384 rows in 8 windows of 2,048 (was
+  32,768 in windows of 4,096): its CPU run 7.41 s before.
+
+That run took 782.7 s on a slower host still (every host-bound phase
+1.1-1.7x its quick-host wall), so this round cut the NN and WDL planes,
+the host-heaviest rows (walls of that run):
+
+- the NN plane (``nn_phase``, varselect, GENETIC, the linear SVM) and
+  the WDL planes NN_ROWS = WDL_ROWS = 262,144 rows (were 1,048,576):
+  ``nn_phase`` 34.7 s, ``varselect_phase`` 7.1, ``genetic_phase`` 14.2,
+  ``svm_phase`` 12.3, ``wdl_phase`` 105.9 (WDL (a)'s CLI train 27.9 s).
 """
 
 from __future__ import annotations
@@ -520,7 +563,8 @@ CHUNK_REPEATS = 15                 # timed GBT chunks (the tree is host-bound)
 HIST_WIDE = (1 << 20, 7, 4001, 8)          # N, C, B (int32 bins), K
 HIST_TOL = 1e-5                            # x the plain version on |stats|
 TRAIN_ROWS, TRAIN_TREES, TRAIN_CKPT = 1 << 20, 10, 5
-CUT_ROWS, CUT_TREES = 32768, 3             # card vs CPU twins (a cut)
+NN_ROWS = WDL_ROWS = 1 << 18               # the NN and WDL planes (a cut)
+CUT_ROWS, CUT_TREES = 16384, 3             # card vs CPU twins (a cut)
 ERR_RTOL, AUC_TOL = 1e-4, 0.005            # card vs CPU
 REPLAY_RTOL = 1e-5                         # replayed vs uninterrupted leaves
 N_INFORMATIVE = 10
@@ -573,7 +617,7 @@ STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
 STREAM_A0_TREES = 1                        # (a0): 13 s a tree at depth 7
 STREAM_A0_DEPTH = 3                        # (a0)'s tree (a cut)
 STREAM_EXACT_TREES = 5                     # (a'): (a)'s first 5 trees
-STREAM_CUT_ROWS = 32768                    # (d) card vs CPU: 8 windows,
+STREAM_CUT_ROWS = 16384                    # (d) card vs CPU: 8 windows,
 STREAM_CUT_WINDOW = STREAM_CUT_ROWS // 8   # 6 of them resident
 STREAM_CUT_RESIDENT = 6
 STREAM_CUT_RF_TREES = 4                    # (d)'s RF, depth DEPTH
@@ -587,7 +631,7 @@ NN_STREAM_ROWS = 5 * (1 << 18)             # 1,310,720 rows: 1.35 GB at
 NN_STREAM_BUDGET = {"shifu.train.memoryBudgetBytes": str(1 << 30)}
 NN_STREAM_EPOCHS, NN_STREAM_CKPT = 4, 2    # init -model's NN; a resume
 NN_STREAM_BATCH = 1 << 16                  # (c)'s minibatch
-NN_STREAM_CUT_WINDOW = 8192                # (d): 4 windows of CUT_ROWS
+NN_STREAM_CUT_WINDOW = CUT_ROWS // 4       # (d): 4 windows of CUT_ROWS
 VARSEL_KEEP, VARSEL_SE_ATOL = 64, 1e-6     # SE filterNum; card vs CPU
 GBT_ROW_BYTES = N_COLS + 12                # a prepared GBT window row
 RF_ROW_BYTES = N_COLS + 8                  # a prepared RF window row
@@ -2035,7 +2079,7 @@ def train_phase(torch, root: str, serve_root: str, plan, rng,
         f"{err[-1, 0]:.6f}, validation {err[0, 1]:.6f} -> {err[-1, 1]:.6f}; "
         f"top feature {names[top]}; launches {launches}")
     out = {"launches": launches, "wall_s": wall, "phases_s": phases,
-           "errors": err.tolist()}
+           "errors": err.tolist(), "dir": full}
     out["chunk"] = chunk_phase(torch, bins, y, w, is_cat, device)
 
     # resume: 5 trees, then -resume to 10, against the forest above
@@ -3194,7 +3238,7 @@ def check_falling(d: str, what: str, cols=(0, 1)) -> np.ndarray:
 
 def nn_phase(torch, root: str, serve_root: str, rng, gpu: str) -> dict:
     """The NN/LR slice's training path at full width through ``cli.main
-    train`` on ``cuda``: a norm plane of TRAIN_ROWS x N_COLS f32 from
+    train`` on ``cuda``: a norm plane of NN_ROWS x N_COLS f32 from
     ``--seed`` (1.07 GB, resident under the 2 GiB budget), written as the
     port's ``norm`` writes it.
 
@@ -3213,7 +3257,7 @@ def nn_phase(torch, root: str, serve_root: str, rng, gpu: str) -> dict:
     from shifu_tpu_torch.models import load_any
     names = [f"f{j:03d}" for j in range(N_COLS)]
     t0 = time.perf_counter()
-    x, y, w = nn_plane(rng, TRAIN_ROWS, N_COLS)
+    x, y, w = nn_plane(rng, NN_ROWS, N_COLS)
     plane = os.path.join(root, "nn_plane")
     write_norm_plane(plane, x, y, w, names)
     write_s = time.perf_counter() - t0
@@ -3251,7 +3295,7 @@ def nn_phase(torch, root: str, serve_root: str, rng, gpu: str) -> dict:
                 "errors_first": errs[0].tolist(),
                 "errors_last": errs[-1].tolist(), "resume_bit_identical":
                 True}
-    log(f"(a) init -model NN x {NN_BAGS} bags on {TRAIN_ROWS} x {N_COLS}: "
+    log(f"(a) init -model NN x {NN_BAGS} bags on {NN_ROWS} x {N_COLS}: "
         f"{out['a']['ms_per_epoch']:.3f} ms an epoch (CLI train "
         f"{wall:.3f} s for {NN_EPOCHS} epochs), errors {errs[0]} -> "
         f"{errs[-1]}; {NN_CKPT} epochs + train -resume bit-identical "
@@ -3267,7 +3311,7 @@ def nn_phase(torch, root: str, serve_root: str, rng, gpu: str) -> dict:
     check_falling(b, "(b)", cols=(0,))
     (_, spec, params), = nn_members(b)
     n_params = sum(int(l[k].numel()) for l in params for k in ("w", "b"))
-    steps = -(-TRAIN_ROWS // NN_WIDE["MiniBatchs"])
+    steps = -(-NN_ROWS // NN_WIDE["MiniBatchs"])
     ms_epoch = clock.ms_per_epoch()
     ms_step = ms_epoch / steps
     flops_step = 6.0 * NN_WIDE["MiniBatchs"] * n_params
@@ -3815,7 +3859,7 @@ def varsel_set(root: str, name: str, src: str, plane: str, rng,
 def varselect_phase(torch, root: str, nn_dir: str, cut_plane: str, rng,
                     gpu: str) -> dict:
     """``varselect`` with ``filterBy SE`` through the CLI on ``cuda`` over
-    ``nn_phase``'s 1,048,576 x 256 plane with its (a) ``model0.nn``
+    ``nn_phase``'s 262,144 x 256 plane with its (a) ``model0.nn``
     (streamed, mask-batched: MaskBatch 32 frozen forwards a launch); then
     the same on the plane's first CUT_ROWS rows on ``cuda`` and on
     ``cpu``: the same VARSEL_KEEP columns selected, SE scores within
@@ -3850,7 +3894,7 @@ def varselect_phase(torch, root: str, nn_dir: str, cut_plane: str, rng,
         fail(f"varselect card vs CPU: selections equal {sel_g == sel_c}, "
              f"SE scores within {diff}")
     top = list(se)[:5]
-    log(f"varselect SE on {TRAIN_ROWS} x {N_COLS}: {wall:.3f} s through "
+    log(f"varselect SE on {NN_ROWS} x {N_COLS}: {wall:.3f} s through "
         f"the CLI on the card, top {top}; on {CUT_ROWS} rows card vs CPU: "
         f"the same {VARSEL_KEEP} columns, SE within {diff:.3g} ({walls})"
         f" — [{gpu}]")
@@ -3865,7 +3909,7 @@ SPEC_RTOL, SPEC_ATOL = 1e-5, 1e-6          # tests/test_reference_export.py
 COMBO_AUC_TOL = 0.005                      # member AUCs, card vs CPU
 COMBO_ROWS = CSV_ROWS                      # combo's rows of the e2e CSV
 GENETIC_KEEP = 64                          # GENETIC's filterNum
-GENETIC_WINDOW = 8192                      # streamed GENETIC's window rows
+GENETIC_WINDOW = CUT_ROWS // 4             # streamed GENETIC's window rows
 GENETIC_CUT = {"WrapperEpochs": 10, "POPULATION_MULTIPLY_CNT": 3}
 RECURSIVE_KEEP = 3                         # the CSV's 3 informative columns
 RECURSIVE_NN = {"NumHiddenNodes": [16], "ActivationFunc": ["tanh"],
@@ -4249,7 +4293,7 @@ def genetic_set(root: str, name: str, src: str, plane: str, device: str,
 def genetic_phase(torch, root: str, nn_dir: str, cut_plane: str,
                   gpu: str) -> dict:
     """``varselect`` with ``filterBy GENETIC`` through the CLI on the card
-    over ``nn_phase``'s 1,048,576 x 256 plane (resident: the population's
+    over ``nn_phase``'s 262,144 x 256 plane (resident: the population's
     16 nets train as one stacked run, full batch), the reference's
     default WrapperSettings and filterNum GENETIC_KEEP: the wall and
     epochs a second.  Then on the plane's first CUT_ROWS rows (fewer
@@ -4287,7 +4331,7 @@ def genetic_phase(torch, root: str, nn_dir: str, cut_plane: str,
         cut_walls[f"{mode}_fitness_rel"] = fit
     overlap = len(set(cut["resident", "cuda"][1])
                   & set(cut["streamed", "cuda"][1]))
-    log(f"GENETIC varselect on {TRAIN_ROWS} x {N_COLS}: {wall:.3f} s "
+    log(f"GENETIC varselect on {NN_ROWS} x {N_COLS}: {wall:.3f} s "
         f"through the CLI on the card, search {secs:.3f} s "
         f"({epochs / secs:.1f} epochs/s of {defaults.population} stacked "
         f"nets), best fitness {doc['history'][-1]['best']:.6f}; on "
@@ -5304,7 +5348,7 @@ WDL_BATCH = 128                           # the reference's default MiniBatchs
 WDL_B_ROWS = 1 << 15                      # (b)'s epoch: a cut in rows
 WDL_HASH_BUCKETS = 32                     # columns past 32 categories hash
 WDL_CUT_BAGS, WDL_CUT_EPOCHS = 2, 2       # card vs CPU on CUT_ROWS rows
-WDL_CUT_WINDOW = 8192                     # ... streamed in these windows
+WDL_CUT_WINDOW = CUT_ROWS // 4            # ... streamed in these windows
 WDL_RESUME = (2, 4, 1024)                 # epochs, then resumed to, batch
 WDL_ERR_RTOL, WDL_AUC_TOL = 1e-4, 0.005   # card vs CPU
 WDL_SCORE_TOL = 1e-2                      # served / evaluated, 0-1000
@@ -5430,7 +5474,7 @@ def wdl_step_profile(torch, x_num, x_cat, y, w, spec, gpu: str) -> dict:
 
 
 def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
-              rows: int = TRAIN_ROWS, card: str = "cuda") -> dict:
+              rows: int = WDL_ROWS, card: str = "cuda") -> dict:
     """The WDL slice at full width through ``cli.main train``: a norm
     plane (f32) and a clean plane (uint8 bins) of ``rows`` x N_COLS from
     the same rows (``train_plane``'s bins, the numeric columns' floats a
@@ -5689,7 +5733,7 @@ def wdl_e2e_phase(torch, root: str, d: str, csv: str, gpu: str) -> dict:
 
 
 def svm_phase(torch, root: str, serve_root: str, nn_plane: str, plan,
-              gpu: str, rows: int = TRAIN_ROWS, cap: int = SVM_CAP,
+              gpu: str, rows: int = NN_ROWS, cap: int = SVM_CAP,
               card: str = "cuda") -> dict:
     """The SVM slice on the card: (a) the rbf kernel SVM at the cap (the
     NN plane's first ``cap`` rows x N_COLS) through ``cli.main train``
@@ -7063,12 +7107,487 @@ def refresh_phase(torch, root: str, src: str, csv: str, plan, rng,
     return out
 
 
+# ------------------------------------------------------ phase: the mesh
+MESH_RANKS = 2                          # share the one card over gloo
+MESH_RF_ROWS, MESH_RF_TREES = 1 << 18, 8
+MESH_NN_ROWS, MESH_NN_EPOCHS, MESH_NN_BAGS = 1 << 16, 5, 2
+MESH_TIMED_NODES = (1, 32)              # GBT levels 0 and 6 (left children)
+
+
+def mesh_rf_settings():
+    """The mesh phase's RF: init -model's RF params at depth 7, 8 trees in
+    one batch of B2."""
+    from shifu_tpu_torch.config.model_config import (Algorithm,
+                                                     ModelTrainConf)
+    from shifu_tpu_torch.train.dt_trainer import settings_from_params
+    tc = ModelTrainConf()
+    tc.validSetRate = 0.2
+    return settings_from_params(
+        {"TreeNum": MESH_RF_TREES, "MaxDepth": DEPTH, "Impurity": "entropy",
+         "Loss": "squared", "FeatureSubsetStrategy": "TWOTHIRDS",
+         "TreeBatch": MESH_RF_TREES}, tc, Algorithm.RF)
+
+
+def mesh_stats_chunk(torch):
+    """One stats chunk on the card from a fixed seed: 262,144 x 224
+    values (~7% missing), 30% positive targets, weights in [0.5, 2)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    x = torch.randn((RESIDENT_ROWS, N_NUM), generator=gen, device="cuda") \
+        * torch.linspace(1.0, 100.0, N_NUM, device="cuda")
+    valid = torch.rand((RESIDENT_ROWS, N_NUM), generator=gen,
+                       device="cuda") > 0.07
+    target = (torch.rand(RESIDENT_ROWS, generator=gen, device="cuda")
+              < 0.3).float()
+    weight = 0.5 + 1.5 * torch.rand(RESIDENT_ROWS, generator=gen,
+                                    device="cuda")
+    return [t.cpu().numpy() for t in (x, valid, target, weight)]
+
+
+def mesh_accumulate(torch, mesh):
+    """NumericAccumulator over the stats chunk (two chunks of it, fused
+    sweep): (boundaries, aggs, fine cells, B3 launches)."""
+    from shifu_tpu_torch.config.model_config import BinningMethod
+    from shifu_tpu_torch.ops import stats_hist as sh
+    from shifu_tpu_torch.ops.binning import NumericAccumulator
+    x, valid, target, weight = mesh_stats_chunk(torch)
+    acc = NumericAccumulator(n_cols=N_NUM, num_buckets=STATS_BUCKETS,
+                             device="cuda", mesh=mesh)
+    before = sh.stats_histograms_cuda.launches
+    half = RESIDENT_ROWS // 2
+    for s, e in ((0, half), (half, RESIDENT_ROWS)):
+        acc.update_fused(x[s:e], valid[s:e], target[s:e], weight[s:e])
+    acc.finalize_fused()
+    cells = acc._hist_dev.cpu().numpy()
+    bnd, aggs, _, _ = acc.finalize_sketch(BinningMethod.EqualPositive, 10)
+    return bnd, aggs, cells, sh.stats_histograms_cuda.launches - before
+
+
+def mesh_nn(torch, x, y, mesh):
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.train.nn_trainer import (TrainSettings,
+                                                  train_ensemble)
+    from shifu_tpu_torch.train.sampling import member_masks
+    tw, vw = member_masks(len(y), MESH_NN_BAGS, valid_rate=0.2,
+                          sample_rate=1.0, replacement=False, targets=y,
+                          seed=0)
+    spec = nn_model.NNModelSpec(input_dim=x.shape[1], hidden_nodes=[64],
+                                activations=["tanh"], loss="log")
+    res = train_ensemble(x, y, tw, vw, spec, TrainSettings(
+        optimizer="ADAM", learning_rate=0.01, epochs=MESH_NN_EPOCHS, seed=0),
+        device="cuda", mesh=mesh)
+    return res.valid_errors, [[{k: v.numpy() for k, v in layer.items()}
+                               for layer in p] for p in res.params]
+
+
+def mesh_time_one(torch, mesh, launch, meta, flush, nbytes: int) -> dict:
+    """One sharded build's parts on this rank: ``launch()`` (the kernel's
+    raw mode) and ``flush(cells)`` timed with CUDA events, ``meta()`` (the
+    meta all_reduce) and the cells' all_reduce with the host clock around
+    a synchronised call (gloo blocks the host)."""
+    from shifu_tpu_torch.parallel import mesh as meshlib
+    cells = launch()
+    out = {"kernel_ms": device_ms(torch, launch, launches=5, repeats=3),
+           "flush_ms": device_ms(torch, lambda: flush(cells), launches=5,
+                                 repeats=3)}
+    walls = {"meta": [], "cells": []}
+    for _ in range(5):
+        for part, fn in (("meta", meta), ("cells", lambda: meshlib.all_reduce(
+                mesh, cells.clone()))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[part].append((time.perf_counter() - t0) * 1e3)
+    out.update(meta_allreduce_ms=float(np.median(walls["meta"])),
+               cells_allreduce_ms=float(np.median(walls["cells"])),
+               allreduce_bytes=nbytes)
+    return out
+
+
+def mesh_time_parts(torch, mesh, bins) -> dict:
+    """This rank's parts of one sharded build (:func:`mesh_time_one`) on
+    its block of the plane: B1 at GBT levels 0 and 6, B2 at the mesh RF's
+    deepest batched level (TB = 8, K = 32) on its half of the RF's rows,
+    B3 on its half of a 262,144 x 224 x 4096 x 4 chunk."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops import stats_hist as sh
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+
+    def tree_stats(tb, n):
+        w = torch.randint(1, 4, (tb, n), generator=gen,
+                          device="cuda").float()
+        return torch.stack([w, w * torch.randn((tb, n), generator=gen,
+                                               device="cuda")], 2)
+
+    def b12(tb, k, rows):
+        b = bins[:rows]
+        node = torch.randint(0, k, (tb, rows), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        stats = tree_stats(tb, rows)
+        m = hist.global_channel_meta(stats, mesh)
+        return mesh_time_one(
+            torch, mesh,
+            lambda: hist._launch(("node_idx_b", "stats_b"), b, node, stats,
+                                 k, N_BINS, meta=m),
+            lambda: hist.global_channel_meta(stats, mesh),
+            lambda c: hist._flush_cuda(c, m[0], m[2]),
+            hist.sharded_bytes(tb, k, N_COLS, N_BINS, 2))
+    out = {"hist": {k: b12(1, k, bins.shape[0]) for k in MESH_TIMED_NODES},
+           "hist_batch": {32: b12(HIST_BATCH, 32, MESH_RF_ROWS // 2)}}
+    n = RESIDENT_ROWS // 2
+    idx = torch.randint(0, STATS_BUCKETS, (n, N_NUM), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    pos = (torch.rand(n, generator=gen, device="cuda") < 0.3).float()
+    w = 0.5 + 2.5 * torch.rand(n, generator=gen, device="cuda")
+    st = torch.stack([pos, 1 - pos, w * pos, w * (1 - pos)], 1)
+    exact = (True, True, False, False)
+    m = sh.global_stats_meta(st, mesh)
+    out["stats_hist"] = mesh_time_one(
+        torch, mesh,
+        lambda: sh._launch(idx, st, STATS_BUCKETS, exact, meta=m),
+        lambda: sh.global_stats_meta(st, mesh),
+        lambda c: sh.flush_cuda(c, m[0], m[1], 2),
+        8 * N_NUM * STATS_BUCKETS * 4)
+    return out
+
+
+def mesh_rank_main(torch, rank: str, mesh_dir: str) -> None:
+    """A rank of the mesh phase (``--mesh-rank``): join the world from the
+    ``SHIFU_*`` variables its parent set, run every scenario on its block
+    and write what the parent compares to ``rank<r>.pkl``."""
+    import pickle
+    import torch.distributed as dist
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.eval.scorer import Scorer
+    from shifu_tpu_torch.models.tree import IndependentTreeModel
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops import stats_hist as sh
+    from shifu_tpu_torch.parallel import mesh as meshlib
+    from shifu_tpu_torch.train.dt_trainer import train_rf
+    with open(os.path.join(mesh_dir, "job.json")) as f:
+        job = json.load(f)
+    if rank == "nccl":                  # a world of one over NCCL
+        backend = meshlib.initialize_distributed()
+        t = torch.tensor([(1 << 40) + 3, -7], dtype=torch.int64,
+                         device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        with open(os.path.join(mesh_dir, "nccl.json"), "w") as f:
+            json.dump({"backend": backend, "sum": t.cpu().tolist()}, f)
+        dist.destroy_process_group()
+        return
+    r = int(rank)
+    backend = meshlib.initialize_distributed()
+    mesh = meshlib.device_mesh()
+    res = {"backend": backend, "shape": mesh.shape, "launches": {},
+           "allreduces": {}}
+
+    def counted(name, fn):
+        zero_tree_counts()
+        sh.stats_histograms_cuda.launches = 0
+        before = (hist.build_histograms_batch_sharded.allreduces,
+                  sh.stats_histograms_sharded.allreduces)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res.setdefault("walls_s", {})[name] = time.perf_counter() - t0
+        res["launches"][name] = dict(
+            read_tree_counts(), stats_hist=sh.stats_histograms_cuda.launches)
+        res["allreduces"][name] = {
+            "hist": hist.build_histograms_batch_sharded.allreduces
+            - before[0],
+            "stats_hist": sh.stats_histograms_sharded.allreduces - before[1]}
+        return out
+
+    d = job["gbt_dirs"][r]
+    counted("gbt", lambda: train_cli(d, "cuda"))
+    _, trees = load_forest(d)
+    res["gbt"] = [(t.split_feat, t.left_mask, t.leaf_value) for t in trees]
+    plane = Shards.open(job["clean"]).load_all()
+    r0, r1 = mesh.row_block(len(plane["y"]))
+    block = torch.from_numpy(np.ascontiguousarray(
+        plane["bins"][r0:r1])).cuda()
+    res["timed"] = mesh_time_parts(torch, mesh, block)
+    del block
+    rf = np.load(os.path.join(mesh_dir, "rf.npz"))
+    res["rf"] = [(t.split_feat, t.left_mask, t.leaf_value) for t in counted(
+        "rf", lambda: train_rf(rf["bins"], rf["y"], rf["w"], N_BINS, None,
+                               mesh_rf_settings(), device="cuda",
+                               mesh=mesh)).trees]
+    res["stats"] = counted("stats", lambda: mesh_accumulate(torch, mesh))[:3]
+    model = IndependentTreeModel.load(os.path.join(d, "models",
+                                                   "model0.gbt"))
+    res["scores"] = counted("score", lambda: Scorer(
+        [model], device="cuda", mesh=mesh).score(None,
+                                                 plane["bins"]).scores)
+    del plane
+    nn = np.load(os.path.join(mesh_dir, "nn.npz"))
+    nn_mesh = meshlib.device_mesh(n_ensemble=MESH_NN_BAGS)
+    res["nn_shape"] = nn_mesh.shape
+    res["nn"] = counted("nn", lambda: mesh_nn(torch, nn["x"], nn["y"],
+                                               nn_mesh))
+    with open(os.path.join(mesh_dir, f"rank{r}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
+               gpu: str) -> dict:
+    """stats -> train -> eval across ranks: MESH_RANKS rank processes of
+    this script (``--mesh-rank``) share the card over gloo and run, each on
+    its block of the rows, the CLI's GBT train (the train phase's set),
+    an RF of 8 depth-7 trees, the stats accumulator, the Scorer's B4 walk
+    and a 2-bag NN on the ensemble axis; a third process joins a world of
+    one over NCCL.  Meanwhile this process checks the int64 mode of B1,
+    B2 and B3 against their fixed-point plain versions on the card and
+    computes the one-rank results; then every rank's forests, cells,
+    boundaries, counts and scores must equal one rank's bit for bit, the
+    NN within the reference's tolerance."""
+    import pickle
+    t_phase = time.perf_counter()
+    mdir = os.path.join(root, "mesh")
+    os.makedirs(mdir)
+    bins, y, w, _, _, clean, _, _ = plane
+    params = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
+              "LearningRate": 0.1, "CheckpointInterval": TRAIN_CKPT}
+    dirs = [write_train_set(os.path.join(mdir, f"gbt{r}"), serve_root,
+                            params, clean) for r in range(MESH_RANKS)]
+    np.savez(os.path.join(mdir, "rf.npz"), bins=bins[:MESH_RF_ROWS],
+             y=y[:MESH_RF_ROWS], w=w[:MESH_RF_ROWS])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    nn_x = torch.randn((MESH_NN_ROWS, N_COLS), generator=gen,
+                       device="cuda")
+    nn_y = (nn_x[:, :8].sum(1) + torch.randn(MESH_NN_ROWS, generator=gen,
+                                             device="cuda") > 0).float()
+    nn_x, nn_y = nn_x.cpu().numpy(), nn_y.cpu().numpy()
+    np.savez(os.path.join(mdir, "nn.npz"), x=nn_x, y=nn_y)
+    with open(os.path.join(mdir, "job.json"), "w") as f:
+        json.dump({"gbt_dirs": dirs, "clean": clean}, f)
+    script = os.path.abspath(__file__)
+    gloo_port, nccl_port = free_port(), free_port()
+    procs = []
+    for rank, world, port in [(str(r), MESH_RANKS, gloo_port)
+                              for r in range(MESH_RANKS)] \
+            + [("nccl", 1, nccl_port)]:
+        env = dict(os.environ, SHIFU_COORDINATOR=f"127.0.0.1:{port}",
+                   SHIFU_NUM_PROCESSES=str(world),
+                   SHIFU_PROCESS_ID="0" if rank == "nccl" else rank)
+        logf = open(os.path.join(mdir, f"rank{rank}.log"), "w")
+        procs.append((rank, logf, subprocess.Popen(
+            [sys.executable, script, "--mesh-rank", rank, "--mesh-dir", mdir],
+            stdout=logf, stderr=subprocess.STDOUT, env=env,
+            cwd=os.path.dirname(script))))
+    try:
+        kernels = mesh_kernel_checks(torch)
+        one = mesh_one_rank(torch, bins, y, w, nn_x, nn_y, gbt_dir)
+        for rank, logf, p in procs:
+            try:
+                rc = p.wait(timeout=MESH_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                rc = "timeout"
+            logf.close()
+            if rc != 0:
+                with open(logf.name) as f:
+                    tail = f.read()[-3000:]
+                fail(f"mesh rank {rank} exited {rc}:\n{tail}")
+    finally:
+        for _, logf, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    with open(os.path.join(mdir, "nccl.json")) as f:
+        nccl = json.load(f)
+    if nccl != {"backend": "nccl", "sum": [(1 << 40) + 3, -7]}:
+        fail(f"the NCCL world of one gave {nccl}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(mdir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    out = mesh_compare(ranks, one)
+    out.update(kernels=kernels, nccl=nccl,
+               wall_s=time.perf_counter() - t_phase)
+    t = ranks[0]["timed"]
+    parts = [(f"B1 K={k}", t["hist"][k]) for k in MESH_TIMED_NODES] + [
+        ("B2 TB=8 K=32", t["hist_batch"][32]), ("B3", t["stats_hist"])]
+    log(f"mesh: {MESH_RANKS} ranks over {ranks[0]['backend']} on one card, "
+        f"phase {out['wall_s']:.1f} s; rank 0's sharded builds, ms (raw "
+        f"launch / flush / meta all_reduce / cells all_reduce, bytes): "
+        + "; ".join(f"{name} {p['kernel_ms']:.3f} / {p['flush_ms']:.3f} / "
+                    f"{p['meta_allreduce_ms']:.3f} / "
+                    f"{p['cells_allreduce_ms']:.3f}, {p['allreduce_bytes']}"
+                    for name, p in parts)
+        + f"; rank walls {[r['walls_s'] for r in ranks]} — [{gpu}]")
+    return out
+
+
+MESH_TIMEOUT_S = 240
+
+
+def mesh_kernel_checks(torch) -> dict:
+    """The int64 mode of B1, B2 and B3 on the card: each of two row
+    blocks' cells at the scale of all the rows equals the fixed-point plain
+    version's (run on the card), and the flush of their sum is bit-equal
+    to one launch over all the rows."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops import stats_hist as sh
+    from shifu_tpu_torch.parallel.mesh import Mesh, row_block
+    rng = np.random.default_rng(31)
+    out = {}
+    for name, (n, k, tb) in (("hist", (1 << 18, 32, 1)),
+                             ("hist_batch", (1 << 16, 32, HIST_BATCH))):
+        bins, node_b, stats_b = batch_inputs(torch, rng, n, N_COLS, N_BINS,
+                                             k, tb)
+        one = hist.build_histograms_batch_cuda(bins, node_b, stats_b, k,
+                                               N_BINS)
+        meta = hist.global_channel_meta(stats_b, Mesh())
+        total = None
+        for r0, r1 in (row_block(n, 2, i) for i in range(2)):
+            blk = (bins[r0:r1].contiguous(), node_b[:, r0:r1].contiguous(),
+                   stats_b[:, r0:r1].contiguous())
+            cells = hist._launch(("node_idx_b", "stats_b"), *blk, k, N_BINS,
+                                 meta=meta)
+            for t in range(tb):
+                if not torch.equal(cells[t], hist.hist_fixed_cells(
+                        blk[0], blk[1][t], blk[2][t], k, N_BINS,
+                        meta[0][t], n)):
+                    fail(f"{name}: int64 cells of tree {t} differ from "
+                         "the fixed-point plain version")
+            total = cells if total is None else total + cells
+        if not torch.equal(hist._flush_cuda(total, meta[0], meta[2]), one):
+            fail(f"{name}: the flush of the summed blocks is not one "
+                 "launch's bits")
+        out[name] = {"rows": n, "nodes": k, "trees": tb}
+    idx, st, exact = stats_inputs(torch, rng, RESIDENT_ROWS, N_NUM,
+                                  STATS_BUCKETS, 4)
+    one = sh.stats_histograms_cuda(idx, st, STATS_BUCKETS, exact)
+    amax = st.abs().amax(dim=0)
+    n_scale = torch.tensor([RESIDENT_ROWS], dtype=torch.int64,
+                           device="cuda")
+    total = None
+    for r0, r1 in (row_block(RESIDENT_ROWS, 2, i) for i in range(2)):
+        cells = sh._launch(idx[r0:r1], st[r0:r1], STATS_BUCKETS, exact,
+                           meta=(amax, n_scale))
+        if not torch.equal(cells, sh.stats_fixed_cells(
+                idx[r0:r1], st[r0:r1], STATS_BUCKETS, sum(exact), amax,
+                RESIDENT_ROWS)):
+            fail("stats_hist: int64 cells differ from the fixed-point "
+                 "plain version")
+        total = cells if total is None else total + cells
+    if not torch.equal(sh.stats_histograms_sharded(
+            idx, st, STATS_BUCKETS, Mesh(), exact), one) or \
+            not torch.equal(sh.stats_flush_ref(total, amax, RESIDENT_ROWS,
+                                               sum(exact)), one):
+        fail("stats_hist: the flush of the summed blocks is not one "
+             "launch's bits")
+    out["stats_hist"] = {"rows": RESIDENT_ROWS, "cols": N_NUM}
+    log(f"mesh kernels: int64 cells of two row blocks equal the fixed-point "
+        f"plain versions and their flush one launch's bits: {out}")
+    return out
+
+
+def mesh_one_rank(torch, bins, y, w, nn_x, nn_y, gbt_dir: str) -> dict:
+    """What one rank computes for the mesh phase's scenarios."""
+    from shifu_tpu_torch.eval.scorer import Scorer
+    from shifu_tpu_torch.models.tree import IndependentTreeModel
+    from shifu_tpu_torch.train.dt_trainer import train_rf
+    _, trees = load_forest(gbt_dir)
+    rf = train_rf(bins[:MESH_RF_ROWS], y[:MESH_RF_ROWS], w[:MESH_RF_ROWS],
+                  N_BINS, None, mesh_rf_settings(), device="cuda")
+    model = IndependentTreeModel.load(os.path.join(gbt_dir, "models",
+                                                   "model0.gbt"))
+    return {"gbt": [(t.split_feat, t.left_mask, t.leaf_value)
+                    for t in trees],
+            "rf": [(t.split_feat, t.left_mask, t.leaf_value)
+                   for t in rf.trees],
+            "stats": mesh_accumulate(torch, None)[:3],
+            "scores": Scorer([model], device="cuda").score(None,
+                                                           bins).scores,
+            "nn": mesh_nn(torch, nn_x, nn_y, None)}
+
+
+def mesh_compare(ranks, one) -> dict:
+    def same(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            a.tobytes() == b.tobytes()
+
+    def same_forest(a, b):
+        return len(a) == len(b) and all(
+            same(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb))
+    out = {"launches": [], "allreduces": []}
+    for r, got in enumerate(ranks):
+        if got["backend"] != "gloo" or got["shape"] != {
+                "ensemble": 1, "data": MESH_RANKS} or \
+                got["nn_shape"] != {"ensemble": MESH_NN_BAGS, "data": 1}:
+            fail(f"mesh rank {r}: backend {got['backend']}, meshes "
+                 f"{got['shape']} / {got['nn_shape']}")
+        for what in ("gbt", "rf"):
+            if not same_forest(got[what], one[what]):
+                fail(f"mesh rank {r}: the {what} forest differs from one "
+                     "rank's")
+        bnd, aggs, cells = got["stats"]
+        if not same(cells, one["stats"][2]) or any(
+                not same(a, b) for a, b in zip(bnd, one["stats"][0])) or any(
+                not same(a[:-1], b[:-1]) or not same(a[-1, :2], b[-1, :2])
+                for a, b in zip(aggs, one["stats"][1])):
+            fail(f"mesh rank {r}: stats boundaries, counts or cells differ "
+                 "from one rank's")
+        if not same(got["scores"], one["scores"]):
+            fail(f"mesh rank {r}: scores differ from one rank's")
+        va, params = got["nn"]
+        if not np.allclose(va, one["nn"][0], rtol=1e-4, atol=1e-6) or any(
+                not np.allclose(lg[k], lw[k], rtol=1e-3, atol=1e-5)
+                for pg, pw in zip(params, one["nn"][1])
+                for lg, lw in zip(pg, pw) for k in ("w", "b")):
+            fail(f"mesh rank {r}: NN beyond the reference's tolerance of "
+                 "one rank's")
+        ln, ar = got["launches"], got["allreduces"]
+        want = {"gbt": ({"hist": TRAIN_TREES * (DEPTH + 1),
+                         "leaf_sums": TRAIN_TREES},
+                        {"hist": TRAIN_TREES * (DEPTH + 1)}),
+                # 7 B2 levels, then each tree's leaf sums through B1
+                "rf": ({"hist_batch": DEPTH, "hist": MESH_RF_TREES,
+                        "leaf_sums": MESH_RF_TREES},
+                       {"hist": DEPTH + MESH_RF_TREES}),
+                "stats": ({"stats_hist": 2}, {"stats_hist": 2}),
+                "score": ({"tree_traverse": 1}, {})}
+        for part, (wl, wa) in want.items():
+            if any(ln[part][k] != v for k, v in wl.items()) or \
+                    any(ar[part][k] != v for k, v in wa.items()):
+                fail(f"mesh rank {r} {part}: launches {ln[part]}, "
+                     f"all_reduces {ar[part]}; want {wl} and {wa}")
+        out["launches"].append(ln)
+        out["allreduces"].append(ar)
+    out["timed"] = [g["timed"] for g in ranks]
+    out["walls_s"] = [g["walls_s"] for g in ranks]
+    log(f"mesh: {MESH_RANKS} ranks' GBT and RF forests, stats boundaries, "
+        f"counts and cells and scores equal one rank's bit for bit, the NN "
+        f"within rtol 1e-4/1e-3; launches {out['launches'][0]}, "
+        f"all_reduces {out['allreduces'][0]}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--time-of", metavar="DIR",
                     help="only time B1, B2 and a GBT chunk of the checkout "
                     "in DIR")
+    ap.add_argument("--mesh-rank", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_of:
         sys.path.insert(0, os.path.abspath(args.time_of))
@@ -7080,6 +7599,9 @@ def main() -> None:
         fail("CUDA is not available — this smoke runs on an NVIDIA GPU")
     if args.time_of:
         time_of(torch, args.time_of, args.seed)
+        return
+    if args.mesh_rank is not None:       # a rank of mesh_phase
+        mesh_rank_main(torch, args.mesh_rank, args.mesh_dir)
         return
     try:
         from shifu_tpu_torch.ops import cuda_lib
@@ -7142,6 +7664,9 @@ def main() -> None:
         plane = trained.pop("plane")
         forest = rf_phase(torch, root, serve_root, plane)
         mark("rf_phase")
+        mesh = mesh_phase(torch, root, serve_root, plane, trained["dir"],
+                          gpu)
+        mark("mesh_phase")
         bagging = bagging_phase(torch, root, serve_root, plane, gpu,
                                 trained["chunk"]["ms_per_tree"])
         mark("bagging_phase")
@@ -7337,6 +7862,8 @@ def main() -> None:
         "stream_replay_launches":
             stream["b"]["replay_launches"]["tree_traverse"],
         "refresh_launches": refresh["cli_launches"]["tree_traverse"],
+        "mesh_rank_launches": [ln["score"]["tree_traverse"]
+                               for ln in mesh["launches"]],
         f"node_index_walk_at_{MC_WALK_ROWS}_rows": multi["walk"],
         "gpu": gpu}, {
         "name": "hist", "route": "cuda",
@@ -7348,6 +7875,10 @@ def main() -> None:
         "combo_launches": aux["combo"]["hist_launches"],
         "refresh_launches": refresh["cli_launches"]["hist"],
         "refresh_served_launches": refresh["retrain_launches"]["hist"],
+        "mesh_rank_launches": [ln["gbt"]["hist"] for ln in mesh["launches"]],
+        "mesh_rank_allreduces": [a["gbt"]["hist"]
+                                 for a in mesh["allreduces"]],
+        "mesh_levels": [t["hist"] for t in mesh["timed"]],
         "wdl_combo_launches": wdl_combo["hist_launches"],
         "rf_launches": forest["launches"]["hist"],
         "rf_leaf_sum_launches": forest["launches"]["leaf_sums"],
@@ -7387,6 +7918,11 @@ def main() -> None:
         "inputs_launches": inputs["launches"]["stats_hist"],
         "telemetry_launches": tel["launches"]["stats_hist"],
         "telemetry_cost_launches": tel["costs"]["stats.stats_hist"],
+        "mesh_rank_launches": [ln["stats"]["stats_hist"]
+                               for ln in mesh["launches"]],
+        "mesh_rank_allreduces": [a["stats"]["stats_hist"]
+                                 for a in mesh["allreduces"]],
+        "mesh_launch": [t["stats_hist"] for t in mesh["timed"]],
         "max_abs_err": errs["stats_hist"],
         "ms": stats_times[4]["ms"], "plain_ms": stats_times[4]["plain_ms"],
         "bound_ms": stats_times[4]["bound_ms"],
@@ -7405,6 +7941,10 @@ def main() -> None:
         "bagging_launches": bagging["bagging"]["launches"]["hist_batch"],
         "kfold_launches": bagging["kfold"]["launches"]["hist_batch"],
         "multiclass_launches": multi["rf"]["launches"]["hist_batch"],
+        "mesh_rank_launches": [ln["rf"]["hist_batch"]
+                               for ln in mesh["launches"]],
+        "mesh_rank_allreduces": [a["rf"]["hist"] for a in mesh["allreduces"]],
+        "mesh_level": [t["hist_batch"] for t in mesh["timed"]],
         "stream_launches": {k: stream[k]["launches"]["hist_batch"]
                             for k in ("a", "a_exact", "c")},
         "at_stream_path": {m: stream["kernels"]["path"][m] for m in (
@@ -7482,7 +8022,7 @@ def main() -> None:
         f"rows, {ns['a']['ms_per_epoch']:.1f} ms an epoch, device busy "
         f"{100 * ns['e'].get('busy_share', float('nan')):.1f}%; card vs CPU "
         f"errors within {ns['d']['err_rel']:.3g}; varselect SE "
-        f"{varsel['wall_s']:.3f} s on {TRAIN_ROWS} rows, card vs CPU SE "
+        f"{varsel['wall_s']:.3f} s on {NN_ROWS} rows, card vs CPU SE "
         f"within {varsel['se_diff']:.3g}; GENETIC {genetic['wall_s']:.3f} s"
         f" ({genetic['epochs_per_s']:.1f} epochs/s) — [{gpu}]")
     log(f"members: bagged GBT {bagging['member_ms']:.3f} ms a member tree "
@@ -7491,7 +8031,7 @@ def main() -> None:
         f"one-vs-all GBT {multi['ova']['wall_s']:.3f} s; multi-class CLI "
         f"accuracy RF {mc_cli['RF']['accuracy']:.6f}, GBT "
         f"{mc_cli['GBT']['accuracy']:.6f} — [{gpu}]")
-    log(f"NN/LR on {TRAIN_ROWS} x {N_COLS} ({nn['plane_gb']:.2f} GB "
+    log(f"NN/LR on {NN_ROWS} x {N_COLS} ({nn['plane_gb']:.2f} GB "
         f"plane): (a) {nn['a']['ms_per_epoch']:.3f} ms an epoch of "
         f"{NN_BAGS} bags, (b) {nn['b']['ms_per_epoch']:.3f} ms an epoch, "
         f"{nn['b']['ms_per_step']:.4f} ms a step, "
@@ -7503,7 +8043,7 @@ def main() -> None:
         f"{e2e_nn['auc_card_cpu']:.3g}); phase walls "
         f"{ {k: round(v, 3) for k, v in nn_walls.items()} } — [{gpu}]")
     wa, wb = wdl["a"], wdl["b"]
-    log(f"WDL on {TRAIN_ROWS} x {N_COLS}, {WDL_BAGS} bags: "
+    log(f"WDL on {WDL_ROWS} x {N_COLS}, {WDL_BAGS} bags: "
         f"{wa['ms_per_epoch']:.3f} ms a full-batch epoch, "
         f"{wb['ms_per_epoch']:.1f} ms a minibatch epoch "
         f"({wb['ms_per_step']:.4f} ms a step, "

@@ -28,6 +28,15 @@ the ``tree_traverse`` kernel on the card (encode: its node-index walk,
 one launch a chunk), and varselect's SE/ST, GENETIC and ``-recursive``
 train or run nets there.
 
+Several processes run one step together as the reference's mesh does:
+launch one a rank with ``SHIFU_COORDINATOR=host:port`` (served by rank 0),
+``SHIFU_NUM_PROCESSES=N`` and ``SHIFU_PROCESS_ID=r``
+(``parallel.mesh.initialize_distributed``).  ``stats`` then splits each
+chunk's rows over the ranks, a resident GBT, RF or DT and an in-RAM NN/LR
+``train`` split the rows (and an NN's members), and ``eval`` splits the
+scored rows; each rank reads the whole model set and writes it as one
+process would.
+
     python -m shifu_tpu_torch.cli --dir <base> new <name> [-t <alg>] [-m <text>]
     python -m shifu_tpu_torch.cli --dir <modelset> init [-model]
     python -m shifu_tpu_torch.cli --dir <modelset> stats [-correlation] [-psi] [-rebin [-vars A,B] [-ivr R] [-bic N]] [--device cpu]
@@ -379,6 +388,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         obs.set_enabled(True)
     if getattr(args, "profile_dir", None):
         environment.set_property("shifu.profile", args.profile_dir)
+    # multi-process bootstrap: a no-op unless the launcher set
+    # SHIFU_COORDINATOR (one process a rank; device_mesh() then spans the
+    # world)
+    from .parallel.mesh import initialize_distributed
+    initialize_distributed(device=getattr(args, "device", None))
     if args.command == "new":
         from .pipeline.create import create_new_model
         create_new_model(args.name, base_dir=args.dir, algorithm=args.alg,

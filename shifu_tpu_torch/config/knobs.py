@@ -232,6 +232,15 @@ _DECLS: Tuple[Knob, ...] = (
        "fraction of live controllers whose contributions close a step (also "
        "the monitor's QUORUM LOST threshold)"),
     # ---- multi-host / launcher
+    # (the reference's fields, word for word: the coordinator is the
+    # torch.distributed TCPStore's address here)
+    _k("SHIFU_COORDINATOR", "env", "str", "",
+       "jax.distributed coordinator address (host:port); unset = "
+       "single-process"),
+    _k("SHIFU_NUM_PROCESSES", "env", "int", "",
+       "process count for the multi-controller job"),
+    _k("SHIFU_PROCESS_ID", "env", "int", "",
+       "this controller's process index"),
     _k("SHIFU_TPU_HOME", "env", "str", "",
        "home dir holding conf/shifuconfig global properties"),
     _k("SHIFU_HOME", "env", "str", "",

@@ -87,8 +87,17 @@
 //   words at zero.  A layout that shares one bin read among a tile of
 //   trees lost to this one on an H100 at K = 1, the only K where it fits
 //   (TB = 8 and TB = 1), so there is none.
-// Production runs every launch to its end (shifu_hist).  A second entry
-// point, shifu_hist_until, stops a launch after its set-up, its row walk or
+// Production runs every launch to its end (shifu_hist).  On a mesh, where
+// each rank holds a block of the rows (shifu_tpu_torch/ops/hist.py,
+// build_histograms_sharded), a launch stops before the rounding instead
+// (shifu_hist_raw): it writes every cell's 64-bit fixed-point sum, at the
+// scale of a channel amax and a row count that the caller reduced over the
+// ranks (device values), into an int64 [TB, K, C, B, S] buffer.  The
+// caller sums those buffers over the ranks, exactly, and shifu_hist_flush
+// rounds each cell to f32 once, as the last kernel of a single launch
+// does; a 32-bit channel's cell is the 64-bit form's value there too.
+// So the sharded result has the bits of one launch over all the rows.
+// A second entry point, shifu_hist_until, stops a launch after its set-up, its row walk or
 // its adds, through kernel instantiations of their own, so a timing run can
 // split a launch's time by part without a branch in the production kernel.
 
@@ -151,9 +160,10 @@ bool vec_ok(long long v, long long n_cols, int bin_bytes) {
   return bin_bytes == 1 && n_cols % v == 0 && n_cols >= 32 * v;
 }
 
+// raw: the launch writes 64-bit cells to a caller's buffer (never direct)
 int make_plan(long long n_rows, long long n_cols, long long n_trees,
               long long n_nodes, long long n_bins, long long n_stats,
-              int bin_bytes, Plan* p) {
+              int bin_bytes, int raw, Plan* p) {
   if (n_cols <= 0 || n_trees <= 0 || n_nodes <= 0 || n_bins <= 0 ||
       n_bins > 65536 || n_stats <= 0 || n_rows < 0 || n_rows > INT_MAX ||
       n_trees > 65535 || (bin_bytes != 1 && bin_bytes != 4))
@@ -197,13 +207,13 @@ int make_plan(long long n_rows, long long n_cols, long long n_trees,
   if (chunks > 65535) chunks = 65535;
   if (chunks < 1) chunks = 1;
   p->chunks = chunks;
-  p->direct = chunks == 1;
+  p->direct = chunks == 1 && !raw;
   p->smem = smem_bytes(S, p->node_tile * p->bin_tile, p->vec);
 
   const long long total = n_trees * n_nodes * n_cols * n_bins * S;
   size_t off = 0;
   p->ws_acc = off;
-  if (!p->direct) off = align16(off + (size_t)total * 8);
+  if (!p->direct && !raw) off = align16(off + (size_t)total * 8);
   const size_t seg = align16((size_t)n_trees * (n_nodes + 1) * 4);
   p->ws_off = off;
   p->ws_cur = p->ws_off + seg;
@@ -336,6 +346,7 @@ struct Args {
   const int* perm;                   // [TB, N] rows sorted by node
   unsigned long long* acc;           // [TB, K, C, B, S] unless direct
   float* out;                        // [TB, K, C, B, S]
+  const long long* n_scale;          // [1] rows of the scale, or null: N
   long long n_rows;
   int n_cols, n_trees, n_nodes, n_bins, n_stats;
   int direct;
@@ -445,10 +456,11 @@ hist_accum_kernel(const BinT* __restrict__ bins, const Args a, int until) {
   int* trow = exf + S;
   int* tcell = trow + kTileRows;
 
+  const long long n_scale = a.n_scale ? __ldg(a.n_scale) : a.n_rows;
   for (int s = threadIdx.x; s < S; s += kThreads) {
     const float am = __ldg(a.amax + (size_t)t0 * S + s);
     const int ex = __ldg(a.exact + (size_t)t0 * S + s) != 0;
-    const int e = channel_exp(am, a.n_rows);
+    const int e = channel_exp(am, n_scale);
     scale[s] = ex ? 1.0 : ldexp(1.0, e);
     exps[s] = isfinite(am) ? e : kNanExp;
     exf[s] = ex;
@@ -625,7 +637,9 @@ __global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
                                 const float* __restrict__ amax,
                                 float* __restrict__ out, long long total,
                                 long long per_tree, int n_stats,
-                                long long n_rows) {
+                                long long n_rows,
+                                const long long* __restrict__ n_scale) {
+  if (n_scale) n_rows = __ldg(n_scale);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     const float a = __ldg(amax + (i / per_tree) * n_stats + i % n_stats);
@@ -689,22 +703,27 @@ cudaError_t partition(const Args& a, int* off, int* cur, int* perm,
   return cudaGetLastError();
 }
 
+// raw: `raw_out` receives the 64-bit cells at the scale of `n_scale`
+// (device [1]) and nothing is rounded; otherwise `out` gets f32 and
+// `n_scale` may be null (the scale of n_rows)
 int launch(const void* bins, int bin_bytes, const void* node_idx,
            const void* stats, const void* amax, const void* exact, void* ws,
            long long ws_bytes, void* out, long long n_rows, int n_cols,
            int n_trees, int n_nodes, int n_bins, int n_stats, int stop,
-           void* stream) {
+           int raw, const long long* n_scale, void* raw_out, void* stream) {
   Plan p;
   const int err0 = make_plan(n_rows, n_cols, n_trees, n_nodes, n_bins,
-                             n_stats, bin_bytes, &p);
+                             n_stats, bin_bytes, raw, &p);
   if (err0 != cudaSuccess) return err0;
-  if ((size_t)ws_bytes < p.ws_bytes || stop < kSetup || stop > kAll)
+  if ((size_t)ws_bytes < p.ws_bytes || stop < kSetup || stop > kAll ||
+      (raw && (stop != kAll || !n_scale || !raw_out)))
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long total =
       (long long)n_trees * n_nodes * n_cols * n_bins * n_stats;
   if (n_rows == 0)
-    return cudaMemsetAsync(out, 0, (size_t)total * 4, st);
+    return raw ? cudaMemsetAsync(raw_out, 0, (size_t)total * 8, st)
+               : cudaMemsetAsync(out, 0, (size_t)total * 4, st);
 
   char* w = (char*)ws;
   Args a{};
@@ -712,7 +731,9 @@ int launch(const void* bins, int bin_bytes, const void* node_idx,
   a.stats = (const float*)stats;
   a.amax = (const float*)amax;
   a.exact = (const int32_t*)exact;
-  a.acc = (unsigned long long*)(w + p.ws_acc);
+  a.acc = raw ? (unsigned long long*)raw_out
+              : (unsigned long long*)(w + p.ws_acc);
+  a.n_scale = n_scale;
   a.off = (const int*)(w + p.ws_off);
   a.perm = (const int*)(w + p.ws_perm);
   a.out = (float*)out;
@@ -749,9 +770,10 @@ int launch(const void* bins, int bin_bytes, const void* node_idx,
   err = flush ? accumulate<false>(bins, bin_bytes, p, a, stop, st)
               : accumulate<true>(bins, bin_bytes, p, a, stop, st);
   if (err != cudaSuccess) return err;
-  if (!p.direct && flush) {
+  if (!p.direct && flush && !raw) {
     finalize_kernel<<<grid_for(total, 8192), 256, 0, st>>>(
-        a.acc, a.amax, a.out, total, total / n_trees, n_stats, n_rows);
+        a.acc, a.amax, a.out, total, total / n_trees, n_stats, n_rows,
+        n_scale);
     err = cudaGetLastError();
   }
   return err;
@@ -760,14 +782,15 @@ int launch(const void* bins, int bin_bytes, const void* node_idx,
 }  // namespace
 
 // Bytes of device scratch one launch at these shapes needs (0 if none), in
-// *bytes; returns a cudaError_t (0 = the shapes are supported).
+// *bytes, for shifu_hist (raw = 0) or shifu_hist_raw (raw = 1); returns a
+// cudaError_t (0 = the shapes are supported).
 extern "C" int shifu_hist_workspace(long long n_rows, int n_cols,
                                     int n_trees, int n_nodes, int n_bins,
-                                    int n_stats, int bin_bytes,
+                                    int n_stats, int bin_bytes, int raw,
                                     long long* bytes) {
   Plan p;
   const int err = make_plan(n_rows, n_cols, n_trees, n_nodes, n_bins,
-                            n_stats, bin_bytes, &p);
+                            n_stats, bin_bytes, raw, &p);
   *bytes = err == cudaSuccess ? (long long)p.ws_bytes : 0;
   return err;
 }
@@ -779,7 +802,7 @@ extern "C" int shifu_hist_plan(long long n_rows, int n_cols, int n_trees,
                                int bin_bytes, long long* plan) {
   Plan p;
   const int err = make_plan(n_rows, n_cols, n_trees, n_nodes, n_bins,
-                            n_stats, bin_bytes, &p);
+                            n_stats, bin_bytes, 0, &p);
   const long long v[7] = {p.vec, p.node_tile, p.bin_tile, p.col_group,
                           p.chunks, p.direct, (long long)p.smem};
   for (int i = 0; i < 7; ++i) plan[i] = err == cudaSuccess ? v[i] : 0;
@@ -801,7 +824,40 @@ extern "C" int shifu_hist(const void* bins, int bin_bytes,
                           int n_stats, void* stream) {
   return launch(bins, bin_bytes, node_idx, stats, amax, exact, ws, ws_bytes,
                 out, n_rows, n_cols, n_trees, n_nodes, n_bins, n_stats, kAll,
-                stream);
+                0, nullptr, nullptr, stream);
+}
+
+// shifu_hist's launch on a block of the rows, stopped before the rounding:
+// `raw_out` [TB, K, C, B, S] int64 receives every cell's exact 64-bit
+// fixed-point sum at the scale of `amax` [TB, S] and the row count
+// `n_scale` (device int64 [1]) — both reduced over every block by the
+// caller — with `exact` [TB, S] decided from them too; `ws` is
+// shifu_hist_workspace(raw = 1) bytes.
+extern "C" int shifu_hist_raw(const void* bins, int bin_bytes,
+                              const void* node_idx, const void* stats,
+                              const void* amax, const void* exact, void* ws,
+                              long long ws_bytes, void* raw_out,
+                              const void* n_scale, long long n_rows,
+                              int n_cols, int n_trees, int n_nodes,
+                              int n_bins, int n_stats, void* stream) {
+  return launch(bins, bin_bytes, node_idx, stats, amax, exact, ws, ws_bytes,
+                nullptr, n_rows, n_cols, n_trees, n_nodes, n_bins, n_stats,
+                kAll, 1, (const long long*)n_scale, raw_out, stream);
+}
+
+// The rounding of shifu_hist_raw's cells (summed over the blocks): `out`
+// [TB, K, C, B, S] f32 from `acc` int64 at the scale of `amax` [TB, S] and
+// `n_scale` (device int64 [1]) — the bits one shifu_hist launch over all
+// the rows writes.
+extern "C" int shifu_hist_flush(const void* acc, const void* amax, void* out,
+                                const void* n_scale, long long total,
+                                int n_trees, int n_stats, void* stream) {
+  if (total <= 0 || n_trees <= 0 || total % n_trees || n_stats <= 0)
+    return total == 0 ? cudaSuccess : cudaErrorInvalidValue;
+  finalize_kernel<<<grid_for(total, 8192), 256, 0, (cudaStream_t)stream>>>(
+      (const unsigned long long*)acc, (const float*)amax, (float*)out, total,
+      total / n_trees, n_stats, 0, (const long long*)n_scale);
+  return cudaGetLastError();
 }
 
 // For timing only: shifu_hist's launch stopped after part `stop` (0: the
@@ -816,5 +872,5 @@ extern "C" int shifu_hist_until(const void* bins, int bin_bytes,
                                 void* stream) {
   return launch(bins, bin_bytes, node_idx, stats, amax, exact, ws, ws_bytes,
                 out, n_rows, n_cols, n_trees, n_nodes, n_bins, n_stats, stop,
-                stream);
+                0, nullptr, nullptr, stream);
 }

@@ -77,8 +77,17 @@
 // thirds of a launch, and relaxed arrives, mbarrier handshakes (spinning
 // or suspending) and stats loaded a tile ahead moved nothing: the
 // per-tile synchronisation is the open lever (PERF.md section 7).
-// Production runs every launch to its end (shifu_stats_hist).  A second
-// entry point, shifu_stats_hist_until, stops a launch after staging the
+// Production runs every launch to its end (shifu_stats_hist).  On a mesh,
+// where each rank holds a block of a chunk's rows
+// (shifu_tpu_torch/ops/stats_hist.py, stats_histograms_sharded), a launch
+// stops before the rounding instead (shifu_stats_hist_raw): it writes
+// every cell's exact sum into an int64 [C, B, S] buffer — counts as
+// integers, weighted channels in 64-bit fixed point at the scale of an
+// amax and a row count that the caller reduced over the ranks (device
+// values).  The caller sums those buffers over the ranks, exactly, and
+// shifu_stats_hist_flush rounds each cell to f32 once, as the last kernel
+// of a single launch does, so the sharded result has the bits of one
+// launch over all the rows.  A second entry point, shifu_stats_hist_until, stops a launch after staging the
 // ids (loads, exchange, barriers) or after the adds, through kernel
 // instantiations of their own, so a timing run can split a launch's time
 // by part without a branch in the production kernel.
@@ -137,6 +146,7 @@ struct Args {
   const float* amax;                  // [S]
   unsigned long long* acc;            // [C, B, S], split rows only
   float* out;                         // [C, B, S]
+  const long long* n_scale;           // [1] rows of the scale, or null: N
   long long n_rows, rows_per_chunk;
   int n_cols, n_buckets, n_stats, n_exact;
   int g, cl, direct;
@@ -152,8 +162,9 @@ struct Plan {
   size_t smem;
 };
 
+// raw: the launch writes 64-bit cells to the caller's buffer (never direct)
 int make_plan(long long n_rows, int n_cols, int n_buckets, int n_stats,
-              int n_exact, int n_sms, Plan* p) {
+              int n_exact, int n_sms, int raw, Plan* p) {
   if (n_cols <= 0 || n_buckets <= 0 || n_buckets > 4096 || n_stats <= 0 ||
       n_stats > kMaxStats || n_exact < 0 || n_exact > n_stats || n_rows < 0)
     return cudaErrorInvalidValue;
@@ -174,7 +185,7 @@ int make_plan(long long n_rows, int n_cols, int n_buckets, int n_stats,
   if (chunks < 1) chunks = 1;
   p->chunks = cdiv(n_rows, cdiv(n_rows > 0 ? n_rows : 1, chunks));
   if (p->chunks < 1) p->chunks = 1;
-  p->direct = p->chunks == 1;
+  p->direct = p->chunks == 1 && !raw;
   p->tile_rows = (long long)p->cl * kSliceRows;
   p->smem = p->g * col_bytes + 2ull * kStages * p->g * p->tile_rows;
   return cudaSuccess;
@@ -280,11 +291,12 @@ stats_hist_kernel(const Args a, int until) {
   const long long tiles = r1 > r0 ? cdiv(r1 - r0, tile) : 0;
 
   for (int i = threadIdx.x; i < a.g * col_words; i += kThreads) hist[i] = 0u;
+  const long long n_scale = a.n_scale ? __ldg(a.n_scale) : a.n_rows;
   double scale[kMaxStats];
 #pragma unroll
   for (int s = 0; s < kMaxStats; ++s)
     scale[s] = s < S && s >= a.n_exact
-                   ? ldexp(1.0, channel_exp(__ldg(a.amax + s), a.n_rows))
+                   ? ldexp(1.0, channel_exp(__ldg(a.amax + s), n_scale))
                    : 1.0;
   const int t = threadIdx.x;
   const int mine0 = rank * kSliceRows;        // this CTA's rows of a tile
@@ -402,7 +414,7 @@ stats_hist_kernel(const Args a, int until) {
       } else {
         const float am = __ldg(a.amax + s);
         a.out[at] = isfinite(am) ? ldexpf(__ll2float_rn((long long)val),
-                                          -channel_exp(am, a.n_rows))
+                                          -channel_exp(am, n_scale))
                                  : __int_as_float(0x7fc00000);
       }
     } else if (val != 0ull) {
@@ -414,7 +426,8 @@ stats_hist_kernel(const Args a, int until) {
 __global__ void stats_hist_finalize_kernel(
     const unsigned long long* __restrict__ acc, const float* __restrict__ amax,
     float* __restrict__ out, long long total, int n_stats, int n_exact,
-    long long n_rows) {
+    long long n_rows, const long long* __restrict__ n_scale) {
+  if (n_scale) n_rows = __ldg(n_scale);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     const int s = (int)(i % n_stats);
@@ -460,17 +473,23 @@ int launch_kernel(const Plan& p, const Args& a, int until, cudaStream_t st) {
   return cudaLaunchKernelEx(&cfg, stats_hist_kernel<kTimed>, a, until);
 }
 
+// raw: `acc` receives the 64-bit cells at the scale of `n_scale` (device
+// [1]) and nothing is rounded; otherwise `n_scale` may be null (the scale
+// of n_rows)
 int launch(const void* idx, const void* stats, const void* amax, void* acc,
            void* out, long long n_rows, int n_cols, int n_buckets,
-           int n_stats, int n_exact, int until, void* stream) {
+           int n_stats, int n_exact, int until, int raw,
+           const long long* n_scale, void* stream) {
   Plan p;
   int rc = make_plan(n_rows, n_cols, n_buckets, n_stats, n_exact, sm_count(),
-                     &p);
+                     raw, &p);
   if (rc != cudaSuccess) return rc;
+  if (raw && (until != kAll || !n_scale)) return cudaErrorInvalidValue;
   const long long total = (long long)n_cols * n_buckets * n_stats;
   cudaStream_t st = (cudaStream_t)stream;
   if (n_rows == 0)
-    return cudaMemsetAsync(out, 0, (size_t)total * 4, st);
+    return raw ? cudaMemsetAsync(acc, 0, (size_t)total * 8, st)
+               : cudaMemsetAsync(out, 0, (size_t)total * 4, st);
   cudaError_t err;
   if (!p.direct && until != kStage) {
     err = cudaMemsetAsync(acc, 0, (size_t)total * 8, st);
@@ -482,6 +501,7 @@ int launch(const void* idx, const void* stats, const void* amax, void* acc,
   a.amax = (const float*)amax;
   a.acc = (unsigned long long*)acc;
   a.out = (float*)out;
+  a.n_scale = n_scale;
   a.n_rows = n_rows;
   a.rows_per_chunk = cdiv(n_rows, p.chunks);
   a.n_cols = n_cols;
@@ -495,12 +515,12 @@ int launch(const void* idx, const void* stats, const void* amax, void* acc,
                      : launch_kernel<true>(p, a, until, st);
   if (rc != cudaSuccess) return rc;
   err = cudaGetLastError();
-  if (err != cudaSuccess || p.direct || until != kAll) return err;
+  if (err != cudaSuccess || p.direct || until != kAll || raw) return err;
   long long blocks = cdiv(total, 256);
   if (blocks > 8192) blocks = 8192;
   stats_hist_finalize_kernel<<<(unsigned)blocks, 256, 0, st>>>(
       (const unsigned long long*)acc, (const float*)amax, (float*)out, total,
-      n_stats, n_exact, n_rows);
+      n_stats, n_exact, n_rows, n_scale);
   return cudaGetLastError();
 }
 
@@ -515,7 +535,41 @@ extern "C" int shifu_stats_hist(const void* idx, const void* stats,
                                 long long n_rows, int n_cols, int n_buckets,
                                 int n_stats, int n_exact, void* stream) {
   return launch(idx, stats, amax, acc, out, n_rows, n_cols, n_buckets,
-                n_stats, n_exact, kAll, stream);
+                n_stats, n_exact, kAll, 0, nullptr, stream);
+}
+
+// shifu_stats_hist's launch on a block of the rows, stopped before the
+// rounding: `acc` [C, B, S] int64 receives every cell's exact sum — count
+// channels as integers, the others in 64-bit fixed point at the scale of
+// `amax` [S] and the row count `n_scale` (device int64 [1]), both reduced
+// over every block by the caller.
+extern "C" int shifu_stats_hist_raw(const void* idx, const void* stats,
+                                    const void* amax, void* acc,
+                                    const void* n_scale, long long n_rows,
+                                    int n_cols, int n_buckets, int n_stats,
+                                    int n_exact, void* stream) {
+  return launch(idx, stats, amax, acc, nullptr, n_rows, n_cols, n_buckets,
+                n_stats, n_exact, kAll, 1, (const long long*)n_scale,
+                stream);
+}
+
+// The rounding of shifu_stats_hist_raw's cells (summed over the blocks):
+// `out` [C, B, S] f32 from `acc` at the scale of `amax` [S] and `n_scale`
+// (device int64 [1]) — the bits one shifu_stats_hist launch over all the
+// rows writes.
+extern "C" int shifu_stats_hist_flush(const void* acc, const void* amax,
+                                      void* out, const void* n_scale,
+                                      long long total, int n_stats,
+                                      int n_exact, void* stream) {
+  if (total < 0 || n_stats <= 0 || total % n_stats) return cudaErrorInvalidValue;
+  if (total == 0) return cudaSuccess;
+  long long blocks = cdiv(total, 256);
+  if (blocks > 8192) blocks = 8192;
+  stats_hist_finalize_kernel<<<(unsigned)blocks, 256, 0,
+                               (cudaStream_t)stream>>>(
+      (const unsigned long long*)acc, (const float*)amax, (float*)out, total,
+      n_stats, n_exact, 0, (const long long*)n_scale);
+  return cudaGetLastError();
 }
 
 // For timing only: the same launch stopped after part `until` (1: the ids
@@ -527,7 +581,7 @@ extern "C" int shifu_stats_hist_until(const void* idx, const void* stats,
                                       int until, void* stream) {
   if (until != kStage && until != kAccum) return cudaErrorInvalidValue;
   return launch(idx, stats, amax, acc, out, n_rows, n_cols, n_buckets,
-                n_stats, n_exact, until, stream);
+                n_stats, n_exact, until, 0, nullptr, stream);
 }
 
 // How a launch at these shapes tiles its work on the current device:
@@ -538,7 +592,7 @@ extern "C" int shifu_stats_hist_plan(long long n_rows, int n_cols,
                                      long long* out) {
   Plan p;
   const int rc = make_plan(n_rows, n_cols, n_buckets, n_stats, n_exact,
-                           sm_count(), &p);
+                           sm_count(), 0, &p);
   if (rc != cudaSuccess) return rc;
   out[0] = p.g;
   out[1] = p.cl;

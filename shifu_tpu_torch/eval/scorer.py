@@ -81,15 +81,23 @@ class CaseScoreResult:
 
 
 class Scorer:
-    """Multi-model batch scorer over normalized and binned rows."""
+    """Multi-model batch scorer over normalized and binned rows.
+
+    ``mesh`` (reference ``Scorer(mesh=...)``, the cluster eval of
+    ``EvalModelProcessor.java:424-436``): every rank passes the whole
+    batch, scores its block of the rows (``parallel.mesh.
+    shard_chunk_rows``; the forests through kernel B4) and gets every
+    row's outputs back, gathered over the data group in rank order with
+    the padding trimmed — the one-rank outputs, bit for bit."""
 
     def __init__(self, models: Sequence, scale: float = SCORE_SCALE,
-                 device=None):
+                 device=None, mesh=None):
         if not models:
             raise ValueError("no models to score with")
         self.models = list(models)
         self.scale = scale
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.tree_models = [m for m in self.models
                             if getattr(m, "input_kind", "norm") == "bins"]
         self.needs_bins = any(getattr(m, "input_kind", "norm")
@@ -98,8 +106,8 @@ class Scorer:
 
     @classmethod
     def from_dir(cls, models_dir: str, scale: float = SCORE_SCALE,
-                 device=None) -> "Scorer":
-        return cls(load_models(models_dir), scale, device=device)
+                 device=None, mesh=None) -> "Scorer":
+        return cls(load_models(models_dir), scale, device=device, mesh=mesh)
 
     def nn_groups(self) -> List[Tuple[List[int], object, list]]:
         """Same-shape NN/LR models as ``(model indices, spec, stacked
@@ -121,7 +129,25 @@ class Scorer:
                 bins: Optional[np.ndarray]) -> List[np.ndarray]:
         """Every model's ``[n, out]`` f32 output, in model order: the
         forests over ``bins``, the nets and SVMs over ``x``, WDL models
-        over both."""
+        over both.  On a mesh, this rank scores its block of the rows and
+        the data group gathers every block (one all_gather)."""
+        from ..parallel import mesh as meshlib
+        if not meshlib.data_sharded(self.mesh):
+            return self._outputs(x, bins)
+        n = len(x) if x is not None else len(bins)
+        have = [a for a in (x, bins) if a is not None]
+        blocks = iter(meshlib.shard_chunk_rows(self.mesh, *have)[:-1])
+        local = self._outputs(next(blocks) if x is not None else None,
+                              next(blocks) if bins is not None else None)
+        widths = [o.shape[1] for o in local]
+        flat = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+            local, axis=1))).to(self.device)
+        full = meshlib.gather_rows(self.mesh, flat, n).cpu().numpy()
+        return [part.astype(o.dtype) for part, o in zip(
+            np.split(full, np.cumsum(widths)[:-1], axis=1), local)]
+
+    def _outputs(self, x: Optional[np.ndarray],
+                 bins: Optional[np.ndarray]) -> List[np.ndarray]:
         outs: List[Optional[np.ndarray]] = [None] * len(self.models)
         groups = self.nn_groups()
         needs_x = len(self.tree_models) < len(self.models)
@@ -221,11 +247,11 @@ class ModelRunner:
 
     def __init__(self, model_config, column_configs, models: Sequence,
                  for_eval_set: Optional[int] = None,
-                 scale: float = SCORE_SCALE, device=None):
+                 scale: float = SCORE_SCALE, device=None, mesh=None):
         from ..data.transform import DatasetTransformer
         self.transformer = DatasetTransformer(model_config, column_configs,
                                               for_eval_set=for_eval_set)
-        self.scorer = Scorer(models, scale, device=device)
+        self.scorer = Scorer(models, scale, device=device, mesh=mesh)
 
     def compute(self, chunk) -> Dict[str, object]:
         tc = self.transformer.transform(chunk)

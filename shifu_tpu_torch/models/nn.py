@@ -160,7 +160,8 @@ def _dense(h: torch.Tensor, layer: Dict[str, torch.Tensor],
 
 def forward(params: Params, spec: NNModelSpec, x: torch.Tensor, *,
             dropout_rate=0.0, rng=None,
-            matmul_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            matmul_dtype: Optional[torch.dtype] = None,
+            row0: int = 0) -> torch.Tensor:
     """MLP forward: ``[N, out]``, or ``[B, N, out]`` for stacked params.
 
     Hidden dropout (inverted scaling) only when a key is given: ``rng`` is
@@ -168,7 +169,9 @@ def forward(params: Params, spec: NNModelSpec, x: torch.Tensor, *,
     layer as the reference does; ``dropout_rate`` is a number or a
     ``[B]`` tensor (stacked grid trials).  The compute dtype follows the
     weights: bf16 params pull the input and every hidden activation to
-    bf16, and the head widens back to f32 before its activation."""
+    bf16, and the head widens back to f32 before its activation.
+    ``row0``: the rows are rows [row0, row0 + N) of the batch the dropout
+    masks are drawn for (a mesh rank's block)."""
     acts = [activation(a) for a in spec.activations]
     cdt = params[0]["w"].dtype if params else torch.float32
     stacked = bool(params) and params[0]["w"].dim() == 3
@@ -185,7 +188,8 @@ def forward(params: Params, spec: NNModelSpec, x: torch.Tensor, *,
                 keys[j], sub = prng.split(k)
                 subs.append(sub)
             keep = prng.bernoulli(subs, keep_p, tuple(h.shape[-2:]),
-                                  device=h.device)
+                                  device=h.device,
+                                  start=row0 * h.shape[-1])
             if isinstance(keep_p, torch.Tensor):
                 kp = keep_p.to(h.dtype).reshape(-1, 1, 1)
             else:
@@ -244,6 +248,16 @@ def weighted_loss(params: Params, spec: NNModelSpec, x, y, w, *,
     per_row = per_row_loss(pred, y, spec)
     denom = torch.clamp(w.sum(dim=-1), min=1e-9)
     loss = (per_row * w).sum(dim=-1) / denom
+    reg = regularization(params, l2, l1)
+    return loss if reg is None else loss + reg
+
+
+def regularization(params: Params, l2=0.0, l1=0.0):
+    """:func:`weighted_loss`'s L2 and L1 terms on the weights (``[B]`` for
+    stacked params), or None when neither is set."""
+    if not (_nonzero(l2) or _nonzero(l1)):
+        return None
+    loss = 0.0
     if _nonzero(l2):
         loss = loss + l2 * sum((layer["w"] ** 2).sum(dim=(-2, -1))
                                for layer in params)

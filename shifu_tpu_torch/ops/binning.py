@@ -43,6 +43,8 @@ import torch
 
 from .. import DeviceLike
 from ..config.model_config import BinningMethod
+from ..parallel.mesh import (all_gather, all_reduce, data_sharded,
+                             shard_chunk_rows)
 from .stats_hist import stats_histograms
 
 #: separator of merged raw categories inside one bin label (dynamic rebin;
@@ -126,13 +128,16 @@ def _bucket_ids(x, valid, lo, hi, num_buckets: int) -> torch.Tensor:
 
 
 def _histogram_kernel(x, valid, target, weight, lo, hi, num_buckets: int,
-                      unit_weight: bool = False, expand: bool = True):
+                      unit_weight: bool = False, expand: bool = True,
+                      mesh=None):
     """Fine histogram of one chunk through kernel B3: [C, B, 4] (#pos,
     #neg, w_pos, w_neg), or [C, B, 2] counts with ``unit_weight`` and
-    ``expand=False`` (the weighted slots then mirror the counts)."""
+    ``expand=False`` (the weighted slots then mirror the counts).  On a
+    ``mesh`` whose data axis splits the rows, the histogram of every
+    rank's rows (``stats_histograms_sharded``)."""
     vals, exact = _stat_channels(target, weight, unit_weight)
     h = stats_histograms(_bucket_ids(x, valid, lo, hi, num_buckets), vals,
-                         num_buckets, exact)
+                         num_buckets, exact, mesh)
     if unit_weight and expand:
         h = torch.cat([h, h], 2)
     return h
@@ -271,7 +276,16 @@ class NumericAccumulator:
 
     ``exact`` (MunroPat): pass 2 also keeps every column's valid values,
     pos flags and weights on the host (O(valid values) memory, as the
-    reference's ``MunroPatBinning`` materializes the column)."""
+    reference's ``MunroPatBinning`` materializes the column).
+
+    ``mesh`` (reference ``binning.py:117-121,369-371``): every rank passes
+    the whole chunk and keeps its block of the rows
+    (``parallel.mesh.shard_chunk_rows``); each chunk's per-rank moments
+    are gathered and combined in rank order (counts, min and max exact,
+    the rest in float64), the fine histogram sums every rank's rows
+    (``stats_histograms_sharded``: bit for bit one launch over the
+    chunk), and the missing-bin sums are all_reduced in float64.  Every
+    rank ends with the same state."""
     n_cols: int
     num_buckets: int = 4096
     unit_weight: bool = False       # no weight column: w channels mirror counts
@@ -299,6 +313,7 @@ class NumericAccumulator:
     _prov_magg_dev: Optional[torch.Tensor] = None
     _prov_lo_d: Optional[torch.Tensor] = None
     _prov_hi_d: Optional[torch.Tensor] = None
+    mesh: Optional[object] = None
 
     # f32 histogram counts are exact integers up to 2^24; drain to host
     # float64 well before that
@@ -315,7 +330,14 @@ class NumericAccumulator:
 
     def _put(self, *arrays):
         """The chunk's arrays on the device (x, target and weight as f32,
-        valid as bool); a tensor already there stays put."""
+        valid as bool); a tensor already there stays put.  On a mesh, this
+        rank's block of the rows (its padding trimmed)."""
+        if data_sharded(self.mesh):
+            blocks = shard_chunk_rows(self.mesh, *[
+                a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                for a in arrays])
+            live = int(blocks[-1].sum())
+            arrays = [b[:live] for b in blocks[:-1]]
         out = []
         for a, dtype in zip(arrays, (torch.float32, torch.bool,
                                      torch.float32, torch.float32)):
@@ -326,17 +348,33 @@ class NumericAccumulator:
         return out
 
     def _push_moments(self, xd, vd, rows: int) -> None:
-        self._pend_moments.append(_moments_kernel(xd, vd))
+        """Queue the chunk's moments (``rows``: the chunk's rows over
+        every rank); on a mesh every rank's, in rank order."""
+        if xd.shape[0]:
+            m = _moments_kernel(xd, vd)
+        else:                              # a rank with no rows of the chunk
+            m = torch.zeros((7, self.n_cols), device=xd.device)
+            m[5], m[6] = _F32_MAX, -_F32_MAX
+        if data_sharded(self.mesh):
+            self._pend_moments.extend(all_gather(self.mesh, m[None]))
+        else:
+            self._pend_moments.append(m)
         self.total_rows += rows
         self._pend_moment_rows += rows
         if self._pend_moment_rows >= self.DRAIN_ROWS:
             self._drain_moments()
 
-    def _add_hist(self, xd, vd, td, wd, lo, hi, prov: bool = False):
+    def _add_hist(self, xd, vd, td, wd, lo, hi, prov: bool = False,
+                  rows: Optional[int] = None):
+        """Add a chunk's histogram (``rows``: its rows over every rank,
+        which decide the drains alike on every rank)."""
         h = _histogram_kernel(xd, vd, td, wd, lo, hi, self.num_buckets,
-                              unit_weight=self.unit_weight, expand=False)
+                              unit_weight=self.unit_weight, expand=False,
+                              mesh=self.mesh)
         magg = _missing_agg_kernel(vd, td, wd, unit_weight=self.unit_weight,
                                    expand=False)
+        if data_sharded(self.mesh):
+            magg = all_reduce(self.mesh, magg.double()).float()
         if prov:
             self._prov_hist_dev = h if self._prov_hist_dev is None \
                 else self._prov_hist_dev + h
@@ -346,7 +384,7 @@ class NumericAccumulator:
         self._hist_dev = h if self._hist_dev is None else self._hist_dev + h
         self._magg_dev = magg if self._magg_dev is None \
             else self._magg_dev + magg
-        self._pend_hist_rows += xd.shape[0]
+        self._pend_hist_rows += xd.shape[0] if rows is None else rows
         if self._pend_hist_rows >= self.DRAIN_ROWS:
             self._drain_hist()
 
@@ -385,7 +423,7 @@ class NumericAccumulator:
                          target: np.ndarray, weight: np.ndarray) -> None:
         assert self.lo is not None, "call finalize_range() after pass 1"
         self._add_hist(*self._put(x, valid, target, weight), self._lo_d,
-                       self._hi_d)
+                       self._hi_d, rows=x.shape[0])
         if self.exact:
             if self._exact_cols is None:
                 self._exact_cols = [[] for _ in range(self.n_cols)]
@@ -412,7 +450,7 @@ class NumericAccumulator:
         self._push_moments(xd, vd, x.shape[0])
         nbytes = x.shape[0] * (5 * self.n_cols + 8)   # f32 x + bool v + t/w
         if self._fused_bytes + nbytes <= self.fused_budget:
-            self._fused_chunks.append((xd, vd, td, wd))
+            self._fused_chunks.append((xd, vd, td, wd, x.shape[0]))
             self._fused_bytes += nbytes
             return
         if self._prov_lo_d is None:
@@ -439,8 +477,9 @@ class NumericAccumulator:
         provisional histogram re-binned onto it — the state pass 2 would
         have left."""
         self.finalize_range()
-        for xd, vd, td, wd in self._fused_chunks:
-            self._add_hist(xd, vd, td, wd, self._lo_d, self._hi_d)
+        for xd, vd, td, wd, rows in self._fused_chunks:
+            self._add_hist(xd, vd, td, wd, self._lo_d, self._hi_d,
+                           rows=rows)
         self._fused_chunks.clear()
         self._fused_bytes = 0
         if self._prov_hist_dev is not None:
@@ -464,7 +503,7 @@ class NumericAccumulator:
         one refine the same provisional grid at finalize."""
         if self._prov_lo_d is None:
             self._freeze_provisional()
-        for xd, vd, td, wd in self._fused_chunks:
+        for xd, vd, td, wd, _ in self._fused_chunks:
             self._add_hist(xd, vd, td, wd, self._prov_lo_d,
                            self._prov_hi_d, prov=True)
         self._fused_chunks.clear()

@@ -29,7 +29,18 @@ Two versions of each function, dispatched by
   CPU a batched build equals the sequential ones exactly;
 - :func:`build_histograms_fixed_ref`, the kernel's own fixed-point
   arithmetic in plain PyTorch: the kernel's bits, for bit-for-bit checks
-  on the card.
+  on the card.  It splits where the kernel's raw mode does: the exact
+  int64 cells at a given scale (:func:`hist_fixed_cells`), then their
+  rounding (:func:`flush_cells_ref`).
+
+On a mesh whose data axis splits the rows over ranks,
+:func:`build_histograms_sharded` and :func:`build_histograms_batch_sharded`
+(the reference's ``*_sharded`` lowerings, ``hist_pallas.py:459-500``)
+reduce the channels' amax and the row count over the ranks, take each
+rank's exact int64 cells at that global scale (the kernel's raw mode on the
+card, :func:`hist_fixed_cells` on the CPU), sum them with one
+``all_reduce`` and round once: the bits one launch over all the rows gives,
+whatever the number of ranks.
 
 Bins ride uint8 (<= 256 bins) or int32; a uint16 plane widens on its own
 device first (:func:`widen_bins`).  Rows whose node id is outside [0, K)
@@ -43,6 +54,8 @@ import functools
 import os
 
 import torch
+
+from ..parallel import mesh as meshlib
 
 #: the elements one plain-version scatter handles at once (memory bound)
 _REF_CHUNK = 1 << 24
@@ -135,6 +148,33 @@ def channel_exp(amax, n_rows: int) -> torch.Tensor:
     return torch.where((t > 0) & torch.isfinite(t), 62 - p.long(), 0)
 
 
+def hist_fixed_cells(bins, node_idx, stats, n_nodes: int, n_bins: int,
+                     amax, n_scale: int) -> torch.Tensor:
+    """[K, C, B, S] int64: each cell's exact sum of the quanta q =
+    rint(v * 2^e), e = :func:`channel_exp` of ``amax`` [S] and
+    ``n_scale`` rows — what the kernel's raw mode writes (any int64 where
+    a channel is not finite)."""
+    e = channel_exp(amax, n_scale).double()
+    q = torch.round(torch.nan_to_num(stats.double() * torch.pow(2.0, e),
+                                     nan=0.0, posinf=0.0, neginf=0.0)).long()
+    return _scatter_cells(bins, node_idx, q, n_nodes, n_bins)
+
+
+def flush_cells_ref(cells, amax, n_scale: int) -> torch.Tensor:
+    """The f32 of int64 ``cells`` [..., S] at the scale of ``amax`` (its
+    channels broadcast against the cells') and ``n_scale`` rows: each
+    rounded to f32 once and scaled back by 2^-e; NaN where a channel is
+    not finite — the kernel's flush."""
+    e = channel_exp(amax, n_scale).double()
+    out = (cells.float().double() * torch.pow(2.0, -e)).float()
+    return torch.where(torch.isfinite(amax), out, float("nan"))
+
+
+def _amax(stats) -> torch.Tensor:
+    return stats.abs().amax(dim=0) if stats.shape[0] else \
+        torch.zeros(stats.shape[1], device=stats.device)
+
+
 def build_histograms_fixed_ref(bins, node_idx, stats, n_nodes: int,
                                n_bins: int) -> torch.Tensor:
     """[K, C, B, S] f32 by the kernel's own arithmetic in plain PyTorch:
@@ -144,13 +184,10 @@ def build_histograms_fixed_ref(bins, node_idx, stats, n_nodes: int,
     gives these bits on any data (its 32-bit channels too, as its source
     proves).  :func:`build_histograms_ref` agrees within the quantisation:
     at most half of 2^-e a row of the cell, plus f32 rounding."""
-    amax = stats.abs().amax(dim=0) if stats.shape[0] else \
-        torch.zeros(stats.shape[1], device=stats.device)
-    e = channel_exp(amax, bins.shape[0]).double()
-    q = torch.round(stats.double() * torch.pow(2.0, e)).long()
-    sums = _scatter_cells(bins, node_idx, q, n_nodes, n_bins)
-    out = (sums.float().double() * torch.pow(2.0, -e)).float()
-    return torch.where(torch.isfinite(amax), out, float("nan"))
+    amax = _amax(stats)
+    return flush_cells_ref(hist_fixed_cells(
+        bins, node_idx, stats, n_nodes, n_bins, amax, bins.shape[0]),
+        amax, bins.shape[0])
 
 
 def _check(name: str, a: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -189,13 +226,20 @@ def _lib():
     args = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 \
         + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong] \
         + [ctypes.c_int] * 5
-    lib.shifu_hist.restype = lib.shifu_hist_until.restype = ctypes.c_int
+    for fn in (lib.shifu_hist, lib.shifu_hist_until, lib.shifu_hist_raw,
+               lib.shifu_hist_flush, lib.shifu_hist_workspace,
+               lib.shifu_hist_plan):
+        fn.restype = ctypes.c_int
     lib.shifu_hist.argtypes = args + [ctypes.c_void_p]
     lib.shifu_hist_until.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.shifu_hist_workspace, lib.shifu_hist_plan):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+    lib.shifu_hist_raw.argtypes = args[:9] + [ctypes.c_void_p] + args[9:] \
+        + [ctypes.c_void_p]
+    lib.shifu_hist_flush.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.shifu_hist_workspace.argtypes = [ctypes.c_longlong] \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.shifu_hist_plan.argtypes = [ctypes.c_longlong] \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
@@ -217,11 +261,13 @@ def hist_plan(n_rows: int, n_cols: int, n_trees: int, n_nodes: int,
 
 
 def _launch(name, bins, node_idx_b, stats_b, n_nodes: int, n_bins: int,
-            stop=None) -> torch.Tensor:
+            stop=None, meta=None) -> torch.Tensor:
     """Validate, allocate and launch ``csrc/hist.cu`` for TB trees on the
     current stream: [TB, K, C, B, S] f32.  No host sync: the channel
     scales and 32-bit flags come from device-side ``channel_meta``.
     ``stop`` launches the timing entry point instead (:func:`launch_until`).
+    ``meta`` ((amax, exact, n_scale) device tensors reduced over a mesh)
+    launches the raw mode: [TB, K, C, B, S] int64 cells at that scale.
     A uint8 plane must start on a V-byte boundary (V from the plan), which
     every fresh tensor does."""
     dev = bins.device
@@ -250,22 +296,28 @@ def _launch(name, bins, node_idx_b, stats_b, n_nodes: int, n_bins: int,
     lib = _lib()
     need = ctypes.c_longlong(0)
     rc = lib.shifu_hist_workspace(n, c, tb, n_nodes, n_bins, s,
-                                  bins.element_size(), ctypes.byref(need))
+                                  bins.element_size(), int(meta is not None),
+                                  ctypes.byref(need))
     if rc != 0:
         raise ValueError(f"hist kernel: shapes not supported (cudaError_t "
                          f"{rc})")
-    out = torch.empty((tb, n_nodes, c, n_bins, s), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((tb, n_nodes, c, n_bins, s), dtype=torch.float32
+                      if meta is None else torch.int64, device=dev)
     ws = torch.empty(max(need.value, 1), dtype=torch.uint8, device=dev)
-    amax, exact = channel_meta(stats_b, n)
+    amax, exact = channel_meta(stats_b, n) if meta is None else meta[:2]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = (bins.data_ptr(), bins.element_size(), node_idx_b.data_ptr(),
                 stats_b.data_ptr(), amax.data_ptr(), exact.data_ptr(),
                 ws.data_ptr(), need.value, out.data_ptr(), n, c, tb, n_nodes,
                 n_bins, s)
-        rc = lib.shifu_hist(*args, stream) if stop is None else \
-            lib.shifu_hist_until(*args, stop, stream)
+        if meta is not None:
+            rc = lib.shifu_hist_raw(*args[:9], meta[2].data_ptr(),
+                                    *args[9:], stream)
+        elif stop is None:
+            rc = lib.shifu_hist(*args, stream)
+        else:
+            rc = lib.shifu_hist_until(*args, stop, stream)
     if rc != 0:
         raise RuntimeError(f"hist kernel launch failed (cudaError_t {rc})")
     return out
@@ -343,6 +395,98 @@ def build_histograms_batch_cuda(bins, node_idx_b, stats_b, n_nodes: int,
     inputs."""
     return _launch(("node_idx_b", "stats_b"), bins, node_idx_b, stats_b,
                    n_nodes, n_bins)
+
+
+def global_channel_meta(stats_b, mesh):
+    """The channel meta of every rank's rows of the mesh's data group:
+    (amax [TB, S] f32, exact [TB, S] int32, n_scale [1] int64) — amax and
+    the row count over all the ranks' ``stats_b`` [TB, N_r, S], and the
+    32-bit flags (:func:`channel_meta`) decided from them.  One
+    ``all_reduce`` on the device, no host sync: each rank's values sit in
+    its own row of a zero [data, 2 TB S + 1] float64 tensor, so the sum is
+    an exact gather, reduced by max and sum afterwards."""
+    tb, n, s = stats_b.shape
+    dev = stats_b.device
+    amax, exact = channel_meta(stats_b, n)
+    whole = (stats_b == stats_b.trunc()).all(dim=1) if n else \
+        exact.bool()
+    row = torch.cat([amax.double().reshape(-1),
+                     (~whole).double().reshape(-1),
+                     torch.tensor([float(n)], dtype=torch.float64,
+                                  device=dev)])
+    buf = torch.zeros((mesh.n_data, row.numel()), dtype=torch.float64,
+                      device=dev)
+    buf[mesh.coords[1]] = row
+    meshlib.all_reduce(mesh, buf)
+    m = tb * s
+    g_amax = buf[:, :m].amax(dim=0).float().reshape(tb, s).contiguous()
+    notwhole = (buf[:, m:2 * m].amax(dim=0) > 0).reshape(tb, s)
+    n_scale = buf[:, 2 * m].sum().to(torch.int64).reshape(1)
+    g_exact = ~notwhole & (g_amax.double() * n_scale.double() < 2.0 ** 31)
+    return g_amax, g_exact.to(torch.int32).contiguous(), n_scale
+
+
+def _flush_cuda(cells, amax, n_scale) -> torch.Tensor:
+    """``csrc/hist.cu``'s flush of summed int64 cells [TB, K, C, B, S] at
+    the scale of ``amax`` [TB, S] and ``n_scale`` [1]: f32."""
+    out = torch.empty(cells.shape, dtype=torch.float32, device=cells.device)
+    with torch.cuda.device(cells.device):
+        stream = torch.cuda.current_stream(cells.device).cuda_stream
+        rc = _lib().shifu_hist_flush(
+            cells.data_ptr(), amax.data_ptr(), out.data_ptr(),
+            n_scale.data_ptr(), cells.numel(), cells.shape[0],
+            cells.shape[-1], stream)
+    if rc != 0:
+        raise RuntimeError(f"hist flush launch failed (cudaError_t {rc})")
+    return out
+
+
+def build_histograms_batch_sharded(bins, node_idx_b, stats_b, n_nodes: int,
+                                   n_bins: int, mesh) -> torch.Tensor:
+    """B2 over the rows of every rank of the mesh's data group (reference
+    ``build_histograms_batch_sharded``): each rank passes its own block of
+    the rows; every rank gets the [TB, K, C, B, S] f32 one launch over all
+    the rows gives, bit for bit.  The channel meta comes from
+    :func:`global_channel_meta`; the rank's exact int64 cells at that scale
+    come from the kernel's raw mode on the card (``launches`` of the
+    caller counts it) or :func:`hist_fixed_cells` on the CPU; one
+    ``all_reduce`` sums them (``allreduces`` counts it) and the flush
+    rounds them."""
+    amax, exact, n_scale = global_channel_meta(stats_b, mesh)
+    if bins.device.type == "cpu":
+        nsc = int(n_scale)
+        cells = torch.stack([
+            hist_fixed_cells(bins, node_idx_b[t], stats_b[t], n_nodes,
+                             n_bins, amax[t], nsc)
+            for t in range(stats_b.shape[0])])
+    else:
+        cells = _launch(("node_idx_b", "stats_b"), bins, node_idx_b, stats_b,
+                        n_nodes, n_bins, meta=(amax, exact, n_scale))
+    meshlib.all_reduce(mesh, cells)
+    build_histograms_batch_sharded.allreduces += 1
+    if cells.device.type == "cpu":
+        return flush_cells_ref(cells, amax[:, None, None, None, :],
+                               int(n_scale))
+    return _flush_cuda(cells, amax, n_scale)
+
+
+build_histograms_batch_sharded.allreduces = 0
+
+
+def build_histograms_sharded(bins, node_idx, stats, n_nodes: int,
+                             n_bins: int, mesh) -> torch.Tensor:
+    """B1 over the rows of every rank of the mesh's data group (reference
+    ``build_histograms_sharded``): :func:`build_histograms_batch_sharded`
+    for one tree, [K, C, B, S] f32."""
+    return build_histograms_batch_sharded(bins, node_idx[None], stats[None],
+                                          n_nodes, n_bins, mesh)[0]
+
+
+def sharded_bytes(n_trees: int, n_nodes: int, n_cols: int, n_bins: int,
+                  n_stats: int) -> int:
+    """Bytes a rank's int64 cells put into one sharded build's
+    ``all_reduce``."""
+    return 8 * n_trees * n_nodes * n_cols * n_bins * n_stats
 
 
 #: where :func:`launch_until` stops a launch: after the partition and the

@@ -105,15 +105,18 @@ def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
     return tuple(_host_hash(key, 0, i) for i in range(num))
 
 
-def random_bits(keys, n: int, device=None) -> torch.Tensor:
+def random_bits(keys, n: int, device=None, start: int = 0) -> torch.Tensor:
     """[len(keys), n] int64 in [0, 2^32): jax's 32-bit random bits of
-    shape (n,) under each key — the hash of the counter pair (hi, lo) of
-    row i, its two words xor-ed."""
-    if n >= 1 << 32:
+    shape (start + n,) under each key from element ``start`` on — the hash
+    of the counter pair (hi, lo) of element i, its two words xor-ed.  A
+    block of a longer draw is that draw's elements, bit for bit (each
+    element hashes its own counter)."""
+    if start + n >= 1 << 32:
         raise ValueError("random_bits: at most 2^32 - 1 rows")
     k1, k2 = (torch.tensor([[k[j]] for k in keys], dtype=torch.int64,
                            device=device) for j in (0, 1))
-    lo = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    lo = torch.arange(start, start + n, dtype=torch.int64,
+                      device=device)[None, :]
     hi = torch.zeros_like(lo)
     b0, b1 = _threefry(k1, k2, hi, lo,
                        lambda v, r: ((v << r) & M32) | (v >> (32 - r)),
@@ -121,11 +124,11 @@ def random_bits(keys, n: int, device=None) -> torch.Tensor:
     return b0 ^ b1
 
 
-def uniform_f32(keys, n: int, device=None) -> torch.Tensor:
-    """[len(keys), n]: ``jax.random.uniform(key, (n,), float32)`` in
-    [0, 1) under each key — the top 23 bits as a mantissa under exponent
-    0, minus 1."""
-    bits = (random_bits(keys, n, device) >> 9) | 0x3F800000
+def uniform_f32(keys, n: int, device=None, start: int = 0) -> torch.Tensor:
+    """[len(keys), n]: ``jax.random.uniform(key, (start + n,), float32)``
+    in [0, 1) under each key from element ``start`` on — the top 23 bits
+    as a mantissa under exponent 0, minus 1."""
+    bits = (random_bits(keys, n, device, start) >> 9) | 0x3F800000
     u = bits.to(torch.int32).view(torch.float32) - 1.0
     return u.clamp_min(0.0)
 
@@ -178,13 +181,15 @@ def normal_f32(key: Key, n: int, device=None) -> torch.Tensor:
     return erfinv_f32(u) * torch.tensor(np.sqrt(2), dtype=torch.float32)
 
 
-def bernoulli(keys, p, shape, device=None) -> torch.Tensor:
+def bernoulli(keys, p, shape, device=None, start: int = 0) -> torch.Tensor:
     """[len(keys), *shape] bool: ``jax.random.bernoulli(key, p, shape)``
     for a float32 ``p`` under each key — a float32 uniform over the
     flattened shape, below ``p``.  ``p`` is a number or a [len(keys)]
-    tensor (one rate a key)."""
+    tensor (one rate a key).  ``start`` skips that many flattened
+    elements of a longer draw (a mesh rank's rows of a [N, H] mask start
+    at row0 * H)."""
     n = int(np.prod(shape))
-    u = uniform_f32(list(keys), n, device)
+    u = uniform_f32(list(keys), n, device, start)
     if isinstance(p, torch.Tensor):
         p = p.to(device=u.device, dtype=torch.float32).reshape(-1, 1)
     else:
@@ -199,10 +204,16 @@ def _check_rate(lam: float) -> float:
     return lam32
 
 
-def poisson(keys, lam: float, n: int, device=None) -> torch.Tensor:
+def poisson(keys, lam: float, n: int, device=None,
+            rows=None) -> torch.Tensor:
     """[len(keys), n] float32: ``jax.random.poisson(key, lam, (n,))``
     under each key — Knuth's loop below a rate of 10, the transformed
-    rejection sampler from 10 on (jax's two branches).
+    rejection sampler from 10 on (jax's two branches).  ``rows`` = (r0,
+    r1) returns only elements [r0, r1) of that draw, the same bits (a
+    mesh rank's block of the global rows): Knuth's rows each run on their
+    own counters, so the block draws just its own; the rejection
+    sampler's acceptance of a row depends on the whole vector, so it draws
+    the whole and slices.
 
     Each Knuth iteration splits every running key, adds one to the rows
     still above ``-lam`` and adds ``log(u)`` of a fresh uniform draw.  A
@@ -211,6 +222,9 @@ def poisson(keys, lam: float, n: int, device=None) -> torch.Tensor:
     device once a block whether any row is unfinished (one host sync)."""
     lam32 = _check_rate(lam)
     rngs = list(keys)
+    if rows is not None and lam32 >= KNUTH_MAX_RATE:
+        return poisson(rngs, lam32, n, device)[:, rows[0]:rows[1]]
+    start, n = (0, n) if rows is None else (rows[0], rows[1] - rows[0])
     k = torch.zeros((len(rngs), n), dtype=torch.int32, device=device)
     if lam32 == 0.0 or n == 0 or not rngs:
         return k.float()
@@ -224,7 +238,7 @@ def poisson(keys, lam: float, n: int, device=None) -> torch.Tensor:
             for j, rng in enumerate(rngs):
                 rngs[j], sub = split(rng)
                 subs.append(sub)
-            u = uniform_f32(subs, n, device)
+            u = uniform_f32(subs, n, device, start)
             k = k + (log_prod > -lam32).to(torch.int32)
             log_prod = log_prod + torch.log(u)
         if not bool((log_prod > -lam32).any()):

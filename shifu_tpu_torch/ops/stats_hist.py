@@ -19,6 +19,21 @@ and B = ``num_buckets`` (a multiple of 64, at most 4096): [C, B, S] f32.
   rounded to f32 at the end.  It is the CPU path and the kernel's oracle
   on the card.
 
+- :func:`stats_histograms_fixed_ref`, the kernel's own arithmetic in
+  plain PyTorch (count channels as integers, the others in 64-bit fixed
+  point): the kernel's bits, for bit-for-bit checks on the card.  It
+  splits where the kernel's raw mode does: the exact int64 cells at a
+  given scale (:func:`stats_fixed_cells`), then their rounding
+  (:func:`stats_flush_ref`).
+
+On a mesh whose data axis splits a chunk's rows over ranks,
+:func:`stats_histograms_sharded` (the reference's
+``stats_histograms_sharded``, ``hist_pallas.py:673``) reduces the channels'
+amax and the row count over the ranks, takes each rank's exact int64 cells
+at that scale (the kernel's raw mode on the card, the fixed-point plain
+version on the CPU), sums them with one ``all_reduce`` and rounds once:
+the bits of one launch over all the rows.
+
 ``exact[s]`` marks channel s as a count channel (0/1 indicators, or other
 non-negative integers): the kernel sums those as integers.  Count channels
 come first, as the stats plane orders them; without flags every channel is
@@ -32,6 +47,9 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+
+from ..parallel import mesh as meshlib
+from ..parallel.mesh import data_sharded
 
 #: the elements one plain-version ``index_add_`` handles at once
 _REF_CHUNK = 1 << 24
@@ -68,6 +86,76 @@ def stats_histograms_ref(idx, stats, num_buckets: int) -> torch.Tensor:
     return acc[:-1].reshape(c, num_buckets, s).float()
 
 
+def _n_exact(exact, s: int) -> int:
+    """The length of the leading run of count channels that ``exact``
+    flags (None: none); raises where the flags are not such a run."""
+    exact = tuple(bool(e) for e in exact) if exact is not None \
+        else (False,) * s
+    n_exact = exact.index(False) if False in exact else s
+    if len(exact) != s or any(exact[n_exact:]):
+        raise ValueError(f"stats_hist kernel: exact flags {exact} must mark "
+                         f"a leading run of the {s} channels")
+    return n_exact
+
+
+def stats_fixed_cells(idx, stats, num_buckets: int, n_exact: int, amax,
+                      n_scale: int) -> torch.Tensor:
+    """[C, B, S] int64: each cell's exact sum as the kernel's raw mode
+    writes it — the first ``n_exact`` channels as integers, the others as
+    quanta rint(v * 2^e), e = ``hist.channel_exp`` of ``amax`` [S] and
+    ``n_scale`` rows."""
+    from .hist import channel_exp
+    _check_args(idx, stats, num_buckets)
+    n, c = idx.shape
+    s = stats.shape[1]
+    dev = idx.device
+    e = channel_exp(amax, n_scale).double()
+    e[:n_exact] = 0
+    q = torch.round(torch.nan_to_num(stats.double() * torch.pow(2.0, e),
+                                     nan=0.0, posinf=0.0,
+                                     neginf=0.0)).long()
+    acc = torch.zeros((c * num_buckets + 1, s), dtype=torch.int64,
+                      device=dev)
+    step = max(1, _REF_CHUNK // max(n, 1))
+    for c0 in range(0, c, step):
+        cols = torch.arange(c0, min(c, c0 + step), device=dev)
+        b = idx[:, c0:c0 + len(cols)].long()
+        ok = (b >= 0) & (b < num_buckets)
+        flat = torch.where(ok, cols[None, :] * num_buckets + b,
+                           c * num_buckets)               # overflow slot
+        acc.index_add_(0, flat.reshape(-1),
+                       q[:, None, :].expand(n, len(cols), s).reshape(-1, s))
+    return acc[:-1].reshape(c, num_buckets, s)
+
+
+def stats_flush_ref(cells, amax, n_scale: int, n_exact: int) -> torch.Tensor:
+    """The f32 of int64 ``cells`` [C, B, S] as the kernel's flush writes
+    it: a count channel's integer rounded to f32, any other rounded once
+    and scaled back by 2^-e, NaN where that channel is not finite."""
+    from .hist import channel_exp
+    e = channel_exp(amax, n_scale).double()
+    weighted = torch.arange(cells.shape[-1], device=cells.device) >= n_exact
+    e = torch.where(weighted, e, 0.0)
+    out = (cells.float().double() * torch.pow(2.0, -e)).float()
+    return torch.where(weighted & ~torch.isfinite(amax), float("nan"), out)
+
+
+def stats_histograms_fixed_ref(idx, stats, num_buckets: int,
+                               exact: Optional[Sequence[bool]] = None
+                               ) -> torch.Tensor:
+    """[C, B, S] f32 by the kernel's own arithmetic in plain PyTorch (see
+    the module docstring): the kernel's bits on any data.
+    :func:`stats_histograms_ref` agrees exactly on count channels and
+    within the quantisation (half of 2^-e a row of the cell, plus f32
+    rounding) on the others."""
+    n_exact = _n_exact(exact, stats.shape[1])
+    amax = stats.abs().amax(dim=0) if idx.shape[0] else \
+        torch.zeros(stats.shape[1], device=stats.device)
+    return stats_flush_ref(
+        stats_fixed_cells(idx, stats, num_buckets, n_exact, amax,
+                          idx.shape[0]), amax, idx.shape[0], n_exact)
+
+
 def _check(name: str, a: torch.Tensor, dtype: torch.dtype,
            device: torch.device) -> None:
     if a.device != device or a.dtype != dtype or not a.is_contiguous():
@@ -82,9 +170,14 @@ def _lib():
     from . import cuda_lib
     lib = cuda_lib.load("stats_hist")
     args = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-    lib.shifu_stats_hist.restype = ctypes.c_int
-    lib.shifu_stats_hist_until.restype = ctypes.c_int
-    lib.shifu_stats_hist_plan.restype = ctypes.c_int
+    for fn in (lib.shifu_stats_hist, lib.shifu_stats_hist_until,
+               lib.shifu_stats_hist_plan, lib.shifu_stats_hist_raw,
+               lib.shifu_stats_hist_flush):
+        fn.restype = ctypes.c_int
+    lib.shifu_stats_hist_raw.argtypes = [ctypes.c_void_p] * 5 \
+        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.shifu_stats_hist_flush.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.shifu_stats_hist.argtypes = args + [ctypes.c_void_p]
     lib.shifu_stats_hist_until.argtypes = args + [ctypes.c_int,
                                                   ctypes.c_void_p]
@@ -110,10 +203,13 @@ def stats_hist_plan(n_rows: int, n_cols: int, num_buckets: int,
     return dict(zip(keys, list(out)))
 
 
-def _launch(idx, stats, num_buckets: int, exact, stop=None) -> torch.Tensor:
+def _launch(idx, stats, num_buckets: int, exact, stop=None,
+            meta=None) -> torch.Tensor:
     """Validate, allocate and launch ``csrc/stats_hist.cu`` on the current
     stream; ``stop`` launches the timing entry point instead
-    (:func:`launch_until`)."""
+    (:func:`launch_until`); ``meta`` ((amax [S] f32, n_scale [1] int64)
+    device tensors reduced over a mesh) launches the raw mode: [C, B, S]
+    int64 cells at that scale."""
     _check_args(idx, stats, num_buckets)
     dev = idx.device
     if dev.type != "cuda":
@@ -126,12 +222,20 @@ def _launch(idx, stats, num_buckets: int, exact, stop=None) -> torch.Tensor:
     s = stats.shape[1]
     if not 1 <= s <= 4:
         raise ValueError(f"stats_hist kernel: needs 1 <= S <= 4, got {s}")
-    exact = tuple(bool(e) for e in exact) if exact is not None \
-        else (False,) * s
-    n_exact = exact.index(False) if False in exact else s
-    if len(exact) != s or any(exact[n_exact:]):
-        raise ValueError(f"stats_hist kernel: exact flags {exact} must mark "
-                         f"a leading run of the {s} channels")
+    n_exact = _n_exact(exact, s)
+    if meta is not None:
+        amax, n_scale = meta
+        acc = torch.empty((c, num_buckets, s), dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _lib().shifu_stats_hist_raw(
+                idx.data_ptr(), stats.data_ptr(), amax.data_ptr(),
+                acc.data_ptr(), n_scale.data_ptr(), n, c, num_buckets, s,
+                n_exact, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"stats_hist kernel launch failed (cudaError_t {rc})")
+        return acc
     amax = stats.abs().amax(dim=0) if n else \
         torch.zeros(s, dtype=torch.float32, device=dev)
     out = torch.empty((c, num_buckets, s), dtype=torch.float32, device=dev)
@@ -169,10 +273,84 @@ def stats_histograms_cuda(idx, stats, num_buckets: int,
 stats_histograms_cuda.launches = 0
 
 
+def stats_histograms_sharded(idx, stats, num_buckets: int, mesh,
+                             exact: Optional[Sequence[bool]] = None
+                             ) -> torch.Tensor:
+    """B3 over the rows of every rank of the mesh's data group (reference
+    ``stats_histograms_sharded``): each rank passes its own block of the
+    chunk's rows and gets the [C, B, S] f32 one launch over all of them
+    gives, bit for bit.  One ``all_reduce`` gathers every rank's amax and
+    row count (on the device, no host sync), the rank's exact int64 cells
+    at that scale come from the kernel's raw mode (counted in
+    ``stats_histograms_cuda.launches``) or :func:`stats_fixed_cells` on
+    the CPU, a second ``all_reduce`` sums them (``allreduces`` counts it)
+    and the flush rounds them."""
+    _check_args(idx, stats, num_buckets)
+    s = stats.shape[1]
+    dev = idx.device
+    n_exact = _n_exact(exact, s)
+    g_amax, n_scale = global_stats_meta(stats, mesh)
+    if dev.type == "cpu":
+        cells = stats_fixed_cells(idx, stats, num_buckets, n_exact, g_amax,
+                                  int(n_scale))
+    else:
+        cells = _launch(idx, stats, num_buckets, exact,
+                        meta=(g_amax, n_scale))
+        stats_histograms_cuda.launches += 1
+    _record_cost(idx, stats, num_buckets)
+    meshlib.all_reduce(mesh, cells)
+    stats_histograms_sharded.allreduces += 1
+    if dev.type == "cpu":
+        return stats_flush_ref(cells, g_amax, int(n_scale), n_exact)
+    return flush_cuda(cells, g_amax, n_scale, n_exact)
+
+
+stats_histograms_sharded.allreduces = 0
+
+
+def global_stats_meta(stats, mesh):
+    """(amax [S] f32, n_scale [1] int64): the channels' amax and the row
+    count over every rank of the mesh's data group — one ``all_reduce`` on
+    the device, each rank's values in its own row of a zero [data, S + 1]
+    float64 tensor (an exact gather), reduced by max and sum."""
+    n, s = stats.shape
+    dev = stats.device
+    amax = stats.abs().amax(dim=0) if n else \
+        torch.zeros(s, dtype=torch.float32, device=dev)
+    buf = torch.zeros((mesh.n_data, s + 1), dtype=torch.float64, device=dev)
+    buf[mesh.coords[1]] = torch.cat([
+        amax.double(), torch.tensor([float(n)], dtype=torch.float64,
+                                    device=dev)])
+    meshlib.all_reduce(mesh, buf)
+    return (buf[:, :s].amax(dim=0).float().contiguous(),
+            buf[:, s].sum().to(torch.int64).reshape(1))
+
+
+def flush_cuda(cells, amax, n_scale, n_exact: int) -> torch.Tensor:
+    """``csrc/stats_hist.cu``'s flush of summed int64 cells [C, B, S] at
+    the scale of ``amax`` [S] and ``n_scale`` [1]: f32."""
+    out = torch.empty(cells.shape, dtype=torch.float32, device=cells.device)
+    with torch.cuda.device(cells.device):
+        stream = torch.cuda.current_stream(cells.device).cuda_stream
+        rc = _lib().shifu_stats_hist_flush(
+            cells.data_ptr(), amax.data_ptr(), out.data_ptr(),
+            n_scale.data_ptr(), cells.numel(), cells.shape[-1], n_exact,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"stats_hist flush launch failed (cudaError_t "
+                           f"{rc})")
+    return out
+
+
 def stats_histograms(idx, stats, num_buckets: int,
-                     exact: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                     exact: Optional[Sequence[bool]] = None,
+                     mesh=None) -> torch.Tensor:
     """B3 on ``idx``'s device: the kernel for CUDA tensors, the plain
-    version for CPU tensors (and only for them)."""
+    version for CPU tensors (and only for them); on a mesh whose data axis
+    splits the rows, :func:`stats_histograms_sharded` (fixed point on
+    either device)."""
+    if data_sharded(mesh):
+        return stats_histograms_sharded(idx, stats, num_buckets, mesh, exact)
     if idx.device.type == "cpu":
         out = stats_histograms_ref(idx, stats, num_buckets)
         _record_cost(idx, stats, num_buckets)

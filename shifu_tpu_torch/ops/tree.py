@@ -39,6 +39,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.mesh import data_sharded
+
 EPS = 1e-12
 
 
@@ -61,19 +63,27 @@ def n_tree_nodes(depth: int) -> int:
 
 # ------------------------------------------------------------- histograms
 def build_histograms(bins, node_idx, stats, n_nodes: int,
-                     n_bins: int) -> torch.Tensor:
+                     n_bins: int, mesh=None) -> torch.Tensor:
     """Per-row stats into (node, feature, bin) cells: [n_nodes, C, n_bins,
     S] f32.  bins [N, C] integer (uint8/int32 as they are, uint16 widened
     on its device), node_idx [N] int32 level-local (-1 = inactive), stats
     [N, S] f32.  CUDA tensors launch kernel B1 (``csrc/hist.cu``) or
-    raise; CPU tensors take the plain version.  ``launches`` counts kernel
-    launches only."""
+    raise; CPU tensors take the plain version.  On a ``mesh`` whose data
+    axis splits the rows, each rank passes its block and every rank gets
+    the histogram of all the rows (``hist.build_histograms_sharded``: the
+    kernel's raw mode, or the fixed-point plain version on the CPU, and
+    one all_reduce).  ``launches`` counts kernel launches only."""
     from . import hist
     bins = hist.widen_bins(bins)
     if bins.device.type not in ("cpu", "cuda"):
         raise ValueError(f"build_histograms: no kernel for device "
                          f"{bins.device}")
-    if bins.device.type == "cpu":
+    if data_sharded(mesh):
+        out = hist.build_histograms_sharded(bins, node_idx, stats, n_nodes,
+                                            n_bins, mesh)
+        if bins.is_cuda:
+            build_histograms.launches += 1
+    elif bins.device.type == "cpu":
         out = hist.build_histograms_ref(bins, node_idx, stats, n_nodes,
                                         n_bins)
     else:
@@ -88,20 +98,26 @@ build_histograms.launches = 0
 
 
 def build_histograms_batch(bins, node_idx_b, stats_b, n_nodes: int,
-                           n_bins: int) -> torch.Tensor:
+                           n_bins: int, mesh=None) -> torch.Tensor:
     """Tree-batched :func:`build_histograms`: TB trees' level histograms
     over one shared bin plane, [TB, n_nodes, C, n_bins, S] f32.
     node_idx_b [TB, N] int32, stats_b [TB, N, S] f32; each tree's slice
     equals a :func:`build_histograms` call on that tree's inputs bit for
     bit.  CUDA tensors launch kernel B2 (``csrc/hist.cu`` for TB trees) or
-    raise; CPU tensors take the plain version.  ``launches`` counts kernel
-    launches only."""
+    raise; CPU tensors take the plain version; a ``mesh`` as in
+    :func:`build_histograms` (``hist.build_histograms_batch_sharded``).
+    ``launches`` counts kernel launches only."""
     from . import hist
     bins = hist.widen_bins(bins)
     if bins.device.type not in ("cpu", "cuda"):
         raise ValueError(f"build_histograms_batch: no kernel for device "
                          f"{bins.device}")
-    if bins.device.type == "cpu":
+    if data_sharded(mesh):
+        out = hist.build_histograms_batch_sharded(bins, node_idx_b, stats_b,
+                                                  n_nodes, n_bins, mesh)
+        if bins.is_cuda:
+            build_histograms_batch.launches += 1
+    elif bins.device.type == "cpu":
         out = hist.build_histograms_batch_ref(bins, node_idx_b, stats_b,
                                               n_nodes, n_bins)
     else:
@@ -288,18 +304,20 @@ def _left_child_index(node_idx):
 _LEAF_BLOCK = 1 << 24
 
 
-def _level_leaf_raw(stats, node_idx, n_nodes: int):
+def _level_leaf_raw(stats, node_idx, n_nodes: int, mesh=None):
     """Per-node raw stat sums [S, K] f32 (frozen rows contribute nothing).
     On the card: kernel B1 over one all-zero column of one bin, which
     sums each node's rows in O(N) into the f32 rounding of an exact
     (order-free) sum.  On the CPU, the plain version: a float64 one-hot
     matmul over row blocks, added in a fixed order.  Both are
     deterministic; they agree exactly for integer stats and within one
-    f32 ulp otherwise."""
+    f32 ulp otherwise.  On a ``mesh`` whose data axis splits the rows, the
+    sums of every rank's rows through the sharded histogram on either
+    device."""
     n, s = stats.shape
     dev = stats.device
-    if dev.type == "cuda":
-        return _leaf_raw_hist(stats, node_idx, n_nodes)
+    if dev.type == "cuda" or data_sharded(mesh):
+        return _leaf_raw_hist(stats, node_idx, n_nodes, mesh)
     ids = torch.arange(n_nodes, device=dev, dtype=node_idx.dtype)
     out = torch.zeros((s, n_nodes), dtype=torch.float64, device=dev)
     step = max(1, _LEAF_BLOCK // max(n_nodes, 1))
@@ -309,14 +327,15 @@ def _level_leaf_raw(stats, node_idx, n_nodes: int):
     return out.float()
 
 
-def _leaf_raw_hist(stats, node_idx, n_nodes: int):
+def _leaf_raw_hist(stats, node_idx, n_nodes: int, mesh=None):
     """[S, K] leaf sums as the histogram of one all-zero column of one
-    bin — :func:`_level_leaf_raw`'s card path (B1 on CUDA tensors).
-    ``launches`` counts its B1 launches (also in
+    bin — :func:`_level_leaf_raw`'s card path (B1 on CUDA tensors) and
+    its mesh path.  ``launches`` counts its B1 launches (also in
     ``build_histograms.launches``)."""
     zero = torch.zeros((stats.shape[0], 1), dtype=torch.uint8,
                        device=stats.device)
-    out = build_histograms(zero, node_idx, stats, n_nodes, 1)[:, 0, 0].T
+    out = build_histograms(zero, node_idx, stats, n_nodes, 1,
+                           mesh)[:, 0, 0].T
     if stats.is_cuda:
         _leaf_raw_hist.launches += 1
     return out
@@ -339,7 +358,7 @@ def grow_tree(bins, stats, cat, fa, n_bins: int, depth: int,
               max_leaves: int = 0, has_cat: bool = True,
               n_classes: int = 0, record_hists: bool = False,
               tail_extra=None, prev_sf=None, prev_lm=None,
-              valid_upto: int = 0):
+              valid_upto: int = 0, mesh=None):
     """Whole-tree level-wise growth (the resident path of the reference's
     ``grow_tree_jit``) on the device of ``bins``, with no host sync.
 
@@ -368,21 +387,27 @@ def grow_tree(bins, stats, cat, fa, n_bins: int, depth: int,
     decides on resident + evidence when l <= ``valid_upto`` (the previous
     pass confirmed its routing that deep) and this tree's splits above l
     equal the previous tree's (a device flag, no host sync); the evidence
-    never enters the recorded histograms or the subtraction chain."""
+    never enters the recorded histograms or the subtraction chain.
+
+    On a ``mesh`` whose data axis splits the rows, ``bins`` and ``stats``
+    are this rank's block: every histogram and leaf sum covers all the
+    ranks' rows (:func:`build_histograms`), so every rank grows the same
+    tree, and ``leaf_glob`` is its own rows'."""
     def level_hists(node_idx, n_nodes):
-        return [build_histograms(bins, node_idx[0], stats, n_nodes, n_bins)]
+        return [build_histograms(bins, node_idx[0], stats, n_nodes, n_bins,
+                                 mesh)]
     out = _grow(bins, [stats], cat, [fa], n_bins, depth, impurity,
                 [min_instances], [min_gain], max_leaves, has_cat,
                 level_hists, n_classes, record_hists=record_hists,
                 tail_extra=tail_extra, prev_sf=prev_sf, prev_lm=prev_lm,
-                valid_upto=valid_upto)
+                valid_upto=valid_upto, mesh=mesh)
     return out[0][0] + out[1] if record_hists else out[0]
 
 
 def grow_forest(bins, stats_b, cat, fa_b, n_bins: int, depth: int,
                 impurity: str, min_instances, min_gain,
                 max_leaves: int = 0, has_cat: bool = True,
-                n_classes: int = 0):
+                n_classes: int = 0, mesh=None):
     """TB independent trees grown level-wise together — the port of the
     reference's ``grow_forest_jit`` (the Random Forest's tree batch) and
     of its vmapped member axis (the trees of one round of a bagged or
@@ -397,11 +422,12 @@ def grow_forest(bins, stats_b, cat, fa_b, n_bins: int, depth: int,
     for a tile of trees; histogram subtraction, the leaf-sum bottom level
     and ``max_leaves`` apply per tree exactly as in :func:`grow_tree`, so
     every tree's outputs are bit-identical to a :func:`grow_tree` call on
-    its inputs.  Returns a list of TB :func:`grow_tree` tuples."""
+    its inputs; a ``mesh`` as in :func:`grow_tree`.  Returns a list of TB
+    :func:`grow_tree` tuples."""
     def level_hists(node_idx, n_nodes):
         return list(build_histograms_batch(bins, torch.stack(node_idx),
-                                           stats_b, n_nodes,
-                                           n_bins).unbind(0))
+                                           stats_b, n_nodes, n_bins,
+                                           mesh).unbind(0))
     tb = stats_b.shape[0]
 
     def per_tree(v):
@@ -409,7 +435,7 @@ def grow_forest(bins, stats_b, cat, fa_b, n_bins: int, depth: int,
     return _grow(bins, list(stats_b.unbind(0)), cat, list(fa_b.unbind(0)),
                  n_bins, depth, impurity, per_tree(min_instances),
                  per_tree(min_gain), max_leaves, has_cat, level_hists,
-                 n_classes)
+                 n_classes, mesh=mesh)
 
 
 def _subtract(hls, hist_prev, feat_prev):
@@ -449,7 +475,8 @@ def _pad_nodes(hist, width: int):
 def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
           min_instances, min_gain, max_leaves: int, has_cat: bool,
           level_hists, n_classes: int = 0, record_hists: bool = False,
-          tail_extra=None, prev_sf=None, prev_lm=None, valid_upto: int = 0):
+          tail_extra=None, prev_sf=None, prev_lm=None, valid_upto: int = 0,
+          mesh=None):
     """The level loop of :func:`grow_tree` and :func:`grow_forest` for
     trees t with ``stats[t]``, ``fa[t]``, ``min_instances[t]`` and
     ``min_gain[t]``; ``level_hists(node_idx,
@@ -485,7 +512,8 @@ def _grow(bins, stats, cat, fa, n_bins: int, depth: int, impurity: str,
         n_nodes = 1 << level
         if level == depth:
             for t in range(tb):
-                leaf_raw = _level_leaf_raw(stats[t], node_idx[t], n_nodes)
+                leaf_raw = _level_leaf_raw(stats[t], node_idx[t], n_nodes,
+                                           mesh)
                 leaves[t].append(leaf_values_from_raw(leaf_raw, n_classes))
                 feats[t].append(torch.full((n_nodes,), -1, dtype=torch.int32,
                                            device=dev))

@@ -23,8 +23,10 @@ baseline the serving quality monitor (``obs/quality.py``) judges live
 traffic against, as the reference does.  With telemetry on, the scored
 chunks' bins feed the streaming drift monitor (``telemetry/drift.json``:
 per-column PSI of the eval set against the training snapshot), and the
-step counts ``eval.rows_scored``.  Scoring runs on one device: the
-reference's multi-chip mesh waits for item 12.
+step counts ``eval.rows_scored``.  Under a joined world the rows of every
+scored chunk split over the ranks (``parallel.mesh.device_mesh()``, the
+reference's cluster eval): each rank scores its block and the blocks are
+gathered (``eval.scorer.Scorer``'s ``mesh``).
 """
 
 from __future__ import annotations
@@ -160,8 +162,11 @@ class EvalProcessor(BasicProcessor):
         return list(range(len(evals)))
 
     def _run(self, name: Optional[str], action: str) -> int:
-        scorer = Scorer.from_dir(self.paths.models_dir,
-                                 device=self.device)   # load models once
+        from ..parallel.mesh import device_mesh
+        # rows shard across every rank during scoring (the reference's
+        # cluster eval, ``EvalModelProcessor.java:424-436``)
+        scorer = Scorer.from_dir(self.paths.models_dir, device=self.device,
+                                 mesh=device_mesh())   # load models once
         rc = 0
         for i in self._eval_sets(name):
             rc |= self._run_one(i, action, scorer)
@@ -173,7 +178,8 @@ class EvalProcessor(BasicProcessor):
             return self._run_one_multiclass(idx, action, scorer)
         ev = mc.evals[idx]
         runner = ModelRunner(mc, self.column_configs, scorer.models,
-                             for_eval_set=idx, device=self.device)
+                             for_eval_set=idx, device=self.device,
+                             mesh=scorer.mesh)
         eval_dir = self.paths.eval_dir(ev.name)
         os.makedirs(eval_dir, exist_ok=True)
 
@@ -273,7 +279,8 @@ class EvalProcessor(BasicProcessor):
         mc = self.model_config
         ev = mc.evals[idx]
         runner = ModelRunner(mc, self.column_configs, scorer.models,
-                             for_eval_set=idx, device=self.device)
+                             for_eval_set=idx, device=self.device,
+                             mesh=scorer.mesh)
         os.makedirs(self.paths.eval_dir(ev.name), exist_ok=True)
         # the SAME tag resolution ChunkExtractor uses: eval-set tags first
         # — class indices in targets are positions in THIS list

@@ -63,11 +63,15 @@ class StatsProcessor(BasicProcessor):
                             header_delimiter=mc.dataSet.headerDelimiter)
         exact_alg = mc.stats.binningAlgorithm in (BinningAlgorithm.MunroPat,
                                                   BinningAlgorithm.MunroPatI)
+        from ..parallel.mesh import device_mesh
+        # pure data-parallel mesh: every rank reads every chunk and keeps
+        # its block of the rows (a world of one: the single-card layout)
+        mesh = device_mesh()
         num_acc = NumericAccumulator(
             n_cols=len(num_cols), unit_weight=not extractor.weight_name,
             device=self.device, exact=exact_alg,
             fused_budget=environment.get_int(
-                "shifu.stats.fusedBudgetBytes", 1 << 30))
+                "shifu.stats.fusedBudgetBytes", 1 << 30), mesh=mesh)
         cat_acc = CategoricalAccumulator()
         psi_col = mc.stats.psiColumnName if self.params.get("psi") or \
             mc.stats.psiColumnName else None
@@ -76,6 +80,12 @@ class StatsProcessor(BasicProcessor):
         fused = not exact_alg and environment.get_bool(
             "shifu.stats.onePass", True)
         want_corr = bool(self.params.get("correlation"))
+        if want_corr and mesh.size > 1:
+            raise NotImplementedError(
+                "stats -correlation on a mesh is not yet ported to "
+                "shifu_tpu_torch (ROADMAP Queue 1 item 12, multi-device: "
+                "the mesh in varselect, correlation and sensitivity) — run "
+                "it as one process")
         corr_acc = None
         missing_set = {m.strip().lower() for m in extractor.missing_values}
 

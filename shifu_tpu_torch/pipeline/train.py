@@ -51,6 +51,12 @@ from ..train.nn_trainer import (TrainSettings, train_ensemble,
 from ..train.sampling import member_masks
 from .processor import BasicProcessor
 
+#: what a mesh leaves out of NN/LR/SVM and WDL training (ROADMAP Queue 1)
+_MESH_ELASTIC_ITEM = ("item 12 (multi-device: the elastic plane, the "
+                      "streamed combine and the kernel SVM solve)")
+_MESH_WDL_ITEM = ("item 12 (multi-device: WDL's row-sharded tables and "
+                  "serve copies)")
+
 log = logging.getLogger(__name__)
 
 
@@ -189,6 +195,9 @@ class TrainProcessor(BasicProcessor):
             from ..train.dt_trainer import run_tree_training
             return run_tree_training(self)
         if alg == Algorithm.WDL:
+            from ..parallel.mesh import device_mesh
+            if device_mesh().size > 1:
+                raise _not_ported("WDL training on a mesh", _MESH_WDL_ITEM)
             from ..train.wdl_trainer import run_wdl_training
             return run_wdl_training(self)
         raise ValueError(f"unsupported algorithm {alg}")
@@ -239,7 +248,12 @@ class TrainProcessor(BasicProcessor):
             raise ValueError("grid search is not supported with "
                              "ONEVSALL multi-class")
         shards = self._open_shards(self.paths.norm_dir)
+        from ..parallel.mesh import device_mesh
+        meshed = device_mesh().size > 1
         if self._use_streaming(shards, shards.schema):
+            if meshed:
+                raise _not_ported("streamed NN/LR/SVM training on a mesh",
+                                  _MESH_ELASTIC_ITEM)
             return self._train_nn_streamed(alg, shards, K, ova)
         with self.phase("load_data"):
             data = shards.load_all()
@@ -256,6 +270,9 @@ class TrainProcessor(BasicProcessor):
                  self.device, n, d)
         if alg == Algorithm.SVM and str((mc.train.params or {}).get(
                 "Kernel", "linear")).lower() != "linear":
+            if meshed:
+                raise _not_ported("kernel SVM training on a mesh",
+                                  _MESH_ELASTIC_ITEM)
             return self._train_kernel_svm(x, y, w, column_nums,
                                           feature_names)
 
@@ -349,6 +366,10 @@ class TrainProcessor(BasicProcessor):
                 "l2": np.array([s.l2 for s in tsl]),
                 "l1": np.array([s.l1 for s in tsl]),
                 "dropout": np.array([s.dropout_rate for s in tsl])}
+        from ..parallel.mesh import device_mesh
+        # members on the ensemble axis, rows on the data axis (reference
+        # ``device_mesh(n_ensemble=members)``); a world of one: one card
+        mesh = device_mesh(n_ensemble=n_members)
         with self.phase("train"):
             res = train_ensemble(
                 x, y, train_w, valid_w, spec, settings,
@@ -356,7 +377,7 @@ class TrainProcessor(BasicProcessor):
                 progress=self._progress_fn(pf, run),
                 checkpoint=self._checkpoint_fn(spec, alg),
                 y_members=y_members, member_hypers=member_hypers,
-                device=self.device)
+                device=self.device, mesh=mesh)
         return run, spec, res, ([trials[t] for t in run] if is_gs
                                 else run_params)
 

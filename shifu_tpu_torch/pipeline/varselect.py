@@ -77,6 +77,13 @@ class VarSelectProcessor(BasicProcessor):
             return self._autofilter_only()
         if self.params.get("recoverauto"):
             return self._recover_auto()
+        from ..parallel.mesh import device_mesh
+        if device_mesh().size > 1:
+            raise NotImplementedError(
+                "varselect on a mesh is not yet ported to shifu_tpu_torch "
+                "(ROADMAP Queue 1 item 12, multi-device: the mesh in "
+                "varselect, correlation and sensitivity) — run it as one "
+                "process")
         return self._select()
 
     # ---------------------------------------------------------- bookkeeping

@@ -71,6 +71,7 @@ from ..config.model_config import Algorithm
 from ..data.shards import bins_wire_dtype
 from ..models import tree as tree_model
 from ..ops import prng
+from ..parallel import mesh as meshlib
 from ..ops.hashing import hash_poisson_traced, row_key_i64, thresholds_i64
 from ..ops.hist import widen_bins
 from ..ops.tree import (TreeArrays, _left_child_index, _level_leaf_raw,
@@ -272,18 +273,47 @@ def _unpack_tree(row: np.ndarray, total: int, n_bins: int, c: int,
         float(err[1])
 
 
+def _with_mesh_errors(packed, sums, mesh) -> torch.Tensor:
+    """``packed`` [T, L] trees with the [train, valid] errors of every
+    rank's rows: ``sums`` [T, 4] float64 (:func:`_error_sums` of this
+    rank's rows) summed over the data group in one all_reduce, each error
+    divided in float64 and written as the rows' last two f32."""
+    meshlib.all_reduce(mesh, sums)
+    err = torch.stack([sums[:, 0] / sums[:, 1].clamp_min(1e-9),
+                       sums[:, 2] / sums[:, 3].clamp_min(1e-9)], dim=1)
+    packed[:, -8:] = err.float().contiguous().view(torch.uint8)
+    return packed
+
+
 def gbt_forest_chunk(bins, y, tw, vw, f, fa_all, cat, settings: DTSettings,
-                     n_bins: int, impurity: str, has_cat: bool):
+                     n_bins: int, impurity: str, has_cat: bool, mesh=None):
     """A chunk of the forest: one :func:`gbt_round` per row of ``fa_all``
     ([T, C] bool, on the device), with no host sync.  Returns (f after the
-    chunk, packed [T, L] uint8 device tensor)."""
-    rows = []
+    chunk, packed [T, L] uint8 device tensor).  On a ``mesh`` whose data
+    axis splits the rows, the tensors are this rank's block: the trees
+    grow from every rank's rows, f stays the rank's own, and the errors
+    are every rank's, all_reduced once a chunk in float64."""
+    rows, sums = [], []
+    zero = torch.zeros((), dtype=torch.float32, device=f.device)
     for j in range(fa_all.shape[0]):
+        if meshlib.data_sharded(mesh):
+            sf, lm, lv, gfi, leaf_glob = grow_tree(
+                bins, _gbt_stats(y, tw, f, settings.loss), cat, fa_all[j],
+                n_bins, settings.depth, impurity, settings.min_instances,
+                settings.min_gain, settings.max_leaves, has_cat, mesh=mesh)
+            f = f + settings.learning_rate * lv[leaf_glob.long()]
+            sums.append(_error_sums(
+                _per_row_loss(y, f, settings.loss).double(), tw.double(),
+                vw.double()))
+            rows.append(_pack_tree(sf, lm, lv, gfi, zero, zero))
+            continue
         sf, lm, lv, gfi, f, tr, va = gbt_round(
             bins, y, tw, vw, f, fa_all[j], cat, settings, n_bins, impurity,
             has_cat)
         rows.append(_pack_tree(sf, lm, lv, gfi, tr, va))
-    return f, torch.stack(rows)
+    packed = torch.stack(rows)
+    return f, _with_mesh_errors(packed, torch.stack(sums), mesh) \
+        if sums else packed
 
 
 def put_bins(bins, n_bins: int, device: torch.device) -> torch.Tensor:
@@ -332,10 +362,16 @@ def train_gbt(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
               init_scores: Optional[np.ndarray] = None,
               device: Optional[torch.device] = None,
               phase: Optional[Callable[[str], ContextManager]] = None,
-              ) -> ForestResult:
+              mesh=None) -> ForestResult:
     """Boost ``settings.n_trees`` trees (minus restored ones) over the
     resident plane ``bins`` [N, C] (wire dtype; a memmap is fine, or a
     plane already on the device, :func:`put_bins`) on ``device``.
+    On a ``mesh`` whose data axis splits the rows (the reference's
+    ``device_mesh(n_ensemble=1)``), every rank passes the whole host plane
+    and keeps its block (:meth:`Mesh.row_block`) on its device: the
+    validation split and the prior come from the global rows on the host,
+    scores and residuals stay local, and the trees grow from every rank's
+    rows (:func:`gbt_forest_chunk`) — the one-rank forest, bit for bit.
     ``phase(name)`` (the step's profile timer) times the parts:
     ``train/upload`` (plane and labels to the device), ``train/replay``
     (launching restored trees through B4; the device
@@ -349,6 +385,8 @@ def train_gbt(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
     wt = np.asarray(w, np.float64) * ~vmask
     wv = np.asarray(w, np.float64) * vmask
     y64 = np.asarray(y, np.float64)
+    sharded = meshlib.data_sharded(mesh)
+    r0, r1 = mesh.row_block(n) if sharded else (0, n)
 
     if init_score is None:  # continuous runs reuse the saved forest's prior
         prior = float((y64 * wt).sum() / max(wt.sum(), 1e-9))
@@ -359,9 +397,9 @@ def train_gbt(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
             init_score = prior
 
     with phase("train/upload"):
-        bins_d = put_bins(bins, n_bins, dev)
-        y_d, tw_d, vw_d = (torch.from_numpy(a.astype(np.float32)).to(dev)
-                           for a in (y64, wt, wv))
+        bins_d = put_bins(bins[r0:r1] if sharded else bins, n_bins, dev)
+        y_d, tw_d, vw_d = (torch.from_numpy(a[r0:r1].astype(np.float32))
+                           .to(dev) for a in (y64, wt, wv))
         cat_np = np.zeros(c, bool) if cat_mask is None \
             else np.asarray(cat_mask, bool)
         cat = torch.from_numpy(cat_np).to(dev)
@@ -370,9 +408,11 @@ def train_gbt(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
     trees: List[TreeArrays] = list(init_trees or [])
     if trees and init_scores is not None and len(init_scores) == n:
         # checkpointed per-row scores restore f byte-exact
-        f = torch.from_numpy(np.asarray(init_scores, np.float32)).to(dev)
+        f = torch.from_numpy(np.asarray(init_scores[r0:r1],
+                                        np.float32)).to(dev)
     else:
-        f = torch.full((n,), init_score, dtype=torch.float32, device=dev)
+        f = torch.full((r1 - r0,), init_score, dtype=torch.float32,
+                       device=dev)
         if trees:
             with phase("train/replay"):
                 f = _replay(trees, bins_d, f, settings.learning_rate)
@@ -405,7 +445,8 @@ def train_gbt(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
                 [_feat_subset(settings, c, t)
                  for t in range(ti, ti + chunk)])).to(dev)
             f, packed = gbt_forest_chunk(bins_d, y_d, tw_d, vw_d, f, fa_all,
-                                         cat, settings, n_bins, imp, has_cat)
+                                         cat, settings, n_bins, imp, has_cat,
+                                         mesh)
             packed = _fetch(packed)                      # the chunk's copy
         for j, row in enumerate(packed):
             tree, gfi, tr_err, va_err = _unpack_tree(
@@ -427,7 +468,8 @@ def train_gbt(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
             # the stop dropped trees whose updates f already holds
             with phase("train/checkpoint"):
                 checkpoint_fn(trees, history, init_score,
-                              None if stopped else f.cpu().numpy())
+                              None if stopped else
+                              meshlib.gather_rows(mesh, f, n).cpu().numpy())
     return ForestResult(
         trees=trees,
         spec_kwargs={"algorithm": "GBT", "loss": settings.loss,
@@ -559,17 +601,20 @@ def _effective_tree_batch(settings: DTSettings) -> int:
 
 
 def draw_bags(settings: DTSettings, tree_ids, n: int,
-              device) -> torch.Tensor:
+              device, rows=None) -> torch.Tensor:
     """[T, n] f32 row weights of the RF trees ``tree_ids``: the Poisson
     draw of ``fold_in(PRNGKey(seed), tree)`` at ``baggingSampleRate``
     (reference ``jax.random.poisson``), or ones for a DT.  The only host
-    syncs of a chunk happen here, before its growth."""
+    syncs of a chunk happen here, before its growth.  ``rows`` = (r0, r1)
+    gives a mesh rank's block [r0, r1) of the draw over all ``n`` rows,
+    the same bits (``prng.poisson``'s counters)."""
+    r0, r1 = (0, n) if rows is None else rows
     if not settings.poisson_bagging:
-        return torch.ones((len(tree_ids), n), dtype=torch.float32,
+        return torch.ones((len(tree_ids), r1 - r0), dtype=torch.float32,
                           device=device)
     base = prng.prng_key(settings.seed)
     return prng.poisson([prng.fold_in(base, t) for t in tree_ids],
-                        settings.bagging_rate, n, device)
+                        settings.bagging_rate, n, device, rows)
 
 
 def _rf_stats_from_bag(y, w, bag, n_classes: int = 0):
@@ -585,13 +630,15 @@ def _rf_stats_from_bag(y, w, bag, n_classes: int = 0):
 
 
 def _rf_oob_update(pred, y, w, bag, oob_sum, oob_cnt, loss: str,
-                   n_classes: int = 0):
+                   n_classes: int = 0, sums: bool = False):
     """Out-of-bag vote accumulation and loss-consistent errors for ONE
     grown tree (reference ``_rf_oob_update``): the tree's rows outside its
     bag vote; validation scores every row with a vote on the mean of its
     votes, training scores the tree on every row — misclassification
     rates (first-maximum argmax) for ``n_classes > 2``.  Returns
-    (oob_sum, oob_cnt, train_err, valid_err)."""
+    (oob_sum, oob_cnt, train_err, valid_err); with ``sums`` (binary, a
+    mesh rank's rows) the errors' float64 [loss, weight, loss, weight]
+    sums in :func:`_error_sums`' order in place of the two errors."""
     oob = (bag == 0) & (w > 0)
     if n_classes > 2:
         yi = y.long()
@@ -621,20 +668,27 @@ def _rf_oob_update(pred, y, w, bag, oob_sum, oob_cnt, loss: str,
                   + (1 - y) * torch.log((1 - pred).clamp(1e-9, 1 - 1e-9)))
     else:
         per_t = _per_row_loss(y, pred, loss)
+    if sums:
+        w64, wv64 = w.double(), wv.double()
+        return oob_sum, oob_cnt, torch.stack([
+            (per_t.double() * w64).sum(), w64.sum(),
+            (per_v.double() * wv64).sum(), wv64.sum()]), None
     tr = (per_t * w).sum() / w.sum().clamp_min(1e-9)
     return oob_sum, oob_cnt, tr, va
 
 
 def rf_forest_chunk(bins, y, w, bags, oob_sum, oob_cnt, fa_all, cat,
                     settings: DTSettings, n_bins: int, has_cat: bool,
-                    tree_batch: int):
+                    tree_batch: int, mesh=None):
     """A chunk of RF trees on the device with no host sync: ``bags`` [T,
     N] and ``fa_all`` [T, C] per tree.  Whole batches of ``tree_batch``
     trees grow through :func:`grow_forest` (one B2 launch a level), the
     remainder one by one through :func:`grow_tree` (B1); out-of-bag votes
     chain through every tree in tree order, so the result is the same
     bits whatever the batch.  Returns (oob_sum, oob_cnt, packed [T, L]
-    uint8)."""
+    uint8).  On a ``mesh`` whose data axis splits the rows, as
+    :func:`gbt_forest_chunk`: the tensors and the votes are the rank's
+    rows, the trees and errors every rank's."""
     t_total = fa_all.shape[0]
     tb = max(1, tree_batch)
     main = (t_total // tb) * tb if tb > 1 else 0
@@ -643,7 +697,7 @@ def rf_forest_chunk(bins, y, w, bags, oob_sum, oob_cnt, fa_all, cat,
               impurity=settings.impurity,
               min_instances=settings.min_instances,
               min_gain=settings.min_gain, max_leaves=settings.max_leaves,
-              has_cat=has_cat, n_classes=k)
+              has_cat=has_cat, n_classes=k, mesh=mesh)
 
     def grown():
         for g0 in range(0, main, tb):
@@ -654,26 +708,34 @@ def rf_forest_chunk(bins, y, w, bags, oob_sum, oob_cnt, fa_all, cat,
             yield grow_tree(bins, _rf_stats_from_bag(y, w, bags[j], k), cat,
                             fa_all[j], **kw)
 
-    rows = []
+    rows, sums = [], []
+    sharded = meshlib.data_sharded(mesh)
     for j, (sf, lm, lv, gfi, leaf_glob) in enumerate(grown()):
         oob_sum, oob_cnt, tr, va = _rf_oob_update(
             lv[leaf_glob.long()], y, w, bags[j], oob_sum, oob_cnt,
-            settings.loss, k)
+            settings.loss, k, sums=sharded)
+        if sharded:
+            sums.append(tr)
+            tr = va = torch.zeros((), device=w.device)
         rows.append(_pack_tree(sf, lm, lv, gfi, tr, va))
-    return oob_sum, oob_cnt, torch.stack(rows)
+    packed = torch.stack(rows)
+    return oob_sum, oob_cnt, _with_mesh_errors(
+        packed, torch.stack(sums), mesh) if sums else packed
 
 
 def _rf_replay(trees: List[TreeArrays], bins_d, w_d, settings: DTSettings,
-               oob_sum, oob_cnt):
+               oob_sum, oob_cnt, n: Optional[int] = None, rows=None):
     """Resume: rebuild the out-of-bag state by walking the restored trees
     through B4 with their re-drawn bags, RF_TREE_BATCH trees at a time, in
     tree order (the reference walks them with ``predict_tree``; routing
     is integer and the leaf one select — or one gather of a class
-    distribution — so the votes are the same bits)."""
+    distribution — so the votes are the same bits).  ``n`` and ``rows``:
+    a mesh rank's block of the global rows, as :func:`draw_bags` takes."""
     for g0 in range(0, len(trees), RF_TREE_BATCH):
         group = trees[g0:g0 + RF_TREE_BATCH]
         bags = draw_bags(settings, range(g0, g0 + len(group)),
-                         bins_d.shape[0], bins_d.device)
+                         bins_d.shape[0] if n is None else n, bins_d.device,
+                         rows)
         for j, pred in enumerate(forest_predictions(group, bins_d)):
             oob = (bags[j] == 0) & (w_d > 0)
             oob_sum = oob_sum + torch.where(
@@ -688,7 +750,7 @@ def train_rf(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
              start_history: Optional[List] = None,
              device: Optional[torch.device] = None,
              phase: Optional[Callable[[str], ContextManager]] = None,
-             ) -> ForestResult:
+             mesh=None) -> ForestResult:
     """Independent Poisson-bagged trees (``poisson_bagging`` off: one
     plain DT) over the resident plane ``bins`` [N, C] (or a plane already
     on the device, :func:`put_bins`) on ``device``; out-of-bag rows score
@@ -696,28 +758,37 @@ def train_rf(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
     multi-class forest, ``settings.n_classes > 2``, whose ``y`` holds
     class ids).  The chunk rules and ``phase`` parts are
     :func:`train_gbt`'s; ``train/replay`` rebuilds a resumed forest's
-    out-of-bag votes."""
+    out-of-bag votes.  A ``mesh`` as in :func:`train_gbt`: each rank keeps
+    its block of the rows and takes its block of every tree's bag from the
+    draw over all the rows (:func:`draw_bags`), so the forest is the
+    one-rank forest, bit for bit."""
     dev = torch.device(device if device is not None else "cuda")
     phase = phase or (lambda name: contextlib.nullcontext())
     n, c = bins.shape
+    sharded = meshlib.data_sharded(mesh)
+    if sharded and settings.n_classes > 2:
+        raise _not_ported("native multi-class RF on a mesh",
+                          _MESH_TREES_ITEM)
+    rows = mesh.row_block(n) if sharded else None
+    r0, r1 = rows or (0, n)
     with phase("train/upload"):
-        bins_d = put_bins(bins, n_bins, dev)
-        y_d, w_d = (torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-                    for a in (y, w))
+        bins_d = put_bins(bins[r0:r1] if sharded else bins, n_bins, dev)
+        y_d, w_d = (torch.from_numpy(np.asarray(a, np.float32)[r0:r1])
+                    .to(dev) for a in (y, w))
         cat_np = np.zeros(c, bool) if cat_mask is None \
             else np.asarray(cat_mask, bool)
         cat = torch.from_numpy(cat_np).to(dev)
         has_cat = bool(cat_np.any())
     mc = settings.n_classes > 2
-    oob_sum = torch.zeros((n, settings.n_classes) if mc else (n,),
-                          dtype=torch.float32, device=dev)
-    oob_cnt = torch.zeros(n, dtype=torch.float32, device=dev)
+    oob_sum = torch.zeros((r1 - r0, settings.n_classes) if mc
+                          else (r1 - r0,), dtype=torch.float32, device=dev)
+    oob_cnt = torch.zeros(r1 - r0, dtype=torch.float32, device=dev)
     trees: List[TreeArrays] = list(init_trees or [])
     history: List[Tuple[float, float]] = list(start_history or [])
     if trees:
         with phase("train/replay"):
             oob_sum, oob_cnt = _rf_replay(trees, bins_d, w_d, settings,
-                                          oob_sum, oob_cnt)
+                                          oob_sum, oob_cnt, n, rows)
     fi = np.zeros(c)
     total = n_tree_nodes(settings.depth)
     tree_batch = _effective_tree_batch(settings)
@@ -735,10 +806,10 @@ def train_rf(bins, y, w, n_bins: int, cat_mask, settings: DTSettings,
             ids = range(ti, ti + chunk)
             fa_all = torch.from_numpy(np.stack(
                 [_feat_subset(settings, c, t) for t in ids])).to(dev)
-            bags = draw_bags(settings, ids, n, dev)
+            bags = draw_bags(settings, ids, n, dev, rows)
             oob_sum, oob_cnt, packed = rf_forest_chunk(
                 bins_d, y_d, w_d, bags, oob_sum, oob_cnt, fa_all, cat,
-                settings, n_bins, has_cat, tree_batch)
+                settings, n_bins, has_cat, tree_batch, mesh)
             packed = _fetch(packed)                      # the chunk's copy
         for j, row in enumerate(packed):
             tree, gfi, tr_err, va_err = _unpack_tree(
@@ -2186,6 +2257,11 @@ def _fetch(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
+#: what a mesh leaves out of the tree trainers (ROADMAP Queue 1)
+_MESH_TREES_ITEM = ("item 12 (multi-device: the streamed, bagged, "
+                    "one-vs-all and multi-class tree trainers)")
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to shifu_tpu_torch (ROADMAP Queue 1 "
@@ -2632,6 +2708,13 @@ def run_tree_training(proc) -> int:
     ova = K > 2 and (mc.train.multiClassifyMethod
                      == MultipleClassification.ONEVSALL
                      or alg == Algorithm.GBT)
+    # trees are sequential: every rank on the data axis (reference
+    # ``device_mesh(n_ensemble=1)``)
+    mesh = meshlib.device_mesh(n_ensemble=1)
+    if meshlib.data_sharded(mesh) and (multi or K > 2):
+        raise _not_ported("bagged, k-fold, grid-search, one-vs-all and "
+                          "multi-class tree training on a mesh",
+                          _MESH_TREES_ITEM)
     if K > 2 and multi:
         if ova and bags > 1 and not is_gs and not kfold > 1:
             return _run_tree_ova_bagged(proc, shards, col_nums, cat_mask,
@@ -2690,6 +2773,9 @@ def run_tree_training(proc) -> int:
                      len(init_scores), shards.num_rows)
             init_scores = None
         streaming = proc._use_streaming(shards, shards.schema)
+        if streaming and meshlib.data_sharded(mesh):
+            raise _not_ported("streamed tree training on a mesh",
+                              _MESH_TREES_ITEM)
         if streaming:
             stream = _tree_stream(shards, dict(mc.train.params or {}))
             log.info("train %s STREAMED on %s: %d rows, window %d rows",
@@ -2700,8 +2786,9 @@ def run_tree_training(proc) -> int:
                 data = shards.load_all()
             bins, y, w = data["bins"], data["y"], data["w"]
             log.info("train %s on %s: %d rows x %d features, %d bins, %d "
-                     "trees depth %d", alg.name, proc.device, *bins.shape,
-                     n_bins, settings.n_trees, settings.depth)
+                     "trees depth %d, mesh %s", alg.name, proc.device,
+                     *bins.shape, n_bins, settings.n_trees, settings.depth,
+                     mesh.shape)
         with proc.phase("train"):
             if streaming and alg == Algorithm.GBT:
                 res = train_gbt_streamed(
@@ -2720,13 +2807,14 @@ def run_tree_training(proc) -> int:
                                 init_score=init_score, checkpoint_fn=ckpt_fn,
                                 start_history=start_history,
                                 init_scores=init_scores, device=proc.device,
-                                phase=proc.phase)
+                                phase=proc.phase, mesh=mesh)
             else:
                 res = train_rf(bins, y, w, n_bins, cat_mask, settings,
                                progress, checkpoint_fn=ckpt_fn,
                                init_trees=init_trees,
                                start_history=start_history,
-                               device=proc.device, phase=proc.phase)
+                               device=proc.device, phase=proc.phase,
+                               mesh=mesh)
 
     obs.gauge("train.valid_err").set(res.valid_error)
     obs.gauge("train.trees_built").set(res.trees_built)

@@ -27,10 +27,11 @@ rule applied elementwise over the stacked tensors.
   configuration; no atomics enter the step).
 
 The reference's mesh (rows sharded over a ``data`` axis, members over
-``ensemble``) has no counterpart: one card holds the plane, so a
-``MiniBatchs`` value is used as given (the reference rounds it down to a
-multiple of its data-axis size).  ``Precision`` (the reference's
-``jax.default_matmul_precision``) applies on the card only: ``bfloat16``
+``ensemble``) is a ``parallel.mesh.Mesh`` of rank processes
+(:func:`train_ensemble`'s ``mesh``): each rank takes its block of every
+minibatch, so a ``MiniBatchs`` value is used as given on any mesh (the
+reference rounds it down to a multiple of its data-axis size).
+``Precision`` (the reference's ``jax.default_matmul_precision``) applies on the card only: ``bfloat16``
 multiplies bf16 inputs (f32 accumulation), ``tensorfloat32`` allows TF32,
 anything else keeps true f32; the CPU ignores it, as XLA:CPU does.
 
@@ -62,6 +63,7 @@ import torch
 from .. import obs, resolve_device
 from ..models import nn as nn_model
 from ..ops import prng
+from ..parallel import mesh as meshlib
 from .early_stop import WindowEarlyStop
 from .optimizers import (cast_tree, make_optimizer, mixed_apply, mixed_init,
                          per_member, resolve_precision, tree_map)
@@ -379,27 +381,65 @@ def train_ensemble(x: np.ndarray, y: np.ndarray,
                                                  None]] = None,
                    y_members: Optional[np.ndarray] = None,
                    member_hypers: Optional[Dict[str, np.ndarray]] = None,
-                   device=None) -> EnsembleResult:
+                   device=None, mesh=None) -> EnsembleResult:
     """Train ``B`` members on ``device`` (default CUDA); ``train_w`` /
     ``valid_w`` are ``[B, N]`` per-row weights (bag/fold masks x data
     weights).  ``y_members`` ([B, N]) gives each member its own target;
     ``member_hypers`` gives each its own ``lr_scale``/``l2``/``l1``/
-    ``dropout`` ([B] arrays)."""
+    ``dropout`` ([B] arrays).
+
+    ``mesh`` (``parallel.mesh.device_mesh(n_ensemble=B)``; every rank
+    passes the whole arrays): the ensemble axis splits the members over
+    rank groups, the data axis splits the rows.  A rank computes its
+    members' gradients on its rows, the data group all_reduces them
+    (SUM; the loss is divided by every rank's weight sum, and the
+    regularization enters on one rank) and every rank of it takes the same
+    optimizer step; errors are summed over the data group in float64 and
+    every member's errors and params gathered over the ensemble group at
+    the end of an epoch, so the bookkeeping (best epochs, early stop,
+    checkpoints) sees every member.  Float sums in another order: the
+    result agrees with one rank's within the reference's tolerance."""
     dev = resolve_device(device)
     mm_dtype, tf32 = matmul_mode(settings.matmul_precision, dev)
     with _allow_tf32(tf32) if dev.type == "cuda" else \
             contextlib.nullcontext():
         return _train(x, y, train_w, valid_w, spec, settings,
                       init_params_list, progress, checkpoint, y_members,
-                      member_hypers, dev, mm_dtype)
+                      member_hypers, dev, mm_dtype, mesh)
+
+
+def _mesh_rows(mesh, n: int, bs: int) -> np.ndarray:
+    """This rank's rows of the (padded) plane: its block of every
+    minibatch of ``bs`` rows (or of all ``n`` rows in full batch), in
+    order, so its local minibatch i is rows [i * lb, (i + 1) * lb)."""
+    if not bs or bs >= n:
+        r0, r1 = mesh.row_block(n)
+        return np.arange(r0, r1)
+    b0, b1 = mesh.row_block(bs)
+    return (np.arange(0, n, bs)[:, None] + np.arange(b0, b1)[None, :]) \
+        .reshape(-1)
+
+
+def _flat_all_reduce(mesh, grads):
+    """The gradient tree summed over the data group in one f32
+    all_reduce (bf16 gradients round back after the sum)."""
+    leaves = []
+    tree_map(leaves.append, grads)
+    flat = meshlib.all_reduce(mesh, torch.cat([g.float().reshape(-1)
+                                               for g in leaves]))
+    parts = iter(flat.split([g.numel() for g in leaves]))
+    return tree_map(lambda g: next(parts).view_as(g).to(g.dtype), grads)
 
 
 def _train(x, y, train_w, valid_w, spec, settings, init_params_list,
            progress, checkpoint, y_members, member_hypers,
-           dev: torch.device, mm_dtype) -> EnsembleResult:
+           dev: torch.device, mm_dtype, mesh=None) -> EnsembleResult:
     bags = train_w.shape[0]
     key, opt, precision, stacked, opt_state = _init_stack(
         spec, settings, bags, init_params_list, dev)
+    sharded = meshlib.data_sharded(mesh)
+    ens = mesh is not None and mesh.n_ensemble > 1
+    m0, m1 = mesh.member_block(bags) if ens else (0, bags)
 
     # per-member hyper rows [B, 4]: lr_scale, l2, l1, dropout
     if member_hypers is None:
@@ -429,10 +469,39 @@ def _train(x, y, train_w, valid_w, spec, settings, init_params_list,
         x, y, train_w, valid_w, y_members = _pad_all(
             x, y, train_w, valid_w, bs, y_members)
     n_padded = x.shape[0]
+    mb = bool(bs and bs < n_padded)
+    row0 = 0                 # a rank's first row of each (mini)batch
+    if sharded:
+        rows = _mesh_rows(mesh, n_padded, bs if mb else 0)
+        row0 = mesh.row_block(bs if mb else n_padded)[0]
+        x, y = x[rows], y[rows]
+        train_w, valid_w = train_w[:, rows], valid_w[:, rows]
+        if y_members is not None:
+            y_members = y_members[:, rows]
+    if ens:
+        train_w, valid_w = train_w[m0:m1], valid_w[m0:m1]
+        if y_members is not None:
+            y_members = y_members[m0:m1]
+        hd, full_stacked = hd[m0:m1], stacked
+        stacked = tree_map(lambda t: t[m0:m1].clone(), stacked)
+        opt_state = tree_map(lambda t: t[m0:m1].clone(), opt_state)
+        if not uniform:
+            l2, l1, rate = hd[:, 1], hd[:, 2], hd[:, 3]
+    lb = len(x) // max(1, n_padded // bs) if mb else len(x)  # local batch
     xd = _upload(x, dev)
     twd, vwd = _upload(train_w, dev), _upload(valid_w, dev)
     # targets as [N, 1] shared, or [B, N, 1] per member
     yd = _upload(y if y_members is None else y_members, dev).unsqueeze(-1)
+    if sharded:
+        # every rank's weight sums: each batch's train weight (the loss
+        # denominator) and the train and valid totals (the errors')
+        nb = max(1, n_padded // bs) if mb else 1
+        den = meshlib.all_reduce(mesh, torch.cat([
+            twd.double().reshape(twd.shape[0], nb, -1).sum(-1).T,
+            twd.double().sum(-1)[None], vwd.double().sum(-1)[None]]))
+        batch_den = den[:nb].float().clamp_min(1e-9)
+        err_den = den[nb:].clamp_min(1e-9)
+        reg_here = mesh.coords[1] == 0   # the regularization enters once
 
     fixed = set(settings.fixed_layers)
 
@@ -446,17 +515,35 @@ def _train(x, y, train_w, valid_w, spec, settings, init_params_list,
                  else dl["b"], "w": torch.zeros_like(dl["w"])}
                 for li, dl in enumerate(delta)]
 
-    def step(stacked, opt_state, xb, yb, twb, rngs, lr_scale):
+    def mesh_loss(params, xb, yb, twb, rngs, bi):
+        """A rank's share of each member's loss: its rows' weighted loss
+        over every rank's weight sum, plus the regularization on one rank,
+        so the data group's gradient sum is the whole batch's gradient."""
+        pred = nn_model.forward(params, spec, xb, dropout_rate=rate,
+                                rng=rngs if dropout > 0 else None,
+                                matmul_dtype=mm_dtype, row0=row0)
+        per_row = nn_model.per_row_loss(pred, yb, spec)
+        loss = (per_row * twb).sum(dim=-1) / batch_den[bi]
+        reg = nn_model.regularization(params, l2, l1) if reg_here else None
+        return loss if reg is None else loss + reg
+
+    def step(stacked, opt_state, xb, yb, twb, rngs, lr_scale, bi=0):
         params = [{k: v.detach().requires_grad_(True)
                    for k, v in layer.items()} for layer in stacked]
         leaves = [layer[k] for layer in params for k in ("b", "w")]
         with torch.enable_grad():
-            loss = nn_model.weighted_loss(
-                params, spec, xb, yb, twb, l2=l2, l1=l1, dropout_rate=rate,
-                rng=rngs if dropout > 0 else None, matmul_dtype=mm_dtype)
+            if sharded:
+                loss = mesh_loss(params, xb, yb, twb, rngs, bi)
+            else:
+                loss = nn_model.weighted_loss(
+                    params, spec, xb, yb, twb, l2=l2, l1=l1,
+                    dropout_rate=rate, rng=rngs if dropout > 0 else None,
+                    matmul_dtype=mm_dtype)
             flat = torch.autograd.grad(loss.sum(), leaves)
         grads = [{"b": flat[2 * i], "w": flat[2 * i + 1]}
                  for i in range(len(params))]
+        if sharded:
+            grads = _flat_all_reduce(mesh, grads)
         scale = lr_scale * hd[:, 0]
         if precision == "mixed":
             return mixed_apply(opt, grads, opt_state, scale=scale,
@@ -470,49 +557,67 @@ def _train(x, y, train_w, valid_w, spec, settings, init_params_list,
     def eval_errors(stacked) -> torch.Tensor:
         pred = nn_model.forward(stacked, spec, xd, matmul_dtype=mm_dtype)
         per_row = nn_model.per_row_loss(pred, yd, spec)
+        if sharded:
+            num = meshlib.all_reduce(mesh, torch.stack([
+                (per_row * mw).double().sum(dim=-1) for mw in (twd, vwd)]))
+            return (num / err_den).float()
 
         def err(mw):
             return (per_row * mw).sum(dim=-1) / torch.clamp(
                 mw.sum(dim=-1), min=1e-9)
         return torch.stack([err(twd), err(vwd)])
 
-    ledger = _EpochLedger(settings, stacked, bags, precision, progress,
-                          checkpoint, dev)
+    def whole(tree):
+        """Every member's tensors of a member-split tree (the ensemble
+        group's gather); the tree itself without an ensemble axis."""
+        return meshlib.gather_members(mesh, tree) if ens else tree
+
+    ledger = _EpochLedger(settings, full_stacked if ens else stacked, bags,
+                          precision, progress, checkpoint, dev)
     epochs_run = start_epoch = 0
     epochs_target = settings.epochs
-    restored = ledger.resume(stacked, opt_state) \
+    restored = ledger.resume(whole(stacked), whole(opt_state)) \
         if settings.resume and settings.checkpoint_dir else None
     if restored is not None:
         start_epoch, epochs_target, stacked, opt_state, key = restored
+        if ens:
+            stacked = tree_map(lambda t: t[m0:m1].clone(), stacked)
+            opt_state = tree_map(lambda t: t[m0:m1].clone(), opt_state)
 
     for epoch in range(start_epoch, epochs_target):
         key, sub = prng.split(key)
-        rngs = prng.split(sub, bags)
-        if bs and bs < n_padded:
+        rngs = prng.split(sub, bags)[m0:m1]
+        if mb:
             for bi in range((n_padded - bs) // bs + 1):
                 rngs_b = [prng.fold_in(r, bi) for r in rngs] \
                     if dropout > 0 else rngs
-                s = bi * bs
-                yb = yd[s:s + bs] if y_members is None \
-                    else yd[:, s:s + bs]
+                s = bi * lb
+                yb = yd[s:s + lb] if y_members is None \
+                    else yd[:, s:s + lb]
                 stacked, opt_state = step(stacked, opt_state,
-                                          xd[s:s + bs], yb,
-                                          twd[:, s:s + bs], rngs_b,
-                                          ledger.lr_scale)
+                                          xd[s:s + lb], yb,
+                                          twd[:, s:s + lb], rngs_b,
+                                          ledger.lr_scale, bi)
         else:
             stacked, opt_state = step(stacked, opt_state, xd, yd, twd,
                                       rngs, ledger.lr_scale)
         with torch.no_grad():
             errs = eval_errors(stacked)
+            if ens:
+                errs = meshlib.all_gather(mesh, errs.T.contiguous(),
+                                          axis="ensemble").T
             tr, va = errs.cpu().numpy()                    # the one fetch
-            stop_now = ledger.record(epoch, tr, va, stacked, va_dev=errs[1])
+            stop_now = ledger.record(epoch, tr, va, whole(stacked),
+                                     va_dev=errs[1])
         epochs_run = epoch + 1
-        ledger.end_epoch(epoch, stacked, opt_state, key, stop_now)
+        ledger.end_epoch(epoch, whole(stacked), whole(opt_state)
+                         if settings.checkpoint_dir else opt_state, key,
+                         stop_now)
         if stop_now:
             log.info("early stop at epoch %d (window %d)", epoch,
                      settings.early_stop_window)
             break
-    return ledger.result(stacked, epochs_run)
+    return ledger.result(whole(stacked), epochs_run)
 
 
 # ------------------------------------------------------------- streaming

@@ -21,7 +21,9 @@ the card, and ``stats -correlation`` on the card against the CPU; a warm
 GBT refresh retrain on the card (``hist`` launched for the appended trees
 alone, the restored forest bit-equal, its replay through
 ``tree_traverse``) and a refresh promotion whose canary replays bit for
-bit through probation.
+bit through probation; the int64 cell mode of B1, B2 and B3 that a
+mesh's ranks sum (each row block's cells equal to the fixed-point plain
+versions', the flush of their sum bit-equal to one launch).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
 marker and skips without CUDA.  The file imports neither ``jax`` nor
@@ -759,6 +761,75 @@ def test_stats_hist_kernel_never_takes_the_plain_version(cuda, monkeypatch):
         sh.stats_histograms(idx, st.repeat(1, 3), 64)
     with pytest.raises(ValueError, match="leading run"):
         sh.stats_histograms(idx, st, 64, (False, True))
+
+
+# ------------------------------------------- the mesh's int64 cell mode
+def _split_rows(n, parts=2):
+    """Row blocks as a data axis of ``parts`` ranks would hold them."""
+    from shifu_tpu_torch.parallel.mesh import row_block
+    return [row_block(n, parts, i) for i in range(parts)]
+
+
+@pytest.mark.parametrize("n,c,b,k,tb,s,dtype", [
+    (65536, 256, 64, 32, 1, 2, np.uint8), (1000, 256, 64, 2, 1, 2, np.uint8),
+    (5000, 7, 4001, 8, 1, 2, np.int32), (65536, 256, 64, 32, 8, 2, np.uint8),
+    (20000, 64, 64, 4096, 2, 2, np.uint8), (2000, 33, 7, 3, 5, 4, np.uint8)])
+def test_hist_int64_cells_and_flush(cuda, n, c, b, k, tb, s, dtype):
+    """B1/B2's raw mode on two row blocks at the scale of all the rows:
+    each block's int64 cells equal the fixed-point plain version's
+    (``hist_fixed_cells``), and the flush of their sum is bit-equal to one
+    launch over all the rows — what a mesh of two ranks computes."""
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.parallel.mesh import Mesh
+    bins, node, stats = _on(cuda, *_batch_inputs(n, c, b, k, tb, s, dtype,
+                                                 seed=n + tb))
+    one = hist.build_histograms_batch_cuda(bins, node, stats, k, b)
+    meta = hist.global_channel_meta(stats, Mesh())
+    total = None
+    for r0, r1 in _split_rows(n):
+        blk = (bins[r0:r1].contiguous(), node[:, r0:r1].contiguous(),
+               stats[:, r0:r1].contiguous())
+        cells = hist._launch(("node_idx_b", "stats_b"), *blk, k, b,
+                             meta=meta)
+        want = torch.stack([hist.hist_fixed_cells(
+            *(t.cpu() for t in (blk[0], blk[1][t_], blk[2][t_])), k, b,
+            meta[0][t_].cpu(), n) for t_ in range(tb)])
+        assert torch.equal(cells.cpu(), want)
+        total = cells if total is None else total + cells
+    assert torch.equal(hist._flush_cuda(total, meta[0], meta[2]), one)
+    # a world of one through the sharded entry point: the same bits
+    assert torch.equal(hist.build_histograms_batch_sharded(
+        bins, node, stats, k, b, Mesh()), one)
+
+
+@pytest.mark.parametrize("n,c,b,s", [
+    (262144, 224, 4096, 4), (100003, 13, 64, 2), (70001, 300, 64, 3)])
+def test_stats_hist_int64_cells_and_flush(cuda, n, c, b, s):
+    """B3's raw mode on two row blocks at the scale of all the rows: each
+    block's cells equal ``stats_fixed_cells``, the flush of their sum is
+    bit-equal to one launch, and the kernel's f32 is the fixed-point plain
+    version's (``stats_histograms_fixed_ref``) bit for bit."""
+    from shifu_tpu_torch.ops import stats_hist as sh
+    from shifu_tpu_torch.parallel.mesh import Mesh
+    idx_h, st_h, exact = _stats_inputs(n, c, b, s, seed=n + c)
+    idx, st = _on(cuda, idx_h, st_h)
+    one = sh.stats_histograms_cuda(idx, st, b, exact)
+    assert torch.equal(one.cpu(), sh.stats_histograms_fixed_ref(
+        idx.cpu(), st.cpu(), b, exact))
+    amax = st.abs().amax(dim=0)
+    n_scale = torch.tensor([n], dtype=torch.int64, device=cuda)
+    total = None
+    for r0, r1 in _split_rows(n):
+        cells = sh._launch(idx[r0:r1], st[r0:r1], b, exact,
+                           meta=(amax, n_scale))
+        assert torch.equal(cells.cpu(), sh.stats_fixed_cells(
+            idx[r0:r1].cpu(), st[r0:r1].cpu(), b, sum(exact), amax.cpu(),
+            n))
+        total = cells if total is None else total + cells
+    assert torch.equal(sh.stats_flush_ref(total.cpu(), amax.cpu(), n,
+                                          sum(exact)), one.cpu())
+    assert torch.equal(sh.stats_histograms_sharded(idx, st, b, Mesh(),
+                                                   exact), one)
 
 
 @pytest.mark.parametrize("budget", [1 << 30, 40000])

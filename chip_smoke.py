@@ -140,6 +140,20 @@ versions on one card.  Otherwise it
    each on its block of the rows: the train phase's GBT set through
    ``cli.main train`` (524,288 rows a rank; 80 ``hist`` launches and 80
    cell all_reduces a rank) must write the one-rank forest bit for bit,
+   out of core on the plane's first 524,288 rows in 4 windows of 131,072
+   (2 resident, 2 on the disk tail): a 5-tree depth-7 c2f GBT through
+   ``cli.main train -Dshifu.train.streaming=on`` and a 4-tree depth-7 RF
+   in two super-batches of 2 (17 tail sweeps, 56 ``hist_batch`` launches)
+   must equal one rank's forests, disk passes, tail sweeps and bytes read
+   bit for bit, every B1/B2 launch one rank's and each with one
+   all_reduce, and a streamed NN (2 epochs, 65,536 x 256 in windows of
+   16,384) one rank's within 1e-4; the window loop's sharded level
+   histogram, path histograms (B2 at TB = 7), leaf sums and RF
+   super-batch (B2 at TB = 2) on the first window must equal the
+   fixed-point plain versions over the whole window; the elastic sync
+   drill (``parallel/elastic_demo --device cuda``, 2 controllers at 256
+   features, 4 epochs, one killed at ``dcn:step=3`` and relaunched) must
+   end bit-identical to an unkilled control;
    an RF of 8 depth-7 trees on the plane's first 262,144 rows (7
    ``hist_batch`` and 8 leaf-sum ``hist`` launches, 15 all_reduces), the
    stats accumulator over two chunks of a 262,144 x 224 chunk (2
@@ -180,16 +194,16 @@ versions on one card.  Otherwise it
    device busy share of a 3-tree run from ``torch.profiler``); (a') the
    exact schedule for 5 trees: (a)'s first 5 trees and progress bit for
    bit in 45 tail sweeps, more a tree than (a)'s; (a0) (a)'s first tree, cut
-   to depth 3, at the default geometry (two 4,129,776-row windows, none resident); (b) 6 trees with CheckpointInterval 5, then
+   to depth 2, at the default geometry (two 4,129,776-row windows, none resident); (b) 6 trees with CheckpointInterval 5, then
    ``train -resume`` to 10 from the 5-tree checkpoint, with and without
    its score sidecar (8 ``tree_traverse`` launches, one a window),
-   bit-identical to (a); (c) ``init -model``'s RF in two super-batches
-   (31 tail sweeps, 224 ``hist_batch`` launches), falling out-of-bag
+   bit-identical to (a); (c) ``init -model``'s RF cut to 8 trees, one
+   super-batch (15 tail sweeps, 112 ``hist_batch`` launches), falling out-of-bag
    errors, the peak device memory; (d) the plane's first 16,384 rows in
    windows of 4,096 (6 resident): (a)'s GBT cut to 2 trees with
    coarse-to-fine on and off and a 4-tree depth-7 RF on the card, the coarse-to-fine GBT also
    on the CPU with equal splits and masks, leaves within 1e-5 relative
-   (+1e-6), errors within 1e-5 relative, equal tail sweeps; (e) a streamed 2-bag GBT on the train
+   (+1e-6), errors within 1e-5 relative, equal tail sweeps; (e) a streamed 2-bag GBT of 5 trees on the train
    plane (windows of 131,072, 6 resident), member 1 bit-identical to its
    single ``train_gbt_streamed`` run; then ``hist_batch`` at the tail
    window's path shape (TB = 7, N = 524,288, K = 64) and ``hist`` over
@@ -279,8 +293,8 @@ versions on one card.  Otherwise it
    ``tmp/NormalizedData`` plane of 1,310,720 x 256 f32 (1.35 GB at
    ``should_stream``'s 4 x 258 bytes a row), which streams by a
    ``shifu.train.memoryBudgetBytes`` of 1 GiB in two windows with nothing
-   forced: (a) ``init -model``'s NN, full batch, 4 epochs, falling
-   errors, ms an epoch; (b) 2 epochs then ``train -resume`` to 4,
+   forced: (a) ``init -model``'s NN, full batch, 2 epochs, falling
+   errors, ms an epoch; (b) 1 epoch then ``train -resume`` to 2,
    bit-identical; (c) one minibatch run; (d) the first 16,384 rows
    forced to stream in windows of 8,192, card and CPU, errors within
    1e-4 relative; (e) ``torch.profiler`` over 2 epochs: the device busy
@@ -348,7 +362,7 @@ versions on one card.  Otherwise it
    0.005), the WDL set's ``export -t spec`` re-read by
    ``load_reference_wdl`` scoring as the native model within rtol 1e-5,
    and ``combo`` WDL:GBT as in (c) (80 ``hist``, one ``tree_traverse`` a
-   chunk);
+   chunk; its WDL member 5 full-batch epochs);
    then every input kind and config check (``inputs_phase``): the stats
    CSV cut into ``.gz``, ``.bz2``, ``.xz``, ``.zip`` and plain shards, a
    shard of the wrong width and a corrupt ``.gz``, read with
@@ -527,6 +541,41 @@ the host-heaviest rows (walls of that run):
   the WDL planes NN_ROWS = WDL_ROWS = 262,144 rows (were 1,048,576):
   ``nn_phase`` 34.7 s, ``varselect_phase`` 7.1, ``genetic_phase`` 14.2,
   ``svm_phase`` 12.3, ``wdl_phase`` 105.9 (WDL (a)'s CLI train 27.9 s).
+
+``mesh_phase`` then gained the out-of-core mesh and the elastic sync
+drill: 16.3 -> 20.6-24.7 s on calls of the phase alone, the drill's five
+controller processes (20.3-23.4 s) beside the ranks.  This round cut depth
+in the stream phase to pay for it (walls of the last whole run before ->
+a call of the phase alone after):
+
+- stream (c): ``init -model``'s RF at 8 trees, one super-batch (was 10,
+  two): 7.8 -> 4.1 s;
+- stream (a0): its tree at depth 2 (was 3): 9.0 -> 6.7 s;
+- stream (e): the members at 5 trees (were 10): 4.4-6.1 s before.
+
+Those cuts paid 5-10 s against the mesh phase's 18-21 s of growth on the
+slow hosts that the whole runs drew (718.5-729.8 s), and took away the
+card's only streamed RF of two super-batches.  So the mesh's streamed RF
+now runs in two super-batches of 2, and this round cut depth again
+(walls of the last whole run before, 729.8 s):
+
+- the streamed NN (``nn_stream_phase``, 23.7 s): 2 epochs (were 4),
+  the resume from 1 (was 2): (a)'s CLI 6.9 s, (b)'s 4.4;
+- the serve plane's closed loop: raw 1 / 64 records 10 / 5 requests
+  (were 20 / 10): 2.6 + 2.5 s;
+- ``combo`` WDL:GBT's WDL member 5 epochs (were 10): ``wdl_combo``
+  35.7 s (its runs 8.6 s on the card, 14.6 on the CPU);
+- the elastic drill: 4 epochs of 8,192 rows a controller (were 6 of
+  16,384): 25.9 s, beside the ranks;
+- a sharded build's all_reduces timed 3 times (were 5) a rank.
+
+That run took 604.8 s on a quick host, the mesh phase 31.8 s, so the
+smoke's marks went one level down (``mesh_phase: ...``,
+``wdl_phase: ...``): WDL's step profiles took 47.7 of the phase's 69.0
+s, nearly all of it ``torch.profiler`` recording every host op.
+``profile_device`` now records the CUDA activity alone (its readers
+take only device events): the profiles 4.3 s, ``wdl_phase`` 24.5 s, on
+a call of the phase alone (``tools/smoke_phases.py`` runs phases alone).
 """
 
 from __future__ import annotations
@@ -615,7 +664,8 @@ STREAM_ROWS, STREAM_WINDOW = 1 << 22, 1 << 19   # the out-of-core plane;
 #                                       its shards and (a)'s windows
 STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
 STREAM_A0_TREES = 1                        # (a0): 13 s a tree at depth 7
-STREAM_A0_DEPTH = 3                        # (a0)'s tree (a cut)
+STREAM_A0_DEPTH = 2                        # (a0)'s tree (a cut)
+STREAM_RF_TREES = 8                        # (c): one super-batch (a cut)
 STREAM_EXACT_TREES = 5                     # (a'): (a)'s first 5 trees
 STREAM_CUT_ROWS = 16384                    # (d) card vs CPU: 8 windows,
 STREAM_CUT_WINDOW = STREAM_CUT_ROWS // 8   # 6 of them resident
@@ -626,15 +676,31 @@ STREAM_CUT_CPU = ("gbt_c2f",)              # (d)'s cases also run on the CPU
 STREAM_LEAF_RTOL, STREAM_LEAF_ATOL = 1e-5, 1e-6    # (d) leaves, card/CPU
 STREAM_ERR_RTOL = 1e-5                     # (d) progress errors
 MEMBER_WINDOW, MEMBER_RESIDENT, MEMBER_BAGS = 1 << 17, 6, 2   # (e)
+MEMBER_TREES = 5                           # (e)'s members (a cut)
 NN_STREAM_ROWS = 5 * (1 << 18)             # 1,310,720 rows: 1.35 GB at
 #                        4 * (N_COLS + 2) bytes, over NN_STREAM_BUDGET
 NN_STREAM_BUDGET = {"shifu.train.memoryBudgetBytes": str(1 << 30)}
-NN_STREAM_EPOCHS, NN_STREAM_CKPT = 4, 2    # init -model's NN; a resume
+NN_STREAM_EPOCHS, NN_STREAM_CKPT = 2, 1    # init -model's NN; a resume
 NN_STREAM_BATCH = 1 << 16                  # (c)'s minibatch
 NN_STREAM_CUT_WINDOW = CUT_ROWS // 4       # (d): 4 windows of CUT_ROWS
 VARSEL_KEEP, VARSEL_SE_ATOL = 64, 1e-6     # SE filterNum; card vs CPU
 GBT_ROW_BYTES = N_COLS + 12                # a prepared GBT window row
 RF_ROW_BYTES = N_COLS + 8                  # a prepared RF window row
+
+
+def marker(walls: dict, t_start: float, prefix: str = ""):
+    """A ``mark(what)`` that records the wall since the last mark (or
+    ``t_start``) in ``walls[what]`` and logs it beside the time since
+    ``t_start``."""
+    last = [t_start]
+
+    def mark(what: str) -> None:
+        now = time.perf_counter()
+        walls[what] = round(now - last[0], 1)
+        last[0] = now
+        log(f"{prefix}{what} done at {now - t_start:.1f} s "
+            f"({walls[what]:.1f} s)")
+    return mark
 
 
 def fail(msg: str) -> None:
@@ -1052,7 +1118,7 @@ PLANE_SWAP_TREES = 50                      # the swap's forest
 # parse, so raw requests get a p50 alone (the smoke's time budget); a p99
 # needs P99_MIN_REQUESTS
 LATENCY_REQUESTS = {"pre": {1: 100, 64: 100, 512: 100},
-                    "raw": {1: 20, 64: 10, 512: 2}}
+                    "raw": {1: 10, 64: 5, 512: 2}}
 P99_MIN_REQUESTS = 100
 QUALITY_TOL = 1e-9                 # /quality (6 decimals) vs the logged
 #                                    scores' AUC rounded as it rounds
@@ -2257,11 +2323,12 @@ def profile_device(torch, run, what: str = "one 2-tree chunk") -> dict:
     """Device time by kernel over one ``run()`` (``what``) from
     ``torch.profiler``: kernel-busy ms, its share of the run's profiled
     wall time, and the kernels that take the most (``by_name``: every
-    device op's ms and launches)."""
+    device op's ms and launches).  It records the CUDA activity alone:
+    the host ops' events are not read, and recording them cost tens of
+    seconds of host time over a few WDL epochs (~300 ops a step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -4590,15 +4657,16 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
     6 trees (the checkpoint holds 5), ``train -resume`` to 10:
     bit-identical to (a); and the same checkpoint without its score
     sidecar: the restored trees replay through ``tree_traverse`` window by
-    window, bit-identical.  (c) ``init -model``'s RF (10 trees, depth 14)
-    with ``windowRows`` STREAM_WINDOW: two super-batches (SB = 8), B2 and
+    window, bit-identical.  (c) ``init -model``'s RF (depth 14) cut to
+    STREAM_RF_TREES trees with ``windowRows`` STREAM_WINDOW: one
+    super-batch (SB = 8), B2 and
     B1 launched, finite and falling out-of-bag errors.  (d) the first
     CUT_ROWS rows, windows of STREAM_CUT_WINDOW, STREAM_CUT_RESIDENT
     resident: (a)'s GBT with coarse-to-fine on and off and a
     STREAM_CUT_RF_TREES-tree depth-7 RF on ``cuda`` and ``cpu``: split
     features and masks equal, leaves and errors within STREAM_LEAF_RTOL /
-    STREAM_ERR_RTOL, tail sweeps equal.  (e) streamed GBT with
-    ``baggingNum`` MEMBER_BAGS on the train phase's plane, windows of
+    STREAM_ERR_RTOL, tail sweeps equal.  (e) streamed GBT (MEMBER_TREES
+    trees) with ``baggingNum`` MEMBER_BAGS on the train phase's plane, windows of
     MEMBER_WINDOW, MEMBER_RESIDENT resident: member 1 bit-identical to a
     single ``train_gbt_streamed`` run with its mask function and seed.
     Then B2 at the tail window's path shape and B1 at the coalesced
@@ -4750,10 +4818,11 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
         f"({wall_b:.3f} s) and without it ({wall_r:.3f} s, the restored "
         f"trees replayed through tree_traverse: {replay}) — [{gpu}]")
 
-    # (c) init -model's RF: two super-batches
+    # (c) init -model's RF, cut to one super-batch
     rf_params = dict(_ALG_DEFAULT_PARAMS["RF"][1])
     if (rf_params["TreeNum"], rf_params["MaxDepth"]) != (RF_TREES, RF_DEPTH):
         fail(f"init -model's RF defaults changed: {rf_params}")
+    rf_params["TreeNum"] = STREAM_RF_TREES
     dc = write_train_set(os.path.join(root, "stream_rf"), serve_root,
                          rf_params, clean, "RF")
     zero_tree_counts()
@@ -4763,20 +4832,21 @@ def stream_phase(torch, root: str, serve_root: str, plan, rng, train_plane_,
     spec_c, trees_c = load_forest(dc, "rf")
     err_c = progress_errors(dc)
     sb = 8
-    want_sweeps = (RF_DEPTH + 1) + (RF_DEPTH + 2)    # the warm pass rides
-    if len(trees_c) != RF_TREES or r["tail_sweeps"] != want_sweeps or \
-            launches["hist_batch"] != 2 * RF_DEPTH * 8 or \
+    want_sweeps = RF_DEPTH + 1                  # the warm pass rides
+    if len(trees_c) != STREAM_RF_TREES or r["tail_sweeps"] != want_sweeps \
+            or launches["hist_batch"] != RF_DEPTH * 8 or \
             launches["hist"] < 1:
         fail(f"(c) {len(trees_c)} trees, {r}, launches {launches} (want "
-             f"{want_sweeps} tail sweeps, {2 * RF_DEPTH * 8} hist_batch: "
-             f"{RF_DEPTH} levels x 8 windows x 2 super-batches)")
+             f"{want_sweeps} tail sweeps, {RF_DEPTH * 8} hist_batch: "
+             f"{RF_DEPTH} levels x 8 windows x 1 super-batch)")
     if not np.isfinite(err_c).all() or not err_c[-1, 1] < err_c[0, 1]:
         fail(f"(c) out-of-bag errors do not fall: {err_c[:, 1].tolist()}")
-    out["c"] = {"wall_s": wall, "ms_per_tree": wall * 1e3 / RF_TREES,
+    out["c"] = {"wall_s": wall, "ms_per_tree": wall * 1e3 / STREAM_RF_TREES,
                 "launches": launches, "peak_bytes": peak, "super_batch": sb,
                 **r}
-    log(f"stream (c) RF {RF_TREES} trees depth {RF_DEPTH}: {wall:.3f} s "
-        f"({wall * 1e3 / RF_TREES:.1f} ms a tree), tail sweeps "
+    log(f"stream (c) RF {STREAM_RF_TREES} trees depth {RF_DEPTH}: "
+        f"{wall:.3f} s ({wall * 1e3 / STREAM_RF_TREES:.1f} ms a tree), "
+        f"tail sweeps "
         f"{r['tail_sweeps']}, launches {launches}, peak device memory "
         f"{peak / 2**30:.3f} GiB, out-of-bag error {err_c[0, 1]:.6f} -> "
         f"{err_c[-1, 1]:.6f} — [{gpu}]")
@@ -4874,15 +4944,17 @@ def stream_cut_phase(root, serve_root, params, bins, y, w, names,
 def stream_member_phase(torch, root, serve_root, params, train_plane_,
                         gpu) -> dict:
     """(e): a streamed GBT with ``baggingNum`` MEMBER_BAGS on the train
-    phase's plane (windows of MEMBER_WINDOW, MEMBER_RESIDENT resident);
-    member 1 against a single ``train_gbt_streamed`` run with its mask
-    function (``_streamed_bag_mask_fn``) and seed."""
+    phase's plane (windows of MEMBER_WINDOW, MEMBER_RESIDENT resident),
+    (a)'s params at MEMBER_TREES trees; member 1 against a single
+    ``train_gbt_streamed`` run with its mask function
+    (``_streamed_bag_mask_fn``) and seed."""
     from dataclasses import replace
     from shifu_tpu_torch.config import ModelConfig, environment
     from shifu_tpu_torch.config.model_config import Algorithm
     from shifu_tpu_torch.data.shards import Shards
     from shifu_tpu_torch.train import dt_trainer as dt
     bins, y, w, informative, is_cat, clean, cut, names = train_plane_
+    params = dict(params, TreeNum=MEMBER_TREES)
     props = {"shifu.train.streaming": "on",
              "shifu.train.windowRows": str(MEMBER_WINDOW),
              "shifu.train.deviceCacheBytes": str(
@@ -5354,6 +5426,7 @@ WDL_ERR_RTOL, WDL_AUC_TOL = 1e-4, 0.005   # card vs CPU
 WDL_SCORE_TOL = 1e-2                      # served / evaluated, 0-1000
 WDL_E2E = {"MiniBatchs": 0, "LearningRate": 0.01}   # e2e set's WDL
 WDL_E2E_EPOCHS = 10
+WDL_COMBO_EPOCHS = 5                      # combo WDL:GBT's WDL member
 WDL_PROFILE_STEPS = (5, 10)               # minibatch steps profiled
 WDL_PROFILE_ROWS = 1 << 16                # a full-batch epoch profiled
 SVM_CAP, SVM_ITERS, SVM_CUT = 16384, 2000, 2048
@@ -5495,6 +5568,8 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
     from shifu_tpu_torch.ops import tree_quant as tq
     names = [p[1] for p in plan]
     t0 = time.perf_counter()
+    sub_walls = {}
+    mark = marker(sub_walls, t0, "wdl_phase: ")
     bins, y, w, informative, _ = train_plane(rng, plan, rows)
     x = (bins.astype(np.float32) - 31.5) / 18.5
     norm, clean = (os.path.join(root, f"wdl_{k}") for k in ("norm", "clean"))
@@ -5503,6 +5578,7 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
     out = {"plane_write_s": time.perf_counter() - t0}
     log(f"WDL planes written in {out['plane_write_s']:.2f} s: {rows} rows "
         f"x {N_COLS} columns, informative {informative.tolist()}")
+    mark("planes")
 
     # (a) full batch, WDL_BAGS bags
     a = wdl_set(root, "wdl_a", serve_root, norm, clean, {"MiniBatchs": 0},
@@ -5532,6 +5608,7 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
         f"{out['a']['ms_per_epoch']:.3f} ms an epoch (CLI train {wall:.3f} "
         f"s for {WDL_EPOCHS} epochs), errors {errs[0]} -> {errs[-1]} "
         f"— [{gpu}]")
+    mark("(a)")
 
     # (b) one minibatch epoch at the default MiniBatchs, on the plane's
     # first WDL_B_ROWS rows (a cut for the smoke's time limit)
@@ -5551,6 +5628,7 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
         fail(f"WDL (b) one minibatch epoch: errors {errs_b} against the "
              f"first full-batch epoch's {errs[0]}")
     spec_b = wdl_members(b)[0].spec
+    mark("(b) train")
     x_num = x[:, spec_b.extra["num_feat_idx"]]
     x_cat = bins[:, spec_b.extra["cat_col_idx"]]
     prof = wdl_step_profile(torch, x_num, x_cat, y, w, spec_b, gpu) \
@@ -5564,6 +5642,7 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
         f"{phase:.3f} s ({phase * 1e3 / steps:.4f} ms a step, the upload "
         f"and the epoch's error pass included; CLI {wall:.3f} s) "
         f"— [{gpu}]")
+    mark("(b) profiles")
 
     # (c) hashed ids, served (trained on (b)'s rows)
     c = wdl_set(root, "wdl_c", serve_root, norm_b, clean_b,
@@ -5583,6 +5662,7 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
         hs, torch.from_numpy(cat).to(card)).cpu().numpy()
     if not np.array_equal(on_card, wdl_model.apply_hash_host(hs, cat)):
         fail("WDL (c): bucket ids on the card differ from the host's")
+    mark("(c) train")
     sd = os.path.join(root, "wdl_serve")
     os.makedirs(sd)
     for f in ("ModelConfig.json", "ColumnConfig.json"):
@@ -5598,6 +5678,7 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
         f"categorical columns hashed; bucket ids on the card equal the "
         f"host's over 65,536 rows; served max |card - cpu| "
         f"{served.get('max_abs_score_diff', float('nan')):.3g} — [{gpu}]")
+    mark("(c) serve")
 
     # (d) the card against the CPU on CUT_ROWS rows, resident and streamed
     cut_n, cut_c = (os.path.join(root, f"wdl_cut_{k}")
@@ -5633,6 +5714,7 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
             f"{rel:.3g} relative, AUC {ca:.6f} / {pa:.6f}; train "
             f"{cw:.3f} s on the card, {pw:.3f} s on the CPU — [{gpu}]")
 
+    mark("(d)")
     # (e) minibatch epochs, then train -resume, bit-identical
     first, total, batch = WDL_RESUME
     params = {"MiniBatchs": batch, "CheckpointInterval": 1}
@@ -5654,6 +5736,8 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
     out["e"] = {"resume_bit_identical": True}
     log(f"WDL (e) {first} minibatch epochs + train -resume to {total} "
         f"bit-identical to the uninterrupted run — [{gpu}]")
+    mark("(e)")
+    out["steps_s"] = sub_walls
     return out
 
 
@@ -7112,6 +7196,26 @@ MESH_RANKS = 2                          # share the one card over gloo
 MESH_RF_ROWS, MESH_RF_TREES = 1 << 18, 8
 MESH_NN_ROWS, MESH_NN_EPOCHS, MESH_NN_BAGS = 1 << 16, 5, 2
 MESH_TIMED_NODES = (1, 32)              # GBT levels 0 and 6 (left children)
+MESH_TIMED_REPEATS = 3                  # all_reduces timed a sharded build
+# the out-of-core mesh: the train plane's first 524,288 rows in 4 windows
+# of 131,072, 2 resident under the device budget and 2 on the disk tail
+MESH_STREAM_ROWS, MESH_STREAM_WINDOW = 1 << 19, 1 << 17
+MESH_SGBT = {"TreeNum": 5, "MaxDepth": DEPTH, "Loss": "log",
+             "LearningRate": 0.1}
+MESH_STREAM_PROPS = {
+    "shifu.train.streaming": "on",
+    "shifu.train.windowRows": str(MESH_STREAM_WINDOW),
+    "shifu.train.deviceCacheBytes": str(2 * MESH_STREAM_WINDOW
+                                        * (N_COLS + 12) + (1 << 20))}
+MESH_SRF_TREES, MESH_SRF_BATCH = 4, 2   # the streamed RF: 2 super-batches
+MESH_SRF_BUDGET = 2 * MESH_STREAM_WINDOW * (N_COLS + 8) + (1 << 20)
+MESH_SNN_WINDOW, MESH_SNN_EPOCHS = 1 << 14, 2   # the NN plane's 4 windows
+# the elastic sync drill: 2 controllers of parallel/elastic_demo on the
+# card, one killed at dcn:step=3 and relaunched, against a control run
+ELASTIC_ARGS = ["--rows", "8192", "--features", str(N_COLS), "--epochs",
+                "4", "--quorum-frac", "1.0", "--timeout-ms", "120000",
+                "--device", "cuda"]
+ELASTIC_KILL_STEP = 3
 
 
 def mesh_rf_settings():
@@ -7180,18 +7284,131 @@ def mesh_nn(torch, x, y, mesh):
                                for layer in p] for p in res.params]
 
 
+def mesh_stream_rf(torch, plane_dir: str, mesh):
+    """The streamed RF over the mesh's stream plane (MESH_SRF_TREES depth-7
+    trees in super-batches of MESH_SRF_BATCH, so the second starts on the
+    first's last sweep and carries its out-of-bag sums; 2 of 4 windows
+    resident): (forest, (disk passes, tail sweeps, bytes read),
+    history)."""
+    import dataclasses
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import ShardStream
+    from shifu_tpu_torch.train.dt_trainer import train_rf_streamed
+    s = dataclasses.replace(mesh_rf_settings(), n_trees=MESH_SRF_TREES,
+                            tail_tree_batch=MESH_SRF_BATCH)
+    res = train_rf_streamed(
+        ShardStream(Shards.open(plane_dir), ("bins", "y", "w"),
+                    MESH_STREAM_WINDOW), N_BINS, None, s,
+        cache_budget=MESH_SRF_BUDGET, device="cuda", mesh=mesh)
+    return ([(t.split_feat, t.left_mask, t.leaf_value) for t in res.trees],
+            (res.disk_passes, res.tail_sweeps, res.bytes_read), res.history)
+
+
+def mesh_stream_nn(torch, nn_dir: str, mesh):
+    """The streamed NN over the mesh's NN plane (65,536 x 256 in windows
+    of 16,384, full batch): (valid errors, history)."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import (ShardStream,
+                                                mask_fn_from_settings)
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.train.nn_trainer import (TrainSettings,
+                                                  train_ensemble_streamed)
+    res = train_ensemble_streamed(
+        ShardStream(Shards.open(nn_dir), ("x", "y", "w"), MESH_SNN_WINDOW),
+        nn_model.NNModelSpec(input_dim=N_COLS, hidden_nodes=[64],
+                             activations=["tanh"], loss="log"),
+        TrainSettings(optimizer="ADAM", learning_rate=0.01,
+                      epochs=MESH_SNN_EPOCHS, seed=0), 1,
+        mask_fn_from_settings(1, valid_rate=0.2, seed=0), device="cuda",
+        mesh=mesh)
+    return res.valid_errors, res.history
+
+
+def mesh_window_checks(torch, plane_dir: str, mesh, tree) -> dict:
+    """The window loop's sharded launches held to their plain versions on
+    the card, on the stream plane's first window: this rank's block
+    through ``ops.tree.build_histograms`` (B1, the exact schedule's level
+    6 left children along ``tree``), ``build_path_histograms`` (B2 at TB =
+    depth, the c2f tail pass, and its leaf sums) and
+    ``build_histograms_batch`` (B2 at the streamed RF's super-batch, TB =
+    MESH_SRF_BATCH and K = 32, bag-weighted stats from a fixed seed), each
+    bit-equal to the fixed-point plain version over the whole window
+    (``hist.build_histograms_fixed_ref``)."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import ShardStream
+    from shifu_tpu_torch.ops import hist
+    from shifu_tpu_torch.ops import tree as T
+    from shifu_tpu_torch.train.dt_trainer import _gbt_stats
+    win = next(ShardStream(Shards.open(plane_dir), ("bins", "y", "w"),
+                           MESH_STREAM_WINDOW).windows())
+    bins = torch.from_numpy(np.ascontiguousarray(win.arrays["bins"])).cuda()
+    y = torch.from_numpy(np.asarray(win.arrays["y"], np.float32)).cuda()
+    w = torch.from_numpy(np.asarray(win.arrays["w"], np.float32)).cuda()
+    stats = _gbt_stats(y, w, torch.zeros_like(y), "log")
+    sf = torch.from_numpy(tree[0]).cuda()
+    lm = torch.from_numpy(tree[1]).cuda()
+    b0, b1 = mesh.row_block(bins.shape[0])
+    blk = (bins[b0:b1].contiguous(), stats[b0:b1].contiguous())
+    out = {}
+    node = T._left_child_index(T.node_index_at_level(sf, lm, bins, DEPTH - 1))
+    got = T.build_histograms(blk[0], node[b0:b1].contiguous(), blk[1], 32,
+                             N_BINS, mesh)
+    if not torch.equal(got, hist.build_histograms_fixed_ref(
+            bins, node, stats, 32, N_BINS)):
+        fail("mesh: a sharded window level (B1, K = 32) differs from the "
+             "fixed-point plain version over the whole window")
+    out["b1_level"] = list(got.shape)
+    half = 1 << (DEPTH - 1)
+    hl, raw = T.build_path_histograms(blk[0], blk[1], sf, lm, DEPTH, N_BINS,
+                                      mesh=mesh)
+    idx = torch.zeros(bins.shape[0], dtype=torch.int32, device="cuda")
+    want = [hist.build_histograms_fixed_ref(bins, idx, stats, half, N_BINS)]
+    for level in range(1, DEPTH + 1):
+        base, width = (1 << (level - 1)) - 1, 1 << (level - 1)
+        idx = T._descend(bins, idx, sf[base:base + width],
+                         lm[base:base + width])
+        if level < DEPTH:
+            want.append(hist.build_histograms_fixed_ref(
+                bins, T._left_child_index(idx), stats, half, N_BINS))
+    zero = torch.zeros((bins.shape[0], 1), dtype=torch.uint8, device="cuda")
+    want_raw = hist.build_histograms_fixed_ref(
+        zero, idx, stats, 1 << DEPTH, 1)[:, 0, 0].T
+    if not torch.equal(hl, torch.stack(want)) or \
+            not torch.equal(raw, want_raw):
+        fail("mesh: the sharded path histograms (B2 at TB = depth) or their "
+             "leaf sums differ from the fixed-point plain version over the "
+             "whole window")
+    out["b2_path"] = list(hl.shape)
+    _, node_b, stats_b = batch_inputs(torch, np.random.default_rng(37),
+                                      bins.shape[0], 1, 1, 32,
+                                      MESH_SRF_BATCH)
+    got = T.build_histograms_batch(blk[0], node_b[:, b0:b1].contiguous(),
+                                   stats_b[:, b0:b1].contiguous(), 32,
+                                   N_BINS, mesh)
+    want = torch.stack([hist.build_histograms_fixed_ref(
+        bins, node_b[t], stats_b[t], 32, N_BINS)
+        for t in range(MESH_SRF_BATCH)])
+    if not torch.equal(got, want):
+        fail(f"mesh: the sharded RF super-batch (B2 at TB = {MESH_SRF_BATCH},"
+             " K = 32) differs from the fixed-point plain version over the "
+             "whole window")
+    out["b2_superbatch"] = list(got.shape)
+    return out
+
+
 def mesh_time_one(torch, mesh, launch, meta, flush, nbytes: int) -> dict:
     """One sharded build's parts on this rank: ``launch()`` (the kernel's
     raw mode) and ``flush(cells)`` timed with CUDA events, ``meta()`` (the
     meta all_reduce) and the cells' all_reduce with the host clock around
-    a synchronised call (gloo blocks the host)."""
+    a synchronised call (gloo blocks the host), the median of
+    MESH_TIMED_REPEATS."""
     from shifu_tpu_torch.parallel import mesh as meshlib
     cells = launch()
     out = {"kernel_ms": device_ms(torch, launch, launches=5, repeats=3),
            "flush_ms": device_ms(torch, lambda: flush(cells), launches=5,
                                  repeats=3)}
     walls = {"meta": [], "cells": []}
-    for _ in range(5):
+    for _ in range(MESH_TIMED_REPEATS):
         for part, fn in (("meta", meta), ("cells", lambda: meshlib.all_reduce(
                 mesh, cells.clone()))):
             torch.cuda.synchronize()
@@ -7209,7 +7426,11 @@ def mesh_time_parts(torch, mesh, bins) -> dict:
     """This rank's parts of one sharded build (:func:`mesh_time_one`) on
     its block of the plane: B1 at GBT levels 0 and 6, B2 at the mesh RF's
     deepest batched level (TB = 8, K = 32) on its half of the RF's rows,
-    B3 on its half of a 262,144 x 224 x 4096 x 4 chunk."""
+    B3 on its half of a 262,144 x 224 x 4096 x 4 chunk; and at the window
+    loop's shapes on its half of a 131,072-row window: the c2f tail's path
+    histograms (B2, TB = 7, K = 64), the streamed RF's super-batch (B2,
+    TB = MESH_SRF_BATCH, K = 32) and a window's leaf sums (B1, K = 128,
+    one column of one bin)."""
     from shifu_tpu_torch.ops import hist
     from shifu_tpu_torch.ops import stats_hist as sh
     gen = torch.Generator(device="cuda")
@@ -7221,8 +7442,8 @@ def mesh_time_parts(torch, mesh, bins) -> dict:
         return torch.stack([w, w * torch.randn((tb, n), generator=gen,
                                                device="cuda")], 2)
 
-    def b12(tb, k, rows):
-        b = bins[:rows]
+    def b12(tb, k, rows, b=None, n_bins=N_BINS):
+        b = bins[:rows] if b is None else b
         node = torch.randint(0, k, (tb, rows), generator=gen,
                              device="cuda", dtype=torch.int32)
         stats = tree_stats(tb, rows)
@@ -7230,12 +7451,22 @@ def mesh_time_parts(torch, mesh, bins) -> dict:
         return mesh_time_one(
             torch, mesh,
             lambda: hist._launch(("node_idx_b", "stats_b"), b, node, stats,
-                                 k, N_BINS, meta=m),
+                                 k, n_bins, meta=m),
             lambda: hist.global_channel_meta(stats, mesh),
             lambda c: hist._flush_cuda(c, m[0], m[2]),
-            hist.sharded_bytes(tb, k, N_COLS, N_BINS, 2))
+            hist.sharded_bytes(tb, k, b.shape[1], n_bins, 2))
     out = {"hist": {k: b12(1, k, bins.shape[0]) for k in MESH_TIMED_NODES},
-           "hist_batch": {32: b12(HIST_BATCH, 32, MESH_RF_ROWS // 2)}}
+           "hist_batch": {32: b12(HIST_BATCH, 32, MESH_RF_ROWS // 2)},
+           # out of core, on a rank's block of a 131,072-row window: the
+           # c2f tail's path histograms (TB = depth, K = 64) and the
+           # streamed RF's super-batch at its deepest level (K = 32)
+           "path": b12(DEPTH, 1 << (DEPTH - 1), MESH_STREAM_WINDOW // 2),
+           "superbatch": b12(MESH_SRF_BATCH, 32, MESH_STREAM_WINDOW // 2),
+           # a window's depth-7 leaf sums: one all-zero column of one bin
+           "leaf_sums": b12(1, 1 << DEPTH, MESH_STREAM_WINDOW // 2,
+                            torch.zeros((MESH_STREAM_WINDOW // 2, 1),
+                                        dtype=torch.uint8, device="cuda"),
+                            1)}
     n = RESIDENT_ROWS // 2
     idx = torch.randint(0, STATS_BUCKETS, (n, N_NUM), generator=gen,
                         device="cuda", dtype=torch.int32)
@@ -7279,10 +7510,19 @@ def mesh_rank_main(torch, rank: str, mesh_dir: str) -> None:
         dist.destroy_process_group()
         return
     r = int(rank)
+    t0 = time.perf_counter()
     backend = meshlib.initialize_distributed()
     mesh = meshlib.device_mesh()
     res = {"backend": backend, "shape": mesh.shape, "launches": {},
-           "allreduces": {}}
+           "allreduces": {}, "walls_s": {"join": time.perf_counter() - t0}}
+
+    def walled(name, fn):
+        """``fn()``, its wall in ``walls_s`` (no kernel counts)."""
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["walls_s"][name] = time.perf_counter() - t0
+        return out
 
     def counted(name, fn):
         zero_tree_counts()
@@ -7292,7 +7532,7 @@ def mesh_rank_main(torch, rank: str, mesh_dir: str) -> None:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        res.setdefault("walls_s", {})[name] = time.perf_counter() - t0
+        res["walls_s"][name] = time.perf_counter() - t0
         res["launches"][name] = dict(
             read_tree_counts(), stats_hist=sh.stats_histograms_cuda.launches)
         res["allreduces"][name] = {
@@ -7305,11 +7545,12 @@ def mesh_rank_main(torch, rank: str, mesh_dir: str) -> None:
     counted("gbt", lambda: train_cli(d, "cuda"))
     _, trees = load_forest(d)
     res["gbt"] = [(t.split_feat, t.left_mask, t.leaf_value) for t in trees]
-    plane = Shards.open(job["clean"]).load_all()
+    plane = walled("load", lambda: Shards.open(job["clean"]).load_all())
     r0, r1 = mesh.row_block(len(plane["y"]))
     block = torch.from_numpy(np.ascontiguousarray(
         plane["bins"][r0:r1])).cuda()
-    res["timed"] = mesh_time_parts(torch, mesh, block)
+    res["timed"] = walled("timed", lambda: mesh_time_parts(torch, mesh,
+                                                           block))
     del block
     rf = np.load(os.path.join(mesh_dir, "rf.npz"))
     res["rf"] = [(t.split_feat, t.left_mask, t.leaf_value) for t in counted(
@@ -7328,6 +7569,20 @@ def mesh_rank_main(torch, rank: str, mesh_dir: str) -> None:
     res["nn_shape"] = nn_mesh.shape
     res["nn"] = counted("nn", lambda: mesh_nn(torch, nn["x"], nn["y"],
                                                nn_mesh))
+    # out of core: each window's rows split over the ranks
+    sd = job["sgbt_dirs"][r]
+    res["sgbt_runs"] = counted("sgbt", lambda: stream_cli(
+        sd, "cuda", MESH_STREAM_PROPS))[1]
+    _, strees = load_forest(sd)
+    res["sgbt"] = [(t.split_feat, t.left_mask, t.leaf_value)
+                   for t in strees]
+    res["srf"] = counted("srf", lambda: mesh_stream_rf(
+        torch, job["stream_plane"], mesh))
+    res["snn"] = counted("snn", lambda: mesh_stream_nn(
+        torch, job["nn_plane"], mesh))
+    res["window_checks"] = walled(
+        "window_checks", lambda: mesh_window_checks(
+            torch, job["stream_plane"], mesh, res["sgbt"][0]))
     with open(os.path.join(mesh_dir, f"rank{r}.pkl"), "wb") as f:
         pickle.dump(res, f)
     dist.destroy_process_group()
@@ -7346,17 +7601,26 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
     this script (``--mesh-rank``) share the card over gloo and run, each on
     its block of the rows, the CLI's GBT train (the train phase's set),
     an RF of 8 depth-7 trees, the stats accumulator, the Scorer's B4 walk
-    and a 2-bag NN on the ensemble axis; a third process joins a world of
-    one over NCCL.  Meanwhile this process checks the int64 mode of B1,
-    B2 and B3 against their fixed-point plain versions on the card and
-    computes the one-rank results; then every rank's forests, cells,
+    and a 2-bag NN on the ensemble axis, then out of core (each window's
+    rows split): the CLI's streamed c2f GBT, a streamed RF and a streamed
+    NN, and the window loop's sharded launches held to their plain
+    versions; a third process joins a world of one over NCCL, and the
+    elastic sync drill's five controller processes run beside them
+    (:class:`ElasticDrill`).  Meanwhile this process checks the int64 mode
+    of B1, B2 and B3 against their fixed-point plain versions on the card
+    and computes the one-rank results; then every rank's forests, cells,
     boundaries, counts and scores must equal one rank's bit for bit, the
-    NN within the reference's tolerance."""
+    NN within the reference's tolerance.  Each step of this process is
+    marked (``mesh_phase: ...``); each rank logs its own walls."""
     import pickle
     t_phase = time.perf_counter()
+    steps = {}
+    mark = marker(steps, t_phase, "mesh_phase: ")
     mdir = os.path.join(root, "mesh")
     os.makedirs(mdir)
-    bins, y, w, _, _, clean, _, _ = plane
+    bins, y, w, _, _, clean, _, names = plane
+    # the elastic drill's controllers start first: they take longest
+    drill = ElasticDrill(mdir)
     params = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
               "LearningRate": 0.1, "CheckpointInterval": TRAIN_CKPT}
     dirs = [write_train_set(os.path.join(mdir, f"gbt{r}"), serve_root,
@@ -7371,8 +7635,20 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
                                              device="cuda") > 0).float()
     nn_x, nn_y = nn_x.cpu().numpy(), nn_y.cpu().numpy()
     np.savez(os.path.join(mdir, "nn.npz"), x=nn_x, y=nn_y)
+    stream_plane_dir = os.path.join(mdir, "stream_plane")
+    write_plane(stream_plane_dir, bins[:MESH_STREAM_ROWS],
+                y[:MESH_STREAM_ROWS], w[:MESH_STREAM_ROWS], names,
+                {"chip_smoke": "mesh_stream"})
+    nn_plane = os.path.join(mdir, "nn_plane")
+    write_norm_plane(nn_plane, nn_x, nn_y, np.ones(len(nn_y), np.float32),
+                     names)
+    sdirs = [write_train_set(os.path.join(mdir, f"sgbt{r}"), serve_root,
+                             MESH_SGBT, stream_plane_dir)
+             for r in list(range(MESH_RANKS)) + ["one"]]
     with open(os.path.join(mdir, "job.json"), "w") as f:
-        json.dump({"gbt_dirs": dirs, "clean": clean}, f)
+        json.dump({"gbt_dirs": dirs, "clean": clean, "sgbt_dirs": sdirs,
+                   "stream_plane": stream_plane_dir, "nn_plane": nn_plane},
+                  f)
     script = os.path.abspath(__file__)
     gloo_port, nccl_port = free_port(), free_port()
     procs = []
@@ -7387,9 +7663,17 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
             [sys.executable, script, "--mesh-rank", rank, "--mesh-dir", mdir],
             stdout=logf, stderr=subprocess.STDOUT, env=env,
             cwd=os.path.dirname(script))))
+    mark("planes and sets written, ranks and drill started")
     try:
         kernels = mesh_kernel_checks(torch)
+        mark("int64 kernel checks")
         one = mesh_one_rank(torch, bins, y, w, nn_x, nn_y, gbt_dir)
+        mark("one rank's resident results")
+        one.update(mesh_one_rank_streamed(torch, sdirs[-1],
+                                          stream_plane_dir, nn_plane))
+        mark("one rank's streamed results")
+        elastic = drill.finish()
+        mark("elastic drill finished")
         for rank, logf, p in procs:
             try:
                 rc = p.wait(timeout=MESH_TIMEOUT_S)
@@ -7402,7 +7686,9 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
                 with open(logf.name) as f:
                     tail = f.read()[-3000:]
                 fail(f"mesh rank {rank} exited {rc}:\n{tail}")
+        mark("ranks finished")
     finally:
+        drill.stop()
         for _, logf, p in procs:
             if p.poll() is None:
                 p.kill()
@@ -7417,11 +7703,14 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
         with open(os.path.join(mdir, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
     out = mesh_compare(ranks, one)
-    out.update(kernels=kernels, nccl=nccl,
-               wall_s=time.perf_counter() - t_phase)
+    out.update(kernels=kernels, nccl=nccl, elastic=elastic,
+               wall_s=time.perf_counter() - t_phase, steps_s=steps)
     t = ranks[0]["timed"]
     parts = [(f"B1 K={k}", t["hist"][k]) for k in MESH_TIMED_NODES] + [
-        ("B2 TB=8 K=32", t["hist_batch"][32]), ("B3", t["stats_hist"])]
+        ("B2 TB=8 K=32", t["hist_batch"][32]), ("B3", t["stats_hist"]),
+        (f"B2 path TB={DEPTH} K={1 << (DEPTH - 1)}", t["path"]),
+        (f"B2 super-batch TB={MESH_SRF_BATCH} K=32", t["superbatch"]),
+        (f"B1 leaf sums K={1 << DEPTH}", t["leaf_sums"])]
     log(f"mesh: {MESH_RANKS} ranks over {ranks[0]['backend']} on one card, "
         f"phase {out['wall_s']:.1f} s; rank 0's sharded builds, ms (raw "
         f"launch / flush / meta all_reduce / cells all_reduce, bytes): "
@@ -7429,11 +7718,160 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
                     f"{p['meta_allreduce_ms']:.3f} / "
                     f"{p['cells_allreduce_ms']:.3f}, {p['allreduce_bytes']}"
                     for name, p in parts)
-        + f"; rank walls {[r['walls_s'] for r in ranks]} — [{gpu}]")
+        + f"; rank walls {[{k: round(v, 3) for k, v in g['walls_s'].items()}
+                           for g in ranks]} — [{gpu}]")
     return out
 
 
 MESH_TIMEOUT_S = 240
+
+
+#: the relaunched controller: started with the others, it imports torch and
+#: makes its CUDA context, then waits for the victim's death before it runs
+#: the demo (so the drill does not wait for a second start-up)
+STANDBY = """import os, sys, time, torch
+torch.zeros(1, device=sys.argv[2])
+while not os.path.exists(sys.argv[1]):
+    time.sleep(0.02)
+from shifu_tpu_torch.parallel.elastic_demo import main
+sys.exit(main(sys.argv[3:]))
+"""
+
+
+class ElasticDrill:
+    """The elastic sync drill on the card: an uninterrupted control job of
+    2 controllers (``python -m shifu_tpu_torch.parallel.elastic_demo
+    --device cuda``, world of one each) and a job whose controller 1 exits
+    hard at ``dcn:step=3`` and is relaunched with the same ``--proc``: a
+    standby process (:data:`STANDBY`) that a thread of this process
+    releases as soon as the victim died.  Heartbeats every 300 s, so the
+    dead controller stays in the live set and the sync step waits for its
+    rejoin.  Every controller logs to a file of its own."""
+
+    def __init__(self, mdir: str):
+        self.root = os.path.join(mdir, "elastic")
+        self.control = os.path.join(self.root, "control")
+        self.job = os.path.join(self.root, "job")
+        os.makedirs(self.root)
+        self.t0 = time.perf_counter()
+        self.released = os.path.join(self.root, "victim_died")
+        self.procs = {}
+        for name, out, proc, fault in (
+                ("control0", self.control, 0, None),
+                ("control1", self.control, 1, None),
+                ("survivor", self.job, 0, None),
+                ("victim", self.job, 1,
+                 f"dcn:step={ELASTIC_KILL_STEP}:kill"),
+                ("rejoiner", self.job, 1, None)):
+            self.procs[name] = self._launch(name, out, proc, fault)
+        self.thread = threading.Thread(target=self._release, daemon=True)
+        self.thread.start()
+
+    def _launch(self, name: str, out: str, proc: int, fault):
+        env = dict(os.environ, SHIFU_TPU_HEARTBEAT_S="300")
+        for k in ("SHIFU_COORDINATOR", "SHIFU_TPU_FAULTS"):
+            env.pop(k, None)
+        if fault:
+            env["SHIFU_TPU_FAULTS"] = fault
+        argv = ["--out", out, "--proc", str(proc), "--nproc", "2",
+                *ELASTIC_ARGS]
+        cmd = [sys.executable, "-c", STANDBY, self.released,
+               ELASTIC_ARGS[ELASTIC_ARGS.index("--device") + 1], *argv] \
+            if name == "rejoiner" else \
+            [sys.executable, "-m", "shifu_tpu_torch.parallel.elastic_demo",
+             *argv]
+        logf = open(os.path.join(self.root, f"{name}.log"), "w")
+        p = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT,
+                             env=env,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        p.logf = logf
+        return p
+
+    def _release(self) -> None:
+        self.procs["victim"].wait()
+        self.victim_s = time.perf_counter() - self.t0
+        with open(self.released, "w"):
+            pass
+
+    def finish(self) -> dict:
+        """Wait for every controller and check the drill: the victim died
+        at the injected step, the rejoiner replayed at least the committed
+        steps before it, and both of the job's controllers hold the
+        control's params bit for bit."""
+        self.thread.join(timeout=MESH_TIMEOUT_S)
+        for name in ("control0", "control1", "survivor", "victim",
+                     "rejoiner"):
+            p = self.procs[name]
+            try:
+                p.wait(timeout=MESH_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"elastic drill: {name} hung")
+            p.logf.close()
+            want = 137 if name == "victim" else 0
+            if p.returncode != want:
+                with open(p.logf.name) as f:
+                    fail(f"elastic drill: {name} exited {p.returncode}, not "
+                         f"{want}:\n{f.read()[-3000:]}")
+        with open(self.procs["victim"].logf.name) as f:
+            if "injected hard exit at dcn:step" not in f.read():
+                fail("elastic drill: the victim did not die at dcn:step")
+
+        def params(out, proc):
+            with np.load(os.path.join(out, f"params-{proc}.npz")) as z:
+                return {k: z[k] for k in z.files}
+
+        def result(out, proc):
+            with open(os.path.join(out, f"result-{proc}.json")) as f:
+                return json.load(f)
+        want = params(self.control, 0)
+        for out, proc in ((self.control, 1), (self.job, 0), (self.job, 1)):
+            got = params(out, proc)
+            if got.keys() != want.keys() or any(
+                    got[k].tobytes() != want[k].tobytes() for k in want):
+                fail(f"elastic drill: controller {proc} of {out} differs "
+                     "from the uninterrupted control")
+        rj = result(self.job, 1)
+        if not rj["dcn"]["rejoined"] or rj["dcn"]["incarnation"] != 2 or \
+                rj["dcn"]["catchup_steps"] < ELASTIC_KILL_STEP:
+            fail(f"elastic drill: the rejoiner's record {rj['dcn']}")
+        out = {"wall_s": time.perf_counter() - self.t0,
+               "victim_died_s": self.victim_s, "rejoiner": rj["dcn"],
+               "survivor": result(self.job, 0)["dcn"],
+               "control_train_s": result(self.control, 0)["train_s"],
+               "auc": result(self.job, 0)["auc"],
+               "device": result(self.job, 0)["device"]}
+        log(f"elastic sync drill on the card: controller 1 killed at "
+            f"dcn:step={ELASTIC_KILL_STEP} ({out['victim_died_s']:.1f} s "
+            f"in), relaunched, caught up {rj['dcn']['catchup_steps']} steps "
+            f"from the journal; both controllers bit-identical to the "
+            f"uninterrupted control (AUC {out['auc']}); survivor waited "
+            f"{out['survivor']['step_wait_s']:.3f} s in steps; drill "
+            f"{out['wall_s']:.1f} s")
+        return out
+
+    def stop(self) -> None:
+        for p in list(self.procs.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.logf.close()
+
+
+def mesh_one_rank_streamed(torch, sdir: str, plane_dir: str,
+                           nn_plane: str) -> dict:
+    """One rank's out-of-core results on the card, each run's launches
+    counted from zero around it."""
+    out = {"stream_launches": {}}
+    zero_tree_counts()
+    out["sgbt_runs"] = stream_cli(sdir, "cuda", MESH_STREAM_PROPS)[1]
+    out["stream_launches"]["sgbt"] = read_tree_counts()
+    _, trees = load_forest(sdir)
+    out["sgbt"] = [(t.split_feat, t.left_mask, t.leaf_value) for t in trees]
+    zero_tree_counts()
+    out["srf"] = mesh_stream_rf(torch, plane_dir, None)
+    out["stream_launches"]["srf"] = read_tree_counts()
+    out["snn"] = mesh_stream_nn(torch, nn_plane, None)
+    return out
 
 
 def mesh_kernel_checks(torch) -> dict:
@@ -7569,8 +8007,70 @@ def mesh_compare(ranks, one) -> dict:
                     any(ar[part][k] != v for k, v in wa.items()):
                 fail(f"mesh rank {r} {part}: launches {ln[part]}, "
                      f"all_reduces {ar[part]}; want {wl} and {wa}")
+        # out of core: the one-rank forests and pass schedule, each sharded
+        # B1/B2 launch the one-rank run's and one all_reduce
+        def passes(runs):
+            return [(x["windows"], x["resident"], x["disk_passes"],
+                     x["tail_sweeps"], x["bytes_read"]) for x in runs]
+        if not same_forest(got["sgbt"], one["sgbt"]) or \
+                passes(got["sgbt_runs"]) != passes(one["sgbt_runs"]):
+            fail(f"mesh rank {r}: the streamed GBT ({passes(got['sgbt_runs'])}"
+                 f") differs from one rank's ({passes(one['sgbt_runs'])})")
+        if not same_forest(got["srf"][0], one["srf"][0]) or \
+                got["srf"][1] != one["srf"][1]:
+            fail(f"mesh rank {r}: the streamed RF ({got['srf'][1]}) differs "
+                 f"from one rank's ({one['srf'][1]})")
+        va, hist_nn = got["snn"]
+        if not np.allclose(va, one["snn"][0], rtol=1e-4, atol=1e-6) or \
+                not np.allclose(hist_nn, one["snn"][1], rtol=1e-4):
+            fail(f"mesh rank {r}: the streamed NN {va} / {hist_nn} beyond "
+                 f"1e-4 of one rank's {one['snn']}")
+        for part in ("sgbt", "srf"):
+            lw = one["stream_launches"][part]
+            if any(ln[part][k] != lw[k] for k in ("hist", "leaf_sums",
+                                                   "hist_batch")) or \
+                    ln[part]["hist"] < 1 or ln[part]["hist_batch"] < 1 or \
+                    ar[part]["hist"] != ln[part]["hist"] \
+                    + ln[part]["hist_batch"]:
+                fail(f"mesh rank {r} {part}: launches {ln[part]}, "
+                     f"all_reduces {ar[part]}; one rank launched {lw}")
         out["launches"].append(ln)
         out["allreduces"].append(ar)
+    geo = one["sgbt_runs"][-1]
+    if (geo["windows"], geo["resident"]) != (MESH_STREAM_ROWS
+                                             // MESH_STREAM_WINDOW, 2):
+        fail(f"mesh: the streamed GBT's geometry {geo}: want 4 windows, 2 "
+             "resident")
+    # two super-batches of D + 2 passes each (D levels, the leaf sums, the
+    # out-of-bag votes), the first's first pass the warm pass that fills
+    # the cache (not a tail sweep); one B2 launch a level, window and
+    # super-batch
+    n_win = MESH_STREAM_ROWS // MESH_STREAM_WINDOW
+    n_sb = -(-MESH_SRF_TREES // MESH_SRF_BATCH)
+    srf_sweeps = one["srf"][1][1]
+    srf_b2 = one["stream_launches"]["srf"]["hist_batch"]
+    if n_sb != 2 or srf_sweeps != (DEPTH + 1) + (DEPTH + 2) or \
+            srf_b2 != n_sb * DEPTH * n_win:
+        fail(f"mesh: the streamed RF took {srf_sweeps} tail sweeps and "
+             f"{srf_b2} hist_batch launches; want {(DEPTH + 1) + (DEPTH + 2)}"
+             f" and {n_sb * DEPTH * n_win} ({n_sb} super-batches)")
+    out["stream"] = {"sgbt": one["sgbt_runs"][-1], "srf": one["srf"][1],
+                     "snn": [np.asarray(g["snn"][0]).tolist()
+                             for g in ranks],
+                     "window_checks": [g["window_checks"] for g in ranks]}
+    log(f"mesh out of core: {MESH_RANKS} ranks' streamed GBT (c2f, "
+        f"{geo['windows']} windows of {geo['window_rows']}, "
+        f"{geo['resident']} resident; {geo['disk_passes']} disk passes, "
+        f"{geo['tail_sweeps']} tail sweeps, {geo['repairs']} repairs, "
+        f"{geo['bytes_read']} bytes read) and streamed RF (passes, sweeps, "
+        f"bytes {one['srf'][1]}) equal one rank's bit for bit, the "
+        f"streamed NN within 1e-4; a rank's launches / all_reduces: GBT "
+        f"{ranks[0]['launches']['sgbt']} / {ranks[0]['allreduces']['sgbt']},"
+        f" RF {ranks[0]['launches']['srf']} / "
+        f"{ranks[0]['allreduces']['srf']}; window checks "
+        f"{ranks[0]['window_checks']}; rank walls "
+        f"{[{k: round(g['walls_s'][k], 3) for k in ('sgbt', 'srf', 'snn')}
+            for g in ranks]}")
     out["timed"] = [g["timed"] for g in ranks]
     out["walls_s"] = [g["walls_s"] for g in ranks]
     log(f"mesh: {MESH_RANKS} ranks' GBT and RF forests, stats boundaries, "
@@ -7617,13 +8117,7 @@ def main() -> None:
     t_all = time.perf_counter()
 
     walls = {}                           # the smoke's time budget, a phase
-    last = [t_all]
-
-    def mark(what: str) -> None:
-        now = time.perf_counter()
-        walls[what] = round(now - last[0], 1)
-        last[0] = now
-        log(f"{what} done at {now - t_all:.1f} s ({walls[what]:.1f} s)")
+    mark = marker(walls, t_all)
 
     t0 = time.perf_counter()
     built = cuda_lib.build(["tree_traverse", "hist", "stats_hist"])
@@ -7755,7 +8249,7 @@ def main() -> None:
         try:
             wdl_combo = combo_pair(root, stats["dir"], stats["csv"],
                                    "WDL:GBT", params=WDL_GBT_COMBO,
-                                   epochs=WDL_E2E_EPOCHS)
+                                   epochs=WDL_COMBO_EPOCHS)
         finally:
             parsepool.CHUNK_ROWS = prev_chunk
         nn_walls["wdl_svm_e2e_combo"] = time.perf_counter() - t0
@@ -7879,6 +8373,13 @@ def main() -> None:
         "mesh_rank_allreduces": [a["gbt"]["hist"]
                                  for a in mesh["allreduces"]],
         "mesh_levels": [t["hist"] for t in mesh["timed"]],
+        "mesh_stream_launches": [
+            {k: ln[k]["hist"] for k in ("sgbt", "srf")}
+            for ln in mesh["launches"]],
+        "mesh_leaf_sums": [t["leaf_sums"] for t in mesh["timed"]],
+        "mesh_stream_leaf_sum_launches": [
+            {k: ln[k]["leaf_sums"] for k in ("sgbt", "srf")}
+            for ln in mesh["launches"]],
         "wdl_combo_launches": wdl_combo["hist_launches"],
         "rf_launches": forest["launches"]["hist"],
         "rf_leaf_sum_launches": forest["launches"]["leaf_sums"],
@@ -7945,6 +8446,14 @@ def main() -> None:
                                for ln in mesh["launches"]],
         "mesh_rank_allreduces": [a["rf"]["hist"] for a in mesh["allreduces"]],
         "mesh_level": [t["hist_batch"] for t in mesh["timed"]],
+        "mesh_stream_launches": [
+            {k: ln[k]["hist_batch"] for k in ("sgbt", "srf")}
+            for ln in mesh["launches"]],
+        "mesh_stream_allreduces": [
+            {k: a[k]["hist"] for k in ("sgbt", "srf")}
+            for a in mesh["allreduces"]],
+        "mesh_path": [t["path"] for t in mesh["timed"]],
+        "mesh_superbatch": [t["superbatch"] for t in mesh["timed"]],
         "stream_launches": {k: stream[k]["launches"]["hist_batch"]
                             for k in ("a", "a_exact", "c")},
         "at_stream_path": {m: stream["kernels"]["path"][m] for m in (

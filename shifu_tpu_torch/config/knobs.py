@@ -231,6 +231,12 @@ _DECLS: Tuple[Knob, ...] = (
     _k("shifu.dcn.quorumFrac", "property", "float", "0.97",
        "fraction of live controllers whose contributions close a step (also "
        "the monitor's QUORUM LOST threshold)"),
+    _k("shifu.dcn.stepTimeoutMs", "property", "float", "2000",
+       "elastic step timeout: survivors proceed with the partial "
+       "aggregate after this"),
+    _k("shifu.dcn.staleness", "property", "int", "0",
+       "bounded-staleness window: late contributions fold into a close "
+       "within this many steps (0 = quorum mode, drop late)"),
     # ---- multi-host / launcher
     # (the reference's fields, word for word: the coordinator is the
     # torch.distributed TCPStore's address here)

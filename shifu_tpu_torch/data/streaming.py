@@ -520,7 +520,12 @@ def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
 class PreparedWindow:
     """A window after the trainer's ``prepare`` hook: arrays on the device
     (tensors) or the host.  ``src`` is filled in from the source window by
-    :meth:`ShardStream.prepared` (tail bookkeeping)."""
+    :meth:`ShardStream.prepared` (tail bookkeeping).  On a mesh the
+    arrays and ``index`` are a rank's block of the window's rows (``start``,
+    ``n_valid`` and ``rows`` stay the window's), and ``cache_bytes`` is
+    what the whole window would hold, so every rank makes the one-rank
+    residency decisions.  ``sums`` carries host-side sums the trainer took
+    of the whole window (the streamed GBT's prior)."""
     start: int
     n_valid: int
     rows: int
@@ -531,11 +536,18 @@ class PreparedWindow:
     # run once on the consumer's thread when it takes the window (the
     # device copy's stream sync)
     on_consume: Optional[Callable[[], None]] = None
+    cache_bytes: Optional[int] = None
+    sums: Optional[np.ndarray] = None
 
     @property
     def nbytes(self) -> int:
         return int(sum(getattr(a, "nbytes", 0)
                        for a in self.arrays.values()))
+
+    @property
+    def budget_bytes(self) -> int:
+        """The bytes the residency budget counts for this window."""
+        return self.nbytes if self.cache_bytes is None else self.cache_bytes
 
 
 class ResidentCache:
@@ -575,10 +587,10 @@ class ResidentCache:
             self.disk_passes += 1
             obs.counter("ingest.disk_passes").inc()
             for item in self._prepared():
-                if caching and used + item.nbytes <= self.budget:
+                if caching and used + item.budget_bytes <= self.budget:
                     item.resident = True
                     self.cached.append(item)
-                    used += item.nbytes
+                    used += item.budget_bytes
                 elif caching:
                     caching = False
                     self.tail = (item.src[0], item.src[1], item.start) \
@@ -634,7 +646,8 @@ def auto_window_rows(row_bytes: int, budget_bytes: int,
 def stream_window_rows(row_bytes: int, data_size: int, shards) -> int:
     """The streamed trainers' window geometry: ``shifu.train.windowRows``,
     else the budget-derived :func:`auto_window_rows`, rounded up to
-    ``data_size``."""
+    ``data_size`` (the mesh's data axis: every rank takes an equal block
+    of each window's rows)."""
     from ..config import environment
     budget = environment.get_int("shifu.train.memoryBudgetBytes", 1 << 31)
     n_rows = (shards.schema.get("numRows") if hasattr(shards, "schema")

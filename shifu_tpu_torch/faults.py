@@ -12,9 +12,10 @@ Spec grammar (env ``SHIFU_TPU_FAULTS`` or property ``-Dshifu.faults``)::
     SHIFU_TPU_FAULTS="reader:file=0:ioerror@2"    # first 2 hits fail
 
 The spec grammar, the actions and the declared sites are the
-reference's, so one spec drives either package.  The port fires every
-declared site at the reference's boundary but the two multi-device ones,
-``dcn:step`` and ``train:rejoin`` (ROADMAP Queue 1 step 5).  The sites:
+reference's, so one spec drives either package, and the port fires every
+declared site at the reference's boundary (``dcn:step`` and
+``train:rejoin`` in the elastic step protocol, ``parallel/elastic.py``).
+The sites:
 
     norm:shard=<k>      before shard k's commit record lands
     norm:wire=<k>       before shard k's rows append to the direct-to-

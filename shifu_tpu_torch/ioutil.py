@@ -103,19 +103,31 @@ def atomic_open(path: str, mode: str = "w", **kwargs) -> Iterator[Any]:
         os.replace(tmp, path)
 
 
+#: a ``*.tmp<pid>`` file younger than this may be a live writer's: its
+#: rename follows its write within milliseconds
+ORPHAN_MIN_AGE_S = 60.0
+
+
 def sweep_orphan_tmp(directory: str) -> int:
     """Remove ``*.tmp<pid>`` droppings a previous crash left next to the
-    artifacts.  Returns the number removed (best-effort)."""
+    artifacts, once older than :data:`ORPHAN_MIN_AGE_S`: several processes
+    share some of these directories (the elastic board, the heartbeats),
+    and one starting must not remove another's file between its write and
+    its rename.  Returns the number removed (best-effort)."""
     n = 0
     try:
         entries = os.listdir(directory)
     except OSError:
         return 0
+    now = time.time()
     for f in entries:
         _, tmp, pid = f.rpartition(".tmp")
         if tmp and pid.isdigit():
+            path = os.path.join(directory, f)
             try:
-                os.remove(os.path.join(directory, f))
+                if now - os.path.getmtime(path) < ORPHAN_MIN_AGE_S:
+                    continue
+                os.remove(path)
                 n += 1
             except OSError:
                 pass

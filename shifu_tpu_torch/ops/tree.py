@@ -605,7 +605,7 @@ def predict_tree(split_feat, left_mask, leaf_value, bins, depth: int):
 
 
 def build_path_histograms(bins, stats, split_feat, left_mask, depth: int,
-                          n_bins: int, hist_bins=None):
+                          n_bins: int, hist_bins=None, mesh=None):
     """Every level's histograms along a FIXED tree structure in one pass
     over a window — the coarse-to-fine disk tail's core op (reference
     ``build_path_histograms``).  Given a speculated structure, each
@@ -619,7 +619,11 @@ def build_path_histograms(bins, stats, split_feat, left_mask, depth: int,
     ``max(2^(l-1), 1)`` node slots and zero past them, and leaf_raw [S,
     2^depth]): :func:`grow_tree`'s ``record_hists`` layout.  ``hist_bins``
     ([N, K], optional) narrows the histogram build to a candidate column
-    subset while routing walks the full ``bins``."""
+    subset while routing walks the full ``bins``.  On a ``mesh`` whose
+    data axis splits the rows, the rows are this rank's block and both
+    outputs cover every rank's rows: B2's raw mode at TB = depth over the
+    shared stats plane, one all_reduce, the flush; then the sharded leaf
+    sums."""
     assert depth >= 1
     half = max(1 << (depth - 1), 1)
     node_idx = torch.zeros(bins.shape[0], dtype=torch.int32,
@@ -637,8 +641,8 @@ def build_path_histograms(bins, stats, split_feat, left_mask, depth: int,
     stats_b = stats[None].expand(depth, *stats.shape).contiguous()
     hist_left = build_histograms_batch(
         bins if hist_bins is None else hist_bins, torch.stack(idx_levels),
-        stats_b, half, n_bins)
-    leaf_raw = _level_leaf_raw(stats, node_idx, 1 << depth)
+        stats_b, half, n_bins, mesh)
+    leaf_raw = _level_leaf_raw(stats, node_idx, 1 << depth, mesh)
     return hist_left, leaf_raw
 
 

@@ -29,6 +29,7 @@ the bags it solved.  WDL reads both planes and trains through
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -51,9 +52,7 @@ from ..train.nn_trainer import (TrainSettings, train_ensemble,
 from ..train.sampling import member_masks
 from .processor import BasicProcessor
 
-#: what a mesh leaves out of NN/LR/SVM and WDL training (ROADMAP Queue 1)
-_MESH_ELASTIC_ITEM = ("item 12 (multi-device: the elastic plane, the "
-                      "streamed combine and the kernel SVM solve)")
+#: what a mesh leaves out of WDL training (ROADMAP Queue 1)
 _MESH_WDL_ITEM = ("item 12 (multi-device: WDL's row-sharded tables and "
                   "serve copies)")
 
@@ -248,12 +247,7 @@ class TrainProcessor(BasicProcessor):
             raise ValueError("grid search is not supported with "
                              "ONEVSALL multi-class")
         shards = self._open_shards(self.paths.norm_dir)
-        from ..parallel.mesh import device_mesh
-        meshed = device_mesh().size > 1
         if self._use_streaming(shards, shards.schema):
-            if meshed:
-                raise _not_ported("streamed NN/LR/SVM training on a mesh",
-                                  _MESH_ELASTIC_ITEM)
             return self._train_nn_streamed(alg, shards, K, ova)
         with self.phase("load_data"):
             data = shards.load_all()
@@ -270,9 +264,8 @@ class TrainProcessor(BasicProcessor):
                  self.device, n, d)
         if alg == Algorithm.SVM and str((mc.train.params or {}).get(
                 "Kernel", "linear")).lower() != "linear":
-            if meshed:
-                raise _not_ported("kernel SVM training on a mesh",
-                                  _MESH_ELASTIC_ITEM)
+            # a local-scale solve: on a mesh every rank solves the whole
+            # plane, as the reference's processes do
             return self._train_kernel_svm(x, y, w, column_nums,
                                           feature_names)
 
@@ -385,13 +378,15 @@ class TrainProcessor(BasicProcessor):
                            ova: bool) -> int:
         """The streamed counterpart of the resident NN family: windows
         flow through ``train_ensemble_streamed``; sampling masks are
-        stateless hashes of the global row index (``data.streaming``)."""
-        from ..config import environment
+        stateless hashes of the global row index (``data.streaming``).
+        Members go on the mesh's ensemble axis and each window's rows on
+        its data axis; with ``-Dshifu.dcn.elastic`` and a
+        ``SHIFU_PROCESS_ID`` each epoch closes through the elastic step
+        protocol (``parallel/elastic.py``) instead."""
         from ..data.streaming import (ShardStream, mask_fn_from_settings,
                                       stream_window_rows)
-        if environment.get_bool("shifu.dcn.elastic", False):
-            raise _not_ported("elastic multi-controller streamed "
-                              "training (shifu.dcn.elastic)", "item 12")
+        from ..parallel.elastic import elastic_context_for
+        from ..parallel.mesh import device_mesh
         mc = self.model_config
         schema = shards.schema
         column_nums = schema.get("columnNums", [])
@@ -410,13 +405,23 @@ class TrainProcessor(BasicProcessor):
             log.warning("streaming: `train -shuffle` ignored; use "
                         "`norm -shuffle` to reshuffle the materialized "
                         "shards")
-        window_rows = stream_window_rows(4 * (d + 2), 1, shards)
+        # members on the ensemble axis (k-fold folds, or bags; one-vs-all
+        # fans each out per class), rows on the data axis
+        mesh_members = kfold if (not is_gs and kfold and kfold > 1) \
+            else bags
+        mesh = device_mesh(n_ensemble=mesh_members * (K if ova else 1))
+        data_size = mesh.shape["data"]
+        window_rows = stream_window_rows(4 * (d + 2), data_size, shards)
         log.info("train %s STREAMED on %s: %d rows x %d features, window "
-                 "%d rows", alg.name, self.device, n_rows, d, window_rows)
+                 "%d rows, mesh %s", alg.name, self.device, n_rows, d,
+                 window_rows, mesh.shape)
+        # grid trials stay synchronous: their step ids would collide
+        ectx = None if is_gs else elastic_context_for(self.dir)
         os.makedirs(self.paths.tmp_models_dir, exist_ok=True)
         t0 = time.time()
         results = []
-        with open(self.paths.progress_path, "w") as pf:
+        with open(self.paths.progress_path, "w") as pf, \
+                ectx if ectx is not None else contextlib.nullcontext():
             runs = [[t] for t in range(len(trials))] if is_gs \
                 else [list(range(bags))]
             for run in runs:
@@ -459,11 +464,19 @@ class TrainProcessor(BasicProcessor):
                     member_classes = [k for _ in range(n_members)
                                       for k in range(K)]
                     n_members *= K
-                # full batch: the tail window shrinks to a remainder rung;
-                # minibatch slices keep the window's fixed edges
+                # full batch: the tail window shrinks to a remainder rung
+                # (a multiple of the data axis); minibatch slices keep the
+                # window's fixed edges
                 stream = ShardStream(
                     shards, ("x", "y", "w"), window_rows,
-                    remainder_multiple=1 if settings.batch_size == 0 else 0)
+                    remainder_multiple=data_size
+                    if settings.batch_size == 0 else 0)
+                run_elastic = ectx
+                if ectx is not None and settings.batch_size != 0:
+                    log.warning("elastic mode needs full-batch streaming "
+                                "(MiniBatchs=0); this run stays "
+                                "synchronous")
+                    run_elastic = None
                 with self.phase("train"):
                     res = train_ensemble_streamed(
                         stream, spec, settings, n_members, mask_fn,
@@ -471,7 +484,8 @@ class TrainProcessor(BasicProcessor):
                             spec, n_members, alg, settings),
                         progress=self._progress_fn(pf, run),
                         checkpoint=self._checkpoint_fn(spec, alg),
-                        member_classes=member_classes, device=self.device)
+                        member_classes=member_classes, device=self.device,
+                        mesh=mesh, elastic=run_elastic)
                 results.append((run, spec, res,
                                 [run_params] if is_gs else run_params))
         with self.phase("save_models"):

@@ -50,6 +50,13 @@ windows through a ``data.streaming.ResidentCache`` (the windows that fit
 from the mmap'd plane), GBT's disk tail coarse-to-fine or by exact
 per-level sweeps, RF's in super-batches of trees a sweep.  Members,
 one-vs-all classes and OVA x bagging run as sequential streamed jobs.
+
+On a mesh (``parallel.mesh``) the single GBT, RF and DT train resident or
+streamed with their rows split over the data axis and the one-rank forest
+bit for bit: the sharded B1/B2 (the kernel's int64 raw mode, one exact
+all_reduce, the flush) inside the growth and the window loop.  Bagged,
+k-fold, grid, one-vs-all and native multi-class runs on a mesh raise,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -71,10 +78,11 @@ from ..config.model_config import Algorithm
 from ..data.shards import bins_wire_dtype
 from ..models import tree as tree_model
 from ..ops import prng
+from ..ops import tree as tree_ops
 from ..parallel import mesh as meshlib
 from ..ops.hashing import hash_poisson_traced, row_key_i64, thresholds_i64
 from ..ops.hist import widen_bins
-from ..ops.tree import (TreeArrays, _left_child_index, _level_leaf_raw,
+from ..ops.tree import (TreeArrays, _left_child_index,
                         _subtract, best_splits, build_histograms,
                         build_histograms_batch, build_path_histograms,
                         cap_splits_by_leaves, forest_predictions,
@@ -233,14 +241,23 @@ def _gbt_update(y, tw, vw, f, lv, leaf_glob, settings: DTSettings):
 
 
 def gbt_round(bins, y, tw, vw, f, fa, cat, settings: DTSettings,
-              n_bins: int, impurity: str, has_cat: bool):
+              n_bins: int, impurity: str, has_cat: bool, mesh=None):
     """One GBT tree end to end on the device: residual grad -> grow ->
     score update -> train/valid error.  Returns (split_feat, left_mask,
-    leaf_value, gain_fi, f2, train_err, valid_err), all device tensors."""
+    leaf_value, gain_fi, f2, train_err, valid_err), all device tensors.
+    On a ``mesh`` the rows are this rank's block and the errors every
+    rank's (float64 sums, one all_reduce)."""
     sf, lm, lv, gfi, leaf_glob = grow_tree(
         bins, _gbt_stats(y, tw, f, settings.loss), cat, fa, n_bins,
         settings.depth, impurity, settings.min_instances, settings.min_gain,
-        settings.max_leaves, has_cat)
+        settings.max_leaves, has_cat, mesh=mesh)
+    if meshlib.data_sharded(mesh):
+        f2 = f + settings.learning_rate * lv[leaf_glob.long()]
+        s = meshlib.all_reduce(mesh, _error_sums(
+            _per_row_loss(y, f2, settings.loss), tw, vw, torch.float64))
+        return sf, lm, lv, gfi, f2, \
+            (s[0] / s[1].clamp_min(1e-9)).float(), \
+            (s[2] / s[3].clamp_min(1e-9)).float()
     f2, tr, va = _gbt_update(y, tw, vw, f, lv, leaf_glob, settings)
     return sf, lm, lv, gfi, f2, tr, va
 
@@ -918,10 +935,12 @@ class _WindowCopier:
 
 
 def _gbt_window_hist(hist, bins_w, y_w, tw_w, f_w, sf, lm, n_nodes: int,
-                     n_bins: int, level: int, loss: str, left: bool = False):
+                     n_bins: int, level: int, loss: str, left: bool = False,
+                     mesh=None):
     """Streamed level step: the window's rows find their level-local node
     by walking the partial tree, then add their gradient stats to the
-    running ``hist`` (B1 on the card).  ``left`` accumulates the LEFT
+    running ``hist`` (B1 on the card; on a ``mesh`` the sharded B1 over
+    every rank's block of the window).  ``left`` accumulates the LEFT
     children only (parent-slot indexed; :func:`_derive_level` derives the
     right ones once the level's windows are summed)."""
     node_idx = node_index_at_level(sf, lm, bins_w, level)
@@ -929,7 +948,7 @@ def _gbt_window_hist(hist, bins_w, y_w, tw_w, f_w, sf, lm, n_nodes: int,
         node_idx = _left_child_index(node_idx)
     return hist + build_histograms(bins_w, node_idx,
                                    _gbt_stats(y_w, tw_w, f_w, loss),
-                                   n_nodes, n_bins)
+                                   n_nodes, n_bins, mesh)
 
 
 def _derive_level(full_prev, hl, feat_prev):
@@ -939,11 +958,12 @@ def _derive_level(full_prev, hl, feat_prev):
 
 
 def _gbt_window_leaf_raw(acc, bins_w, y_w, tw_w, f_w, sf, lm, depth: int,
-                         loss: str):
-    """The bottom level's raw leaf sums for one window (B1 on the card)."""
+                         loss: str, mesh=None):
+    """The bottom level's raw leaf sums for one window (B1 on the card,
+    sharded on a ``mesh``)."""
     node_idx = node_index_at_level(sf, lm, bins_w, depth)
-    return acc + _level_leaf_raw(_gbt_stats(y_w, tw_w, f_w, loss), node_idx,
-                                 1 << depth)
+    return acc + tree_ops._level_leaf_raw(
+        _gbt_stats(y_w, tw_w, f_w, loss), node_idx, 1 << depth, mesh)
 
 
 def _set_bottom_leaves(lv, raw, depth: int, n_classes: int = 0):
@@ -961,7 +981,12 @@ def _blank_tree(total: int, n_bins: int, dev, n_classes: int = 0):
                         dtype=torch.float32, device=dev))
 
 
-def _error_sums(per, tw, vw):
+def _error_sums(per, tw, vw, dtype=None):
+    """[loss, weight, loss, weight] sums of the train and valid weights;
+    ``dtype`` float64 for a mesh rank's rows (summed over the data group
+    later)."""
+    if dtype is not None:
+        per, tw, vw = per.to(dtype), tw.to(dtype), vw.to(dtype)
     return torch.stack([(per * tw).sum(), tw.sum(), (per * vw).sum(),
                         vw.sum()])
 
@@ -971,7 +996,7 @@ def _gbt_tail_head(bins, y, tw, vw, f, sf_p, lm_p, lv_p, fa, cat, lr, mi,
                    mg, tail_extra, valid_upto: int, n_bins: int, depth: int,
                    impurity: str, loss: str, max_leaves: int = 0,
                    has_cat: bool = True, has_prev: bool = True,
-                   cand_k: int = 0):
+                   cand_k: int = 0, mesh=None):
     """The coarse-to-fine tree's RESIDENT head: the previous tree's score
     update on the coalesced resident block (and its error sums), then the
     COARSE tree grown on the resident rows alone, recording its per-level
@@ -980,17 +1005,20 @@ def _gbt_tail_head(bins, y, tw, vw, f, sf_p, lm_p, lv_p, fa, cat, lr, mi,
     top-K candidate columns (coarse gains, coarse split columns forced in,
     sorted) and narrows the recorded histograms to them.  ``tail_extra``
     is the previous pass's exact tail evidence (:func:`_tail_extras`),
-    valid through level ``valid_upto``."""
+    valid through level ``valid_upto``.  On a ``mesh`` the block is this
+    rank's part of every rank's resident rows and the error sums are
+    float64."""
+    dt = torch.float64 if meshlib.data_sharded(mesh) else None
     if has_prev:
         f = f + lr * predict_tree(sf_p, lm_p, lv_p, bins, depth)
-        sums = _error_sums(_per_row_loss(y, f, loss), tw, vw)
+        sums = _error_sums(_per_row_loss(y, f, loss), tw, vw, dt)
     else:
-        sums = torch.zeros(4, dtype=torch.float32, device=bins.device)
+        sums = torch.zeros(4, dtype=dt or torch.float32, device=bins.device)
     sf_c, lm_c, _, gfi_c, _, hist_left, leaf_raw = grow_tree(
         bins, _gbt_stats(y, tw, f, loss), cat, fa, n_bins, depth, impurity,
         mi, mg, max_leaves, has_cat, record_hists=True,
         tail_extra=tail_extra, prev_sf=sf_p, prev_lm=lm_p,
-        valid_upto=valid_upto)
+        valid_upto=valid_upto, mesh=mesh)
     if cand_k > 0:
         forced = torch.zeros_like(gfi_c).index_add_(
             0, sf_c.clamp_min(0).long(),
@@ -1019,19 +1047,22 @@ def _tail_extras(hl_acc, hl_res, cand_idx, c: int, cand: bool = False):
 def _gbt_tail_window_pass(hist_left, leaf_raw, sums, bins_w, y_w, tw_w,
                           vw_w, f_w, sf_p, lm_p, lv_p, sf_c, lm_c,
                           cand_idx, lr, n_bins: int, depth: int, loss: str,
-                          has_prev: bool = True, cand: bool = False):
+                          has_prev: bool = True, cand: bool = False,
+                          mesh=None):
     """ONE disk pass feeds everything, a tail window at a time: the
     previous tree's score update and error sums, then every level's
     histograms of the current tree along the speculated structure and the
     bottom leaf sums (:func:`build_path_histograms`, one B2 launch at TB
-    = depth)."""
+    = depth; sharded over every rank's block of the window on a
+    ``mesh``)."""
     if has_prev:
         f_w = f_w + lr * predict_tree(sf_p, lm_p, lv_p, bins_w, depth)
-        sums = sums + _error_sums(_per_row_loss(y_w, f_w, loss), tw_w, vw_w)
+        sums = sums + _error_sums(_per_row_loss(y_w, f_w, loss), tw_w, vw_w,
+                                  sums.dtype)
     hist_bins = bins_w.index_select(1, cand_idx) if cand else None
     hl, lraw = build_path_histograms(bins_w, _gbt_stats(y_w, tw_w, f_w, loss),
                                      sf_c, lm_c, depth, n_bins,
-                                     hist_bins=hist_bins)
+                                     hist_bins=hist_bins, mesh=mesh)
     return hist_left + hl, leaf_raw + lraw, sums, f_w
 
 
@@ -1173,11 +1204,12 @@ def _rf_tail_bags(idx, keys, th, n: int, poisson: bool):
 def _rf_window_hist_batch(hist_b, bins_w, y_w, w_w, idx, keys, th, sf_b,
                           lm_b, n_nodes: int, n_bins: int, level: int,
                           n_classes: int = 0, left: bool = False,
-                          poisson: bool = True):
+                          poisson: bool = True, mesh=None):
     """A tree batch's level histograms over ONE window in ONE kernel B2
-    launch (the bins shared by the batch), added in place into ``hist_b``
-    (the window order fixes the f32 sums).  Bags hash on the device;
-    ``left`` accumulates left children only."""
+    launch (the bins shared by the batch; sharded over every rank's block
+    of the window on a ``mesh``), added in place into ``hist_b`` (the
+    window order fixes the f32 sums).  Bags hash on the device; ``left``
+    accumulates left children only."""
     bags_b = _rf_tail_bags(idx, keys, th, w_w.shape[0], poisson)
     node_b = [node_index_at_level(sf_b[t], lm_b[t], bins_w, level)
               for t in range(sf_b.shape[0])]
@@ -1186,28 +1218,30 @@ def _rf_window_hist_batch(hist_b, bins_w, y_w, w_w, idx, keys, th, sf_b,
     return hist_b.add_(build_histograms_batch(
         bins_w, torch.stack(node_b),
         _rf_stats_from_bag(y_w, w_w, bags_b, n_classes).contiguous(),
-        n_nodes, n_bins))
+        n_nodes, n_bins, mesh))
 
 
 def _rf_window_leaf_batch(raw_b, bins_w, y_w, w_w, idx, keys, th, sf_b,
                           lm_b, depth: int, n_classes: int = 0,
-                          poisson: bool = True):
-    """A tree batch's bottom-level raw leaf sums over one window."""
+                          poisson: bool = True, mesh=None):
+    """A tree batch's bottom-level raw leaf sums over one window (a
+    sharded B1 a tree on a ``mesh``)."""
     stats_b = _rf_stats_from_bag(
         y_w, w_w, _rf_tail_bags(idx, keys, th, w_w.shape[0], poisson),
         n_classes)
     return raw_b + torch.stack([
-        _level_leaf_raw(stats_b[t], node_index_at_level(
-            sf_b[t], lm_b[t], bins_w, depth), 1 << depth)
+        tree_ops._level_leaf_raw(stats_b[t], node_index_at_level(
+            sf_b[t], lm_b[t], bins_w, depth), 1 << depth, mesh)
         for t in range(sf_b.shape[0])])
 
 
 def _gbt_window_update(sums_in, bins_w, y_w, tw_w, vw_w, f_w, sf, lm, lv,
                        lr, depth: int, loss: str):
-    """A window's score update by one tree, and its error sums."""
+    """A window's score update by one tree, and its error sums (in the
+    dtype of ``sums_in``)."""
     f2 = f_w + lr * predict_tree(sf, lm, lv, bins_w, depth)
     return f2, sums_in + _error_sums(_per_row_loss(y_w, f2, loss), tw_w,
-                                     vw_w)
+                                     vw_w, sums_in.dtype)
 
 
 def _rf_window_update(sums_in, y_w, w_w, bag_w, oob_sum_w, oob_cnt_w, pred,
@@ -1232,9 +1266,12 @@ def _rf_window_update(sums_in, y_w, w_w, bag_w, oob_sum_w, oob_cnt_w, pred,
         else:
             per_v = _per_row_loss(y_w, oob_pred, loss)
             per_t = _per_row_loss(y_w, pred, loss)
-    wv = w_w * seen
+    wv, w_s = w_w * seen, w_w
+    if sums_in.dtype != per_v.dtype:        # a mesh rank's float64 sums
+        per_v, per_t, wv, w_s = (t.to(sums_in.dtype)
+                                 for t in (per_v, per_t, wv, w_w))
     return oob_sum2, oob_cnt2, sums_in + torch.stack(
-        [(per_v * wv).sum(), wv.sum(), (per_t * w_w).sum(), w_w.sum()])
+        [(per_v * wv).sum(), wv.sum(), (per_t * w_s).sum(), w_s.sum()])
 
 
 def _rf_window_update_batch(sums_b, bins_w, y_w, w_w, idx, keys, th,
@@ -1337,26 +1374,66 @@ def _stream_masks(idx: np.ndarray, n_valid: int, w_w: np.ndarray,
     return (w * ~vmask).astype(np.float32), (w * vmask).astype(np.float32)
 
 
-def _window_f(f: np.ndarray, win) -> np.ndarray:
+def _window_f(f: np.ndarray, win, mesh=None) -> np.ndarray:
     """A window's slice of a per-row host cache (scores, or per-class
-    votes), zero past the plane's end."""
-    s = win.start
-    e = min(s + win.rows, len(f))
-    out = np.zeros((win.rows,) + f.shape[1:], np.float32)
-    out[:e - s] = f[s:e]
+    votes), zero past the plane's end; on a ``mesh`` this rank's block of
+    it."""
+    b0, b1 = _block(mesh, win.rows)
+    s = win.start + b0
+    e = min(win.start + b1, len(f))
+    out = np.zeros((b1 - b0,) + f.shape[1:], np.float32)
+    out[:max(0, e - s)] = f[s:e]
     return out
 
 
+def _block(mesh, rows: int) -> Tuple[int, int]:
+    """This rank's rows [b0, b1) of a window of ``rows`` rows: all of them
+    outside a mesh (the one place that splits a window)."""
+    return mesh.row_block(rows) if meshlib.data_sharded(mesh) \
+        else (0, rows)
+
+
+def _own_rows(win, mesh) -> Tuple[int, int]:
+    """(global first row, count) of this rank's REAL rows of a window."""
+    b0, b1 = _block(mesh, win.rows)
+    return win.start + b0, max(0, min(b1, win.n_valid) - b0)
+
+
+def _prepared_block(win, arrays: Dict[str, np.ndarray], bins, copier,
+                    n_bins: int, mesh, extra=None, sums=None):
+    """A window's host rows cut to this rank's block and copied to the
+    device as one :class:`PreparedWindow`; on a mesh its ``cache_bytes``
+    is the whole window's (the one-rank residency budget)."""
+    from ..data.streaming import PreparedWindow
+    b0, b1 = _block(mesh, win.rows)
+    sharded = meshlib.data_sharded(mesh)
+    if sharded:
+        arrays = {k: a[b0:b1] for k, a in arrays.items()}
+        bins = bins[b0:b1]
+    dev, sync = copier(arrays, bins, n_bins, extra)
+    item = PreparedWindow(win.start, win.n_valid, win.rows,
+                          win.index[b0:b1] if sharded else win.index, dev,
+                          on_consume=sync, sums=sums)
+    if sharded:
+        per_row = sum(a.nbytes for k, a in dev.items() if k != "f_prep") \
+            / max(b1 - b0, 1)
+        item.cache_bytes = int(round(per_row * win.rows))
+    return item
+
+
 def _gbt_prepare(copier: _WindowCopier, valid_rate: float, seed: int,
-                 n_bins: int, y_transform=None, mask_fn=None, f_ref=None):
+                 n_bins: int, y_transform=None, mask_fn=None, f_ref=None,
+                 mesh=None):
     """The streamed GBT's window hook (prep thread): hash train/valid
     masks, copy y/tw/vw in one copy and the bins in the wire dtype.
     ``y_transform`` maps the raw targets (one-vs-all); ``mask_fn(index,
     targets) -> (train_w, valid_w)`` replaces the plain split (members).
     ``f_ref`` points at the host score cache: once set, a window's score
     slice ships as ``f_prep`` from the prep thread, off the consumer's
-    path (a slice is written only after its window was consumed)."""
-    from ..data.streaming import PreparedWindow
+    path (a slice is written only after its window was consumed).  The
+    window's [sum(tw * y), sum(tw)] ride along in float64 (the prior's
+    sums: the same on every rank of a mesh, which copies its block
+    only)."""
 
     def prep(win):
         y_raw = np.asarray(win.arrays["y"], np.float32)
@@ -1372,20 +1449,22 @@ def _gbt_prepare(copier: _WindowCopier, valid_rate: float, seed: int,
         y = y_raw if y_transform is None \
             else np.asarray(y_transform(y_raw), np.float32)
         fh = f_ref.get("f") if f_ref is not None else None
-        dev, sync = copier({"y": y, "tw": tw, "vw": vw}, win.arrays["bins"],
-                           n_bins, None if fh is None
-                           else {"f_prep": _window_f(fh, win)})
-        return PreparedWindow(win.start, win.n_valid, win.rows, win.index,
-                              dev, on_consume=sync)
+        sums = np.array([np.sum(tw * y, dtype=np.float64),
+                         np.sum(tw, dtype=np.float64)])
+        return _prepared_block(win, {"y": y, "tw": tw, "vw": vw},
+                               win.arrays["bins"], copier, n_bins, mesh,
+                               None if fh is None
+                               else {"f_prep": _window_f(fh, win, mesh)},
+                               sums)
     return prep
 
 
 def _rf_prepare(copier: _WindowCopier, n_bins: int, y_transform=None,
-                mask_fn=None):
+                mask_fn=None, mesh=None):
     """The streamed RF's window hook: zero weights past ``n_valid``, a
     member's stateless row sample multiplied in (``mask_fn``), y and w in
-    one copy, the bins in the wire dtype."""
-    from ..data.streaming import PreparedWindow
+    one copy, the bins in the wire dtype (this rank's block on a
+    ``mesh``)."""
 
     def prep(win):
         w = np.asarray(win.arrays["w"], np.float32).copy()
@@ -1395,18 +1474,48 @@ def _rf_prepare(copier: _WindowCopier, n_bins: int, y_transform=None,
             w *= mask_fn(win.index, y)[0].astype(np.float32)
         if y_transform is not None:
             y = np.asarray(y_transform(y), np.float32)
-        dev, sync = copier({"y": y, "w": w}, win.arrays["bins"], n_bins)
-        return PreparedWindow(win.start, win.n_valid, win.rows, win.index,
-                              dev, on_consume=sync)
+        return _prepared_block(win, {"y": y, "w": w}, win.arrays["bins"],
+                               copier, n_bins, mesh)
     return prep
 
 
-def _init_score_from_sums(sums, loss: str):
-    """The GBT prior from device [sum(w*y), sum(w)] f32 sums."""
-    prior = sums[0] / sums[1].clamp_min(1e-9)
+def _own_rows_of_plane(n_rows: int, window_rows: int, mesh):
+    """[(global first row, count)] of this rank's real rows of every
+    window of a plane cut into full windows of ``window_rows``."""
+    out = []
+    for start in range(0, n_rows, window_rows):
+        b0, b1 = _block(mesh, window_rows)
+        nv = min(window_rows, n_rows - start)
+        out.append((start + b0, max(0, min(b1, nv) - b0)))
+    return out
+
+
+def _gather_scores(mesh, f: np.ndarray, own, resident,
+                   device) -> np.ndarray:
+    """Every row's score for a checkpoint: this rank's rows of the host
+    cache ``f`` (``own`` [(first, count)] of them), overwritten by the
+    device blocks of ``resident`` [(first, count, tensor)], and on a mesh
+    the other ranks' rows through one all_reduce of the bits on
+    ``device`` (each row is one rank's; the others add zero words)."""
+    sharded = meshlib.data_sharded(mesh)
+    out = np.zeros(len(f), np.float32) if sharded else f.copy()
+    for g0, cnt in own if sharded else ():
+        out[g0:g0 + cnt] = f[g0:g0 + cnt]
+    for g0, cnt, t in resident:
+        out[g0:g0 + cnt] = t[:cnt].cpu().numpy()
+    if sharded:
+        bits = torch.from_numpy(out.view(np.int32)).to(device)
+        out = meshlib.all_reduce(mesh, bits).cpu().numpy().view(np.float32)
+    return out
+
+
+def _init_score_from_sums(sums, loss: str) -> float:
+    """The GBT prior from host float64 [sum(w*y), sum(w)] sums, by the
+    resident :func:`train_gbt`'s formula."""
+    prior = float(sums[0] / max(sums[1], 1e-9))
     if loss == "log":
-        p = prior.clamp(1e-6, 1 - 1e-6)
-        return torch.log(p / (1 - p))
+        prior = float(np.clip(prior, 1e-6, 1 - 1e-6))
+        return float(np.log(prior / (1 - prior)))
     return prior
 
 
@@ -1442,7 +1551,7 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                        y_transform=None, mask_fn=None,
                        init_scores: Optional[np.ndarray] = None,
                        device: Optional[torch.device] = None,
-                       ) -> ForestResult:
+                       mesh=None) -> ForestResult:
     """Out-of-core GBT over a ``ResidentCache`` (reference
     ``train_gbt_streamed``; ``MemoryDiskFloatMLDataSet.java:54-99``): the
     windows that fit ``cache_budget`` (``deviceCacheBytes``, 1 GiB) stay on
@@ -1463,9 +1572,20 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
 
     Coarse-to-fine and exact give bit-identical forests on one window
     partition; a tail run matches the fully-resident one in structure,
-    its leaves f32-equivalent (the histograms sum in other groups)."""
+    its leaves f32-equivalent (the histograms sum in other groups).
+
+    On a ``mesh`` whose data axis splits the rows (every rank streams the
+    same windows, ``window_rows`` a multiple of the data axis), each rank
+    keeps its block of every window's rows: B1 and B2 run in their
+    sharded forms (the kernel's raw mode, one exact all_reduce, the
+    flush), so every histogram and leaf sum is one rank's bit for bit; the
+    scores are the rank's rows, the error sums every rank's in float64;
+    the residency budget counts whole windows.  The forest, ``disk_passes``,
+    ``tail_sweeps`` and ``bytes_read`` are one rank's."""
     from ..data.streaming import PreparedWindow, ResidentCache
     dev = torch.device(device if device is not None else "cuda")
+    sharded = meshlib.data_sharded(mesh)
+    sum_dt = torch.float64 if sharded else torch.float32
     n_rows = stream.num_rows
     total = n_tree_nodes(settings.depth)
     trees: List[TreeArrays] = list(init_trees or [])
@@ -1483,32 +1603,26 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
         stream, _default_cache_budget() if cache_budget is None
         else cache_budget,
         _gbt_prepare(_WindowCopier(dev), settings.valid_rate, settings.seed,
-                     n_bins, y_transform, mask_fn, f_ref))
+                     n_bins, y_transform, mask_fn, f_ref, mesh))
 
-    # warm pass: width and prior sums in one sweep, summed on the device
+    # warm pass: the width, and the prior from every window's float64
+    # host sums (the same on every rank)
     c = None
-    sums_d = None
+    prior = np.zeros(2)
     for it in cache.items():
         if c is None:
             c = int(it.arrays["bins"].shape[1])
-        if init_score is None:
-            s = torch.stack([(it.arrays["tw"] * it.arrays["y"]).sum(),
-                             it.arrays["tw"].sum()])
-            sums_d = s if sums_d is None else sums_d + s
+        prior += it.sums
     if c is None:
         raise RuntimeError("streamed GBT: empty shard stream")
     init_d = None
     if init_score is None:
-        init_d = _init_score_from_sums(sums_d, settings.loss)
-        if cache.tail is not None or trees:
-            init_score = float(init_d)
-            init_d = None
+        init_score = _init_score_from_sums(prior, settings.loss)
+        if cache.tail is None and not trees:
+            init_d = torch.tensor(init_score, dtype=torch.float32,
+                                  device=dev)
 
     def init_host() -> float:
-        """The prior as a host float, fetched at most once."""
-        nonlocal init_score
-        if init_score is None:
-            init_score = float(init_d)
         return init_score
 
     cat_np = np.zeros(c, bool) if cat_mask is None \
@@ -1526,14 +1640,14 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
         f_ref["f"] = f
     elif trees:
         # continuous / resume without scores: the restored forest walks
-        # every window through B4 (one launch per window), then the adds
-        # in tree order, as the resident replay
+        # every window (this rank's block) through B4 (one launch per
+        # window), then the adds in tree order, as the resident replay
         for it in cache.items():
             preds = forest_predictions(trees, it.arrays["bins"]).cpu() \
                 .numpy()
-            s, e = it.start, it.start + it.n_valid
+            g0, cnt = _own_rows(it, mesh)
             for p in preds:
-                f[s:e] += settings.learning_rate * p[:it.n_valid]
+                f[g0:g0 + cnt] += settings.learning_rate * p[:cnt]
 
     def window_f(it):
         """Resident windows keep their score slice on the device across
@@ -1542,14 +1656,24 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
             it.arrays.pop("f_prep", None)
             fw = it.arrays.get("f")
             if fw is None:
-                fw = (torch.from_numpy(_window_f(f, it)).to(dev)
+                fw = (torch.from_numpy(_window_f(f, it, mesh)).to(dev)
                       if f is not None
-                      else init_d.expand(it.rows).clone())
+                      else init_d.expand(it.arrays["y"].shape[0]).clone())
                 it.arrays["f"] = fw
             return fw
         fp = it.arrays.pop("f_prep", None)
         return fp if fp is not None else \
-            torch.from_numpy(_window_f(f, it)).to(dev)
+            torch.from_numpy(_window_f(f, it, mesh)).to(dev)
+
+    def write_back(wb) -> None:
+        """Tail windows' updated score blocks into the host cache."""
+        for it, f2 in wb:
+            g0, cnt = _own_rows(it, mesh)
+            f[g0:g0 + cnt] = f2[:cnt].cpu().numpy()
+
+    def all_sums(sums):
+        """Error sums of every rank's rows (float64 on a mesh)."""
+        return meshlib.all_reduce(mesh, sums) if sharded else sums
 
     imp = "friedmanmse" if settings.impurity == "friedmanmse" else "variance"
     pending_fused: List[torch.Tensor] = []
@@ -1592,12 +1716,16 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
     # fully resident: coalesce the windows into ONE device block and run
     # the resident round a tree (the window buffers go with the block)
     mega = None
+    mega_parts = []                 # (first row, count, offset in mega)
     if cache.tail is None:
         items = list(cache.items())
         mega = {k: _concat_rows([it.arrays[k] for it in items])
                 for k in ("bins", "y", "tw", "vw")}
         mega["f"] = _concat_rows([window_f(it) for it in items])
+        off = 0
         for it in items:
+            mega_parts.append(_own_rows(it, mesh) + (off,))
+            off += len(it.index)
             it.arrays.clear()
 
     if mega is None and not replay_stopped and len(trees) < settings.n_trees:
@@ -1607,12 +1735,16 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
         res_rows = cache.resident_rows
         rmega = None
         mega_it = None
+        res_parts = []              # (first row, count, offset in rmega)
         if cache.cached:
             items_r = list(cache.cached)
             rmega = {k: _concat_rows([it.arrays[k] for it in items_r])
                      for k in ("bins", "y", "tw", "vw")}
             rmega["f"] = _concat_rows([window_f(it) for it in items_r])
+            off = 0
             for it in items_r:      # the window buffers live on in the block
+                res_parts.append(_own_rows(it, mesh) + (off,))
+                off += len(it.index)
                 it.arrays.clear()
             mega_it = PreparedWindow(0, res_rows, res_rows,
                                      np.arange(res_rows), rmega,
@@ -1642,7 +1774,7 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                     hist = _gbt_window_hist(
                         hist, it.arrays["bins"], it.arrays["y"],
                         it.arrays["tw"], window_f(it), sf, lm, width,
-                        n_bins, level, settings.loss, left)
+                        n_bins, level, settings.loss, left, mesh)
                     if it.resident:
                         hist_res = hist
                 if left:
@@ -1660,13 +1792,13 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
             for it in sweep_items():
                 raw = _gbt_window_leaf_raw(
                     raw, it.arrays["bins"], it.arrays["y"], it.arrays["tw"],
-                    window_f(it), sf, lm, depth, settings.loss)
+                    window_f(it), sf, lm, depth, settings.loss, mesh)
             return sf, lm, _set_bottom_leaves(lv, raw, depth), fi_add
 
         def update_sweep(sf, lm, lv, want_scores: bool):
             """The previous tree's score update and error sums over every
             window; tail slices write back after the sweep."""
-            sums_dev = torch.zeros(4, dtype=torch.float32, device=dev)
+            sums_dev = torch.zeros(4, dtype=sum_dt, device=dev)
             wb = []
             for it in sweep_items():
                 f2, sums_dev = _gbt_window_update(
@@ -1676,19 +1808,20 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                 if it.resident:
                     it.arrays["f"] = f2
                 else:
-                    wb.append((it.start, it.n_valid, f2))
-            for s, nv, f2 in wb:
-                f[s:s + nv] = f2[:nv].cpu().numpy()
-            return sums_dev, (tail_scores() if want_scores else None)
+                    wb.append((it, f2))
+            write_back(wb)
+            return all_sums(sums_dev), (tail_scores() if want_scores
+                                        else None)
 
         def tail_scores() -> np.ndarray:
             """Every row's score for a checkpoint: the resident block's from
-            the device, the tail's from the host cache."""
-            scores = np.empty(n_rows, np.float32)
-            if rmega is not None:
-                scores[:res_rows] = rmega["f"][:res_rows].cpu().numpy()
-            scores[res_rows:] = f[res_rows:n_rows]
-            return scores
+            the device, the tail's from the host cache (every rank's rows,
+            on a mesh)."""
+            return _gather_scores(
+                mesh, f, _own_rows_of_plane(n_rows, stream.window_rows,
+                                            mesh),
+                [(g0, cnt, rmega["f"][o:]) for g0, cnt, o in res_parts],
+                dev)
 
         use_c2f = (rmega is not None and _tail_coarse_to_fine(dev)
                    and _c2f_feasible(settings, c, n_bins))
@@ -1730,7 +1863,7 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                     settings.min_instances, settings.min_gain,
                     tail_extra if has_prev else None, valid_upto, n_bins,
                     depth, imp, settings.loss, settings.max_leaves, hc,
-                    has_prev, cand_k)
+                    has_prev, cand_k, mesh)
                 hl_acc = hl_res
                 wb = []
                 for it in cache.tail_items():
@@ -1738,8 +1871,9 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                         hl_acc, raw_acc, sums_d, it.arrays["bins"],
                         it.arrays["y"], it.arrays["tw"], it.arrays["vw"],
                         window_f(it), p_sf, p_lm, p_lv, sf_c, lm_c, cand_idx,
-                        lr, n_bins, depth, settings.loss, has_prev, cand_k > 0)
-                    wb.append((it.start, it.n_valid, f2))
+                        lr, n_bins, depth, settings.loss, has_prev, cand_k > 0,
+                        mesh)
+                    wb.append((it, f2))
                 sf_t, lm_t, lv_t, fi_lv, cnt_lv, mism_d, full_lv = \
                     _gbt_tail_select(hl_acc, raw_acc, sf_c, lm_c, cand_idx,
                                      cat, fa, settings.min_instances,
@@ -1747,9 +1881,8 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                                      settings.max_leaves, hc, cand_k > 0)
                 tail_extra = _tail_extras(hl_acc, hl_res, cand_idx, c,
                                           cand_k > 0)
-                for s, nv, f2 in wb:
-                    f[s:s + nv] = f2[:nv].cpu().numpy()
-                small = _pack_small(sums_d, mism_d).cpu().numpy()
+                write_back(wb)
+                small = _pack_small(all_sums(sums_d), mism_d).cpu().numpy()
                 if has_prev:
                     tr_e, va_e = _errors_of(small)
                     history.append((tr_e, va_e))
@@ -1861,7 +1994,7 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
         fa = torch.from_numpy(_feat_subset(settings, c, ti)).to(dev)
         sf, lm, lv, gfi, mega["f"], tr, va = gbt_round(
             mega["bins"], mega["y"], mega["tw"], mega["vw"], mega["f"], fa,
-            cat, settings, n_bins, imp, hc)
+            cat, settings, n_bins, imp, hc, mesh)
         one = torch.ones_like(tr)
         pending_fused.append(_pack_streamed(sf, lm, lv, gfi,
                                             torch.stack([tr, one, va, one])))
@@ -1894,8 +2027,10 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
         if checkpoint_fn and settings.checkpoint_every and \
                 (ti + 1) % min(settings.checkpoint_every, 8) == 0:
             flush_progress()
-            checkpoint_fn(trees, history, init_host(),
-                          mega["f"][:n_rows].cpu().numpy())
+            checkpoint_fn(trees, history, init_host(), _gather_scores(
+                mesh, np.zeros(n_rows, np.float32), [],
+                [(g0, cnt, mega["f"][o:]) for g0, cnt, o in mega_parts],
+                dev))
     flush_progress()
     return result()
 
@@ -1903,19 +2038,27 @@ def train_gbt_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
 
 
 def _rf_round_streamed(bins, y, w, idx, key, th, oob_sum, oob_cnt, fa, cat,
-                       settings: DTSettings, n_bins: int, has_cat: bool):
+                       settings: DTSettings, n_bins: int, has_cat: bool,
+                       mesh=None):
     """The streamed RF's resident round: the tree's hash bag replayed on
     the device (``ops.hashing``, bit-identical to the host stream), then
-    the resident RF round; returns (packed row, oob_sum, oob_cnt)."""
+    the resident RF round; returns (packed row, oob_sum, oob_cnt).  On a
+    ``mesh`` the rows are this rank's and the errors every rank's."""
     bag = hash_poisson_traced(idx, key, th) if settings.poisson_bagging \
         else torch.ones_like(w)
     k = settings.n_classes
+    sharded = meshlib.data_sharded(mesh)
     sf, lm, lv, gfi, leaf_glob = grow_tree(
         bins, _rf_stats_from_bag(y, w, bag, k), cat, fa, n_bins,
         settings.depth, settings.impurity, settings.min_instances,
-        settings.min_gain, settings.max_leaves, has_cat, k)
+        settings.min_gain, settings.max_leaves, has_cat, k, mesh=mesh)
     oob_sum, oob_cnt, tr, va = _rf_oob_update(
-        lv[leaf_glob.long()], y, w, bag, oob_sum, oob_cnt, settings.loss, k)
+        lv[leaf_glob.long()], y, w, bag, oob_sum, oob_cnt, settings.loss, k,
+        sums=sharded)
+    if sharded:
+        e = meshlib.all_reduce(mesh, tr)
+        tr = (e[0] / e[1].clamp_min(1e-9)).float()
+        va = (e[2] / e[3].clamp_min(1e-9)).float()
     one = torch.ones_like(tr)
     return _pack_streamed(sf, lm, lv, gfi, torch.stack([va, one, tr, one])), \
         oob_sum, oob_cnt
@@ -1928,7 +2071,8 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                       start_history: Optional[List] = None,
                       cache_budget: Optional[int] = None,
                       y_transform=None, mask_fn=None,
-                      device: Optional[torch.device] = None) -> ForestResult:
+                      device: Optional[torch.device] = None,
+                      mesh=None) -> ForestResult:
     """Out-of-core RF over a ``ResidentCache`` (reference
     ``train_rf_streamed``): hash Poisson bags per (tree, row) keep bagging
     stateless across sweeps, out-of-bag vote caches (on the device for
@@ -1941,9 +2085,19 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
     more adds the out-of-bag votes, the trees chained in order.  A plane
     that fits the budget coalesces after its first batch and grows the
     rest a tree at a time (the resident round, bags hashed on the
-    device).  Every order gives the same forest bits."""
+    device).  Every order gives the same forest bits.
+
+    On a ``mesh`` as in :func:`train_gbt_streamed`: each rank keeps its
+    block of every window (bags hashed from its rows' global indices, the
+    super-batch's B2 and the leaf sums sharded, the out-of-bag votes its
+    rows', their error sums every rank's); binary forests only."""
     from ..data.streaming import ResidentCache
     dev = torch.device(device if device is not None else "cuda")
+    sharded = meshlib.data_sharded(mesh)
+    if sharded and settings.n_classes > 2:
+        raise _not_ported("native multi-class RF on a mesh",
+                          _MESH_TREES_ITEM)
+    sum_dt = torch.float64 if sharded else torch.float32
     n_rows = stream.num_rows
     total = n_tree_nodes(settings.depth)
     trees: List[TreeArrays] = list(init_trees or [])
@@ -1953,7 +2107,7 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
     cache = ResidentCache(
         stream, _default_cache_budget() if cache_budget is None
         else cache_budget,
-        _rf_prepare(_WindowCopier(dev), n_bins, y_transform, mask_fn))
+        _rf_prepare(_WindowCopier(dev), n_bins, y_transform, mask_fn, mesh))
     c = None
     for win in stream.windows():      # peek the first window for the width
         c = int(win.arrays["bins"].shape[1])
@@ -1991,20 +2145,22 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
         if it.resident:
             pair = it.arrays.get("oob")
             if pair is None:
-                pair = (torch.from_numpy(_window_f(oob_sum, it)).to(dev),
-                        torch.from_numpy(_window_f(oob_cnt, it)).to(dev))
+                pair = (torch.from_numpy(_window_f(oob_sum, it, mesh))
+                        .to(dev),
+                        torch.from_numpy(_window_f(oob_cnt, it, mesh))
+                        .to(dev))
                 it.arrays["oob"] = pair
             return pair
-        return (torch.from_numpy(_window_f(oob_sum, it)).to(dev),
-                torch.from_numpy(_window_f(oob_cnt, it)).to(dev))
+        return (torch.from_numpy(_window_f(oob_sum, it, mesh)).to(dev),
+                torch.from_numpy(_window_f(oob_cnt, it, mesh)).to(dev))
 
     def store_oob(it, osw, ocw) -> None:
         if it.resident:
             it.arrays["oob"] = (osw, ocw)
         else:
-            s, e = it.start, it.start + it.n_valid
-            oob_sum[s:e] = osw[:it.n_valid].cpu().numpy()
-            oob_cnt[s:e] = ocw[:it.n_valid].cpu().numpy()
+            g0, cnt = _own_rows(it, mesh)
+            oob_sum[g0:g0 + cnt] = osw[:cnt].cpu().numpy()
+            oob_cnt[g0:g0 + cnt] = ocw[:cnt].cpu().numpy()
 
     if trees:
         # resume / continuous: the restored forest walks every window
@@ -2015,7 +2171,7 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
             idx = window_idx(it)
             w_w = it.arrays["w"]
             for ti, pred in enumerate(preds):
-                bag = _rf_tail_bags(idx, [tree_key(ti)], th, it.rows,
+                bag = _rf_tail_bags(idx, [tree_key(ti)], th, len(idx),
                                     settings.poisson_bagging)[0]
                 oob = (bag == 0) & (w_w > 0)
                 osw = osw + torch.where(oob[:, None] if mc else oob, pred,
@@ -2068,7 +2224,7 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                 mega["bins"], mega["y"], mega["w"], mega["idx"],
                 tree_key(ti), th, mega["oob_sum"], mega["oob_cnt"],
                 torch.from_numpy(_feat_subset(settings, c, ti)).to(dev),
-                cat, settings, n_bins, hc)
+                cat, settings, n_bins, hc, mesh)
             pending_rf.append(packed)
             if progress and len(pending_rf) >= 8:
                 flush_progress_rf()
@@ -2111,7 +2267,8 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                 hist_b = _rf_window_hist_batch(
                     hist_b, it.arrays["bins"], it.arrays["y"],
                     it.arrays["w"], window_idx(it), keys, th, sf_b, lm_b,
-                    width, n_bins, level, K, left, settings.poisson_bagging)
+                    width, n_bins, level, K, left, settings.poisson_bagging,
+                    mesh)
             hists = list(hist_b.unbind(0))
             if left:
                 hists = _subtract(hists, hist_prev,
@@ -2133,12 +2290,12 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
             raw_b = _rf_window_leaf_batch(
                 raw_b, it.arrays["bins"], it.arrays["y"], it.arrays["w"],
                 window_idx(it), keys, th, sf_b, lm_b, settings.depth, K,
-                settings.poisson_bagging)
+                settings.poisson_bagging, mesh)
         base = (1 << settings.depth) - 1
         for t in range(TB):
             lv_b[t, base:] = leaf_values_from_raw(raw_b[t], K)
         # one more sweep: the batch's votes and error sums, in tree order
-        sums_b = torch.zeros((TB, 4), dtype=torch.float32, device=dev)
+        sums_b = torch.zeros((TB, 4), dtype=sum_dt, device=dev)
         for it in cache.items():
             osw, ocw = window_oob(it)
             osw, ocw, sums_b = _rf_window_update_batch(
@@ -2146,6 +2303,8 @@ def train_rf_streamed(stream, n_bins: int, cat_mask, settings: DTSettings,
                 window_idx(it), keys, th, osw, ocw, sf_b, lm_b, lv_b,
                 settings.depth, settings.loss, K, settings.poisson_bagging)
             store_oob(it, osw, ocw)
+        if sharded:
+            meshlib.all_reduce(mesh, sums_b)
         absorb_rf(torch.stack([
             _pack_streamed(sf_b[t], lm_b[t], lv_b[t], fi_b[t], sums_b[t])
             for t in range(TB)]).cpu().numpy())
@@ -2190,13 +2349,16 @@ def _streamed_result(res: ForestResult, cache, stream) -> ForestResult:
 
 
 # ------------------------------------------------- streamed pipeline glue
-def _tree_stream(shards, params=None):
+def _tree_stream(shards, params=None, mesh=None):
     """A ShardStream with the tree trainers' window geometry (one place:
-    the main streamed path, members and one-vs-all classes agree).
-    ``params`` may carry ``StreamPrefetch``, the prefetch depth."""
+    the main streamed path, members and one-vs-all classes agree), the
+    window rounded up to the ``mesh``'s data axis.  ``params`` may carry
+    ``StreamPrefetch``, the prefetch depth."""
     from ..data.streaming import ShardStream, stream_window_rows
     ncols = len(shards.schema.get("columnNums", [])) or 1
-    window_rows = stream_window_rows(2 * ncols + 8, 1, shards)
+    window_rows = stream_window_rows(
+        2 * ncols + 8, mesh.n_data if meshlib.data_sharded(mesh) else 1,
+        shards)
     return ShardStream(shards, ("bins", "y", "w"), window_rows,
                        prefetch=(params or {}).get("StreamPrefetch"))
 
@@ -2258,7 +2420,7 @@ def _fetch(x: torch.Tensor) -> np.ndarray:
 
 
 #: what a mesh leaves out of the tree trainers (ROADMAP Queue 1)
-_MESH_TREES_ITEM = ("item 12 (multi-device: the streamed, bagged, "
+_MESH_TREES_ITEM = ("item 12 (multi-device: the bagged, k-fold, grid, "
                     "one-vs-all and multi-class tree trainers)")
 
 
@@ -2773,14 +2935,11 @@ def run_tree_training(proc) -> int:
                      len(init_scores), shards.num_rows)
             init_scores = None
         streaming = proc._use_streaming(shards, shards.schema)
-        if streaming and meshlib.data_sharded(mesh):
-            raise _not_ported("streamed tree training on a mesh",
-                              _MESH_TREES_ITEM)
         if streaming:
-            stream = _tree_stream(shards, dict(mc.train.params or {}))
-            log.info("train %s STREAMED on %s: %d rows, window %d rows",
-                     alg.name, proc.device, stream.num_rows,
-                     stream.window_rows)
+            stream = _tree_stream(shards, dict(mc.train.params or {}), mesh)
+            log.info("train %s STREAMED on %s: %d rows, window %d rows, "
+                     "mesh %s", alg.name, proc.device, stream.num_rows,
+                     stream.window_rows, mesh.shape)
         else:
             with proc.phase("load_data"):
                 data = shards.load_all()
@@ -2795,12 +2954,13 @@ def run_tree_training(proc) -> int:
                     stream, n_bins, cat_mask, settings, progress,
                     init_trees=init_trees, init_score=init_score,
                     checkpoint_fn=ckpt_fn, start_history=start_history,
-                    init_scores=init_scores, device=proc.device)
+                    init_scores=init_scores, device=proc.device, mesh=mesh)
             elif streaming:
                 res = train_rf_streamed(
                     stream, n_bins, cat_mask, settings, progress,
                     checkpoint_fn=ckpt_fn, init_trees=init_trees,
-                    start_history=start_history, device=proc.device)
+                    start_history=start_history, device=proc.device,
+                    mesh=mesh)
             elif alg == Algorithm.GBT:
                 res = train_gbt(bins, y, w, n_bins, cat_mask, settings,
                                 progress, init_trees=init_trees,

@@ -44,9 +44,12 @@ Full batch accumulates each window's unnormalised gradient sums on the
 device and steps once an epoch on ``sum(grads) / sum(weights)``; an
 epoch's errors are measured one pass late (on the params entering the
 next epoch) and a closing eval-only pass ends the ledger.  ``MiniBatchs``
-slices each window at edges fixed by the window size.  The reference's
-mesh and elastic combine are ROADMAP item 12.  With telemetry on, each
-epoch counts ``train.epochs`` and its wall in ``train.epoch_s``.
+slices each window at edges fixed by the window size (on multiples of
+the data axis).  On a mesh each rank keeps its block of every window's
+rows and its members; with ``elastic`` (``parallel/elastic.py``) each
+epoch closes through the quorum step protocol instead of the mesh.  With
+telemetry on, each epoch counts ``train.epochs`` and its wall in
+``train.epoch_s``.
 """
 
 from __future__ import annotations
@@ -421,8 +424,8 @@ def _mesh_rows(mesh, n: int, bs: int) -> np.ndarray:
 
 
 def _flat_all_reduce(mesh, grads):
-    """The gradient tree summed over the data group in one f32
-    all_reduce (bf16 gradients round back after the sum)."""
+    """A tree of tensors (gradients, error sums) summed over the data
+    group in one f32 all_reduce (bf16 leaves round back after the sum)."""
     leaves = []
     tree_map(leaves.append, grads)
     flat = meshlib.all_reduce(mesh, torch.cat([g.float().reshape(-1)
@@ -628,7 +631,8 @@ def train_ensemble_streamed(stream, spec: nn_model.NNModelSpec,
                             checkpoint: Optional[Callable[[int, List[Any]],
                                                           None]] = None,
                             member_classes: Optional[List[int]] = None,
-                            device=None) -> EnsembleResult:
+                            device=None, mesh=None,
+                            elastic=None) -> EnsembleResult:
     """Out-of-core ensemble training: one pass over ``stream``'s windows
     an epoch (keys ``x``, ``y``, ``w``); the plane is never resident.
 
@@ -638,29 +642,75 @@ def train_ensemble_streamed(stream, spec: nn_model.NNModelSpec,
     weights, and padded tail rows get weight zero.  ``member_classes``
     (one-vs-all) binarises ``y == class`` for each member on the device.
     Full batch (``batch_size`` 0) is :func:`train_ensemble`'s math up to
-    the order of the sums; a minibatch run updates within each window."""
+    the order of the sums; a minibatch run updates within each window.
+
+    ``mesh`` (``parallel.mesh.device_mesh(n_ensemble=B)``): every rank
+    reads each window and keeps its block of the rows (its block of each
+    minibatch slice, whose edges fall on multiples of the data axis) and
+    its members; full batch all_reduces the epoch's gradient and error
+    sums over the data group once, a minibatch run each slice's gradients,
+    and the ensemble group gathers every member's errors and params for
+    the ledger.
+
+    ``elastic`` (a :class:`parallel.elastic.ElasticContext`) closes each
+    epoch through the quorum step protocol instead: the epoch's
+    unnormalised gradient sums and error sums post as one contribution and
+    the update applies the committed aggregate; an epoch whose close
+    record exists replays from the journal without streaming, and the
+    closing eval-only pass is one more step.  Full batch only."""
+    if elastic is not None and settings.batch_size != 0:
+        raise ValueError("elastic multi-controller training requires the "
+                         "full-batch streamed mode (batch_size=0): the "
+                         "quorum step protocol closes once per epoch")
     dev = resolve_device(device)
     mm_dtype, tf32 = matmul_mode(settings.matmul_precision, dev)
     with _allow_tf32(tf32) if dev.type == "cuda" else \
             contextlib.nullcontext():
         return _train_streamed(stream, spec, settings, bags, mask_fn,
                                init_params_list, progress, checkpoint,
-                               member_classes, dev, mm_dtype)
+                               member_classes, dev, mm_dtype, mesh,
+                               elastic)
+
+
+def _slice_edges(window_rows: int, batch_size: int, multiple: int):
+    """A minibatch run's slices of a window: about ``batch_size`` rows
+    each, edges on multiples of the data axis (reference
+    ``nn_trainer.py:806-817``)."""
+    bs = max(batch_size - batch_size % multiple, multiple)
+    n_slices = max(1, window_rows // bs)
+    edges = [min(window_rows, ((i * window_rows // n_slices) // multiple)
+                 * multiple) for i in range(n_slices)] + [window_rows]
+    return [(s, e) for s, e in zip(edges[:-1], edges[1:]) if e > s]
 
 
 def _train_streamed(stream, spec, settings, bags, mask_fn, init_params_list,
                     progress, checkpoint, member_classes,
-                    dev: torch.device, mm_dtype) -> EnsembleResult:
+                    dev: torch.device, mm_dtype, mesh=None,
+                    elastic=None) -> EnsembleResult:
     from ..data.streaming import PreparedWindow
     from .dt_trainer import _WindowCopier
 
     key, opt, precision, stacked, opt_state = _init_stack(
         spec, settings, bags, init_params_list, dev)
     dropout, l1, l2 = settings.dropout_rate, settings.l1, settings.l2
+    sharded = meshlib.data_sharded(mesh)
+    ens = mesh is not None and mesh.n_ensemble > 1
+    m0, m1 = mesh.member_block(bags) if ens else (0, bags)
+    d_idx = mesh.coords[1] if sharded else 0
+    n_data = mesh.n_data if sharded else 1
+    full_stacked = stacked
+    if ens:
+        stacked = tree_map(lambda t: t[m0:m1].clone(), stacked)
+        opt_state = tree_map(lambda t: t[m0:m1].clone(), opt_state)
     cls = None if member_classes is None else torch.tensor(
-        member_classes, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
+        member_classes[m0:m1], dtype=torch.float32,
+        device=dev).reshape(-1, 1, 1)
     # mixed accumulates the cross-window gradient sums in f32
     acc_dtype = torch.float32 if precision == "mixed" else None
+
+    def whole(tree):
+        """Every member's tensors of a member-split tree."""
+        return meshlib.gather_members(mesh, tree) if ens else tree
 
     def targets(yb: torch.Tensor) -> torch.Tensor:
         """[N, 1] shared, or [B, N, 1] binarised per member (OVA)."""
@@ -672,7 +722,7 @@ def _train_streamed(stream, spec, settings, bags, mask_fn, init_params_list,
         return torch.stack([(per_row * tw).sum(-1), tw.sum(-1),
                             (per_row * vw).sum(-1), vw.sum(-1)], dim=1)
 
-    def grad_eval_window(stacked, win, rngs):
+    def grad_eval_window(stacked, win, rngs, row0: int):
         """The window's unnormalised gradient sums and its [B, 4] error
         sums (without dropout), for the full-batch step."""
         params = [{k: v.detach().requires_grad_(True)
@@ -683,7 +733,7 @@ def _train_streamed(stream, spec, settings, bags, mask_fn, init_params_list,
             pred = nn_model.forward(params, spec, win["x"],
                                     dropout_rate=dropout,
                                     rng=rngs if dropout > 0 else None,
-                                    matmul_dtype=mm_dtype)
+                                    matmul_dtype=mm_dtype, row0=row0)
             per_row = nn_model.per_row_loss(pred, ym, spec)
             flat = torch.autograd.grad((per_row * tw).sum(), leaves)
         with torch.no_grad():
@@ -715,93 +765,187 @@ def _train_streamed(stream, spec, settings, bags, mask_fn, init_params_list,
              for gl, pl in zip(grad_acc, stacked)]
         return step(stacked, opt_state, g, lr_scale)
 
-    def minibatch(stacked, opt_state, win, s, e, rngs, lr_scale):
+    def minibatch(stacked, opt_state, win, s, e, rngs, lr_scale, si=0,
+                  row0: int = 0):
         params = [{k: v.detach().requires_grad_(True)
                    for k, v in layer.items()} for layer in stacked]
         leaves = [layer[k] for layer in params for k in ("b", "w")]
         ym = targets(win["y"][s:e])
         with torch.enable_grad():
-            loss = nn_model.weighted_loss(
-                params, spec, win["x"][s:e], ym, win["tw"][:, s:e], l2=l2,
-                l1=l1, dropout_rate=dropout,
-                rng=rngs if dropout > 0 else None, matmul_dtype=mm_dtype)
+            if sharded:
+                # this rank's rows over every rank's slice weight, the
+                # regularization on one rank: the data group's gradient
+                # sum is the slice's gradient
+                pred = nn_model.forward(
+                    params, spec, win["x"][s:e], dropout_rate=dropout,
+                    rng=rngs if dropout > 0 else None,
+                    matmul_dtype=mm_dtype, row0=row0)
+                loss = (nn_model.per_row_loss(pred, ym, spec)
+                        * win["tw"][:, s:e]).sum(dim=-1) / win["den"][:, si]
+                reg = nn_model.regularization(params, l2, l1) \
+                    if d_idx == 0 else None
+                if reg is not None:
+                    loss = loss + reg
+            else:
+                loss = nn_model.weighted_loss(
+                    params, spec, win["x"][s:e], ym, win["tw"][:, s:e],
+                    l2=l2, l1=l1, dropout_rate=dropout,
+                    rng=rngs if dropout > 0 else None,
+                    matmul_dtype=mm_dtype)
             flat = torch.autograd.grad(loss.sum(), leaves)
         grads = [{"b": flat[2 * i], "w": flat[2 * i + 1]}
                  for i in range(len(params))]
+        if sharded:
+            grads = _flat_all_reduce(mesh, grads)
         return step(stacked, opt_state, grads, lr_scale)
+
+    full_batch = settings.batch_size == 0
+    W = stream.window_rows
+    slices = [] if full_batch else \
+        _slice_edges(W, settings.batch_size, n_data)
+
+    def local_rows(rows: int):
+        """This rank's rows of a window of ``rows`` rows and, in a
+        minibatch run, its [start, end, block offset] of each slice in
+        them: the rank's block of each slice, in slice order."""
+        if not sharded:
+            return np.arange(rows), [(s, e, 0) for s, e in slices]
+        if full_batch:
+            b0, b1 = mesh.row_block(rows)
+            return np.arange(b0, b1), []
+        idx, local, at = [], [], 0
+        for s, e in slices:
+            b0, b1 = meshlib.row_block(e - s, n_data, d_idx)
+            idx.append(np.arange(s + b0, s + b1))
+            local.append((at, at + b1 - b0, b0))
+            at += b1 - b0
+        return np.concatenate(idx), local
 
     copier = _WindowCopier(dev)
 
     def prepare(win):
-        """Masks on the host, then one copy a window to the device."""
+        """Masks on the host, then one copy a window (this rank's rows
+        and members) to the device."""
         y = np.asarray(win.arrays["y"], np.float32)
         tm, vm = mask_fn(win.index, win.arrays["y"])
         wcol = np.asarray(win.arrays["w"], np.float32)
         if win.n_valid < win.rows:                 # zero the padded tail
             wcol = wcol.copy()
             wcol[win.n_valid:] = 0.0
-        arrays, sync = copier({"y": y}, extra={
-            "x": np.asarray(win.arrays["x"], np.float32),
-            "tw": np.asarray(tm * wcol[None, :], np.float32),
-            "vw": np.asarray(vm * wcol[None, :], np.float32)})
+        tw = np.asarray(tm * wcol[None, :], np.float32)[m0:m1]
+        vw = np.asarray(vm * wcol[None, :], np.float32)[m0:m1]
+        extra = {}
+        rows, _ = local_rows(win.rows)
+        if sharded and not full_batch:
+            # every rank's train weight of each slice: the loss's divisor
+            extra["den"] = np.maximum(np.stack(
+                [tw[:, s:e].sum(axis=1, dtype=np.float64)
+                 for s, e in slices], axis=1), 1e-9).astype(np.float32)
+        if sharded:
+            y, tw, vw = y[rows], tw[:, rows], vw[:, rows]
+        x = np.asarray(win.arrays["x"], np.float32)
+        arrays, sync = copier({"y": y}, extra=dict(
+            extra, x=x[rows] if sharded else x, tw=tw, vw=vw))
         return PreparedWindow(win.start, win.n_valid, win.rows, win.index,
                               arrays, on_consume=sync)
 
-    full_batch = settings.batch_size == 0
-    W = stream.window_rows
-    if not full_batch:
-        # each window sliced into ~batch_size minibatches at fixed edges
-        n_slices = max(1, W // max(settings.batch_size, 1))
-        edges = [i * W // n_slices for i in range(n_slices)] + [W]
-        slices = [(s, e) for s, e in zip(edges[:-1], edges[1:]) if e > s]
+    def every_member(stats: np.ndarray) -> np.ndarray:
+        """[bags, 4] error sums of every member (the ensemble group's
+        gather of each rank's [m, 4])."""
+        if not ens:
+            return stats
+        t = torch.from_numpy(np.ascontiguousarray(stats)).to(dev)
+        return meshlib.all_gather(mesh, t, axis="ensemble").cpu().numpy()
 
-    ledger = _EpochLedger(settings, stacked, bags, precision, progress,
+    if elastic is not None:
+        from ..parallel.elastic import grad_codec
+        ravel, unravel = grad_codec(tree_map(lambda a: torch.zeros(
+            a.shape, dtype=acc_dtype or a.dtype, device=dev), stacked))
+
+    ledger = _EpochLedger(settings, full_stacked, bags, precision, progress,
                           checkpoint, dev)
     ledger.trainer = "nn_streamed"
     start_epoch = 0
     epochs_target = settings.epochs
-    restored = ledger.resume(stacked, opt_state) \
+    restored = ledger.resume(whole(stacked), whole(opt_state)) \
         if settings.resume and settings.checkpoint_dir else None
     if restored is not None:
         start_epoch, epochs_target, stacked, opt_state, key = restored
+        if ens:
+            stacked = tree_map(lambda t: t[m0:m1].clone(), stacked)
+            opt_state = tree_map(lambda t: t[m0:m1].clone(), opt_state)
 
     def bookkeep(epoch_done: int, stats: np.ndarray, snapshot) -> bool:
         """Record the errors of ``epoch_done``, measured on ``snapshot``;
         True when every member's early-stop window fired."""
+        stats = every_member(stats).astype(np.float64)
         return ledger.record(
             epoch_done, stats[:, 0] / np.maximum(stats[:, 1], 1e-9),
-            stats[:, 2] / np.maximum(stats[:, 3], 1e-9), snapshot)
+            stats[:, 2] / np.maximum(stats[:, 3], 1e-9), whole(snapshot))
+
+    def eval_pass(stacked) -> torch.Tensor:
+        stats_acc = torch.zeros((m1 - m0, 4), device=dev)
+        for win in stream.prepared(prepare):
+            stats_acc += eval_window(stacked, win.arrays)
+        return _flat_all_reduce(mesh, stats_acc) if sharded else stats_acc
 
     epochs_run = start_epoch
     for epoch in range(start_epoch, epochs_target):
         key, sub = prng.split(key)
-        rngs = prng.split(sub, bags)
+        rngs = prng.split(sub, bags)[m0:m1]
         entering = stacked         # the params this epoch's stats measure
-        stats_acc = torch.zeros((bags, 4), device=dev)
-        grad_acc = tree_map(
-            lambda a: torch.zeros(a.shape, dtype=acc_dtype or a.dtype,
-                                  device=dev), stacked) if full_batch \
+        grad_acc = grad_flat = None
+        replayed = elastic.closed_step(epoch) if elastic is not None \
             else None
-        n_win = 0
-        for win in stream.prepared(prepare):
-            arrays = win.arrays
-            rngs_w = [prng.fold_in(r, n_win) for r in rngs] \
-                if dropout > 0 else rngs
-            if full_batch:
-                grads, stats = grad_eval_window(stacked, arrays, rngs_w)
-                grad_acc = tree_map(torch.add, grad_acc, grads)
-                stats_acc += stats
-            else:
-                stats_acc += eval_window(stacked, arrays)
-                for si, (s, e) in enumerate(slices):
-                    rngs_s = [prng.fold_in(r, si) for r in rngs_w] \
-                        if dropout > 0 else rngs_w
-                    stacked, opt_state = minibatch(
-                        stacked, opt_state, arrays, s, e, rngs_s,
-                        ledger.lr_scale)
-            n_win += 1
-        if n_win == 0:
-            raise RuntimeError("streamed training: empty shard stream")
+        if replayed is not None:
+            # a rejoiner's catch-up: the epoch closed across the job, so
+            # its committed aggregate applies without streaming a window
+            stats_acc = torch.from_numpy(np.asarray(
+                replayed.payload["stats"], np.float32)).to(dev)
+            grad_flat = replayed.payload["grads"]
+        else:
+            stats_acc = torch.zeros((m1 - m0, 4), device=dev)
+            grad_acc = tree_map(
+                lambda a: torch.zeros(a.shape, dtype=acc_dtype or a.dtype,
+                                      device=dev), stacked) if full_batch \
+                else None
+            n_win = 0
+            for win in stream.prepared(prepare):
+                arrays = win.arrays
+                rngs_w = [prng.fold_in(r, n_win) for r in rngs] \
+                    if dropout > 0 else rngs
+                if full_batch:
+                    grads, stats = grad_eval_window(
+                        stacked, arrays, rngs_w,
+                        mesh.row_block(win.rows)[0] if sharded else 0)
+                    grad_acc = tree_map(torch.add, grad_acc, grads)
+                    stats_acc += stats
+                else:
+                    stats_acc += eval_window(stacked, arrays)
+                    for si, (s, e, row0) in enumerate(
+                            local_rows(win.rows)[1]):
+                        rngs_s = [prng.fold_in(r, si) for r in rngs_w] \
+                            if dropout > 0 else rngs_w
+                        stacked, opt_state = minibatch(
+                            stacked, opt_state, arrays, s, e, rngs_s,
+                            ledger.lr_scale, si, row0)
+                n_win += 1
+            if n_win == 0:
+                raise RuntimeError("streamed training: empty shard stream")
+            if sharded:
+                # the data group's epoch sums: gradients and error sums in
+                # one all_reduce
+                stats_acc, grad_acc = _flat_all_reduce(
+                    mesh, (stats_acc, grad_acc or []))
+            if elastic is not None:
+                # the quorum-gated epoch close: every controller applies
+                # the same aggregate
+                res = elastic.step(epoch, {
+                    "grads": ravel(grad_acc),
+                    "stats": stats_acc.cpu().numpy()})
+                stats_acc = torch.from_numpy(np.asarray(
+                    res.payload["stats"], np.float32)).to(dev)
+                grad_flat = res.payload["grads"]
         stats = stats_acc.cpu().numpy().astype(np.float64)  # the one fetch
         # the stats were measured on the params entering this epoch, so
         # they close the PREVIOUS epoch's ledger.  ``epoch > 0`` (not
@@ -811,19 +955,29 @@ def _train_streamed(stream, spec, settings, bags, mask_fn, init_params_list,
             else False
         if full_batch:
             stacked, opt_state = apply_update(
-                stacked, opt_state, grad_acc, stats_acc[:, 1],
-                ledger.lr_scale)
+                stacked, opt_state,
+                grad_acc if grad_flat is None else unravel(grad_flat),
+                stats_acc[:, 1], ledger.lr_scale)
         epochs_run = epoch + 1
-        ledger.end_epoch(epoch, stacked, opt_state, key, stopped)
+        ledger.end_epoch(epoch, whole(stacked), whole(opt_state)
+                         if settings.checkpoint_dir else opt_state, key,
+                         stopped)
         if stopped:
             log.info("early stop at epoch %d (window %d, streamed)", epoch,
                      settings.early_stop_window)
             break
 
-    # the closing eval-only pass: the errors of the last params
-    stats_acc = torch.zeros((bags, 4), device=dev)
-    for win in stream.prepared(prepare):
-        stats_acc += eval_window(stacked, win.arrays)
-    bookkeep(epochs_run - 1, stats_acc.cpu().numpy().astype(np.float64),
-             stacked)
-    return ledger.result(stacked, epochs_run)
+    # the closing eval-only pass: the errors of the last params (elastic:
+    # one more step, id ``epochs_run``, so every controller picks its best
+    # epoch from the same history; a rejoiner adopts its close)
+    final = elastic.closed_step(epochs_run) if elastic is not None \
+        else None
+    if final is None:
+        stats_acc = eval_pass(stacked)
+        if elastic is not None:
+            final = elastic.step(epochs_run,
+                                 {"stats": stats_acc.cpu().numpy()})
+    stats = np.asarray(final.payload["stats"]) if final is not None \
+        else stats_acc.cpu().numpy()
+    bookkeep(epochs_run - 1, stats.astype(np.float64), stacked)
+    return ledger.result(whole(stacked), epochs_run)

@@ -18,18 +18,22 @@ checkpoints and ``train -resume``) is the NN trainer's ``_EpochLedger``.
 - :func:`train_wdl_streamed` streams both planes window by window
   (:class:`ZippedPlanes`): full-batch gradient sums accumulate on the
   device, one update an epoch, each epoch's errors measured on the params
-  entering it, and a closing eval-only sweep.
+  entering it, and a closing eval-only sweep.  With ``elastic`` (the
+  reference's ``shifu.dcn.elastic``, ``parallel/elastic.py``) each epoch
+  closes through the quorum step protocol, each controller a world of
+  one on its own card.
 
 L2 (deep weights and embeddings) is added to the gradient analytically;
 ``TrainPrecision`` (``f32`` / ``bf16`` / ``mixed``) narrows the params as
-the NN trainer does.  The reference's mesh, its row-sharded tables
-(``train/wdl_shard.py``, ``shifu.wdl.shardTables``) and the elastic
-combine (``shifu.dcn.elastic``) are ROADMAP item 12 and raise: on one card
-its own auto gate keeps the tables replicated.
+the NN trainer does.  WDL on a ``torch.distributed`` mesh and the
+reference's row-sharded tables (``train/wdl_shard.py``,
+``shifu.wdl.shardTables``) are ROADMAP item 12 and raise: on one card its
+own auto gate keeps the tables replicated.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 from typing import Any, Dict, List, Optional, Tuple
@@ -329,12 +333,13 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
     sums over ``planes``' windows, one update an epoch (the reference's
     BSP iteration, ``WDLMaster``'s aggregation).  ``mask_fn(index,
     targets)`` gives each window's ``[bags, rows]`` sampling masks.
-    ``elastic`` (the multi-controller combine) and ``shard`` raise naming
-    item 12."""
+    ``elastic`` (a ``parallel.elastic.ElasticContext``) closes each epoch
+    through the quorum step protocol: the epoch's unnormalised gradient
+    and error sums post as one contribution, the update applies the
+    committed aggregate, a closed epoch replays from the journal without
+    streaming, and the closing sweep is one more step.  ``shard`` raises
+    naming item 12."""
     from .dt_trainer import _WindowCopier
-    if elastic is not None:
-        raise _not_ported("the elastic multi-controller combine "
-                          "(shifu.dcn.elastic)")
     _refuse_sharding(spec, shard)
     dev = resolve_device(device)
     key, opt, precision, stacked, opt_state = _init_stack(
@@ -391,6 +396,10 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
     ledger = _EpochLedger(settings, stacked, bags, precision, progress,
                           None, dev)
     ledger.trainer = "wdl_streamed"
+    if elastic is not None:
+        from ..parallel.elastic import grad_codec
+        ravel, unravel = grad_codec(tree_map(lambda a: torch.zeros(
+            a.shape, dtype=acc_dtype or a.dtype, device=dev), stacked))
 
     def bookkeep(epoch_done: int, stats: np.ndarray, snapshot) -> bool:
         return ledger.record(
@@ -407,19 +416,38 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
         stopped = settings.early_stop_window > 0 and all(
             w.since_best >= w.window_size for w in ledger.stops)
     epochs_run = start_epoch
+    def posted(payload) -> torch.Tensor:
+        """The [B, 4] error sums of an elastic step's aggregate."""
+        return torch.from_numpy(np.asarray(payload["stats"],
+                                           np.float32)).to(dev)
+
     for epoch in range(start_epoch, epochs_target):
         entering = stacked         # the params this epoch's stats measure
-        stats_acc = torch.zeros((bags, 4), device=dev)
-        grad_acc = tree_map(lambda a: torch.zeros(
-            a.shape, dtype=acc_dtype or a.dtype, device=dev), stacked)
-        n_win = 0
-        for win in planes.prepared(prepare):
-            stats, grads = grad_eval_window(stacked, win.arrays)
-            grad_acc = tree_map(torch.add, grad_acc, grads)
-            stats_acc += stats
-            n_win += 1
-        if n_win == 0:
-            raise RuntimeError("streamed WDL: empty shard stream")
+        grad_acc = None
+        replayed = elastic.closed_step(epoch) if elastic is not None \
+            else None
+        if replayed is not None:
+            # a rejoiner's catch-up: apply the committed aggregate
+            stats_acc = posted(replayed.payload)
+            grad_acc = unravel(replayed.payload["grads"])
+        else:
+            stats_acc = torch.zeros((bags, 4), device=dev)
+            grad_acc = tree_map(lambda a: torch.zeros(
+                a.shape, dtype=acc_dtype or a.dtype, device=dev), stacked)
+            n_win = 0
+            for win in planes.prepared(prepare):
+                stats, grads = grad_eval_window(stacked, win.arrays)
+                grad_acc = tree_map(torch.add, grad_acc, grads)
+                stats_acc += stats
+                n_win += 1
+            if n_win == 0:
+                raise RuntimeError("streamed WDL: empty shard stream")
+            if elastic is not None:
+                res = elastic.step(epoch, {
+                    "grads": ravel(grad_acc),
+                    "stats": stats_acc.cpu().numpy()})
+                stats_acc = posted(res.payload)
+                grad_acc = unravel(res.payload["grads"])
         stats = stats_acc.cpu().numpy().astype(np.float64)  # the one fetch
         # measured on the params entering this epoch: its own ledger line
         stopped = bookkeep(epoch, stats, entering)
@@ -432,11 +460,20 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
             break
     if not stopped:
         # a closing eval-only sweep: the last update's params compete too
-        stats_acc = torch.zeros((bags, 4), device=dev)
-        with torch.no_grad():
-            for win in planes.prepared(prepare):
-                stats_acc += sums(forward_per(stacked, win.arrays),
-                                  win.arrays)
+        # (elastic: one more step, id ``epochs_run``)
+        final = elastic.closed_step(epochs_run) if elastic is not None \
+            else None
+        if final is None:
+            stats_acc = torch.zeros((bags, 4), device=dev)
+            with torch.no_grad():
+                for win in planes.prepared(prepare):
+                    stats_acc += sums(forward_per(stacked, win.arrays),
+                                      win.arrays)
+            if elastic is not None:
+                final = elastic.step(epochs_run,
+                                     {"stats": stats_acc.cpu().numpy()})
+        if final is not None:
+            stats_acc = posted(final.payload)
         bookkeep(epochs_run, stats_acc.cpu().numpy().astype(np.float64),
                  stacked)
     return ledger.result(stacked, epochs_run)
@@ -495,12 +532,9 @@ def run_wdl_training(proc) -> int:
             log.info(line)
 
         if streaming:
-            from ..config import environment
             from ..data.streaming import (mask_fn_from_settings,
                                           stream_window_rows)
-            if environment.get_bool("shifu.dcn.elastic", False):
-                raise _not_ported("the elastic multi-controller combine "
-                                  "(shifu.dcn.elastic)")
+            from ..parallel.elastic import elastic_context_for
             d = len(schema.get("outputNames") or [])
             window_rows = stream_window_rows(6 * (d + 2), 1, norm)
             # full batch: the tail window shrinks to a remainder rung
@@ -522,10 +556,14 @@ def run_wdl_training(proc) -> int:
                 replacement=mc.train.baggingWithReplacement,
                 up_sample_weight=mc.train.upSampleWeight,
                 seed=settings.seed)
-            with proc.phase("train"):
+            # the elastic combine (the NN path's opt-in; WDL streams full
+            # batch, so it needs no gate): each controller a world of one
+            ectx = elastic_context_for(proc.dir)
+            with proc.phase("train"), \
+                    ectx if ectx is not None else contextlib.nullcontext():
                 res = train_wdl_streamed(planes, spec, settings, bags,
                                          mask_fn, num_feat_idx, cat_col_idx,
-                                         progress=progress,
+                                         progress=progress, elastic=ectx,
                                          device=proc.device)
         else:
             with proc.phase("load_data"):

@@ -33,7 +33,9 @@ from shifu_tpu_torch.config import environment
 pytestmark = pytest.mark.torch_port
 
 PORT = os.path.join(os.path.dirname(__file__), "..", "shifu_tpu_torch")
-MULTI_DEVICE_SITES = {("dcn", "step"), ("train", "rejoin")}
+#: sites the port does not fire yet (none: ``dcn:step`` and
+#: ``train:rejoin`` fire in the elastic step protocol)
+MULTI_DEVICE_SITES: set = set()
 
 
 @pytest.fixture(autouse=True)
@@ -77,6 +79,36 @@ def test_every_declared_site_fires_in_the_port():
     assert fired <= set(faults.SITES), fired - set(faults.SITES)
     missing = set(faults.SITES) - MULTI_DEVICE_SITES - fired
     assert not missing, sorted(missing)
+
+
+# ---------------------------------------------------------------- elastic
+def test_dcn_step_and_train_rejoin_fire_in_the_elastic_protocol(tmp_path):
+    """``dcn:step=<s>`` fires at step s's boundary before the contribution
+    commits (nothing of the controller lands for s); ``train:rejoin=<s>``
+    when a rejoined controller replays committed step s from the journal.
+    One controller on a fake clock, in process."""
+    import numpy as np
+    from shifu_tpu_torch.parallel import elastic as el
+    clock = [0.0]
+
+    def ctx():
+        return el.ElasticContext(
+            str(tmp_path), "ctrl-0", cfg=el.ElasticConfig(quorum_frac=1.0),
+            heartbeat=False, now_fn=lambda: clock[0],
+            sleep_fn=lambda s: clock.__setitem__(0, clock[0] + s)).start()
+    pay = {"g": np.ones(3, np.float32)}
+    set_faults("dcn:step=1:ioerror")
+    a = ctx()
+    a.step(0, pay)
+    with pytest.raises(faults.InjectedFault, match="dcn:step=1"):
+        a.step(1, pay)
+    assert not a.board.has_contribution(1, "ctrl-0")
+    assert a.step(1, pay).contributors == ["ctrl-0"]  # the retry closes
+    set_faults("train:rejoin=0:ioerror")
+    b = ctx()                                         # incarnation 2
+    assert b.rejoined
+    with pytest.raises(faults.InjectedFault, match="train:rejoin=0"):
+        b.closed_step(0)
 
 
 # ------------------------------------------------------------------ norm

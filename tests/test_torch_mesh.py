@@ -1,6 +1,8 @@
 """The port's device mesh (``shifu_tpu_torch.parallel.mesh``) on the CPU:
 worlds of 2 and 3 gloo ranks against one rank and against the reference's
-8-device virtual mesh (``tests/test_multichip.py:61-166``).
+8-device virtual mesh (``tests/test_multichip.py:61-166``,
+``tests/test_tree_streaming.py:207-275``), resident and out of core (each
+rank keeps its block of every window's rows).
 
 The ranks are this file run as a script, one process a rank, joined
 through a ``FileStore`` under the session's temporary directory (no port
@@ -99,6 +101,176 @@ def _accumulator_inputs():
     target = (rng.random(N) < 0.3).astype(np.float32)
     weight = rng.uniform(0.5, 2.0, N).astype(np.float32)
     return x.astype(np.float32), valid, target, weight
+
+
+#: the streamed scenarios: 997 rows in windows of 240 (a multiple of both
+#: worlds' data axes), 5 windows; a prepared window holds 240 rows of u8
+#: bins and f32 y/tw/vw (GBT) or y/w (RF); 2 windows resident under the
+#: tail budgets, 3 re-streamed a sweep
+STREAM_WINDOW = 240
+S_GBT = dict(n_trees=4, depth=3, loss="log", learning_rate=0.1, seed=0,
+             min_gain=1e-3, min_instances=5)
+S_RF = dict(n_trees=5, depth=3, impurity="entropy", loss="squared", seed=2,
+            bagging_rate=0.8, tail_tree_batch=3, min_gain=1e-3,
+            min_instances=5)
+STREAM_RUNS = {             # name: (kind, cache budget, SHIFU_TREE_TAIL_C2F)
+    "gbt_c2f": ("gbt", 2 * STREAM_WINDOW * (6 + 12) + 64, "1"),
+    "gbt_exact": ("gbt", 2 * STREAM_WINDOW * (6 + 12) + 64, "0"),
+    "gbt_resident": ("gbt", 1 << 30, None),
+    "rf_tail": ("rf", 2 * STREAM_WINDOW * (6 + 8) + 64, None),
+    "rf_resident": ("rf", 1 << 30, None),
+}
+
+
+def _tree_shards(d):
+    """``_tree_plane`` as npz shards of 300 rows (each run its own copy:
+    the first pass writes the spill beside them)."""
+    import json
+    bins, y, w = _tree_plane()
+    os.makedirs(d)
+    for i, s0 in enumerate(range(0, N, 300)):
+        np.savez(os.path.join(d, f"part-{i:05d}.npz"),
+                 bins=bins[s0:s0 + 300].astype(np.int16), y=y[s0:s0 + 300],
+                 w=w[s0:s0 + 300])
+    with open(os.path.join(d, "schema.json"), "w") as f:
+        json.dump({"columnNums": list(range(6)), "numShards": i + 1,
+                   "numRows": N}, f)
+    return d
+
+
+def _with_c2f(c2f, fn):
+    old = os.environ.get("SHIFU_TREE_TAIL_C2F")
+    if c2f is not None:
+        os.environ["SHIFU_TREE_TAIL_C2F"] = c2f
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop("SHIFU_TREE_TAIL_C2F", None)
+        else:
+            os.environ["SHIFU_TREE_TAIL_C2F"] = old
+
+
+def _streamed_run(res):
+    return {"trees": _forests(res.trees), "history": res.history,
+            "fi": res.feature_importance, "init": res.spec_kwargs,
+            "passes": (res.disk_passes, res.tail_sweeps, res.bytes_read)}
+
+
+def _train_streamed(mesh, root: str, name: str, **kw):
+    """One streamed forest of ``STREAM_RUNS[name]`` on a fresh copy of the
+    plane under ``root``."""
+    import shifu_tpu_torch.train.dt_trainer as dt
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import ShardStream
+    kind, budget, c2f = STREAM_RUNS[name]
+    d = _tree_shards(os.path.join(root, f"{name}{len(os.listdir(root))}"))
+    fn = dt.train_gbt_streamed if kind == "gbt" else dt.train_rf_streamed
+    settings = dt.DTSettings(**(S_GBT if kind == "gbt" else S_RF))
+    return _with_c2f(c2f, lambda: fn(
+        ShardStream(Shards.open(d), ("bins", "y", "w"), STREAM_WINDOW), 16,
+        None, settings, cache_budget=budget, device="cpu", mesh=mesh, **kw))
+
+
+class _Checkpoints:
+    """A checkpoint_fn keeping every commit: (trees, history, init, f)."""
+
+    def __init__(self):
+        self.saved = []
+
+    def __call__(self, trees, history, init_score, scores=None):
+        self.saved.append((list(trees), [tuple(h) for h in history],
+                           init_score,
+                           None if scores is None else scores.copy()))
+
+
+def _streamed_resume(mesh, root: str) -> dict:
+    """The c2f GBT with a checkpoint every 2 trees, then a resume from the
+    first checkpoint with its score sidecar (every rank's rows, gathered)
+    and without it (the restored trees replayed window by window)."""
+    ck = _Checkpoints()
+    old = dict(S_GBT)
+    S_GBT["checkpoint_every"] = 2
+    try:
+        full = _train_streamed(mesh, root, "gbt_c2f", checkpoint_fn=ck)
+        trees, history, init, scores = ck.saved[0]
+        out = {"full": _streamed_run(full), "scores": scores}
+        for sidecar in (True, False):
+            res = _train_streamed(
+                mesh, root, "gbt_c2f", init_trees=trees,
+                init_score=init, start_history=history,
+                init_scores=scores if sidecar else None)
+            out[sidecar] = _streamed_run(res)
+    finally:
+        S_GBT.clear()
+        S_GBT.update(old)
+    return out
+
+
+def scenario_streamed(mesh, root):
+    root = os.path.join(root, f"streamed_r{mesh.rank}")
+    os.makedirs(root, exist_ok=True)
+    out = {name: _streamed_run(_train_streamed(mesh, root, name))
+           for name in STREAM_RUNS}
+    out["resume"] = _streamed_resume(mesh, root)
+    return out
+
+
+NN_STREAM_BATCHES = (0, 48)     # full batch; slices on multiples of 24
+
+
+def _nn_stream_plane(d):
+    """A norm plane of npz shards: 997 rows x 6 features, weights in
+    [0.5, 2)."""
+    import json
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(N, 6)).astype(np.float32)
+    y = (x[:, 0] - 0.7 * x[:, 2] + rng.normal(0, 0.7, N) > 0) \
+        .astype(np.float32)
+    w = rng.uniform(0.5, 2.0, N).astype(np.float32)
+    os.makedirs(d)
+    for i, s0 in enumerate(range(0, N, 400)):
+        np.savez(os.path.join(d, f"part-{i:05d}.npz"), x=x[s0:s0 + 400],
+                 y=y[s0:s0 + 400], w=w[s0:s0 + 400])
+    with open(os.path.join(d, "schema.json"), "w") as f:
+        json.dump({"outputNames": [f"f{i}" for i in range(6)],
+                   "columnNums": list(range(6)), "numShards": i + 1,
+                   "numRows": N}, f)
+    return d
+
+
+def _nn_stream_spec(pkg):
+    return pkg.NNModelSpec(input_dim=6, hidden_nodes=[8],
+                           activations=["tanh"], loss="log")
+
+
+def _train_nn_streamed(mesh, root: str, bags: int, batch: int):
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import (ShardStream,
+                                                mask_fn_from_settings)
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.train.nn_trainer import (TrainSettings,
+                                                  train_ensemble_streamed)
+    d = _nn_stream_plane(os.path.join(root, f"nn{len(os.listdir(root))}"))
+    res = train_ensemble_streamed(
+        ShardStream(Shards.open(d), ("x", "y", "w"), STREAM_WINDOW),
+        _nn_stream_spec(nn_model),
+        TrainSettings(optimizer="ADAM", learning_rate=0.05, epochs=4,
+                      batch_size=batch, seed=0), bags,
+        mask_fn_from_settings(bags, valid_rate=0.25, sample_rate=0.9,
+                              seed=0), device="cpu", mesh=mesh)
+    return {"valid": res.valid_errors,
+            "params": [[{k: v.numpy() for k, v in layer.items()}
+                        for layer in p] for p in res.params]}
+
+
+def scenario_nn_streamed(mesh, root):
+    from shifu_tpu_torch.parallel.mesh import device_mesh
+    root = os.path.join(root, f"nn_streamed_r{mesh.rank}")
+    os.makedirs(root, exist_ok=True)
+    return {(bags, batch): _train_nn_streamed(device_mesh(n_ensemble=bags),
+                                              root, bags, batch)
+            for bags in (1, 2) for batch in NN_STREAM_BATCHES}
 
 
 def _nn_inputs(bags):
@@ -275,10 +447,8 @@ def scenario_nn(mesh, bags):
 #: each path a mesh leaves out: (what to run, the ROADMAP words it names)
 NOT_PORTED = {
     "bagged_trees": ("GBT", {"baggingNum": 2}, {}, "tree trainers"),
-    "streamed_trees": ("GBT", {}, {"shifu.train.streaming": "on"},
-                       "tree trainers"),
-    "streamed_nn": ("NN", {}, {"shifu.train.streaming": "on"},
-                    "elastic plane"),
+    "multiclass_trees": ("RF", {"posTags": ["bad", "good", "other"]}, {},
+                         "multi-class tree trainers"),
     "wdl": ("WDL", {}, {}, "row-sharded tables"),
     "varselect": (None, {}, {}, "varselect, correlation and sensitivity"),
     "correlation": (None, {}, {}, "varselect, correlation and sensitivity"),
@@ -302,9 +472,14 @@ def scenario_not_ported(mesh, dirs):
             environment.set_property(k, v)
         if alg:
             mc = ModelConfig.load(path)
+            tags = (list(mc.dataSet.posTags), list(mc.dataSet.negTags))
             mc.train.algorithm = Algorithm[alg]
             mc.train.baggingNum = train.get("baggingNum", 1)
+            if "posTags" in train:          # a K = 3 target
+                mc.dataSet.posTags, mc.dataSet.negTags = train["posTags"], []
             mc.save(path)
+            if "posTags" in train:
+                mc.dataSet.posTags, mc.dataSet.negTags = tags
             proc = TrainProcessor(d, params={}, device="cpu")
         elif case == "varselect":
             proc = VarSelectProcessor(d, params={}, device="cpu")
@@ -316,6 +491,8 @@ def scenario_not_ported(mesh, dirs):
             out[case] = None
         except NotImplementedError as e:
             out[case] = str(e)
+        if alg:
+            mc.save(path)                   # the binary target again
     environment.reset_for_tests()
     return out
 
@@ -403,7 +580,8 @@ class _World:
 RUNS = [("meshes", {}), ("kernels", {}), ("forests", {}), ("walk", {}),
         ("scorer", {}), ("accumulator", {"fused": False}),
         ("accumulator", {"fused": True}), ("nn", {"bags": 1}),
-        ("nn", {"bags": 2})]
+        ("nn", {"bags": 2}), ("streamed", {"root": None}),
+        ("nn_streamed", {"root": None})]
 
 
 def _world_results(root: str, world: int, template: str) -> dict:
@@ -425,8 +603,10 @@ def _world_results(root: str, world: int, template: str) -> dict:
         os.makedirs(run_dir)
         w = _World(world, run_dir)
         try:
-            out = {name if not kw else (name, *kw.values()):
-                   w.run(name, **kw) for name, kw in RUNS}
+            out = {name if not kw or "root" in kw else
+                   (name, *kw.values()):
+                   w.run(name, **({"root": run_dir} if "root" in kw
+                                  else kw)) for name, kw in RUNS}
             if world == 2:
                 dirs = tuple(os.path.join(run_dir, f"set{r}")
                              for r in range(world))
@@ -749,6 +929,155 @@ def test_nn_matches_the_reference_mesh(worlds, bags):
                                                rtol=1e-3, atol=1e-5)
 
 
+# ------------------------------------------------------ out of core
+_ONE_RANK: dict = {}
+
+
+def _one_rank(key, fn):
+    """One rank's result of a streamed scenario, computed once a worker
+    (under the ``fixed_point`` fixture of the asking test)."""
+    if key not in _ONE_RANK:
+        _ONE_RANK[key] = fn()
+    return _ONE_RANK[key]
+
+
+def _same_run(got, want):
+    assert got["passes"] == want["passes"]       # disk passes, sweeps, bytes
+    assert len(got["trees"]) == len(want["trees"])
+    for g, w in zip(got["trees"], want["trees"]):
+        assert all(_same(a, b) for a, b in zip(g, w))
+    assert _same(got["fi"], want["fi"])
+    assert got["init"] == want["init"]
+    # the errors are every rank's float64 sums: f32 within rounding
+    np.testing.assert_allclose(got["history"], want["history"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_RUNS))
+@pytest.mark.parametrize("world", WORLDS)
+def test_streamed_forests_equal_one_rank(worlds, fixed_point, tmp_path,
+                                         world, name):
+    """Each window's rows split over the ranks: the one-rank streamed
+    forest bit for bit (c2f and exact with 3 of 5 windows on the disk
+    tail, RF's super-batch over the tail, and fully resident), with its
+    disk passes, tail sweeps and bytes read."""
+    want = _one_rank(name, lambda: _streamed_run(
+        _train_streamed(None, str(tmp_path), name)))
+    for got in worlds(world)["streamed"]:
+        _same_run(got[name], want)
+
+
+def test_streamed_resume_on_a_world_is_bit_identical(worlds, fixed_point,
+                                                     tmp_path):
+    """A c2f GBT on a world of 2 checkpointed at tree 2 (its per-row score
+    sidecar gathered from both ranks: one rank's bits) and resumed with
+    and without the sidecar: the uninterrupted forest bit for bit."""
+    want = _one_rank("resume", lambda: _streamed_resume(None,
+                                                        str(tmp_path)))
+    for got in worlds(2)["streamed"]:
+        r = got["resume"]
+        assert _same(r["scores"], want["scores"])
+        _same_run(r["full"], want["full"])
+        for sidecar in (True, False):
+            rs = r[sidecar]
+            assert len(rs["trees"]) == len(r["full"]["trees"])
+            for g, w in zip(rs["trees"], r["full"]["trees"]):
+                assert all(_same(a, b) for a, b in zip(g, w))
+            assert rs["history"] == r["full"]["history"]
+
+
+@pytest.mark.parametrize("name", ["gbt_c2f", "rf_tail"])
+def test_streamed_forests_match_the_reference_mesh(worlds, tmp_path, name):
+    """The reference's streamed forest on its 8-device mesh (fully
+    resident: the structure does not depend on the tail,
+    ``tests/test_tree_streaming.py:207-275``): split features equal,
+    leaves and the validation error within 1e-4.  The reference's fully
+    resident RF reports the trees it grows one at a time with train and
+    validation swapped (C11): its train error is the validation's."""
+    import shifu_tpu.train.dt_trainer as rdt
+    from shifu_tpu.data.shards import Shards
+    from shifu_tpu.data.streaming import ShardStream
+    kind = STREAM_RUNS[name][0]
+    d = _tree_shards(str(tmp_path / "ref"))
+    fn = rdt.train_gbt_streamed if kind == "gbt" else rdt.train_rf_streamed
+    ref = fn(ShardStream(Shards.open(d), ("bins", "y", "w"), STREAM_WINDOW),
+             16, None, rdt.DTSettings(**(S_GBT if kind == "gbt" else S_RF)),
+             mesh=_ref_mesh())
+    ref_valid = ref.valid_error if kind == "gbt" else ref.train_error
+    for world in WORLDS:
+        got = worlds(world)["streamed"][0][name]
+        assert len(got["trees"]) == len(ref.trees)
+        for (sf, lm, lv), t in zip(got["trees"], ref.trees):
+            np.testing.assert_array_equal(sf, np.asarray(t.split_feat))
+            np.testing.assert_allclose(lv, np.asarray(t.leaf_value),
+                                       rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(got["history"][-1][1], ref_valid,
+                                   rtol=1e-4)
+
+
+def _close_nn(got, want):
+    np.testing.assert_allclose(got["valid"], want["valid"], rtol=1e-4,
+                               atol=1e-6)
+    for pg, pw in zip(got["params"], want["params"]):
+        for lg, lw in zip(pg, pw):
+            for k in ("w", "b"):
+                np.testing.assert_allclose(lg[k], np.asarray(lw[k]),
+                                           rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", NN_STREAM_BATCHES)
+@pytest.mark.parametrize("bags", [1, 2])
+@pytest.mark.parametrize("world", WORLDS)
+def test_streamed_nn_matches_one_rank(worlds, tmp_path, world, bags,
+                                      batch):
+    """The streamed NN with each window's rows (full batch) or each
+    slice's rows (minibatch) split over the data axis and the bags over
+    the ensemble axis: one rank's within the reference's tolerance."""
+    want = _one_rank(("nn", bags, batch), lambda: _train_nn_streamed(
+        None, str(tmp_path), bags, batch))
+    for got in worlds(world)["nn_streamed"]:
+        _close_nn(got[(bags, batch)], want)
+
+
+@pytest.mark.parametrize("batch", NN_STREAM_BATCHES)
+@pytest.mark.parametrize("bags", [1, 2])
+def test_streamed_nn_matches_the_reference_mesh(worlds, tmp_path, bags,
+                                                batch):
+    """The reference's streamed NN from the port's initial weights with
+    64-bit types off (C3): full batch on its 8-device mesh; minibatch on
+    one device (its minibatch program aborts XLA:CPU now and then on the
+    8-device mesh; the slices are the same, 48 rows on multiples of 24)."""
+    import jax
+    import jax.numpy as jnp
+    from shifu_tpu.data.shards import Shards
+    from shifu_tpu.data.streaming import (ShardStream,
+                                          mask_fn_from_settings)
+    from shifu_tpu.models import nn as jnn
+    from shifu_tpu.parallel.mesh import device_mesh
+    from shifu_tpu.train.nn_trainer import (TrainSettings,
+                                            train_ensemble_streamed)
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.ops import prng
+    d = _nn_stream_plane(str(tmp_path / "ref"))
+    init = [nn_model.init_params(k, _nn_stream_spec(nn_model))
+            for k in prng.split(prng.prng_key(0), bags)]
+    mesh = _ref_mesh(n_ensemble=bags) if batch == 0 else \
+        device_mesh(1, devices=jax.devices("cpu")[:1])
+    with jax.enable_x64(False):
+        ref = train_ensemble_streamed(
+            ShardStream(Shards.open(d), ("x", "y", "w"), STREAM_WINDOW),
+            _nn_stream_spec(jnn),
+            TrainSettings(optimizer="ADAM", learning_rate=0.05, epochs=4,
+                          batch_size=batch, seed=0), bags,
+            mask_fn_from_settings(bags, valid_rate=0.25, sample_rate=0.9,
+                                  seed=0),
+            init_params_list=[[{k: jnp.asarray(v.numpy())
+                                for k, v in layer.items()} for layer in p]
+                              for p in init], mesh=mesh)
+    want = {"valid": ref.valid_errors, "params": ref.params}
+    for world in WORLDS:
+        _close_nn(worlds(world)["nn_streamed"][0][(bags, batch)], want)
+
+
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_paths_left_out_raise_naming_their_item(worlds, case):
     for rank in worlds(2)["not_ported"]:
@@ -795,6 +1124,60 @@ def test_cli_world_trains_the_one_rank_forest(prepared_set, fixed_point):
             SHIFU_PROCESS_ID=str(r)))
         for r, d in enumerate(dirs)]
     assert main(["--dir", prepared_set, "train", "--device", "cpu"]) == 0
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out.decode()[-2000:]
+    want = _npz_members(os.path.join(prepared_set, "models", "model0.gbt"))
+    assert json.loads(bytes(np.frombuffer(want["__spec__"], np.uint8))
+                      .decode())["n_trees"] == 3
+    for d in dirs:
+        assert _npz_members(os.path.join(d, "models", "model0.gbt")) == want
+
+
+def test_cli_world_trains_the_one_rank_streamed_forest(prepared_set,
+                                                       fixed_point, caplog):
+    """``test_cli_world_trains_the_one_rank_forest`` out of core
+    (``-Dshifu.train.streaming=on``, windows of 600 rows, a device budget
+    that leaves a disk tail): both ranks' ``model0.gbt`` hold the one-rank
+    file's arrays and spec byte for byte, and log the one-rank run's
+    passes."""
+    import json
+    import logging
+    import re
+    import shutil
+    from shifu_tpu_torch.cli import main
+    from shifu_tpu_torch.config import ModelConfig, environment
+    from shifu_tpu_torch.config.model_config import Algorithm
+    mc = ModelConfig.load(os.path.join(prepared_set, "ModelConfig.json"))
+    mc.train.algorithm = Algorithm.GBT
+    mc.train.params = {"TreeNum": 3, "MaxDepth": 3, "LearningRate": 0.1,
+                       "Loss": "log", "MinInfoGain": 1e-3}
+    mc.save(os.path.join(prepared_set, "ModelConfig.json"))
+    props = ["-Dshifu.train.streaming=on", "-Dshifu.train.windowRows=600",
+             "-Dshifu.train.deviceCacheBytes=60000"]
+    dirs = [f"{prepared_set}_cli{r}" for r in range(2)]
+    for d in dirs:
+        shutil.copytree(prepared_set, d)
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "shifu_tpu_torch.cli", *props, "--dir", d,
+         "train", "--device", "cpu"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, env=dict(
+            os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+            SHIFU_COORDINATOR=f"127.0.0.1:{port}", SHIFU_NUM_PROCESSES="2",
+            SHIFU_PROCESS_ID=str(r)))
+        for r, d in enumerate(dirs)]
+    line = re.compile(r"streamed GBT: .* (\d+) resident .*; (\d+) disk "
+                      r"passes, (\d+) tail sweeps, .*; (\d+) bytes read")
+    try:
+        with caplog.at_level(logging.INFO,
+                             logger="shifu_tpu_torch.train.dt_trainer"):
+            assert main([*props, "--dir", prepared_set, "train", "--device",
+                         "cpu"]) == 0
+    finally:
+        environment.reset_for_tests()
+    one = [m.groups() for m in map(line.search, caplog.messages) if m]
+    assert len(one) == 1 and int(one[0][2]) > 0, one     # a disk tail
     for p in procs:
         out, _ = p.communicate(timeout=120)
         assert p.returncode == 0, out.decode()[-2000:]

@@ -318,13 +318,27 @@ def test_narrow_precision_auc_within_the_pinned_bound(nn_template, tmp_path,
     ("LR", ["-Dshifu.train.memoryBudgetBytes=1000",
             "-Dshifu.dcn.elastic=true"], "item 12")])
 def test_unported_paths_raise_naming_their_item(nn_template, tmp_path,
-                                                algorithm, argv, item):
+                                                monkeypatch, algorithm, argv,
+                                                item):
+    """Row-sharded WDL tables raise naming their item.  The elastic
+    combine (``-Dshifu.dcn.elastic``) is ported: with a controller id and
+    no coordinator the streamed WDL, NN and LR train through the step
+    board (a close record an epoch and one for the closing eval) and
+    write their model."""
     from shifu_tpu_torch.cli import main
     _, d = _copies(nn_template, tmp_path, algorithm, {})
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 {item}"):
-        main([*argv, "--dir", d, "train", "--device", "cpu"])
-    assert _models(d) == []
+    if "-Dshifu.dcn.elastic=true" not in argv:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 {item}"):
+            main([*argv, "--dir", d, "train", "--device", "cpu"])
+        assert _models(d) == []
+        return
+    monkeypatch.delenv("SHIFU_COORDINATOR", raising=False)
+    monkeypatch.setenv("SHIFU_PROCESS_ID", "0")
+    assert main([*argv, "--dir", d, "train", "--device", "cpu"]) == 0
+    steps = os.path.join(d, "telemetry", "steps")
+    assert any(f.startswith("close-") for f in os.listdir(steps))
+    assert _models(d) != []
 
 
 def test_eval_score_perf_and_confmat_on_an_lr_set(nn_template, tmp_path):

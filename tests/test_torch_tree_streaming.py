@@ -714,11 +714,13 @@ def test_streamed_multiclass_matches_the_reference(three_class, tmp_path,
 
 
 @pytest.mark.parametrize("alg", ["NN", "LR"])
-def test_streamed_nn_and_lr_still_raise_naming_item_8(prepared_set, alg):
+def test_streamed_nn_and_lr_still_raise_naming_item_8(prepared_set, alg,
+                                                      monkeypatch):
     """Streamed NN/LR was ROADMAP item 8 and raised naming it; it is
     ported (``tests/test_torch_nn_streamed.py``): with streaming on it
-    trains out of core and writes its model; only the elastic combine
-    still raises, naming item 12."""
+    trains out of core and writes its model, and with the elastic combine
+    on (``-Dshifu.dcn.elastic`` and a controller id, no coordinator) it
+    closes every epoch and the closing eval on the step board."""
     from shifu_tpu_torch.cli import main
     _configure(prepared_set, alg, {})
     set_conf = os.path.join(prepared_set, "ModelConfig.json")
@@ -727,9 +729,15 @@ def test_streamed_nn_and_lr_still_raise_naming_item_8(prepared_set, alg):
     conf["train"]["numTrainEpochs"] = 2
     with open(set_conf, "w") as f:
         json.dump(conf, f)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main(["-Dshifu.train.streaming=on", "-Dshifu.dcn.elastic=true",
-              "--dir", prepared_set, "train", "--device", "cpu"])
+    monkeypatch.delenv("SHIFU_COORDINATOR", raising=False)
+    monkeypatch.setenv("SHIFU_PROCESS_ID", "0")
+    assert main(["-Dshifu.train.streaming=on", "-Dshifu.dcn.elastic=true",
+                 "-Dshifu.train.windowRows=1000", "--dir", prepared_set,
+                 "train", "--device", "cpu"]) == 0
+    steps = os.path.join(prepared_set, "telemetry", "steps")
+    assert sorted(f for f in os.listdir(steps) if f.startswith("close-")) \
+        == [f"close-{i:06d}.json" for i in range(3)]
+    monkeypatch.delenv("SHIFU_PROCESS_ID")
     environment.reset_for_tests()
     assert main(["-Dshifu.train.streaming=on", "-Dshifu.train.windowRows="
                  "1000", "--dir", prepared_set, "train", "--device",

@@ -129,15 +129,48 @@ def test_resume_is_bit_identical(tmp_path):
             assert torch.equal(x, z)
 
 
-def test_sharded_tables_and_elastic_raise_naming_item_12():
+def test_sharded_tables_and_elastic_raise_naming_item_12(tmp_path):
+    """Row-sharded tables still raise naming item 12.  The elastic combine
+    is ported: a single controller's streamed WDL (a quorum of itself, f32
+    transport) trains the plain streamed run's params bit for bit, one
+    close record an epoch and one for the closing sweep."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import mask_fn_from_settings
+    from shifu_tpu_torch.ioutil import atomic_savez, atomic_write_json
+    from shifu_tpu_torch.parallel import elastic as el
+    from shifu_tpu_torch.train.checkpoint import tree_leaves
     xn, xc, y, w = _planes(64)
     ps = P.WDLModelSpec(numeric_dim=4, cat_cardinalities=CARDS)
     with pytest.raises(NotImplementedError, match="item 12"):
         PT.train_wdl_ensemble(xn, xc, y, w, ps, _settings(TrainSettings),
                               shard=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PT.train_wdl_streamed(None, ps, _settings(TrainSettings), 1, None,
-                              [], [], elastic=object(), device="cpu")
+    for name, arrays in (("norm", {"x": xn, "y": y, "w": w}),
+                         ("clean", {"bins": xc})):
+        d = str(tmp_path / name)
+        os.makedirs(d)
+        atomic_savez(os.path.join(d, "part-00000.npz"), **arrays)
+        atomic_write_json(os.path.join(d, "schema.json"), {
+            "outputNames": [f"c{i}" for i in range(4)],
+            "columnNums": list(range(4)), "numRows": 64})
+    settings = _settings(TrainSettings, epochs=3)
+    mask_fn = mask_fn_from_settings(1, valid_rate=0.25, seed=3)
+
+    def run(elastic):
+        planes = PT.ZippedPlanes(Shards.open(str(tmp_path / "norm")),
+                                 Shards.open(str(tmp_path / "clean")), 32)
+        return PT.train_wdl_streamed(planes, ps, settings, 1, mask_fn,
+                                     [0, 1, 2, 3], [0, 1, 2],
+                                     elastic=elastic, device="cpu")
+    plain = run(None)
+    ctx = el.ElasticContext(str(tmp_path / "job"), "ctrl-0",
+                            cfg=el.ElasticConfig(quorum_frac=1.0,
+                                                 step_timeout_ms=60000),
+                            heartbeat=False).start()
+    elas = run(ctx)
+    for a, b in zip(tree_leaves(plain.params), tree_leaves(elas.params)):
+        assert torch.equal(a, b)
+    assert plain.history == elas.history
+    assert ctx.board.last_closed_step() == settings.epochs
 
 
 # ------------------------------------------------------------ model sets

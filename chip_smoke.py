@@ -141,7 +141,7 @@ versions on one card.  Otherwise it
    ``cli.main train`` (524,288 rows a rank; 80 ``hist`` launches and 80
    cell all_reduces a rank) must write the one-rank forest bit for bit,
    out of core on the plane's first 524,288 rows in 4 windows of 131,072
-   (2 resident, 2 on the disk tail): a 5-tree depth-7 c2f GBT through
+   (2 resident, 2 on the disk tail): a 3-tree depth-7 c2f GBT through
    ``cli.main train -Dshifu.train.streaming=on`` and a 4-tree depth-7 RF
    in two super-batches of 2 (17 tail sweeps, 56 ``hist_batch`` launches)
    must equal one rank's forests, disk passes, tail sweeps and bytes read
@@ -162,7 +162,19 @@ versions on one card.  Otherwise it
    ``tree_traverse`` launch a rank, the rows gathered) must equal one
    rank's bit for bit, and 2 bags of an NN on the ensemble axis (5
    full-batch epochs on 65,536 x 256) one rank's within the reference's
-   tolerance (valid errors 1e-4, params 1e-3); each rank times sharded
+   tolerance (valid errors 1e-4, params 1e-3); WDL at the reference's
+   defaults on the plane's first 65,536 rows (224 numeric, 32
+   categorical): 2 bags on the ensemble axis (tables replicated, 3
+   full-batch epochs; each member bit-equal to it trained alone on one
+   rank), 1 bag on the data axis in batches of 16,384, its tables
+   row-sharded by ``auto`` past a lowered ``shardMinBytes`` and
+   replicated, and 1 bag streamed in windows of 16,384, each within 1e-4
+   of one rank's valid errors and 5e-4 of its params (a quarter of one
+   Adam step: a stack of 2 against 1, or a batch's sums split over the
+   ranks, sum in another order); ``stats -correlation``'s
+   accumulator over the 262,144 x 224 chunk (cells within 1e-10) and SE
+   over the NN plane (256 candidates, sums within 1e-6) one rank's;
+   each rank times sharded
    builds by part (raw launch, flush, the meta and the cells'
    all_reduces): B1 at GBT levels 0 and 6, B2 at TB = 8, K = 32 and B3
    on its half of a 262,144 x 224 chunk; a third process
@@ -192,8 +204,8 @@ versions on one card.  Otherwise it
    cache and 1 on the disk tail, coarse-to-fine (``hist`` and
    ``hist_batch`` both launched, counted from zero around the run; the
    device busy share of a 3-tree run from ``torch.profiler``); (a') the
-   exact schedule for 5 trees: (a)'s first 5 trees and progress bit for
-   bit in 45 tail sweeps, more a tree than (a)'s; (a0) (a)'s first tree, cut
+   exact schedule for 3 trees: (a)'s first 3 trees and progress bit for
+   bit in 27 tail sweeps, more a tree than (a)'s; (a0) (a)'s first tree, cut
    to depth 2, at the default geometry (two 4,129,776-row windows, none resident); (b) 6 trees with CheckpointInterval 5, then
    ``train -resume`` to 10 from the 5-tree checkpoint, with and without
    its score sidecar (8 ``tree_traverse`` launches, one a window),
@@ -326,7 +338,16 @@ versions on one card.  Otherwise it
    the first 16,384 rows, 2 bags, 2 epochs, on ``cuda`` and ``cpu``,
    resident and streamed in windows of 8,192:
    errors within 1e-4 relative, AUCs within 0.005; (e) 2 minibatch epochs then ``train
-   -resume`` to 4, bit-identical; (``svm_phase``) the rbf kernel SVM at
+   -resume`` to 4, bit-identical; (f) ``-Dshifu.wdl.shardTables=on``
+   (the row-sharded plane on a world of one) beside (d)'s card runs and
+   (e)'s uninterrupted run: the model files bit for bit, full batch
+   resident and streamed and at MiniBatchs 1,024; (g) (c)'s models
+   through the bucket scorer with ``serveCopy`` ``full``, ``sharded``
+   (a shard of one on the one card) and ``hot`` (``serveHotRows`` 8, below
+   every column's cardinality), every rung captured on the card, 917
+   rows in requests of 1-512: ``sharded`` bit for bit ``full``, ``hot``
+   within 1e-3 of its CPU copy on the 0-1000 scale and away from
+   ``full`` where an id is cold, no capture forced; (``svm_phase``) the rbf kernel SVM at
    the 16,384-row cap x 256 through the CLI and its 2,000-iteration dual
    solve timed alone, the dual on 2,048 rows on ``cuda`` and ``cpu``
    (duals within 1e-4, decisions within 1e-3, support sets equal but
@@ -361,8 +382,8 @@ versions on one card.  Otherwise it
    planes on ``cuda``, ``eval -run`` on ``cuda`` and ``cpu`` (AUCs within
    0.005), the WDL set's ``export -t spec`` re-read by
    ``load_reference_wdl`` scoring as the native model within rtol 1e-5,
-   and ``combo`` WDL:GBT as in (c) (80 ``hist``, one ``tree_traverse`` a
-   chunk; its WDL member 5 full-batch epochs);
+   and ``combo`` WDL:GBT as in (c) (its GBT member 5 trees: 40 ``hist``,
+   one ``tree_traverse`` a chunk; its WDL member 5 full-batch epochs);
    then every input kind and config check (``inputs_phase``): the stats
    CSV cut into ``.gz``, ``.bz2``, ``.xz``, ``.zip`` and plain shards, a
    shard of the wrong width and a corrupt ``.gz``, read with
@@ -576,6 +597,19 @@ s, nearly all of it ``torch.profiler`` recording every host op.
 ``profile_device`` now records the CUDA activity alone (its readers
 take only device events): the profiles 4.3 s, ``wdl_phase`` 24.5 s, on
 a call of the phase alone (``tools/smoke_phases.py`` runs phases alone).
+
+``wdl_phase`` then gained (f) and (g) (1.4 and 0.4 s) and ``mesh_phase``
+a rank's WDL runs, streamed WDL, correlation and SE (5.1 s a rank,
+behind its older steps): 7.0 s in all on an H100 80GB HBM3 at 700 W in a
+whole run of 498.4 s.  This round cut depth to pay for them (walls of
+that run -> the next, 461.3 s on another host):
+
+- the mesh's streamed c2f GBT 3 trees (were 5): a rank's 4.58 -> 1.71 s;
+- ``combo`` WDL:GBT's GBT member 5 trees (were 10): ``wdl_combo`` 24.2
+  -> 17.8 s, its CPU run 10.8 -> 6.2 s;
+- stream (a') 3 trees (were 5): 2.50 -> 1.42 s;
+- the fleet's two rows/s windows 1 s each (were 2): 2.0 s by
+  construction (``fleet_phase`` 27.8 -> 22.7 s, host included).
 """
 
 from __future__ import annotations
@@ -666,7 +700,7 @@ STREAM_RESIDENT = 7                        # (a): 7 x 140.5 MB <= 1 GiB
 STREAM_A0_TREES = 1                        # (a0): 13 s a tree at depth 7
 STREAM_A0_DEPTH = 2                        # (a0)'s tree (a cut)
 STREAM_RF_TREES = 8                        # (c): one super-batch (a cut)
-STREAM_EXACT_TREES = 5                     # (a'): (a)'s first 5 trees
+STREAM_EXACT_TREES = 3                     # (a'): (a)'s first 3 trees
 STREAM_CUT_ROWS = 16384                    # (d) card vs CPU: 8 windows,
 STREAM_CUT_WINDOW = STREAM_CUT_ROWS // 8   # 6 of them resident
 STREAM_CUT_RESIDENT = 6
@@ -1620,7 +1654,7 @@ def plane_rungs(torch, scorer, plan, rng, gpu) -> dict:
 FLEET_REPLICAS = 2
 FLEET_CLIENTS = 2                          # client threads during a swap
 FLEET_BATCH = 512                          # rows of a throughput request
-FLEET_LOAD_S = 2.0                         # seconds of each rows/s window
+FLEET_LOAD_S = 1.0                         # seconds of each rows/s window
 FLEET_START_S = 240.0                      # router + workers' start limit
 FLEET_DEVICE = "cuda"                      # the workers' --device
 # the workers' SLO objective: the default (2 x the 2 ms flush deadline)
@@ -3974,6 +4008,7 @@ AUX_EXPORTS = (("pmml",), ("pmml", "-c"), ("columnstats",),
                ("woemapping",), ("bagging",), ("-t", "spec"))
 SPEC_RTOL, SPEC_ATOL = 1e-5, 1e-6          # tests/test_reference_export.py
 COMBO_AUC_TOL = 0.005                      # member AUCs, card vs CPU
+COMBO_TREES = 5                            # combo WDL:GBT's GBT member
 COMBO_ROWS = CSV_ROWS                      # combo's rows of the e2e CSV
 GENETIC_KEEP = 64                          # GENETIC's filterNum
 GENETIC_WINDOW = CUT_ROWS // 4             # streamed GENETIC's window rows
@@ -4169,7 +4204,7 @@ def combo_pair(root: str, d: str, csv: str, algs: str = "LR:GBT",
                 as f:
             out[dev] = json.load(f)
     chunks = -(-(COMBO_ROWS + 1) // CSV_CHUNK)   # the header shortens one
-    run_want = TRAIN_TREES * (DEPTH + 1)
+    run_want = (params or {}).get("TreeNum", TRAIN_TREES) * (DEPTH + 1)
     if counts["run_cuda"]["hist"] != run_want or counts["eval_cuda"] != \
             chunks or counts["eval_cpu"] or any(counts["run_cpu"].values()):
         fail(f"combo {algs} launches {counts}: want {run_want} hist "
@@ -5427,6 +5462,10 @@ WDL_SCORE_TOL = 1e-2                      # served / evaluated, 0-1000
 WDL_E2E = {"MiniBatchs": 0, "LearningRate": 0.01}   # e2e set's WDL
 WDL_E2E_EPOCHS = 10
 WDL_COMBO_EPOCHS = 5                      # combo WDL:GBT's WDL member
+WDL_SHARD = {"shifu.wdl.shardTables": "on"}   # the row-sharded plane
+WDL_HOT_ROWS = 8                          # serveHotRows: under every card.
+WDL_COPY_BUCKETS = (1, 64, 512)           # the serving copies' rungs
+WDL_COPY_BATCHES = (1, 7, 64, 333, 512)   # request rows scored through them
 WDL_PROFILE_STEPS = (5, 10)               # minibatch steps profiled
 WDL_PROFILE_ROWS = 1 << 16                # a full-batch epoch profiled
 SVM_CAP, SVM_ITERS, SVM_CUT = 16384, 2000, 2048
@@ -5435,7 +5474,7 @@ SVM_ALPHA_TOL, SVM_F_TOL = 1e-4, 1e-3     # duals, decision values
 SVM_LINEAR = {"Kernel": "linear", "Const": 1.0, "Propagation": "ADAM",
               "LearningRate": 0.01}
 SVM_LINEAR_EPOCHS = 10
-WDL_GBT_COMBO = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
+WDL_GBT_COMBO = {"TreeNum": COMBO_TREES, "MaxDepth": DEPTH, "Loss": "log",
                  "LearningRate": 0.1, "MiniBatchs": 0}
 
 
@@ -5546,6 +5585,70 @@ def wdl_step_profile(torch, x_num, x_cat, y, w, spec, gpu: str) -> dict:
             "full_batch_profile": full_batch}
 
 
+def same_models(a: str, b: str, what: str) -> None:
+    """Every model file of set ``a`` holds set ``b``'s arrays bit for
+    bit."""
+    names = sorted(os.listdir(os.path.join(b, "models")))
+    if sorted(os.listdir(os.path.join(a, "models"))) != names:
+        fail(f"{what}: model files differ")
+    for f in names:
+        with np.load(os.path.join(a, "models", f)) as za, \
+                np.load(os.path.join(b, "models", f)) as zb:
+            if za.files != zb.files or any(
+                    za[k].tobytes() != zb[k].tobytes() for k in za.files):
+                fail(f"{what}: {f} differs")
+
+
+def wdl_serve_copies(members, x, bins, gpu: str) -> dict:
+    """``shifu.wdl.serveCopy`` through the bucket scorer the server pins:
+    ``full``, ``sharded`` (the process's one card: a shard of one) and
+    ``hot`` (WDL_HOT_ROWS head rows exact, a mean-of-tail row) built and
+    captured on the card at WDL_COPY_BUCKETS, requests of
+    WDL_COPY_BATCHES rows scored through each: ``sharded`` bit for bit
+    ``full``; ``hot`` within SCORE_TOL of its CPU copy and away from
+    ``full`` where an id is cold; no capture forced."""
+    from shifu_tpu_torch.config import environment
+    from shifu_tpu_torch.serve.scorer import AOTScorer, serve_capture_count
+    n = sum(WDL_COPY_BATCHES)
+    scores = {}
+    t0 = time.perf_counter()
+    try:
+        environment.set_property("shifu.wdl.serveHotRows",
+                                 str(WDL_HOT_ROWS))
+        for mode, devs in (("full", ("cuda",)), ("sharded", ("cuda",)),
+                           ("hot", ("cuda", "cpu"))):
+            environment.set_property("shifu.wdl.serveCopy", mode)
+            for dev in devs:
+                sc = AOTScorer(members, device=dev, buckets=WDL_COPY_BUCKETS,
+                               name=f"serve.score.wdl_{mode}_{dev}")
+                sc.warm()
+                xs = x[:n, :sc.n_features]
+                bs = bins[:n, :sc.n_bins_cols]
+                cuts = np.cumsum((0,) + WDL_COPY_BATCHES)
+                scores[mode, dev] = np.concatenate(
+                    [sc.score_batch(xs[a:b], bs[a:b])
+                     for a, b in zip(cuts[:-1], cuts[1:])])
+    finally:
+        for k in ("shifu.wdl.serveCopy", "shifu.wdl.serveHotRows"):
+            environment.set_property(k, "")
+    forced = serve_capture_count("serve.score.wdl_")
+    full, hot = scores["full", "cuda"], scores["hot", "cuda"]
+    diff = float(np.max(np.abs(hot - scores["hot", "cpu"])))
+    moved = float(np.max(np.abs(hot - full)))
+    if scores["sharded", "cuda"].tobytes() != full.tobytes():
+        fail("WDL (g): the sharded serving copy differs from the full copy")
+    if not diff <= SCORE_TOL or not moved > 0 or forced:
+        fail(f"WDL (g): hot copy card vs CPU {diff:.3g} (tol {SCORE_TOL}), "
+             f"max |hot - full| {moved:.3g}, {forced} captures forced")
+    out = {"hot_card_cpu": diff, "hot_vs_full": moved,
+           "captures_forced": forced, "wall_s": time.perf_counter() - t0}
+    log(f"WDL (g) serve copies at rungs {WDL_COPY_BUCKETS}: sharded = full "
+        f"bit for bit over {n} rows; hot ({WDL_HOT_ROWS} head rows) card vs "
+        f"CPU {diff:.3g}, max |hot - full| {moved:.3g}; {forced} captures "
+        f"forced; {out['wall_s']:.2f} s — [{gpu}]")
+    return out
+
+
 def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
               rows: int = WDL_ROWS, card: str = "cuda") -> dict:
     """The WDL slice at full width through ``cli.main train``: a norm
@@ -5562,7 +5665,12 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
     bags, on the card and on the CPU, resident and streamed in windows of
     WDL_CUT_WINDOW: errors within WDL_ERR_RTOL, AUCs within WDL_AUC_TOL;
     (e) WDL_RESUME:
-    minibatch epochs, then ``train -resume``, bit-identical."""
+    minibatch epochs, then ``train -resume``, bit-identical; (f)
+    ``-Dshifu.wdl.shardTables=on`` (the row-sharded plane on a world of
+    one) beside (d)'s card runs and (e)'s uninterrupted one: the model
+    files bit for bit, full batch resident and streamed and at MiniBatchs
+    1,024; (g) (c)'s models through the serving copies
+    (``wdl_serve_copies``)."""
     from shifu_tpu_torch.config.model_config import Algorithm
     from shifu_tpu_torch.models import wdl as wdl_model
     from shifu_tpu_torch.ops import tree_quant as tq
@@ -5679,6 +5787,9 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
         f"host's over 65,536 rows; served max |card - cpu| "
         f"{served.get('max_abs_score_diff', float('nan')):.3g} — [{gpu}]")
     mark("(c) serve")
+    if card == "cuda":
+        out["g"] = wdl_serve_copies(hashed, x, bins, gpu)
+        mark("(g) serve copies")
 
     # (d) the card against the CPU on CUT_ROWS rows, resident and streamed
     cut_n, cut_c = (os.path.join(root, f"wdl_cut_{k}")
@@ -5701,6 +5812,16 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
                               for m in wdl_members(dd)], axis=0)
             runs.append((wall, progress_errors(dd),
                          auc(scores, y[:CUT_ROWS])))
+            if i == 0:
+                # (f) the row-sharded plane on one card: the replicated
+                # run's model files bit for bit
+                sd = wdl_set(root, f"wdl_f_{mode}", serve_root, cut_n, cut_c,
+                             {"MiniBatchs": 0}, baggingNum=WDL_CUT_BAGS,
+                             numTrainEpochs=WDL_CUT_EPOCHS)
+                shard_wall = props_cli(sd, dev, {**props, **WDL_SHARD})
+                same_models(sd, dd, f"WDL (f) {mode} sharded")
+                out.setdefault("f", {})[mode] = {"wall_s": shard_wall,
+                                                 "replicated_wall_s": wall}
         (cw, ce, ca), (pw, pe, pa) = runs
         rel = float(np.max(np.abs(ce - pe) / np.abs(pe)))
         if ce.shape != pe.shape or not rel <= WDL_ERR_RTOL or \
@@ -5721,18 +5842,21 @@ def wdl_phase(torch, root: str, serve_root: str, plan, rng, gpu: str,
     whole = wdl_set(root, "wdl_e0", serve_root, cut_n, cut_c, params,
                     baggingNum=WDL_BAGS, numTrainEpochs=total)
     train_cli(whole, card)
+    # (f) the sharded plane at the minibatch size: bit for bit
+    sd = wdl_set(root, "wdl_f_minibatch", serve_root, cut_n, cut_c, params,
+                 baggingNum=WDL_BAGS, numTrainEpochs=total)
+    out["f"]["minibatch"] = {"wall_s": props_cli(sd, card, WDL_SHARD)}
+    same_models(sd, whole, "WDL (f) minibatch sharded")
+    log(f"WDL (f) shardTables=on on one card: model files bit-identical "
+        f"to the replicated runs, full batch resident and streamed and "
+        f"MiniBatchs {batch}; walls {out['f']} — [{gpu}]")
     r = wdl_set(root, "wdl_e1", serve_root, cut_n, cut_c, params,
                 baggingNum=WDL_BAGS, numTrainEpochs=first)
     train_cli(r, card)
     set_train_conf(r, numTrainEpochs=total)
     train_cli(r, card, "-resume")
-    for f in sorted(os.listdir(os.path.join(whole, "models"))):
-        a_np, b_np = (np.load(os.path.join(dd, "models", f))
-                      for dd in (whole, r))
-        if a_np.files != b_np.files or any(
-                a_np[k].tobytes() != b_np[k].tobytes() for k in a_np.files):
-            fail(f"WDL (e) {f}: {first} epochs + train -resume differ from "
-                 f"{total} uninterrupted")
+    same_models(r, whole, f"WDL (e): {first} epochs + train -resume against "
+                f"{total} uninterrupted")
     out["e"] = {"resume_bit_identical": True}
     log(f"WDL (e) {first} minibatch epochs + train -resume to {total} "
         f"bit-identical to the uninterrupted run — [{gpu}]")
@@ -7200,7 +7324,7 @@ MESH_TIMED_REPEATS = 3                  # all_reduces timed a sharded build
 # the out-of-core mesh: the train plane's first 524,288 rows in 4 windows
 # of 131,072, 2 resident under the device budget and 2 on the disk tail
 MESH_STREAM_ROWS, MESH_STREAM_WINDOW = 1 << 19, 1 << 17
-MESH_SGBT = {"TreeNum": 5, "MaxDepth": DEPTH, "Loss": "log",
+MESH_SGBT = {"TreeNum": 3, "MaxDepth": DEPTH, "Loss": "log",
              "LearningRate": 0.1}
 MESH_STREAM_PROPS = {
     "shifu.train.streaming": "on",
@@ -7210,6 +7334,31 @@ MESH_STREAM_PROPS = {
 MESH_SRF_TREES, MESH_SRF_BATCH = 4, 2   # the streamed RF: 2 super-batches
 MESH_SRF_BUDGET = 2 * MESH_STREAM_WINDOW * (N_COLS + 8) + (1 << 20)
 MESH_SNN_WINDOW, MESH_SNN_EPOCHS = 1 << 14, 2   # the NN plane's 4 windows
+# WDL on the mesh: the train plane's first 65,536 rows at full width, 2
+# bags on the ensemble axis (replicated tables, a member a rank, no rows
+# split), 1 bag on the data axis of 2 with its tables row-sharded by
+# ``auto`` past a lowered shardMinBytes and replicated (``shard=False``),
+# and 1 bag streamed in windows of 16,384; SE over the NN plane in mask
+# batches of 32
+MESH_WDL_ROWS, MESH_WDL_BAGS, MESH_WDL_EPOCHS = 1 << 16, 2, 3
+MESH_WDL_BATCH, MESH_WDL_WINDOW = 1 << 14, 1 << 14
+# params (the CPU tests hold 1e-5 on 64 rows).  The 2-bag mesh run must be
+# bit-equal, member by member, to each member trained alone on one rank
+# (a stack of 1); its gap to one rank's 2-bag run is then one rank's own
+# gap between a stack of 2 and of 1 (the batched GEMMs over another shape
+# sum in another order; 1.2e-4 on an H100, its valid errors bit-equal).
+# The data-axis runs reassociate each batch's sums over the ranks (1.2e-4
+# on the phases run's data, 2.6e-6 on a whole run's).  Both reach the
+# params through Adam, which divides each gradient by its own size, so a
+# weight whose gradient is a near-cancelling sum (an uninformative
+# column's) takes that sum's rounding into its step.  A quarter of one
+# step (lr 0.002) bounds both gaps.
+MESH_WDL_PARAM_ATOL, MESH_WDL_ERR_RTOL = 5e-4, 1e-4
+MESH_SE_BATCH = 32
+# Pearson cells in [-1, 1]: a near-zero cell is the difference of two
+# float64 pair sums that nearly cancel at 262,144 rows, so its relative
+# error is not bounded by the sums'; the cells are held absolutely
+MESH_CORR_ATOL, MESH_SE_RTOL = 1e-10, 1e-6
 # the elastic sync drill: 2 controllers of parallel/elastic_demo on the
 # card, one killed at dcn:step=3 and relaunched, against a control run
 ELASTIC_ARGS = ["--rows", "8192", "--features", str(N_COLS), "--epochs",
@@ -7322,6 +7471,143 @@ def mesh_stream_nn(torch, nn_dir: str, mesh):
         mask_fn_from_settings(1, valid_rate=0.2, seed=0), device="cuda",
         mesh=mesh)
     return res.valid_errors, res.history
+
+
+def mesh_wdl_spec(cards):
+    """The reference's WDL defaults (EmbedColumnNum 8, [64, 32] relu, wide
+    and deep) over the plane's 224 numeric and 32 categorical columns."""
+    from shifu_tpu_torch.models.wdl import WDLModelSpec
+    return WDLModelSpec(numeric_dim=N_NUM,
+                        cat_cardinalities=[int(c) for c in cards])
+
+
+def wdl_settings(epochs: int, batch: int):
+    from shifu_tpu_torch.train.nn_trainer import TrainSettings
+    return TrainSettings(optimizer="ADAM", learning_rate=0.002, l2=1e-5,
+                         epochs=epochs, batch_size=batch, seed=0)
+
+
+def wdl_leaves(spec, res):
+    """(valid errors, every member's arrays in the model file's order)."""
+    from shifu_tpu_torch.models.wdl import columns_of
+    from shifu_tpu_torch.train.checkpoint import tree_leaves
+    return res.valid_errors, [[np.asarray(a) for a in tree_leaves(
+        columns_of(spec, p))] for p in res.params]
+
+
+def mesh_wdl(torch, job: dict, mesh_of) -> dict:
+    """The resident WDL scenarios on ``mesh_of(bags)``: 2 bags, full batch
+    (replicated tables; on 2 ranks the ensemble axis, a member a rank, no
+    rows split), and 1 bag in batches of MESH_WDL_BATCH on the data axis
+    (2 ranks: each batch's rows split), its tables row-sharded by
+    ``auto`` and replicated (``shard=False``: the table gradients in the
+    flat all_reduce).  On one rank (``mesh_of`` gives None) the two 1-bag
+    runs are one computation, run once."""
+    from shifu_tpu_torch.train.wdl_shard import shard_enabled
+    from shifu_tpu_torch.train.wdl_trainer import train_wdl_ensemble
+    z = np.load(job["wdl"])
+    spec = mesh_wdl_spec(z["cards"])
+    on_mesh = mesh_of(1) is not None
+    out = {"sharded": shard_enabled(spec, mesh_of(1))}
+    runs = [("replicated", MESH_WDL_BAGS, 0, None),
+            ("sharded_run", 1, MESH_WDL_BATCH, None)]
+    if on_mesh:
+        runs.append(("replicated_data", 1, MESH_WDL_BATCH, False))
+    for name, bags, bs, shard in runs:
+        out[name] = wdl_leaves(spec, train_wdl_ensemble(
+            z["x_num"], z["x_cat"], z["y"], z["w"], spec,
+            wdl_settings(MESH_WDL_EPOCHS, bs), bags=bags, device="cuda",
+            shard=shard, mesh=mesh_of(bags)))
+    if not on_mesh:
+        out["replicated_data"] = out["sharded_run"]
+    return out
+
+
+def mesh_wdl_members_alone(torch, job: dict) -> list:
+    """Each member of the 2-bag run trained alone on one rank, a stack of
+    1 (its init and its masks sliced from the 2-bag run's): what a rank
+    of the ensemble axis computes, with no collective.  Bit-equal to the
+    mesh's members, it puts the mesh's gap to the 2-bag one-rank run on
+    the member stack's shape (batched GEMMs over B = 2 against B = 1)."""
+    from shifu_tpu_torch.train import wdl_trainer as PT
+    from shifu_tpu_torch.train.optimizers import tree_map
+    z = np.load(job["wdl"])
+    spec = mesh_wdl_spec(z["cards"])
+    init, masks = PT._init_stack, PT.member_masks
+    out = []
+    for i in range(MESH_WDL_BAGS):
+        def one_init(spec, settings, bags, dev, i=i):
+            key, opt, precision, stacked, state = init(
+                spec, settings, MESH_WDL_BAGS, dev)
+            take = lambda t: t[i:i + 1].clone()        # noqa: E731
+            return (key, opt, precision, tree_map(take, stacked),
+                    tree_map(take, state))
+
+        def one_masks(n, bags, i=i, **kw):
+            return tuple(m[i:i + 1] for m in masks(n, MESH_WDL_BAGS, **kw))
+        PT._init_stack, PT.member_masks = one_init, one_masks
+        try:
+            va, params = wdl_leaves(spec, PT.train_wdl_ensemble(
+                z["x_num"], z["x_cat"], z["y"], z["w"], spec,
+                wdl_settings(MESH_WDL_EPOCHS, 0), bags=1, device="cuda"))
+        finally:
+            PT._init_stack, PT.member_masks = init, masks
+        out.append((va[0], params[0]))
+    return out
+
+
+def mesh_wdl_streamed(torch, job: dict, mesh):
+    """The streamed WDL (1 bag, full batch, 2 epochs) over the WDL
+    planes in windows of MESH_WDL_WINDOW, each window's rows split."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import mask_fn_from_settings
+    from shifu_tpu_torch.train.wdl_trainer import (ZippedPlanes,
+                                                   train_wdl_streamed)
+    z = np.load(job["wdl"])
+    spec = mesh_wdl_spec(z["cards"])
+    planes = ZippedPlanes(Shards.open(job["wdl_norm"]),
+                          Shards.open(job["wdl_clean"]), MESH_WDL_WINDOW,
+                          remainder_multiple=1)
+    return wdl_leaves(spec, train_wdl_streamed(
+        planes, spec, wdl_settings(2, 0), 1,
+        mask_fn_from_settings(1, valid_rate=0.2, seed=0), z["num_idx"],
+        z["cat_idx"], device="cuda", mesh=mesh))
+
+
+def mesh_correlation(torch, mesh) -> np.ndarray:
+    """``stats -correlation``'s accumulator over the stats chunk (two
+    halves; each rank its block of each): the [224, 224] Pearson
+    matrix."""
+    from shifu_tpu_torch.ops.correlation import CorrelationAccumulator
+    x, valid, _, _ = mesh_stats_chunk(torch)
+    with np.errstate(invalid="ignore"):
+        off = np.nanmean(np.where(valid, x, np.nan), axis=0)
+    acc = CorrelationAccumulator(n_cols=N_NUM, offset=np.nan_to_num(off),
+                                 device="cuda", mesh=mesh)
+    half = RESIDENT_ROWS // 2
+    for s, e in ((0, half), (half, RESIDENT_ROWS)):
+        acc.update(np.where(valid[s:e], x[s:e], 0.0), valid[s:e])
+    return acc.finalize()
+
+
+def mesh_sensitivity(torch, nn_dir: str, mesh):
+    """SE over the NN plane (windows of MESH_SNN_WINDOW) for a seeded
+    256 -> [64] tanh net, one candidate a column: (frozen MSEs, base
+    MSE)."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import ShardStream
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.ops import prng
+    from shifu_tpu_torch.ops import sensitivity as sens
+    spec = nn_model.NNModelSpec(input_dim=N_COLS, hidden_nodes=[64],
+                                activations=["tanh"], loss="log")
+    params = [{k: v.numpy() for k, v in layer.items()}
+              for layer in nn_model.init_params(prng.prng_key(6), spec)]
+    mse, base, _ = sens.streamed_sensitivity(
+        ShardStream(Shards.open(nn_dir), ("x", "y"), MESH_SNN_WINDOW), spec,
+        params, sens.mask_matrix(N_COLS, [[i] for i in range(N_COLS)]),
+        mask_batch=MESH_SE_BATCH, device="cuda", mesh=mesh)
+    return mse, base
 
 
 def mesh_window_checks(torch, plane_dir: str, mesh, tree) -> dict:
@@ -7583,6 +7869,18 @@ def mesh_rank_main(torch, rank: str, mesh_dir: str) -> None:
     res["window_checks"] = walled(
         "window_checks", lambda: mesh_window_checks(
             torch, job["stream_plane"], mesh, res["sgbt"][0]))
+    # WDL on the mesh (``auto`` shards past a lowered threshold), then
+    # stats -correlation's accumulator and SE
+    from shifu_tpu_torch.config import environment
+    environment.set_property("shifu.wdl.shardMinBytes", "1")
+    res["wdl"] = walled("wdl", lambda: mesh_wdl(
+        torch, job, lambda bags: meshlib.device_mesh(n_ensemble=bags)))
+    res["swdl"] = walled("swdl", lambda: mesh_wdl_streamed(torch, job,
+                                                           mesh))
+    environment.set_property("shifu.wdl.shardMinBytes", "")
+    res["corr"] = walled("corr", lambda: mesh_correlation(torch, mesh))
+    res["se"] = walled("se", lambda: mesh_sensitivity(
+        torch, job["nn_plane"], mesh))
     with open(os.path.join(mesh_dir, f"rank{r}.pkl"), "wb") as f:
         pickle.dump(res, f)
     dist.destroy_process_group()
@@ -7618,7 +7916,7 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
     mark = marker(steps, t_phase, "mesh_phase: ")
     mdir = os.path.join(root, "mesh")
     os.makedirs(mdir)
-    bins, y, w, _, _, clean, _, names = plane
+    bins, y, w, _, is_cat, clean, _, names = plane
     # the elastic drill's controllers start first: they take longest
     drill = ElasticDrill(mdir)
     params = {"TreeNum": TRAIN_TREES, "MaxDepth": DEPTH, "Loss": "log",
@@ -7645,10 +7943,26 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
     sdirs = [write_train_set(os.path.join(mdir, f"sgbt{r}"), serve_root,
                              MESH_SGBT, stream_plane_dir)
              for r in list(range(MESH_RANKS)) + ["one"]]
+    # the WDL planes: the train plane's first rows, numerics a function of
+    # their bins (as wdl_phase's), categorical bins as ids
+    wb = bins[:MESH_WDL_ROWS]
+    wx = (wb.astype(np.float32) - 31.5) / 18.5
+    num_idx, cat_idx = np.flatnonzero(~is_cat), np.flatnonzero(is_cat)
+    job = {"gbt_dirs": dirs, "clean": clean, "sgbt_dirs": sdirs,
+           "stream_plane": stream_plane_dir, "nn_plane": nn_plane,
+           "wdl": os.path.join(mdir, "wdl.npz"),
+           "wdl_norm": os.path.join(mdir, "wdl_norm"),
+           "wdl_clean": os.path.join(mdir, "wdl_clean")}
+    np.savez(job["wdl"], x_num=wx[:, num_idx],
+             x_cat=wb[:, cat_idx].astype(np.int32), y=y[:MESH_WDL_ROWS],
+             w=w[:MESH_WDL_ROWS], num_idx=num_idx, cat_idx=cat_idx,
+             cards=wb[:, cat_idx].max(axis=0).astype(np.int64) + 1)
+    write_norm_plane(job["wdl_norm"], wx, y[:MESH_WDL_ROWS],
+                     w[:MESH_WDL_ROWS], names)
+    write_plane(job["wdl_clean"], wb, y[:MESH_WDL_ROWS], w[:MESH_WDL_ROWS],
+                names, {"chip_smoke": "mesh_wdl"})
     with open(os.path.join(mdir, "job.json"), "w") as f:
-        json.dump({"gbt_dirs": dirs, "clean": clean, "sgbt_dirs": sdirs,
-                   "stream_plane": stream_plane_dir, "nn_plane": nn_plane},
-                  f)
+        json.dump(job, f)
     script = os.path.abspath(__file__)
     gloo_port, nccl_port = free_port(), free_port()
     procs = []
@@ -7672,6 +7986,12 @@ def mesh_phase(torch, root: str, serve_root: str, plane, gbt_dir: str,
         one.update(mesh_one_rank_streamed(torch, sdirs[-1],
                                           stream_plane_dir, nn_plane))
         mark("one rank's streamed results")
+        one.update(wdl=mesh_wdl(torch, job, lambda bags: None),
+                   wdl_alone=mesh_wdl_members_alone(torch, job),
+                   swdl=mesh_wdl_streamed(torch, job, None),
+                   corr=mesh_correlation(torch, None),
+                   se=mesh_sensitivity(torch, nn_plane, None))
+        mark("one rank's WDL, correlation and SE")
         elastic = drill.finish()
         mark("elastic drill finished")
         for rank, logf, p in procs:
@@ -7956,6 +8276,69 @@ def mesh_one_rank(torch, bins, y, w, nn_x, nn_y, gbt_dir: str) -> dict:
             "nn": mesh_nn(torch, nn_x, nn_y, None)}
 
 
+def mesh_compare_wdl(ranks, one) -> dict:
+    """Every rank's WDL runs within MESH_WDL_PARAM_ATOL (params) and
+    MESH_WDL_ERR_RTOL (valid errors) of one rank's, the sharded one
+    really sharded; the 2-bag run's members (a rank each, no rows split)
+    bit-equal to each member trained alone on one rank; the correlation
+    cells within MESH_CORR_ATOL and the SE sums within MESH_SE_RTOL of
+    one rank's.  Every comparison is logged before any fails."""
+    worst, failed = {}, []
+
+    def same(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            a.tobytes() == b.tobytes()
+    # one rank's own gap between the 2-bag stack and its members alone
+    stack = max(float(np.max(np.abs(a - b))) for (_, alone), member in zip(
+        one["wdl_alone"], one["wdl"]["replicated"][1])
+        for a, b in zip(alone, member))
+
+    def close(what, got, want):
+        (va, params), (va1, params1) = got, want
+        err = float(np.max(np.abs(va - va1) / np.abs(va1)))
+        diffs = [np.abs(a - b) for pg, pw in zip(params, params1)
+                 for a, b in zip(pg, pw)]
+        par = max(float(d.max()) for d in diffs)
+        worst[what] = max(worst.get(what, (0.0, 0.0)), (err, par))
+        if len(params) != len(params1) or not err <= MESH_WDL_ERR_RTOL \
+                or not par <= MESH_WDL_PARAM_ATOL:
+            failed.append(
+                f"{what}: valid errors {err:.3g} relative, params {par:.3g}"
+                f" ({sum(int((d > 1e-5).sum()) for d in diffs)} of "
+                f"{sum(d.size for d in diffs)} past 1e-5)")
+    for r, got in enumerate(ranks):
+        if not got["wdl"]["sharded"]:
+            failed.append(f"rank {r}: the 1-bag WDL was not row-sharded")
+        for name in ("replicated", "sharded_run", "replicated_data"):
+            close(f"WDL {name}", got["wdl"][name], one["wdl"][name])
+        va, members = got["wdl"]["replicated"]
+        for i, (va1, alone) in enumerate(one["wdl_alone"]):
+            if not (va[i] == va1 and len(alone) == len(members[i]) and all(
+                    same(a, b) for a, b in zip(members[i], alone))):
+                failed.append(f"rank {r}: WDL member {i} of the 2-bag mesh "
+                              f"run differs from it trained alone")
+        close("streamed WDL", got["swdl"], one["swdl"])
+        corr = float(np.nanmax(np.abs(got["corr"] - one["corr"])))
+        se = max(float(np.max(np.abs(got["se"][0] - one["se"][0])
+                              / np.abs(one["se"][0]))),
+                 abs(got["se"][1] - one["se"][1]) / abs(one["se"][1]))
+        worst["corr"] = max(worst.get("corr", 0.0), corr)
+        worst["se"] = max(worst.get("se", 0.0), se)
+        if not (np.isnan(got["corr"]) == np.isnan(one["corr"])).all() or \
+                not corr <= MESH_CORR_ATOL or not se <= MESH_SE_RTOL:
+            failed.append(f"rank {r}: correlation cells {corr:.3g} absolute, "
+                          f"SE {se:.3g} relative from one rank's")
+    walls = [{k: round(g["walls_s"][k], 3) for k in
+              ("wdl", "swdl", "corr", "se")} for g in ranks]
+    log(f"mesh WDL, correlation and SE: {MESH_RANKS} ranks against one "
+        f"(WDL valid-error rel, params abs; correlation abs; SE rel): "
+        f"{worst}; one rank's 2-bag stack against its members alone: "
+        f"params {stack:.3g} abs; rank walls {walls}")
+    if failed:
+        fail("mesh: " + "; ".join(failed))
+    return {"worst": worst, "stack_gap": stack, "walls_s": walls}
+
+
 def mesh_compare(ranks, one) -> dict:
     def same(a, b):
         a, b = np.asarray(a), np.asarray(b)
@@ -8071,6 +8454,7 @@ def mesh_compare(ranks, one) -> dict:
         f"{ranks[0]['window_checks']}; rank walls "
         f"{[{k: round(g['walls_s'][k], 3) for k in ('sgbt', 'srf', 'snn')}
             for g in ranks]}")
+    out["wdl"] = mesh_compare_wdl(ranks, one)
     out["timed"] = [g["timed"] for g in ranks]
     out["walls_s"] = [g["walls_s"] for g in ranks]
     log(f"mesh: {MESH_RANKS} ranks' GBT and RF forests, stats boundaries, "

@@ -116,12 +116,18 @@ _DECLS: Tuple[Knob, ...] = (
     _k("shifu.wdl.shardTables", "property", "str", "auto",
        "row-shard WDL embed/wide tables + optimizer moments over the data "
        "axis (on/off/auto by shardMinBytes)"),
+    _k("shifu.wdl.shardMinBytes", "property", "int", "67108864",
+       "auto gate: shard the WDL categorical plane when params+moments "
+       "exceed this many bytes"),
     _k("shifu.wdl.hashBuckets", "property", "int", "0",
        "hashed-ID bucket space: categorical columns wider than this map "
        "through splitmix64 (0 = exact ids; params.HashBuckets wins)"),
     _k("shifu.wdl.serveCopy", "property", "str", "auto",
        "serve-time WDL table copy: full | sharded | hot | auto (sharded when "
        "multi-device and over shardMinBytes)"),
+    _k("shifu.wdl.serveHotRows", "property", "int", "65536",
+       "hot serve copy: exact head rows kept per table (cold tail "
+       "squashes to one fallback row)"),
     _k("shifu.tree.tailSuperBatchBytes", "property", "int", "268435456",
        "histogram budget deriving the disk-tail tree super-batch"),
     _k("shifu.tree.tailCoarseToFine", "property", "bool", "auto",

@@ -16,8 +16,12 @@ over global row ids (each id clipped into its column first, as the
 reference's gather clips), and their backward one deterministic
 accumulate, whatever the number of columns.  Members stack on a leading
 axis (``embed`` [B, R, E]); the stacked tables are gathered as one
-[B·R, E] table.  Model files keep the reference's per-column npz keys
-(``emb{i}``, ``wc{i}``), so each package loads the other's.
+[B·R, E] table.  The dense half of the forward
+(:func:`logits_from_rows`) takes the looked-up rows, so the replicated
+lookup, the trainer's row-sharded one (``train/wdl_shard.py``) and the
+serving copies share its arithmetic op for op.  Model files keep the
+reference's per-column npz keys (``emb{i}``, ``wc{i}``), so each package
+loads the other's.
 
 The reference lowers its lookups two ways: a clipped gather (scoring
 batches) and, when ``N·C·K`` is at most 2^25, a one-hot einsum at
@@ -230,7 +234,26 @@ def logits_from_ids(params: Params, spec: WDLModelSpec,
                     x_num: torch.Tensor, ids: Optional[torch.Tensor],
                     n: int) -> torch.Tensor:
     """:func:`forward_logits` over the flat tables' row ids
-    (:func:`global_ids`; a trainer maps its plane once).
+    (:func:`global_ids`; a trainer maps its plane once): the lookups, then
+    :func:`logits_from_rows`."""
+    stacked = params["bias"].dim() == 2
+    emb = wrows = None
+    if ids is not None:
+        if spec.deep_enable:
+            emb = _lookup(params["embed"], ids, stacked)       # [.., N, C, E]
+        if spec.wide_enable:
+            wrows = _lookup(params["wide_cat"], ids, stacked)  # [.., N, C]
+    return logits_from_rows(params, spec, x_num, emb, wrows, n)
+
+
+def logits_from_rows(params: Params, spec: WDLModelSpec,
+                     x_num: torch.Tensor, emb: Optional[torch.Tensor],
+                     wrows: Optional[torch.Tensor], n: int) -> torch.Tensor:
+    """The dense half of the forward over rows already looked up: ``emb``
+    [.., N, C, E] and ``wrows`` [.., N, C] (None without categorical
+    columns or without that side).  Every lookup (replicated, row-sharded
+    or a serving copy) feeds this one function, so their arithmetic is the
+    same op for op.
 
     The compute dtype follows the tables (the bf16/mixed ladder casts the
     whole tree): lookups, numerics and hidden activations run narrow, the
@@ -249,7 +272,6 @@ def logits_from_ids(params: Params, spec: WDLModelSpec,
         if spec.numeric_dim:
             parts.append(x_num.expand(*lead, n, spec.numeric_dim))
         if n_cat:
-            emb = _lookup(params["embed"], ids, stacked)   # [.., N, C, E]
             parts.append(emb.reshape(*lead, n, n_cat * spec.embed_dim))
         h = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
         acts = [nn_model.activation(a) for a in spec.activations]
@@ -259,7 +281,6 @@ def logits_from_ids(params: Params, spec: WDLModelSpec,
     if spec.wide_enable:
         wide = None
         if n_cat:
-            wrows = _lookup(params["wide_cat"], ids, stacked)  # [.., N, C]
             # left to right, as the reference's column loop adds
             wide = torch.cumsum(wrows.float(), dim=-1)[..., -1:]
         if spec.numeric_dim:

@@ -189,6 +189,11 @@ def register_cost_model(name: str,
     _models[name] = fn
 
 
+def cost_models() -> Dict[str, Callable[..., Dict[str, float]]]:
+    """The registered analytic models, by name."""
+    return dict(_models)
+
+
 def record_model_launch(name: str, **shape_kwargs) -> None:
     """Record one launch of an analytically modelled kernel, keyed by its
     shape kwargs.  No-op when telemetry is off or the model is unknown."""

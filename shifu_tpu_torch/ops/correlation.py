@@ -12,6 +12,12 @@ variance (the reference's cells with a categorical column are off the
 exact Pearson by up to ~4e-4 on the test fixture; numeric cells, shifted
 by their means, agree to 1e-6).  Categorical columns take part through
 their bin pos-rate encoding, which the caller supplies.
+
+On a mesh (``mesh``, the data axis above 1) every rank reads every chunk
+and keeps its block of the rows (``parallel.mesh.shard_chunk_rows``, the
+padding rows invalid, so they add nothing), as the reference shards the
+chunk over its ``data`` axis; :meth:`CorrelationAccumulator.finalize`
+sums the ranks' float64 pair sums in one all_reduce over the data group.
 """
 
 from __future__ import annotations
@@ -47,14 +53,17 @@ class CorrelationAccumulator:
     n_cols: int
     offset: Optional[np.ndarray] = None
     device: DeviceLike = "cpu"
+    mesh: Optional[object] = None
     n: Optional[np.ndarray] = None
     sx: Optional[np.ndarray] = None
     sxy: Optional[np.ndarray] = None
     sxx: Optional[np.ndarray] = None
 
     def update(self, x: np.ndarray, valid: np.ndarray) -> None:
+        from ..parallel.mesh import shard_chunk_rows
         dev = torch.device(self.device)
         off = np.zeros(self.n_cols) if self.offset is None else self.offset
+        x, valid, _ = shard_chunk_rows(self.mesh, x, valid)
         xd = torch.from_numpy(np.ascontiguousarray(x, np.float64)).to(dev)
         vd = torch.from_numpy(np.ascontiguousarray(valid, np.bool_)).to(dev)
         od = torch.from_numpy(np.asarray(off, np.float64)).to(dev)
@@ -71,6 +80,13 @@ class CorrelationAccumulator:
     def finalize(self) -> np.ndarray:
         """[C, C] Pearson over each pair's both-valid rows; degenerate pairs
         (no overlap / zero variance) give NaN."""
+        from ..parallel.mesh import all_reduce, data_sharded
+        if data_sharded(self.mesh) and self.n is not None:
+            # the ranks' pair sums, once: one float64 all_reduce
+            sums = all_reduce(self.mesh, torch.from_numpy(np.stack(
+                [self.n, self.sx, self.sxy, self.sxx])).to(self.device))
+            self.n, self.sx, self.sxy, self.sxx = sums.cpu().numpy()
+            self.mesh = None
         if self.n is None:
             return np.full((self.n_cols, self.n_cols), np.nan)
         n, sx, sxy, sxx = self.n, self.sx, self.sxy, self.sxx

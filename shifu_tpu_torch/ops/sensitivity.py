@@ -16,6 +16,11 @@ accumulate the squared-error rise), as a streamed, mask-batched program.
   gives the resident loop's unweighted mean, and accumulates across
   windows in float64 on the device; the scores come back in ONE fetch at
   the end.
+- On a mesh (``mesh``, the data axis above 1) each rank keeps its block of
+  every window's rows (``row_block``; the caller's windows are a
+  multiple of the data axis, as the reference's are); the feature sums and
+  base error sum over the data group in one all_reduce after pass 1, the
+  per-candidate squared-error sums in one after pass 2.
 
 The forward is plain ``torch.matmul`` (the reference computes it outside
 any Pallas kernel).  :func:`per_column_scores` is the resident
@@ -89,17 +94,19 @@ def per_column_scores(spec, params, x, y, masks: np.ndarray,
 
 def streamed_sensitivity(stream, spec, params, masks: np.ndarray,
                          mask_batch: Optional[int] = None,
-                         cache_budget: Optional[int] = None, device=None
-                         ) -> Tuple[np.ndarray, float, int]:
+                         cache_budget: Optional[int] = None, device=None,
+                         mesh=None) -> Tuple[np.ndarray, float, int]:
     """The streamed, mask-batched job over ``stream`` (a ``ShardStream``
     over the norm plane with keys ``("x", "y")``) for the [C, D] candidate
     ``masks``.  Returns (frozen MSE [C] float64, base MSE, rows seen); on
     resident data the scores are :func:`per_column_scores`' up to the
     order of the sums."""
     from ..data.streaming import PreparedWindow, ResidentCache
+    from ..parallel.mesh import all_reduce, data_sharded
     from ..train.dt_trainer import _WindowCopier
 
     dev = resolve_device(device)
+    sharded = data_sharded(mesh)
     C, D = masks.shape
     if C == 0:
         raise ValueError("streamed_sensitivity: no candidate masks")
@@ -136,9 +143,11 @@ def streamed_sensitivity(stream, spec, params, masks: np.ndarray,
     def prepare(win):
         valid = np.zeros(win.rows, np.float32)
         valid[:win.n_valid] = 1.0            # padded rows weigh zero
+        r0, r1 = mesh.row_block(win.rows) if sharded else (0, win.rows)
         arrays, sync = copier(
-            {"y": np.asarray(win.arrays["y"], np.float32), "w": valid},
-            extra={"x": np.asarray(win.arrays["x"], np.float32)})
+            {"y": np.asarray(win.arrays["y"][r0:r1], np.float32),
+             "w": valid[r0:r1]},
+            extra={"x": np.asarray(win.arrays["x"][r0:r1], np.float32)})
         return PreparedWindow(win.start, win.n_valid, win.rows, win.index,
                               arrays, on_consume=sync)
 
@@ -160,6 +169,9 @@ def streamed_sensitivity(stream, spec, params, masks: np.ndarray,
             n_windows += 1
         if n_windows == 0:
             raise RuntimeError("streamed sensitivity: empty shard stream")
+        if sharded:
+            both = all_reduce(mesh, torch.cat([sum_x, stats]))
+            sum_x, stats = both[:D], both[D:]
         mean_x = (sum_x / torch.clamp(stats[1], min=1.0)).float()
         acc = torch.zeros((n_batches, B), dtype=f64, device=dev)
         for it in cache.items():                       # pass 2
@@ -169,6 +181,8 @@ def streamed_sensitivity(stream, spec, params, masks: np.ndarray,
                              torch.zeros_like(x[:, :1])], dim=1)
             for bi in range(n_batches):
                 acc[bi] += mask_sse(idx_d[bi], z, dxp, y, w).to(f64)
+        if sharded:
+            all_reduce(mesh, acc)
         # the one fetch: per-mask SSE, then (base SSE, weight sum)
         packed = torch.cat([acc.reshape(-1), stats]).cpu().numpy()
     wsum = max(float(packed[-1]), 1e-12)

@@ -9,7 +9,9 @@ kernel B3 — and the categorical one on the host, then fills every
 mean/std/min/max/median/p25/p75, missing counts, KS/IV/WOE (count +
 weighted), per-bin counts/pos-rates/woe, skewness/kurtosis, PSI and
 unitStats.  ``-correlation`` writes ``correlation.csv`` (the pair sums are
-GEMMs on the step's device, :mod:`shifu_tpu_torch.ops.correlation`),
+GEMMs on the step's device, :mod:`shifu_tpu_torch.ops.correlation`; on a
+mesh each rank sums its block of every chunk and one float64 all_reduce
+merges them),
 ``-rebin`` merges adjacent bins by IV, and
 ``-Dshifu.stats.checkpointChunks=N`` checkpoints the fused sweep every N
 chunks to ``tmp/stats/partial_sweep.npz`` so an interrupted run resumes
@@ -80,12 +82,6 @@ class StatsProcessor(BasicProcessor):
         fused = not exact_alg and environment.get_bool(
             "shifu.stats.onePass", True)
         want_corr = bool(self.params.get("correlation"))
-        if want_corr and mesh.size > 1:
-            raise NotImplementedError(
-                "stats -correlation on a mesh is not yet ported to "
-                "shifu_tpu_torch (ROADMAP Queue 1 item 12, multi-device: "
-                "the mesh in varselect, correlation and sensitivity) — run "
-                "it as one process")
         corr_acc = None
         missing_set = {m.strip().lower() for m in extractor.missing_values}
 
@@ -184,7 +180,7 @@ class StatsProcessor(BasicProcessor):
                                 corr_acc = CorrelationAccumulator(
                                     n_cols=len(num_cols),
                                     offset=np.nan_to_num(off),
-                                    device=self.device)
+                                    device=self.device, mesh=mesh)
                             corr_acc.update(np.nan_to_num(ex.numeric),
                                             ex.numeric_valid)
                     cat_update(ex, tgt)
@@ -218,7 +214,7 @@ class StatsProcessor(BasicProcessor):
             if want_corr and num_cols and not cat_cols:
                 corr_acc = CorrelationAccumulator(
                     n_cols=len(num_cols), offset=num_acc.moments["mean"],
-                    device=self.device)
+                    device=self.device, mesh=mesh)
             with self.phase("pass2_histograms").set(rows=total_rows):
                 for _, ex in iter_extracted(
                         source, extractor, rate=rate,
@@ -421,10 +417,11 @@ class StatsProcessor(BasicProcessor):
                                         if i < len(pr) and pr[i] is not None}
         # offsets: the column means for numerics, 0.5 for pos-rates
         num_means = [c.columnStats.mean or 0.0 for c in num_cols]
+        from ..parallel.mesh import device_mesh
         acc = CorrelationAccumulator(
             n_cols=len(cols),
             offset=np.asarray(num_means + [0.5] * len(cat_cols)),
-            device=self.device)
+            device=self.device, mesh=device_mesh())
         miss = {m.strip().lower() for m in extractor.missing_values}
         for _, ex in iter_extracted(source, extractor, rate=rate,
                                     cache_root=self.paths.raw_cache_dir):

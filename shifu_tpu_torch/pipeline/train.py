@@ -46,15 +46,10 @@ from ..data.shards import Shards
 from ..models import nn as nn_model
 from ..ops import prng
 from ..train import grid_search
-from ..train.dt_trainer import _not_ported
 from ..train.nn_trainer import (TrainSettings, train_ensemble,
                                 train_ensemble_streamed)
 from ..train.sampling import member_masks
 from .processor import BasicProcessor
-
-#: what a mesh leaves out of WDL training (ROADMAP Queue 1)
-_MESH_WDL_ITEM = ("item 12 (multi-device: WDL's row-sharded tables and "
-                  "serve copies)")
 
 log = logging.getLogger(__name__)
 
@@ -194,9 +189,6 @@ class TrainProcessor(BasicProcessor):
             from ..train.dt_trainer import run_tree_training
             return run_tree_training(self)
         if alg == Algorithm.WDL:
-            from ..parallel.mesh import device_mesh
-            if device_mesh().size > 1:
-                raise _not_ported("WDL training on a mesh", _MESH_WDL_ITEM)
             from ..train.wdl_trainer import run_wdl_training
             return run_wdl_training(self)
         raise ValueError(f"unsupported algorithm {alg}")

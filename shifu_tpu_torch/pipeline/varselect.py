@@ -10,14 +10,18 @@ and the sensitivity MR job of ``core/varselect/``).
   step's device (``-Dshifu.varsel.batched=false`` runs the resident
   per-column loop instead); a column's score is the MSE rise when its
   feature block is frozen to its mean (ST: relative to the base error),
-  written to ``varsels/se.json``.
+  written to ``varsels/se.json``.  On a mesh every rank reads each window
+  and scores its block of the rows; the sums meet in an all_reduce, so
+  every rank selects alike.
 - The auto filter: missing rate, minimum KS and IV, and correlation
   pruning from an existing ``correlation.csv`` (skipped with a warning
   when it is absent, as the reference does).
 - ``filterBy GENETIC``: the wrapper search of ``train/dvarsel.py`` over
   the norm plane (resident, or streamed past the memory budget), its
   candidates' nets trained on the step's device; the credit ranking goes
-  to ``varsels/genetic.json``.
+  to ``varsels/genetic.json``.  On a mesh it raises naming its item (the
+  population lies on the ensemble axis, as the tree trainers' members
+  do).
 - ``-recursive N`` (SE/ST only): each round runs ``norm`` and ``train``
   on the current selection, selects again against the fresh model and
   snapshots ``varsels/ColumnConfig.json.{i}`` and ``se.{i}.json``.
@@ -77,13 +81,17 @@ class VarSelectProcessor(BasicProcessor):
             return self._autofilter_only()
         if self.params.get("recoverauto"):
             return self._recover_auto()
-        from ..parallel.mesh import device_mesh
-        if device_mesh().size > 1:
-            raise NotImplementedError(
-                "varselect on a mesh is not yet ported to shifu_tpu_torch "
-                "(ROADMAP Queue 1 item 12, multi-device: the mesh in "
-                "varselect, correlation and sensitivity) — run it as one "
-                "process")
+        vs = self.model_config.varSelect
+        if vs.filterEnable and vs.filterBy == FilterBy.GENETIC:
+            from ..parallel.mesh import device_mesh
+            if device_mesh().size > 1:
+                # the population lies on the ensemble axis, as the tree
+                # trainers' members do: it comes with them
+                raise NotImplementedError(
+                    "filterBy GENETIC on a mesh is not yet ported to "
+                    "shifu_tpu_torch (ROADMAP Queue 1 item 12, multi-device: "
+                    "GENETIC varselect, with the tree trainers' member "
+                    "kinds) — run it as one process")
         return self._select()
 
     # ---------------------------------------------------------- bookkeeping
@@ -439,18 +447,22 @@ class VarSelectProcessor(BasicProcessor):
         (mse, base_mse, rows)."""
         from ..data.streaming import ShardStream, stream_window_rows
         from ..ops import sensitivity as sens
+        from ..parallel.mesh import device_mesh
         B = sens.mask_batch_size(self.model_config.varSelect.params)
         d = len(shards.schema["outputNames"])
+        # every rank reads each window and scores its block of the rows
+        mesh = device_mesh()
         # a launch holds ~B frozen copies of the window's first layer:
         # count B in the row bytes so the auto window shrinks with it
-        window_rows = stream_window_rows(4 * (d + 2) * max(1, B // 4), 1,
-                                         shards)
+        window_rows = stream_window_rows(4 * (d + 2) * max(1, B // 4),
+                                         mesh.n_data, shards)
         stream = ShardStream(shards, ("x", "y"), window_rows)
         log.info("sensitivity STREAMED: window %d rows, mask batch %d "
                  "(%d launches a window)", window_rows, B,
                  -(-len(masks) // B))
         return sens.streamed_sensitivity(stream, spec, params, masks,
-                                         mask_batch=B, device=self.device)
+                                         mask_batch=B, device=self.device,
+                                         mesh=mesh)
 
     def _genetic_scores(self, candidates: List[ColumnConfig],
                         vs) -> Dict[int, float]:

@@ -172,36 +172,31 @@ def _tree_column(m, device: torch.device) -> Callable:
     return col
 
 
-def serve_copy_mode() -> str:
-    """``shifu.wdl.serveCopy``: auto | full | sharded | hot.  One card
-    serves the replicated (``full``) copy; the row-sharded and the lossy
-    hot-rows copies are ROADMAP item 12 and raise."""
-    from ..config import environment
-    raw = str(environment.get_property("shifu.wdl.serveCopy", "auto")
-              or "auto").lower()
-    if raw in ("sharded", "hot"):
-        raise NotImplementedError(
-            f"shifu.wdl.serveCopy={raw} is not yet ported to "
-            "shifu_tpu_torch (ROADMAP Queue 1 item 12) — serve it with "
-            "shifu_tpu")
-    return "full"
-
-
 def _wdl_column(m, device: torch.device) -> Callable:
     """Score column of a WDL model on ``device``: its numeric block of
     ``x`` and categorical columns of the bins (index lists pinned once),
     hashed columns folded on the device (``apply_hash_device``, bit-equal
-    to the trainer's host hashing), one forward over the pinned params."""
+    to the trainer's host hashing), one forward.  The table copy is picked
+    here, once, when the scorer is built (a swap's ``prepare``):
+    ``shifu.wdl.serveCopy`` (``train/wdl_shard.py::build_serve_forward``)
+    — the replicated params, the hot-rows copy or the copy split over the
+    process's cards — each pinned on the device and captured inside every
+    rung's graph."""
+    from ..train.wdl_shard import build_serve_forward
     extra = m.spec.extra or {}
     nf = torch.tensor(extra.get("num_feat_idx") or [], dtype=torch.int64,
                       device=device)
     cf = torch.tensor(extra.get("cat_col_idx") or [], dtype=torch.int64,
                       device=device)
-    m.on(device)                             # pinned once, like a forest
+    mode, fwd = build_serve_forward(m.spec, m.params, device)
+    if fwd is None:
+        m.on(device)                         # pinned once, like a forest
+        fwd = m.forward_device
 
     def col(x, bins):
-        return m.forward_device(x.index_select(1, nf),
-                                bins.index_select(1, cf).long())[:, 0]
+        return fwd(x.index_select(1, nf), bins.index_select(1, cf).long())[
+            :, 0]
+    col.serve_copy = mode
     return col
 
 
@@ -225,7 +220,6 @@ def build_ensemble_fn(scorer: Scorer, device: torch.device) -> Callable:
         if kind == "bins":
             columns[i] = _tree_column(m, device)
         elif kind == "both":
-            serve_copy_mode()
             columns[i] = _wdl_column(m, device)
         else:
             columns[i] = _svm_column(m)

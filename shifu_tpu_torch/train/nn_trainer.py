@@ -248,14 +248,22 @@ class _EpochLedger:
     history, each member's best epoch (errors on the host, params on the
     device), the early-stop windows, the learning-rate decay, the
     tmp-model and trainer-checkpoint saves, and the final choice of
-    params."""
+    params.
+
+    ``layout`` (WDL's ``_Layout``; None: every tree is whole) keeps the
+    params the ledger is handed, and its best params, in a rank's own
+    layout (its members ``m0:m1``, its table shards): ``whole`` runs only
+    where a checkpoint or tmp model is written and once in
+    :meth:`result`, and ``local`` maps a restored checkpoint back."""
 
     trainer = "nn"                  # the telemetry events' trainer
 
     def __init__(self, settings: TrainSettings, stacked, bags: int,
-                 precision: str, progress, checkpoint, dev: torch.device):
+                 precision: str, progress, checkpoint, dev: torch.device,
+                 layout=None):
         self.settings, self.precision, self.bags = settings, precision, bags
         self.progress, self.checkpoint, self.dev = progress, checkpoint, dev
+        self.layout = layout
         self.stops = [WindowEarlyStop(settings.early_stop_window)
                       for _ in range(bags)]
         self.best_valid = np.full(bags, np.inf)
@@ -266,11 +274,18 @@ class _EpochLedger:
         self.tr = self.va = np.zeros(bags)
         self.lr_scale = 1.0
 
+    def _whole(self, tree):
+        return tree if self.layout is None else self.layout.whole(tree)
+
+    def _local(self, tree):
+        return tree if self.layout is None else self.layout.local(tree)
+
     def resume(self, stacked, opt_state):
         """The latest trainer checkpoint, restored: None, or (start epoch,
         epoch target, stacked, optimizer state, key); the best epochs, the
         early-stop windows and the lr scale are restored into the
-        ledger."""
+        ledger.  ``stacked`` and ``opt_state`` are whole trees (the
+        checkpoint's template), and so are the ones returned."""
         from . import checkpoint as ckpt
         s = self.settings
         restored = ckpt.restore_state(
@@ -283,7 +298,7 @@ class _EpochLedger:
         self.best_valid[:], self.best_train[:] = state[3], state[4]
         for w, b, k in zip(self.stops, state[6], state[7]):
             w.best, w.since_best = float(b), int(k)
-        self.best_dev = tree_map(to_dev, state[5])
+        self.best_dev = self._local(tree_map(to_dev, state[5]))
         self.best_va_dev = to_dev(
             torch.from_numpy(self.best_valid.astype(np.float32)))
         self.lr_scale = (1.0 - s.learning_decay) ** start_epoch \
@@ -325,6 +340,8 @@ class _EpochLedger:
         elif improved.any():
             imp = torch.from_numpy(improved).to(self.dev)
         if imp is not None:
+            if self.layout is not None:
+                imp = imp[self.layout.m0:self.layout.m1]
             self.best_dev = tree_map(
                 lambda b, p: torch.where(per_member(imp, p), p, b),
                 self.best_dev, params)
@@ -345,15 +362,18 @@ class _EpochLedger:
         s = self.settings
         if self.checkpoint and s.tmp_model_every and \
                 (epoch + 1) % s.tmp_model_every == 0:
-            self.checkpoint(epoch, [_member(stacked, i)
+            whole = self._whole(stacked)
+            self.checkpoint(epoch, [_member(whole, i)
                                     for i in range(self.bags)])
         if s.checkpoint_dir and s.checkpoint_every and \
                 ((epoch + 1) % s.checkpoint_every == 0 or stopped):
             from . import checkpoint as ckpt
             ckpt.save_state(s.checkpoint_dir, epoch + 1,
-                            _ckpt_state(stacked, opt_state, key,
+                            _ckpt_state(self._whole(stacked),
+                                        self._whole(opt_state), key,
                                         self.best_valid, self.best_train,
-                                        self.best_dev, self.stops),
+                                        self._whole(self.best_dev),
+                                        self.stops),
                             precision=self.precision)
         if s.learning_decay > 0:
             self.lr_scale *= (1.0 - s.learning_decay)
@@ -361,12 +381,16 @@ class _EpochLedger:
     def result(self, stacked, epochs_run: int) -> EnsembleResult:
         """Each member's best-epoch params, or its last where no epoch
         recorded a finite validation error."""
+        # every rank of a mesh holds the same errors: the gathers agree
+        best = self._whole(self.best_dev)
+        last = self._whole(stacked) \
+            if not np.isfinite(self.best_valid).all() else None
         params = []
         for i in range(self.bags):
             if np.isfinite(self.best_valid[i]):
-                params.append(_member(self.best_dev, i))
+                params.append(_member(best, i))
             else:
-                params.append(_member(stacked, i))
+                params.append(_member(last, i))
                 self.best_valid[i] = float(self.va[i])
                 self.best_train[i] = float(self.tr[i])
         return EnsembleResult(params=params, train_errors=self.best_train,

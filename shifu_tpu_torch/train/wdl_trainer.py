@@ -25,10 +25,21 @@ checkpoints and ``train -resume``) is the NN trainer's ``_EpochLedger``.
 
 L2 (deep weights and embeddings) is added to the gradient analytically;
 ``TrainPrecision`` (``f32`` / ``bf16`` / ``mixed``) narrows the params as
-the NN trainer does.  WDL on a ``torch.distributed`` mesh and the
-reference's row-sharded tables (``train/wdl_shard.py``,
-``shifu.wdl.shardTables``) are ROADMAP item 12 and raise: on one card its
-own auto gate keeps the tables replicated.
+the NN trainer does.
+
+On a ``torch.distributed`` mesh (``parallel/mesh.py``) both trainers take
+the reference's geometry: members on the ensemble axis, each batch's (or
+window's) rows split over the data axis, the dense gradients and error
+sums summed over the data group.  The tables are replicated (their
+gradients join the dense all_reduce) or, with ``shifu.wdl.shardTables``
+(``on`` on any world, ``auto`` past ``shifu.wdl.shardMinBytes`` on a
+data axis above 1), row-sharded (``train/wdl_shard.py``): a rank holds
+``ceil(card / D)`` rows of every table and of its optimizer state, and
+steps only those.  The ledger keeps a rank's own layout (its members,
+its shards) for the best params too; checkpoints and saved models gather
+every member's true-layout params only when they are written, so files
+keep their shapes whatever the world and no epoch gathers a whole
+table.
 """
 
 from __future__ import annotations
@@ -41,40 +52,20 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..data.shards import Shards
 from ..data.streaming import PreparedWindow, ShardStream
 from ..models import wdl as wdl_model
 from ..ops import prng
+from ..parallel import mesh as meshlib
 from .checkpoint import tree_leaves, tree_unflatten
 from .nn_trainer import (EnsembleResult, TrainSettings, _EpochLedger,
-                         _upload)
+                         _flat_all_reduce, _mesh_rows, _upload)
 from .optimizers import (cast_tree, make_optimizer, mixed_apply, mixed_init,
                          per_member, resolve_precision, tree_map)
 from .sampling import member_masks
 
 log = logging.getLogger(__name__)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to shifu_tpu_torch (ROADMAP Queue 1 "
-        "item 12) — train it with shifu_tpu")
-
-
-def _refuse_sharding(spec: wdl_model.WDLModelSpec,
-                     shard: Optional[bool]) -> None:
-    """Row-sharded tables (an explicit ``shard=True``, or
-    ``shifu.wdl.shardTables`` on) need the mesh of item 12; the
-    reference's auto gate keeps one card's tables replicated."""
-    if not spec.cat_cardinalities:
-        return
-    from ..config import environment
-    knob = str(environment.get_property("shifu.wdl.shardTables", "auto")
-               or "auto").lower()
-    if shard or (shard is None and knob in ("on", "true", "1")):
-        raise _not_ported("row-sharded WDL tables (shifu.wdl.shardTables, "
-                          "train/wdl_shard.py)")
 
 
 def plane_indices(schema: dict, column_configs
@@ -187,6 +178,61 @@ def _errors(per: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ resident
+class _Layout:
+    """Where a run's rows, members and tables live: the mesh's data group
+    splits the rows (``sharded``), its ensemble group the members (``ens``,
+    this rank's ``m0:m1``), and the row-sharded plane (``plane``, or None:
+    replicated tables) the tables' rows.  :meth:`whole` turns a local tree
+    into every member's true-layout tree (a checkpoint's, the result's)
+    and :meth:`local` back."""
+
+    def __init__(self, mesh, spec, bags: int, precision: str,
+                 shard: Optional[bool]):
+        from . import wdl_shard
+        self.mesh = mesh
+        self.sharded = meshlib.data_sharded(mesh)
+        self.n_data = mesh.n_data if self.sharded else 1
+        self.ens = mesh is not None and mesh.n_ensemble > 1
+        self.m0, self.m1 = mesh.member_block(bags) if self.ens else (0, bags)
+        self.plane = wdl_shard.WDLShardPlane(mesh, spec, bags) \
+            if wdl_shard.shard_enabled(spec, mesh, bags, precision,
+                                       override=shard) else None
+        if self.plane is not None:
+            extra = spec.extra or {}
+            wdl_shard.record_shard_gauges(
+                self.plane, precision, int(extra.get("hash_buckets", 0) or 0),
+                len(extra.get("hashed_cols") or []))
+            log.info("WDL tables row-sharded over %d rank(s): %d of %d rows "
+                     "a rank", self.plane.d, self.plane.local_rows,
+                     int(self.plane.offsets[-1]))
+
+    def local(self, tree):
+        if self.ens:
+            tree = tree_map(lambda t: t[self.m0:self.m1].clone(), tree)
+        return self.plane.local(tree) if self.plane is not None else tree
+
+    def whole(self, tree):
+        if self.plane is not None:
+            tree = self.plane.whole(tree)
+        return meshlib.gather_members(self.mesh, tree) if self.ens else tree
+
+    def reduce_grads(self, grads):
+        """The data group's gradient: the dense leaves (and replicated
+        tables) summed in one all_reduce; sharded tables are complete."""
+        if not self.sharded:
+            return grads
+        if self.plane is None:
+            return _flat_all_reduce(self.mesh, grads)
+        from .wdl_shard import split_grads
+        dense, tables = split_grads(grads)
+        return {**_flat_all_reduce(self.mesh, dense), **tables}
+
+    def every_member(self, t: torch.Tensor) -> torch.Tensor:
+        """[B, ...] of every member from this rank's [m, ...]."""
+        return meshlib.all_gather(self.mesh, t.contiguous(),
+                                  axis="ensemble") if self.ens else t
+
+
 def train_wdl_ensemble(x_num, x_cat, y, w, spec: wdl_model.WDLModelSpec,
                        settings: TrainSettings, bags: int = 1,
                        valid_rate: float = 0.2,
@@ -194,11 +240,20 @@ def train_wdl_ensemble(x_num, x_cat, y, w, spec: wdl_model.WDLModelSpec,
                        stratified: bool = False,
                        up_sample_weight: float = 1.0,
                        progress=None, shard: Optional[bool] = None,
-                       device=None) -> EnsembleResult:
+                       device=None, mesh=None) -> EnsembleResult:
     """``bags`` members trained stacked on ``device`` (default CUDA) over
-    the resident planes; ``shard`` (row-sharded tables) raises naming
-    item 12."""
-    _refuse_sharding(spec, shard)
+    the resident planes.
+
+    ``mesh`` (``parallel.mesh.device_mesh(n_ensemble=bags)``; every rank
+    passes the whole arrays) follows the reference's geometry: the batch
+    size rounds down to a multiple of the data axis, the rows pad once to
+    the batch multiple with zero weight, and a rank keeps its block of
+    every minibatch and its members (the ensemble axis).  ``shard``
+    overrides ``shifu.wdl.shardTables``: the row-sharded plane
+    (``train/wdl_shard.py``), else replicated tables whose gradients sum
+    in one flat all_reduce a step.  Errors sum over the data group in
+    float64; the ledger keeps this rank's layout and gathers every
+    member's true-layout params only to write them."""
     dev = resolve_device(device)
     n = len(y)
     # hashed-ID columns fold into bucket space once, on the raw bins
@@ -209,7 +264,12 @@ def train_wdl_ensemble(x_num, x_cat, y, w, spec: wdl_model.WDLModelSpec,
         up_sample_weight=up_sample_weight, targets=y, seed=settings.seed)
     train_w = train_w * np.asarray(w, np.float32)[None, :]
     valid_w = valid_w * np.asarray(w, np.float32)[None, :]
+    key, opt, precision, stacked, opt_state = _init_stack(
+        spec, settings, bags, dev)
+    lay = _Layout(mesh, spec, bags, precision, shard)
     bs = settings.batch_size
+    if bs:
+        bs = max(bs - bs % lay.n_data, lay.n_data)
     # one host shuffle, so contiguous minibatches mix classes; the batch
     # ORDER is redrawn every epoch
     perm = np.random.default_rng(settings.seed).permutation(n)
@@ -217,7 +277,7 @@ def train_wdl_ensemble(x_num, x_cat, y, w, spec: wdl_model.WDLModelSpec,
     xc = x_cat[perm]
     yv = np.asarray(y, np.float32)[perm]
     train_w, valid_w = train_w[:, perm], valid_w[:, perm]
-    extra = (-n) % bs if bs else 0
+    extra = (-n) % (bs or lay.n_data)
     if extra:                       # zero-weight rows to the batch multiple
         xn = np.concatenate([xn, np.zeros((extra, xn.shape[1]), xn.dtype)])
         xc = np.concatenate([xc, np.zeros((extra, xc.shape[1]), xc.dtype)])
@@ -226,64 +286,109 @@ def train_wdl_ensemble(x_num, x_cat, y, w, spec: wdl_model.WDLModelSpec,
         train_w = np.concatenate([train_w, zpad], axis=1)
         valid_w = np.concatenate([valid_w, zpad], axis=1)
     n_padded = len(yv)
+    batched = bool(bs) and bs < n_padded
+    nb = n_padded // bs if batched else 1
+    if lay.sharded:
+        rows = _mesh_rows(mesh, n_padded, bs if batched else 0)
+        xn, xc, yv = xn[rows], xc[rows], yv[rows]
+        train_w, valid_w = train_w[:, rows], valid_w[:, rows]
+    train_w = train_w[lay.m0:lay.m1]
+    valid_w = valid_w[lay.m0:lay.m1]
+    n_local = len(yv)
+    lb = n_local // nb                              # a rank's batch rows
 
-    key, opt, precision, stacked, opt_state = _init_stack(
-        spec, settings, bags, dev)
+    whole_init = stacked, opt_state         # the checkpoint's template
+    stacked, opt_state = lay.local(stacked), lay.local(opt_state)
     xnd = _upload(xn, dev)
-    ids = wdl_model.global_ids(spec, torch.from_numpy(xc).to(dev)) \
-        if spec.cat_cardinalities else None
     yd = _upload(yv, dev).unsqueeze(-1)
     twd, vwd = _upload(train_w, dev), _upload(valid_w, dev)
+    ids = None
+    if spec.cat_cardinalities:
+        xcd = torch.from_numpy(np.ascontiguousarray(xc)).to(dev)
+        if lay.plane is None:
+            ids = wdl_model.global_ids(spec, xcd)
+        else:
+            # every rank's ids, gathered once (they do not change between
+            # epochs): [D, n_local, C] rows of this rank's shard and masks
+            lid, owned = lay.plane.gathered_ids(xcd)
+            ids = (lid.reshape(lay.n_data, n_local, -1),
+                   owned.reshape(lay.n_data, n_local, -1))
+    if lay.sharded:
+        # every rank's weight sums: each batch's train weight (the loss
+        # denominator) and the train and valid totals (the errors')
+        den = meshlib.all_reduce(mesh, torch.cat([
+            twd.double().reshape(twd.shape[0], nb, -1).sum(-1).T,
+            twd.double().sum(-1)[None], vwd.double().sum(-1)[None]]))
+        batch_den = den[:nb].float().clamp_min(1e-9)
+        err_den = den[nb:].clamp_min(1e-9)
 
     def logits(params, s: int, e: int):
-        return wdl_model.logits_from_ids(
-            params, spec, xnd[s:e], None if ids is None else ids[s:e], e - s)
+        if lay.plane is None:
+            return wdl_model.logits_from_ids(
+                params, spec, xnd[s:e], None if ids is None else ids[s:e],
+                e - s)
+        blk = None if ids is None else tuple(
+            t[:, s:e].reshape(-1, t.shape[-1]) for t in ids)
+        return lay.plane.logits(params, xnd[s:e], blk, e - s)
 
-    def step(stacked, opt_state, s: int, e: int):
+    def step(stacked, opt_state, bi: int):
+        s, e = bi * lb, (bi + 1) * lb
         tw = twd[:, s:e]
         # the normaliser stays outside the gradient; L2 is added after
-        inv = 1.0 / torch.clamp(tw.sum(-1), min=1e-9)
+        inv = 1.0 / (batch_den[bi] if lay.sharded
+                     else torch.clamp(tw.sum(-1), min=1e-9))
 
         def loss(params):
             per = wdl_model.per_row_bce(torch.sigmoid(logits(params, s, e)),
                                         yd[s:e])
             return ((per * tw).sum(-1) * inv).sum(), None
         _, grads = _grads(stacked, loss)
-        grads = _add_l2(grads, stacked, settings.l2)
+        grads = _add_l2(lay.reduce_grads(grads), stacked, settings.l2)
         return _apply(opt, precision, stacked, opt_state, grads)
 
     def eval_errors(stacked) -> torch.Tensor:
         per = wdl_model.per_row_bce(
-            torch.sigmoid(logits(stacked, 0, n_padded)), yd)
-        return torch.stack([_errors(per, twd), _errors(per, vwd)])
+            torch.sigmoid(logits(stacked, 0, n_local)), yd)
+        if lay.sharded:
+            num = meshlib.all_reduce(mesh, torch.stack([
+                (per * mw).double().sum(-1) for mw in (twd, vwd)]))
+            errs = (num / err_den).float()
+        else:
+            errs = torch.stack([_errors(per, twd), _errors(per, vwd)])
+        return lay.every_member(errs.T).T
 
     ledger = _EpochLedger(settings, stacked, bags, precision, progress,
-                          None, dev)
+                          None, dev, layout=lay)
     ledger.trainer = "wdl"
     order_rng = np.random.default_rng([settings.seed, 1])
-    batched = bool(bs) and bs < n_padded
+    # the reference draws each epoch's order over the batches' first rows
     starts_of = np.arange(0, n_padded - bs + 1, bs).astype(np.int32) \
         if batched else None
     epochs_run = start_epoch = 0
     epochs_target = settings.epochs
-    restored = ledger.resume(stacked, opt_state) \
+    restored = ledger.resume(*whole_init) \
         if settings.resume and settings.checkpoint_dir else None
+    del whole_init
     if restored is not None:
         start_epoch, epochs_target, stacked, opt_state, key = restored
+        stacked, opt_state = lay.local(stacked), lay.local(opt_state)
+        del restored
         # replay the batch-order stream up to the resume point
         for _ in range(min(start_epoch, epochs_target) if batched else 0):
             order_rng.permutation(starts_of)
     for epoch in range(start_epoch, epochs_target):
-        if batched:
-            for s in order_rng.permutation(starts_of).tolist():
-                stacked, opt_state = step(stacked, opt_state, s, s + bs)
-        else:
-            stacked, opt_state = step(stacked, opt_state, 0, n_padded)
+        for s in (order_rng.permutation(starts_of).tolist() if batched
+                  else [0]):
+            stacked, opt_state = step(stacked, opt_state, s // max(bs, 1))
         with torch.no_grad():
             errs = eval_errors(stacked)
             tr, va = errs.cpu().numpy()                    # the one fetch
-            stop_now = ledger.record(epoch, tr, va, stacked, va_dev=errs[1])
+            stop_now = ledger.record(epoch, tr, va, stacked,
+                                     va_dev=errs[1])
         epochs_run = epoch + 1
+        if lay.plane is not None and obs.enabled():
+            from .wdl_shard import record_epoch_launches
+            record_epoch_launches(lay.plane, n_padded, nb, precision)
         ledger.end_epoch(epoch, stacked, opt_state, key, stop_now)
         if stop_now:
             log.info("WDL early stop at epoch %d", epoch)
@@ -328,31 +433,57 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
                        settings: TrainSettings, bags: int, mask_fn,
                        num_feat_idx, cat_col_idx, progress=None,
                        elastic=None, shard: Optional[bool] = None,
-                       device=None) -> EnsembleResult:
+                       device=None, mesh=None) -> EnsembleResult:
     """Out-of-core WDL on ``device`` (default CUDA): full-batch gradient
     sums over ``planes``' windows, one update an epoch (the reference's
     BSP iteration, ``WDLMaster``'s aggregation).  ``mask_fn(index,
     targets)`` gives each window's ``[bags, rows]`` sampling masks.
-    ``elastic`` (a ``parallel.elastic.ElasticContext``) closes each epoch
-    through the quorum step protocol: the epoch's unnormalised gradient
-    and error sums post as one contribution, the update applies the
-    committed aggregate, a closed epoch replays from the journal without
-    streaming, and the closing sweep is one more step.  ``shard`` raises
-    naming item 12."""
+
+    ``mesh``: every rank reads each window and keeps its block of the rows
+    (padded to ``ceil(rows / data)`` with zero-weight rows, so every
+    rank's block has one size) and its members; the data group sums the
+    epoch's dense gradients and error sums in one all_reduce (the tables'
+    too where they are replicated; ``shard`` / ``shifu.wdl.shardTables``
+    row-shards them, ``train/wdl_shard.py``).  ``elastic`` (a
+    ``parallel.elastic.ElasticContext``) closes each epoch through the
+    quorum step protocol: the epoch's unnormalised gradient and error sums
+    post as one contribution, the update applies the committed aggregate,
+    a closed epoch replays from the journal without streaming, and the
+    closing sweep is one more step."""
     from .dt_trainer import _WindowCopier
-    _refuse_sharding(spec, shard)
     dev = resolve_device(device)
     key, opt, precision, stacked, opt_state = _init_stack(
         spec, settings, bags, dev)
+    lay = _Layout(mesh, spec, bags, precision, shard)
+    whole_init = stacked, opt_state         # the checkpoint's template
+    stacked, opt_state = lay.local(stacked), lay.local(opt_state)
+    m = lay.m1 - lay.m0
     # mixed sums the windows' gradients in f32
     acc_dtype = torch.float32 if precision == "mixed" else None
     nf = np.asarray(num_feat_idx, np.int64)
     cf = np.asarray(cat_col_idx, np.int64)
     copier = _WindowCopier(dev)
 
+    def block(a: np.ndarray, rows: int, axis: int = 0) -> np.ndarray:
+        """This rank's rows of a window's array, zero-padded to the equal
+        block of ``ceil(rows / data)``."""
+        if not lay.sharded:
+            return a
+        per = -(-rows // lay.n_data)
+        r0, r1 = mesh.row_block(rows)
+        shape = list(a.shape)
+        shape[axis] = per
+        out = np.zeros(shape, a.dtype)
+        idx = [slice(None)] * a.ndim
+        idx[axis] = slice(0, r1 - r0)
+        src = [slice(None)] * a.ndim
+        src[axis] = slice(r0, r1)
+        out[tuple(idx)] = a[tuple(src)]
+        return out
+
     def prepare(win):
-        """Plane split, hashing and masks on the host, then the window's
-        copies to the device."""
+        """Plane split, hashing and masks on the host (this rank's rows
+        and members), then the window's copies to the device."""
         x = np.asarray(win.arrays["x"], np.float32)
         bins = np.asarray(win.arrays["bins"]).astype(np.int32)
         tm, vm = mask_fn(win.index, win.arrays["y"])
@@ -360,21 +491,31 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
         if win.n_valid < win.rows:                 # zero the padded tail
             wcol = wcol.copy()
             wcol[win.n_valid:] = 0.0
+        tw = np.asarray(tm * wcol[None, :], np.float32)[lay.m0:lay.m1]
+        vw = np.asarray(vm * wcol[None, :], np.float32)[lay.m0:lay.m1]
+        r = win.rows
         arrays, sync = copier(
-            {"y": np.asarray(win.arrays["y"], np.float32)}, extra={
-                "x": np.ascontiguousarray(x[:, nf]),
-                "cat": wdl_model.apply_hash_host(spec, bins[:, cf]),
-                "tw": np.asarray(tm * wcol[None, :], np.float32),
-                "vw": np.asarray(vm * wcol[None, :], np.float32)})
+            {"y": block(np.asarray(win.arrays["y"], np.float32), r)},
+            extra={
+                "x": block(np.ascontiguousarray(x[:, nf]), r),
+                "cat": block(wdl_model.apply_hash_host(spec, bins[:, cf]),
+                             r),
+                "tw": block(tw, r, 1), "vw": block(vw, r, 1)})
         return PreparedWindow(win.start, win.n_valid, win.rows, win.index,
                               arrays, on_consume=sync)
 
     def forward_per(params, a):
-        ids = wdl_model.global_ids(spec, a["cat"]) \
-            if spec.cat_cardinalities else None
-        p = torch.sigmoid(wdl_model.logits_from_ids(
-            params, spec, a["x"], ids, a["y"].shape[0]))
-        return wdl_model.per_row_bce(p, a["y"].unsqueeze(-1))
+        n = a["y"].shape[0]
+        if lay.plane is not None:
+            ids = lay.plane.gathered_ids(a["cat"]) \
+                if spec.cat_cardinalities else None
+            logit = lay.plane.logits(params, a["x"], ids, n)
+        else:
+            ids = wdl_model.global_ids(spec, a["cat"]) \
+                if spec.cat_cardinalities else None
+            logit = wdl_model.logits_from_ids(params, spec, a["x"], ids, n)
+        return wdl_model.per_row_bce(torch.sigmoid(logit),
+                                     a["y"].unsqueeze(-1))
 
     def sums(per, a) -> torch.Tensor:
         tw, vw = a["tw"], a["vw"]
@@ -393,15 +534,30 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
         g = _add_l2(g, stacked, settings.l2)
         return _apply(opt, precision, stacked, opt_state, g)
 
+    def data_sums(stats_acc, grad_acc=None):
+        """The data group's epoch sums: the error sums and the gradients
+        the group shares, in one all_reduce."""
+        if not lay.sharded:
+            return stats_acc, grad_acc
+        if grad_acc is None:
+            return _flat_all_reduce(mesh, stats_acc), None
+        if lay.plane is None:
+            return _flat_all_reduce(mesh, (stats_acc, grad_acc))
+        from .wdl_shard import split_grads
+        dense, tables = split_grads(grad_acc)
+        stats_acc, dense = _flat_all_reduce(mesh, (stats_acc, dense))
+        return stats_acc, {**dense, **tables}
+
     ledger = _EpochLedger(settings, stacked, bags, precision, progress,
-                          None, dev)
+                          None, dev, layout=lay)
     ledger.trainer = "wdl_streamed"
     if elastic is not None:
         from ..parallel.elastic import grad_codec
         ravel, unravel = grad_codec(tree_map(lambda a: torch.zeros(
             a.shape, dtype=acc_dtype or a.dtype, device=dev), stacked))
 
-    def bookkeep(epoch_done: int, stats: np.ndarray, snapshot) -> bool:
+    def bookkeep(epoch_done: int, stats: torch.Tensor, snapshot) -> bool:
+        stats = lay.every_member(stats).cpu().numpy().astype(np.float64)
         return ledger.record(
             epoch_done, stats[:, 0] / np.maximum(stats[:, 1], 1e-9),
             stats[:, 2] / np.maximum(stats[:, 3], 1e-9), snapshot)
@@ -409,13 +565,17 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
     start_epoch = 0
     epochs_target = settings.epochs
     stopped = False
-    restored = ledger.resume(stacked, opt_state) \
+    restored = ledger.resume(*whole_init) \
         if settings.resume and settings.checkpoint_dir else None
+    del whole_init
     if restored is not None:
         start_epoch, epochs_target, stacked, opt_state, key = restored
+        stacked, opt_state = lay.local(stacked), lay.local(opt_state)
+        del restored
         stopped = settings.early_stop_window > 0 and all(
             w.since_best >= w.window_size for w in ledger.stops)
     epochs_run = start_epoch
+
     def posted(payload) -> torch.Tensor:
         """The [B, 4] error sums of an elastic step's aggregate."""
         return torch.from_numpy(np.asarray(payload["stats"],
@@ -431,7 +591,7 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
             stats_acc = posted(replayed.payload)
             grad_acc = unravel(replayed.payload["grads"])
         else:
-            stats_acc = torch.zeros((bags, 4), device=dev)
+            stats_acc = torch.zeros((m, 4), device=dev)
             grad_acc = tree_map(lambda a: torch.zeros(
                 a.shape, dtype=acc_dtype or a.dtype, device=dev), stacked)
             n_win = 0
@@ -442,18 +602,22 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
                 n_win += 1
             if n_win == 0:
                 raise RuntimeError("streamed WDL: empty shard stream")
+            stats_acc, grad_acc = data_sums(stats_acc, grad_acc)
             if elastic is not None:
                 res = elastic.step(epoch, {
                     "grads": ravel(grad_acc),
                     "stats": stats_acc.cpu().numpy()})
                 stats_acc = posted(res.payload)
                 grad_acc = unravel(res.payload["grads"])
-        stats = stats_acc.cpu().numpy().astype(np.float64)  # the one fetch
         # measured on the params entering this epoch: its own ledger line
-        stopped = bookkeep(epoch, stats, entering)
+        # (the one fetch)
+        stopped = bookkeep(epoch, stats_acc, entering)
         stacked, opt_state = apply_update(stacked, opt_state, grad_acc,
                                           stats_acc[:, 1])
         epochs_run = epoch + 1
+        if lay.plane is not None and obs.enabled():
+            from .wdl_shard import record_epoch_launches
+            record_epoch_launches(lay.plane, planes.num_rows, 1, precision)
         ledger.end_epoch(epoch, stacked, opt_state, key, stopped)
         if stopped:
             log.info("WDL early stop at epoch %d (streamed)", epoch)
@@ -464,18 +628,18 @@ def train_wdl_streamed(planes: ZippedPlanes, spec: wdl_model.WDLModelSpec,
         final = elastic.closed_step(epochs_run) if elastic is not None \
             else None
         if final is None:
-            stats_acc = torch.zeros((bags, 4), device=dev)
+            stats_acc = torch.zeros((m, 4), device=dev)
             with torch.no_grad():
                 for win in planes.prepared(prepare):
                     stats_acc += sums(forward_per(stacked, win.arrays),
                                       win.arrays)
+            stats_acc, _ = data_sums(stats_acc)
             if elastic is not None:
                 final = elastic.step(epochs_run,
                                      {"stats": stats_acc.cpu().numpy()})
         if final is not None:
             stats_acc = posted(final.payload)
-        bookkeep(epochs_run, stats_acc.cpu().numpy().astype(np.float64),
-                 stacked)
+        bookkeep(epochs_run, stats_acc, stacked)
     return ledger.result(stacked, epochs_run)
 
 
@@ -516,6 +680,10 @@ def run_wdl_training(proc) -> int:
     p = mc.train.params or {}
     bags = max(1, mc.train.baggingNum)
     settings = _wdl_settings(mc, p)
+    from ..parallel.mesh import device_mesh
+    # members on the ensemble axis, rows on the data axis (reference
+    # ``device_mesh(n_ensemble=bags)``); a world of one: one card
+    mesh = device_mesh(n_ensemble=bags)
     settings.checkpoint_dir = proc.paths.checkpoint_dir
     settings.checkpoint_every = int(p.get("CheckpointInterval", 25))
     settings.resume = bool(proc.params.get("resume"))
@@ -536,7 +704,8 @@ def run_wdl_training(proc) -> int:
                                           stream_window_rows)
             from ..parallel.elastic import elastic_context_for
             d = len(schema.get("outputNames") or [])
-            window_rows = stream_window_rows(6 * (d + 2), 1, norm)
+            window_rows = stream_window_rows(6 * (d + 2), mesh.n_data,
+                                             norm)
             # full batch: the tail window shrinks to a remainder rung
             planes = ZippedPlanes(norm, clean, window_rows,
                                   remainder_multiple=1)
@@ -564,7 +733,7 @@ def run_wdl_training(proc) -> int:
                 res = train_wdl_streamed(planes, spec, settings, bags,
                                          mask_fn, num_feat_idx, cat_col_idx,
                                          progress=progress, elastic=ectx,
-                                         device=proc.device)
+                                         device=proc.device, mesh=mesh)
         else:
             with proc.phase("load_data"):
                 ndata = norm.load_all()
@@ -587,7 +756,7 @@ def run_wdl_training(proc) -> int:
                     replacement=mc.train.baggingWithReplacement,
                     stratified=mc.train.stratifiedSample,
                     up_sample_weight=mc.train.upSampleWeight,
-                    progress=progress, device=proc.device)
+                    progress=progress, device=proc.device, mesh=mesh)
 
     with proc.phase("save_models"):
         _clear_models(proc)
@@ -605,8 +774,10 @@ def _run_wdl_grid(proc, trials) -> int:
     shape), so they train one after another, resident (the reference's
     job queue, ``gs/GridSearch.java:62``).  ``tmp/grid_search.json`` ranks
     them and the best trial's model is ``model0``."""
+    from ..parallel.mesh import device_mesh
     from .grid_search import rank_and_report
     mc = proc.model_config
+    mesh = device_mesh(n_ensemble=1)
     norm = Shards.open(proc.paths.norm_dir)
     clean = Shards.open(proc.paths.clean_dir)
     schema = norm.schema
@@ -640,7 +811,7 @@ def _run_wdl_grid(proc, trials) -> int:
                     replacement=mc.train.baggingWithReplacement,
                     stratified=mc.train.stratifiedSample,
                     up_sample_weight=mc.train.upSampleWeight,
-                    progress=progress, device=proc.device)
+                    progress=progress, device=proc.device, mesh=mesh)
             results.append((float(res.valid_errors[0]), spec,
                             res.params[0], p))
             log.info("WDL grid trial %d/%d: valid err %.6f", ti + 1,

@@ -16,7 +16,12 @@ rank" below is one process with the same arithmetic
 accumulator boundaries, counts and cells and the forests' scores must
 equal it bit for bit; the NN, whose gradients sum in float, agrees within
 the reference's tolerance.  The reference's cells differ from exact sums
-in their low bits (ROADMAP C4): rtol 1e-5.
+in their low bits (ROADMAP C4): rtol 1e-5.  WDL (replicated or
+row-sharded tables, resident and streamed) agrees with one rank within
+the reference's multi-device bound (params 1e-5, errors rtol 1e-4), the
+correlation cells within 1e-12 relative and SE within 1e-6; the world of
+2 also runs the model-set steps (SE/ST varselect, ``stats
+-correlation``, WDL ``train``) on copies of the prepared set.
 
     python -m pytest tests/test_torch_mesh.py -q --durations=5
 """
@@ -444,14 +449,334 @@ def scenario_nn(mesh, bags):
     return _train_nn(device_mesh(n_ensemble=bags), bags)
 
 
+# ------------------------------------------------ WDL, the mesh's item 12
+WDL_CARDS = [10, 7]          # divisible by neither world: padding always on
+#: (bags, MiniBatchs): full batch and batches of 24, a multiple of both
+#: worlds' data axes, so every world takes one rank's batches
+WDL_RUNS = [(1, 0), (1, 24), (2, 0), (2, 24)]
+
+
+def _wdl_spec(extra=None):
+    from shifu_tpu_torch.models import wdl as P
+    return P.WDLModelSpec(numeric_dim=3, cat_cardinalities=list(WDL_CARDS),
+                          embed_dim=4, hidden_nodes=[8],
+                          activations=["relu"], extra=extra or {})
+
+
+def _wdl_data(n=64):
+    """``tests/test_wdl_shard.py::_data``."""
+    rng = np.random.default_rng(0)
+    xn = rng.normal(size=(n, 3)).astype(np.float32)
+    xc = np.stack([rng.integers(0, WDL_CARDS[0], n),
+                   rng.integers(0, WDL_CARDS[1], n)], axis=1) \
+        .astype(np.int32)
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    return xn, xc, y, np.ones(n, np.float32)
+
+
+def _wdl_settings(**kw):
+    from shifu_tpu_torch.train.nn_trainer import TrainSettings
+    base = dict(optimizer="ADAM", learning_rate=0.05, l2=1e-4, epochs=3,
+                batch_size=0, seed=7)
+    base.update(kw)
+    return TrainSettings(**base)
+
+
+def _wdl_result(spec, res):
+    """(valid errors, train errors, every member's leaves in the
+    reference's per-column tree order)."""
+    from shifu_tpu_torch.models import wdl as P
+    from shifu_tpu_torch.train.checkpoint import tree_leaves
+    return {"valid": res.valid_errors, "train": res.train_errors,
+            "params": [[np.asarray(a) for a in tree_leaves(
+                P.columns_of(spec, p))] for p in res.params]}
+
+
+def _train_wdl(mesh_of, bags, bs, shard, **kw):
+    """One in-RAM run on ``_wdl_data``: ``_wdl_result`` and each member's
+    scores of the rows."""
+    from shifu_tpu_torch.models import wdl as P
+    from shifu_tpu_torch.train import wdl_trainer as PT
+    xn, xc, y, w = _wdl_data()
+    s = _wdl_spec()
+    res = PT.train_wdl_ensemble(
+        xn, xc, y, w, s, _wdl_settings(batch_size=bs, **kw), bags=bags,
+        shard=shard, device="cpu", mesh=mesh_of(bags))
+    return dict(_wdl_result(s, res), scores=[
+        P.forward(p, s, torch.from_numpy(xn), torch.from_numpy(xc))
+        .numpy()[:, 0] for p in res.params])
+
+
+def _wdl_layout(mesh):
+    """A 1-bag sharded layout on ``mesh``'s data axis: this rank's table
+    and moment shapes, and whether its ranks' shards rebuild the tables
+    and the optimizer state bit for bit."""
+    from shifu_tpu_torch.models import wdl as P
+    from shifu_tpu_torch.ops import prng
+    from shifu_tpu_torch.train import wdl_trainer as PT
+    from shifu_tpu_torch.train.checkpoint import tree_leaves
+    from shifu_tpu_torch.train.optimizers import make_optimizer, tree_map
+    s = _wdl_spec()
+    p = P.init_params(prng.prng_key(1), s)
+    p["wide_cat"] = torch.arange(p["wide_cat"].numel(), dtype=torch.float32)
+    stacked = tree_map(lambda t: t[None], p)
+    state = make_optimizer("ADAM", 0.05).init(stacked, 1)
+    state["v"] = tree_map(lambda t: t + 1.5, state["v"])
+    lay = PT._Layout(mesh, s, 1, "f32", True)
+    loc, lst = lay.local(stacked), lay.local(state)
+    back = tree_leaves((lay.whole(loc), lay.whole(lst)))
+    return {"vs": lay.plane.vs, "embed": tuple(loc["embed"].shape),
+            "wide_cat": tuple(loc["wide_cat"].shape),
+            "moments": [tuple(lst[k][t].shape) for k in ("m", "v")
+                        for t in ("embed", "wide_cat")],
+            "roundtrip": all(torch.equal(a, b) for a, b in zip(
+                back, tree_leaves((stacked, state))))}
+
+
+def _wdl_resume(mesh_of, root):
+    """A 1-bag sharded minibatch run of 4 epochs, and one of 2 resumed to
+    4 from its checkpoint (each rank its own checkpoint directory)."""
+    ck = os.path.join(root, "ck")
+    full = _train_wdl(mesh_of, 1, 24, True, epochs=4)
+    _train_wdl(mesh_of, 1, 24, True, epochs=2, checkpoint_dir=ck,
+               checkpoint_every=2)
+    resumed = _train_wdl(mesh_of, 1, 24, True, epochs=4, checkpoint_dir=ck,
+                         checkpoint_every=2, resume=True)
+    return full, resumed
+
+
+def _wdl_table_allocs(mesh_of, epochs):
+    """The tensors with a whole table's rows (``sum(WDL_CARDS)``, a size
+    nothing else here has) that a 1-bag sharded minibatch run of
+    ``epochs`` epochs makes on this rank, every op's outputs counted
+    under a dispatch mode: the init's, a result's, a checkpoint's are the
+    same whatever the epochs, so a count that grows with them is an epoch
+    gathering a whole table."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves as pytree_leaves
+    rows = sum(WDL_CARDS)
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            Count.n += sum(1 for t in pytree_leaves(out)
+                           if isinstance(t, torch.Tensor)
+                           and rows in t.shape)
+            return out
+    with Count():
+        _train_wdl(mesh_of, 1, 24, True, epochs=epochs)
+    return Count.n
+
+
+def scenario_wdl(mesh, root):
+    from shifu_tpu_torch.parallel.mesh import device_mesh
+    root = os.path.join(root, f"wdl_r{mesh.rank}")
+    os.makedirs(root, exist_ok=True)
+
+    def mesh_of(bags):
+        return device_mesh(n_ensemble=bags)
+    out = {(bags, bs, shard): _train_wdl(mesh_of, bags, bs, shard)
+           for bags, bs in WDL_RUNS for shard in (False, True)}
+    out["layout"] = _wdl_layout(device_mesh())
+    out["resume"] = _wdl_resume(mesh_of, root)
+    out["allocs"] = [_wdl_table_allocs(mesh_of, e) for e in (1, 4)]
+    return out
+
+
+class _Win:
+    def __init__(self, i, s, arrays, rows):
+        self.index, self.start = i, s
+        self.rows = self.n_valid = rows
+        self.arrays = arrays
+
+
+class _WdlPlanes:
+    """``tests/test_wdl_shard.py::_FakePlanes``: zipped windows of 16
+    rows (a block of 8 / 6 rows a rank on 2 / 3 ranks, padded)."""
+
+    window_rows = 16
+
+    def __init__(self):
+        self.x, self.bins, self.y, self.w = _wdl_data()
+        self.num_rows = len(self.y)
+
+    def prepared(self, prepare):
+        wr = self.window_rows
+        for i, s in enumerate(range(0, self.num_rows, wr)):
+            yield prepare(_Win(i, s, {
+                "x": self.x[s:s + wr], "y": self.y[s:s + wr],
+                "w": self.w[s:s + wr], "bins": self.bins[s:s + wr]}, wr))
+
+
+def _wdl_mask_fn():
+    masks = (np.random.default_rng(5).random((2, 64)) > 0.3) \
+        .astype(np.float32)
+
+    def mask_fn(idx, yw):
+        tm = masks[:, idx * 16:(idx + 1) * 16]
+        return tm, 1.0 - tm
+    return mask_fn
+
+
+def _train_wdl_streamed(mesh, bags, shard):
+    from shifu_tpu_torch.train import wdl_trainer as PT
+    s = _wdl_spec({"num_feat_idx": [0, 1, 2], "cat_col_idx": [0, 1]})
+    return _wdl_result(s, PT.train_wdl_streamed(
+        _WdlPlanes(), s, _wdl_settings(), 2, _wdl_mask_fn(), [0, 1, 2],
+        [0, 1], shard=shard, device="cpu", mesh=mesh))
+
+
+def scenario_wdl_streamed(mesh):
+    from shifu_tpu_torch.parallel.mesh import device_mesh
+    return {(bags, shard): _train_wdl_streamed(device_mesh(n_ensemble=bags),
+                                               bags, shard)
+            for bags in (1, 2) for shard in (False, True)}
+
+
+def _corr_inputs():
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(N, 5)) * [1, 10, 100, 1, 1]
+    x[:, 3] = 0.6 * x[:, 0] + 0.4 * rng.normal(size=N)
+    valid = rng.random((N, 5)) > 0.08
+    return x.astype(np.float32), valid
+
+
+def _correlate(mesh):
+    """Pairwise-complete Pearson over two uneven chunks, each rank its
+    block of every chunk."""
+    from shifu_tpu_torch.ops.correlation import CorrelationAccumulator
+    x, valid = _corr_inputs()
+    acc = CorrelationAccumulator(n_cols=5, offset=np.nanmean(
+        np.where(valid, x, np.nan), axis=0), mesh=mesh)
+    for s, e in ((0, 400), (400, N)):
+        acc.update(np.where(valid[s:e], x[s:e], 0.0), valid[s:e])
+    return acc.finalize()
+
+
+def scenario_correlation(mesh):
+    return _correlate(mesh)
+
+
+def _sens_net():
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.ops import prng
+    spec = _nn_stream_spec(nn_model)
+    return spec, nn_model.init_params(prng.prng_key(4), spec)
+
+
+def _sensitivity(mesh, root):
+    """SE over the NN stream plane (windows of 240: a multiple of both
+    worlds' data axes), one candidate a feature and one pair."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.data.streaming import ShardStream
+    from shifu_tpu_torch.ops import sensitivity as sens
+    d = _nn_stream_plane(os.path.join(root, f"sens{len(os.listdir(root))}"))
+    spec, params = _sens_net()
+    masks = sens.mask_matrix(6, [[i] for i in range(6)] + [[1, 4]])
+    mse, base, rows = sens.streamed_sensitivity(
+        ShardStream(Shards.open(d), ("x", "y"), STREAM_WINDOW), spec,
+        [{k: v.numpy() for k, v in layer.items()} for layer in params],
+        masks, mask_batch=3, device="cpu", mesh=mesh)
+    return {"mse": mse, "base": base, "rows": rows}
+
+
+def scenario_sensitivity(mesh, root):
+    root = os.path.join(root, f"sens_r{mesh.rank}")
+    os.makedirs(root, exist_ok=True)
+    return _sensitivity(mesh, root)
+
+
+#: the model-set steps a world of 2 runs on its copies of the prepared
+#: set, against one rank's run (``scenario_pipeline``)
+PIPELINE_STEPS = ("se", "st", "correlation", "wdl_replicated",
+                  "wdl_sharded")
+PIPELINE_WDL = {"MiniBatchs": 256, "NumHiddenNodes": [8],
+                "EmbedColumnNum": 3}
+
+
+def _prepare_pipeline_set(d: str) -> None:
+    """An NN ``model0`` over the set's norm plane (seeded), for SE/ST."""
+    from shifu_tpu_torch.data.shards import Shards
+    from shifu_tpu_torch.models import nn as nn_model
+    from shifu_tpu_torch.ops import prng
+    names = Shards.open(os.path.join(d, "tmp", "NormalizedData")) \
+        .schema["outputNames"]
+    spec = nn_model.NNModelSpec(input_dim=len(names), hidden_nodes=[8],
+                                activations=["tanh"])
+    os.makedirs(os.path.join(d, "models"), exist_ok=True)
+    nn_model.save_model(os.path.join(d, "models", "model0.nn"), spec,
+                        nn_model.init_params(prng.prng_key(5), spec))
+
+
+def _run_pipeline(d: str) -> dict:
+    """SE and ST varselect, ``stats -correlation`` and WDL ``train`` (2
+    bags with replicated tables; 1 bag with ``auto`` sharding past a
+    lowered ``shardMinBytes``) on set ``d``: each step's output files."""
+    import json
+    from shifu_tpu_torch.config import ModelConfig, environment
+    from shifu_tpu_torch.config.model_config import Algorithm, FilterBy
+    from shifu_tpu_torch.pipeline.stats import StatsProcessor
+    from shifu_tpu_torch.pipeline.train import TrainProcessor
+    from shifu_tpu_torch.pipeline.varselect import VarSelectProcessor
+    path = os.path.join(d, "ModelConfig.json")
+    out = {}
+    environment.reset_for_tests()
+    try:
+        for fb in ("se", "st"):
+            mc = ModelConfig.load(path)
+            mc.train.algorithm = Algorithm.NN
+            mc.varSelect.filterBy = FilterBy[fb.upper()]
+            mc.varSelect.filterNum = 3
+            mc.save(path)
+            assert VarSelectProcessor(d, params={}, device="cpu").run() == 0
+            with open(os.path.join(d, "varsels", "se.json")) as f:
+                scores = json.load(f)
+            with open(os.path.join(d, "ColumnConfig.json")) as f:
+                selected = [c["columnNum"] for c in json.load(f)
+                            if c.get("finalSelect")]
+            out[fb] = (scores, selected)
+        assert StatsProcessor(d, params={"correlation": True},
+                              device="cpu").run() == 0
+        with open(os.path.join(d, "correlation.csv")) as f:
+            rows = [line.strip().split(",") for line in f]
+        out["correlation"] = (rows[0], np.array(
+            [[float(v) for v in r[1:]] for r in rows[1:]]))
+        for step, bags, props in (
+                ("wdl_replicated", 2, {}),
+                ("wdl_sharded", 1, {"shifu.wdl.shardMinBytes": "1"})):
+            for k, v in props.items():
+                environment.set_property(k, v)
+            mc = ModelConfig.load(path)
+            mc.train.algorithm = Algorithm.WDL
+            mc.train.baggingNum = bags
+            mc.train.numTrainEpochs = 2
+            mc.train.params = dict(PIPELINE_WDL)
+            mc.save(path)
+            assert TrainProcessor(d, params={}, device="cpu").run() == 0
+            models = {}
+            for f in sorted(os.listdir(os.path.join(d, "models"))):
+                if f.endswith(".wdl"):
+                    with np.load(os.path.join(d, "models", f)) as z:
+                        models[f] = {k: z[k] for k in z.files}
+            out[step] = models
+            environment.reset_for_tests()
+    finally:
+        environment.reset_for_tests()
+    return out
+
+
+def scenario_pipeline(mesh, dirs):
+    return _run_pipeline(dirs[mesh.rank])
+
+
 #: each path a mesh leaves out: (what to run, the ROADMAP words it names)
 NOT_PORTED = {
     "bagged_trees": ("GBT", {"baggingNum": 2}, {}, "tree trainers"),
     "multiclass_trees": ("RF", {"posTags": ["bad", "good", "other"]}, {},
                          "multi-class tree trainers"),
-    "wdl": ("WDL", {}, {}, "row-sharded tables"),
-    "varselect": (None, {}, {}, "varselect, correlation and sensitivity"),
-    "correlation": (None, {}, {}, "varselect, correlation and sensitivity"),
+    "genetic": (None, {}, {}, "GENETIC varselect"),
 }
 
 
@@ -459,8 +784,7 @@ def scenario_not_ported(mesh, dirs):
     """Run each left-out path on this rank's copy of a prepared set; the
     message each raises, or None."""
     from shifu_tpu_torch.config import ModelConfig, environment
-    from shifu_tpu_torch.config.model_config import Algorithm
-    from shifu_tpu_torch.pipeline.stats import StatsProcessor
+    from shifu_tpu_torch.config.model_config import Algorithm, FilterBy
     from shifu_tpu_torch.pipeline.train import TrainProcessor
     from shifu_tpu_torch.pipeline.varselect import VarSelectProcessor
     d = dirs[mesh.rank]
@@ -481,18 +805,19 @@ def scenario_not_ported(mesh, dirs):
             if "posTags" in train:
                 mc.dataSet.posTags, mc.dataSet.negTags = tags
             proc = TrainProcessor(d, params={}, device="cpu")
-        elif case == "varselect":
+        else:                               # GENETIC varselect
+            mc = ModelConfig.load(path)
+            by = mc.varSelect.filterBy
+            mc.varSelect.filterBy = FilterBy.GENETIC
+            mc.save(path)
+            mc.varSelect.filterBy = by
             proc = VarSelectProcessor(d, params={}, device="cpu")
-        else:
-            proc = StatsProcessor(d, params={"correlation": True},
-                                  device="cpu")
         try:
             proc.run()
             out[case] = None
         except NotImplementedError as e:
             out[case] = str(e)
-        if alg:
-            mc.save(path)                   # the binary target again
+        mc.save(path)                       # the set as it was
     environment.reset_for_tests()
     return out
 
@@ -581,7 +906,9 @@ RUNS = [("meshes", {}), ("kernels", {}), ("forests", {}), ("walk", {}),
         ("scorer", {}), ("accumulator", {"fused": False}),
         ("accumulator", {"fused": True}), ("nn", {"bags": 1}),
         ("nn", {"bags": 2}), ("streamed", {"root": None}),
-        ("nn_streamed", {"root": None})]
+        ("nn_streamed", {"root": None}), ("wdl", {"root": None}),
+        ("wdl_streamed", {}), ("correlation", {}),
+        ("sensitivity", {"root": None})]
 
 
 def _world_results(root: str, world: int, template: str) -> dict:
@@ -589,8 +916,9 @@ def _world_results(root: str, world: int, template: str) -> dict:
     computed once a test session: the first xdist worker to ask starts the
     ranks under a file lock and leaves the results beside it for the
     others (so a session starts 2 + 3 rank processes, not that many a
-    worker).  The world of 2 also runs every left-out path on its own
-    copies of the prepared set."""
+    worker).  The world of 2 also runs the model-set steps
+    (``scenario_pipeline``) and every left-out path on its own copies of
+    the prepared set."""
     import fcntl
     import shutil
     done = os.path.join(root, f"mesh_world{world}.pkl")
@@ -613,6 +941,12 @@ def _world_results(root: str, world: int, template: str) -> dict:
                 for d in dirs:
                     shutil.copytree(template, d)
                 out["not_ported"] = w.run("not_ported", dirs=dirs)
+                pipes = tuple(os.path.join(run_dir, f"pipe{r}")
+                              for r in range(world))
+                for d in pipes:
+                    shutil.copytree(template, d)
+                    _prepare_pipeline_set(d)
+                out["pipeline"] = w.run("pipeline", dirs=pipes)
         finally:
             w.close()
         with open(done + ".part", "wb") as f:
@@ -1076,6 +1410,240 @@ def test_streamed_nn_matches_the_reference_mesh(worlds, tmp_path, bags,
     want = {"valid": ref.valid_errors, "params": ref.params}
     for world in WORLDS:
         _close_nn(worlds(world)["nn_streamed"][0][(bags, batch)], want)
+
+
+# ------------------------------------------------------------------ WDL
+def _close_wdl(got, want, atol=1e-5):
+    """The reference's multi-device bound (``tests/test_wdl_shard.py``):
+    params within atol 1e-5, validation errors rtol 1e-4."""
+    np.testing.assert_allclose(got["valid"], want["valid"], rtol=1e-4)
+    assert len(got["params"]) == len(want["params"])
+    for pg, pw in zip(got["params"], want["params"]):
+        assert len(pg) == len(pw)
+        for a, b in zip(pg, pw):
+            assert a.shape == np.asarray(b).shape
+            np.testing.assert_allclose(a, np.asarray(b, np.float32), rtol=0,
+                                       atol=atol)
+
+
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("bags,bs", WDL_RUNS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_wdl_matches_one_rank(worlds, world, bags, bs, shard):
+    """WDL on a world, members on the ensemble axis and each batch's rows
+    on the data axis, tables replicated or row-sharded: one rank's
+    replicated run within the reference's bound; every rank the same;
+    the saved shapes the true cardinalities."""
+    want = _one_rank(("wdl", bags, bs), lambda: _train_wdl(
+        lambda bags: None, bags, bs, False))
+    ranks = worlds(world)["wdl"]
+    for got in ranks:
+        _close_wdl(got[(bags, bs, shard)], want)
+        assert _same(got[(bags, bs, shard)]["params"][0][2],
+                     ranks[0][(bags, bs, shard)]["params"][0][2])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_wdl_tables_are_sharded_on_a_world(worlds, world):
+    """Each rank holds ceil(card_i / D) rows of every table and of both
+    Adam moments; the ranks' shards rebuild the tables and the state bit
+    for bit."""
+    vs = [-(-c // world) for c in WDL_CARDS]
+    for got in worlds(world)["wdl"]:
+        lay = got["layout"]
+        assert lay["vs"] == vs
+        assert lay["embed"] == (1, sum(vs), 4)
+        assert lay["wide_cat"] == (1, sum(vs))
+        assert lay["moments"] == [(1, sum(vs), 4), (1, sum(vs))] * 2
+        assert lay["roundtrip"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_wdl_sharded_epochs_allocate_no_whole_table(worlds, world):
+    """A sharded run's epochs make no tensor of a whole table's rows on
+    any rank (the ledger keeps the shards; only the init, a checkpoint
+    and the result see whole tables): 4 epochs make as many as 1."""
+    for got in worlds(world)["wdl"]:
+        one, four = got["allocs"]
+        assert 0 < one == four
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_wdl_sharded_resume_on_a_world_is_bit_identical(worlds, world):
+    for got in worlds(world)["wdl"]:
+        full, resumed = got["resume"]
+        assert np.array_equal(full["valid"], resumed["valid"])
+        for a, b in zip(full["params"][0], resumed["params"][0]):
+            assert _same(a, b)
+
+
+def _auc(score, y) -> float:
+    """The ROC area from the ranks of the scores (ties averaged)."""
+    from scipy.stats import rankdata
+    r = rankdata(score)
+    pos = y > 0.5
+    n1, n0 = pos.sum(), (~pos).sum()
+    return float((r[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_wdl_matches_the_reference_mesh(worlds, world):
+    """The reference's sharded trainer on ``world`` XLA CPU devices (2
+    bags, batches of 24), from the port's initial params: params within
+    1e-5, each member's AUC within 0.005."""
+    from test_torch_wdl_shard import ref_leaves, reference_train
+    from shifu_tpu_torch.models import wdl as P
+    s = _wdl_spec()
+    want, want_va, _ = reference_train(s, 24, world, bags=2, shard=True)
+    got = worlds(world)["wdl"][0][(2, 24, True)]
+    _close_wdl(got, {"valid": want_va,
+                     "params": [ref_leaves(t) for t in want]})
+    xn, xc, y, _ = _wdl_data()
+    for score, tree in zip(got["scores"], want):
+        ref = P.forward(P.from_columns(s, tree), s, torch.from_numpy(xn),
+                        torch.from_numpy(xc)).numpy()[:, 0]
+        assert abs(_auc(score, y) - _auc(ref, y)) <= 0.005
+
+
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("bags", [1, 2])
+@pytest.mark.parametrize("world", WORLDS)
+def test_streamed_wdl_matches_one_rank(worlds, world, bags, shard):
+    """The streamed WDL with each window's rows split over the data axis
+    (8 / 6 rows a rank, padded): one rank's within the reference's
+    bound."""
+    want = _one_rank(("wdl_streamed", bags), lambda: _train_wdl_streamed(
+        None, bags, False))
+    for got in worlds(world)["wdl_streamed"]:
+        _close_wdl(got[(bags, shard)], want)
+
+
+def test_streamed_wdl_matches_the_reference_mesh(worlds):
+    """The reference's sharded streamed trainer on 2 XLA CPU devices from
+    the port's initial params (its ``test_streamed_sharded_multi_device``
+    bound)."""
+    from test_torch_wdl_shard import (FakePlanes, data, ref_leaves,
+                                      ref_mesh, reference_from_port_init,
+                                      settings, streamed_mask_fn)
+    from shifu_tpu.train.nn_trainer import TrainSettings as RT
+    s = _wdl_spec({"num_feat_idx": [0, 1, 2], "cat_col_idx": [0, 1]})
+    xn, xc, y, w = data()
+    with reference_from_port_init(s, 7, 2) as R:
+        res = R.trainer.train_wdl_streamed(
+            FakePlanes(xn, xc, y, w, 16),
+            R.wdl.WDLModelSpec.from_json(s.to_json()), settings(RT), 2,
+            streamed_mask_fn(), [0, 1, 2], [0, 1], mesh=ref_mesh(2),
+            shard=True)
+        want = {"valid": np.asarray(res.valid_errors),
+                "params": [ref_leaves(p) for p in res.params]}
+    _close_wdl(worlds(2)["wdl_streamed"][0][(2, True)], want)
+
+
+# ------------------------------------- stats -correlation, SE/ST varselect
+@pytest.mark.parametrize("world", WORLDS)
+def test_correlation_matches_one_rank(worlds, world):
+    """Each rank's float64 pair sums of its block, one all_reduce: one
+    rank's cells within 1e-12 relative (float64 reassociation)."""
+    want = _correlate(None)
+    for got in worlds(world)["correlation"]:
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-15)
+
+
+def test_correlation_matches_the_reference_mesh(worlds):
+    """The reference's accumulator on its 8-device mesh (float32 pair
+    sums, numeric columns shifted by their means): within its bounds,
+    rtol 1e-5 + 1e-6."""
+    from shifu_tpu.ops.correlation import CorrelationAccumulator
+    x, valid = _corr_inputs()
+    acc = CorrelationAccumulator(n_cols=5, offset=np.nanmean(
+        np.where(valid, x, np.nan), axis=0), mesh=_ref_mesh())
+    for s, e in ((0, 400), (400, N)):
+        acc.update(np.where(valid[s:e], x[s:e], 0.0), valid[s:e])
+    for world in WORLDS:
+        np.testing.assert_allclose(worlds(world)["correlation"][0],
+                                   acc.finalize(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sensitivity_matches_one_rank(worlds, world, tmp_path):
+    """Each window's rows split over the ranks, the sums all_reduced: one
+    rank's frozen MSEs and base error within 1e-6 (SE's bound), the same
+    rows."""
+    want = _one_rank("sensitivity", lambda: _sensitivity(None,
+                                                         str(tmp_path)))
+    for got in worlds(world)["sensitivity"]:
+        assert got["rows"] == want["rows"] == N
+        np.testing.assert_allclose(got["mse"], want["mse"], rtol=1e-6)
+        np.testing.assert_allclose(got["base"], want["base"], rtol=1e-6)
+
+
+def test_sensitivity_matches_the_reference_mesh(worlds, tmp_path):
+    """The reference's streamed job on its 8-device mesh (windows of 240,
+    a multiple of 8), 64-bit types off (C3): within 1e-6."""
+    import jax
+    from shifu_tpu.data.shards import Shards
+    from shifu_tpu.data.streaming import ShardStream
+    from shifu_tpu.models import nn as jnn
+    from shifu_tpu.ops import sensitivity as rsens
+    d = _nn_stream_plane(str(tmp_path / "ref"))
+    spec, params = _sens_net()
+    masks = rsens.mask_matrix(6, [[i] for i in range(6)] + [[1, 4]])
+    with jax.enable_x64(False):
+        mse, base, rows = rsens.streamed_sensitivity(
+            ShardStream(Shards.open(d), ("x", "y"), STREAM_WINDOW),
+            jnn.NNModelSpec(input_dim=6, hidden_nodes=[8],
+                            activations=["tanh"], loss="log"),
+            [{k: jax.numpy.asarray(v.numpy()) for k, v in layer.items()}
+             for layer in params], masks, mesh=_ref_mesh(), mask_batch=3)
+    for world in WORLDS:
+        got = worlds(world)["sensitivity"][0]
+        assert got["rows"] == rows
+        np.testing.assert_allclose(got["mse"], mse, rtol=1e-6)
+        np.testing.assert_allclose(got["base"], base, rtol=1e-6)
+
+
+@pytest.mark.parametrize("step", PIPELINE_STEPS)
+def test_pipeline_on_a_world_matches_one_rank(worlds, _prepared_template,
+                                              tmp_path, step):
+    """The model-set steps through their processors on a world of 2 (each
+    rank its own copy of the prepared set) against one process's run:
+    SE/ST the same selection and scores within 1e-6 / 1e-5 absolute (the
+    bounds of ``tests/test_torch_varselect.py``), ``stats
+    -correlation`` the same columns and cells (``correlation.csv`` prints
+    6 decimals, so a float64 reassociation can move a cell by one unit of
+    the 6th and no more; the merged sums themselves are held to 1e-12
+    relative by ``test_correlation_matches_one_rank``), WDL
+    (2 bags on the ensemble axis; 1 bag row-sharded by ``auto``) the model
+    files' arrays within 1e-5 and their shapes equal."""
+    import shutil
+
+    def one():
+        d = str(tmp_path / "one")
+        shutil.copytree(_prepared_template, d)
+        _prepare_pipeline_set(d)
+        return _run_pipeline(d)
+    want = _one_rank("pipeline", one)[step]
+    for got in (r[step] for r in worlds(2)["pipeline"]):
+        if step in ("se", "st"):
+            (gs, gsel), (ws, wsel) = got, want
+            assert gsel == wsel and sorted(gs) == sorted(ws)
+            np.testing.assert_allclose([gs[k] for k in sorted(gs)],
+                                       [ws[k] for k in sorted(ws)], rtol=0,
+                                       atol=1e-6 if step == "se" else 1e-5)
+        elif step == "correlation":
+            assert got[0] == want[0]
+            assert (np.isnan(got[1]) == np.isnan(want[1])).all()
+            units = np.abs(np.round(got[1] * 1e6) - np.round(want[1] * 1e6))
+            assert np.nanmax(units) <= 1
+        else:
+            assert sorted(got) == sorted(want)
+            for f in want:
+                assert sorted(got[f]) == sorted(want[f])
+                for k in want[f]:
+                    assert got[f][k].shape == want[f][k].shape
+                    if k != "__spec__":
+                        np.testing.assert_allclose(got[f][k], want[f][k],
+                                                   rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))

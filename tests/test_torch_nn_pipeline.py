@@ -320,13 +320,29 @@ def test_narrow_precision_auc_within_the_pinned_bound(nn_template, tmp_path,
 def test_unported_paths_raise_naming_their_item(nn_template, tmp_path,
                                                 monkeypatch, algorithm, argv,
                                                 item):
-    """Row-sharded WDL tables raise naming their item.  The elastic
-    combine (``-Dshifu.dcn.elastic``) is ported: with a controller id and
-    no coordinator the streamed WDL, NN and LR train through the step
-    board (a close record an epoch and one for the closing eval) and
-    write their model."""
+    """Row-sharded WDL tables are ported: ``-Dshifu.wdl.shardTables=on``
+    on one process trains and writes the replicated run's model files
+    byte for byte.  The elastic combine (``-Dshifu.dcn.elastic``) is
+    ported: with a controller id and no coordinator the streamed WDL, NN
+    and LR train through the step board (a close record an epoch and one
+    for the closing eval) and write their model."""
     from shifu_tpu_torch.cli import main
-    _, d = _copies(nn_template, tmp_path, algorithm, {})
+    from shifu_tpu_torch.config import environment
+    replicated, d = _copies(nn_template, tmp_path, algorithm, {})
+    if "-Dshifu.wdl.shardTables=on" in argv:
+        try:
+            assert main(["--dir", replicated, "train", "--device",
+                         "cpu"]) == 0
+            assert main([*argv, "--dir", d, "train", "--device",
+                         "cpu"]) == 0
+        finally:
+            environment.reset_for_tests()
+        assert _models(d) == _models(replicated) == ["model0.wdl"]
+        for f in _models(d):
+            with open(os.path.join(d, "models", f), "rb") as a, \
+                    open(os.path.join(replicated, "models", f), "rb") as b:
+                assert a.read() == b.read()
+        return
     if "-Dshifu.dcn.elastic=true" not in argv:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 {item}"):

@@ -13,6 +13,7 @@ and error codes, scores within ``TOL``, equal joined counts and live AUC
 (within 1e-6: both rank the same scores, tied leaf paths tie in both).
 """
 
+import itertools
 import json
 import os
 import shutil
@@ -477,6 +478,16 @@ def test_http_script_matches_reference_server(sets, tmp_path, fronts, kind):
               scorelog_sample_rate=1.0, slo_p99_ms=1e6)
     srv = ServeServer(dirs["port"], device="cpu", dtype=torch.float64, **kw)
     jsrv = JServeServer(dirs["ref"], **kw)
+    # one stepped clock and one start for both SLO trackers: each reading
+    # advances a microsecond, so the two short windows hold the same
+    # requests however long the run takes (two wall clocks started
+    # seconds apart could roll one window over and not the other)
+    ticks = itertools.count()
+
+    def stepped() -> float:
+        return next(ticks) * 1e-6
+    for tracker in (srv.slo, jsrv.slo):
+        tracker.clock, tracker._t0 = stepped, 0.0
     port = _Front(srv, _make_handler)
     fronts.append(port)
     ref = _Front(jsrv, j_handler)

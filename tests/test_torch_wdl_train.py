@@ -130,10 +130,12 @@ def test_resume_is_bit_identical(tmp_path):
 
 
 def test_sharded_tables_and_elastic_raise_naming_item_12(tmp_path):
-    """Row-sharded tables still raise naming item 12.  The elastic combine
-    is ported: a single controller's streamed WDL (a quorum of itself, f32
-    transport) trains the plain streamed run's params bit for bit, one
-    close record an epoch and one for the closing sweep."""
+    """Row-sharded tables are ported: on one rank ``shard=True`` trains
+    the replicated run's params and errors bit for bit, in RAM and
+    streamed.  The elastic combine: a single controller's streamed WDL (a
+    quorum of itself, f32 transport) trains the plain streamed run's
+    params bit for bit, with replicated and with sharded tables, one close
+    record an epoch and one for the closing sweep."""
     from shifu_tpu_torch.data.shards import Shards
     from shifu_tpu_torch.data.streaming import mask_fn_from_settings
     from shifu_tpu_torch.ioutil import atomic_savez, atomic_write_json
@@ -141,9 +143,12 @@ def test_sharded_tables_and_elastic_raise_naming_item_12(tmp_path):
     from shifu_tpu_torch.train.checkpoint import tree_leaves
     xn, xc, y, w = _planes(64)
     ps = P.WDLModelSpec(numeric_dim=4, cat_cardinalities=CARDS)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PT.train_wdl_ensemble(xn, xc, y, w, ps, _settings(TrainSettings),
-                              shard=True, device="cpu")
+    rep, sh = (PT.train_wdl_ensemble(xn, xc, y, w, ps,
+                                     _settings(TrainSettings), shard=shard,
+                                     device="cpu") for shard in (False, True))
+    for a, b in zip(tree_leaves(rep.params), tree_leaves(sh.params)):
+        assert torch.equal(a, b)
+    assert rep.history == sh.history
     for name, arrays in (("norm", {"x": xn, "y": y, "w": w}),
                          ("clean", {"bins": xc})):
         d = str(tmp_path / name)
@@ -155,22 +160,25 @@ def test_sharded_tables_and_elastic_raise_naming_item_12(tmp_path):
     settings = _settings(TrainSettings, epochs=3)
     mask_fn = mask_fn_from_settings(1, valid_rate=0.25, seed=3)
 
-    def run(elastic):
+    def run(elastic, shard=None):
         planes = PT.ZippedPlanes(Shards.open(str(tmp_path / "norm")),
                                  Shards.open(str(tmp_path / "clean")), 32)
         return PT.train_wdl_streamed(planes, ps, settings, 1, mask_fn,
                                      [0, 1, 2, 3], [0, 1, 2],
-                                     elastic=elastic, device="cpu")
+                                     elastic=elastic, shard=shard,
+                                     device="cpu")
     plain = run(None)
-    ctx = el.ElasticContext(str(tmp_path / "job"), "ctrl-0",
-                            cfg=el.ElasticConfig(quorum_frac=1.0,
-                                                 step_timeout_ms=60000),
-                            heartbeat=False).start()
-    elas = run(ctx)
-    for a, b in zip(tree_leaves(plain.params), tree_leaves(elas.params)):
-        assert torch.equal(a, b)
-    assert plain.history == elas.history
-    assert ctx.board.last_closed_step() == settings.epochs
+    for shard in (None, True):
+        ctx = el.ElasticContext(str(tmp_path / f"job{shard}"), "ctrl-0",
+                                cfg=el.ElasticConfig(quorum_frac=1.0,
+                                                     step_timeout_ms=60000),
+                                heartbeat=False).start()
+        elas = run(ctx, shard)
+        for a, b in zip(tree_leaves(plain.params),
+                        tree_leaves(elas.params)):
+            assert torch.equal(a, b)
+        assert plain.history == elas.history
+        assert ctx.board.last_closed_step() == settings.epochs
 
 
 # ------------------------------------------------------------ model sets
@@ -294,9 +302,21 @@ def test_cli_train_eval_export_serve_match_the_reference(wdl_template,
     want = Scorer(models, device="cpu").score(x, bins).scores
     np.testing.assert_allclose(aot.score_batch(x, bins), want, rtol=0,
                                atol=1e-3)
+    # the serving copies: ``sharded`` (one device: a shard of one) scores
+    # the replicated copy bit for bit; ``hot`` with 2 head rows scores
+    # every row whose ids are all head ids as the replicated copy
+    got = aot.score_batch(x, bins)
+    environment.set_property("shifu.wdl.serveCopy", "sharded")
+    sharded = AOTScorer(models, device="cpu", buckets=(8, 64))
+    assert sharded.score_batch(x, bins).tobytes() == got.tobytes()
     environment.set_property("shifu.wdl.serveCopy", "hot")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        AOTScorer(models, device="cpu")
+    environment.set_property("shifu.wdl.serveHotRows", "2")
+    hot = AOTScorer(models, device="cpu", buckets=(8, 64)) \
+        .score_batch(x, bins)
+    cf = models[0].spec.extra["cat_col_idx"]
+    head = (bins[:, cf] < 2).all(axis=1)
+    assert head.any() and not np.array_equal(hot, got)
+    np.testing.assert_array_equal(hot[head], got[head])
 
 
 def test_streamed_training_matches_the_reference(wdl_template, tmp_path):
